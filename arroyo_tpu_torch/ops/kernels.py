@@ -1,0 +1,332 @@
+"""The slot aggregator's kernels: wrappers, build, and plain versions.
+
+Three hand-written CUDA kernels (csrc/slot_agg.cu, see its header for what
+each replaces and what bounds it) update and read the window state, one
+``[cap]`` tensor per accumulator lane, in place:
+
+- ``slot_scatter_combine`` (K1): rows combine into ``state[slot]``;
+- ``slot_region_read_pack`` (K2): k regions of every lane, packed into one
+  int64 and one float64 buffer;
+- ``slot_region_clear`` (K3): k regions reset to each lane's identity.
+
+Each wrapper checks device, dtype, shape and contiguity, and raises on what
+the kernel does not take. On a CUDA tensor it launches the kernel (building
+the library with nvcc at first use) or raises; it takes the plain PyTorch
+version (``*_plain``, beside it) only for tensors on the CPU. Each wrapper
+counts its launches in ``<wrapper>.launches``.
+
+The library is built for sm_90a into ``arroyo_tpu_torch/build/``, named by
+a digest of the source and flags, so an edit rebuilds, and written under
+a temporary name first, so a concurrent build never loads a half-written
+file.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from .aggregate import _identity
+
+_PKG = Path(__file__).resolve().parents[1]
+SOURCE = _PKG / "csrc" / "slot_agg.cu"
+BUILD_DIR = _PKG / "build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+MAX_LANES = 32  # csrc/slot_agg.cu MAX_LANES
+MAX_BASES = 16  # csrc/slot_agg.cu MAX_BASES
+
+_DTYPE_CODE = {torch.int32: 0, torch.int64: 1, torch.float32: 2, torch.float64: 3}
+_KIND_CODE = {"sum": 0, "count": 0, "min": 1, "max": 2}
+_NP = {torch.int32: np.dtype(np.int32), torch.int64: np.dtype(np.int64),
+       torch.float32: np.dtype(np.float32), torch.float64: np.dtype(np.float64)}
+_BITS = {torch.int32: np.uint32, torch.int64: np.uint64,
+         torch.float32: np.uint32, torch.float64: np.uint64}
+
+_lib: Optional[ctypes.CDLL] = None
+_lib_lock = threading.Lock()
+_count_lock = threading.Lock()  # subtasks launch from their own threads
+build_info: dict = {}  # set by build_library: path, seconds, cached, log
+
+
+def _find_nvcc() -> str:
+    cands = []
+    for env in ("CUDA_HOME", "CUDA_PATH"):
+        if os.environ.get(env):
+            cands.append(os.path.join(os.environ[env], "bin", "nvcc"))
+    cands += [shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"]
+    for c in cands:
+        if c and os.path.exists(c):
+            return c
+    raise RuntimeError(
+        "nvcc not found (looked in $CUDA_HOME/bin, $PATH and /usr/local/cuda/bin): "
+        "the slot aggregator's CUDA kernels cannot be built")
+
+
+def build_library() -> ctypes.CDLL:
+    """Compile csrc/slot_agg.cu with nvcc (once per source digest) and load
+    it. Raises RuntimeError when nvcc is missing or the build fails."""
+    global _lib
+    with _lib_lock:
+        if _lib is not None:
+            return _lib
+        src = SOURCE.read_bytes()
+        digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        out = BUILD_DIR / f"libslot_agg_{digest}.so"
+        t0 = time.perf_counter()
+        log = ""
+        cached = out.exists()
+        if not cached:
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = BUILD_DIR / f".libslot_agg_{digest}.{os.getpid()}.{threading.get_ident()}.so"
+            cmd = [_find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            log = proc.stdout + proc.stderr
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
+            os.replace(tmp, out)
+        lib = ctypes.CDLL(str(out))
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        pp = ctypes.POINTER(ctypes.c_void_p)
+        ip = ctypes.POINTER(ctypes.c_int)
+        llp = ctypes.POINTER(ctypes.c_longlong)
+        ullp = ctypes.POINTER(ctypes.c_ulonglong)
+        lib.arroyo_slot_scatter_combine.argtypes = [i, pp, pp, ip, ip, i, p, i, ll, ll, p]
+        lib.arroyo_slot_region_read_pack.argtypes = [i, pp, ip, i, llp, i, ll, p, p, p]
+        lib.arroyo_slot_region_clear.argtypes = [i, pp, ip, ullp, i, llp, i, ll, p]
+        for fn in (lib.arroyo_slot_scatter_combine, lib.arroyo_slot_region_read_pack,
+                   lib.arroyo_slot_region_clear):
+            fn.restype = ctypes.c_int
+        build_info.update(path=str(out), seconds=time.perf_counter() - t0,
+                          cached=cached, log=log)
+        _lib = lib
+        return lib
+
+
+def _counted(wrapper) -> None:
+    with _count_lock:
+        wrapper.launches += 1
+
+
+def launch_counts() -> dict[str, int]:
+    return {f.__name__: f.launches for f in WRAPPERS}
+
+
+def reset_launch_counts() -> None:
+    for f in WRAPPERS:
+        f.launches = 0
+
+
+# ------------------------------------------------------------- checks
+
+
+def _check_state(state: Sequence[torch.Tensor]) -> torch.device:
+    if not 1 <= len(state) <= MAX_LANES:
+        raise ValueError(f"need 1..{MAX_LANES} state lanes, got {len(state)}")
+    dev, cap = state[0].device, state[0].shape[0] if state[0].dim() == 1 else -1
+    for a in state:
+        if a.device != dev:
+            raise ValueError(f"state lanes on different devices: {a.device} vs {dev}")
+        if a.dim() != 1 or a.shape[0] != cap or not a.is_contiguous():
+            raise ValueError("every state lane must be a contiguous 1-D tensor of the same length")
+        if a.dtype not in _DTYPE_CODE:
+            raise TypeError(f"state lane dtype {a.dtype} not one of int32/int64/float32/float64")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+def _check_bases(bases, cap: int, R: int) -> list[int]:
+    bl = [int(b) for b in bases]
+    if not 1 <= len(bl) <= MAX_BASES:
+        raise ValueError(f"need 1..{MAX_BASES} region bases, got {len(bl)}")
+    if R < 1:
+        raise ValueError(f"region size {R} < 1")
+    for b in bl:
+        if b < 0 or b + R > cap:
+            raise ValueError(f"region [{b}, {b + R}) outside the state [0, {cap})")
+    return bl
+
+
+def _ptrs(tensors) -> ctypes.Array:
+    return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
+
+
+def _stream(dev: torch.device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+
+
+def _raise_on(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+# ------------------------------------------------------------- K1
+
+
+def slot_scatter_combine(state: Sequence[torch.Tensor], kinds: Sequence[str],
+                         slots: torch.Tensor, vals: Sequence[Optional[torch.Tensor]]) -> None:
+    """Combine rows into the state in place: for lane l and row i with
+    ``0 <= slots[i] < cap``, ``state[l][slots[i]] = op_l(state[l][slots[i]],
+    vals[l][i])`` with op add (sum, count), min or max. ``vals[l]`` None is
+    allowed for count lanes only and adds 1 (the hot path ships no values
+    for them). Rows with a slot outside [0, cap) are dropped."""
+    dev = _check_state(state)
+    if len(kinds) != len(state) or len(vals) != len(state):
+        raise ValueError("kinds, vals and state must have one entry per lane")
+    if slots.device != dev or slots.dim() != 1 or not slots.is_contiguous():
+        raise ValueError("slots must be a contiguous 1-D tensor on the state's device")
+    if slots.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"slots dtype {slots.dtype} is not int32 or int64")
+    n = slots.shape[0]
+    for a, k, v in zip(state, kinds, vals):
+        if k not in _KIND_CODE:
+            raise ValueError(f"unsupported accumulator kind {k!r}")
+        if v is None:
+            if k != "count":
+                raise ValueError(f"lane of kind {k!r} needs values")
+            continue
+        if (v.device != dev or v.dtype != a.dtype or v.dim() != 1
+                or v.shape[0] != n or not v.is_contiguous()):
+            raise ValueError("each value lane must be a contiguous 1-D tensor of the "
+                             "lane's dtype, on its device, one value per slot")
+    if dev.type == "cpu":
+        slot_scatter_combine_plain(state, kinds, slots, vals)
+        return
+    if n == 0:
+        return
+    lib = build_library()
+    dts = (ctypes.c_int * len(state))(*[_DTYPE_CODE[a.dtype] for a in state])
+    kc = (ctypes.c_int * len(state))(*[_KIND_CODE[k] for k in kinds])
+    vp = (ctypes.c_void_p * len(state))(*[None if v is None else v.data_ptr() for v in vals])
+    err = lib.arroyo_slot_scatter_combine(
+        dev.index or 0, _ptrs(state), vp, kc, dts, len(state), slots.data_ptr(),
+        int(slots.dtype == torch.int64), n, state[0].shape[0], _stream(dev))
+    _raise_on(err, "slot_scatter_combine")
+    _counted(slot_scatter_combine)
+
+
+def _ordered(bits: torch.Tensor) -> torch.Tensor:
+    """Float bits (viewed as signed integers) mapped so that integer order
+    is float order with -0.0 below +0.0; the map is its own inverse."""
+    return torch.where(bits < 0, bits ^ torch.iinfo(bits.dtype).max, bits)
+
+
+def slot_scatter_combine_plain(state, kinds, slots, vals) -> None:
+    """Plain PyTorch version of K1 (same semantics, any device)."""
+    cap = state[0].shape[0]
+    keep = (slots >= 0) & (slots < cap)
+    s = slots[keep].long()
+    for a, kind, v in zip(state, kinds, vals):
+        v = torch.ones(len(s), dtype=a.dtype, device=a.device) if v is None else v[keep]
+        if kind in ("sum", "count"):
+            a.index_add_(0, s, v)
+        elif not a.dtype.is_floating_point:
+            a.scatter_reduce_(0, s, v, "amin" if kind == "min" else "amax", include_self=True)
+        else:
+            # NaN propagates and -0.0 orders below +0.0, independent of the
+            # order of the rows (XLA's scatter-min/max semantics)
+            ity = torch.int64 if a.dtype == torch.float64 else torch.int32
+            u, inv = torch.unique(s, return_inverse=True)
+            cur = a[u]
+            nan_v = torch.isnan(v)
+            key = _ordered(cur.view(ity))
+            key.scatter_reduce_(0, inv[~nan_v], _ordered(v[~nan_v].view(ity)),
+                                "amin" if kind == "min" else "amax", include_self=True)
+            out = _ordered(key).view(a.dtype)
+            nan = torch.isnan(cur)
+            nan[inv[nan_v]] = True
+            out[nan] = float("nan")
+            a[u] = out
+
+
+# ------------------------------------------------------------- K2
+
+
+def slot_region_read_pack(state: Sequence[torch.Tensor], bases, R: int):
+    """For each base j and lane, ``state[lane][bases[j]:bases[j]+R]``:
+    int lanes widened into one int64 buffer, float lanes into one float64
+    buffer, each laid out [base][lane of its class][R] (the layout of
+    arroyo_tpu's ``_pack``). Returns (ibuf, fbuf); a class with no lanes
+    gives an empty buffer."""
+    dev = _check_state(state)
+    bl = _check_bases(bases, state[0].shape[0], R)
+    k = len(bl)
+    n_flt = sum(1 for a in state if a.dtype.is_floating_point)
+    n_int = len(state) - n_flt
+    if dev.type == "cpu":
+        return slot_region_read_pack_plain(state, bl, R)
+    ibuf = torch.empty(k * n_int * R, dtype=torch.int64, device=dev)
+    fbuf = torch.empty(k * n_flt * R, dtype=torch.float64, device=dev)
+    lib = build_library()
+    dts = (ctypes.c_int * len(state))(*[_DTYPE_CODE[a.dtype] for a in state])
+    err = lib.arroyo_slot_region_read_pack(
+        dev.index or 0, _ptrs(state), dts, len(state), (ctypes.c_longlong * k)(*bl), k, R,
+        ctypes.c_void_p(ibuf.data_ptr()), ctypes.c_void_p(fbuf.data_ptr()), _stream(dev))
+    _raise_on(err, "slot_region_read_pack")
+    _counted(slot_region_read_pack)
+    return ibuf, fbuf
+
+
+def slot_region_read_pack_plain(state, bases, R: int):
+    """Plain PyTorch version of K2."""
+    dev = state[0].device
+    k = len(bases)
+    idx = (torch.as_tensor(list(bases), dtype=torch.int64, device=dev)[:, None]
+           + torch.arange(R, device=dev)).reshape(-1)
+
+    def pack(lanes, dt):
+        if not lanes:
+            return torch.empty(0, dtype=dt, device=dev)
+        return torch.stack([a[idx].to(dt).view(k, R) for a in lanes], dim=1).reshape(-1)
+
+    return (pack([a for a in state if not a.dtype.is_floating_point], torch.int64),
+            pack([a for a in state if a.dtype.is_floating_point], torch.float64))
+
+
+# ------------------------------------------------------------- K3
+
+
+def slot_region_clear(state: Sequence[torch.Tensor], kinds: Sequence[str], bases, R: int) -> None:
+    """Reset ``state[lane][b:b+R]`` to each lane's identity (0 for sum and
+    count, the dtype's top for min and its bottom for max) for every base."""
+    dev = _check_state(state)
+    bl = _check_bases(bases, state[0].shape[0], R)
+    if len(kinds) != len(state) or any(k not in _KIND_CODE for k in kinds):
+        raise ValueError(f"kinds {kinds!r} do not name one sum/count/min/max per lane")
+    if dev.type == "cpu":
+        slot_region_clear_plain(state, kinds, bl, R)
+        return
+    lib = build_library()
+    k = len(bl)
+    dts = (ctypes.c_int * len(state))(*[_DTYPE_CODE[a.dtype] for a in state])
+    ids = (ctypes.c_ulonglong * len(state))(*[
+        int(_identity(kd, _NP[a.dtype]).view(_BITS[a.dtype]))
+        for a, kd in zip(state, kinds)])
+    err = lib.arroyo_slot_region_clear(
+        dev.index or 0, _ptrs(state), dts, ids, len(state), (ctypes.c_longlong * k)(*bl), k, R,
+        _stream(dev))
+    _raise_on(err, "slot_region_clear")
+    _counted(slot_region_clear)
+
+
+def slot_region_clear_plain(state, kinds, bases, R: int) -> None:
+    """Plain PyTorch version of K3."""
+    for a, kd in zip(state, kinds):
+        ident = _identity(kd, _NP[a.dtype]).item()
+        for b in bases:
+            a[b:b + R] = ident
+
+
+WRAPPERS = (slot_scatter_combine, slot_region_read_pack, slot_region_clear)
+reset_launch_counts()

@@ -1,0 +1,338 @@
+"""Tumbling window aggregate operator (the port's copy of
+arroyo_tpu/windows/tumbling.py, single device).
+
+Rows are binned by the window width and fed into a SlotAggregator whose
+state lives on the engine's torch device; on a watermark at or past a bin's
+end the bin closes: its regions are read and cleared on the device and the
+packed result is fetched on the prefetch threads, so emission and the
+forwarded watermark pipeline behind later updates. Numeric group-by key
+VALUES ride along as extra max-lanes on the device (all rows of a key agree,
+so max is the identity); string keys go through a host KeyDictionary.
+
+Not in this slice: the mesh (sharded) aggregator, collected aggregates
+(array_agg, UDAFs, COUNT DISTINCT) and checkpoints.
+"""
+
+from __future__ import annotations
+
+from collections import deque
+from typing import Optional
+
+import numpy as np
+
+from ..batch import KEY_FIELD, TIMESTAMP_FIELD, Batch
+from ..config import config
+from ..engine.engine import register_operator
+from ..expr import Col, Expr, eval_expr
+from ..graph import OpName
+from ..operators.base import Operator
+from ..ops.aggregate import finalize_aggs
+from ..ops.prefetch import shared_prefetcher
+from ..ops.slot_agg import SlotAggregator
+from ..types import Signal, Watermark
+
+WINDOW_START = "window_start"
+WINDOW_END = "window_end"
+
+# in-flight window closes; the queue force-drains past this depth
+_PIPELINE_DEPTH = 16
+
+
+def dtype_of_from_config(cfg: dict):
+    """Accumulator-input dtype resolver: the graph's live callable, else
+    float64. The declarative "input_dtypes" map that SQL-planned graphs
+    carry needs the SQL front end, which the port does not have yet."""
+    fn = cfg.get("input_dtype_of")
+    if fn is not None:
+        return fn
+    if cfg.get("input_dtypes"):
+        raise NotImplementedError("input_dtypes maps come with the SQL front end of the port")
+    return lambda e: np.dtype(np.float64)
+
+
+def make_window_aggregator(acc_kinds, acc_dtypes, device) -> SlotAggregator:
+    """The single-device SlotAggregator, sized from the device config."""
+    dev = config().section("device")
+    return SlotAggregator(
+        acc_kinds,
+        acc_dtypes,
+        cap=dev.get("table-capacity", 65536),
+        batch_cap=dev.get("batch-capacity", 8192),
+        region_size=dev.get("region-size", 2048),
+        device=device,
+    )
+
+
+def acc_plan(aggregates: list[tuple[str, str, Optional[Expr]]], schema_dtype_of) -> tuple:
+    """Flatten SQL aggregates into accumulator (kind, dtype, input) triples.
+
+    aggregates: [(out_name, kind, input_expr|None)]; count has no input.
+    Returns (acc_kinds, acc_dtypes, input_specs) where input_specs[i] is the
+    Expr for that accumulator or None for a count-style all-ones input.
+    """
+    kinds, dtypes, inputs = [], [], []
+    for _name, kind, expr in aggregates:
+        if kind == "count":
+            kinds.append("count")
+            dtypes.append(np.dtype(np.int64))
+            inputs.append(None)
+        elif kind == "avg":
+            kinds.extend(["sum", "count"])
+            dtypes.extend([np.dtype(np.float64), np.dtype(np.int64)])
+            inputs.extend([expr, None])
+        elif kind.startswith("udaf:") or kind in ("collect", "count_distinct"):
+            raise NotImplementedError(
+                f"aggregate {kind!r} collects values on the host; collected "
+                f"aggregates are not ported yet")
+        else:
+            kinds.append(kind)
+            dtypes.append(schema_dtype_of(expr))
+            inputs.append(expr)
+    return tuple(kinds), tuple(dtypes), tuple(inputs)
+
+
+class KeyDictionary:
+    """hash -> key-column values, for rebuilding non-numeric group-by
+    columns at emission (the device state stores only the 64-bit hash).
+    Entries are evicted once every bin that saw the key has closed."""
+
+    def __init__(self, key_fields: list[str]):
+        self.key_fields = key_fields
+        self.values: dict[int, tuple] = {}
+        self.last_bin: dict[int, int] = {}
+
+    def observe(self, hashes: np.ndarray, bins: np.ndarray, batch: Batch) -> None:
+        if not self.key_fields:
+            return
+        u, first = np.unique(hashes, return_index=True)
+        u_list = u.tolist()
+        # every key seen in this batch is live through the batch's max bin;
+        # monotone, so an out-of-order batch never shortens a key's life
+        mx = int(bins.max()) if len(bins) else 0
+        lb = self.last_bin
+        for h in u_list:
+            v = lb.get(h)
+            if v is None or v < mx:
+                lb[h] = mx
+        vals = self.values
+        new = [h for h in u_list if h not in vals]
+        if new:
+            cols = [batch[f] for f in self.key_fields]
+            idx_of = dict(zip(u_list, first.tolist()))
+            for h in new:
+                i = idx_of[h]
+                vals[h] = tuple(c[i] for c in cols)
+
+    def evict_closed(self, rel_before: int) -> None:
+        dead = [h for h, b in self.last_bin.items() if b < rel_before]
+        for h in dead:
+            del self.values[h]
+            del self.last_bin[h]
+
+    def lookup_columns(self, hashes: np.ndarray) -> dict[str, np.ndarray]:
+        out: dict[str, np.ndarray] = {}
+        if not self.key_fields:
+            return out
+        rows = [self.values[int(h)] for h in hashes]
+        for j, f in enumerate(self.key_fields):
+            vals = [r[j] for r in rows]
+            sample = vals[0] if vals else None
+            if isinstance(sample, (str, type(None))):
+                out[f] = np.array(vals, dtype=object)
+            else:
+                out[f] = np.array(vals)
+        return out
+
+
+class TumblingAggregate(Operator):
+    """config: width_micros, key_fields: list[str], aggregates:
+    [(name, kind, Expr|None)], final_projection: [(name, Expr)]|None,
+    input_dtype_of: callable Expr -> np.dtype."""
+
+    def __init__(self, cfg: dict):
+        self.width = int(cfg["width_micros"])
+        self.key_fields: list[str] = list(cfg.get("key_fields", ()))
+        self.aggregates = cfg["aggregates"]
+        self.final_projection = cfg.get("final_projection")
+        self.acc_kinds, self.acc_dtypes, self.acc_inputs = acc_plan(
+            self.aggregates, dtype_of_from_config(cfg))
+        self.n_user_accs = len(self.acc_kinds)
+        self.device = None  # the engine's device, set in on_start
+        self._agg: Optional[SlotAggregator] = None
+        # key transport split, decided from the first batch's column dtypes
+        self.lane_key_fields: Optional[list[str]] = None  # numeric: device lanes
+        self.dict_key_fields: list[str] = []  # strings: host dictionary
+        self.key_dict = KeyDictionary([])
+        self.base_bin: Optional[int] = None  # bin offset so device bins fit int32
+        self.open_bins: set[int] = set()  # relative bins resident on device
+        self.emitted_before_rel: Optional[int] = None  # late-data boundary
+        self.late_rows = 0
+        # in-flight closes: (Future|None, rel_before|None, Watermark|None, seq)
+        self._pending: deque = deque()
+        self._batch_seq = 0
+
+    def on_start(self, ctx):
+        self.device = ctx.device
+
+    def _setup_key_transport(self, batch: Batch) -> None:
+        """Numeric group-by values ride the device as extra max-lanes; the
+        rest go through the host KeyDictionary."""
+        lane, dicty = [], []
+        for f in self.key_fields:
+            col = np.asarray(batch[f])
+            if np.issubdtype(col.dtype, np.integer) or np.issubdtype(col.dtype, np.floating):
+                lane.append((f, col.dtype))
+            else:
+                dicty.append(f)
+        self.lane_key_fields = [f for f, _ in lane]
+        self.dict_key_fields = dicty
+        self.key_dict = KeyDictionary(dicty)
+        self.acc_kinds = self.acc_kinds + tuple("max" for _ in lane)
+        self.acc_dtypes = self.acc_dtypes + tuple(np.dtype(d) for _, d in lane)
+        self.acc_inputs = self.acc_inputs + tuple(Col(f) for f, _ in lane)
+
+    def _aggregator(self) -> SlotAggregator:
+        if self._agg is None:
+            self._agg = make_window_aggregator(self.acc_kinds, self.acc_dtypes, self.device)
+        return self._agg
+
+    # ------------------------------------------------------------------
+
+    def process_batch(self, batch, ctx, collector, input_index=0):
+        self._batch_seq += 1
+        if self._pending:
+            self._drain_pending(collector)
+        if self.lane_key_fields is None:
+            self._setup_key_transport(batch)
+        bins_abs = batch.timestamps // self.width
+        if self.base_bin is None:
+            self.base_bin = int(bins_abs.min())
+        rel = (bins_abs - self.base_bin).astype(np.int32)
+        if self.emitted_before_rel is not None:
+            # rows behind already-emitted windows are dropped (late data
+            # never re-opens a closed window)
+            late = rel < self.emitted_before_rel
+            if late.any():
+                self.late_rows += int(late.sum())
+                if late.all():
+                    return
+                batch = batch.filter(~late)
+                rel = rel[~late]
+        n = batch.num_rows
+        hashes = batch.keys.astype(np.uint64) if KEY_FIELD in batch else np.zeros(n, dtype=np.uint64)
+        if self.dict_key_fields:
+            self.key_dict.observe(hashes, rel, batch)
+        vals = []
+        for inp, dt in zip(self.acc_inputs, self.acc_dtypes):
+            if inp is None:
+                vals.append(np.ones(n, dtype=dt))
+            else:
+                vals.append(np.asarray(eval_expr(inp, batch.columns, n)).astype(dt))
+        self._aggregator().update(hashes, rel, vals)
+        self.open_bins.update(np.unique(rel).tolist())
+
+    # ------------------------------------------------------------- emission
+
+    def _drain_pending(self, collector, force: bool = False) -> None:
+        """Emit completed in-flight closes in order; each close's watermark
+        is broadcast only after its rows."""
+        while self._pending:
+            fut, rel_before, wm, _seq = self._pending[0]
+            if fut is not None and not force and not fut.is_ready():
+                return
+            self._pending.popleft()
+            if fut is not None:
+                keys, bins, accs = fut.result()
+                if len(keys):
+                    self._emit_entries(keys, bins, accs, collector)
+                if self.dict_key_fields:
+                    self.key_dict.evict_closed(rel_before)
+            if wm is not None:
+                collector.broadcast(Signal.watermark_of(wm))
+
+    def handle_watermark(self, watermark, ctx, collector):
+        if watermark.is_idle:
+            self._drain_pending(collector, force=True)
+            return watermark
+        if self._pending:
+            self._drain_pending(collector)
+        closed_before_abs = watermark.value // self.width
+        # forward the start of the oldest window still open, not w itself,
+        # so downstream never sees this operator's output as late
+        out_wm = Watermark.event_time(closed_before_abs * self.width)
+        scheduled = self._schedule_close(closed_before_abs, out_wm, collector)
+        if scheduled or self._pending:
+            return None  # the watermark rides the pending queue, in order
+        return out_wm
+
+    def on_close(self, ctx, collector):
+        self._schedule_close(None, None, collector)
+        self._drain_pending(collector, force=True)
+
+    def _hold_watermark(self, out_wm: Optional[Watermark], collector) -> bool:
+        """No bins are closing: queue the watermark behind in-flight closes
+        (bounded by the pipeline depth); True when held."""
+        if out_wm is None or not self._pending:
+            return False
+        tail = self._pending[-1]
+        if tail[0] is None and tail[2] is not None:
+            # consecutive watermarks with no rows between them collapse
+            self._pending[-1] = (None, None, out_wm, tail[3])
+            return True
+        if len(self._pending) >= _PIPELINE_DEPTH:
+            self._drain_pending(collector, force=True)
+            return False
+        self._pending.append((None, None, out_wm, self._batch_seq))
+        return True
+
+    def _schedule_close(self, closed_before_abs: Optional[int],
+                        out_wm: Optional[Watermark], collector) -> bool:
+        """Dispatch the device reads for every bin the watermark closes;
+        True if a close (or a watermark hold) was queued."""
+        if self.base_bin is None or not self.open_bins:
+            return self._hold_watermark(out_wm, collector)
+        if closed_before_abs is None:
+            rel_before = max(self.open_bins) + 1
+        else:
+            rel_before = int(closed_before_abs - self.base_bin)
+        if self.emitted_before_rel is None or rel_before > self.emitted_before_rel:
+            self.emitted_before_rel = rel_before
+        closing = sorted(b for b in self.open_bins if b < rel_before)
+        if not closing:
+            return self._hold_watermark(out_wm, collector)
+        agg = self._aggregator()
+        self.open_bins -= set(closing)
+        if len(self._pending) >= _PIPELINE_DEPTH:
+            self._drain_pending(collector, force=True)
+        handle = agg.extract_start(min(closing), rel_before, rel_before)
+        fut = shared_prefetcher().submit(handle.result)
+        self._pending.append((fut, rel_before, out_wm, self._batch_seq))
+        return True
+
+    def _emit_entries(self, keys, bins, accs, collector) -> None:
+        starts = (bins.astype(np.int64) + self.base_bin) * self.width
+        cols: dict[str, np.ndarray] = {}
+        if self.dict_key_fields:
+            cols.update(self.key_dict.lookup_columns(keys))
+        for f, lane in zip(self.lane_key_fields, accs[self.n_user_accs:]):
+            cols[f] = lane
+        cols[WINDOW_START] = starts
+        cols[WINDOW_END] = starts + self.width
+        finals = finalize_aggs([a[1] for a in self.aggregates], accs[: self.n_user_accs])
+        for (name, _k, _e), arr in zip(self.aggregates, finals):
+            cols[name] = arr
+        # the window start is the output event time
+        cols[TIMESTAMP_FIELD] = starts
+        out = Batch(cols)
+        if self.final_projection is not None:
+            n = out.num_rows
+            proj = {name: eval_expr(e, out.columns, n) for name, e in self.final_projection}
+            if TIMESTAMP_FIELD not in proj:
+                proj[TIMESTAMP_FIELD] = out.timestamps
+            out = Batch(proj)
+        collector.collect(out)
+
+
+@register_operator(OpName.TUMBLING_AGGREGATE)
+def _make_tumbling(cfg: dict):
+    return TumblingAggregate(cfg)

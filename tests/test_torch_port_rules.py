@@ -1,0 +1,114 @@
+"""Rules of the PyTorch port that hold by construction: it imports neither
+JAX nor arroyo_tpu, its entry points run on CUDA unless the CPU is named,
+and a missing GPU or compiler raises instead of falling back."""
+
+import os
+import pkgutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import arroyo_tpu_torch
+import arroyo_tpu_torch.config as tcfg
+from arroyo_tpu_torch.device import resolve_device
+from arroyo_tpu_torch.ops import kernels
+from arroyo_tpu_torch.ops.slot_agg import SlotAggregator
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _port_modules():
+    return sorted(m.name for m in pkgutil.walk_packages(arroyo_tpu_torch.__path__,
+                                                        "arroyo_tpu_torch."))
+
+
+@pytest.fixture(autouse=True)
+def _port_config():
+    tcfg.reset()
+    yield
+    tcfg.reset()
+
+
+def test_port_and_chip_smoke_import_neither_jax_nor_arroyo_tpu():
+    mods = _port_modules()
+    assert {"arroyo_tpu_torch.ops.kernels", "arroyo_tpu_torch.ops.slot_agg",
+            "arroyo_tpu_torch.windows.tumbling", "arroyo_tpu_torch.engine.engine"} <= set(mods)
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "import chip_smoke\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "             or m == 'arroyo_tpu' or m.startswith('arroyo_tpu.'))\n"
+        "print('BAD', bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_default_device_is_cuda_and_raises_without_it():
+    assert not torch.cuda.is_available()  # this suite runs on a CPU-only build
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        SlotAggregator(("count",), (np.int64,), cap=64, region_size=16)
+    assert resolve_device("cpu") == torch.device("cpu")
+    tcfg.update({"device.torch-device": "cpu"})
+    assert resolve_device() == torch.device("cpu")
+
+
+def test_default_device_run_graph_raises_without_cuda():
+    from arroyo_tpu_torch.engine import run_graph
+
+    rows = []
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        run_graph(_tiny_graph(rows))
+    assert rows == []
+
+
+def _tiny_graph(rows):
+    from arroyo_tpu_torch.batch import TIMESTAMP_FIELD, Schema
+    from arroyo_tpu_torch.graph import EdgeType, Graph, Node, OpName
+
+    g = Graph()
+    g.add_node(Node("src", OpName.SOURCE, {"connector": "nexmark", "event_count": 100,
+                                           "first_event_micros": 0}, 1))
+    g.add_node(Node("sink", OpName.SINK, {"connector": "vec", "rows": rows}, 1))
+    g.add_edge("src", "sink", EdgeType.FORWARD, Schema.of([(TIMESTAMP_FIELD, "int64")]))
+    return g
+
+
+def test_later_slices_are_refused_not_skipped():
+    from arroyo_tpu_torch.engine import Engine
+
+    tcfg.update({"pipeline.chaining.enabled": True})
+    with pytest.raises(NotImplementedError, match="segment"):
+        Engine(_tiny_graph([]), device="cpu")
+    tcfg.reset()
+    with pytest.raises(NotImplementedError, match="checkpoint"):
+        Engine(_tiny_graph([]), device="cpu", restore_epoch=1)
+    eng = Engine(_tiny_graph([]), device="cpu")
+    with pytest.raises(NotImplementedError, match="checkpoint"):
+        eng.checkpoint_and_wait(1)
+
+
+def test_kernel_build_without_nvcc_raises(monkeypatch):
+    if os.path.exists("/usr/local/cuda/bin/nvcc"):
+        pytest.skip("this machine has a CUDA toolkit at /usr/local/cuda")
+    monkeypatch.setattr(kernels, "_lib", None)
+    monkeypatch.setenv("PATH", "/nonexistent")
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.delenv("CUDA_PATH", raising=False)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        kernels.build_library()
+    # a tensor on a device the port has no kernel for is refused, not
+    # routed to the plain version
+    with pytest.raises(ValueError, match="unsupported device"):
+        kernels.slot_scatter_combine([torch.zeros(4, device="meta")], ["count"],
+                                     torch.zeros(2, dtype=torch.int32, device="meta"), [None])
+    assert kernels.launch_counts()["slot_scatter_combine"] == 0
