@@ -2,9 +2,10 @@
 config is a separate object, so tests can load both packages in one
 process without one reset clearing the other).
 
-Only the sections this slice reads: ``pipeline``, ``worker``,
-``engine.coalesce`` and ``device``. ``device.torch-device`` names the torch
-device (None = ``cuda``; see device.py).
+Only the sections the port reads: ``pipeline``, ``worker``,
+``engine.coalesce``, ``segment.compile`` and ``device``.
+``device.torch-device`` names the torch device (None = ``cuda``; see
+device.py).
 """
 
 from __future__ import annotations
@@ -16,8 +17,9 @@ from typing import Any
 _DEFAULTS: dict[str, Any] = {
     "pipeline": {
         "source-batch-size": 512,  # rows per source flush
-        # chaining fuses operators into compiled segments; the segment
-        # compiler is the next slice of the port, so True is refused
+        # fuse forward-connected runs of operators into one task
+        # (optimizer.chain_graph), whose traceable prefix runs as one fused
+        # kernel per micro-batch (engine/segment.py)
         "chaining": {"enabled": False},
     },
     "worker": {
@@ -31,6 +33,21 @@ _DEFAULTS: dict[str, Any] = {
             "max-rows": 4096,
             "max-bytes": 1_048_576,
             "max-delay-ms": 5,
+        },
+    },
+    "segment": {
+        # whole-segment compilation (engine/segment.py): a chained run
+        # marked compilable at plan time runs as ONE launch of the fused
+        # segment kernel per micro-batch. A segment that cannot be lowered,
+        # or whose first-batch verification is not bit-identical to the
+        # interpreted path, falls back with a SEGMENT_FALLBACK event.
+        "compile": {
+            "enabled": True,
+            # process-wide LRU of built (segment, schema, device) entries
+            "cache-max": 32,
+            # batches below this many rows (input, or survivors of the
+            # hoisted leading filter) run interpreted
+            "min-rows": 8192,
         },
     },
     "device": {

@@ -8,8 +8,11 @@ package's is process-global too, and both packages load in one test
 process, so sharing one would let either replace the other's constructors.
 
 The engine resolves one torch device (device.py) and hands it to every
-operator through its OperatorContext. Checkpoints, restore and operator
-chaining are later slices: asking for them raises NotImplementedError.
+operator through its OperatorContext. With ``pipeline.chaining.enabled`` it
+first fuses chainable runs (optimizer.chain_graph), whose marked prefix the
+tasks run as one fused kernel per micro-batch (engine/segment.py).
+Checkpoints and restore are a later slice: asking for them raises
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -30,7 +33,6 @@ from ..types import ControlMessage, ControlResp, TaskInfo
 from .queues import TaskInbox
 from .task import Task
 
-SEGMENT_SLICE = "the segment-compiler slice of the port (ROADMAP queue A, kernels B1/B2)"
 CHECKPOINT_SLICE = "the checkpoint/restore slice of the port (ROADMAP queue A)"
 
 _CONSTRUCTORS: dict[OpName, Callable[[dict], object]] = {}
@@ -48,8 +50,8 @@ def load_operators() -> None:
     """Import every operator/connector module of the port so that its
     constructor registers."""
     from .. import connectors
-    from ..operators import builtin  # noqa: F401
-    from ..windows import tumbling  # noqa: F401
+    from ..operators import builtin, chained  # noqa: F401
+    from ..windows import sliding, tumbling  # noqa: F401
 
     connectors.load_all()
 
@@ -67,13 +69,13 @@ class Engine:
     def __init__(self, graph: Graph, job_id: str = "job",
                  device: Optional[Union[str, torch.device]] = None,
                  restore_epoch: Optional[int] = None):
-        if config().get("pipeline.chaining.enabled"):
-            raise NotImplementedError(
-                f"pipeline.chaining.enabled = True: operator chaining and whole-"
-                f"segment compilation come with {SEGMENT_SLICE}")
         if restore_epoch is not None:
             raise NotImplementedError(
                 f"restore from epoch {restore_epoch}: checkpoints come with {CHECKPOINT_SLICE}")
+        if config().get("pipeline.chaining.enabled"):
+            from ..optimizer import chain_graph
+
+            graph = chain_graph(graph)
         self.graph = graph
         self.job_id = job_id
         self.device = resolve_device(device)

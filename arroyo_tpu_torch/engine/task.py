@@ -1,5 +1,6 @@
 """Physical subtask run loop (the port's copy of arroyo_tpu/engine/task.py,
-without checkpoints, metrics or the compiled-segment runner).
+without checkpoints). A chained operator marked compilable runs its batches
+through the compiled-segment runner (engine/segment.py runner_for).
 
 A loop over the inbox and a tick interval: batches go to the operator,
 watermarks are min-merged over inputs (idle only when every input is idle),
@@ -83,6 +84,10 @@ class Task:
         self.n_inputs = n_inputs
         self.control_queue: "_queue.Queue[ControlMessage]" = _queue.Queue()
         self.thread: Optional[threading.Thread] = None
+        from ..metrics import registry
+
+        self.metrics = registry.task(task_info.job_id, task_info.node_id,
+                                     task_info.subtask_index)
         self.is_source = isinstance(operator, SourceOperator)
 
     def start(self) -> None:
@@ -124,6 +129,15 @@ class Task:
     def _run_operator(self) -> None:
         op: Operator = self.operator  # type: ignore[assignment]
         op.on_start(self.ctx)
+        # whole-segment compilation (engine/segment.py): a chained run marked
+        # compilable at plan time processes batches through ONE fused kernel
+        # launch instead of the per-member hook loop; the runner owns
+        # build/verify/fallback and delegates to op.process_batch when the
+        # segment is (or becomes) interpreted. Signals take the hooks.
+        from .segment import runner_for
+
+        runner = runner_for(op, self.ctx, self.metrics)
+        process = op.process_batch if runner is None else runner.process_batch
         holder = WatermarkHolder(self.n_inputs)
         finished: set[int] = set()
         last_merged: Optional[Watermark] = None
@@ -161,7 +175,7 @@ class Task:
                 continue
             idx, item = got
             if isinstance(item, Batch):
-                op.process_batch(item, self.ctx, self.collector, input_index=idx)
+                process(item, self.ctx, self.collector, input_index=idx)
                 self.inbox.release(idx, item)
                 continue
             sig: Signal = item

@@ -1,12 +1,14 @@
 """Logical dataflow graph (the port's copy of arroyo_tpu/graph.py).
 
 Node configs are plain dicts; the port's engine maps each node's ``OpName``
-to a constructor from its own registry (engine/engine.py). JSON
-serialization of graphs is not part of this slice.
+to a constructor from its own registry (engine/engine.py). ``_jsonable``
+gives the JSON-safe view of a config that the segment compiler keys its
+cache on; whole-graph serialization is not part of the port yet.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import enum
 from dataclasses import dataclass
 
@@ -99,3 +101,27 @@ class Graph:
         if len(out) != len(self.nodes):
             raise ValueError("graph has a cycle")
         return out
+
+
+def _jsonable(obj):
+    """JSON-safe view of a node config (arroyo_tpu/graph.py's): expression
+    ASTs as tagged trees, schemas as tagged dicts, the in-process
+    ``input_dtype_of`` callable dropped and any other callable marked, and
+    anything else as its repr."""
+    from .expr import Expr, expr_to_json
+
+    if isinstance(obj, dict):
+        return {
+            k: ({"__callable__": repr(v)} if callable(v) else _jsonable(v))
+            for k, v in obj.items()
+            if not (k == "input_dtype_of" and callable(v))
+        }
+    if isinstance(obj, (list, tuple)):
+        return [_jsonable(v) for v in obj]
+    if isinstance(obj, (str, int, float, bool)) or obj is None:
+        return obj
+    if isinstance(obj, Expr):
+        return expr_to_json(obj)
+    if isinstance(obj, Schema):
+        return {"__schema__": _jsonable(dataclasses.asdict(obj))}
+    return repr(obj)

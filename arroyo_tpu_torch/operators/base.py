@@ -2,7 +2,7 @@
 
 Operators consume and produce columnar Batches; the task run loop
 (engine/task.py) owns watermark merging and end-of-data accounting. State
-tables and checkpoint hooks are not part of this slice.
+tables are not part of the port yet, and the checkpoint hook raises.
 """
 
 from __future__ import annotations
@@ -61,6 +61,12 @@ class Operator:
 
     def handle_tick(self, ctx: OperatorContext, collector: "Collector") -> None:
         pass
+
+    def handle_checkpoint(self, barrier, ctx: OperatorContext, collector: "Collector") -> None:
+        raise NotImplementedError(
+            f"{self.name()}: checkpoint barrier {getattr(barrier, 'epoch', barrier)}: "
+            f"checkpoints come with the checkpoint/restore slice of the port "
+            f"(ROADMAP queue A)")
 
     def on_close(self, ctx: OperatorContext, collector: "Collector") -> None:
         """All inputs reached end-of-data; emit any remaining state."""

@@ -112,12 +112,18 @@ class WatermarkGenerator(Operator):
 
     def process_batch(self, batch, ctx, collector, input_index=0):
         vals = np.asarray(eval_expr(self.expr, batch.columns, batch.num_rows))
+        m = int(vals.max())
         collector.collect(batch)
-        # the watermark goes out AFTER the batch's rows: it must never
-        # overtake the data it covers
+        self.observe_batch_max(m, collector)
+
+    def observe_batch_max(self, m: int, collector) -> None:
+        """Watermark state machine over one batch's max event-time value,
+        shared by process_batch above and the compiled segment's host
+        finisher (engine/segment.py), so the two paths cannot drift. Called
+        AFTER the batch's rows are collected: the watermark must never
+        overtake the data it covers."""
         self.last_event_wall = time.monotonic()
         self.idle_sent = False
-        m = int(vals.max())
         if self.max_watermark is None or m > self.max_watermark:
             self.max_watermark = m
             if self.last_emitted is None or m - self.last_emitted >= self.interval_micros:

@@ -36,6 +36,34 @@ def finalize_aggs(kinds: Sequence[str], acc_arrays: list[np.ndarray]) -> list[np
     return out
 
 
+def combine_by_key(
+    acc_kinds: Sequence[str], keys: np.ndarray, accs: list[np.ndarray]
+) -> tuple[np.ndarray, list[np.ndarray]]:
+    """Combine per-bin partials that share a key into one accumulator row per
+    key (the sliding window's finish step: the width/slide partial bins of a
+    window collapse to one output row). Host numpy: the input is already
+    reduced to distinct (bin, key) pairs."""
+    if len(keys) == 0:
+        return keys, accs
+    signed = keys.view(np.int64)
+    order = np.argsort(signed, kind="stable")
+    k_s = signed[order]
+    newseg = np.ones(len(k_s), dtype=bool)
+    newseg[1:] = k_s[1:] != k_s[:-1]
+    starts = np.flatnonzero(newseg)
+    out_accs = []
+    for kind, a in zip(acc_kinds, accs):
+        a_s = a[order]
+        if kind in ("sum", "count"):
+            red = np.add.reduceat(a_s, starts)
+        elif kind == "min":
+            red = np.minimum.reduceat(a_s, starts)
+        else:
+            red = np.maximum.reduceat(a_s, starts)
+        out_accs.append(red.astype(a.dtype))
+    return k_s[starts].view(np.uint64), out_accs
+
+
 def combine_by_key_bin(
     acc_kinds: Sequence[str],
     keys: np.ndarray,

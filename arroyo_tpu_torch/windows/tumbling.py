@@ -9,8 +9,10 @@ forwarded watermark pipeline behind later updates. Numeric group-by key
 VALUES ride along as extra max-lanes on the device (all rows of a key agree,
 so max is the identity); string keys go through a host KeyDictionary.
 
-Not in this slice: the mesh (sharded) aggregator, collected aggregates
-(array_agg, UDAFs, COUNT DISTINCT) and checkpoints.
+The compiled segment (engine/segment.py) feeds it through
+``insert_arrays``, the twin of ``process_batch`` over arrays the segment
+computed. Not in this slice: the mesh (sharded) aggregator, collected
+aggregates (array_agg, UDAFs, COUNT DISTINCT) and checkpoints.
 """
 
 from __future__ import annotations
@@ -199,25 +201,15 @@ class TumblingAggregate(Operator):
     # ------------------------------------------------------------------
 
     def process_batch(self, batch, ctx, collector, input_index=0):
-        self._batch_seq += 1
-        if self._pending:
-            self._drain_pending(collector)
+        self._begin_batch(collector)
         if self.lane_key_fields is None:
             self._setup_key_transport(batch)
-        bins_abs = batch.timestamps // self.width
-        if self.base_bin is None:
-            self.base_bin = int(bins_abs.min())
-        rel = (bins_abs - self.base_bin).astype(np.int32)
-        if self.emitted_before_rel is not None:
-            # rows behind already-emitted windows are dropped (late data
-            # never re-opens a closed window)
-            late = rel < self.emitted_before_rel
-            if late.any():
-                self.late_rows += int(late.sum())
-                if late.all():
-                    return
-                batch = batch.filter(~late)
-                rel = rel[~late]
+        admitted = self._admit(batch.timestamps // self.width)
+        if admitted is None:
+            return
+        keep, rel = admitted
+        if keep is not None:
+            batch = batch.filter(keep)
         n = batch.num_rows
         hashes = batch.keys.astype(np.uint64) if KEY_FIELD in batch else np.zeros(n, dtype=np.uint64)
         if self.dict_key_fields:
@@ -228,6 +220,50 @@ class TumblingAggregate(Operator):
                 vals.append(np.ones(n, dtype=dt))
             else:
                 vals.append(np.asarray(eval_expr(inp, batch.columns, n)).astype(dt))
+        self._update(hashes, rel, vals)
+
+    def insert_arrays(self, hashes, bins_abs, vals, collector) -> None:
+        """Compiled-segment twin of process_batch (engine/segment.py): the
+        segment already computed the routing hashes, absolute bins and
+        accumulator inputs; the same state path (pending-close drain,
+        late-data filter, aggregator update) applies to them. Only reached
+        when the compile gate proved there are no host key dictionary
+        fields."""
+        self._begin_batch(collector)
+        if len(hashes) == 0:
+            return
+        admitted = self._admit(bins_abs)
+        if admitted is None:
+            return
+        keep, rel = admitted
+        if keep is not None:
+            hashes = hashes[keep]
+            vals = [v[keep] for v in vals]
+        self._update(hashes, rel, vals)
+
+    def _begin_batch(self, collector) -> None:
+        self._batch_seq += 1
+        if self._pending:
+            self._drain_pending(collector)
+
+    def _admit(self, bins_abs: np.ndarray):
+        """Relative int32 bins of a batch's rows, anchoring the bin offset
+        on the first batch, and the on-time mask (None when every row is on
+        time): rows behind already-emitted windows are dropped, late data
+        never re-opens a closed window. None when every row is late."""
+        if self.base_bin is None:
+            self.base_bin = int(bins_abs.min())
+        rel = (bins_abs - self.base_bin).astype(np.int32)
+        if self.emitted_before_rel is not None:
+            late = rel < self.emitted_before_rel
+            if late.any():
+                self.late_rows += int(late.sum())
+                if late.all():
+                    return None
+                return ~late, rel[~late]
+        return None, rel
+
+    def _update(self, hashes, rel, vals) -> None:
         self._aggregator().update(hashes, rel, vals)
         self.open_bins.update(np.unique(rel).tolist())
 

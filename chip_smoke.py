@@ -14,24 +14,44 @@ non-zero, printing no result):
               with nvcc for sm_90a;
 3. q7      -- Nexmark q7 through the port's run_graph on the GPU at the size
               bench.py measures (2,000,000 events, batch 65536, table 65536,
-              region 2048), held exactly against a closed-form oracle; each
-              kernel's launch count over that run must be > 0. A second,
-              profiled run gives the device's busy and idle share;
-4. kernels -- every kernel against its plain PyTorch version on the card at
+              region 2048) in the package's default configuration (chaining
+              off), held exactly against a closed-form oracle; each kernel's
+              launch count over that run must be > 0. A second, profiled run
+              gives the device's busy and idle share;
+4. segment_build -- the fused segment kernel K4 (Triton, generated from the
+              bound plan by arroyo_tpu_torch/ops/segment_kernel.py) compiled
+              for the q7 and q5 plans, seconds per plan;
+5. q7c     -- q7 at bench.py's own setting, pipeline.chaining.enabled = True:
+              the chain's prefix runs as one K4 launch per micro-batch. Exact
+              parity, SEGMENT_COMPILED with no SEGMENT_FALLBACK, K4 launched
+              once per source batch of >= segment.compile.min-rows rows, K1-K3
+              launched; then a profiled run;
+6. q5      -- q5 (sliding 10 s / 2 s COUNT per auction) at 1,000,000 events,
+              chaining on, with the same checks against a copy of
+              bench.py's oracle_q5;
+7. kernels -- K1-K3 against their plain PyTorch versions on the card at
               q7's shape and at a deployment-size state (4,194,304 slots),
               hot and merge mode, k in {1, 2, 4, 8, 16} duplicated bases with
-              and without clear, then timed beside its plain version, a
-              PyTorch library yardstick and its bound (device time per call
-              from a torch.profiler trace, and the per-call time bracketed
-              by CUDA events, which adds the host's launch cost).
+              and without clear, then timed beside the plain version, a
+              PyTorch library yardstick and the bound (device time per call
+              from a torch.profiler trace, and the per-call time bracketed by
+              CUDA events, which adds the host's launch cost);
+8. segment -- K4 against its plain version on the card, byte for byte
+              (values, dtypes, mask, watermark aux) on the q7 and q5 insert
+              plans, q8's two emit-batch plans (filter hoisted and not), an
+              expression grid over every allowlisted operator and function
+              and int32/int64/float32/float64/bool columns with their edge
+              values, all at an odd row count; then timed at q7's plan.
 
 Then the {"kernels": [...]} line, the nvidia-smi line, and last
-{"ok": true, "device": {...}}. Details go to <out-dir>/chip_smoke.json and
-the nvcc/ptxas log to <out-dir>/slot_agg_build.log (``--out-dir``, default
-chip_smoke_out/).
+{"ok": true, "device": {...}}. Details go to <out-dir>/chip_smoke.json, the
+nvcc/ptxas log to <out-dir>/slot_agg_build.log and the generated K4 sources
+to <out-dir>/segment_src/ (``--out-dir``, default chip_smoke_out/). A K4
+build or launch error fails the run: the port never falls back to the plain
+version on the card.
 
-The script imports nothing of JAX or arroyo_tpu: the q7 oracle below is its
-own copy over the port's generator.
+The script imports nothing of JAX or arroyo_tpu: the oracles below are its
+own copies over the port's generator.
 """
 
 from __future__ import annotations
@@ -49,23 +69,30 @@ import numpy as np
 import torch
 
 import arroyo_tpu_torch.config as tcfg
-from arroyo_tpu_torch.batch import TIMESTAMP_FIELD, Schema
+from arroyo_tpu_torch.batch import TIMESTAMP_FIELD, Batch, Schema
 from arroyo_tpu_torch.connectors.nexmark import NexmarkSource
-from arroyo_tpu_torch.engine import run_graph
+from arroyo_tpu_torch.engine import construct_operator, run_graph
+from arroyo_tpu_torch.engine import segment as seg
 from arroyo_tpu_torch.expr import Col
 from arroyo_tpu_torch.graph import EdgeType, Graph, Node, OpName
-from arroyo_tpu_torch.ops import kernels
+from arroyo_tpu_torch.obs.events import recorder
+from arroyo_tpu_torch.ops import kernels, segment_kernel
 from arroyo_tpu_torch.ops.aggregate import _identity
 
 WIDTH = 10_000_000
+SLIDE = 2_000_000
 Q7_EVENTS = 2_000_000
+Q5_EVENTS = Q7_EVENTS // 2  # bench.py runs q5 at events // 2
+BENCH_BATCH = 65536
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 SOURCE = "arroyo_tpu_torch/csrc/slot_agg.cu"
 REPLACES = {
     "slot_scatter_combine": "arroyo_tpu/ops/slot_agg.py:285",  # _build_slot_jax step / step_merge
     "slot_region_read_pack": "arroyo_tpu/ops/slot_agg.py:338",  # make_read_multi.go / _pack
     "slot_region_clear": "arroyo_tpu/ops/slot_agg.py:322",  # _clear / clear
+    "segment_fused": "arroyo_tpu/engine/segment.py:511",  # _trace_fn.fn, with B1 (:242-278)
 }
+SEGMENT_SOURCE = "arroyo_tpu_torch/ops/segment_kernel.py"
 SUM_RTOL = {torch.float64: 1e-12, torch.float32: 1e-5}
 NP_DT = {torch.int32: np.int32, torch.int64: np.int64,
          torch.float32: np.float32, torch.float64: np.float64}
@@ -162,24 +189,38 @@ def oracle_q7(event_count: int) -> dict:
     return {(int(u[0]), int(u[1])): (int(m), int(c)) for u, m, c in zip(uniq, mx, cnt)}
 
 
-def drive_q7() -> tuple[list, float, object]:
-    """One q7 run through the port's run_graph (default device: CUDA)."""
+def bench_config(chaining: bool) -> None:
+    """bench.py's sizes (bench.py:1046-1060, run_config): source batch
+    65536, queue 2 x 65536, table 65536 slots, region 2048; chaining as
+    given (bench.py runs with it on)."""
+    tcfg.reset()
     tcfg.update({
-        "pipeline.source-batch-size": 65536,
-        "device.batch-capacity": 65536,
-        "worker.queue-size": 131072,
+        "pipeline.source-batch-size": BENCH_BATCH,
+        "device.batch-capacity": BENCH_BATCH,
+        "worker.queue-size": 2 * BENCH_BATCH,
         "device.table-capacity": 65536,
         "device.region-size": 2048,
+        "pipeline.chaining.enabled": chaining,
     })
+
+
+def drive(build, events: int, job_id: str, chaining: bool) -> tuple[list, float, object]:
+    """One run through the port's run_graph (default device: CUDA)."""
+    bench_config(chaining)
     rows: list = []
-    g = build_q7(rows, Q7_EVENTS)
+    g = build(rows, events)
+    recorder.clear_job(job_id)
     t0 = time.perf_counter()
-    eng = run_graph(g, job_id="chip-smoke-q7", timeout=900)
+    eng = run_graph(g, job_id=job_id, timeout=900)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     if eng.device.type != "cuda":
-        raise RuntimeError(f"q7 ran on {eng.device}, not on the GPU")
+        raise RuntimeError(f"{job_id} ran on {eng.device}, not on the GPU")
     return rows, wall, eng
+
+
+def drive_q7() -> tuple[list, float, object]:
+    return drive(build_q7, Q7_EVENTS, "chip-smoke-q7", chaining=False)
 
 
 def check_q7(rows: list, want: dict) -> dict:
@@ -222,6 +263,422 @@ def run_q7() -> dict:
                              "device_idle_share": None if busy_s is None else 1.0 - busy_s / wall_p,
                              "device_us_by_name": dict(sorted(
                                  by_name.items(), key=lambda kv: -kv[1])[:12])}}
+    emit(info)
+    return info
+
+
+# ---------------------------------------------------------------- q7c, q5
+
+
+def build_q5(rows: list, event_count: int) -> Graph:
+    """bench.py's q5: bids -> sliding 10 s / 2 s COUNT per auction."""
+    S = Schema.of([("x", "int64"), (TIMESTAMP_FIELD, "int64")])
+    g = Graph()
+    g.add_node(Node("src", OpName.SOURCE, {
+        "connector": "nexmark", "event_count": event_count, "inter_event_micros": 1000,
+        "first_event_micros": 0, "include_strings": False, "columns": ["bid.auction"]}, 1))
+    g.add_node(Node("bids", OpName.VALUE, {
+        "projections": [("auction", Col("bid.auction"))], "filter": Col("bid")}, 1))
+    g.add_node(Node("wm", OpName.WATERMARK, {
+        "expr": Col(TIMESTAMP_FIELD), "interval_micros": 1_000_000}, 1))
+    g.add_node(Node("key", OpName.KEY, {"keys": [("auction", Col("auction"))]}, 1))
+    g.add_node(Node("agg", OpName.SLIDING_AGGREGATE, {
+        "width_micros": WIDTH, "slide_micros": SLIDE, "key_fields": ["auction"],
+        "aggregates": [("bids", "count", None)],
+        "input_dtype_of": lambda e: np.dtype(np.int64)}, 1))
+    g.add_node(Node("sink", OpName.SINK, {"connector": "vec", "rows": rows, "columnar": True}, 1))
+    g.add_edge("src", "bids", EdgeType.FORWARD, S)
+    g.add_edge("bids", "wm", EdgeType.FORWARD, S)
+    g.add_edge("wm", "key", EdgeType.FORWARD, S)
+    g.add_edge("key", "agg", EdgeType.SHUFFLE, S)
+    g.add_edge("agg", "sink", EdgeType.FORWARD, S)
+    return g
+
+
+def oracle_q5(event_count: int) -> dict:
+    """(window_start, auction) -> count over sliding 10 s / 2 s windows
+    (bench.py oracle_q5, vectorized): slide bin sb feeds the windows that
+    start at sb, sb - 2 s, ..., sb - 8 s."""
+    b = NexmarkSource({"event_count": event_count, "inter_event_micros": 1000,
+                       "first_event_micros": 0, "include_strings": False,
+                       "columns": ["bid.auction"]})._generate(np.arange(event_count, dtype=np.int64))
+    bid = b["bid"]
+    sbin = (b[TIMESTAMP_FIELD][bid] // SLIDE) * SLIDE
+    uniq, inv = np.unique(np.stack([sbin, b["bid.auction"][bid]], axis=1), axis=0,
+                          return_inverse=True)
+    cnt = np.bincount(inv.ravel(), minlength=len(uniq))
+    nb = WIDTH // SLIDE
+    starts = (uniq[:, 0][:, None] - np.arange(nb) * SLIDE).ravel()
+    auc = np.repeat(uniq[:, 1], nb)
+    w, winv = np.unique(np.stack([starts, auc], axis=1), axis=0, return_inverse=True)
+    tot = np.bincount(winv.ravel(), weights=np.repeat(cnt, nb), minlength=len(w)).astype(np.int64)
+    return {(int(a), int(c)): int(t) for (a, c), t in zip(w, tot)}
+
+
+def check_q5(rows: list, want: dict) -> dict:
+    ws = np.concatenate([b["window_start"] for b in rows]) if rows else np.empty(0, np.int64)
+    au = np.concatenate([b["auction"] for b in rows]) if rows else np.empty(0, np.int64)
+    ct = np.concatenate([b["bids"] for b in rows]) if rows else np.empty(0, np.int64)
+    got = {(int(a), int(c)): int(t) for a, c, t in zip(ws.tolist(), au.tolist(), ct.tolist())}
+    if len(got) != len(ws):
+        raise AssertionError(f"q5: {len(ws) - len(got)} (window, auction) rows emitted twice")
+    if got != want:
+        diff = next(iter(set(got.items()) ^ set(want.items())), None)
+        raise AssertionError(f"q5 parity failure: {len(got)} windows vs {len(want)}; "
+                             f"first diff {diff}")
+    return got
+
+
+def all_launch_counts() -> dict:
+    return {**kernels.launch_counts(), **segment_kernel.launch_counts()}
+
+
+def reset_all_launch_counts() -> None:
+    kernels.reset_launch_counts()
+    segment_kernel.reset_launch_counts()
+
+
+def run_chained(name: str, build, events: int, oracle, check) -> dict:
+    """A chaining-on main path: counts zeroed just before the run and read
+    just after; the chain must have run compiled, K4 once per source batch
+    of at least segment.compile.min-rows rows, K1-K3 at least once. Then a
+    second, profiled run gives the device's busy share."""
+    want = oracle(events)
+    job = f"chip-smoke-{name}"
+    reset_all_launch_counts()
+    rows, wall, eng = drive(build, events, job, chaining=True)
+    launches = all_launch_counts()
+    got = check(rows, want)
+    chained = [n for n in eng.graph.nodes if "+" in n]
+    fallbacks = recorder.events(job, "SEGMENT_FALLBACK")
+    compiled = recorder.events(job, "SEGMENT_COMPILED")
+    from arroyo_tpu_torch.metrics import registry
+
+    seg_metrics = registry.job_metrics(job)
+    min_rows = int(tcfg.config().get("segment.compile.min-rows"))
+    sizes = [min(BENCH_BATCH, events - lo) for lo in range(0, events, BENCH_BATCH)]
+    want_k4 = sum(1 for n in sizes if n >= min_rows)
+    if not chained or not compiled or fallbacks:
+        raise AssertionError(f"{name}: the chain did not run compiled: nodes {list(eng.graph.nodes)}, "
+                             f"compiled {compiled}, fallbacks {fallbacks}")
+    if not any(st.get("segment_compiled") for st in seg_metrics.get(chained[0], {}).values()):
+        raise AssertionError(f"{name}: segment_compiled is not set: {seg_metrics}")
+    if launches["segment_fused"] != want_k4:
+        raise AssertionError(f"{name}: K4 launched {launches['segment_fused']} times, "
+                             f"expected one per batch of >= {min_rows} rows ({want_k4})")
+    unlaunched = [k for k, v in launches.items() if v == 0]
+    if unlaunched:
+        raise AssertionError(f"{name} ran without launching {unlaunched}: {launches}")
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        rows_p, wall_p, _eng = drive(build, events, job + "-profiled", chaining=True)
+    check(rows_p, want)
+    by_name = device_us_by_name(prof)
+    busy_s = sum(by_name.values()) / 1e6 if by_name else None
+    info = {"phase": name, "events": events, "chaining": True, "wall_s": wall,
+            "events_per_s": events / wall, "windows": len(got), "chained_node": chained[0],
+            "segment_events": [e["message"] for e in compiled], "launches": launches,
+            "k4_expected": want_k4,
+            "profiled_run": {"wall_s": wall_p, "device_busy_s": busy_s,
+                             "device_idle_share": None if busy_s is None else 1.0 - busy_s / wall_p,
+                             "device_us_by_name": dict(sorted(
+                                 by_name.items(), key=lambda kv: -kv[1])[:14])}}
+    emit(info)
+    return info
+
+
+# ---------------------------------------------------------------- segment plans
+
+GRID_N = 65536 - 37  # odd, not a multiple of the kernel's block
+
+
+def q7_members(E) -> list:
+    c = E.Col
+    return [("value", {"projections": [("auction", c("bid.auction")), ("price", c("bid.price"))],
+                       "filter": c("bid")}),
+            ("watermark", {"expr": c(TIMESTAMP_FIELD), "interval_micros": 1_000_000}),
+            ("key", {"keys": [("auction", c("auction"))]}),
+            ("tumbling_aggregate", {"width_micros": WIDTH, "key_fields": ["auction"],
+                                    "aggregates": [("max_price", "max", c("price")),
+                                                   ("bids", "count", None)],
+                                    "input_dtype_of": lambda e: np.dtype(np.int64)})]
+
+
+def q5_members(E) -> list:
+    c = E.Col
+    return [("value", {"projections": [("auction", c("bid.auction"))], "filter": c("bid")}),
+            ("watermark", {"expr": c(TIMESTAMP_FIELD), "interval_micros": 1_000_000}),
+            ("key", {"keys": [("auction", c("auction"))]}),
+            ("sliding_aggregate", {"width_micros": WIDTH, "slide_micros": SLIDE,
+                                   "key_fields": ["auction"], "aggregates": [("bids", "count", None)],
+                                   "input_dtype_of": lambda e: np.dtype(np.int64)})]
+
+
+def q8_members(E, side: str) -> list:
+    """bench.py's q8 chains (bench.py:160-174): the auctions or the bids
+    VALUE (window-start stamp, filter) + KEY."""
+    c, win = E.Col, E.BinOp("*", E.BinOp("/", E.Col(TIMESTAMP_FIELD), E.Lit(WIDTH)), E.Lit(WIDTH))
+    if side == "auctions":
+        proj, key = [("id", c("auction.id")), (TIMESTAMP_FIELD, win)], "id"
+    else:
+        proj, key = [("auction", c("bid.auction")), (TIMESTAMP_FIELD, win)], "auction"
+    return [("value", {"projections": proj, "filter": c(side[:-1])}),
+            ("key", {"keys": [(key, c(key))]})]
+
+
+def nexmark_columns(n: int, columns: list, inter_event: int) -> dict:
+    return dict(NexmarkSource({"event_count": n, "inter_event_micros": inter_event,
+                               "first_event_micros": 0, "include_strings": False,
+                               "columns": columns})._generate(np.arange(n, dtype=np.int64)).columns)
+
+
+def grid_columns(n: int, seed: int = 20261017) -> dict:
+    """Columns of every dtype the grid reads, with their edge values:
+    negatives, zeros and -1 divisors, INT_MIN/INT_MAX, +-0.0, NaN, +-inf,
+    and negative timestamps."""
+    rng = np.random.default_rng(seed)
+    i64 = rng.integers(-(1 << 40), 1 << 40, n)
+    i64[:8] = [np.iinfo(np.int64).min, np.iinfo(np.int64).max, 0, -1, 1, -7, 7, -(1 << 62)]
+    i32 = rng.integers(-1000, 1000, n).astype(np.int32)
+    i32[:8] = [np.iinfo(np.int32).min, np.iinfo(np.int32).max, 0, -1, 1, -3, 3, -2]
+    d32 = rng.integers(-4, 5, n).astype(np.int32)  # divisors: zeros and -1 included
+    d32[:8] = [-1, -1, 0, 0, -3, 2, -1, 5]
+    f64 = rng.normal(0, 1e3, n)
+    f64[:12] = [np.nan, np.inf, -np.inf, 0.0, -0.0, 2.5, -2.5, 1e300, -1e-300, 9.3e18, -9.3e18, 3.0]
+    f32 = rng.normal(0, 50, n).astype(np.float32)
+    f32[:10] = [np.nan, -np.inf, np.inf, -0.0, 0.0, 0.5, -1.5, 3e38, -7.0, 1e-30]
+    g64 = rng.normal(0, 1e6, n)  # finite, for the float watermark
+    g64[:2] = [-0.0, 0.0]
+    b = rng.random(n) < 0.5
+    ts = rng.integers(-(10 ** 11), 10 ** 11, n)
+    ts[:4] = [-1, -10_000_000, -10_000_001, 0]
+    return {TIMESTAMP_FIELD: ts, "i32": i32, "i64": i64, "f32": f32, "f64": f64, "b": b,
+            "d32": d32, "g64": g64}
+
+
+def expression_grid(E) -> list:
+    """Every allowlisted binop over every pair of the grid's column dtypes
+    and literals, every allowlisted function, Not, Neg, Cast and CASE; the
+    one combination jax.numpy itself refuses (bool - bool) left out."""
+    c, lit = E.Col, E.Lit
+    operands = [("i32", c("i32")), ("i64", c("i64")), ("f32", c("f32")), ("f64", c("f64")),
+                ("b", c("b")), ("d32", c("d32")), ("int", lit(-3)), ("float", lit(2.5)),
+                ("bool", lit(True))]
+    bools = {"b", "bool"}
+    out = []
+    for op in sorted(seg._TRACEABLE_BINOPS):
+        for ln, le in operands:
+            for rn, re in operands:
+                if ln in ("int", "float", "bool") and rn in ("int", "float", "bool"):
+                    continue
+                if op == "-" and ln in bools and rn in bools:
+                    continue
+                if op in ("/", "%") and rn not in ("d32", "f64", "int", "float", "i32"):
+                    continue  # divisors: the columns and literals holding zeros and negatives
+                out.append((f"{ln} {op} {rn}", E.BinOp(op, le, re)))
+    cols = [(n, e) for n, e in operands if n not in ("int", "float", "bool")]
+    for name in ("abs", "floor", "ceil", "sqrt", "extract_epoch", "to_timestamp_micros"):
+        for n, e in cols:
+            out.append((f"{name}({n})", E.Func(name, (e,))))
+    for n, e in cols:
+        if n != "b":
+            out.append((f"date_trunc_micros(1000, {n})", E.Func("date_trunc_micros", (lit(1000), e))))
+            out.append((f"-{n}", E.Neg(e)))
+        out.append((f"not {n}", E.Not(e)))
+        for t in ("int32", "int64", "uint64", "float32", "float64", "bool"):
+            out.append((f"cast({n}, {t})", E.Cast(e, t)))
+    out.append(("case", E.Case(((E.BinOp("<", c("i64"), lit(0)), c("f32")), (c("b"), c("i32"))),
+                               lit(1.5))))
+    out.append(("case int", E.Case(((E.BinOp(">", c("f64"), lit(0.0)), lit(1)),), c("d32"))))
+    out.append(("nested", E.BinOp("+", E.BinOp("*", c("f32"), c("f32")), c("f64"))))
+    return out
+
+
+def segment_grid(E, chunk: int = 48) -> list:
+    """(label, member configs, hoist) of every plan K4 is held on besides
+    the nexmark ones: the expression grid in chunks of projections behind an
+    in-trace filter and a float watermark, multi-column keys (with the
+    filter hoisted), and a tumbling insert over negative timestamps."""
+    c, lit = E.Col, E.Lit
+    exprs = expression_grid(E)
+    plans = []
+    filt = E.BinOp(">", c("i32"), lit(-900))
+    for k in range(0, len(exprs), chunk):
+        part = exprs[k:k + chunk]
+        proj = [(f"e{k + j}", e) for j, (_l, e) in enumerate(part)] + [("w", c("g64"))]
+        plans.append((f"exprs {k}-{k + len(part) - 1}", [
+            ("value", {"projections": proj, "filter": filt}),
+            ("watermark", {"expr": c("w")})], False))
+    keys = [("k1", c("i32")), ("k2", c("f64")), ("k3", c("b")), ("k4", c("f32")), ("k5", c("i64"))]
+    plans.append(("watermark over NaN", [
+        ("value", {"projections": [("x", c("f64"))], "filter": None}),
+        ("watermark", {"expr": c("x")})], False))  # NaN reaches the max
+    plans.append(("multi-column key, hoisted filter", [
+        ("value", {"projections": None, "filter": c("b")}),
+        ("watermark", {"expr": c("g64")}),
+        ("watermark", {"expr": c("i32")}),
+        ("key", {"keys": keys})], True))
+    plans.append(("tumbling insert, negative timestamps", [
+        ("value", {"projections": [("auction", c("i64")), ("price", c("f32")), ("i32", c("i32")),
+                                   (TIMESTAMP_FIELD, c(TIMESTAMP_FIELD))],
+                   "filter": E.BinOp("!=", c("d32"), lit(0))}),
+        ("watermark", {"expr": c(TIMESTAMP_FIELD)}),
+        ("key", {"keys": [("auction", c("auction")), ("k2", c("i32"))]}),
+        ("tumbling_aggregate", {"width_micros": WIDTH, "key_fields": ["auction"],
+                                "aggregates": [("s", "sum", c("price")), ("n", "count", None),
+                                               ("m", "min", E.BinOp("*", c("price"), lit(2)))],
+                                "input_dtype_of": lambda e: np.dtype(np.float64)})], False))
+    return plans
+
+
+def bind_plan(members: list, batch: Batch, hoist: bool):
+    """The port's bound plan for member configs over one batch, as the
+    segment runner binds it (the insert member's key transport first)."""
+    ops = [construct_operator(OpName(op), cfg) for op, cfg in members]
+    marking = seg.segment_marking(members)
+    if marking is None:
+        raise AssertionError(f"plan not marked compilable: {seg.segment_reject_reason(members)}")
+    k = int(marking["prefix"])
+    if marking["insert"]:
+        probe = seg._bind(ops[:k - 1], k - 1, batch, probe=True)
+        ops[k - 1]._setup_key_transport(Batch(seg._reference(probe, batch)["cols"]))
+    return seg._bind(ops[:k], k, batch, hoist=hoist)
+
+
+def staged_inputs(plan, batch: Batch, dev) -> tuple[int, list]:
+    """The kernel's inputs as CompiledSegment.execute stages them: hoisted
+    filter applied, padded to _padded_size(n), on ``dev``."""
+    n = batch.num_rows
+    fm = None
+    if plan.prefilter is not None:
+        fm = np.asarray(seg.eval_expr(plan.prefilter, batch.columns, n), dtype=bool)
+        n = int(fm.sum())
+    p = seg._padded_size(n)
+    ins = []
+    for name in plan.traced_in:
+        a = np.asarray(batch.columns[name])
+        buf = np.zeros(p, dtype=a.dtype)
+        buf[:n] = a[fm] if fm is not None else a
+        if buf.dtype == np.uint64:
+            buf = buf.view(np.int64)
+        ins.append(torch.from_numpy(buf).to(dev))
+    return n, ins
+
+
+def nexmark_plans() -> list:
+    """(label, plan, batch) for the q7 and q5 insert plans at P = 65536 and
+    q8's two emit-batch plans."""
+    from arroyo_tpu_torch import expr as E
+
+    q7b = Batch(nexmark_columns(BENCH_BATCH, ["bid.auction", "bid.price"], 1000))
+    q5b = Batch(nexmark_columns(BENCH_BATCH, ["bid.auction"], 1000))
+    q8b = Batch(nexmark_columns(BENCH_BATCH - 37, ["auction.id", "bid.auction"], 100))
+    return [("q7 insert", bind_plan(q7_members(E), q7b, hoist=False), q7b),
+            ("q5 insert", bind_plan(q5_members(E), q5b, hoist=False), q5b),
+            ("q8 auctions, filter hoisted", bind_plan(q8_members(E, "auctions"), q8b, hoist=True), q8b),
+            ("q8 bids, filter in the kernel", bind_plan(q8_members(E, "bids"), q8b, hoist=False), q8b)]
+
+
+def grid_plans() -> list:
+    from arroyo_tpu_torch import expr as E
+
+    gb = Batch(grid_columns(GRID_N))
+    return [(label, bind_plan(members, gb, hoist), gb) for label, members, hoist in segment_grid(E)]
+
+
+def segment_build(out_dir: str) -> tuple[dict, list]:
+    """Compile K4 for the q7 and q5 plans (and load the rest): the generated
+    source goes to <out-dir>/segment_src/, seconds per plan to the line."""
+    dev = torch.device("cuda")
+    src_dir = os.path.join(out_dir, "segment_src")
+    os.makedirs(src_dir, exist_ok=True)
+    plans = nexmark_plans()
+    timing = {}
+    for label, plan, batch in plans:
+        t0 = time.perf_counter()
+        prog = segment_kernel.SegmentProgram(plan, [np.asarray(batch[c]).dtype for c in plan.traced_in])
+        n, ins = staged_inputs(plan, batch, dev)
+        segment_kernel.segment_fused(prog, n, ins)
+        torch.cuda.synchronize()
+        timing[label] = {"seconds": time.perf_counter() - t0, "source_lines": prog.source.count("\n"),
+                         "digest": prog.digest}
+        with open(os.path.join(src_dir, f"{label.split()[0]}_{label.split()[1].strip(',')}_{prog.digest}.py"),
+                  "w") as f:
+            f.write(prog.source)
+    info = {"phase": "segment_build", "plans": timing}
+    emit(info)
+    return info, plans
+
+
+def compare_segment(label, plan, batch, dev) -> dict:
+    """K4 against its plain version on the same CUDA tensors, byte for
+    byte: every output's dtype and bytes, the mask, and each watermark
+    stage's (max, count) as execute() reads them (int(max) when count > 0)."""
+    prog = segment_kernel.SegmentProgram(plan, [np.asarray(batch[c]).dtype for c in plan.traced_in])
+    n, ins = staged_inputs(plan, batch, dev)
+    outs_k, mask_k, aux_k = segment_kernel.segment_fused(prog, n, ins)
+    outs_p, mask_p, aux_p = segment_kernel.segment_plain(prog, n, ins)
+    torch.cuda.synchronize()
+    for name in plan.traced_out:
+        g, w = outs_k[name], outs_p[name]
+        if g.dtype != w.dtype or g.shape != w.shape:
+            raise AssertionError(f"segment {label}: {name} is {g.dtype}{tuple(g.shape)}, plain "
+                                 f"{w.dtype}{tuple(w.shape)}")
+        gb, wb = g.cpu().numpy().tobytes(), w.cpu().numpy().tobytes()
+        if gb != wb:
+            gn, wn = g.cpu().numpy(), w.cpu().numpy()
+            bad = np.flatnonzero(gn.view(f"u{gn.itemsize}") != wn.view(f"u{wn.itemsize}"))
+            raise AssertionError(f"segment {label}: {name} differs from the plain version at "
+                                 f"{len(bad)} rows, first {bad[:3].tolist()}: kernel "
+                                 f"{gn[bad[:3]].tolist()} plain {wn[bad[:3]].tolist()}")
+    if (mask_k is None) != (mask_p is None) or (
+            mask_k is not None and not torch.equal(mask_k, mask_p)):
+        raise AssertionError(f"segment {label}: the mask differs from the plain version")
+
+    def raw(aux):
+        # the max as execute() reads it (a NaN max raises there, whatever
+        # its payload), with both dtypes
+        return [(m.dtype, c.dtype, "nan" if m.dtype.is_floating_point and bool(torch.isnan(m))
+                 else m.item(), int(c)) for m, c in aux]
+
+    def pairs(aux):
+        return [(m.item() if int(c) else None, int(c)) for m, c in aux]
+
+    if raw(aux_k) != raw(aux_p):
+        raise AssertionError(f"segment {label}: watermark aux {pairs(aux_k)} != plain {pairs(aux_p)}")
+    return {"n": n, "P": ins[0].shape[0], "outputs": len(plan.traced_out),
+            "source_lines": prog.source.count("\n"), "aux": repr(pairs(aux_k))}
+
+
+def segment_phase(nex_plans: list) -> dict:
+    dev = torch.device("cuda")
+    checked = {}
+    t0 = time.perf_counter()
+    for label, plan, batch in nex_plans + grid_plans():
+        log(f"segment: check {label}")
+        checked[label] = compare_segment(label, plan, batch, dev)
+    check_s = time.perf_counter() - t0
+    # timing at q7's plan
+    label, plan, batch = nex_plans[0]
+    prog = segment_kernel.SegmentProgram(plan, [np.asarray(batch[c]).dtype for c in plan.traced_in])
+    n, ins = staged_inputs(plan, batch, dev)
+    k = measure(lambda: segment_kernel.segment_fused(prog, n, ins))
+    p = measure(lambda: segment_kernel.segment_plain(prog, n, ins))
+    P = ins[0].shape[0]
+    in_bytes = sum(t.element_size() * P for t in ins)
+    out_bytes = sum(np.dtype(prog.out_dtypes[o]).itemsize * P for o in plan.traced_out) + \
+        (P if prog.has_mask else 0)
+    timing = {"ms": k["device_ms"], "call_ms": k["call_ms"], "method": k["method"],
+              "kernel_names": k["device_kernels"], "plain_ms": p["device_ms"],
+              "plain_call_ms": p["call_ms"], "bytes": in_bytes + out_bytes,
+              "bound_ms": (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+              "library_ms": None,
+              "library": "none: no single PyTorch call computes the fused segment "
+                         "(filter, projections, splitmix64 hash, masked max/count, bins)",
+              "rows": n, "P": P}
+    info = {"phase": "segment", "plans_checked": len(checked), "check_seconds": check_s,
+            "max_abs_err": 0.0, "checked": checked, "timing_q7": timing}
     emit(info)
     return info
 
@@ -491,8 +948,16 @@ def main(argv=None) -> int:
     build_info = build(out_dir)
     log("q7")
     q7 = run_q7()
+    log("segment_build")
+    seg_build, nex_plans = segment_build(out_dir)
+    log("q7c")
+    q7c = run_chained("q7c", build_q7, Q7_EVENTS, oracle_q7, check_q7)
+    log("q5")
+    q5 = run_chained("q5", build_q5, Q5_EVENTS, oracle_q5, check_q5)
     log("kernels")
     kern = kernel_phase(torch.device("cuda"))
+    log("segment")
+    segp = segment_phase(nex_plans)
     log("done")
     q7t = kern["timing"]["q7"]
     rows = []
@@ -505,9 +970,18 @@ def main(argv=None) -> int:
                      "max_abs_err": kern["max_abs_err"][name], "ms": t["ms"],
                      "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                      "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    st = segp["timing_q7"]
+    rows.append({"name": "segment_fused", "route": "triton", "source": SEGMENT_SOURCE,
+                 "replaces": REPLACES["segment_fused"], "includes": "B1 splitmix64 key hash "
+                 "(arroyo_tpu/engine/segment.py:242-278)",
+                 "launches": q7c["launches"]["segment_fused"],
+                 "max_abs_err": segp["max_abs_err"], "ms": st["ms"], "plain_ms": st["plain_ms"],
+                 "bound_ms": st["bound_ms"], "bound_by": st["bound_by"],
+                 "library_ms": st["library_ms"]})
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
-        json.dump({"probe": probe_info, "build": build_info, "q7": q7, "kernels": kern,
-                   "summary": rows}, f, indent=1)
+        json.dump({"probe": probe_info, "build": build_info, "q7": q7,
+                   "segment_build": seg_build, "q7c": q7c, "q5": q5, "kernels": kern,
+                   "segment": segp, "summary": rows}, f, indent=1)
     emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -85,11 +85,17 @@ def _tiny_graph(rows):
 
 def test_later_slices_are_refused_not_skipped():
     from arroyo_tpu_torch.engine import Engine
+    from arroyo_tpu_torch.windows.sliding import SlidingAggregate
 
-    tcfg.update({"pipeline.chaining.enabled": True})
-    with pytest.raises(NotImplementedError, match="segment"):
-        Engine(_tiny_graph([]), device="cpu")
-    tcfg.reset()
+    # the next unported feature: a sliding window's checkpoint barrier
+    window = SlidingAggregate({"width_micros": 10, "slide_micros": 5,
+                               "aggregates": [("n", "count", None)]})
+
+    class Barrier:
+        epoch = 1
+
+    with pytest.raises(NotImplementedError, match="checkpoint"):
+        window.handle_checkpoint(Barrier(), None, None)
     with pytest.raises(NotImplementedError, match="checkpoint"):
         Engine(_tiny_graph([]), device="cpu", restore_epoch=1)
     eng = Engine(_tiny_graph([]), device="cpu")
@@ -112,3 +118,33 @@ def test_kernel_build_without_nvcc_raises(monkeypatch):
         kernels.slot_scatter_combine([torch.zeros(4, device="meta")], ["count"],
                                      torch.zeros(2, dtype=torch.int32, device="meta"), [None])
     assert kernels.launch_counts()["slot_scatter_combine"] == 0
+
+
+def test_segment_kernel_fault_on_cuda_fails_the_task_not_falls_back():
+    """On a CUDA device any fault of the fused segment kernel (here: this
+    build of torch has no CUDA, so staging the first batch fails) is a
+    KernelError that escapes the segment runner; it is never turned into a
+    SEGMENT_FALLBACK that would run the plain version instead."""
+    import chip_smoke
+    from arroyo_tpu_torch.batch import Batch
+    from arroyo_tpu_torch.engine import segment
+    from arroyo_tpu_torch.metrics import TaskMetrics
+    from arroyo_tpu_torch.obs.events import recorder
+    from arroyo_tpu_torch.operators.base import OperatorContext
+    from arroyo_tpu_torch.ops.segment_kernel import KernelError
+    from arroyo_tpu_torch.optimizer import chain_graph
+    from arroyo_tpu_torch.types import TaskInfo
+
+    tcfg.update({"segment.compile.min-rows": 0})
+    g = chain_graph(chip_smoke.build_q7([], 1000))
+    node = g.nodes["bids+wm+key+agg+sink"]
+    from arroyo_tpu_torch.engine import construct_operator
+
+    op = construct_operator(node.op, node.config)
+    ctx = OperatorContext(TaskInfo("kfault", node.node_id, "chained", 0, 1), torch.device("cuda"))
+    op._ctxs = [OperatorContext(ctx.task_info, ctx.device) for _ in op.members]
+    runner = segment.runner_for(op, ctx, TaskMetrics("kfault", node.node_id, 0))
+    batch = Batch(chip_smoke.nexmark_columns(512, ["bid.auction", "bid.price"], 1000))
+    with pytest.raises(KernelError, match="segment kernel K4 on cuda"):
+        runner.process_batch(batch, ctx, None)
+    assert recorder.events("kfault", "SEGMENT_FALLBACK") == []

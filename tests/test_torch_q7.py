@@ -230,3 +230,26 @@ def test_string_keyed_window_matches_jax():
 
     assert canon(trows) == canon(jrows)
     assert len(trows) > 8
+
+
+def test_q7_chained_matches_jax_engine_and_oracle():
+    """bench.py's setting: operator chaining on (here with every batch
+    compiled, segment.compile.min-rows 0), in both packages. The port's
+    bids+wm+key+agg+sink chain runs its prefix through the compiled segment
+    and still gives the JAX engine's windows and the oracle's."""
+    from arroyo_tpu import config as jcfg
+    from arroyo_tpu.obs.events import recorder as jrecorder
+    from arroyo_tpu_torch.obs.events import recorder as trecorder
+
+    chained = {"pipeline.chaining.enabled": True, "segment.compile.min-rows": 0}
+    tcfg.update(chained)
+    jcfg.update(chained)
+    jrows, trows = [], []
+    jax_run_graph(build_q7((jbatch, jexpr, jgraph), jrows, EVENTS), job_id="q7c-jax")
+    eng = torch_run_graph(build_q7((tbatch, texpr, tgraph), trows, EVENTS), job_id="q7c-torch",
+                          device="cpu")
+    assert list(eng.graph.nodes) == ["src", "bids+wm+key+agg+sink"]
+    got = windows(trows)
+    assert got == windows(jrows) == oracle_q7(EVENTS)
+    assert [e["code"] for e in trecorder.events("q7c-torch")] == ["SEGMENT_COMPILED"]
+    assert "SEGMENT_FALLBACK" not in [e["code"] for e in jrecorder.events("q7c-jax")]
