@@ -3,7 +3,10 @@ config is a separate object, so tests can load both packages in one
 process without one reset clearing the other).
 
 Only the sections the port reads: ``pipeline``, ``worker``,
-``engine.coalesce``, ``segment.compile`` and ``device``.
+``engine.coalesce``, ``segment.compile`` and ``device``. The JAX package
+reads ``device.join-min-rows`` and ``device.force-device-join`` with
+defaults and has no entry for them; the port lists them here with the same
+defaults and meaning.
 ``device.torch-device`` names the torch device (None = ``cuda``; see
 device.py).
 """
@@ -52,6 +55,14 @@ _DEFAULTS: dict[str, Any] = {
     },
     "device": {
         "torch-device": None,  # None = cuda (device.resolve_device)
+        # operators that can lower to the device do so (the join's default
+        # backend; the JAX package's key of the same name)
+        "enabled": True,
+        # a window's join goes to the device only when one of its sides has
+        # at least this many rows (below it the host probe is cheaper)
+        "join-min-rows": 2048,
+        # take the device join even where the device is the host CPU (tests)
+        "force-device-join": False,
         "batch-capacity": 8192,  # rows per aggregator update chunk
         "table-capacity": 65536,  # slots of keyed window state on the device
         "region-size": 2048,  # slots per region (one window close reads whole regions)

@@ -50,7 +50,7 @@ def load_operators() -> None:
     """Import every operator/connector module of the port so that its
     constructor registers."""
     from .. import connectors
-    from ..operators import builtin, chained  # noqa: F401
+    from ..operators import builtin, chained, joins  # noqa: F401
     from ..windows import sliding, tumbling  # noqa: F401
 
     connectors.load_all()
@@ -99,7 +99,19 @@ class Engine:
                 if n_inputs:
                     self._inboxes[(nid, s)] = TaskInbox(n_inputs, queue_size)
         for nid, node in g.nodes.items():
-            n_inputs = sum(g.nodes[e.src].parallelism for e in g.in_edges(nid))
+            in_edges = g.in_edges(nid)
+            n_inputs = sum(g.nodes[e.src].parallelism for e in in_edges)
+
+            def edge_of_input(i, _edges=in_edges, _g=g):
+                # flat input index -> (edge index, upstream subtask)
+                base = 0
+                for ei, e in enumerate(_edges):
+                    p = _g.nodes[e.src].parallelism
+                    if i < base + p:
+                        return (ei, i - base)
+                    base += p
+                raise IndexError(i)
+
             for s in range(node.parallelism):
                 ti = TaskInfo(self.job_id, nid, node.op.value, s, node.parallelism)
                 out_edges = []
@@ -120,7 +132,7 @@ class Engine:
                 operator = construct_operator(node.op, node.config)
                 self.tasks[(nid, s)] = Task(
                     ti, operator, self._inboxes.get((nid, s)), Collector(out_edges, s),
-                    OperatorContext(ti, self.device), self.resp_queue, n_inputs=n_inputs)
+                    OperatorContext(ti, self.device, edge_of_input), self.resp_queue, n_inputs=n_inputs)
 
     # -------------------------------------------------------------- running
 

@@ -909,6 +909,8 @@ class SegmentRunner:
         cols = chain._chain_cols(collector)
         plan = self._entry.plan
         k = res["n"]
+        if res["cols"]:  # a batch the hoisted filter emptied launched nothing
+            self.metrics.segment_batches += 1
         if plan.insert is not None:
             if k:
                 m = chain.members[plan.insert.member_index]

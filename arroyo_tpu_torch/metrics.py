@@ -1,7 +1,8 @@
 """Per-task metrics (the port's minimal copy of arroyo_tpu/metrics.py): for
 now the compiled segment's state, ``segment_compiled`` (None until a
-chained task decides, then True or False) and ``segment_reason`` (why a
-segment runs interpreted). Counters, histograms and their exposition are a
+chained task decides, then True or False), ``segment_reason`` (why a
+segment runs interpreted) and ``segment_batches`` (batches that ran through
+the segment kernel). Counters, histograms and their exposition are a
 later slice of the port."""
 
 from __future__ import annotations
@@ -11,7 +12,8 @@ from typing import Optional
 
 
 class TaskMetrics:
-    __slots__ = ("job_id", "node_id", "subtask", "segment_compiled", "segment_reason")
+    __slots__ = ("job_id", "node_id", "subtask", "segment_compiled", "segment_reason",
+                 "segment_batches")
 
     def __init__(self, job_id: str, node_id: str, subtask: int):
         self.job_id = job_id
@@ -19,6 +21,7 @@ class TaskMetrics:
         self.subtask = subtask
         self.segment_compiled: Optional[bool] = None
         self.segment_reason: Optional[str] = None
+        self.segment_batches = 0
 
 
 class MetricsRegistry:

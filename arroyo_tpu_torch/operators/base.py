@@ -7,7 +7,7 @@ tables are not part of the port yet, and the checkpoint hook raises.
 
 from __future__ import annotations
 
-from typing import TYPE_CHECKING, Optional
+from typing import TYPE_CHECKING, Callable, Optional
 
 import torch
 
@@ -21,12 +21,19 @@ if TYPE_CHECKING:
 class OperatorContext:
     """Per-subtask context handed to operator hooks. ``device`` is the torch
     device the engine resolved; operators that hold device state build it
-    there and nowhere else."""
+    there and nowhere else. ``in_edge_of_input`` maps a flat input index to
+    (edge index, upstream subtask); a two-input operator (a join) reads its
+    side from it."""
 
-    def __init__(self, task_info: TaskInfo, device: torch.device):
+    def __init__(self, task_info: TaskInfo, device: torch.device,
+                 in_edge_of_input: Optional[Callable[[int], tuple[int, int]]] = None):
         self.task_info = task_info
         self.device = device
         self.last_watermark: Optional[Watermark] = None
+        self._in_edge_of_input = in_edge_of_input or (lambda i: (0, i))
+
+    def edge_of_input(self, input_index: int) -> int:
+        return self._in_edge_of_input(input_index)[0]
 
     def watermark(self) -> Optional[int]:
         """Current event-time watermark in micros (None if idle/unset)."""

@@ -15,10 +15,10 @@ the library with nvcc at first use) or raises; it takes the plain PyTorch
 version (``*_plain``, beside it) only for tensors on the CPU. Each wrapper
 counts its launches in ``<wrapper>.launches``.
 
-The library is built for sm_90a into ``arroyo_tpu_torch/build/``, named by
-a digest of the source and flags, so an edit rebuilds, and written under
-a temporary name first, so a concurrent build never loads a half-written
-file.
+Every ``csrc/<name>.cu`` builds the same way (``build_source``): for sm_90a
+into ``arroyo_tpu_torch/build/``, named by a digest of the source and
+flags, so an edit rebuilds, and written under a temporary name first, so a
+concurrent build never loads a half-written file.
 """
 
 from __future__ import annotations
@@ -31,7 +31,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -39,7 +39,6 @@ import torch
 from .aggregate import _identity
 
 _PKG = Path(__file__).resolve().parents[1]
-SOURCE = _PKG / "csrc" / "slot_agg.cu"
 BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -53,10 +52,11 @@ _NP = {torch.int32: np.dtype(np.int32), torch.int64: np.dtype(np.int64),
 _BITS = {torch.int32: np.uint32, torch.int64: np.uint64,
          torch.float32: np.uint32, torch.float64: np.uint64}
 
-_lib: Optional[ctypes.CDLL] = None
-_lib_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}  # source name -> loaded library
+_build_locks: dict[str, threading.Lock] = {}
+_locks_lock = threading.Lock()
 _count_lock = threading.Lock()  # subtasks launch from their own threads
-build_info: dict = {}  # set by build_library: path, seconds, cached, log
+build_info: dict[str, dict] = {}  # source name -> path, seconds, cached, log
 
 
 def _find_nvcc() -> str:
@@ -70,47 +70,61 @@ def _find_nvcc() -> str:
             return c
     raise RuntimeError(
         "nvcc not found (looked in $CUDA_HOME/bin, $PATH and /usr/local/cuda/bin): "
-        "the slot aggregator's CUDA kernels cannot be built")
+        "the port's CUDA kernels cannot be built")
 
 
-def build_library() -> ctypes.CDLL:
-    """Compile csrc/slot_agg.cu with nvcc (once per source digest) and load
-    it. Raises RuntimeError when nvcc is missing or the build fails."""
-    global _lib
-    with _lib_lock:
-        if _lib is not None:
-            return _lib
-        src = SOURCE.read_bytes()
+def build_source(name: str, bind: Callable[[ctypes.CDLL], None]) -> ctypes.CDLL:
+    """Compile csrc/<name>.cu with nvcc into build/lib<name>_<digest>.so
+    (once per digest of the source and flags), load it and let ``bind`` set
+    its argument types. Each source has its own lock, so different sources
+    build in parallel. Raises RuntimeError when nvcc is missing or the
+    build fails."""
+    with _locks_lock:
+        lock = _build_locks.setdefault(name, threading.Lock())
+    with lock:
+        if name in _libs:
+            return _libs[name]
+        source = _PKG / "csrc" / f"{name}.cu"
+        src = source.read_bytes()
         digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-        out = BUILD_DIR / f"libslot_agg_{digest}.so"
+        out = BUILD_DIR / f"lib{name}_{digest}.so"
         t0 = time.perf_counter()
         log = ""
         cached = out.exists()
         if not cached:
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = BUILD_DIR / f".libslot_agg_{digest}.{os.getpid()}.{threading.get_ident()}.so"
-            cmd = [_find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
+            tmp = BUILD_DIR / f".lib{name}_{digest}.{os.getpid()}.{threading.get_ident()}.so"
+            cmd = [_find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
             proc = subprocess.run(cmd, capture_output=True, text=True)
             log = proc.stdout + proc.stderr
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
             os.replace(tmp, out)
         lib = ctypes.CDLL(str(out))
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        pp = ctypes.POINTER(ctypes.c_void_p)
-        ip = ctypes.POINTER(ctypes.c_int)
-        llp = ctypes.POINTER(ctypes.c_longlong)
-        ullp = ctypes.POINTER(ctypes.c_ulonglong)
-        lib.arroyo_slot_scatter_combine.argtypes = [i, pp, pp, ip, ip, i, p, i, ll, ll, p]
-        lib.arroyo_slot_region_read_pack.argtypes = [i, pp, ip, i, llp, i, ll, p, p, p]
-        lib.arroyo_slot_region_clear.argtypes = [i, pp, ip, ullp, i, llp, i, ll, p]
-        for fn in (lib.arroyo_slot_scatter_combine, lib.arroyo_slot_region_read_pack,
-                   lib.arroyo_slot_region_clear):
-            fn.restype = ctypes.c_int
-        build_info.update(path=str(out), seconds=time.perf_counter() - t0,
-                          cached=cached, log=log)
-        _lib = lib
+        bind(lib)
+        build_info[name] = dict(path=str(out), seconds=time.perf_counter() - t0,
+                                cached=cached, log=log)
+        _libs[name] = lib
         return lib
+
+
+def _bind_slot_agg(lib: ctypes.CDLL) -> None:
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    pp = ctypes.POINTER(ctypes.c_void_p)
+    ip = ctypes.POINTER(ctypes.c_int)
+    llp = ctypes.POINTER(ctypes.c_longlong)
+    ullp = ctypes.POINTER(ctypes.c_ulonglong)
+    lib.arroyo_slot_scatter_combine.argtypes = [i, pp, pp, ip, ip, i, p, i, ll, ll, p]
+    lib.arroyo_slot_region_read_pack.argtypes = [i, pp, ip, i, llp, i, ll, p, p, p]
+    lib.arroyo_slot_region_clear.argtypes = [i, pp, ip, ullp, i, llp, i, ll, p]
+    for fn in (lib.arroyo_slot_scatter_combine, lib.arroyo_slot_region_read_pack,
+               lib.arroyo_slot_region_clear):
+        fn.restype = ctypes.c_int
+
+
+def build_library() -> ctypes.CDLL:
+    """The slot aggregator's library (csrc/slot_agg.cu)."""
+    return build_source("slot_agg", _bind_slot_agg)
 
 
 def _counted(wrapper) -> None:

@@ -10,8 +10,9 @@ non-zero, printing no result):
 
 1. probe   -- the card (nvidia-smi name and power limit), torch's CUDA
               version, the device capability (expect (9, 0)), nvcc's version;
-2. build   -- the slot-aggregator kernels (arroyo_tpu_torch/csrc/slot_agg.cu)
-              with nvcc for sm_90a;
+2. build   -- every CUDA source of arroyo_tpu_torch/csrc/ (the slot
+              aggregator's slot_agg.cu, the join probe's join_probe.cu) with
+              nvcc for sm_90a, one nvcc per source, all started together;
 3. q7      -- Nexmark q7 through the port's run_graph on the GPU at the size
               bench.py measures (2,000,000 events, batch 65536, table 65536,
               region 2048) in the package's default configuration (chaining
@@ -41,12 +42,26 @@ non-zero, printing no result):
               plans, q8's two emit-batch plans (filter hoisted and not), an
               expression grid over every allowlisted operator and function
               and int32/int64/float32/float64/bool columns with their edge
-              values, all at an odd row count; then timed at q7's plan.
+              values, all at an odd row count; then timed at q7's plan;
+9. q8c     -- bench.py's q8 (auctions JOIN bids per tumbling 10 s window,
+              events 100 us apart) at its own setting: 500,000 events,
+              chaining on, batch 65536, queue 1 x 65536. Exact parity with a
+              copy of bench.py's oracle_q8; K5/K6 launched once per window
+              whose sides both hold rows and one holds >= device.join-min-rows;
+              K4 batches per chain, no SEGMENT_FALLBACK; then a profiled run;
+10. join   -- the join probe's kernels K5 (join_sort_pairs) and K6
+              (join_search_bounds, csrc/join_probe.cu) against their plain
+              versions on the card, exactly (order, lo, hi and the expanded
+              (li, ri) pairs): at q8's shape with q8's own keys, at a
+              deployment-size window (1,048,576 probe x 16,777,216 build
+              rows) and on edge cases (empty sides, INT64_MAX and INT64_MIN
+              keys, one key everywhere, negative keys, sizes that are not
+              powers of two); then timed like K1-K3.
 
 Then the {"kernels": [...]} line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Details go to <out-dir>/chip_smoke.json, the
-nvcc/ptxas log to <out-dir>/slot_agg_build.log and the generated K4 sources
-to <out-dir>/segment_src/ (``--out-dir``, default chip_smoke_out/). A K4
+nvcc/ptxas logs to <out-dir>/<source>_build.log and the generated K4 sources
+to <out-dir>/segment_src/ (``--out-dir``, default chip_smoke_out/). A kernel's
 build or launch error fails the run: the port never falls back to the plain
 version on the card.
 
@@ -73,30 +88,39 @@ from arroyo_tpu_torch.batch import TIMESTAMP_FIELD, Batch, Schema
 from arroyo_tpu_torch.connectors.nexmark import NexmarkSource
 from arroyo_tpu_torch.engine import construct_operator, run_graph
 from arroyo_tpu_torch.engine import segment as seg
-from arroyo_tpu_torch.expr import Col
+from arroyo_tpu_torch.expr import BinOp, Col, Lit
 from arroyo_tpu_torch.graph import EdgeType, Graph, Node, OpName
 from arroyo_tpu_torch.obs.events import recorder
-from arroyo_tpu_torch.ops import kernels, segment_kernel
+from arroyo_tpu_torch.hashing import hash_columns
+from arroyo_tpu_torch.metrics import registry
+from arroyo_tpu_torch.ops import join_kernels, join_probe, kernels, segment_kernel
 from arroyo_tpu_torch.ops.aggregate import _identity
 
 WIDTH = 10_000_000
 SLIDE = 2_000_000
 Q7_EVENTS = 2_000_000
 Q5_EVENTS = Q7_EVENTS // 2  # bench.py runs q5 at events // 2
+Q8_EVENTS = Q7_EVENTS // 4  # bench.py runs q8 at events // 4, queue 1 x batch
 BENCH_BATCH = 65536
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 SOURCE = "arroyo_tpu_torch/csrc/slot_agg.cu"
+JOIN_SOURCE = "arroyo_tpu_torch/csrc/join_probe.cu"
 REPLACES = {
     "slot_scatter_combine": "arroyo_tpu/ops/slot_agg.py:285",  # _build_slot_jax step / step_merge
     "slot_region_read_pack": "arroyo_tpu/ops/slot_agg.py:338",  # make_read_multi.go / _pack
     "slot_region_clear": "arroyo_tpu/ops/slot_agg.py:322",  # _clear / clear
     "segment_fused": "arroyo_tpu/engine/segment.py:511",  # _trace_fn.fn, with B1 (:242-278)
+    "join_sort_pairs": "arroyo_tpu/ops/join_probe.py:82",  # _probe_jit.probe: argsort
+    "join_search_bounds": "arroyo_tpu/ops/join_probe.py:82",  # _probe_jit.probe: searchsorted
 }
 SEGMENT_SOURCE = "arroyo_tpu_torch/ops/segment_kernel.py"
 SUM_RTOL = {torch.float64: 1e-12, torch.float32: 1e-5}
 NP_DT = {torch.int32: np.int32, torch.int64: np.int64,
          torch.float32: np.float32, torch.float64: np.float64}
 TIMING_REPS = 30
+# the kernels q7c and q5 must launch (K1-K3, K4); q8c's are K4, K5, K6
+AGG_PATH_KERNELS = ("slot_scatter_combine", "slot_region_read_pack", "slot_region_clear",
+                    "segment_fused")
 WATCHDOG_S = 1100  # dump every thread's stack and exit before the 1200 s limit
 _T0 = time.perf_counter()
 
@@ -129,15 +153,21 @@ def probe() -> tuple[str, dict]:
 
 
 def build(out_dir: str) -> dict:
+    """Every csrc/*.cu, one nvcc each, all started together."""
+    from concurrent.futures import ThreadPoolExecutor
+
     t0 = time.perf_counter()
-    kernels.build_library()
-    info = {"phase": "build", "seconds": time.perf_counter() - t0,
-            "nvcc_seconds": kernels.build_info["seconds"],
-            "cached": kernels.build_info["cached"], "library": kernels.build_info["path"],
-            "ptxas": [ln.strip() for ln in kernels.build_info["log"].splitlines()
+    with ThreadPoolExecutor(2) as pool:
+        for f in [pool.submit(kernels.build_library), pool.submit(join_kernels.build_library)]:
+            f.result()
+    info = {"phase": "build", "seconds": time.perf_counter() - t0, "sources": {}}
+    for name, b in kernels.build_info.items():
+        info["sources"][name] = {
+            "nvcc_seconds": b["seconds"], "cached": b["cached"], "library": b["path"],
+            "ptxas": [ln.strip() for ln in b["log"].splitlines()
                       if "registers" in ln or "spill" in ln]}
-    with open(os.path.join(out_dir, "slot_agg_build.log"), "w") as f:
-        f.write(kernels.build_info["log"])
+        with open(os.path.join(out_dir, f"{name}_build.log"), "w") as f:
+            f.write(b["log"])
     emit(info)
     return info
 
@@ -189,24 +219,25 @@ def oracle_q7(event_count: int) -> dict:
     return {(int(u[0]), int(u[1])): (int(m), int(c)) for u, m, c in zip(uniq, mx, cnt)}
 
 
-def bench_config(chaining: bool) -> None:
+def bench_config(chaining: bool, queue_mult: int = 2) -> None:
     """bench.py's sizes (bench.py:1046-1060, run_config): source batch
-    65536, queue 2 x 65536, table 65536 slots, region 2048; chaining as
-    given (bench.py runs with it on)."""
+    65536, queue queue_mult x 65536 (bench.py: 2, and 1 for q8), table 65536
+    slots, region 2048; chaining as given (bench.py runs with it on)."""
     tcfg.reset()
     tcfg.update({
         "pipeline.source-batch-size": BENCH_BATCH,
         "device.batch-capacity": BENCH_BATCH,
-        "worker.queue-size": 2 * BENCH_BATCH,
+        "worker.queue-size": queue_mult * BENCH_BATCH,
         "device.table-capacity": 65536,
         "device.region-size": 2048,
         "pipeline.chaining.enabled": chaining,
     })
 
 
-def drive(build, events: int, job_id: str, chaining: bool) -> tuple[list, float, object]:
+def drive(build, events: int, job_id: str, chaining: bool,
+          queue_mult: int = 2) -> tuple[list, float, object]:
     """One run through the port's run_graph (default device: CUDA)."""
-    bench_config(chaining)
+    bench_config(chaining, queue_mult)
     rows: list = []
     g = build(rows, events)
     recorder.clear_job(job_id)
@@ -330,12 +361,14 @@ def check_q5(rows: list, want: dict) -> dict:
 
 
 def all_launch_counts() -> dict:
-    return {**kernels.launch_counts(), **segment_kernel.launch_counts()}
+    return {**kernels.launch_counts(), **segment_kernel.launch_counts(),
+            **join_kernels.launch_counts()}
 
 
 def reset_all_launch_counts() -> None:
     kernels.reset_launch_counts()
     segment_kernel.reset_launch_counts()
+    join_kernels.reset_launch_counts()
 
 
 def run_chained(name: str, build, events: int, oracle, check) -> dict:
@@ -352,8 +385,6 @@ def run_chained(name: str, build, events: int, oracle, check) -> dict:
     chained = [n for n in eng.graph.nodes if "+" in n]
     fallbacks = recorder.events(job, "SEGMENT_FALLBACK")
     compiled = recorder.events(job, "SEGMENT_COMPILED")
-    from arroyo_tpu_torch.metrics import registry
-
     seg_metrics = registry.job_metrics(job)
     min_rows = int(tcfg.config().get("segment.compile.min-rows"))
     sizes = [min(BENCH_BATCH, events - lo) for lo in range(0, events, BENCH_BATCH)]
@@ -366,24 +397,295 @@ def run_chained(name: str, build, events: int, oracle, check) -> dict:
     if launches["segment_fused"] != want_k4:
         raise AssertionError(f"{name}: K4 launched {launches['segment_fused']} times, "
                              f"expected one per batch of >= {min_rows} rows ({want_k4})")
-    unlaunched = [k for k, v in launches.items() if v == 0]
+    unlaunched = [k for k in AGG_PATH_KERNELS if launches[k] == 0]
     if unlaunched:
         raise AssertionError(f"{name} ran without launching {unlaunched}: {launches}")
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        rows_p, wall_p, _eng = drive(build, events, job + "-profiled", chaining=True)
-    check(rows_p, want)
-    by_name = device_us_by_name(prof)
-    busy_s = sum(by_name.values()) / 1e6 if by_name else None
     info = {"phase": name, "events": events, "chaining": True, "wall_s": wall,
             "events_per_s": events / wall, "windows": len(got), "chained_node": chained[0],
             "segment_events": [e["message"] for e in compiled], "launches": launches,
             "k4_expected": want_k4,
-            "profiled_run": {"wall_s": wall_p, "device_busy_s": busy_s,
-                             "device_idle_share": None if busy_s is None else 1.0 - busy_s / wall_p,
-                             "device_us_by_name": dict(sorted(
-                                 by_name.items(), key=lambda kv: -kv[1])[:14])}}
+            "profiled_run": profiled_run(build, events, job + "-profiled", check, want)}
+    emit(info)
+    return info
+
+
+def profiled_run(build, events: int, job: str, check, want, queue_mult: int = 2) -> dict:
+    """One more chaining-on run under torch.profiler: the device's busy and
+    idle share of the run's wall time, and its top device operations."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        rows_p, wall_p, _eng = drive(build, events, job, chaining=True, queue_mult=queue_mult)
+    check(rows_p, want)
+    by_name = device_us_by_name(prof)
+    busy_s = sum(by_name.values()) / 1e6 if by_name else None  # None: not measured
+    return {"wall_s": wall_p, "device_busy_s": busy_s,
+            "device_idle_share": None if busy_s is None else 1.0 - busy_s / wall_p,
+            "device_us_by_name": dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:14])}
+
+
+# ---------------------------------------------------------------- q8c
+
+
+def q8_graph(B, E, G, rows: list, event_count: int, backend: str = "jax"):
+    """bench.py's q8 (bench.py:149-196) over either package's modules (B, E,
+    G: its batch, expr and graph modules): auctions JOIN bids on auction id
+    within tumbling 10 s windows, events 100 us apart, the watermark floored
+    to the window start, rows stamped with their window start."""
+    S = B.Schema.of([("x", "int64"), (B.TIMESTAMP_FIELD, "int64")])
+    members = {side: q8_members(E, side) for side in ("auctions", "bids")}
+    win = members["auctions"][0][1]["projections"][1][1]
+    g = G.Graph()
+    g.add_node(G.Node("src", G.OpName.SOURCE, {
+        "connector": "nexmark", "event_count": event_count, "inter_event_micros": 100,
+        "first_event_micros": 0, "include_strings": False,
+        "columns": ["auction.id", "bid.auction"]}, 1))
+    g.add_node(G.Node("wm", G.OpName.WATERMARK, {"expr": win}, 1))
+    for side, (val, key) in members.items():
+        g.add_node(G.Node(side, G.OpName.VALUE, val[1], 1))
+        g.add_node(G.Node(side[0] + "key", G.OpName.KEY, key[1], 1))
+    g.add_node(G.Node("join", G.OpName.INSTANT_JOIN, {
+        "join_type": "inner", "left_names": [("id", "id")],
+        "right_names": [("bid_auction", "auction")], "backend": backend}, 1))
+    g.add_node(G.Node("sink", G.OpName.SINK, {
+        "connector": "vec", "rows": rows, "columnar": True,
+        "include_internal": True}, 1))  # the join's window rides _timestamp
+    for a, b, t in [("src", "wm", G.EdgeType.FORWARD), ("wm", "auctions", G.EdgeType.FORWARD),
+                    ("wm", "bids", G.EdgeType.FORWARD), ("auctions", "akey", G.EdgeType.FORWARD),
+                    ("bids", "bkey", G.EdgeType.FORWARD), ("akey", "join", G.EdgeType.LEFT_JOIN),
+                    ("bkey", "join", G.EdgeType.RIGHT_JOIN), ("join", "sink", G.EdgeType.FORWARD)]:
+        g.add_edge(a, b, t, S)
+    return g
+
+
+def build_q8(rows: list, event_count: int) -> Graph:
+    from arroyo_tpu_torch import batch as B
+    from arroyo_tpu_torch import expr as E
+    from arroyo_tpu_torch import graph as G
+
+    return q8_graph(B, E, G, rows, event_count)
+
+
+def q8_events(event_count: int) -> dict:
+    return nexmark_columns(event_count, ["auction.id", "bid.auction"], 100)
+
+
+def oracle_q8(event_count: int) -> dict:
+    """(window_start, auction_id) -> n_auction_events * n_bid_events
+    (bench.py oracle_q8, over the port's generator)."""
+    b = q8_events(event_count)
+    w = (b[TIMESTAMP_FIELD] // WIDTH) * WIDTH
+
+    def counts(mask, ids):
+        uniq, c = np.unique(np.stack([w[mask], ids[mask]], axis=1), axis=0, return_counts=True)
+        return {(int(u[0]), int(u[1])): int(n) for u, n in zip(uniq, c)}
+
+    na = counts(b["auction"], b["auction.id"])
+    nb = counts(b["bid"], b["bid.auction"])
+    return {k: na[k] * nb[k] for k in na.keys() & nb.keys()}
+
+
+def q8_window_sides(event_count: int) -> dict:
+    """window_start -> (auction rows, bid rows) of the join's two inputs."""
+    b = q8_events(event_count)
+    w = (b[TIMESTAMP_FIELD] // WIDTH) * WIDTH
+    return {int(t): (int((b["auction"] & (w == t)).sum()), int((b["bid"] & (w == t)).sum()))
+            for t in np.unique(w)}
+
+
+def check_q8(rows: list, want: dict) -> int:
+    """bench.py's check_parity_q8, vectorized: the emitted rows counted per
+    (window, id) equal the oracle's; every row joins equal ids. Returns the
+    number of rows."""
+    w = np.concatenate([b[TIMESTAMP_FIELD] for b in rows]) if rows else np.empty(0, np.int64)
+    ids = np.concatenate([b["id"] for b in rows]) if rows else np.empty(0, np.int64)
+    bid_auction = (np.concatenate([b["bid_auction"] for b in rows]) if rows
+                   else np.empty(0, np.int64))
+    if not np.array_equal(ids, bid_auction):
+        raise AssertionError("q8: a row joins an auction with another auction's bid")
+    uniq, c = np.unique(np.stack([w, ids], axis=1), axis=0, return_counts=True)
+    got = {(int(u[0]), int(u[1])): int(n) for u, n in zip(uniq, c)}
+    if got != want:
+        diff = next(iter(set(got.items()) ^ set(want.items())), None)
+        raise AssertionError(f"q8 parity failure: {len(got)} (window, id) groups vs "
+                             f"{len(want)}; first diff {diff}")
+    return len(w)
+
+
+def run_q8c() -> dict:
+    """q8 at bench.py's setting, the join's main path: counts zeroed just
+    before the run and read just after. K5 and K6 must launch once per
+    window whose sides both hold rows and one holds at least
+    device.join-min-rows; the bids chain's K4 once per source batch of at
+    least segment.compile.min-rows rows; no SEGMENT_FALLBACK. Then a
+    profiled run."""
+    want = oracle_q8(Q8_EVENTS)
+    job = "chip-smoke-q8c"
+    reset_all_launch_counts()
+    rows, wall, eng = drive(build_q8, Q8_EVENTS, job, chaining=True, queue_mult=1)
+    launches = all_launch_counts()
+    n_rows = check_q8(rows, want)
+    join_min = int(tcfg.config().get("device.join-min-rows"))
+    seg_min = int(tcfg.config().get("segment.compile.min-rows"))
+    sides = q8_window_sides(Q8_EVENTS)
+    want_probe = sum(1 for a, b in sides.values() if a and b and max(a, b) >= join_min)
+    sizes = [min(BENCH_BATCH, Q8_EVENTS - lo) for lo in range(0, Q8_EVENTS, BENCH_BATCH)]
+    chains = {}
+    seg_metrics = registry.job_metrics(job)
+    for node in eng.graph.nodes:
+        if "+" in node:
+            st = seg_metrics.get(node, {}).get(0, {})
+            chains[node] = {"k4_batches": registry.task(job, node, 0).segment_batches,
+                            "segment_compiled": st.get("segment_compiled"),
+                            "segment_reason": st.get("segment_reason")}
+    fallbacks = recorder.events(job, "SEGMENT_FALLBACK")
+    if set(chains) != {"auctions+akey", "bids+bkey"} or fallbacks:
+        raise AssertionError(f"q8c: chains {chains}, fallbacks {fallbacks}")
+    if launches["segment_fused"] != sum(c["k4_batches"] for c in chains.values()):
+        raise AssertionError(f"q8c: K4 launched {launches['segment_fused']} times, the chains "
+                             f"count {chains}")
+    if chains["bids+bkey"]["k4_batches"] != sum(1 for n in sizes if n >= seg_min):
+        raise AssertionError(f"q8c: the bids chain ran {chains['bids+bkey']['k4_batches']} "
+                             f"batches through K4, expected one per batch of >= {seg_min} rows")
+    for k in ("join_sort_pairs", "join_search_bounds"):
+        if launches[k] != want_probe:
+            raise AssertionError(f"q8c: {k} launched {launches[k]} times, expected one per "
+                                 f"window with a side of >= {join_min} rows ({want_probe})")
+    info = {"phase": "q8c", "events": Q8_EVENTS, "chaining": True, "queue_rows": BENCH_BATCH,
+            "wall_s": wall, "events_per_s": Q8_EVENTS / wall, "output_rows": n_rows,
+            "groups": len(want), "windows": {str(t): list(v) for t, v in sides.items()},
+            "launches": launches, "probe_expected": want_probe, "chains": chains,
+            "profiled_run": profiled_run(build_q8, Q8_EVENTS, job + "-profiled", check_q8, want,
+                                         queue_mult=1)}
+    emit(info)
+    return info
+
+
+# ---------------------------------------------------------------- join kernels
+
+
+def q8_join_keys() -> tuple[np.ndarray, np.ndarray]:
+    """The probe (auctions) and build (bids) keys of q8's fullest window, as
+    the KEY operator hashes them and the join views them (int64)."""
+    b = q8_events(Q8_EVENTS)
+    w = (b[TIMESTAMP_FIELD] // WIDTH) * WIDTH
+    sides = q8_window_sides(Q8_EVENTS)
+    t = max(sides, key=lambda k: sides[k][1])
+    a, bid = b["auction"] & (w == t), b["bid"] & (w == t)
+    return (hash_columns([b["auction.id"][a]]).view(np.int64),
+            hash_columns([b["bid.auction"][bid]]).view(np.int64))
+
+
+def join_edge_cases(rng) -> list:
+    """(label, probe keys, build keys) of the edge cases, 0 to 10,007 rows:
+    empty sides, real INT64_MAX and INT64_MIN keys on both sides, one key
+    everywhere, negative keys, sizes that are not powers of two."""
+    i64 = np.iinfo(np.int64)
+    small = rng.integers(-50, 50, 10_007).astype(np.int64)
+    some = hash_columns([rng.integers(0, 300, 1000)]).view(np.int64)
+    cases = [("empty probe", np.empty(0, np.int64), some),
+             ("empty build", some[:700], np.empty(0, np.int64)),
+             ("both empty", np.empty(0, np.int64), np.empty(0, np.int64)),
+             ("INT64_MAX keys", np.array([i64.max, 5, i64.max, -3]),
+              np.array([i64.max, 7, -3, i64.max, i64.max, 5])),
+             ("INT64_MIN keys", np.array([i64.min, 0, i64.min]),
+              np.array([0, i64.min, 9, i64.min])),
+             ("one key everywhere", np.full(99, 42, np.int64), np.full(3001, 42, np.int64)),
+             ("negative keys", -rng.integers(1, 1000, 2049), -rng.integers(1, 1000, 4095)),
+             ("odd sizes", small[:63], small)]
+    for n in (1, 3, 65, 2047, 2049, 4097):
+        cases.append((f"{n} build rows", rng.integers(-99, 99, 100),
+                      rng.integers(-99, 99, n).astype(np.int64)))
+    return [(label, np.asarray(lk, np.int64), np.asarray(rk, np.int64))
+            for label, lk, rk in cases]
+
+
+def join_cases(rng) -> list:
+    """The edge cases, q8's fullest window with q8's own (hot-skewed) keys,
+    and a deployment-size window: 1,048,576 probe x 16,777,216 build rows
+    (200 MB of pairs, a 10 s window at about 1.8 M events/s), keys hashed
+    from 2^20 ids."""
+    lk, rk = q8_join_keys()
+    dep_r = hash_columns([rng.integers(0, 1 << 20, 1 << 24)]).view(np.int64)
+    dep_l = hash_columns([rng.integers(0, 1 << 20, 1 << 20)]).view(np.int64)
+    return [("q8 window", lk, rk), ("deployment window", dep_l, dep_r)] + join_edge_cases(rng)
+
+
+def check_join_case(label: str, lk: np.ndarray, rk: np.ndarray, dev) -> dict:
+    """K5 and K6 against their plain versions on the card, exactly: on the
+    keys as the join pads them (_bucket sizes, INT64_MAX) and unpadded (the
+    kernel pads inside), then the expanded pairs of device_join_start
+    against the plain version's expansion and the host probe."""
+    n_l, n_r = len(lk), len(rk)
+    l_cap, r_cap = join_probe._bucket(n_l), join_probe._bucket(n_r)
+    lp = np.full(l_cap, join_probe._SENTINEL, np.int64)
+    lp[:n_l] = lk
+    rp = np.full(r_cap, join_probe._SENTINEL, np.int64)
+    rp[:n_r] = rk
+    for tag, lkeys, rkeys in (("padded", lp, rp), ("unpadded", lk, rk)):
+        lt, rt = torch.from_numpy(lkeys).to(dev), torch.from_numpy(rkeys).to(dev)
+        sk, order = join_kernels.join_sort_pairs(rt)
+        sk_p, order_p = join_kernels.join_sort_pairs_plain(rt)
+        lo, hi = join_kernels.join_search_bounds(sk_p, lt)
+        lo_p, hi_p = join_kernels.join_search_bounds_plain(sk_p, lt)
+        torch.cuda.synchronize()
+        for name, g, w in (("sorted keys", sk, sk_p), ("order", order, order_p),
+                           ("lo", lo, lo_p), ("hi", hi, hi_p)):
+            if g.dtype != w.dtype or not torch.equal(g, w):
+                raise AssertionError(f"join {label} ({tag}): {name} differs from the plain "
+                                     f"version ({g.dtype} vs {w.dtype})")
+    lt, rt = torch.from_numpy(lp).to(dev), torch.from_numpy(rp).to(dev)
+    sk_p, order_p = join_kernels.join_sort_pairs_plain(rt)
+    plain = join_probe.JoinHandle(n_l, n_r, *(join_probe.HostFetch(t) for t in (
+        order_p, *join_kernels.join_search_bounds_plain(sk_p, lt))))
+    li_p, ri_p = plain.result()
+    li, ri = join_probe.device_join_start(lk, rk, dev).result()
+    li_h, ri_h = join_probe.host_join_indices(lk, rk)
+    if not (torch.equal(torch.from_numpy(li), torch.from_numpy(li_p))
+            and torch.equal(torch.from_numpy(ri), torch.from_numpy(ri_p))
+            and np.array_equal(li, li_h) and np.array_equal(ri, ri_h)):
+        raise AssertionError(f"join {label}: the expanded (li, ri) pairs differ")
+    return {"probe": n_l, "build": n_r, "l_cap": l_cap, "r_cap": r_cap, "pairs": len(li)}
+
+
+def join_phase(dev) -> dict:
+    rng = np.random.default_rng(20261017)
+    checked = {}
+    cases = join_cases(rng)
+    for label, lk, rk in cases:
+        log(f"join: check {label}")
+        checked[label] = check_join_case(label, lk, rk, dev)
+    timing = {}
+    for label in ("q8 window", "deployment window"):
+        _l, lk, rk = next(c for c in cases if c[0] == label)
+        l_cap, r_cap = join_probe._bucket(len(lk)), join_probe._bucket(len(rk))
+        lt = torch.full((l_cap,), join_probe._SENTINEL, dtype=torch.int64)
+        lt[:len(lk)] = torch.from_numpy(lk)
+        rt = torch.full((r_cap,), join_probe._SENTINEL, dtype=torch.int64)
+        rt[:len(rk)] = torch.from_numpy(rk)
+        lt, rt = lt.to(dev), rt.to(dev)
+        sk, _order = join_kernels.join_sort_pairs_plain(rt)
+        log(f"join: time {label}")
+        timing[label] = {
+            "join_sort_pairs": timed(
+                lambda: join_kernels.join_sort_pairs(rt),
+                lambda: join_kernels.join_sort_pairs_plain(rt),
+                lambda: torch.sort(rt, stable=True),
+                library="torch.sort(stable=True)",
+                bytes=8 * r_cap + 12 * r_cap, bytes_counted="8 r_cap read, 12 r_cap written",
+                r_cap=r_cap),
+            "join_search_bounds": timed(
+                lambda: join_kernels.join_search_bounds(sk, lt),
+                lambda: join_kernels.join_search_bounds_plain(sk, lt),
+                lambda: (torch.searchsorted(sk, lt, side="left"),
+                         torch.searchsorted(sk, lt, side="right")),
+                library="two torch.searchsorted calls",
+                bytes=8 * l_cap + 8 * l_cap,
+                bytes_counted="8 l_cap read, 8 l_cap written; the sorted keys are not counted "
+                              "(each search reads log2(r_cap) of them)",
+                l_cap=l_cap, r_cap=r_cap)}
+    info = {"phase": "join", "cases_checked": len(checked), "max_abs_err": 0.0,
+            "checked": checked, "timing": timing}
     emit(info)
     return info
 
@@ -934,7 +1236,7 @@ def kernel_phase(dev) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out-dir", default="chip_smoke_out",
-                    help="directory for chip_smoke.json and the build log")
+                    help="directory for chip_smoke.json and the build logs")
     out_dir = ap.parse_args(argv).out_dir
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke run needs a GPU",
@@ -942,51 +1244,71 @@ def main(argv=None) -> int:
         return 2
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     os.makedirs(out_dir, exist_ok=True)
+    dev = torch.device("cuda")
+    res = {}
     log("probe")
-    smi, probe_info = probe()
+    smi, res["probe"] = probe()
     log("build")
-    build_info = build(out_dir)
+    res["build"] = build(out_dir)
     log("q7")
-    q7 = run_q7()
+    res["q7"] = run_q7()
     log("segment_build")
-    seg_build, nex_plans = segment_build(out_dir)
+    res["segment_build"], nex_plans = segment_build(out_dir)
     log("q7c")
-    q7c = run_chained("q7c", build_q7, Q7_EVENTS, oracle_q7, check_q7)
+    res["q7c"] = run_chained("q7c", build_q7, Q7_EVENTS, oracle_q7, check_q7)
     log("q5")
-    q5 = run_chained("q5", build_q5, Q5_EVENTS, oracle_q5, check_q5)
+    res["q5"] = run_chained("q5", build_q5, Q5_EVENTS, oracle_q5, check_q5)
+    log("q8c")
+    res["q8c"] = run_q8c()
     log("kernels")
-    kern = kernel_phase(torch.device("cuda"))
+    res["kernels"] = kernel_phase(dev)
     log("segment")
-    segp = segment_phase(nex_plans)
+    res["segment"] = segment_phase(nex_plans)
+    log("join")
+    res["join"] = join_phase(dev)
     log("done")
-    q7t = kern["timing"]["q7"]
+    res["summary"] = rows = kernel_rows(res)
+    with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
+        json.dump(res, f, indent=1)
+    emit({"kernels": rows})
+    print(smi, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+def kernel_rows(res: dict) -> list:
+    """The {"kernels": [...]} line: one row per kernel, its launches on its
+    main path's run, its time at that path's shape."""
+    q7t = res["kernels"]["timing"]["q7"]
     rows = []
     for name, key in (("slot_scatter_combine", "slot_scatter_combine"),
                       ("slot_region_read_pack", "slot_region_read_pack_k1"),
                       ("slot_region_clear", "slot_region_clear_k1")):
         t = q7t[key]
         rows.append({"name": name, "route": "cuda", "source": SOURCE,
-                     "replaces": REPLACES[name], "launches": q7["launches"][name],
-                     "max_abs_err": kern["max_abs_err"][name], "ms": t["ms"],
+                     "replaces": REPLACES[name], "launches": res["q7"]["launches"][name],
+                     "max_abs_err": res["kernels"]["max_abs_err"][name], "ms": t["ms"],
                      "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                      "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    segp = res["segment"]
     st = segp["timing_q7"]
     rows.append({"name": "segment_fused", "route": "triton", "source": SEGMENT_SOURCE,
                  "replaces": REPLACES["segment_fused"], "includes": "B1 splitmix64 key hash "
                  "(arroyo_tpu/engine/segment.py:242-278)",
-                 "launches": q7c["launches"]["segment_fused"],
+                 "launches": res["q7c"]["launches"]["segment_fused"],
                  "max_abs_err": segp["max_abs_err"], "ms": st["ms"], "plain_ms": st["plain_ms"],
                  "bound_ms": st["bound_ms"], "bound_by": st["bound_by"],
                  "library_ms": st["library_ms"]})
-    with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
-        json.dump({"probe": probe_info, "build": build_info, "q7": q7,
-                   "segment_build": seg_build, "q7c": q7c, "q5": q5, "kernels": kern,
-                   "segment": segp, "summary": rows}, f, indent=1)
-    emit({"kernels": rows})
-    print(smi, flush=True)
-    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
-                                 "count": torch.cuda.device_count()}})
-    return 0
+    jt = res["join"]["timing"]["q8 window"]
+    for name in ("join_sort_pairs", "join_search_bounds"):
+        t = jt[name]
+        rows.append({"name": name, "route": "cuda", "source": JOIN_SOURCE,
+                     "replaces": REPLACES[name], "launches": res["q8c"]["launches"][name],
+                     "max_abs_err": res["join"]["max_abs_err"], "ms": t["ms"],
+                     "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                     "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    return rows
 
 
 if __name__ == "__main__":

@@ -35,7 +35,9 @@ def _port_config():
 def test_port_and_chip_smoke_import_neither_jax_nor_arroyo_tpu():
     mods = _port_modules()
     assert {"arroyo_tpu_torch.ops.kernels", "arroyo_tpu_torch.ops.slot_agg",
-            "arroyo_tpu_torch.windows.tumbling", "arroyo_tpu_torch.engine.engine"} <= set(mods)
+            "arroyo_tpu_torch.windows.tumbling", "arroyo_tpu_torch.engine.engine",
+            "arroyo_tpu_torch.ops.join_kernels", "arroyo_tpu_torch.ops.join_probe",
+            "arroyo_tpu_torch.operators.joins"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -106,12 +108,16 @@ def test_later_slices_are_refused_not_skipped():
 def test_kernel_build_without_nvcc_raises(monkeypatch):
     if os.path.exists("/usr/local/cuda/bin/nvcc"):
         pytest.skip("this machine has a CUDA toolkit at /usr/local/cuda")
-    monkeypatch.setattr(kernels, "_lib", None)
+    monkeypatch.setattr(kernels, "_libs", {})
     monkeypatch.setenv("PATH", "/nonexistent")
     monkeypatch.delenv("CUDA_HOME", raising=False)
     monkeypatch.delenv("CUDA_PATH", raising=False)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         kernels.build_library()
+    from arroyo_tpu_torch.ops import join_kernels
+
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        join_kernels.build_library()
     # a tensor on a device the port has no kernel for is refused, not
     # routed to the plain version
     with pytest.raises(ValueError, match="unsupported device"):

@@ -297,8 +297,8 @@ def test_expr_traceable_matches_jax_on_the_grid():
 
 def bench_graph(g, query):
     """bench.py's q7, q5 or q8 graph (bench.py:49-175) over either
-    package's modules; chain_graph reads only op names and configs, so the
-    port's graph may hold q8's INSTANT_JOIN, which it cannot run yet."""
+    package's modules; chain_graph reads only op names and configs (the
+    port runs q8's INSTANT_JOIN too: tests/test_torch_q8.py)."""
     B, E, G = g
     S = B.Schema.of([("x", "int64"), (B.TIMESTAMP_FIELD, "int64")])
     gr = G.Graph()
