@@ -129,6 +129,17 @@ class Batch:
         return f"Batch(rows={self.num_rows}, cols={list(self.columns.keys())})"
 
 
+def object_column(values) -> np.ndarray:
+    """1-D object array from arbitrary python values. np.array(vals,
+    dtype=object) coerces equal-length lists into a 2-D array; element-wise
+    assignment keeps list-valued cells (collected state) intact."""
+    vals = list(values)
+    col = np.empty(len(vals), dtype=object)
+    for i, v in enumerate(vals):
+        col[i] = v
+    return col
+
+
 def _to_py(v):
     if isinstance(v, np.generic):
         return v.item()

@@ -3,10 +3,10 @@ config is a separate object, so tests can load both packages in one
 process without one reset clearing the other).
 
 Only the sections the port reads: ``pipeline``, ``worker``,
-``engine.coalesce``, ``segment.compile`` and ``device``. The JAX package
-reads ``device.join-min-rows`` and ``device.force-device-join`` with
-defaults and has no entry for them; the port lists them here with the same
-defaults and meaning.
+``engine.coalesce``, ``segment.compile``, ``state.spill`` and ``device``.
+The JAX package reads ``device.join-min-rows`` and
+``device.force-device-join`` with defaults and has no entry for them; the
+port lists them here with the same defaults and meaning.
 ``device.torch-device`` names the torch device (None = ``cuda``; see
 device.py).
 """
@@ -52,6 +52,12 @@ _DEFAULTS: dict[str, Any] = {
             # hoisted leading filter) run interpreted
             "min-rows": 8192,
         },
+    },
+    "state": {
+        # the tiered (spilling) state backend of the JAX package
+        # (state/spill.py) is not ported: the updating aggregate refuses to
+        # build when this is on
+        "spill": {"enabled": False},
     },
     "device": {
         "torch-device": None,  # None = cuda (device.resolve_device)

@@ -22,8 +22,15 @@
 //      pads k to a power of two by duplicating the first base), so one
 //      pass that read and cleared could clear a region before its
 //      duplicate was read.
+//   K7 slot_gather           replaces _build_slot_jax make_read_slots.go:
+//      for k slots (int32 or int64 indices), every lane's value at each
+//      slot, int lanes widened into one int64 buffer and float lanes into
+//      one float64 buffer, laid out [lane of its class][k]. A slot outside
+//      [0, cap) reads 0. The updating aggregate's flush reads its touched
+//      keys with it; it launches on the stream of the K1 launches it must
+//      see, so it reads their sums.
 //
-// Bound on the H100 (3.35 TB/s HBM, 50 MB L2): all three move a few bytes
+// Bound on the H100 (3.35 TB/s HBM, 50 MB L2): all four move a few bytes
 // per element and do no arithmetic to speak of, so each is bound by bytes.
 // K1 reads 4 or 8 bytes of slot and 8 of value per row and updates the
 // touched state words; q7's state (65536 slots x 3 lanes x 8 B = 1.5 MB)
@@ -33,9 +40,15 @@
 // and neighbouring threads touch neighbouring rows (coalesced loads of
 // slots and values). K2 and K3 stream R contiguous slots per lane; one
 // thread per output element, neighbouring threads on neighbouring slots,
-// so every load and store is coalesced. The lane table and the bases are
-// passed by value in the kernel parameters: no device allocation and no
-// host-to-device copy for them.
+// so every load and store is coalesced. K7 gives one thread to each
+// gathered slot: the slot is loaded once (coalesced) and the thread walks
+// the lanes, so each lane's random read of the state is independent of the
+// others and the stores to [lane][k] are coalesced. Its bound is the bytes
+// of the slots, the gathered words and the widened output; the state reads
+// are random, so each costs a 32-byte sector unless the state sits in L2
+// (qu's 262144 slots x 4 lanes x 8 B = 8 MB does). The lane table and the
+// bases are passed by value in the kernel parameters: no device
+// allocation and no host-to-device copy for them.
 //
 // Float min/max: XLA's scatter-min/max propagates NaN and orders -0.0
 // below +0.0, whatever the order of the rows. The CAS loops below keep the
@@ -73,6 +86,13 @@ struct PackArgs {
   int n_int;
   int n_flt;
   int k;
+};
+
+struct GatherArgs {
+  const void* state[MAX_LANES];
+  int dtype[MAX_LANES];
+  int pos[MAX_LANES];  // the lane's index among the lanes of its class
+  int n_lanes;
 };
 
 struct ClearArgs {
@@ -210,6 +230,35 @@ __global__ void clear_kernel(ClearArgs a, long long R) {
   }
 }
 
+template <typename SlotT>
+__global__ void gather_kernel(GatherArgs a, const SlotT* __restrict__ slots, long long k,
+                              long long cap, long long* __restrict__ ibuf,
+                              double* __restrict__ fbuf) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < k; i += stride) {
+    const long long s = (long long)slots[i];
+    const bool ok = s >= 0 && s < cap;
+    for (int l = 0; l < a.n_lanes; ++l) {
+      const void* st = a.state[l];
+      const long long o = (long long)a.pos[l] * k + i;
+      switch (a.dtype[l]) {
+        case DT_I64:
+          ibuf[o] = ok ? static_cast<const long long*>(st)[s] : 0LL;
+          break;
+        case DT_I32:
+          ibuf[o] = ok ? (long long)static_cast<const int*>(st)[s] : 0LL;
+          break;
+        case DT_F64:
+          fbuf[o] = ok ? static_cast<const double*>(st)[s] : 0.0;
+          break;
+        default:
+          fbuf[o] = ok ? (double)static_cast<const float*>(st)[s] : 0.0;
+          break;
+      }
+    }
+  }
+}
+
 static int grid_for(long long n) {
   long long blocks = (n + THREADS - 1) / THREADS;
   const long long cap = 132LL * 16;  // 16 blocks of 256 threads per SM fill the H100
@@ -286,6 +335,32 @@ int arroyo_slot_region_clear(int device, void** state, const int* dtypes,
   a.k = k;
   clear_kernel<<<grid_for((long long)k * n_lanes * R), THREADS, 0,
                  static_cast<cudaStream_t>(stream)>>>(a, R);
+  return (int)cudaGetLastError();
+}
+
+int arroyo_slot_gather(int device, void** state, const int* dtypes, int n_lanes,
+                       const void* slots, int slots_i64, long long k, long long cap, void* ibuf,
+                       void* fbuf, void* stream) {
+  if (n_lanes < 1 || n_lanes > MAX_LANES || k < 1) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  GatherArgs a;
+  int n_int = 0, n_flt = 0;
+  for (int l = 0; l < n_lanes; ++l) {
+    a.state[l] = state[l];
+    a.dtype[l] = dtypes[l];
+    a.pos[l] = (dtypes[l] == DT_F32 || dtypes[l] == DT_F64) ? n_flt++ : n_int++;
+  }
+  a.n_lanes = n_lanes;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (slots_i64)
+    gather_kernel<long long><<<grid_for(k), THREADS, 0, s>>>(
+        a, static_cast<const long long*>(slots), k, cap, static_cast<long long*>(ibuf),
+        static_cast<double*>(fbuf));
+  else
+    gather_kernel<int><<<grid_for(k), THREADS, 0, s>>>(
+        a, static_cast<const int*>(slots), k, cap, static_cast<long long*>(ibuf),
+        static_cast<double*>(fbuf));
   return (int)cudaGetLastError();
 }
 

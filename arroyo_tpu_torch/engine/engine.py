@@ -50,8 +50,8 @@ def load_operators() -> None:
     """Import every operator/connector module of the port so that its
     constructor registers."""
     from .. import connectors
-    from ..operators import builtin, chained, joins  # noqa: F401
-    from ..windows import sliding, tumbling  # noqa: F401
+    from ..operators import builtin, chained, joins, updating_aggregate  # noqa: F401
+    from ..windows import session, sliding, tumbling  # noqa: F401
 
     connectors.load_all()
 

@@ -21,8 +21,10 @@ def acc_kinds_for(kind: str) -> tuple[str, ...]:
 
 def finalize_aggs(kinds: Sequence[str], acc_arrays: list[np.ndarray]) -> list[np.ndarray]:
     """acc arrays (in acc_kinds_for order, flattened) -> one array per SQL
-    aggregate. Collected aggregates (count_distinct, UDAFs) are not ported
-    yet and are refused before any state is built (windows/tumbling.py)."""
+    aggregate. count_distinct counts the distinct values its collected
+    state holds (a list, or the updating aggregate's value -> multiplicity
+    map). UDAFs need a UDF registry, which the port does not have: they are
+    refused before any state is built (windows/tumbling.py acc_plan)."""
     out = []
     i = 0
     for kind in kinds:
@@ -30,6 +32,9 @@ def finalize_aggs(kinds: Sequence[str], acc_arrays: list[np.ndarray]) -> list[np
             s, c = acc_arrays[i], acc_arrays[i + 1]
             i += 2
             out.append(np.divide(s, np.maximum(c, 1)).astype(np.float64))
+        elif kind == "count_distinct":
+            out.append(np.array([len(set(lst)) for lst in acc_arrays[i]], dtype=np.int64))
+            i += 1
         else:
             out.append(acc_arrays[i])
             i += 1

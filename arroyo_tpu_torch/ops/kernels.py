@@ -1,13 +1,14 @@
 """The slot aggregator's kernels: wrappers, build, and plain versions.
 
-Three hand-written CUDA kernels (csrc/slot_agg.cu, see its header for what
-each replaces and what bounds it) update and read the window state, one
+Four hand-written CUDA kernels (csrc/slot_agg.cu, see its header for what
+each replaces and what bounds it) update and read the aggregate state, one
 ``[cap]`` tensor per accumulator lane, in place:
 
 - ``slot_scatter_combine`` (K1): rows combine into ``state[slot]``;
 - ``slot_region_read_pack`` (K2): k regions of every lane, packed into one
   int64 and one float64 buffer;
-- ``slot_region_clear`` (K3): k regions reset to each lane's identity.
+- ``slot_region_clear`` (K3): k regions reset to each lane's identity;
+- ``slot_gather`` (K7): k single slots of every lane, packed the same way.
 
 Each wrapper checks device, dtype, shape and contiguity, and raises on what
 the kernel does not take. On a CUDA tensor it launches the kernel (building
@@ -117,8 +118,9 @@ def _bind_slot_agg(lib: ctypes.CDLL) -> None:
     lib.arroyo_slot_scatter_combine.argtypes = [i, pp, pp, ip, ip, i, p, i, ll, ll, p]
     lib.arroyo_slot_region_read_pack.argtypes = [i, pp, ip, i, llp, i, ll, p, p, p]
     lib.arroyo_slot_region_clear.argtypes = [i, pp, ip, ullp, i, llp, i, ll, p]
+    lib.arroyo_slot_gather.argtypes = [i, pp, ip, i, p, i, ll, ll, p, p, p]
     for fn in (lib.arroyo_slot_scatter_combine, lib.arroyo_slot_region_read_pack,
-               lib.arroyo_slot_region_clear):
+               lib.arroyo_slot_region_clear, lib.arroyo_slot_gather):
         fn.restype = ctypes.c_int
 
 
@@ -172,6 +174,13 @@ def _check_bases(bases, cap: int, R: int) -> list[int]:
     return bl
 
 
+def _check_slots(slots: torch.Tensor, dev: torch.device) -> None:
+    if slots.device != dev or slots.dim() != 1 or not slots.is_contiguous():
+        raise ValueError("slots must be a contiguous 1-D tensor on the state's device")
+    if slots.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"slots dtype {slots.dtype} is not int32 or int64")
+
+
 def _ptrs(tensors) -> ctypes.Array:
     return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
 
@@ -198,10 +207,7 @@ def slot_scatter_combine(state: Sequence[torch.Tensor], kinds: Sequence[str],
     dev = _check_state(state)
     if len(kinds) != len(state) or len(vals) != len(state):
         raise ValueError("kinds, vals and state must have one entry per lane")
-    if slots.device != dev or slots.dim() != 1 or not slots.is_contiguous():
-        raise ValueError("slots must be a contiguous 1-D tensor on the state's device")
-    if slots.dtype not in (torch.int32, torch.int64):
-        raise TypeError(f"slots dtype {slots.dtype} is not int32 or int64")
+    _check_slots(slots, dev)
     n = slots.shape[0]
     for a, k, v in zip(state, kinds, vals):
         if k not in _KIND_CODE:
@@ -342,5 +348,52 @@ def slot_region_clear_plain(state, kinds, bases, R: int) -> None:
             a[b:b + R] = ident
 
 
-WRAPPERS = (slot_scatter_combine, slot_region_read_pack, slot_region_clear)
+# ------------------------------------------------------------- K7
+
+
+def slot_gather(state: Sequence[torch.Tensor], slots: torch.Tensor):
+    """For each of the k slots and every lane, ``state[lane][slots[i]]``:
+    int lanes widened into one int64 buffer, float lanes into one float64
+    buffer, each laid out [lane of its class][k]. A slot outside [0, cap)
+    reads 0. Returns (ibuf, fbuf); a class with no lanes gives an empty
+    buffer. Launches on the current stream, after every K1 launched there."""
+    dev = _check_state(state)
+    _check_slots(slots, dev)
+    if dev.type == "cpu":
+        return slot_gather_plain(state, slots)
+    k = slots.shape[0]
+    n_flt = sum(1 for a in state if a.dtype.is_floating_point)
+    ibuf = torch.empty((len(state) - n_flt) * k, dtype=torch.int64, device=dev)
+    fbuf = torch.empty(n_flt * k, dtype=torch.float64, device=dev)
+    if k == 0:
+        return ibuf, fbuf
+    lib = build_library()
+    dts = (ctypes.c_int * len(state))(*[_DTYPE_CODE[a.dtype] for a in state])
+    err = lib.arroyo_slot_gather(
+        dev.index or 0, _ptrs(state), dts, len(state), ctypes.c_void_p(slots.data_ptr()),
+        int(slots.dtype == torch.int64), k, state[0].shape[0],
+        ctypes.c_void_p(ibuf.data_ptr()), ctypes.c_void_p(fbuf.data_ptr()), _stream(dev))
+    _raise_on(err, "slot_gather")
+    _counted(slot_gather)
+    return ibuf, fbuf
+
+
+def slot_gather_plain(state, slots):
+    """Plain PyTorch version of K7: index each lane, then widen."""
+    dev = state[0].device
+    s = slots.long()
+    ok = (s >= 0) & (s < state[0].shape[0])
+    s = torch.where(ok, s, torch.zeros_like(s))
+
+    def pack(lanes, dt):
+        if not lanes:
+            return torch.empty(0, dtype=dt, device=dev)
+        zero = torch.zeros((), dtype=dt, device=dev)
+        return torch.stack([torch.where(ok, a[s].to(dt), zero) for a in lanes]).reshape(-1)
+
+    return (pack([a for a in state if not a.dtype.is_floating_point], torch.int64),
+            pack([a for a in state if a.dtype.is_floating_point], torch.float64))
+
+
+WRAPPERS = (slot_scatter_combine, slot_region_read_pack, slot_region_clear, slot_gather)
 reset_launch_counts()

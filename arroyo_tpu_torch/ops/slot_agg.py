@@ -460,6 +460,60 @@ class SlotAggregator:
         if below > d.boundary:
             d.boundary = below
 
+    # ------------------------------------------------------------- point reads
+
+    def read_slots(self, slots: np.ndarray) -> list[np.ndarray]:
+        """Current accumulator values at the given device slots, one array
+        per lane in the lane's own dtype: one K7 gather of every lane, its
+        two packed buffers copied to pinned host memory behind an event
+        that the host waits on before reading (the JAX package's
+        ``wait_buffers_ready``). K7 runs on the stream of every K1 this
+        aggregator launched, so it reads their sums. Used by the
+        updating-aggregate flush; window paths never gather."""
+        n = len(slots)
+        if n == 0:
+            return [np.empty(0, dtype=d) for d in self.acc_dtypes]
+        idx_dt = np.int32 if self.cap < _I32_MAX else np.int64
+        st = torch.from_numpy(np.ascontiguousarray(slots, dtype=idx_dt)).to(self.device)
+        ibuf, fbuf = kernels.slot_gather(self.state, st)
+        ib = HostFetch(ibuf).result().reshape(self._n_int_lanes, n) if self._n_int_lanes else None
+        fb = HostFetch(fbuf).result().reshape(self._n_flt_lanes, n) if self._n_flt_lanes else None
+        out, ii, fi = [], 0, 0
+        for d in self.acc_dtypes:
+            if np.issubdtype(d, np.floating):
+                out.append(fb[fi].astype(d))
+                fi += 1
+            else:
+                out.append(ib[ii].astype(d))
+                ii += 1
+        return out
+
+    def slots_of(self, key_u64: np.ndarray) -> np.ndarray:
+        """Device slots currently assigned to these (bin 0) keys; -1 for
+        keys that own no slot (unallocated, or living in the host spill
+        tier). Read-only: never allocates. One probe round over every
+        pending key at a time, as lookup_or_assign probes: a dead or empty
+        directory position ends a key's probe with a miss."""
+        d = self.directory
+        ku = np.ascontiguousarray(key_u64, dtype=np.uint64)
+        ks = ku.view(np.int64)
+        codes = splitmix64(ku)  # the bin-0 code: key ^ (0 * _BIN_MIX) = key
+        out = np.full(len(ks), -1, dtype=np.int64)
+        h = (codes & d.hmask).astype(np.int64)
+        pending = np.arange(len(ks))
+        for _ in range(d.hcap):
+            if len(pending) == 0:
+                break
+            hp = h[pending]
+            hs = d.hslot[hp]
+            live = (hs >= 0) & (d.hbin[hp] >= d.boundary)
+            match = live & (d.hcode[hp] == codes[pending]) & (d.slot_keys[hs] == ks[pending])
+            out[pending[match]] = hs[match]
+            nxt = pending[live & ~match]
+            h[nxt] = (h[nxt] + 1) & int(d.hmask)
+            pending = nxt
+        return out
+
     # ------------------------------------------------------------- state
 
     def snapshot(self):

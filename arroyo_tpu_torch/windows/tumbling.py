@@ -65,12 +65,17 @@ def make_window_aggregator(acc_kinds, acc_dtypes, device) -> SlotAggregator:
     )
 
 
-def acc_plan(aggregates: list[tuple[str, str, Optional[Expr]]], schema_dtype_of) -> tuple:
+def acc_plan(aggregates: list[tuple[str, str, Optional[Expr]]], schema_dtype_of,
+             collect: bool = False) -> tuple:
     """Flatten SQL aggregates into accumulator (kind, dtype, input) triples.
 
     aggregates: [(out_name, kind, input_expr|None)]; count has no input.
     Returns (acc_kinds, acc_dtypes, input_specs) where input_specs[i] is the
     Expr for that accumulator or None for a count-style all-ones input.
+    ``collect`` admits collected aggregates (array_agg, COUNT(DISTINCT)) as
+    one host-resident "collect" lane of object dtype: the session window and
+    the updating aggregate keep their state on the host and take them; the
+    device windows do not. UDAFs are refused everywhere (no UDF registry).
     """
     kinds, dtypes, inputs = [], [], []
     for _name, kind, expr in aggregates:
@@ -82,10 +87,17 @@ def acc_plan(aggregates: list[tuple[str, str, Optional[Expr]]], schema_dtype_of)
             kinds.extend(["sum", "count"])
             dtypes.extend([np.dtype(np.float64), np.dtype(np.int64)])
             inputs.extend([expr, None])
-        elif kind.startswith("udaf:") or kind in ("collect", "count_distinct"):
+        elif kind.startswith("udaf:"):
             raise NotImplementedError(
-                f"aggregate {kind!r} collects values on the host; collected "
-                f"aggregates are not ported yet")
+                f"aggregate {kind!r}: UDAFs need a UDF registry, which the port does not have")
+        elif kind in ("collect", "count_distinct"):
+            if not collect:
+                raise NotImplementedError(
+                    f"aggregate {kind!r} collects values on the host; the device "
+                    f"windows of the port do not take collected aggregates")
+            kinds.append("collect")
+            dtypes.append(np.dtype(object))
+            inputs.append(expr)
         else:
             kinds.append(kind)
             dtypes.append(schema_dtype_of(expr))

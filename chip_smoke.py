@@ -11,8 +11,9 @@ non-zero, printing no result):
 1. probe   -- the card (nvidia-smi name and power limit), torch's CUDA
               version, the device capability (expect (9, 0)), nvcc's version;
 2. build   -- every CUDA source of arroyo_tpu_torch/csrc/ (the slot
-              aggregator's slot_agg.cu, the join probe's join_probe.cu) with
-              nvcc for sm_90a, one nvcc per source, all started together;
+              aggregator's slot_agg.cu with K1-K3 and K7, the join probe's
+              join_probe.cu) with nvcc for sm_90a, one nvcc per source, all
+              started together;
 3. q7      -- Nexmark q7 through the port's run_graph on the GPU at the size
               bench.py measures (2,000,000 events, batch 65536, table 65536,
               region 2048) in the package's default configuration (chaining
@@ -21,7 +22,7 @@ non-zero, printing no result):
               gives the device's busy and idle share;
 4. segment_build -- the fused segment kernel K4 (Triton, generated from the
               bound plan by arroyo_tpu_torch/ops/segment_kernel.py) compiled
-              for the q7 and q5 plans, seconds per plan;
+              for the q7, q5, q8, qu and qs plans, seconds per plan;
 5. q7c     -- q7 at bench.py's own setting, pipeline.chaining.enabled = True:
               the chain's prefix runs as one K4 launch per micro-batch. Exact
               parity, SEGMENT_COMPILED with no SEGMENT_FALLBACK, K4 launched
@@ -39,7 +40,8 @@ non-zero, printing no result):
               CUDA events, which adds the host's launch cost);
 8. segment -- K4 against its plain version on the card, byte for byte
               (values, dtypes, mask, watermark aux) on the q7 and q5 insert
-              plans, q8's two emit-batch plans (filter hoisted and not), an
+              plans, q8's two emit-batch plans (filter hoisted and not), the
+              bids chains of qu and qs, an
               expression grid over every allowlisted operator and function
               and int32/int64/float32/float64/bool columns with their edge
               values, all at an odd row count; then timed at q7's plan;
@@ -56,7 +58,33 @@ non-zero, printing no result):
               deployment-size window (1,048,576 probe x 16,777,216 build
               rows) and on edge cases (empty sides, INT64_MAX and INT64_MIN
               keys, one key everywhere, negative keys, sizes that are not
-              powers of two); then timed like K1-K3.
+              powers of two); then timed like K1-K3;
+11. qu     -- the Nexmark running aggregate per auction (bids -> GROUP BY
+              auction with COUNT, SUM and AVG of price, a changelog of
+              retract/append pairs) through the updating aggregate's device
+              mode: 2,000,000 events, chaining on, batch 65536, queue 2 x
+              65536, table 262144 slots (every auction of the run on the
+              card). The merged changelog equals a closed-form oracle
+              exactly, every retraction equals its key's last append, K1, K4
+              and K7 launched, no SEGMENT_FALLBACK; then a profiled run;
+12. qu_ttl -- the same stream at bench.py's table size (65536 slots), TTL
+              300 s and no timed flush: the device mode's changelog equals
+              the host mode's row for row, with keys evicted and the device
+              store compacted; then the operator fed an updating input
+              (retractions, keys retracted to zero) in both modes on the card,
+              with integer lanes (equal changelogs) and float lanes (reported);
+13. qs     -- bench.py's qs (session windows per bidder, gap 2 s) at its
+              setting: 500,000 events, chaining on, exact parity with a copy
+              of bench.py's oracle_qs, K4 on the bids chain; then profiled;
+14. gather -- K7 (slot_gather) against its plain version exactly at qu's
+              shape, at a deployment-size state (16,777,216 slots x 4 lanes,
+              1,048,576 slots gathered), over mixed int32/int64/float32/
+              float64 lanes with int32 and int64 indices and on edge cases
+              (k = 1, k not a power of two, duplicated slots, slot 0, slot
+              cap - 1); then timed, with the host's cost of one read_slots.
+
+``--only a,b`` runs those phases alone after probe and build (a short
+check) and prints no result line.
 
 Then the {"kernels": [...]} line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Details go to <out-dir>/chip_smoke.json, the
@@ -112,6 +140,7 @@ REPLACES = {
     "segment_fused": "arroyo_tpu/engine/segment.py:511",  # _trace_fn.fn, with B1 (:242-278)
     "join_sort_pairs": "arroyo_tpu/ops/join_probe.py:82",  # _probe_jit.probe: argsort
     "join_search_bounds": "arroyo_tpu/ops/join_probe.py:82",  # _probe_jit.probe: searchsorted
+    "slot_gather": "arroyo_tpu/ops/slot_agg.py:361",  # _build_slot_jax make_read_slots.go
 }
 SEGMENT_SOURCE = "arroyo_tpu_torch/ops/segment_kernel.py"
 SUM_RTOL = {torch.float64: 1e-12, torch.float32: 1e-5}
@@ -219,25 +248,26 @@ def oracle_q7(event_count: int) -> dict:
     return {(int(u[0]), int(u[1])): (int(m), int(c)) for u, m, c in zip(uniq, mx, cnt)}
 
 
-def bench_config(chaining: bool, queue_mult: int = 2) -> None:
+def bench_config(chaining: bool, queue_mult: int = 2, table_capacity: int = 65536) -> None:
     """bench.py's sizes (bench.py:1046-1060, run_config): source batch
     65536, queue queue_mult x 65536 (bench.py: 2, and 1 for q8), table 65536
-    slots, region 2048; chaining as given (bench.py runs with it on)."""
+    slots (qu: 262144), region 2048; chaining as given (bench.py runs with it
+    on)."""
     tcfg.reset()
     tcfg.update({
         "pipeline.source-batch-size": BENCH_BATCH,
         "device.batch-capacity": BENCH_BATCH,
         "worker.queue-size": queue_mult * BENCH_BATCH,
-        "device.table-capacity": 65536,
+        "device.table-capacity": table_capacity,
         "device.region-size": 2048,
         "pipeline.chaining.enabled": chaining,
     })
 
 
-def drive(build, events: int, job_id: str, chaining: bool,
-          queue_mult: int = 2) -> tuple[list, float, object]:
+def drive(build, events: int, job_id: str, chaining: bool, queue_mult: int = 2,
+          table_capacity: int = 65536) -> tuple[list, float, object]:
     """One run through the port's run_graph (default device: CUDA)."""
-    bench_config(chaining, queue_mult)
+    bench_config(chaining, queue_mult, table_capacity)
     rows: list = []
     g = build(rows, events)
     recorder.clear_job(job_id)
@@ -277,7 +307,7 @@ def run_q7() -> dict:
     rows, wall, _eng = drive_q7()
     launches = kernels.launch_counts()
     got = check_q7(rows, want)
-    unlaunched = [k for k, v in launches.items() if v == 0]
+    unlaunched = [k for k in AGG_PATH_KERNELS[:3] if launches[k] == 0]
     if unlaunched:
         raise AssertionError(f"q7 ran without launching {unlaunched}: {launches}")
     from torch.profiler import ProfilerActivity, profile
@@ -371,15 +401,19 @@ def reset_all_launch_counts() -> None:
     join_kernels.reset_launch_counts()
 
 
-def run_chained(name: str, build, events: int, oracle, check) -> dict:
+def run_chained(name: str, build, events: int, oracle, check,
+                path_kernels=AGG_PATH_KERNELS, table_capacity: int = 65536,
+                stats=None) -> dict:
     """A chaining-on main path: counts zeroed just before the run and read
     just after; the chain must have run compiled, K4 once per source batch
-    of at least segment.compile.min-rows rows, K1-K3 at least once. Then a
-    second, profiled run gives the device's busy share."""
+    of at least segment.compile.min-rows rows, every kernel of
+    ``path_kernels`` (default K1-K3 and K4) at least once. ``stats(eng)``
+    adds what the run's operators counted. Then a second, profiled run
+    gives the device's busy share."""
     want = oracle(events)
     job = f"chip-smoke-{name}"
     reset_all_launch_counts()
-    rows, wall, eng = drive(build, events, job, chaining=True)
+    rows, wall, eng = drive(build, events, job, chaining=True, table_capacity=table_capacity)
     launches = all_launch_counts()
     got = check(rows, want)
     chained = [n for n in eng.graph.nodes if "+" in n]
@@ -397,25 +431,29 @@ def run_chained(name: str, build, events: int, oracle, check) -> dict:
     if launches["segment_fused"] != want_k4:
         raise AssertionError(f"{name}: K4 launched {launches['segment_fused']} times, "
                              f"expected one per batch of >= {min_rows} rows ({want_k4})")
-    unlaunched = [k for k in AGG_PATH_KERNELS if launches[k] == 0]
+    unlaunched = [k for k in path_kernels if launches[k] == 0]
     if unlaunched:
         raise AssertionError(f"{name} ran without launching {unlaunched}: {launches}")
     info = {"phase": name, "events": events, "chaining": True, "wall_s": wall,
             "events_per_s": events / wall, "windows": len(got), "chained_node": chained[0],
             "segment_events": [e["message"] for e in compiled], "launches": launches,
-            "k4_expected": want_k4,
-            "profiled_run": profiled_run(build, events, job + "-profiled", check, want)}
+            "k4_expected": want_k4, "table_capacity": table_capacity,
+            "stats": stats(eng) if stats else None,
+            "profiled_run": profiled_run(build, events, job + "-profiled", check, want,
+                                         table_capacity=table_capacity)}
     emit(info)
     return info
 
 
-def profiled_run(build, events: int, job: str, check, want, queue_mult: int = 2) -> dict:
+def profiled_run(build, events: int, job: str, check, want, queue_mult: int = 2,
+                 table_capacity: int = 65536) -> dict:
     """One more chaining-on run under torch.profiler: the device's busy and
     idle share of the run's wall time, and its top device operations."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        rows_p, wall_p, _eng = drive(build, events, job, chaining=True, queue_mult=queue_mult)
+        rows_p, wall_p, _eng = drive(build, events, job, chaining=True, queue_mult=queue_mult,
+                                     table_capacity=table_capacity)
     check(rows_p, want)
     by_name = device_us_by_name(prof)
     busy_s = sum(by_name.values()) / 1e6 if by_name else None  # None: not measured
@@ -559,6 +597,486 @@ def run_q8c() -> dict:
                                          queue_mult=1)}
     emit(info)
     return info
+
+
+# ---------------------------------------------------------------- qu, qu_ttl, qs
+
+QU_EVENTS = Q7_EVENTS
+QU_CAP = 262144  # holds every auction of the 2,000,000-event run on the card
+QU_TTL_MICROS = 300_000_000
+QU_TTL_CAP = 65536  # bench.py's table size
+QS_EVENTS = Q7_EVENTS // 4  # bench.py runs qs at events // 4
+SESSION_GAP = 2_000_000  # bench.py SESSION_GAP
+DAY_MICROS = 24 * 3600 * 1_000_000
+# the kernels qu must launch: K4 on the bids chain, K1 and K7 in the
+# updating aggregate
+QU_PATH_KERNELS = ("segment_fused", "slot_scatter_combine", "slot_gather")
+
+
+def qu_graph(B, E, G, rows: list, event_count: int, backend: str = "jax",
+             ttl_micros: int = DAY_MICROS, flush_interval_micros: int = 1_000_000):
+    """The Nexmark running aggregate per auction over either package's
+    modules (B, E, G: its batch, expr and graph modules): bids -> non-windowed
+    GROUP BY auction with COUNT(*), SUM(price) and AVG(price), emitted as a
+    changelog (retract/append pairs in ``_is_retract``); the shape of
+    tests/smoke/queries/updating_aggregate.sql over Nexmark bids. ``backend``
+    "jax" is the device mode, "numpy" the host mode."""
+    S = B.Schema.of([("x", "int64"), (B.TIMESTAMP_FIELD, "int64")])
+    c = E.Col
+    g = G.Graph()
+    g.add_node(G.Node("src", G.OpName.SOURCE, {
+        "connector": "nexmark", "event_count": event_count, "inter_event_micros": 1000,
+        "first_event_micros": 0, "include_strings": False,
+        "columns": ["bid.auction", "bid.price"]}, 1))
+    g.add_node(G.Node("bids", G.OpName.VALUE, {
+        "projections": [("auction", c("bid.auction")), ("price", c("bid.price"))],
+        "filter": c("bid")}, 1))
+    g.add_node(G.Node("wm", G.OpName.WATERMARK, {
+        "expr": c(B.TIMESTAMP_FIELD), "interval_micros": 1_000_000}, 1))
+    g.add_node(G.Node("key", G.OpName.KEY, {"keys": [("auction", c("auction"))]}, 1))
+    g.add_node(G.Node("agg", G.OpName.UPDATING_AGGREGATE, {
+        "key_fields": ["auction"],
+        "aggregates": [("bids", "count", None), ("volume", "sum", c("price")),
+                       ("avg_price", "avg", c("price"))],
+        "ttl_micros": ttl_micros, "flush_interval_micros": flush_interval_micros,
+        "backend": backend, "input_dtype_of": lambda e: np.dtype(np.int64)}, 1))
+    g.add_node(G.Node("sink", G.OpName.SINK, {
+        "connector": "vec", "rows": rows, "columnar": True,
+        "include_internal": True}, 1))  # the changelog rides _is_retract
+    for a, b, t in [("src", "bids", G.EdgeType.FORWARD), ("bids", "wm", G.EdgeType.FORWARD),
+                    ("wm", "key", G.EdgeType.FORWARD), ("key", "agg", G.EdgeType.SHUFFLE),
+                    ("agg", "sink", G.EdgeType.FORWARD)]:
+        g.add_edge(a, b, t, S)
+    return g
+
+
+def build_qu(rows: list, event_count: int, **kw) -> Graph:
+    from arroyo_tpu_torch import batch as B
+    from arroyo_tpu_torch import expr as E
+    from arroyo_tpu_torch import graph as G
+
+    return qu_graph(B, E, G, rows, event_count, **kw)
+
+
+def oracle_qu(event_count: int) -> dict:
+    """auction -> (count, sum, sum / max(count, 1)) of price over all bids."""
+    b = nexmark_columns(event_count, ["bid.auction", "bid.price"], 1000)
+    auc, price = b["bid.auction"][b["bid"]], b["bid.price"][b["bid"]]
+    uniq, inv = np.unique(auc, return_inverse=True)
+    cnt = np.bincount(inv, minlength=len(uniq))
+    tot = np.zeros(len(uniq), dtype=np.int64)
+    np.add.at(tot, inv, price)
+    return {int(a): (int(n), int(t), float(t) / max(int(n), 1))
+            for a, n, t in zip(uniq.tolist(), cnt.tolist(), tot.tolist())}
+
+
+def changelog(rows: list) -> dict:
+    """The emitted changelog's columns, concatenated in emission order."""
+    names = ["auction", "bids", "volume", "avg_price", "_is_retract", TIMESTAMP_FIELD]
+    return {n: np.concatenate([np.asarray(b[n]) for b in rows]) if rows else np.empty(0)
+            for n in names}
+
+
+def check_changelog(rows: list) -> dict:
+    """Every retraction equals the last append for its key, and follows
+    one; returns the keys' live rows after applying the changelog in order
+    (merge_updating_rows), as auction -> (count, sum, avg)."""
+    from arroyo_tpu_torch.operators.updating_aggregate import merge_updating_rows
+
+    cl = changelog(rows)
+    last: dict = {}
+    for a, n, v, m, r in zip(cl["auction"].tolist(), cl["bids"].tolist(),
+                             cl["volume"].tolist(), cl["avg_price"].tolist(),
+                             cl["_is_retract"].tolist()):
+        if r:
+            if last.pop(a, None) != (n, v, m):
+                raise AssertionError(f"qu: retraction {(a, n, v, m)} does not match the "
+                                     f"last append for its key")
+        elif a in last:
+            raise AssertionError(f"qu: key {a} appended twice without a retraction")
+        else:
+            last[a] = (n, v, m)
+    dicts = [{k: v for k, v in r.items() if k != TIMESTAMP_FIELD}
+             for b in rows for r in b.to_pylist()]
+    merged = merge_updating_rows(dicts)
+    got = {r["auction"]: (r["bids"], r["volume"], r["avg_price"]) for r in merged}
+    if len(got) != len(merged) or got != last:
+        raise AssertionError(f"qu: merge_updating_rows gives {len(merged)} rows for "
+                             f"{len(got)} keys; the walk leaves {len(last)}")
+    return got
+
+
+def check_qu(rows: list, want: dict) -> dict:
+    got = check_changelog(rows)
+    if got != want:
+        diff = next(iter(set(got.items()) ^ set(want.items())), None)
+        raise AssertionError(f"qu parity failure: {len(got)} keys vs {len(want)}; "
+                             f"first diff {diff}")
+    return got
+
+
+def updating_stats(eng) -> dict:
+    """What the run's updating aggregate counted."""
+    op = eng.tasks[("agg", 0)].operator
+    spill = op._dev.spill if op._dev is not None else {}
+    return {"device_mode": op.device_mode, "device": str(op.device),
+            "lanes": [str(d) for d in op._dev_dtypes()] if op.device_mode else None,
+            "evicted_keys": op.evicted_keys, "compactions": op.compactions,
+            "spill_keys_at_end": len(spill), "flushed_keys_read_from_spill": op.spill_reads}
+
+
+def run_qu() -> dict:
+    """qu, the updating aggregate's main path: K1, K4 and K7 each launched,
+    the merged changelog equal to the oracle exactly."""
+    return run_chained("qu", build_qu, QU_EVENTS, oracle_qu, check_qu,
+                       path_kernels=QU_PATH_KERNELS, table_capacity=QU_CAP,
+                       stats=updating_stats)
+
+
+def same_changelog(a: dict, b: dict, what: str) -> int:
+    for n in a:
+        if a[n].dtype != b[n].dtype or not np.array_equal(a[n], b[n]):
+            raise AssertionError(f"{what}: column {n} differs ({a[n].dtype}, {len(a[n])} rows "
+                                 f"vs {b[n].dtype}, {len(b[n])})")
+    return len(a["auction"])
+
+
+def run_qu_ttl(dev) -> dict:
+    """qu at bench.py's table size (65536 slots) with a 300 s TTL and no
+    timed flush (a day): the flushes follow the watermarks alone, so the
+    changelog is fixed by the data. The device mode's changelog must equal
+    the host mode's row for row, with keys evicted and the device store
+    compacted; then the operator-level runs (updating input, float lanes)."""
+    out = {"phase": "qu_ttl", "events": QU_EVENTS, "table_capacity": QU_TTL_CAP,
+           "ttl_micros": QU_TTL_MICROS}
+    logs = {}
+    for backend in ("jax", "numpy"):
+        job = f"chip-smoke-qu-ttl-{backend}"
+        reset_all_launch_counts()
+        rows, wall, eng = drive(
+            lambda r, e, _b=backend: build_qu(r, e, backend=_b, ttl_micros=QU_TTL_MICROS,
+                                              flush_interval_micros=DAY_MICROS),
+            QU_EVENTS, job, chaining=True, table_capacity=QU_TTL_CAP)
+        logs[backend] = changelog(rows)
+        check_changelog(rows)
+        out[backend] = {"wall_s": wall, "events_per_s": QU_EVENTS / wall,
+                        "launches": all_launch_counts(), "stats": updating_stats(eng),
+                        "changelog_rows": len(logs[backend]["auction"]),
+                        "retractions": int(logs[backend]["_is_retract"].sum())}
+    same_changelog(logs["jax"], logs["numpy"], "qu_ttl device vs host mode")
+    st = out["jax"]["stats"]
+    if not st["device_mode"] or out["numpy"]["stats"]["device_mode"]:
+        raise AssertionError(f"qu_ttl: modes {st}, {out['numpy']['stats']}")
+    if st["evicted_keys"] == 0 or st["compactions"] == 0:
+        raise AssertionError(f"qu_ttl: no eviction or no compaction in device mode: {st}")
+    if out["jax"]["launches"]["slot_gather"] == 0:
+        raise AssertionError("qu_ttl: the device mode never launched K7")
+    out["operator_level"] = updating_operator_runs(dev)
+    emit(out)
+    return out
+
+
+def updating_operator_runs(dev) -> dict:
+    """The port's UpdatingAggregate fed one seeded stream in device mode (on
+    the card) and host mode: an updating input (retractions of earlier rows,
+    keys retracted to zero and coming back) through watermarks, ticks and
+    TTL evictions. Integer lanes: the changelogs must be equal batch for
+    batch. Float lanes (SUM and AVG of a float column): the device's float
+    sums are K1's atomics, whose order varies, so the changelogs may differ
+    (a residue after a retraction defeats the no-op suppression); reported,
+    and the merged views held to 1e-9 relative."""
+    from arroyo_tpu_torch.batch import KEY_FIELD
+    from arroyo_tpu_torch.hashing import hash_columns
+    from arroyo_tpu_torch.operators.base import OperatorContext
+    from arroyo_tpu_torch.operators.updating_aggregate import (IS_RETRACT_FIELD,
+                                                                UpdatingAggregate,
+                                                                merge_updating_rows)
+    from arroyo_tpu_torch.types import TaskInfo, Watermark
+
+    class Sink:
+        def __init__(self):
+            self.batches = []
+
+        def collect(self, b):
+            self.batches.append(b)
+
+    def run(backend, value_expr, dtype):
+        tcfg.reset()
+        tcfg.update({"device.table-capacity": 4096, "device.region-size": 256,
+                     "device.batch-capacity": 4096})
+        op = UpdatingAggregate({
+            "key_fields": ["k"], "backend": backend, "ttl_micros": 40_000_000,
+            "aggregates": [("n", "count", None), ("total", "sum", value_expr),
+                           ("mean", "avg", value_expr)],
+            "input_dtype_of": lambda e: np.dtype(dtype)})
+        ctx = OperatorContext(TaskInfo("upd-card", "agg", "updating_aggregate", 0, 1), dev)
+        op.on_start(ctx)
+        sink = Sink()
+        rng = np.random.default_rng(20261017)
+        sent: list = []  # (key, value) of appended rows not yet retracted
+        seen: dict = {}  # key -> the last step that touched it
+        for step in range(40):
+            n = 3000
+            hi = 5000 if step < 20 else 2500
+            ks = rng.integers(0, hi, n)
+            vs = rng.integers(1, 1000, n)
+            rt = np.zeros(n, dtype=bool)
+            # rows of keys idle for 8 steps (40 s, the TTL) may have been
+            # evicted: they are never retracted
+            sent = [(k, v) for k, v in sent if step - seen[k] < 8]
+            live = [i for i, (k, _v) in enumerate(sent) if k < hi]
+            if live and step % 3 == 1:
+                take = sorted(rng.choice(live, size=min(800, len(live)), replace=False),
+                              reverse=True)
+                back = [sent.pop(i) for i in take]
+                ks = np.concatenate([ks, [k for k, _v in back]])
+                vs = np.concatenate([vs, [v for _k, v in back]])
+                rt = np.concatenate([rt, np.ones(len(back), dtype=bool)])
+            sent.extend((k, v) for k, v, r in zip(ks.tolist(), vs.tolist(), rt) if not r)
+            seen.update((k, step) for k in ks.tolist())
+            ts = np.full(len(ks), step * 5_000_000, dtype=np.int64)
+            op.process_batch(Batch({"k": ks, "v": vs, "f": vs * 0.01, TIMESTAMP_FIELD: ts,
+                                    IS_RETRACT_FIELD: rt, KEY_FIELD: hash_columns([ks])}),
+                             ctx, sink)
+            if step % 4 == 3:
+                op.handle_tick(ctx, sink)
+            else:
+                op.handle_watermark(Watermark.event_time(int(ts[0])), ctx, sink)
+        op.on_close(ctx, sink)
+        torch.cuda.synchronize()
+        return sink.batches, op
+
+    res = {}
+    for label, expr, dtype in (("int64 lanes", Col("v"), np.int64),
+                               ("float64 lanes", Col("f"), np.float64)):
+        launches0 = kernels.launch_counts()["slot_gather"]
+        (b_dev, op_dev), (b_host, _op) = run("jax", expr, dtype), run("numpy", expr, dtype)
+        rows_dev = [r for b in b_dev for r in b.to_pylist()]
+        rows_host = [r for b in b_host for r in b.to_pylist()]
+        same = len(b_dev) == len(b_host) and all(
+            list(x.columns) == list(y.columns) and all(
+                np.asarray(x[c]).dtype == np.asarray(y[c]).dtype
+                and np.array_equal(np.asarray(x[c]), np.asarray(y[c])) for c in x.columns)
+            for x, y in zip(b_dev, b_host))
+        strip = lambda rows: [{k: v for k, v in r.items() if k != TIMESTAMP_FIELD} for r in rows]
+        m_dev = {r["k"]: r for r in merge_updating_rows(strip(rows_dev))}
+        m_host = {r["k"]: r for r in merge_updating_rows(strip(rows_host))}
+        rel = 0.0
+        if set(m_dev) != set(m_host):
+            raise AssertionError(f"updating operator ({label}): live keys differ")
+        for k, r in m_host.items():
+            if m_dev[k]["n"] != r["n"]:
+                raise AssertionError(f"updating operator ({label}): count of key {k} differs")
+            for c in ("total", "mean"):
+                rel = max(rel, abs(m_dev[k][c] - r[c]) / max(abs(r[c]), 1e-300))
+        info = {"rows_device": len(rows_dev), "rows_host": len(rows_host),
+                "changelogs_equal": bool(same), "merged_max_rel_err": rel,
+                "retractions": sum(1 for r in rows_host if r[IS_RETRACT_FIELD]),
+                "evicted_keys": op_dev.evicted_keys, "compactions": op_dev.compactions,
+                "k7_launches": kernels.launch_counts()["slot_gather"] - launches0}
+        if label == "int64 lanes" and not same:
+            raise AssertionError(f"updating operator on the card: device mode's changelog "
+                                 f"differs from the host mode's: {info}")
+        if rel > 1e-9 or info["k7_launches"] == 0:
+            raise AssertionError(f"updating operator ({label}): {info}")
+        res[label] = info
+    return res
+
+
+def qs_graph(B, E, G, rows: list, event_count: int):
+    """bench.py's qs (bench.py:116-146) over either package's modules:
+    session windows per bidder, gap 2 s, COUNT(*) and SUM(price)."""
+    S = B.Schema.of([("x", "int64"), (B.TIMESTAMP_FIELD, "int64")])
+    c = E.Col
+    g = G.Graph()
+    g.add_node(G.Node("src", G.OpName.SOURCE, {
+        "connector": "nexmark", "event_count": event_count, "inter_event_micros": 1000,
+        "first_event_micros": 0, "include_strings": False,
+        "columns": ["bid.bidder", "bid.price"]}, 1))
+    g.add_node(G.Node("bids", G.OpName.VALUE, {
+        "projections": [("bidder", c("bid.bidder")), ("price", c("bid.price"))],
+        "filter": c("bid")}, 1))
+    g.add_node(G.Node("wm", G.OpName.WATERMARK, {
+        "expr": c(B.TIMESTAMP_FIELD), "interval_micros": 1_000_000}, 1))
+    g.add_node(G.Node("key", G.OpName.KEY, {"keys": [("bidder", c("bidder"))]}, 1))
+    g.add_node(G.Node("agg", G.OpName.SESSION_AGGREGATE, {
+        "gap_micros": SESSION_GAP, "key_fields": ["bidder"],
+        "aggregates": [("bids", "count", None), ("spend", "sum", c("price"))],
+        "input_dtype_of": lambda e: np.dtype(np.int64)}, 1))
+    g.add_node(G.Node("sink", G.OpName.SINK, {"connector": "vec", "rows": rows,
+                                               "columnar": True}, 1))
+    for a, b, t in [("src", "bids", G.EdgeType.FORWARD), ("bids", "wm", G.EdgeType.FORWARD),
+                    ("wm", "key", G.EdgeType.FORWARD), ("key", "agg", G.EdgeType.SHUFFLE),
+                    ("agg", "sink", G.EdgeType.FORWARD)]:
+        g.add_edge(a, b, t, S)
+    return g
+
+
+def build_qs(rows: list, event_count: int) -> Graph:
+    from arroyo_tpu_torch import batch as B
+    from arroyo_tpu_torch import expr as E
+    from arroyo_tpu_torch import graph as G
+
+    return qs_graph(B, E, G, rows, event_count)
+
+
+def oracle_qs(event_count: int) -> dict:
+    """(session_start, bidder) -> (count, spend) with gap-merged sessions
+    (bench.py oracle_qs, over the port's generator)."""
+    b = nexmark_columns(event_count, ["bid.bidder", "bid.price"], 1000)
+    is_bid = b["bid"]
+    bidder, price, ts = b["bid.bidder"][is_bid], b["bid.price"][is_bid], b[TIMESTAMP_FIELD][is_bid]
+    out: dict = {}
+    order = np.lexsort((ts, bidder))
+    bs, tss, ps = bidder[order], ts[order], price[order]
+    i0 = 0
+    for i in range(1, len(bs) + 1):
+        if i == len(bs) or bs[i] != bs[i - 1] or tss[i] - tss[i - 1] > SESSION_GAP:
+            out[(int(tss[i0]), int(bs[i0]))] = (i - i0, int(ps[i0:i].sum()))
+            i0 = i
+    return out
+
+
+def check_qs(rows: list, want: dict) -> dict:
+    """bench.py's check_parity_qs, and no session emitted twice."""
+    got: dict = {}
+    for b in rows:
+        for ws, bd, n, sp in zip(b["window_start"].tolist(), b["bidder"].tolist(),
+                                 b["bids"].tolist(), b["spend"].tolist()):
+            if (ws, bd) in got:
+                raise AssertionError(f"qs session {(ws, bd)} emitted twice")
+            got[(ws, bd)] = (n, sp)
+    if got != want:
+        diff = next(iter(set(got.items()) ^ set(want.items())), None)
+        raise AssertionError(f"qs parity failure: {len(got)} sessions vs {len(want)}; "
+                             f"first diff {diff}")
+    return got
+
+
+def run_qs() -> dict:
+    """qs at bench.py's setting: K4 on the bids chain; the session window
+    is host numpy in both packages."""
+    return run_chained("qs", build_qs, QS_EVENTS, oracle_qs, check_qs,
+                       path_kernels=("segment_fused",))
+
+
+# ---------------------------------------------------------------- gather (K7)
+
+
+def qu_touched_keys(events: int = QU_EVENTS) -> int:
+    """The most distinct auctions of any one source batch of qu's stream:
+    the keys one flush reads back with K7."""
+    b = nexmark_columns(events, ["bid.auction"], 1000)
+    return max(len(np.unique(b["bid.auction"][lo:lo + BENCH_BATCH][b["bid"][lo:lo + BENCH_BATCH]]))
+               for lo in range(0, events, BENCH_BATCH))
+
+
+def gather_state(rng, dtypes, cap, dev):
+    out = []
+    for dt in dtypes:
+        npdt = NP_DT[dt]
+        if dt.is_floating_point:
+            a = rng.normal(0, 1e6, cap).astype(npdt)
+            a[:5] = [np.nan, -0.0, np.inf, -np.inf, 1e-30]
+            a[-1] = -7.5
+        else:
+            a = rng.integers(np.iinfo(npdt).min, np.iinfo(npdt).max, cap, dtype=npdt)
+        out.append(torch.from_numpy(a).to(dev))
+    return out
+
+
+def check_gather(state, slots) -> None:
+    """K7 against its plain version, exactly: the int64 buffer with
+    torch.equal, the float64 buffer bit for bit (NaN and -0.0 included)."""
+    ib, fb = kernels.slot_gather(state, slots)
+    pib, pfb = kernels.slot_gather_plain(state, slots)
+    torch.cuda.synchronize()
+    if not (torch.equal(ib, pib) and torch.equal(fb.view(torch.int64), pfb.view(torch.int64))):
+        raise AssertionError(f"slot_gather differs from its plain version (k {slots.numel()}, "
+                             f"{slots.dtype}, lanes {[str(a.dtype) for a in state]})")
+
+
+def qu_lanes() -> list:
+    """The device lanes of qu's updating aggregate, as its operator builds
+    them: COUNT's int64, SUM(price)'s int64, AVG's float64 sum and int64
+    count (windows/tumbling.py acc_plan)."""
+    node = build_qu([], 1).nodes["agg"]
+    return [str(d) for d in construct_operator(node.op, node.config)._dev_dtypes()]
+
+
+def gather_phase(dev) -> dict:
+    """K7 at qu's shape (qu's lanes, 262144 slots, one batch's touched
+    keys), at a deployment-size state (16,777,216 slots x 4 int64 lanes,
+    512 MB, 1,048,576 slots gathered), over mixed lanes with int32 and int64
+    indices, and on edge cases; then timed."""
+    rng = np.random.default_rng(20261017)
+    k_qu = qu_touched_keys()
+    qu_dt = [getattr(torch, d) for d in qu_lanes()]
+    shapes = {"qu": (qu_dt, QU_CAP, k_qu),
+              "deployment": ([torch.int64] * 4, 1 << 24, 1 << 20),
+              "mixed": ([torch.int32, torch.int64, torch.float32, torch.float64,
+                         torch.float32, torch.int32], 1 << 20, 50_001)}
+    checked = {}
+    states = {}
+    for name, (dts, cap, k) in shapes.items():
+        log(f"gather: check {name}")
+        st = gather_state(rng, dts, cap, dev)
+        states[name] = st
+        for idx_dt in (torch.int32, torch.int64):
+            base = rng.integers(0, cap, k)
+            for label, sl in (("random", base),
+                              ("k = 1", base[:1]), ("slot 0", np.zeros(1, np.int64)),
+                              ("slot cap - 1", np.full(1, cap - 1)),
+                              ("k not a power of two", base[:max(1, k - 37)]),
+                              ("duplicated slots", np.repeat(base[:257], 5)),
+                              ("edges mixed", np.concatenate([[0, cap - 1, 0, cap - 1], base[:61]]))):
+                check_gather(st, torch.from_numpy(sl.astype(np.int64)).to(idx_dt).to(dev))
+                checked[f"{name} {str(idx_dt).replace('torch.', '')} {label}"] = len(sl)
+    timing = {}
+    for name in ("qu", "deployment"):
+        dts, cap, k = shapes[name]
+        st = states[name]
+        slots = torch.from_numpy(rng.integers(0, cap, k).astype(np.int32)).to(dev)
+        ints = [a for a in st if not a.dtype.is_floating_point]
+        flts = [a for a in st if a.dtype.is_floating_point]
+        sl64 = slots.long()
+        log(f"gather: time {name}")
+        t = timed(
+            lambda: kernels.slot_gather(st, slots),
+            lambda: kernels.slot_gather_plain(st, slots),
+            lambda: (torch.cat([a.index_select(0, sl64).to(torch.int64) for a in ints])
+                     if ints else None,
+                     torch.cat([a.index_select(0, sl64).to(torch.float64) for a in flts])
+                     if flts else None),
+            library="torch.index_select per lane, widened and concatenated per lane class",
+            bytes=k * slots.element_size() + k * sum(a.element_size() for a in st) + k * 8 * len(st),
+            bytes_counted="k slot indices read, k words of each lane gathered, k x 8 bytes "
+                          "per lane written",
+            k=k, cap=cap, lanes=[str(a.dtype).replace("torch.", "") for a in st])
+        t["read_slots_host_ms"] = read_slots_host_ms(dts, cap, k, dev, rng)
+        timing[name] = t
+    info = {"phase": "gather", "cases_checked": len(checked), "max_abs_err": 0.0,
+            "qu_touched_keys": k_qu, "checked": checked, "timing": timing}
+    emit(info)
+    return info
+
+
+def read_slots_host_ms(dts, cap, k, dev, rng) -> float:
+    """Median wall time of SlotAggregator.read_slots (what one flush pays:
+    slot upload, K7, the copies into pinned memory, the wait on their
+    event, the split into lanes) at this shape, host clock."""
+    from arroyo_tpu_torch.ops.slot_agg import SlotAggregator
+
+    agg = SlotAggregator(["sum"] * len(dts), [NP_DT[d] for d in dts], cap=cap,
+                         batch_cap=65536, region_size=2048, device=dev)
+    slots = rng.integers(0, cap, k)
+    times = []
+    for _ in range(2 + TIMING_REPS):
+        t0 = time.perf_counter()
+        agg.read_slots(slots)
+        times.append((time.perf_counter() - t0) * 1e3)
+    del agg
+    return statistics.median(times[2:])
 
 
 # ---------------------------------------------------------------- join kernels
@@ -717,6 +1235,17 @@ def q5_members(E) -> list:
                                    "input_dtype_of": lambda e: np.dtype(np.int64)})]
 
 
+def bids_chain_members(E, key: str) -> list:
+    """qu's and qs's chains (bids -> wm -> key; the keyed operator after the
+    shuffle is not chained): VALUE (``key`` and price of each bid), the
+    watermark, KEY on ``key``."""
+    c = E.Col
+    return [("value", {"projections": [(key, c(f"bid.{key}")), ("price", c("bid.price"))],
+                       "filter": c("bid")}),
+            ("watermark", {"expr": c(TIMESTAMP_FIELD), "interval_micros": 1_000_000}),
+            ("key", {"keys": [(key, c(key))]})]
+
+
 def q8_members(E, side: str) -> list:
     """bench.py's q8 chains (bench.py:160-174): the auctions or the bids
     VALUE (window-start stamp, filter) + KEY."""
@@ -869,17 +1398,22 @@ def staged_inputs(plan, batch: Batch, dev) -> tuple[int, list]:
 
 
 def nexmark_plans() -> list:
-    """(label, plan, batch) for the q7 and q5 insert plans at P = 65536 and
-    q8's two emit-batch plans."""
+    """(label, plan, batch) for the q7 and q5 insert plans at P = 65536,
+    q8's two emit-batch plans and the bids chains of qu and qs (their
+    segment_build compiles are then Triton cache hits in the qu and qs
+    runs, as q7c's are)."""
     from arroyo_tpu_torch import expr as E
 
     q7b = Batch(nexmark_columns(BENCH_BATCH, ["bid.auction", "bid.price"], 1000))
     q5b = Batch(nexmark_columns(BENCH_BATCH, ["bid.auction"], 1000))
     q8b = Batch(nexmark_columns(BENCH_BATCH - 37, ["auction.id", "bid.auction"], 100))
+    qsb = Batch(nexmark_columns(BENCH_BATCH, ["bid.bidder", "bid.price"], 1000))
     return [("q7 insert", bind_plan(q7_members(E), q7b, hoist=False), q7b),
             ("q5 insert", bind_plan(q5_members(E), q5b, hoist=False), q5b),
             ("q8 auctions, filter hoisted", bind_plan(q8_members(E, "auctions"), q8b, hoist=True), q8b),
-            ("q8 bids, filter in the kernel", bind_plan(q8_members(E, "bids"), q8b, hoist=False), q8b)]
+            ("q8 bids, filter in the kernel", bind_plan(q8_members(E, "bids"), q8b, hoist=False), q8b),
+            ("qu bids chain", bind_plan(bids_chain_members(E, "auction"), q7b, hoist=False), q7b),
+            ("qs bids chain", bind_plan(bids_chain_members(E, "bidder"), qsb, hoist=False), qsb)]
 
 
 def grid_plans() -> list:
@@ -1237,7 +1771,11 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out-dir", default="chip_smoke_out",
                     help="directory for chip_smoke.json and the build logs")
-    out_dir = ap.parse_args(argv).out_dir
+    ap.add_argument("--only", default=None,
+                    help="comma-separated phases to run after probe and build (a short "
+                         "check); such a run prints no result line")
+    args = ap.parse_args(argv)
+    out_dir = args.out_dir
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke run needs a GPU",
               file=sys.stderr)
@@ -1250,23 +1788,39 @@ def main(argv=None) -> int:
     smi, res["probe"] = probe()
     log("build")
     res["build"] = build(out_dir)
-    log("q7")
-    res["q7"] = run_q7()
-    log("segment_build")
-    res["segment_build"], nex_plans = segment_build(out_dir)
-    log("q7c")
-    res["q7c"] = run_chained("q7c", build_q7, Q7_EVENTS, oracle_q7, check_q7)
-    log("q5")
-    res["q5"] = run_chained("q5", build_q5, Q5_EVENTS, oracle_q5, check_q5)
-    log("q8c")
-    res["q8c"] = run_q8c()
-    log("kernels")
-    res["kernels"] = kernel_phase(dev)
-    log("segment")
-    res["segment"] = segment_phase(nex_plans)
-    log("join")
-    res["join"] = join_phase(dev)
+    plans: dict = {}
+
+    def seg_build():
+        info, plans["nexmark"] = segment_build(out_dir)
+        return info
+
+    phases = {
+        "q7": run_q7,
+        "segment_build": seg_build,
+        "q7c": lambda: run_chained("q7c", build_q7, Q7_EVENTS, oracle_q7, check_q7),
+        "q5": lambda: run_chained("q5", build_q5, Q5_EVENTS, oracle_q5, check_q5),
+        "q8c": run_q8c,
+        "qu": run_qu,
+        "qu_ttl": lambda: run_qu_ttl(dev),
+        "qs": run_qs,
+        "kernels": lambda: kernel_phase(dev),
+        "segment": lambda: segment_phase(plans.get("nexmark") or nexmark_plans()),
+        "join": lambda: join_phase(dev),
+        "gather": lambda: gather_phase(dev),
+    }
+    only = args.only.split(",") if args.only else list(phases)
+    unknown = sorted(set(only) - set(phases))
+    if unknown:
+        raise SystemExit(f"unknown phases {unknown}; the phases are {list(phases)}")
+    for name, fn in phases.items():
+        if name in only:
+            log(name)
+            res[name] = fn()
     log("done")
+    if args.only:
+        with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
+            json.dump(res, f, indent=1)
+        return 0
     res["summary"] = rows = kernel_rows(res)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump(res, f, indent=1)
@@ -1308,6 +1862,12 @@ def kernel_rows(res: dict) -> list:
                      "max_abs_err": res["join"]["max_abs_err"], "ms": t["ms"],
                      "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                      "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    t = res["gather"]["timing"]["qu"]
+    rows.append({"name": "slot_gather", "route": "cuda", "source": SOURCE,
+                 "replaces": REPLACES["slot_gather"], "launches": res["qu"]["launches"]["slot_gather"],
+                 "max_abs_err": res["gather"]["max_abs_err"], "ms": t["ms"],
+                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                 "library_ms": t["library_ms"]})
     return rows
 
 

@@ -37,7 +37,8 @@ def test_port_and_chip_smoke_import_neither_jax_nor_arroyo_tpu():
     assert {"arroyo_tpu_torch.ops.kernels", "arroyo_tpu_torch.ops.slot_agg",
             "arroyo_tpu_torch.windows.tumbling", "arroyo_tpu_torch.engine.engine",
             "arroyo_tpu_torch.ops.join_kernels", "arroyo_tpu_torch.ops.join_probe",
-            "arroyo_tpu_torch.operators.joins"} <= set(mods)
+            "arroyo_tpu_torch.operators.joins", "arroyo_tpu_torch.operators.updating_aggregate",
+            "arroyo_tpu_torch.windows.session"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -103,6 +104,18 @@ def test_later_slices_are_refused_not_skipped():
     eng = Engine(_tiny_graph([]), device="cpu")
     with pytest.raises(NotImplementedError, match="checkpoint"):
         eng.checkpoint_and_wait(1)
+
+
+@pytest.mark.parametrize("op", ["updating_aggregate", "session_aggregate"])
+def test_checkpoint_barrier_of_slice_4_operators_refused(op):
+    """The updating aggregate and the session window carry their state
+    layout (state_batch / load_state_batch) but no checkpoint barrier yet."""
+    from arroyo_tpu_torch.engine import construct_operator
+    from arroyo_tpu_torch.graph import OpName
+
+    cfg = {"aggregates": [("n", "count", None)], "gap_micros": 10}
+    with pytest.raises(NotImplementedError, match="checkpoint"):
+        construct_operator(OpName(op), cfg).handle_checkpoint(None, None, None)
 
 
 def test_kernel_build_without_nvcc_raises(monkeypatch):

@@ -94,6 +94,10 @@ def _plans(port_expr, jax_expr):
     for side, hoist in (("auctions", True), ("bids", False)):
         out.append((f"q8 {side}", chip_smoke.q8_members(jax_expr, side),
                     chip_smoke.q8_members(port_expr, side), q8c, hoist))
+    qsc = chip_smoke.nexmark_columns(N, ["bid.bidder", "bid.price"], 1000)
+    for name, key, cols in (("qu", "auction", q7c), ("qs", "bidder", qsc)):
+        out.append((f"{name} bids chain", chip_smoke.bids_chain_members(jax_expr, key),
+                    chip_smoke.bids_chain_members(port_expr, key), cols, False))
     grid = chip_smoke.grid_columns(N)
     for (label, jm, hoist), (_l, tm, _h) in zip(chip_smoke.segment_grid(jax_expr),
                                                 chip_smoke.segment_grid(port_expr)):

@@ -219,6 +219,11 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         kernels.slot_region_clear(st, ["count", "max"], [0] * 17, 1)
     with pytest.raises(ValueError, match="unsupported device"):
         kernels.slot_region_read_pack([torch.zeros(16, device="meta")], [0], 8)
+    with pytest.raises(TypeError, match="slots dtype"):
+        kernels.slot_gather(st, s.float())
+    with pytest.raises(ValueError, match="state's device"):
+        kernels.slot_gather(st, torch.zeros(4, dtype=torch.int32, device="meta"))
     assert kernels.launch_counts() == {"slot_scatter_combine": 0,
                                        "slot_region_read_pack": 0,
-                                       "slot_region_clear": 0}
+                                       "slot_region_clear": 0,
+                                       "slot_gather": 0}
