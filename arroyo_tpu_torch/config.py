@@ -8,7 +8,9 @@ The JAX package reads ``device.join-min-rows`` and
 ``device.force-device-join`` with defaults and has no entry for them; the
 port lists them here with the same defaults and meaning.
 ``device.torch-device`` names the torch device (None = ``cuda``; see
-device.py).
+device.py). The mesh keys (``device.mesh-devices``, ``max-probes``,
+``emit-capacity``, ``spill-capacity``, ``segment.compile.mesh-fuse``) have
+the JAX package's defaults and meaning.
 """
 
 from __future__ import annotations
@@ -51,6 +53,11 @@ _DEFAULTS: dict[str, Any] = {
             # batches below this many rows (input, or survivors of the
             # hoisted leading filter) run interpreted
             "min-rows": 8192,
+            # with device.mesh-devices > 1, a segment that ends in a window
+            # insert feeds the sharded aggregate's exchange + merge on the
+            # device directly (the fused mesh step); off, its outputs take
+            # the host path (insert_arrays -> round-robin host rows)
+            "mesh-fuse": True,
         },
     },
     "state": {
@@ -72,6 +79,12 @@ _DEFAULTS: dict[str, Any] = {
         "batch-capacity": 8192,  # rows per aggregator update chunk
         "table-capacity": 65536,  # slots of keyed window state on the device
         "region-size": 2048,  # slots per region (one window close reads whole regions)
+        # > 1: the window operators keep their state in a ShardedAggregator
+        # of this many key shards (parallel/), on the one device
+        "mesh-devices": 0,
+        "max-probes": 64,  # linear-probing rounds of the sharded hash table
+        "emit-capacity": 8192,  # rows per shard per sharded close round
+        "spill-capacity": 2048,  # rows of each shard's spill buffer
         "prefetch-workers": 8,  # threads that wait on device->host fetches
     },
 }

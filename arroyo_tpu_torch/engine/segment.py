@@ -34,9 +34,20 @@ Design rules, as in the JAX package:
     ChainCollector path.
 
 Cache keys include the member configs, the input column (name, dtype)
-signature and the node parallelism (``segment.compile.cache-max`` bounds
-the LRU). The mesh parts of the JAX module (the fused shard_map step) are a
-later slice of the port.
+signature, the node parallelism, the device and the mesh width
+(``segment.compile.cache-max`` bounds the LRU).
+
+Mesh fusion (``device.mesh-devices`` > 1, ``segment.compile.mesh-fuse``
+on, a chain marked "mesh"): after the first batch is verified on the host
+path, each micro-batch runs K4 and hands its device outputs straight to the
+sharded aggregate's exchange + merge (``ShardedAggregator.fused_step``):
+rows never return to the host between projection and state update. The
+member's ``mesh_insert_begin`` does the host half (drain, late split,
+bookkeeping). A failure while staging the batch, before any state has
+changed, leaves it to the per-batch host path (a SEGMENT_FALLBACK event
+with ``mesh``); any error of the step itself, which updates the sharded
+table in place, fails the job. ``mesh_dispatch_counts`` is the ledger: micro-batches
+committed fused and through the host path.
 """
 
 from __future__ import annotations
@@ -55,7 +66,7 @@ from ..batch import KEY_FIELD, TIMESTAMP_FIELD, Batch
 from ..config import config
 from ..expr import BinOp, Case, Cast, Col, Expr, Func, Lit, Neg, Not, eval_expr
 from ..graph import OpName
-from ..ops import segment_kernel
+from ..ops import kernels, segment_kernel
 from ..ops.segment_kernel import SegmentProgram, insert_step as _insert_step
 
 # scalar functions whose device evaluation is bit-identical to the numpy path
@@ -161,9 +172,8 @@ def segment_marking(members: list[tuple[str, dict]]) -> Optional[dict]:
 
 
 def _mesh_markable(members: list[tuple[str, dict]], k: int) -> bool:
-    """Static half of the JAX package's mesh-fusion gate (the mesh path is
-    a later slice of the port; the marking keeps the field so plans agree):
-    no in-trace filter past the hoistable leading member."""
+    """Static half of the mesh-fusion gate (SegmentRunner._setup_mesh has
+    the rest): no in-trace filter past the hoistable leading member."""
     for op, cfg in members[1:k]:
         if op == OpName.VALUE.value and cfg.get("filter") is not None:
             return False
@@ -401,6 +411,7 @@ def _trace_fn(plan: _SegmentPlan, in_dtypes, device: torch.device) -> Callable:
     CUDA, its plain PyTorch version on the CPU (ops/segment_kernel.py).
 
     Signature: ``run(n, arrays)`` over numpy arrays padded to one length P;
+    ``run.on_device(n, arrays)`` stops before the copies to the host. ``run``
     returns ``(outs, mask, aux)`` where ``outs`` maps ``plan.traced_out`` to
     numpy arrays, ``mask`` selects valid rows (None when no member filters
     in the kernel: the padding tail is then dropped by slicing), and ``aux``
@@ -415,16 +426,18 @@ def _trace_fn(plan: _SegmentPlan, in_dtypes, device: torch.device) -> Callable:
         raise SegmentUntraceable(f"not in the segment kernel: {e}") from e
     cuda = device.type == "cuda"
 
-    def run(n: int, arrays: list[np.ndarray]):
-        if not cuda:
-            return _run(n, arrays)
-        try:
-            return _run(n, arrays)
-        except Exception as e:  # noqa: BLE001 - re-raised: a kernel fault fails the job
-            raise segment_kernel.KernelError(
-                f"segment kernel K4 on {device}: {type(e).__name__}: {e}") from e
+    def guarded(fn):
+        def call(n: int, arrays: list[np.ndarray]):
+            if not cuda:
+                return fn(n, arrays)
+            try:
+                return fn(n, arrays)
+            except Exception as e:  # noqa: BLE001 - re-raised: a kernel fault fails the job
+                raise segment_kernel.KernelError(
+                    f"segment kernel K4 on {device}: {type(e).__name__}: {e}") from e
+        return call
 
-    def _run(n: int, arrays: list[np.ndarray]):
+    def _on_device(n: int, arrays: list[np.ndarray]):
         ins = []
         for a, dt in zip(arrays, prog.in_dtypes):
             a = np.ascontiguousarray(a).view(np.int64) if dt == np.dtype(np.uint64) else a
@@ -434,7 +447,10 @@ def _trace_fn(plan: _SegmentPlan, in_dtypes, device: torch.device) -> Callable:
                 # keeps the buffer until the copy has landed
                 t = t.pin_memory().to(device, non_blocking=True)
             ins.append(t)
-        outs, mask, aux = segment_kernel.segment_fused(prog, n, ins)
+        return segment_kernel.segment_fused(prog, n, ins)
+
+    def _run(n: int, arrays: list[np.ndarray]):
+        outs, mask, aux = _on_device(n, arrays)
         dev_out = list(outs.values()) + ([mask] if mask is not None else []) + \
             [x for pair in aux for x in pair]
         if cuda:
@@ -456,6 +472,10 @@ def _trace_fn(plan: _SegmentPlan, in_dtypes, device: torch.device) -> Callable:
             k += 1
         return res, out_mask, tuple(host[k:])
 
+    run = guarded(_run)
+    # the fused mesh step keeps K4's outputs on the device:
+    # (outs {name: [P] tensor, uint64 as int64 bits}, mask, aux pairs)
+    run.on_device = guarded(_on_device)
     return run
 
 
@@ -685,13 +705,31 @@ class _Fallback:
 def _kernel_error(e: BaseException) -> bool:
     """An exception that must fail the job instead of falling back: anything
     raised on a CUDA device while staging, building, launching or reading
-    back K4 (segment_kernel.KernelError). Host-side steps (binding, the
-    hoisted filter, compaction, verification) fall back as in the JAX
-    package."""
-    return isinstance(e, segment_kernel.KernelError)
+    back K4 (segment_kernel.KernelError), and a build or launch error of any
+    other kernel of the port (kernels.KernelError: the sharded aggregate's
+    K8-K11 in the fused mesh step). Host-side steps (binding, the hoisted
+    filter, compaction, verification) fall back as in the JAX package."""
+    return isinstance(e, kernels.KernelError)
 
 
 # ----------------------------------------------------------------- runner
+
+
+# per-process micro-batch commit counts of mesh-armed runners: "fused" =
+# committed through the fused mesh step, "host" = through the per-batch host
+# path (first-batch verification, small batches, recovery after a failed
+# fused step). bench.py --mesh-ab's ledger: with fusion on, "fused" equals
+# the sharded aggregate's fused_steps, one step per fused micro-batch.
+_MESH_DISPATCH = {"fused": 0, "host": 0}
+
+
+def mesh_dispatch_counts() -> dict:
+    return dict(_MESH_DISPATCH)
+
+
+def reset_mesh_dispatch_counts() -> None:
+    for k in _MESH_DISPATCH:
+        _MESH_DISPATCH[k] = 0
 
 
 class SegmentRunner:
@@ -711,13 +749,27 @@ class SegmentRunner:
         # cost demotion (not a fallback): a run of consecutive batches whose
         # hoisted-filter survivors stayed under min-rows latches interpreted
         self._small_streak = 0
+        # mesh fusion (device.mesh-devices > 1 and a mesh-markable insert
+        # prefix): K4's outputs feed the sharded aggregate's exchange +
+        # merge on the device instead of the host insert path. _mesh_n > 1
+        # also forces the leading-filter hoist (_should_hoist): the fused
+        # step takes no mask.
+        mesh_n = int(config().get("device.mesh-devices", 0) or 0)
+        self._mesh_n = (
+            mesh_n if mesh_n > 1 and marking.get("mesh")
+            and bool(config().get("segment.compile.mesh-fuse", True)) else 0)
+        self._mesh_step = None  # the armed fused step (_setup_mesh)
+        self._mesh_agg = None
+        self._mesh_member = None
+        self._mesh_off = False  # latched: fusion declined or failed, host path only
         # cache identity: the traced prefix's configs (tail members never
         # enter the kernel; their configs may hold run-local objects), the
-        # node's parallelism and the device
+        # node's parallelism, the device and the mesh width (a resize
+        # changes the forced-hoist decision)
         cfgs = [(op, _cfg_fingerprint(c))
                 for op, c in chain.cfg_members[: int(marking["prefix"])]]
         self._seg_key = hashlib.sha1(json.dumps(
-            [cfgs, ctx.task_info.parallelism, str(ctx.device)], default=repr,
+            [cfgs, ctx.task_info.parallelism, str(ctx.device), self._mesh_n], default=repr,
         ).encode()).hexdigest()[:16]
 
     # -- events ---------------------------------------------------------
@@ -752,6 +804,8 @@ class SegmentRunner:
                 # vacuous first batch (hoisted filter left no survivors): a
                 # no-op on both paths; the build retries on the next batch
                 return
+        if self._mesh_step is not None and self._mesh_execute(batch, collector):
+            return
         try:
             res = self._entry.execute(batch, min_rows=self._min_rows)
         except Exception as e:  # noqa: BLE001 - host-side failures fall back
@@ -798,6 +852,7 @@ class SegmentRunner:
                 return None
             self._entry, self._sig = entry, sig
             self.metrics.segment_compiled = True
+            self._setup_mesh(entry)
             self._event(
                 "INFO", "SEGMENT_COMPILED",
                 f"segment {self.chain.name()} running compiled "
@@ -836,6 +891,7 @@ class SegmentRunner:
         segment_cache.store(key, entry)
         self._entry, self._sig = entry, sig
         self.metrics.segment_compiled = True
+        self._setup_mesh(entry)
         self._event(
             "INFO", "SEGMENT_COMPILED",
             f"segment {self.chain.name()} compiled to one fused kernel "
@@ -855,6 +911,10 @@ class SegmentRunner:
 
         if not isinstance(m0, ValueOperator) or m0.filter is None:
             return False
+        if self._mesh_n > 1:
+            # the fused mesh step takes no mask, so a leading filter must
+            # run on the host; cache keys include the mesh width
+            return True
         if expr_traceable(m0.filter) is not None:
             return True
         for name in m0.filter.columns():
@@ -896,6 +956,170 @@ class SegmentRunner:
             f"segment {self.chain.name()} fell back to the interpreted "
             f"path: {reason}", reason=reason)
 
+    # -- mesh fusion ----------------------------------------------------
+
+    def _setup_mesh(self, entry: CompiledSegment) -> None:
+        """Arm the fused mesh step for a freshly adopted entry: K4's outputs
+        feed the sharded aggregate's exchange + merge on the device. Fusion
+        sits on top of the verified per-batch path: a gate that fails
+        quietly keeps the host path (no SEGMENT_FALLBACK: the segment is
+        still compiled)."""
+        self._mesh_step = None
+        self._mesh_agg = None
+        self._mesh_member = None
+        if self._mesh_n <= 1 or self._mesh_off:
+            return
+        plan = entry.plan
+        if plan.insert is None:
+            self._mesh_off = True
+            return
+        # the member resolves BY INDEX against THIS chain (as in _commit)
+        member = self.chain.members[plan.insert.member_index]
+        from ..parallel.sharded_agg import ShardedAggregator
+
+        # the window operators build their store at first insert; force it
+        # (the path an insert would take) to see its type
+        agg_fn = getattr(member, "_aggregator", None)
+        agg = agg_fn() if agg_fn is not None else getattr(member, "_agg", None)
+        if not isinstance(agg, ShardedAggregator):
+            self._mesh_off = True
+            return
+        for si, st in enumerate(plan.stages):
+            if (st.kind == "value" and st.member.filter is not None
+                    and (si != 0 or plan.prefilter is None)):
+                # an in-kernel filter would desync the host prologue (late
+                # split, open bins) from the rows the step inserts
+                self._mesh_off = True
+                return
+        # the host prologue bins the VERBATIM event time, so the insert's
+        # _timestamp must be the input column untouched
+        ts_verbatim = TIMESTAMP_FIELD in plan.traced_in
+        for st in plan.stages:
+            if (st.kind == "value" and st.member.projections is not None
+                    and any(name == TIMESTAMP_FIELD for name, _e in st.member.projections)):
+                ts_verbatim = False
+        if not ts_verbatim or getattr(member, "mesh_insert_begin", None) is None:
+            self._mesh_off = True
+            return
+        self._mesh_step = agg.fused_step(self._build_mesh_prefix(entry, member),
+                                         len(plan.traced_in), 2 * len(plan.wm_stages))
+        self._mesh_agg = agg
+        self._mesh_member = member
+
+    def _build_mesh_prefix(self, entry: CompiledSegment, member) -> Callable:
+        """The fused step's prologue: K4 over the padded batch, its insert
+        outputs left on the device. Contract (ShardedAggregator.fused_step):
+        ``prefix_fn(n, arrays) -> (key_i64, bins_abs, vals, aux)`` with
+        device tensors of the padded length (vals None for a count lane of
+        ones) and the watermark stages' (max, count) pairs over the batch's
+        valid rows as host scalars, computed once over the whole batch (the
+        JAX step computes one pair per shard; the host combines shards by
+        max and sum, so the values it reads are the same)."""
+        plan = entry.plan
+        acc = list(zip(member.acc_inputs, member.acc_dtypes))
+        insert_has_key = plan.insert_has_key
+
+        def prefix_fn(n: int, arrays):
+            outs, mask, aux = entry.fn.on_device(n, arrays)
+            if mask is not None:
+                raise SegmentUntraceable("the fused mesh step takes no in-kernel filter")
+            bins = outs["__bins"]
+            key = (outs["__hash"] if insert_has_key
+                   else torch.zeros(bins.shape, dtype=torch.int64, device=bins.device))
+            # K4 writes uint64 columns as their int64 bits
+            vals = [None if inp is None else
+                    outs[f"__val{i}"].view(torch.uint64) if np.dtype(dt) == np.uint64
+                    else outs[f"__val{i}"] for i, (inp, dt) in enumerate(acc)]
+            flat = []
+            for mx, cnt in aux:
+                flat += [mx.cpu().numpy(), cnt.cpu().numpy()]
+            return key, bins, vals, flat
+
+        return prefix_fn
+
+    def _mesh_execute(self, batch: Batch, collector) -> bool:
+        """One fused micro-batch: the host prologue (hoisted filter, binning
+        and padding, then the member's mesh_insert_begin), then K4 and the
+        sharded exchange + merge on the device. Returns False to hand the
+        batch to the per-batch host path, which recovers it exactly only
+        while nothing has changed: a failure of the staging before
+        mesh_insert_begin falls back. mesh_insert_begin's bookkeeping (late
+        rows, open bins) is not idempotent, so its errors propagate as the
+        host path's would; and the step updates the sharded table in place
+        (K9, the spill append), so any error inside it fails the job as a
+        kernels.KernelError: a re-run on the host path would insert the
+        merged rows twice."""
+        plan = self._entry.plan
+        member = self._mesh_member
+        agg = self._mesh_agg
+        n = batch.num_rows
+        fmask = None
+        if plan.prefilter is not None:
+            fm = np.asarray(eval_expr(plan.prefilter, batch.columns, n), dtype=bool)
+            if not fm.any():
+                self._small_streak = 0
+                return True  # nothing flows on either path
+            if not fm.all():
+                survivors = int(fm.sum())
+                if survivors < max(1, self._min_rows):
+                    return False  # the host path owns the small-batch latch
+                fmask = fm
+                n = survivors
+        try:
+            ts = np.asarray(batch.columns[TIMESTAMP_FIELD])
+            if fmask is not None:
+                ts = ts[fmask]
+            bins_abs = ts // _insert_step(member)
+            mcols = self.chain._chain_cols(collector)
+            p = _padded_size(n)
+            if p % agg.n_dev:
+                p = -(-p // agg.n_dev) * agg.n_dev
+            arrays = []
+            for name in plan.traced_in:
+                a = np.asarray(batch.columns[name])
+                buf = np.zeros(p, dtype=a.dtype)
+                if fmask is not None:
+                    np.compress(fmask, a, out=buf[:n])
+                else:
+                    buf[:n] = a
+                arrays.append(buf)
+        except Exception as e:  # noqa: BLE001 - staging failures fall back
+            self._mesh_step = None
+            self._mesh_off = True
+            self._event(
+                "WARN", "SEGMENT_FALLBACK",
+                f"segment {self.chain.name()} fused mesh step failed; batches "
+                f"continue on the compiled host path: {type(e).__name__}: {e}",
+                reason=str(e), mesh=True)
+            return False
+        ontime = member.mesh_insert_begin(bins_abs, mcols[plan.insert.member_index])
+        try:
+            aux = agg.update_fused(
+                self._mesh_step, n, 0 if member.base_bin is None else int(member.base_bin),
+                ontime, arrays)
+        except kernels.KernelError:
+            raise
+        except Exception as e:  # noqa: BLE001 - the table may hold part of the step
+            raise kernels.KernelError(
+                f"segment {self.chain.name()}: fused mesh step failed after it "
+                f"may have changed the sharded table: {type(e).__name__}: {e}") from e
+        pairs = []
+        it = iter(aux)
+        for mx in it:
+            total = int(np.asarray(next(it)).sum())
+            # exact across shards: an empty part reports the dtype floor,
+            # which never exceeds a real value
+            pairs.append((int(np.asarray(mx).max()) if total else None, total))
+        for st, (mx, cnt) in zip(reversed(plan.wm_stages), reversed(pairs)):
+            if cnt:
+                self.chain.members[st.member_index].observe_batch_max(
+                    mx, mcols[st.member_index])
+        self._small_streak = 0
+        self.metrics.segment_batches += 1
+        self.metrics.segment_mesh = True
+        _MESH_DISPATCH["fused"] += 1
+        return True
+
     # -- host finish ----------------------------------------------------
 
     def _commit(self, res: dict, collector) -> None:
@@ -905,6 +1129,8 @@ class SegmentRunner:
         machines innermost-first. Members resolve BY INDEX against this
         runner's chain, never via the cached plan's stage objects: a
         cache-hit entry was bound by another operator incarnation."""
+        if self._mesh_n > 1:
+            _MESH_DISPATCH["host"] += 1
         chain = self.chain
         cols = chain._chain_cols(collector)
         plan = self._entry.plan

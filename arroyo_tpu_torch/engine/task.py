@@ -138,6 +138,15 @@ class Task:
 
         runner = runner_for(op, self.ctx, self.metrics)
         process = op.process_batch if runner is None else runner.process_batch
+        # the sharded aggregate's residency (task metrics "mesh")
+        mesh_stats = getattr(op, "mesh_stats", None)
+
+        def refresh_mesh():
+            if mesh_stats is not None:
+                stats = mesh_stats()
+                if stats is not None:
+                    self.metrics.mesh = stats
+
         holder = WatermarkHolder(self.n_inputs)
         finished: set[int] = set()
         last_merged: Optional[Watermark] = None
@@ -177,6 +186,7 @@ class Task:
             if isinstance(item, Batch):
                 process(item, self.ctx, self.collector, input_index=idx)
                 self.inbox.release(idx, item)
+                refresh_mesh()
                 continue
             sig: Signal = item
             if sig.kind == SignalKind.WATERMARK:
@@ -188,6 +198,7 @@ class Task:
                 merged_watermark_changed()
                 if len(finished) == self.n_inputs:
                     op.on_close(self.ctx, self.collector)
+                    refresh_mesh()
                     self.collector.broadcast(Signal.end_of_data())
                     break
             elif sig.kind == SignalKind.STOP:

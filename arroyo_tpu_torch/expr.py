@@ -623,7 +623,8 @@ def binop_type(op: str, lt, rt) -> tuple[np.dtype, np.dtype, bool]:
     if op == "%":
         if ct == _BOOL:
             ct, weak = _I32, False  # jax dtypes.to_numeric_dtype
-        _check(ct, "modulo")
+        if ct != _U64:  # uint64 modulo is in the kernel (a key such as counter % 7)
+            _check(ct, "modulo")
         return ct, ct, weak
     _check(ct, f"operator {op!r}")
     if op in ("==", "!=", "<", "<=", ">", ">="):
@@ -918,9 +919,27 @@ def _floordiv(a: torch.Tensor, b: torch.Tensor, dt: np.dtype) -> torch.Tensor:
     return _round_away(torch.where(ind, nan_fix(div - 1, div), div))
 
 
+def urem64(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Unsigned 64-bit remainder of int64 tensors holding uint64 bits (b != 0):
+    restoring long division one bit at a time, the compares unsigned through
+    the sign flip; a shift out of the top bit means the partial remainder is
+    past 2^64 > b, so it subtracts (mod 2^64, which stays exact)."""
+    a, b = torch.broadcast_tensors(a, b)
+    top = torch.iinfo(torch.int64).min
+    r = torch.zeros_like(a)
+    for i in range(63, -1, -1):
+        carry = r < 0
+        r = (r << 1) | ((a >> i) & 1)
+        ge = carry | ((r ^ top) >= (b ^ top))
+        r = torch.where(ge, r - b, r)
+    return r
+
+
 def _mod(a: torch.Tensor, b: torch.Tensor, dt: np.dtype) -> torch.Tensor:
     """_mod_jnp: jnp.remainder (floor-sign) with an exact-zero float
     remainder taking the divisor's sign."""
+    if dt == _U64:  # x % 0 = 0, as the JAX twin's b == 0 -> 1
+        return urem64(a, torch.where(b == 0, torch.ones_like(b), b))
     if dt.kind in "iu":
         b = torch.where(b == 0, torch.ones_like(b), b)
         tm = lax_rem(a, b, dt)

@@ -1,9 +1,13 @@
 """Per-task metrics (the port's minimal copy of arroyo_tpu/metrics.py): for
 now the compiled segment's state, ``segment_compiled`` (None until a
 chained task decides, then True or False), ``segment_reason`` (why a
-segment runs interpreted) and ``segment_batches`` (batches that ran through
-the segment kernel). Counters, histograms and their exposition are a
-later slice of the port."""
+segment runs interpreted), ``segment_batches`` (batches that ran through
+the segment kernel), ``segment_mesh`` (True once the task committed a
+micro-batch through the fused mesh step) and ``mesh`` (the sharded
+aggregate's ``{"exchange_rows", "overflow_rows"}``, refreshed by the task
+loop from the operator's ``mesh_stats`` hook; None off the mesh).
+Counters, histograms and their exposition (the arroyo_mesh_* series among
+them) are a later slice of the port."""
 
 from __future__ import annotations
 
@@ -13,7 +17,7 @@ from typing import Optional
 
 class TaskMetrics:
     __slots__ = ("job_id", "node_id", "subtask", "segment_compiled", "segment_reason",
-                 "segment_batches")
+                 "segment_batches", "segment_mesh", "mesh")
 
     def __init__(self, job_id: str, node_id: str, subtask: int):
         self.job_id = job_id
@@ -22,6 +26,8 @@ class TaskMetrics:
         self.segment_compiled: Optional[bool] = None
         self.segment_reason: Optional[str] = None
         self.segment_batches = 0
+        self.segment_mesh: Optional[bool] = None
+        self.mesh: Optional[dict] = None
 
 
 class MetricsRegistry:
@@ -48,6 +54,10 @@ class MetricsRegistry:
                 entry["segment_compiled"] = t.segment_compiled
             if t.segment_reason is not None:
                 entry["segment_reason"] = t.segment_reason
+            if t.segment_mesh is not None:
+                entry["segment_mesh"] = t.segment_mesh
+            if t.mesh is not None:
+                entry["mesh"] = dict(t.mesh)
             out.setdefault(t.node_id, {})[t.subtask] = entry
         return out
 

@@ -129,6 +129,17 @@ class ChainedOperator(Operator):
         for i, m in enumerate(self.members):
             m.on_close(self._ctxs[i], cols[i])
 
+    def mesh_stats(self):
+        """The sharded store's residency counters of the chain's window
+        member, if it has one (the store lives on exactly one member)."""
+        for m in self.members:
+            fn = getattr(m, "mesh_stats", None)
+            if fn is not None:
+                stats = fn()
+                if stats is not None:
+                    return stats
+        return None
+
 
 @register_operator(OpName.CHAINED)
 def _make_chained(cfg: dict):

@@ -60,6 +60,11 @@ _count_lock = threading.Lock()  # subtasks launch from their own threads
 build_info: dict[str, dict] = {}  # source name -> path, seconds, cached, log
 
 
+class KernelError(RuntimeError):
+    """A kernel of the port failed on the card: nvcc missing or failing, or
+    a launch error. Never caught to fall back: it fails the job."""
+
+
 def _find_nvcc() -> str:
     cands = []
     for env in ("CUDA_HOME", "CUDA_PATH"):
@@ -69,7 +74,7 @@ def _find_nvcc() -> str:
     for c in cands:
         if c and os.path.exists(c):
             return c
-    raise RuntimeError(
+    raise KernelError(
         "nvcc not found (looked in $CUDA_HOME/bin, $PATH and /usr/local/cuda/bin): "
         "the port's CUDA kernels cannot be built")
 
@@ -78,7 +83,7 @@ def build_source(name: str, bind: Callable[[ctypes.CDLL], None]) -> ctypes.CDLL:
     """Compile csrc/<name>.cu with nvcc into build/lib<name>_<digest>.so
     (once per digest of the source and flags), load it and let ``bind`` set
     its argument types. Each source has its own lock, so different sources
-    build in parallel. Raises RuntimeError when nvcc is missing or the
+    build in parallel. Raises KernelError when nvcc is missing or the
     build fails."""
     with _locks_lock:
         lock = _build_locks.setdefault(name, threading.Lock())
@@ -99,7 +104,7 @@ def build_source(name: str, bind: Callable[[ctypes.CDLL], None]) -> ctypes.CDLL:
             proc = subprocess.run(cmd, capture_output=True, text=True)
             log = proc.stdout + proc.stderr
             if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
+                raise KernelError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
             os.replace(tmp, out)
         lib = ctypes.CDLL(str(out))
         bind(lib)
@@ -191,7 +196,7 @@ def _stream(dev: torch.device) -> ctypes.c_void_p:
 
 def _raise_on(err: int, name: str) -> None:
     if err != 0:
-        raise RuntimeError(f"{name}: CUDA error {err} at launch")
+        raise KernelError(f"{name}: CUDA error {err} at launch")
 
 
 # ------------------------------------------------------------- K1

@@ -47,6 +47,7 @@ import numpy as np
 import torch
 
 from ..batch import KEY_FIELD, TIMESTAMP_FIELD
+from . import kernels
 from ..expr import (BinOp, Case, Cast, CAST_TARGETS, Col, Func, Lit, Neg, Not,
                     TORCH_DTYPES, TVal, as_full, binop_type, convert, default_nan_bits,
                     dtype_floor, floordiv_torch, floordiv_type, hash_columns_torch,
@@ -72,7 +73,7 @@ _count_lock = threading.Lock()
 _build_lock = threading.Lock()
 
 
-class KernelError(RuntimeError):
+class KernelError(kernels.KernelError):
     """A fault of K4 on the card: staging, build, launch or read-back. The
     segment runner lets it fail the job (engine/segment.py)."""
 
@@ -344,6 +345,11 @@ class _Gen:
         return self.op(f"libdevice.round({div})", dt, div, weak=weak)
 
     def mod(self, a: str, b: str, dt, weak: bool) -> SV:
+        if dt == _U64:  # int64 bits: the remainder in uint64, x % 0 = 0
+            ua = self.let(f"{a}.to(tl.uint64, bitcast=True)", dt).code
+            ub = self.let(f"{b}.to(tl.uint64, bitcast=True)", dt).code
+            ub = self.let(f"tl.where({ub} == 0, {ub} + 1, {ub})", dt).code
+            return self.let(f"({ua} % {ub}).to(tl.int64, bitcast=True)", dt, weak)
         z = self.full(0, dt)
         if dt.kind in "iu":
             b = self.let(f"tl.where({b} == {z}, {self.full(1, dt)}, {b})", dt).code

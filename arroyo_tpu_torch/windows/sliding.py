@@ -10,8 +10,11 @@ a window is emitted when all its ``width / slide`` bins are resolved, by a
 host combine-by-key of the cached per-bin partials. The output timestamp is
 the window start.
 
-Not in this slice: the mesh (sharded) aggregator, collected aggregates and
-checkpoints (the base class's ``handle_checkpoint`` raises). The JAX
+Mesh mode (``device.mesh-devices`` > 1) shares tumbling's construction
+path: per-bin partials in a ShardedAggregator, each bin's extraction one
+synchronous sharded close; the fused mesh step of the compiled segment calls
+``mesh_insert_begin`` for the host half. Not in this slice: collected
+aggregates and checkpoints (the base class's ``handle_checkpoint`` raises). The JAX
 package's numpy-backend path (a synchronous ``scan_range`` per window) has
 no counterpart: the port has one backend, the device one.
 """
@@ -76,6 +79,7 @@ class SlidingAggregate(Operator):
         self._late_before: Optional[int] = None  # late-drop boundary
         self._target_window: Optional[int] = None  # emit windows <= this
         self._wm_queue: list = []  # (target_window, Watermark) held in order
+        self._mesh_oflow_hwm = 0  # MESH_OVERFLOW event throttle high-water mark
 
     # ------------------------------------------------------------------
 
@@ -164,6 +168,42 @@ class SlidingAggregate(Operator):
                 hashes = hashes[keep]
                 vals = [v[keep] for v in vals]
         self._insert(hashes, rel.astype(np.int32), vals)
+
+    def mesh_insert_begin(self, bins_abs, collector):
+        """Host half of the fused mesh step (the contract of
+        TumblingAggregate.mesh_insert_begin): drain, base-bin anchor, late
+        split and bin bookkeeping of ``insert_arrays`` (the late compare in
+        int64 before the int32 cast), without the aggregator update."""
+        if self._bin_pending or self._wm_queue:
+            self._drain(collector)
+        if len(bins_abs) == 0:
+            return None
+        if self.base_bin is None:
+            self.base_bin = int(bins_abs.min())
+        rel = bins_abs - self.base_bin
+        late_before = self._late_boundary()
+        ontime = None
+        if late_before is not None:
+            late = rel < late_before
+            if late.any():
+                self.late_rows += int(late.sum())
+                ontime = ~late
+                rel = rel[ontime]
+        if len(rel) == 0:
+            return ontime
+        rel = rel.astype(np.int32)
+        self.open_bins.update(np.unique(rel).tolist())
+        lo, hi = int(rel.min()), int(rel.max())
+        self.min_bin = lo if self.min_bin is None else min(self.min_bin, lo)
+        self.max_bin = hi if self.max_bin is None else max(self.max_bin, hi)
+        if self.next_window is None:
+            self.next_window = self.min_bin - self.nb + 1
+        return ontime
+
+    def mesh_stats(self):
+        """The sharded store's residency counters (None off the mesh)."""
+        stats = getattr(self._agg, "mesh_stats", None)
+        return stats() if stats is not None else None
 
     def _late_boundary(self) -> Optional[int]:
         late_before = self.next_window

@@ -1,5 +1,5 @@
 """Tumbling window aggregate operator (the port's copy of
-arroyo_tpu/windows/tumbling.py, single device).
+arroyo_tpu/windows/tumbling.py).
 
 Rows are binned by the window width and fed into a SlotAggregator whose
 state lives on the engine's torch device; on a watermark at or past a bin's
@@ -9,10 +9,14 @@ forwarded watermark pipeline behind later updates. Numeric group-by key
 VALUES ride along as extra max-lanes on the device (all rows of a key agree,
 so max is the identity); string keys go through a host KeyDictionary.
 
-The compiled segment (engine/segment.py) feeds it through
-``insert_arrays``, the twin of ``process_batch`` over arrays the segment
-computed. Not in this slice: the mesh (sharded) aggregator, collected
-aggregates (array_agg, UDAFs, COUNT DISTINCT) and checkpoints.
+Mesh mode (``device.mesh-devices`` > 1): the state is a ShardedAggregator
+of that many key shards on the same device (parallel/), whose close is
+synchronous; the fused mesh step of the compiled segment (engine/segment.py)
+updates it on the device and calls ``mesh_insert_begin`` for the host half.
+
+The compiled segment feeds the operator through ``insert_arrays``, the twin
+of ``process_batch`` over arrays the segment computed. Not in this slice:
+collected aggregates (array_agg, UDAFs, COUNT DISTINCT) and checkpoints.
 """
 
 from __future__ import annotations
@@ -52,9 +56,54 @@ def dtype_of_from_config(cfg: dict):
     return lambda e: np.dtype(np.float64)
 
 
-def make_window_aggregator(acc_kinds, acc_dtypes, device) -> SlotAggregator:
-    """The single-device SlotAggregator, sized from the device config."""
+def record_mesh_overflow(op, ctx) -> int:
+    """Throttled MESH_OVERFLOW WARN after a snapshot of the sharded store
+    (which refreshes its spill residency with no extra device read). Key
+    skew past a fixed-capacity exchange lane parks rows in the per-shard
+    spill buffer: correct but slower, and the operator should hear about it
+    before the buffer fills (which IS an error). The doubling high-water
+    mark keeps a steadily skewed job from flooding the feed. The JAX
+    package calls it from the windows' checkpoint barrier; the port has no
+    checkpoint barrier yet, so no run of the port emits the event today."""
+    stats_fn = getattr(op._agg, "mesh_stats", None)
+    if stats_fn is None:
+        return 0
+    rows = int(stats_fn().get("overflow_rows", 0))
+    if rows > op._mesh_oflow_hwm:
+        op._mesh_oflow_hwm = rows * 2
+        from ..obs.events import recorder
+
+        ti = ctx.task_info
+        recorder.record(
+            ti.job_id, "WARN", "MESH_OVERFLOW",
+            message=(f"{rows} rows resident in the sharded aggregate's "
+                     f"per-shard spill buffer (key skew past a "
+                     f"fixed-capacity exchange lane; raise "
+                     f"device.spill-capacity before it exhausts)"),
+            node=ti.node_id, subtask=ti.subtask_index,
+            data={"overflow_rows": rows})
+    return rows
+
+
+def make_window_aggregator(acc_kinds, acc_dtypes, device):
+    """The single-device SlotAggregator or (device.mesh-devices > 1) the
+    key-space-sharded ShardedAggregator, sized from the device config: one
+    construction path for every window operator."""
     dev = config().section("device")
+    mesh_n = int(dev.get("mesh-devices", 0) or 0)
+    if mesh_n > 1:
+        from ..parallel import ShardedAggregator, make_mesh
+
+        return ShardedAggregator(
+            make_mesh(mesh_n, device),
+            acc_kinds,
+            acc_dtypes,
+            cap=dev.get("table-capacity", 65536),
+            batch_cap=dev.get("batch-capacity", 8192),
+            max_probes=dev.get("max-probes", 64),
+            emit_cap=dev.get("emit-capacity", 8192),
+            spill_cap=dev.get("spill-capacity", 2048),
+        )
     return SlotAggregator(
         acc_kinds,
         acc_dtypes,
@@ -184,6 +233,7 @@ class TumblingAggregate(Operator):
         # in-flight closes: (Future|None, rel_before|None, Watermark|None, seq)
         self._pending: deque = deque()
         self._batch_seq = 0
+        self._mesh_oflow_hwm = 0  # MESH_OVERFLOW event throttle high-water mark
 
     def on_start(self, ctx):
         self.device = ctx.device
@@ -205,7 +255,7 @@ class TumblingAggregate(Operator):
         self.acc_dtypes = self.acc_dtypes + tuple(np.dtype(d) for _, d in lane)
         self.acc_inputs = self.acc_inputs + tuple(Col(f) for f, _ in lane)
 
-    def _aggregator(self) -> SlotAggregator:
+    def _aggregator(self):
         if self._agg is None:
             self._agg = make_window_aggregator(self.acc_kinds, self.acc_dtypes, self.device)
         return self._agg
@@ -252,6 +302,34 @@ class TumblingAggregate(Operator):
             hashes = hashes[keep]
             vals = [v[keep] for v in vals]
         self._update(hashes, rel, vals)
+
+    def mesh_insert_begin(self, bins_abs, collector):
+        """Host half of the fused mesh step (engine/segment.py
+        ``_mesh_execute``): the pending-close drain, base-bin anchoring, the
+        late split and the open-bin bookkeeping of ``insert_arrays``,
+        without the aggregator update, which the fused step performs on the
+        device. Returns the on-time row mask (None: every row inserts)."""
+        self._begin_batch(collector)
+        if len(bins_abs) == 0:
+            return None
+        if self.base_bin is None:
+            self.base_bin = int(bins_abs.min())
+        rel = (bins_abs - self.base_bin).astype(np.int32)
+        ontime = None
+        if self.emitted_before_rel is not None:
+            late = rel < self.emitted_before_rel
+            if late.any():
+                self.late_rows += int(late.sum())
+                ontime = ~late
+                rel = rel[ontime]
+        if len(rel):
+            self.open_bins.update(np.unique(rel).tolist())
+        return ontime
+
+    def mesh_stats(self):
+        """The sharded store's residency counters (None off the mesh)."""
+        stats = getattr(self._agg, "mesh_stats", None)
+        return stats() if stats is not None else None
 
     def _begin_batch(self, collector) -> None:
         self._batch_seq += 1

@@ -12,8 +12,9 @@ non-zero, printing no result):
               version, the device capability (expect (9, 0)), nvcc's version;
 2. build   -- every CUDA source of arroyo_tpu_torch/csrc/ (the slot
               aggregator's slot_agg.cu with K1-K3 and K7, the join probe's
-              join_probe.cu) with nvcc for sm_90a, one nvcc per source, all
-              started together;
+              join_probe.cu, the sharded aggregate's sharded_agg.cu with
+              K8-K11) with nvcc for sm_90a, one nvcc per source, all started
+              together;
 3. q7      -- Nexmark q7 through the port's run_graph on the GPU at the size
               bench.py measures (2,000,000 events, batch 65536, table 65536,
               region 2048) in the package's default configuration (chaining
@@ -83,6 +84,30 @@ non-zero, printing no result):
               (k = 1, k not a power of two, duplicated slots, slot 0, slot
               cap - 1); then timed, with the host's cost of one read_slots.
 
+15. q7m    -- q7 at bench.py's sizes through an 8-shard mesh
+              (device.mesh-devices = 8, bench.py's mesh width; spill capacity
+              and probes at their defaults), fused (segment.compile.mesh-fuse
+              on) then on the host path: exact parity each time, the chain
+              compiled with no SEGMENT_FALLBACK, K4 and K8-K11 launched, the
+              ledger at one aggregate step per fused micro-batch (fusion on)
+              or host steps alone (off); each mode then profiled;
+16. q5m    -- q5 (1,000,000 events) through the mesh, fused: exact parity,
+              at least one K11 launch per slide bin; then profiled;
+17. mesh_ab -- bench.py's --mesh-ab pipeline at its own settings (impulse,
+              200,000 events, 7 keys, 8 shards, table 8192, batch 2048, emit
+              4096, spill 4096, probes 32, source batch 4096): a warm-up of
+              each mode, then host and fused against the closed-form oracle,
+              calls per step 1.0, each profiled;
+18. sharded -- K8 (agg_sort_reduce), K9 (agg_probe_merge), K10
+              (shard_exchange, shard_spill) and K11 (shard_extract) of
+              csrc/sharded_agg.cu against their plain versions on the card,
+              exactly, step by step: at q7m's shapes, at a deployment state
+              (8 shards x 1,048,576 entries, 4 int64 lanes and a float64 sum,
+              65536 rows per shard) and on edge cases (a hot key past
+              dest_cap, the spill buffer and its exhaustion, max_probes
+              exhausted, duplicates after a free, key INT64_MAX in bin
+              INT32_MAX, 1, 4 and 8 shards); then timed.
+
 ``--only a,b`` runs those phases alone after probe and build (a short
 check) and prints no result line.
 
@@ -121,8 +146,10 @@ from arroyo_tpu_torch.graph import EdgeType, Graph, Node, OpName
 from arroyo_tpu_torch.obs.events import recorder
 from arroyo_tpu_torch.hashing import hash_columns
 from arroyo_tpu_torch.metrics import registry
-from arroyo_tpu_torch.ops import join_kernels, join_probe, kernels, segment_kernel
+from arroyo_tpu_torch.ops import (join_kernels, join_probe, kernels, segment_kernel,
+                                  sharded_kernels)
 from arroyo_tpu_torch.ops.aggregate import _identity
+from arroyo_tpu_torch.parallel import all_to_all, sharded_agg
 
 WIDTH = 10_000_000
 SLIDE = 2_000_000
@@ -141,6 +168,11 @@ REPLACES = {
     "join_sort_pairs": "arroyo_tpu/ops/join_probe.py:82",  # _probe_jit.probe: argsort
     "join_search_bounds": "arroyo_tpu/ops/join_probe.py:82",  # _probe_jit.probe: searchsorted
     "slot_gather": "arroyo_tpu/ops/slot_agg.py:361",  # _build_slot_jax make_read_slots.go
+    "agg_sort_reduce": "arroyo_tpu/ops/aggregate.py:231",  # sort_reduce (B7)
+    "agg_probe_merge": "arroyo_tpu/ops/aggregate.py:261",  # probe_merge (B8)
+    "shard_exchange": "arroyo_tpu/parallel/sharded_agg.py:177",  # exchange_merge steps 2-3
+    "shard_spill": "arroyo_tpu/parallel/sharded_agg.py:243",  # exchange_merge step 7
+    "shard_extract": "arroyo_tpu/parallel/sharded_agg.py:304",  # local_extract
 }
 SEGMENT_SOURCE = "arroyo_tpu_torch/ops/segment_kernel.py"
 SUM_RTOL = {torch.float64: 1e-12, torch.float32: 1e-5}
@@ -186,8 +218,9 @@ def build(out_dir: str) -> dict:
     from concurrent.futures import ThreadPoolExecutor
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        for f in [pool.submit(kernels.build_library), pool.submit(join_kernels.build_library)]:
+    with ThreadPoolExecutor(3) as pool:
+        for f in [pool.submit(kernels.build_library), pool.submit(join_kernels.build_library),
+                  pool.submit(sharded_kernels.build_library)]:
             f.result()
     info = {"phase": "build", "seconds": time.perf_counter() - t0, "sources": {}}
     for name, b in kernels.build_info.items():
@@ -248,11 +281,12 @@ def oracle_q7(event_count: int) -> dict:
     return {(int(u[0]), int(u[1])): (int(m), int(c)) for u, m, c in zip(uniq, mx, cnt)}
 
 
-def bench_config(chaining: bool, queue_mult: int = 2, table_capacity: int = 65536) -> None:
+def bench_config(chaining: bool, queue_mult: int = 2, table_capacity: int = 65536,
+                 extra: dict = None) -> None:
     """bench.py's sizes (bench.py:1046-1060, run_config): source batch
     65536, queue queue_mult x 65536 (bench.py: 2, and 1 for q8), table 65536
     slots (qu: 262144), region 2048; chaining as given (bench.py runs with it
-    on)."""
+    on); then ``extra`` (the mesh phases' keys)."""
     tcfg.reset()
     tcfg.update({
         "pipeline.source-batch-size": BENCH_BATCH,
@@ -261,13 +295,14 @@ def bench_config(chaining: bool, queue_mult: int = 2, table_capacity: int = 6553
         "device.table-capacity": table_capacity,
         "device.region-size": 2048,
         "pipeline.chaining.enabled": chaining,
+        **(extra or {}),
     })
 
 
 def drive(build, events: int, job_id: str, chaining: bool, queue_mult: int = 2,
-          table_capacity: int = 65536) -> tuple[list, float, object]:
+          table_capacity: int = 65536, extra: dict = None) -> tuple[list, float, object]:
     """One run through the port's run_graph (default device: CUDA)."""
-    bench_config(chaining, queue_mult, table_capacity)
+    bench_config(chaining, queue_mult, table_capacity, extra)
     rows: list = []
     g = build(rows, events)
     recorder.clear_job(job_id)
@@ -392,13 +427,14 @@ def check_q5(rows: list, want: dict) -> dict:
 
 def all_launch_counts() -> dict:
     return {**kernels.launch_counts(), **segment_kernel.launch_counts(),
-            **join_kernels.launch_counts()}
+            **join_kernels.launch_counts(), **sharded_kernels.launch_counts()}
 
 
 def reset_all_launch_counts() -> None:
     kernels.reset_launch_counts()
     segment_kernel.reset_launch_counts()
     join_kernels.reset_launch_counts()
+    sharded_kernels.reset_launch_counts()
 
 
 def run_chained(name: str, build, events: int, oracle, check,
@@ -446,14 +482,14 @@ def run_chained(name: str, build, events: int, oracle, check,
 
 
 def profiled_run(build, events: int, job: str, check, want, queue_mult: int = 2,
-                 table_capacity: int = 65536) -> dict:
+                 table_capacity: int = 65536, extra: dict = None) -> dict:
     """One more chaining-on run under torch.profiler: the device's busy and
     idle share of the run's wall time, and its top device operations."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         rows_p, wall_p, _eng = drive(build, events, job, chaining=True, queue_mult=queue_mult,
-                                     table_capacity=table_capacity)
+                                     table_capacity=table_capacity, extra=extra)
     check(rows_p, want)
     by_name = device_us_by_name(prof)
     busy_s = sum(by_name.values()) / 1e6 if by_name else None  # None: not measured
@@ -1767,6 +1803,546 @@ def kernel_phase(dev) -> dict:
     return info
 
 
+# ---------------------------------------------------------------- q7m, q5m, mesh_ab
+
+MESH_KERNELS = ("segment_fused", "agg_sort_reduce", "agg_probe_merge", "shard_exchange",
+                "shard_spill", "shard_extract")
+MESH_AB_EVENTS = 200_000  # bench.py ARROYO_BENCH_EVENTS default for --mesh-ab
+MESH_AB_KEYS = 7
+MESH_AB_WIDTH = 1_000_000
+MESH_AB_BATCH = 4096
+# bench.py --mesh-ab's settings (bench.py:836-849); the queue stays at its
+# default, as bench.py leaves it
+MESH_AB = {"device.mesh-devices": 8, "device.table-capacity": 8192,
+           "device.batch-capacity": 2048, "device.emit-capacity": 4096,
+           "device.spill-capacity": 4096, "device.max-probes": 32,
+           "pipeline.source-batch-size": MESH_AB_BATCH,
+           "engine.coalesce.max-rows": MESH_AB_BATCH, "segment.compile.min-rows": 1,
+           "worker.queue-size": 8192}
+
+
+def mesh_ledger() -> dict:
+    return {"segment": seg.mesh_dispatch_counts(), "aggregate": sharded_agg.dispatch_counts()}
+
+
+def reset_mesh_ledger() -> None:
+    seg.reset_mesh_dispatch_counts()
+    sharded_agg.reset_dispatch_counts()
+
+
+def mesh_run(name: str, build, events: int, oracle, check, fuse: bool, extra: dict,
+             want=None, path_kernels=MESH_KERNELS, profile_it: bool = True,
+             warm_events: int = 0) -> dict:
+    """One mesh-mode run (counts zeroed just before it, read just after),
+    held to its oracle; the chain must run compiled with no
+    SEGMENT_FALLBACK, every kernel of ``path_kernels`` launched, and the
+    ledger must read one aggregate step per fused micro-batch with fusion on
+    (segment_mesh set) and host steps alone with it off. ``warm_events``
+    first runs a short warm-up of the same mode (K4's Triton build for the
+    mode's plan: fusion hoists the leading filter, so the plans differ).
+    Then, if asked, a profiled run of the same mode."""
+    want = oracle(events) if want is None else want
+    extra = {**extra, "segment.compile.mesh-fuse": fuse}
+    job = f"chip-smoke-{name}-{'fused' if fuse else 'host'}"
+    if warm_events:
+        drive(build, warm_events, job + "-warm", chaining=True, extra=extra)
+    reset_all_launch_counts()
+    reset_mesh_ledger()
+    rows, wall, eng = drive(build, events, job, chaining=True, extra=extra)
+    launches = all_launch_counts()
+    ledger = mesh_ledger()
+    got = check(rows, want)
+    chained = [n for n in eng.graph.nodes if "+" in n]
+    fallbacks = recorder.events(job, "SEGMENT_FALLBACK")
+    compiled = recorder.events(job, "SEGMENT_COMPILED")
+    metrics = registry.job_metrics(job).get(chained[0], {}) if chained else {}
+    if not chained or not compiled or fallbacks:
+        raise AssertionError(f"{name}: the chain did not run compiled: compiled {compiled}, "
+                             f"fallbacks {fallbacks}")
+    seg_l, agg_l = ledger["segment"], ledger["aggregate"]
+    mesh_flag = any(m.get("segment_mesh") for m in metrics.values())
+    if fuse and not (seg_l["fused"] == agg_l["fused_steps"] > 0 and mesh_flag):
+        raise AssertionError(f"{name} fused: ledger {ledger}, segment_mesh {mesh_flag}")
+    if not fuse and not (agg_l["fused_steps"] == 0 and agg_l["host_steps"] > 0):
+        raise AssertionError(f"{name} host: ledger {ledger}")
+    unlaunched = [k for k in path_kernels if launches[k] == 0]
+    if unlaunched:
+        raise AssertionError(f"{name} ran without launching {unlaunched}: {launches}")
+    info = {"mode": "fused" if fuse else "host", "wall_s": wall, "events_per_s": events / wall,
+            "windows": len(got), "launches": {k: launches[k] for k in launches if launches[k]},
+            "ledger": ledger, "segment_mesh": mesh_flag,
+            "calls_per_step": (agg_l["fused_steps"] / seg_l["fused"]) if seg_l["fused"] else None,
+            "mesh_stats": [m.get("mesh") for m in metrics.values()]}
+    if profile_it:
+        info["profiled_run"] = profiled_run(build, events, job + "-profiled", check, want,
+                                            extra=extra)
+    return info
+
+
+def run_q7m() -> dict:
+    """q7 at bench.py's sizes through an 8-shard mesh, fusion on then off."""
+    want = oracle_q7(Q7_EVENTS)
+    extra = {"device.mesh-devices": MESH_N}
+    info = {"phase": "q7m", "events": Q7_EVENTS, "mesh_devices": MESH_N,
+            "fused": mesh_run("q7m", build_q7, Q7_EVENTS, oracle_q7, check_q7, True, extra,
+                              want=want, warm_events=2 * BENCH_BATCH),
+            "host": mesh_run("q7m", build_q7, Q7_EVENTS, oracle_q7, check_q7, False, extra,
+                             want=want, warm_events=2 * BENCH_BATCH)}
+    emit(info)
+    return info
+
+
+def run_q5m() -> dict:
+    """q5 at bench.py's sizes through the mesh with fusion on: each 2 s
+    slide bin is one sharded close, at least one K11 launch each."""
+    want = oracle_q5(Q5_EVENTS)
+    r = mesh_run("q5m", build_q5, Q5_EVENTS, oracle_q5, check_q5, True,
+                 {"device.mesh-devices": MESH_N}, want=want, warm_events=2 * BENCH_BATCH)
+    # events 1 ms apart: every 2 s slide bin of the run holds bids
+    slide_bins = -(-Q5_EVENTS * 1000 // SLIDE)
+    if r["launches"]["shard_extract"] < slide_bins:
+        raise AssertionError(f"q5m: {r['launches']['shard_extract']} K11 launches for "
+                             f"{slide_bins} slide bins")
+    info = {"phase": "q5m", "events": Q5_EVENTS, "mesh_devices": MESH_N, "slide_bins": slide_bins,
+            "fused": r}
+    emit(info)
+    return info
+
+
+def mesh_ab_graph(rows: list, event_count: int) -> Graph:
+    """bench.py's --mesh-ab pipeline (bench.py:853-877): impulse ->
+    watermark -> key (counter % 7) -> tumbling 1 s COUNT + SUM(counter)."""
+    S = Schema.of([("x", "int64"), (TIMESTAMP_FIELD, "int64")])
+    g = Graph()
+    g.add_node(Node("src", OpName.SOURCE, {
+        "connector": "impulse", "message_count": event_count, "interval_micros": 1000,
+        "start_time_micros": 0, "event_rate": 0}, 1))
+    g.add_node(Node("wm", OpName.WATERMARK, {"expr": Col(TIMESTAMP_FIELD)}, 1))
+    g.add_node(Node("key", OpName.KEY, {
+        "keys": [("k", BinOp("%", Col("counter"), Lit(MESH_AB_KEYS)))]}, 1))
+    g.add_node(Node("agg", OpName.TUMBLING_AGGREGATE, {
+        "width_micros": MESH_AB_WIDTH, "key_fields": ["k"],
+        "aggregates": [("cnt", "count", None), ("total", "sum", Col("counter"))],
+        "input_dtype_of": lambda e: np.dtype(np.int64), "backend": "jax"}, 1))
+    g.add_node(Node("sink", OpName.SINK, {"connector": "vec", "rows": rows}, 1))
+    g.add_edge("src", "wm", EdgeType.FORWARD, S)
+    g.add_edge("wm", "key", EdgeType.FORWARD, S)
+    g.add_edge("key", "agg", EdgeType.SHUFFLE, S)
+    g.add_edge("agg", "sink", EdgeType.FORWARD, S)
+    return g
+
+
+def oracle_mesh_ab(event_count: int) -> dict:
+    """bench.py:879-882: (window, key) -> (count, sum of counters)."""
+    c = np.arange(event_count, dtype=np.int64)
+    w, k = (c * 1000) // MESH_AB_WIDTH, c % MESH_AB_KEYS
+    uniq, inv = np.unique(np.stack([w, k], axis=1), axis=0, return_inverse=True)
+    inv = inv.ravel()
+    cnt = np.bincount(inv, minlength=len(uniq))
+    tot = np.zeros(len(uniq), dtype=np.int64)
+    np.add.at(tot, inv, c)
+    return {(int(a), int(b)): (int(n), int(t)) for (a, b), n, t in zip(uniq, cnt, tot)}
+
+
+def check_mesh_ab(rows: list, want: dict) -> dict:
+    got = {(r["window_start"] // MESH_AB_WIDTH, r["k"]): (r["cnt"], r["total"]) for r in rows}
+    if len(got) != len(rows) or got != want:
+        raise AssertionError(f"mesh_ab parity failure: {len(rows)} rows, {len(got)} windows "
+                             f"vs {len(want)}")
+    return got
+
+
+def run_mesh_ab() -> dict:
+    """bench.py --mesh-ab at its own settings: a warm-up of each mode, then
+    host and fused back to back, each against the closed-form oracle, with
+    the ledger's calls per step."""
+    want = oracle_mesh_ab(MESH_AB_EVENTS)
+    for fuse in (False, True):
+        mesh_run("mesh_ab-warm", mesh_ab_graph, MESH_AB_EVENTS, oracle_mesh_ab, check_mesh_ab,
+                 fuse, MESH_AB, want=want, profile_it=False)
+    host = mesh_run("mesh_ab", mesh_ab_graph, MESH_AB_EVENTS, oracle_mesh_ab, check_mesh_ab,
+                    False, MESH_AB, want=want)
+    fused = mesh_run("mesh_ab", mesh_ab_graph, MESH_AB_EVENTS, oracle_mesh_ab, check_mesh_ab,
+                     True, MESH_AB, want=want)
+    if fused["calls_per_step"] != 1.0:
+        raise AssertionError(f"mesh_ab: {fused['calls_per_step']} aggregate steps per fused "
+                             f"micro-batch")
+    info = {"phase": "mesh_ab", "events": MESH_AB_EVENTS, "settings": MESH_AB,
+            "host": host, "fused": fused,
+            "fused_over_host": fused["events_per_s"] / host["events_per_s"]}
+    emit(info)
+    return info
+
+
+# ---------------------------------------------------------------- sharded (K8-K11)
+
+MESH_N = 8  # bench.py's mesh width (bench.py:834 n_dev)
+SHARDED_SOURCE = "arroyo_tpu_torch/csrc/sharded_agg.cu"
+Q7M_LANES = [("max", torch.int64), ("count", torch.int64), ("max", torch.int64)]
+DEPLOY_LANES = [("sum", torch.int64), ("count", torch.int64), ("min", torch.int64),
+                ("max", torch.int64), ("sum", torch.float64)]
+SHARDED_KERNELS = ("agg_sort_reduce", "agg_probe_merge", "shard_exchange", "shard_spill",
+                   "shard_extract")
+
+
+def same(a, b) -> bool:
+    """Exact equality of two tensors: dtype, shape and bytes (floats as
+    bits, so -0.0 and NaN payloads count)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype.is_floating_point:
+        ity = torch.int64 if a.dtype == torch.float64 else torch.int32
+        return torch.equal(a.view(ity), b.view(ity))
+    return torch.equal(a, b)
+
+
+def require_same(label: str, got, want) -> None:
+    for i, (g, w) in enumerate(zip(got, want)):
+        if isinstance(g, (list, tuple)):
+            require_same(f"{label}[{i}]", g, w)
+        elif not same(g, w):
+            raise AssertionError(f"{label}: output {i} differs from the plain version "
+                                 f"({g.dtype} {tuple(g.shape)})")
+
+
+def mesh_rows(rng, S, L, n_valid, lanes, n_keys, dev, bins_range=(0, 3), hot=0.0,
+              max_key_rows=0):
+    """[S, L] rows: keys from hashing Zipf(1.2) ids (q7's hot auctions) or a
+    hot key, bins in bins_range, the first n_valid of each shard valid."""
+    ids = (rng.zipf(1.2, (S, L)) - 1) % n_keys
+    if hot:
+        ids = np.where(rng.random((S, L)) < hot, 17, ids)
+    key = hash_columns([ids.reshape(-1).astype(np.int64)]).view(np.int64).reshape(S, L)
+    bins = rng.integers(bins_range[0], bins_range[1], (S, L)).astype(np.int32)
+    if max_key_rows:
+        key[:, :max_key_rows] = np.iinfo(np.int64).max
+        bins[:, :max_key_rows] = np.iinfo(np.int32).max
+    valid = np.zeros((S, L), dtype=bool)
+    valid[:, :n_valid] = True
+    vals = []
+    for kind, dt in lanes:
+        npdt = NP_DT[dt]
+        if dt.is_floating_point:
+            v = np.round(rng.normal(0, 1000, (S, L)), 2).astype(npdt)
+        else:
+            v = rng.integers(-(1 << 20), 1 << 20, (S, L)).astype(npdt)
+        vals.append(torch.from_numpy(v).to(dev))
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    return t(key), t(bins), t(valid), vals
+
+
+def empty_table(S, cap, lanes, dev):
+    return (torch.zeros((S, cap), dtype=torch.int64, device=dev),
+            torch.zeros((S, cap), dtype=torch.int32, device=dev),
+            torch.zeros((S, cap), dtype=torch.bool, device=dev),
+            [torch.full((S, cap), _identity(k, NP_DT[dt]).item(), dtype=dt, device=dev)
+             for k, dt in lanes])
+
+
+def empty_spill(S, sc, lanes, dev):
+    return (torch.zeros((S, sc), dtype=torch.int64, device=dev),
+            torch.zeros((S, sc), dtype=torch.int32, device=dev),
+            torch.zeros(S, dtype=torch.int32, device=dev),
+            [torch.full((S, sc), _identity(k, NP_DT[dt]).item(), dtype=dt, device=dev)
+             for k, dt in lanes],
+            torch.zeros(S, dtype=torch.int32, device=dev))
+
+
+def clone_nested(x):
+    if isinstance(x, (list, tuple)):
+        return [clone_nested(y) for y in x]
+    return x.clone()
+
+
+def checked_step(kinds, table, spill, key, bins, valid, vals, dc, max_probes, checks,
+                 bin_offset=0, n_valid=None):
+    """One exchange + merge step with every kernel held against its plain
+    version on the same inputs (stateful ones on clones); the kernels'
+    outputs carry on. Records the shapes each kernel saw in ``checks``."""
+    S = key.shape[0]
+    recv = S * dc
+    u = sharded_kernels.agg_sort_reduce(kinds, key, bins, valid, vals, bin_offset, n_valid)
+    require_same("agg_sort_reduce (local)", u, sharded_kernels.agg_sort_reduce_plain(
+        kinds, key, bins, valid, vals, bin_offset, n_valid))
+    ex = sharded_kernels.shard_exchange(kinds, *u, dc)
+    ex_p = sharded_kernels.shard_exchange_plain(kinds, *u, dc)
+    require_same("shard_exchange send", ex[:4], ex_p[:4])
+    require_same("shard_exchange kept", [t[:, recv:] for t in ex[4:7]] + [
+        [t[:, recv:] for t in ex.m_accs]], [t[:, recv:] for t in ex_p[4:7]] + [
+        [t[:, recv:] for t in ex_p.m_accs]])
+    for s_t, m_t in zip((ex.s_key, ex.s_bin, ex.s_valid, *ex.s_accs),
+                        (ex.m_key, ex.m_bin, ex.m_valid, *ex.m_accs)):
+        all_to_all(s_t, out=m_t[:, :recv])
+    c = sharded_kernels.agg_sort_reduce(kinds, ex.m_key, ex.m_bin, ex.m_valid, ex.m_accs)
+    require_same("agg_sort_reduce (merged)", c, sharded_kernels.agg_sort_reduce_plain(
+        kinds, ex.m_key, ex.m_bin, ex.m_valid, ex.m_accs))
+    table_p = clone_nested(table)
+    still = sharded_kernels.agg_probe_merge(kinds, table, *c, max_probes)
+    still_p = sharded_kernels.agg_probe_merge_plain(kinds, table_p, *c, max_probes)
+    require_same("agg_probe_merge", [still, *table[:3], table[3]],
+                 [still_p, *table_p[:3], table_p[3]])
+    spill_p = clone_nested(spill)
+    sharded_kernels.shard_spill(kinds, c[0], c[1], c[3], still, spill)
+    sharded_kernels.shard_spill_plain(kinds, c[0], c[1], c[3], still, spill_p)
+    require_same("shard_spill", spill, spill_p)
+    checks.setdefault("agg_sort_reduce", set()).update({key.shape[1], ex.m_key.shape[1]})
+    checks.setdefault("agg_probe_merge", set()).add(int(still.sum()))
+    return u, ex, c, still
+
+
+def checked_extract(table, lo, hi, free_below, emit_cap, checks):
+    table_p = clone_nested(table)
+    got = sharded_kernels.shard_extract(table, lo, hi, free_below, emit_cap)
+    want = sharded_kernels.shard_extract_plain(table_p, lo, hi, free_below, emit_cap)
+    require_same("shard_extract", [got.key, got.bin, got.valid, got.accs, got.total, table[2]],
+                 [want.key, want.bin, want.valid, want.accs, want.total, table_p[2]])
+    checks.setdefault("shard_extract", set()).add(int(got.total.sum()))
+    return got
+
+
+def sharded_case(label, rng, dev, S, cap, L, dc, max_probes, emit_cap, sc, lanes, steps,
+                 checks, n_keys=5000, hot=0.0, max_key_rows=0, valid_frac=1.0, closes=None,
+                 close_after=None, expect=None):
+    """A run of steps and closes over one sharded state, every kernel held
+    exactly against its plain version; ``expect(table, spill)`` checks what
+    the case exists for (spill rows, overflow, kept-local rows)."""
+    kinds = [k for k, _ in lanes]
+    table, spill = empty_table(S, cap, lanes, dev), empty_spill(S, sc, lanes, dev)
+    kept = 0
+    for step in range(steps):
+        rows = mesh_rows(rng, S, L, max(1, int(L * valid_frac)), lanes, n_keys, dev,
+                         bins_range=(step, step + 3), hot=hot, max_key_rows=max_key_rows)
+        _u, ex, _c, _still = checked_step(kinds, table, spill, *rows, dc, max_probes, checks)
+        kept += int(ex.m_valid[:, S * dc:].sum())
+        for lo, hi, fb in (close_after or {}).get(step, []):
+            checked_extract(table, lo, hi, fb, emit_cap, checks)
+    occ = table[2].cpu().numpy()
+    live = [np.stack([table[0][d].cpu().numpy()[occ[d]],
+                      table[1][d].cpu().numpy()[occ[d]].astype(np.int64)]) for d in range(S)]
+    dups = sum(int(occ[d].sum()) - len(np.unique(live[d], axis=1).T) for d in range(S))
+    for lo, hi, fb in (closes or [(0, 2, 2)]):
+        checked_extract(table, lo, hi, fb, emit_cap, checks)
+    torch.cuda.synchronize()
+    facts = {"kept_local_rows": kept, "spill_fill": spill[2].tolist(),
+             "overflow": spill[4].tolist(), "occupied": int(table[2].sum()),
+             "duplicate_entries": dups}
+    if expect is not None:
+        expect(facts)
+    return {"label": label, "shards": S, "cap": cap, "rows": L, "dest_cap": dc,
+            "max_probes": max_probes, **facts}
+
+
+def sharded_cases(rng, dev) -> list:
+    q7m_dc = BENCH_BATCH // (MESH_N // 2)
+    checks: dict = {}
+    out = []
+
+    def need(cond, what):
+        def f(facts):
+            if not cond(facts):
+                raise AssertionError(f"sharded case does not show {what}: {facts}")
+        return f
+
+    # q7m's shapes: the fused step's local 8192 rows per shard (merged
+    # 131072 + 8192), the host step's 65536 (merged 196608)
+    out.append(sharded_case("q7m fused shapes", rng, dev, MESH_N, 65536, 8192, q7m_dc, 64,
+                            8192, 2048, Q7M_LANES, 2, checks, n_keys=60000, valid_frac=0.94,
+                            closes=[(0, 1, 1), (1, 3, 1)]))
+    out.append(sharded_case("q7m host shapes", rng, dev, MESH_N, 65536, 65536, q7m_dc, 64,
+                            8192, 2048, Q7M_LANES, 2, checks, n_keys=60000, valid_frac=0.12))
+    out.append(sharded_case("deployment state", rng, dev, MESH_N, 1 << 20, 65536, 16384, 64,
+                            8192, 2048, DEPLOY_LANES, 2, checks, n_keys=1 << 22,
+                            closes=[(0, 1, 1)]))
+    for n in (1, 4, 8):
+        out.append(sharded_case(f"n_dev {n}", rng, dev, n, 4096, 2048,
+                                2048 // max(n // 2, 1), 32, 4096, 4096,
+                                Q7M_LANES + [("sum", torch.float64), ("min", torch.float32)],
+                                3, checks, n_keys=3000, valid_frac=0.7))
+    out.append(sharded_case("hot key past dest_cap", rng, dev, MESH_N, 4096, 2048, 4, 32,
+                            4096, 4096, Q7M_LANES + [("sum", torch.float64)], 3, checks,
+                            n_keys=40, hot=0.9, expect=need(lambda f: f["kept_local_rows"] > 0,
+                                                           "kept-local rows")))
+    out.append(sharded_case("table pressure into the spill buffer", rng, dev, 4, 64, 512, 512,
+                            2, 64, 4096, Q7M_LANES, 3, checks, n_keys=4000,
+                            expect=need(lambda f: sum(f["spill_fill"]) > 0
+                                        and sum(f["overflow"]) == 0, "spill rows")))
+    out.append(sharded_case("spill exhaustion", rng, dev, 4, 64, 512, 512, 2, 64, 16,
+                            Q7M_LANES, 2, checks, n_keys=4000,
+                            expect=need(lambda f: sum(f["overflow"]) > 0, "overflow")))
+    out.append(sharded_case("max_probes exhausted", rng, dev, MESH_N, 1024, 1024, 512, 1,
+                            1024, 4096, Q7M_LANES, 2, checks, n_keys=20000,
+                            expect=need(lambda f: sum(f["spill_fill"]) > 0, "unplaced rows")))
+    out.append(sharded_case("duplicates after a free", rng, dev, 4, 256, 256, 256, 16, 64,
+                            1024, Q7M_LANES, 4, checks, n_keys=300,
+                            close_after={1: [(0, 1, 1)], 2: [(1, 2, 2)]},
+                            closes=[(2, 3, 2), (0, 10, 10)],
+                            expect=need(lambda f: f["duplicate_entries"] > 0,
+                                        "duplicate (key, bin) entries")))
+    out.append(sharded_case("key INT64_MAX in bin INT32_MAX", rng, dev, 4, 1024, 512, 256, 16,
+                            256, 256, Q7M_LANES + [("sum", torch.float64)], 2, checks,
+                            n_keys=500, max_key_rows=3, valid_frac=0.8,
+                            closes=[(0, np.iinfo(np.int32).max, 5)]))
+    return out, {k: sorted(v) for k, v in checks.items()}
+
+
+def sharded_bytes(kinds_lanes, S, L, M, dc, cap, E, n) -> dict:
+    """Bytes each kernel must move at one step's shapes: each input read
+    once, each output written once, counted for this run's data (``n``).
+    A row array costs its 1-byte flag (valid, active, still or occupied)
+    for every row and the rest of the row (key, bin, lanes) only for the
+    rows the flag marks: padding and inactive partials cost one byte."""
+    lane_b = sum(torch.tensor([], dtype=dt).element_size() for _k, dt in kinds_lanes)
+    pay = 8 + 4 + lane_b  # key, bin, lanes
+    return {
+        # valid flags and valid rows in; active flags and segments out
+        "agg_sort_reduce": S * M + n["merged_valid"] * pay + S * M + n["segments"] * pay,
+        # active flags in, still flags out, each active partial read; its
+        # slot: a claim reads the occupancy and writes the entry, a match
+        # reads the entry and writes its lanes
+        "agg_probe_merge": (2 * S * M + n["segments"] * pay + n["claims"] * (pay + 2)
+                            + n["matches"] * (pay + 1 + lane_b)),
+        # flags in, send and kept flags out; each active partial read, and
+        # written once (sent or kept)
+        "shard_exchange": S * L + S * S * dc + S * L + 2 * n["local_active"] * pay,
+        # still flags in; each still-active partial read and appended; the
+        # fill and overflow counters read and written
+        "shard_spill": S * M + 2 * n["still"] * pay + S * 16,
+        # every slot's occupancy, the occupied slots' bins, the emitted
+        # entries' key and lanes; out flags, emitted rows, totals, and the
+        # freed entries' occupancy
+        "shard_extract": (S * cap + n["occupied"] * 4 + n["emitted"] * (8 + lane_b) + S * E
+                          + n["emitted"] * pay + S * 4 + n["freed"]),
+    }
+
+
+def time_fresh(fn, make_inputs, reps: int) -> dict:
+    """Device ms per call of a kernel that changes its inputs: each call
+    gets inputs made before the timed region (profiler device time of the
+    calls alone, and CUDA events around each)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    inputs = [make_inputs() for _ in range(2 * reps + 1)]
+    fn(*inputs.pop())
+    times = []
+    for _ in range(reps):
+        args = inputs.pop()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        a.record()
+        fn(*args)
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn(*inputs.pop())
+        torch.cuda.synchronize()
+    by_name = device_us_by_name(prof)
+    out = {"call_ms": statistics.median(times), "device_kernels": sorted(by_name)}
+    if by_name:
+        out.update(device_ms=sum(by_name.values()) / 1e3 / reps, method="profiler")
+    else:
+        out.update(device_ms=statistics.median(times), method="events")
+    return out
+
+
+def time_sharded(rng, dev, label, S, cap, L, dc, lanes, n_keys, valid_frac, reps) -> dict:
+    """Every sharded kernel at one step's shapes: the kernel, its plain
+    version, the byte bound; K9, K10's spill and K11 on fresh copies of the
+    state they change."""
+    kinds = [k for k, _ in lanes]
+    table = empty_table(S, cap, lanes, dev)
+    spill = empty_spill(S, 2048, lanes, dev)
+    # a table already holding one step's groups, then the step being timed
+    for step in range(2):
+        key, bins, valid, vals = mesh_rows(rng, S, L, int(L * valid_frac), lanes, n_keys, dev,
+                                           bins_range=(step, step + 2))
+        u = sharded_kernels.agg_sort_reduce(kinds, key, bins, valid, vals)
+        ex = sharded_kernels.shard_exchange(kinds, *u, dc)
+        recv = S * dc
+        for s_t, m_t in zip((ex.s_key, ex.s_bin, ex.s_valid, *ex.s_accs),
+                            (ex.m_key, ex.m_bin, ex.m_valid, *ex.m_accs)):
+            all_to_all(s_t, out=m_t[:, :recv])
+        c = sharded_kernels.agg_sort_reduce(kinds, ex.m_key, ex.m_bin, ex.m_valid, ex.m_accs)
+        if step == 0:
+            still = sharded_kernels.agg_probe_merge(kinds, table, *c, 64)
+    M = ex.m_key.shape[1]
+    E = min(8192, cap)
+    segments = int(c[2].sum())
+    occupied = int(table[2].sum())
+    merged = clone_nested(table)
+    still = sharded_kernels.agg_probe_merge(kinds, merged, *c, 64)
+    claims = int(merged[2].sum()) - occupied
+    # the timed extract emits [0, 1) and frees below 1: every freed entry
+    # is an emitted one, at most E per shard
+    emitted = int((table[2] & (table[1] < 1)).sum(dim=1).clamp(max=E).sum())
+    counts = {"merged_valid": int(ex.m_valid.sum()), "segments": segments,
+              "local_active": int(u[2].sum()), "still": int(still.sum()),
+              "claims": claims, "matches": segments - int(still.sum()) - claims,
+              "occupied": occupied, "emitted": emitted, "freed": emitted}
+    nbytes = sharded_bytes(lanes, S, L, M, dc, cap, E, counts)
+    t = {}
+
+    def row(name, k, p, **extra):
+        t[name] = {"ms": k["device_ms"], "plain_ms": p["device_ms"], "library_ms": None,
+                   "library": "none: no single PyTorch call computes it",
+                   "method": k["method"], "call_ms": k["call_ms"], "plain_call_ms": p["call_ms"],
+                   "kernel_names": k["device_kernels"],
+                   "bound_ms": nbytes[name] / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+                   "bytes": nbytes[name], **extra}
+
+    log(f"sharded: time {label}: {counts}")
+    row("agg_sort_reduce",
+        measure(lambda: sharded_kernels.agg_sort_reduce(kinds, ex.m_key, ex.m_bin, ex.m_valid,
+                                                        ex.m_accs), reps),
+        measure(lambda: sharded_kernels.agg_sort_reduce_plain(kinds, ex.m_key, ex.m_bin,
+                                                              ex.m_valid, ex.m_accs), reps),
+        rows=[S, M], local_ms=measure(lambda: sharded_kernels.agg_sort_reduce(
+            kinds, key, bins, valid, vals), reps)["device_ms"], local_rows=[S, L])
+    row("shard_exchange",
+        measure(lambda: sharded_kernels.shard_exchange(kinds, *u, dc), reps),
+        measure(lambda: sharded_kernels.shard_exchange_plain(kinds, *u, dc), reps),
+        rows=[S, L], dest_cap=dc)
+    mk_table = lambda: (clone_nested(table), )
+    row("agg_probe_merge",
+        time_fresh(lambda tb: sharded_kernels.agg_probe_merge(kinds, tb, *c, 64), mk_table, reps),
+        time_fresh(lambda tb: sharded_kernels.agg_probe_merge_plain(kinds, tb, *c, 64), mk_table,
+                   max(2, reps // 10)),
+        partials=[S, M], active=segments, claims=claims, table=[S, cap])
+    mk_spill = lambda: (clone_nested(spill), )
+    row("shard_spill",
+        time_fresh(lambda sp: sharded_kernels.shard_spill(kinds, c[0], c[1], c[3], still, sp),
+                   mk_spill, reps),
+        time_fresh(lambda sp: sharded_kernels.shard_spill_plain(kinds, c[0], c[1], c[3], still,
+                                                                sp), mk_spill, reps),
+        rows=[S, M], still=int(still.sum()))
+    row("shard_extract",
+        time_fresh(lambda tb: sharded_kernels.shard_extract(tb, 0, 1, 1, 8192), mk_table, reps),
+        time_fresh(lambda tb: sharded_kernels.shard_extract_plain(tb, 0, 1, 1, 8192), mk_table,
+                   reps),
+        table=[S, cap], emit_cap=E, emitted=emitted)
+    t["counts"] = counts
+    return t
+
+
+def sharded_phase(dev) -> dict:
+    """K8-K11 against their plain versions on the card, exactly, at q7m's
+    shapes, at a deployment state and on edge cases; then timed."""
+    rng = np.random.default_rng(20261017)
+    cases, checks = sharded_cases(rng, dev)
+    timing = {
+        "q7m": time_sharded(rng, dev, "q7m fused", MESH_N, 65536, 8192,
+                            BENCH_BATCH // (MESH_N // 2), Q7M_LANES, 60000, 0.94, TIMING_REPS),
+        "deployment": time_sharded(rng, dev, "deployment", MESH_N, 1 << 20, 65536, 16384,
+                                   DEPLOY_LANES, 1 << 22, 1.0, 3),
+    }
+    info = {"phase": "sharded", "cases_checked": len(cases), "max_abs_err": 0.0,
+            "cases": cases, "shapes_checked": checks, "timing": timing}
+    emit(info)
+    return info
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out-dir", default="chip_smoke_out",
@@ -1807,6 +2383,10 @@ def main(argv=None) -> int:
         "segment": lambda: segment_phase(plans.get("nexmark") or nexmark_plans()),
         "join": lambda: join_phase(dev),
         "gather": lambda: gather_phase(dev),
+        "q7m": run_q7m,
+        "q5m": run_q5m,
+        "mesh_ab": run_mesh_ab,
+        "sharded": lambda: sharded_phase(dev),
     }
     only = args.only.split(",") if args.only else list(phases)
     unknown = sorted(set(only) - set(phases))
@@ -1868,6 +2448,15 @@ def kernel_rows(res: dict) -> list:
                  "max_abs_err": res["gather"]["max_abs_err"], "ms": t["ms"],
                  "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                  "library_ms": t["library_ms"]})
+    st = res["sharded"]["timing"]["q7m"]
+    for name in SHARDED_KERNELS:
+        t = st[name]
+        rows.append({"name": name, "route": "cuda", "source": SHARDED_SOURCE,
+                     "replaces": REPLACES[name],
+                     "launches": res["q7m"]["fused"]["launches"][name],
+                     "max_abs_err": res["sharded"]["max_abs_err"], "ms": t["ms"],
+                     "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                     "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
     return rows
 
 

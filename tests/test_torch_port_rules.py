@@ -38,7 +38,9 @@ def test_port_and_chip_smoke_import_neither_jax_nor_arroyo_tpu():
             "arroyo_tpu_torch.windows.tumbling", "arroyo_tpu_torch.engine.engine",
             "arroyo_tpu_torch.ops.join_kernels", "arroyo_tpu_torch.ops.join_probe",
             "arroyo_tpu_torch.operators.joins", "arroyo_tpu_torch.operators.updating_aggregate",
-            "arroyo_tpu_torch.windows.session"} <= set(mods)
+            "arroyo_tpu_torch.windows.session", "arroyo_tpu_torch.ops.sharded_kernels",
+            "arroyo_tpu_torch.parallel.mesh", "arroyo_tpu_torch.parallel.sharded_agg",
+            "arroyo_tpu_torch.connectors.impulse"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -60,6 +62,10 @@ def test_default_device_is_cuda_and_raises_without_it():
         resolve_device()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         SlotAggregator(("count",), (np.int64,), cap=64, region_size=16)
+    from arroyo_tpu_torch.parallel import make_mesh
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_mesh(8)
     assert resolve_device("cpu") == torch.device("cpu")
     tcfg.update({"device.torch-device": "cpu"})
     assert resolve_device() == torch.device("cpu")
@@ -131,6 +137,15 @@ def test_kernel_build_without_nvcc_raises(monkeypatch):
 
     with pytest.raises(RuntimeError, match="nvcc not found"):
         join_kernels.build_library()
+    from arroyo_tpu_torch.ops import sharded_kernels
+
+    with pytest.raises(kernels.KernelError, match="nvcc not found"):
+        sharded_kernels.build_library()
+    meta = lambda dt: torch.zeros((2, 4), dtype=dt, device="meta")  # noqa: E731
+    with pytest.raises(ValueError, match="unsupported device"):
+        sharded_kernels.agg_sort_reduce(["count"], meta(torch.int64), meta(torch.int32),
+                                        None, [None])
+    assert sharded_kernels.launch_counts()["agg_sort_reduce"] == 0
     # a tensor on a device the port has no kernel for is refused, not
     # routed to the plain version
     with pytest.raises(ValueError, match="unsupported device"):
