@@ -1,0 +1,117 @@
+// Single-device hash-table kernels for Hopper (sm_90a), with a plain C
+// interface loaded through ctypes (arroyo_tpu_torch/ops/hash_kernels.py
+// builds this file with nvcc at first use and holds each kernel against its
+// plain PyTorch version).
+//
+// The single-device aggregate keeps one open-addressing table (keys int64,
+// bins int32, occ bool, one [cap] array per lane) on the device. Its step
+// is K8 + K9 and its close K11 (csrc/sharded_agg.cu, at one shard); the
+// two reads that neither covers are here. They replace programs of
+// arroyo_tpu/ops/aggregate.py _build_jax (B9):
+//
+//   K12 hash_scan_chunk  scan (:331-342): the emit_cap slots from
+//       chunk_start, read without freeing; a row is valid when its slot is
+//       in bounds, occupied and emit_lo <= bin < emit_hi. A position past
+//       cap reads slot cap - 1 (what the reference's gather does: XLA
+//       clamps an out-of-bounds index) and is never valid, so an emit_cap
+//       that does not divide cap emits no slot twice.
+//   K13 hash_free        free (:344-348): occ &= !(bin < below), in place.
+//
+// Bounds (H100, 3.35 TB/s): both move a few bytes per slot and compute
+// nothing, so they are bound by bytes. K12 reads and writes emit_cap rows
+// (key, bin, flag, lanes), one thread per row, neighbouring threads on
+// neighbouring slots: every load and store is coalesced. K13 reads every
+// slot's bin and occupancy and writes the occupancy, one thread per slot.
+//
+// Each entry point launches on the stream it is given, allocates nothing
+// and returns cudaGetLastError().
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#define MAX_LANES 32
+#define THREADS 256
+
+struct ScanLanes {
+  const void* in[MAX_LANES];  // the table's lanes [cap]
+  void* out[MAX_LANES];       // the rows read [emit_cap]
+  int wide[MAX_LANES];        // 8-byte lane (int64, uint64, float64), else 4
+  int n;
+};
+
+__global__ void scan_chunk(const long long* __restrict__ keys, const int* __restrict__ bins,
+                           const unsigned char* __restrict__ occ, ScanLanes lanes, long long cap,
+                           int lo, int hi, long long start, long long E,
+                           long long* __restrict__ out_key, int* __restrict__ out_bin,
+                           unsigned char* __restrict__ out_valid) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= E) return;
+  const long long sel = start + i;
+  const bool in_bounds = sel < cap;
+  const long long j = in_bounds ? sel : cap - 1;
+  const int b = bins[j];
+  out_key[i] = keys[j];
+  out_bin[i] = b;
+  out_valid[i] = (in_bounds && occ[j] && b >= lo && b < hi) ? 1 : 0;
+  for (int l = 0; l < lanes.n; ++l) {
+    if (lanes.wide[l])
+      static_cast<unsigned long long*>(lanes.out[l])[i] =
+          static_cast<const unsigned long long*>(lanes.in[l])[j];
+    else
+      static_cast<unsigned int*>(lanes.out[l])[i] = static_cast<const unsigned int*>(lanes.in[l])[j];
+  }
+}
+
+__global__ void free_below(const int* __restrict__ bins, unsigned char* __restrict__ occ,
+                           long long cap, int below) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x; j < cap; j += stride)
+    if (bins[j] < below) occ[j] = 0;
+}
+
+static unsigned int blocks_for(long long n) {
+  long long b = (n + THREADS - 1) / THREADS;
+  const long long most = 132LL * 16;  // 16 blocks of 256 threads per SM fill the H100
+  return (unsigned int)(b < 1 ? 1 : (b > most ? most : b));
+}
+
+extern "C" {
+
+// K12. in / out: n_lanes lane pointers each, wide: 1 for an 8-byte lane.
+int arroyo_hash_scan_chunk(int device, long long cap, const void* keys, const void* bins,
+                           const void* occ, int n_lanes, const void** in, void** out,
+                           const int* wide, int emit_lo, int emit_hi, long long chunk_start,
+                           long long E, void* out_key, void* out_bin, void* out_valid,
+                           void* stream) {
+  if (cap < 1 || E < 1 || chunk_start < 0 || n_lanes < 0 || n_lanes > MAX_LANES)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  ScanLanes lanes;
+  for (int l = 0; l < n_lanes; ++l) {
+    lanes.in[l] = in[l];
+    lanes.out[l] = out[l];
+    lanes.wide[l] = wide[l];
+  }
+  lanes.n = n_lanes;
+  scan_chunk<<<(unsigned int)((E + THREADS - 1) / THREADS), THREADS, 0,
+               static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const long long*>(keys), static_cast<const int*>(bins),
+      static_cast<const unsigned char*>(occ), lanes, cap, emit_lo, emit_hi, chunk_start, E,
+      static_cast<long long*>(out_key), static_cast<int*>(out_bin),
+      static_cast<unsigned char*>(out_valid));
+  return (int)cudaGetLastError();
+}
+
+// K13.
+int arroyo_hash_free(int device, long long cap, const void* bins, void* occ, int below,
+                     void* stream) {
+  if (cap < 1) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  free_below<<<blocks_for(cap), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(bins), static_cast<unsigned char*>(occ), cap, below);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

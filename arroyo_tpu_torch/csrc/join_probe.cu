@@ -12,7 +12,9 @@
 //      pairs by (key, index). Every index is distinct, so that order is a
 //      total order, and sorting by it gives exactly a stable argsort: rows
 //      with equal keys keep their input order, as jnp.argsort's do. The
-//      result does not depend on the order in which threads run.
+//      result does not depend on the order in which threads run. The slot
+//      aggregator's K1 (csrc/slot_agg.cu) sorts its slots with it too, to
+//      add float sums in row order.
 //   K6 join_search_bounds  lo = first index whose key >= probe key, hi =
 //      first index whose key > probe key, over the sorted keys (what
 //      jnp.searchsorted side="left" / side="right" return). A probe key of
@@ -71,17 +73,18 @@ __device__ __forceinline__ void exchange(long long* keys, int* idx, long long lo
   }
 }
 
-// Sort each tile of `tile` pairs: load the input keys (INT64_MAX past n)
-// with their indices, run every stage k = 2 .. tile, write the tile back.
-// blockDim.x == tile / 2.
-__global__ void sort_tiles_kernel(const long long* __restrict__ in, long long n,
+// Sort each tile of `tile` pairs: load the input keys (int64, or int32
+// widened; INT64_MAX past n) with their indices, run every stage k = 2 ..
+// tile, write the tile back. blockDim.x == tile / 2.
+__global__ void sort_tiles_kernel(const void* __restrict__ in, int in_i32, long long n,
                                   long long* __restrict__ keys, int* __restrict__ idx, int tile) {
   __shared__ long long sk[SORT_TILE];
   __shared__ int sv[SORT_TILE];
   const long long base = (long long)blockIdx.x * tile;
   for (int i = threadIdx.x; i < tile; i += blockDim.x) {
     long long g = base + i;
-    sk[i] = g < n ? in[g] : KEY_MAX;
+    sk[i] = g >= n ? KEY_MAX
+            : in_i32 ? (long long)static_cast<const int*>(in)[g] : static_cast<const long long*>(in)[g];
     sv[i] = (int)g;
   }
   __syncthreads();
@@ -159,10 +162,12 @@ static unsigned int blocks_for(long long n) {
 
 extern "C" {
 
-// keys_out and order_out hold cap pairs; cap is a power of two, 64 <= cap
-// < 2^31, n <= cap. On return the first n pairs are the sorted input rows.
-int arroyo_join_sort_pairs(int device, const void* keys_in, long long n, void* keys_out,
-                           void* order_out, long long cap, void* stream) {
+// keys_in: n int64 keys, or int32 ones (keys_i32) sorted as their int64
+// values. keys_out and order_out hold cap pairs; cap is a power of two,
+// 64 <= cap < 2^31, n <= cap. On return the first n pairs are the sorted
+// input rows.
+int arroyo_join_sort_pairs(int device, const void* keys_in, int keys_i32, long long n,
+                           void* keys_out, void* order_out, long long cap, void* stream) {
   if (cap < 64 || (cap & (cap - 1)) != 0 || cap > 0x7fffffffLL || n < 0 || n > cap)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
@@ -172,7 +177,7 @@ int arroyo_join_sort_pairs(int device, const void* keys_in, long long n, void* k
   int* idx = static_cast<int*>(order_out);
   const int tile = cap < SORT_TILE ? (int)cap : SORT_TILE;
   sort_tiles_kernel<<<(unsigned int)(cap / tile), tile / 2, 0, s>>>(
-      static_cast<const long long*>(keys_in), n, keys, idx, tile);
+      keys_in, keys_i32, n, keys, idx, tile);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   const long long pairs = cap / 2;
   for (long long k = 2LL * SORT_TILE; k <= cap; k <<= 1) {

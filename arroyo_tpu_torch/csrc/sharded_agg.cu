@@ -18,6 +18,8 @@
 //   K9  agg_probe_merge   probe_merge (B8): merge unique partials into the
 //       (keys, bins, occ, accs) table in place, by max_probes synchronous
 //       rounds of linear probing from mix(key ^ bin * C) & (cap - 1).
+//       Given an overflow counter, it adds the partials no round placed
+//       (the single-device table's step, aggregate.py _build_jax :326-328).
 //   K10 shard_exchange    arroyo_tpu/parallel/sharded_agg.py
 //       exchange_merge steps 2-3: each partial's owner (contiguous uint64
 //       key ranges, U64_MAX / n + 1 wide), a stable order by owner, the
@@ -29,7 +31,12 @@
 //   K11 shard_extract     local_extract: a stable compaction of the slots
 //       whose bin lies in [emit_lo, emit_hi), emitting ones first, then the
 //       first non-emitting ones (what argsort(~emit_mask)[:emit_cap]
-//       selects), the per-shard total, and the frees.
+//       selects), the per-shard total, and the frees. With zero_tail, the
+//       rows past the emitting ones hold zeros instead, E may exceed cap,
+//       and the table's overflow counter is copied beside the totals: the
+//       single-device table's extract / scan_packed (aggregate.py
+//       _build_jax :350-379, :424-444), whose cumsum scatter gives the
+//       same slot order.
 //
 // Exactness. K8 sorts (key, tag) pairs, tag = (bin with its sign bit
 // flipped) << 32 | invalid << 31 | row: every tag is distinct, so the order
@@ -420,7 +427,8 @@ __global__ void pm_rounds(long long* __restrict__ keys, int* __restrict__ bins,
                           const long long* __restrict__ u_key, const int* __restrict__ u_bin,
                           long long B, int max_probes, unsigned char* __restrict__ still,
                           int* __restrict__ list, const int* __restrict__ n_list0,
-                          int* __restrict__ claims, unsigned char* __restrict__ code) {
+                          int* __restrict__ claims, unsigned char* __restrict__ code,
+                          int* __restrict__ oflow) {
   __shared__ int n_next;
   const long long s = blockIdx.x;
   const long long mask = cap - 1;
@@ -493,6 +501,8 @@ __global__ void pm_rounds(long long* __restrict__ keys, int* __restrict__ bins,
     nxt = tmp;
     __syncthreads();
   }
+  // partials no round placed: the table's overflow (one block per shard)
+  if (oflow != nullptr && threadIdx.x == 0) oflow[s] += n;
 }
 
 // ------------------------------------------------------------ K10
@@ -650,6 +660,9 @@ struct ExtractOut {
   int* bin;
   unsigned char* valid;
   int* total;
+  int zero_tail;  // rows past the emitting ones hold zeros
+  const int* oflow_in;  // copied to oflow_out per shard, when given
+  int* oflow_out;
 };
 
 __device__ __forceinline__ bool emits(const unsigned char* occ, const int* bins, long long j,
@@ -681,10 +694,21 @@ __global__ void ext_write(const long long* __restrict__ keys, const int* __restr
   const bool e = j < cap && emits(occ, bins, g, lo, hi);
   int tot;
   const long long ex = prefix + block_excl_count(e, ws, &tot);
-  if (blockIdx.x == 0 && threadIdx.x == 0) out.total[s] = (int)total;
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    out.total[s] = (int)total;
+    if (out.oflow_out != nullptr) out.oflow_out[s] = out.oflow_in[s];
+  }
+  if (out.zero_tail && j < E && j >= (total < E ? total : E)) {
+    const long long d = s * E + j;  // output row j, past the emitted rows
+    out.key[d] = 0;
+    out.bin[d] = 0;
+    out.valid[d] = 0;
+    for (int l = 0; l < lanes.n; ++l) st_bits(lanes.dtype[l], lanes.out[l], d, 0ULL);
+  }
   if (j >= cap) return;
   // emitting slots first in slot order, then the others in slot order
-  const long long pos = e ? ex : total + j - ex;
+  // (with zero_tail only the emitting ones)
+  const long long pos = e ? ex : (out.zero_tail ? E : total + j - ex);
   if (pos < E) {
     const long long d = s * E + pos;
     out.key[d] = keys[g];
@@ -755,10 +779,11 @@ int arroyo_agg_sort_reduce(int device, int S, long long L, long long P, const vo
 // K9. lanes->out: the table's lanes, lanes->in: the partials'. scratch:
 // list int32 [S * 2 * B], n_list int32 [S], claims int32 [S * cap], code
 // uint8 [S * B].
+// oflow int32 [S] or NULL: each shard's unplaced partials add to it.
 int arroyo_agg_probe_merge(int device, int S, long long cap, void* keys, void* bins, void* occ,
                            const Lanes* lanes, long long B, const void* u_key, const void* u_bin,
                            const void* active, int max_probes, void* still, void* list,
-                           void* n_list, void* claims, void* code, void* stream) {
+                           void* n_list, void* claims, void* code, void* oflow, void* stream) {
   if (S < 1 || B < 1 || B > 0x7fffffffLL || cap < 1 || (cap & (cap - 1)) != 0 ||
       max_probes < 0 || !lanes_ok(lanes))
     return (int)cudaErrorInvalidValue;
@@ -775,7 +800,7 @@ int arroyo_agg_probe_merge(int device, int S, long long cap, void* keys, void* b
       *lanes, cap, static_cast<const long long*>(u_key), static_cast<const int*>(u_bin), B,
       max_probes, static_cast<unsigned char*>(still), static_cast<int*>(list),
       static_cast<const int*>(n_list), static_cast<int*>(claims),
-      static_cast<unsigned char*>(code));
+      static_cast<unsigned char*>(code), static_cast<int*>(oflow));
   return (int)cudaGetLastError();
 }
 
@@ -823,12 +848,16 @@ int arroyo_shard_spill(int device, int S, long long M, const void* c_key, const 
 }
 
 // K11. lanes->in: the table's lanes, ->out: the extracted lanes [S * E].
-// scratch: counts int32 [S * chunks(cap)].
+// scratch: counts int32 [S * chunks(cap)]. E <= cap unless zero_tail;
+// oflow_in / oflow_out int32 [S] or NULL.
 int arroyo_shard_extract(int device, int S, long long cap, const void* keys, const void* bins,
                          void* occ, const Lanes* lanes, int emit_lo, int emit_hi, int free_below,
                          long long E, void* out_key, void* out_bin, void* out_valid,
-                         void* total, void* counts, void* stream) {
-  if (S < 1 || cap < 1 || E < 1 || E > cap || !lanes_ok(lanes)) return (int)cudaErrorInvalidValue;
+                         void* total, void* counts, int zero_tail, const void* oflow_in,
+                         void* oflow_out, void* stream) {
+  if (S < 1 || cap < 1 || E < 1 || (E > cap && !zero_tail) || !lanes_ok(lanes) ||
+      (oflow_in == nullptr) != (oflow_out == nullptr))
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -838,8 +867,11 @@ int arroyo_shard_extract(int device, int S, long long cap, const void* keys, con
                                           emit_hi, nc, static_cast<int*>(counts));
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   ExtractOut out{static_cast<long long*>(out_key), static_cast<int*>(out_bin),
-                 static_cast<unsigned char*>(out_valid), static_cast<int*>(total)};
-  ext_write<<<dim3(nc, S), CHUNK, 0, s>>>(
+                 static_cast<unsigned char*>(out_valid), static_cast<int*>(total), zero_tail,
+                 static_cast<const int*>(oflow_in), static_cast<int*>(oflow_out)};
+  // with a zeroed tail past cap, the blocks cover the output rows too
+  const int nw = chunks_for(E > cap ? E : cap);
+  ext_write<<<dim3(nw, S), CHUNK, 0, s>>>(
       static_cast<const long long*>(keys), static_cast<const int*>(bins),
       static_cast<unsigned char*>(occ), *lanes, cap, emit_lo, emit_hi, free_below, E, nc,
       static_cast<const int*>(counts), out);

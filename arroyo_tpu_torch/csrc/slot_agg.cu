@@ -4,8 +4,9 @@
 // version).
 //
 // Window state is one [cap] array per accumulator lane (int32, int64,
-// float32 or float64). The host resolves a slot for every batch row; these
-// kernels update and read that state in place:
+// uint64, float32 or float64; uint64 carries a numeric group-by key as a
+// max lane). The host resolves a slot for every batch row; these kernels
+// update and read that state in place:
 //
 //   K1 slot_scatter_combine  replaces arroyo_tpu/ops/slot_agg.py
 //      _build_slot_jax step / step_merge: per lane, rows combine into
@@ -14,8 +15,9 @@
 //      (a count lane in the hot path ships no values).
 //   K2 slot_region_read_pack replaces _build_slot_jax make_read_multi's
 //      _pack: for k region bases, R slots of every lane, int lanes widened
-//      into one int64 buffer and float lanes into one float64 buffer, laid
-//      out [base][lane of its class][R].
+//      into one int64 buffer (uint64 as its bits, as _pack's
+//      astype(int64)) and float lanes into one float64 buffer, laid out
+//      [base][lane of its class][R].
 //   K3 slot_region_clear     replaces _clear / clear: R slots from each
 //      base reset to the lane's identity. After a read with clear it runs
 //      as a second launch on the same stream: bases may repeat (the host
@@ -24,11 +26,10 @@
 //      duplicate was read.
 //   K7 slot_gather           replaces _build_slot_jax make_read_slots.go:
 //      for k slots (int32 or int64 indices), every lane's value at each
-//      slot, int lanes widened into one int64 buffer and float lanes into
-//      one float64 buffer, laid out [lane of its class][k]. A slot outside
-//      [0, cap) reads 0. The updating aggregate's flush reads its touched
-//      keys with it; it launches on the stream of the K1 launches it must
-//      see, so it reads their sums.
+//      slot, widened as K2 widens, laid out [lane of its class][k]. A slot
+//      outside [0, cap) reads 0. The updating aggregate's flush reads its
+//      touched keys with it; it launches on the stream of the K1 launches
+//      it must see, so it reads their sums.
 //
 // Bound on the H100 (3.35 TB/s HBM, 50 MB L2): all four move a few bytes
 // per element and do no arithmetic to speak of, so each is bound by bytes.
@@ -50,11 +51,18 @@
 // bases are passed by value in the kernel parameters: no device
 // allocation and no host-to-device copy for them.
 //
-// Float min/max: XLA's scatter-min/max propagates NaN and orders -0.0
-// below +0.0, whatever the order of the rows. The CAS loops below keep the
-// same order, so the result does not depend on the order the atomics land
-// in. Float sums are atomicAdd and land in no fixed order; integer lanes
-// and every min/max are exact.
+// Exactness. Integer adds wrap (two's complement, as XLA's); integer
+// min/max are atomics, exact in any order (uint64 with the unsigned
+// atomics). Float min/max: XLA's scatter-min/max propagates NaN and orders
+// -0.0 below +0.0, whatever the order of the rows; the CAS loops below keep
+// the same order, so the result does not depend on the order the atomics
+// land in. Float sums do depend on the order: the reference adds each
+// slot's rows one after another in batch order, starting from the state
+// value. So a float add lane takes no atomic: the caller first sorts the
+// slots stably with K5 (csrc/join_probe.cu, arroyo_join_sort_pairs: equal
+// slots keep their row order), and one thread per run of equal slots walks
+// its rows in order from state[slot] (__dadd_rn / __fadd_rn, no
+// contraction). A hot slot's run costs its length serially.
 //
 // Each entry point launches on the stream it is given, allocates nothing
 // and returns cudaGetLastError().
@@ -67,15 +75,18 @@
 #define THREADS 256
 
 enum { KIND_ADD = 0, KIND_MIN = 1, KIND_MAX = 2 };
-enum { DT_I32 = 0, DT_I64 = 1, DT_F32 = 2, DT_F64 = 3 };
+enum { DT_I32 = 0, DT_I64 = 1, DT_F32 = 2, DT_F64 = 3, DT_U64 = 4 };
 
 struct ScatterArgs {
   void* state[MAX_LANES];
   const void* vals[MAX_LANES];  // NULL: the lane adds 1 per row
   int kind[MAX_LANES];
   int dtype[MAX_LANES];
+  int ordered[MAX_LANES];  // a float add lane: summed in row order, not by atomics
   int n_lanes;
 };
+
+__host__ __device__ __forceinline__ bool is_float(int dt) { return dt == DT_F32 || dt == DT_F64; }
 
 struct PackArgs {
   const void* state[MAX_LANES];
@@ -147,6 +158,14 @@ __device__ __forceinline__ void combine_lane(const ScatterArgs& args, int l, lon
       else atomicMax(st, v);
       break;
     }
+    case DT_U64: {
+      unsigned long long* st = static_cast<unsigned long long*>(args.state[l]) + s;
+      unsigned long long v = vp ? static_cast<const unsigned long long*>(vp)[i] : 1ULL;
+      if (kind == KIND_ADD) atomicAdd(st, v);
+      else if (kind == KIND_MIN) atomicMin(st, v);
+      else atomicMax(st, v);
+      break;
+    }
     case DT_I32: {
       int* st = static_cast<int*>(args.state[l]) + s;
       int v = vp ? static_cast<const int*>(vp)[i] : 1;
@@ -181,7 +200,41 @@ __global__ void scatter_combine_kernel(ScatterArgs args, const SlotT* __restrict
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
     const long long s = (long long)slots[i];
     if (s < 0 || s >= cap) continue;  // padding rows are dropped
-    for (int l = 0; l < args.n_lanes; ++l) combine_lane(args, l, s, i);
+    for (int l = 0; l < args.n_lanes; ++l)
+      if (!args.ordered[l]) combine_lane(args, l, s, i);
+  }
+}
+
+// ------------------------------------------------------------ K1, float sums
+
+// one thread per run of equal slots in K5's output (the slots sorted
+// stably, with each row's index): each float add lane's rows added one
+// after another in row order from the state value
+__global__ void ord_walk(ScatterArgs args, const long long* __restrict__ sorted,
+                         const int* __restrict__ order, long long n, long long cap) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
+    const long long s = sorted[i];
+    if (s < 0 || s >= cap || (i > 0 && sorted[i - 1] == s)) continue;
+    long long end = i + 1;
+    while (end < n && sorted[end] == s) ++end;
+    for (int l = 0; l < args.n_lanes; ++l) {
+      if (!args.ordered[l]) continue;
+      const void* vp = args.vals[l];
+      if (args.dtype[l] == DT_F64) {
+        double* st = static_cast<double*>(args.state[l]) + s;
+        double acc = *st;
+        for (long long r = i; r < end; ++r)
+          acc = __dadd_rn(acc, vp ? static_cast<const double*>(vp)[order[r]] : 1.0);
+        *st = acc;
+      } else {
+        float* st = static_cast<float*>(args.state[l]) + s;
+        float acc = *st;
+        for (long long r = i; r < end; ++r)
+          acc = __fadd_rn(acc, vp ? static_cast<const float*>(vp)[order[r]] : 1.0f);
+        *st = acc;
+      }
+    }
   }
 }
 
@@ -198,6 +251,7 @@ __global__ void read_pack_kernel(PackArgs a, long long R, long long* __restrict_
     const void* st = a.state[lane];
     switch (a.dtype[lane]) {
       case DT_I64:
+      case DT_U64:  // the bits as they are
         ibuf[((long long)j * a.n_int + a.pos[lane]) * R + r] = static_cast<const long long*>(st)[src];
         break;
       case DT_I32:
@@ -223,7 +277,7 @@ __global__ void clear_kernel(ClearArgs a, long long R) {
     const int j = (int)(t / a.n_lanes);
     const long long dst = a.bases[j] + r;
     const unsigned long long id = a.ident[lane];
-    if (a.dtype[lane] == DT_I64 || a.dtype[lane] == DT_F64)
+    if (a.dtype[lane] == DT_I64 || a.dtype[lane] == DT_U64 || a.dtype[lane] == DT_F64)
       static_cast<unsigned long long*>(a.state[lane])[dst] = id;
     else
       static_cast<unsigned int*>(a.state[lane])[dst] = (unsigned int)id;
@@ -243,6 +297,7 @@ __global__ void gather_kernel(GatherArgs a, const SlotT* __restrict__ slots, lon
       const long long o = (long long)a.pos[l] * k + i;
       switch (a.dtype[l]) {
         case DT_I64:
+        case DT_U64:  // the bits as they are
           ibuf[o] = ok ? static_cast<const long long*>(st)[s] : 0LL;
           break;
         case DT_I32:
@@ -268,27 +323,41 @@ static int grid_for(long long n) {
 
 extern "C" {
 
+// K1. sorted, order: for a float add lane, the slots sorted stably and
+// each sorted row's index (K5 arroyo_join_sort_pairs of the slots, on the
+// same stream); NULL when no lane is a float add lane.
 int arroyo_slot_scatter_combine(int device, void** state, const void** vals, const int* kinds,
                                 const int* dtypes, int n_lanes, const void* slots, int slots_i64,
-                                long long n, long long cap, void* stream) {
+                                long long n, long long cap, const void* sorted, const void* order,
+                                void* stream) {
   if (n_lanes < 1 || n_lanes > MAX_LANES || n < 1) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   ScatterArgs args;
+  int n_ordered = 0;
   for (int l = 0; l < n_lanes; ++l) {
     args.state[l] = state[l];
     args.vals[l] = vals[l];
     args.kind[l] = kinds[l];
     args.dtype[l] = dtypes[l];
+    args.ordered[l] = kinds[l] == KIND_ADD && is_float(dtypes[l]);
+    n_ordered += args.ordered[l];
   }
   args.n_lanes = n_lanes;
+  if (n_ordered && (sorted == nullptr || order == nullptr)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (slots_i64)
-    scatter_combine_kernel<long long><<<grid_for(n), THREADS, 0, s>>>(
-        args, static_cast<const long long*>(slots), n, cap);
-  else
-    scatter_combine_kernel<int><<<grid_for(n), THREADS, 0, s>>>(
-        args, static_cast<const int*>(slots), n, cap);
+  if (n_ordered < n_lanes) {
+    if (slots_i64)
+      scatter_combine_kernel<long long><<<grid_for(n), THREADS, 0, s>>>(
+          args, static_cast<const long long*>(slots), n, cap);
+    else
+      scatter_combine_kernel<int><<<grid_for(n), THREADS, 0, s>>>(
+          args, static_cast<const int*>(slots), n, cap);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+  if (n_ordered)
+    ord_walk<<<grid_for(n), THREADS, 0, s>>>(args, static_cast<const long long*>(sorted),
+                                             static_cast<const int*>(order), n, cap);
   return (int)cudaGetLastError();
 }
 
@@ -304,7 +373,7 @@ int arroyo_slot_region_read_pack(int device, void** state, const int* dtypes, in
   for (int l = 0; l < n_lanes; ++l) {
     a.state[l] = state[l];
     a.dtype[l] = dtypes[l];
-    a.pos[l] = (dtypes[l] == DT_F32 || dtypes[l] == DT_F64) ? n_flt++ : n_int++;
+    a.pos[l] = is_float(dtypes[l]) ? n_flt++ : n_int++;
   }
   for (int j = 0; j < k; ++j) a.bases[j] = bases[j];
   a.n_lanes = n_lanes;
@@ -349,7 +418,7 @@ int arroyo_slot_gather(int device, void** state, const int* dtypes, int n_lanes,
   for (int l = 0; l < n_lanes; ++l) {
     a.state[l] = state[l];
     a.dtype[l] = dtypes[l];
-    a.pos[l] = (dtypes[l] == DT_F32 || dtypes[l] == DT_F64) ? n_flt++ : n_int++;
+    a.pos[l] = is_float(dtypes[l]) ? n_flt++ : n_int++;
   }
   a.n_lanes = n_lanes;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

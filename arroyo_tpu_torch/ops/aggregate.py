@@ -1,6 +1,8 @@
-"""Host helpers of the keyed window aggregate and the plain PyTorch versions
-of its hash-table steps (the port's copy of arroyo_tpu/ops/aggregate.py:
-the numpy parts, ``sort_reduce`` (B7) and ``probe_merge`` (B8))."""
+"""The keyed window aggregate's store and helpers (the port's copy of
+arroyo_tpu/ops/aggregate.py): the host helpers, the plain PyTorch versions
+of the hash table's steps ``sort_reduce`` (B7) and ``probe_merge`` (B8),
+and ``DeviceHashAggregator`` with both backends: the single-device table
+(B9, its programs in ops/hash_kernels.py) and the dict-based host store."""
 
 from __future__ import annotations
 
@@ -115,30 +117,31 @@ def _identity(kind: str, dtype):
     raise ValueError(kind)
 
 
-def drain_extract(extract_once, emit_cap: int, acc_kinds: Sequence[str],
-                  acc_dtypes: Sequence[np.dtype], emit_lo: int, free_below: int):
-    """Host-side drain loop of the sharded aggregator's close.
-    ``extract_once()`` performs one device extraction and returns (key_i64,
-    bin, valid, accs, max_total) as numpy arrays and an int.
-
-    Entries in the emit range are freed only when below ``free_below``, so a
-    destructive close shrinks each round; a pure range scan (free_below <=
-    emit_lo) stops after one round, or it would re-emit the same entries
-    forever. The result is merged with combine_by_key_bin: freed slots punch
-    holes in probe chains, so the table may hold duplicate (key, bin)
+def _drain_extract_rounds(acc_kinds: Sequence[str], acc_dtypes: Sequence[np.dtype],
+                          emit_cap: int, first, next_round, emit_lo: int, free_below: int):
+    """The host's drain loop of a destructive extract that returns at most
+    ``emit_cap`` rows per round (per shard, for the sharded store).
+    ``first`` is the round already fetched, (keys_u64, bins, accs, total)
+    with ``total`` the (largest per-shard) count of entries in the range;
+    ``next_round()`` dispatches and decodes one more. Termination: a round
+    that covered everything (total <= emit_cap), emitted nothing (no
+    progress possible: every leftover lies outside the emit range), or a
+    non-destructive call (free_below <= emit_lo: a re-read would duplicate,
+    not drain). The result is merged with combine_by_key_bin: freed slots
+    punch holes in probe chains, so the table may hold duplicate (key, bin)
     entries whose accumulators each carry part of the total."""
     keys_out, bins_out = [], []
     accs_out: list[list[np.ndarray]] = [[] for _ in acc_dtypes]
+    k, b, accs, total = first
     while True:
-        k, b, valid, accs, max_total = extract_once()
-        cnt = int(valid.sum())
-        if cnt:
-            keys_out.append(k[valid])
-            bins_out.append(b[valid])
+        if len(k):
+            keys_out.append(k)
+            bins_out.append(b)
             for i, a in enumerate(accs):
-                accs_out[i].append(a[valid])
-        if max_total <= emit_cap or cnt == 0 or free_below <= emit_lo:
+                accs_out[i].append(a)
+        if total <= emit_cap or len(k) == 0 or free_below <= emit_lo:
             break
+        k, b, accs, total = next_round()
     if not keys_out:
         return (
             np.empty(0, dtype=np.uint64),
@@ -147,9 +150,9 @@ def drain_extract(extract_once, emit_cap: int, acc_kinds: Sequence[str],
         )
     return combine_by_key_bin(
         acc_kinds,
-        np.concatenate(keys_out).view(np.uint64),
+        np.concatenate(keys_out),
         np.concatenate(bins_out),
-        [np.concatenate(a) for a in accs_out],
+        [np.concatenate(a).astype(d) for a, d in zip(accs_out, acc_dtypes)],
     )
 
 
@@ -201,28 +204,21 @@ def _combine(kind: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
                        torch.full_like(out, float("nan")), out)
 
 
-def _seg_reduce(kind: str, v: torch.Tensor, seg: torch.Tensor, rank: torch.Tensor,
-                num: int) -> torch.Tensor:
-    """Reduce ``v`` (rows in sorted order, ``seg`` their flat segment id,
-    ``rank`` their position inside it) into ``num`` segments, empty ones
+def _seg_reduce(kind: str, v: torch.Tensor, seg: torch.Tensor, num: int) -> torch.Tensor:
+    """Reduce ``v`` (rows in sorted order, ``seg`` their flat segment id)
+    into ``num`` segments, empty ones
     holding the kind's identity (``_seg_reduce_jnp``). Float sums add each
     segment's rows one after another in sorted order from +0.0, as XLA's
-    segment_sum does; every other reduction is independent of order."""
+    segment_sum does: the CPU's ``index_add_`` adds row after row in order
+    (a CUDA ``index_add_`` adds with atomics in no fixed order, so on the
+    card the plain version sums on the host). Every other reduction is
+    independent of order."""
     ident = _identity(kind, np.dtype(str(v.dtype).replace("torch.", ""))).item()
     out = torch.full((num,), ident, dtype=v.dtype, device=v.device)
     if kind in ("sum", "count"):
         if not v.dtype.is_floating_point:
             return out.index_add_(0, seg, v)
-        # one row per segment per round: each round's index_add_ touches
-        # distinct segments, so the rounds fix the order of the adds
-        by_rank, idx = torch.sort(rank, stable=True)
-        counts = torch.bincount(by_rank).tolist() if len(by_rank) else []
-        lo = 0
-        for c in counts:
-            sel = idx[lo:lo + c]
-            out.index_add_(0, seg[sel], v[sel])
-            lo += c
-        return out
+        return out.copy_(out.cpu().index_add_(0, seg.cpu(), v.cpu()))
     if not v.dtype.is_floating_point:
         return out.scatter_reduce_(0, seg, v, "amin" if kind == "min" else "amax")
     ity = torch.int64 if v.dtype == torch.float64 else torch.int32
@@ -268,13 +264,9 @@ def sort_reduce(acc_kinds: Sequence[str], key: torch.Tensor, bins: torch.Tensor,
     # lane's identity (0, or the min/max identity), which changes no
     # accumulator (a float sum that starts at +0.0 is never -0.0), and
     # only the padding run mixes them in. Valid rows keep their sorted
-    # order, so each run's rank among them fixes the order of float adds.
+    # order, which is the order of float adds.
     sel = torch.nonzero(vs).squeeze(1)
     seg_v = flat[sel]
-    pos_v = torch.arange(len(sel), device=dev)
-    start_v = torch.zeros(S * L, dtype=torch.int64, device=dev).scatter_reduce_(
-        0, seg_v, pos_v, "amin", include_self=False)
-    rank_v = pos_v - start_v[seg_v]
     u_accs = []
     for kind, v in zip(acc_kinds, vals):
         if v is None:
@@ -283,7 +275,7 @@ def sort_reduce(acc_kinds: Sequence[str], key: torch.Tensor, bins: torch.Tensor,
         if unsigned:
             v = _to_signed(kind, v)
         v = torch.gather(v.reshape(-1, L), 1, order).reshape(-1)[sel]
-        r = _seg_reduce(kind, v, seg_v, rank_v, S * L).reshape(shape)
+        r = _seg_reduce(kind, v, seg_v, S * L).reshape(shape)
         u_accs.append(_from_signed(kind, r) if unsigned else r)
     rows = torch.zeros(S * L, dtype=torch.int32, device=dev).index_add_(0, flat, vs.to(torch.int32))
     u_key = torch.full((S * L,), _I64_MIN, dtype=torch.int64, device=dev)
@@ -371,3 +363,323 @@ def probe_merge(acc_kinds: Sequence[str], table, u_key: torch.Tensor, u_bin: tor
         o2[rows, slots] = True
         active &= ~write
     return active.reshape(u_key.shape)
+
+
+# =========================================================================
+# the single-device (bin, key) -> accumulators store (B9 and its host
+# mirror): arroyo_tpu/ops/aggregate.py DeviceHashAggregator
+# =========================================================================
+
+
+def _overflow_error(overflow: int, max_probes: int, cap: int) -> RuntimeError:
+    return RuntimeError(
+        f"device aggregate table overflow ({overflow} entries dropped after "
+        f"{max_probes} probes; cap={cap}) — raise device.table-capacity")
+
+
+class ExtractHandle:
+    """A window close in flight: the device compaction has been launched
+    and its packed buffer is on its way to pinned host memory. ``result()``
+    decodes it (and runs the rare follow-up rounds synchronously);
+    ``is_ready()`` polls without blocking."""
+
+    def __init__(self, agg: "DeviceHashAggregator", fetch, emit_lo: int, emit_hi: int,
+                 free_below: int):
+        self._agg = agg
+        self._fetch = fetch
+        self._emit_lo = emit_lo
+        self._emit_hi = emit_hi
+        self._free_below = free_below
+
+    def is_ready(self) -> bool:
+        return self._fetch.is_ready()
+
+    def result(self) -> tuple[np.ndarray, np.ndarray, list[np.ndarray]]:
+        agg = self._agg
+
+        def next_round():
+            return agg._unpack(agg._fetch_extract(self._emit_lo, self._emit_hi,
+                                                  self._free_below).result())
+
+        return _drain_extract_rounds(
+            agg.acc_kinds, agg.acc_dtypes, agg.emit_cap, agg._unpack(self._fetch.result()),
+            next_round, self._emit_lo, self._free_below)
+
+
+class ReadyHandle:
+    """ExtractHandle's interface over a result already on the host (the
+    numpy backend's synchronous close)."""
+
+    def __init__(self, result):
+        self._result = result
+
+    def is_ready(self) -> bool:
+        return True
+
+    def result(self):
+        return self._result
+
+
+class DeviceHashAggregator:
+    """Streaming (bin, key) -> accumulators store.
+
+    backend="jax": the open-addressing table lives on a torch device
+    (``device``; None = cuda, which raises without CUDA), updated and read
+    by B9's programs (ops/hash_kernels.py: K8 + K9 per batch, K11 per close
+    round, K12 and K13). The name is the JAX package's config value.
+    backend="numpy": the dict-based host mirror, on no device (the store of
+    the windows' host backend, and the differential tests' oracle).
+    """
+
+    def __init__(
+        self,
+        acc_kinds: Sequence[str],
+        acc_dtypes: Sequence[np.dtype],
+        cap: int = 65536,
+        batch_cap: int = 8192,
+        max_probes: int = 64,
+        emit_cap: int = 8192,
+        backend: str = "jax",
+        device=None,
+    ):
+        self.acc_kinds = tuple(acc_kinds)
+        self.acc_dtypes = tuple(np.dtype(d) for d in acc_dtypes)
+        self.cap = cap
+        self.batch_cap = batch_cap
+        self.max_probes = max_probes
+        self.emit_cap = emit_cap
+        self.backend = backend
+        if backend == "jax":
+            from ..device import resolve_device
+            from . import hash_kernels
+
+            if cap < 1 or cap & (cap - 1):
+                raise ValueError("table capacity must be a power of two")
+            self.device = resolve_device(device)
+            self._ops = hash_kernels.KERNELS  # a seam: chip_smoke.py substitutes checked kernels
+            self.state = self._init_jax_state()
+        else:
+            self.store: dict[tuple[int, int], list] = {}
+
+    def _init_jax_state(self):
+        dev = self.device
+        accs = [torch.from_numpy(np.full(self.cap, _identity(k, d), dtype=d)).to(dev)
+                for k, d in zip(self.acc_kinds, self.acc_dtypes)]
+        return (torch.zeros(self.cap, dtype=torch.int64, device=dev),
+                torch.zeros(self.cap, dtype=torch.int32, device=dev),
+                torch.zeros(self.cap, dtype=torch.bool, device=dev),
+                accs,
+                torch.zeros(1, dtype=torch.int32, device=dev))
+
+    def _unpack(self, host: np.ndarray) -> tuple[np.ndarray, np.ndarray, list[np.ndarray], int]:
+        """Decode one packed extract / scan buffer -> (keys_u64, bins, accs,
+        total); raises if the table has overflowed."""
+        from .sharded_kernels import unpack_extracted
+
+        k, b, _v, accs, total, oflow = unpack_extracted(host, 1, self.emit_cap, self.acc_dtypes,
+                                                        oflow=True)
+        if int(oflow[0]) > 0:
+            raise _overflow_error(int(oflow[0]), self.max_probes, self.cap)
+        total = int(total[0])
+        cnt = min(total, self.emit_cap)
+        return (k[0, :cnt].copy().view(np.uint64), b[0, :cnt].copy(),
+                [a[0, :cnt].copy() for a in accs], total)
+
+    def _fetch_extract(self, emit_lo: int, emit_hi: int, free_below: int):
+        from . import hash_kernels
+        from .prefetch import HostFetch
+
+        out = hash_kernels.extract(self._ops, self.state, emit_lo, emit_hi, free_below,
+                                   self.emit_cap)
+        return HostFetch(out.packed)
+
+    # ------------------------------------------------------------- update
+
+    def update(self, key_u64: np.ndarray, bins: np.ndarray, vals: Sequence[np.ndarray]) -> None:
+        n = len(key_u64)
+        if n == 0:
+            return
+        if self.backend == "numpy":
+            self._update_numpy(key_u64, bins, vals)
+            return
+        for lo in range(0, n, self.batch_cap):
+            hi = min(lo + self.batch_cap, n)
+            self._update_chunk(key_u64[lo:hi], bins[lo:hi], [v[lo:hi] for v in vals])
+
+    def _update_chunk(self, key_u64, bins, vals) -> None:
+        from . import hash_kernels
+
+        m = len(key_u64)
+        B = self.batch_cap
+        key = np.zeros(B, dtype=np.int64)
+        key[:m] = np.asarray(key_u64).astype(np.uint64).view(np.int64)
+        b = np.zeros(B, dtype=np.int32)
+        b[:m] = bins
+        vs = []
+        for v, dt in zip(vals, self.acc_dtypes):
+            arr = np.zeros(B, dtype=dt)
+            arr[:m] = v
+            vs.append(torch.from_numpy(arr).to(self.device))
+        dev = self.device
+        hash_kernels.step(self._ops, self.acc_kinds, self.state, torch.from_numpy(key).to(dev),
+                          torch.from_numpy(b).to(dev), m, vs, self.max_probes)
+
+    def _check_overflow(self) -> None:
+        overflow = int(self.state[4][0])
+        if overflow > 0:
+            raise _overflow_error(overflow, self.max_probes, self.cap)
+
+    def _update_numpy(self, key_u64, bins, vals) -> None:
+        signed = key_u64.astype(np.uint64).view(np.int64)
+        order = np.lexsort((signed, bins))
+        k_s, b_s = signed[order], np.asarray(bins)[order]
+        vs = [np.asarray(v)[order] for v in vals]
+        newseg = np.ones(len(k_s), dtype=bool)
+        newseg[1:] = (k_s[1:] != k_s[:-1]) | (b_s[1:] != b_s[:-1])
+        starts = np.flatnonzero(newseg)
+        ends = np.append(starts[1:], len(k_s))
+        for s, e in zip(starts, ends):
+            kk = (int(b_s[s]), int(k_s[s]))
+            cur = self.store.get(kk)
+            parts = []
+            for i, kind in enumerate(self.acc_kinds):
+                seg = vs[i][s:e]
+                red = seg.sum() if kind in ("sum", "count") else (seg.min() if kind == "min" else seg.max())
+                if cur is not None:
+                    red = (
+                        cur[i] + red
+                        if kind in ("sum", "count")
+                        else (min(cur[i], red) if kind == "min" else max(cur[i], red))
+                    )
+                parts.append(self.acc_dtypes[i].type(red))
+            self.store[kk] = parts
+
+    # ------------------------------------------------------------- extract
+
+    def extract(
+        self, emit_lo: int, emit_hi: int, free_below: int
+    ) -> tuple[np.ndarray, np.ndarray, list[np.ndarray]]:
+        """Returns (key_u64, bin, acc_arrays) for bins in [emit_lo, emit_hi);
+        frees all entries with bin < free_below. Host loops until drained."""
+        if self.backend == "numpy":
+            return self._extract_numpy(emit_lo, emit_hi, free_below)
+        return self.extract_start(emit_lo, emit_hi, free_below).result()
+
+    def extract_start(self, emit_lo: int, emit_hi: int, free_below: int) -> ExtractHandle:
+        """Launch a window close without blocking: the device compacts and
+        frees at once, the packed result copies to the host behind an
+        event; the caller emits later through handle.result()."""
+        return ExtractHandle(self, self._fetch_extract(emit_lo, emit_hi, free_below),
+                             emit_lo, emit_hi, free_below)
+
+    def scan_range(self, emit_lo: int, emit_hi: int) -> tuple[np.ndarray, np.ndarray, list[np.ndarray]]:
+        """Non-destructive read of every entry with bin in [emit_lo, emit_hi)
+        (the sliding window's combine: a bin serves width / slide windows,
+        so reads must not free)."""
+        if self.backend == "numpy":
+            ks, bs, accs = [], [], [[] for _ in self.acc_kinds]
+            for (b, k), parts in self.store.items():
+                if emit_lo <= b < emit_hi:
+                    ks.append(k)
+                    bs.append(b)
+                    for i, p in enumerate(parts):
+                        accs[i].append(p)
+            return (
+                np.array(ks, dtype=np.int64).view(np.uint64) if ks else np.empty(0, dtype=np.uint64),
+                np.array(bs, dtype=np.int32),
+                [np.array(a, dtype=d) for a, d in zip(accs, self.acc_dtypes)],
+            )
+        from . import hash_kernels
+        from .prefetch import HostFetch
+        from .sharded_kernels import unpack_extracted
+
+        # one packed transfer covers the range when it fits in emit_cap rows
+        packed = hash_kernels.scan_packed(self._ops, self.state, emit_lo, emit_hi, self.emit_cap)
+        k, b, accs, total = self._unpack(HostFetch(packed.packed).result())
+        if total <= self.emit_cap:
+            return combine_by_key_bin(self.acc_kinds, k, b, accs)
+        keys_out, bins_out = [], []
+        accs_out: list[list[np.ndarray]] = [[] for _ in self.acc_dtypes]
+        for chunk in range(0, self.cap, self.emit_cap):
+            out = self._ops.scan_chunk(self.state[:4], emit_lo, emit_hi, chunk, self.emit_cap)
+            k, b, valid, accs, _t = unpack_extracted(HostFetch(out.packed).result(), 1,
+                                                     self.emit_cap, self.acc_dtypes)
+            valid = valid[0]
+            if valid.any():
+                keys_out.append(k[0][valid])
+                bins_out.append(b[0][valid])
+                for i, a in enumerate(accs):
+                    accs_out[i].append(a[0][valid])
+        if not keys_out:
+            return (
+                np.empty(0, dtype=np.uint64),
+                np.empty(0, dtype=np.int32),
+                [np.empty(0, dtype=d) for d in self.acc_dtypes],
+            )
+        return combine_by_key_bin(
+            self.acc_kinds,
+            np.concatenate(keys_out).view(np.uint64),
+            np.concatenate(bins_out),
+            [np.concatenate(a) for a in accs_out],
+        )
+
+    def free_bins_below(self, below: int) -> None:
+        """Drop all entries with bin < below."""
+        if self.backend == "numpy":
+            for kk in [kk for kk in self.store if kk[0] < below]:
+                del self.store[kk]
+            return
+        self._ops.free(self.state[:4], below)
+
+    def _extract_numpy(self, emit_lo, emit_hi, free_below):
+        ks, bs, accs = [], [], [[] for _ in self.acc_kinds]
+        for (b, k), parts in self.store.items():
+            if emit_lo <= b < emit_hi:
+                ks.append(k)
+                bs.append(b)
+                for i, p in enumerate(parts):
+                    accs[i].append(p)
+        for kk in [kk for kk in self.store if kk[0] < free_below]:
+            del self.store[kk]
+        return (
+            np.array(ks, dtype=np.int64).view(np.uint64) if ks else np.empty(0, dtype=np.uint64),
+            np.array(bs, dtype=np.int32),
+            [np.array(a, dtype=d) for a, d in zip(accs, self.acc_dtypes)],
+        )
+
+    # ------------------------------------------------------------- state sync
+
+    def snapshot(self) -> tuple[np.ndarray, np.ndarray, list[np.ndarray]]:
+        """Full host copy of the live entries (the checkpoint's view)."""
+        if self.backend == "numpy":
+            if not self.store:
+                return (np.empty(0, dtype=np.uint64), np.empty(0, dtype=np.int32),
+                        [np.empty(0, dtype=d) for d in self.acc_dtypes])
+            items = list(self.store.items())
+            ks = np.array([k for (_, k), _ in items], dtype=np.int64).view(np.uint64)
+            bs = np.array([b for (b, _), _ in items], dtype=np.int32)
+            accs = [np.array([p[i] for _, p in items], dtype=d)
+                    for i, d in enumerate(self.acc_dtypes)]
+            return ks, bs, accs
+        keys_t, bins_t, occ_t, accs_t, _oflow = self.state
+        self._check_overflow()
+        occ = occ_t.cpu().numpy()
+        return combine_by_key_bin(
+            self.acc_kinds,
+            keys_t.cpu().numpy()[occ].view(np.uint64),
+            bins_t.cpu().numpy()[occ],
+            [a.cpu().numpy()[occ] for a in accs_t],
+        )
+
+    def restore(self, key_u64: np.ndarray, bins: np.ndarray, accs: list[np.ndarray]) -> None:
+        if self.backend == "numpy":
+            signed = key_u64.astype(np.uint64).view(np.int64)
+            self.store = {
+                (int(bins[j]), int(signed[j])): [
+                    self.acc_dtypes[i].type(accs[i][j]) for i in range(len(self.acc_kinds))
+                ]
+                for j in range(len(signed))
+            }
+            return
+        self.state = self._init_jax_state()
+        self.update(key_u64, bins.astype(np.int32), accs)

@@ -28,7 +28,7 @@ INT32_LIMIT = (1 << 31) - 1
 
 def _bind(lib: ctypes.CDLL) -> None:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.arroyo_join_sort_pairs.argtypes = [i, p, ll, p, p, ll, p]
+    lib.arroyo_join_sort_pairs.argtypes = [i, p, i, ll, p, p, ll, p]
     lib.arroyo_join_search_bounds.argtypes = [i, p, ll, p, ll, p, p, p]
     lib.arroyo_join_sort_pairs.restype = ctypes.c_int
     lib.arroyo_join_search_bounds.restype = ctypes.c_int
@@ -60,6 +60,18 @@ def join_sort_pairs(keys: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     dev = _check_keys(keys, "keys")
     if dev.type == "cpu":
         return join_sort_pairs_plain(keys)
+    out = sort_pairs_launch(keys)
+    if keys.shape[0]:
+        kernels._counted(join_sort_pairs)
+    return out
+
+
+def sort_pairs_launch(keys: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """K5's launch on checked contiguous 1-D CUDA keys (int64, or int32
+    sorted as their int64 values), counted by its caller: the join's
+    wrapper above, or K1's float sums (kernels.slot_scatter_combine), which
+    take their stable row order from it."""
+    dev = keys.device
     n = keys.shape[0]
     if n == 0:
         return keys.new_empty(0), torch.empty(0, dtype=torch.int32, device=dev)
@@ -69,10 +81,10 @@ def join_sort_pairs(keys: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     out_keys = torch.empty(cap, dtype=torch.int64, device=dev)
     order = torch.empty(cap, dtype=torch.int32, device=dev)
     lib = build_library()
-    err = lib.arroyo_join_sort_pairs(dev.index or 0, keys.data_ptr(), n, out_keys.data_ptr(),
+    err = lib.arroyo_join_sort_pairs(dev.index or 0, keys.data_ptr(),
+                                     int(keys.dtype == torch.int32), n, out_keys.data_ptr(),
                                      order.data_ptr(), cap, kernels._stream(dev))
     kernels._raise_on(err, "join_sort_pairs")
-    kernels._counted(join_sort_pairs)
     return out_keys[:n], order[:n]
 
 

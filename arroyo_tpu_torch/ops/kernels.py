@@ -4,7 +4,8 @@ Four hand-written CUDA kernels (csrc/slot_agg.cu, see its header for what
 each replaces and what bounds it) update and read the aggregate state, one
 ``[cap]`` tensor per accumulator lane, in place:
 
-- ``slot_scatter_combine`` (K1): rows combine into ``state[slot]``;
+- ``slot_scatter_combine`` (K1): rows combine into ``state[slot]``; float
+  sums add each slot's rows in row order, as the reference does;
 - ``slot_region_read_pack`` (K2): k regions of every lane, packed into one
   int64 and one float64 buffer;
 - ``slot_region_clear`` (K3): k regions reset to each lane's identity;
@@ -46,12 +47,17 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 MAX_LANES = 32  # csrc/slot_agg.cu MAX_LANES
 MAX_BASES = 16  # csrc/slot_agg.cu MAX_BASES
 
-_DTYPE_CODE = {torch.int32: 0, torch.int64: 1, torch.float32: 2, torch.float64: 3}
+# lane dtypes (csrc/slot_agg.cu DT_*); uint64 carries a numeric group-by key
+# as a max lane, as in the JAX package's window state
+_DTYPE_CODE = {torch.int32: 0, torch.int64: 1, torch.float32: 2, torch.float64: 3,
+               torch.uint64: 4}
 _KIND_CODE = {"sum": 0, "count": 0, "min": 1, "max": 2}
 _NP = {torch.int32: np.dtype(np.int32), torch.int64: np.dtype(np.int64),
-       torch.float32: np.dtype(np.float32), torch.float64: np.dtype(np.float64)}
+       torch.float32: np.dtype(np.float32), torch.float64: np.dtype(np.float64),
+       torch.uint64: np.dtype(np.uint64)}
 _BITS = {torch.int32: np.uint32, torch.int64: np.uint64,
-         torch.float32: np.uint32, torch.float64: np.uint64}
+         torch.float32: np.uint32, torch.float64: np.uint64, torch.uint64: np.uint64}
+_I64_MIN = np.iinfo(np.int64).min
 
 _libs: dict[str, ctypes.CDLL] = {}  # source name -> loaded library
 _build_locks: dict[str, threading.Lock] = {}
@@ -120,7 +126,7 @@ def _bind_slot_agg(lib: ctypes.CDLL) -> None:
     ip = ctypes.POINTER(ctypes.c_int)
     llp = ctypes.POINTER(ctypes.c_longlong)
     ullp = ctypes.POINTER(ctypes.c_ulonglong)
-    lib.arroyo_slot_scatter_combine.argtypes = [i, pp, pp, ip, ip, i, p, i, ll, ll, p]
+    lib.arroyo_slot_scatter_combine.argtypes = [i, pp, pp, ip, ip, i, p, i, ll, ll, p, p, p]
     lib.arroyo_slot_region_read_pack.argtypes = [i, pp, ip, i, llp, i, ll, p, p, p]
     lib.arroyo_slot_region_clear.argtypes = [i, pp, ip, ullp, i, llp, i, ll, p]
     lib.arroyo_slot_gather.argtypes = [i, pp, ip, i, p, i, ll, ll, p, p, p]
@@ -161,7 +167,8 @@ def _check_state(state: Sequence[torch.Tensor]) -> torch.device:
         if a.dim() != 1 or a.shape[0] != cap or not a.is_contiguous():
             raise ValueError("every state lane must be a contiguous 1-D tensor of the same length")
         if a.dtype not in _DTYPE_CODE:
-            raise TypeError(f"state lane dtype {a.dtype} not one of int32/int64/float32/float64")
+            raise TypeError(f"state lane dtype {a.dtype} not one of "
+                            f"int32/int64/float32/float64/uint64")
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {dev}")
     return dev
@@ -202,13 +209,26 @@ def _raise_on(err: int, name: str) -> None:
 # ------------------------------------------------------------- K1
 
 
+def bits(t: torch.Tensor) -> torch.Tensor:
+    """A uint64 lane as its int64 bits (torch's scatters, gathers, fills
+    and, on the card, indexing take no uint64); other lanes as they are."""
+    return t.view(torch.int64) if t.dtype == torch.uint64 else t
+
+
+def ordered_add(kind: str, dtype: torch.dtype) -> bool:
+    """A float sum lane: K1 adds its rows in row order, not by atomics."""
+    return kind in ("sum", "count") and dtype.is_floating_point
+
+
 def slot_scatter_combine(state: Sequence[torch.Tensor], kinds: Sequence[str],
                          slots: torch.Tensor, vals: Sequence[Optional[torch.Tensor]]) -> None:
     """Combine rows into the state in place: for lane l and row i with
     ``0 <= slots[i] < cap``, ``state[l][slots[i]] = op_l(state[l][slots[i]],
-    vals[l][i])`` with op add (sum, count), min or max. ``vals[l]`` None is
-    allowed for count lanes only and adds 1 (the hot path ships no values
-    for them). Rows with a slot outside [0, cap) are dropped."""
+    vals[l][i])`` with op add (sum, count), min or max. Float sums add each
+    slot's rows one after another in row order from the state value (the
+    reference's order). ``vals[l]`` None is allowed for count lanes only
+    and adds 1 (the hot path ships no values for them). Rows with a slot
+    outside [0, cap) are dropped."""
     dev = _check_state(state)
     if len(kinds) != len(state) or len(vals) != len(state):
         raise ValueError("kinds, vals and state must have one entry per lane")
@@ -230,13 +250,23 @@ def slot_scatter_combine(state: Sequence[torch.Tensor], kinds: Sequence[str],
         return
     if n == 0:
         return
+    sorted_slots = order = None
+    if any(ordered_add(k, a.dtype) for a, k in zip(state, kinds)):
+        # float sums walk each slot's rows in row order: K5 sorts the slots stably
+        from .join_kernels import INT32_LIMIT, sort_pairs_launch
+
+        if n > INT32_LIMIT:
+            raise ValueError(f"{n} rows: K1's float sums index rows in int32")
+        sorted_slots, order = sort_pairs_launch(slots)
     lib = build_library()
     dts = (ctypes.c_int * len(state))(*[_DTYPE_CODE[a.dtype] for a in state])
     kc = (ctypes.c_int * len(state))(*[_KIND_CODE[k] for k in kinds])
     vp = (ctypes.c_void_p * len(state))(*[None if v is None else v.data_ptr() for v in vals])
     err = lib.arroyo_slot_scatter_combine(
         dev.index or 0, _ptrs(state), vp, kc, dts, len(state), slots.data_ptr(),
-        int(slots.dtype == torch.int64), n, state[0].shape[0], _stream(dev))
+        int(slots.dtype == torch.int64), n, state[0].shape[0],
+        None if order is None else sorted_slots.data_ptr(),
+        None if order is None else order.data_ptr(), _stream(dev))
     _raise_on(err, "slot_scatter_combine")
     _counted(slot_scatter_combine)
 
@@ -248,14 +278,28 @@ def _ordered(bits: torch.Tensor) -> torch.Tensor:
 
 
 def slot_scatter_combine_plain(state, kinds, slots, vals) -> None:
-    """Plain PyTorch version of K1 (same semantics, any device)."""
+    """Plain PyTorch version of K1 (same semantics, any device). Float sums
+    go through the CPU's ``index_add_``, which adds row after row in order
+    (on the card the plain version copies such a lane to the host and
+    back: a CUDA ``index_add_`` adds with atomics in no fixed order)."""
     cap = state[0].shape[0]
     keep = (slots >= 0) & (slots < cap)
     s = slots[keep].long()
     for a, kind, v in zip(state, kinds, vals):
-        v = torch.ones(len(s), dtype=a.dtype, device=a.device) if v is None else v[keep]
-        if kind in ("sum", "count"):
-            a.index_add_(0, s, v)
+        # uint64 values as their int64 bits: torch indexes no uint64 on the card
+        v = torch.ones(len(s), dtype=bits(a).dtype, device=a.device) if v is None else bits(v)[keep]
+        if ordered_add(kind, a.dtype):
+            host = a.cpu()
+            host.index_add_(0, s.cpu(), v.cpu())
+            a.copy_(host)
+        elif kind in ("sum", "count"):
+            bits(a).index_add_(0, s, bits(v))
+        elif a.dtype == torch.uint64:
+            # unsigned order is the signed order of the bits with the top bit flipped
+            flip = bits(a) ^ _I64_MIN
+            flip.scatter_reduce_(0, s, bits(v) ^ _I64_MIN, "amin" if kind == "min" else "amax",
+                                 include_self=True)
+            bits(a).copy_(flip ^ _I64_MIN)
         elif not a.dtype.is_floating_point:
             a.scatter_reduce_(0, s, v, "amin" if kind == "min" else "amax", include_self=True)
         else:
@@ -280,10 +324,10 @@ def slot_scatter_combine_plain(state, kinds, slots, vals) -> None:
 
 def slot_region_read_pack(state: Sequence[torch.Tensor], bases, R: int):
     """For each base j and lane, ``state[lane][bases[j]:bases[j]+R]``:
-    int lanes widened into one int64 buffer, float lanes into one float64
-    buffer, each laid out [base][lane of its class][R] (the layout of
-    arroyo_tpu's ``_pack``). Returns (ibuf, fbuf); a class with no lanes
-    gives an empty buffer."""
+    int lanes widened into one int64 buffer (uint64 as its bits), float
+    lanes into one float64 buffer, each laid out [base][lane of its
+    class][R] (the layout of arroyo_tpu's ``_pack``). Returns (ibuf, fbuf);
+    a class with no lanes gives an empty buffer."""
     dev = _check_state(state)
     bl = _check_bases(bases, state[0].shape[0], R)
     k = len(bl)
@@ -313,7 +357,7 @@ def slot_region_read_pack_plain(state, bases, R: int):
     def pack(lanes, dt):
         if not lanes:
             return torch.empty(0, dtype=dt, device=dev)
-        return torch.stack([a[idx].to(dt).view(k, R) for a in lanes], dim=1).reshape(-1)
+        return torch.stack([bits(a)[idx].to(dt).view(k, R) for a in lanes], dim=1).reshape(-1)
 
     return (pack([a for a in state if not a.dtype.is_floating_point], torch.int64),
             pack([a for a in state if a.dtype.is_floating_point], torch.float64))
@@ -348,9 +392,10 @@ def slot_region_clear(state: Sequence[torch.Tensor], kinds: Sequence[str], bases
 def slot_region_clear_plain(state, kinds, bases, R: int) -> None:
     """Plain PyTorch version of K3."""
     for a, kd in zip(state, kinds):
-        ident = _identity(kd, _NP[a.dtype]).item()
+        ident = _identity(kd, _NP[a.dtype])
+        ident = int(ident.view(np.int64)) if a.dtype == torch.uint64 else ident.item()
         for b in bases:
-            a[b:b + R] = ident
+            bits(a)[b:b + R] = ident
 
 
 # ------------------------------------------------------------- K7
@@ -394,7 +439,7 @@ def slot_gather_plain(state, slots):
         if not lanes:
             return torch.empty(0, dtype=dt, device=dev)
         zero = torch.zeros((), dtype=dt, device=dev)
-        return torch.stack([torch.where(ok, a[s].to(dt), zero) for a in lanes]).reshape(-1)
+        return torch.stack([torch.where(ok, bits(a)[s].to(dt), zero) for a in lanes]).reshape(-1)
 
     return (pack([a for a in state if not a.dtype.is_floating_point], torch.int64),
             pack([a for a in state if a.dtype.is_floating_point], torch.float64))

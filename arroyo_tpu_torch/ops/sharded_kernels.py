@@ -14,6 +14,11 @@ aggregate, every array laid out ``[shard, ...]`` on one torch device:
 - ``shard_extract`` (K11): the per-shard compaction of a close, with its
   frees (B10 ``local_extract``), into one packed buffer.
 
+The single-device table (``hash_kernels``, B9) runs K8, K9 and K11 at one
+shard: K9 then adds its unplaced partials to the table's overflow counter,
+and K11 zero-fills the rows past the emitting ones and carries the counter
+in its packed buffer.
+
 Each wrapper checks device, dtype, shape and contiguity, and raises on what
 the kernel does not take. On a CUDA tensor it launches the kernel (building
 the library with nvcc at first use, ``kernels.build_source``) or raises; it
@@ -74,10 +79,11 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.arroyo_agg_sort_reduce.argtypes = [i, i, ll, ll, p, p, i, ll, p, ll, lp,
                                            p, p, p, p, p, p, p, p, p]
     lib.arroyo_agg_probe_merge.argtypes = [i, i, ll, p, p, p, lp, ll, p, p, p, i,
-                                           p, p, p, p, p, p]
+                                           p, p, p, p, p, p, p]
     lib.arroyo_shard_exchange.argtypes = [i, i, ll, ll, p, p, p, lp, p, p, p, p, p, p, p]
     lib.arroyo_shard_spill.argtypes = [i, i, ll, p, p, p, lp, ll, p, p, p, p, p, p]
-    lib.arroyo_shard_extract.argtypes = [i, i, ll, p, p, p, lp, i, i, i, ll, p, p, p, p, p, p]
+    lib.arroyo_shard_extract.argtypes = [i, i, ll, p, p, p, lp, i, i, i, ll, p, p, p, p, p,
+                                         i, p, p, p]
     for fn in (lib.arroyo_agg_sort_reduce, lib.arroyo_agg_probe_merge,
                lib.arroyo_shard_exchange, lib.arroyo_shard_spill, lib.arroyo_shard_extract):
         fn.restype = ctypes.c_int
@@ -122,10 +128,7 @@ def _dtypes(lanes) -> list[torch.dtype]:
     return [torch.int64 if a is None else a.dtype for a in lanes]
 
 
-def bits(t: torch.Tensor) -> torch.Tensor:
-    """A uint64 lane as its int64 bits (torch's CPU gathers and scatters
-    take no uint64); other lanes as they are."""
-    return t.view(torch.int64) if t.dtype == torch.uint64 else t
+bits = kernels.bits  # a uint64 lane as its int64 bits
 
 
 def ident_bits(kind: str, dtype: torch.dtype):
@@ -215,10 +218,12 @@ def _check_table(table, kinds):
 
 def agg_probe_merge(kinds: Sequence[str], table, u_key: torch.Tensor, u_bin: torch.Tensor,
                     active: torch.Tensor, u_accs: Sequence[torch.Tensor],
-                    max_probes: int) -> torch.Tensor:
+                    max_probes: int, oflow: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Merge each shard's unique partials ``[S, B]`` into its table
     ``(keys, bins, occ, accs)`` ``[S, cap]`` in place (B8); returns the
-    still-active mask ``[S, B]`` (partials no probe round placed)."""
+    still-active mask ``[S, B]`` (partials no probe round placed). Given
+    ``oflow`` (int32 ``[S]``), each shard's still-active count adds to it
+    on the device."""
     dev, tshape = _check_table(table, kinds)
     _check_2d(u_key, "u_key", (torch.int64,), None, dev)
     shape = tuple(u_key.shape)
@@ -233,8 +238,11 @@ def agg_probe_merge(kinds: Sequence[str], table, u_key: torch.Tensor, u_bin: tor
     S, B = shape
     if B < 1 or B > INT32_LIMIT:
         raise ValueError(f"{B} partials per shard; the kernel indexes them with int32")
+    if oflow is not None:
+        _check_counter(oflow, S, dev, "overflow")
     if dev.type == "cpu":
-        return agg_probe_merge_plain(kinds, table, u_key, u_bin, active, u_accs, max_probes)
+        return agg_probe_merge_plain(kinds, table, u_key, u_bin, active, u_accs, max_probes,
+                                     oflow)
     keys_t, bins_t, occ_t, accs_t = table
     cap = tshape[1]
     still = torch.empty(shape, dtype=torch.bool, device=dev)
@@ -247,15 +255,23 @@ def agg_probe_merge(kinds: Sequence[str], table, u_key: torch.Tensor, u_bin: tor
         _dev_index(dev), S, cap, keys_t.data_ptr(), bins_t.data_ptr(), occ_t.data_ptr(),
         ctypes.byref(ln), B, u_key.data_ptr(), u_bin.data_ptr(), active.data_ptr(),
         int(max_probes), still.data_ptr(), lst.data_ptr(), n_list.data_ptr(), claims.data_ptr(),
-        code.data_ptr(), kernels._stream(dev))
+        code.data_ptr(), None if oflow is None else oflow.data_ptr(), kernels._stream(dev))
     kernels._raise_on(err, "agg_probe_merge")
     kernels._counted(agg_probe_merge)
     return still
 
 
-def agg_probe_merge_plain(kinds, table, u_key, u_bin, active, u_accs, max_probes):
+def agg_probe_merge_plain(kinds, table, u_key, u_bin, active, u_accs, max_probes, oflow=None):
     """Plain PyTorch version of K9 (ops/aggregate.py ``probe_merge``)."""
-    return probe_merge(kinds, table, u_key, u_bin, active, u_accs, max_probes)
+    still = probe_merge(kinds, table, u_key, u_bin, active, u_accs, max_probes)
+    if oflow is not None:
+        oflow += still.sum(dim=1).to(torch.int32)
+    return still
+
+
+def _check_counter(t: torch.Tensor, S: int, dev, what: str) -> None:
+    if t.dtype != torch.int32 or t.shape != (S,) or t.device != dev or not t.is_contiguous():
+        raise ValueError(f"{what} must be a contiguous int32 [shard] tensor on {dev}")
 
 
 # ------------------------------------------------------------- K10
@@ -377,9 +393,7 @@ def _check_spill(kinds, spill):
     _check_2d(sp_bin, "spill bins", (torch.int32,), shape, dev)
     _check_lanes(kinds, sp_accs, shape, dev, "spill accs")
     for t, what in ((sp_fill, "spill fill"), (oflow, "overflow")):
-        if t.dtype != torch.int32 or t.shape != (shape[0],) or t.device != dev \
-                or not t.is_contiguous():
-            raise ValueError(f"{what} must be a contiguous int32 [shard] tensor on {dev}")
+        _check_counter(t, shape[0], dev, what)
     return dev, shape
 
 
@@ -435,7 +449,8 @@ def shard_spill_plain(kinds, c_key, c_bin, c_accs, still, spill) -> None:
 class Extracted(NamedTuple):
     """shard_extract's outputs, views of one packed byte buffer (one copy
     to the host moves them all): key int64, bin int32, valid bool and one
-    array per lane, each ``[S, E]``, and total int32 ``[S]``."""
+    array per lane, each ``[S, E]``, total int32 ``[S]``, and the table's
+    overflow counter int32 ``[S]`` when it was asked for (else None)."""
 
     packed: torch.Tensor
     key: torch.Tensor
@@ -443,15 +458,19 @@ class Extracted(NamedTuple):
     valid: torch.Tensor
     accs: list
     total: torch.Tensor
+    oflow: Optional[torch.Tensor] = None
 
 
-def extract_layout(S: int, E: int, dtypes) -> tuple[int, list]:
+def extract_layout(S: int, E: int, dtypes, oflow: bool = False) -> tuple[int, list]:
     """(bytes, [(offset, dtype, shape)]) of the packed extract buffer, in
-    the order key, bin, valid, lanes..., total; every part 8-byte aligned."""
+    the order key, bin, valid, lanes..., total (, overflow); every part
+    8-byte aligned."""
     parts = [(np.dtype(np.int64), (S, E)), (np.dtype(np.int32), (S, E)),
              (np.dtype(np.bool_), (S, E))]
     parts += [(_NP[dt] if isinstance(dt, torch.dtype) else np.dtype(dt), (S, E)) for dt in dtypes]
     parts.append((np.dtype(np.int32), (S,)))
+    if oflow:
+        parts.append((np.dtype(np.int32), (S,)))
     out, off = [], 0
     for dt, shp in parts:
         out.append((off, dt, shp))
@@ -469,31 +488,41 @@ def _carve(packed: torch.Tensor, layout) -> list[torch.Tensor]:
             for off, dt, shp in layout]
 
 
-def unpack_extracted(host: np.ndarray, S: int, E: int, dtypes):
+def unpack_extracted(host: np.ndarray, S: int, E: int, dtypes, oflow: bool = False):
     """The host copy of a packed extract buffer carved as shard_extract's
-    outputs: (key, bin, valid, accs, total) numpy arrays."""
-    _n, layout = extract_layout(S, E, dtypes)
+    outputs: (key, bin, valid, accs, total) numpy arrays, and the overflow
+    counter after them when the buffer carries it."""
+    _n, layout = extract_layout(S, E, dtypes, oflow)
     parts = [host[off: off + int(np.prod(shp)) * dt.itemsize].view(dt).reshape(shp)
              for off, dt, shp in layout]
+    if oflow:
+        return parts[0], parts[1], parts[2], parts[3:-2], parts[-2], parts[-1]
     return parts[0], parts[1], parts[2], parts[3:-1], parts[-1]
 
 
-def _extract_out(S, E, dtypes, dev) -> Extracted:
-    nbytes, layout = extract_layout(S, E, dtypes)
+def _extract_out(S, E, dtypes, dev, oflow: bool = False) -> Extracted:
+    nbytes, layout = extract_layout(S, E, dtypes, oflow)
     packed = torch.empty(nbytes, dtype=torch.uint8, device=dev)
     v = _carve(packed, layout)
+    if oflow:
+        return Extracted(packed, v[0], v[1], v[2], v[3:-2], v[-2], v[-1])
     return Extracted(packed, v[0], v[1], v[2], v[3:-1], v[-1])
 
 
 def shard_extract(table, emit_lo: int, emit_hi: int, free_below: int,
-                  emit_cap: int) -> Extracted:
+                  emit_cap: int, zero_tail: bool = False,
+                  oflow: Optional[torch.Tensor] = None) -> Extracted:
     """Close bins [emit_lo, emit_hi) of every shard of ``table`` (keys,
     bins, occ, accs ``[S, cap]``): the first ``E = min(emit_cap, cap)``
     slots of the stable order that puts emitting slots first
     (``argsort(~emit_mask)[:emit_cap]``), ``valid`` marking the emitting
     ones, and ``total`` emitting slots per shard. Frees, in place: slots
     with bin < free_below outside the emit range, and emitting slots with
-    bin < free_below that made it into the E rows."""
+    bin < free_below that made it into the E rows. With ``zero_tail``,
+    ``E = emit_cap`` and the rows past the emitting ones hold zeros (the
+    single-device table's cumsum scatter, aggregate.py ``extract``).
+    Given ``oflow`` (int32 ``[S]``), the packed buffer carries a copy of
+    it (``Extracted.oflow``)."""
     keys_t, bins_t, occ_t, accs_t = table
     _check_2d(keys_t, "table keys", (torch.int64,))
     dev, shape = keys_t.device, tuple(keys_t.shape)
@@ -504,41 +533,56 @@ def shard_extract(table, emit_lo: int, emit_hi: int, free_below: int,
     for a in accs_t:
         _check_2d(a, "table lane", tuple(_DTYPE_CODE), shape, dev)
     S, cap = shape
-    E = min(int(emit_cap), cap)
+    E = int(emit_cap) if zero_tail else min(int(emit_cap), cap)
     if E < 1:
         raise ValueError(f"emit_cap {emit_cap} < 1")
+    if oflow is not None:
+        _check_counter(oflow, S, dev, "overflow")
     if dev.type == "cpu":
-        return shard_extract_plain(table, emit_lo, emit_hi, free_below, emit_cap)
+        return shard_extract_plain(table, emit_lo, emit_hi, free_below, emit_cap, zero_tail,
+                                   oflow)
     dts = [a.dtype for a in accs_t]
-    out = _extract_out(S, E, dts, dev)
+    out = _extract_out(S, E, dts, dev, oflow is not None)
     counts = torch.empty((S, -(-cap // CHUNK)), dtype=torch.int32, device=dev)
     ln = _lanes(["sum"] * len(dts), dts, inp=accs_t, out=out.accs)
     err = build_library().arroyo_shard_extract(
         _dev_index(dev), S, cap, keys_t.data_ptr(), bins_t.data_ptr(), occ_t.data_ptr(),
         ctypes.byref(ln), int(emit_lo), int(emit_hi), int(free_below), E, out.key.data_ptr(),
         out.bin.data_ptr(), out.valid.data_ptr(), out.total.data_ptr(), counts.data_ptr(),
-        kernels._stream(dev))
+        int(bool(zero_tail)), None if oflow is None else oflow.data_ptr(),
+        None if oflow is None else out.oflow.data_ptr(), kernels._stream(dev))
     kernels._raise_on(err, "shard_extract")
     kernels._counted(shard_extract)
     return out
 
 
-def shard_extract_plain(table, emit_lo, emit_hi, free_below, emit_cap) -> Extracted:
+def shard_extract_plain(table, emit_lo, emit_hi, free_below, emit_cap, zero_tail=False,
+                        oflow=None) -> Extracted:
     """Plain PyTorch version of K11 (``local_extract``: a stable argsort of
-    the inverted emit mask)."""
+    the inverted emit mask; with ``zero_tail`` the rows past the emitting
+    ones are zeros, as the single-device ``extract`` writes them)."""
     keys_t, bins_t, occ_t, accs_t = table
     S, cap = keys_t.shape
-    E = min(int(emit_cap), cap)
-    out = _extract_out(S, E, [a.dtype for a in accs_t], keys_t.device)
+    E = int(emit_cap) if zero_tail else min(int(emit_cap), cap)
+    out = _extract_out(S, E, [a.dtype for a in accs_t], keys_t.device, oflow is not None)
     emit = occ_t & (bins_t >= emit_lo) & (bins_t < emit_hi)
     out.total.copy_(emit.sum(dim=1).to(torch.int32))
+    if oflow is not None:
+        out.oflow.copy_(oflow)
     order = torch.sort((~emit).to(torch.uint8), dim=1, stable=True)[1]
+    if E > cap:  # zero_tail only: rows past cap are tail rows
+        order = torch.cat([order, order[:, :1].expand(S, E - cap)], dim=1)
     sel = order[:, :E]
     out.valid.copy_(torch.gather(emit, 1, sel))
     out.key.copy_(torch.gather(keys_t, 1, sel))
     out.bin.copy_(torch.gather(bins_t, 1, sel))
     for a, o in zip(accs_t, out.accs):
         bits(o).copy_(torch.gather(bits(a), 1, sel))
+    if zero_tail:
+        tail = torch.arange(E, device=keys_t.device)[None, :] >= out.total[:, None].to(torch.int64)
+        out.valid.masked_fill_(tail, False)
+        for t in (out.key, out.bin, *[bits(o) for o in out.accs]):
+            t.masked_fill_(tail, 0)
     free_mask = occ_t & (bins_t < free_below) & ~emit
     emitted_free = out.valid & (out.bin < free_below)
     occ_t &= ~free_mask

@@ -21,7 +21,8 @@ The work splits by what each side is good at:
       into a host dict store instead of failing.
 
 The state is updated in place: the torch counterpart of the JAX step's
-donated buffers.
+donated buffers. ``backend="numpy"`` is DeviceHashAggregator's dict store,
+inherited unchanged, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -34,14 +35,15 @@ import torch
 from ..device import resolve_device
 from ..hashing import splitmix64
 from . import kernels
-from .aggregate import AGG_KINDS, _identity, combine_by_key_bin
+from .aggregate import AGG_KINDS, DeviceHashAggregator, _identity, combine_by_key_bin
 from .prefetch import HostFetch
 
 _BIN_MIX = np.uint64(0x9E3779B97F4A7C15)
 _DEAD_BIN = -(2**62)
 _I32_MAX = np.iinfo(np.int32).max
 _TORCH_DTYPES = {np.dtype(np.int32): torch.int32, np.dtype(np.int64): torch.int64,
-                 np.dtype(np.float32): torch.float32, np.dtype(np.float64): torch.float64}
+                 np.dtype(np.float32): torch.float32, np.dtype(np.float64): torch.float64,
+                 np.dtype(np.uint64): torch.uint64}
 
 # the directory's state, as to_state() gives it and from_state() takes it
 _DIR_ARRAYS = ("region_fill", "slot_keys", "slot_bins", "hcode", "hbin", "hslot")
@@ -261,11 +263,12 @@ class SlotExtractHandle:
             [np.concatenate(a) for a in accs_out])
 
 
-class SlotAggregator:
-    """Streaming (bin, key) -> accumulators store: host slot directory plus
-    torch device state, on one explicit device (``device`` None = cuda,
-    which raises without CUDA; tests pass "cpu", where the kernels' plain
-    versions run)."""
+class SlotAggregator(DeviceHashAggregator):
+    """Streaming (bin, key) -> accumulators store, DeviceHashAggregator's
+    interface: host slot directory plus torch device state, on one explicit
+    device (``device`` None = cuda, which raises without CUDA; tests pass
+    "cpu", where the kernels' plain versions run). ``backend="numpy"``
+    inherits the dict store, on no device."""
 
     def __init__(
         self,
@@ -273,9 +276,17 @@ class SlotAggregator:
         acc_dtypes: Sequence[np.dtype],
         cap: int = 65536,
         batch_cap: int = 8192,
+        max_probes: int = 64,  # unused; the constructor matches DeviceHashAggregator's
+        emit_cap: int = 8192,  # unused; region_size bounds each transfer
+        backend: str = "jax",
         region_size: int = 2048,
         device: Optional[Union[str, torch.device]] = None,
     ):
+        self.region_size = region_size
+        if backend != "jax":
+            super().__init__(acc_kinds, acc_dtypes, cap=cap, batch_cap=batch_cap,
+                             max_probes=max_probes, emit_cap=emit_cap, backend=backend)
+            return
         self.acc_kinds = tuple(acc_kinds)
         self.acc_dtypes = tuple(np.dtype(d) for d in acc_dtypes)
         if len(self.acc_kinds) != len(self.acc_dtypes):
@@ -283,14 +294,17 @@ class SlotAggregator:
         for k, d in zip(self.acc_kinds, self.acc_dtypes):
             if k not in AGG_KINDS:
                 raise NotImplementedError(
-                    f"accumulator kind {k!r} has no device path in the port yet "
-                    f"(collected aggregates are a later slice)")
+                    f"accumulator kind {k!r} has no device path (collected aggregates "
+                    f"run on the host store, backend 'numpy')")
             if d not in _TORCH_DTYPES:
-                raise TypeError(f"accumulator dtype {d} not one of int32/int64/float32/float64")
+                raise TypeError(f"accumulator dtype {d} not one of "
+                                f"int32/int64/float32/float64/uint64")
         self.device = resolve_device(device)
         self.cap = cap
         self.batch_cap = batch_cap
-        self.region_size = region_size
+        self.max_probes = max_probes
+        self.emit_cap = emit_cap
+        self.backend = backend
         self._merge_mode = False
         self._n_flt_lanes = sum(1 for d in self.acc_dtypes if np.issubdtype(d, np.floating))
         self._n_int_lanes = len(self.acc_dtypes) - self._n_flt_lanes
@@ -301,18 +315,11 @@ class SlotAggregator:
         # host spill store (bin, key) -> [acc parts]; fed when regions run out
         self.spill: dict[tuple[int, int], list] = {}
         self.state = [
-            torch.full((self.cap,), _identity(k, d).item(), dtype=_TORCH_DTYPES[d],
-                       device=self.device)
+            torch.from_numpy(np.full(self.cap, _identity(k, d), dtype=d)).to(self.device)
             for k, d in zip(self.acc_kinds, self.acc_dtypes)
         ]
 
     # ------------------------------------------------------------- update
-
-    def update(self, key_u64: np.ndarray, bins: np.ndarray, vals: Sequence[np.ndarray]) -> None:
-        n = len(key_u64)
-        for lo in range(0, n, self.batch_cap):
-            hi = min(lo + self.batch_cap, n)
-            self._update_chunk(key_u64[lo:hi], bins[lo:hi], [v[lo:hi] for v in vals])
 
     def _update_chunk(self, key_u64, bins, vals) -> None:
         ku = np.ascontiguousarray(key_u64, dtype=np.uint64)
@@ -441,15 +448,21 @@ class SlotAggregator:
         return SlotExtractHandle(self, groups, spill)
 
     def extract(self, emit_lo: int, emit_hi: int, free_below: int):
+        if self.backend == "numpy":
+            return self._extract_numpy(emit_lo, emit_hi, free_below)
         return self.extract_start(emit_lo, emit_hi, free_below).result()
 
     def scan_range(self, emit_lo: int, emit_hi: int):
         """Non-destructive read of every group with bin in [emit_lo, emit_hi)."""
+        if self.backend == "numpy":
+            return super().scan_range(emit_lo, emit_hi)
         groups = self._read_regions(self._collect_regions(emit_lo, emit_hi), do_clear=False)
         spill = self._take_spill(emit_lo, emit_hi, free_below=_DEAD_BIN)
         return SlotExtractHandle(self, groups, spill).result()
 
     def free_bins_below(self, below: int) -> None:
+        if self.backend == "numpy":
+            return super().free_bins_below(below)
         d = self.directory
         expired = [b for b in d.live_bins() if b < below]
         self._clear_bins(expired)
@@ -518,6 +531,8 @@ class SlotAggregator:
 
     def snapshot(self):
         """Every live group: (keys_u64, bins_i32, accs)."""
+        if self.backend == "numpy":
+            return super().snapshot()
         d = self.directory
         live = d.live_bins() + [b for (b, _k) in self.spill]
         if not live:
@@ -528,6 +543,8 @@ class SlotAggregator:
     def restore(self, key_u64, bins, accs) -> None:
         """Reset, then merge partial accumulators in (count lanes add the
         given counts instead of 1)."""
+        if self.backend == "numpy":
+            return super().restore(key_u64, bins, accs)
         self._reset()
         self._merge_mode = True
         try:

@@ -33,7 +33,7 @@ import numpy as np
 import torch
 
 from ..ops import sharded_kernels as sk
-from ..ops.aggregate import _identity, combine_by_key_bin, drain_extract
+from ..ops.aggregate import _drain_extract_rounds, _identity, combine_by_key_bin
 from ..ops.prefetch import HostFetch
 from .mesh import Mesh, all_to_all
 
@@ -285,11 +285,12 @@ class ShardedAggregator:
                                    free_below, self.emit_cap)
             host = HostFetch(res.packed).result()
             k, b, v, accs, total = sk.unpack_extracted(host, S, E, self.acc_dtypes)
-            return (k.reshape(-1), b.reshape(-1), v.reshape(-1),
-                    [a.reshape(-1) for a in accs], int(total.max()))
+            v = v.reshape(-1)
+            return (k.reshape(-1)[v].view(np.uint64), b.reshape(-1)[v],
+                    [a.reshape(-1)[v] for a in accs], int(total.max()))
 
-        out = drain_extract(extract_once, self.emit_cap, self.acc_kinds,
-                            self.acc_dtypes, emit_lo, free_below)
+        out = _drain_extract_rounds(self.acc_kinds, self.acc_dtypes, self.emit_cap,
+                                    extract_once(), extract_once, emit_lo, free_below)
         sk_, sb, saccs = self._drain_spill(emit_lo, emit_hi, free_below)
         if len(sk_):
             out = combine_by_key_bin(

@@ -1,22 +1,26 @@
 """Sliding (hop) window aggregate operator (the port's copy of
-arroyo_tpu/windows/sliding.py, single device).
+arroyo_tpu/windows/sliding.py).
 
 Rows are binned by the *slide*; per-bin partial aggregates live in the
-same SlotAggregator the tumbling operator uses (bin = slide index), on the
-engine's torch device. Once the watermark passes a bin's end, the bin is
-read off the device exactly once, destructively (``extract_start`` over
-that one bin: the region read and clear kernels), on the prefetch threads;
-a window is emitted when all its ``width / slide`` bins are resolved, by a
-host combine-by-key of the cached per-bin partials. The output timestamp is
-the window start.
+same store the tumbling operator builds (bin = slide index), on the backend
+it picks (the config's ``backend``, else "jax" when ``device.enabled``):
 
-Mesh mode (``device.mesh-devices`` > 1) shares tumbling's construction
-path: per-bin partials in a ShardedAggregator, each bin's extraction one
-synchronous sharded close; the fused mesh step of the compiled segment calls
-``mesh_insert_begin`` for the host half. Not in this slice: collected
-aggregates and checkpoints (the base class's ``handle_checkpoint`` raises). The JAX
-package's numpy-backend path (a synchronous ``scan_range`` per window) has
-no counterpart: the port has one backend, the device one.
+- "jax": a SlotAggregator on the engine's torch device. Once the watermark
+  passes a bin's end, the bin is read off the device exactly once,
+  destructively (``extract_start`` over that one bin: the region read and
+  clear kernels), on the prefetch threads; a window is emitted when all its
+  ``width / slide`` bins are resolved, by a host combine-by-key of the
+  cached per-bin partials. Mesh mode (``device.mesh-devices`` > 1):
+  per-bin partials in a ShardedAggregator, each bin's extraction one
+  synchronous sharded close; the fused mesh step of the compiled segment
+  calls ``mesh_insert_begin`` for the host half.
+- "numpy": the host dict store, read synchronously: each closing window is
+  one ``scan_range`` of its bins, combined by key, and the bins behind the
+  next window are freed.
+
+The output timestamp is the window start. Not in this slice: checkpoints
+(the base class's ``handle_checkpoint`` raises). Collected aggregates are
+refused, as the JAX package's planner refuses them for hop windows.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ from typing import Optional
 import numpy as np
 
 from ..batch import KEY_FIELD, TIMESTAMP_FIELD, Batch
+from ..config import config
 from ..engine.engine import register_operator
 from ..expr import Col, eval_expr
 from ..graph import OpName
@@ -40,7 +45,7 @@ from .tumbling import (WINDOW_END, WINDOW_START, KeyDictionary, acc_plan,
 class SlidingAggregate(Operator):
     """config: width_micros, slide_micros, key_fields: list[str], aggregates:
     [(name, kind, Expr|None)], final_projection: [(name, Expr)]|None,
-    input_dtype_of."""
+    input_dtype_of, backend override "jax"|"numpy"|None."""
 
     def __init__(self, cfg: dict):
         self.width = int(cfg["width_micros"])
@@ -57,6 +62,8 @@ class SlidingAggregate(Operator):
         self.acc_kinds, self.acc_dtypes, self.acc_inputs = acc_plan(
             self.aggregates, dtype_of_from_config(cfg))
         self.n_user_accs = len(self.acc_kinds)
+        self.backend = cfg.get("backend") or (
+            "jax" if config().get("device.enabled") else "numpy")
         self.device = None  # the engine's device, set in on_start
         self._agg = None
         # key transport split (same as tumbling): numeric group-by columns
@@ -88,7 +95,8 @@ class SlidingAggregate(Operator):
 
     def _aggregator(self):
         if self._agg is None:
-            self._agg = make_window_aggregator(self.acc_kinds, self.acc_dtypes, self.device)
+            self._agg = make_window_aggregator(self.acc_kinds, self.acc_dtypes, self.backend,
+                                               self.device)
         return self._agg
 
     def _setup_key_transport(self, batch: Batch) -> None:
@@ -214,7 +222,8 @@ class SlidingAggregate(Operator):
 
     def _insert(self, hashes, rel, vals) -> None:
         self._aggregator().update(hashes, rel, vals)
-        self.open_bins.update(np.unique(rel).tolist())
+        if self.backend != "numpy":  # the numpy path never reads the set
+            self.open_bins.update(np.unique(rel).tolist())
         lo, hi = int(rel.min()), int(rel.max())
         self.min_bin = lo if self.min_bin is None else min(self.min_bin, lo)
         self.max_bin = hi if self.max_bin is None else max(self.max_bin, hi)
@@ -230,6 +239,10 @@ class SlidingAggregate(Operator):
         held = ((watermark.value - self.width) // self.slide + 1) * self.slide
         out_wm = Watermark.event_time(min(watermark.value, held))
         if self.base_bin is None:
+            return out_wm
+        if self.backend == "numpy":
+            last_closed = (watermark.value - self.width) // self.slide - self.base_bin
+            self._emit_through(int(last_closed), collector)
             return out_wm
         # bins complete once the watermark passes their end: dispatch their
         # (destructive) extraction, then emit whatever windows have all bins
@@ -247,6 +260,9 @@ class SlidingAggregate(Operator):
 
     def on_close(self, ctx, collector):
         if self.max_bin is None:
+            return
+        if self.backend == "numpy":
+            self._emit_through(self.max_bin, collector)
             return
         self._dispatch_extracts(self.max_bin + 1)
         self._target_window = max(self._target_window or self.max_bin, self.max_bin)
@@ -331,6 +347,43 @@ class SlidingAggregate(Operator):
                                   or self._wm_queue[0][0] < self.next_window):
             _t, wm = self._wm_queue.pop(0)
             collector.broadcast(Signal.watermark_of(wm))
+
+    def _emit_through(self, last_start_rel: int, collector) -> None:
+        """The numpy backend's close: a synchronous scan of each closing
+        window's bins (the dict store has no fetch latency to hide); every
+        window closed here fuses into one emitted batch."""
+        if self.next_window is None:
+            return
+        agg = self._aggregator()
+        fused: list[dict] = []
+        while self.next_window <= last_start_rel:
+            b = self.next_window
+            if self.max_bin is not None and b > self.max_bin:
+                # nothing at or after this window's start; fast-forward
+                self.next_window = last_start_rel + 1
+                break
+            if self.min_bin is not None and b + self.nb <= self.min_bin:
+                # gap: the window lies entirely before the earliest live bin
+                nw = min(last_start_rel + 1, self.min_bin - self.nb + 1)
+                self.next_window = max(nw, b + 1)
+                agg.free_bins_below(self.next_window)
+                self.key_dict.evict_closed(self.next_window)
+                continue
+            keys, _bins, accs = agg.scan_range(b, b + self.nb)
+            if len(keys) == 0:
+                # bins < b are freed, so an empty scan proves every live bin
+                # is >= b + nb: re-arm the gap fast-forward above
+                self.min_bin = b + self.nb
+            if len(keys):
+                keys_c, accs_c = combine_by_key(self.acc_kinds, keys, accs)
+                fused.append(self._window_cols(b, keys_c, accs_c))
+            self.next_window = b + 1
+            # bins below the next window's range are done
+            agg.free_bins_below(self.next_window)
+            self.key_dict.evict_closed(self.next_window)
+            if self.min_bin is not None:
+                self.min_bin = max(self.min_bin, self.next_window)
+        self._emit_fused(fused, collector)
 
     def _window_cols(self, start_rel: int, keys, accs) -> dict:
         """Pre-projection output columns for one closed window (key lookups

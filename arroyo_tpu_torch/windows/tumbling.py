@@ -1,22 +1,28 @@
 """Tumbling window aggregate operator (the port's copy of
 arroyo_tpu/windows/tumbling.py).
 
-Rows are binned by the window width and fed into a SlotAggregator whose
-state lives on the engine's torch device; on a watermark at or past a bin's
-end the bin closes: its regions are read and cleared on the device and the
-packed result is fetched on the prefetch threads, so emission and the
-forwarded watermark pipeline behind later updates. Numeric group-by key
-VALUES ride along as extra max-lanes on the device (all rows of a key agree,
-so max is the identity); string keys go through a host KeyDictionary.
+Rows are binned by the window width and fed into the window's store. The
+backend is the config's ``backend``, else "jax" when ``device.enabled``
+and "numpy" otherwise, as in the JAX package:
 
-Mesh mode (``device.mesh-devices`` > 1): the state is a ShardedAggregator
-of that many key shards on the same device (parallel/), whose close is
-synchronous; the fused mesh step of the compiled segment (engine/segment.py)
-updates it on the device and calls ``mesh_insert_begin`` for the host half.
+- "jax": a SlotAggregator whose state lives on the engine's torch device;
+  on a watermark at or past a bin's end the bin closes: its regions are
+  read and cleared on the device and the packed result is fetched on the
+  prefetch threads, so emission and the forwarded watermark pipeline
+  behind later updates. Mesh mode (``device.mesh-devices`` > 1): a
+  ShardedAggregator of that many key shards on the same device
+  (parallel/), whose close is synchronous; the fused mesh step of the
+  compiled segment (engine/segment.py) updates it on the device and calls
+  ``mesh_insert_begin`` for the host half.
+- "numpy": the host dict store (ops/aggregate.py DeviceHashAggregator),
+  closed synchronously. Collected aggregates (array_agg, COUNT(DISTINCT))
+  keep their values in host lists beside it (CollectingAggregator).
 
-The compiled segment feeds the operator through ``insert_arrays``, the twin
-of ``process_batch`` over arrays the segment computed. Not in this slice:
-collected aggregates (array_agg, UDAFs, COUNT DISTINCT) and checkpoints.
+Numeric group-by key VALUES ride along as extra max-lanes of the store
+(all rows of a key agree, so max is the identity); string keys go through
+a host KeyDictionary. The compiled segment feeds the operator through
+``insert_arrays``, the twin of ``process_batch`` over arrays the segment
+computed. Not in this slice: UDAFs and checkpoints.
 """
 
 from __future__ import annotations
@@ -26,7 +32,7 @@ from typing import Optional
 
 import numpy as np
 
-from ..batch import KEY_FIELD, TIMESTAMP_FIELD, Batch
+from ..batch import KEY_FIELD, TIMESTAMP_FIELD, Batch, object_column
 from ..config import config
 from ..engine.engine import register_operator
 from ..expr import Col, Expr, eval_expr
@@ -54,6 +60,95 @@ def dtype_of_from_config(cfg: dict):
     if cfg.get("input_dtypes"):
         raise NotImplementedError("input_dtypes maps come with the SQL front end of the port")
     return lambda e: np.dtype(np.float64)
+
+
+class CollectingAggregator:
+    """Wraps the numeric aggregator with host-side object lanes for
+    "collect"-kind accumulators (array_agg, COUNT(DISTINCT)). Numeric lanes
+    ride the wrapped store untouched; list state lives in a host dict keyed
+    (rel_bin, key_hash). The positional lane layout is kept end to end, so
+    the window operators need no index remapping. Synchronous only: the
+    planner gives such windows backend "numpy"."""
+
+    def __init__(self, acc_kinds, acc_dtypes, inner_factory):
+        self.kinds = tuple(acc_kinds)
+        self.col_idx = [i for i, k in enumerate(acc_kinds) if k == "collect"]
+        self.num_idx = [i for i, k in enumerate(acc_kinds) if k != "collect"]
+        # the inner aggregator tracks (key, bin) membership; with no numeric
+        # user lane a hidden count keeps every group represented
+        self._hidden = not self.num_idx
+        inner_kinds = tuple(acc_kinds[i] for i in self.num_idx) or ("count",)
+        inner_dtypes = (tuple(acc_dtypes[i] for i in self.num_idx)
+                        or (np.dtype(np.int64),))
+        self.inner = inner_factory(inner_kinds, inner_dtypes)
+        # (rel_bin, key_hash) -> [list per collect lane]
+        self.store: dict[tuple[int, int], list[list]] = {}
+
+    def update(self, hashes, rel, vals) -> None:
+        nvals = [vals[i] for i in self.num_idx]
+        if self._hidden:
+            nvals = [np.ones(len(hashes), dtype=np.int64)]
+        self.inner.update(hashes, rel, nvals)
+        # store keys are the SIGNED view of the hash, as in the inner store
+        signed = hashes.astype(np.uint64).view(np.int64)
+        order = np.lexsort((signed, rel))
+        h_s = signed[order]
+        r_s = rel[order]
+        brk = np.ones(len(h_s), dtype=bool)
+        if len(h_s) > 1:
+            brk[1:] = (h_s[1:] != h_s[:-1]) | (r_s[1:] != r_s[:-1])
+        starts = np.flatnonzero(brk)
+        ends = np.append(starts[1:], len(h_s))
+        cvals = [np.asarray(vals[i], dtype=object)[order] for i in self.col_idx]
+        for s, e in zip(starts, ends):
+            ent = self.store.setdefault(
+                (int(r_s[s]), int(h_s[s])), [[] for _ in self.col_idx])
+            for j, cv in enumerate(cvals):
+                ent[j].extend(cv[s:e].tolist())
+
+    def _assemble(self, keys, bins, naccs, pop: bool):
+        """The numeric lanes and the collected lists of the given (key, bin)
+        rows in lane order; pop=True consumes the store's entries."""
+        out: list = [None] * len(self.kinds)
+        ni = 0
+        for i in self.num_idx:
+            out[i] = naccs[ni]
+            ni += 1
+        if len(keys):
+            signed = keys.astype(np.uint64).view(np.int64)
+            for j, i in enumerate(self.col_idx):
+                if pop and j == len(self.col_idx) - 1:
+                    ents = [self.store.pop((int(b), int(k)), None)
+                            for k, b in zip(signed, bins)]
+                else:
+                    ents = [self.store.get((int(b), int(k)))
+                            for k, b in zip(signed, bins)]
+                out[i] = object_column(
+                    (list(e[j]) if e is not None else []) for e in ents)
+        else:
+            for i in self.col_idx:
+                out[i] = np.empty(0, dtype=object)
+        return out
+
+    def extract(self, lo, hi, before):
+        keys, bins, naccs = self.inner.extract(lo, hi, before)
+        return keys, bins, self._assemble(keys, bins, naccs, pop=True)
+
+    def snapshot(self):
+        keys, bins, naccs = self.inner.snapshot()
+        return keys, bins, self._assemble(keys, bins, naccs, pop=False)
+
+    def restore(self, hashes, rel, accs) -> None:
+        naccs = [accs[i] for i in self.num_idx]
+        if self._hidden:
+            # the hidden count lane from the collected lists' lengths
+            naccs = [np.array([len(lst) for lst in accs[self.col_idx[0]]], dtype=np.int64)]
+        self.inner.restore(hashes, rel, naccs)
+        signed = hashes.astype(np.uint64).view(np.int64)
+        for row, (k, b) in enumerate(zip(signed, rel)):
+            ent = self.store.setdefault((int(b), int(k)), [[] for _ in self.col_idx])
+            for j, i in enumerate(self.col_idx):
+                ent[j] = list(accs[i][row])
 
 
 def record_mesh_overflow(op, ctx) -> int:
@@ -85,13 +180,19 @@ def record_mesh_overflow(op, ctx) -> int:
     return rows
 
 
-def make_window_aggregator(acc_kinds, acc_dtypes, device):
-    """The single-device SlotAggregator or (device.mesh-devices > 1) the
-    key-space-sharded ShardedAggregator, sized from the device config: one
-    construction path for every window operator."""
+def make_window_aggregator(acc_kinds, acc_dtypes, backend: str, device):
+    """The single-device SlotAggregator or (backend "jax" and
+    device.mesh-devices > 1) the key-space-sharded ShardedAggregator, sized
+    from the device config: one construction path for every window
+    operator. Backend "numpy" is the SlotAggregator's host store. Collected
+    accumulators wrap the numeric store (on the host) with host lists."""
+    if "collect" in acc_kinds:
+        return CollectingAggregator(
+            acc_kinds, acc_dtypes,
+            lambda ks, ds: make_window_aggregator(ks, ds, "numpy", device))
     dev = config().section("device")
     mesh_n = int(dev.get("mesh-devices", 0) or 0)
-    if mesh_n > 1:
+    if backend == "jax" and mesh_n > 1:
         from ..parallel import ShardedAggregator, make_mesh
 
         return ShardedAggregator(
@@ -109,6 +210,8 @@ def make_window_aggregator(acc_kinds, acc_dtypes, device):
         acc_dtypes,
         cap=dev.get("table-capacity", 65536),
         batch_cap=dev.get("batch-capacity", 8192),
+        emit_cap=dev.get("emit-capacity", 8192),
+        backend=backend,
         region_size=dev.get("region-size", 2048),
         device=device,
     )
@@ -122,9 +225,10 @@ def acc_plan(aggregates: list[tuple[str, str, Optional[Expr]]], schema_dtype_of,
     Returns (acc_kinds, acc_dtypes, input_specs) where input_specs[i] is the
     Expr for that accumulator or None for a count-style all-ones input.
     ``collect`` admits collected aggregates (array_agg, COUNT(DISTINCT)) as
-    one host-resident "collect" lane of object dtype: the session window and
-    the updating aggregate keep their state on the host and take them; the
-    device windows do not. UDAFs are refused everywhere (no UDF registry).
+    one host-resident "collect" lane of object dtype: the tumbling and
+    session windows and the updating aggregate take them; the sliding
+    window does not (the JAX package's planner refuses them there). UDAFs
+    are refused everywhere (no UDF registry).
     """
     kinds, dtypes, inputs = [], [], []
     for _name, kind, expr in aggregates:
@@ -142,8 +246,8 @@ def acc_plan(aggregates: list[tuple[str, str, Optional[Expr]]], schema_dtype_of,
         elif kind in ("collect", "count_distinct"):
             if not collect:
                 raise NotImplementedError(
-                    f"aggregate {kind!r} collects values on the host; the device "
-                    f"windows of the port do not take collected aggregates")
+                    f"aggregate {kind!r} collects values on the host; this window "
+                    f"does not take collected aggregates")
             kinds.append("collect")
             dtypes.append(np.dtype(object))
             inputs.append(expr)
@@ -210,7 +314,8 @@ class KeyDictionary:
 class TumblingAggregate(Operator):
     """config: width_micros, key_fields: list[str], aggregates:
     [(name, kind, Expr|None)], final_projection: [(name, Expr)]|None,
-    input_dtype_of: callable Expr -> np.dtype."""
+    input_dtype_of: callable Expr -> np.dtype, backend override
+    "jax"|"numpy"|None."""
 
     def __init__(self, cfg: dict):
         self.width = int(cfg["width_micros"])
@@ -218,10 +323,12 @@ class TumblingAggregate(Operator):
         self.aggregates = cfg["aggregates"]
         self.final_projection = cfg.get("final_projection")
         self.acc_kinds, self.acc_dtypes, self.acc_inputs = acc_plan(
-            self.aggregates, dtype_of_from_config(cfg))
+            self.aggregates, dtype_of_from_config(cfg), collect=True)
         self.n_user_accs = len(self.acc_kinds)
+        self.backend = cfg.get("backend") or (
+            "jax" if config().get("device.enabled") else "numpy")
         self.device = None  # the engine's device, set in on_start
-        self._agg: Optional[SlotAggregator] = None
+        self._agg = None
         # key transport split, decided from the first batch's column dtypes
         self.lane_key_fields: Optional[list[str]] = None  # numeric: device lanes
         self.dict_key_fields: list[str] = []  # strings: host dictionary
@@ -257,7 +364,8 @@ class TumblingAggregate(Operator):
 
     def _aggregator(self):
         if self._agg is None:
-            self._agg = make_window_aggregator(self.acc_kinds, self.acc_dtypes, self.device)
+            self._agg = make_window_aggregator(self.acc_kinds, self.acc_dtypes, self.backend,
+                                               self.device)
         return self._agg
 
     # ------------------------------------------------------------------
@@ -413,8 +521,9 @@ class TumblingAggregate(Operator):
 
     def _schedule_close(self, closed_before_abs: Optional[int],
                         out_wm: Optional[Watermark], collector) -> bool:
-        """Dispatch the device reads for every bin the watermark closes;
-        True if a close (or a watermark hold) was queued."""
+        """Dispatch the device reads for every bin the watermark closes (on
+        the numpy backend: close them at once); True if a close (or a
+        watermark hold) was queued."""
         if self.base_bin is None or not self.open_bins:
             return self._hold_watermark(out_wm, collector)
         if closed_before_abs is None:
@@ -428,6 +537,13 @@ class TumblingAggregate(Operator):
             return self._hold_watermark(out_wm, collector)
         agg = self._aggregator()
         self.open_bins -= set(closing)
+        if self.backend == "numpy":
+            keys, bins, accs = agg.extract(min(closing), rel_before, rel_before)
+            if len(keys):
+                self._emit_entries(keys, bins, accs, collector)
+            if self.dict_key_fields:
+                self.key_dict.evict_closed(rel_before)
+            return False  # synchronous: the caller forwards the watermark itself
         if len(self._pending) >= _PIPELINE_DEPTH:
             self._drain_pending(collector, force=True)
         handle = agg.extract_start(min(closing), rel_before, rel_before)

@@ -13,7 +13,8 @@ non-zero, printing no result):
 2. build   -- every CUDA source of arroyo_tpu_torch/csrc/ (the slot
               aggregator's slot_agg.cu with K1-K3 and K7, the join probe's
               join_probe.cu, the sharded aggregate's sharded_agg.cu with
-              K8-K11) with nvcc for sm_90a, one nvcc per source, all started
+              K8-K11, the single-device table's hash_agg.cu with K12 and
+              K13) with nvcc for sm_90a, one nvcc per source, all started
               together;
 3. q7      -- Nexmark q7 through the port's run_graph on the GPU at the size
               bench.py measures (2,000,000 events, batch 65536, table 65536,
@@ -32,9 +33,10 @@ non-zero, printing no result):
 6. q5      -- q5 (sliding 10 s / 2 s COUNT per auction) at 1,000,000 events,
               chaining on, with the same checks against a copy of
               bench.py's oracle_q5;
-7. kernels -- K1-K3 against their plain PyTorch versions on the card at
-              q7's shape and at a deployment-size state (4,194,304 slots),
-              hot and merge mode, k in {1, 2, 4, 8, 16} duplicated bases with
+7. kernels -- K1-K3 against their plain PyTorch versions on the card,
+              exactly (float sums bit for bit: K1 adds them in row order), at
+              q7's shape and at a deployment-size state (4,194,304 slots,
+              float32 and float64 sums, a uint64 lane), hot and merge mode, k in {1, 2, 4, 8, 16} duplicated bases with
               and without clear, then timed beside the plain version, a
               PyTorch library yardstick and the bound (device time per call
               from a torch.profiler trace, and the per-call time bracketed by
@@ -68,19 +70,21 @@ non-zero, printing no result):
               card). The merged changelog equals a closed-form oracle
               exactly, every retraction equals its key's last append, K1, K4
               and K7 launched, no SEGMENT_FALLBACK; then a profiled run;
-12. qu_ttl -- the same stream at bench.py's table size (65536 slots), TTL
-              300 s and no timed flush: the device mode's changelog equals
+12. qu_ttl -- the stream's first 1,000,000 events at bench.py's table
+              size (65536 slots), TTL 300 s and no timed flush: the device
+              mode's changelog equals
               the host mode's row for row, with keys evicted and the device
               store compacted; then the operator fed an updating input
               (retractions, keys retracted to zero) in both modes on the card,
-              with integer lanes (equal changelogs) and float lanes (reported);
+              integer lanes (changelog equal to the host mode's) and float
+              lanes (changelog equal to the device mode's on the CPU);
 13. qs     -- bench.py's qs (session windows per bidder, gap 2 s) at its
               setting: 500,000 events, chaining on, exact parity with a copy
               of bench.py's oracle_qs, K4 on the bids chain; then profiled;
 14. gather -- K7 (slot_gather) against its plain version exactly at qu's
               shape, at a deployment-size state (16,777,216 slots x 4 lanes,
               1,048,576 slots gathered), over mixed int32/int64/float32/
-              float64 lanes with int32 and int64 indices and on edge cases
+              float64/uint64 lanes with int32 and int64 indices and on edge cases
               (k = 1, k not a power of two, duplicated slots, slot 0, slot
               cap - 1); then timed, with the host's cost of one read_slots.
 
@@ -107,6 +111,20 @@ non-zero, printing no result):
               dest_cap, the spill buffer and its exhaustion, max_probes
               exhausted, duplicates after a free, key INT64_MAX in bin
               INT32_MAX, 1, 4 and 8 shards); then timed.
+19. hash_agg -- the single-device table (B9: DeviceHashAggregator, K8 and
+              K9 per batch, K11 per close at one shard, K12 chunked scans,
+              K13 frees): q7's 2,000,000 events closing through extract_start
+              exactly against the oracle and the host store, the same
+              stream's float64 SUM / MIN of price with every kernel checked
+              against its plain version step by step, and q5's hop windows
+              (500,000 events, scan_range in K12 chunks + free_bins_below,
+              every kernel checked) exactly against the oracle; launches are
+              read per drive (q7: K8, K9, K11; hop: K12, K13); then a 222 MB
+              deployment state
+              (4,194,304 entries, 8 x 1,048,576 rows) and edge cases, every
+              kernel checked the same way; then timed;
+20. q7_host -- q7c with the window on the host store ("backend":
+              "numpy"): exact parity, K4 on the card, no K1-K3.
 
 ``--only a,b`` runs those phases alone after probe and build (a short
 check) and prints no result line.
@@ -146,8 +164,8 @@ from arroyo_tpu_torch.graph import EdgeType, Graph, Node, OpName
 from arroyo_tpu_torch.obs.events import recorder
 from arroyo_tpu_torch.hashing import hash_columns
 from arroyo_tpu_torch.metrics import registry
-from arroyo_tpu_torch.ops import (join_kernels, join_probe, kernels, segment_kernel,
-                                  sharded_kernels)
+from arroyo_tpu_torch.ops import (hash_kernels, join_kernels, join_probe, kernels,
+                                  segment_kernel, sharded_kernels)
 from arroyo_tpu_torch.ops.aggregate import _identity
 from arroyo_tpu_torch.parallel import all_to_all, sharded_agg
 
@@ -173,11 +191,12 @@ REPLACES = {
     "shard_exchange": "arroyo_tpu/parallel/sharded_agg.py:177",  # exchange_merge steps 2-3
     "shard_spill": "arroyo_tpu/parallel/sharded_agg.py:243",  # exchange_merge step 7
     "shard_extract": "arroyo_tpu/parallel/sharded_agg.py:304",  # local_extract
+    "hash_scan_chunk": "arroyo_tpu/ops/aggregate.py:331",  # _build_jax scan (B9)
+    "hash_free": "arroyo_tpu/ops/aggregate.py:344",  # _build_jax free (B9)
 }
 SEGMENT_SOURCE = "arroyo_tpu_torch/ops/segment_kernel.py"
-SUM_RTOL = {torch.float64: 1e-12, torch.float32: 1e-5}
-NP_DT = {torch.int32: np.int32, torch.int64: np.int64,
-         torch.float32: np.float32, torch.float64: np.float64}
+NP_DT = {torch.int32: np.int32, torch.int64: np.int64, torch.float32: np.float32,
+         torch.float64: np.float64, torch.uint64: np.uint64}
 TIMING_REPS = 30
 # the kernels q7c and q5 must launch (K1-K3, K4); q8c's are K4, K5, K6
 AGG_PATH_KERNELS = ("slot_scatter_combine", "slot_region_read_pack", "slot_region_clear",
@@ -218,9 +237,10 @@ def build(out_dir: str) -> dict:
     from concurrent.futures import ThreadPoolExecutor
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:
-        for f in [pool.submit(kernels.build_library), pool.submit(join_kernels.build_library),
-                  pool.submit(sharded_kernels.build_library)]:
+    libs = (kernels.build_library, join_kernels.build_library, sharded_kernels.build_library,
+            hash_kernels.build_library)
+    with ThreadPoolExecutor(len(libs)) as pool:
+        for f in [pool.submit(b) for b in libs]:
             f.result()
     info = {"phase": "build", "seconds": time.perf_counter() - t0, "sources": {}}
     for name, b in kernels.build_info.items():
@@ -427,7 +447,8 @@ def check_q5(rows: list, want: dict) -> dict:
 
 def all_launch_counts() -> dict:
     return {**kernels.launch_counts(), **segment_kernel.launch_counts(),
-            **join_kernels.launch_counts(), **sharded_kernels.launch_counts()}
+            **join_kernels.launch_counts(), **sharded_kernels.launch_counts(),
+            **hash_kernels.launch_counts()}
 
 
 def reset_all_launch_counts() -> None:
@@ -435,6 +456,7 @@ def reset_all_launch_counts() -> None:
     segment_kernel.reset_launch_counts()
     join_kernels.reset_launch_counts()
     sharded_kernels.reset_launch_counts()
+    hash_kernels.reset_launch_counts()
 
 
 def run_chained(name: str, build, events: int, oracle, check,
@@ -638,6 +660,9 @@ def run_q8c() -> dict:
 # ---------------------------------------------------------------- qu, qu_ttl, qs
 
 QU_EVENTS = Q7_EVENTS
+# qu_ttl's stream, cut to half of qu's to keep the script's time (it still
+# evicts keys and compacts the device store)
+QU_TTL_EVENTS = Q7_EVENTS // 2
 QU_CAP = 262144  # holds every auction of the 2,000,000-event run on the card
 QU_TTL_MICROS = 300_000_000
 QU_TTL_CAP = 65536  # bench.py's table size
@@ -778,12 +803,12 @@ def same_changelog(a: dict, b: dict, what: str) -> int:
 
 
 def run_qu_ttl(dev) -> dict:
-    """qu at bench.py's table size (65536 slots) with a 300 s TTL and no
-    timed flush (a day): the flushes follow the watermarks alone, so the
-    changelog is fixed by the data. The device mode's changelog must equal
+    """qu's first 1,000,000 events at bench.py's table size (65536 slots),
+    a 300 s TTL and no timed flush (a day): the flushes follow the
+    watermarks alone, so the changelog is fixed by the data. The device mode's changelog must equal
     the host mode's row for row, with keys evicted and the device store
     compacted; then the operator-level runs (updating input, float lanes)."""
-    out = {"phase": "qu_ttl", "events": QU_EVENTS, "table_capacity": QU_TTL_CAP,
+    out = {"phase": "qu_ttl", "events": QU_TTL_EVENTS, "table_capacity": QU_TTL_CAP,
            "ttl_micros": QU_TTL_MICROS}
     logs = {}
     for backend in ("jax", "numpy"):
@@ -792,10 +817,10 @@ def run_qu_ttl(dev) -> dict:
         rows, wall, eng = drive(
             lambda r, e, _b=backend: build_qu(r, e, backend=_b, ttl_micros=QU_TTL_MICROS,
                                               flush_interval_micros=DAY_MICROS),
-            QU_EVENTS, job, chaining=True, table_capacity=QU_TTL_CAP)
+            QU_TTL_EVENTS, job, chaining=True, table_capacity=QU_TTL_CAP)
         logs[backend] = changelog(rows)
         check_changelog(rows)
-        out[backend] = {"wall_s": wall, "events_per_s": QU_EVENTS / wall,
+        out[backend] = {"wall_s": wall, "events_per_s": QU_TTL_EVENTS / wall,
                         "launches": all_launch_counts(), "stats": updating_stats(eng),
                         "changelog_rows": len(logs[backend]["auction"]),
                         "retractions": int(logs[backend]["_is_retract"].sum())}
@@ -817,10 +842,13 @@ def updating_operator_runs(dev) -> dict:
     the card) and host mode: an updating input (retractions of earlier rows,
     keys retracted to zero and coming back) through watermarks, ticks and
     TTL evictions. Integer lanes: the changelogs must be equal batch for
-    batch. Float lanes (SUM and AVG of a float column): the device's float
-    sums are K1's atomics, whose order varies, so the changelogs may differ
-    (a residue after a retraction defeats the no-op suppression); reported,
-    and the merged views held to 1e-9 relative."""
+    batch. Float lanes (SUM and AVG of a float column): the host mode adds
+    each batch's per-key sum to the stored value, the device mode (in both
+    packages) adds row after row, so the two modes' float bits differ (a
+    residue after a retraction defeats the no-op suppression); the merged
+    views are held to 1e-9 relative. The device mode on the card must equal
+    the device mode on the CPU (the kernels' plain versions, the reference's
+    row order) batch for batch: K1 adds float sums in row order."""
     from arroyo_tpu_torch.batch import KEY_FIELD
     from arroyo_tpu_torch.hashing import hash_columns
     from arroyo_tpu_torch.operators.base import OperatorContext
@@ -836,7 +864,7 @@ def updating_operator_runs(dev) -> dict:
         def collect(self, b):
             self.batches.append(b)
 
-    def run(backend, value_expr, dtype):
+    def run(backend, value_expr, dtype, dev):
         tcfg.reset()
         tcfg.update({"device.table-capacity": 4096, "device.region-size": 256,
                      "device.batch-capacity": 4096})
@@ -882,18 +910,27 @@ def updating_operator_runs(dev) -> dict:
         torch.cuda.synchronize()
         return sink.batches, op
 
+    def same_batches(xs, ys) -> bool:
+        return len(xs) == len(ys) and all(
+            list(x.columns) == list(y.columns) and all(
+                np.asarray(x[c]).dtype == np.asarray(y[c]).dtype
+                and np.array_equal(np.asarray(x[c]), np.asarray(y[c])) for c in x.columns)
+            for x, y in zip(xs, ys))
+
     res = {}
     for label, expr, dtype in (("int64 lanes", Col("v"), np.int64),
                                ("float64 lanes", Col("f"), np.float64)):
         launches0 = kernels.launch_counts()["slot_gather"]
-        (b_dev, op_dev), (b_host, _op) = run("jax", expr, dtype), run("numpy", expr, dtype)
+        (b_dev, op_dev), (b_host, _op) = (run("jax", expr, dtype, dev),
+                                          run("numpy", expr, dtype, dev))
+        launches1 = kernels.launch_counts()["slot_gather"]
         rows_dev = [r for b in b_dev for r in b.to_pylist()]
         rows_host = [r for b in b_host for r in b.to_pylist()]
-        same = len(b_dev) == len(b_host) and all(
-            list(x.columns) == list(y.columns) and all(
-                np.asarray(x[c]).dtype == np.asarray(y[c]).dtype
-                and np.array_equal(np.asarray(x[c]), np.asarray(y[c])) for c in x.columns)
-            for x, y in zip(b_dev, b_host))
+        same = same_batches(b_dev, b_host)
+        # the float lanes' reference is the device mode's row order (the
+        # integer lanes' is the host mode, checked above)
+        same_as_plain = label == "int64 lanes" or same_batches(
+            b_dev, run("jax", expr, dtype, torch.device("cpu"))[0])
         strip = lambda rows: [{k: v for k, v in r.items() if k != TIMESTAMP_FIELD} for r in rows]
         m_dev = {r["k"]: r for r in merge_updating_rows(strip(rows_dev))}
         m_host = {r["k"]: r for r in merge_updating_rows(strip(rows_host))}
@@ -909,10 +946,15 @@ def updating_operator_runs(dev) -> dict:
                 "changelogs_equal": bool(same), "merged_max_rel_err": rel,
                 "retractions": sum(1 for r in rows_host if r[IS_RETRACT_FIELD]),
                 "evicted_keys": op_dev.evicted_keys, "compactions": op_dev.compactions,
-                "k7_launches": kernels.launch_counts()["slot_gather"] - launches0}
+                "k7_launches": launches1 - launches0}
+        if label == "float64 lanes":
+            info["changelog_equals_cpu_device_mode"] = bool(same_as_plain)
         if label == "int64 lanes" and not same:
             raise AssertionError(f"updating operator on the card: device mode's changelog "
                                  f"differs from the host mode's: {info}")
+        if not same_as_plain:
+            raise AssertionError(f"updating operator ({label}): the card's changelog differs "
+                                 f"from the device mode's on the CPU: {info}")
         if rel > 1e-9 or info["k7_launches"] == 0:
             raise AssertionError(f"updating operator ({label}): {info}")
         res[label] = info
@@ -1051,7 +1093,7 @@ def gather_phase(dev) -> dict:
     shapes = {"qu": (qu_dt, QU_CAP, k_qu),
               "deployment": ([torch.int64] * 4, 1 << 24, 1 << 20),
               "mixed": ([torch.int32, torch.int64, torch.float32, torch.float64,
-                         torch.float32, torch.int32], 1 << 20, 50_001)}
+                         torch.float32, torch.int32, torch.uint64], 1 << 20, 50_001)}
     checked = {}
     states = {}
     for name, (dts, cap, k) in shapes.items():
@@ -1080,7 +1122,8 @@ def gather_phase(dev) -> dict:
         t = timed(
             lambda: kernels.slot_gather(st, slots),
             lambda: kernels.slot_gather_plain(st, slots),
-            lambda: (torch.cat([a.index_select(0, sl64).to(torch.int64) for a in ints])
+            lambda: (torch.cat([kernels.bits(a).index_select(0, sl64).to(torch.int64)
+                                for a in ints])
                      if ints else None,
                      torch.cat([a.index_select(0, sl64).to(torch.float64) for a in flts])
                      if flts else None),
@@ -1617,6 +1660,8 @@ def make_state(rng, lanes, cap, dev):
 
 def make_vals(rng, kind, dt, n):
     npdt = NP_DT[dt]
+    if dt == torch.uint64:  # both ends of the range: unsigned order, wrapping sums
+        return (rng.integers(-(1 << 20), 1 << 20, n).astype(np.int64) << 40).view(np.uint64)
     if not dt.is_floating_point:
         return rng.integers(-(1 << 20), 1 << 20, n).astype(npdt)
     v = rng.normal(0, 1000, n).astype(npdt)
@@ -1634,11 +1679,12 @@ def zipf_slots(rng, n, cap, dtype):
     return torch.from_numpy(s.astype(dtype))
 
 
-def lane_err(got, want, kind, abs_sum=None) -> float:
-    """max |got - want|; raises unless integer and min/max lanes are exact
-    (NaN positions and signed zeros included) and sum lanes are within
-    SUM_RTOL * sum|v| per slot."""
+def lane_err(got, want, kind) -> float:
+    """0.0, or raises: every lane must equal the plain version bit for bit
+    (floats as bits, so signed zeros count; a NaN equals a NaN)."""
     g, w = got.cpu().numpy(), want.cpu().numpy()
+    if g.dtype != w.dtype:
+        raise AssertionError(f"{kind} lane of {w.dtype} came back as {g.dtype}")
     if not np.issubdtype(w.dtype, np.floating):
         if not np.array_equal(g, w):
             raise AssertionError(f"{kind} lane of {w.dtype} differs from the plain version")
@@ -1646,42 +1692,26 @@ def lane_err(got, want, kind, abs_sum=None) -> float:
     nan = np.isnan(w)
     if not np.array_equal(np.isnan(g), nan):
         raise AssertionError(f"{kind} lane of {w.dtype}: NaN positions differ")
-    g2, w2 = g[~nan].astype(np.float64), w[~nan].astype(np.float64)
-    with np.errstate(invalid="ignore"):  # inf - inf where both hold an identity
-        d = np.where(g2 == w2, 0.0, np.abs(g2 - w2))
-    if kind in ("sum", "count") and abs_sum is not None:
-        tol = SUM_RTOL[got.dtype] * abs_sum.cpu().numpy()[~nan]
-        if not np.all(d <= tol):
-            raise AssertionError(f"{kind} lane of {w.dtype}: |d| {d.max()} beyond tolerance")
-    else:
-        ib = np.int64 if w.dtype == np.float64 else np.int32
-        if not np.array_equal(g[~nan].view(ib), w[~nan].view(ib)):
-            raise AssertionError(f"{kind} lane of {w.dtype} differs from the plain version")
-    return float(d.max()) if d.size else 0.0
+    ib = np.int64 if w.dtype == np.float64 else np.int32
+    if not np.array_equal(g[~nan].view(ib), w[~nan].view(ib)):
+        raise AssertionError(f"{kind} lane of {w.dtype} differs from the plain version")
+    return 0.0
 
 
 def check_scatter(rng, lanes, cap, B, merge, dev) -> float:
+    """K1 against its plain version, exactly, float sums included (both
+    add each slot's rows in row order from the state value)."""
     kinds = [k for k, _ in lanes]
     st_k = make_state(rng, lanes, cap, dev)
     st_p = [a.clone() for a in st_k]
-    abs_sum = [a.abs().double() if a.dtype.is_floating_point else None for a in st_k]
-    err = 0.0
     for idx_dt in (np.int32, np.int64):
         slots = zipf_slots(rng, B, cap, idx_dt).to(dev)
         vals = [None if (k == "count" and not merge) else
                 torch.from_numpy(make_vals(rng, k, dt, B)).to(dev) for k, dt in lanes]
         kernels.slot_scatter_combine(st_k, kinds, slots, vals)
         kernels.slot_scatter_combine_plain(st_p, kinds, slots, vals)
-        keep = slots < cap
-        for a, v in zip(abs_sum, vals):
-            if a is not None:
-                add = (torch.ones(int(keep.sum()), dtype=torch.float64, device=dev)
-                       if v is None else v[keep].abs().double())
-                a.index_add_(0, slots[keep].long(), add)
     torch.cuda.synchronize()
-    for (k, _dt), g, w, a in zip(lanes, st_k, st_p, abs_sum):
-        err = max(err, lane_err(g, w, k, a))
-    return err
+    return max(lane_err(g, w, k) for (k, _dt), g, w in zip(lanes, st_k, st_p))
 
 
 def check_regions(rng, lanes, cap, R, dev) -> float:
@@ -1717,15 +1747,16 @@ def time_kernels(rng, lanes, cap, B, R, dev) -> dict:
             for k, dt in lanes]
     keep = slots < cap
     s_lib = slots[keep].long()
-    v_lib = [torch.ones(len(s_lib), dtype=dt, device=dev) if v is None else v[keep]
-             for (_k, dt), v in zip(lanes, vals)]
+    bits = kernels.bits  # uint64 lanes as their int64 bits: torch's scatters take no uint64
+    v_lib = [torch.ones(len(s_lib), dtype=torch.int64, device=dev) if v is None
+             else bits(v)[keep] for v in vals]
 
     def library_k1():
         for (k, _dt), a, v in zip(lanes, st, v_lib):
             if k in ("sum", "count"):
-                a.index_add_(0, s_lib, v)
+                bits(a).index_add_(0, s_lib, v)
             else:
-                a.scatter_reduce_(0, s_lib, v, "amin" if k == "min" else "amax")
+                bits(a).scatter_reduce_(0, s_lib, v, "amin" if k == "min" else "amax")
 
     elem = [a.element_size() for a in st]
     touched = int(torch.unique(s_lib).numel())
@@ -1735,8 +1766,11 @@ def time_kernels(rng, lanes, cap, B, R, dev) -> dict:
         lambda: kernels.slot_scatter_combine(st, kinds, slots, vals),
         lambda: kernels.slot_scatter_combine_plain(st, kinds, slots, vals),
         library_k1,
-        library="one index_add_ / scatter_reduce_ per lane, on the in-range rows",
-        bytes=k1_bytes, rows=B, touched_slots=touched)}
+        library="one index_add_ / scatter_reduce_ per lane, on the in-range rows "
+                "(index_add_ on the card adds with atomics, in no fixed order)",
+        bytes=k1_bytes, rows=B, touched_slots=touched,
+        ordered_lanes=sum(kernels.ordered_add(k, dt) for k, dt in lanes),
+        longest_run=int(torch.bincount(s_lib).max()))}
     for k in (1, 16):
         bases = [int(b) * R for b in rng.choice(cap // R, k, replace=False)]
         idx = (torch.tensor(bases, device=dev)[:, None] + torch.arange(R, device=dev)).reshape(-1)
@@ -1747,15 +1781,17 @@ def time_kernels(rng, lanes, cap, B, R, dev) -> dict:
             lambda: kernels.slot_region_read_pack(st, bases, R),
             lambda: kernels.slot_region_read_pack_plain(st, bases, R),
             lambda: (
-                torch.cat([a.index_select(0, idx).to(torch.int64) for a in ints]) if ints else None,
-                torch.cat([a.index_select(0, idx).to(torch.float64) for a in flts]) if flts else None),
+                torch.cat([bits(a).index_select(0, idx).to(torch.int64) for a in ints])
+                if ints else None,
+                torch.cat([a.index_select(0, idx).to(torch.float64) for a in flts])
+                if flts else None),
             library="index_select + cat per lane class",
             bytes=k * R * sum(elem) + n_out, k=k)
-        idents = [_identity(kd, NP_DT[a.dtype]).item() for kd, a in zip(kinds, st)]
+        idents = [sharded_kernels.ident_bits(kd, a.dtype) for kd, a in zip(kinds, st)]
         out[f"slot_region_clear_k{k}"] = timed(
             lambda: kernels.slot_region_clear(st, kinds, bases, R),
             lambda: kernels.slot_region_clear_plain(st, kinds, bases, R),
-            lambda: [a.index_fill_(0, idx, v) for a, v in zip(st, idents)],
+            lambda: [bits(a).index_fill_(0, idx, v) for a, v in zip(st, idents)],
             library="index_fill_ per lane", bytes=k * R * sum(elem), k=k)
     return out
 
@@ -1778,10 +1814,12 @@ def kernel_phase(dev) -> dict:
         # q7: max(price), count, and the auction key riding as a max lane
         "q7": dict(lanes=[("max", torch.int64), ("count", torch.int64), ("max", torch.int64)],
                    cap=65536, B=65536, R=2048),
-        # a deployment-size keyed state: 4,194,304 slots x 40 B = 168 MB
+        # a deployment-size keyed state: 4,194,304 slots x 48 B = 201 MB,
+        # float sums (K1's row-ordered walk) and a uint64 group-by key lane
         "deployment": dict(lanes=[("sum", torch.float64), ("count", torch.int64),
                                   ("min", torch.int64), ("max", torch.float64),
-                                  ("max", torch.int32), ("min", torch.float32)],
+                                  ("max", torch.int32), ("min", torch.float32),
+                                  ("sum", torch.float32), ("max", torch.uint64)],
                            cap=1 << 22, B=65536, R=2048),
     }
     errs = {"slot_scatter_combine": 0.0, "slot_region_read_pack": 0.0, "slot_region_clear": 0.0}
@@ -2343,6 +2381,572 @@ def sharded_phase(dev) -> dict:
     return info
 
 
+# ---------------------------------------------------------------- hash_agg (B9)
+
+HASH_SOURCE = "arroyo_tpu_torch/csrc/hash_agg.cu"
+# the kernels of the single-device table's path: K8, K9 and K11 at one shard
+# (q7's tumbling closes), K12 and K13 (q5's hop windows)
+HASH_Q7_KERNELS = ("agg_sort_reduce", "agg_probe_merge", "shard_extract")
+HASH_HOP_KERNELS = ("hash_scan_chunk", "hash_free")
+HASH_PATH_KERNELS = HASH_Q7_KERNELS + HASH_HOP_KERNELS
+# q7 through the table at bench.py's table, batch and emit sizes
+Q7_HASH = dict(cap=65536, batch_cap=BENCH_BATCH, max_probes=64, emit_cap=8192)
+# q5's hop windows through the table: a 5-bin scan holds ~1600 entries, more
+# than emit_cap, so each window's read walks the table in K12 chunks; a
+# 65536-event batch opens ~33 bins before the first of them closes
+HOP_HASH = dict(cap=32768, batch_cap=BENCH_BATCH, max_probes=64, emit_cap=1024)
+HOP_EVENTS = Q7_EVENTS // 4  # 250 windows, each read in 32 K12 chunks
+# a deployment state: 4,194,304 entries x (8 + 4 + 1 + 5 x 8) B = 222 MB
+HASH_DEPLOY = dict(cap=1 << 22, batch_cap=1 << 20, max_probes=64, emit_cap=8192)
+HASH_DEPLOY_LANES = DEPLOY_LANES  # 4 int64 lanes and a float64 sum
+
+
+def hash_launch_counts() -> dict:
+    return {**sharded_kernels.launch_counts(), **hash_kernels.launch_counts()}
+
+
+def reset_hash_launch_counts() -> None:
+    sharded_kernels.reset_launch_counts()
+    hash_kernels.reset_launch_counts()
+
+
+def bid_batches(events: int, bin_width: int) -> list:
+    """q7's bids per source batch of BENCH_BATCH events, from the port's
+    generator: (auction key hash uint64, auction, price, absolute bin, the
+    batch's largest event time)."""
+    b = nexmark_columns(events, ["bid.auction", "bid.price"], 1000)
+    out = []
+    for lo in range(0, events, BENCH_BATCH):
+        sl = slice(lo, lo + BENCH_BATCH)
+        m = b["bid"][sl]
+        auc = b["bid.auction"][sl][m]
+        ts = b[TIMESTAMP_FIELD][sl]
+        out.append((hash_columns([auc]), auc, b["bid.price"][sl][m], ts[m] // bin_width,
+                    int(ts.max())))
+    return out
+
+
+def drive_tumbling(agg, batches, lanes_of) -> tuple[int, list]:
+    """The table as a tumbling window's store: each batch updates it, and
+    every 10 s window the stream has passed closes through extract_start;
+    a close's rows are read back after the next update (pipelined as the
+    window operator pipelines them). Returns (base bin, closes)."""
+    from arroyo_tpu_torch.ops.aggregate import ReadyHandle
+
+    base = int(batches[0][3].min())
+    closed_below, pending, closes = 0, [], []
+    for keys, auc, price, bins_abs, wm in batches:
+        agg.update(keys, (bins_abs - base).astype(np.int32), lanes_of(auc, price))
+        closes += [h.result() for h in pending]
+        pending = []
+        below = wm // WIDTH - base
+        if below > closed_below:
+            pending.append(agg.extract_start(closed_below, below, below) if agg.backend == "jax"
+                           else ReadyHandle(agg.extract(closed_below, below, below)))
+            closed_below = below
+    closes += [h.result() for h in pending]
+    closes.append(agg.extract(closed_below, 1 << 30, 1 << 30))
+    torch.cuda.synchronize()
+    return base, closes
+
+
+def q7_windows(base: int, closes: list, auction_of: dict) -> dict:
+    """(window_start, auction) -> (max, count) of the closes' rows; raises
+    on a window emitted twice."""
+    got = {}
+    for k, b, (mx, cnt) in closes:
+        for kk, bb, m, c in zip(k.tolist(), b.tolist(), mx.tolist(), cnt.tolist()):
+            w = ((bb + base) * WIDTH, auction_of[kk])
+            if w in got:
+                raise AssertionError(f"hash_agg: window {w} emitted twice")
+            got[w] = (m, c)
+    return got
+
+
+def drive_hop(agg, batches) -> list:
+    """The table as a hop window's store (q5: 10 s windows every 2 s over
+    2 s bins): each closing window is one scan_range of its 5 bins,
+    combined by key, then the bins behind the next window are freed.
+    Returns [(window start bin, keys, counts)]."""
+    from arroyo_tpu_torch.ops.aggregate import combine_by_key
+
+    nb = WIDTH // SLIDE
+    base = int(batches[0][3].min())
+    nxt, top, out = None, 0, []
+
+    def close_through(last):
+        nonlocal nxt
+        while nxt <= last:
+            k, _b, accs = agg.scan_range(nxt, nxt + nb)
+            k, (cnt,) = combine_by_key(("count",), k, accs)
+            out.append((nxt + base, k, cnt))
+            nxt += 1
+            agg.free_bins_below(nxt)
+
+    for keys, _auc, _price, bins_abs, wm in batches:
+        rel = (bins_abs - base).astype(np.int32)
+        agg.update(keys, rel, [np.ones(len(keys), dtype=np.int64)])
+        top = max(top, int(rel.max()))
+        if nxt is None:
+            nxt = int(rel.min()) - nb + 1
+        close_through((wm - WIDTH) // SLIDE - base)
+    close_through(top)
+    torch.cuda.synchronize()
+    return out
+
+
+def check_hop(out: list, auction_of: dict, want: dict) -> int:
+    got = {}
+    for wb, k, cnt in out:
+        for kk, c in zip(k.tolist(), cnt.tolist()):
+            w = (wb * SLIDE, auction_of[kk])
+            if w in got:
+                raise AssertionError(f"hash_agg hop: window {w} emitted twice")
+            got[w] = c
+    if got != want:
+        diff = next(iter(set(got.items()) ^ set(want.items())), None)
+        raise AssertionError(f"hash_agg hop parity failure: {len(got)} vs {len(want)}; {diff}")
+    return len(got)
+
+
+def extracted(out) -> list:
+    """The parts of a packed extract buffer (its alignment padding is not
+    written)."""
+    return [out.key, out.bin, out.valid, out.accs, out.total] + (
+        [] if out.oflow is None else [out.oflow])
+
+
+def checked_ops(checks: dict) -> hash_kernels.Ops:
+    """B9's functions with every kernel held against its plain version on
+    the same inputs, exactly (stateful ones on clones of the table and
+    the overflow counter); the kernels' outputs carry on. ``checks``
+    counts the comparisons per kernel."""
+    P = hash_kernels.PLAIN
+
+    def note(name):
+        checks[name] = checks.get(name, 0) + 1
+
+    def sort_reduce(kinds, key, bins, valid, vals, off=0, n_valid=None):
+        got = sharded_kernels.agg_sort_reduce(kinds, key, bins, valid, vals, off, n_valid)
+        require_same("agg_sort_reduce", got, P.sort_reduce(kinds, key, bins, valid, vals, off,
+                                                           n_valid))
+        note("agg_sort_reduce")
+        return got
+
+    def probe_merge(kinds, table, u_key, u_bin, active, u_accs, max_probes, oflow=None):
+        tp, op = clone_nested(table), None if oflow is None else oflow.clone()
+        still = sharded_kernels.agg_probe_merge(kinds, table, u_key, u_bin, active, u_accs,
+                                                max_probes, oflow)
+        still_p = P.probe_merge(kinds, tp, u_key, u_bin, active, u_accs, max_probes, op)
+        require_same("agg_probe_merge", [still, *table[:3], table[3]] + ([oflow] if op is not None else []),
+                     [still_p, *tp[:3], tp[3]] + ([op] if op is not None else []))
+        note("agg_probe_merge")
+        return still
+
+    def extract(table, lo, hi, below, emit_cap, zero_tail=False, oflow=None):
+        tp = clone_nested(table)
+        got = sharded_kernels.shard_extract(table, lo, hi, below, emit_cap, zero_tail, oflow)
+        want = P.extract(tp, lo, hi, below, emit_cap, zero_tail, oflow)
+        require_same("shard_extract (one shard)", [*extracted(got), table[2]],
+                     [*extracted(want), tp[2]])
+        note("shard_extract")
+        return got
+
+    def scan_chunk(table, lo, hi, chunk, emit_cap):
+        got = hash_kernels.hash_scan_chunk(table, lo, hi, chunk, emit_cap)
+        require_same("hash_scan_chunk", extracted(got),
+                     extracted(P.scan_chunk(table, lo, hi, chunk, emit_cap)))
+        note("hash_scan_chunk")
+        return got
+
+    def free(table, below):
+        occ_p = table[2].clone()
+        hash_kernels.hash_free(table, below)
+        P.free((table[0], table[1], occ_p, table[3]), below)
+        require_same("hash_free", [table[2]], [occ_p])
+        note("hash_free")
+
+    return hash_kernels.Ops(sort_reduce, probe_merge, extract, scan_chunk, free)
+
+
+def make_hash_agg(kinds, dtypes, sizes, dev, ops=None, backend="jax"):
+    """A DeviceHashAggregator on ``dev`` (backend "numpy": the host store),
+    running ``ops`` (hash_kernels.KERNELS unless given)."""
+    from arroyo_tpu_torch.ops.aggregate import DeviceHashAggregator
+
+    agg = DeviceHashAggregator(kinds, dtypes, backend=backend,
+                               **({"device": dev} if backend == "jax" else {}), **sizes)
+    if ops is not None:
+        agg._ops = ops
+    return agg
+
+
+def same_rows(label: str, got, want) -> None:
+    """Two (keys, bins, accs) results equal: dtypes and bytes, in order."""
+    (kg, bg, ag), (kw, bw, aw) = got, want
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))  # noqa: E731
+    require_same(label, [t(kg), t(bg)] + [t(a) for a in ag], [t(kw), t(bw)] + [t(a) for a in aw])
+
+
+def hash_edge_cases(dev, checks: dict) -> list:
+    """The table's edge cases, every kernel checked against its plain
+    version; the results against the host store (dicts: the two emit in
+    different orders) or as each case expects."""
+    rng = np.random.default_rng(20261017)
+    ops = checked_ops(checks)
+    out = []
+
+    def both(kinds, dtypes, sizes):
+        return (make_hash_agg(kinds, dtypes, sizes, dev, ops), make_hash_agg(kinds, dtypes, sizes, dev,
+                                                                   backend="numpy"))
+
+    def as_dict(k, b, accs):
+        return {(int(x), int(y)): tuple(a[i].tobytes() for a in accs)
+                for i, (x, y) in enumerate(zip(k.tolist(), b.tolist()))}
+
+    def agree(label, a, o, *args, method="extract"):
+        got, want = getattr(a, method)(*args), getattr(o, method)(*args)
+        if as_dict(*got) != as_dict(*want):
+            raise AssertionError(f"hash_agg {label}: the table's {method} differs from the "
+                                 f"host store's")
+        return len(got[0])
+
+    one = lambda n: [np.ones(n, dtype=np.int64)]  # noqa: E731
+    # 1. overflow: 200 groups into 64 slots, 8 probes, raises at the extract
+    a = make_hash_agg(("count",), (np.int64,), dict(cap=64, batch_cap=256, max_probes=8, emit_cap=64),
+                 dev, ops)
+    a.update(np.arange(200, dtype=np.uint64), np.zeros(200, np.int32), one(200))
+    try:
+        a.extract(0, 1, 1)
+        raise AssertionError("hash_agg overflow: the extract did not raise")
+    except RuntimeError as e:
+        if "overflow" not in str(e):
+            raise
+    out.append({"label": "overflow raises at extract", "overflow": int(a.state[4][0])})
+    # 2. emit_cap chunking: 500 groups drained in rounds of 64
+    a, o = both(("count",), (np.int64,), dict(cap=2048, batch_cap=512, max_probes=64, emit_cap=64))
+    for x in (a, o):
+        x.update(np.arange(500, dtype=np.uint64), np.zeros(500, np.int32), one(500))
+    out.append({"label": "emit_cap chunking", "rows": agree("chunking", a, o, 0, 1, 1)})
+    # 3. emit_cap 48 on cap 64: scans of 40 (packed) and 60 entries (K12 chunks)
+    a, o = both(("count",), (np.int64,), dict(cap=64, batch_cap=64, max_probes=64, emit_cap=48))
+    for x in (a, o):
+        x.update(np.arange(40, dtype=np.uint64), np.zeros(40, np.int32), one(40))
+    n40 = agree("emit 48 of 64", a, o, 0, 1, method="scan_range")
+    for x in (a, o):
+        x.update(np.arange(40, 60, dtype=np.uint64), np.zeros(20, np.int32), one(20))
+    n60 = agree("emit 48 of 64", a, o, 0, 1, method="scan_range")
+    a.free_bins_below(1)
+    if n40 != 40 or n60 != 60 or len(a.scan_range(0, 1)[0]):
+        raise AssertionError(f"hash_agg emit 48 of 64: {n40}, {n60}")
+    out.append({"label": "emit_cap 48 on cap 64", "rows": [n40, n60]})
+    # 4. probe holes after frees: interleaved updates and closes
+    a, o = both(("count",), (np.int64,), dict(cap=256, batch_cap=128, max_probes=256, emit_cap=64))
+    emitted = 0
+    for step in range(30):
+        keys = rng.integers(0, 40, 100).astype(np.uint64)
+        bins = rng.integers(step // 3, step // 3 + 3, 100).astype(np.int32)
+        for x in (a, o):
+            x.update(keys, bins, one(100))
+        if step % 3 == 2:
+            emitted += agree("probe holes", a, o, 0, step // 3 + 1, step // 3 + 1)
+    emitted += agree("probe holes", a, o, 0, 1 << 30, 1 << 30)
+    out.append({"label": "probe holes after frees", "rows": emitted})
+    # 5. key INT64_MAX in bin INT32_MAX, a uint64 lane, NaN and -0.0 under min/max
+    kinds = ("count", "max", "min", "max", "sum")
+    dts = (np.int64, np.uint64, np.float64, np.float32, np.float64)
+    a, o = both(kinds, dts, dict(cap=1024, batch_cap=256, max_probes=64, emit_cap=128))
+    for step in range(4):
+        n = 300
+        keys = rng.integers(0, 90, n).astype(np.uint64)
+        keys[:7] = np.uint64(np.iinfo(np.int64).max)
+        bins = rng.integers(0, 3, n).astype(np.int32)
+        bins[:7] = np.iinfo(np.int32).max
+        vals = [np.ones(n, np.int64), (rng.integers(-9, 9, n).astype(np.int64) << 60).view(np.uint64)]
+        for dt in (np.float64, np.float32):
+            v = np.round(rng.normal(0, 10, n), 1).astype(dt)
+            pick = rng.random(n)
+            v[pick < 0.1] = -0.0
+            v[(pick >= 0.1) & (pick < 0.2)] = 0.0
+            v[(pick >= 0.2) & (pick < 0.21)] = np.nan
+            vals.append(v)
+        vals.append(np.round(rng.normal(0, 10, n), 2))
+        for x in (a, o):
+            x.update(keys, bins, vals)
+    snap = a.snapshot()
+    if as_dict(*snap)[(np.iinfo(np.int64).max, np.iinfo(np.int32).max)][0] != \
+            np.int64(28).tobytes():
+        raise AssertionError("hash_agg: key INT64_MAX in bin INT32_MAX lost rows")
+    # the host store's float min/max follow Python's min/max (NaN and -0.0
+    # in arrival order) and it sums in another order: the table's float
+    # lanes are held to the plain versions above; against the host store
+    # the count and uint64 lanes exactly, the sum within rtol 1e-12
+    got, want = a.scan_range(0, 3), o.scan_range(0, 3)
+    gd, wd = as_dict(*got), as_dict(*want)
+    if set(gd) != set(wd) or any(gd[k][:2] != wd[k][:2] for k in gd):
+        raise AssertionError("hash_agg: the count or uint64 lane differs from the host store")
+    gs = dict(zip(zip(got[0].tolist(), got[1].tolist()), got[2][4].tolist()))
+    ws = dict(zip(zip(want[0].tolist(), want[1].tolist()), want[2][4].tolist()))
+    if any(abs(gs[k] - ws[k]) > 1e-12 * max(abs(ws[k]), 1.0) for k in gs):
+        raise AssertionError("hash_agg: the float sum lane differs from the host store")
+    out.append({"label": "INT64_MAX key in INT32_MAX bin, uint64 lane, NaN / -0.0",
+                "entries": len(snap[0])})
+    # 6. restore / snapshot round trips: a fresh table from the snapshot
+    b2 = make_hash_agg(kinds, dts, dict(cap=1024, batch_cap=256, max_probes=64, emit_cap=128), dev, ops)
+    b2.restore(*snap)
+    if as_dict(*b2.snapshot()) != as_dict(*snap):
+        raise AssertionError("hash_agg: restore then snapshot does not round-trip")
+    o2 = make_hash_agg(kinds, dts, {}, dev, backend="numpy")
+    o2.restore(*o.snapshot())
+    same_rows("host store restore", o2.snapshot(), o.snapshot())
+    out.append({"label": "restore / snapshot round trips", "entries": len(snap[0])})
+    torch.cuda.synchronize()
+    return out
+
+
+def hash_deployment(dev, checks: dict) -> dict:
+    """The deployment state, every kernel checked: 8 batches of 1,048,576
+    rows, Zipf(1.2) keys over 16 bins; then a close, a scan and a free."""
+    rng = np.random.default_rng(20261018)
+    kinds = [k for k, _ in HASH_DEPLOY_LANES]
+    dts = [NP_DT[d] for _, d in HASH_DEPLOY_LANES]
+    agg = make_hash_agg(kinds, dts, HASH_DEPLOY, dev, checked_ops(checks))
+    B = HASH_DEPLOY["batch_cap"]
+    for _step in range(8):
+        ids = (rng.zipf(1.2, B) - 1) % (1 << 22)
+        keys = hash_columns([ids.astype(np.int64)])
+        bins = rng.integers(0, 16, B).astype(np.int32)
+        vals = [rng.integers(-(1 << 20), 1 << 20, B).astype(np.int64) if d != np.float64
+                else np.round(rng.normal(0, 1000, B), 2) for d in dts]
+        vals[1] = np.ones(B, np.int64)
+        agg.update(keys, bins, vals)
+    occupied = int(agg.state[2].sum())
+    k, _b, _a = agg.extract(0, 2, 2)
+    scanned = len(agg.scan_range(2, 4)[0])
+    agg.free_bins_below(4)
+    torch.cuda.synchronize()
+    return {"cap": HASH_DEPLOY["cap"], "rows_per_batch": B, "batches": 8,
+            "occupied": occupied, "closed_rows": len(k), "scanned_rows": scanned,
+            "occupied_after": int(agg.state[2].sum()), "overflow": int(agg.state[4][0])}
+
+
+def hash_bytes(lanes, L, n: dict, cap: int, E: int) -> dict:
+    """Bytes each of the table's kernels must move at one step's shapes,
+    counted for this run's data (``n``), each input read once and each
+    output written once; a padding row or inactive partial costs its
+    1-byte flag (K8 at one shard takes n_valid, not a flag array)."""
+    lane_b = sum(torch.tensor([], dtype=dt).element_size() for _k, dt in lanes)
+    pay = 8 + 4 + lane_b
+    return {
+        "agg_sort_reduce": n["rows"] * pay + L + n["segments"] * pay,
+        "agg_probe_merge": (2 * L + n["segments"] * pay + n["claims"] * (pay + 2)
+                            + n["matches"] * (pay + 1 + lane_b) + 8),
+        # every slot's occupancy, the occupied slots' bins, the emitted
+        # entries' key and lanes; E rows and flags out, totals, the frees
+        "extract": cap + n["occupied"] * 4 + n["emitted"] * (8 + lane_b) + E * (pay + 1)
+                   + 8 + n["emitted"],
+        "scan_packed": cap + n["occupied"] * 4 + n["scanned"] * (8 + lane_b) + E * (pay + 1) + 8,
+        # E slots read (key, bin, flag, lanes) and E rows written
+        "hash_scan_chunk": 2 * E * (pay + 1),
+        # every slot's bin and occupancy read, the freed ones written
+        "hash_free": cap * 5 + n["freed"],
+    }
+
+
+def time_hash(dev) -> dict:
+    """The table's kernels at q7's shape (65536 slots, a 65536-event batch
+    of q7's bids into a table holding the stream's first batches): each
+    against its plain version and a library yardstick where one PyTorch
+    call computes the same function, beside the byte bound."""
+    lanes = [("max", torch.int64), ("count", torch.int64)]
+    kinds = [k for k, _ in lanes]
+    batches = bid_batches(6 * BENCH_BATCH, WIDTH)
+    agg = make_hash_agg(kinds, [np.int64, np.int64], Q7_HASH, dev)
+    base = int(batches[0][3].min())
+    for keys, auc, price, bins_abs, _wm in batches[:5]:
+        agg.update(keys, (bins_abs - base).astype(np.int32), [price, np.ones(len(keys), np.int64)])
+    keys, _auc, price, bins_abs, _wm = batches[5]
+    m = len(keys)
+    L = Q7_HASH["batch_cap"]
+    pad = lambda a, dt: torch.from_numpy(np.concatenate([a.astype(dt), np.zeros(L - m, dt)])).to(dev)  # noqa: E731
+    key = pad(keys.view(np.int64), np.int64)[None]
+    bins = pad((bins_abs - base).astype(np.int32), np.int32)[None]
+    vals = [pad(price, np.int64)[None], pad(np.ones(m, np.int64), np.int64)[None]]
+    table = hash_kernels._rows(agg.state[:4])
+    oflow = agg.state[4]
+    u = sharded_kernels.agg_sort_reduce(kinds, key, bins, None, vals, 0, m)
+    occupied = int(table[2].sum())
+    merged = clone_nested(table)
+    still = sharded_kernels.agg_probe_merge(kinds, merged, *u, 64, oflow.clone())
+    segments = int(u[2].sum())
+    claims = int(merged[2].sum()) - occupied
+    lo = int((bins_abs - base).min())
+    E = Q7_HASH["emit_cap"]
+    emit = table[2] & (table[1] >= lo) & (table[1] < lo + 1)
+    counts = {"rows": m, "segments": segments, "claims": claims,
+              "matches": segments - claims - int(still.sum()), "occupied": occupied,
+              "emitted": min(int(emit.sum()), E), "scanned": min(int(emit.sum()), E),
+              "freed": int((table[2] & (table[1] < lo + 1)).sum())}
+    nbytes = hash_bytes(lanes, L, counts, Q7_HASH["cap"], E)
+    t = {}
+
+    def row(name, k, p, lib=None, library="none: no single PyTorch call computes it", **extra):
+        t[name] = {"ms": k["device_ms"], "plain_ms": p["device_ms"],
+                   "library_ms": None if lib is None else lib["device_ms"], "library": library,
+                   "method": k["method"], "call_ms": k["call_ms"], "plain_call_ms": p["call_ms"],
+                   "kernel_names": k["device_kernels"],
+                   "bound_ms": nbytes[name] / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+                   "bytes": nbytes[name], **extra}
+
+    P = hash_kernels.PLAIN
+    log("hash_agg: time")
+    row("agg_sort_reduce",
+        measure(lambda: sharded_kernels.agg_sort_reduce(kinds, key, bins, None, vals, 0, m)),
+        measure(lambda: P.sort_reduce(kinds, key, bins, None, vals, 0, m)), rows=[1, L], valid=m)
+    fresh = lambda: (clone_nested(table), oflow.clone())  # noqa: E731
+    row("agg_probe_merge",
+        time_fresh(lambda tb, of: sharded_kernels.agg_probe_merge(kinds, tb, *u, 64, of), fresh,
+                   TIMING_REPS),
+        time_fresh(lambda tb, of: P.probe_merge(kinds, tb, *u, 64, of), fresh, 5),
+        partials=[1, L], active=segments, claims=claims, table=[1, Q7_HASH["cap"]])
+
+    def nonzero_close(tb):
+        sel = torch.nonzero(tb[2][0] & (tb[1][0] >= lo) & (tb[1][0] < lo + 1)).squeeze(1)[:E]
+        return [tb[0][0][sel], tb[1][0][sel]] + [a[0][sel] for a in tb[3]]
+
+    row("extract",
+        time_fresh(lambda tb, of: sharded_kernels.shard_extract(tb, lo, lo + 1, lo + 1, E, True, of),
+                   fresh, TIMING_REPS),
+        time_fresh(lambda tb, of: P.extract(tb, lo, lo + 1, lo + 1, E, True, of), fresh,
+                   TIMING_REPS),
+        time_fresh(lambda tb, of: nonzero_close(tb), fresh, TIMING_REPS),
+        library="torch.nonzero of the emit mask, then one index per array (no frees)",
+        emit_cap=E, emitted=counts["emitted"])
+    i32min = hash_kernels.I32_MIN
+    row("scan_packed",
+        measure(lambda: sharded_kernels.shard_extract(table, lo, lo + 1, i32min, E, True, oflow)),
+        measure(lambda: P.extract(table, lo, lo + 1, i32min, E, True, oflow)),
+        measure(lambda: nonzero_close(table)),
+        library="torch.nonzero of the emit mask, then one index per array", emit_cap=E)
+    t1 = agg.state[:4]
+    row("hash_scan_chunk",
+        measure(lambda: hash_kernels.hash_scan_chunk(t1, lo, lo + 1, 0, E)),
+        measure(lambda: P.scan_chunk(t1, lo, lo + 1, 0, E)),
+        measure(lambda: [t1[0][:E], t1[1][:E], t1[2][:E] & (t1[1][:E] >= lo)
+                         & (t1[1][:E] < lo + 1)] + [a[:E] for a in t1[3]]),
+        library="slice of each array and the mask", emit_cap=E)
+    fresh1 = lambda: (t1[0], t1[1], t1[2].clone(), t1[3])  # noqa: E731
+    row("hash_free",
+        time_fresh(lambda *tb: hash_kernels.hash_free(tb, lo + 1), fresh1, TIMING_REPS),
+        time_fresh(lambda *tb: P.free(tb, lo + 1), fresh1, TIMING_REPS),
+        time_fresh(lambda *tb: tb[2].logical_and_(tb[1] >= lo + 1), fresh1, TIMING_REPS),
+        library="occ &= bins >= below", cap=Q7_HASH["cap"], freed=counts["freed"])
+    t["counts"] = counts
+    return t
+
+
+def hash_agg_phase(dev) -> dict:
+    """B9's path on the card: q7's 2,000,000 events through the table
+    (MAX(price), COUNT per auction and 10 s window, closes through
+    extract_start) exactly against oracle_q7 and the host store; the same
+    stream's float64 SUM and MIN of price, and q5's hop windows (500,000
+    events) through scan_range and free_bins_below exactly against
+    oracle_q5, both with every kernel checked against its plain version.
+    Launch counts are zeroed just before the q7 drive (K8, K9, K11) and
+    the hop drive (K12, K13) and read just after each. Then the
+    deployment state (whose scans walk K12 chunks too) and the edge cases,
+    every kernel checked; then timed."""
+    int_batches = bid_batches(Q7_EVENTS, WIDTH)
+    hop_batches = bid_batches(HOP_EVENTS, SLIDE)
+    auction_of = {}
+    for keys, auc, *_r in int_batches:
+        auction_of.update(zip(keys.tolist(), auc.tolist()))
+    want_q7, want_q5 = oracle_q7(Q7_EVENTS), oracle_q5(HOP_EVENTS)
+    checks: dict = {}
+    ints = lambda auc, price: [price, np.ones(len(auc), np.int64)]  # noqa: E731
+    flts = lambda auc, price: [price.astype(np.float64)] * 2  # noqa: E731
+
+    def launched(label, path):
+        got = hash_launch_counts()
+        unlaunched = [k for k in path if got[k] == 0]
+        if unlaunched:
+            raise AssertionError(f"hash_agg {label} ran without launching {unlaunched}: {got}")
+        return got
+
+    reset_hash_launch_counts()
+    t0 = time.perf_counter()
+    base, closes = drive_tumbling(make_hash_agg(("max", "count"), (np.int64, np.int64), Q7_HASH, dev),
+                                  int_batches, ints)
+    wall_int = time.perf_counter() - t0
+    launches = {"q7": launched("q7", HASH_Q7_KERNELS)}
+    got = q7_windows(base, closes, auction_of)
+    if got != want_q7:
+        raise AssertionError(f"hash_agg: q7 parity failure: {len(got)} windows vs {len(want_q7)}")
+    t0 = time.perf_counter()
+    fbase, fcloses = drive_tumbling(make_hash_agg(("sum", "min"), (np.float64, np.float64), Q7_HASH,
+                                             dev, checked_ops(checks)), int_batches, flts)
+    wall_float = time.perf_counter() - t0
+    hop_checks: dict = {}
+    reset_hash_launch_counts()
+    t0 = time.perf_counter()
+    hop = drive_hop(make_hash_agg(("count",), (np.int64,), HOP_HASH, dev, checked_ops(hop_checks)),
+                    hop_batches)
+    wall_hop = time.perf_counter() - t0
+    launches["q5 hop"] = launched("q5 hop", HASH_HOP_KERNELS)
+    if any(hop_checks.get(k) != launches["q5 hop"][k] for k in HASH_HOP_KERNELS):
+        raise AssertionError(f"hash_agg q5 hop: checks {hop_checks} vs launches {launches}")
+    for k, c in hop_checks.items():
+        checks[k] = checks.get(k, 0) + c
+    n_hop = check_hop(hop, auction_of, want_q5)
+    # the host store, and the float run against plain sums of the same rows
+    t0 = time.perf_counter()
+    hbase, hcloses = drive_tumbling(make_hash_agg(("max", "count"), (np.int64, np.int64), Q7_HASH, dev,
+                                             backend="numpy"), int_batches, ints)
+    wall_host = time.perf_counter() - t0
+    if q7_windows(hbase, hcloses, auction_of) != got:
+        raise AssertionError("hash_agg: the table's windows differ from the host store's")
+    fsum = {}
+    for k, b, (sm, mn) in fcloses:
+        fsum.update(zip(zip(k.tolist(), b.tolist()), sm.tolist()))
+    if len(fsum) != len(got):
+        raise AssertionError(f"hash_agg float run: {len(fsum)} windows vs {len(got)}")
+    log("hash_agg: deployment state")
+    deploy = hash_deployment(dev, checks)
+    log("hash_agg: edge cases")
+    cases = hash_edge_cases(dev, checks)
+    missing = [k for k in HASH_PATH_KERNELS if not checks.get(k)]
+    if missing:
+        raise AssertionError(f"hash_agg: {missing} never checked against the plain version")
+    info = {"phase": "hash_agg", "events": Q7_EVENTS, "windows": len(got),
+            "hop_events": HOP_EVENTS, "hop_rows": n_hop, "launches": launches,
+            "wall_s": {"q7 int": wall_int, "q7 float, checked": wall_float,
+                       "q5 hop, checked": wall_hop, "q7 host store": wall_host},
+            "events_per_s_q7_int": Q7_EVENTS / wall_int, "checks": checks,
+            "checks_q5_hop": hop_checks,
+            "sizes": {"q7": Q7_HASH, "hop": HOP_HASH, "deployment": HASH_DEPLOY},
+            "deployment": deploy, "cases": cases, "max_abs_err": 0.0,
+            "timing": time_hash(dev)}
+    emit(info)
+    return info
+
+
+def run_q7_host() -> dict:
+    """q7c (chaining on, bench.py's sizes) with the window on the host
+    store ("backend": "numpy"): exact against oracle_q7; K4 runs on the
+    card, the window's state and close on the host."""
+    def build(rows, events):
+        g = build_q7(rows, events)
+        g.nodes["agg"].config["backend"] = "numpy"
+        return g
+
+    info = run_chained("q7_host", build, Q7_EVENTS, oracle_q7, check_q7,
+                       path_kernels=("segment_fused",))
+    on_card = [k for k in AGG_PATH_KERNELS[:3] if info["launches"][k]]
+    if on_card:
+        raise AssertionError(f"q7_host launched the device window's kernels {on_card}")
+    return info
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out-dir", default="chip_smoke_out",
@@ -2387,6 +2991,8 @@ def main(argv=None) -> int:
         "q5m": run_q5m,
         "mesh_ab": run_mesh_ab,
         "sharded": lambda: sharded_phase(dev),
+        "hash_agg": lambda: hash_agg_phase(dev),
+        "q7_host": run_q7_host,
     }
     only = args.only.split(",") if args.only else list(phases)
     unknown = sorted(set(only) - set(phases))
@@ -2449,14 +3055,31 @@ def kernel_rows(res: dict) -> list:
                  "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                  "library_ms": t["library_ms"]})
     st = res["sharded"]["timing"]["q7m"]
+    ha = res["hash_agg"]
+    ht = ha["timing"]
     for name in SHARDED_KERNELS:
         t = st[name]
-        rows.append({"name": name, "route": "cuda", "source": SHARDED_SOURCE,
-                     "replaces": REPLACES[name],
-                     "launches": res["q7m"]["fused"]["launches"][name],
-                     "max_abs_err": res["sharded"]["max_abs_err"], "ms": t["ms"],
-                     "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-                     "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+        row = {"name": name, "route": "cuda", "source": SHARDED_SOURCE,
+               "replaces": REPLACES[name],
+               "launches": res["q7m"]["fused"]["launches"][name],
+               "max_abs_err": res["sharded"]["max_abs_err"], "ms": t["ms"],
+               "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+               "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
+        if name in HASH_PATH_KERNELS:
+            # the single-device table's path (B9) runs it at one shard too
+            h = ht["extract" if name == "shard_extract" else name]
+            row["hash_agg"] = {"replaces": "arroyo_tpu/ops/aggregate.py:308",
+                               "launches": ha["launches"]["q7"][name], "ms": h["ms"],
+                               "plain_ms": h["plain_ms"], "bound_ms": h["bound_ms"],
+                               "library_ms": h["library_ms"]}
+        rows.append(row)
+    for name in ("hash_scan_chunk", "hash_free"):
+        t = ht[name]
+        rows.append({"name": name, "route": "cuda", "source": HASH_SOURCE,
+                     "replaces": REPLACES[name], "launches": ha["launches"]["q5 hop"][name],
+                     "max_abs_err": ha["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
+                     "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                     "library_ms": t["library_ms"]})
     return rows
 
 

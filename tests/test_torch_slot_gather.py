@@ -20,8 +20,9 @@ LANES = [
     ((("sum",) * 4), (np.int64,) * 4),  # qu's lanes: count, sum, avg's sum and count
     (("sum", "min", "max", "count"), (np.int32, np.float32, np.float64, np.int64)),
     (("sum",), (np.float64,)),
+    (("max", "count"), (np.uint64, np.int64)),  # a numeric uint64 group-by key lane
 ]
-IDS = ["qu", "mixed", "float64"]
+IDS = ["qu", "mixed", "float64", "uint64"]
 
 
 def _state(rng, dtypes, cap):
