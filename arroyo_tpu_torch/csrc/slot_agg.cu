@@ -59,10 +59,27 @@
 // land in. Float sums do depend on the order: the reference adds each
 // slot's rows one after another in batch order, starting from the state
 // value. So a float add lane takes no atomic: the caller first sorts the
-// slots stably with K5 (csrc/join_probe.cu, arroyo_join_sort_pairs: equal
-// slots keep their row order), and one thread per run of equal slots walks
-// its rows in order from state[slot] (__dadd_rn / __fadd_rn, no
-// contraction). A hot slot's run costs its length serially.
+// slots stably with K5 in range mode (csrc/join_probe.cu,
+// arroyo_join_sort_pairs: equal slots keep their row order, and every
+// slot outside [0, cap) sorts last, as cap), and each run of equal slots
+// is then added in row order from state[slot] (__dadd_rn / __fadd_rn, no
+// contraction).
+//
+// That serial chain per slot is the result, so a hot slot's run costs its
+// length in dependent adds (the chain floor: at the deployment shape the
+// hottest of 65536 Zipf(1.2) rows' slots holds about 11,000 rows). What
+// the walk removes are the load waits inside the chain. walk_runs gives
+// one thread to each sorted row: a run's head (the first row of its slot)
+// finds the run's end by a galloping binary search over the sorted slots;
+// a run shorter than long_run is added by that thread, its order and
+// values loaded eight rows at a time ahead of their adds; a longer run
+// goes to a device list (an atomic counter, zeroed by a memset on the
+// stream). walk_long then gives one block to each listed run: eight warps
+// stage the next chunk (1024 rows, 256 with more than eight ordered lanes)
+// of the run's order and values into shared memory while one thread per
+// ordered lane, each lane on its own warp, adds the chunk staged before
+// (double buffered), reading 32 staged values ahead of its adds. So the
+// float64 and float32 lanes walk concurrently, and a step costs one add.
 //
 // Each entry point launches on the stream it is given, allocates nothing
 // and returns cudaGetLastError().
@@ -83,7 +100,9 @@ struct ScatterArgs {
   int kind[MAX_LANES];
   int dtype[MAX_LANES];
   int ordered[MAX_LANES];  // a float add lane: summed in row order, not by atomics
+  int ord_lane[MAX_LANES];  // the ordered lanes' indices
   int n_lanes;
+  int n_ord;
 };
 
 __host__ __device__ __forceinline__ bool is_float(int dt) { return dt == DT_F32 || dt == DT_F64; }
@@ -207,34 +226,215 @@ __global__ void scatter_combine_kernel(ScatterArgs args, const SlotT* __restrict
 
 // ------------------------------------------------------------ K1, float sums
 
-// one thread per run of equal slots in K5's output (the slots sorted
-// stably, with each row's index): each float add lane's rows added one
-// after another in row order from the state value
-__global__ void ord_walk(ScatterArgs args, const long long* __restrict__ sorted,
-                         const int* __restrict__ order, long long n, long long cap) {
+#define STAGE_THREADS 256  // the threads of a walk_long block that stage rows
+#define STAGE_ROWS 4        // rows each of them stages per chunk, at most
+#define MAX_WALKERS 8
+
+__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
+__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
+
+// The end of the run of slot s that starts at sorted row i: the first row
+// after it whose slot is above s (galloping, then a binary search).
+__device__ __forceinline__ long long run_end(const long long* __restrict__ sorted, long long i,
+                                             long long n, long long s) {
+  long long in = i, step = 1;  // sorted[in] == s
+  while (i + step < n && sorted[i + step] == s) {
+    in = i + step;
+    step <<= 1;
+  }
+  long long out = i + step < n ? i + step : n;  // past the run
+  while (out - in > 1) {
+    const long long mid = in + ((out - in) >> 1);
+    if (sorted[mid] == s) in = mid; else out = mid;
+  }
+  return out;
+}
+
+// acc plus the values of rows order[a..e) in row order, loads eight rows
+// ahead of the adds; vp NULL adds 1 per row
+template <typename F>
+__device__ __forceinline__ F walk_short(F acc, const F* __restrict__ vp,
+                                        const int* __restrict__ order, long long a, long long e) {
+  long long r = a;
+  for (; r + 8 <= e; r += 8) {
+    int o[8];
+    F v[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) o[k] = order[r + k];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) v[k] = vp ? vp[o[k]] : F(1);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) acc = add_rn(acc, v[k]);
+  }
+  for (; r < e; ++r) acc = add_rn(acc, vp ? vp[order[r]] : F(1));
+  return acc;
+}
+
+// One thread per sorted row: a run's head walks a short run itself and
+// lists a run of at least long_run rows for walk_long. runs[0] counts the
+// listed runs; runs[1 + 2k], runs[2 + 2k] are run k's first and past-last rows.
+__global__ void walk_runs(ScatterArgs args, const long long* __restrict__ sorted,
+                          const int* __restrict__ order, long long n, long long cap,
+                          long long long_run, long long* __restrict__ runs) {
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
     const long long s = sorted[i];
     if (s < 0 || s >= cap || (i > 0 && sorted[i - 1] == s)) continue;
-    long long end = i + 1;
-    while (end < n && sorted[end] == s) ++end;
-    for (int l = 0; l < args.n_lanes; ++l) {
-      if (!args.ordered[l]) continue;
-      const void* vp = args.vals[l];
+    const long long e = run_end(sorted, i, n, s);
+    if (e - i >= long_run) {
+      const unsigned long long k = atomicAdd(reinterpret_cast<unsigned long long*>(runs), 1ULL);
+      runs[1 + 2 * k] = i;
+      runs[2 + 2 * k] = e;
+      continue;
+    }
+    for (int li = 0; li < args.n_ord; ++li) {
+      const int l = args.ord_lane[li];
       if (args.dtype[l] == DT_F64) {
         double* st = static_cast<double*>(args.state[l]) + s;
-        double acc = *st;
-        for (long long r = i; r < end; ++r)
-          acc = __dadd_rn(acc, vp ? static_cast<const double*>(vp)[order[r]] : 1.0);
-        *st = acc;
+        *st = walk_short(*st, static_cast<const double*>(args.vals[l]), order, i, e);
       } else {
         float* st = static_cast<float*>(args.state[l]) + s;
-        float acc = *st;
-        for (long long r = i; r < end; ++r)
-          acc = __fadd_rn(acc, vp ? static_cast<const float*>(vp)[order[r]] : 1.0f);
-        *st = acc;
+        *st = walk_short(*st, static_cast<const float*>(args.vals[l]), order, i, e);
       }
     }
+  }
+}
+
+// chunk c (of `chunk` rows) of the run [a, e): staging thread t loads the
+// order of rows a + c chunk + t + k STAGE_THREADS, then each ordered lane's
+// value of those rows (its bits; 1 for a lane without values) into buf
+__device__ __forceinline__ void stage_chunk(const ScatterArgs& args, const int* __restrict__ order,
+                                            long long a, long long e, long long c, int chunk,
+                                            unsigned long long* buf, int t) {
+  int o[STAGE_ROWS];
+#pragma unroll
+  for (int k = 0; k < STAGE_ROWS; ++k) {
+    const int j = t + k * STAGE_THREADS;
+    const long long r = a + c * chunk + j;
+    o[k] = j < chunk && r < e ? order[r] : -1;
+  }
+  for (int li = 0; li < args.n_ord; ++li) {
+    const int l = args.ord_lane[li];
+    const void* vp = args.vals[l];
+    const bool f64 = args.dtype[l] == DT_F64;
+    unsigned long long v[STAGE_ROWS];
+#pragma unroll
+    for (int k = 0; k < STAGE_ROWS; ++k) {
+      if (o[k] < 0) continue;
+      v[k] = f64 ? (vp ? static_cast<const unsigned long long*>(vp)[o[k]]
+                       : (unsigned long long)__double_as_longlong(1.0))
+                 : (vp ? static_cast<const unsigned*>(vp)[o[k]] : __float_as_uint(1.0f));
+    }
+#pragma unroll
+    for (int k = 0; k < STAGE_ROWS; ++k)
+      if (o[k] >= 0) buf[li * chunk + t + k * STAGE_THREADS] = v[k];
+  }
+}
+
+__device__ __forceinline__ double from_bits(unsigned long long b, double) {
+  return __longlong_as_double((long long)b);
+}
+__device__ __forceinline__ float from_bits(unsigned long long b, float) {
+  return __uint_as_float((unsigned)b);
+}
+
+extern __shared__ unsigned long long stage[];  // walk_long's staged chunks
+
+// x plus the len staged values stage[at..at + len) in order: the next
+// WALK_AHEAD values are read from shared memory while the adds of the ones
+// before run, so the chain waits on the adds alone
+#define WALK_AHEAD 32
+template <typename F>
+__device__ __forceinline__ F walk_staged(F x, int at, int len) {
+  F cur[WALK_AHEAD], nxt[WALK_AHEAD];
+  int r = 0;
+  if (len >= WALK_AHEAD) {
+#pragma unroll
+    for (int k = 0; k < WALK_AHEAD; ++k) cur[k] = from_bits(stage[at + k], x);
+    for (; r + 2 * WALK_AHEAD <= len; r += WALK_AHEAD) {
+#pragma unroll
+      for (int k = 0; k < WALK_AHEAD; ++k) {
+        nxt[k] = from_bits(stage[at + r + WALK_AHEAD + k], x);
+        x = add_rn(x, cur[k]);
+      }
+#pragma unroll
+      for (int k = 0; k < WALK_AHEAD; ++k) cur[k] = nxt[k];
+    }
+#pragma unroll
+    for (int k = 0; k < WALK_AHEAD; ++k) x = add_rn(x, cur[k]);
+    r += WALK_AHEAD;
+  }
+  for (; r < len; ++r) x = add_rn(x, from_bits(stage[at + r], x));
+  return x;
+}
+
+// One block per listed run: STAGE_THREADS threads stage chunk c + 1 while
+// lane 0 of each of the first `walkers` warps adds chunk c of its lanes
+// (lanes w, w + walkers, ...). blockDim.x = 32 * walkers + STAGE_THREADS;
+// dynamic shared memory 2 * n_ord * chunk words.
+__global__ void walk_long(ScatterArgs args, const long long* __restrict__ sorted,
+                          const int* __restrict__ order, const long long* __restrict__ runs,
+                          int walkers, int chunk) {
+  __shared__ unsigned long long acc[MAX_LANES];  // each ordered lane's sum, as bits
+  const long long n_runs = runs[0];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int stager = (int)threadIdx.x - 32 * walkers;  // < 0 on a walker warp
+  const bool walker = warp < walkers && lane == 0;
+  const int chunk_words = args.n_ord * chunk;
+  for (long long k = blockIdx.x; k < n_runs; k += gridDim.x) {
+    const long long a = runs[1 + 2 * k], e = runs[2 + 2 * k];
+    const long long s = sorted[a];
+    const long long chunks = (e - a + chunk - 1) / chunk;
+    if (stager >= 0) stage_chunk(args, order, a, e, 0, chunk, stage, stager);
+    if (walker)
+      for (int li = warp; li < args.n_ord; li += walkers) {
+        const int l = args.ord_lane[li];
+        acc[li] = args.dtype[l] == DT_F64
+                      ? static_cast<const unsigned long long*>(args.state[l])[s]
+                      : static_cast<const unsigned*>(args.state[l])[s];
+      }
+    __syncthreads();
+    for (long long c = 0; c < chunks; ++c) {
+      if (stager >= 0 && c + 1 < chunks)
+        stage_chunk(args, order, a, e, c + 1, chunk, stage + ((c + 1) & 1) * chunk_words, stager);
+      if (walker) {
+        const int len = (int)min((long long)chunk, e - a - c * chunk);
+        for (int li = warp; li < args.n_ord; li += walkers) {
+          const int at = (int)(c & 1) * chunk_words + li * chunk;
+          if (args.dtype[args.ord_lane[li]] == DT_F64)
+            acc[li] = (unsigned long long)__double_as_longlong(
+                walk_staged(__longlong_as_double((long long)acc[li]), at, len));
+          else
+            acc[li] = __float_as_uint(walk_staged(__uint_as_float((unsigned)acc[li]), at, len));
+        }
+      }
+      __syncthreads();
+    }
+    if (walker)
+      for (int li = warp; li < args.n_ord; li += walkers) {
+        const int l = args.ord_lane[li];
+        if (args.dtype[l] == DT_F64)
+          static_cast<unsigned long long*>(args.state[l])[s] = acc[li];
+        else
+          static_cast<unsigned*>(args.state[l])[s] = (unsigned)acc[li];
+      }
+  }
+}
+
+// The chain floor: one thread adds x[1] to x[0] n times, each add waiting
+// on the one before (float32 if f32); out[0] keeps the sum.
+__global__ void add_chain_kernel(const double* __restrict__ x, long long n, int f32,
+                                 double* __restrict__ out) {
+  if (f32) {
+    float acc = (float)x[0];
+    const float d = (float)x[1];
+    for (long long i = 0; i < n; ++i) acc = __fadd_rn(acc, d);
+    out[0] = acc;
+  } else {
+    double acc = x[0];
+    const double d = x[1];
+    for (long long i = 0; i < n; ++i) acc = __dadd_rn(acc, d);
+    out[0] = acc;
   }
 }
 
@@ -324,11 +524,14 @@ static int grid_for(long long n) {
 extern "C" {
 
 // K1. sorted, order: for a float add lane, the slots sorted stably and
-// each sorted row's index (K5 arroyo_join_sort_pairs of the slots, on the
-// same stream); NULL when no lane is a float add lane.
+// each sorted row's index (K5 arroyo_join_sort_pairs of the slots in range
+// mode, on the same stream); runs: 1 + 2 * runs_cap int64 words, room for
+// every run of at least long_run rows (runs_cap >= n / long_run); all three
+// NULL when no lane is a float add lane.
 int arroyo_slot_scatter_combine(int device, void** state, const void** vals, const int* kinds,
                                 const int* dtypes, int n_lanes, const void* slots, int slots_i64,
                                 long long n, long long cap, const void* sorted, const void* order,
+                                void* runs, long long runs_cap, long long long_run,
                                 void* stream) {
   if (n_lanes < 1 || n_lanes > MAX_LANES || n < 1) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
@@ -341,10 +544,13 @@ int arroyo_slot_scatter_combine(int device, void** state, const void** vals, con
     args.kind[l] = kinds[l];
     args.dtype[l] = dtypes[l];
     args.ordered[l] = kinds[l] == KIND_ADD && is_float(dtypes[l]);
-    n_ordered += args.ordered[l];
+    if (args.ordered[l]) args.ord_lane[n_ordered++] = l;
   }
   args.n_lanes = n_lanes;
-  if (n_ordered && (sorted == nullptr || order == nullptr)) return (int)cudaErrorInvalidValue;
+  args.n_ord = n_ordered;
+  if (n_ordered && (sorted == nullptr || order == nullptr || runs == nullptr || long_run < 1 ||
+                    runs_cap < n / long_run))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n_ordered < n_lanes) {
     if (slots_i64)
@@ -355,9 +561,37 @@ int arroyo_slot_scatter_combine(int device, void** state, const void** vals, con
           args, static_cast<const int*>(slots), n, cap);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
-  if (n_ordered)
-    ord_walk<<<grid_for(n), THREADS, 0, s>>>(args, static_cast<const long long*>(sorted),
-                                             static_cast<const int*>(order), n, cap);
+  if (!n_ordered) return (int)cudaSuccess;
+  const long long* sk = static_cast<const long long*>(sorted);
+  const int* ord = static_cast<const int*>(order);
+  long long* rl = static_cast<long long*>(runs);
+  if ((err = cudaMemsetAsync(rl, 0, sizeof(long long), s)) != cudaSuccess) return (int)err;
+  walk_runs<<<grid_for(n), THREADS, 0, s>>>(args, sk, ord, n, cap, long_run, rl);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  if (n < long_run) return (int)cudaSuccess;  // no run can be long
+  const int walkers = n_ordered < MAX_WALKERS ? n_ordered : MAX_WALKERS;
+  // two chunks of every ordered lane in shared memory: at most 128 KB
+  const int chunk = n_ordered <= 8 ? STAGE_THREADS * STAGE_ROWS : STAGE_THREADS;
+  const size_t smem = 2 * (size_t)n_ordered * chunk * sizeof(unsigned long long);
+  if ((err = cudaFuncSetAttribute(walk_long, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)smem)) != cudaSuccess)
+    return (int)err;
+  long long blocks = n / long_run;
+  if (blocks > 132LL * 2) blocks = 132LL * 2;
+  walk_long<<<(unsigned)blocks, 32 * walkers + STAGE_THREADS, smem, s>>>(args, sk, ord, rl,
+                                                                        walkers, chunk);
+  return (int)cudaGetLastError();
+}
+
+// The chain floor's probe (chip_smoke.py only): add_chain_kernel on one
+// thread; x holds two doubles (start, step), out one.
+int arroyo_slot_add_chain(int device, const void* x, long long n, int f32, void* out,
+                          void* stream) {
+  if (n < 1) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  add_chain_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const double*>(x), n, f32, static_cast<double*>(out));
   return (int)cudaGetLastError();
 }
 

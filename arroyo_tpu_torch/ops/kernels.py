@@ -5,7 +5,9 @@ each replaces and what bounds it) update and read the aggregate state, one
 ``[cap]`` tensor per accumulator lane, in place:
 
 - ``slot_scatter_combine`` (K1): rows combine into ``state[slot]``; float
-  sums add each slot's rows in row order, as the reference does;
+  sums add each slot's rows in row order, as the reference does (K5's
+  stable sort of the slots, then a walk of each slot's run: a long run by
+  a whole block);
 - ``slot_region_read_pack`` (K2): k regions of every lane, packed into one
   int64 and one float64 buffer;
 - ``slot_region_clear`` (K3): k regions reset to each lane's identity;
@@ -46,6 +48,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 MAX_LANES = 32  # csrc/slot_agg.cu MAX_LANES
 MAX_BASES = 16  # csrc/slot_agg.cu MAX_BASES
+# K1's float sums: a slot's run of at least this many sorted rows is walked
+# by a whole block (csrc/slot_agg.cu walk_long), a shorter one by one thread
+LONG_RUN = 64
 
 # lane dtypes (csrc/slot_agg.cu DT_*); uint64 carries a numeric group-by key
 # as a max lane, as in the JAX package's window state
@@ -126,12 +131,14 @@ def _bind_slot_agg(lib: ctypes.CDLL) -> None:
     ip = ctypes.POINTER(ctypes.c_int)
     llp = ctypes.POINTER(ctypes.c_longlong)
     ullp = ctypes.POINTER(ctypes.c_ulonglong)
-    lib.arroyo_slot_scatter_combine.argtypes = [i, pp, pp, ip, ip, i, p, i, ll, ll, p, p, p]
+    lib.arroyo_slot_scatter_combine.argtypes = [i, pp, pp, ip, ip, i, p, i, ll, ll, p, p, p, ll,
+                                                ll, p]
+    lib.arroyo_slot_add_chain.argtypes = [i, p, ll, i, p, p]
     lib.arroyo_slot_region_read_pack.argtypes = [i, pp, ip, i, llp, i, ll, p, p, p]
     lib.arroyo_slot_region_clear.argtypes = [i, pp, ip, ullp, i, llp, i, ll, p]
     lib.arroyo_slot_gather.argtypes = [i, pp, ip, i, p, i, ll, ll, p, p, p]
     for fn in (lib.arroyo_slot_scatter_combine, lib.arroyo_slot_region_read_pack,
-               lib.arroyo_slot_region_clear, lib.arroyo_slot_gather):
+               lib.arroyo_slot_region_clear, lib.arroyo_slot_gather, lib.arroyo_slot_add_chain):
         fn.restype = ctypes.c_int
 
 
@@ -250,14 +257,18 @@ def slot_scatter_combine(state: Sequence[torch.Tensor], kinds: Sequence[str],
         return
     if n == 0:
         return
-    sorted_slots = order = None
+    sorted_slots = order = runs = None
     if any(ordered_add(k, a.dtype) for a, k in zip(state, kinds)):
-        # float sums walk each slot's rows in row order: K5 sorts the slots stably
+        # float sums walk each slot's rows in row order: K5 sorts the slots
+        # stably, in range mode (every slot outside [0, cap) sorts last)
         from .join_kernels import INT32_LIMIT, sort_pairs_launch
 
         if n > INT32_LIMIT:
             raise ValueError(f"{n} rows: K1's float sums index rows in int32")
-        sorted_slots, order = sort_pairs_launch(slots)
+        cap = state[0].shape[0]
+        sorted_slots, order = sort_pairs_launch(
+            slots, range_cap=cap if 0 < cap <= INT32_LIMIT else None)
+        runs = torch.empty(1 + 2 * (n // LONG_RUN + 1), dtype=torch.int64, device=dev)
     lib = build_library()
     dts = (ctypes.c_int * len(state))(*[_DTYPE_CODE[a.dtype] for a in state])
     kc = (ctypes.c_int * len(state))(*[_KIND_CODE[k] for k in kinds])
@@ -266,7 +277,8 @@ def slot_scatter_combine(state: Sequence[torch.Tensor], kinds: Sequence[str],
         dev.index or 0, _ptrs(state), vp, kc, dts, len(state), slots.data_ptr(),
         int(slots.dtype == torch.int64), n, state[0].shape[0],
         None if order is None else sorted_slots.data_ptr(),
-        None if order is None else order.data_ptr(), _stream(dev))
+        None if order is None else order.data_ptr(),
+        None if runs is None else runs.data_ptr(), n // LONG_RUN + 1, LONG_RUN, _stream(dev))
     _raise_on(err, "slot_scatter_combine")
     _counted(slot_scatter_combine)
 

@@ -34,9 +34,14 @@ non-zero, printing no result):
               chaining on, with the same checks against a copy of
               bench.py's oracle_q5;
 7. kernels -- K1-K3 against their plain PyTorch versions on the card,
-              exactly (float sums bit for bit: K1 adds them in row order), at
-              q7's shape and at a deployment-size state (4,194,304 slots,
-              float32 and float64 sums, a uint64 lane), hot and merge mode, k in {1, 2, 4, 8, 16} duplicated bases with
+              exactly (float sums bit for bit: K1 adds them in row order), on
+              K1's edge cases (one slot taking every row, runs at the
+              block walk's threshold and either side of it, padding slots
+              inside a long run, -0.0, NaN and infinities in values and
+              state, int32 and int64 slots), at q7's shape, at qu's (its
+              lanes, 262,144 slots) and at a deployment-size state
+              (4,194,304 slots, float32 and float64 sums, a uint64 lane),
+              hot and merge mode, k in {1, 2, 4, 8, 16} duplicated bases with
               and without clear, then timed beside the plain version, a
               PyTorch library yardstick and the bound (device time per call
               from a torch.profiler trace, and the per-call time bracketed by
@@ -61,7 +66,11 @@ non-zero, printing no result):
               deployment-size window (1,048,576 probe x 16,777,216 build
               rows) and on edge cases (empty sides, INT64_MAX and INT64_MIN
               keys, one key everywhere, negative keys, sizes that are not
-              powers of two); then timed like K1-K3;
+              powers of two); K5 alone on its own edge cases (keys equal in
+              all but the top or the bottom digit, 2^20 + 3 equal keys, one
+              tile and one key past it, int32 negatives, key_bits < 64,
+              range mode); then timed like K1-K3, with K5's launches per
+              call;
 11. qu     -- the Nexmark running aggregate per auction (bids -> GROUP BY
               auction with COUNT, SUM and AVG of price, a changelog of
               retract/append pairs) through the updating aggregate's device
@@ -198,6 +207,7 @@ SEGMENT_SOURCE = "arroyo_tpu_torch/ops/segment_kernel.py"
 NP_DT = {torch.int32: np.int32, torch.int64: np.int64, torch.float32: np.float32,
          torch.float64: np.float64, torch.uint64: np.uint64}
 TIMING_REPS = 30
+WARM_TRACE_S = 0.05  # device_trace: the profiler idles this long around the traced work
 # the kernels q7c and q5 must launch (K1-K3, K4); q8c's are K4, K5, K6
 AGG_PATH_KERNELS = ("slot_scatter_combine", "slot_region_read_pack", "slot_region_clear",
                     "segment_fused")
@@ -365,10 +375,9 @@ def run_q7() -> dict:
     unlaunched = [k for k in AGG_PATH_KERNELS[:3] if launches[k] == 0]
     if unlaunched:
         raise AssertionError(f"q7 ran without launching {unlaunched}: {launches}")
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        rows_p, wall_p, _eng = drive_q7()
+    out = []
+    prof = device_trace(lambda: out.append(drive_q7()), warm_device)
+    rows_p, wall_p, _eng = out[0]
     check_q7(rows_p, want)
     by_name = device_us_by_name(prof)
     busy_s = sum(by_name.values()) / 1e6 if by_name else None  # None: not measured
@@ -507,11 +516,12 @@ def profiled_run(build, events: int, job: str, check, want, queue_mult: int = 2,
                  table_capacity: int = 65536, extra: dict = None) -> dict:
     """One more chaining-on run under torch.profiler: the device's busy and
     idle share of the run's wall time, and its top device operations."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        rows_p, wall_p, _eng = drive(build, events, job, chaining=True, queue_mult=queue_mult,
-                                     table_capacity=table_capacity, extra=extra)
+    out = []
+    prof = device_trace(lambda: out.append(drive(build, events, job, chaining=True,
+                                                 queue_mult=queue_mult,
+                                                 table_capacity=table_capacity, extra=extra)),
+                        warm_device)
+    rows_p, wall_p, _eng = out[0]
     check(rows_p, want)
     by_name = device_us_by_name(prof)
     busy_s = sum(by_name.values()) / 1e6 if by_name else None  # None: not measured
@@ -1197,6 +1207,65 @@ def join_edge_cases(rng) -> list:
             for label, lk, rk in cases]
 
 
+def sort_edge_cases(rng) -> list:
+    """(label, keys, mode) of K5's edge cases: int64 keys (int32 where
+    named), mode the keyword arguments of join_sort_pairs (key_bits,
+    range_cap). Sizes below, at and past one tile (4096 keys) and not
+    powers of two."""
+    i64, i32 = np.iinfo(np.int64), np.iinfo(np.int32)
+    edges = np.array([i64.min, -1, 0, i64.max, i64.min + 1, 1, i64.max - 1], np.int64)
+    top = (rng.integers(0, 256, 10_000).astype(np.uint64) << np.uint64(56)
+           | np.uint64(0x00123456789ABCDE)).view(np.int64)
+    bottom = (np.uint64(0x8765432101234500)
+              | rng.integers(0, 256, 10_000).astype(np.uint64)).view(np.int64)
+    hashed = hash_columns([rng.integers(0, 5000, 131_071)]).view(np.int64)
+    slots = (rng.zipf(1.2, 65_536) - 1) % 262_160
+    slots[rng.random(65_536) < 0.01] = -1
+    slots[:3] = [i64.min, i64.max, 1 << 40]
+    return [
+        ("INT64_MIN, -1, 0 and INT64_MAX", rng.choice(edges, 5000), {}),
+        ("INT64_MIN, -1, 0 and INT64_MAX, one tile", rng.choice(edges, 9), {}),
+        ("equal but the top digit", top, {}),
+        ("equal but the bottom digit", bottom, {}),
+        ("all equal, 2^20 + 3 rows", np.full((1 << 20) + 3, -12345, np.int64), {}),
+        ("131,071 hashed keys", hashed, {}),
+        ("n of 1", np.array([7], np.int64), {}),
+        ("n of 2", np.array([3, -3], np.int64), {}),
+        ("4095 keys", hashed[:4095], {}),
+        ("4096 keys", hashed[:4096], {}),
+        ("4097 keys", hashed[:4097], {}),
+        ("int32 negatives", np.concatenate([[i32.min, -1, 0, i32.max],
+                                            rng.integers(i32.min, i32.max, 9000)]).astype(np.int32),
+         {}),
+        ("key_bits 16", rng.integers(0, 1 << 16, 7000).astype(np.int64), {"key_bits": 16}),
+        ("range mode, cap 262144", slots.astype(np.int64), {"range_cap": 262_144}),
+        ("range mode, cap 1", rng.integers(-2, 3, 5000).astype(np.int64), {"range_cap": 1}),
+        ("range mode, cap 2^31 - 1, int32 keys",
+         rng.integers(i32.min, i32.max, 9000).astype(np.int32), {"range_cap": int(i32.max)}),
+        ("range mode, cap 4096, int32 keys",
+         rng.integers(-5, 4200, 4097).astype(np.int32), {"range_cap": 4096}),
+        ("range mode, cap 300, one tile", rng.integers(-5, 310, 777).astype(np.int64),
+         {"range_cap": 300}),
+    ]
+
+
+def check_sort_case(label: str, keys: np.ndarray, mode: dict, dev) -> dict:
+    """K5 against its plain version on the card, exactly (keys and
+    order); int32 keys through K5's launch, as K1 runs it."""
+    kt = torch.from_numpy(keys).to(dev)
+    if kt.dtype == torch.int32:
+        got = join_kernels.sort_pairs_launch(kt, **mode)
+    else:
+        got = join_kernels.join_sort_pairs(kt, **mode)
+    want = join_kernels.join_sort_pairs_plain(kt, **mode)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("sorted keys", "order"), got, want):
+        if g.dtype != w.dtype or not torch.equal(g, w):
+            raise AssertionError(f"K5 {label}: {name} differs from the plain version")
+    return {"n": len(keys), "passes": join_kernels.sort_passes(**mode),
+            "launches": join_kernels.sort_launches(len(keys), **mode)}
+
+
 def join_cases(rng) -> list:
     """The edge cases, q8's fullest window with q8's own (hot-skewed) keys,
     and a deployment-size window: 1,048,576 probe x 16,777,216 build rows
@@ -1252,7 +1321,10 @@ def join_phase(dev) -> dict:
     for label, lk, rk in cases:
         log(f"join: check {label}")
         checked[label] = check_join_case(label, lk, rk, dev)
-    timing = {}
+    log("join: K5 edge cases")
+    sort_checked = {label: check_sort_case(label, keys, mode, dev)
+                    for label, keys, mode in sort_edge_cases(rng)}
+    timing, sort_inputs = {}, {}
     for label in ("q8 window", "deployment window"):
         _l, lk, rk = next(c for c in cases if c[0] == label)
         l_cap, r_cap = join_probe._bucket(len(lk)), join_probe._bucket(len(rk))
@@ -1261,6 +1333,7 @@ def join_phase(dev) -> dict:
         rt = torch.full((r_cap,), join_probe._SENTINEL, dtype=torch.int64)
         rt[:len(rk)] = torch.from_numpy(rk)
         lt, rt = lt.to(dev), rt.to(dev)
+        sort_inputs[label] = rt
         sk, _order = join_kernels.join_sort_pairs_plain(rt)
         log(f"join: time {label}")
         timing[label] = {
@@ -1270,7 +1343,8 @@ def join_phase(dev) -> dict:
                 lambda: torch.sort(rt, stable=True),
                 library="torch.sort(stable=True)",
                 bytes=8 * r_cap + 12 * r_cap, bytes_counted="8 r_cap read, 12 r_cap written",
-                r_cap=r_cap),
+                r_cap=r_cap, passes=join_kernels.sort_passes(),
+                launches=join_kernels.sort_launches(r_cap)),
             "join_search_bounds": timed(
                 lambda: join_kernels.join_search_bounds(sk, lt),
                 lambda: join_kernels.join_search_bounds_plain(sk, lt),
@@ -1281,8 +1355,28 @@ def join_phase(dev) -> dict:
                 bytes_counted="8 l_cap read, 8 l_cap written; the sorted keys are not counted "
                               "(each search reads log2(r_cap) of them)",
                 l_cap=l_cap, r_cap=r_cap)}
-    info = {"phase": "join", "cases_checked": len(checked), "max_abs_err": 0.0,
-            "checked": checked, "timing": timing}
+    for label, t in timing.items():
+        # kernel launches of one call, counted by the library as it launches
+        # them; the trace's count (each kernel's launches per call, rounded)
+        # can only miss some, never add one
+        k5 = t["join_sort_pairs"]
+        rt = sort_inputs[label]
+        before = join_kernels.sort_kernel_launches()
+        join_kernels.join_sort_pairs(rt)
+        k5["kernel_launches_per_call"] = join_kernels.sort_kernel_launches() - before
+        k5["trace_kernel_launches_per_call"] = sum(
+            max(1, round(c)) for name, c in k5["ops_per_call"].items()
+            if not name.startswith(("Memset", "Memcpy")))
+        if not (k5["kernel_launches_per_call"] == k5["launches"]
+                and k5["trace_kernel_launches_per_call"] <= k5["launches"]):
+            raise AssertionError(f"K5 at the {label}: {k5['kernel_launches_per_call']} kernel "
+                                 f"launches per call ({k5['trace_kernel_launches_per_call']} in "
+                                 f"the trace), expected {k5['launches']}")
+        if label == "q8 window" and k5["launches"] > 9:
+            raise AssertionError(f"K5 at the q8 window: {k5['launches']} launches, at most 9")
+    info = {"phase": "join", "cases_checked": len(checked) + len(sort_checked),
+            "max_abs_err": 0.0, "checked": checked, "sort_checked": sort_checked,
+            "timing": timing}
     emit(info)
     return info
 
@@ -1586,6 +1680,7 @@ def segment_phase(nex_plans: list) -> dict:
         (P if prog.has_mask else 0)
     timing = {"ms": k["device_ms"], "call_ms": k["call_ms"], "method": k["method"],
               "kernel_names": k["device_kernels"], "plain_ms": p["device_ms"],
+              "trace_whole": k["trace_whole"] and p["trace_whole"],
               "plain_call_ms": p["call_ms"], "bytes": in_bytes + out_bytes,
               "bound_ms": (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
               "library_ms": None,
@@ -1607,6 +1702,68 @@ def device_us_by_name(prof) -> dict:
             if e.self_device_time_total > 0}
 
 
+def device_trace(run, warm):
+    """A torch.profiler (CUPTI) trace of the device work of ``run()`` alone.
+    A trace that starts or stops right at the work it measures can drop
+    that work's first or last launches, so the profiler's warm-up step
+    (which records and discards) runs ``warm()``, and the recorded step
+    idles WARM_TRACE_S before and after ``run()``."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        warm()
+        torch.cuda.synchronize()
+        time.sleep(WARM_TRACE_S)
+        prof.step()
+        time.sleep(WARM_TRACE_S)
+        run()
+        torch.cuda.synchronize()
+        time.sleep(WARM_TRACE_S)
+        prof.step()
+    return prof
+
+
+def trace_calls(call, reps: int, make_args=tuple):
+    """device_trace of reps calls of ``call(*make_args())``, each call's
+    arguments made before the trace. Returns (trace, operations per call,
+    whether the trace held every call). Every call launches the same work,
+    so a whole trace holds a whole number of each operation per call. On
+    the H100 CUPTI still drops one or two launches from some traces, the
+    same ones each time a trace is taken again, so the times per call come
+    from device_us_per_call, which rounds the count."""
+    args = [make_args() for _ in range(reps + 1)]
+    prof = device_trace(lambda: [call(*args.pop()) for _ in range(reps)],
+                        lambda: call(*args.pop()))
+    ops = device_ops_per_call(prof, reps)
+    whole = all(c == round(c) for c in ops.values())
+    if not whole:
+        log(f"a trace of {reps} calls lost launches: "
+            f"{ {k[:60]: v for k, v in ops.items() if v != round(v)} }")
+    return prof, ops, whole
+
+
+def warm_device():
+    """A trace's warm-up work where the traced work cannot run twice."""
+    torch.ones(1, device="cuda").add_(1)
+
+
+def device_us_per_call(prof, reps: int) -> dict:
+    """Device time (us) per call of every operation in a trace of reps
+    calls: its mean time per launch times its launches per call, the
+    nearest whole number to its count over reps, so launches the trace
+    dropped do not lower the figure."""
+    return {e.key: e.self_device_time_total / e.count * max(1, round(e.count / reps))
+            for e in prof.key_averages() if e.self_device_time_total > 0}
+
+
+def device_ops_per_call(prof, reps: int) -> dict:
+    """Launches per call of every kernel, memset and copy in a trace of
+    reps calls."""
+    return {e.key: e.count / reps for e in prof.key_averages() if e.self_device_time_total > 0}
+
+
 def measure(fn, reps: int = TIMING_REPS) -> dict:
     """``device_ms``: the device time of everything fn launches, per call,
     from a torch.profiler (CUPTI) trace of reps calls -- or, where the trace
@@ -1614,8 +1771,6 @@ def measure(fn, reps: int = TIMING_REPS) -> dict:
     reps (``method`` says which); ``call_ms``: median of per-call CUDA-event
     brackets, i.e. the host's launch cost and the device time together.
     Two warm-up calls first."""
-    from torch.profiler import ProfilerActivity, profile
-
     for _ in range(2):
         fn()
     times = []
@@ -1626,15 +1781,12 @@ def measure(fn, reps: int = TIMING_REPS) -> dict:
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    by_name = device_us_by_name(prof)
-    out = {"call_ms": statistics.median(times), "device_kernels": sorted(by_name)}
+    prof, ops, whole = trace_calls(fn, reps)
+    by_name = device_us_per_call(prof, reps)
+    out = {"call_ms": statistics.median(times), "device_kernels": sorted(by_name),
+           "device_us_per_call": by_name, "device_ops_per_call": ops, "trace_whole": whole}
     if by_name:
-        out.update(device_ms=sum(by_name.values()) / 1e3 / reps, method="profiler")
+        out.update(device_ms=sum(by_name.values()) / 1e3, method="profiler")
     else:
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         a.record()
@@ -1679,6 +1831,101 @@ def zipf_slots(rng, n, cap, dtype):
     return torch.from_numpy(s.astype(dtype))
 
 
+# K1's edge cases: the float sums (a float64 and a float32 sum, a float64
+# count that ships no values in the hot path) walk beside atomic lanes
+EDGE_LANES = [("sum", np.float64), ("count", np.int64), ("sum", np.float32),
+              ("max", np.int64), ("count", np.float64), ("min", np.float32)]
+EDGE_CAP = 4096
+
+
+def edge_state(rng, lanes, cap) -> list:
+    """One [cap] array per lane: random values on half the slots and the
+    identity elsewhere; the float lanes' first slots hold -0.0, +0.0, NaN,
+    inf and -inf, where the first add from the state shows its order."""
+    out = []
+    for kind, dt in lanes:
+        a = np.full(cap, _identity(kind, np.dtype(dt)), dtype=dt)
+        hit = rng.random(cap) < 0.5
+        a[hit] = (rng.normal(0, 100, int(hit.sum())) if np.issubdtype(dt, np.floating)
+                  else rng.integers(-1000, 1000, int(hit.sum()))).astype(dt)
+        if np.issubdtype(dt, np.floating):
+            a[:5] = [-0.0, 0.0, np.nan, np.inf, -np.inf]
+        out.append(a)
+    return out
+
+
+def edge_vals(rng, lanes, n, specials: bool = True) -> list:
+    """One value per row and lane; float values with -0.0, NaN, inf and
+    -inf sprinkled in (specials)."""
+    out = []
+    for _kind, dt in lanes:
+        if np.issubdtype(dt, np.floating):
+            v = rng.normal(0, 100, n).astype(dt)
+            if specials:
+                pick = rng.random(n)
+                v[pick < 0.02] = -0.0
+                v[(pick >= 0.02) & (pick < 0.021)] = np.inf
+                v[(pick >= 0.021) & (pick < 0.022)] = -np.inf
+                v[(pick >= 0.022) & (pick < 0.0225)] = np.nan
+        else:
+            v = rng.integers(-1000, 1000, n).astype(dt)
+        out.append(v)
+    return out
+
+
+def scatter_edge_cases(rng, long_run: int = 128) -> list:
+    """K1's edge cases as numpy arrays: dicts of label, lanes [(kind, numpy
+    dtype)], cap, state (one [cap] array per lane), slots (int64) and vals
+    (one array per lane; the hot path drops a count lane's). Slots outside
+    [0, cap) are cap or above, as the reference pads them (a negative slot:
+    ``negative_slot_case``). long_run is K1's threshold between a run one
+    thread walks and one a block walks (kernels.LONG_RUN)."""
+    L, cap, lanes = long_run, EDGE_CAP, EDGE_LANES
+    cases = []
+
+    def add(label, slots, specials=True):
+        slots = np.asarray(slots, np.int64)
+        cases.append({"label": label, "lanes": lanes, "cap": cap,
+                      "state": edge_state(rng, lanes, cap), "slots": slots,
+                      "vals": edge_vals(rng, lanes, len(slots), specials)})
+
+    add("one slot takes every row", np.full(20 * L + 7, 9))
+    runs = np.repeat(np.arange(100, 130), [L - 1, L, L + 1] * 10)
+    add("runs at long_run - 1, long_run and long_run + 1",
+        rng.permutation(np.concatenate([runs, rng.integers(0, cap, 500)])))
+    hot = np.full(6 * L, 17)
+    hot[::3] = cap
+    hot[1::7] = cap + 3
+    add("slots cap and cap + 3 inside a long run",
+        np.concatenate([rng.integers(0, cap, 50), hot, np.full(L, cap), np.full(L, 18)]))
+    special_runs = np.repeat([0, 1, 2, 3, 4], [3, L + 2, 2, L, 1])  # the special state slots
+    add("-0.0, +0.0, NaN and infinities in state and values",
+        rng.permutation(np.concatenate([special_runs, rng.integers(0, 5, 3 * L),
+                                        np.full(L + 1, 5), np.full(7, 6)])))
+    for v in cases[-1]["vals"]:  # slots 5 and 6 (+0.0 or -0.0 in state) add -0.0 alone
+        if v.dtype.kind == "f":
+            v[np.isin(cases[-1]["slots"], (5, 6))] = -0.0
+    for a in cases[-1]["state"]:
+        if a.dtype.kind == "f":
+            a[5:7] = [-0.0, 0.0]
+    add("n of 1", [cap - 1])
+    add("one row past a sort tile", rng.integers(0, 64, 4097))
+    z = (rng.zipf(1.2, 65536) - 1) % (cap + 16)  # slots past cap: padding
+    add("Zipf(1.2) over the state", z, specials=False)
+    return cases
+
+
+def negative_slot_case(rng, long_run: int = 128) -> dict:
+    """A long run and short runs with slot -1 rows among them: K1 drops
+    them as it drops cap (the reference's padding; the reference never
+    ships a negative slot, and its indexing would wrap one)."""
+    s = np.concatenate([np.full(3 * long_run, 5), rng.integers(0, EDGE_CAP, 700)])
+    s[rng.random(len(s)) < 0.2] = -1
+    return {"label": "slot -1 inside runs", "lanes": EDGE_LANES, "cap": EDGE_CAP,
+            "state": edge_state(rng, EDGE_LANES, EDGE_CAP), "slots": s,
+            "vals": edge_vals(rng, EDGE_LANES, len(s))}
+
+
 def lane_err(got, want, kind) -> float:
     """0.0, or raises: every lane must equal the plain version bit for bit
     (floats as bits, so signed zeros count; a NaN equals a NaN)."""
@@ -1712,6 +1959,45 @@ def check_scatter(rng, lanes, cap, B, merge, dev) -> float:
         kernels.slot_scatter_combine_plain(st_p, kinds, slots, vals)
     torch.cuda.synchronize()
     return max(lane_err(g, w, k) for (k, _dt), g, w in zip(lanes, st_k, st_p))
+
+
+def check_scatter_case(case: dict, idx_dt, merge: bool, dev) -> None:
+    """K1 against its plain version on one of scatter_edge_cases, exactly."""
+    kinds = [k for k, _ in case["lanes"]]
+    st_k = [torch.from_numpy(a.copy()).to(dev) for a in case["state"]]
+    st_p = [a.clone() for a in st_k]
+    slots = torch.from_numpy(case["slots"].astype(idx_dt)).to(dev)
+    vals = [None if (k == "count" and not merge) else torch.from_numpy(v).to(dev)
+            for k, v in zip(kinds, case["vals"])]
+    kernels.slot_scatter_combine(st_k, kinds, slots, vals)
+    kernels.slot_scatter_combine_plain(st_p, kinds, slots, vals)
+    torch.cuda.synchronize()
+    for k, g, w in zip(kinds, st_k, st_p):
+        lane_err(g, w, f"{case['label']} ({np.dtype(idx_dt).name} slots): {k}")
+
+
+def add_chain_ns(dev, n: int = 1 << 21) -> dict:
+    """ns per add of one thread's chain of dependent __dadd_rn / __fadd_rn
+    (csrc/slot_agg.cu add_chain_kernel), by dtype: a slot's run of float
+    sums can go no faster (K1's chain floor)."""
+    lib = kernels.build_library()
+    x = torch.tensor([1.0, 1e-3], dtype=torch.float64, device=dev)
+    out = torch.empty(1, dtype=torch.float64, device=dev)
+    res = {}
+    for name, f32 in (("float64", 0), ("float32", 1)):
+        def run():
+            kernels._raise_on(lib.arroyo_slot_add_chain(
+                dev.index or 0, x.data_ptr(), n, f32, out.data_ptr(), kernels._stream(dev)),
+                "add_chain")
+        run()
+        torch.cuda.synchronize()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        run()
+        b.record()
+        b.synchronize()
+        res[name] = a.elapsed_time(b) * 1e6 / n
+    return res
 
 
 def check_regions(rng, lanes, cap, R, dev) -> float:
@@ -1771,6 +2057,18 @@ def time_kernels(rng, lanes, cap, B, R, dev) -> dict:
         bytes=k1_bytes, rows=B, touched_slots=touched,
         ordered_lanes=sum(kernels.ordered_add(k, dt) for k, dt in lanes),
         longest_run=int(torch.bincount(s_lib).max()))}
+    if out["slot_scatter_combine"]["ordered_lanes"]:
+        # K5 in range mode on the same slots, as K1's float sums run it
+        clamped = torch.where(slots < cap, slots.long(), torch.full_like(slots.long(), cap))
+        out["join_sort_pairs_range"] = timed(
+            lambda: join_kernels.sort_pairs_launch(slots, range_cap=cap),
+            lambda: join_kernels.join_sort_pairs_plain(slots, range_cap=cap),
+            lambda: torch.sort(clamped, stable=True),
+            library="torch.sort(stable=True) of the slots as int64, clamped to cap",
+            bytes=B * slots.element_size() + 12 * B,
+            bytes_counted="the slots read, 8 B of key and 4 B of order written per row",
+            rows=B, cap=cap, passes=join_kernels.sort_passes(range_cap=cap),
+            launches=join_kernels.sort_launches(B, range_cap=cap))
     for k in (1, 16):
         bases = [int(b) * R for b in rng.choice(cap // R, k, replace=False)]
         idx = (torch.tensor(bases, device=dev)[:, None] + torch.arange(R, device=dev)).reshape(-1)
@@ -1805,7 +2103,30 @@ def timed(kernel, plain, library_call, **extra) -> dict:
     return {"ms": k["device_ms"], "plain_ms": p["device_ms"], "library_ms": lib["device_ms"],
             "method": k["method"], "call_ms": k["call_ms"], "plain_call_ms": p["call_ms"],
             "library_call_ms": lib["call_ms"], "kernel_names": k["device_kernels"],
+            "trace_whole": k["trace_whole"] and p["trace_whole"] and lib["trace_whole"],
+            "ops_per_call": k["device_ops_per_call"], "us_per_call": k["device_us_per_call"],
             "bound_ms": extra["bytes"] / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes", **extra}
+
+
+def long_run_sweep(rng, sh, dev) -> dict:
+    """K1's device ms at one shape with the threshold between a run one
+    thread walks and one a block walks at 32, 64, 128 and 256 rows (the
+    package's kernels.LONG_RUN is the measured choice), each checked
+    against the plain version first."""
+    kinds = [k for k, _ in sh["lanes"]]
+    st = make_state(rng, sh["lanes"], sh["cap"], dev)
+    slots = zipf_slots(rng, sh["B"], sh["cap"], np.int32).to(dev)
+    vals = [None if k == "count" else torch.from_numpy(make_vals(rng, k, dt, sh["B"])).to(dev)
+            for k, dt in sh["lanes"]]
+    chosen, out = kernels.LONG_RUN, {}
+    try:
+        for lr in (32, 64, 128, 256):
+            kernels.LONG_RUN = lr
+            check_scatter(rng, sh["lanes"], sh["cap"], sh["B"], False, dev)
+            out[lr] = measure(lambda: kernels.slot_scatter_combine(st, kinds, slots, vals))["device_ms"]
+    finally:
+        kernels.LONG_RUN = chosen
+    return out
 
 
 def kernel_phase(dev) -> dict:
@@ -1821,8 +2142,19 @@ def kernel_phase(dev) -> dict:
                                   ("max", torch.int32), ("min", torch.float32),
                                   ("sum", torch.float32), ("max", torch.uint64)],
                            cap=1 << 22, B=65536, R=2048),
+        # qu: the updating aggregate's lanes (AVG's float64 sum walked in
+        # row order), one source batch into its 262144 slots
+        "qu": dict(lanes=[("sum", getattr(torch, d)) for d in qu_lanes()],
+                   cap=QU_CAP, B=BENCH_BATCH, R=2048),
     }
     errs = {"slot_scatter_combine": 0.0, "slot_region_read_pack": 0.0, "slot_region_clear": 0.0}
+    log("kernels: K1 edge cases")
+    edge = scatter_edge_cases(rng, kernels.LONG_RUN) + [negative_slot_case(rng, kernels.LONG_RUN)]
+    for case in edge:
+        for idx_dt in (np.int32, np.int64):
+            for merge in (False, True):
+                check_scatter_case(case, idx_dt, merge, dev)
+    chain_ns = add_chain_ns(dev)
     timing = {}
     for name, sh in shapes.items():
         log(f"kernels: check {name}")
@@ -1832,7 +2164,18 @@ def kernel_phase(dev) -> dict:
         check_regions(rng, sh["lanes"], sh["cap"], sh["R"], dev)
         log(f"kernels: time {name}")
         timing[name] = time_kernels(rng, sh["lanes"], sh["cap"], sh["B"], sh["R"], dev)
+        k1 = timing[name]["slot_scatter_combine"]
+        ordered = [str(dt).replace("torch.", "") for k, dt in sh["lanes"]
+                   if kernels.ordered_add(k, dt)]
+        if ordered:
+            # the walk of the longest run can go no faster than its chain of adds
+            k1["chain_floor_ms"] = k1["longest_run"] * max(chain_ns[d] for d in ordered) / 1e6
+    log("kernels: K1's long-run threshold")
+    long_run_ms = long_run_sweep(rng, shapes["deployment"], dev)
     info = {"phase": "kernels", "max_abs_err": errs,
+            "edge_cases": [c["label"] for c in edge], "long_run": kernels.LONG_RUN,
+            "long_run_sweep_ms": long_run_ms,
+            "add_chain_ns": chain_ns,
             "shapes": {n: {"cap": s["cap"], "B": s["B"], "R": s["R"],
                            "lanes": [[k, str(d).replace("torch.", "")] for k, d in s["lanes"]]}
                        for n, s in shapes.items()},
@@ -2257,9 +2600,7 @@ def time_fresh(fn, make_inputs, reps: int) -> dict:
     """Device ms per call of a kernel that changes its inputs: each call
     gets inputs made before the timed region (profiler device time of the
     calls alone, and CUDA events around each)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    inputs = [make_inputs() for _ in range(2 * reps + 1)]
+    inputs = [make_inputs() for _ in range(reps + 1)]
     fn(*inputs.pop())
     times = []
     for _ in range(reps):
@@ -2271,15 +2612,12 @@ def time_fresh(fn, make_inputs, reps: int) -> dict:
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn(*inputs.pop())
-        torch.cuda.synchronize()
-    by_name = device_us_by_name(prof)
-    out = {"call_ms": statistics.median(times), "device_kernels": sorted(by_name)}
+    prof, ops, whole = trace_calls(fn, reps, make_inputs)
+    by_name = device_us_per_call(prof, reps)
+    out = {"call_ms": statistics.median(times), "device_kernels": sorted(by_name),
+           "device_us_per_call": by_name, "device_ops_per_call": ops, "trace_whole": whole}
     if by_name:
-        out.update(device_ms=sum(by_name.values()) / 1e3 / reps, method="profiler")
+        out.update(device_ms=sum(by_name.values()) / 1e3, method="profiler")
     else:
         out.update(device_ms=statistics.median(times), method="events")
     return out
@@ -2327,6 +2665,7 @@ def time_sharded(rng, dev, label, S, cap, L, dc, lanes, n_keys, valid_frac, reps
                    "library": "none: no single PyTorch call computes it",
                    "method": k["method"], "call_ms": k["call_ms"], "plain_call_ms": p["call_ms"],
                    "kernel_names": k["device_kernels"],
+                   "trace_whole": k["trace_whole"] and p["trace_whole"],
                    "bound_ms": nbytes[name] / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
                    "bytes": nbytes[name], **extra}
 
@@ -2795,6 +3134,8 @@ def time_hash(dev) -> dict:
                    "library_ms": None if lib is None else lib["device_ms"], "library": library,
                    "method": k["method"], "call_ms": k["call_ms"], "plain_call_ms": p["call_ms"],
                    "kernel_names": k["device_kernels"],
+                   "trace_whole": (k["trace_whole"] and p["trace_whole"]
+                                   and (lib is None or lib["trace_whole"])),
                    "bound_ms": nbytes[name] / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
                    "bytes": nbytes[name], **extra}
 
@@ -3031,6 +3372,14 @@ def kernel_rows(res: dict) -> list:
                      "max_abs_err": res["kernels"]["max_abs_err"][name], "ms": t["ms"],
                      "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                      "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    # K1's float sums (K5 in range mode, then the walks) at the deployment
+    # shape and qu's, with the chain floor of the longest run beside the bound
+    rows[0]["float_sums"] = {
+        shape: {k: res["kernels"]["timing"][shape]["slot_scatter_combine"][k]
+                for k in ("ms", "plain_ms", "library_ms", "bound_ms", "chain_floor_ms",
+                          "longest_run")}
+        for shape in ("deployment", "qu")}
+    rows[0]["float_sums"]["qu"]["launches"] = res["qu"]["launches"]["slot_scatter_combine"]
     segp = res["segment"]
     st = segp["timing_q7"]
     rows.append({"name": "segment_fused", "route": "triton", "source": SEGMENT_SOURCE,
@@ -3048,6 +3397,14 @@ def kernel_rows(res: dict) -> list:
                      "max_abs_err": res["join"]["max_abs_err"], "ms": t["ms"],
                      "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                      "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    k5 = rows[-2]
+    k5["kernel_launches_per_call"] = jt["join_sort_pairs"]["kernel_launches_per_call"]
+    dep = res["join"]["timing"]["deployment window"]["join_sort_pairs"]
+    k5["deployment_window"] = {k: dep[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                                   "kernel_launches_per_call", "r_cap")}
+    k5["range_mode"] = {shape: {k: res["kernels"]["timing"][shape]["join_sort_pairs_range"][k]
+                                for k in ("ms", "plain_ms", "library_ms", "bound_ms", "cap")}
+                        for shape in ("deployment", "qu")}
     t = res["gather"]["timing"]["qu"]
     rows.append({"name": "slot_gather", "route": "cuda", "source": SOURCE,
                  "replaces": REPLACES["slot_gather"], "launches": res["qu"]["launches"]["slot_gather"],
