@@ -42,12 +42,8 @@
 // one status array serve every pass. Tiles are 1024 keys below 2^21 keys
 // (more blocks on the card for a small input) and 4096 above. An input of
 // at most 4096 keys sorts in one launch, every pass in shared memory. The
-// stable rank: warp w holds rows [32 w I, 32 (w + 1) I) of its tile (I
-// items per thread), item j of lane l being row 32 w I + 32 j + l, so
-// walking j, then lanes, visits the warp's rows in order; an item's rank
-// among its warp's items of its digit is the warp's count so far plus its
-// peers in lower lanes (found with one ballot per digit bit), and the
-// warps' counts are summed in warp order.
+// stable rank, the look-back and the status words are csrc/radix_sort.cuh's,
+// which K8 (csrc/sharded_agg.cu) sorts with too.
 //
 // Bound on the H100 (3.35 TB/s): K5 must read 8 bytes and write 12 bytes
 // per row, and does a few integer operations per row and pass, far below
@@ -58,10 +54,28 @@
 // launches of 128 blocks, bound by their latency; at 16,777,216 rows
 // about 3.2 GB over 8 passes, where each tile's 256 digit runs average 16
 // keys, so its writes fill cache lines only in part.
-// K6 reads each probe key once and writes two int32 per key; the sorted
-// keys it searches are read log2(m) times per probe key but sit in L2 at
-// q8's size. One thread per probe key, two binary searches, the second
-// starting from the first's result.
+// K6 must read each probe key once and write two int32 per key; the
+// sorted keys are read where the searches land. A plain binary search
+// reads far more: at 16,777,216 sorted keys (134 MB, past the 50 MB L2)
+// the last levels of its ~24 dependent loads miss, each a 32-byte sector
+// no other probe shares, and a second search for hi from lo misses as
+// often. So K6
+// answers the top levels from shared memory (every block caches 2048
+// evenly spaced keys, 16 KB, read from L2 once the first block has pulled
+// them in): the search in device memory then covers a window of m / 2048
+// keys. hi is searched from lo, or from the start of the splitter window
+// that must hold it where that lies past lo, by reading the last key of
+// each 4-key (32-byte) sector, 8 sectors one after another and then
+// doubling, then searching inside the last step: a probe key absent from
+// the build side costs one load on the sector lo's search read last, a
+// run of r equal keys about r / 4 sectors (the bytes it must read; a
+// binary search or a gallop from lo reads about twice as many), and a run
+// longer than a window no more than a window's search (an INT64_MAX probe,
+// the join's padding, takes hi = m at once). Each thread searches 4 probe
+// keys in step when
+// the call holds enough of them to fill the card twice over, so 4
+// independent loads are in flight per level, else 1 (more blocks share a
+// small call); at most 8 blocks per SM, looping over the rest.
 //
 // Each entry point launches on the stream it is given, allocates nothing
 // (the caller hands K5 its scratch) and returns cudaGetLastError() after
@@ -70,7 +84,10 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#define RADIX 256
+#include "radix_sort.cuh"
+
+using radix::RADIX;
+
 #define SORT_THREADS 256  // one thread per digit in the per-digit steps
 #define SORT_WARPS (SORT_THREADS / 32)
 #define SORT_ITEMS 16  // the one-launch sort's items per thread: SORT_TILE keys
@@ -78,7 +95,6 @@
 #define MAX_PASSES 8
 #define MAX_RANGE_PASSES 4  // range mode sorts at most 31 bits
 #define COUNT_BLOCKS 528    // 4 per SM of the H100
-#define THREADS 256
 #define SIGN_BIT 0x8000000000000000ULL
 #define INT32_LIMIT 0x7fffffffLL
 
@@ -87,8 +103,6 @@
 // alternate keys [n] and order [n] of the ping-pong
 #define COUNTS_BYTES (MAX_PASSES * RADIX * 4)
 #define HEADER_BYTES (COUNTS_BYTES + 256)
-#define FLAG_AGGREGATE 1ULL  // the count covers this tile alone
-#define FLAG_PREFIX 2ULL     // the count covers every tile up to this one
 
 __host__ __device__ __forceinline__ long long align256(long long b) { return (b + 255) & ~255LL; }
 
@@ -116,113 +130,35 @@ __device__ __forceinline__ unsigned digit_of(K k, int shift) {
   return (unsigned)(k >> shift) & (RADIX - 1);
 }
 
-// The look-back's status words carry their own count, so nothing else is
-// published through them: a relaxed 64-bit store and load (single-copy
-// atomic at gpu scope) suffice, and release/acquire fences would only make
-// each publication wait on the block's other writes.
-__device__ __forceinline__ void store_status(unsigned long long* p, unsigned long long v) {
-  asm volatile("st.relaxed.gpu.u64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
-}
-
-__device__ __forceinline__ unsigned long long load_status(const unsigned long long* p) {
-  unsigned long long v;
-  asm volatile("ld.relaxed.gpu.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
-  return v;
-}
-
 template <typename K, int ITEMS>
 struct SortShared {
   K keys[SORT_THREADS * ITEMS];  // the tile in digit order, after the scatter
   int order[SORT_THREADS * ITEMS];
-  unsigned whist[SORT_WARPS][RADIX];  // per-warp digit counts, then each warp's offset in its digit
-  unsigned tile_start[RADIX];         // the tile's first row of each digit
-  long long out_base[RADIX];          // output position = out_base[digit] + row in the tile
-  unsigned warp_sums[SORT_WARPS];
+  radix::RankShared<SORT_WARPS> r;
+  long long out_base[RADIX];  // output position = out_base[digit] + row in the tile
   int tile;
 };
 
-// Exclusive sum over the block's 256 threads (all must call it).
-__device__ __forceinline__ unsigned block_exclusive_sum(unsigned v, unsigned* warp_sums) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  unsigned x = v;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const unsigned y = __shfl_up_sync(0xffffffffu, x, o);
-    if (lane >= o) x += y;
-  }
-  if (lane == 31) warp_sums[warp] = x;
-  __syncthreads();
-  unsigned before = 0;
-  for (int w = 0; w < warp; ++w) before += warp_sums[w];
-  __syncthreads();
-  return before + x - v;
-}
-
-// The lanes of the warp whose d (9 bits: a digit, or RADIX for no item)
-// equals this lane's: one ballot per bit.
-__device__ __forceinline__ unsigned same_digit_lanes(unsigned d) {
-  unsigned peers = 0xffffffffu;
-#pragma unroll
-  for (int b = 0; b < 9; ++b) {
-    const bool set = (d >> b) & 1u;
-    const unsigned vote = __ballot_sync(0xffffffffu, set);
-    peers &= set ? vote : ~vote;
-  }
-  return peers;
-}
-
-// Rank the tile's items by digit, stably within each warp (see the header;
-// a warp holds 32 * ITEMS rows); items at or past tile_n take no digit. On
-// return whist[w][d] is warp w's count of digit d and rank[j] item j's
-// rank among its warp's items of its digit.
+// Each item's digit at shift, RADIX for the slots at or past tile_n.
 template <typename K, int ITEMS>
-__device__ __forceinline__ void rank_items(SortShared<K, ITEMS>& sm, const K (&key)[ITEMS],
-                                           int tile_n, int shift, unsigned (&rank)[ITEMS]) {
+__device__ __forceinline__ void digits_of(const K (&key)[ITEMS], int tile_n, int shift,
+                                          unsigned (&dig)[ITEMS]) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  unsigned* wh = sm.whist[warp];
-  for (int d = lane; d < RADIX; d += 32) wh[d] = 0;
-  __syncwarp();
-  const unsigned below = (1u << lane) - 1u;
 #pragma unroll
-  for (int j = 0; j < ITEMS; ++j) {
-    const bool ok = warp * 32 * ITEMS + j * 32 + lane < tile_n;
-    const unsigned d = ok ? digit_of(key[j], shift) : RADIX;
-    const unsigned peers = same_digit_lanes(d);
-    const unsigned seen = ok ? wh[d] : 0u;
-    __syncwarp();
-    if (ok && lane == 31 - __clz(peers)) wh[d] = seen + __popc(peers);
-    __syncwarp();
-    rank[j] = seen + __popc(peers & below);
-  }
+  for (int j = 0; j < ITEMS; ++j)
+    dig[j] = warp * 32 * ITEMS + j * 32 + lane < tile_n ? digit_of(key[j], shift) : RADIX;
 }
 
-// Thread d: whist[.][d] becomes each warp's offset within digit d and
-// tile_start[d] digit d's first row in the tile; returns the tile's count
-// of digit d. Call after a __syncthreads that follows rank_items.
-template <typename K, int ITEMS>
-__device__ __forceinline__ unsigned digit_offsets(SortShared<K, ITEMS>& sm) {
-  const int d = threadIdx.x;
-  unsigned total = 0;
-  for (int w = 0; w < SORT_WARPS; ++w) {
-    const unsigned c = sm.whist[w][d];
-    sm.whist[w][d] = total;
-    total += c;
-  }
-  sm.tile_start[d] = block_exclusive_sum(total, sm.warp_sums);
-  return total;
-}
-
-// Each valid item to its row of the tile in digit order.
+// Each item to its row of the tile in digit order.
 template <typename K, int ITEMS>
 __device__ __forceinline__ void scatter_to_shared(SortShared<K, ITEMS>& sm, const K (&key)[ITEMS],
-                                                  const int (&ord)[ITEMS], int tile_n, int shift,
+                                                  const int (&ord)[ITEMS],
+                                                  const unsigned (&dig)[ITEMS],
                                                   const unsigned (&rank)[ITEMS]) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
   for (int j = 0; j < ITEMS; ++j) {
-    if (warp * 32 * ITEMS + j * 32 + lane < tile_n) {
-      const unsigned d = digit_of(key[j], shift);
-      const unsigned at = sm.tile_start[d] + sm.whist[warp][d] + rank[j];
+    if (dig[j] < RADIX) {
+      const unsigned at = radix::tile_slot(sm.r, dig[j], rank[j]);
       sm.keys[at] = key[j];
       sm.order[at] = ord[j];
     }
@@ -263,31 +199,6 @@ struct SweepArgs {
   unsigned* next_tile;         // [passes]
 };
 
-// Look back from tile t_from down for digit d's rows before this tile:
-// the sum of the counts read until one covers every tile up to its own.
-// Reads LOOKBACK statuses at a time (one latency for up to LOOKBACK tiles
-// that published only their own count), spinning on a status that is not
-// yet this pass's. Tile 0 always publishes a covering count.
-#define LOOKBACK 4
-__device__ __forceinline__ unsigned look_back(const unsigned long long* status, long long t_from,
-                                              int d, unsigned long long pass_tag) {
-  unsigned before = 0;
-  long long t = t_from;
-  for (;;) {
-    unsigned long long w[LOOKBACK];
-#pragma unroll
-    for (int k = 0; k < LOOKBACK; ++k)
-      w[k] = t - k >= 0 ? load_status(status + (t - k) * RADIX + d) : 0ULL;
-    int k = 0;
-    for (; k < LOOKBACK && t - k >= 0; ++k) {
-      if ((w[k] >> 34) != pass_tag) break;  // not published yet: read it again
-      before += (unsigned)w[k];
-      if (((w[k] >> 32) & 3ULL) == FLAG_PREFIX) return before;
-    }
-    t -= k;
-  }
-}
-
 // One pass over the digit at bits [8 pass, 8 pass + 8): one tile of
 // SORT_THREADS * ITEMS keys per block.
 template <typename K, int ITEMS>
@@ -323,26 +234,19 @@ __global__ void __launch_bounds__(SORT_THREADS) sweep_kernel(SweepArgs<K> a, int
     }
   }
   // every digit's first output row over the whole input, while the keys load
-  sm.out_base[d] = block_exclusive_sum(digit_total, sm.warp_sums);
-  unsigned rank[ITEMS];
-  rank_items(sm, key, tile_n, shift, rank);
+  sm.out_base[d] = radix::block_exclusive_sum<SORT_WARPS>(digit_total, sm.r.warp_sums);
+  unsigned dig[ITEMS], rank[ITEMS];
+  digits_of(key, tile_n, shift, dig);
+  radix::rank_digits(sm.r, dig, rank);
   __syncthreads();
-  const unsigned count = digit_offsets(sm);
+  const unsigned count = radix::digit_offsets(sm.r);
   // publish this tile's count of digit d, then look back over the earlier
   // tiles for the rows of digit d before it
-  const unsigned long long tag = (unsigned long long)(pass + 1);
-  unsigned long long* mine = a.status + tile * RADIX + d;
-  unsigned before = 0;
-  if (tile == 0) {
-    store_status(mine, tag << 34 | (FLAG_PREFIX << 32) | count);
-  } else {
-    store_status(mine, tag << 34 | (FLAG_AGGREGATE << 32) | count);
-    before = look_back(a.status, tile - 1, d, tag);
-    store_status(mine, tag << 34 | (FLAG_PREFIX << 32) | (before + count));
-  }
-  sm.out_base[d] += (long long)before - sm.tile_start[d];
+  const unsigned before =
+      radix::publish_and_look_back(a.status, tile, d, count, (unsigned long long)(pass + 1));
+  sm.out_base[d] += (long long)before - sm.r.tile_start[d];
   __syncthreads();
-  scatter_to_shared(sm, key, ord, tile_n, shift, rank);
+  scatter_to_shared(sm, key, ord, dig, rank);
   __syncthreads();
   for (int i = threadIdx.x; i < tile_n; i += SORT_THREADS) {
     const K k = sm.keys[i];
@@ -369,13 +273,14 @@ __global__ void __launch_bounds__(SORT_THREADS)
     key[j] = r < n ? load_key<K>(raw, raw_i32, r, cap) : (K)0;
     ord[j] = r;
   }
-  unsigned rank[SORT_ITEMS];
+  unsigned dig[SORT_ITEMS], rank[SORT_ITEMS];
   for (int p = 0; p < passes; ++p) {
-    rank_items(sm, key, n, 8 * p, rank);
+    digits_of(key, n, 8 * p, dig);
+    radix::rank_digits(sm.r, dig, rank);
     __syncthreads();
-    digit_offsets(sm);
+    radix::digit_offsets(sm.r);
     __syncthreads();
-    scatter_to_shared(sm, key, ord, n, 8 * p, rank);
+    scatter_to_shared(sm, key, ord, dig, rank);
     __syncthreads();
     if (p + 1 < passes) {
 #pragma unroll
@@ -395,28 +300,159 @@ __global__ void __launch_bounds__(SORT_THREADS)
   }
 }
 
-__global__ void search_bounds_kernel(const long long* __restrict__ sorted, long long m,
-                                     const long long* __restrict__ probe, long long p,
-                                     int* __restrict__ lo_out, int* __restrict__ hi_out) {
-  long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= p) return;
-  const long long x = probe[t];
-  long long a = 0, b = m;
-  while (a < b) {  // first index with sorted[i] >= x
-    long long mid = a + ((b - a) >> 1);
-    if (sorted[mid] < x) a = mid + 1; else b = mid;
+// ------------------------------------------------------------ K6
+
+#define SEARCH_THREADS 256
+#define SPLITTERS 2048     // sorted keys every block caches in shared memory (16 KB)
+#define SEARCH_BLOCKS_PER_SM 8
+
+// first index of [a, a + n) whose key is >= x (UPPER: > x), or a + n, for
+// PPT probes in step, so their loads overlap
+template <bool UPPER, int PPT>
+__device__ __forceinline__ void search_window(const long long* __restrict__ sorted,
+                                              const long long (&x)[PPT], long long (&a)[PPT],
+                                              long long (&n)[PPT]) {
+  for (bool more = true; more;) {
+    more = false;
+    long long v[PPT];
+#pragma unroll
+    for (int k = 0; k < PPT; ++k)
+      if (n[k] > 0) v[k] = sorted[a[k] + (n[k] >> 1)];
+#pragma unroll
+    for (int k = 0; k < PPT; ++k) {
+      if (n[k] <= 0) continue;
+      const long long h = n[k] >> 1;
+      if (UPPER ? v[k] <= x[k] : v[k] < x[k]) {
+        a[k] += h + 1;
+        n[k] -= h + 1;
+      } else {
+        n[k] = h;
+      }
+      more |= n[k] > 0;
+    }
   }
-  lo_out[t] = (int)a;
-  b = m;
-  while (a < b) {  // first index with sorted[i] > x
-    long long mid = a + ((b - a) >> 1);
-    if (sorted[mid] <= x) a = mid + 1; else b = mid;
-  }
-  hi_out[t] = (int)a;
 }
 
-static unsigned int blocks_for(long long n) {
-  return (unsigned int)((n + THREADS - 1) / THREADS);
+// first splitter j with spl[j] >= x (UPPER: > x), in shared memory
+template <bool UPPER>
+__device__ __forceinline__ int search_splitters(const long long* spl, int ns, long long x) {
+  int j = 0, c = ns;
+  while (c > 0) {
+    const int h = c >> 1;
+    if (UPPER ? spl[j + h] <= x : spl[j + h] < x) {
+      j += h + 1;
+      c -= h + 1;
+    } else {
+      c = h;
+    }
+  }
+  return j;
+}
+
+// Every block caches ns splitters, spl[j] = sorted[j * stride] (ns =
+// ceil(m / stride) <= SPLITTERS), then walks its probes in groups of
+// SEARCH_THREADS * PPT. For each bound the splitters leave a window of at
+// most stride - 1 keys in device memory: lo's is searched directly; hi's
+// starts at lo or past it (every key before the window is <= x) and reads
+// the last key of each 4-key (32-byte) sector from there, 8 sectors one
+// after another and then doubling, up to the window's end, then searches
+// inside the last step. Each thread's PPT probes advance in step, so
+// their loads overlap.
+template <int PPT>
+__global__ void __launch_bounds__(SEARCH_THREADS)
+    search_bounds_kernel(const long long* __restrict__ sorted, long long m, long long stride,
+                         int ns, const long long* __restrict__ probe, long long p,
+                         int* __restrict__ lo_out, int* __restrict__ hi_out) {
+  __shared__ long long spl[SPLITTERS];
+  for (int j = threadIdx.x; j < ns; j += SEARCH_THREADS) spl[j] = sorted[(long long)j * stride];
+  __syncthreads();
+  constexpr long long GROUP = (long long)SEARCH_THREADS * PPT;
+  for (long long g0 = (long long)blockIdx.x * GROUP; g0 < p; g0 += (long long)gridDim.x * GROUP) {
+    long long x[PPT], a[PPT], n[PPT], lo[PPT], end[PPT], step[PPT];
+#pragma unroll
+    for (int k = 0; k < PPT; ++k) {
+      const long long t = g0 + k * SEARCH_THREADS + threadIdx.x;
+      x[k] = t < p ? probe[t] : 0;
+    }
+    // lo: sorted[(j - 1) stride] < x <= sorted[j stride] (past m when j = ns)
+#pragma unroll
+    for (int k = 0; k < PPT; ++k) {
+      const int j = search_splitters<false>(spl, ns, x[k]);
+      a[k] = j == 0 ? 0 : (long long)(j - 1) * stride + 1;
+      n[k] = j == 0 ? 0 : (j < ns ? (long long)j * stride : m) - a[k];
+    }
+    search_window<false>(sorted, x, a, n);
+    // hi: sorted[(j - 1) stride] <= x < sorted[j stride], and hi >= lo
+    long long last[PPT], span[PPT];
+#pragma unroll
+    for (int k = 0; k < PPT; ++k) {
+      lo[k] = a[k];
+      const int j = search_splitters<true>(spl, ns, x[k]);
+      const long long w = j == 0 ? 0 : (long long)(j - 1) * stride + 1;
+      a[k] = w > lo[k] ? w : lo[k];
+      end[k] = j < ns ? (long long)j * stride : m;
+      last[k] = a[k] - 1;  // every index up to it holds a key <= x
+      span[k] = 0;
+      n[k] = -1;  // scanning
+      if (x[k] == INT64_MAX) {  // no key is larger: hi = m (the join's padding)
+        step[k] = m;
+        n[k] = 0;
+      }
+    }
+    // the last key of each 4-key sector from a's on, 8 sectors one after
+    // another (a run's own sectors, the bytes it must read), then doubling
+    for (bool more = true; more;) {
+      more = false;
+      long long v[PPT];
+#pragma unroll
+      for (int k = 0; k < PPT; ++k) {
+        const long long q = (a[k] & ~3LL) + 4 * span[k] + 3;
+        if (n[k] < 0 && q < end[k]) v[k] = sorted[q];
+      }
+#pragma unroll
+      for (int k = 0; k < PPT; ++k) {
+        if (n[k] >= 0) continue;
+        const long long q = (a[k] & ~3LL) + 4 * span[k] + 3;
+        if (q >= end[k] || v[k] > x[k]) {
+          // the first key > x lies in [last + 1, min(q, end)]
+          const long long top = q < end[k] ? q : end[k];
+          n[k] = top - (last[k] + 1);
+          step[k] = last[k] + 1;
+        } else {
+          last[k] = q;
+          span[k] = span[k] < 7 ? span[k] + 1 : 2 * span[k] + 1;
+          more = true;
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < PPT; ++k) a[k] = step[k];
+    search_window<true>(sorted, x, a, n);
+#pragma unroll
+    for (int k = 0; k < PPT; ++k) {
+      const long long t = g0 + k * SEARCH_THREADS + threadIdx.x;
+      if (t < p) {
+        lo_out[t] = (int)lo[k];
+        hi_out[t] = (int)a[k];
+      }
+    }
+  }
+}
+
+// K6's probes per thread: 4 where one per thread would fill the card twice
+// over (their loads overlap), else 1 (more blocks share a small call)
+static int search_ppt(int sms, long long p) {
+  return p >= 2LL * sms * SEARCH_BLOCKS_PER_SM * SEARCH_THREADS ? 4 : 1;
+}
+
+// K6's grid: one block per SEARCH_THREADS * ppt probes, at most
+// SEARCH_BLOCKS_PER_SM per SM (the rest loop), so the splitters are loaded
+// by at most that many blocks
+static unsigned int search_blocks(int sms, long long p, int ppt) {
+  const long long per_block = (long long)SEARCH_THREADS * ppt;
+  const long long want = (p + per_block - 1) / per_block;
+  const long long most = (long long)sms * SEARCH_BLOCKS_PER_SM;
+  return (unsigned int)(want < most ? want : most);
 }
 
 // The onesweep's items per thread: a small input takes small tiles, so
@@ -546,9 +582,22 @@ int arroyo_join_search_bounds(int device, const void* sorted, long long m, const
   if (m < 0 || m > INT32_LIMIT || p < 1) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  search_bounds_kernel<<<blocks_for(p), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const long long*>(sorted), m, static_cast<const long long*>(probe), p,
-      static_cast<int*>(lo), static_cast<int*>(hi));
+  int sms = 0;
+  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) != cudaSuccess ||
+      sms < 1)
+    sms = 132;
+  const long long stride = m > SPLITTERS ? (m + SPLITTERS - 1) / SPLITTERS : 1;
+  const int ns = (int)((m + stride - 1) / stride);
+  const int ppt = search_ppt(sms, p);
+  const auto* sk = static_cast<const long long*>(sorted);
+  const auto* pk = static_cast<const long long*>(probe);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (ppt == 4)
+    search_bounds_kernel<4><<<search_blocks(sms, p, 4), SEARCH_THREADS, 0, s>>>(
+        sk, m, stride, ns, pk, p, static_cast<int*>(lo), static_cast<int*>(hi));
+  else
+    search_bounds_kernel<1><<<search_blocks(sms, p, 1), SEARCH_THREADS, 0, s>>>(
+        sk, m, stride, ns, pk, p, static_cast<int*>(lo), static_cast<int*>(hi));
   return (int)cudaGetLastError();
 }
 

@@ -8,13 +8,13 @@
 // the shard as a grid dimension, so one launch serves every shard. They
 // replace the jitted programs of the JAX package's mesh path:
 //
-//   K8  agg_sort_reduce   arroyo_tpu/ops/aggregate.py sort_reduce (B7):
-//       per shard, a stable lexsort of L rows by (key, bin), invalid rows
-//       as (INT64_MAX, INT32_MAX), then one reduced partial per run of
-//       equal (key, bin): the representative key and bin, every lane's
-//       sum / min / max, and active = the run counted a valid row. Slots
-//       past the last run hold (INT64_MIN, INT32_MIN), inactive, and each
-//       lane's identity.
+//   K8  agg_sort_reduce   arroyo_tpu/ops/aggregate.py sort_reduce (B7), and
+//       B9's step at one shard: per shard, a stable lexsort of L rows by
+//       (key, bin), invalid rows as (INT64_MAX, INT32_MAX), then one
+//       reduced partial per run of equal (key, bin): the representative
+//       key and bin, every lane's sum / min / max, and active = the run
+//       counted a valid row. Slots past the last run hold (INT64_MIN,
+//       INT32_MIN), inactive, and each lane's identity.
 //   K9  agg_probe_merge   probe_merge (B8): merge unique partials into the
 //       (keys, bins, occ, accs) table in place, by max_probes synchronous
 //       rounds of linear probing from mix(key ^ bin * C) & (cap - 1).
@@ -38,30 +38,59 @@
 //       _build_jax :350-379, :424-444), whose cumsum scatter gives the
 //       same slot order.
 //
-// Exactness. K8 sorts (key, tag) pairs, tag = (bin with its sign bit
-// flipped) << 32 | invalid << 31 | row: every tag is distinct, so the order
-// is total, and among valid rows it is the stable lexsort. Invalid rows sort
-// as (INT64_MAX, INT32_MAX) after the valid rows of that run (the only run
-// that mixes them), which changes no reduction: an invalid row adds each
-// lane's identity. Each run is reduced by one thread walking its valid rows
-// in sorted order from the identity, which is how XLA's CPU segment_sum
-// adds (float sums come out bit for bit). Float min/max keep XLA's order:
-// NaN propagates and -0.0 sorts below +0.0. K9 reproduces the reference's
-// placement slot for slot: each round classifies every active partial
-// against the table as it was at the round's start, contenders for an
-// empty slot resolve by atomicMax of their index (the highest wins, as the
-// reference's scatter-max), and only then do matches and winners write.
-// One block per shard runs all rounds with __syncthreads between the
-// phases, so there is one launch per merge; a round that starts with no
-// active partial ends the loop (no later round could write).
+// K8, what bounds it and its design. It must read each valid row once and
+// write the [S, L] outputs once, so bytes bound it; its work is the valid
+// ("live") rows alone. The merged step of the fused mesh path hands it S *
+// (S dest_cap + L) rows of which a few percent are live (q7m: 139,264 a
+// shard), so a sort over every slot would move mostly padding. So K8
+// first compacts: sr_count counts each chunk's live rows, sr_compact
+// scatters each live row's record (key digits, bin digits, flat row) in row
+// order, shards one after another, and fills the output slots past live +
+// 1 of each shard (no run or padding run can take them) with (INT64_MIN,
+// INT32_MIN), inactive, the identities. Then it sorts the records stably by
+// (key, bin) within each shard, 8-bit digits least significant first (the
+// bin's 4 bytes, the key's 8, the shard), with csrc/radix_sort.cuh's
+// stable rank, skipping every digit position whose value is one across the
+// rows (a pass that would move nothing: the bins' high bytes, the shard at
+// one shard):
+//   - with at most SR_BLOCK_ROWS (8192) live rows in every shard, one
+//     block per shard sorts its rows in shared memory (sr_block) and then
+//     finds and reduces the runs itself: three launches. Up to L = 8192
+//     rows a shard that holds by construction; past it sr_compact also
+//     counts the digits and the call reads them back (one wait on the
+//     stream) to choose;
+//   - else one onesweep launch per varying position over all shards'
+//     records (sr_sweep: K5's tile counter and decoupled look-back), then
+//     a chunk count and scan of the runs' starts and one thread per output
+//     slot (sr_reduce).
+// Runs: a valid row keyed (INT64_MAX, INT32_MAX) forms the last run of its
+// shard, and the shard's invalid rows join it (active, reduced over its
+// valid rows, as the reference's lexsort has it); else a shard with an
+// invalid row gets one inactive (INT64_MAX, INT32_MAX) run after its live
+// runs. A run shorter than SR_LONG_RUN rows is reduced by one thread
+// walking its rows in sorted order from the identity; a longer one by a
+// warp (one block: every lane's values staged in shared memory in sorted
+// order first) or a whole block (onesweep: block_walk stages the run's
+// values through shared memory). A float sum is one thread's chain of
+// __dadd_rn / __fadd_rn in sorted order, which is how XLA's CPU
+// segment_sum adds, so float sums come out bit for bit; integer sums and
+// min/max, exact in any grouping, combine across the warp in order. Float
+// min/max keep XLA's order: NaN propagates and -0.0 sorts below +0.0.
+//
+// K9 reproduces the reference's placement slot for slot: each round
+// classifies every active partial against the table as it was at the
+// round's start, contenders for an empty slot resolve by atomicMax of
+// their index (the highest wins, as the reference's scatter-max), and only
+// then do matches and winners write. One block per shard runs all rounds
+// with __syncthreads between the phases, so there is one launch per merge;
+// a round that starts with no active partial ends the loop (no later round
+// could write).
 //
 // Bounds (H100, 3.35 TB/s): all four move a few bytes per element and do
-// no arithmetic to speak of. K8's bitonic network makes log^2 passes over
-// the padded power of two (the short strides in shared memory, one tile of
-// SORT_TILE pairs per block); K10's per-shard scan and K9's rounds run one
-// block per shard, so they are latency-bound at small sizes; K11 and the
-// run scan of K8 count per chunk in one launch and scatter in a second,
-// every block of every shard at once.
+// no arithmetic to speak of. K10's per-shard scan and K9's rounds run one
+// block per shard, so they are latency-bound at small sizes; K11 and K8's
+// compaction count per chunk in one launch and scatter in a second, every
+// block of every shard at once.
 //
 // Lanes are int32, int64, uint64 (a numeric group-by key riding as a max
 // lane, as the JAX package's sharded store carries it), float32 or float64.
@@ -73,18 +102,21 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+#include <chrono>
+
+#include "radix_sort.cuh"
+
+using radix::RADIX;
+
 #define MAX_LANES 32
 #define MAX_SHARDS 32
-#define SORT_TILE 2048
 #define CHUNK 1024  // elements per block of the count / scan passes
 #define THREADS 256
 #define KEY_MAX 0x7fffffffffffffffLL
 #define KEY_MIN (-KEY_MAX - 1LL)
 #define BIN_MAX 0x7fffffff
 #define BIN_MIN (-BIN_MAX - 1)
-#define PAD_TAG 0xffffffff00000000ULL
-#define INVALID_BIT 0x80000000u  // in a tag's row field: the row is invalid
-#define ROW_MASK 0x7fffffffu
 
 enum { KIND_ADD = 0, KIND_MIN = 1, KIND_MAX = 2 };
 enum { DT_I32 = 0, DT_I64 = 1, DT_F32 = 2, DT_F64 = 3, DT_U64 = 4 };
@@ -219,6 +251,22 @@ __device__ __forceinline__ void chunk_prefix(const int* counts, int n_chunks, in
 
 // ------------------------------------------------------------ K8
 
+#define SR_BLOCK_THREADS 512
+#define SR_BLOCK_WARPS (SR_BLOCK_THREADS / 32)
+#define SR_BLOCK_ITEMS 16
+#define SR_BLOCK_ROWS (SR_BLOCK_THREADS * SR_BLOCK_ITEMS)  // a shard this small sorts in one block
+#define SR_SWEEP_THREADS 256  // one thread per digit in the per-digit steps
+#define SR_SWEEP_WARPS (SR_SWEEP_THREADS / 32)
+#define SR_MAX_SHARDS 256  // the shard is one digit
+#define SR_POSITIONS 13    // digit positions: the bin's 4 bytes, the key's 8, the shard
+#define SR_SHARD_POS 12
+#define SR_LONG_RUN 64          // a run this long is reduced by a whole block (onesweep)
+#define SR_WARP_RUN 16          // one block per shard: a run this long by a warp
+#define SR_STAGE_WORDS 8192     // a block walk's staged lane values (64 KB)
+#define SR_WALK_BLOCKS 264      // blocks of the onesweep path's long-run walk
+#define KEY_DIGITS_MAX 0xffffffffffffffffULL  // the digits of INT64_MAX
+#define BIN_DIGITS_MAX 0xffffffffu            // the digits of INT32_MAX
+
 struct SortIn {
   const long long* key;
   const void* bins;  // int32 or int64
@@ -228,172 +276,578 @@ struct SortIn {
   long long n_valid;  // rows at or past this flat index are invalid
 };
 
+// A live row's sort record, structure of arrays: the key's digits (key ^
+// INT64_MIN, so unsigned order is signed order), the bin's (bin ^
+// INT32_MIN) and the row's flat index s * L + r, whose shard is row / L.
+struct SrRecs {
+  unsigned long long* k;
+  unsigned* b;
+  int* row;
+};
+
+struct SrOut {
+  long long* key;
+  int* bin;
+  unsigned char* active;
+};
+
+// K8's counters in the scratch (cleared by a memset when L > SR_BLOCK_ROWS)
+struct SrHeader {
+  unsigned hist[SR_POSITIONS][RADIX];  // live rows per digit value; the shard row: per shard
+  int shard_live[SR_MAX_SHARDS];   // live rows per shard (written by sr_compact)
+  int shard_start[SR_MAX_SHARDS];  // a shard's first compacted row (written by sr_compact)
+  int run_base[SR_MAX_SHARDS];     // the onesweep path: a shard's first run
+  int run_end[SR_MAX_SHARDS];      // and one past its last
+  unsigned long long n_long;       // runs listed for sr_walk_long
+  unsigned next_tile[16];          // per pass: the next tile to hand out
+};
+
+// What the last call did per shard, for a caller to read back after it
+// (arroyo_agg_sort_reduce_shards): its live rows (sr_compact), and the
+// passes its block ran (sr_block; -1 where the onesweep path sorted it).
+__device__ int g_sr_shard_live[SR_MAX_SHARDS];
+__device__ int g_sr_shard_passes[SR_MAX_SHARDS];
+
 __device__ __forceinline__ bool row_valid(const SortIn& a, long long row) {
   return row < a.n_valid && (a.valid == nullptr || a.valid[row]);
 }
 
-__device__ __forceinline__ bool pair_greater(long long ka, unsigned long long ta, long long kb,
-                                             unsigned long long tb) {
-  return ka > kb || (ka == kb && ta > tb);
+__device__ __forceinline__ int bin_at(const SortIn& a, long long row) {
+  const long long b = a.bins64 ? static_cast<const long long*>(a.bins)[row]
+                               : (long long)static_cast<const int*>(a.bins)[row];
+  return (int)(unsigned int)(unsigned long long)(b - a.bin_off);
 }
 
-__device__ __forceinline__ void exchange(long long* k, unsigned long long* t, long long lo,
-                                         long long j, bool asc) {
-  const long long hi = lo + j;
-  const long long ka = k[lo], kb = k[hi];
-  const unsigned long long ta = t[lo], tb = t[hi];
-  if (pair_greater(ka, ta, kb, tb) == asc) {
-    k[lo] = kb;
-    k[hi] = ka;
-    t[lo] = tb;
-    t[hi] = ta;
-  }
+// digit position pos of a record: 0-3 the bin's bytes, 4-11 the key's, 12 its shard
+__device__ __forceinline__ unsigned rec_digit(unsigned long long kd, unsigned bd, int row, int L,
+                                              int pos) {
+  if (pos < 4) return (bd >> (8 * pos)) & 255u;
+  if (pos < SR_SHARD_POS) return (unsigned)(kd >> (8 * (pos - 4))) & 255u;
+  return (unsigned)(row / L);
 }
 
-// load one tile of pairs (padding past L sorts last), sort it; blockDim = tile / 2
-__global__ void sr_sort_tiles(SortIn a, long long L, long long P, long long* __restrict__ sk,
-                              unsigned long long* __restrict__ st, int tile) {
-  __shared__ long long k[SORT_TILE];
-  __shared__ unsigned long long t[SORT_TILE];
-  const long long s = blockIdx.y;
-  const long long base = (long long)blockIdx.x * tile;
-  for (int i = threadIdx.x; i < tile; i += blockDim.x) {
-    const long long g = base + i;
-    if (g < L) {
-      const long long row = s * L + g;
-      const bool v = row_valid(a, row);
-      long long b = a.bins64 ? static_cast<const long long*>(a.bins)[row]
-                             : (long long)static_cast<const int*>(a.bins)[row];
-      const int b32 = v ? (int)(unsigned int)(unsigned long long)(b - a.bin_off) : BIN_MAX;
-      k[i] = v ? a.key[row] : KEY_MAX;
-      t[i] = ((unsigned long long)((unsigned int)b32 ^ 0x80000000u) << 32) |
-             (unsigned int)g | (v ? 0u : INVALID_BIT);
-    } else {
-      k[i] = KEY_MAX;
-      t[i] = PAD_TAG | (unsigned int)g | INVALID_BIT;
-    }
-  }
-  __syncthreads();
-  const int th = threadIdx.x;
-  for (int kk = 2; kk <= tile; kk <<= 1) {
-    for (int j = kk >> 1; j > 0; j >>= 1) {
-      const int lo = (th / j) * 2 * j + (th % j);
-      exchange(k, t, lo, j, ((base + lo) & kk) == 0);
-      __syncthreads();
-    }
-  }
-  for (int i = threadIdx.x; i < tile; i += blockDim.x) {
-    sk[s * P + base + i] = k[i];
-    st[s * P + base + i] = t[i];
-  }
+// an output slot no run fills: (key, bin), inactive, every lane's identity
+__device__ __forceinline__ void write_empty(const SrOut& out, const Lanes& lanes, long long o,
+                                            long long key, int bin) {
+  out.key[o] = key;
+  out.bin[o] = bin;
+  out.active[o] = 0;
+  for (int l = 0; l < lanes.n; ++l) st_bits(lanes.dtype[l], lanes.out[l], o, lanes.ident[l]);
 }
 
-__global__ void sr_merge_global(long long* __restrict__ sk, unsigned long long* __restrict__ st,
-                                long long P, long long kk, long long j) {
-  const long long pairs = P / 2;
-  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= pairs) return;
-  const long long lo = (t / j) * 2 * j + (t % j);
-  const long long off = (long long)blockIdx.y * P;
-  exchange(sk + off, st + off, lo, j, (lo & kk) == 0);
+// a run's representative key and bin, active
+__device__ __forceinline__ void write_run_key(const SrOut& out, long long o, unsigned long long kd,
+                                              unsigned bd) {
+  out.key[o] = (long long)(kd ^ 0x8000000000000000ULL);
+  out.bin[o] = (int)(bd ^ 0x80000000u);
+  out.active[o] = 1;
 }
 
-// strides SORT_TILE / 2 .. 1 of stage kk; blockDim = SORT_TILE / 2
-__global__ void sr_merge_tile(long long* __restrict__ sk, unsigned long long* __restrict__ st,
-                              long long P, long long kk) {
-  __shared__ long long k[SORT_TILE];
-  __shared__ unsigned long long t[SORT_TILE];
-  const long long off = (long long)blockIdx.y * P;
-  const long long base = (long long)blockIdx.x * SORT_TILE;
-  for (int i = threadIdx.x; i < SORT_TILE; i += blockDim.x) {
-    k[i] = sk[off + base + i];
-    t[i] = st[off + base + i];
-  }
-  __syncthreads();
-  const bool asc = (base & kk) == 0;
-  const int th = threadIdx.x;
-  for (int j = SORT_TILE >> 1; j > 0; j >>= 1) {
-    const int lo = (th / j) * 2 * j + (th % j);
-    exchange(k, t, lo, j, asc);
-    __syncthreads();
-  }
-  for (int i = threadIdx.x; i < SORT_TILE; i += blockDim.x) {
-    sk[off + base + i] = k[i];
-    st[off + base + i] = t[i];
-  }
-}
-
-__device__ __forceinline__ bool run_start(const long long* sk, const unsigned long long* st,
-                                          long long i) {
-  return i == 0 || sk[i] != sk[i - 1] || (st[i] >> 32) != (st[i - 1] >> 32);
-}
-
-__global__ void sr_run_count(const long long* __restrict__ sk, const unsigned long long* __restrict__ st,
-                             long long L, long long P, int n_chunks, int* __restrict__ counts) {
-  __shared__ int ws[32];
-  const long long s = blockIdx.y;
-  const long long i = (long long)blockIdx.x * CHUNK + threadIdx.x;
-  const bool f = i < L && run_start(sk + s * P, st + s * P, i);
-  int total;
-  block_excl_count(f, ws, &total);
-  if (threadIdx.x == 0) counts[s * n_chunks + blockIdx.x] = total;
-}
-
-__global__ void sr_run_scan(const long long* __restrict__ sk, const unsigned long long* __restrict__ st,
-                            long long L, long long P, int n_chunks, const int* __restrict__ counts,
-                            int* __restrict__ starts, int* __restrict__ nseg) {
-  __shared__ int ws[32];
-  __shared__ long long sh[32];
-  const long long s = blockIdx.y;
-  long long prefix, total;
-  chunk_prefix(counts + s * n_chunks, n_chunks, blockIdx.x, &prefix, &total, sh);
-  const long long i = (long long)blockIdx.x * CHUNK + threadIdx.x;
-  const bool f = i < L && run_start(sk + s * P, st + s * P, i);
-  int tot;
-  const int ex = block_excl_count(f, ws, &tot);
-  if (f) starts[s * L + prefix + ex] = (int)i;
-  if (blockIdx.x == 0 && threadIdx.x == 0) nseg[s] = (int)total;
-}
-
-// one thread per output slot t of shard s: run t reduced, or the identities
-__global__ void sr_reduce(Lanes lanes, const long long* __restrict__ sk,
-                          const unsigned long long* __restrict__ st, long long L, long long P,
-                          const int* __restrict__ starts, const int* __restrict__ nseg,
-                          long long* __restrict__ u_key, int* __restrict__ u_bin,
-                          unsigned char* __restrict__ active) {
-  const long long s = blockIdx.y;
-  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= L) return;
-  const long long o = s * L + t;
-  const long long n = nseg[s];
-  if (t >= n) {
-    u_key[o] = KEY_MIN;
-    u_bin[o] = BIN_MIN;
-    active[o] = 0;
-    for (int l = 0; l < lanes.n; ++l) st_bits(lanes.dtype[l], lanes.out[l], o, lanes.ident[l]);
-    return;
-  }
-  const long long lo = starts[s * L + t];
-  const long long hi = t + 1 < n ? starts[s * L + t + 1] : L;
-  const long long* k = sk + s * P;
-  const unsigned long long* tg = st + s * P;
-  u_key[o] = k[lo];
-  u_bin[o] = (int)((unsigned int)(tg[lo] >> 32) ^ 0x80000000u);
-  // a run's valid rows come first (only the padding run holds invalid
-  // ones); invalid rows would add each lane's identity, which changes no
-  // accumulator, so the walk stops at the first
-  long long end = lo;
-  while (end < hi && !((unsigned int)tg[end] & INVALID_BIT)) ++end;
-  active[o] = end > lo ? 1 : 0;
+// The lanes of a short run (input rows rows[0, len)) walked by one thread
+// from the identity in sorted order, into output slot o; eight rows' loads
+// are in flight before their combines.
+__device__ __forceinline__ void reduce_short(const Lanes& lanes, const int* rows, int len,
+                                             long long o) {
   for (int l = 0; l < lanes.n; ++l) {
     const int dt = lanes.dtype[l], kind = lanes.kind[l];
     const void* vp = lanes.in[l];
     unsigned long long acc = lanes.ident[l];
-    for (long long i = lo; i < end; ++i) {
-      const long long row = s * L + (long long)((unsigned int)tg[i] & ROW_MASK);
-      acc = combine_bits(kind, dt, acc, vp ? ld_bits(dt, vp, row) : one_bits(dt));
+    for (int i = 0; i < len; i += 8) {
+      unsigned long long v[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+        if (i + k < len) v[k] = vp ? ld_bits(dt, vp, rows[i + k]) : one_bits(dt);
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+        if (i + k < len) acc = combine_bits(kind, dt, acc, v[k]);
     }
     st_bits(dt, lanes.out[l], o, acc);
+  }
+}
+
+__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
+__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ double from_bits(unsigned long long b, double) {
+  return __longlong_as_double((long long)b);
+}
+__device__ __forceinline__ float from_bits(unsigned long long b, float) {
+  return __uint_as_float((unsigned)b);
+}
+
+// x plus the staged values v[0, m) in order, one dependent add after
+// another (XLA CPU's segment_sum order), the values read eight ahead
+template <typename F>
+__device__ __forceinline__ F chain(F x, const unsigned long long* v, int m) {
+  int i = 0;
+  for (; i + 8 <= m; i += 8) {
+    F w[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) w[k] = from_bits(v[i + k], x);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) x = add_rn(x, w[k]);
+  }
+  for (; i < m; ++i) x = add_rn(x, from_bits(v[i], x));
+  return x;
+}
+
+// The values v[0, m) of one lane combined in order by the calling warp
+// (every lane of it calls; lane 0's result counts): a float sum by lane 0's
+// chain, any other lane (exact in any grouping) over 32 consecutive slices
+// combined pairwise in order, so a NaN or a signed zero wins where it
+// would in a walk.
+__device__ __forceinline__ unsigned long long warp_reduce(int kind, int dt, unsigned long long x,
+                                                          const unsigned long long* v, int m) {
+  const int lane = threadIdx.x & 31;
+  if (kind == KIND_ADD && dt == DT_F64)
+    return lane ? x : (unsigned long long)__double_as_longlong(
+                          chain(__longlong_as_double((long long)x), v, m));
+  if (kind == KIND_ADD && dt == DT_F32)
+    return lane ? x : (unsigned long long)__float_as_uint(chain(__uint_as_float((unsigned)x), v, m));
+  const int per = (m + 31) / 32;
+  const int lo = lane * per, hi = min(m, lo + per);
+  unsigned long long part = x;  // the identity
+  for (int i = lo; i < hi; ++i) part = combine_bits(kind, dt, part, v[i]);
+  for (int off = 1; off < 32; off <<= 1) {
+    const unsigned long long next = __shfl_down_sync(0xffffffffu, part, off);
+    if ((lane & (2 * off - 1)) == 0) part = combine_bits(kind, dt, part, next);
+  }
+  return part;
+}
+
+// The lanes of a long run (input rows rows[0, len)) reduced by the whole
+// block into output slot o: the block stages chunks of every lane's values
+// in shared memory (stage: stage_words words), then warp w reduces lanes
+// w, w + warps, ... (warp_reduce). acc: MAX_LANES words of shared memory.
+// Every thread of the block calls it.
+__device__ void block_walk(const Lanes& lanes, const int* rows, int len, long long o,
+                           unsigned long long* stage, int stage_words, unsigned long long* acc) {
+  const int nl = lanes.n;
+  if (nl == 0) return;
+  const int tid = threadIdx.x, nt = blockDim.x, warp = tid >> 5, lane = tid & 31, nw = nt >> 5;
+  const int chunk = stage_words / nl;
+  if (tid < nl) acc[tid] = lanes.ident[tid];
+  for (int c0 = 0; c0 < len; c0 += chunk) {
+    const int m = min(chunk, len - c0);
+    __syncthreads();  // acc is set and the chunk before is read
+    for (int i = tid; i < m; i += nt) {
+      const long long row = rows[c0 + i];
+      for (int l = 0; l < nl; ++l) {
+        const int dt = lanes.dtype[l];
+        stage[l * chunk + i] = lanes.in[l] ? ld_bits(dt, lanes.in[l], row) : one_bits(dt);
+      }
+    }
+    __syncthreads();
+    for (int l = warp; l < nl; l += nw) {
+      const int dt = lanes.dtype[l], kind = lanes.kind[l];
+      const unsigned long long* v = stage + l * chunk;
+      if (kind == KIND_ADD && (dt == DT_F64 || dt == DT_F32)) {
+        const unsigned long long r = warp_reduce(kind, dt, acc[l], v, m);
+        if (lane == 0) acc[l] = r;
+      } else {
+        const unsigned long long part = warp_reduce(kind, dt, lanes.ident[l], v, m);
+        if (lane == 0) acc[l] = combine_bits(kind, dt, acc[l], part);
+      }
+    }
+  }
+  __syncthreads();
+  if (tid < nl) st_bits(lanes.dtype[tid], lanes.out[tid], o, acc[tid]);
+  __syncthreads();
+}
+
+// Per chunk of CHUNK rows of shard blockIdx.y: its live rows.
+__global__ void __launch_bounds__(CHUNK)
+    sr_count(SortIn a, int L, int n_chunks, int* __restrict__ counts) {
+  __shared__ int ws[32];
+  const int s = blockIdx.y;
+  const long long r = (long long)blockIdx.x * CHUNK + threadIdx.x;
+  int total;
+  block_excl_count(r < L && row_valid(a, (long long)s * L + r), ws, &total);
+  if (threadIdx.x == 0) counts[s * n_chunks + blockIdx.x] = total;
+}
+
+// Each live row's record to its compacted place, shards one after another
+// and rows in order within a shard; each shard's live count and first
+// place; with_hist: the live rows' digit counts at positions 0-11 and the
+// live count per shard (position 12). Output slots past live + 1 (which no
+// run or padding run can take) get the empty fill.
+__global__ void __launch_bounds__(CHUNK)
+    sr_compact(SortIn a, Lanes lanes, int L, int n_chunks, const int* __restrict__ counts,
+               SrRecs c, SrHeader* __restrict__ hd, int with_hist, SrOut out) {
+  __shared__ int ws[32];
+  __shared__ long long sh[32];
+  __shared__ unsigned h[SR_SHARD_POS * RADIX];
+  const int s = blockIdx.y, chunk = blockIdx.x;
+  long long before_s = 0, before_c = 0, total = 0;
+  for (int i = threadIdx.x; i < (s + 1) * n_chunks; i += blockDim.x) {
+    const int v = counts[i];
+    if (i < s * n_chunks) {
+      before_s += v;
+    } else {
+      total += v;
+      if (i < s * n_chunks + chunk) before_c += v;
+    }
+  }
+  before_s = block_sum(before_s, sh);
+  before_c = block_sum(before_c, sh);
+  total = block_sum(total, sh);
+  const long long r = (long long)chunk * CHUNK + threadIdx.x;
+  const long long row = (long long)s * L + r;
+  const bool live = r < L && row_valid(a, row);
+  int tot;
+  const int ex = block_excl_count(live, ws, &tot);
+  unsigned long long kd = 0;
+  unsigned bd = 0;
+  if (live) {
+    kd = (unsigned long long)a.key[row] ^ 0x8000000000000000ULL;
+    bd = (unsigned)bin_at(a, row) ^ 0x80000000u;
+    const long long at = before_s + before_c + ex;
+    c.k[at] = kd;
+    c.b[at] = bd;
+    c.row[at] = (int)row;
+  }
+  if (chunk == 0 && threadIdx.x == 0) {
+    hd->shard_live[s] = (int)total;
+    hd->shard_start[s] = (int)before_s;
+    if (with_hist) hd->hist[SR_SHARD_POS][s] = (unsigned)total;
+    g_sr_shard_live[s] = (int)total;
+    g_sr_shard_passes[s] = -1;
+  }
+  if (r < L && r > total) write_empty(out, lanes, row, KEY_MIN, BIN_MIN);
+  if (!with_hist) return;
+  for (int i = threadIdx.x; i < SR_SHARD_POS * RADIX; i += blockDim.x) h[i] = 0;
+  __syncthreads();
+  // a warp whose live rows share a digit adds them at once (the bins' high
+  // bytes), else each live row adds its own
+  const unsigned live_mask = __ballot_sync(0xffffffffu, live);
+  if (live_mask) {
+    const int lane = threadIdx.x & 31, leader = __ffs(live_mask) - 1;
+    for (int pos = 0; pos < SR_SHARD_POS; ++pos) {
+      const unsigned d = rec_digit(kd, bd, 0, 1, pos);
+      const unsigned d0 = __shfl_sync(0xffffffffu, d, leader);
+      if (__all_sync(0xffffffffu, !live || d == d0)) {
+        if (lane == leader) atomicAdd(&h[pos * RADIX + d0], (unsigned)__popc(live_mask));
+      } else if (live) {
+        atomicAdd(&h[pos * RADIX + d], 1u);
+      }
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < SR_SHARD_POS * RADIX; i += blockDim.x)
+    if (h[i]) atomicAdd(&hd->hist[0][0] + i, h[i]);
+}
+
+struct SrBlockShared {
+  unsigned long long k[SR_BLOCK_ROWS];  // after the keys are written: a lane's staged values
+  unsigned b[SR_BLOCK_ROWS];
+  int row[SR_BLOCK_ROWS];
+  int runs[SR_BLOCK_ROWS + 1];  // each run's first row, then the shard's live count
+  radix::RankShared<SR_BLOCK_WARPS> r;
+  unsigned long long kor, kand;
+  unsigned bor, band;
+  int n_runs, n_long;
+  int long_runs[SR_BLOCK_ROWS / SR_WARP_RUN];
+};
+
+extern __shared__ __align__(16) unsigned char sr_smem[];
+
+// The shared-memory path: one block per shard of at most SR_BLOCK_ROWS live
+// rows. It sorts them by (key, bin) with one stable pass per digit
+// position that varies within the shard, all in shared memory, finds the
+// runs and writes output slots [0, min(live + 1, L)); then, lane by lane,
+// it stages the lane's values in sorted order in shared memory and reduces
+// each run from there, a short one by one thread, a long one by one warp.
+__global__ void __launch_bounds__(SR_BLOCK_THREADS, 1)
+    sr_block(Lanes lanes, int L, SrRecs c, const SrHeader* __restrict__ hd, SrOut out) {
+  SrBlockShared& sm = *reinterpret_cast<SrBlockShared*>(sr_smem);
+  const int s = blockIdx.x;
+  const int n = hd->shard_live[s];
+  const long long base = hd->shard_start[s];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  if (tid == 0) {
+    sm.kor = 0;
+    sm.kand = ~0ULL;
+    sm.bor = 0;
+    sm.band = ~0u;
+    sm.n_long = 0;
+  }
+  __syncthreads();
+  unsigned long long kor = 0, kand = ~0ULL;
+  unsigned bor = 0, band = ~0u;
+  for (int i = tid; i < n; i += SR_BLOCK_THREADS) {
+    const unsigned long long kd = c.k[base + i];
+    const unsigned bd = c.b[base + i];
+    sm.k[i] = kd;
+    sm.b[i] = bd;
+    sm.row[i] = c.row[base + i];
+    kor |= kd;
+    kand &= kd;
+    bor |= bd;
+    band &= bd;
+  }
+  for (int o = 16; o > 0; o >>= 1) {
+    kor |= __shfl_xor_sync(0xffffffffu, kor, o);
+    kand &= __shfl_xor_sync(0xffffffffu, kand, o);
+    bor |= __shfl_xor_sync(0xffffffffu, bor, o);
+    band &= __shfl_xor_sync(0xffffffffu, band, o);
+  }
+  if (lane == 0) {
+    atomicOr(&sm.kor, kor);
+    atomicAnd(&sm.kand, kand);
+    atomicOr(&sm.bor, bor);
+    atomicAnd(&sm.band, band);
+  }
+  __syncthreads();
+  const unsigned long long kvary = sm.kor ^ sm.kand;
+  const unsigned bvary = sm.bor ^ sm.band;
+  // items per thread: the fewest that hold the shard, so each warp's rank
+  // chain is no longer than it must be
+  const int used = (n + SR_BLOCK_THREADS - 1) / SR_BLOCK_THREADS;
+  int passes = 0;
+  for (int pos = 0; n > 1 && pos < SR_SHARD_POS; ++pos) {
+    const unsigned vary = pos < 4 ? (bvary >> (8 * pos)) & 255u
+                                  : (unsigned)(kvary >> (8 * (pos - 4))) & 255u;
+    if (!vary) continue;  // one digit value across the shard: the pass moves nothing
+    ++passes;
+    unsigned long long kd[SR_BLOCK_ITEMS];
+    unsigned bd[SR_BLOCK_ITEMS], dig[SR_BLOCK_ITEMS], rank[SR_BLOCK_ITEMS];
+    int rw[SR_BLOCK_ITEMS];
+#pragma unroll
+    for (int j = 0; j < SR_BLOCK_ITEMS; ++j) {
+      const int i = warp * 32 * used + j * 32 + lane;
+      dig[j] = RADIX;
+      if (j < used && i < n) {
+        kd[j] = sm.k[i];
+        bd[j] = sm.b[i];
+        rw[j] = sm.row[i];
+        dig[j] = rec_digit(kd[j], bd[j], 0, 1, pos);
+      }
+    }
+    __syncthreads();  // every item is read before any is overwritten
+    radix::rank_digits(sm.r, dig, rank, used);
+    __syncthreads();
+    radix::digit_offsets(sm.r);
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < SR_BLOCK_ITEMS; ++j) {
+      if (dig[j] < RADIX) {
+        const unsigned at = radix::tile_slot(sm.r, dig[j], rank[j]);
+        sm.k[at] = kd[j];
+        sm.b[at] = bd[j];
+        sm.row[at] = rw[j];
+      }
+    }
+    __syncthreads();
+  }
+  if (tid == 0) g_sr_shard_passes[s] = passes;
+  // the runs: thread t flags rows [t ITEMS, (t + 1) ITEMS)
+  const int i0 = tid * SR_BLOCK_ITEMS;
+  unsigned flags = 0, cnt = 0;
+  for (int q = 0; q < SR_BLOCK_ITEMS; ++q) {
+    const int i = i0 + q;
+    if (i < n && (i == 0 || sm.k[i] != sm.k[i - 1] || sm.b[i] != sm.b[i - 1])) {
+      flags |= 1u << q;
+      ++cnt;
+    }
+  }
+  unsigned g = radix::block_exclusive_sum<SR_BLOCK_WARPS>(cnt, sm.r.warp_sums);
+  if (tid == SR_BLOCK_THREADS - 1) {
+    sm.n_runs = (int)(g + cnt);
+    sm.runs[g + cnt] = n;
+  }
+  for (int q = 0; q < SR_BLOCK_ITEMS; ++q)
+    if ((flags >> q) & 1u) sm.runs[g++] = i0 + q;
+  __syncthreads();
+  const int n_runs = sm.n_runs;
+  // the padding run: the shard has invalid rows and no valid (INT64_MAX,
+  // INT32_MAX) run for them to join
+  const bool pad = n < L && !(n > 0 && sm.k[n - 1] == KEY_DIGITS_MAX && sm.b[n - 1] == BIN_DIGITS_MAX);
+  const long long o0 = (long long)s * L;
+  for (int t = tid; t < n_runs; t += SR_BLOCK_THREADS) {
+    const int lo = sm.runs[t];
+    write_run_key(out, o0 + t, sm.k[lo], sm.b[lo]);
+    if (sm.runs[t + 1] - lo >= SR_WARP_RUN) sm.long_runs[atomicAdd(&sm.n_long, 1)] = t;
+  }
+  const int fill_end = n + 1 < L ? n + 1 : L;
+  for (int t = n_runs + tid; t < fill_end; t += SR_BLOCK_THREADS) {
+    if (t == n_runs && pad) write_empty(out, lanes, o0 + t, KEY_MAX, BIN_MAX);
+    else write_empty(out, lanes, o0 + t, KEY_MIN, BIN_MIN);
+  }
+  // each lane in turn: its values in sorted order staged in the keys'
+  // array (written out above), then a short run walked by one thread and a
+  // long one by one warp, from shared memory
+  unsigned long long* stage = sm.k;
+  for (int l = 0; l < lanes.n; ++l) {
+    const int dt = lanes.dtype[l], kind = lanes.kind[l];
+    const void* vp = lanes.in[l];
+    const unsigned long long ident = lanes.ident[l];
+    __syncthreads();  // the keys, or the lane before, are read
+#pragma unroll 4
+    for (int i = tid; i < n; i += SR_BLOCK_THREADS)
+      stage[i] = vp ? ld_bits(dt, vp, sm.row[i]) : one_bits(dt);
+    __syncthreads();
+    for (int t = tid; t < n_runs; t += SR_BLOCK_THREADS) {
+      const int lo = sm.runs[t], hi = sm.runs[t + 1];
+      if (hi - lo >= SR_WARP_RUN) continue;
+      unsigned long long acc = ident;
+      for (int i = lo; i < hi; ++i) acc = combine_bits(kind, dt, acc, stage[i]);
+      st_bits(dt, lanes.out[l], o0 + t, acc);
+    }
+    for (int q = warp; q < sm.n_long; q += SR_BLOCK_WARPS) {
+      const int t = sm.long_runs[q], lo = sm.runs[t];
+      const unsigned long long r = warp_reduce(kind, dt, ident, stage + lo, sm.runs[t + 1] - lo);
+      if (lane == 0) st_bits(dt, lanes.out[l], o0 + t, r);
+    }
+  }
+}
+
+template <int ITEMS>
+struct SrSweepShared {
+  unsigned long long k[SR_SWEEP_THREADS * ITEMS];  // the tile in digit order, after the scatter
+  unsigned b[SR_SWEEP_THREADS * ITEMS];
+  int row[SR_SWEEP_THREADS * ITEMS];
+  radix::RankShared<SR_SWEEP_WARPS> r;
+  long long out_base[RADIX];  // output position = out_base[digit] + row in the tile
+  int tile;
+};
+
+// The onesweep path: one stable pass over digit position pos of n
+// compacted records, one tile of SR_SWEEP_THREADS * ITEMS per block (K5's
+// onesweep, csrc/join_probe.cu, over K8's records).
+template <int ITEMS>
+__global__ void __launch_bounds__(SR_SWEEP_THREADS)
+    sr_sweep(SrRecs in, SrRecs out, long long n, int L, int pos, int pass,
+             SrHeader* __restrict__ hd, unsigned long long* __restrict__ status) {
+  constexpr int TILE = SR_SWEEP_THREADS * ITEMS;
+  SrSweepShared<ITEMS>& sm = *reinterpret_cast<SrSweepShared<ITEMS>*>(sr_smem);
+  const int d = threadIdx.x;
+  const unsigned digit_total = hd->hist[pos][d];  // in flight while the tile is taken
+  if (threadIdx.x == 0) sm.tile = (int)atomicAdd(hd->next_tile + pass, 1u);
+  __syncthreads();
+  const long long tile = sm.tile;
+  const long long base = tile * TILE;
+  const int tile_n = (int)min((long long)TILE, n - base);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  unsigned long long kd[ITEMS];
+  unsigned bd[ITEMS], dig[ITEMS], rank[ITEMS];
+  int rw[ITEMS];
+#pragma unroll
+  for (int j = 0; j < ITEMS; ++j) {
+    const int i = warp * 32 * ITEMS + j * 32 + lane;
+    dig[j] = RADIX;
+    if (i < tile_n) {
+      kd[j] = in.k[base + i];
+      bd[j] = in.b[base + i];
+      rw[j] = in.row[base + i];
+      dig[j] = rec_digit(kd[j], bd[j], rw[j], L, pos);
+    }
+  }
+  // every digit's first output row over the whole input, while the records load
+  sm.out_base[d] = radix::block_exclusive_sum<SR_SWEEP_WARPS>(digit_total, sm.r.warp_sums);
+  radix::rank_digits(sm.r, dig, rank);
+  __syncthreads();
+  const unsigned count = radix::digit_offsets(sm.r);
+  const unsigned before =
+      radix::publish_and_look_back(status, tile, d, count, (unsigned long long)(pass + 1));
+  sm.out_base[d] += (long long)before - sm.r.tile_start[d];
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < ITEMS; ++j) {
+    if (dig[j] < RADIX) {
+      const unsigned at = radix::tile_slot(sm.r, dig[j], rank[j]);
+      sm.k[at] = kd[j];
+      sm.b[at] = bd[j];
+      sm.row[at] = rw[j];
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < tile_n; i += SR_SWEEP_THREADS) {
+    const unsigned long long k = sm.k[i];
+    const unsigned b = sm.b[i];
+    const int rw1 = sm.row[i];
+    const long long at = sm.out_base[rec_digit(k, b, rw1, L, pos)] + i;
+    out.k[at] = k;
+    out.b[at] = b;
+    out.row[at] = rw1;
+  }
+}
+
+// sorted record i starts a run: the first row, or a new (shard, key, bin)
+__device__ __forceinline__ bool sr_run_start(const SrRecs& c, long long i, int L) {
+  return i == 0 || c.k[i] != c.k[i - 1] || c.b[i] != c.b[i - 1] || c.row[i] / L != c.row[i - 1] / L;
+}
+
+__global__ void __launch_bounds__(CHUNK)
+    sr_run_count(SrRecs c, long long n, int L, int* __restrict__ counts) {
+  __shared__ int ws[32];
+  const long long i = (long long)blockIdx.x * CHUNK + threadIdx.x;
+  int total;
+  block_excl_count(i < n && sr_run_start(c, i, L), ws, &total);
+  if (threadIdx.x == 0) counts[blockIdx.x] = total;
+}
+
+// Each run's first sorted row (then n after the last run), and each
+// shard's first run and one past its last.
+__global__ void __launch_bounds__(CHUNK)
+    sr_run_scan(SrRecs c, long long n, int L, int n_chunks, const int* __restrict__ counts,
+                int* __restrict__ starts, SrHeader* __restrict__ hd) {
+  __shared__ int ws[32];
+  __shared__ long long sh[32];
+  long long prefix, total;
+  chunk_prefix(counts, n_chunks, blockIdx.x, &prefix, &total, sh);
+  const long long i = (long long)blockIdx.x * CHUNK + threadIdx.x;
+  const bool f = i < n && sr_run_start(c, i, L);
+  int tot;
+  const int ex = block_excl_count(f, ws, &tot);
+  if (i >= n) return;
+  const long long g = prefix + ex + (f ? 1 : 0) - 1;  // the run holding row i
+  if (f) starts[g] = (int)i;
+  const int s = c.row[i] / L;
+  if (i == 0 || c.row[i - 1] / L != s) hd->run_base[s] = (int)g;
+  if (i == n - 1 || c.row[i + 1] / L != s) hd->run_end[s] = (int)g + 1;
+  if (i == n - 1) starts[g + 1] = (int)n;
+}
+
+// One thread per output slot t < min(live + 1, L) of shard blockIdx.y:
+// run t reduced (a long one listed for sr_walk_long), the padding run, or
+// the empty fill.
+__global__ void sr_reduce(Lanes lanes, SrRecs c, int L, const int* __restrict__ starts,
+                          SrHeader* __restrict__ hd, int* __restrict__ longs, SrOut out) {
+  const int s = blockIdx.y;
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const int live = hd->shard_live[s];
+  if (t >= (live + 1 < L ? live + 1 : L)) return;
+  const long long o = (long long)s * L + t;
+  const int first = hd->run_base[s], n_runs = hd->run_end[s] - first;
+  if (t < n_runs) {
+    const int lo = starts[first + t], hi = starts[first + t + 1];
+    write_run_key(out, o, c.k[lo], c.b[lo]);
+    if (hi - lo < SR_LONG_RUN) {
+      reduce_short(lanes, c.row + lo, hi - lo, o);
+    } else {
+      const unsigned long long q = atomicAdd(&hd->n_long, 1ULL);
+      longs[3 * q] = lo;
+      longs[3 * q + 1] = hi;
+      longs[3 * q + 2] = (int)o;
+    }
+    return;
+  }
+  const long long last = (long long)hd->shard_start[s] + live - 1;
+  const bool pad = live < L && !(live > 0 && c.k[last] == KEY_DIGITS_MAX && c.b[last] == BIN_DIGITS_MAX);
+  if (t == n_runs && pad) write_empty(out, lanes, o, KEY_MAX, BIN_MAX);
+  else write_empty(out, lanes, o, KEY_MIN, BIN_MIN);
+}
+
+// The onesweep path's long runs, one block each (dynamic shared memory:
+// SR_STAGE_WORDS words).
+__global__ void __launch_bounds__(SR_SWEEP_THREADS)
+    sr_walk_long(Lanes lanes, const int* __restrict__ rows, const SrHeader* __restrict__ hd,
+                 const int* __restrict__ longs) {
+  __shared__ unsigned long long acc[MAX_LANES];
+  unsigned long long* stage = reinterpret_cast<unsigned long long*>(sr_smem);
+  const long long n_long = (long long)hd->n_long;
+  for (long long q = blockIdx.x; q < n_long; q += gridDim.x) {
+    const int lo = longs[3 * q], hi = longs[3 * q + 1];
+    block_walk(lanes, rows + lo, hi - lo, longs[3 * q + 2], stage, SR_STAGE_WORDS, acc);
   }
 }
 
@@ -733,47 +1187,250 @@ static int chunks_for(long long n) { return (int)((n + CHUNK - 1) / CHUNK); }
 
 static bool lanes_ok(const Lanes* l) { return l->n >= 0 && l->n <= MAX_LANES; }
 
+// ------------------------------------------------------------ K8's host side
+
+// K8's scratch, 256-byte aligned pieces: the header, the per-chunk live
+// counts, the compacted records; past SR_BLOCK_ROWS rows per shard also the
+// onesweep's second records, tile statuses, run counts and starts, and the
+// long-run list.
+struct SrLayout {
+  long long counts, k, b, row, k2, b2, row2, status, run_counts, starts, longs, total;
+};
+
+static long long align_up(long long b) { return (b + 255) & ~255LL; }
+
+// tiles of the onesweep pass: 1024 records below 2^21 (more blocks for a
+// small input), 4096 above
+static int sr_items(long long n) { return n < (1LL << 21) ? 4 : 16; }
+
+static SrLayout sr_layout(int S, long long L) {
+  SrLayout y{};
+  const long long SL = (long long)S * L;
+  long long at = align_up(sizeof(SrHeader));
+  auto take = [&at](long long bytes) {
+    const long long here = at;
+    at += align_up(bytes);
+    return here;
+  };
+  y.counts = take(4LL * S * ((L + CHUNK - 1) / CHUNK));
+  y.k = take(8 * SL);
+  y.b = take(4 * SL);
+  y.row = take(4 * SL);
+  if (L > SR_BLOCK_ROWS) {
+    const long long tiles = SL < (1LL << 21) ? (SL + 1023) / 1024
+                                              : (SL + 4095) / 4096 > 2048 ? (SL + 4095) / 4096
+                                                                           : 2048;
+    y.k2 = take(8 * SL);
+    y.b2 = take(4 * SL);
+    y.row2 = take(4 * SL);
+    y.status = take(8LL * RADIX * tiles);
+    y.run_counts = take(4 * ((SL + CHUNK - 1) / CHUNK));
+    y.starts = take(4 * (SL + 1));
+    y.longs = take(12 * (SL / SR_LONG_RUN + 1));
+  }
+  y.total = at;
+  return y;
+}
+
+// Kernels K8 has launched in this process, and what the calling thread's
+// last call did: a caller reads them around a call (chip_smoke.py does).
+static std::atomic<long long> g_sr_launches{0};
+struct SrLast {
+  long long launches, onesweep, passes, skipped, live, max_live, synced, memsets, wait_ns;
+};
+static thread_local SrLast g_sr_last;
+
+// the launch just made: counted if it was taken
+static int sr_launched(SrLast& last) {
+  const cudaError_t err = cudaGetLastError();
+  if (err == cudaSuccess) {
+    ++g_sr_launches;
+    ++last.launches;
+  }
+  return (int)err;
+}
+
+template <int ITEMS>
+static int sr_sweeps(SrRecs a, SrRecs b, long long n, int L, const int* positions, int passes,
+                     SrHeader* hd, unsigned long long* status, cudaStream_t s, SrLast& last,
+                     SrRecs* sorted) {
+  const size_t smem = sizeof(SrSweepShared<ITEMS>);
+  cudaError_t err = cudaFuncSetAttribute(sr_sweep<ITEMS>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long tiles = (n + SR_SWEEP_THREADS * ITEMS - 1) / (SR_SWEEP_THREADS * ITEMS);
+  if ((err = cudaMemsetAsync(status, 0, 8ULL * RADIX * tiles, s)) != cudaSuccess) return (int)err;
+  ++last.memsets;
+  for (int p = 0; p < passes; ++p) {
+    sr_sweep<ITEMS><<<(unsigned)tiles, SR_SWEEP_THREADS, smem, s>>>(a, b, n, L, positions[p], p,
+                                                                    hd, status);
+    const int e = sr_launched(last);
+    if (e != cudaSuccess) return e;
+    const SrRecs t = a;
+    a = b;
+    b = t;
+  }
+  *sorted = a;
+  return (int)cudaSuccess;
+}
+
 extern "C" {
 
-// K8. scratch: sk int64 [S * P], st uint64 [S * P], starts int32 [S * L],
-// nseg int32 [S], counts int32 [S * chunks(L)]; P a power of two >= max(L, 64).
-int arroyo_agg_sort_reduce(int device, int S, long long L, long long P, const void* key,
-                           const void* bins, int bins64, long long bin_off, const void* valid,
-                           long long n_valid, const Lanes* lanes, void* sk, void* st,
-                           void* starts, void* nseg, void* counts, void* u_key, void* u_bin,
-                           void* active, void* stream) {
-  if (S < 1 || L < 1 || L > 0x7fffffffLL || P < 64 || (P & (P - 1)) != 0 || P < L ||
-      !lanes_ok(lanes))
+// Bytes of scratch arroyo_agg_sort_reduce needs for [S, L] rows.
+long long arroyo_agg_sort_reduce_scratch_bytes(int S, long long L) {
+  return sr_layout(S, L).total;
+}
+
+// Kernels arroyo_agg_sort_reduce has launched so far in this process.
+long long arroyo_agg_sort_reduce_kernel_launches(void) { return g_sr_launches.load(); }
+
+// Bytes of pinned host memory arroyo_agg_sort_reduce needs for [S, L]
+// rows to read the digit counts back into (0: it reads nothing back).
+long long arroyo_agg_sort_reduce_hist_bytes(int S, long long L) {
+  (void)S;
+  return L > SR_BLOCK_ROWS ? (long long)sizeof(SrHeader::hist) : 0;
+}
+
+// The calling thread's last call: kernel launches, onesweep (0: one block
+// per shard), onesweep passes run and skipped, live rows, the most live
+// rows in a shard (-1 where not read back), read back (0 / 1), memsets
+// issued, and the host's wait for the read-back in ns.
+void arroyo_agg_sort_reduce_last(long long* out) {
+  const SrLast& l = g_sr_last;
+  const long long v[9] = {l.launches, l.onesweep, l.passes, l.skipped, l.live, l.max_live,
+                          l.synced, l.memsets, l.wait_ns};
+  for (int i = 0; i < 9; ++i) out[i] = v[i];
+}
+
+// The last call on the device, per shard of its first S: live rows and the
+// passes its block ran (-1: sorted by the onesweep path). Waits for the
+// device first.
+int arroyo_agg_sort_reduce_shards(int device, int S, int* live, int* passes) {
+  if (S < 1 || S > SR_MAX_SHARDS) return (int)cudaErrorInvalidValue;
+  cudaError_t err;
+  if ((err = cudaSetDevice(device)) != cudaSuccess ||
+      (err = cudaDeviceSynchronize()) != cudaSuccess ||
+      (err = cudaMemcpyFromSymbol(live, g_sr_shard_live, sizeof(int) * S)) != cudaSuccess ||
+      (err = cudaMemcpyFromSymbol(passes, g_sr_shard_passes, sizeof(int) * S)) != cudaSuccess)
+    return (int)err;
+  return (int)cudaSuccess;
+}
+
+// K8. [S, L] rows in, [S, L] partials out; scratch holds
+// arroyo_agg_sort_reduce_scratch_bytes(S, L) bytes, 256-byte aligned. With
+// L > SR_BLOCK_ROWS, host_hist (pinned, SR_POSITIONS * RADIX uint32) takes
+// the digit counts back: the call waits for them on the stream, then picks
+// one block per shard (every shard at most SR_BLOCK_ROWS live rows) or the
+// onesweep passes of the digit positions that vary.
+int arroyo_agg_sort_reduce(int device, int S, long long L, const void* key, const void* bins,
+                           int bins64, long long bin_off, const void* valid, long long n_valid,
+                           const Lanes* lanes, void* scratch, long long scratch_bytes,
+                           void* host_hist, void* u_key, void* u_bin, void* active,
+                           void* stream) {
+  if (S < 1 || S > SR_MAX_SHARDS || L < 1 || (long long)S * L > 0x7fffffffLL ||
+      !lanes_ok(lanes) || scratch == nullptr || scratch_bytes < sr_layout(S, L).total ||
+      (L > SR_BLOCK_ROWS && host_hist == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  SrLast& last = g_sr_last;
+  last = SrLast{0, 0, 0, 0, -1, -1, 0, 0, 0};
+  const SrLayout y = sr_layout(S, L);
+  unsigned char* base = static_cast<unsigned char*>(scratch);
+  SrHeader* hd = reinterpret_cast<SrHeader*>(base);
+  int* counts = reinterpret_cast<int*>(base + y.counts);
+  SrRecs c{reinterpret_cast<unsigned long long*>(base + y.k), reinterpret_cast<unsigned*>(base + y.b),
+           reinterpret_cast<int*>(base + y.row)};
   SortIn a{static_cast<const long long*>(key), bins, bins64, bin_off,
            static_cast<const unsigned char*>(valid), n_valid};
-  long long* k = static_cast<long long*>(sk);
-  unsigned long long* t = static_cast<unsigned long long*>(st);
-  const int tile = P < SORT_TILE ? (int)P : SORT_TILE;
-  sr_sort_tiles<<<dim3((unsigned int)(P / tile), S), tile / 2, 0, s>>>(a, L, P, k, t, tile);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  for (long long kk = 2LL * SORT_TILE; kk <= P; kk <<= 1) {
-    for (long long j = kk >> 1; j >= SORT_TILE; j >>= 1) {
-      sr_merge_global<<<dim3(blocks_for(P / 2, THREADS), S), THREADS, 0, s>>>(k, t, P, kk, j);
-      if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    }
-    sr_merge_tile<<<dim3((unsigned int)(P / SORT_TILE), S), SORT_TILE / 2, 0, s>>>(k, t, P, kk);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  }
+  SrOut out{static_cast<long long*>(u_key), static_cast<int*>(u_bin),
+            static_cast<unsigned char*>(active)};
+  const int Li = (int)L;
   const int nc = chunks_for(L);
-  sr_run_count<<<dim3(nc, S), CHUNK, 0, s>>>(k, t, L, P, nc, static_cast<int*>(counts));
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  sr_run_scan<<<dim3(nc, S), CHUNK, 0, s>>>(k, t, L, P, nc, static_cast<const int*>(counts),
-                                            static_cast<int*>(starts), static_cast<int*>(nseg));
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  sr_reduce<<<dim3(blocks_for(L, THREADS), S), THREADS, 0, s>>>(
-      *lanes, k, t, L, P, static_cast<const int*>(starts), static_cast<const int*>(nseg),
-      static_cast<long long*>(u_key), static_cast<int*>(u_bin),
-      static_cast<unsigned char*>(active));
-  return (int)cudaGetLastError();
+  const bool big = L > SR_BLOCK_ROWS;
+  if (big) {
+    if ((err = cudaMemsetAsync(hd, 0, sizeof(SrHeader), s)) != cudaSuccess) return (int)err;
+    ++last.memsets;
+  }
+  sr_count<<<dim3(nc, S), CHUNK, 0, s>>>(a, Li, nc, counts);
+  int e = sr_launched(last);
+  if (e != cudaSuccess) return e;
+  sr_compact<<<dim3(nc, S), CHUNK, 0, s>>>(a, *lanes, Li, nc, counts, c, hd, big ? 1 : 0, out);
+  if ((e = sr_launched(last)) != cudaSuccess) return e;
+  bool onesweep = false;
+  long long live = 0;
+  int positions[SR_POSITIONS];
+  int passes = 0;
+  if (big) {
+    // the digit counts back on the host: the path and the passes follow
+    unsigned* h = static_cast<unsigned*>(host_hist);
+    const auto t0 = std::chrono::steady_clock::now();
+    if ((err = cudaMemcpyAsync(h, hd->hist, sizeof(hd->hist), cudaMemcpyDeviceToHost, s)) !=
+            cudaSuccess ||
+        (err = cudaStreamSynchronize(s)) != cudaSuccess)
+      return (int)err;
+    last.wait_ns = std::chrono::duration_cast<std::chrono::nanoseconds>(
+                       std::chrono::steady_clock::now() - t0).count();
+    last.synced = 1;
+    long long most = 0;
+    for (int d = 0; d < S; ++d) {
+      const long long v = h[SR_SHARD_POS * RADIX + d];
+      live += v;
+      most = v > most ? v : most;
+    }
+    last.live = live;
+    last.max_live = most;
+    onesweep = most > SR_BLOCK_ROWS;
+    if (onesweep) {
+      const int n_pos = S > 1 ? SR_POSITIONS : SR_SHARD_POS;
+      for (int pos = 0; pos < n_pos; ++pos) {
+        bool one_bucket = false;
+        for (int d = 0; d < RADIX && !one_bucket; ++d) one_bucket = h[pos * RADIX + d] == live;
+        if (!one_bucket) positions[passes++] = pos;
+      }
+      last.passes = passes;
+      last.skipped = n_pos - passes;
+    }
+  }
+  last.onesweep = onesweep ? 1 : 0;
+  if (!onesweep) {
+    const size_t smem = sizeof(SrBlockShared);
+    if ((err = cudaFuncSetAttribute(sr_block, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    (int)smem)) != cudaSuccess)
+      return (int)err;
+    sr_block<<<S, SR_BLOCK_THREADS, smem, s>>>(*lanes, Li, c, hd, out);
+    return sr_launched(last);
+  }
+  SrRecs c2{reinterpret_cast<unsigned long long*>(base + y.k2),
+            reinterpret_cast<unsigned*>(base + y.b2), reinterpret_cast<int*>(base + y.row2)};
+  unsigned long long* status = reinterpret_cast<unsigned long long*>(base + y.status);
+  SrRecs sorted;
+  e = sr_items(live) == 4
+          ? sr_sweeps<4>(c, c2, live, Li, positions, passes, hd, status, s, last, &sorted)
+          : sr_sweeps<16>(c, c2, live, Li, positions, passes, hd, status, s, last, &sorted);
+  if (e != cudaSuccess) return e;
+  int* run_counts = reinterpret_cast<int*>(base + y.run_counts);
+  int* starts = reinterpret_cast<int*>(base + y.starts);
+  int* longs = reinterpret_cast<int*>(base + y.longs);
+  const int nr = chunks_for(live);
+  sr_run_count<<<nr, CHUNK, 0, s>>>(sorted, live, Li, run_counts);
+  if ((e = sr_launched(last)) != cudaSuccess) return e;
+  sr_run_scan<<<nr, CHUNK, 0, s>>>(sorted, live, Li, nr, run_counts, starts, hd);
+  if ((e = sr_launched(last)) != cudaSuccess) return e;
+  const long long slots = last.max_live + 1 < L ? last.max_live + 1 : L;
+  sr_reduce<<<dim3(blocks_for(slots, THREADS), S), THREADS, 0, s>>>(*lanes, sorted, Li, starts,
+                                                                    hd, longs, out);
+  if ((e = sr_launched(last)) != cudaSuccess) return e;
+  const size_t smem = 8 * SR_STAGE_WORDS;
+  if ((err = cudaFuncSetAttribute(sr_walk_long, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)smem)) != cudaSuccess)
+    return (int)err;
+  const long long walk_blocks = live / SR_LONG_RUN < SR_WALK_BLOCKS ? live / SR_LONG_RUN + 1
+                                                                    : SR_WALK_BLOCKS;
+  sr_walk_long<<<(unsigned)walk_blocks, SR_SWEEP_THREADS, smem, s>>>(*lanes, sorted.row, hd,
+                                                                      longs);
+  return sr_launched(last);
 }
 
 // K9. lanes->out: the table's lanes, lanes->in: the partials'. scratch:

@@ -20,8 +20,9 @@ version (``*_plain``, beside it) only for tensors on the CPU. Each wrapper
 counts its launches in ``<wrapper>.launches``.
 
 Every ``csrc/<name>.cu`` builds the same way (``build_source``): for sm_90a
-into ``arroyo_tpu_torch/build/``, named by a digest of the source and
-flags, so an edit rebuilds, and written under a temporary name first, so a
+into ``arroyo_tpu_torch/build/``, named by a digest of the source, the
+headers it includes with ``#include "..."`` and the flags, so an edit to
+any of them rebuilds, and written under a temporary name first, so a
 concurrent build never loads a half-written file.
 """
 
@@ -30,6 +31,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -90,20 +92,40 @@ def _find_nvcc() -> str:
         "the port's CUDA kernels cannot be built")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def source_digest(source: Path) -> str:
+    """Digest of a CUDA source, every header it includes with ``#include
+    "..."`` (found beside the including file, recursively, each once) and
+    the flags: what names its build."""
+    h = hashlib.sha256()
+    seen: set[Path] = set()
+    todo = [source.resolve()]
+    while todo:
+        f = todo.pop(0)
+        if f in seen:
+            continue
+        seen.add(f)
+        text = f.read_bytes()
+        h.update(f.name.encode() + b"\0" + text + b"\0")
+        todo += [(f.parent / m.decode()).resolve() for m in _INCLUDE.findall(text)]
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
 def build_source(name: str, bind: Callable[[ctypes.CDLL], None]) -> ctypes.CDLL:
     """Compile csrc/<name>.cu with nvcc into build/lib<name>_<digest>.so
-    (once per digest of the source and flags), load it and let ``bind`` set
-    its argument types. Each source has its own lock, so different sources
-    build in parallel. Raises KernelError when nvcc is missing or the
-    build fails."""
+    (once per ``source_digest``), load it and let ``bind`` set its argument
+    types. Each source has its own lock, so different sources build in
+    parallel. Raises KernelError when nvcc is missing or the build fails."""
     with _locks_lock:
         lock = _build_locks.setdefault(name, threading.Lock())
     with lock:
         if name in _libs:
             return _libs[name]
         source = _PKG / "csrc" / f"{name}.cu"
-        src = source.read_bytes()
-        digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        digest = source_digest(source)
         out = BUILD_DIR / f"lib{name}_{digest}.so"
         t0 = time.perf_counter()
         log = ""

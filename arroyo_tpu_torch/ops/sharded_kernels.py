@@ -76,8 +76,18 @@ def _lanes(kinds, dtypes, inp=(), out=(), aux=()) -> _Lanes:
 def _bind(lib: ctypes.CDLL) -> None:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lp = ctypes.POINTER(_Lanes)
-    lib.arroyo_agg_sort_reduce.argtypes = [i, i, ll, ll, p, p, i, ll, p, ll, lp,
-                                           p, p, p, p, p, p, p, p, p]
+    lib.arroyo_agg_sort_reduce.argtypes = [i, i, ll, p, p, i, ll, p, ll, lp, p, ll, p,
+                                           p, p, p, p]
+    lib.arroyo_agg_sort_reduce_scratch_bytes.argtypes = [i, ll]
+    lib.arroyo_agg_sort_reduce_scratch_bytes.restype = ll
+    lib.arroyo_agg_sort_reduce_kernel_launches.argtypes = []
+    lib.arroyo_agg_sort_reduce_kernel_launches.restype = ll
+    lib.arroyo_agg_sort_reduce_last.argtypes = [ctypes.POINTER(ctypes.c_longlong)]
+    lib.arroyo_agg_sort_reduce_last.restype = None
+    lib.arroyo_agg_sort_reduce_hist_bytes.argtypes = [i, ll]
+    lib.arroyo_agg_sort_reduce_hist_bytes.restype = ll
+    lib.arroyo_agg_sort_reduce_shards.argtypes = [i, i, p, p]
+    lib.arroyo_agg_sort_reduce_shards.restype = ctypes.c_int
     lib.arroyo_agg_probe_merge.argtypes = [i, i, ll, p, p, p, lp, ll, p, p, p, i,
                                            p, p, p, p, p, p, p]
     lib.arroyo_shard_exchange.argtypes = [i, i, ll, ll, p, p, p, lp, p, p, p, p, p, p, p]
@@ -144,6 +154,11 @@ def _dev_index(dev: torch.device) -> int:
 # ------------------------------------------------------------- K8
 
 
+SORT_SHARDS = 256  # csrc/sharded_agg.cu SR_MAX_SHARDS: the shard is one digit
+_LAST_FIELDS = ("launches", "onesweep", "passes", "skipped", "live", "max_live", "synced",
+                "memsets", "wait_ns")
+
+
 def agg_sort_reduce(kinds: Sequence[str], key: torch.Tensor, bins: torch.Tensor,
                     valid: Optional[torch.Tensor], vals: Sequence[Optional[torch.Tensor]],
                     bin_offset: int = 0, n_valid: Optional[int] = None):
@@ -153,7 +168,16 @@ def agg_sort_reduce(kinds: Sequence[str], key: torch.Tensor, bins: torch.Tensor,
     flat index ``s * L + r`` is below ``n_valid`` (None: no limit). Bins
     may be int32 or int64: ``bin_offset`` is subtracted before the int32
     cast (the fused mesh step's ``- base_bin``). A count lane of None adds
-    ones."""
+    ones. On the card the kernel sorts the valid rows alone; where the
+    library asks for a pinned buffer (``arroyo_agg_sort_reduce_hist_bytes``:
+    past one block's shard size) the call waits once on the stream for
+    their digit counts."""
+    if key.dim() == 2:  # the sizes first: a meta tensor of any size shows them
+        S, L = key.shape
+        if L < 1 or S * L > INT32_LIMIT:
+            raise ValueError(f"{S} x {L} rows; the kernel indexes rows with int32")
+        if S > SORT_SHARDS:
+            raise ValueError(f"{S} shards; the kernel sorts at most {SORT_SHARDS}")
     _check_2d(key, "key", (torch.int64,))
     dev, shape = key.device, tuple(key.shape)
     _check_2d(bins, "bins", (torch.int32, torch.int64), shape, dev)
@@ -161,32 +185,57 @@ def agg_sort_reduce(kinds: Sequence[str], key: torch.Tensor, bins: torch.Tensor,
         _check_2d(valid, "valid", (torch.bool,), shape, dev)
     _check_lanes(kinds, vals, shape, dev, "vals", allow_none=True)
     S, L = shape
-    if L < 1 or L > INT32_LIMIT:
-        raise ValueError(f"{L} rows per shard; the kernel indexes rows with int32")
     n_valid = S * L if n_valid is None else int(n_valid)
     if dev.type == "cpu":
         return agg_sort_reduce_plain(kinds, key, bins, valid, vals, bin_offset, n_valid)
-    P = max(64, 1 << (L - 1).bit_length())
-    nc = -(-L // CHUNK)
-    sk = torch.empty((S, P), dtype=torch.int64, device=dev)
-    st = torch.empty((S, P), dtype=torch.int64, device=dev)
-    starts = torch.empty((S, L), dtype=torch.int32, device=dev)
-    nseg = torch.empty(S, dtype=torch.int32, device=dev)
-    counts = torch.empty((S, nc), dtype=torch.int32, device=dev)
+    lib = build_library()
+    scratch = torch.empty(lib.arroyo_agg_sort_reduce_scratch_bytes(S, L), dtype=torch.uint8,
+                          device=dev)
+    hist_bytes = lib.arroyo_agg_sort_reduce_hist_bytes(S, L)
+    hist = (torch.empty(hist_bytes, dtype=torch.uint8, pin_memory=True) if hist_bytes
+            else None)
     u_key = torch.empty(shape, dtype=torch.int64, device=dev)
     u_bin = torch.empty(shape, dtype=torch.int32, device=dev)
     active = torch.empty(shape, dtype=torch.bool, device=dev)
     dts = _dtypes(vals)
     u_accs = [torch.empty(shape, dtype=dt, device=dev) for dt in dts]
     ln = _lanes(kinds, dts, inp=vals, out=u_accs)
-    err = build_library().arroyo_agg_sort_reduce(
-        _dev_index(dev), S, L, P, key.data_ptr(), bins.data_ptr(), int(bins.dtype == torch.int64),
+    err = lib.arroyo_agg_sort_reduce(
+        _dev_index(dev), S, L, key.data_ptr(), bins.data_ptr(), int(bins.dtype == torch.int64),
         int(bin_offset), None if valid is None else valid.data_ptr(), n_valid, ctypes.byref(ln),
-        sk.data_ptr(), st.data_ptr(), starts.data_ptr(), nseg.data_ptr(), counts.data_ptr(),
+        scratch.data_ptr(), scratch.numel(), None if hist is None else hist.data_ptr(),
         u_key.data_ptr(), u_bin.data_ptr(), active.data_ptr(), kernels._stream(dev))
     kernels._raise_on(err, "agg_sort_reduce")
     kernels._counted(agg_sort_reduce)
     return u_key, u_bin, active, u_accs
+
+
+def sort_reduce_kernel_launches() -> int:
+    """Kernels K8 has launched on the card in this process (builds the
+    library): the difference across one call is that call's launches."""
+    return build_library().arroyo_agg_sort_reduce_kernel_launches()
+
+
+def sort_reduce_last() -> dict:
+    """What this thread's last K8 call on the card did: its kernel
+    launches, whether it took the onesweep path (else one block per
+    shard), the onesweep passes run and skipped, the live rows and the
+    most in one shard (-1: not read back), whether it waited for them,
+    the memsets it issued and the host's wait for the read-back in ns."""
+    out = (ctypes.c_longlong * len(_LAST_FIELDS))()
+    build_library().arroyo_agg_sort_reduce_last(out)
+    return dict(zip(_LAST_FIELDS, out))
+
+
+def sort_reduce_shards(S: int, dev: torch.device) -> dict:
+    """The last K8 call on ``dev``, per shard of its first ``S`` as the
+    kernels wrote it: ``live`` rows and ``block_passes``, the passes the
+    shard's block ran (-1: the onesweep path sorted it). Waits for the
+    device."""
+    live, passes = (ctypes.c_int * S)(), (ctypes.c_int * S)()
+    err = build_library().arroyo_agg_sort_reduce_shards(_dev_index(dev), S, live, passes)
+    kernels._raise_on(err, "agg_sort_reduce_shards")
+    return {"live": list(live), "block_passes": list(passes)}
 
 
 def agg_sort_reduce_plain(kinds, key, bins, valid, vals, bin_offset=0, n_valid=None):

@@ -66,7 +66,9 @@ non-zero, printing no result):
               deployment-size window (1,048,576 probe x 16,777,216 build
               rows) and on edge cases (empty sides, INT64_MAX and INT64_MIN
               keys, one key everywhere, negative keys, sizes that are not
-              powers of two); K5 alone on its own edge cases (keys equal in
+              powers of two, runs of equal keys across K6's cached splitters
+              and multiples of 2048, probes below and above every key and
+              at both int64 limits); K5 alone on its own edge cases (keys equal in
               all but the top or the bottom digit, 2^20 + 3 equal keys, one
               tile and one key past it, int32 negatives, key_bits < 64,
               range mode); then timed like K1-K3, with K5's launches per
@@ -119,7 +121,14 @@ non-zero, printing no result):
               65536 rows per shard) and on edge cases (a hot key past
               dest_cap, the spill buffer and its exhaustion, max_probes
               exhausted, duplicates after a free, key INT64_MAX in bin
-              INT32_MAX, 1, 4 and 8 shards); then timed.
+              INT32_MAX, 1, 4 and 8 shards), K8 alone on its own edge cases
+              (chip_smoke.sort_reduce_edge_cases: both of its paths, hot runs
+              walked by a block, the padding run's cases, bins at the int32
+              limits, n_valid inside a shard), each call's kernel launches
+              from the library's counter, its path, passes, live rows per
+              shard and passes per shard's block as the library reports them
+              equal to sort_reduce_plan's; then timed, K8's launches a call
+              held to the plan and the trace;
 19. hash_agg -- the single-device table (B9: DeviceHashAggregator, K8 and
               K9 per batch, K11 per close at one shard, K12 chunked scans,
               K13 frees): q7's 2,000,000 events closing through extract_start
@@ -130,8 +139,10 @@ non-zero, printing no result):
               every kernel checked) exactly against the oracle; launches are
               read per drive (q7: K8, K9, K11; hop: K12, K13); then a 222 MB
               deployment state
-              (4,194,304 entries, 8 x 1,048,576 rows) and edge cases, every
-              kernel checked the same way; then timed;
+              (4,194,304 entries, 8 x 1,048,576 rows) and edge cases (hot
+              runs through both of K8's paths among them), every kernel
+              checked the same way; then timed. K8's calls of the q7 drive
+              (as of q7m's) are reported by path, passes and launches;
 20. q7_host -- q7c with the window on the host store ("backend":
               "numpy"): exact parity, K4 on the card, no K1-K3.
 
@@ -152,6 +163,7 @@ own copies over the port's generator.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import faulthandler
 import json
 import os
@@ -1203,6 +1215,24 @@ def join_edge_cases(rng) -> list:
     for n in (1, 3, 65, 2047, 2049, 4097):
         cases.append((f"{n} build rows", rng.integers(-99, 99, 100),
                       rng.integers(-99, 99, n).astype(np.int64)))
+    # K6 caches every ceil(m / 2048)-th sorted key: runs of equal keys across
+    # those splitters and across multiples of 2048, m not a multiple of the
+    # stride, probes outside the keys' range and at both int64 limits
+    long_runs = np.repeat(rng.integers(-10**6, 10**6, 40), rng.integers(65, 700, 40))
+    probes = np.concatenate([rng.choice(long_runs, 500), rng.integers(-10**6, 10**6, 500),
+                             [i64.min, i64.max, -10**7, 10**7]])
+    cases += [("long runs across splitters and multiples of 2048", probes, long_runs),
+              ("a run of 5000 equal keys across rows 2048, 4096 and 6144 of 10,243", rng.integers(-5, 6, 700),
+               np.concatenate([rng.integers(-50, 0, 2000), np.zeros(5000, np.int64),
+                               rng.integers(1, 50, 3243)])),
+              ("100,003 build rows, runs of ~100", rng.integers(-600, 600, 3000),
+               rng.integers(-500, 500, 100_003)),
+              ("probes below and above every key", np.concatenate([
+                  rng.integers(-10**9, -10**6, 300), rng.integers(10**6, 10**9, 300)]),
+               rng.integers(-999_999, 999_999, 7000)),
+              ("INT64_MIN and INT64_MAX probes on keys without them",
+               np.array([i64.min, i64.max, i64.min, 0, i64.max]),
+               rng.integers(-(1 << 62), 1 << 62, 3000))]
     return [(label, np.asarray(lk, np.int64), np.asarray(rk, np.int64))
             for label, lk, rk in cases]
 
@@ -2211,6 +2241,65 @@ def reset_mesh_ledger() -> None:
     sharded_agg.reset_dispatch_counts()
 
 
+class K8Recorder:
+    """The K8 wrapper, appending what the library says each call on the
+    card did (``sharded_kernels.sort_reduce_last``) to ``log``. The wrapper
+    counts its launches on the module's ``agg_sort_reduce``, which this
+    stands in for while ``k8_recorded`` is open, so ``launches`` is the
+    wrapper's own count."""
+
+    def __init__(self, log: list):
+        self.log, self.wrapped = log, sharded_kernels.agg_sort_reduce
+
+    launches = property(lambda self: self.wrapped.launches,
+                        lambda self, n: setattr(self.wrapped, "launches", n))
+
+    def __call__(self, *args, **kw):
+        out = self.wrapped(*args, **kw)
+        self.log.append(sharded_kernels.sort_reduce_last())
+        return out
+
+
+@contextlib.contextmanager
+def k8_recorded():
+    """While open, every K8 call made through the ``sharded_kernels``
+    module (the mesh path's) is logged into the list it yields."""
+    log: list = []
+    wrapped = sharded_kernels.agg_sort_reduce
+    sharded_kernels.agg_sort_reduce = K8Recorder(log)
+    try:
+        yield log
+    finally:
+        sharded_kernels.agg_sort_reduce = wrapped
+
+
+def k8_call_summary(log: list, launches: int) -> dict:
+    """K8's calls of a run (a ``K8Recorder``'s log), grouped by what the
+    library says each did: its path (one block per shard, or onesweep
+    passes), kernel launches, passes run and skipped, memsets, whether it
+    read its digit counts back; with the live rows' range per group (-1:
+    not read back) and the host's wait for the read-back per call."""
+    if len(log) != launches:
+        raise AssertionError(f"K8's call log holds {len(log)} calls, its counter {launches}")
+    groups: dict = {}
+    for r in log:
+        key = (f"{'onesweep' if r['onesweep'] else 'block'}: {r['launches']} launches, "
+               f"{r['passes']} passes, {r['skipped']} skipped, {r['memsets']} memsets, "
+               f"{'read back' if r['synced'] else 'no read-back'}")
+        g = groups.setdefault(key, {"calls": 0, "live": [], "wait_us": []})
+        g["calls"] += 1
+        g["live"].append(r["live"])
+        g["wait_us"].append(r["wait_ns"] / 1e3)
+    out = {"calls": len(log), "kernel_launches": sum(r["launches"] for r in log),
+           "read_back_wait_us": sum(r["wait_ns"] for r in log) / 1e3, "groups": {}}
+    for k, g in groups.items():
+        w = g["wait_us"]
+        out["groups"][k] = {"calls": g["calls"], "live_min": min(g["live"]),
+                            "live_max": max(g["live"]), "wait_us_mean": statistics.fmean(w),
+                            "wait_us_median": statistics.median(w), "wait_us_max": max(w)}
+    return out
+
+
 def mesh_run(name: str, build, events: int, oracle, check, fuse: bool, extra: dict,
              want=None, path_kernels=MESH_KERNELS, profile_it: bool = True,
              warm_events: int = 0) -> dict:
@@ -2229,7 +2318,8 @@ def mesh_run(name: str, build, events: int, oracle, check, fuse: bool, extra: di
         drive(build, warm_events, job + "-warm", chaining=True, extra=extra)
     reset_all_launch_counts()
     reset_mesh_ledger()
-    rows, wall, eng = drive(build, events, job, chaining=True, extra=extra)
+    with k8_recorded() as k8_calls:
+        rows, wall, eng = drive(build, events, job, chaining=True, extra=extra)
     launches = all_launch_counts()
     ledger = mesh_ledger()
     got = check(rows, want)
@@ -2253,7 +2343,8 @@ def mesh_run(name: str, build, events: int, oracle, check, fuse: bool, extra: di
             "windows": len(got), "launches": {k: launches[k] for k in launches if launches[k]},
             "ledger": ledger, "segment_mesh": mesh_flag,
             "calls_per_step": (agg_l["fused_steps"] / seg_l["fused"]) if seg_l["fused"] else None,
-            "mesh_stats": [m.get("mesh") for m in metrics.values()]}
+            "mesh_stats": [m.get("mesh") for m in metrics.values()],
+            "k8_calls": k8_call_summary(k8_calls, launches["agg_sort_reduce"])}
     if profile_it:
         info["profiled_run"] = profiled_run(build, events, job + "-profiled", check, want,
                                             extra=extra)
@@ -2566,6 +2657,239 @@ def sharded_cases(rng, dev) -> list:
     return out, {k: sorted(v) for k, v in checks.items()}
 
 
+# K8's edge-case lanes: every dtype and kind, a count lane of ones (None)
+K8_EDGE_LANES = [("sum", np.float64), ("sum", np.float32), ("count", None), ("min", np.float64),
+                 ("max", np.float32), ("sum", np.int64), ("min", np.int32), ("max", np.uint64)]
+
+
+def k8_edge_vals(rng, S, L, nan: bool = False) -> list:
+    """[S, L] values of K8_EDGE_LANES (None for the count lane): floats
+    with -0.0, +0.0 and infinities (NaN too if ``nan``), integers over a
+    quarter of their range, uint64 over all of it."""
+    out = []
+    for _kind, dt in K8_EDGE_LANES:
+        if dt is None:
+            out.append(None)
+        elif np.issubdtype(dt, np.floating):
+            v = np.round(rng.normal(0, 1000, (S, L)), 2).astype(dt)
+            pick = rng.random((S, L))
+            v[pick < 0.05] = -0.0
+            v[(pick >= 0.05) & (pick < 0.08)] = 0.0
+            v[(pick >= 0.08) & (pick < 0.09)] = np.inf
+            v[(pick >= 0.09) & (pick < 0.1)] = -np.inf
+            if nan:
+                v[(pick >= 0.1) & (pick < 0.11)] = np.nan
+            out.append(v)
+        elif dt == np.uint64:
+            out.append(rng.integers(0, 2**64 - 1, (S, L), dtype=np.uint64))
+        else:
+            info = np.iinfo(dt)
+            out.append(rng.integers(info.min // 4, info.max // 4, (S, L)).astype(dt))
+    return out
+
+
+K8_BLOCK_ROWS = 8192  # csrc/sharded_agg.cu SR_BLOCK_ROWS: one block sorts a shard this small
+K8_POSITIONS = 13  # the bin's 4 bytes, the key's 8, the shard
+
+
+def _k8_digit_bytes(key: np.ndarray, b32: np.ndarray) -> np.ndarray:
+    """[n, 12] digit values of live rows: the bin's 4 bytes (of bin ^
+    INT32_MIN) and the key's 8 (of key ^ INT64_MIN), least significant
+    first."""
+    kd = key.view(np.uint64) ^ np.uint64(1 << 63)
+    bd = b32.view(np.uint32) ^ np.uint32(1 << 31)
+    return np.concatenate([bd.view(np.uint8).reshape(-1, 4), kd.view(np.uint8).reshape(-1, 8)],
+                          axis=1)
+
+
+def sort_reduce_plan(key: torch.Tensor, bins: torch.Tensor, valid, bin_offset: int = 0,
+                     n_valid=None) -> dict:
+    """What K8 should do on the card for these ``[S, L]`` rows, a model of
+    csrc/sharded_agg.cu's choice that the library's own report is held to:
+    ``path`` "block" (every shard's live rows sorted by one block in
+    shared memory; ``block_passes`` per shard, the digit positions that
+    vary within it) or "onesweep" (``passes`` launches, one per digit
+    position that varies across all live rows, of K8_POSITIONS at several
+    shards, 12 at one), its kernel ``launches``, ``memsets``, the live rows
+    (``shard_live`` per shard) and whether it reads the digit counts back
+    (``synced``: more than K8_BLOCK_ROWS rows a shard)."""
+    S, L = key.shape
+    n_valid = S * L if n_valid is None else int(n_valid)
+    k = key.cpu().numpy()
+    b32 = (bins.cpu().numpy().astype(np.int64) - int(bin_offset)).astype(np.int32)
+    live = np.arange(S * L).reshape(S, L) < n_valid
+    if valid is not None:
+        live &= valid.cpu().numpy()
+    per_shard = live.sum(axis=1)
+    synced = L > K8_BLOCK_ROWS
+    plan = {"live": int(per_shard.sum()), "max_live": int(per_shard.max()), "synced": synced,
+            "shard_live": [int(n) for n in per_shard]}
+    if plan["max_live"] <= K8_BLOCK_ROWS:
+        plan["block_passes"] = [
+            int((np.ptp(_k8_digit_bytes(k[s][live[s]], b32[s][live[s]]), axis=0) > 0).sum())
+            if per_shard[s] > 1 else 0 for s in range(S)]
+        return dict(plan, path="block", passes=0, skipped=0, launches=3, memsets=int(synced))
+    digits = _k8_digit_bytes(k[live], b32[live])
+    if S > 1:
+        digits = np.concatenate([digits, np.nonzero(live)[0][:, None].astype(np.uint8)], axis=1)
+    passes = int((np.ptp(digits, axis=0) > 0).sum())
+    # the compaction's two, the passes, the runs' count and scan, the
+    # reduce and the long-run walk; the header's memset and the statuses'
+    return dict(plan, path="onesweep", passes=passes, skipped=digits.shape[1] - passes,
+                launches=6 + passes, memsets=2, block_passes=[-1] * S)
+
+
+def k8_library_matches_plan() -> None:
+    """The library's read-back threshold and digit positions are the
+    plan's: no pinned buffer up to K8_BLOCK_ROWS rows a shard, one count
+    per digit value of each position past it."""
+    lib = sharded_kernels.build_library()
+    got = [lib.arroyo_agg_sort_reduce_hist_bytes(1, n) for n in (K8_BLOCK_ROWS,
+                                                                 K8_BLOCK_ROWS + 1)]
+    if got != [0, K8_POSITIONS * 256 * 4]:
+        raise AssertionError(f"K8's library reads back {got} bytes at {K8_BLOCK_ROWS} and "
+                             f"{K8_BLOCK_ROWS + 1} rows a shard; the plan models "
+                             f"{[0, K8_POSITIONS * 256 * 4]}")
+
+
+def k8_check_report(what: str, plan: dict, launched: int, S: int, dev) -> dict:
+    """The library's account of the K8 call just made (its counter's
+    ``launched``, ``sort_reduce_last`` and the kernels' per-shard report)
+    held equal to ``plan``; returns the library's numbers."""
+    last = sharded_kernels.sort_reduce_last()
+    shards = sharded_kernels.sort_reduce_shards(S, dev)
+    got = {"path": "onesweep" if last["onesweep"] else "block", "launches": launched,
+           "passes": last["passes"], "skipped": last["skipped"], "memsets": last["memsets"],
+           "synced": bool(last["synced"]), "shard_live": shards["live"],
+           "block_passes": shards["block_passes"], "live": sum(shards["live"]),
+           "max_live": max(shards["live"])}
+    wrong = {k: (v, plan[k]) for k, v in got.items() if v != plan[k]}
+    if last["launches"] != launched:
+        wrong["last.launches"] = (last["launches"], launched)
+    if last["synced"] and (last["live"], last["max_live"]) != (got["live"], got["max_live"]):
+        wrong["read-back live"] = ((last["live"], last["max_live"]),
+                                   (got["live"], got["max_live"]))
+    if wrong:
+        raise AssertionError(f"K8 {what}: the library and the plan differ (library, plan): "
+                             f"{wrong}")
+    return dict(got, read_back_wait_us=last["wait_ns"] / 1e3)
+
+
+def sort_reduce_edge_cases(rng) -> list:
+    """K8's edge cases, each a dict of [S, L] numpy inputs (key, bins,
+    valid or None, vals over K8_EDGE_LANES), bin_offset, n_valid and what
+    ``sort_reduce_plan`` must say of it (``expect``): both
+    of the kernel's paths (one block per shard, with and without reading
+    the digit counts back, and the onesweep passes), a hot run walked by a
+    block on each, the padding run's cases, and the bins' and keys' digit
+    edges."""
+    i64, i32 = np.iinfo(np.int64), np.iinfo(np.int32)
+
+    def keys(S, L, n_keys, hot=0.0):
+        ids = rng.integers(0, n_keys, (S, L))
+        if hot:
+            ids = np.where(rng.random((S, L)) < hot, n_keys, ids)
+        return hash_columns([ids.reshape(-1).astype(np.int64)]).view(np.int64).reshape(S, L)
+
+    def case(label, S, L, *, n_keys=50, hot=0.0, valid_frac=1.0, bins=(0, 3), expect=None,
+             **kw):
+        c = {"label": label, "key": keys(S, L, n_keys, hot),
+             "bins": rng.integers(bins[0], bins[1], (S, L)).astype(np.int32),
+             "valid": rng.random((S, L)) < valid_frac if valid_frac < 1.0 else None,
+             "vals": k8_edge_vals(rng, S, L, kw.pop("nan", False)), "bin_offset": 0,
+             "n_valid": None, "expect": expect or {}}
+        c.update(kw)
+        return c
+
+    cases = []
+    c = case("a shard of all-invalid rows", 4, 1000, valid_frac=0.7, expect={"path": "block"})
+    c["valid"][2] = False
+    cases.append(c)
+    c = case("a shard with no invalid row", 2, 1000, valid_frac=0.6)
+    c["valid"][0] = True
+    cases.append(c)
+    for label, frac in (("with invalid rows", 0.8), ("and no invalid row", 1.0)):
+        c = case(f"valid (INT64_MAX, INT32_MAX) rows {label}", 2, 600, valid_frac=frac)
+        c["key"][:, 10:15] = i64.max
+        c["bins"][:, 10:15] = i32.max
+        if c["valid"] is not None:
+            c["valid"][:, 10:15] = True
+        cases.append(c)
+    cases.append(case("a hot run of ~6,000 rows, one block", 1, 8192, hot=0.75, nan=True,
+                      expect={"path": "block", "synced": False, "launches": 3}))
+    cases.append(case("a hot run of ~6,000 rows, onesweep", 1, 12_000, hot=0.5, nan=True,
+                      bins=(7, 8), expect={"path": "onesweep", "passes": 8, "skipped": 4,
+                                           "launches": 14}))
+    c = case("an empty shard beside full ones", 3, 3000, valid_frac=0.5)
+    c["valid"][:] = True
+    c["valid"][1] = False
+    cases.append(c)
+    c = case("a shard with one live row", 4, 500, valid_frac=0.5)
+    c["valid"][3] = False
+    c["valid"][3, 77] = True
+    cases.append(c)
+    # bins as int64 around the offset: b - offset at and near both int32
+    # limits, and past them (the int32 cast wraps)
+    c = case("bin_offset near the int32 limits", 2, 800, valid_frac=0.9)
+    off = -(1 << 40) + 12345
+    rel = rng.choice(np.array([i32.min, i32.min + 1, -1, 0, i32.max - 1, i32.max,
+                               i32.max + 3, i32.min - 2], np.int64), (2, 800))
+    c["bins"], c["bin_offset"] = rel + off, off
+    cases.append(c)
+    cases.append(case("n_valid cutting inside a shard", 4, 700, valid_frac=0.9,
+                      n_valid=2 * 700 + 333))
+    cases.append(case("past 8192 rows a shard, every shard in one block", 4, 20_000,
+                      valid_frac=0.3, n_keys=3000,
+                      expect={"path": "block", "synced": True, "launches": 3}))
+    cases.append(case("onesweep over 8 shards with a hot run", 8, 12_000, valid_frac=0.8,
+                      n_keys=20_000, hot=0.2, expect={"path": "onesweep", "skipped": 3,
+                                                      "passes": 10, "launches": 16}))
+    cases.append(case("onesweep, bins over 600 values and negative", 2, 10_000,
+                      n_keys=4000, bins=(-300, 300),
+                      expect={"path": "onesweep", "passes": 13, "skipped": 0}))
+    c = case("onesweep, keys equal but the top byte", 1, 9000, bins=(5, 6),
+             expect={"path": "onesweep", "passes": 1, "skipped": 11, "launches": 7})
+    c["key"] = (rng.integers(0, 256, (1, 9000)).astype(np.uint64) << np.uint64(56)
+                | np.uint64(0x00ABCDEF01234567)).view(np.int64)
+    cases.append(c)
+    c = case("every row invalid, past 8192 rows a shard", 2, 9000, valid_frac=0.5,
+             expect={"path": "block", "synced": True, "live": 0, "launches": 3})
+    c["valid"][:] = False
+    cases.append(c)
+    return cases
+
+
+def k8_case_tensors(c: dict, dev) -> tuple:
+    """A sort_reduce_edge_cases case as the K8 wrapper's arguments on dev:
+    (kinds, key, bins, valid, vals, bin_offset, n_valid)."""
+    t = lambda a: None if a is None else torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    return ([k for k, _ in K8_EDGE_LANES], t(c["key"]), t(c["bins"]), t(c["valid"]),
+            [t(v) for v in c["vals"]], c["bin_offset"], c["n_valid"])
+
+
+def check_sort_reduce_case(c: dict, dev) -> dict:
+    """K8 against its plain version on the card, exactly, on one edge case;
+    the library's account of the call (launches, path, passes, live rows
+    and passes per shard) equals sort_reduce_plan's."""
+    args = k8_case_tensors(c, dev)
+    plan = sort_reduce_plan(*args[1:4], *args[5:])
+    before = sharded_kernels.sort_reduce_kernel_launches()
+    got = sharded_kernels.agg_sort_reduce(*args)
+    launched = sharded_kernels.sort_reduce_kernel_launches() - before
+    report = k8_check_report(c["label"], plan, launched, c["key"].shape[0], dev)
+    want = sharded_kernels.agg_sort_reduce_plain(*args)
+    # exact, as lane_err holds K1: a float sum of +inf and -inf (or of a
+    # NaN) is NaN on both, but the card writes its canonical NaN and the
+    # plain version (adding on the host) the host's
+    require_same(f"agg_sort_reduce {c['label']}", got[:3], want[:3])
+    for (kind, _dt), g, w in zip(K8_EDGE_LANES, got[3], want[3]):
+        lane_err(g, w, f"agg_sort_reduce {c['label']}: {kind}")
+    torch.cuda.synchronize()
+    return {"label": c["label"], "rows": list(c["key"].shape), **{
+        k: report[k] for k in ("path", "passes", "skipped", "launches", "memsets", "live",
+                               "max_live", "synced", "block_passes")}}
+
+
 def sharded_bytes(kinds_lanes, S, L, M, dc, cap, E, n) -> dict:
     """Bytes each kernel must move at one step's shapes: each input read
     once, each output written once, counted for this run's data (``n``).
@@ -2594,6 +2918,51 @@ def sharded_bytes(kinds_lanes, S, L, M, dc, cap, E, n) -> dict:
         "shard_extract": (S * cap + n["occupied"] * 4 + n["emitted"] * (8 + lane_b) + S * E
                           + n["emitted"] * pay + S * 4 + n["freed"]),
     }
+
+
+K8_BLOCK_KERNELS = ("sr_count", "sr_compact", "sr_block")
+K8_ONESWEEP_KERNELS = ("sr_count", "sr_compact", "sr_sweep", "sr_run_count", "sr_run_scan",
+                       "sr_reduce", "sr_walk_long")
+
+
+def k8_launch_report(call, plan: dict, timing: dict, what: str, S: int, dev) -> dict:
+    """One K8 call's account from the library (``k8_check_report``: its
+    launches, path, passes, memsets, live rows and passes per shard), held
+    to sort_reduce_plan's and its launches to the trace's (each kernel's
+    launches per call rounded: a trace can drop a launch, never add one);
+    with ``ms``: the call's device time from each kernel's mean launch in
+    ``timing``'s trace times its launches, memsets and read-back copies by
+    the library's count."""
+    before = sharded_kernels.sort_reduce_kernel_launches()
+    call()
+    torch.cuda.synchronize()
+    n = sharded_kernels.sort_reduce_kernel_launches() - before
+    report = k8_check_report(what, plan, n, S, dev)
+    ops, us = timing["device_ops_per_call"], timing["device_us_per_call"]
+    trace = sum(max(1, round(c)) for name, c in ops.items()
+                if not name.startswith(("Memset", "Memcpy")))
+    if trace > n:
+        raise AssertionError(f"K8 at {what}: {n} kernel launches a call, {trace} in the trace")
+    path = report["path"]
+    count = {k: 1 for k in (K8_BLOCK_KERNELS if path == "block" else K8_ONESWEEP_KERNELS)}
+    if path == "onesweep":
+        count["sr_sweep"] = report["passes"]
+    ms = 0.0
+    for name, t in us.items():
+        per_launch = t / max(1, round(ops[name]))
+        if name.startswith("Memset"):
+            times = report["memsets"]
+        elif name.startswith("Memcpy"):
+            times = int(report["synced"])
+        else:
+            kernel = name.split("(")[0].split("<")[0].replace("void ", "")
+            if kernel not in count:
+                raise AssertionError(f"K8 at {what}: {name} in the trace is none of its kernels")
+            times = count[kernel]
+        ms += per_launch * times / 1e3
+    return {"ms": ms, "kernel_launches_per_call": n, "trace_kernel_launches_per_call": trace,
+            **{k: report[k] for k in ("path", "passes", "skipped", "memsets", "synced", "live",
+                                      "max_live", "block_passes", "read_back_wait_us")}}
 
 
 def time_fresh(fn, make_inputs, reps: int) -> dict:
@@ -2670,13 +3039,20 @@ def time_sharded(rng, dev, label, S, cap, L, dc, lanes, n_keys, valid_frac, reps
                    "bytes": nbytes[name], **extra}
 
     log(f"sharded: time {label}: {counts}")
-    row("agg_sort_reduce",
-        measure(lambda: sharded_kernels.agg_sort_reduce(kinds, ex.m_key, ex.m_bin, ex.m_valid,
-                                                        ex.m_accs), reps),
+    merged_call = lambda: sharded_kernels.agg_sort_reduce(kinds, ex.m_key, ex.m_bin,  # noqa: E731
+                                                          ex.m_valid, ex.m_accs)
+    local_call = lambda: sharded_kernels.agg_sort_reduce(kinds, key, bins, valid, vals)  # noqa: E731
+    merged_k, local_k = measure(merged_call, reps), measure(local_call, reps)
+    merged_r = k8_launch_report(merged_call, sort_reduce_plan(ex.m_key, ex.m_bin, ex.m_valid),
+                                merged_k, f"{label} merged", S, dev)
+    local_r = k8_launch_report(local_call, sort_reduce_plan(key, bins, valid), local_k,
+                               f"{label} local", S, dev)
+    row("agg_sort_reduce", dict(merged_k, device_ms=merged_r["ms"]),
         measure(lambda: sharded_kernels.agg_sort_reduce_plain(kinds, ex.m_key, ex.m_bin,
                                                               ex.m_valid, ex.m_accs), reps),
-        rows=[S, M], local_ms=measure(lambda: sharded_kernels.agg_sort_reduce(
-            kinds, key, bins, valid, vals), reps)["device_ms"], local_rows=[S, L])
+        rows=[S, M], local_ms=local_r["ms"], local_rows=[S, L],
+        us_per_call=merged_k["device_us_per_call"],
+        local_us_per_call=local_k["device_us_per_call"], calls=merged_r, local_calls=local_r)
     row("shard_exchange",
         measure(lambda: sharded_kernels.shard_exchange(kinds, *u, dc), reps),
         measure(lambda: sharded_kernels.shard_exchange_plain(kinds, *u, dc), reps),
@@ -2708,14 +3084,17 @@ def sharded_phase(dev) -> dict:
     shapes, at a deployment state and on edge cases; then timed."""
     rng = np.random.default_rng(20261017)
     cases, checks = sharded_cases(rng, dev)
+    log("sharded: K8 edge cases")
+    k8_library_matches_plan()
+    k8_cases = [check_sort_reduce_case(c, dev) for c in sort_reduce_edge_cases(rng)]
     timing = {
         "q7m": time_sharded(rng, dev, "q7m fused", MESH_N, 65536, 8192,
                             BENCH_BATCH // (MESH_N // 2), Q7M_LANES, 60000, 0.94, TIMING_REPS),
         "deployment": time_sharded(rng, dev, "deployment", MESH_N, 1 << 20, 65536, 16384,
                                    DEPLOY_LANES, 1 << 22, 1.0, 3),
     }
-    info = {"phase": "sharded", "cases_checked": len(cases), "max_abs_err": 0.0,
-            "cases": cases, "shapes_checked": checks, "timing": timing}
+    info = {"phase": "sharded", "cases_checked": len(cases) + len(k8_cases), "max_abs_err": 0.0,
+            "cases": cases, "k8_cases": k8_cases, "shapes_checked": checks, "timing": timing}
     emit(info)
     return info
 
@@ -3039,6 +3418,36 @@ def hash_edge_cases(dev, checks: dict) -> list:
     o2.restore(*o.snapshot())
     same_rows("host store restore", o2.snapshot(), o.snapshot())
     out.append({"label": "restore / snapshot round trips", "entries": len(snap[0])})
+    # 7. a hot key of ~6,000 rows a batch with float sums, NaN and -0.0 in
+    # min/max: K8 at one shard reduces it by a warp from shared memory
+    # (batch_cap 8192) and by a block after the onesweep passes (16384,
+    # 12,000 rows)
+    for batch_cap, n in ((8192, 8192), (16384, 12_000)):
+        hk = ("sum", "sum", "min", "max", "count")
+        hd = (np.float64, np.float32, np.float64, np.float32, np.int64)
+        ha, ho = both(hk, hd, dict(cap=4096, batch_cap=batch_cap, max_probes=64, emit_cap=4096))
+        for step in range(2):
+            keys = np.where(rng.random(n) < 0.7, 12345, rng.integers(0, 500, n)).astype(np.uint64)
+            bins = rng.integers(step, step + 2, n).astype(np.int32)
+            vals = [np.round(rng.normal(0, 1e3, n), 3),
+                    np.round(rng.normal(0, 1e3, n), 3).astype(np.float32)]
+            for dt in (np.float64, np.float32):
+                v = np.round(rng.normal(0, 10, n), 1).astype(dt)
+                pick = rng.random(n)
+                v[pick < 0.1] = -0.0
+                v[(pick >= 0.1) & (pick < 0.2)] = 0.0
+                v[(pick >= 0.2) & (pick < 0.201)] = np.nan
+                vals.append(v)
+            vals.append(np.ones(n, np.int64))
+            for x in (ha, ho):
+                x.update(keys, bins, vals)
+        got, want = ha.scan_range(0, 3), ho.scan_range(0, 3)
+        gd, wd = as_dict(*got), as_dict(*want)
+        if set(gd) != set(wd) or any(gd[k][4] != wd[k][4] for k in gd):
+            raise AssertionError(f"hash_agg hot run (batch {batch_cap}): the count lane "
+                                 f"differs from the host store")
+        out.append({"label": f"a hot key of ~{int(0.7 * n)} rows, float sums, batch {batch_cap}",
+                    "entries": len(gd)})
     torch.cuda.synchronize()
     return out
 
@@ -3141,9 +3550,13 @@ def time_hash(dev) -> dict:
 
     P = hash_kernels.PLAIN
     log("hash_agg: time")
-    row("agg_sort_reduce",
-        measure(lambda: sharded_kernels.agg_sort_reduce(kinds, key, bins, None, vals, 0, m)),
-        measure(lambda: P.sort_reduce(kinds, key, bins, None, vals, 0, m)), rows=[1, L], valid=m)
+    k8_call = lambda: sharded_kernels.agg_sort_reduce(kinds, key, bins, None, vals, 0, m)  # noqa: E731
+    k8 = measure(k8_call)
+    k8_r = k8_launch_report(k8_call, sort_reduce_plan(key, bins, None, 0, m), k8,
+                            "B9's q7 step", 1, dev)
+    row("agg_sort_reduce", dict(k8, device_ms=k8_r["ms"]),
+        measure(lambda: P.sort_reduce(kinds, key, bins, None, vals, 0, m)),
+        rows=[1, L], valid=m, us_per_call=k8["device_us_per_call"], calls=k8_r)
     fresh = lambda: (clone_nested(table), oflow.clone())  # noqa: E731
     row("agg_probe_merge",
         time_fresh(lambda tb, of: sharded_kernels.agg_probe_merge(kinds, tb, *u, 64, of), fresh,
@@ -3215,11 +3628,14 @@ def hash_agg_phase(dev) -> dict:
         return got
 
     reset_hash_launch_counts()
+    k8_calls: list = []
+    q7_ops = hash_kernels.KERNELS._replace(sort_reduce=K8Recorder(k8_calls))
     t0 = time.perf_counter()
-    base, closes = drive_tumbling(make_hash_agg(("max", "count"), (np.int64, np.int64), Q7_HASH, dev),
-                                  int_batches, ints)
+    base, closes = drive_tumbling(make_hash_agg(("max", "count"), (np.int64, np.int64),
+                                                Q7_HASH, dev, q7_ops), int_batches, ints)
     wall_int = time.perf_counter() - t0
     launches = {"q7": launched("q7", HASH_Q7_KERNELS)}
+    k8_q7 = k8_call_summary(k8_calls, launches["q7"]["agg_sort_reduce"])
     got = q7_windows(base, closes, auction_of)
     if got != want_q7:
         raise AssertionError(f"hash_agg: q7 parity failure: {len(got)} windows vs {len(want_q7)}")
@@ -3262,7 +3678,8 @@ def hash_agg_phase(dev) -> dict:
             "hop_events": HOP_EVENTS, "hop_rows": n_hop, "launches": launches,
             "wall_s": {"q7 int": wall_int, "q7 float, checked": wall_float,
                        "q5 hop, checked": wall_hop, "q7 host store": wall_host},
-            "events_per_s_q7_int": Q7_EVENTS / wall_int, "checks": checks,
+            "events_per_s_q7_int": Q7_EVENTS / wall_int, "k8_calls_q7": k8_q7,
+            "checks": checks,
             "checks_q5_hop": hop_checks,
             "sizes": {"q7": Q7_HASH, "hop": HOP_HASH, "deployment": HASH_DEPLOY},
             "deployment": deploy, "cases": cases, "max_abs_err": 0.0,
@@ -3405,6 +3822,10 @@ def kernel_rows(res: dict) -> list:
     k5["range_mode"] = {shape: {k: res["kernels"]["timing"][shape]["join_sort_pairs_range"][k]
                                 for k in ("ms", "plain_ms", "library_ms", "bound_ms", "cap")}
                         for shape in ("deployment", "qu")}
+    k6 = rows[-1]
+    dep = res["join"]["timing"]["deployment window"]["join_search_bounds"]
+    k6["deployment_window"] = {k: dep[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                                   "l_cap", "r_cap")}
     t = res["gather"]["timing"]["qu"]
     rows.append({"name": "slot_gather", "route": "cuda", "source": SOURCE,
                  "replaces": REPLACES["slot_gather"], "launches": res["qu"]["launches"]["slot_gather"],
@@ -3429,6 +3850,17 @@ def kernel_rows(res: dict) -> list:
                                "launches": ha["launches"]["q7"][name], "ms": h["ms"],
                                "plain_ms": h["plain_ms"], "bound_ms": h["bound_ms"],
                                "library_ms": h["library_ms"]}
+        if name == "agg_sort_reduce":
+            # the merged step's call, the local step's, the deployment
+            # state's, and B9's: path, passes and kernel launches a call
+            dt = res["sharded"]["timing"]["deployment"][name]
+            row.update(merged_step=t["calls"], local_step={"ms": t["local_ms"], **t["local_calls"]},
+                       deployment={"ms": dt["ms"], "plain_ms": dt["plain_ms"],
+                                   "bound_ms": dt["bound_ms"], "local_ms": dt["local_ms"],
+                                   "merged_step": dt["calls"], "local_step": dt["local_calls"]},
+                       q7m_calls=res["q7m"]["fused"]["k8_calls"])
+            row["hash_agg"]["calls"] = ht[name]["calls"]
+            row["hash_agg"]["q7_calls"] = ha["k8_calls_q7"]
         rows.append(row)
     for name in ("hash_scan_chunk", "hash_free"):
         t = ht[name]
