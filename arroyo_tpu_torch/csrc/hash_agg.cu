@@ -9,17 +9,26 @@
 // two reads that neither covers are here. They replace programs of
 // arroyo_tpu/ops/aggregate.py _build_jax (B9):
 //
-//   K12 hash_scan_chunk  scan (:331-342): the emit_cap slots from
-//       chunk_start, read without freeing; a row is valid when its slot is
-//       in bounds, occupied and emit_lo <= bin < emit_hi. A position past
+//   K12 hash_scan_walk   the reference's chunked read of a range
+//       (aggregate.py scan_range :752-762, one scan (:331-342) per
+//       emit_cap chunk of the table): every slot that is occupied with
+//       emit_lo <= bin < emit_hi, in slot order, compacted into rows, with
+//       their count, in one launch of csrc/table_compact.cuh's compaction
+//       (its WALK mode). That is the concatenation of the chunks' valid
+//       rows, whatever emit_cap is: the walk stops at cap, and the
+//       reference's clamped positions past it are never valid.
+//   K12 hash_scan_chunk  scan itself, one chunk: the emit_cap slots from
+//       chunk_start and their flags, read without freeing; a position past
 //       cap reads slot cap - 1 (what the reference's gather does: XLA
-//       clamps an out-of-bounds index) and is never valid, so an emit_cap
-//       that does not divide cap emits no slot twice.
+//       clamps an out-of-bounds index) and is never valid.
 //   K13 hash_free        free (:344-348): occ &= !(bin < below), in place.
 //
-// Bounds (H100, 3.35 TB/s): both move a few bytes per slot and compute
-// nothing, so they are bound by bytes. K12 reads and writes emit_cap rows
-// (key, bin, flag, lanes), one thread per row, neighbouring threads on
+// Bounds (H100, 3.35 TB/s): all three move a few bytes per slot and
+// compute nothing, so they are bound by bytes. The walk reads every
+// slot's occupancy, the occupied slots' bins and the valid slots' key and
+// lanes, and writes those rows once (see csrc/table_compact.cuh for the
+// tiles and the look-back). The chunk reads and writes emit_cap rows (key,
+// bin, flag, lanes), one thread per row, neighbouring threads on
 // neighbouring slots: every load and store is coalesced. K13 reads every
 // slot's bin and occupancy and writes the occupancy, one thread per slot.
 //
@@ -28,6 +37,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "table_compact.cuh"
 
 #define MAX_LANES 32
 #define THREADS 256
@@ -101,6 +112,55 @@ int arroyo_hash_scan_chunk(int device, long long cap, const void* keys, const vo
       static_cast<long long*>(out_key), static_cast<int*>(out_bin),
       static_cast<unsigned char*>(out_valid));
   return (int)cudaGetLastError();
+}
+
+// K12's walk. in / out: n_lanes lane pointers each, wide: 1 for an 8-byte
+// lane; E rows out (the caller's count of valid slots: rows past E are
+// not written, the count is); count: int64 [1]; scratch:
+// arroyo_hash_scan_walk_scratch_bytes(cap) bytes, 16-byte aligned, zero
+// before its first call and then passed to every walk of a table of this
+// cap on one stream, never cleared (see csrc/table_compact.cuh).
+int arroyo_hash_scan_walk(int device, long long cap, const void* keys, const void* bins,
+                          const void* occ, int n_lanes, const void** in, void** out,
+                          const int* wide, int emit_lo, int emit_hi, long long E, void* out_key,
+                          void* out_bin, void* count, void* scratch, void* stream) {
+  if (cap < 1 || cap > 0x7fffffffLL || E < 0 || n_lanes < 0 || n_lanes > MAX_LANES)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  compact::Lanes lanes;
+  for (int l = 0; l < n_lanes; ++l) {
+    lanes.in[l] = in[l];
+    lanes.out[l] = out[l];
+    lanes.wide[l] = wide[l];
+  }
+  lanes.n = n_lanes;
+  compact::Args a{};
+  a.keys = static_cast<const long long*>(keys);
+  a.bins = static_cast<const int*>(bins);
+  a.occ = static_cast<unsigned char*>(const_cast<void*>(occ));  // WALK writes no occupancy
+  a.cap = cap;
+  a.tiles = (int)compact::tiles_for(cap);
+  a.S = 1;
+  a.lo = emit_lo;
+  a.hi = emit_hi;
+  a.free_below = INT_MIN;
+  a.vec = cap % compact::ITEMS == 0 && reinterpret_cast<uintptr_t>(occ) % 16 == 0 &&
+          reinterpret_cast<uintptr_t>(bins) % 16 == 0;
+  a.E = E;
+  a.out_key = static_cast<long long*>(out_key);
+  a.out_bin = static_cast<int*>(out_bin);
+  a.count = static_cast<long long*>(count);
+  a.state = static_cast<unsigned long long*>(scratch);
+  a.ticket_scale = 1.0 / (double)a.tiles;
+  compact::compact_table<compact::WALK>
+      <<<(unsigned int)a.tiles, compact::TILE_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+          lanes, a);
+  return (int)cudaGetLastError();
+}
+
+long long arroyo_hash_scan_walk_scratch_bytes(long long cap) {
+  return 8 * compact::state_words(1, compact::tiles_for(cap));
 }
 
 // K13.

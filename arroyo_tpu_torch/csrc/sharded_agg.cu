@@ -36,7 +36,10 @@
 //       and the table's overflow counter is copied beside the totals: the
 //       single-device table's extract / scan_packed (aggregate.py
 //       _build_jax :350-379, :424-444), whose cumsum scatter gives the
-//       same slot order.
+//       same slot order. One launch of csrc/table_compact.cuh's
+//       compaction (tiles of 4096 slots, decoupled look-back, the rows
+//       past the emitting ones by fill blocks once the shard's total is
+//       known).
 //
 // K8, what bounds it and its design. It must read each valid row once and
 // write the [S, L] outputs once, so bytes bound it; its work is the valid
@@ -84,13 +87,19 @@
 // then do matches and winners write. One block per shard runs all rounds
 // with __syncthreads between the phases, so there is one launch per merge;
 // a round that starts with no active partial ends the loop (no later round
-// could write).
+// could write). Each call records, for its first PM_REPORT_SHARDS shards,
+// the rounds it ran and the active list's length at the start of each of
+// the first PM_REPORT_ROUNDS rounds and after the last
+// (arroyo_agg_probe_merge_rounds reads them back).
 //
-// Bounds (H100, 3.35 TB/s): all four move a few bytes per element and do
+// Bounds (H100, 3.35 TB/s): all five move a few bytes per element and do
 // no arithmetic to speak of. K10's per-shard scan and K9's rounds run one
-// block per shard, so they are latency-bound at small sizes; K11 and K8's
-// compaction count per chunk in one launch and scatter in a second, every
-// block of every shard at once.
+// block per shard, so they are latency-bound at small sizes; K8's
+// compaction counts per chunk in one launch and scatters in a second,
+// every block of every shard at once. K11 reads each slot's occupancy and
+// bin once, in one launch over tiles of every shard (see
+// csrc/table_compact.cuh): its bound is the occupancy, the occupied bins,
+// the emitted slots' key and lanes, the E rows written and the frees.
 //
 // Lanes are int32, int64, uint64 (a numeric group-by key riding as a max
 // lane, as the JAX package's sharded store carries it), float32 or float64.
@@ -104,8 +113,10 @@
 
 #include <atomic>
 #include <chrono>
+#include <vector>
 
 #include "radix_sort.cuh"
+#include "table_compact.cuh"
 
 using radix::RADIX;
 
@@ -875,6 +886,13 @@ __global__ void pm_list(const unsigned char* __restrict__ active, long long B,
 
 enum { PM_MISS = 0, PM_MATCH = 1, PM_EMPTY = 2 };
 
+#define PM_REPORT_SHARDS 32
+#define PM_REPORT_ROUNDS 256
+// The last call's rounds per shard, and the active partials at the start
+// of round r (r = rounds: those left unplaced).
+__device__ int g_pm_rounds[PM_REPORT_SHARDS];
+__device__ int g_pm_active[PM_REPORT_SHARDS][PM_REPORT_ROUNDS + 1];
+
 // one block per shard runs every round
 __global__ void pm_rounds(long long* __restrict__ keys, int* __restrict__ bins,
                           unsigned char* __restrict__ occ, Lanes lanes, long long cap,
@@ -896,7 +914,10 @@ __global__ void pm_rounds(long long* __restrict__ keys, int* __restrict__ bins,
   int* nxt = cur + B;
   unsigned char* cd = code + s * B;
   int n = n_list0[s];
-  for (int r = 0; r < max_probes && n > 0; ++r) {
+  const bool report = s < PM_REPORT_SHARDS && threadIdx.x == 0;
+  int r = 0;
+  for (; r < max_probes && n > 0; ++r) {
+    if (report && r < PM_REPORT_ROUNDS) g_pm_active[s][r] = n;
     // phase 1: classify against the table as it is at the round's start
     for (int j = threadIdx.x; j < n; j += blockDim.x) {
       const int i = cur[j];
@@ -954,6 +975,10 @@ __global__ void pm_rounds(long long* __restrict__ keys, int* __restrict__ bins,
     cur = nxt;
     nxt = tmp;
     __syncthreads();
+  }
+  if (report) {
+    g_pm_rounds[s] = r;
+    if (r <= PM_REPORT_ROUNDS) g_pm_active[s][r] = n;
   }
   // partials no round placed: the table's overflow (one block per shard)
   if (oflow != nullptr && threadIdx.x == 0) oflow[s] += n;
@@ -1109,73 +1134,9 @@ __global__ void sp_finish(int S, int n_chunks, const int* __restrict__ counts, l
 
 // ------------------------------------------------------------ K11
 
-struct ExtractOut {
-  long long* key;
-  int* bin;
-  unsigned char* valid;
-  int* total;
-  int zero_tail;  // rows past the emitting ones hold zeros
-  const int* oflow_in;  // copied to oflow_out per shard, when given
-  int* oflow_out;
-};
-
-__device__ __forceinline__ bool emits(const unsigned char* occ, const int* bins, long long j,
-                                      int lo, int hi) {
-  return occ[j] && bins[j] >= lo && bins[j] < hi;
-}
-
-__global__ void ext_count(const int* __restrict__ bins, const unsigned char* __restrict__ occ,
-                          long long cap, int lo, int hi, int n_chunks, int* __restrict__ counts) {
-  __shared__ int ws[32];
-  const long long s = blockIdx.y;
-  const long long j = (long long)blockIdx.x * CHUNK + threadIdx.x;
-  int total;
-  block_excl_count(j < cap && emits(occ, bins, s * cap + j, lo, hi), ws, &total);
-  if (threadIdx.x == 0) counts[s * n_chunks + blockIdx.x] = total;
-}
-
-__global__ void ext_write(const long long* __restrict__ keys, const int* __restrict__ bins,
-                          unsigned char* __restrict__ occ, Lanes lanes, long long cap, int lo,
-                          int hi, int free_below, long long E, int n_chunks,
-                          const int* __restrict__ counts, ExtractOut out) {
-  __shared__ int ws[32];
-  __shared__ long long sh[32];
-  const long long s = blockIdx.y;
-  long long prefix, total;
-  chunk_prefix(counts + s * n_chunks, n_chunks, blockIdx.x, &prefix, &total, sh);
-  const long long j = (long long)blockIdx.x * CHUNK + threadIdx.x;
-  const long long g = s * cap + j;
-  const bool e = j < cap && emits(occ, bins, g, lo, hi);
-  int tot;
-  const long long ex = prefix + block_excl_count(e, ws, &tot);
-  if (blockIdx.x == 0 && threadIdx.x == 0) {
-    out.total[s] = (int)total;
-    if (out.oflow_out != nullptr) out.oflow_out[s] = out.oflow_in[s];
-  }
-  if (out.zero_tail && j < E && j >= (total < E ? total : E)) {
-    const long long d = s * E + j;  // output row j, past the emitted rows
-    out.key[d] = 0;
-    out.bin[d] = 0;
-    out.valid[d] = 0;
-    for (int l = 0; l < lanes.n; ++l) st_bits(lanes.dtype[l], lanes.out[l], d, 0ULL);
-  }
-  if (j >= cap) return;
-  // emitting slots first in slot order, then the others in slot order
-  // (with zero_tail only the emitting ones)
-  const long long pos = e ? ex : (out.zero_tail ? E : total + j - ex);
-  if (pos < E) {
-    const long long d = s * E + pos;
-    out.key[d] = keys[g];
-    out.bin[d] = bins[g];
-    out.valid[d] = e ? 1 : 0;
-    for (int l = 0; l < lanes.n; ++l) {
-      const int dt = lanes.dtype[l];
-      st_bits(dt, lanes.out[l], d, ld_bits(dt, lanes.in[l], g));
-    }
-  }
-  // expired slots outside the emit range free now, emitted ones once emitted
-  if (bins[g] < free_below && (e ? pos < E : occ[g] != 0)) occ[g] = 0;
-}
+// K11 is csrc/table_compact.cuh's one-pass compaction (CLOSE, or
+// ZERO_TAIL); the library counts its kernel launches.
+static std::atomic<long long> g_ext_launches{0};
 
 // ------------------------------------------------------------ entry points
 
@@ -1461,6 +1422,30 @@ int arroyo_agg_probe_merge(int device, int S, long long cap, void* keys, void* b
   return (int)cudaGetLastError();
 }
 
+// The last K9 call on the device, per shard of its first S (at most
+// PM_REPORT_SHARDS): the rounds it ran, and per shard max_rounds + 1
+// counts, active[s * (max_rounds + 1) + r] the active partials at the start
+// of round r for r up to min(rounds, PM_REPORT_ROUNDS, max_rounds) (at
+// r = rounds: the unplaced ones); the rest are not written. Waits for the
+// device first.
+int arroyo_agg_probe_merge_rounds(int device, int S, int max_rounds, int* rounds, int* active) {
+  if (S < 1 || S > PM_REPORT_SHARDS || max_rounds < 0 || max_rounds > PM_REPORT_ROUNDS)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err;
+  if ((err = cudaSetDevice(device)) != cudaSuccess ||
+      (err = cudaDeviceSynchronize()) != cudaSuccess ||
+      (err = cudaMemcpyFromSymbol(rounds, g_pm_rounds, sizeof(int) * S)) != cudaSuccess)
+    return (int)err;
+  std::vector<int> all((size_t)S * (PM_REPORT_ROUNDS + 1));
+  if ((err = cudaMemcpyFromSymbol(all.data(), g_pm_active,
+                                  sizeof(int) * all.size())) != cudaSuccess)
+    return (int)err;
+  for (int s = 0; s < S; ++s)
+    for (int r = 0; r <= max_rounds; ++r)
+      active[s * (max_rounds + 1) + r] = all[(size_t)s * (PM_REPORT_ROUNDS + 1) + r];
+  return (int)cudaSuccess;
+}
+
 // K10, steps 2-3. lanes->in: the partials' lanes, ->out: the send buffers
 // [S * S * dc], ->aux: the merged rows [S * M], M = S * dc + L.
 int arroyo_shard_exchange(int device, int S, long long L, long long dc, const void* u_key,
@@ -1505,34 +1490,73 @@ int arroyo_shard_spill(int device, int S, long long M, const void* c_key, const 
 }
 
 // K11. lanes->in: the table's lanes, ->out: the extracted lanes [S * E].
-// scratch: counts int32 [S * chunks(cap)]. E <= cap unless zero_tail;
-// oflow_in / oflow_out int32 [S] or NULL.
+// scratch: arroyo_shard_extract_scratch_bytes(S, cap, E, zero_tail) bytes,
+// 16-byte aligned, zero before its first call and then passed to every
+// call of this (S, cap, E, zero_tail) on one stream, never cleared (see
+// csrc/table_compact.cuh).
+// E <= cap unless zero_tail; oflow_in / oflow_out int32 [S] or NULL.
 int arroyo_shard_extract(int device, int S, long long cap, const void* keys, const void* bins,
                          void* occ, const Lanes* lanes, int emit_lo, int emit_hi, int free_below,
                          long long E, void* out_key, void* out_bin, void* out_valid,
-                         void* total, void* counts, int zero_tail, const void* oflow_in,
+                         void* total, void* scratch, int zero_tail, const void* oflow_in,
                          void* oflow_out, void* stream) {
-  if (S < 1 || cap < 1 || E < 1 || (E > cap && !zero_tail) || !lanes_ok(lanes) ||
-      (oflow_in == nullptr) != (oflow_out == nullptr))
+  if (S < 1 || cap < 1 || cap > 0x7fffffffLL || E < 1 || (E > cap && !zero_tail) ||
+      !lanes_ok(lanes) || (oflow_in == nullptr) != (oflow_out == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
+  compact::Lanes cl;
+  for (int l = 0; l < lanes->n; ++l) {
+    cl.in[l] = lanes->in[l];
+    cl.out[l] = lanes->out[l];
+    const int dt = lanes->dtype[l];
+    cl.wide[l] = dt == DT_I64 || dt == DT_F64 || dt == DT_U64;
+  }
+  cl.n = lanes->n;
+  compact::Args a{};
+  a.keys = static_cast<const long long*>(keys);
+  a.bins = static_cast<const int*>(bins);
+  a.occ = static_cast<unsigned char*>(occ);
+  a.cap = cap;
+  a.tiles = (int)compact::tiles_for(cap);
+  a.S = S;
+  a.lo = emit_lo;
+  a.hi = emit_hi;
+  a.free_below = free_below;
+  a.vec = cap % compact::ITEMS == 0 && reinterpret_cast<uintptr_t>(occ) % 16 == 0 &&
+          reinterpret_cast<uintptr_t>(bins) % 16 == 0;
+  a.E = E;
+  a.out_key = static_cast<long long*>(out_key);
+  a.out_bin = static_cast<int*>(out_bin);
+  a.out_valid = static_cast<unsigned char*>(out_valid);
+  a.total = static_cast<int*>(total);
+  a.oflow_in = static_cast<const int*>(oflow_in);
+  a.oflow_out = static_cast<int*>(oflow_out);
+  a.state = static_cast<unsigned long long*>(scratch);
+  a.fill = a.state + compact::state_words(S, a.tiles);
+  const int mode = zero_tail ? compact::ZERO_TAIL : compact::CLOSE;
+  const long long blocks = (long long)S * a.tiles + compact::fill_blocks(S, E, mode);
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  a.ticket_scale = 1.0 / (double)blocks;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int nc = chunks_for(cap);
-  ext_count<<<dim3(nc, S), CHUNK, 0, s>>>(static_cast<const int*>(bins),
-                                          static_cast<const unsigned char*>(occ), cap, emit_lo,
-                                          emit_hi, nc, static_cast<int*>(counts));
+  const unsigned grid = (unsigned)blocks;
+  if (zero_tail)
+    compact::compact_table<compact::ZERO_TAIL><<<grid, compact::TILE_THREADS, 0, s>>>(cl, a);
+  else
+    compact::compact_table<compact::CLOSE><<<grid, compact::TILE_THREADS, 0, s>>>(cl, a);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  ExtractOut out{static_cast<long long*>(out_key), static_cast<int*>(out_bin),
-                 static_cast<unsigned char*>(out_valid), static_cast<int*>(total), zero_tail,
-                 static_cast<const int*>(oflow_in), static_cast<int*>(oflow_out)};
-  // with a zeroed tail past cap, the blocks cover the output rows too
-  const int nw = chunks_for(E > cap ? E : cap);
-  ext_write<<<dim3(nw, S), CHUNK, 0, s>>>(
-      static_cast<const long long*>(keys), static_cast<const int*>(bins),
-      static_cast<unsigned char*>(occ), *lanes, cap, emit_lo, emit_hi, free_below, E, nc,
-      static_cast<const int*>(counts), out);
-  return (int)cudaGetLastError();
+  ++g_ext_launches;
+  return (int)cudaSuccess;
 }
+
+// K11's scratch: the state words, then (default mode) the fill list.
+long long arroyo_shard_extract_scratch_bytes(int S, long long cap, long long E, int zero_tail) {
+  const long long words = compact::state_words(S, compact::tiles_for(cap));
+  return 8 * (words + (zero_tail ? 0 : (long long)S * E));
+}
+
+// Kernels K11 has launched in this process: the difference across one
+// call is that call's launches.
+long long arroyo_shard_extract_kernel_launches(void) { return g_ext_launches.load(); }
 
 }  // extern "C"

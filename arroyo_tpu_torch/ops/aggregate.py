@@ -591,37 +591,17 @@ class DeviceHashAggregator:
             )
         from . import hash_kernels
         from .prefetch import HostFetch
-        from .sharded_kernels import unpack_extracted
 
         # one packed transfer covers the range when it fits in emit_cap rows
         packed = hash_kernels.scan_packed(self._ops, self.state, emit_lo, emit_hi, self.emit_cap)
         k, b, accs, total = self._unpack(HostFetch(packed.packed).result())
-        if total <= self.emit_cap:
-            return combine_by_key_bin(self.acc_kinds, k, b, accs)
-        keys_out, bins_out = [], []
-        accs_out: list[list[np.ndarray]] = [[] for _ in self.acc_dtypes]
-        for chunk in range(0, self.cap, self.emit_cap):
-            out = self._ops.scan_chunk(self.state[:4], emit_lo, emit_hi, chunk, self.emit_cap)
-            k, b, valid, accs, _t = unpack_extracted(HostFetch(out.packed).result(), 1,
-                                                     self.emit_cap, self.acc_dtypes)
-            valid = valid[0]
-            if valid.any():
-                keys_out.append(k[0][valid])
-                bins_out.append(b[0][valid])
-                for i, a in enumerate(accs):
-                    accs_out[i].append(a[0][valid])
-        if not keys_out:
-            return (
-                np.empty(0, dtype=np.uint64),
-                np.empty(0, dtype=np.int32),
-                [np.empty(0, dtype=d) for d in self.acc_dtypes],
-            )
-        return combine_by_key_bin(
-            self.acc_kinds,
-            np.concatenate(keys_out).view(np.uint64),
-            np.concatenate(bins_out),
-            [np.concatenate(a) for a in accs_out],
-        )
+        if total > self.emit_cap:
+            # else K12 walks the whole table once, sized by the scan's total
+            out = self._ops.scan_walk(self.state[:4], emit_lo, emit_hi, total)
+            k, b, accs = hash_kernels.unpack_walk(HostFetch(out.packed).result(), total,
+                                                  self.acc_dtypes)
+            k = k.view(np.uint64)
+        return combine_by_key_bin(self.acc_kinds, k, b, accs)
 
     def free_bins_below(self, below: int) -> None:
         """Drop all entries with bin < below."""

@@ -15,15 +15,20 @@ oflow int32)``. The port runs them as:
   port's transport for every lane set: it is a byte layout, so float lanes
   need no bitcast (the reference's ``_packed_ok`` split works around TPU
   x64 emulation);
-- ``scan``: K12 ``hash_scan_chunk`` (csrc/hash_agg.cu), one chunk;
+- ``scan`` and the host's loop over it (``scan_range`` :752-762, one chunk
+  of emit_cap slots at a time): K12 (csrc/hash_agg.cu) in two modes.
+  ``hash_scan_walk`` takes the whole loop in one launch: every valid slot
+  of the table in slot order, compacted, with their count
+  (csrc/table_compact.cuh); ``scan_range`` sizes it from the packed scan's
+  total. ``hash_scan_chunk`` is ``scan`` itself, one chunk with its flags;
 - ``free``: K13 ``hash_free`` (csrc/hash_agg.cu), in place.
 
-``KERNELS`` and ``PLAIN`` name the five functions each program calls, the
+``KERNELS`` and ``PLAIN`` name the functions the programs call, the
 kernels' wrappers and their plain PyTorch versions. A wrapper checks its
 inputs; on a CUDA tensor it launches its kernel (building the library with
 nvcc at first use, ``kernels.build_source``) or raises, and it takes the
-plain version only for tensors on the CPU. K12 and K13 count their
-launches in ``<wrapper>.launches`` (K8, K9 and K11 in sharded_kernels).
+plain version only for tensors on the CPU. K12's two modes and K13 count
+their launches in ``<wrapper>.launches`` (K8, K9 and K11 in sharded_kernels).
 """
 
 from __future__ import annotations
@@ -47,8 +52,11 @@ def _bind(lib: ctypes.CDLL) -> None:
     ip = ctypes.POINTER(ctypes.c_int)
     lib.arroyo_hash_scan_chunk.argtypes = [i, ll, p, p, p, i, pp, pp, ip, i, i, ll, ll,
                                            p, p, p, p]
+    lib.arroyo_hash_scan_walk.argtypes = [i, ll, p, p, p, i, pp, pp, ip, i, i, ll, p, p, p, p, p]
+    lib.arroyo_hash_scan_walk_scratch_bytes.argtypes = [ll]
+    lib.arroyo_hash_scan_walk_scratch_bytes.restype = ll
     lib.arroyo_hash_free.argtypes = [i, ll, p, p, i, p]
-    for fn in (lib.arroyo_hash_scan_chunk, lib.arroyo_hash_free):
+    for fn in (lib.arroyo_hash_scan_chunk, lib.arroyo_hash_scan_walk, lib.arroyo_hash_free):
         fn.restype = ctypes.c_int
 
 
@@ -129,6 +137,97 @@ def hash_scan_chunk_plain(table, emit_lo, emit_hi, chunk_start, emit_cap) -> sk.
     return out
 
 
+class Walked(NamedTuple):
+    """hash_scan_walk's outputs, views of one packed byte buffer: the valid
+    slots the kernel found (int64 ``[1]``), and the first ``E`` of their
+    rows: key int64, bin int32 and one array per lane, each ``[E]``."""
+
+    packed: torch.Tensor
+    count: torch.Tensor
+    key: torch.Tensor
+    bin: torch.Tensor
+    accs: list
+
+
+def walk_layout(E: int, dtypes) -> tuple[int, list]:
+    """(bytes, [(offset, dtype, shape)]) of the packed walk buffer, in the
+    order count, key, bin, lanes...; every part 8-byte aligned."""
+    parts = [(np.dtype(np.int64), (1,)), (np.dtype(np.int64), (E,)), (np.dtype(np.int32), (E,))]
+    parts += [(sk._NP[dt] if isinstance(dt, torch.dtype) else np.dtype(dt), (E,)) for dt in dtypes]
+    out, off = [], 0
+    for dt, shp in parts:
+        out.append((off, dt, shp))
+        off += -(-shp[0] * dt.itemsize // 8) * 8
+    return off, out
+
+
+def _walk_out(E: int, dtypes, dev) -> Walked:
+    nbytes, layout = walk_layout(E, dtypes)
+    packed = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    v = sk._carve(packed, layout)
+    return Walked(packed, v[0], v[1], v[2], v[3:])
+
+
+def unpack_walk(host: np.ndarray, E: int, dtypes):
+    """The host copy of a packed walk buffer of ``E`` rows: (key int64,
+    bin, accs) numpy arrays. Raises when the kernel found another number of
+    valid slots than the ``E`` it was sized for (the table changed between
+    the packed scan and the walk)."""
+    _n, layout = walk_layout(E, dtypes)
+    parts = [host[off: off + int(np.prod(shp)) * dt.itemsize].view(dt).reshape(shp)
+             for off, dt, shp in layout]
+    if int(parts[0][0]) != E:
+        raise RuntimeError(f"hash_scan_walk found {int(parts[0][0])} valid slots where the "
+                           f"packed scan counted {E}")
+    return parts[1], parts[2], parts[3:]
+
+
+def hash_scan_walk(table, emit_lo: int, emit_hi: int, total: int) -> Walked:
+    """The reference's walk over every chunk of the table (``scan`` at
+    chunk_start 0, emit_cap, ... < cap, its valid rows concatenated), in one
+    launch: every occupied slot with emit_lo <= bin < emit_hi, in slot
+    order, whatever emit_cap is. ``total`` is the count the caller expects
+    (the packed scan's header): the buffer holds that many rows and the
+    kernel writes the count it found beside them; ``unpack_walk`` raises
+    when the two differ."""
+    dev, cap = _check_table(table)
+    if total < 0:
+        raise ValueError(f"total {total} < 0")
+    if dev.type == "cpu":
+        return hash_scan_walk_plain(table, emit_lo, emit_hi, total)
+    keys_t, bins_t, occ_t, accs_t = table
+    lib = build_library()
+    out = _walk_out(total, [a.dtype for a in accs_t], dev)
+    scratch = sk.compaction_scratch(("hash_scan_walk", cap), dev,
+                                    lambda: lib.arroyo_hash_scan_walk_scratch_bytes(cap))
+    n = len(accs_t)
+    wide = (ctypes.c_int * max(n, 1))(*[a.element_size() == 8 for a in accs_t])
+    err = lib.arroyo_hash_scan_walk(
+        sk._dev_index(dev), cap, keys_t.data_ptr(), bins_t.data_ptr(), occ_t.data_ptr(), n,
+        kernels._ptrs(accs_t), kernels._ptrs(out.accs), wide, int(emit_lo), int(emit_hi),
+        int(total), out.key.data_ptr(), out.bin.data_ptr(), out.count.data_ptr(),
+        scratch.data_ptr(), kernels._stream(dev))
+    kernels._raise_on(err, "hash_scan_walk")
+    kernels._counted(hash_scan_walk)
+    return out
+
+
+def hash_scan_walk_plain(table, emit_lo, emit_hi, total) -> Walked:
+    """Plain PyTorch version of K12's walk (the valid slots' indices, then
+    one index per array)."""
+    keys_t, bins_t, occ_t, accs_t = table
+    out = _walk_out(total, [a.dtype for a in accs_t], keys_t.device)
+    sel = torch.nonzero(occ_t & (bins_t >= emit_lo) & (bins_t < emit_hi)).squeeze(1)
+    out.count[0] = sel.numel()
+    sel = sel[:total]
+    n = sel.numel()
+    out.key[:n] = keys_t[sel]
+    out.bin[:n] = bins_t[sel]
+    for a, o in zip(accs_t, out.accs):
+        sk.bits(o)[:n] = sk.bits(a)[sel]
+    return out
+
+
 # ------------------------------------------------------------- K13
 
 
@@ -162,13 +261,14 @@ class Ops(NamedTuple):
     probe_merge: object
     extract: object
     scan_chunk: object
+    scan_walk: object
     free: object
 
 
 KERNELS = Ops(sk.agg_sort_reduce, sk.agg_probe_merge, sk.shard_extract, hash_scan_chunk,
-              hash_free)
+              hash_scan_walk, hash_free)
 PLAIN = Ops(sk.agg_sort_reduce_plain, sk.agg_probe_merge_plain, sk.shard_extract_plain,
-            hash_scan_chunk_plain, hash_free_plain)
+            hash_scan_chunk_plain, hash_scan_walk_plain, hash_free_plain)
 
 
 def _rows(table):
@@ -206,7 +306,7 @@ def scan_packed(ops: Ops, state, emit_lo: int, emit_hi: int, emit_cap: int) -> s
     return extract(ops, state, emit_lo, emit_hi, I32_MIN, emit_cap)
 
 
-WRAPPERS = (hash_scan_chunk, hash_free)
+WRAPPERS = (hash_scan_chunk, hash_scan_walk, hash_free)
 
 
 def launch_counts() -> dict[str, int]:

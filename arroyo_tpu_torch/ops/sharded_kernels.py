@@ -7,12 +7,15 @@ aggregate, every array laid out ``[shard, ...]`` on one torch device:
 - ``agg_sort_reduce`` (K8): per shard, unique (key, bin) partials of a
   padded batch (B7, ``sort_reduce``);
 - ``agg_probe_merge`` (K9): partials merged into the open-addressing table
-  in place (B8, ``probe_merge``);
+  in place (B8, ``probe_merge``); ``probe_merge_rounds`` reads back the
+  rounds its last call ran per shard and the active partials at each;
 - ``shard_exchange`` (K10): owner bucketing into the send buffers and the
   rows kept local (B10 ``exchange_merge`` steps 2-3), and ``shard_spill``
   (K10, step 7): rows the table could not place append to the spill buffer;
 - ``shard_extract`` (K11): the per-shard compaction of a close, with its
-  frees (B10 ``local_extract``), into one packed buffer.
+  frees (B10 ``local_extract``), into one packed buffer, in one launch of
+  csrc/table_compact.cuh's compaction (``extract_kernel_launches`` counts
+  the library's launches).
 
 The single-device table (``hash_kernels``, B9) runs K8, K9 and K11 at one
 shard: K9 then adds its unplaced partials to the table's overflow counter,
@@ -92,8 +95,14 @@ def _bind(lib: ctypes.CDLL) -> None:
                                            p, p, p, p, p, p, p]
     lib.arroyo_shard_exchange.argtypes = [i, i, ll, ll, p, p, p, lp, p, p, p, p, p, p, p]
     lib.arroyo_shard_spill.argtypes = [i, i, ll, p, p, p, lp, ll, p, p, p, p, p, p]
+    lib.arroyo_agg_probe_merge_rounds.argtypes = [i, i, i, p, p]
+    lib.arroyo_agg_probe_merge_rounds.restype = ctypes.c_int
     lib.arroyo_shard_extract.argtypes = [i, i, ll, p, p, p, lp, i, i, i, ll, p, p, p, p, p,
                                          i, p, p, p]
+    lib.arroyo_shard_extract_scratch_bytes.argtypes = [i, ll, ll, i]
+    lib.arroyo_shard_extract_scratch_bytes.restype = ll
+    lib.arroyo_shard_extract_kernel_launches.argtypes = []
+    lib.arroyo_shard_extract_kernel_launches.restype = ll
     for fn in (lib.arroyo_agg_sort_reduce, lib.arroyo_agg_probe_merge,
                lib.arroyo_shard_exchange, lib.arroyo_shard_spill, lib.arroyo_shard_extract):
         fn.restype = ctypes.c_int
@@ -308,6 +317,27 @@ def agg_probe_merge(kinds: Sequence[str], table, u_key: torch.Tensor, u_bin: tor
     kernels._raise_on(err, "agg_probe_merge")
     kernels._counted(agg_probe_merge)
     return still
+
+
+PROBE_REPORT_ROUNDS = 256  # csrc/sharded_agg.cu PM_REPORT_ROUNDS
+
+
+def probe_merge_rounds(S: int, dev: torch.device, max_rounds: int = PROBE_REPORT_ROUNDS) -> dict:
+    """The last K9 call on ``dev``, per shard of its first ``S`` (at most
+    32), as the kernel wrote it: ``rounds`` run, and ``active[s][r]`` the
+    partials still active at the start of round r, for every r up to the
+    shard's rounds (at r = rounds: those no round placed), or the first
+    ``max_rounds`` rounds' starts where it ran more. Waits for the device."""
+    rounds = (ctypes.c_int * S)()
+    active = (ctypes.c_int * (S * (max_rounds + 1)))()
+    err = build_library().arroyo_agg_probe_merge_rounds(_dev_index(dev), S, max_rounds, rounds,
+                                                         active)
+    kernels._raise_on(err, "agg_probe_merge_rounds")
+    per = max_rounds + 1
+    return {"rounds": list(rounds),
+            "active": [list(active[s * per: s * per + (rounds[s] + 1 if rounds[s] <= max_rounds
+                                                        else max_rounds)])
+                       for s in range(S)]}
 
 
 def agg_probe_merge_plain(kinds, table, u_key, u_bin, active, u_accs, max_probes, oflow=None):
@@ -590,19 +620,46 @@ def shard_extract(table, emit_lo: int, emit_hi: int, free_below: int,
     if dev.type == "cpu":
         return shard_extract_plain(table, emit_lo, emit_hi, free_below, emit_cap, zero_tail,
                                    oflow)
+    lib = build_library()
     dts = [a.dtype for a in accs_t]
     out = _extract_out(S, E, dts, dev, oflow is not None)
-    counts = torch.empty((S, -(-cap // CHUNK)), dtype=torch.int32, device=dev)
+    zt = int(bool(zero_tail))
+    scratch = compaction_scratch(
+        ("shard_extract", S, cap, E, zt), dev,
+        lambda: lib.arroyo_shard_extract_scratch_bytes(S, cap, E, zt))
     ln = _lanes(["sum"] * len(dts), dts, inp=accs_t, out=out.accs)
-    err = build_library().arroyo_shard_extract(
+    err = lib.arroyo_shard_extract(
         _dev_index(dev), S, cap, keys_t.data_ptr(), bins_t.data_ptr(), occ_t.data_ptr(),
         ctypes.byref(ln), int(emit_lo), int(emit_hi), int(free_below), E, out.key.data_ptr(),
-        out.bin.data_ptr(), out.valid.data_ptr(), out.total.data_ptr(), counts.data_ptr(),
-        int(bool(zero_tail)), None if oflow is None else oflow.data_ptr(),
+        out.bin.data_ptr(), out.valid.data_ptr(), out.total.data_ptr(), scratch.data_ptr(), zt,
+        None if oflow is None else oflow.data_ptr(),
         None if oflow is None else out.oflow.data_ptr(), kernels._stream(dev))
     kernels._raise_on(err, "shard_extract")
     kernels._counted(shard_extract)
     return out
+
+
+def extract_kernel_launches() -> int:
+    """Kernels K11 has launched on the card in this process (builds the
+    library): the difference across one call is that call's launches."""
+    return build_library().arroyo_shard_extract_kernel_launches()
+
+
+_scratch_cache: dict = {}
+
+
+def compaction_scratch(layout: tuple, dev: torch.device, nbytes) -> torch.Tensor:
+    """The scratch of csrc/table_compact.cuh's compaction (K11, K12's walk)
+    for one ``layout`` (what fixes the kernel's grid) on ``dev``'s current
+    stream: ``nbytes()`` bytes, zeroed once, at the first call. The kernel
+    numbers its launches on the buffer by its never-cleared ticket counter,
+    which holds only while every launch on it has the same grid and runs
+    after the one before it: hence one buffer per layout and stream."""
+    key = (layout, dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    buf = _scratch_cache.get(key)
+    if buf is None:
+        buf = _scratch_cache[key] = torch.zeros(int(nbytes()), dtype=torch.uint8, device=dev)
+    return buf
 
 
 def shard_extract_plain(table, emit_lo, emit_hi, free_below, emit_cap, zero_tail=False,

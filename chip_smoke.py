@@ -14,8 +14,8 @@ non-zero, printing no result):
               aggregator's slot_agg.cu with K1-K3 and K7, the join probe's
               join_probe.cu, the sharded aggregate's sharded_agg.cu with
               K8-K11, the single-device table's hash_agg.cu with K12 and
-              K13) with nvcc for sm_90a, one nvcc per source, all started
-              together;
+              K13; K11 and K12's walk share table_compact.cuh) with nvcc for
+              sm_90a, one nvcc per source, all started together;
 3. q7      -- Nexmark q7 through the port's run_graph on the GPU at the size
               bench.py measures (2,000,000 events, batch 65536, table 65536,
               region 2048) in the package's default configuration (chaining
@@ -113,7 +113,20 @@ non-zero, printing no result):
               4096, spill 4096, probes 32, source batch 4096): a warm-up of
               each mode, then host and fused against the closed-form oracle,
               calls per step 1.0, each profiled;
-18. sharded -- K8 (agg_sort_reduce), K9 (agg_probe_merge), K10
+18. table_reads -- K11 in each of its modes (the mesh's close, B9's
+              extract with zeros past the emitted rows, B9's packed scan) and
+              K12 in both (the walk and one chunk) against their plain
+              versions on the card, exactly, on the shared edge cases
+              (chip_smoke.table_read_cases at 1 and 8 shards and
+              walk_cases, also tests/test_torch_table_reads.py's: E below,
+              equal to and above the emitting slots, emit_cap above cap,
+              free_below inside, above and below the range, an empty range,
+              every slot emitting, fill rows across tiles, 8-slot shards;
+              emit_cap dividing cap and not, more than one tile; every lane
+              dtype with NaN payloads and -0.0), K11's launches a call from
+              the library's counter, and the walk against the one-chunk
+              mode's valid rows concatenated (the reference's loop);
+19. sharded -- K8 (agg_sort_reduce), K9 (agg_probe_merge), K10
               (shard_exchange, shard_spill) and K11 (shard_extract) of
               csrc/sharded_agg.cu against their plain versions on the card,
               exactly, step by step: at q7m's shapes, at a deployment state
@@ -127,23 +140,32 @@ non-zero, printing no result):
               limits, n_valid inside a shard), each call's kernel launches
               from the library's counter, its path, passes, live rows per
               shard and passes per shard's block as the library reports them
-              equal to sort_reduce_plan's; then timed, K8's launches a call
-              held to the plan and the trace;
-19. hash_agg -- the single-device table (B9: DeviceHashAggregator, K8 and
-              K9 per batch, K11 per close at one shard, K12 chunked scans,
-              K13 frees): q7's 2,000,000 events closing through extract_start
-              exactly against the oracle and the host store, the same
-              stream's float64 SUM / MIN of price with every kernel checked
-              against its plain version step by step, and q5's hop windows
-              (500,000 events, scan_range in K12 chunks + free_bins_below,
+              equal to sort_reduce_plan's; K11 in each mode at q7m's table
+              and the deployment state, and K9's reported rounds at q7m's
+              merged step held to its plain version run r rounds; then
+              timed, K8's launches a call held to the plan and the trace;
+20. hash_agg -- the single-device table (B9: DeviceHashAggregator, K8 and
+              K9 per batch, K11 per close and packed scan at one shard, K12's
+              walk where a scan holds more than emit_cap rows, K13 frees):
+              q7's 2,000,000 events closing through extract_start exactly
+              against the oracle and the host store, the same stream's
+              float64 SUM / MIN of price with every kernel checked against
+              its plain version step by step (K9 reporting its rounds), and
+              q5's hop windows (500,000 events, scan_range + free_bins_below,
               every kernel checked) exactly against the oracle; launches are
-              read per drive (q7: K8, K9, K11; hop: K12, K13); then a 222 MB
-              deployment state
-              (4,194,304 entries, 8 x 1,048,576 rows) and edge cases (hot
+              read per drive (q7: K8, K9, K11; hop: K11, K12's walk, K13);
+              the hop drive again unchecked, wall to wall, through the walk
+              and through the chunk loop it replaced (loop, walk, walk,
+              loop: launches and host fetches counted); then a 222 MB
+              deployment state (4,194,304 entries, 8 x 1,048,576 rows; K12
+              in both modes checked and timed there) and edge cases (hot
               runs through both of K8's paths among them), every kernel
-              checked the same way; then timed. K8's calls of the q7 drive
-              (as of q7m's) are reported by path, passes and launches;
-20. q7_host -- q7c with the window on the host store ("backend":
+              checked the same way; then timed at a state the q7 drive
+              reaches (its first five batches and their closes), K9's
+              rounds there held to its plain version, K12's walk at the hop
+              drive's state. K8's calls of the q7 drive (as of q7m's) are
+              reported by path, passes and launches;
+21. q7_host -- q7c with the window on the host store ("backend":
               "numpy"): exact parity, K4 on the card, no K1-K3.
 
 ``--only a,b`` runs those phases alone after probe and build (a short
@@ -187,7 +209,7 @@ from arroyo_tpu_torch.hashing import hash_columns
 from arroyo_tpu_torch.metrics import registry
 from arroyo_tpu_torch.ops import (hash_kernels, join_kernels, join_probe, kernels,
                                   segment_kernel, sharded_kernels)
-from arroyo_tpu_torch.ops.aggregate import _identity
+from arroyo_tpu_torch.ops.aggregate import DeviceHashAggregator, _identity, combine_by_key_bin
 from arroyo_tpu_torch.parallel import all_to_all, sharded_agg
 
 WIDTH = 10_000_000
@@ -213,6 +235,8 @@ REPLACES = {
     "shard_spill": "arroyo_tpu/parallel/sharded_agg.py:243",  # exchange_merge step 7
     "shard_extract": "arroyo_tpu/parallel/sharded_agg.py:304",  # local_extract
     "hash_scan_chunk": "arroyo_tpu/ops/aggregate.py:331",  # _build_jax scan (B9)
+    # _build_jax scan, walked over the table by scan_range's loop (:752)
+    "hash_scan_walk": "arroyo_tpu/ops/aggregate.py:331",
     "hash_free": "arroyo_tpu/ops/aggregate.py:344",  # _build_jax free (B9)
 }
 SEGMENT_SOURCE = "arroyo_tpu_torch/ops/segment_kernel.py"
@@ -2992,10 +3016,13 @@ def time_fresh(fn, make_inputs, reps: int) -> dict:
     return out
 
 
-def time_sharded(rng, dev, label, S, cap, L, dc, lanes, n_keys, valid_frac, reps) -> dict:
+def time_sharded(rng, dev, label, S, cap, L, dc, lanes, n_keys, valid_frac, reps,
+                 k9_rounds: bool = False) -> dict:
     """Every sharded kernel at one step's shapes: the kernel, its plain
     version, the byte bound; K9, K10's spill and K11 on fresh copies of the
-    state they change."""
+    state they change. K11 is held to its plain version in every mode at
+    this table first; with ``k9_rounds`` K9's reported rounds are held to
+    its plain version at the merged step."""
     kinds = [k for k, _ in lanes]
     table = empty_table(S, cap, lanes, dev)
     spill = empty_spill(S, 2048, lanes, dev)
@@ -3019,6 +3046,9 @@ def time_sharded(rng, dev, label, S, cap, L, dc, lanes, n_keys, valid_frac, reps
     merged = clone_nested(table)
     still = sharded_kernels.agg_probe_merge(kinds, merged, *c, 64)
     claims = int(merged[2].sum()) - occupied
+    rounds = (k9_rounds_check(f"{label}'s merged step", kinds, table, c, 64, dev) if k9_rounds
+              else None)
+    modes = check_k11_modes(label, table, 0, 1, 1, 8192)
     # the timed extract emits [0, 1) and frees below 1: every freed entry
     # is an emitted one, at most E per shard
     emitted = int((table[2] & (table[1] < 1)).sum(dim=1).clamp(max=E).sum())
@@ -3062,7 +3092,7 @@ def time_sharded(rng, dev, label, S, cap, L, dc, lanes, n_keys, valid_frac, reps
         time_fresh(lambda tb: sharded_kernels.agg_probe_merge(kinds, tb, *c, 64), mk_table, reps),
         time_fresh(lambda tb: sharded_kernels.agg_probe_merge_plain(kinds, tb, *c, 64), mk_table,
                    max(2, reps // 10)),
-        partials=[S, M], active=segments, claims=claims, table=[S, cap])
+        partials=[S, M], active=segments, claims=claims, table=[S, cap], rounds=rounds)
     mk_spill = lambda: (clone_nested(spill), )
     row("shard_spill",
         time_fresh(lambda sp: sharded_kernels.shard_spill(kinds, c[0], c[1], c[3], still, sp),
@@ -3074,7 +3104,20 @@ def time_sharded(rng, dev, label, S, cap, L, dc, lanes, n_keys, valid_frac, reps
         time_fresh(lambda tb: sharded_kernels.shard_extract(tb, 0, 1, 1, 8192), mk_table, reps),
         time_fresh(lambda tb: sharded_kernels.shard_extract_plain(tb, 0, 1, 1, 8192), mk_table,
                    reps),
-        table=[S, cap], emit_cap=E, emitted=emitted)
+        table=[S, cap], emit_cap=E, emitted=emitted, modes=modes,
+        kernel_launches_per_call=modes["default"]["kernel_launches_per_call"])
+    if k9_rounds:
+        # where K11's time goes, freeing nothing: the rows past the emitting
+        # ones as zeros, as none (emit_cap below the emitting slots), and an
+        # empty range (every row a non-emitting slot's)
+        i32min = hash_kernels.I32_MIN
+        t["shard_extract"]["variants_ms"] = {
+            what: measure(lambda: sharded_kernels.shard_extract(table, lo, hi, i32min, e, zt),
+                          reps)["device_ms"]
+            for what, lo, hi, e, zt in (("default", 0, 1, 8192, False),
+                                        ("zero_tail", 0, 1, 8192, True),
+                                        ("emit_cap 256", 0, 1, 256, False),
+                                        ("empty range", 5, 5, 8192, False))}
     t["counts"] = counts
     return t
 
@@ -3089,7 +3132,8 @@ def sharded_phase(dev) -> dict:
     k8_cases = [check_sort_reduce_case(c, dev) for c in sort_reduce_edge_cases(rng)]
     timing = {
         "q7m": time_sharded(rng, dev, "q7m fused", MESH_N, 65536, 8192,
-                            BENCH_BATCH // (MESH_N // 2), Q7M_LANES, 60000, 0.94, TIMING_REPS),
+                            BENCH_BATCH // (MESH_N // 2), Q7M_LANES, 60000, 0.94, TIMING_REPS,
+                            k9_rounds=True),
         "deployment": time_sharded(rng, dev, "deployment", MESH_N, 1 << 20, 65536, 16384,
                                    DEPLOY_LANES, 1 << 22, 1.0, 3),
     }
@@ -3105,18 +3149,203 @@ HASH_SOURCE = "arroyo_tpu_torch/csrc/hash_agg.cu"
 # the kernels of the single-device table's path: K8, K9 and K11 at one shard
 # (q7's tumbling closes), K12 and K13 (q5's hop windows)
 HASH_Q7_KERNELS = ("agg_sort_reduce", "agg_probe_merge", "shard_extract")
-HASH_HOP_KERNELS = ("hash_scan_chunk", "hash_free")
+HASH_HOP_KERNELS = ("shard_extract", "hash_scan_walk", "hash_free")
 HASH_PATH_KERNELS = HASH_Q7_KERNELS + HASH_HOP_KERNELS
 # q7 through the table at bench.py's table, batch and emit sizes
 Q7_HASH = dict(cap=65536, batch_cap=BENCH_BATCH, max_probes=64, emit_cap=8192)
 # q5's hop windows through the table: a 5-bin scan holds ~1600 entries, more
-# than emit_cap, so each window's read walks the table in K12 chunks; a
-# 65536-event batch opens ~33 bins before the first of them closes
+# than emit_cap, so most windows' reads fall back from the packed scan (K11)
+# to K12's walk of the table (before the walk: 32 chunks of emit_cap slots);
+# a 65536-event batch opens ~33 bins before the first of them closes
 HOP_HASH = dict(cap=32768, batch_cap=BENCH_BATCH, max_probes=64, emit_cap=1024)
-HOP_EVENTS = Q7_EVENTS // 4  # 250 windows, each read in 32 K12 chunks
+HOP_EVENTS = Q7_EVENTS // 4  # 250 windows
 # a deployment state: 4,194,304 entries x (8 + 4 + 1 + 5 x 8) B = 222 MB
 HASH_DEPLOY = dict(cap=1 << 22, batch_cap=1 << 20, max_probes=64, emit_cap=8192)
 HASH_DEPLOY_LANES = DEPLOY_LANES  # 4 int64 lanes and a float64 sum
+
+
+# the table reads' cases (K11 in each mode, K12 in both), shared with
+# tests/test_torch_table_reads.py: every lane dtype, floats holding quiet
+# NaNs with payloads and both zeros
+TABLE_READ_LANES = [("sum", np.int32), ("sum", np.int64), ("max", np.uint64),
+                    ("min", np.float32), ("sum", np.float64)]
+TABLE_READ_CAP = 512
+
+
+def table_lane(rng, dt, shape) -> np.ndarray:
+    dt = np.dtype(dt)
+    if dt.kind in "iu":
+        info = np.iinfo(dt)
+        return rng.integers(info.min, info.max, shape, dtype=dt, endpoint=True)
+    v = np.round(rng.normal(0, 100, shape), 3).astype(dt)
+    bits = v.view(np.uint32 if dt.itemsize == 4 else np.uint64)
+    quiet = (0x7FC00000, 0x3FFFFF) if dt.itemsize == 4 else (0x7FF8000000000000, (1 << 51) - 1)
+    pick = rng.random(shape)
+    payload = rng.integers(0, quiet[1], shape, dtype=np.int64, endpoint=True)
+    nan = (np.uint64(quiet[0]) | payload.astype(np.uint64)).astype(bits.dtype)
+    bits[pick < 0.05] = nan[pick < 0.05]
+    bits[(pick >= 0.05) & (pick < 0.1)] |= bits.dtype.type(1 << (8 * dt.itemsize - 1))  # sign
+    v[(pick >= 0.1) & (pick < 0.15)] = -0.0
+    v[(pick >= 0.15) & (pick < 0.2)] = 0.0
+    return v
+
+
+def table_arrays(rng, S, cap, occupied=0.6, n_bins=4, emitting=None,
+                 lanes=TABLE_READ_LANES) -> list:
+    """An [S, cap] table as numpy arrays [keys int64, bins int32, occ bool,
+    [lanes]]: a share ``occupied`` of the slots occupied, bins in [0,
+    n_bins), every slot holding a key, bin and lanes (the stale ones of a
+    freed slot). ``emitting = (lo, hi, m)``: exactly m occupied slots of
+    each shard have a bin in [lo, hi)."""
+    keys = table_lane(rng, np.int64, (S, cap))
+    bins = rng.integers(0, n_bins, (S, cap)).astype(np.int32)
+    occ = rng.random((S, cap)) < occupied
+    if emitting is not None:
+        lo, hi, m = emitting
+        bins[occ & (bins >= lo) & (bins < hi)] = hi
+        for s in range(S):
+            pick = rng.choice(cap, m, replace=False)
+            occ[s, pick] = True
+            bins[s, pick] = rng.integers(lo, hi, m)
+    return [keys, bins, occ, [table_lane(rng, dt, (S, cap)) for _k, dt in lanes]]
+
+
+def table_read_cases(rng, S: int) -> list:
+    """K11's cases at S shards of TABLE_READ_CAP slots (and a 4-tile and a
+    sub-run table): one read (emit_lo, emit_hi, free_below, emit_cap) of a
+    fresh table each."""
+    cap = TABLE_READ_CAP
+    t = lambda **kw: table_arrays(rng, S, cap, **kw)  # noqa: E731
+    return [
+        dict(label="E below total (drain rounds)", table=t(occupied=0.7), read=(0, 3, 2, 64)),
+        dict(label="E equal to total", table=t(emitting=(1, 3, 64)), read=(1, 3, 2, 64)),
+        dict(label="E above total", table=t(occupied=0.3), read=(1, 2, 1, cap)),
+        dict(label="free_below inside the range", table=t(), read=(0, 4, 2, cap)),
+        dict(label="free_below above the range", table=t(), read=(1, 2, 3, cap)),
+        dict(label="free_below below the range", table=t(), read=(2, 4, 1, cap)),
+        dict(label="empty range (frees only)", table=t(), read=(3, 3, 3, 64)),
+        dict(label="every slot emitting", table=t(occupied=1.0), read=(0, 4, 0, cap)),
+        dict(label="every slot emitting, E below", table=t(occupied=1.0), read=(0, 4, 4, 100)),
+        dict(label="emit_cap above cap", table=t(occupied=0.4), read=(0, 2, 1, 2 * cap)),
+        dict(label="fill rows across tiles", read=(0, 1, 1, 9000),
+             table=table_arrays(rng, S, 16384, occupied=0.5)),
+        dict(label="8 slots a shard", table=table_arrays(rng, S, 8), read=(0, 2, 1, 8)),
+    ]
+
+
+def walk_cases(rng) -> list:
+    """K12's walk cases (one shard): the reference's chunk loop at an
+    emit_cap dividing cap and one not dividing it, an empty range, every
+    slot in range, and more than one tile."""
+    part = table_arrays(rng, 1, 4096)
+    full = table_arrays(rng, 1, 4096, occupied=1.0)
+    big = table_arrays(rng, 1, 16384, occupied=0.5)
+    return [dict(label=f"{what}, emit_cap {e}", table=tb, lo=lo, hi=hi, emit_cap=e)
+            for what, tb, lo, hi in (("part of the range", part, 1, 3),
+                                     ("empty range", part, 2, 2),
+                                     ("every slot in range", full, 0, 4),
+                                     ("4 tiles", big, 0, 2))
+            for e in (1024, 1000)]
+
+
+def torch_table(arrays, dev, one_shard: bool = False):
+    """A table_arrays table as torch tensors on ``dev`` ([cap] each with
+    one_shard, else [S, cap]), copies: the reads free in place."""
+    keys, bins, occ, lanes = arrays
+    t = lambda a: torch.from_numpy(np.array(a[0] if one_shard else a)).to(dev)  # noqa: E731
+    return (t(keys), t(bins), t(occ), [t(a) for a in lanes])
+
+
+def check_k11_modes(label: str, table, lo: int, hi: int, below: int, emit_cap: int) -> dict:
+    """K11 in each mode on a clone of ``table`` ([S, cap]) against its plain
+    version on another clone, every output and the occupancy exact: the
+    default mode freeing below ``below``, zero_tail freeing below it (B9's
+    extract, with an overflow counter) and zero_tail freeing nothing (B9's
+    scan_packed). Each call's kernel launches come from the library."""
+    S = table[0].shape[0]
+    out = {"label": label, "shards": S, "cap": table[0].shape[1], "emit_cap": emit_cap,
+           "read": [lo, hi, below]}
+    for mode, zt, fb in (("default", False, below), ("zero_tail", True, below),
+                         ("zero_tail scan", True, hash_kernels.I32_MIN)):
+        oflow = (torch.arange(S, dtype=torch.int32, device=table[0].device) + 5) if zt else None
+        tk, tp = clone_nested(table), clone_nested(table)
+        before = sharded_kernels.extract_kernel_launches()
+        got = sharded_kernels.shard_extract(tk, lo, hi, fb, emit_cap, zt, oflow)
+        torch.cuda.synchronize()
+        n = sharded_kernels.extract_kernel_launches() - before
+        want = sharded_kernels.shard_extract_plain(tp, lo, hi, fb, emit_cap, zt, oflow)
+        require_same(f"shard_extract ({mode}) at {label}", [*extracted(got), tk[2]],
+                     [*extracted(want), tp[2]])
+        if n != 1:
+            raise AssertionError(f"shard_extract ({mode}) at {label}: {n} kernel launches")
+        out[mode] = {"emitting": int(got.total.sum()), "kernel_launches_per_call": n,
+                     "freed": int(table[2].sum()) - int(tk[2].sum())}
+    return out
+
+
+def check_k12(label: str, table, lo: int, hi: int, emit_cap: int) -> dict:
+    """K12 on a one-shard table ([cap] tensors): the walk against its plain
+    version (count and rows), every chunk of the one-chunk mode against its
+    plain version, and the walk against the chunks' valid rows concatenated
+    (the reference's loop over ``scan``, here on the card), exactly."""
+    cap = table[0].shape[0]
+    n = int((table[2] & (table[1] >= lo) & (table[1] < hi)).sum())
+    got = hash_kernels.hash_scan_walk(table, lo, hi, n)
+    want = hash_kernels.hash_scan_walk_plain(table, lo, hi, n)
+    require_same(f"hash_scan_walk at {label}", [got.count, got.key, got.bin, got.accs],
+                 [want.count, want.key, want.bin, want.accs])
+    parts = []
+    for chunk in range(0, cap, emit_cap):
+        c = hash_kernels.hash_scan_chunk(table, lo, hi, chunk, emit_cap)
+        require_same(f"hash_scan_chunk at {label}", extracted(c),
+                     extracted(hash_kernels.hash_scan_chunk_plain(table, lo, hi, chunk,
+                                                                  emit_cap)))
+        v = c.valid[0]
+        parts.append([c.key[0][v], c.bin[0][v]] + [sharded_kernels.bits(a[0])[v] for a in c.accs])
+    loop = [torch.cat(p) for p in zip(*parts)]
+    require_same(f"hash_scan_walk against the chunk loop at {label}",
+                 [got.key, got.bin, [sharded_kernels.bits(a) for a in got.accs]],
+                 [loop[0], loop[1], loop[2:]])
+    torch.cuda.synchronize()
+    return {"label": label, "cap": cap, "emit_cap": emit_cap, "rows": n, "chunks": len(parts)}
+
+
+def table_read_phase(dev) -> dict:
+    """K11 in every mode and K12 in both on the shared edge cases (every
+    lane dtype, NaN payloads, -0.0), at 1 and 8 shards for K11."""
+    rng = np.random.default_rng(20261019)
+    out = []
+    for S in (1, 8):
+        for c in table_read_cases(rng, S):
+            out.append(check_k11_modes(f"{c['label']}, {S} shards", torch_table(c["table"], dev),
+                                       *c["read"]))
+    for c in walk_cases(rng):
+        out.append(check_k12(c["label"], torch_table(c["table"], dev, one_shard=True), c["lo"],
+                             c["hi"], c["emit_cap"]))
+    info = {"phase": "table_reads", "cases_checked": len(out), "cases": out}
+    emit(info)
+    return info
+
+
+def k9_rounds_check(what: str, kinds, table, u, max_probes: int, dev) -> dict:
+    """K9 on a clone of ``table``, then the rounds it reports per shard
+    (``sharded_kernels.probe_merge_rounds``) held to its plain version: the
+    partials still active after r rounds (max_probes = r) equal the
+    reported count at the start of round r, for every r the kernel ran and
+    one more."""
+    S = table[0].shape[0]
+    sharded_kernels.agg_probe_merge(kinds, clone_nested(table), *u, max_probes)
+    rep = sharded_kernels.probe_merge_rounds(S, dev)
+    for r in range(max(rep["rounds"]) + 1):
+        still = sharded_kernels.agg_probe_merge_plain(kinds, clone_nested(table), *u, r)
+        want = still.sum(dim=1).tolist()
+        got = [a[min(r, len(a) - 1)] for a in rep["active"]]
+        if got != want:
+            raise AssertionError(f"K9's rounds at {what}: round {r} reports {got} active, "
+                                 f"the plain version leaves {want}")
+    rounds = rep["rounds"]
+    return {"rounds": rounds, "active": rep["active"], "max_rounds": max(rounds),
+            "mean_rounds": statistics.fmean(rounds)}
 
 
 def hash_launch_counts() -> dict:
@@ -3181,11 +3410,12 @@ def q7_windows(base: int, closes: list, auction_of: dict) -> dict:
     return got
 
 
-def drive_hop(agg, batches) -> list:
+def drive_hop(agg, batches, finish: bool = True) -> list:
     """The table as a hop window's store (q5: 10 s windows every 2 s over
     2 s bins): each closing window is one scan_range of its 5 bins,
     combined by key, then the bins behind the next window are freed.
-    Returns [(window start bin, keys, counts)]."""
+    Returns [(window start bin, keys, counts)]; with ``finish`` False the
+    windows still open at the end stay in the table."""
     from arroyo_tpu_torch.ops.aggregate import combine_by_key
 
     nb = WIDTH // SLIDE
@@ -3208,8 +3438,84 @@ def drive_hop(agg, batches) -> list:
         if nxt is None:
             nxt = int(rel.min()) - nb + 1
         close_through((wm - WIDTH) // SLIDE - base)
-    close_through(top)
+    if finish:
+        close_through(top)
     torch.cuda.synchronize()
+    return out
+
+
+class ChunkLoopAggregator(DeviceHashAggregator):
+    """A DeviceHashAggregator whose scan_range reads as it did before K12's
+    walk: past emit_cap rows, one K12 chunk and one host fetch per emit_cap
+    slots of the table (the reference's loop, aggregate.py:752-762). The
+    hop drive's "before" beside the walk, on the same card."""
+
+    def scan_range(self, emit_lo, emit_hi):
+        from arroyo_tpu_torch.ops import prefetch
+
+        packed = hash_kernels.scan_packed(self._ops, self.state, emit_lo, emit_hi, self.emit_cap)
+        k, b, accs, total = self._unpack(prefetch.HostFetch(packed.packed).result())
+        if total <= self.emit_cap:
+            return combine_by_key_bin(self.acc_kinds, k, b, accs)
+        parts = []
+        for chunk in range(0, self.cap, self.emit_cap):
+            out = self._ops.scan_chunk(self.state[:4], emit_lo, emit_hi, chunk, self.emit_cap)
+            k, b, v, accs, _t = sharded_kernels.unpack_extracted(
+                prefetch.HostFetch(out.packed).result(), 1, self.emit_cap, self.acc_dtypes)
+            v = v[0]
+            if v.any():
+                parts.append([k[0][v], b[0][v]] + [a[0][v] for a in accs])
+        cat = [np.concatenate(p) for p in zip(*parts)]
+        return combine_by_key_bin(self.acc_kinds, cat[0].view(np.uint64), cat[1], cat[2:])
+
+
+@contextlib.contextmanager
+def counted_fetches():
+    """While open, every HostFetch result the port reads is counted in the
+    list it yields ([n])."""
+    from arroyo_tpu_torch.ops import prefetch
+
+    real, n = prefetch.HostFetch, [0]
+
+    class Counted(real):
+        def result(self):
+            n[0] += 1
+            return super().result()
+
+    prefetch.HostFetch = Counted
+    try:
+        yield n
+    finally:
+        prefetch.HostFetch = real
+
+
+def hop_drive_ab(dev, batches, auction_of, want) -> dict:
+    """The hop drive unchecked, wall to wall, with scan_range through K12's
+    walk and through the chunk loop it replaced (ChunkLoopAggregator), in
+    the order loop, walk, walk, loop: per drive its wall, events/s, K11,
+    K12 (walk, chunk) and K13 launches and the host fetches it read."""
+    out = {"walk": [], "chunk loop": []}
+    for name in ("chunk loop", "walk", "walk", "chunk loop"):
+        cls = DeviceHashAggregator if name == "walk" else ChunkLoopAggregator
+        agg = cls(("count",), (np.int64,), backend="jax", device=dev, **HOP_HASH)
+        reset_hash_launch_counts()
+        torch.cuda.synchronize()
+        with counted_fetches() as fetches:
+            t0 = time.perf_counter()
+            res = drive_hop(agg, batches)
+            wall = time.perf_counter() - t0
+        n = check_hop(res, auction_of, want)
+        got = hash_launch_counts()
+        scans = len(res)
+        fallbacks = got["hash_scan_walk"] + got["hash_scan_chunk"] // -(-HOP_HASH["cap"]
+                                                                         // HOP_HASH["emit_cap"])
+        out[name].append({
+            "wall_s": wall, "events_per_s": HOP_EVENTS / wall, "rows": n, "scans": scans,
+            "falling_back_scans": fallbacks, "host_fetches": fetches[0],
+            "host_fetches_per_falling_back_scan": (fetches[0] - scans) / max(fallbacks, 1) + 1,
+            "launches": {k: got[k] for k in ("shard_extract", "hash_scan_walk",
+                                             "hash_scan_chunk", "hash_free", "agg_sort_reduce",
+                                             "agg_probe_merge")}})
     return out
 
 
@@ -3234,11 +3540,12 @@ def extracted(out) -> list:
         [] if out.oflow is None else [out.oflow])
 
 
-def checked_ops(checks: dict) -> hash_kernels.Ops:
+def checked_ops(checks: dict, rounds: list = None) -> hash_kernels.Ops:
     """B9's functions with every kernel held against its plain version on
     the same inputs, exactly (stateful ones on clones of the table and
     the overflow counter); the kernels' outputs carry on. ``checks``
-    counts the comparisons per kernel."""
+    counts the comparisons per kernel; ``rounds``, when given, takes what
+    each K9 call reports of its rounds (``probe_merge_rounds``)."""
     P = hash_kernels.PLAIN
 
     def note(name):
@@ -3255,6 +3562,8 @@ def checked_ops(checks: dict) -> hash_kernels.Ops:
         tp, op = clone_nested(table), None if oflow is None else oflow.clone()
         still = sharded_kernels.agg_probe_merge(kinds, table, u_key, u_bin, active, u_accs,
                                                 max_probes, oflow)
+        if rounds is not None:
+            rounds.append(sharded_kernels.probe_merge_rounds(1, u_key.device))
         still_p = P.probe_merge(kinds, tp, u_key, u_bin, active, u_accs, max_probes, op)
         require_same("agg_probe_merge", [still, *table[:3], table[3]] + ([oflow] if op is not None else []),
                      [still_p, *tp[:3], tp[3]] + ([op] if op is not None else []))
@@ -3277,6 +3586,14 @@ def checked_ops(checks: dict) -> hash_kernels.Ops:
         note("hash_scan_chunk")
         return got
 
+    def scan_walk(table, lo, hi, total):
+        got = hash_kernels.hash_scan_walk(table, lo, hi, total)
+        want = P.scan_walk(table, lo, hi, total)
+        require_same("hash_scan_walk", [got.count, got.key, got.bin, got.accs],
+                     [want.count, want.key, want.bin, want.accs])
+        note("hash_scan_walk")
+        return got
+
     def free(table, below):
         occ_p = table[2].clone()
         hash_kernels.hash_free(table, below)
@@ -3284,14 +3601,12 @@ def checked_ops(checks: dict) -> hash_kernels.Ops:
         require_same("hash_free", [table[2]], [occ_p])
         note("hash_free")
 
-    return hash_kernels.Ops(sort_reduce, probe_merge, extract, scan_chunk, free)
+    return hash_kernels.Ops(sort_reduce, probe_merge, extract, scan_chunk, scan_walk, free)
 
 
 def make_hash_agg(kinds, dtypes, sizes, dev, ops=None, backend="jax"):
     """A DeviceHashAggregator on ``dev`` (backend "numpy": the host store),
     running ``ops`` (hash_kernels.KERNELS unless given)."""
-    from arroyo_tpu_torch.ops.aggregate import DeviceHashAggregator
-
     agg = DeviceHashAggregator(kinds, dtypes, backend=backend,
                                **({"device": dev} if backend == "jax" else {}), **sizes)
     if ops is not None:
@@ -3469,13 +3784,17 @@ def hash_deployment(dev, checks: dict) -> dict:
         vals[1] = np.ones(B, np.int64)
         agg.update(keys, bins, vals)
     occupied = int(agg.state[2].sum())
+    k12 = check_k12("the deployment table", agg.state[:4], 2, 4, HASH_DEPLOY["emit_cap"])
+    walk = walk_timing(agg.state[:4], 2, 4, HASH_DEPLOY["emit_cap"], HASH_DEPLOY_LANES,
+                       "the deployment table, bins [2, 4)")
     k, _b, _a = agg.extract(0, 2, 2)
     scanned = len(agg.scan_range(2, 4)[0])
     agg.free_bins_below(4)
     torch.cuda.synchronize()
     return {"cap": HASH_DEPLOY["cap"], "rows_per_batch": B, "batches": 8,
             "occupied": occupied, "closed_rows": len(k), "scanned_rows": scanned,
-            "occupied_after": int(agg.state[2].sum()), "overflow": int(agg.state[4][0])}
+            "occupied_after": int(agg.state[2].sum()), "overflow": int(agg.state[4][0]),
+            "k12_checked": k12, "walk_timing": walk}
 
 
 def hash_bytes(lanes, L, n: dict, cap: int, E: int) -> dict:
@@ -3496,23 +3815,43 @@ def hash_bytes(lanes, L, n: dict, cap: int, E: int) -> dict:
         "scan_packed": cap + n["occupied"] * 4 + n["scanned"] * (8 + lane_b) + E * (pay + 1) + 8,
         # E slots read (key, bin, flag, lanes) and E rows written
         "hash_scan_chunk": 2 * E * (pay + 1),
+        # every slot's occupancy, the occupied slots' bins, the valid ones'
+        # key and lanes; their rows and the count written
+        "hash_scan_walk": cap + n["occupied"] * 4 + n["walked"] * (8 + lane_b + pay) + 8,
         # every slot's bin and occupancy read, the freed ones written
         "hash_free": cap * 5 + n["freed"],
     }
 
 
+def q7_table_at_drive_state(dev, n_batches: int):
+    """A Q7_HASH table built as drive_tumbling builds it from the first
+    ``n_batches`` of q7's batches (each update, then the close of every
+    window the watermark passed): (table, the batches, base bin)."""
+    batches = bid_batches((n_batches + 1) * BENCH_BATCH, WIDTH)
+    agg = make_hash_agg(("max", "count"), (np.int64, np.int64), Q7_HASH, dev)
+    base = int(batches[0][3].min())
+    closed_below = 0
+    for keys, _auc, price, bins_abs, wm in batches[:n_batches]:
+        agg.update(keys, (bins_abs - base).astype(np.int32), [price, np.ones(len(keys), np.int64)])
+        below = wm // WIDTH - base
+        if below > closed_below:
+            agg.extract(closed_below, below, below)
+            closed_below = below
+    torch.cuda.synchronize()
+    return agg, batches, base
+
+
 def time_hash(dev) -> dict:
-    """The table's kernels at q7's shape (65536 slots, a 65536-event batch
-    of q7's bids into a table holding the stream's first batches): each
+    """The table's kernels at q7's shape, at a state the q7 drive reaches
+    (65536 slots, the stream's first five batches updated and their passed
+    windows closed, as drive_tumbling does), timing the sixth batch's step
+    and reads; K12's walk at the hop drive's state (the path's shape): each
     against its plain version and a library yardstick where one PyTorch
-    call computes the same function, beside the byte bound."""
+    call computes the same function, beside the byte bound. K9's rounds at
+    this state are held to its plain version."""
     lanes = [("max", torch.int64), ("count", torch.int64)]
     kinds = [k for k, _ in lanes]
-    batches = bid_batches(6 * BENCH_BATCH, WIDTH)
-    agg = make_hash_agg(kinds, [np.int64, np.int64], Q7_HASH, dev)
-    base = int(batches[0][3].min())
-    for keys, auc, price, bins_abs, _wm in batches[:5]:
-        agg.update(keys, (bins_abs - base).astype(np.int32), [price, np.ones(len(keys), np.int64)])
+    agg, batches, base = q7_table_at_drive_state(dev, 5)
     keys, _auc, price, bins_abs, _wm = batches[5]
     m = len(keys)
     L = Q7_HASH["batch_cap"]
@@ -3526,27 +3865,32 @@ def time_hash(dev) -> dict:
     occupied = int(table[2].sum())
     merged = clone_nested(table)
     still = sharded_kernels.agg_probe_merge(kinds, merged, *u, 64, oflow.clone())
+    rounds = k9_rounds_check("B9's q7 step at the drive's state", kinds, table, u, 64, dev)
     segments = int(u[2].sum())
     claims = int(merged[2].sum()) - occupied
     lo = int((bins_abs - base).min())
     E = Q7_HASH["emit_cap"]
     emit = table[2] & (table[1] >= lo) & (table[1] < lo + 1)
     counts = {"rows": m, "segments": segments, "claims": claims,
-              "matches": segments - claims - int(still.sum()), "occupied": occupied,
-              "emitted": min(int(emit.sum()), E), "scanned": min(int(emit.sum()), E),
+              "matches": segments - claims - int(still.sum()), "unplaced": int(still.sum()),
+              "occupied": occupied, "emitted": min(int(emit.sum()), E),
+              "scanned": min(int(emit.sum()), E), "walked": int(emit.sum()),
               "freed": int((table[2] & (table[1] < lo + 1)).sum())}
     nbytes = hash_bytes(lanes, L, counts, Q7_HASH["cap"], E)
+    log(f"hash_agg: time at the drive's state: {counts}, K9 rounds {rounds['rounds']}")
+    modes = check_k11_modes("B9's q7 step", table, lo, lo + 1, lo + 1, E)
     t = {}
 
-    def row(name, k, p, lib=None, library="none: no single PyTorch call computes it", **extra):
+    def row(name, k, p, lib=None, library="none: no single PyTorch call computes it",
+            bytes_of=None, **extra):
         t[name] = {"ms": k["device_ms"], "plain_ms": p["device_ms"],
                    "library_ms": None if lib is None else lib["device_ms"], "library": library,
                    "method": k["method"], "call_ms": k["call_ms"], "plain_call_ms": p["call_ms"],
                    "kernel_names": k["device_kernels"],
                    "trace_whole": (k["trace_whole"] and p["trace_whole"]
                                    and (lib is None or lib["trace_whole"])),
-                   "bound_ms": nbytes[name] / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-                   "bytes": nbytes[name], **extra}
+                   "bound_ms": (bytes_of or nbytes[name]) / HBM_BYTES_PER_S * 1e3,
+                   "bound_by": "bytes", "bytes": bytes_of or nbytes[name], **extra}
 
     P = hash_kernels.PLAIN
     log("hash_agg: time")
@@ -3562,7 +3906,8 @@ def time_hash(dev) -> dict:
         time_fresh(lambda tb, of: sharded_kernels.agg_probe_merge(kinds, tb, *u, 64, of), fresh,
                    TIMING_REPS),
         time_fresh(lambda tb, of: P.probe_merge(kinds, tb, *u, 64, of), fresh, 5),
-        partials=[1, L], active=segments, claims=claims, table=[1, Q7_HASH["cap"]])
+        partials=[1, L], active=segments, claims=claims, table=[1, Q7_HASH["cap"]],
+        rounds=rounds)
 
     def nonzero_close(tb):
         sel = torch.nonzero(tb[2][0] & (tb[1][0] >= lo) & (tb[1][0] < lo + 1)).squeeze(1)[:E]
@@ -3575,7 +3920,7 @@ def time_hash(dev) -> dict:
                    TIMING_REPS),
         time_fresh(lambda tb, of: nonzero_close(tb), fresh, TIMING_REPS),
         library="torch.nonzero of the emit mask, then one index per array (no frees)",
-        emit_cap=E, emitted=counts["emitted"])
+        emit_cap=E, emitted=counts["emitted"], modes=modes)
     i32min = hash_kernels.I32_MIN
     row("scan_packed",
         measure(lambda: sharded_kernels.shard_extract(table, lo, lo + 1, i32min, E, True, oflow)),
@@ -3583,6 +3928,14 @@ def time_hash(dev) -> dict:
         measure(lambda: nonzero_close(table)),
         library="torch.nonzero of the emit mask, then one index per array", emit_cap=E)
     t1 = agg.state[:4]
+    n1 = counts["walked"]
+    t["k12_checked_q7"] = check_k12("q7's table at the drive's state", t1, lo - 2, lo + 2, 1024)
+    row("hash_scan_walk_q7",
+        measure(lambda: hash_kernels.hash_scan_walk(t1, lo, lo + 1, n1)),
+        measure(lambda: P.scan_walk(t1, lo, lo + 1, n1)),
+        measure(lambda: walk_library(t1, lo, lo + 1)),
+        library="torch.nonzero of the valid mask, then one index per array",
+        bytes_of=nbytes["hash_scan_walk"], rows=n1)
     row("hash_scan_chunk",
         measure(lambda: hash_kernels.hash_scan_chunk(t1, lo, lo + 1, 0, E)),
         measure(lambda: P.scan_chunk(t1, lo, lo + 1, 0, E)),
@@ -3595,21 +3948,80 @@ def time_hash(dev) -> dict:
         time_fresh(lambda *tb: P.free(tb, lo + 1), fresh1, TIMING_REPS),
         time_fresh(lambda *tb: tb[2].logical_and_(tb[1] >= lo + 1), fresh1, TIMING_REPS),
         library="occ &= bins >= below", cap=Q7_HASH["cap"], freed=counts["freed"])
+    t["hash_scan_walk"] = time_walk_at_hop_state(dev)
     t["counts"] = counts
     return t
+
+
+def walk_library(table, lo, hi):
+    """One PyTorch yardstick of the walk: the valid slots' indices, then
+    one index per array (no count in a packed buffer)."""
+    sel = torch.nonzero(table[2] & (table[1] >= lo) & (table[1] < hi)).squeeze(1)
+    return [table[0][sel], table[1][sel]] + [a[sel] for a in table[3]]
+
+
+def walk_timing(table, lo: int, hi: int, emit_cap: int, lanes, label: str) -> dict:
+    """K12's walk on a one-shard table against its plain version and
+    walk_library, beside the chunk loop it replaced (every chunk's launch
+    and the concatenation of their valid rows, on the device), and the
+    byte bound of this run's data."""
+    P = hash_kernels.PLAIN
+    cap = table[0].shape[0]
+    occupied = int(table[2].sum())
+    n = int((table[2] & (table[1] >= lo) & (table[1] < hi)).sum())
+    nbytes = hash_bytes(lanes, 1, {"rows": 0, "segments": 0, "claims": 0, "matches": 0,
+                                   "occupied": occupied, "emitted": 0, "scanned": 0,
+                                   "walked": n, "freed": 0}, cap, emit_cap)["hash_scan_walk"]
+
+    def chunk_loop():
+        return [hash_kernels.hash_scan_chunk(table, lo, hi, chunk, emit_cap)
+                for chunk in range(0, cap, emit_cap)]
+
+    k = measure(lambda: hash_kernels.hash_scan_walk(table, lo, hi, n))
+    p = measure(lambda: P.scan_walk(table, lo, hi, n))
+    lib = measure(lambda: walk_library(table, lo, hi))
+    loop = measure(chunk_loop, reps=5)
+    return {"ms": k["device_ms"], "plain_ms": p["device_ms"], "library_ms": lib["device_ms"],
+            "library": "torch.nonzero of the valid mask, then one index per array",
+            "method": k["method"], "call_ms": k["call_ms"], "plain_call_ms": p["call_ms"],
+            "kernel_names": k["device_kernels"],
+            "trace_whole": k["trace_whole"] and p["trace_whole"] and lib["trace_whole"],
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes", "bytes": nbytes,
+            "where": label, "cap": cap, "occupied": occupied, "rows": n,
+            "chunk_loop": {"emit_cap": emit_cap, "launches": -(-cap // emit_cap),
+                           "ms": loop["device_ms"], "call_ms": loop["call_ms"]}}
+
+
+def time_walk_at_hop_state(dev) -> dict:
+    """K12's walk at the hop drive's state (the path's shape): the first
+    four batches of the hop stream through the table, their passed windows
+    closed and freed; then the next window's 5-bin read."""
+    agg = make_hash_agg(("count",), (np.int64,), HOP_HASH, dev)
+    drive_hop(agg, bid_batches(4 * BENCH_BATCH, SLIDE), finish=False)
+    table = agg.state[:4]
+    lo = int(table[1][table[2]].min())
+    hi = lo + WIDTH // SLIDE
+    checked = check_k12("the hop drive's state", table, lo, hi, HOP_HASH["emit_cap"])
+    # the launch's fixed cost: the same walk over a range no slot is in
+    empty = measure(lambda: hash_kernels.hash_scan_walk(table, 1 << 30, 1 << 30, 0))
+    return dict(walk_timing(table, lo, hi, HOP_HASH["emit_cap"], [("count", torch.int64)],
+                            "the hop drive's state, its next window"), checked=checked,
+                empty_range_ms=empty["device_ms"])
 
 
 def hash_agg_phase(dev) -> dict:
     """B9's path on the card: q7's 2,000,000 events through the table
     (MAX(price), COUNT per auction and 10 s window, closes through
     extract_start) exactly against oracle_q7 and the host store; the same
-    stream's float64 SUM and MIN of price, and q5's hop windows (500,000
-    events) through scan_range and free_bins_below exactly against
-    oracle_q5, both with every kernel checked against its plain version.
-    Launch counts are zeroed just before the q7 drive (K8, K9, K11) and
-    the hop drive (K12, K13) and read just after each. Then the
-    deployment state (whose scans walk K12 chunks too) and the edge cases,
-    every kernel checked; then timed."""
+    stream's float64 SUM and MIN of price (K9 reporting its rounds each
+    step), and q5's hop windows (500,000 events) through scan_range and
+    free_bins_below exactly against oracle_q5, both with every kernel
+    checked against its plain version. Launch counts are zeroed just
+    before the q7 drive (K8, K9, K11) and the hop drive (K11, K12's walk,
+    K13) and read just after each. Then the hop drive unchecked, through
+    the walk and through the chunk loop it replaced; the deployment state
+    (K12's walk and every chunk checked there) and the edge cases, every
+    kernel checked; the table reads' shared edge cases; then timed."""
     int_batches = bid_batches(Q7_EVENTS, WIDTH)
     hop_batches = bid_batches(HOP_EVENTS, SLIDE)
     auction_of = {}
@@ -3639,9 +4051,11 @@ def hash_agg_phase(dev) -> dict:
     got = q7_windows(base, closes, auction_of)
     if got != want_q7:
         raise AssertionError(f"hash_agg: q7 parity failure: {len(got)} windows vs {len(want_q7)}")
+    k9_rounds: list = []
     t0 = time.perf_counter()
     fbase, fcloses = drive_tumbling(make_hash_agg(("sum", "min"), (np.float64, np.float64), Q7_HASH,
-                                             dev, checked_ops(checks)), int_batches, flts)
+                                             dev, checked_ops(checks, k9_rounds)), int_batches,
+                                    flts)
     wall_float = time.perf_counter() - t0
     hop_checks: dict = {}
     reset_hash_launch_counts()
@@ -3667,6 +4081,8 @@ def hash_agg_phase(dev) -> dict:
         fsum.update(zip(zip(k.tolist(), b.tolist()), sm.tolist()))
     if len(fsum) != len(got):
         raise AssertionError(f"hash_agg float run: {len(fsum)} windows vs {len(got)}")
+    log("hash_agg: the hop drive unchecked, walk against the chunk loop")
+    hop_ab = hop_drive_ab(dev, hop_batches, auction_of, want_q5)
     log("hash_agg: deployment state")
     deploy = hash_deployment(dev, checks)
     log("hash_agg: edge cases")
@@ -3682,8 +4098,15 @@ def hash_agg_phase(dev) -> dict:
             "checks": checks,
             "checks_q5_hop": hop_checks,
             "sizes": {"q7": Q7_HASH, "hop": HOP_HASH, "deployment": HASH_DEPLOY},
-            "deployment": deploy, "cases": cases, "max_abs_err": 0.0,
-            "timing": time_hash(dev)}
+            "deployment": deploy, "cases": cases,
+            "hop_drive_unchecked": hop_ab,
+            "k9_rounds_q7_drive": {
+                "steps": len(k9_rounds), "rounds": [r["rounds"][0] for r in k9_rounds],
+                "mean_rounds": statistics.fmean(r["rounds"][0] for r in k9_rounds),
+                "max_rounds": max(r["rounds"][0] for r in k9_rounds),
+                "unplaced": sum(r["active"][0][-1] for r in k9_rounds),
+                "active": [r["active"][0] for r in k9_rounds]},
+            "max_abs_err": 0.0, "timing": time_hash(dev)}
     emit(info)
     return info
 
@@ -3748,6 +4171,7 @@ def main(argv=None) -> int:
         "q7m": run_q7m,
         "q5m": run_q5m,
         "mesh_ab": run_mesh_ab,
+        "table_reads": lambda: table_read_phase(dev),
         "sharded": lambda: sharded_phase(dev),
         "hash_agg": lambda: hash_agg_phase(dev),
         "q7_host": run_q7_host,
@@ -3843,13 +4267,25 @@ def kernel_rows(res: dict) -> list:
                "max_abs_err": res["sharded"]["max_abs_err"], "ms": t["ms"],
                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
-        if name in HASH_PATH_KERNELS:
+        if name in HASH_Q7_KERNELS:
             # the single-device table's path (B9) runs it at one shard too
             h = ht["extract" if name == "shard_extract" else name]
             row["hash_agg"] = {"replaces": "arroyo_tpu/ops/aggregate.py:308",
                                "launches": ha["launches"]["q7"][name], "ms": h["ms"],
                                "plain_ms": h["plain_ms"], "bound_ms": h["bound_ms"],
                                "library_ms": h["library_ms"]}
+        if name == "shard_extract":
+            row["kernel_launches_per_call"] = t["kernel_launches_per_call"]
+            row["hash_agg"]["scan_packed"] = {k: ht["scan_packed"][k] for k in
+                                              ("ms", "plain_ms", "bound_ms", "library_ms")}
+            row["hash_agg"]["hop_launches"] = ha["launches"]["q5 hop"][name]
+            row["q5m_launches"] = res["q5m"]["fused"]["launches"][name]
+        if name == "agg_probe_merge":
+            row["rounds_q7m_merged_step"] = t["rounds"]
+            row["hash_agg"]["rounds_at_drive_state"] = ht[name]["rounds"]
+            row["hash_agg"]["rounds_q7_drive"] = {
+                k: ha["k9_rounds_q7_drive"][k] for k in ("steps", "mean_rounds", "max_rounds",
+                                                         "unplaced")}
         if name == "agg_sort_reduce":
             # the merged step's call, the local step's, the deployment
             # state's, and B9's: path, passes and kernel launches a call
@@ -3862,13 +4298,30 @@ def kernel_rows(res: dict) -> list:
             row["hash_agg"]["calls"] = ht[name]["calls"]
             row["hash_agg"]["q7_calls"] = ha["k8_calls_q7"]
         rows.append(row)
-    for name in ("hash_scan_chunk", "hash_free"):
+    for name in ("hash_scan_walk", "hash_free"):
         t = ht[name]
         rows.append({"name": name, "route": "cuda", "source": HASH_SOURCE,
                      "replaces": REPLACES[name], "launches": ha["launches"]["q5 hop"][name],
                      "max_abs_err": ha["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
                      "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                      "library_ms": t["library_ms"]})
+    # K12: the walk is its path's mode; the one-chunk mode (the reference's
+    # scan, one launch per chunk) no longer runs on the path
+    k12 = rows[-2]
+    c = ht["hash_scan_chunk"]
+    k12["chunk_loop_at_hop_state"] = ht["hash_scan_walk"]["chunk_loop"]
+    k12["one_chunk_mode"] = {"name": "hash_scan_chunk", "replaces": REPLACES["hash_scan_chunk"],
+                             "launches": ha["launches"]["q5 hop"]["hash_scan_chunk"],
+                             **{k: c[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")}}
+    dw = ha["deployment"]["walk_timing"]
+    k12["deployment"] = {k: dw[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms", "rows",
+                                            "chunk_loop")}
+    k12["hop_drive_unchecked"] = {
+        mode: [{k: r[k] for k in ("wall_s", "events_per_s", "falling_back_scans",
+                                  "host_fetches", "host_fetches_per_falling_back_scan")}
+               | {"k12_launches": r["launches"]["hash_scan_walk"]
+                  + r["launches"]["hash_scan_chunk"]} for r in runs]
+        for mode, runs in ha["hop_drive_unchecked"].items()}
     return rows
 
 

@@ -349,5 +349,6 @@ def test_table_takes_only_power_of_two_capacity_and_cuda_by_default():
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         DeviceHashAggregator(("count",), (np.int64,), cap=64)
     DeviceHashAggregator(("count",), (np.int64,), backend="numpy")  # no device needed
-    assert hash_kernels.launch_counts() == {"hash_scan_chunk": 0, "hash_free": 0}
+    assert hash_kernels.launch_counts() == {"hash_scan_chunk": 0, "hash_scan_walk": 0,
+                                            "hash_free": 0}
     assert sharded_kernels.launch_counts()["agg_probe_merge"] == 0

@@ -172,4 +172,4 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     meta = tuple(t.to("meta") if i < 3 else [t[0].to("meta")] for i, t in enumerate(table))
     with pytest.raises(ValueError, match="unsupported device"):
         hk.hash_free(meta, 0)
-    assert hk.launch_counts() == {"hash_scan_chunk": 0, "hash_free": 0}
+    assert hk.launch_counts() == {"hash_scan_chunk": 0, "hash_scan_walk": 0, "hash_free": 0}
