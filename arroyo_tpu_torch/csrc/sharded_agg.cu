@@ -84,22 +84,46 @@
 // classifies every active partial against the table as it was at the
 // round's start, contenders for an empty slot resolve by atomicMax of
 // their index (the highest wins, as the reference's scatter-max), and only
-// then do matches and winners write. One block per shard runs all rounds
-// with __syncthreads between the phases, so there is one launch per merge;
-// a round that starts with no active partial ends the loop (no later round
-// could write). Each call records, for its first PM_REPORT_SHARDS shards,
-// the rounds it ran and the active list's length at the start of each of
-// the first PM_REPORT_ROUNDS rounds and after the last
-// (arroyo_agg_probe_merge_rounds reads them back).
+// then do matches and winners write. What bounds it is latency: a round is
+// a chain of dependent loads and the rounds run one after another. So one
+// launch runs every round of a shard on a thread-block cluster of 8 or 16
+// CTAs (pm_cluster; the size from cudaOccupancyMaxActiveClusters at first
+// use), which the hardware schedules together: the cluster's barrier
+// (release / acquire) takes the place of the block's. Round 0 reads the
+// active flags 16 at a time, spread over the cluster's CTAs (no list pass,
+// no memset), and each CTA lists its active partials; a list entry holds
+// the partial's index and its slot in the coming round, so a round's
+// classification loads the key, the bin and the slot's words in one wave,
+// a thread holds its partials in registers from classifying to writing,
+// with the lane values they write loaded before the barrier, and once at
+// most 1,024 partials are left CTA 0 runs the remaining rounds alone with
+// its block's barrier. The partials left are listed by one shared atomic
+// per warp. The claims carry the call's and round's tag in their high
+// word, so classifying and claiming are one phase and nothing is reset:
+// two barriers a round. The table's words that other CTAs write are read
+// at L2. A round that starts with no active
+// partial ends the loop (no later round could write). Each call records,
+// for its first PM_REPORT_SHARDS shards, the rounds it ran and the active
+// list's length at the start of each of the first PM_REPORT_ROUNDS rounds
+// and after the last (arroyo_agg_probe_merge_rounds reads them back).
+//
+// K10's exchange must read each partial and write every send slot (the
+// reference's fill values included, 0, 0, invalid and each lane's identity)
+// and every local row once: bytes bound it, most of them the fill. It runs
+// over the whole card in two launches: ex_count counts each tile's rows per
+// owner; ex_scatter's tile blocks rank each tile's rows by owner stably
+// (csrc/radix_sort.cuh's rank, the owner one digit) and add the tiles
+// before it, and its fill blocks, one per (source, owner, 2048 send
+// slots), write the slots past the owner's rows with 16-byte stores. The
+// owner comes from __umul64hi and one compare (owner_of), no division.
 //
 // Bounds (H100, 3.35 TB/s): all five move a few bytes per element and do
-// no arithmetic to speak of. K10's per-shard scan and K9's rounds run one
-// block per shard, so they are latency-bound at small sizes; K8's
-// compaction counts per chunk in one launch and scatters in a second,
-// every block of every shard at once. K11 reads each slot's occupancy and
-// bin once, in one launch over tiles of every shard (see
-// csrc/table_compact.cuh): its bound is the occupancy, the occupied bins,
-// the emitted slots' key and lanes, the E rows written and the frees.
+// no arithmetic to speak of. K8's compaction counts per chunk in one launch
+// and scatters in a second, every block of every shard at once. K11 reads
+// each slot's occupancy and bin once, in one launch over tiles of every
+// shard (see csrc/table_compact.cuh): its bound is the occupancy, the
+// occupied bins, the emitted slots' key and lanes, the E rows written and
+// the frees.
 //
 // Lanes are int32, int64, uint64 (a numeric group-by key riding as a max
 // lane, as the JAX package's sharded store carries it), float32 or float64.
@@ -108,6 +132,7 @@
 // (the caller passes scratch) and returns cudaGetLastError() after every
 // launch.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -119,6 +144,7 @@
 #include "table_compact.cuh"
 
 using radix::RADIX;
+namespace cg = cooperative_groups;
 
 #define MAX_LANES 32
 #define MAX_SHARDS 32
@@ -872,18 +898,6 @@ __device__ __forceinline__ long long probe_home(long long key, int bin, long lon
   return (long long)(z & (unsigned long long)mask);
 }
 
-// still = active; the active partials' indices appended to each shard's list
-__global__ void pm_list(const unsigned char* __restrict__ active, long long B,
-                        unsigned char* __restrict__ still, int* __restrict__ list,
-                        int* __restrict__ n_list) {
-  const long long s = blockIdx.y;
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= B) return;
-  const unsigned char a = active[s * B + i];
-  still[s * B + i] = a;
-  if (a) list[s * 2 * B + atomicAdd(&n_list[s], 1)] = (int)i;
-}
-
 enum { PM_MISS = 0, PM_MATCH = 1, PM_EMPTY = 2 };
 
 #define PM_REPORT_SHARDS 32
@@ -893,192 +907,653 @@ enum { PM_MISS = 0, PM_MATCH = 1, PM_EMPTY = 2 };
 __device__ int g_pm_rounds[PM_REPORT_SHARDS];
 __device__ int g_pm_active[PM_REPORT_SHARDS][PM_REPORT_ROUNDS + 1];
 
-// one block per shard runs every round
-__global__ void pm_rounds(long long* __restrict__ keys, int* __restrict__ bins,
-                          unsigned char* __restrict__ occ, Lanes lanes, long long cap,
-                          const long long* __restrict__ u_key, const int* __restrict__ u_bin,
-                          long long B, int max_probes, unsigned char* __restrict__ still,
-                          int* __restrict__ list, const int* __restrict__ n_list0,
-                          int* __restrict__ claims, unsigned char* __restrict__ code,
-                          int* __restrict__ oflow) {
-  __shared__ int n_next;
-  const long long s = blockIdx.x;
-  const long long mask = cap - 1;
-  long long* K = keys + s * cap;
-  int* Bn = bins + s * cap;
-  unsigned char* O = occ + s * cap;
-  int* C = claims + s * cap;
-  const long long* uk = u_key + s * B;
-  const int* ub = u_bin + s * B;
-  int* cur = list + s * 2 * B;
-  int* nxt = cur + B;
-  unsigned char* cd = code + s * B;
-  int n = n_list0[s];
-  const bool report = s < PM_REPORT_SHARDS && threadIdx.x == 0;
-  int r = 0;
-  for (; r < max_probes && n > 0; ++r) {
+#define PM_THREADS 512
+#define PM_ITEMS 2      // listed partials a thread holds at once, their loads in flight together
+#define PM_GROUP 16     // active flags a thread reads at once in round 0 (one 16-byte load)
+#define PM_SCAN 4       // groups of flags a thread loads before it lists their partials
+#define PM_LANE_REGS 4  // lanes whose values a thread holds from classifying to writing
+#define PM_NO_SLOT 0xffffffffu  // a listed partial whose slot is not known yet (round 0)
+#define PM_SOLO (PM_THREADS * PM_ITEMS)  // partials left that one CTA takes over alone
+
+struct PmArgs {
+  long long* keys;  // the table [S * cap]
+  int* bins;
+  unsigned char* occ;
+  long long cap;
+  const long long* u_key;  // the partials [S * B]
+  const int* u_bin;
+  const unsigned char* active;
+  long long B;
+  long long Bp;  // B rounded up to PM_GROUP: a list buffer's length
+  int max_probes;
+  int vec;        // active and still 16-byte aligned at every PM_GROUP partials
+  unsigned tag0;  // round r's claims carry tag0 + r in their high word
+  unsigned char* still;
+  unsigned long long* list;     // [S][2][Bp]: (index << 32 | slot) of the partials left
+  unsigned long long* claims;   // [S * cap], never cleared (the tags order them)
+  unsigned char* code;          // [S * Bp]: a listed partial's class this round
+  int* oflow;                   // [S] or NULL
+};
+
+// One shard's arrays.
+struct PmShard {
+  long long* K;
+  int* Bn;
+  unsigned char* O;
+  unsigned long long* CL;
+  const long long* uk;
+  const int* ub;
+  long long mask, row0, slot0;
+};
+
+// Up to PM_ITEMS listed partials of one thread: index, slot this round,
+// key, bin and class, and the first PM_LANE_REGS lanes' values the write
+// needs (the partial's, and the slot's where it matched), loaded as soon as
+// the class is known: neither changes before the write, since only a match
+// writes a matched slot's lanes.
+struct PmItems {
+  int i[PM_ITEMS];
+  unsigned c[PM_ITEMS];
+  long long key[PM_ITEMS];
+  int bin[PM_ITEMS];
+  unsigned char code[PM_ITEMS];
+  bool ok[PM_ITEMS];
+  unsigned long long v[PM_LANE_REGS][PM_ITEMS], t[PM_LANE_REGS][PM_ITEMS];
+};
+
+__device__ __forceinline__ unsigned long long pm_entry(int i, unsigned c) {
+  return (unsigned long long)(unsigned)i << 32 | c;
+}
+
+// A word of the table or the claims as another CTA of the cluster may have
+// written it: read at L2, the point of coherence.
+__device__ __forceinline__ unsigned long long ld_bits_cg(int dt, const void* p, long long i) {
+  return wide(dt) ? __ldcg(static_cast<const unsigned long long*>(p) + i)
+                  : (unsigned long long)__ldcg(static_cast<const unsigned int*>(p) + i);
+}
+
+// The cluster's barrier: every write before it (global and shared memory)
+// is visible to every thread of the cluster after it.
+__device__ __forceinline__ void cluster_barrier() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n\tbarrier.cluster.wait.acquire.aligned;"
+               ::: "memory");
+}
+
+// The sum over the cluster's CTAs of one shared counter (every thread calls it).
+__device__ __forceinline__ int cluster_total(cg::cluster_group& cl, int* cnt, int C, int* sh) {
+  if (threadIdx.x < 32) {
+    int v = (int)threadIdx.x < C ? *cl.map_shared_rank(cnt, (unsigned)threadIdx.x) : 0;
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+    if (threadIdx.x == 0) *sh = v;
+  }
+  __syncthreads();
+  return *sh;
+}
+
+// Append e to the list segment nxt where f, one shared atomic per warp.
+// Every lane of the warp calls it.
+__device__ __forceinline__ void warp_append(bool f, unsigned long long e, unsigned long long* nxt,
+                                            int* n_nxt) {
+  const unsigned m = __ballot_sync(0xffffffffu, f);
+  if (!m) return;
+  const int lane = threadIdx.x & 31, leader = __ffs(m) - 1;
+  int base = 0;
+  if (lane == leader) base = atomicAdd(n_nxt, __popc(m));
+  base = __shfl_sync(0xffffffffu, base, leader);
+  if (f) nxt[base + __popc(m & ((1u << lane) - 1u))] = e;
+}
+
+// Listed partials [b0, b0 + PM_ITEMS threads) of a segment of m, thread
+// tid taking b0 + q T + tid.
+__device__ __forceinline__ void pm_load(PmItems& it, const unsigned long long* cur, int m, int b0) {
+#pragma unroll
+  for (int q = 0; q < PM_ITEMS; ++q) {
+    const int j = b0 + q * (int)blockDim.x + (int)threadIdx.x;
+    it.ok[q] = j < m;
+    const unsigned long long e = it.ok[q] ? cur[j] : 0ULL;
+    it.i[q] = (int)(e >> 32);
+    it.c[q] = (unsigned)e;
+  }
+}
+
+// The lane values a match or a claim writes with (see PmItems).
+__device__ __forceinline__ void pm_lane_values(const Lanes& lanes, const PmShard& sh,
+                                               PmItems& it) {
+#pragma unroll
+  for (int l = 0; l < PM_LANE_REGS; ++l) {
+    if (l >= lanes.n) break;
+    const int dt = lanes.dtype[l];
+#pragma unroll
+    for (int q = 0; q < PM_ITEMS; ++q) {
+      if (!it.ok[q] || it.code[q] == PM_MISS) continue;
+      it.v[l][q] = ld_bits(dt, lanes.in[l], sh.row0 + it.i[q]);
+      if (it.code[q] == PM_MATCH) it.t[l][q] = ld_bits_cg(dt, lanes.out[l], sh.slot0 + it.c[q]);
+    }
+  }
+}
+
+// Phase A of a round: each partial classified against the table as the
+// round found it (its key and bin and its slot's words in one wave once
+// the slot is known); one that found its slot empty claims it with
+// atomicMax(tag | index): the highest index wins, as the reference's
+// scatter-max, and the tag outranks every earlier round's and call's
+// claim, so the claims are never reset. Then the lane values the write
+// needs are loaded, in flight across the barrier.
+__device__ __forceinline__ void pm_classify(const Lanes& lanes, const PmShard& sh,
+                                            unsigned long long tag, PmItems& it) {
+  unsigned char o[PM_ITEMS];
+  long long kk[PM_ITEMS];
+  int bb[PM_ITEMS];
+#pragma unroll
+  for (int q = 0; q < PM_ITEMS; ++q) {
+    if (!it.ok[q]) continue;
+    it.key[q] = sh.uk[it.i[q]];
+    it.bin[q] = sh.ub[it.i[q]];
+    if (it.c[q] != PM_NO_SLOT) {
+      o[q] = __ldcg(sh.O + it.c[q]);
+      kk[q] = __ldcg(sh.K + it.c[q]);
+      bb[q] = __ldcg(sh.Bn + it.c[q]);
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < PM_ITEMS; ++q) {
+    if (!it.ok[q] || it.c[q] != PM_NO_SLOT) continue;
+    it.c[q] = (unsigned)probe_home(it.key[q], it.bin[q], sh.mask);
+    o[q] = __ldcg(sh.O + it.c[q]);
+    kk[q] = __ldcg(sh.K + it.c[q]);
+    bb[q] = __ldcg(sh.Bn + it.c[q]);
+  }
+#pragma unroll
+  for (int q = 0; q < PM_ITEMS; ++q) {
+    if (!it.ok[q]) continue;
+    it.code[q] = o[q] ? (kk[q] == it.key[q] && bb[q] == it.bin[q] ? PM_MATCH : PM_MISS)
+                      : PM_EMPTY;
+    if (it.code[q] == PM_EMPTY) atomicMax(sh.CL + it.c[q], tag | (unsigned)it.i[q]);
+  }
+  pm_lane_values(lanes, sh, it);
+}
+
+// Phase B of a round: a match combines into its slot, the claim's winner
+// writes the slot, both leave; the rest are listed in nxt with their next
+// slot. Items read back from memory (load_keys) load their keys, bins and
+// lane values again with the claims.
+__device__ __forceinline__ void pm_write(const Lanes& lanes, const PmArgs& a, const PmShard& sh,
+                                         unsigned long long tag, PmItems& it, bool load_keys,
+                                         unsigned long long* nxt, int* n_nxt) {
+  unsigned long long w[PM_ITEMS];
+#pragma unroll
+  for (int q = 0; q < PM_ITEMS; ++q) {
+    w[q] = 0;
+    if (it.ok[q] && it.code[q] == PM_EMPTY) {
+      w[q] = __ldcg(sh.CL + it.c[q]);
+      if (load_keys) it.key[q] = sh.uk[it.i[q]], it.bin[q] = sh.ub[it.i[q]];
+    }
+  }
+  if (load_keys) pm_lane_values(lanes, sh, it);
+  bool won[PM_ITEMS], placed[PM_ITEMS];
+#pragma unroll
+  for (int q = 0; q < PM_ITEMS; ++q) {
+    won[q] = it.ok[q] && it.code[q] == PM_EMPTY && w[q] == (tag | (unsigned)it.i[q]);
+    placed[q] = won[q] || (it.ok[q] && it.code[q] == PM_MATCH);
+  }
+#pragma unroll
+  for (int l = 0; l < PM_LANE_REGS; ++l) {
+    if (l >= lanes.n) break;
+    const int dt = lanes.dtype[l], kind = lanes.kind[l];
+#pragma unroll
+    for (int q = 0; q < PM_ITEMS; ++q)
+      if (placed[q])
+        st_bits(dt, lanes.out[l], sh.slot0 + it.c[q],
+                won[q] ? it.v[l][q] : combine_bits(kind, dt, it.t[l][q], it.v[l][q]));
+  }
+  for (int l = PM_LANE_REGS; l < lanes.n; ++l) {
+    const int dt = lanes.dtype[l], kind = lanes.kind[l];
+    unsigned long long x[PM_ITEMS], y[PM_ITEMS];
+#pragma unroll
+    for (int q = 0; q < PM_ITEMS; ++q) {
+      if (placed[q]) x[q] = ld_bits(dt, lanes.in[l], sh.row0 + it.i[q]);
+      if (placed[q] && !won[q]) y[q] = ld_bits_cg(dt, lanes.out[l], sh.slot0 + it.c[q]);
+    }
+#pragma unroll
+    for (int q = 0; q < PM_ITEMS; ++q)
+      if (placed[q])
+        st_bits(dt, lanes.out[l], sh.slot0 + it.c[q], won[q] ? x[q] : combine_bits(kind, dt, y[q], x[q]));
+  }
+#pragma unroll
+  for (int q = 0; q < PM_ITEMS; ++q) {
+    if (won[q]) {
+      sh.K[it.c[q]] = it.key[q];
+      sh.Bn[it.c[q]] = it.bin[q];
+      sh.O[it.c[q]] = 1;
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < PM_ITEMS; ++q)
+    warp_append(it.ok[q] && !placed[q],
+                pm_entry(it.i[q], (unsigned)((it.c[q] + 1ULL) & (unsigned long long)sh.mask)), nxt,
+                n_nxt);
+}
+
+// One cluster of C CTAs per shard (blocks s C .. s C + C - 1) runs every
+// round. Round 0 reads the active flags PM_GROUP at a time, group g to CTA
+// g mod C (so the active partials, which K8 leaves at the front, spread
+// over the cluster), writes still = 0 and lists the active partials in the
+// CTA's segment of list buffer 0; the partials left after the last round
+// get still = 1. Round r: phase A classifies and claims, the cluster's
+// barrier, phase B writes and lists the partials left in the CTA's
+// segment of the other buffer, the barrier; every CTA
+// then sums the cluster's counts (distributed shared memory), and a round
+// that would start with none, or past max_probes, ends the loop; once at
+// most PM_SOLO partials are left, they move to CTA 0's shared memory and
+// CTA 0 runs the remaining rounds alone with its block's barrier. A CTA
+// whose segment fits its threads' PM_ITEMS holds its partials in
+// registers from phase A to phase B; a longer one writes their classes and
+// slots back and reads them again.
+__global__ void __launch_bounds__(PM_THREADS, 1) pm_cluster(Lanes lanes, PmArgs a) {
+  cg::cluster_group cl = cg::this_cluster();
+  const int C = (int)cl.num_blocks();
+  const int k = (int)cl.block_rank();
+  const int s = (int)(blockIdx.x / (unsigned)C);
+  const int tid = threadIdx.x, T = blockDim.x;
+  __shared__ int cnt[2];  // this CTA's listed partials in list buffer b
+  __shared__ int sh_n, sh_at;
+  __shared__ unsigned long long solo_list[2][PM_SOLO];  // CTA 0's lists once it goes on alone
+  __shared__ int solo_cnt[2];
+  const PmShard sh{a.keys + s * a.cap, a.bins + s * a.cap, a.occ + s * a.cap,
+                   a.claims + s * a.cap, a.u_key + s * a.B, a.u_bin + s * a.B,
+                   a.cap - 1, (long long)s * a.B, (long long)s * a.cap};
+  // this CTA's groups g = q C + k and its segment of the list buffers
+  const unsigned B = (unsigned)a.B;
+  const unsigned G = (B + PM_GROUP - 1) / PM_GROUP, per = G / (unsigned)C, extra = G % (unsigned)C;
+  const unsigned groups = per + ((unsigned)k < extra ? 1u : 0u);
+  const long long seg = (long long)PM_GROUP * ((long long)k * per + min((unsigned)k, extra));
+  unsigned long long* lists = a.list + (long long)s * 2 * a.Bp + seg;
+  unsigned char* cd = a.code + (long long)s * a.Bp + seg;
+  if (tid == 0) cnt[0] = cnt[1] = 0;
+  __syncthreads();
+  const int lane = tid & 31;
+  for (unsigned q0 = 0; q0 < groups; q0 += (unsigned)T * PM_SCAN) {
+    unsigned f[PM_SCAN][PM_GROUP / 4];
+    long long i0[PM_SCAN];
+#pragma unroll
+    for (int u = 0; u < PM_SCAN; ++u) {
+      const unsigned q = q0 + (unsigned)(u * T + tid);
+      i0[u] = ((long long)q * C + k) * PM_GROUP;  // the group's first partial
+      f[u][0] = f[u][1] = f[u][2] = f[u][3] = 0u;
+      if (q >= groups) continue;
+      if (a.vec) {
+        const uint4 v = *reinterpret_cast<const uint4*>(a.active + sh.row0 + i0[u]);
+        f[u][0] = v.x, f[u][1] = v.y, f[u][2] = v.z, f[u][3] = v.w;
+      } else {
+        for (int b = 0; b < PM_GROUP && i0[u] + b < a.B; ++b)
+          f[u][b >> 2] |= (unsigned)a.active[sh.row0 + i0[u] + b] << (8 * (b & 3));
+      }
+    }
+    // still = 0 here (after every load: the arrays may alias as far as the
+    // compiler knows); the partials no round places get 1 at the end
+#pragma unroll
+    for (int u = 0; u < PM_SCAN; ++u) {
+      if (q0 + (unsigned)(u * T + tid) >= groups) continue;
+      if (a.vec) {
+        *reinterpret_cast<uint4*>(a.still + sh.row0 + i0[u]) = make_uint4(0u, 0u, 0u, 0u);
+      } else {
+        for (int b = 0; b < PM_GROUP && i0[u] + b < a.B; ++b) a.still[sh.row0 + i0[u] + b] = 0;
+      }
+    }
+    // each group's active partials listed: a warp's counts scanned, one
+    // shared atomic per warp
+#pragma unroll
+    for (int u = 0; u < PM_SCAN; ++u) {
+      unsigned bits = 0u;
+#pragma unroll
+      for (int b = 0; b < PM_GROUP; ++b)
+        if ((f[u][b >> 2] >> (8 * (b & 3))) & 0xffu) bits |= 1u << b;
+      const int n_mine = __popc(bits);
+      int incl = n_mine;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(0xffffffffu, incl, o);
+        if (lane >= o) incl += y;
+      }
+      int base = 0;
+      if (lane == 31 && incl) base = atomicAdd(&cnt[0], incl);
+      base = __shfl_sync(0xffffffffu, base, 31) + incl - n_mine;
+      for (; bits; bits &= bits - 1u)
+        lists[base++] = pm_entry((int)(i0[u] + __ffs(bits) - 1), PM_NO_SLOT);
+    }
+  }
+  __syncthreads();
+  const bool lead = k == 0 && tid == 0;
+  const bool report = lead && s < PM_REPORT_SHARDS;
+  const bool probe = a.max_probes > 0;
+  int r = 0, n = 0;
+  bool solo = false;
+  for (;;) {
+    const unsigned long long tag = (unsigned long long)(a.tag0 + (unsigned)r) << 32;
+    unsigned long long* cur = lists + (r & 1) * a.Bp;
+    unsigned long long* nxt = lists + ((r + 1) & 1) * a.Bp;
+    const int m = cnt[r & 1];
+    const bool held = m <= T * PM_ITEMS;
+    PmItems it;
+    // phase A
+    if (probe) {
+      if (held) {
+        pm_load(it, cur, m, 0);
+        pm_classify(lanes, sh, tag, it);
+      } else {
+        for (int b0 = 0; b0 < m; b0 += T * PM_ITEMS) {
+          pm_load(it, cur, m, b0);
+          pm_classify(lanes, sh, tag, it);
+#pragma unroll
+          for (int q = 0; q < PM_ITEMS; ++q) {
+            if (!it.ok[q]) continue;
+            const int j = b0 + q * T + tid;
+            cur[j] = pm_entry(it.i[q], it.c[q]);
+            cd[j] = it.code[q];
+          }
+        }
+      }
+    }
+    if (tid == 0) cnt[(r + 1) & 1] = 0;  // every CTA summed it before the last barrier
+    cluster_barrier();
+    if (r == 0) {
+      n = cluster_total(cl, &cnt[0], C, &sh_n);
+      if (!probe || n == 0) break;
+    }
     if (report && r < PM_REPORT_ROUNDS) g_pm_active[s][r] = n;
-    // phase 1: classify against the table as it is at the round's start
-    for (int j = threadIdx.x; j < n; j += blockDim.x) {
-      const int i = cur[j];
-      const long long c = (probe_home(uk[i], ub[i], mask) + r) & mask;
-      unsigned char k = PM_MISS;
-      if (O[c]) {
-        if (K[c] == uk[i] && Bn[c] == ub[i]) k = PM_MATCH;
-      } else {
-        k = PM_EMPTY;
-        C[c] = -1;
-      }
-      cd[j] = k;
-    }
-    if (threadIdx.x == 0) n_next = 0;
-    __syncthreads();
-    // phase 2: the highest contending index claims each empty slot
-    for (int j = threadIdx.x; j < n; j += blockDim.x) {
-      if (cd[j] != PM_EMPTY) continue;
-      const int i = cur[j];
-      const long long c = (probe_home(uk[i], ub[i], mask) + r) & mask;
-      atomicMax(&C[c], i);
-    }
-    __syncthreads();
-    // phase 3: matches combine, winners write, the rest go on
-    for (int j = threadIdx.x; j < n; j += blockDim.x) {
-      const int i = cur[j];
-      const long long c = (probe_home(uk[i], ub[i], mask) + r) & mask;
-      const unsigned char k = cd[j];
-      const long long row = s * B + i;
-      const long long slot = s * cap + c;
-      if (k == PM_MATCH) {
-        for (int l = 0; l < lanes.n; ++l) {
-          const int dt = lanes.dtype[l];
-          st_bits(dt, lanes.out[l], slot,
-                  combine_bits(lanes.kind[l], dt, ld_bits(dt, lanes.out[l], slot),
-                               ld_bits(dt, lanes.in[l], row)));
-        }
-        still[row] = 0;
-      } else if (k == PM_EMPTY && C[c] == i) {
-        K[c] = uk[i];
-        Bn[c] = ub[i];
-        O[c] = 1;
-        for (int l = 0; l < lanes.n; ++l) {
-          const int dt = lanes.dtype[l];
-          st_bits(dt, lanes.out[l], slot, ld_bits(dt, lanes.in[l], row));
-        }
-        still[row] = 0;
-      } else {
-        nxt[atomicAdd(&n_next, 1)] = i;
+    // phase B
+    if (held) {
+      pm_write(lanes, a, sh, tag, it, false, nxt, &cnt[(r + 1) & 1]);
+    } else {
+      for (int b0 = 0; b0 < m; b0 += T * PM_ITEMS) {
+        pm_load(it, cur, m, b0);
+#pragma unroll
+        for (int q = 0; q < PM_ITEMS; ++q)
+          it.code[q] = it.ok[q] ? cd[b0 + q * T + tid] : (unsigned char)PM_MISS;
+        pm_write(lanes, a, sh, tag, it, true, nxt, &cnt[(r + 1) & 1]);
       }
     }
+    cluster_barrier();
+    n = cluster_total(cl, &cnt[(r + 1) & 1], C, &sh_n);
+    ++r;
+    if (r >= a.max_probes || n == 0) break;
+    if (n <= PM_SOLO) {
+      solo = true;
+      break;
+    }
+  }
+  if (solo) {
+    // Few partials left: each CTA's move to CTA 0's shared list, and CTA 0
+    // runs the remaining rounds alone, its block's barrier in place of the
+    // cluster's (the other CTAs wait at the last barrier).
+    const int mine = cnt[r & 1];
+    if (tid < 32) {
+      const int v = tid < C ? *cl.map_shared_rank(&cnt[r & 1], (unsigned)tid) : 0;
+      int incl = v;
+      for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(0xffffffffu, incl, o);
+        if (tid >= o) incl += y;
+      }
+      const int at = __shfl_sync(0xffffffffu, incl - v, k);
+      if (tid == 0) sh_at = at;
+    }
     __syncthreads();
-    n = n_next;
-    int* tmp = cur;
-    cur = nxt;
-    nxt = tmp;
-    __syncthreads();
+    unsigned long long* dst = cl.map_shared_rank(&solo_list[0][0], 0u) + sh_at;
+    const unsigned long long* src = lists + (r & 1) * a.Bp;
+    for (int j = tid; j < mine; j += T) dst[j] = src[j];
+    cluster_barrier();
+    if (k == 0) {
+      int b = 0;
+      for (;;) {
+        const unsigned long long tag = (unsigned long long)(a.tag0 + (unsigned)r) << 32;
+        PmItems it;
+        pm_load(it, solo_list[b], n, 0);
+        pm_classify(lanes, sh, tag, it);
+        if (tid == 0) solo_cnt[b ^ 1] = 0;
+        __syncthreads();
+        if (report && r < PM_REPORT_ROUNDS) g_pm_active[s][r] = n;
+        pm_write(lanes, a, sh, tag, it, false, solo_list[b ^ 1], &solo_cnt[b ^ 1]);
+        __syncthreads();
+        n = solo_cnt[b ^ 1];
+        b ^= 1;
+        ++r;
+        if (r >= a.max_probes || n == 0) break;
+      }
+      for (int j = tid; j < n; j += T) a.still[sh.row0 + (int)(solo_list[b][j] >> 32)] = 1;
+    }
+  } else {
+    // the partials left: still (this CTA's segment of the last list)
+    const unsigned long long* left = lists + (r & 1) * a.Bp;
+    for (int j = tid; j < cnt[r & 1]; j += T) a.still[sh.row0 + (int)(left[j] >> 32)] = 1;
   }
   if (report) {
     g_pm_rounds[s] = r;
     if (r <= PM_REPORT_ROUNDS) g_pm_active[s][r] = n;
   }
-  // partials no round placed: the table's overflow (one block per shard)
-  if (oflow != nullptr && threadIdx.x == 0) oflow[s] += n;
+  // partials no round placed: the table's overflow
+  if (lead && a.oflow != nullptr) a.oflow[s] += n;
+  // no CTA leaves while another may still read its counters
+  cluster_barrier();
 }
 
 // ------------------------------------------------------------ K10
 
-__device__ __forceinline__ int owner_of(long long key, bool act, int S) {
+#define EX_THREADS 256  // one thread per digit in radix_sort.cuh's per-digit steps
+#define EX_WARPS (EX_THREADS / 32)
+#define EX_ITEMS 4
+#define EX_TILE (EX_THREADS * EX_ITEMS)  // rows a tile block buckets
+#define EX_FILL_SLOTS 2048               // send slots a fill block writes
+#define EX_BUCKETS (MAX_SHARDS + 1)
+
+// The owner of a key's uint64 bits u: the reference's min(u // R, S - 1),
+// R = U64_MAX / S + 1 (contiguous ranges), without a division. R S - 2^64
+// lies in [0, S - 1], so e = floor(u S / 2^64) (__umul64hi) is the owner
+// or one past it, and one compare with e R decides (u // R <= S - 1 always,
+// and (S - 1) R < 2^64). An inactive row's owner is S (sorts last).
+__device__ __forceinline__ int owner_of(long long key, bool act, int S, unsigned long long range) {
   if (!act) return S;
-  if (S == 1) return 0;
-  const unsigned long long range = 0xffffffffffffffffULL / (unsigned long long)S + 1ULL;
-  const unsigned long long o = (unsigned long long)key / range;
-  return o > (unsigned long long)(S - 1) ? S - 1 : (int)o;
+  const unsigned long long u = (unsigned long long)key;
+  unsigned long long e = __umul64hi(u, (unsigned long long)S);
+  if (e > (unsigned long long)(S - 1)) e = (unsigned long long)(S - 1);
+  if (e > 0 && u < e * range) --e;
+  return (int)e;
 }
 
-// one block per source shard: send buffers [S * dc] and the owner-ordered
-// local rows at m[recv_cap ..]
-__global__ void ex_bucket(const long long* __restrict__ u_key, const int* __restrict__ u_bin,
-                          const unsigned char* __restrict__ active, Lanes lanes, int S,
-                          long long L, long long dc, long long M,
-                          long long* __restrict__ s_key, int* __restrict__ s_bin,
-                          unsigned char* __restrict__ s_valid, long long* __restrict__ m_key,
-                          int* __restrict__ m_bin, unsigned char* __restrict__ m_valid) {
-  __shared__ int counts[MAX_SHARDS + 1];
-  __shared__ int starts[MAX_SHARDS + 1];
-  __shared__ int running[MAX_SHARDS + 1];
-  __shared__ int wc[32][MAX_SHARDS + 1];
-  const long long src = blockIdx.x;
-  const long long recv = (long long)S * dc;
-  const long long* uk = u_key + src * L;
-  const unsigned char* ua = active + src * L;
-  for (int o = threadIdx.x; o <= S; o += blockDim.x) {
-    counts[o] = 0;
-    running[o] = 0;
+struct ExArgs {
+  const long long* u_key;  // [S * L]
+  const int* u_bin;
+  const unsigned char* active;
+  int S, tiles, fill_chunks;
+  long long L, dc, M;
+  unsigned long long range;  // U64_MAX / S + 1 (S > 1)
+  int* counts;               // [S][tiles][S + 1]: rows per (source, tile, owner)
+  long long* s_key;          // [S * S * dc]
+  int* s_bin;
+  unsigned char* s_valid;
+  long long* m_key;  // [S * M]
+  int* m_bin;
+  unsigned char* m_valid;
+};
+
+// a thread's item j: row 32 w EX_ITEMS + 32 j + lane of its tile (warp w;
+// csrc/radix_sort.cuh's layout, so the rank is stable)
+__device__ __forceinline__ int ex_item(int j) {
+  return (threadIdx.x >> 5) * 32 * EX_ITEMS + 32 * j + (threadIdx.x & 31);
+}
+
+// Rows per owner in each tile of EX_TILE rows of source shard blockIdx.y.
+__global__ void __launch_bounds__(EX_THREADS) ex_count(ExArgs a) {
+  __shared__ int cnt[EX_BUCKETS];
+  const int s = blockIdx.y, t = blockIdx.x;
+  for (int o = threadIdx.x; o <= a.S; o += EX_THREADS) cnt[o] = 0;
+  const long long r0 = (long long)s * a.L + (long long)t * EX_TILE;
+  const long long n = min((long long)EX_TILE, a.L - (long long)t * EX_TILE);
+  long long key[EX_ITEMS];
+  unsigned char act[EX_ITEMS];
+#pragma unroll
+  for (int j = 0; j < EX_ITEMS; ++j) {
+    const int i = ex_item(j);
+    if (i < n) key[j] = a.u_key[r0 + i], act[j] = a.active[r0 + i];
   }
   __syncthreads();
-  for (long long i = threadIdx.x; i < L; i += blockDim.x)
-    atomicAdd(&counts[owner_of(uk[i], ua[i] != 0, S)], 1);
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int acc = 0;
-    for (int o = 0; o <= S; ++o) {
-      starts[o] = acc;
-      acc += counts[o];
-    }
-  }
-  // send slots no row fills take the fill values: 0, 0, invalid, identity
-  for (long long slot = threadIdx.x; slot < recv; slot += blockDim.x) {
-    const int o = (int)(slot / dc);
-    if (slot % dc < (long long)counts[o]) continue;
-    const long long d = src * recv + slot;
-    s_key[d] = 0;
-    s_bin[d] = 0;
-    s_valid[d] = 0;
-    for (int l = 0; l < lanes.n; ++l) st_bits(lanes.dtype[l], lanes.out[l], d, lanes.ident[l]);
+#pragma unroll
+  for (int j = 0; j < EX_ITEMS; ++j) {
+    const int o = ex_item(j) < n ? owner_of(key[j], act[j] != 0, a.S, a.range) : -1;
+    const unsigned peers = __match_any_sync(0xffffffffu, o);
+    if (o >= 0 && (int)(threadIdx.x & 31) == __ffs(peers) - 1) atomicAdd(&cnt[o], __popc(peers));
   }
   __syncthreads();
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
-  for (long long c0 = 0; c0 < L; c0 += blockDim.x) {
-    const long long i = c0 + threadIdx.x;
-    const int o = i < L ? owner_of(uk[i], ua[i] != 0, S) : -1;
-    unsigned int mine = 0;
-    for (int q = 0; q <= S; ++q) {
-      const unsigned int b = __ballot_sync(0xffffffffu, o == q);
-      if (lane == 0) wc[warp][q] = __popc(b);
-      if (o == q) mine = b;
-    }
+  for (int o = threadIdx.x; o <= a.S; o += EX_THREADS)
+    a.counts[((long long)s * a.tiles + t) * (a.S + 1) + o] = cnt[o];
+}
+
+__device__ __forceinline__ void store_bytes(unsigned long long x, int es, unsigned long long bits) {
+  if (es == 8) *reinterpret_cast<unsigned long long*>(x) = bits;
+  else if (es == 4) *reinterpret_cast<unsigned*>(x) = (unsigned)bits;
+  else *reinterpret_cast<unsigned char*>(x) = (unsigned char)bits;
+}
+
+// Elements [e0, e1) of an array of es-byte elements (es = 1, 4 or 8; the
+// array es-aligned) set to bits by the block: 16-byte stores from the first
+// 16-byte boundary to the last, single elements around them.
+__device__ __forceinline__ void fill_range(void* p, int es, long long e0, long long e1,
+                                           unsigned long long bits) {
+  const unsigned long long addr = reinterpret_cast<unsigned long long>(p);
+  const unsigned long long b0 = addr + (unsigned long long)e0 * es;
+  const unsigned long long b1 = addr + (unsigned long long)e1 * es;
+  unsigned long long v0 = (b0 + 15) & ~15ULL, v1 = b1 & ~15ULL;
+  if (v0 > b1) v0 = b1;
+  if (v1 < v0) v1 = v0;
+  for (unsigned long long x = b0 + threadIdx.x * es; x < v0; x += blockDim.x * es)
+    store_bytes(x, es, bits);
+  for (unsigned long long x = v1 + threadIdx.x * es; x < b1; x += blockDim.x * es)
+    store_bytes(x, es, bits);
+  uint4 pat;
+  if (es == 8) {
+    pat.x = pat.z = (unsigned)bits;
+    pat.y = pat.w = (unsigned)(bits >> 32);
+  } else {
+    pat.x = es == 4 ? (unsigned)bits : (unsigned)(bits & 0xffu) * 0x01010101u;
+    pat.y = pat.z = pat.w = pat.x;
+  }
+  for (unsigned long long x = v0 + threadIdx.x * 16ULL; x < v1; x += blockDim.x * 16ULL)
+    *reinterpret_cast<uint4*>(x) = pat;
+}
+
+struct ExShared {
+  radix::RankShared<EX_WARPS> r;
+  int before[EX_BUCKETS];       // an owner's rows in the source's tiles before this one
+  int total[EX_BUCKETS];        // and in the whole source shard
+  long long first[EX_BUCKETS];  // its first row in the owner order
+};
+
+// Blocks [0, S tiles): one tile of a source shard each. Its rows' owners
+// ranked stably in the tile (radix_sort.cuh's rank, the owner one digit),
+// plus the owner's rows in the tiles before it (ex_count's counts): the
+// rank in the owner. Every row goes to the owner-ordered rows m_*[src, recv
+// + p], and a rank below dc to s_*[src, owner dc + rank].
+// Blocks past them: one per (source, owner, EX_FILL_SLOTS send slots),
+// writing the slots at or past the owner's row count with the fill (0, 0,
+// invalid, each lane's identity).
+__global__ void __launch_bounds__(EX_THREADS) ex_scatter(Lanes lanes, ExArgs a) {
+  __shared__ ExShared sm;
+  const int tid = threadIdx.x, nb = a.S + 1;
+  const int n_tile_blocks = a.S * a.tiles;
+  const long long recv = (long long)a.S * a.dc;
+  if ((int)blockIdx.x >= n_tile_blocks) {
+    const int h = blockIdx.x - n_tile_blocks;
+    const int per_src = a.S * a.fill_chunks;
+    const int src = h / per_src, o = (h - src * per_src) / a.fill_chunks;
+    const int chunk = h - src * per_src - o * a.fill_chunks;
+    if (tid == 0) sm.total[0] = 0;
     __syncthreads();
-    if (o >= 0) {
-      int off = __popc(mine & ((1u << lane) - 1u));
-      for (int w = 0; w < warp; ++w) off += wc[w][o];
-      const long long rank = running[o] + off;
-      const long long p = starts[o] + rank;
-      const long long row = src * L + i;
-      const long long m = src * M + recv + p;
-      m_key[m] = uk[i];
-      m_bin[m] = u_bin[row];
-      m_valid[m] = (o < S && rank >= dc) ? 1 : 0;
-      for (int l = 0; l < lanes.n; ++l) {
-        const int dt = lanes.dtype[l];
-        st_bits(dt, lanes.aux[l], m, ld_bits(dt, lanes.in[l], row));
-      }
-      if (o < S && rank < dc) {
-        const long long d = src * recv + (long long)o * dc + rank;
-        s_key[d] = uk[i];
-        s_bin[d] = u_bin[row];
-        s_valid[d] = 1;
-        for (int l = 0; l < lanes.n; ++l) {
-          const int dt = lanes.dtype[l];
-          st_bits(dt, lanes.out[l], d, ld_bits(dt, lanes.in[l], row));
-        }
-      }
-    }
+    int v = 0;
+    for (int t = tid; t < a.tiles; t += EX_THREADS)
+      v += a.counts[((long long)src * a.tiles + t) * nb + o];
+    for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+    if ((tid & 31) == 0 && v) atomicAdd(&sm.total[0], v);
     __syncthreads();
-    if (threadIdx.x <= S) {
-      int add = 0;
-      for (int w = 0; w < nw; ++w) add += wc[w][threadIdx.x];
-      running[threadIdx.x] += add;
+    const long long lo = max((long long)sm.total[0], (long long)chunk * EX_FILL_SLOTS);
+    const long long hi = min(a.dc, (long long)(chunk + 1) * EX_FILL_SLOTS);
+    if (lo >= hi) return;
+    const long long d = (long long)src * recv + (long long)o * a.dc;
+    fill_range(a.s_key, 8, d + lo, d + hi, 0ULL);
+    fill_range(a.s_bin, 4, d + lo, d + hi, 0ULL);
+    fill_range(a.s_valid, 1, d + lo, d + hi, 0ULL);
+    for (int l = 0; l < lanes.n; ++l)
+      fill_range(lanes.out[l], wide(lanes.dtype[l]) ? 8 : 4, d + lo, d + hi, lanes.ident[l]);
+    return;
+  }
+  const int s = blockIdx.x / a.tiles, t = blockIdx.x - s * a.tiles;
+  for (int o = tid; o <= a.S; o += EX_THREADS) sm.before[o] = sm.total[o] = 0;
+  const long long r0 = (long long)s * a.L + (long long)t * EX_TILE;
+  const long long n = min((long long)EX_TILE, a.L - (long long)t * EX_TILE);
+  long long key[EX_ITEMS];
+  int bin[EX_ITEMS];
+  unsigned char act[EX_ITEMS];
+#pragma unroll
+  for (int j = 0; j < EX_ITEMS; ++j) {
+    const int i = ex_item(j);
+    if (i < n) key[j] = a.u_key[r0 + i], bin[j] = a.u_bin[r0 + i], act[j] = a.active[r0 + i];
+  }
+  __syncthreads();
+  const int* cs = a.counts + (long long)s * a.tiles * nb;
+  for (int e = tid; e < a.tiles * nb; e += EX_THREADS) {
+    const int v = cs[e];
+    if (!v) continue;
+    const int tt = e / nb, o = e - tt * nb;
+    atomicAdd(&sm.total[o], v);
+    if (tt < t) atomicAdd(&sm.before[o], v);
+  }
+  unsigned dig[EX_ITEMS], rank[EX_ITEMS];
+#pragma unroll
+  for (int j = 0; j < EX_ITEMS; ++j)
+    dig[j] = ex_item(j) < n ? (unsigned)owner_of(key[j], act[j] != 0, a.S, a.range) : radix::RADIX;
+  radix::rank_digits(sm.r, dig, rank);
+  __syncthreads();
+  radix::digit_offsets(sm.r);
+  if (tid == 0) {
+    long long acc = 0;
+    for (int o = 0; o <= a.S; ++o) {
+      sm.first[o] = acc;
+      acc += sm.total[o];
     }
-    __syncthreads();
+  }
+  __syncthreads();
+  const int warp = tid >> 5;
+  long long m[EX_ITEMS], d[EX_ITEMS];
+  bool ok[EX_ITEMS], send[EX_ITEMS];
+#pragma unroll
+  for (int j = 0; j < EX_ITEMS; ++j) {
+    ok[j] = dig[j] < (unsigned)radix::RADIX;
+    send[j] = false;
+    if (!ok[j]) continue;
+    const int o = (int)dig[j];
+    const long long rk = (long long)sm.before[o] + sm.r.whist[warp][o] + rank[j];
+    m[j] = (long long)s * a.M + recv + sm.first[o] + rk;
+    send[j] = o < a.S && rk < a.dc;
+    d[j] = (long long)s * recv + (long long)o * a.dc + rk;
+    a.m_key[m[j]] = key[j];
+    a.m_bin[m[j]] = bin[j];
+    a.m_valid[m[j]] = (o < a.S && rk >= a.dc) ? 1 : 0;
+    if (send[j]) {
+      a.s_key[d[j]] = key[j];
+      a.s_bin[d[j]] = bin[j];
+      a.s_valid[d[j]] = 1;
+    }
+  }
+  for (int l = 0; l < lanes.n; ++l) {
+    const int dt = lanes.dtype[l];
+    unsigned long long v[EX_ITEMS];
+#pragma unroll
+    for (int j = 0; j < EX_ITEMS; ++j)
+      if (ok[j]) v[j] = ld_bits(dt, lanes.in[l], r0 + ex_item(j));
+#pragma unroll
+    for (int j = 0; j < EX_ITEMS; ++j) {
+      if (!ok[j]) continue;
+      st_bits(dt, lanes.aux[l], m[j], v[j]);
+      if (send[j]) st_bits(dt, lanes.out[l], d[j], v[j]);
+    }
   }
 }
 
@@ -1234,6 +1709,53 @@ static int sr_sweeps(SrRecs a, SrRecs b, long long n, int L, const int* position
   *sorted = a;
   return (int)cudaSuccess;
 }
+
+// K9's launches in this process, and its cluster shape: the CTAs of a
+// shard's cluster chosen per call, and what cudaOccupancyMaxActiveClusters
+// gave at first use for clusters of 16 and of 8 (-1: not asked yet; 0 for
+// 16: the CUDA runtime refused that size).
+static std::atomic<long long> g_pm_launches{0};
+static int g_pm_max16 = -1, g_pm_max8 = -1, g_pm_cluster = 0;
+
+static cudaError_t pm_clusters(int C, cudaStream_t s, int* out) {
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.gridDim = dim3(C);
+  cfg.blockDim = dim3(PM_THREADS);
+  cfg.stream = s;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaOccupancyMaxActiveClusters(out, pm_cluster, &cfg);
+}
+
+// The cluster size for S shards: 16 CTAs where that many clusters of 16
+// are resident at once, else 8 (then clusters beyond the resident ones
+// wait for a wave, which is correct and slower).
+static cudaError_t pm_cluster_size(int S, cudaStream_t s, int* C) {
+  if (g_pm_max8 < 0) {
+    cudaError_t err = cudaFuncSetAttribute(pm_cluster, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err == cudaSuccess) err = pm_clusters(16, s, &g_pm_max16);
+    if (err != cudaSuccess) {
+      (void)cudaGetLastError();
+      g_pm_max16 = 0;
+    }
+    if ((err = pm_clusters(8, s, &g_pm_max8)) != cudaSuccess) return err;
+  }
+  if (g_pm_max8 < 1) return cudaErrorInvalidConfiguration;
+  *C = g_pm_max16 >= S ? 16 : 8;
+  return cudaSuccess;
+}
+
+static long long pm_list_len(long long B) { return (B + PM_GROUP - 1) / PM_GROUP * PM_GROUP; }
+
+static long long ex_tiles(long long L) { return (L + EX_TILE - 1) / EX_TILE; }
+
+// K10's exchange kernel launches in this process
+static std::atomic<long long> g_ex_launches{0};
 
 extern "C" {
 
@@ -1395,31 +1917,63 @@ int arroyo_agg_sort_reduce(int device, int S, long long L, const void* key, cons
 }
 
 // K9. lanes->out: the table's lanes, lanes->in: the partials'. scratch:
-// list int32 [S * 2 * B], n_list int32 [S], claims int32 [S * cap], code
-// uint8 [S * B].
-// oflow int32 [S] or NULL: each shard's unplaced partials add to it.
+// list uint64 [S * 2 * Bp], code uint8 [S * Bp] (Bp: arroyo_agg_probe_merge_list_len(B)),
+// claims uint64 [S * cap] (zero before its first call, then never
+// cleared: each call's tag0 must exceed every earlier call's tag0 +
+// max(max_probes, 1) - 1 on it, and tag0 + max_probes < 2^32). oflow int32 [S] or NULL: each shard's unplaced partials
+// add to it. One launch: a cluster of CTAs per shard.
 int arroyo_agg_probe_merge(int device, int S, long long cap, void* keys, void* bins, void* occ,
                            const Lanes* lanes, long long B, const void* u_key, const void* u_bin,
                            const void* active, int max_probes, void* still, void* list,
-                           void* n_list, void* claims, void* code, void* oflow, void* stream) {
-  if (S < 1 || B < 1 || B > 0x7fffffffLL || cap < 1 || (cap & (cap - 1)) != 0 ||
-      max_probes < 0 || !lanes_ok(lanes))
+                           void* claims, void* code, void* oflow, unsigned tag0, void* stream) {
+  if (S < 1 || B < 1 || B > 0x7fffffffLL - PM_GROUP || cap < 1 || cap > 0x80000000LL ||
+      (cap & (cap - 1)) != 0 || max_probes < 0 || !lanes_ok(lanes) || tag0 < 1 ||
+      (unsigned long long)tag0 + (unsigned long long)max_probes > 0xffffffffULL)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if ((err = cudaMemsetAsync(n_list, 0, sizeof(int) * S, s)) != cudaSuccess) return (int)err;
-  pm_list<<<dim3(blocks_for(B, THREADS), S), THREADS, 0, s>>>(
-      static_cast<const unsigned char*>(active), B, static_cast<unsigned char*>(still),
-      static_cast<int*>(list), static_cast<int*>(n_list));
+  int C = 0;
+  if ((err = pm_cluster_size(S, s, &C)) != cudaSuccess) return (int)err;
+  if ((long long)S * C > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const int vec = B % PM_GROUP == 0 && reinterpret_cast<uintptr_t>(active) % 16 == 0 &&
+                  reinterpret_cast<uintptr_t>(still) % 16 == 0;
+  PmArgs a{static_cast<long long*>(keys), static_cast<int*>(bins), static_cast<unsigned char*>(occ),
+           cap, static_cast<const long long*>(u_key), static_cast<const int*>(u_bin),
+           static_cast<const unsigned char*>(active), B, pm_list_len(B), max_probes, vec, tag0,
+           static_cast<unsigned char*>(still), static_cast<unsigned long long*>(list),
+           static_cast<unsigned long long*>(claims), static_cast<unsigned char*>(code),
+           static_cast<int*>(oflow)};
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.gridDim = dim3((unsigned)(S * C));
+  cfg.blockDim = dim3(PM_THREADS);
+  cfg.stream = s;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if ((err = cudaLaunchKernelEx(&cfg, pm_cluster, *lanes, a)) != cudaSuccess) return (int)err;
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  pm_rounds<<<S, 1024, 0, s>>>(
-      static_cast<long long*>(keys), static_cast<int*>(bins), static_cast<unsigned char*>(occ),
-      *lanes, cap, static_cast<const long long*>(u_key), static_cast<const int*>(u_bin), B,
-      max_probes, static_cast<unsigned char*>(still), static_cast<int*>(list),
-      static_cast<const int*>(n_list), static_cast<int*>(claims),
-      static_cast<unsigned char*>(code), static_cast<int*>(oflow));
-  return (int)cudaGetLastError();
+  ++g_pm_launches;
+  g_pm_cluster = C;
+  return (int)cudaSuccess;
+}
+
+// K9's kernel launches in this process.
+long long arroyo_agg_probe_merge_kernel_launches(void) { return g_pm_launches.load(); }
+
+// K9's list length per buffer for B partials a shard: B rounded up to PM_GROUP.
+long long arroyo_agg_probe_merge_list_len(long long B) { return pm_list_len(B); }
+
+// K9's cluster shape: the last call's CTAs per shard (0: none yet), and
+// the resident clusters of 16 and of 8 at first use (-1: not asked yet).
+void arroyo_agg_probe_merge_cluster(int* out) {
+  out[0] = g_pm_cluster;
+  out[1] = g_pm_max16;
+  out[2] = g_pm_max8;
 }
 
 // The last K9 call on the device, per shard of its first S (at most
@@ -1446,23 +2000,45 @@ int arroyo_agg_probe_merge_rounds(int device, int S, int max_rounds, int* rounds
   return (int)cudaSuccess;
 }
 
+// K10's exchange: int32 words of its counts scratch for [S, L] partials.
+long long arroyo_shard_exchange_counts_words(int S, long long L) {
+  return (long long)S * ex_tiles(L) * (S + 1);
+}
+
+// K10's exchange: its kernel launches in this process (two a call).
+long long arroyo_shard_exchange_kernel_launches(void) { return g_ex_launches.load(); }
+
 // K10, steps 2-3. lanes->in: the partials' lanes, ->out: the send buffers
-// [S * S * dc], ->aux: the merged rows [S * M], M = S * dc + L.
+// [S * S * dc], ->aux: the merged rows [S * M], M = S * dc + L. counts:
+// arroyo_shard_exchange_counts_words(S, L) int32 words, written by the
+// first launch and read by the second (nothing to clear).
 int arroyo_shard_exchange(int device, int S, long long L, long long dc, const void* u_key,
                           const void* u_bin, const void* active, const Lanes* lanes, void* s_key,
                           void* s_bin, void* s_valid, void* m_key, void* m_bin, void* m_valid,
-                          void* stream) {
-  if (S < 1 || S > MAX_SHARDS || L < 1 || dc < 1 || !lanes_ok(lanes))
+                          void* counts, void* stream) {
+  if (S < 1 || S > MAX_SHARDS || L < 1 || dc < 1 || !lanes_ok(lanes) || counts == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const long long tiles = ex_tiles(L);
+  const long long fill_chunks = (dc + EX_FILL_SLOTS - 1) / EX_FILL_SLOTS;
+  const long long blocks = S * tiles + (long long)S * S * fill_chunks;
+  if (tiles > 65535 || blocks > 0x7fffffffLL || S * tiles * (S + 1) > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  ex_bucket<<<S, 1024, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const long long*>(u_key), static_cast<const int*>(u_bin),
-      static_cast<const unsigned char*>(active), *lanes, S, L, dc, (long long)S * dc + L,
-      static_cast<long long*>(s_key), static_cast<int*>(s_bin),
-      static_cast<unsigned char*>(s_valid), static_cast<long long*>(m_key),
-      static_cast<int*>(m_bin), static_cast<unsigned char*>(m_valid));
-  return (int)cudaGetLastError();
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  ExArgs a{static_cast<const long long*>(u_key), static_cast<const int*>(u_bin),
+           static_cast<const unsigned char*>(active), S, (int)tiles, (int)fill_chunks, L, dc,
+           (long long)S * dc + L, S > 1 ? 0xffffffffffffffffULL / (unsigned long long)S + 1ULL : 0ULL,
+           static_cast<int*>(counts), static_cast<long long*>(s_key), static_cast<int*>(s_bin),
+           static_cast<unsigned char*>(s_valid), static_cast<long long*>(m_key),
+           static_cast<int*>(m_bin), static_cast<unsigned char*>(m_valid)};
+  ex_count<<<dim3((unsigned)tiles, S), EX_THREADS, 0, s>>>(a);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  ++g_ex_launches;
+  ex_scatter<<<(unsigned)blocks, EX_THREADS, 0, s>>>(*lanes, a);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  ++g_ex_launches;
+  return (int)cudaSuccess;
 }
 
 // K10, step 7. lanes->in: the merged partials' lanes [S * M], ->out: the

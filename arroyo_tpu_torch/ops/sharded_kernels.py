@@ -7,11 +7,14 @@ aggregate, every array laid out ``[shard, ...]`` on one torch device:
 - ``agg_sort_reduce`` (K8): per shard, unique (key, bin) partials of a
   padded batch (B7, ``sort_reduce``);
 - ``agg_probe_merge`` (K9): partials merged into the open-addressing table
-  in place (B8, ``probe_merge``); ``probe_merge_rounds`` reads back the
-  rounds its last call ran per shard and the active partials at each;
+  in place (B8, ``probe_merge``), every round of a shard on one
+  thread-block cluster; ``probe_merge_rounds`` reads back the rounds its
+  last call ran per shard, the active partials at each and the cluster
+  size, ``probe_merge_kernel_launches`` counts the library's launches;
 - ``shard_exchange`` (K10): owner bucketing into the send buffers and the
-  rows kept local (B10 ``exchange_merge`` steps 2-3), and ``shard_spill``
-  (K10, step 7): rows the table could not place append to the spill buffer;
+  rows kept local (B10 ``exchange_merge`` steps 2-3) over the whole card
+  (``exchange_kernel_launches``: two a call), and ``shard_spill`` (K10,
+  step 7): rows the table could not place append to the spill buffer;
 - ``shard_extract`` (K11): the per-shard compaction of a close, with its
   frees (B10 ``local_extract``), into one packed buffer, in one launch of
   csrc/table_compact.cuh's compaction (``extract_kernel_launches`` counts
@@ -32,6 +35,7 @@ the CPU. Each wrapper counts its launches in ``<wrapper>.launches``.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
@@ -43,6 +47,8 @@ from .aggregate import _identity, probe_merge, sort_reduce
 MAX_LANES = 32  # csrc/sharded_agg.cu MAX_LANES
 MAX_SHARDS = 32  # csrc/sharded_agg.cu MAX_SHARDS (shard_exchange)
 CHUNK = 1024  # csrc/sharded_agg.cu CHUNK
+EXCHANGE_TILE = 1024  # csrc/sharded_agg.cu EX_TILE: rows a tile of K10's exchange buckets
+PROBE_GROUP = 16  # csrc/sharded_agg.cu PM_GROUP: K9's lists hold B rounded up to it
 INT32_LIMIT = (1 << 31) - 1
 _U64_MAX = (1 << 64) - 1
 
@@ -92,8 +98,18 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.arroyo_agg_sort_reduce_shards.argtypes = [i, i, p, p]
     lib.arroyo_agg_sort_reduce_shards.restype = ctypes.c_int
     lib.arroyo_agg_probe_merge.argtypes = [i, i, ll, p, p, p, lp, ll, p, p, p, i,
-                                           p, p, p, p, p, p, p]
-    lib.arroyo_shard_exchange.argtypes = [i, i, ll, ll, p, p, p, lp, p, p, p, p, p, p, p]
+                                           p, p, p, p, p, ctypes.c_uint, p]
+    lib.arroyo_agg_probe_merge_kernel_launches.argtypes = []
+    lib.arroyo_agg_probe_merge_kernel_launches.restype = ll
+    lib.arroyo_agg_probe_merge_list_len.argtypes = [ll]
+    lib.arroyo_agg_probe_merge_list_len.restype = ll
+    lib.arroyo_agg_probe_merge_cluster.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    lib.arroyo_agg_probe_merge_cluster.restype = None
+    lib.arroyo_shard_exchange.argtypes = [i, i, ll, ll, p, p, p, lp, p, p, p, p, p, p, p, p]
+    lib.arroyo_shard_exchange_counts_words.argtypes = [i, ll]
+    lib.arroyo_shard_exchange_counts_words.restype = ll
+    lib.arroyo_shard_exchange_kernel_launches.argtypes = []
+    lib.arroyo_shard_exchange_kernel_launches.restype = ll
     lib.arroyo_shard_spill.argtypes = [i, i, ll, p, p, p, lp, ll, p, p, p, p, p, p]
     lib.arroyo_agg_probe_merge_rounds.argtypes = [i, i, i, p, p]
     lib.arroyo_agg_probe_merge_rounds.restype = ctypes.c_int
@@ -274,6 +290,43 @@ def _check_table(table, kinds):
     return dev, shape
 
 
+def probe_merge_scratch(S: int, B: int, cap: int) -> dict:
+    """K9's scratch for ``[S, B]`` partials and ``[S, cap]`` tables, name ->
+    (shape, dtype): each CTA's segment of the partials left, (index, slot)
+    words in two buffers of B rounded up to PROBE_GROUP, a listed
+    partial's class, and the tagged claims (uint64 bits, kept per layout
+    and stream by ``_claims``)."""
+    bp = -(-B // PROBE_GROUP) * PROBE_GROUP
+    return {"list": ((S, 2, bp), torch.int64), "code": ((S, bp), torch.uint8),
+            "claims": ((S, cap), torch.int64)}
+
+
+_TAG_LIMIT = (1 << 32) - 1  # a claim's tag is its word's high 32 bits
+_claims_lock = threading.Lock()
+_claims_cache: dict = {}
+
+
+def _claims(S: int, cap: int, dev: torch.device, rounds: int) -> tuple[torch.Tensor, int]:
+    """K9's claims for one (S, cap) on ``dev``'s current stream and the
+    first tag of a call of ``rounds`` rounds (called with ``_claims_lock``
+    held across the launch, so the tags rise in launch order). The buffer
+    is zeroed once and then never cleared: a call's claims outrank every
+    earlier call's by their tags, until the 32-bit tags run out and it is
+    zeroed again."""
+    stream = torch.cuda.current_stream(dev).cuda_stream if dev.type == "cuda" else None
+    key = (S, cap, dev.type, dev.index, stream)
+    entry = _claims_cache.get(key)
+    if entry is None:
+        shape, dt = probe_merge_scratch(S, 1, cap)["claims"]
+        entry = _claims_cache[key] = [torch.zeros(shape, dtype=dt, device=dev), 1]
+    if entry[1] + rounds > _TAG_LIMIT:
+        entry[0].zero_()
+        entry[1] = 1
+    tag0 = entry[1]
+    entry[1] += rounds
+    return entry[0], tag0
+
+
 def agg_probe_merge(kinds: Sequence[str], table, u_key: torch.Tensor, u_bin: torch.Tensor,
                     active: torch.Tensor, u_accs: Sequence[torch.Tensor],
                     max_probes: int, oflow: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -281,7 +334,14 @@ def agg_probe_merge(kinds: Sequence[str], table, u_key: torch.Tensor, u_bin: tor
     ``(keys, bins, occ, accs)`` ``[S, cap]`` in place (B8); returns the
     still-active mask ``[S, B]`` (partials no probe round placed). Given
     ``oflow`` (int32 ``[S]``), each shard's still-active count adds to it
-    on the device."""
+    on the device. On the card one launch runs every round of a shard on a
+    thread-block cluster."""
+    if u_key.dim() == 2:  # the sizes first: a meta tensor of any size shows them
+        B = u_key.shape[1]
+        if B < 1 or B > INT32_LIMIT - PROBE_GROUP:
+            raise ValueError(f"{B} partials per shard; the kernel indexes them with int32")
+    if not 0 <= int(max_probes) < _TAG_LIMIT:
+        raise ValueError(f"max_probes {max_probes} is not in [0, {_TAG_LIMIT})")
     dev, tshape = _check_table(table, kinds)
     _check_2d(u_key, "u_key", (torch.int64,), None, dev)
     shape = tuple(u_key.shape)
@@ -294,8 +354,6 @@ def agg_probe_merge(kinds: Sequence[str], table, u_key: torch.Tensor, u_bin: tor
         if a.dtype != t.dtype:
             raise TypeError(f"partial lane {a.dtype} for a table lane of {t.dtype}")
     S, B = shape
-    if B < 1 or B > INT32_LIMIT:
-        raise ValueError(f"{B} partials per shard; the kernel indexes them with int32")
     if oflow is not None:
         _check_counter(oflow, S, dev, "overflow")
     if dev.type == "cpu":
@@ -303,20 +361,40 @@ def agg_probe_merge(kinds: Sequence[str], table, u_key: torch.Tensor, u_bin: tor
                                      oflow)
     keys_t, bins_t, occ_t, accs_t = table
     cap = tshape[1]
+    lib = build_library()
     still = torch.empty(shape, dtype=torch.bool, device=dev)
-    lst = torch.empty((S, 2, B), dtype=torch.int32, device=dev)
-    n_list = torch.empty(S, dtype=torch.int32, device=dev)
-    claims = torch.empty((S, cap), dtype=torch.int32, device=dev)
-    code = torch.empty(shape, dtype=torch.uint8, device=dev)
+    spec = probe_merge_scratch(S, B, cap)
+    lst = torch.empty(spec["list"][0], dtype=spec["list"][1], device=dev)
+    code = torch.empty(spec["code"][0], dtype=spec["code"][1], device=dev)
     ln = _lanes(kinds, [a.dtype for a in accs_t], inp=u_accs, out=accs_t)
-    err = build_library().arroyo_agg_probe_merge(
-        _dev_index(dev), S, cap, keys_t.data_ptr(), bins_t.data_ptr(), occ_t.data_ptr(),
-        ctypes.byref(ln), B, u_key.data_ptr(), u_bin.data_ptr(), active.data_ptr(),
-        int(max_probes), still.data_ptr(), lst.data_ptr(), n_list.data_ptr(), claims.data_ptr(),
-        code.data_ptr(), None if oflow is None else oflow.data_ptr(), kernels._stream(dev))
+    with _claims_lock:
+        claims, tag0 = _claims(S, cap, dev, max(1, int(max_probes)))
+        err = lib.arroyo_agg_probe_merge(
+            _dev_index(dev), S, cap, keys_t.data_ptr(), bins_t.data_ptr(), occ_t.data_ptr(),
+            ctypes.byref(ln), B, u_key.data_ptr(), u_bin.data_ptr(), active.data_ptr(),
+            int(max_probes), still.data_ptr(), lst.data_ptr(), claims.data_ptr(),
+            code.data_ptr(), None if oflow is None else oflow.data_ptr(), tag0,
+            kernels._stream(dev))
     kernels._raise_on(err, "agg_probe_merge")
     kernels._counted(agg_probe_merge)
     return still
+
+
+def probe_merge_kernel_launches() -> int:
+    """Kernels K9 has launched on the card in this process (builds the
+    library): the difference across one call is that call's launches."""
+    return build_library().arroyo_agg_probe_merge_kernel_launches()
+
+
+def probe_merge_cluster() -> dict:
+    """K9's cluster shape: the CTAs of a shard's cluster in the last call
+    (0: none yet), and the clusters of 16 and of 8 CTAs the card holds at
+    once, as cudaOccupancyMaxActiveClusters gave them at first use (-1:
+    not asked yet; 0 for 16: that size was refused)."""
+    out = (ctypes.c_int * 3)()
+    build_library().arroyo_agg_probe_merge_cluster(out)
+    return {"cluster": out[0], "max_active_clusters_16": out[1],
+            "max_active_clusters_8": out[2]}
 
 
 PROBE_REPORT_ROUNDS = 256  # csrc/sharded_agg.cu PM_REPORT_ROUNDS
@@ -327,14 +405,15 @@ def probe_merge_rounds(S: int, dev: torch.device, max_rounds: int = PROBE_REPORT
     32), as the kernel wrote it: ``rounds`` run, and ``active[s][r]`` the
     partials still active at the start of round r, for every r up to the
     shard's rounds (at r = rounds: those no round placed), or the first
-    ``max_rounds`` rounds' starts where it ran more. Waits for the device."""
+    ``max_rounds`` rounds' starts where it ran more, and the ``cluster``
+    size it ran on (CTAs a shard). Waits for the device."""
     rounds = (ctypes.c_int * S)()
     active = (ctypes.c_int * (S * (max_rounds + 1)))()
     err = build_library().arroyo_agg_probe_merge_rounds(_dev_index(dev), S, max_rounds, rounds,
                                                          active)
     kernels._raise_on(err, "agg_probe_merge_rounds")
     per = max_rounds + 1
-    return {"rounds": list(rounds),
+    return {"rounds": list(rounds), "cluster": probe_merge_cluster()["cluster"],
             "active": [list(active[s * per: s * per + (rounds[s] + 1 if rounds[s] <= max_rounds
                                                         else max_rounds)])
                        for s in range(S)]}
@@ -400,6 +479,13 @@ def _exchange_out(S, L, dc, dtypes, dev) -> Exchange:
         [torch.empty((S, M), dtype=dt, device=dev) for dt in dtypes])
 
 
+def exchange_scratch(S: int, L: int) -> dict:
+    """K10's exchange scratch for ``[S, L]`` partials, name -> (shape,
+    dtype): rows per (source shard, tile of EXCHANGE_TILE rows, owner or
+    inactive), written by its first launch and read by its second."""
+    return {"counts": ((S, -(-L // EXCHANGE_TILE), S + 1), torch.int32)}
+
+
 def shard_exchange(kinds: Sequence[str], u_key: torch.Tensor, u_bin: torch.Tensor,
                    active: torch.Tensor, u_accs: Sequence[torch.Tensor],
                    dest_cap: int) -> Exchange:
@@ -408,27 +494,39 @@ def shard_exchange(kinds: Sequence[str], u_key: torch.Tensor, u_bin: torch.Tenso
     the owner; ranks below ``dest_cap`` fill the send buffers (the rest
     with 0, 0, invalid and each lane's identity), and every partial lands
     in the merged rows' tail in owner order, valid when its rank is past
-    ``dest_cap`` (kept local)."""
+    ``dest_cap`` (kept local). On the card: two launches over the whole
+    card, the second writing the send buffers' fill with 16-byte stores."""
+    if u_key.dim() == 2 and not 1 <= u_key.shape[0] <= MAX_SHARDS:
+        raise ValueError(f"{u_key.shape[0]} shards (at most {MAX_SHARDS})")
+    if int(dest_cap) < 1:
+        raise ValueError(f"dest_cap {dest_cap} < 1")
     _check_2d(u_key, "u_key", (torch.int64,))
     dev, shape = u_key.device, tuple(u_key.shape)
     _check_2d(u_bin, "u_bin", (torch.int32,), shape, dev)
     _check_2d(active, "active", (torch.bool,), shape, dev)
     _check_lanes(kinds, u_accs, shape, dev, "u_accs")
     S, L = shape
-    if not 1 <= S <= MAX_SHARDS or dest_cap < 1:
-        raise ValueError(f"{S} shards (at most {MAX_SHARDS}), dest_cap {dest_cap}")
     if dev.type == "cpu":
         return shard_exchange_plain(kinds, u_key, u_bin, active, u_accs, dest_cap)
     out = _exchange_out(S, L, dest_cap, [a.dtype for a in u_accs], dev)
+    cshape, cdt = exchange_scratch(S, L)["counts"]
+    counts = torch.empty(cshape, dtype=cdt, device=dev)
     ln = _lanes(kinds, [a.dtype for a in u_accs], inp=u_accs, out=out.s_accs, aux=out.m_accs)
     err = build_library().arroyo_shard_exchange(
         _dev_index(dev), S, L, int(dest_cap), u_key.data_ptr(), u_bin.data_ptr(),
         active.data_ptr(), ctypes.byref(ln), out.s_key.data_ptr(), out.s_bin.data_ptr(),
         out.s_valid.data_ptr(), out.m_key.data_ptr(), out.m_bin.data_ptr(),
-        out.m_valid.data_ptr(), kernels._stream(dev))
+        out.m_valid.data_ptr(), counts.data_ptr(), kernels._stream(dev))
     kernels._raise_on(err, "shard_exchange")
     kernels._counted(shard_exchange)
     return out
+
+
+def exchange_kernel_launches() -> int:
+    """Kernels K10's exchange has launched on the card in this process
+    (builds the library): the difference across one call is that call's
+    launches."""
+    return build_library().arroyo_shard_exchange_kernel_launches()
 
 
 def shard_exchange_plain(kinds, u_key, u_bin, active, u_accs, dest_cap) -> Exchange:

@@ -142,8 +142,20 @@ non-zero, printing no result):
               shard and passes per shard's block as the library reports them
               equal to sort_reduce_plan's; K11 in each mode at q7m's table
               and the deployment state, and K9's reported rounds at q7m's
-              merged step held to its plain version run r rounds; then
-              timed, K8's launches a call held to the plan and the trace;
+              merged step held to its plain version run r rounds; K10's
+              exchange on its own edge cases (chip_smoke.exchange_cases:
+              1, 2, 3, 5, 7, 8 and 32 shards with keys at every range
+              start, L of 1 and a tile either side, dest_cap 1, one owner
+              past dest_cap, every row inactive) and K9 on its own
+              (chip_smoke.probe_cases: 4,096 partials on one home slot at
+              1 and 32 shards, matches and claims in one round, max_probes
+              exhausted and 0), each with its launches a call from the
+              library's counter (exchange_kernel_launches: 2,
+              probe_merge_kernel_launches: 1) and K9's rounds and cluster;
+              then timed at q7m's shapes, mesh_ab's (8 x 2,048, table
+              8192) and the deployment state, K8's launches a call held to
+              the plan and the trace, K9's and K10's to the library's
+              count;
 20. hash_agg -- the single-device table (B9: DeviceHashAggregator, K8 and
               K9 per batch, K11 per close and packed scan at one shard, K12's
               walk where a scan holds more than emit_cap rows, K13 frees):
@@ -2477,6 +2489,7 @@ SHARDED_SOURCE = "arroyo_tpu_torch/csrc/sharded_agg.cu"
 Q7M_LANES = [("max", torch.int64), ("count", torch.int64), ("max", torch.int64)]
 DEPLOY_LANES = [("sum", torch.int64), ("count", torch.int64), ("min", torch.int64),
                 ("max", torch.int64), ("sum", torch.float64)]
+MESH_AB_LANES = [("count", torch.int64), ("sum", torch.int64)]  # mesh_ab's COUNT, SUM(counter)
 SHARDED_KERNELS = ("agg_sort_reduce", "agg_probe_merge", "shard_exchange", "shard_spill",
                    "shard_extract")
 
@@ -2679,6 +2692,241 @@ def sharded_cases(rng, dev) -> list:
                             n_keys=500, max_key_rows=3, valid_frac=0.8,
                             closes=[(0, np.iinfo(np.int32).max, 5)]))
     return out, {k: sorted(v) for k, v in checks.items()}
+
+
+# ---------------------------------------------------------------- K10 and K9 edge cases
+# (shared with tests/test_torch_exchange_probe.py, which holds the plain
+# versions to the JAX package on the CPU; here the kernels are held to the
+# plain versions on the card)
+
+U64_MAX = (1 << 64) - 1
+I64 = np.iinfo(np.int64)
+EXCHANGE_TILE = sharded_kernels.EXCHANGE_TILE
+# every lane width and fill pattern: 8-byte and 4-byte identities, zero and not
+EXCHANGE_LANES = [("max", torch.int64), ("count", torch.int64), ("sum", torch.float64),
+                  ("min", torch.float32), ("sum", torch.int32), ("max", torch.uint64)]
+PROBE_LANES = EXCHANGE_LANES
+_MIX1, _MIX2 = 0xFF51AFD7ED558CCD, 0xC4CEB9FE1A85EC53
+
+
+def owner_boundary_keys(S: int) -> np.ndarray:
+    """int64 keys whose uint64 bits lie at every range start of S shards
+    (j (U64_MAX // S + 1), j = 1 .. S - 1) and either side of it, and 0, 1,
+    -1, INT64_MIN and INT64_MAX."""
+    out = [0, 1, -1, int(I64.min), int(I64.max)]
+    if S > 1:
+        R = U64_MAX // S + 1
+        for j in range(1, S):
+            for d in (-1, 0, 1):
+                u = (j * R + d) & U64_MAX
+                out.append(u - (1 << 64) if u >= 1 << 63 else u)
+    return np.array(out, dtype=np.int64)
+
+
+def lane_values(rng, lanes, shape) -> list:
+    """numpy values of each (kind, torch dtype) lane: floats with -0.0 and
+    infinities, integers over a quarter of their range, uint64 over all."""
+    out = []
+    for _kind, dt in lanes:
+        npdt = NP_DT[dt]
+        if dt.is_floating_point:
+            v = np.round(rng.normal(0, 1000, shape), 2).astype(npdt)
+            pick = rng.random(shape)
+            v[pick < 0.05] = -0.0
+            v[(pick >= 0.05) & (pick < 0.07)] = np.inf
+            v[(pick >= 0.07) & (pick < 0.09)] = -np.inf
+        elif dt == torch.uint64:
+            v = rng.integers(0, U64_MAX, shape, dtype=np.uint64, endpoint=True)
+        else:
+            info = np.iinfo(npdt)
+            v = rng.integers(info.min // 4, info.max // 4, shape).astype(npdt)
+        out.append(v)
+    return out
+
+
+def exchange_cases(rng) -> list:
+    """K10's exchange edge cases, numpy: S in {1, 2, 3, 5, 7, 8, 32} with
+    keys at every range start and either side of it, the int64 limits and
+    -1; every row inactive; one owner taking more than dest_cap rows; dest_cap
+    1; L of 1 and one tile (EXCHANGE_TILE rows) less and more, and more than
+    two tiles at 7 shards."""
+    out = []
+
+    def case(label, S, L, dc, active_frac=0.8, hot_owner=None):
+        key = rng.integers(I64.min, I64.max, (S, L), dtype=np.int64, endpoint=True)
+        edges = owner_boundary_keys(S)
+        for s in range(S):
+            at = rng.permutation(L)[:len(edges)]
+            key[s, at] = edges[:len(at)]
+        if hot_owner is not None:
+            start = np.uint64(hot_owner * (U64_MAX // S + 1))
+            u = start + rng.integers(0, 1 << 40, (S, L)).astype(np.uint64)
+            key = np.where(rng.random((S, L)) < 0.6, u.view(np.int64), key)
+        out.append({"label": label, "S": S, "L": L, "dc": dc, "key": key,
+                    "bins": rng.integers(-5, 5, (S, L)).astype(np.int32),
+                    "active": rng.random((S, L)) < active_frac,
+                    "vals": lane_values(rng, EXCHANGE_LANES, (S, L))})
+
+    for S in (1, 2, 3, 5, 7, 8, 32):
+        case(f"{S} shards, keys at the range starts", S, 300, 64)
+    case("every row inactive", 4, 500, 64, active_frac=0.0)
+    case("one owner past dest_cap", 8, 1500, 16, hot_owner=3)
+    case("dest_cap 1", 5, 200, 1)
+    case("L 1", 3, 1, 4)
+    case("L one tile less", 4, EXCHANGE_TILE - 1, 256)
+    case("L one tile more", 4, EXCHANGE_TILE + 1, 256)
+    case("L past two tiles, 7 shards", 7, 2 * EXCHANGE_TILE + 1, 100, hot_owner=6)
+    return out
+
+
+def exchange_tensors(c: dict, dev) -> tuple:
+    """(kinds, u_key, u_bin, active, u_accs) of an exchange case on dev."""
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    return ([k for k, _ in EXCHANGE_LANES], t(c["key"]), t(c["bins"]), t(c["active"]),
+            [t(v) for v in c["vals"]])
+
+
+def _xs33(z):
+    return z ^ (z >> np.uint64(33))
+
+
+def keys_at_home(rng, n: int, home: int, cap: int, bin_: int = 0) -> np.ndarray:
+    """n distinct int64 keys whose first probe slot with ``bin_`` is
+    ``home`` (K9's mix(key ^ bin * C1) & (cap - 1)): the mix inverted (the
+    33-bit xorshift is its own inverse, the multiply by C2 has an inverse
+    mod 2^64) from random words whose low bits are ``home``."""
+    mask = np.uint64(cap - 1)
+    z2 = (rng.integers(0, U64_MAX, 4 * n, dtype=np.uint64, endpoint=True) & ~mask) | np.uint64(home)
+    z2 = np.unique(z2)[:n]
+    inv = np.uint64(pow(_MIX2, -1, 1 << 64))
+    with np.errstate(over="ignore"):
+        z0 = _xs33(_xs33(z2) * inv)
+        key = z0 ^ (np.uint64(bin_ & U64_MAX) * np.uint64(_MIX1))
+    return rng.permutation(key.view(np.int64))
+
+
+def probe_home_np(key: np.ndarray, bins: np.ndarray, cap: int) -> np.ndarray:
+    """K9's first probe slot of each (key, bin), in numpy."""
+    with np.errstate(over="ignore"):
+        z = key.view(np.uint64) ^ (bins.astype(np.int64).view(np.uint64) * np.uint64(_MIX1))
+        z = _xs33(z) * np.uint64(_MIX2)
+        z = _xs33(z)
+    return (z & np.uint64(cap - 1)).astype(np.int64)
+
+
+def probe_cases(rng, hot: int = 300, hot_shards=(1, 8)) -> list:
+    """K9's edge cases, numpy: tables (keys, bins, occ, accs [S, cap]) and
+    unique partials (u_key, u_bin, active, u_accs [S, B]): ``hot`` partials
+    on one home slot (the highest index wins each round) at each of
+    ``hot_shards``; matches and claims in one round (entries at some
+    partials' home slots, stale keys in freed slots); max_probes exhausted
+    with the overflow counter; a list longer than one CTA's threads;
+    max_probes 0; random tables at 1 and 8 shards."""
+    out = []
+
+    def case(label, S, cap, B, max_probes, n_active, occupied=0.3, hot_home=False,
+             at_home=0.0, stale=0.0):
+        keys = rng.integers(I64.min, I64.max, (S, cap), dtype=np.int64, endpoint=True)
+        bins = rng.integers(0, 4, (S, cap)).astype(np.int32)
+        occ = rng.random((S, cap)) < occupied
+        accs = lane_values(rng, PROBE_LANES, (S, cap))
+        u_key = np.zeros((S, B), np.int64)
+        u_bin = np.zeros((S, B), np.int32)
+        active = np.zeros((S, B), bool)
+        for s in range(S):
+            pos = np.sort(rng.permutation(B)[:n_active])
+            if hot_home:
+                k = keys_at_home(rng, n_active, int(rng.integers(cap)), cap)
+                b = np.zeros(n_active, np.int32)
+            else:
+                k = np.unique(rng.integers(I64.min, I64.max, 2 * n_active, dtype=np.int64))
+                k = rng.permutation(k)[:n_active]
+                b = rng.integers(0, 4, n_active).astype(np.int32)
+            u_key[s, pos], u_bin[s, pos], active[s, pos] = k, b, True
+            home = probe_home_np(k, b, cap)
+            # entries of some partials at their home slot: a match in round 0
+            # beside claims of empty slots; stale copies in freed slots
+            for pick, occupied_now in ((rng.random(n_active) < at_home, True),
+                                       (rng.random(n_active) < stale, False)):
+                keys[s, home[pick]] = k[pick]
+                bins[s, home[pick]] = b[pick]
+                occ[s, home[pick]] = occupied_now
+        out.append({"label": label, "S": S, "cap": cap, "B": B, "max_probes": max_probes,
+                    "table": (keys, bins, occ, accs), "u_key": u_key, "u_bin": u_bin,
+                    "active": active, "u_accs": lane_values(rng, PROBE_LANES, (S, B)),
+                    "oflow": rng.integers(0, 100, S).astype(np.int32)})
+
+    for S in hot_shards:
+        cap = 1 << max(8, int(hot - 1).bit_length() + 1)
+        case(f"{hot} partials on one home slot, {S} shards", S, cap, hot + 37, 64 if hot > 1000
+             else 16, hot, hot_home=True)
+    case("matches and claims in one round", 2, 256, 200, 8, 120, at_home=0.4, stale=0.2)
+    case("max_probes exhausted", 4, 64, 200, 2, 150, occupied=0.5)
+    case("a list past one CTA", 1, 4096, 3000, 16, 2500, occupied=0.2, at_home=0.1)
+    case("max_probes 0", 2, 64, 40, 0, 30)
+    for S in (1, 8):
+        case(f"{S} shards", S, 512, 300, 8, 200, at_home=0.2, stale=0.1)
+    return out
+
+
+def probe_tensors(c: dict, dev) -> tuple:
+    """(kinds, table, (u_key, u_bin, active, u_accs), oflow) of a probe
+    case on dev."""
+    t = lambda a: torch.from_numpy(np.array(a)).to(dev)  # noqa: E731  (a copy: K9 writes in place)
+    keys, bins, occ, accs = c["table"]
+    return ([k for k, _ in PROBE_LANES], (t(keys), t(bins), t(occ), [t(a) for a in accs]),
+            (t(c["u_key"]), t(c["u_bin"]), t(c["active"]), [t(a) for a in c["u_accs"]]),
+            t(c["oflow"]))
+
+
+def build_library_words(S: int, L: int) -> int:
+    """The int32 words of K10's counts scratch the library asks for."""
+    return sharded_kernels.build_library().arroyo_shard_exchange_counts_words(S, L)
+
+
+def check_exchange_case(c: dict, dev) -> dict:
+    """K10's exchange against its plain version on one case, exactly, and
+    its launches a call by the library's count."""
+    kinds, *u = exchange_tensors(c, dev)
+    S, dc = c["S"], c["dc"]
+    recv = S * dc
+    before = sharded_kernels.exchange_kernel_launches()
+    ex = sharded_kernels.shard_exchange(kinds, *u, dc)
+    torch.cuda.synchronize()
+    n = sharded_kernels.exchange_kernel_launches() - before
+    ex_p = sharded_kernels.shard_exchange_plain(kinds, *u, dc)
+    require_same(f"shard_exchange {c['label']} send", ex[:4], ex_p[:4])
+    require_same(f"shard_exchange {c['label']} kept",
+                 [t[:, recv:] for t in ex[4:7]] + [[t[:, recv:] for t in ex.m_accs]],
+                 [t[:, recv:] for t in ex_p[4:7]] + [[t[:, recv:] for t in ex_p.m_accs]])
+    if n != 2:
+        raise AssertionError(f"shard_exchange {c['label']}: {n} kernel launches, not 2")
+    return {"label": c["label"], "shards": S, "rows": c["L"], "dest_cap": dc,
+            "sent": int(ex.s_valid.sum()), "kept_local": int(ex.m_valid[:, recv:].sum()),
+            "kernel_launches_per_call": n}
+
+
+def check_probe_case(c: dict, dev) -> dict:
+    """K9 against its plain version on one case, exactly (table, still,
+    the overflow counter), its reported rounds held to the plain version
+    run r rounds, one launch a call by the library's count."""
+    kinds, table, u, oflow = probe_tensors(c, dev)
+    mp = c["max_probes"]
+    table_p, oflow_p = clone_nested(table), oflow.clone()
+    base = clone_nested(table)
+    before = sharded_kernels.probe_merge_kernel_launches()
+    still = sharded_kernels.agg_probe_merge(kinds, table, *u, mp, oflow)
+    torch.cuda.synchronize()
+    n = sharded_kernels.probe_merge_kernel_launches() - before
+    still_p = sharded_kernels.agg_probe_merge_plain(kinds, table_p, *u, mp, oflow_p)
+    require_same(f"agg_probe_merge {c['label']}", [still, *table[:3], table[3], oflow],
+                 [still_p, *table_p[:3], table_p[3], oflow_p])
+    if n != 1:
+        raise AssertionError(f"agg_probe_merge {c['label']}: {n} kernel launches, not 1")
+    rounds = k9_rounds_check(c["label"], kinds, base, u, mp, dev)
+    return {"label": c["label"], "shards": c["S"], "cap": c["cap"], "partials": c["B"],
+            "active": int(u[2].sum()), "max_probes": mp, "unplaced": int(still.sum()),
+            "rounds": rounds, "cluster": sharded_kernels.probe_merge_cluster()}
 
 
 # K8's edge-case lanes: every dtype and kind, a count lane of ones (None)
@@ -2930,9 +3178,13 @@ def sharded_bytes(kinds_lanes, S, L, M, dc, cap, E, n) -> dict:
         # reads the entry and writes its lanes
         "agg_probe_merge": (2 * S * M + n["segments"] * pay + n["claims"] * (pay + 2)
                             + n["matches"] * (pay + 1 + lane_b)),
-        # flags in, send and kept flags out; each active partial read, and
-        # written once (sent or kept)
-        "shard_exchange": S * L + S * S * dc + S * L + 2 * n["local_active"] * pay,
+        # flags in, each active partial read; out, what the contract
+        # writes: every send slot (key, bin, flag and lanes, the fill
+        # included) and every local row of the owner order
+        "shard_exchange": S * L + n["local_active"] * pay + (S * S * dc + S * L) * (pay + 1),
+        # the flag-only figure, beside it so that earlier readings stay
+        # comparable: a padding slot or row costs its flag alone
+        "shard_exchange_flag_only": S * L + S * S * dc + S * L + 2 * n["local_active"] * pay,
         # still flags in; each still-active partial read and appended; the
         # fill and overflow counters read and written
         "shard_spill": S * M + 2 * n["still"] * pay + S * 16,
@@ -2987,6 +3239,39 @@ def k8_launch_report(call, plan: dict, timing: dict, what: str, S: int, dev) -> 
     return {"ms": ms, "kernel_launches_per_call": n, "trace_kernel_launches_per_call": trace,
             **{k: report[k] for k in ("path", "passes", "skipped", "memsets", "synced", "live",
                                       "max_live", "block_passes", "read_back_wait_us")}}
+
+
+# a call's kernels by name, as the trace names them, and launches a call
+K10_KERNELS = {"ex_count": 1, "ex_scatter": 1}
+K9_KERNELS = {"pm_cluster": 1}
+
+
+def library_launch_report(call, counter, timing: dict, kernels: dict, what: str) -> dict:
+    """One call's kernel launches by the library's own counter (the
+    difference of ``counter()`` across it), held to ``kernels`` (name ->
+    launches a call) and to the trace's (a trace can drop a launch, never
+    add one); the call's device time: each kernel's mean launch in
+    ``timing``'s trace times its launches a call (CUDA events' time where
+    the trace held no device time)."""
+    before = counter()
+    call()
+    torch.cuda.synchronize()
+    n = counter() - before
+    if n != sum(kernels.values()):
+        raise AssertionError(f"{what}: {n} kernel launches a call, expected {kernels}")
+    ops, us = timing["device_ops_per_call"], timing["device_us_per_call"]
+    trace = sum(max(1, round(c)) for c in ops.values())
+    if trace > n:
+        raise AssertionError(f"{what}: {n} kernel launches a call, {trace} in the trace")
+    ms = 0.0
+    for name, t in us.items():
+        kernel = name.split("(")[0].split("<")[0].replace("void ", "")
+        if kernel not in kernels:
+            raise AssertionError(f"{what}: {name} in the trace is none of its kernels")
+        ms += t / max(1, round(ops[name])) * kernels[kernel] / 1e3
+    if timing["method"] == "events":
+        ms = timing["device_ms"]
+    return {"ms": ms, "kernel_launches_per_call": n, "trace_kernel_launches_per_call": trace}
 
 
 def time_fresh(fn, make_inputs, reps: int) -> dict:
@@ -3083,16 +3368,27 @@ def time_sharded(rng, dev, label, S, cap, L, dc, lanes, n_keys, valid_frac, reps
         rows=[S, M], local_ms=local_r["ms"], local_rows=[S, L],
         us_per_call=merged_k["device_us_per_call"],
         local_us_per_call=local_k["device_us_per_call"], calls=merged_r, local_calls=local_r)
-    row("shard_exchange",
-        measure(lambda: sharded_kernels.shard_exchange(kinds, *u, dc), reps),
+    ex_call = lambda: sharded_kernels.shard_exchange(kinds, *u, dc)  # noqa: E731
+    ex_k = measure(ex_call, reps)
+    ex_r = library_launch_report(ex_call, sharded_kernels.exchange_kernel_launches, ex_k,
+                                 K10_KERNELS, f"K10 at {label}")
+    row("shard_exchange", dict(ex_k, device_ms=ex_r["ms"]),
         measure(lambda: sharded_kernels.shard_exchange_plain(kinds, *u, dc), reps),
-        rows=[S, L], dest_cap=dc)
+        rows=[S, L], dest_cap=dc, us_per_call=ex_k["device_us_per_call"], **ex_r,
+        bound_flag_only_ms=nbytes["shard_exchange_flag_only"] / HBM_BYTES_PER_S * 1e3,
+        bytes_flag_only=nbytes["shard_exchange_flag_only"])
     mk_table = lambda: (clone_nested(table), )
-    row("agg_probe_merge",
-        time_fresh(lambda tb: sharded_kernels.agg_probe_merge(kinds, tb, *c, 64), mk_table, reps),
+    pm_call = lambda tb: sharded_kernels.agg_probe_merge(kinds, tb, *c, 64)  # noqa: E731
+    pm_k = time_fresh(pm_call, mk_table, reps)
+    pm_r = library_launch_report(lambda: pm_call(*mk_table()),
+                                 sharded_kernels.probe_merge_kernel_launches, pm_k, K9_KERNELS,
+                                 f"K9 at {label}")
+    row("agg_probe_merge", dict(pm_k, device_ms=pm_r["ms"]),
         time_fresh(lambda tb: sharded_kernels.agg_probe_merge_plain(kinds, tb, *c, 64), mk_table,
                    max(2, reps // 10)),
-        partials=[S, M], active=segments, claims=claims, table=[S, cap], rounds=rounds)
+        partials=[S, M], active=segments, claims=claims, table=[S, cap], rounds=rounds,
+        us_per_call=pm_k["device_us_per_call"], cluster=sharded_kernels.probe_merge_cluster(),
+        **pm_r)
     mk_spill = lambda: (clone_nested(spill), )
     row("shard_spill",
         time_fresh(lambda sp: sharded_kernels.shard_spill(kinds, c[0], c[1], c[3], still, sp),
@@ -3130,15 +3426,35 @@ def sharded_phase(dev) -> dict:
     log("sharded: K8 edge cases")
     k8_library_matches_plan()
     k8_cases = [check_sort_reduce_case(c, dev) for c in sort_reduce_edge_cases(rng)]
+    log("sharded: K10 and K9 edge cases")
+    for S, L in ((1, 1), (8, 8192), (32, 1025)):
+        words = build_library_words(S, L)
+        if words != int(np.prod(sharded_kernels.exchange_scratch(S, L)["counts"][0])):
+            raise AssertionError(f"K10's counts scratch at {S} x {L}: the library wants {words}")
+    for B in (1, 16, 17, 139264):
+        got = sharded_kernels.build_library().arroyo_agg_probe_merge_list_len(B)
+        if got != sharded_kernels.probe_merge_scratch(1, B, 1)["list"][0][2]:
+            raise AssertionError(f"K9's list for {B} partials: the library wants {got}")
+    k10_cases = [check_exchange_case(c, dev) for c in exchange_cases(rng)]
+    k9_cases = [check_probe_case(c, dev) for c in probe_cases(rng, hot=4096, hot_shards=(1, 32))]
     timing = {
         "q7m": time_sharded(rng, dev, "q7m fused", MESH_N, 65536, 8192,
                             BENCH_BATCH // (MESH_N // 2), Q7M_LANES, 60000, 0.94, TIMING_REPS,
                             k9_rounds=True),
+        # bench.py --mesh-ab's shape: 8 shards, table 8192, batch capacity
+        # 2048 (a quarter of it valid: 4096-row source batches over 8 shards)
+        "mesh_ab": time_sharded(rng, dev, "mesh_ab", MESH_N, MESH_AB["device.table-capacity"],
+                                MESH_AB["device.batch-capacity"],
+                                MESH_AB["device.batch-capacity"] // (MESH_N // 2), MESH_AB_LANES,
+                                MESH_AB_KEYS, MESH_AB_BATCH / MESH_N
+                                / MESH_AB["device.batch-capacity"], TIMING_REPS, k9_rounds=True),
         "deployment": time_sharded(rng, dev, "deployment", MESH_N, 1 << 20, 65536, 16384,
                                    DEPLOY_LANES, 1 << 22, 1.0, 3),
     }
-    info = {"phase": "sharded", "cases_checked": len(cases) + len(k8_cases), "max_abs_err": 0.0,
-            "cases": cases, "k8_cases": k8_cases, "shapes_checked": checks, "timing": timing}
+    info = {"phase": "sharded",
+            "cases_checked": len(cases) + len(k8_cases) + len(k10_cases) + len(k9_cases),
+            "max_abs_err": 0.0, "cases": cases, "k8_cases": k8_cases, "k10_cases": k10_cases,
+            "k9_cases": k9_cases, "shapes_checked": checks, "timing": timing}
     emit(info)
     return info
 
@@ -3902,12 +4218,16 @@ def time_hash(dev) -> dict:
         measure(lambda: P.sort_reduce(kinds, key, bins, None, vals, 0, m)),
         rows=[1, L], valid=m, us_per_call=k8["device_us_per_call"], calls=k8_r)
     fresh = lambda: (clone_nested(table), oflow.clone())  # noqa: E731
-    row("agg_probe_merge",
-        time_fresh(lambda tb, of: sharded_kernels.agg_probe_merge(kinds, tb, *u, 64, of), fresh,
-                   TIMING_REPS),
+    pm_call = lambda tb, of: sharded_kernels.agg_probe_merge(kinds, tb, *u, 64, of)  # noqa: E731
+    pm_k = time_fresh(pm_call, fresh, TIMING_REPS)
+    pm_r = library_launch_report(lambda: pm_call(*fresh()),
+                                 sharded_kernels.probe_merge_kernel_launches, pm_k, K9_KERNELS,
+                                 "K9 at B9's q7 step")
+    row("agg_probe_merge", dict(pm_k, device_ms=pm_r["ms"]),
         time_fresh(lambda tb, of: P.probe_merge(kinds, tb, *u, 64, of), fresh, 5),
         partials=[1, L], active=segments, claims=claims, table=[1, Q7_HASH["cap"]],
-        rounds=rounds)
+        rounds=rounds, us_per_call=pm_k["device_us_per_call"],
+        cluster=sharded_kernels.probe_merge_cluster(), **pm_r)
 
     def nonzero_close(tb):
         sel = torch.nonzero(tb[2][0] & (tb[1][0] >= lo) & (tb[1][0] < lo + 1)).squeeze(1)[:E]
@@ -4280,7 +4600,26 @@ def kernel_rows(res: dict) -> list:
                                               ("ms", "plain_ms", "bound_ms", "library_ms")}
             row["hash_agg"]["hop_launches"] = ha["launches"]["q5 hop"][name]
             row["q5m_launches"] = res["q5m"]["fused"]["launches"][name]
+        if name in ("agg_probe_merge", "shard_exchange"):
+            # kernels a call by the library's count; mesh_ab's shape and the
+            # deployment state beside q7m's
+            row["kernel_launches_per_call"] = t["kernel_launches_per_call"]
+            for shape in ("mesh_ab", "deployment"):
+                o = res["sharded"]["timing"][shape][name]
+                row[shape] = {k: o[k] for k in ("ms", "plain_ms", "bound_ms",
+                                                "kernel_launches_per_call")}
+            row["mesh_ab"]["launches"] = res["mesh_ab"]["fused"]["launches"][name]
+        if name == "shard_exchange":
+            row["bound_flag_only_ms"] = t["bound_flag_only_ms"]
+            for shape in ("mesh_ab", "deployment"):
+                row[shape]["bound_flag_only_ms"] = res["sharded"]["timing"][shape][name][
+                    "bound_flag_only_ms"]
+            row["edge_cases"] = len(res["sharded"]["k10_cases"])
         if name == "agg_probe_merge":
+            row["cluster"] = t["cluster"]
+            row["edge_cases"] = len(res["sharded"]["k9_cases"])
+            row["hash_agg"]["cluster"] = ht[name]["cluster"]
+            row["hash_agg"]["kernel_launches_per_call"] = ht[name]["kernel_launches_per_call"]
             row["rounds_q7m_merged_step"] = t["rounds"]
             row["hash_agg"]["rounds_at_drive_state"] = ht[name]["rounds"]
             row["hash_agg"]["rounds_q7_drive"] = {
