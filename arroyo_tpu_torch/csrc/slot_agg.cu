@@ -14,16 +14,23 @@
 //      outside [0, cap) are dropped. A lane with no value pointer adds 1
 //      (a count lane in the hot path ships no values).
 //   K2 slot_region_read_pack replaces _build_slot_jax make_read_multi's
-//      _pack: for k region bases, R slots of every lane, int lanes widened
-//      into one int64 buffer (uint64 as its bits, as _pack's
-//      astype(int64)) and float lanes into one float64 buffer, laid out
-//      [base][lane of its class][R].
+//      go (_pack, then _clear when it clears): for k region bases, R slots
+//      of every lane, int lanes widened into one int64 buffer (uint64 as
+//      its bits, as _pack's astype(int64)) and float lanes into one float64
+//      buffer, laid out [base][lane of its class][R]; in its clear mode the
+//      same launch then resets every read slot to the lane's identity.
 //   K3 slot_region_clear     replaces _clear / clear: R slots from each
-//      base reset to the lane's identity. After a read with clear it runs
-//      as a second launch on the same stream: bases may repeat (the host
-//      pads k to a power of two by duplicating the first base), so one
-//      pass that read and cleared could clear a region before its
-//      duplicate was read.
+//      base reset to the lane's identity, without a read (the same kernel
+//      body as K2, in its CLEAR mode).
+//      K2 and K3 are one kernel, region_kernel<READ, CLEAR>. The host pads
+//      k to a power of two by duplicating the first base, so bases repeat;
+//      the wrapper hands the kernel each DISTINCT base once, with a mask of
+//      the output positions that name it. One thread reads a slot once,
+//      writes it to every masked position, and then (CLEAR) stores the
+//      identity into the same word, which no other thread touches: that is
+//      the reference's read-every-base-then-clear-every-base, exactly, as
+//      long as distinct regions do not overlap (the wrapper refuses
+//      overlapping bases in the read-and-clear mode).
 //   K7 slot_gather           replaces _build_slot_jax make_read_slots.go:
 //      for k slots (int32 or int64 indices), every lane's value at each
 //      slot, widened as K2 widens, laid out [lane of its class][k]. A slot
@@ -39,9 +46,18 @@
 // serialise on their slots. The design reads each row's slot once and
 // walks the lanes in a loop inside the thread, so the slot load is shared
 // and neighbouring threads touch neighbouring rows (coalesced loads of
-// slots and values). K2 and K3 stream R contiguous slots per lane; one
-// thread per output element, neighbouring threads on neighbouring slots,
-// so every load and store is coalesced. K7 gives one thread to each
+// slots and values). K2 and K3 stream R contiguous slots per lane, but at
+// the main path's shapes (one 2048-slot region of three lanes, 48 KB) a
+// call is launch latency and one round trip to memory, not bytes; so the
+// kernel does as little per element as it can. Its grid is 3-D (blockIdx.z
+// the lane, blockIdx.y the distinct region, blockIdx.x a chunk of it), so
+// a thread makes one round trip and its lane's dtype is uniform across the
+// block; indices are 32-bit (the wrapper refuses R >= 2^31), with no
+// division; each thread owns a quad of four slots aligned to the state
+// (one 16-byte load and store of a 4-byte lane, two of an 8-byte lane;
+// the widened outputs in 16-byte stores where aligned). A quad cut by the
+// region's ends, or a lane or output off a 16-byte boundary, takes scalar
+// accesses in the same code. K7 gives one thread to each
 // gathered slot: the slot is loaded once (coalesced) and the thread walks
 // the lanes, so each lane's random read of the state is independent of the
 // others and the stores to [lane][k] are coalesced. Its bound is the bytes
@@ -49,7 +65,9 @@
 // are random, so each costs a 32-byte sector unless the state sits in L2
 // (qu's 262144 slots x 4 lanes x 8 B = 8 MB does). The lane table and the
 // bases are passed by value in the kernel parameters: no device
-// allocation and no host-to-device copy for them.
+// allocation and no host-to-device copy for them. empty_kernel, launched
+// on K2's grid, is the card's launch floor for such a kernel (chip_smoke.py
+// times it beside K2).
 //
 // Exactness. Integer adds wrap (two's complement, as XLA's); integer
 // min/max are atomics, exact in any order (uint64 with the unsigned
@@ -90,6 +108,7 @@
 #define MAX_LANES 32
 #define MAX_BASES 16
 #define THREADS 256
+#define REGION_THREADS 128  // K2 / K3: a 2048-slot region spreads over four blocks
 
 enum { KIND_ADD = 0, KIND_MIN = 1, KIND_MAX = 2 };
 enum { DT_I32 = 0, DT_I64 = 1, DT_F32 = 2, DT_F64 = 3, DT_U64 = 4 };
@@ -107,15 +126,17 @@ struct ScatterArgs {
 
 __host__ __device__ __forceinline__ bool is_float(int dt) { return dt == DT_F32 || dt == DT_F64; }
 
-struct PackArgs {
-  const void* state[MAX_LANES];
+// K2 / K3: the lanes and the distinct regions of one launch
+struct RegionArgs {
+  void* state[MAX_LANES];
   int dtype[MAX_LANES];
-  int pos[MAX_LANES];  // the lane's index among the lanes of its class
-  long long bases[MAX_BASES];
-  int n_lanes;
+  int pos[MAX_LANES];                   // the lane's index among the lanes of its class
+  unsigned long long ident[MAX_LANES];  // identity bit pattern, low bytes used for 32-bit lanes
+  long long base[MAX_BASES];            // the distinct bases, one per blockIdx.y
+  unsigned mask[MAX_BASES];             // bit j: output position j reads this base
   int n_int;
   int n_flt;
-  int k;
+  int n_lanes;
 };
 
 struct GatherArgs {
@@ -123,15 +144,6 @@ struct GatherArgs {
   int dtype[MAX_LANES];
   int pos[MAX_LANES];  // the lane's index among the lanes of its class
   int n_lanes;
-};
-
-struct ClearArgs {
-  void* state[MAX_LANES];
-  int dtype[MAX_LANES];
-  unsigned long long ident[MAX_LANES];  // identity bit pattern, low bytes used for 32-bit lanes
-  long long bases[MAX_BASES];
-  int n_lanes;
-  int k;
 };
 
 // v replaces old under the NaN-propagating order with -0.0 < +0.0
@@ -438,50 +450,136 @@ __global__ void add_chain_kernel(const double* __restrict__ x, long long n, int 
   }
 }
 
-__global__ void read_pack_kernel(PackArgs a, long long R, long long* __restrict__ ibuf,
-                                 double* __restrict__ fbuf) {
-  const long long total = (long long)a.k * a.n_lanes * R;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x; idx < total; idx += stride) {
-    const long long r = idx % R;
-    const long long t = idx / R;
-    const int lane = (int)(t % a.n_lanes);
-    const int j = (int)(t / a.n_lanes);
-    const long long src = a.bases[j] + r;
-    const void* st = a.state[lane];
-    switch (a.dtype[lane]) {
-      case DT_I64:
-      case DT_U64:  // the bits as they are
-        ibuf[((long long)j * a.n_int + a.pos[lane]) * R + r] = static_cast<const long long*>(st)[src];
-        break;
-      case DT_I32:
-        ibuf[((long long)j * a.n_int + a.pos[lane]) * R + r] = (long long)static_cast<const int*>(st)[src];
-        break;
-      case DT_F64:
-        fbuf[((long long)j * a.n_flt + a.pos[lane]) * R + r] = static_cast<const double*>(st)[src];
-        break;
-      default:
-        fbuf[((long long)j * a.n_flt + a.pos[lane]) * R + r] = (double)static_cast<const float*>(st)[src];
-        break;
+// A 4-byte lane's word widened to 64 bits: an int32 sign-extended, a
+// float32 as the double's bits.
+__device__ __forceinline__ unsigned long long widen(int dt, unsigned x) {
+  return dt == DT_I32 ? (unsigned long long)(long long)(int)x
+                      : (unsigned long long)__double_as_longlong((double)__uint_as_float(x));
+}
+
+// K2 / K3 on one lane of one quad: w holds the quad's four slots widened,
+// `in` marks the slots inside the region (all four on the vector path).
+template <bool READ, bool CLEAR>
+__device__ __forceinline__ void region_lane(const RegionArgs& a, int l, unsigned mask,
+                                            long long qbase, unsigned q, int head, unsigned R,
+                                            bool full, long long* ibuf, double* fbuf) {
+  const int dt = a.dtype[l];
+  const bool w8 = dt == DT_I64 || dt == DT_U64 || dt == DT_F64;
+  // the quad's first slot: qbase (the region's base rounded down to a
+  // multiple of four) + 4q, so a lane aligned to 16 bytes is aligned here
+  char* lane = static_cast<char*>(a.state[l]);
+  const bool vec = full && ((reinterpret_cast<uintptr_t>(lane) & 15) == 0);
+  const unsigned r0 = 4u * q - (unsigned)head;  // region offset of the quad's first slot (wraps below 0)
+  unsigned long long w[4];
+  bool in[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) in[e] = vec || (r0 + (unsigned)e < R);
+  if (w8) {
+    unsigned long long* p = reinterpret_cast<unsigned long long*>(lane) + qbase + 4u * q;
+    if (READ) {
+      if (vec) {
+        const ulonglong2 x0 = reinterpret_cast<const ulonglong2*>(p)[0];
+        const ulonglong2 x1 = reinterpret_cast<const ulonglong2*>(p)[1];
+        w[0] = x0.x; w[1] = x0.y; w[2] = x1.x; w[3] = x1.y;
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) w[e] = in[e] ? p[e] : 0ULL;
+      }
+    }
+    if (CLEAR) {
+      const unsigned long long id = a.ident[l];
+      if (vec) {
+        reinterpret_cast<ulonglong2*>(p)[0] = make_ulonglong2(id, id);
+        reinterpret_cast<ulonglong2*>(p)[1] = make_ulonglong2(id, id);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (in[e]) p[e] = id;
+      }
+    }
+  } else {
+    unsigned* p = reinterpret_cast<unsigned*>(lane) + qbase + 4u * q;
+    if (READ) {
+      if (vec) {
+        const uint4 x = *reinterpret_cast<const uint4*>(p);
+        w[0] = widen(dt, x.x); w[1] = widen(dt, x.y); w[2] = widen(dt, x.z); w[3] = widen(dt, x.w);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) w[e] = in[e] ? widen(dt, p[e]) : 0ULL;
+      }
+    }
+    if (CLEAR) {
+      const unsigned id = (unsigned)a.ident[l];
+      if (vec) {
+        *reinterpret_cast<uint4*>(p) = make_uint4(id, id, id, id);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (in[e]) p[e] = id;
+      }
+    }
+  }
+  if (!READ) return;
+  const bool flt = is_float(dt);
+  const long long n_cls = flt ? a.n_flt : a.n_int;
+  unsigned long long* out0 = flt ? reinterpret_cast<unsigned long long*>(fbuf)
+                                 : reinterpret_cast<unsigned long long*>(ibuf);
+  // every output position j that reads this region: block (j, pos) of R words
+  for (unsigned m = mask; m; m &= m - 1) {
+    const int j = __ffs(m) - 1;
+    unsigned long long* o = out0 + (j * n_cls + a.pos[l]) * (long long)R;
+    if (full && ((reinterpret_cast<uintptr_t>(o + r0) & 15) == 0)) {
+      reinterpret_cast<ulonglong2*>(o + r0)[0] = make_ulonglong2(w[0], w[1]);
+      reinterpret_cast<ulonglong2*>(o + r0)[1] = make_ulonglong2(w[2], w[3]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (in[e]) o[r0 + (unsigned)e] = w[e];
     }
   }
 }
 
-__global__ void clear_kernel(ClearArgs a, long long R) {
-  const long long total = (long long)a.k * a.n_lanes * R;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x; idx < total; idx += stride) {
-    const long long r = idx % R;
-    const long long t = idx / R;
-    const int lane = (int)(t % a.n_lanes);
-    const int j = (int)(t / a.n_lanes);
-    const long long dst = a.bases[j] + r;
-    const unsigned long long id = a.ident[lane];
-    if (a.dtype[lane] == DT_I64 || a.dtype[lane] == DT_U64 || a.dtype[lane] == DT_F64)
-      static_cast<unsigned long long*>(a.state[lane])[dst] = id;
-    else
-      static_cast<unsigned int*>(a.state[lane])[dst] = (unsigned int)id;
+// K2 (READ, READ | CLEAR) and K3 (CLEAR). blockIdx.y: the distinct
+// region, blockIdx.z: the lane, so a thread's accesses are one round trip
+// to memory, and the lane's dtype is uniform across the block. The
+// region's slots [base, base + R) lie in the quads of four slots q = 0 ..
+// nq - 1 from the base rounded down to a multiple of four; a thread takes
+// quads blockIdx.x * blockDim.x + threadIdx.x apart by the grid's width.
+// All index arithmetic past the region's base is 32-bit (R < 2^31).
+template <bool READ, bool CLEAR>
+__global__ void __launch_bounds__(REGION_THREADS)
+    region_kernel(RegionArgs a, unsigned R, long long* __restrict__ ibuf,
+                  double* __restrict__ fbuf) {
+  const long long base = a.base[blockIdx.y];
+  const int head = (int)(base & 3);  // slots of the first quad before the region
+  const long long qbase = base - head;
+  const unsigned nq = (unsigned)(head + R + 3) >> 2;
+  const unsigned mask = READ ? a.mask[blockIdx.y] : 0u;
+  for (unsigned q = blockIdx.x * blockDim.x + threadIdx.x; q < nq; q += gridDim.x * blockDim.x) {
+    const unsigned r0 = 4u * q - (unsigned)head;
+    const bool full = (q > 0 || head == 0) && R >= 4u && r0 <= R - 4u;
+    region_lane<READ, CLEAR>(a, blockIdx.z, mask, qbase, q, head, R, full, ibuf, fbuf);
   }
+}
+
+// The launch floor: a kernel that does nothing, launched on K2's grid.
+__global__ void empty_kernel() {}
+
+// K2 / K3's grid for R slots from each of n_distinct bases of n_lanes
+// lanes: blocks of REGION_THREADS threads, a thread a quad of one lane, as
+// many blocks along x as the region with the most quads needs (at most ~16
+// blocks of 128 threads per SM over the whole grid; the threads then take
+// several quads each), the regions along y, the lanes along z.
+static dim3 region_grid(const long long* bases, int n_distinct, long long R, int n_lanes) {
+  long long nq = 0;
+  for (int d = 0; d < n_distinct; ++d) {
+    const long long n = ((bases[d] & 3) + R + 3) / 4;
+    if (n > nq) nq = n;
+  }
+  long long bx = (nq + REGION_THREADS - 1) / REGION_THREADS;
+  const long long cap = (132LL * 16) / ((long long)n_distinct * n_lanes);
+  if (bx > cap) bx = cap;
+  return dim3((unsigned)(bx < 1 ? 1 : bx), (unsigned)n_distinct, (unsigned)n_lanes);
 }
 
 template <typename SlotT>
@@ -595,49 +693,84 @@ int arroyo_slot_add_chain(int device, const void* x, long long n, int f32, void*
   return (int)cudaGetLastError();
 }
 
-int arroyo_slot_region_read_pack(int device, void** state, const int* dtypes, int n_lanes,
-                                 const long long* bases, int k, long long R, void* ibuf,
-                                 void* fbuf, void* stream) {
-  if (n_lanes < 1 || n_lanes > MAX_LANES || k < 1 || k > MAX_BASES || R < 1)
+#define REGION_READ 1
+#define REGION_CLEAR 2
+
+// K2 and K3. mode: REGION_READ, REGION_READ | REGION_CLEAR or REGION_CLEAR.
+// bases: the n_distinct distinct bases; masks[d]: the output positions
+// (bits 0 .. k-1) that read base d, each position in exactly one mask
+// (ignored, and k 0, in REGION_CLEAR alone). idents: every lane's identity
+// bits (REGION_CLEAR), else NULL. ibuf / fbuf: k x n_int x R int64 and
+// k x n_flt x R float64 words (REGION_READ). The caller keeps distinct
+// regions apart in the read-and-clear mode.
+int arroyo_slot_region(int device, void** state, const int* dtypes,
+                       const unsigned long long* idents, int n_lanes, const long long* bases,
+                       const unsigned* masks, int n_distinct, int k, long long R, int mode,
+                       void* ibuf, void* fbuf, void* stream) {
+  const bool read = mode & REGION_READ, clear = mode & REGION_CLEAR;
+  if (n_lanes < 1 || n_lanes > MAX_LANES || n_distinct < 1 || n_distinct > MAX_BASES || R < 1 ||
+      R >= (1LL << 31) || (mode & ~(REGION_READ | REGION_CLEAR)) || !(read || clear) ||
+      (clear && idents == nullptr))
     return (int)cudaErrorInvalidValue;
+  RegionArgs a;
+  if (read) {
+    if (k < 1 || k > MAX_BASES) return (int)cudaErrorInvalidValue;
+    unsigned seen = 0;
+    for (int d = 0; d < n_distinct; ++d) {
+      if (masks[d] == 0 || (masks[d] & seen) || (masks[d] >> k)) return (int)cudaErrorInvalidValue;
+      seen |= masks[d];
+    }
+    if (seen != (1u << k) - 1) return (int)cudaErrorInvalidValue;
+  }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  PackArgs a;
   int n_int = 0, n_flt = 0;
   for (int l = 0; l < n_lanes; ++l) {
     a.state[l] = state[l];
     a.dtype[l] = dtypes[l];
     a.pos[l] = is_float(dtypes[l]) ? n_flt++ : n_int++;
+    a.ident[l] = clear ? idents[l] : 0ULL;
   }
-  for (int j = 0; j < k; ++j) a.bases[j] = bases[j];
+  for (int d = 0; d < n_distinct; ++d) {
+    a.base[d] = bases[d];
+    a.mask[d] = read ? masks[d] : 0u;
+  }
   a.n_lanes = n_lanes;
   a.n_int = n_int;
   a.n_flt = n_flt;
-  a.k = k;
-  read_pack_kernel<<<grid_for((long long)k * n_lanes * R), THREADS, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-      a, R, static_cast<long long*>(ibuf), static_cast<double*>(fbuf));
+  const dim3 grid = region_grid(bases, n_distinct, R, n_lanes);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  long long* ib = static_cast<long long*>(ibuf);
+  double* fb = static_cast<double*>(fbuf);
+  if (read && clear)
+    region_kernel<true, true><<<grid, REGION_THREADS, 0, s>>>(a, (unsigned)R, ib, fb);
+  else if (read)
+    region_kernel<true, false><<<grid, REGION_THREADS, 0, s>>>(a, (unsigned)R, ib, fb);
+  else
+    region_kernel<false, true><<<grid, REGION_THREADS, 0, s>>>(a, (unsigned)R, ib, fb);
   return (int)cudaGetLastError();
 }
 
-int arroyo_slot_region_clear(int device, void** state, const int* dtypes,
-                             const unsigned long long* idents, int n_lanes,
-                             const long long* bases, int k, long long R, void* stream) {
-  if (n_lanes < 1 || n_lanes > MAX_LANES || k < 1 || k > MAX_BASES || R < 1)
+// K2 / K3's grid for these distinct bases and lanes (chip_smoke.py times
+// empty_kernel on it): out[0..3] = blocks along x, y and z, threads a block.
+void arroyo_slot_region_grid(const long long* bases, int n_distinct, long long R, int n_lanes,
+                             int* out) {
+  const dim3 g = region_grid(bases, n_distinct, R, n_lanes);
+  out[0] = (int)g.x;
+  out[1] = (int)g.y;
+  out[2] = (int)g.z;
+  out[3] = REGION_THREADS;
+}
+
+// The launch floor's probe (chip_smoke.py only): empty_kernel on a grid of
+// grid_x x grid_y x grid_z blocks of `threads`.
+int arroyo_slot_empty(int device, int grid_x, int grid_y, int grid_z, int threads,
+                      void* stream) {
+  if (grid_x < 1 || grid_y < 1 || grid_z < 1 || threads < 1 || threads > 1024)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  ClearArgs a;
-  for (int l = 0; l < n_lanes; ++l) {
-    a.state[l] = state[l];
-    a.dtype[l] = dtypes[l];
-    a.ident[l] = idents[l];
-  }
-  for (int j = 0; j < k; ++j) a.bases[j] = bases[j];
-  a.n_lanes = n_lanes;
-  a.k = k;
-  clear_kernel<<<grid_for((long long)k * n_lanes * R), THREADS, 0,
-                 static_cast<cudaStream_t>(stream)>>>(a, R);
+  empty_kernel<<<dim3(grid_x, grid_y, grid_z), threads, 0, static_cast<cudaStream_t>(stream)>>>();
   return (int)cudaGetLastError();
 }
 

@@ -9,15 +9,18 @@ each replaces and what bounds it) update and read the aggregate state, one
   stable sort of the slots, then a walk of each slot's run: a long run by
   a whole block);
 - ``slot_region_read_pack`` (K2): k regions of every lane, packed into one
-  int64 and one float64 buffer;
-- ``slot_region_clear`` (K3): k regions reset to each lane's identity;
+  int64 and one float64 buffer, and, given the lanes' kinds, reset to each
+  lane's identity in the same launch;
+- ``slot_region_clear`` (K3): k regions reset to each lane's identity (the
+  same kernel body as K2, in its clear mode);
 - ``slot_gather`` (K7): k single slots of every lane, packed the same way.
 
 Each wrapper checks device, dtype, shape and contiguity, and raises on what
 the kernel does not take. On a CUDA tensor it launches the kernel (building
 the library with nvcc at first use) or raises; it takes the plain PyTorch
 version (``*_plain``, beside it) only for tensors on the CPU. Each wrapper
-counts its launches in ``<wrapper>.launches``.
+counts its launches in ``<wrapper>.launches`` (K2's read-and-clear
+launches apart, in ``slot_region_read_pack.clear_launches``).
 
 Every ``csrc/<name>.cu`` builds the same way (``build_source``): for sm_90a
 into ``arroyo_tpu_torch/build/``, named by a digest of the source, the
@@ -29,6 +32,7 @@ concurrent build never loads a half-written file.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import re
@@ -50,6 +54,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 MAX_LANES = 32  # csrc/slot_agg.cu MAX_LANES
 MAX_BASES = 16  # csrc/slot_agg.cu MAX_BASES
+REGION_LIMIT = 1 << 31  # K2 / K3 index a region's slots in 32 bits
+_REGION_READ, _REGION_CLEAR = 1, 2  # csrc/slot_agg.cu REGION_READ, REGION_CLEAR
 # K1's float sums: a slot's run of at least this many sorted rows is walked
 # by a whole block (csrc/slot_agg.cu walk_long), a shorter one by one thread
 LONG_RUN = 64
@@ -156,11 +162,14 @@ def _bind_slot_agg(lib: ctypes.CDLL) -> None:
     lib.arroyo_slot_scatter_combine.argtypes = [i, pp, pp, ip, ip, i, p, i, ll, ll, p, p, p, ll,
                                                 ll, p]
     lib.arroyo_slot_add_chain.argtypes = [i, p, ll, i, p, p]
-    lib.arroyo_slot_region_read_pack.argtypes = [i, pp, ip, i, llp, i, ll, p, p, p]
-    lib.arroyo_slot_region_clear.argtypes = [i, pp, ip, ullp, i, llp, i, ll, p]
+    uip = ctypes.POINTER(ctypes.c_uint)
+    lib.arroyo_slot_region.argtypes = [i, pp, ip, ullp, i, llp, uip, i, i, ll, i, p, p, p]
+    lib.arroyo_slot_region_grid.argtypes = [llp, i, ll, i, ip]
+    lib.arroyo_slot_region_grid.restype = None
+    lib.arroyo_slot_empty.argtypes = [i, i, i, i, i, p]
     lib.arroyo_slot_gather.argtypes = [i, pp, ip, i, p, i, ll, ll, p, p, p]
-    for fn in (lib.arroyo_slot_scatter_combine, lib.arroyo_slot_region_read_pack,
-               lib.arroyo_slot_region_clear, lib.arroyo_slot_gather, lib.arroyo_slot_add_chain):
+    for fn in (lib.arroyo_slot_scatter_combine, lib.arroyo_slot_region, lib.arroyo_slot_gather,
+               lib.arroyo_slot_add_chain, lib.arroyo_slot_empty):
         fn.restype = ctypes.c_int
 
 
@@ -169,18 +178,20 @@ def build_library() -> ctypes.CDLL:
     return build_source("slot_agg", _bind_slot_agg)
 
 
-def _counted(wrapper) -> None:
+def _counted(wrapper, attr: str = "launches") -> None:
     with _count_lock:
-        wrapper.launches += 1
+        setattr(wrapper, attr, getattr(wrapper, attr) + 1)
 
 
 def launch_counts() -> dict[str, int]:
-    return {f.__name__: f.launches for f in WRAPPERS}
+    return {**{f.__name__: f.launches for f in WRAPPERS},
+            "slot_region_read_pack_clear": slot_region_read_pack.clear_launches}
 
 
 def reset_launch_counts() -> None:
     for f in WRAPPERS:
         f.launches = 0
+    slot_region_read_pack.clear_launches = 0
 
 
 # ------------------------------------------------------------- checks
@@ -207,8 +218,8 @@ def _check_bases(bases, cap: int, R: int) -> list[int]:
     bl = [int(b) for b in bases]
     if not 1 <= len(bl) <= MAX_BASES:
         raise ValueError(f"need 1..{MAX_BASES} region bases, got {len(bl)}")
-    if R < 1:
-        raise ValueError(f"region size {R} < 1")
+    if not 1 <= R < REGION_LIMIT:
+        raise ValueError(f"region size {R} is not in [1, 2^31)")
     for b in bl:
         if b < 0 or b + R > cap:
             raise ValueError(f"region [{b}, {b + R}) outside the state [0, {cap})")
@@ -353,36 +364,90 @@ def slot_scatter_combine_plain(state, kinds, slots, vals) -> None:
             a[u] = out
 
 
-# ------------------------------------------------------------- K2
+# ------------------------------------------------------------- K2, K3
 
 
-def slot_region_read_pack(state: Sequence[torch.Tensor], bases, R: int):
+@functools.lru_cache(maxsize=256)
+def _lane_table(dtypes: tuple, kinds: Optional[tuple]):
+    """What K2 / K3 take for one layout of lanes, made once per layout
+    (an aggregator's close does not rebuild it): the dtype codes, and with
+    kinds each lane's identity bits (else None). The C side only reads
+    the shared arrays."""
+    if kinds is not None and (len(kinds) != len(dtypes) or any(k not in _KIND_CODE for k in kinds)):
+        raise ValueError(f"kinds {list(kinds)!r} do not name one sum/count/min/max per lane")
+    dts = (ctypes.c_int * len(dtypes))(*[_DTYPE_CODE[d] for d in dtypes])
+    if kinds is None:
+        return dts, None
+    ids = (ctypes.c_ulonglong * len(dtypes))(*[
+        int(_identity(kd, _NP[d]).view(_BITS[d])) for d, kd in zip(dtypes, kinds)])
+    return dts, ids
+
+
+def _distinct(bases: list[int]) -> tuple[list[int], list[int]]:
+    """The distinct bases in first-seen order, and for each the mask of the
+    positions j that name it (bit j)."""
+    first: dict[int, int] = {}
+    masks: list[int] = []
+    for j, b in enumerate(bases):
+        d = first.setdefault(b, len(first))
+        if d == len(masks):
+            masks.append(0)
+        masks[d] |= 1 << j
+    return list(first), masks
+
+
+def _check_apart(distinct: list[int], R: int) -> None:
+    """Read-and-clear clears a word after its one read: distinct regions
+    must not overlap."""
+    ds = sorted(distinct)
+    for lo, hi in zip(ds, ds[1:]):
+        if hi < lo + R:
+            raise ValueError(f"regions [{lo}, {lo + R}) and [{hi}, {hi + R}) overlap: "
+                             f"a read-and-clear takes distinct bases at least R apart")
+
+
+def _region_launch(state, dts, ids, distinct, masks, k, R, mode, ibuf, fbuf, dev) -> None:
+    nd = len(distinct)
+    err = build_library().arroyo_slot_region(
+        dev.index or 0, _ptrs(state), dts, ids, len(state), (ctypes.c_longlong * nd)(*distinct),
+        (ctypes.c_uint * nd)(*masks), nd, k, R, mode,
+        None if ibuf is None else ctypes.c_void_p(ibuf.data_ptr()),
+        None if fbuf is None else ctypes.c_void_p(fbuf.data_ptr()), _stream(dev))
+    _raise_on(err, "slot_region_clear" if mode == _REGION_CLEAR else "slot_region_read_pack")
+
+
+def slot_region_read_pack(state: Sequence[torch.Tensor], bases, R: int,
+                          clear_kinds: Optional[Sequence[str]] = None):
     """For each base j and lane, ``state[lane][bases[j]:bases[j]+R]``:
     int lanes widened into one int64 buffer (uint64 as its bits), float
     lanes into one float64 buffer, each laid out [base][lane of its
     class][R] (the layout of arroyo_tpu's ``_pack``). Returns (ibuf, fbuf);
-    a class with no lanes gives an empty buffer."""
+    a class with no lanes gives an empty buffer. Given ``clear_kinds`` (one
+    per lane), every base's slots are then reset to the lane's identity, as
+    ``make_read_multi(k, do_clear=True)`` reads every base and then clears
+    every base; bases may repeat, but distinct ones must lie R apart."""
     dev = _check_state(state)
     bl = _check_bases(bases, state[0].shape[0], R)
+    dts, ids = _lane_table(tuple(a.dtype for a in state),
+                           None if clear_kinds is None else tuple(clear_kinds))
+    distinct, masks = _distinct(bl)
+    if clear_kinds is not None:
+        _check_apart(distinct, R)
+    if dev.type == "cpu":
+        return slot_region_read_pack_plain(state, bl, R, clear_kinds)
     k = len(bl)
     n_flt = sum(1 for a in state if a.dtype.is_floating_point)
-    n_int = len(state) - n_flt
-    if dev.type == "cpu":
-        return slot_region_read_pack_plain(state, bl, R)
-    ibuf = torch.empty(k * n_int * R, dtype=torch.int64, device=dev)
+    ibuf = torch.empty(k * (len(state) - n_flt) * R, dtype=torch.int64, device=dev)
     fbuf = torch.empty(k * n_flt * R, dtype=torch.float64, device=dev)
-    lib = build_library()
-    dts = (ctypes.c_int * len(state))(*[_DTYPE_CODE[a.dtype] for a in state])
-    err = lib.arroyo_slot_region_read_pack(
-        dev.index or 0, _ptrs(state), dts, len(state), (ctypes.c_longlong * k)(*bl), k, R,
-        ctypes.c_void_p(ibuf.data_ptr()), ctypes.c_void_p(fbuf.data_ptr()), _stream(dev))
-    _raise_on(err, "slot_region_read_pack")
-    _counted(slot_region_read_pack)
+    mode = _REGION_READ if clear_kinds is None else _REGION_READ | _REGION_CLEAR
+    _region_launch(state, dts, ids, distinct, masks, k, R, mode, ibuf, fbuf, dev)
+    _counted(slot_region_read_pack, "launches" if clear_kinds is None else "clear_launches")
     return ibuf, fbuf
 
 
-def slot_region_read_pack_plain(state, bases, R: int):
-    """Plain PyTorch version of K2."""
+def slot_region_read_pack_plain(state, bases, R: int, clear_kinds=None):
+    """Plain PyTorch version of K2: every base read, then (given the
+    kinds) every base cleared, as the reference's ``go``."""
     dev = state[0].device
     k = len(bases)
     idx = (torch.as_tensor(list(bases), dtype=torch.int64, device=dev)[:, None]
@@ -393,11 +458,11 @@ def slot_region_read_pack_plain(state, bases, R: int):
             return torch.empty(0, dtype=dt, device=dev)
         return torch.stack([bits(a)[idx].to(dt).view(k, R) for a in lanes], dim=1).reshape(-1)
 
-    return (pack([a for a in state if not a.dtype.is_floating_point], torch.int64),
-            pack([a for a in state if a.dtype.is_floating_point], torch.float64))
-
-
-# ------------------------------------------------------------- K3
+    out = (pack([a for a in state if not a.dtype.is_floating_point], torch.int64),
+           pack([a for a in state if a.dtype.is_floating_point], torch.float64))
+    if clear_kinds is not None:
+        slot_region_clear_plain(state, clear_kinds, bases, R)
+    return out
 
 
 def slot_region_clear(state: Sequence[torch.Tensor], kinds: Sequence[str], bases, R: int) -> None:
@@ -405,21 +470,13 @@ def slot_region_clear(state: Sequence[torch.Tensor], kinds: Sequence[str], bases
     count, the dtype's top for min and its bottom for max) for every base."""
     dev = _check_state(state)
     bl = _check_bases(bases, state[0].shape[0], R)
-    if len(kinds) != len(state) or any(k not in _KIND_CODE for k in kinds):
-        raise ValueError(f"kinds {kinds!r} do not name one sum/count/min/max per lane")
+    dts, ids = _lane_table(tuple(a.dtype for a in state), tuple(kinds))
     if dev.type == "cpu":
         slot_region_clear_plain(state, kinds, bl, R)
         return
-    lib = build_library()
-    k = len(bl)
-    dts = (ctypes.c_int * len(state))(*[_DTYPE_CODE[a.dtype] for a in state])
-    ids = (ctypes.c_ulonglong * len(state))(*[
-        int(_identity(kd, _NP[a.dtype]).view(_BITS[a.dtype]))
-        for a, kd in zip(state, kinds)])
-    err = lib.arroyo_slot_region_clear(
-        dev.index or 0, _ptrs(state), dts, ids, len(state), (ctypes.c_longlong * k)(*bl), k, R,
-        _stream(dev))
-    _raise_on(err, "slot_region_clear")
+    distinct, _masks = _distinct(bl)
+    _region_launch(state, dts, ids, distinct, [0] * len(distinct), 0, R, _REGION_CLEAR, None,
+                   None, dev)
     _counted(slot_region_clear)
 
 
@@ -430,6 +487,17 @@ def slot_region_clear_plain(state, kinds, bases, R: int) -> None:
         ident = int(ident.view(np.int64)) if a.dtype == torch.uint64 else ident.item()
         for b in bases:
             bits(a)[b:b + R] = ident
+
+
+def region_grid(bases, R: int, n_lanes: int) -> tuple[int, int, int, int]:
+    """K2 / K3's grid for these bases and lanes, as the library sizes it:
+    blocks along x, along y (the distinct bases) and along z (the lanes),
+    threads a block."""
+    distinct, _masks = _distinct([int(b) for b in bases])
+    out = (ctypes.c_int * 4)()
+    build_library().arroyo_slot_region_grid((ctypes.c_longlong * len(distinct))(*distinct),
+                                            len(distinct), R, n_lanes, out)
+    return tuple(out)
 
 
 # ------------------------------------------------------------- K7

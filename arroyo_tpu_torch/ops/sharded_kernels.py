@@ -335,13 +335,17 @@ def agg_probe_merge(kinds: Sequence[str], table, u_key: torch.Tensor, u_bin: tor
     still-active mask ``[S, B]`` (partials no probe round placed). Given
     ``oflow`` (int32 ``[S]``), each shard's still-active count adds to it
     on the device. On the card one launch runs every round of a shard on a
-    thread-block cluster."""
+    thread-block cluster. Any ``max_probes <= 0`` runs no round, as the
+    reference's loop does."""
     if u_key.dim() == 2:  # the sizes first: a meta tensor of any size shows them
         B = u_key.shape[1]
         if B < 1 or B > INT32_LIMIT - PROBE_GROUP:
             raise ValueError(f"{B} partials per shard; the kernel indexes them with int32")
-    if not 0 <= int(max_probes) < _TAG_LIMIT:
-        raise ValueError(f"max_probes {max_probes} is not in [0, {_TAG_LIMIT})")
+    # the reference's fori_loop(0, max_probes, ...) runs no round for any
+    # max_probes <= 0: every active partial stays active
+    max_probes = max(0, int(max_probes))
+    if max_probes >= _TAG_LIMIT:
+        raise ValueError(f"max_probes {max_probes} is not below {_TAG_LIMIT}")
     dev, tshape = _check_table(table, kinds)
     _check_2d(u_key, "u_key", (torch.int64,), None, dev)
     shape = tuple(u_key.shape)
@@ -368,11 +372,11 @@ def agg_probe_merge(kinds: Sequence[str], table, u_key: torch.Tensor, u_bin: tor
     code = torch.empty(spec["code"][0], dtype=spec["code"][1], device=dev)
     ln = _lanes(kinds, [a.dtype for a in accs_t], inp=u_accs, out=accs_t)
     with _claims_lock:
-        claims, tag0 = _claims(S, cap, dev, max(1, int(max_probes)))
+        claims, tag0 = _claims(S, cap, dev, max(1, max_probes))
         err = lib.arroyo_agg_probe_merge(
             _dev_index(dev), S, cap, keys_t.data_ptr(), bins_t.data_ptr(), occ_t.data_ptr(),
             ctypes.byref(ln), B, u_key.data_ptr(), u_bin.data_ptr(), active.data_ptr(),
-            int(max_probes), still.data_ptr(), lst.data_ptr(), claims.data_ptr(),
+            max_probes, still.data_ptr(), lst.data_ptr(), claims.data_ptr(),
             code.data_ptr(), None if oflow is None else oflow.data_ptr(), tag0,
             kernels._stream(dev))
     kernels._raise_on(err, "agg_probe_merge")

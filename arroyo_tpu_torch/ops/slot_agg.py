@@ -14,8 +14,9 @@ The work splits by what each side is good at:
       state = one [cap] tensor per accumulator, nothing else. An update is
       one scatter-combine launch over all lanes (K1). A window close reads
       the closing bins' regions packed into one int64 and one float64
-      buffer (K2), clears them (K3), and copies the buffers to pinned host
-      memory behind an event, fetched on the prefetch threads.
+      buffer and clears them in the same launch (K2; K3 clears expired
+      bins it does not read), and copies the buffers to pinned host memory
+      behind an event, fetched on the prefetch threads.
 
   spill tier: when every region is in use, new (bin, key) groups aggregate
       into a host dict store instead of failing.
@@ -402,8 +403,9 @@ class SlotAggregator(DeviceHashAggregator):
     def _read_regions(self, regs, do_clear: bool):
         """Region reads, <= 16 per launch, k padded to a power of two by
         duplicating the first base (the JAX package's bucketing, kept so
-        both read the same shapes); each group's buffers start their copy
-        to the host at once."""
+        both read the same shapes); with do_clear the same launch clears
+        them (K2's read-and-clear mode). Each group's buffers start their
+        copy to the host at once."""
         groups = []
         for i in range(0, len(regs), kernels.MAX_BASES):
             chunk = regs[i: i + kernels.MAX_BASES]
@@ -411,9 +413,9 @@ class SlotAggregator(DeviceHashAggregator):
             while k < len(chunk):
                 k *= 2
             bases = [c[1] for c in chunk] + [chunk[0][1]] * (k - len(chunk))
-            ibuf, fbuf = kernels.slot_region_read_pack(self.state, bases, self.region_size)
-            if do_clear:
-                kernels.slot_region_clear(self.state, self.acc_kinds, bases, self.region_size)
+            ibuf, fbuf = kernels.slot_region_read_pack(
+                self.state, bases, self.region_size,
+                clear_kinds=self.acc_kinds if do_clear else None)
             groups.append(([(b, keys, fill) for (b, _base, fill, keys) in chunk],
                            HostFetch(ibuf) if self._n_int_lanes else None,
                            HostFetch(fbuf) if self._n_flt_lanes else None))

@@ -256,9 +256,12 @@ NP_DT = {torch.int32: np.int32, torch.int64: np.int64, torch.float32: np.float32
          torch.float64: np.float64, torch.uint64: np.uint64}
 TIMING_REPS = 30
 WARM_TRACE_S = 0.05  # device_trace: the profiler idles this long around the traced work
-# the kernels q7c and q5 must launch (K1-K3, K4); q8c's are K4, K5, K6
-AGG_PATH_KERNELS = ("slot_scatter_combine", "slot_region_read_pack", "slot_region_clear",
-                    "segment_fused")
+# the kernels q7c and q5 must launch (K1, K2 in its read-and-clear mode,
+# K4); q8c's are K4, K5, K6. A destructive close launches no K3.
+AGG_PATH_KERNELS = ("slot_scatter_combine", "slot_region_read_pack_clear", "segment_fused")
+# every launch count of the device window's kernels (K1-K3, K2 by mode)
+WINDOW_KERNELS = ("slot_scatter_combine", "slot_region_read_pack", "slot_region_read_pack_clear",
+                  "slot_region_clear")
 WATCHDOG_S = 1100  # dump every thread's stack and exit before the 1200 s limit
 _T0 = time.perf_counter()
 
@@ -420,9 +423,11 @@ def run_q7() -> dict:
     rows, wall, _eng = drive_q7()
     launches = kernels.launch_counts()
     got = check_q7(rows, want)
-    unlaunched = [k for k in AGG_PATH_KERNELS[:3] if launches[k] == 0]
+    unlaunched = [k for k in AGG_PATH_KERNELS[:2] if launches[k] == 0]
     if unlaunched:
         raise AssertionError(f"q7 ran without launching {unlaunched}: {launches}")
+    if launches["slot_region_clear"]:
+        raise AssertionError(f"q7's destructive closes launched K3: {launches}")
     out = []
     prof = device_trace(lambda: out.append(drive_q7()), warm_device)
     rows_p, wall_p, _eng = out[0]
@@ -522,7 +527,8 @@ def run_chained(name: str, build, events: int, oracle, check,
     """A chaining-on main path: counts zeroed just before the run and read
     just after; the chain must have run compiled, K4 once per source batch
     of at least segment.compile.min-rows rows, every kernel of
-    ``path_kernels`` (default K1-K3 and K4) at least once. ``stats(eng)``
+    ``path_kernels`` (default K1, K2's read-and-clear and K4; then no K3)
+    at least once. ``stats(eng)``
     adds what the run's operators counted. Then a second, profiled run
     gives the device's busy share."""
     want = oracle(events)
@@ -549,6 +555,8 @@ def run_chained(name: str, build, events: int, oracle, check,
     unlaunched = [k for k in path_kernels if launches[k] == 0]
     if unlaunched:
         raise AssertionError(f"{name} ran without launching {unlaunched}: {launches}")
+    if "slot_region_read_pack_clear" in path_kernels and launches["slot_region_clear"]:
+        raise AssertionError(f"{name}: a destructive close launched K3: {launches}")
     info = {"phase": name, "events": events, "chaining": True, "wall_s": wall,
             "events_per_s": events / wall, "windows": len(got), "chained_node": chained[0],
             "segment_events": [e["message"] for e in compiled], "launches": launches,
@@ -2067,25 +2075,82 @@ def add_chain_ns(dev, n: int = 1 << 21) -> dict:
 
 
 def check_regions(rng, lanes, cap, R, dev) -> float:
+    """K2 (a read; a read then K3's clear; the read-and-clear launch) at k
+    1-16 with padding duplicates, exactly against the plain versions: the
+    buffers and the state after."""
     kinds = [k for k, _ in lanes]
     n_regions = cap // R
     for k in (1, 2, 4, 8, 16):
         real = [int(b) * R for b in rng.choice(n_regions, max(1, k - k // 4), replace=False)]
         bases = real + [real[0]] * (k - len(real))
-        for do_clear in (False, True):
-            st_k = make_state(rng, lanes, cap, dev)
-            st_p = [a.clone() for a in st_k]
-            ib, fb = kernels.slot_region_read_pack(st_k, bases, R)
-            pib, pfb = kernels.slot_region_read_pack_plain(st_p, bases, R)
-            if do_clear:
-                kernels.slot_region_clear(st_k, kinds, bases, R)
-                kernels.slot_region_clear_plain(st_p, kinds, bases, R)
-            torch.cuda.synchronize()
-            lane_err(ib, pib, "read")
-            lane_err(fb, pfb, "read")
-            for (kd, _dt), g, w in zip(lanes, st_k, st_p):
-                lane_err(g, w, "clear")
+        for mode in ("read", "read_then_clear", "read_and_clear"):
+            check_region_call(rng, lanes, cap, bases, R, mode, dev)
     return 0.0
+
+
+def check_region_call(rng, lanes, cap, bases, R, mode, dev) -> None:
+    kinds = [k for k, _ in lanes]
+    st_k = make_state(rng, lanes, cap, dev)
+    st_p = [a.clone() for a in st_k]
+    clear_kinds = kinds if mode == "read_and_clear" else None
+    ib, fb = kernels.slot_region_read_pack(st_k, bases, R, clear_kinds=clear_kinds)
+    pib, pfb = kernels.slot_region_read_pack_plain(st_p, bases, R, clear_kinds)
+    if mode == "read_then_clear":
+        kernels.slot_region_clear(st_k, kinds, bases, R)
+        kernels.slot_region_clear_plain(st_p, kinds, bases, R)
+    torch.cuda.synchronize()
+    what = f"{mode} k={len(bases)} R={R} bases={bases[:3]}"
+    lane_err(ib, pib, f"{what}: int buffer")
+    lane_err(fb, pfb, f"{what}: float buffer")
+    for (kd, _dt), g, w in zip(lanes, st_k, st_p):
+        lane_err(g, w, f"{what}: state after, {kd}")
+
+
+# the read-and-clear mode's own cases: every lane dtype and kind, one lane
+# class alone, and regions off every 16-byte boundary (odd R, odd bases,
+# state lanes that start one slot past a 16-byte boundary)
+REGION_LANE_SETS = {
+    "all": [(k, d) for d in (torch.int32, torch.int64, torch.uint64, torch.float32,
+                             torch.float64) for k in ("sum", "count", "min", "max")],
+    "int_only": [("count", torch.int64), ("max", torch.int32), ("min", torch.uint64)],
+    "float_only": [("sum", torch.float64), ("min", torch.float32), ("max", torch.float32)],
+}
+
+
+def check_read_clear_cases(rng, dev) -> list:
+    """K2's read-and-clear launch against the plain read-then-clear on
+    REGION_LANE_SETS at k 1-16 with padding duplicates, and on unaligned
+    regions; returns the cases' labels."""
+    cap, R = 65536, 2048
+    labels = []
+    for name, lanes in REGION_LANE_SETS.items():
+        for k in (1, 2, 4, 8, 16):
+            real = [int(b) * R for b in rng.choice(cap // R, max(1, k - k // 4), replace=False)]
+            check_region_call(rng, lanes, cap, real + [real[0]] * (k - len(real)), R,
+                              "read_and_clear", dev)
+            labels.append(f"{name} k={k} R={R}")
+        for r, bases in ((2045, [1, 3 * 2045 + 2, 7 * 2045 + 3, 1]), (3, [5, 9, 5, 5]),
+                         (6, [2, 14, 30, 2]), (2050, [2050 * 5 + 1])):
+            check_region_call(rng, lanes, cap, bases, r, "read_and_clear", dev)
+            check_region_call(rng, lanes, cap, bases, r, "read", dev)
+            labels.append(f"{name} unaligned R={r} bases={bases}")
+    # state lanes that start one slot past a 16-byte boundary: slices of
+    # larger tensors, so every slot takes the scalar path
+    lanes = REGION_LANE_SETS["all"]
+    kinds = [k for k, _ in lanes]
+    big = make_state(rng, lanes, cap + 4, dev)
+    st_k = [a[1:cap + 1] for a in big]
+    st_p = [a.clone() for a in st_k]
+    bases = [0, 4 * R, 0]
+    ib, fb = kernels.slot_region_read_pack(st_k, bases, R, clear_kinds=kinds)
+    pib, pfb = kernels.slot_region_read_pack_plain(st_p, bases, R, kinds)
+    torch.cuda.synchronize()
+    lane_err(ib, pib, "offset lanes: int buffer")
+    lane_err(fb, pfb, "offset lanes: float buffer")
+    for (kd, _dt), g, w in zip(lanes, st_k, st_p):
+        lane_err(g, w, f"offset lanes: state after, {kd}")
+    labels.append("all lanes offset by one slot")
+    return labels
 
 
 def time_kernels(rng, lanes, cap, B, R, dev) -> dict:
@@ -2157,7 +2222,44 @@ def time_kernels(rng, lanes, cap, B, R, dev) -> dict:
             lambda: kernels.slot_region_clear_plain(st, kinds, bases, R),
             lambda: [bits(a).index_fill_(0, idx, v) for a, v in zip(st, idents)],
             library="index_fill_ per lane", bytes=k * R * sum(elem), k=k)
+
+        def library_read_clear():
+            out_i = (torch.cat([bits(a).index_select(0, idx).to(torch.int64) for a in ints])
+                     if ints else None)
+            out_f = (torch.cat([a.index_select(0, idx).to(torch.float64) for a in flts])
+                     if flts else None)
+            for a, v in zip(st, idents):
+                bits(a).index_fill_(0, idx, v)
+            return out_i, out_f
+
+        # the close's mode: each distinct region read once and cleared, the
+        # widened words written once per output position
+        n_distinct = len(set(bases))
+        out[f"slot_region_read_pack_clear_k{k}"] = timed(
+            lambda: kernels.slot_region_read_pack(st, bases, R, clear_kinds=kinds),
+            lambda: kernels.slot_region_read_pack_plain(st, bases, R, kinds),
+            library_read_clear,
+            library="index_select + cat per lane class, then index_fill_ per lane",
+            bytes=2 * n_distinct * R * sum(elem) + n_out, k=k, distinct_bases=n_distinct,
+            grid=kernels.region_grid(bases, R, len(st)))
+        out[f"launch_floor_k{k}"] = launch_floor(bases, R, len(st), dev)
     return out
+
+
+def launch_floor(bases, R, n_lanes, dev) -> dict:
+    """The card's floor for a kernel on K2's grid: an empty kernel
+    (csrc/slot_agg.cu empty_kernel) on the grid K2 takes for these bases
+    and lanes, measured as K2 is."""
+    lib = kernels.build_library()
+    grid = kernels.region_grid(bases, R, n_lanes)
+
+    def run():
+        kernels._raise_on(lib.arroyo_slot_empty(dev.index or 0, *grid, kernels._stream(dev)),
+                          "empty_kernel")
+
+    m = measure(run)
+    return {"ms": m["device_ms"], "method": m["method"], "call_ms": m["call_ms"],
+            "grid": list(grid), "kernel_names": m["device_kernels"]}
 
 
 def timed(kernel, plain, library_call, **extra) -> dict:
@@ -2213,7 +2315,8 @@ def kernel_phase(dev) -> dict:
         "qu": dict(lanes=[("sum", getattr(torch, d)) for d in qu_lanes()],
                    cap=QU_CAP, B=BENCH_BATCH, R=2048),
     }
-    errs = {"slot_scatter_combine": 0.0, "slot_region_read_pack": 0.0, "slot_region_clear": 0.0}
+    errs = {"slot_scatter_combine": 0.0, "slot_region_read_pack": 0.0, "slot_region_clear": 0.0,
+            "slot_region_read_pack_clear": 0.0}
     log("kernels: K1 edge cases")
     edge = scatter_edge_cases(rng, kernels.LONG_RUN) + [negative_slot_case(rng, kernels.LONG_RUN)]
     for case in edge:
@@ -2221,6 +2324,8 @@ def kernel_phase(dev) -> dict:
             for merge in (False, True):
                 check_scatter_case(case, idx_dt, merge, dev)
     chain_ns = add_chain_ns(dev)
+    log("kernels: K2's read-and-clear cases")
+    read_clear_cases = check_read_clear_cases(rng, dev)
     timing = {}
     for name, sh in shapes.items():
         log(f"kernels: check {name}")
@@ -2239,7 +2344,8 @@ def kernel_phase(dev) -> dict:
     log("kernels: K1's long-run threshold")
     long_run_ms = long_run_sweep(rng, shapes["deployment"], dev)
     info = {"phase": "kernels", "max_abs_err": errs,
-            "edge_cases": [c["label"] for c in edge], "long_run": kernels.LONG_RUN,
+            "edge_cases": [c["label"] for c in edge], "read_clear_cases": read_clear_cases,
+            "long_run": kernels.LONG_RUN,
             "long_run_sweep_ms": long_run_ms,
             "add_chain_ns": chain_ns,
             "shapes": {n: {"cap": s["cap"], "B": s["B"], "R": s["R"],
@@ -2821,7 +2927,7 @@ def probe_cases(rng, hot: int = 300, hot_shards=(1, 8)) -> list:
     ``hot_shards``; matches and claims in one round (entries at some
     partials' home slots, stale keys in freed slots); max_probes exhausted
     with the overflow counter; a list longer than one CTA's threads;
-    max_probes 0; random tables at 1 and 8 shards."""
+    max_probes 0; random tables at 1 and 8 shards; max_probes -1."""
     out = []
 
     def case(label, S, cap, B, max_probes, n_active, occupied=0.3, hot_home=False,
@@ -2866,6 +2972,8 @@ def probe_cases(rng, hot: int = 300, hot_shards=(1, 8)) -> list:
     case("max_probes 0", 2, 64, 40, 0, 30)
     for S in (1, 8):
         case(f"{S} shards", S, 512, 300, 8, 200, at_home=0.2, stale=0.1)
+    # the reference's fori_loop(0, max_probes) runs no round below 0 either
+    case("max_probes -1", 2, 64, 40, -1, 30)
     return out
 
 
@@ -4442,7 +4550,7 @@ def run_q7_host() -> dict:
 
     info = run_chained("q7_host", build, Q7_EVENTS, oracle_q7, check_q7,
                        path_kernels=("segment_fused",))
-    on_card = [k for k in AGG_PATH_KERNELS[:3] if info["launches"][k]]
+    on_card = [k for k in WINDOW_KERNELS if info["launches"][k]]
     if on_card:
         raise AssertionError(f"q7_host launched the device window's kernels {on_card}")
     return info
@@ -4524,15 +4632,39 @@ def kernel_rows(res: dict) -> list:
     main path's run, its time at that path's shape."""
     q7t = res["kernels"]["timing"]["q7"]
     rows = []
+    # K2's row: the close's mode (read-and-clear) at k = 1, its launches
+    # summed over both modes; each mode and the launch floor beside it
     for name, key in (("slot_scatter_combine", "slot_scatter_combine"),
-                      ("slot_region_read_pack", "slot_region_read_pack_k1"),
+                      ("slot_region_read_pack", "slot_region_read_pack_clear_k1"),
                       ("slot_region_clear", "slot_region_clear_k1")):
         t = q7t[key]
+        launches = res["q7"]["launches"][name]
+        if name == "slot_region_read_pack":
+            launches += res["q7"]["launches"]["slot_region_read_pack_clear"]
         rows.append({"name": name, "route": "cuda", "source": SOURCE,
-                     "replaces": REPLACES[name], "launches": res["q7"]["launches"][name],
+                     "replaces": REPLACES[name], "launches": launches,
                      "max_abs_err": res["kernels"]["max_abs_err"][name], "ms": t["ms"],
                      "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                      "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    runs = ("q7", "q7c", "q5")
+    k2 = rows[1]
+    k2["modes"] = {
+        mode: {f"k{k}": {f: q7t[f"{key}_k{k}"][f] for f in ("ms", "plain_ms", "library_ms",
+                                                              "bound_ms", "call_ms")}
+               for k in (1, 16)}
+              | {"launches": {r: res[r]["launches"][count] for r in runs}}
+        for mode, key, count in (("read_clear", "slot_region_read_pack_clear",
+                                  "slot_region_read_pack_clear"),
+                                 ("read", "slot_region_read_pack", "slot_region_read_pack"))}
+    k2["launch_floor_ms"] = {f"k{k}": q7t[f"launch_floor_k{k}"]["ms"] for k in (1, 16)}
+    k2["read_clear_cases"] = len(res["kernels"]["read_clear_cases"])
+    k3 = rows[2]
+    k3["launches_by_run"] = {r: res[r]["launches"]["slot_region_clear"] for r in runs}
+    if not any(k3["launches_by_run"].values()):
+        k3["main_path"] = ("none: no run here reaches SlotAggregator._clear_bins (free_bins_below, "
+                           "or expired bins outside a close's range); held against its plain "
+                           "version in the kernels phase")
+    k3["launch_floor_ms"] = k2["launch_floor_ms"]["k1"]
     # K1's float sums (K5 in range mode, then the walks) at the deployment
     # shape and qu's, with the chain floor of the longest run beside the bound
     rows[0]["float_sums"] = {

@@ -352,3 +352,24 @@ def test_table_takes_only_power_of_two_capacity_and_cuda_by_default():
     assert hash_kernels.launch_counts() == {"hash_scan_chunk": 0, "hash_scan_walk": 0,
                                             "hash_free": 0}
     assert sharded_kernels.launch_counts()["agg_probe_merge"] == 0
+
+
+def test_no_probe_round_overflows_as_the_reference():
+    """max_probes -1 runs no probe round on the single-device table, as the
+    reference's fori_loop(0, -1) runs none: every partial counts as
+    overflow, the table stays empty, and the next extract raises the
+    reference's error, word for word."""
+    kw = dict(cap=64, batch_cap=128, max_probes=-1, emit_cap=64)
+    tx = _agg(("sum", "count"), (np.int64, np.int64), **kw)
+    jx = JaxAgg(("sum", "count"), (np.int64, np.int64), backend="jax", **kw)
+    rng = np.random.default_rng(23)
+    keys, bins, vals = _random_stream(rng, 100, 40, 2)
+    for agg in (tx, jx):
+        agg.update(keys, bins, [vals, np.ones(100, dtype=np.int64)])
+    assert_state_same(tx, jx)
+    assert not tx.state[2].any() and int(tx.state[4][0]) > 0
+    with pytest.raises(RuntimeError, match="overflow") as got:
+        tx.extract(0, 2, 2)
+    with pytest.raises(RuntimeError, match="overflow") as want:
+        jx.extract(0, 2, 2)
+    assert str(got.value) == str(want.value)

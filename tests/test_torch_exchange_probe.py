@@ -205,6 +205,7 @@ def test_probe_cases_cover_what_the_issue_names():
     assert any("one home slot, 8 shards" in x for x in labels)
     assert any(int(c["active"].sum(axis=1).max()) > 1024 for c in PROBE_CASES)
     assert any(c["max_probes"] == 0 for c in PROBE_CASES)
+    assert any(c["max_probes"] < 0 for c in PROBE_CASES)
 
 
 # ------------------------------------------------------------------ the wrappers' contract
@@ -260,6 +261,11 @@ def test_wrappers_refuse_what_the_kernels_do_not_take_without_counting():
         sk.agg_probe_merge(kinds, table, _meta(2, big), _meta(2, big, dt=torch.int32),
                            _meta(2, big, dt=torch.bool), [_meta(2, big)], 4)
     with pytest.raises(ValueError, match="max_probes"):
+        sk.agg_probe_merge(kinds, table, _meta(2, 4), _meta(2, 4, dt=torch.int32),
+                           _meta(2, 4, dt=torch.bool), [_meta(2, 4)], sk._TAG_LIMIT)
+    # a negative max_probes is taken as no round, as the reference's loop
+    # takes it: the call gets past that check to the device's
+    with pytest.raises(ValueError, match="unsupported device"):
         sk.agg_probe_merge(kinds, table, _meta(2, 4), _meta(2, 4, dt=torch.int32),
                            _meta(2, 4, dt=torch.bool), [_meta(2, 4)], -1)
     with pytest.raises(ValueError, match="unsupported device"):

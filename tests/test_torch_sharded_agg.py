@@ -231,3 +231,29 @@ def test_snapshot_restore_scan_free(n_dev):
     assert h_t.is_ready()
     assert_rows_equal(h_j.result(), h_t.result())
     assert_state_equal(jagg, tagg)
+
+
+@pytest.mark.parametrize("max_probes", [-1, 0])
+@pytest.mark.parametrize("n_dev", [4, 8])
+def test_no_probe_round_spills_every_partial(n_dev, max_probes):
+    """max_probes <= 0 runs no probe round, as the reference's
+    fori_loop(0, max_probes) runs none: every merged partial goes to the
+    spill buffer (large enough that none is lost), and the state, the mesh
+    ledger and the rows a close emits equal the JAX package's."""
+    jagg, tagg = _pair(n_dev, cap=256, batch_cap=64, max_probes=max_probes, emit_cap=64,
+                       spill_cap=1024)
+    rng = np.random.default_rng(40 + n_dev - max_probes)
+    for _ in range(3):
+        keys, bins, vals = _rows(rng, n_dev * 40, 60)
+        k, b, valid, vs = _sharded(n_dev, 64, keys, bins, vals)
+        jagg.update_sharded(k, b, valid, vs)
+        tagg.update_sharded(k, b, valid, vs)
+        assert_state_equal(jagg, tagg)
+        assert tagg.mesh_stats() == jagg.mesh_stats()
+    assert not tagg.state[2].any()  # no partial took a table slot
+    assert int(tagg.state[7].sum()) > 0 and int(tagg.state[4].sum()) == 0
+    assert_rows_equal(jagg.snapshot(), tagg.snapshot())
+    assert_rows_equal(jagg.extract_all(0, 2, 2), tagg.extract_all(0, 2, 2))
+    assert_state_equal(jagg, tagg)
+    assert_rows_equal(jagg.extract_all(0, 10, 10), tagg.extract_all(0, 10, 10))
+    assert_state_equal(jagg, tagg)

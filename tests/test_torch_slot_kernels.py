@@ -221,4 +221,5 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     assert kernels.launch_counts() == {"slot_scatter_combine": 0,
                                        "slot_region_read_pack": 0,
                                        "slot_region_clear": 0,
-                                       "slot_gather": 0}
+                                       "slot_gather": 0,
+                                       "slot_region_read_pack_clear": 0}
