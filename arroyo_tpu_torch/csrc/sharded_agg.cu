@@ -27,7 +27,10 @@
 //       [n_dev, dest_cap] send buffers, the rest stay local.
 //   K10 shard_spill       step 7: partials the table could not place
 //       append to the per-shard spill buffer; past its end they count as
-//       overflow.
+//       overflow. One launch of csrc/table_compact.cuh's compaction in its
+//       SPILL mode: the still-active flags are the predicate, the fill
+//       comes in through tile 0's look-back word, the shard's last tile
+//       writes the new fill and the overflow.
 //   K11 shard_extract     local_extract: a stable compaction of the slots
 //       whose bin lies in [emit_lo, emit_hi), emitting ones first, then the
 //       first non-emitting ones (what argsort(~emit_mask)[:emit_cap]
@@ -123,7 +126,11 @@
 // each slot's occupancy and bin once, in one launch over tiles of every
 // shard (see csrc/table_compact.cuh): its bound is the occupancy, the
 // occupied bins, the emitted slots' key and lanes, the E rows written and
-// the frees.
+// the frees. K10's spill reads the still flags (16 a thread, one 16-byte
+// load where M % 16 == 0) and only the flagged rows' key, bin and lanes:
+// at q7m nearly every partial is placed, so its bound is the 1.1 MB of
+// flags, and the former three launches (count, write, finish) were launch
+// latency; the compaction's one launch waits out one look-back instead.
 //
 // Lanes are int32, int64, uint64 (a numeric group-by key riding as a max
 // lane, as the JAX package's sharded store carries it), float32 or float64.
@@ -1557,61 +1564,27 @@ __global__ void __launch_bounds__(EX_THREADS) ex_scatter(Lanes lanes, ExArgs a) 
   }
 }
 
-// spill: still-active rows append in index order from sp_fill
-__global__ void sp_count(const unsigned char* __restrict__ still, long long M, int n_chunks,
-                         int* __restrict__ counts) {
-  __shared__ int ws[32];
-  const long long s = blockIdx.y;
-  const long long i = (long long)blockIdx.x * CHUNK + threadIdx.x;
-  int total;
-  block_excl_count(i < M && still[s * M + i], ws, &total);
-  if (threadIdx.x == 0) counts[s * n_chunks + blockIdx.x] = total;
-}
-
-__global__ void sp_write(const long long* __restrict__ c_key, const int* __restrict__ c_bin,
-                         const unsigned char* __restrict__ still, Lanes lanes, long long M,
-                         int n_chunks, const int* __restrict__ counts, long long sc,
-                         long long* __restrict__ sp_key, int* __restrict__ sp_bin,
-                         const int* __restrict__ sp_fill) {
-  __shared__ int ws[32];
-  __shared__ long long sh[32];
-  const long long s = blockIdx.y;
-  long long prefix, total;
-  chunk_prefix(counts + s * n_chunks, n_chunks, blockIdx.x, &prefix, &total, sh);
-  if (total == 0) return;
-  const long long i = (long long)blockIdx.x * CHUNK + threadIdx.x;
-  const bool f = i < M && still[s * M + i];
-  int tot;
-  const long long sidx = sp_fill[s] + prefix + block_excl_count(f, ws, &tot);
-  if (!f || sidx >= sc) return;
-  const long long row = s * M + i, d = s * sc + sidx;
-  sp_key[d] = c_key[row];
-  sp_bin[d] = c_bin[row];
-  for (int l = 0; l < lanes.n; ++l) {
-    const int dt = lanes.dtype[l];
-    st_bits(dt, lanes.out[l], d, ld_bits(dt, lanes.in[l], row));
-  }
-}
-
-__global__ void sp_finish(int S, int n_chunks, const int* __restrict__ counts, long long sc,
-                          int* __restrict__ sp_fill, int* __restrict__ oflow) {
-  const int s = threadIdx.x;
-  if (s >= S) return;
-  long long total = 0;
-  for (int c = 0; c < n_chunks; ++c) total += counts[s * n_chunks + c];
-  const long long fill = sp_fill[s];
-  long long room = sc - fill;
-  if (room < 0) room = 0;
-  const long long spilled = total < room ? total : room;
-  sp_fill[s] = (int)(fill + spilled < sc ? fill + spilled : sc);
-  oflow[s] += (int)(total - spilled);
-}
-
 // ------------------------------------------------------------ K11
 
 // K11 is csrc/table_compact.cuh's one-pass compaction (CLOSE, or
-// ZERO_TAIL); the library counts its kernel launches.
+// ZERO_TAIL), K10's spill its SPILL mode; the library counts their kernel
+// launches.
 static std::atomic<long long> g_ext_launches{0};
+static std::atomic<long long> g_sp_launches{0};
+
+// csrc/table_compact.cuh's lanes from this file's (the bits move, so an
+// 8-byte lane is wide whatever its type).
+static compact::Lanes compact_lanes(const Lanes* lanes) {
+  compact::Lanes cl;
+  for (int l = 0; l < lanes->n; ++l) {
+    cl.in[l] = lanes->in[l];
+    cl.out[l] = lanes->out[l];
+    const int dt = lanes->dtype[l];
+    cl.wide[l] = dt == DT_I64 || dt == DT_F64 || dt == DT_U64;
+  }
+  cl.n = lanes->n;
+  return cl;
+}
 
 // ------------------------------------------------------------ entry points
 
@@ -2042,28 +2015,52 @@ int arroyo_shard_exchange(int device, int S, long long L, long long dc, const vo
 }
 
 // K10, step 7. lanes->in: the merged partials' lanes [S * M], ->out: the
-// spill lanes [S * sc]. scratch: counts int32 [S * chunks(M)].
+// spill lanes [S * sc]. scratch: arroyo_shard_spill_scratch_bytes(S, M)
+// bytes, 16-byte aligned, zero before its first call and then passed to
+// every call of this (S, M) on one stream, never cleared (see
+// csrc/table_compact.cuh). sp_fill <= sc on entry, as the reference keeps it.
 int arroyo_shard_spill(int device, int S, long long M, const void* c_key, const void* c_bin,
                        const void* still, const Lanes* lanes, long long sc, void* sp_key,
-                       void* sp_bin, void* sp_fill, void* oflow, void* counts, void* stream) {
-  if (S < 1 || S > 1024 || M < 1 || sc < 0 || !lanes_ok(lanes)) return (int)cudaErrorInvalidValue;
+                       void* sp_bin, void* sp_fill, void* oflow, void* scratch, void* stream) {
+  if (S < 1 || M < 1 || M > 0x7fffffffLL || sc < 0 || sc > 0x7fffffffLL || !lanes_ok(lanes) ||
+      scratch == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const long long tiles = compact::tiles_for(M);
+  const long long blocks = (long long)S * tiles;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int nc = chunks_for(M);
-  sp_count<<<dim3(nc, S), CHUNK, 0, s>>>(static_cast<const unsigned char*>(still), M, nc,
-                                         static_cast<int*>(counts));
+  const compact::Lanes cl = compact_lanes(lanes);
+  compact::Args a{};
+  a.keys = static_cast<const long long*>(c_key);
+  a.bins = static_cast<const int*>(c_bin);
+  a.occ = static_cast<unsigned char*>(const_cast<void*>(still));  // read only in SPILL
+  a.cap = M;
+  a.tiles = (int)tiles;
+  a.S = S;
+  a.free_below = INT_MIN;
+  a.vec = M % compact::ITEMS == 0 && reinterpret_cast<uintptr_t>(still) % 16 == 0;
+  a.E = sc;
+  a.out_key = static_cast<long long*>(sp_key);
+  a.out_bin = static_cast<int*>(sp_bin);
+  a.sp_fill = static_cast<int*>(sp_fill);
+  a.oflow_out = static_cast<int*>(oflow);
+  a.state = static_cast<unsigned long long*>(scratch);
+  a.ticket_scale = 1.0 / (double)blocks;
+  compact::compact_table<compact::SPILL>
+      <<<(unsigned)blocks, compact::TILE_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(cl, a);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  sp_write<<<dim3(nc, S), CHUNK, 0, s>>>(
-      static_cast<const long long*>(c_key), static_cast<const int*>(c_bin),
-      static_cast<const unsigned char*>(still), *lanes, M, nc, static_cast<const int*>(counts),
-      sc, static_cast<long long*>(sp_key), static_cast<int*>(sp_bin),
-      static_cast<const int*>(sp_fill));
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  sp_finish<<<1, 1024, 0, s>>>(S, nc, static_cast<const int*>(counts), sc,
-                               static_cast<int*>(sp_fill), static_cast<int*>(oflow));
-  return (int)cudaGetLastError();
+  ++g_sp_launches;
+  return (int)cudaSuccess;
 }
+
+// K10's spill scratch: the compaction's state words (no fill list).
+long long arroyo_shard_spill_scratch_bytes(int S, long long M) {
+  return 8 * compact::state_words(S, compact::tiles_for(M));
+}
+
+// Kernels K10's spill has launched in this process (one a call).
+long long arroyo_shard_spill_kernel_launches(void) { return g_sp_launches.load(); }
 
 // K11. lanes->in: the table's lanes, ->out: the extracted lanes [S * E].
 // scratch: arroyo_shard_extract_scratch_bytes(S, cap, E, zero_tail) bytes,
@@ -2081,14 +2078,7 @@ int arroyo_shard_extract(int device, int S, long long cap, const void* keys, con
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  compact::Lanes cl;
-  for (int l = 0; l < lanes->n; ++l) {
-    cl.in[l] = lanes->in[l];
-    cl.out[l] = lanes->out[l];
-    const int dt = lanes->dtype[l];
-    cl.wide[l] = dt == DT_I64 || dt == DT_F64 || dt == DT_U64;
-  }
-  cl.n = lanes->n;
+  const compact::Lanes cl = compact_lanes(lanes);
   compact::Args a{};
   a.keys = static_cast<const long long*>(keys);
   a.bins = static_cast<const int*>(bins);

@@ -1,9 +1,26 @@
-// The table reads' compaction, shared by K11 (csrc/sharded_agg.cu,
-// shard_extract) and K12's walk (csrc/hash_agg.cu, hash_scan_walk). Both
-// compute one thing: per shard of an open-addressing table (keys int64,
-// bins int32, occ bool, lanes; [S * cap]), the slots for which
-// occ && lo <= bin < hi ("emitting"), compacted stably in slot order into
-// E output rows per shard, with their count.
+// The stable compaction shared by K11 (csrc/sharded_agg.cu,
+// shard_extract), K12's walk (csrc/hash_agg.cu, hash_scan_walk) and K10's
+// spill (csrc/sharded_agg.cu, shard_spill). The table reads compute one
+// thing: per shard of an open-addressing table (keys int64, bins int32,
+// occ bool, lanes; [S * cap]), the slots for which occ && lo <= bin < hi
+// ("emitting"), compacted stably in slot order into E output rows per
+// shard, with their count.
+//
+// SPILL is the same walk over K9's still-active flags (`occ` is the flag
+// array [S * M], cap = M, and the predicate is the flag alone: the bins
+// are not loaded to decide it). A shard's rows append to its spill buffer
+// (E = spill_cap rows) from sp_fill[s] on, in index order; rows at or past
+// E are dropped (arroyo_tpu/parallel/sharded_agg.py:243-259, step 7). The
+// base comes in through the look-back: the shard's tile 0 reads sp_fill[s]
+// and publishes fill + its count as its covering word, so every tile's
+// prefix already holds the fill and no other tile reads it. The shard's
+// last tile knows P = fill + the shard's flagged rows, and writes
+// sp_fill[s] = min(P, E) and adds max(P - E, 0) to oflow[s]: the
+// reference's n_spilled / n_lost arithmetic for every fill <= E, which the
+// reference keeps. That write cannot race tile 0's read: the last tile's
+// look-back ends only on a covering word, every covering word of the shard
+// is built on tile 0's (whose value is the fill it read), so the read has
+// returned before the last tile can write. One launch, no fill blocks.
 //
 // What bounds it on the H100: bytes. It must read every slot's occupancy
 // (1 byte) and the occupied slots' bins, gather the emitting slots' key
@@ -77,8 +94,11 @@ constexpr unsigned long long PREFIX = radix::FLAG_PREFIX << 32;
 
 // CLOSE: K11's default mode; ZERO_TAIL: K11 with zeros past the emitting
 // rows (E may exceed cap); WALK: K12's walk (the emitting rows and their
-// count, nothing freed).
-enum Mode { CLOSE = 0, ZERO_TAIL = 1, WALK = 2 };
+// count, nothing freed); SPILL: K10's spill append (see the top).
+enum Mode { CLOSE = 0, ZERO_TAIL = 1, WALK = 2, SPILL = 3 };
+
+// The modes that free slots, write `valid` and run fill blocks (K11's).
+__host__ __device__ constexpr bool is_close(int mode) { return mode == CLOSE || mode == ZERO_TAIL; }
 
 struct Lanes {
   const void* in[MAX_COPY_LANES];  // the table's lanes [S * cap]
@@ -90,7 +110,7 @@ struct Lanes {
 struct Args {
   const long long* keys;
   const int* bins;
-  unsigned char* occ;
+  unsigned char* occ;     // SPILL: the still flags (read only)
   long long cap;          // slots per shard
   int tiles;              // tiles per shard
   int S;
@@ -103,7 +123,8 @@ struct Args {
   int* total;                // [S] emitting slots (CLOSE, ZERO_TAIL)
   long long* count;          // [S] emitting slots (WALK)
   const int* oflow_in;       // [S] copied to oflow_out when given
-  int* oflow_out;
+  int* oflow_out;            // SPILL: [S] the shard's lost rows added
+  int* sp_fill;              // SPILL: [S] read by tile 0, written by the last tile
   unsigned long long* state;  // state_words(S, tiles), zero before a buffer's first launch
   unsigned long long* fill;   // CLOSE: [S * E] non-emitting slots by rank, tagged
   double ticket_scale;        // 1 / the grid's blocks (ticket -> launch without a division)
@@ -117,7 +138,7 @@ __host__ __device__ inline long long state_words(int S, long long tiles) {
 }
 
 __host__ inline long long fill_blocks(int S, long long E, int mode) {
-  return mode == WALK ? 0 : S * ((E + FILL_ROWS - 1) / FILL_ROWS);
+  return is_close(mode) ? S * ((E + FILL_ROWS - 1) / FILL_ROWS) : 0;
 }
 
 __device__ __forceinline__ unsigned occ_byte(const unsigned (&ow)[4], int k) {
@@ -162,7 +183,7 @@ __device__ __forceinline__ void copy_rows(const Lanes& lanes, const Args& a,
     if (ok[j]) {
       a.out_key[dst[j]] = k[j];
       a.out_bin[dst[j]] = b[j];
-      if constexpr (MODE != WALK) a.out_valid[dst[j]] = valid;
+      if constexpr (is_close(MODE)) a.out_valid[dst[j]] = valid;
     }
 #pragma unroll
   for (int l = 0; l < LANE_REGS; ++l)
@@ -244,30 +265,33 @@ __device__ __forceinline__ void compact_tile(const Lanes& lanes, const Args& a, 
 #pragma unroll
   for (int k = 0; k < ITEMS; ++k) bn[k] = 0;
   // occupancy and bins are loaded together: one memory latency, not two
+  // (SPILL loads the flags alone: its predicate reads no bin)
   if (a.vec) {
     if (run0 < a.cap) {
       const uint4 o = *reinterpret_cast<const uint4*>(a.occ + g0);
-      const int4* bp = reinterpret_cast<const int4*>(a.bins + g0);
-      int4 b[ITEMS / 4];
-#pragma unroll
-      for (int q = 0; q < ITEMS / 4; ++q) b[q] = bp[q];
       ow[0] = o.x, ow[1] = o.y, ow[2] = o.z, ow[3] = o.w;
+      if constexpr (MODE != SPILL) {
+        const int4* bp = reinterpret_cast<const int4*>(a.bins + g0);
+        int4 b[ITEMS / 4];
 #pragma unroll
-      for (int q = 0; q < ITEMS / 4; ++q)
-        bn[4 * q] = b[q].x, bn[4 * q + 1] = b[q].y, bn[4 * q + 2] = b[q].z, bn[4 * q + 3] = b[q].w;
+        for (int q = 0; q < ITEMS / 4; ++q) b[q] = bp[q];
+#pragma unroll
+        for (int q = 0; q < ITEMS / 4; ++q)
+          bn[4 * q] = b[q].x, bn[4 * q + 1] = b[q].y, bn[4 * q + 2] = b[q].z, bn[4 * q + 3] = b[q].w;
+      }
     }
   } else {
 #pragma unroll
     for (int k = 0; k < ITEMS; ++k)
       if (run0 + k < a.cap) {
         if (a.occ[g0 + k]) ow[k >> 2] |= 1u << (8 * (k & 3));
-        bn[k] = a.bins[g0 + k];
+        if constexpr (MODE != SPILL) bn[k] = a.bins[g0 + k];
       }
   }
   unsigned mask = 0;  // the run's emitting slots
 #pragma unroll
   for (int k = 0; k < ITEMS; ++k)
-    if (occ_byte(ow, k) && bn[k] >= a.lo && bn[k] < a.hi) mask |= 1u << k;
+    if (occ_byte(ow, k) && (MODE == SPILL || (bn[k] >= a.lo && bn[k] < a.hi))) mask |= 1u << k;
   unsigned tile_count;
   const unsigned excl = block_scan(__popc(mask), warp_sums, &tile_count);
   for (unsigned m = mask, i = excl; m; m &= m - 1, ++i) slot_of[i] = off0 + __ffs(m) - 1;
@@ -275,7 +299,11 @@ __device__ __forceinline__ void compact_tile(const Lanes& lanes, const Args& a, 
   if (threadIdx.x < 32) {
     unsigned long long before = 0;
     if (t == 0) {
-      if (threadIdx.x == 0) radix::store_status(status, tag | PREFIX | tile_count);
+      if (threadIdx.x == 0) {
+        // SPILL: the shard's rows start at its fill (see the top)
+        if constexpr (MODE == SPILL) before = (unsigned)a.sp_fill[s];
+        radix::store_status(status, tag | PREFIX | (before + tile_count));
+      }
     } else {
       if (threadIdx.x == 0) radix::store_status(status + t, tag | AGGREGATE | tile_count);
       before = look_back(status, t, tag);
@@ -284,7 +312,7 @@ __device__ __forceinline__ void compact_tile(const Lanes& lanes, const Args& a, 
     if (threadIdx.x == 0) *sh_prefix = before;
   }
   __syncthreads();
-  const long long P = (long long)*sh_prefix;  // emitting slots before the tile
+  const long long P = (long long)*sh_prefix;  // emitting slots before the tile (SPILL: and the fill)
   const long long done = P + tile_count;      // and up to its end
   const long long ex0 = P + excl;  // emitting slots before the thread's run
   if constexpr (MODE == CLOSE) {
@@ -306,7 +334,7 @@ __device__ __forceinline__ void compact_tile(const Lanes& lanes, const Args& a, 
                             tag | (unsigned long long)(tile0 + fill_of[i]));
     }
   }
-  if constexpr (MODE != WALK) {
+  if constexpr (is_close(MODE)) {
     if (a.free_below != INT_MIN) {
       // expired slots outside the range free now, emitting ones once emitted
       unsigned nw[4] = {ow[0], ow[1], ow[2], ow[3]};
@@ -345,6 +373,10 @@ __device__ __forceinline__ void compact_tile(const Lanes& lanes, const Args& a, 
   if (t == a.tiles - 1 && threadIdx.x == 0) {
     if constexpr (MODE == WALK) {
       a.count[s] = done;
+    } else if constexpr (MODE == SPILL) {
+      __threadfence();  // after the look-back that saw tile 0's fill (see the top)
+      a.sp_fill[s] = (int)(done < a.E ? done : a.E);
+      if (done > a.E) a.oflow_out[s] += (int)(done - a.E);
     } else {
       a.total[s] = (int)done;
       if (a.oflow_out != nullptr) a.oflow_out[s] = a.oflow_in[s];
@@ -436,7 +468,7 @@ __global__ void __launch_bounds__(TILE_THREADS) compact_table(Lanes lanes, Args 
   if (id < n_tiles) {
     compact_tile<MODE>(lanes, a, id, ((launch + 1) & TAG_MASK) << 34, slot_of, fill_of,
                        warp_sums, &sh_prefix);
-  } else if constexpr (MODE != WALK) {
+  } else if constexpr (is_close(MODE)) {
     fill_rows<MODE>(lanes, a, id - n_tiles, launch, reinterpret_cast<long long*>(&sh_prefix));
   }
 }

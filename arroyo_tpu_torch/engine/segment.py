@@ -411,13 +411,15 @@ def _trace_fn(plan: _SegmentPlan, in_dtypes, device: torch.device) -> Callable:
     CUDA, its plain PyTorch version on the CPU (ops/segment_kernel.py).
 
     Signature: ``run(n, arrays)`` over numpy arrays padded to one length P;
-    ``run.on_device(n, arrays)`` stops before the copies to the host. ``run``
+    ``run.on_device(n, arrays)`` stops before the copy to the host. ``run``
     returns ``(outs, mask, aux)`` where ``outs`` maps ``plan.traced_out`` to
     numpy arrays, ``mask`` selects valid rows (None when no member filters
     in the kernel: the padding tail is then dropped by slicing), and ``aux``
     carries one ``(batch_max, valid_count)`` pair per watermark stage. A
-    plan or dtype the kernel does not take raises SegmentUntraceable here,
-    on either device."""
+    batch crosses to the card in one copy (``segment_kernel.stage_inputs``)
+    and back in one: the kernel writes everything into one packed buffer.
+    A plan or dtype the kernel does not take raises SegmentUntraceable
+    here, on either device."""
     if device.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {device}: the segment runs on cuda or cpu")
     try:
@@ -438,44 +440,27 @@ def _trace_fn(plan: _SegmentPlan, in_dtypes, device: torch.device) -> Callable:
         return call
 
     def _on_device(n: int, arrays: list[np.ndarray]):
-        ins = []
-        for a, dt in zip(arrays, prog.in_dtypes):
-            a = np.ascontiguousarray(a).view(np.int64) if dt == np.dtype(np.uint64) else a
-            t = torch.from_numpy(np.ascontiguousarray(a))
-            if cuda:
-                # staged through pinned memory; the caching host allocator
-                # keeps the buffer until the copy has landed
-                t = t.pin_memory().to(device, non_blocking=True)
-            ins.append(t)
-        return segment_kernel.segment_fused(prog, n, ins)
+        ins = segment_kernel.stage_inputs(prog, arrays, device)
+        packed = torch.empty(prog.out_layout(len(arrays[0])).nbytes, dtype=torch.uint8,
+                             device=device)
+        return (packed, *segment_kernel.segment_fused(prog, n, ins, out=packed))
 
     def _run(n: int, arrays: list[np.ndarray]):
-        outs, mask, aux = _on_device(n, arrays)
-        dev_out = list(outs.values()) + ([mask] if mask is not None else []) + \
-            [x for pair in aux for x in pair]
+        packed = _on_device(n, arrays)[0]
         if cuda:
-            host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in dev_out]
-            for h, t in zip(host, dev_out):
-                h.copy_(t, non_blocking=True)
+            host = torch.empty(packed.shape, dtype=torch.uint8, pin_memory=True)
+            host.copy_(packed, non_blocking=True)
             torch.cuda.current_stream(device).synchronize()
         else:
-            host = dev_out
-        host = [h.numpy() for h in host]
-        res = {}
-        for k, name in enumerate(outs):
-            dt = prog.out_dtypes[name]
-            res[name] = host[k].view(dt) if dt == np.dtype(np.uint64) else host[k]
-        k = len(outs)
-        out_mask = None
-        if mask is not None:
-            out_mask = host[k]
-            k += 1
-        return res, out_mask, tuple(host[k:])
+            host = packed
+        return prog.unpack(host.numpy(), len(arrays[0]))
 
     run = guarded(_run)
-    # the fused mesh step keeps K4's outputs on the device:
-    # (outs {name: [P] tensor, uint64 as int64 bits}, mask, aux pairs)
+    # the fused mesh step keeps K4's outputs on the device: (packed buffer,
+    # outs {name: [P] tensor, uint64 as int64 bits}, mask, aux pairs), the
+    # last three views of the first (run.program.out_layout)
     run.on_device = guarded(_on_device)
+    run.program = prog
     return run
 
 
@@ -1019,8 +1004,10 @@ class SegmentRunner:
         acc = list(zip(member.acc_inputs, member.acc_dtypes))
         insert_has_key = plan.insert_has_key
 
+        prog = entry.fn.program
+
         def prefix_fn(n: int, arrays):
-            outs, mask, aux = entry.fn.on_device(n, arrays)
+            packed, outs, mask, _aux = entry.fn.on_device(n, arrays)
             if mask is not None:
                 raise SegmentUntraceable("the fused mesh step takes no in-kernel filter")
             bins = outs["__bins"]
@@ -1030,10 +1017,10 @@ class SegmentRunner:
             vals = [None if inp is None else
                     outs[f"__val{i}"].view(torch.uint64) if np.dtype(dt) == np.uint64
                     else outs[f"__val{i}"] for i, (inp, dt) in enumerate(acc)]
-            flat = []
-            for mx, cnt in aux:
-                flat += [mx.cpu().numpy(), cnt.cpu().numpy()]
-            return key, bins, vals, flat
+            # the watermark part of the packed buffer in one read
+            P = len(arrays[0])
+            wm = packed[prog.out_layout(P).wm_offset:].cpu().numpy()
+            return key, bins, vals, list(prog.unpack_wm(wm, P))
 
         return prefix_fn
 

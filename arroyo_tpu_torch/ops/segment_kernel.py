@@ -11,13 +11,25 @@ the plan (engine/segment.py ``_SegmentCache``).
 One program handles ``BLOCK`` rows of the padded batch: it loads only the
 traced input columns, narrows the validity mask (padding tail, then each
 in-trace filter), evaluates projections, keys, the key hash and the window
-insert prep, stores the traced outputs and the mask, and writes one
-(masked max, valid count) partial per watermark stage; a second, one-program
-launch folds the partials. The work is a fused elementwise pass plus one
-reduction, so the card's memory rate bounds it: at q7's plan about 25 bytes
-read and 33 written per row, 3.8 MB per 65536-row batch, about 1.1 us at
-3.35 TB/s. The design does what fusion can about that: every intermediate
-stays in registers and each column crosses device memory once.
+insert prep, writes one (masked max, valid count) partial per watermark
+stage, draws a ticket from a counter, and then stores the traced outputs
+and the mask, so the last program's fold overlaps the other programs'
+stores. The program that draws the last ticket folds the partials, in
+program order, into each stage's result, and sets the counter back to 0
+for the next launch. So a batch is one
+launch. The work is a fused elementwise pass plus one reduction, so the
+card's memory rate
+bounds it: at q7's plan about 25 bytes read and 33 written per row, 3.8 MB
+per 65536-row batch, about 1.1 us at 3.35 TB/s. The design does what
+fusion can about that: every intermediate stays in registers, each column
+crosses device memory once, and BLOCK is small enough (chosen by a sweep on
+the card, PERF.md) that a 65,536-row batch puts programs on every SM.
+
+Around the kernel, a batch moves in one copy each way: ``stage_inputs``
+packs the input columns into one pinned buffer (each column 16-byte
+aligned) and copies it to the card once; the kernel writes every output,
+the mask and the watermark results into views of one packed buffer
+(``SegmentProgram.out_layout``), which the caller copies back once.
 
 Exactness (the first-batch verification compares bytes): every node's
 dtype comes from the type functions of ``expr.py``; integer ``//``, ``%``
@@ -30,8 +42,9 @@ contracted to an FMA.
 
 The wrapper ``segment_fused`` takes the plain version (``segment_plain``,
 eval_torch over the same plan) only for tensors on the CPU; on a CUDA tensor
-it launches the kernel or raises. Launches are counted in
-``segment_fused.launches``.
+it launches the kernel or raises. Calls are counted in
+``segment_fused.launches``, Triton launches in
+``segment_fused.kernel_launches`` (one a call).
 """
 
 from __future__ import annotations
@@ -41,7 +54,7 @@ import importlib.util
 import os
 import threading
 from pathlib import Path
-from typing import Any, Optional
+from typing import Any, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -53,9 +66,9 @@ from ..expr import (BinOp, Case, Cast, CAST_TARGETS, Col, Func, Lit, Neg, Not,
                     dtype_floor, floordiv_torch, floordiv_type, hash_columns_torch,
                     int_div_type, jax_type, promote, quiet_bit, scalar_as, unary_type)
 
-BLOCK = 1024
-FOLD_BLOCK = 1024
+BLOCK = 256
 NUM_WARPS = 4
+ALIGN = 16  # bytes: every part of the staged inputs and the packed outputs
 _PKG = Path(__file__).resolve().parents[1]
 BUILD_DIR = _PKG / "build" / "segment"
 
@@ -585,43 +598,58 @@ def generate(plan, in_dtypes) -> tuple[str, dict[str, np.dtype], list[np.dtype],
     args = (["n", "P"] + [f"in{k}_ptr" for k in range(len(plan.traced_in))]
             + [f"out{k}_ptr" for k in range(len(plan.traced_out))]
             + (["mask_ptr"] if has_mask else [])
-            + [f"{x}{j}_ptr" for j in range(len(wm)) for x in ("pmax", "pcnt")])
+            + [f"{x}{j}_ptr" for j in range(len(wm)) for x in ("pmax", "pcnt", "amax", "acnt")]
+            + (["ticket_ptr", "G"] if wm else []))
     body = ["pid = tl.program_id(0)",
             "offs = pid.to(tl.int64) * BLOCK + tl.arange(0, BLOCK)",
             "inb = offs < P", *loads, *g.lines]
-    for k, name in enumerate(plan.traced_out):
-        body.append(f"tl.store(out{k}_ptr + offs, {outs[name].code}, mask=inb)")
+    stores = [f"tl.store(out{k}_ptr + offs, {outs[name].code}, mask=inb)"
+              for k, name in enumerate(plan.traced_out)]
     if has_mask:
-        body.append(f"tl.store(mask_ptr + offs, {valid}, mask=inb)")
+        stores.append(f"tl.store(mask_ptr + offs, {valid}, mask=inb)")
+    if not wm:
+        body += stores
     for j, (vals, masked) in enumerate(wm):
         red = (f"tl.reduce({masked}, 0, _max_nan)" if vals.dt.kind == "f"
                else f"tl.max({masked}, axis=0)")
         body.append(f"tl.store(pmax{j}_ptr + pid, {red})")
         body.append(f"tl.store(pcnt{j}_ptr + pid, c{j})")
+    if wm:
+        # the fold: every program's partials are stored before its ticket
+        # (the barrier, then the ticket's release), and its outputs after
+        # it, so the last program's fold overlaps the other programs'
+        # output stores; the program holding the last ticket (its acquire)
+        # reads the G partials past L1, in program order, and sets the
+        # counter back to 0 for the next launch
+        body += ["tl.debug_barrier()",
+                 'ticket = tl.atomic_add(ticket_ptr, 1, sem="acq_rel")',
+                 *stores,
+                 "if ticket == G - 1:"]
+        fold = []
+        for j, (vals, _m) in enumerate(wm):
+            fold += [f"fm{j} = {_Gen.full(dtype_floor(vals.dt), vals.dt)}",
+                     f"fc{j} = tl.zeros([BLOCK], tl.int64)"]
+        fold += ["for fs in range(0, G, BLOCK):",
+                 "    fo = fs + tl.arange(0, BLOCK)",
+                 "    fok = fo < G"]
+        for j, (vals, _m) in enumerate(wm):
+            floor = _Gen.full(dtype_floor(vals.dt), vals.dt)
+            comb = "_max_nan" if vals.dt.kind == "f" else "tl.maximum"
+            fold += [f'    fx = tl.load(pmax{j}_ptr + fo, mask=fok, other=0, cache_modifier=".cg")',
+                     f"    fm{j} = {comb}(fm{j}, tl.where(fok, fx, {floor}))",
+                     f'    fc{j} += tl.load(pcnt{j}_ptr + fo, mask=fok, other=0, cache_modifier=".cg")']
+        for j, (vals, _m) in enumerate(wm):
+            red = (f"tl.reduce(fm{j}, 0, _max_nan)" if vals.dt.kind == "f"
+                   else f"tl.max(fm{j}, axis=0)")
+            fold += [f"tl.store(amax{j}_ptr, {red})",
+                     f"tl.store(acnt{j}_ptr, tl.sum(fc{j}, axis=0))"]
+        fold.append("tl.store(ticket_ptr, 0)")
+        body += [f"    {ln}" for ln in fold]
     src = [_HEADER.format(summary=_summary(plan, in_dtypes)), "",
-           '@triton.jit(do_not_specialize=["n"])',
+           '@triton.jit(do_not_specialize=["n", "G"])' if wm
+           else '@triton.jit(do_not_specialize=["n"])',
            f"def segment_fused_kernel({', '.join(args)}, BLOCK: tl.constexpr):"]
     src += [f"    {ln}" for ln in body]
-    if wm:
-        fargs = (["G"] + [f"{x}{j}_ptr" for j in range(len(wm)) for x in ("pmax", "pcnt")]
-                 + [f"{x}{j}_ptr" for j in range(len(wm)) for x in ("amax", "acnt")])
-        src += ["", "", '@triton.jit(do_not_specialize=["G"])',
-                f"def segment_fold_kernel({', '.join(fargs)}, FOLD: tl.constexpr):"]
-        for j, (vals, _m) in enumerate(wm):
-            floor = _Gen.full(dtype_floor(vals.dt), vals.dt).replace("[BLOCK]", "[FOLD]")
-            comb = "_max_nan" if vals.dt.kind == "f" else "tl.maximum"
-            src += [f"    m{j} = {floor}",
-                    f"    c{j} = tl.zeros([FOLD], tl.int64)",
-                    "    for s in range(0, G, FOLD):",
-                    "        o = s + tl.arange(0, FOLD)",
-                    "        ok = o < G",
-                    f"        x = tl.where(ok, tl.load(pmax{j}_ptr + o, mask=ok, other=0), {floor})",
-                    f"        m{j} = {comb}(m{j}, x)",
-                    f"        c{j} += tl.load(pcnt{j}_ptr + o, mask=ok, other=0)"]
-            red = (f"tl.reduce(m{j}, 0, _max_nan)" if vals.dt.kind == "f"
-                   else f"tl.max(m{j}, axis=0)")
-            src += [f"    tl.store(amax{j}_ptr, {red})",
-                    f"    tl.store(acnt{j}_ptr, tl.sum(c{j}, axis=0))"]
     return "\n".join(src) + "\n", out_dt, [v.dt for v, _ in wm], has_mask
 
 
@@ -635,11 +663,44 @@ def _summary(plan, in_dtypes) -> str:
 # ------------------------------------------------------------ program
 
 
+def _aligned(sizes) -> tuple[int, list[int]]:
+    """(total bytes, offsets) of parts of ``sizes`` bytes laid end to end,
+    each at a multiple of ALIGN."""
+    offs, off = [], 0
+    for n in sizes:
+        offs.append(off)
+        off += -(-int(n) // ALIGN) * ALIGN
+    return off, offs
+
+
+def _np_dt(dt: np.dtype) -> np.dtype:
+    """The NumPy dtype a column crosses the card in (uint64 as int64 bits)."""
+    return _I64 if dt == _U64 else dt
+
+
+class OutLayout(NamedTuple):
+    """Where the kernel writes a P-row batch in its packed buffer: each
+    traced output ``(name, offset, dtype)`` ([P] values), the mask's offset
+    (None without an in-trace filter), and each watermark stage's (max
+    offset, max dtype, count offset), one value each; ``wm_offset`` is
+    where the watermark part starts, so the bytes from it on hold every
+    stage's result."""
+
+    nbytes: int
+    outs: list
+    mask: Optional[int]
+    wm: list
+    wm_offset: int
+
+
 class SegmentProgram:
     """A bound plan lowered for the device: input dtypes, the kernel's
     generated source and the dtypes of what it writes. Built on the host
     (no triton import), so the CPU path takes exactly the plans the kernel
-    takes; the Triton module is loaded at the first CUDA launch."""
+    takes; the Triton module is loaded at the first CUDA launch. On the
+    card it also holds, per (device, stream), the fold's ticket counter and
+    partials (``_fold_state``): chained tasks call one program from
+    several threads."""
 
     def __init__(self, plan, in_dtypes):
         self.plan = plan
@@ -647,6 +708,10 @@ class SegmentProgram:
         self.source, self.out_dtypes, self.wm_dtypes, self.has_mask = generate(plan, self.in_dtypes)
         self.digest = hashlib.sha256(self.source.encode()).hexdigest()[:16]
         self._module = None
+        self._fold: dict = {}
+        self._fold_lock = threading.Lock()
+        self._in_layouts: dict = {}  # P -> in_layout(P)
+        self._out_layouts: dict = {}  # P -> out_layout(P)
 
     def module(self):
         """The generated module, written under build/segment/ and imported
@@ -670,6 +735,128 @@ class SegmentProgram:
                 self._module = mod
         return self._module
 
+    # -- the batch's bytes ------------------------------------------------
+
+    def in_layout(self, P: int) -> tuple[int, list[int]]:
+        """(bytes, offsets) of the staged input columns of a P-row batch."""
+        lay = self._in_layouts.get(P)
+        if lay is None:
+            lay = self._in_layouts[P] = _aligned(P * dt.itemsize for dt in self.in_dtypes)
+        return lay
+
+    def out_layout(self, P: int) -> OutLayout:
+        lay = self._out_layouts.get(P)
+        if lay is None:
+            lay = self._out_layouts[P] = self._out_layout(P)
+        return lay
+
+    def _out_layout(self, P: int) -> OutLayout:
+        names = list(self.plan.traced_out)
+        sizes = [P * np.dtype(self.out_dtypes[k]).itemsize for k in names]
+        if self.has_mask:
+            sizes.append(P)
+        for dt in self.wm_dtypes:
+            sizes += [dt.itemsize, 8]
+        nbytes, offs = _aligned(sizes)
+        outs = [(k, offs[i], _np_dt(np.dtype(self.out_dtypes[k]))) for i, k in enumerate(names)]
+        i = len(names)
+        mask = None
+        if self.has_mask:
+            mask, i = offs[i], i + 1
+        wm = [(offs[i + 2 * j], self.wm_dtypes[j], offs[i + 2 * j + 1])
+              for j in range(len(self.wm_dtypes))]
+        return OutLayout(nbytes, outs, mask, wm, offs[i] if wm else nbytes)
+
+    def carve(self, packed: torch.Tensor, P: int):
+        """The kernel's outputs as views of ``packed``: (outs {name: [P]
+        tensor, uint64 as int64 bits}, mask or None, aux [(max, count)] of
+        0-d tensors)."""
+        lay = self.out_layout(P)
+        typed: dict = {}  # the buffer as each dtype (every part is aligned to its size)
+
+        def as_dt(dt):
+            t = typed.get(dt)
+            if t is None:
+                t = typed[dt] = packed.view(TORCH_DTYPES[dt])
+            return t
+
+        outs = {k: as_dt(dt)[off // dt.itemsize: off // dt.itemsize + P] for k, off, dt in lay.outs}
+        mask = None if lay.mask is None else as_dt(_BOOL)[lay.mask: lay.mask + P]
+        aux = [(as_dt(dt)[mo // dt.itemsize], as_dt(_I64)[co // 8]) for mo, dt, co in lay.wm]
+        return outs, mask, aux
+
+    def unpack(self, host: np.ndarray, P: int):
+        """A host copy of the packed buffer (uint8) as the segment function
+        returns it: (outs {name: [P] array, uint64 as uint64}, mask or None,
+        aux: max, count, ... as 0-d arrays)."""
+        lay = self.out_layout(P)
+        outs = {}
+        for k, off, dt in lay.outs:
+            a = host[off: off + P * dt.itemsize].view(dt)
+            outs[k] = a.view(np.uint64) if self.out_dtypes[k] == _U64 else a
+        mask = None if lay.mask is None else host[lay.mask: lay.mask + P].view(np.bool_)
+        return outs, mask, self.unpack_wm(host[lay.wm_offset:], P)
+
+    def unpack_wm(self, tail: np.ndarray, P: int) -> tuple:
+        """Each watermark stage's max and count (0-d arrays, flat) from the
+        packed buffer's bytes at ``out_layout(P).wm_offset`` on."""
+        lay = self.out_layout(P)
+        out = []
+        for mo, dt, co in lay.wm:
+            mo, co = mo - lay.wm_offset, co - lay.wm_offset
+            out += [tail[mo: mo + dt.itemsize].view(_np_dt(dt)).reshape(()),
+                    tail[co: co + 8].view(_I64).reshape(())]
+        return tuple(out)
+
+    def _fold_state(self, dev: torch.device, G: int):
+        """The fold's ticket counter (int32, zero between launches: the
+        last program of each launch resets it) and its partials (one max
+        and one count array of at least G entries per watermark stage) for
+        ``dev``'s current stream. One launch at a time uses them: launches
+        on one stream run in order."""
+        key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
+        st = self._fold.get(key)
+        if st is not None and st[2] >= G:
+            return st[0], st[1]
+        with self._fold_lock:
+            st = self._fold.get(key)
+            if st is None or st[2] < G:
+                ticket = st[0] if st is not None else torch.zeros(1, dtype=torch.int32, device=dev)
+                parts = []
+                for dt in self.wm_dtypes:
+                    parts += [torch.empty(G, dtype=TORCH_DTYPES[dt], device=dev),
+                              torch.empty(G, dtype=torch.int64, device=dev)]
+                st = self._fold[key] = (ticket, parts, G)
+            return st[0], st[1]
+
+
+def stage_inputs(prog: SegmentProgram, arrays: list, device: torch.device) -> list:
+    """The batch's input columns (numpy, one length P) as the kernel's
+    inputs on ``device``: packed into one host buffer (pinned for the
+    card), each column at a 16-byte boundary, copied to the card in one
+    copy, and carved into [P] views (uint64 as int64 bits). On the CPU the
+    views are of the host buffer itself. The caching host allocator keeps a
+    pinned buffer until its copy has landed."""
+    P = len(arrays[0])
+    nbytes, offs = prog.in_layout(P)
+    cuda = device.type == "cuda"
+    host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=cuda)
+    h = host.numpy()
+    for a, dt, off in zip(arrays, prog.in_dtypes, offs):
+        a = np.asarray(a)
+        if len(a) != P or a.dtype != dt:
+            raise ValueError(f"input of {a.dtype}[{len(a)}] where the plan stages {dt}[{P}]")
+        h[off: off + P * dt.itemsize].view(_np_dt(dt))[:] = a.view(_np_dt(dt))
+    buf = host.to(device, non_blocking=True) if cuda else host
+    typed: dict = {}
+    out = []
+    for dt, off in zip(prog.in_dtypes, offs):
+        tdt = TORCH_DTYPES[dt]
+        if tdt not in typed:
+            typed[tdt] = buf.view(tdt)
+        out.append(typed[tdt][off // dt.itemsize: off // dt.itemsize + P])
+    return out
+
 
 def _check_inputs(prog: SegmentProgram, n: int, inputs) -> torch.device:
     if len(inputs) != len(prog.in_dtypes) or not inputs:
@@ -690,41 +877,46 @@ def _check_inputs(prog: SegmentProgram, n: int, inputs) -> torch.device:
     return dev
 
 
-def segment_fused(prog: SegmentProgram, n: int, inputs: list[torch.Tensor]):
+def segment_fused(prog: SegmentProgram, n: int, inputs: list[torch.Tensor],
+                  out: Optional[torch.Tensor] = None):
     """Run the bound segment on one padded batch: (outs, mask, aux) as
-    segment_plain gives them. CUDA tensors launch K4 (a build or launch
-    error propagates); CPU tensors take the plain version."""
+    segment_plain gives them, each a view of one packed buffer laid out by
+    ``prog.out_layout(P)``: ``out`` (uint8, that many bytes, on the inputs'
+    device) when given, else one made here. CUDA tensors launch K4 (a build
+    or launch error propagates); CPU tensors take the plain version, whose
+    results are copied into the buffer."""
     dev = _check_inputs(prog, n, inputs)
-    if dev.type == "cpu":
-        return segment_plain(prog, n, inputs)
-    mod = prog.module()
     p = inputs[0].shape[0]
-    grid = -(-p // BLOCK)
-    outs = {name: torch.empty(p, dtype=TORCH_DTYPES[prog.out_dtypes[name]], device=dev)
-            for name in prog.plan.traced_out}
-    mask = torch.empty(p, dtype=torch.bool, device=dev) if prog.has_mask else None
-    parts = []
-    for dt in prog.wm_dtypes:
-        parts += [torch.empty(grid, dtype=TORCH_DTYPES[dt], device=dev),
-                  torch.empty(grid, dtype=torch.int64, device=dev)]
-    args = [n, p, *inputs, *outs.values()] + ([mask] if mask is not None else []) + parts
+    nbytes = prog.out_layout(p).nbytes
+    if out is not None and (out.dtype != torch.uint8 or out.dim() != 1 or out.numel() != nbytes
+                            or out.device != dev or not out.is_contiguous()):
+        raise ValueError(f"out must be a contiguous uint8 [{nbytes}] tensor on {dev}")
+    packed = torch.empty(nbytes, dtype=torch.uint8, device=dev) if out is None else out
+    outs, mask, aux = prog.carve(packed, p)
+    if dev.type == "cpu":
+        p_outs, p_mask, p_aux = segment_plain(prog, n, inputs)
+        for k, t in outs.items():
+            t.copy_(p_outs[k])
+        if mask is not None:
+            mask.copy_(p_mask)
+        for (m, c), (pm, pc) in zip(aux, p_aux):
+            m.copy_(pm)
+            c.copy_(pc)
+        return outs, mask, aux
+    mod = prog.module()
+    grid = max(1, -(-p // BLOCK))
+    args = [n, p, *inputs, *outs.values()] + ([mask] if mask is not None else [])
+    if aux:
+        ticket, parts = prog._fold_state(dev, grid)
+        for j, (m, c) in enumerate(aux):
+            args += [parts[2 * j], parts[2 * j + 1], m, c]
+        args += [ticket, grid]
     mod.segment_fused_kernel[(grid,)](*args, BLOCK=BLOCK, num_warps=NUM_WARPS,
                                       enable_fp_fusion=False)
     with _count_lock:
         segment_fused.launches += 1
-    aux = []
-    if prog.wm_dtypes:
-        res = []
-        for dt in prog.wm_dtypes:
-            res += [torch.empty(1, dtype=TORCH_DTYPES[dt], device=dev),
-                    torch.empty(1, dtype=torch.int64, device=dev)]
-        mod.segment_fold_kernel[(1,)](grid, *parts, *res, FOLD=FOLD_BLOCK, num_warps=NUM_WARPS,
-                                      enable_fp_fusion=False)
-        aux = [(res[2 * j][0], res[2 * j + 1][0]) for j in range(len(prog.wm_dtypes))]
+        segment_fused.kernel_launches += 1
     return outs, mask, aux
-
-
-segment_fused.launches = 0
 
 
 def launch_counts() -> dict[str, int]:
@@ -733,3 +925,7 @@ def launch_counts() -> dict[str, int]:
 
 def reset_launch_counts() -> None:
     segment_fused.launches = 0
+    segment_fused.kernel_launches = 0
+
+
+reset_launch_counts()

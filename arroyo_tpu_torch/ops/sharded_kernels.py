@@ -14,7 +14,11 @@ aggregate, every array laid out ``[shard, ...]`` on one torch device:
 - ``shard_exchange`` (K10): owner bucketing into the send buffers and the
   rows kept local (B10 ``exchange_merge`` steps 2-3) over the whole card
   (``exchange_kernel_launches``: two a call), and ``shard_spill`` (K10,
-  step 7): rows the table could not place append to the spill buffer;
+  step 7): rows the table could not place append to the spill buffer, in
+  one launch of csrc/table_compact.cuh's compaction in its SPILL mode
+  (``spill_kernel_launches``: one a call; its state buffer,
+  ``spill_scratch``, belongs to the caller: ShardedAggregator keeps one per
+  layout and stream);
 - ``shard_extract`` (K11): the per-shard compaction of a close, with its
   frees (B10 ``local_extract``), into one packed buffer, in one launch of
   csrc/table_compact.cuh's compaction (``extract_kernel_launches`` counts
@@ -46,8 +50,8 @@ from .aggregate import _identity, probe_merge, sort_reduce
 
 MAX_LANES = 32  # csrc/sharded_agg.cu MAX_LANES
 MAX_SHARDS = 32  # csrc/sharded_agg.cu MAX_SHARDS (shard_exchange)
-CHUNK = 1024  # csrc/sharded_agg.cu CHUNK
 EXCHANGE_TILE = 1024  # csrc/sharded_agg.cu EX_TILE: rows a tile of K10's exchange buckets
+COMPACT_TILE = 4096  # csrc/table_compact.cuh TILE: slots a tile of the compaction reads
 PROBE_GROUP = 16  # csrc/sharded_agg.cu PM_GROUP: K9's lists hold B rounded up to it
 INT32_LIMIT = (1 << 31) - 1
 _U64_MAX = (1 << 64) - 1
@@ -111,6 +115,10 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.arroyo_shard_exchange_kernel_launches.argtypes = []
     lib.arroyo_shard_exchange_kernel_launches.restype = ll
     lib.arroyo_shard_spill.argtypes = [i, i, ll, p, p, p, lp, ll, p, p, p, p, p, p]
+    lib.arroyo_shard_spill_scratch_bytes.argtypes = [i, ll]
+    lib.arroyo_shard_spill_scratch_bytes.restype = ll
+    lib.arroyo_shard_spill_kernel_launches.argtypes = []
+    lib.arroyo_shard_spill_kernel_launches.restype = ll
     lib.arroyo_agg_probe_merge_rounds.argtypes = [i, i, i, p, p]
     lib.arroyo_agg_probe_merge_rounds.restype = ctypes.c_int
     lib.arroyo_shard_extract.argtypes = [i, i, ll, p, p, p, lp, i, i, i, ll, p, p, p, p, p,
@@ -578,12 +586,35 @@ def _check_spill(kinds, spill):
     return dev, shape
 
 
+def spill_scratch_bytes(S: int, M: int) -> int:
+    """Bytes of K10's spill state for ``[S, M]`` partials: the compaction's
+    ticket counter and one status word per tile of COMPACT_TILE flags
+    (pinned to the library's ``arroyo_shard_spill_scratch_bytes`` on the
+    card)."""
+    return 8 * (1 + S * -(-M // COMPACT_TILE))
+
+
+def spill_scratch(S: int, M: int, dev: torch.device) -> torch.Tensor:
+    """A zeroed spill state for ``[S, M]`` partials on ``dev``. The kernel
+    numbers its launches on the buffer by a ticket counter that is never
+    cleared, so one buffer serves every call of one (S, M) on one stream,
+    and no other."""
+    return torch.zeros(spill_scratch_bytes(S, M), dtype=torch.uint8, device=dev)
+
+
 def shard_spill(kinds: Sequence[str], c_key: torch.Tensor, c_bin: torch.Tensor,
-                c_accs: Sequence[torch.Tensor], still: torch.Tensor, spill) -> None:
+                c_accs: Sequence[torch.Tensor], still: torch.Tensor, spill,
+                scratch: Optional[torch.Tensor] = None) -> None:
     """Step 7: each shard's still-active partials ``[S, M]`` append, in
     index order, to its spill buffer ``(sp_key, sp_bin, sp_fill, sp_accs,
     oflow)`` in place from ``sp_fill``; rows past its end add to
-    ``oflow``."""
+    ``oflow``. On the card ``scratch`` is the call's ``spill_scratch(S, M)``
+    (a buffer kept for this layout and stream); the CPU needs none."""
+    if c_key.dim() == 2 and spill[0].dim() == 2:  # the sizes first: meta tensors show them
+        M, sc = c_key.shape[1], spill[0].shape[1]
+        if M > INT32_LIMIT or sc > INT32_LIMIT:
+            raise ValueError(f"{M} partials and {sc} spill rows a shard; the kernel counts "
+                             f"them in 32 bits")
     dev, sshape = _check_spill(kinds, spill)
     _check_2d(c_key, "c_key", (torch.int64,), None, dev)
     shape = tuple(c_key.shape)
@@ -592,19 +623,29 @@ def shard_spill(kinds: Sequence[str], c_key: torch.Tensor, c_bin: torch.Tensor,
     _check_2d(c_bin, "c_bin", (torch.int32,), shape, dev)
     _check_2d(still, "still", (torch.bool,), shape, dev)
     _check_lanes(kinds, c_accs, shape, dev, "c_accs")
+    S, M = shape
     if dev.type == "cpu":
         shard_spill_plain(kinds, c_key, c_bin, c_accs, still, spill)
         return
-    S, M = shape
+    want = spill_scratch_bytes(S, M)
+    if (scratch is None or scratch.dtype != torch.uint8 or scratch.device != dev
+            or scratch.numel() != want or not scratch.is_contiguous()):
+        raise ValueError(f"shard_spill on the card needs its state buffer: spill_scratch({S}, "
+                         f"{M}), {want} contiguous bytes on {dev}")
     sp_key, sp_bin, sp_fill, sp_accs, oflow = spill
-    counts = torch.empty((S, -(-M // CHUNK)), dtype=torch.int32, device=dev)
     ln = _lanes(kinds, [a.dtype for a in c_accs], inp=c_accs, out=sp_accs)
     err = build_library().arroyo_shard_spill(
         _dev_index(dev), S, M, c_key.data_ptr(), c_bin.data_ptr(), still.data_ptr(),
         ctypes.byref(ln), sshape[1], sp_key.data_ptr(), sp_bin.data_ptr(), sp_fill.data_ptr(),
-        oflow.data_ptr(), counts.data_ptr(), kernels._stream(dev))
+        oflow.data_ptr(), scratch.data_ptr(), kernels._stream(dev))
     kernels._raise_on(err, "shard_spill")
     kernels._counted(shard_spill)
+
+
+def spill_kernel_launches() -> int:
+    """Kernels K10's spill has launched on the card in this process (builds
+    the library): one a call."""
+    return build_library().arroyo_shard_spill_kernel_launches()
 
 
 def shard_spill_plain(kinds, c_key, c_bin, c_accs, still, spill) -> None:

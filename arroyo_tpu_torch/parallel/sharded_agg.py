@@ -15,7 +15,9 @@ step, every shard at once, each stage one kernel launch
   5. K8 over the received rows followed by the kept-local ones
   6. K9 probe_merge into each shard's open-addressing table
   7. K10 shard_spill: rows the table cannot place append to the per-shard
-     spill buffer; only its exhaustion counts as overflow
+     spill buffer; only its exhaustion counts as overflow (one launch; its
+     state buffer, never cleared, is the aggregator's: one per merged-row
+     count and stream)
 
 A close (``extract_all``) is K11 per emit_cap chunk, one packed copy to
 pinned host memory behind an event per round, plus the spill rows combined
@@ -117,6 +119,11 @@ class ShardedAggregator:
         self.exchange_rows = 0
         self.overflow_rows = 0
         self.state = self._init_state()
+        # K10's spill state by (merged rows a shard, stream), made with the
+        # table for the host step's rows; a fused step's padded batch adds
+        # its own at its first step
+        self._spill_states: dict = {}
+        self._spill_state(self.n_dev * self.per_dest_cap + batch_cap)
 
     def _init_state(self):
         n, cap, sc, dev = self.n_dev, self.cap, self.spill_cap, self.device
@@ -136,6 +143,18 @@ class ShardedAggregator:
             torch.zeros(n, dtype=torch.int32, device=dev),
             lanes(sc),
         )
+
+    def _spill_state(self, M: int) -> Optional[torch.Tensor]:
+        """The spill kernel's state buffer for ``[n_dev, M]`` merged partials
+        on the current stream (None on the CPU, whose plain version needs
+        none)."""
+        if self.device.type != "cuda":
+            return None
+        key = (M, torch.cuda.current_stream(self.device).cuda_stream)
+        buf = self._spill_states.get(key)
+        if buf is None:
+            buf = self._spill_states[key] = sk.spill_scratch(self.n_dev, M, self.device)
+        return buf
 
     def _to_device(self, a, dtype=None) -> torch.Tensor:
         if isinstance(a, torch.Tensor):
@@ -165,7 +184,8 @@ class ShardedAggregator:
         still = sk.agg_probe_merge(kinds, (keys_t, bins_t, occ_t, accs_t), c_key, c_bin,
                                    c_active, c_accs, self.max_probes)
         sk.shard_spill(kinds, c_key, c_bin, c_accs, still,
-                       (sp_key, sp_bin, sp_fill, sp_accs, oflow_t))
+                       (sp_key, sp_bin, sp_fill, sp_accs, oflow_t),
+                       self._spill_state(c_key.shape[1]))
 
     def update_sharded(self, key_i64, bins, valid, vals) -> None:
         """key_i64 / bins / valid: ``[n_dev, batch_cap]`` shard-local rows

@@ -14,7 +14,8 @@ non-zero, printing no result):
               aggregator's slot_agg.cu with K1-K3 and K7, the join probe's
               join_probe.cu, the sharded aggregate's sharded_agg.cu with
               K8-K11, the single-device table's hash_agg.cu with K12 and
-              K13; K11 and K12's walk share table_compact.cuh) with nvcc for
+              K13; K11, K12's walk and K10's spill share table_compact.cuh)
+              with nvcc for
               sm_90a, one nvcc per source, all started together;
 3. q7      -- Nexmark q7 through the port's run_graph on the GPU at the size
               bench.py measures (2,000,000 events, batch 65536, table 65536,
@@ -52,7 +53,11 @@ non-zero, printing no result):
               bids chains of qu and qs, an
               expression grid over every allowlisted operator and function
               and int32/int64/float32/float64/bool columns with their edge
-              values, all at an odd row count; then timed at q7's plan;
+              values, all at an odd row count; on its own edge cases (n = 0,
+              P not a multiple of BLOCK, every row filtered, two NaN payloads
+              in one batch, the fold's loop over many partials, 1,000
+              back-to-back launches of one program: the fold's ticket counter
+              resets), one Triton launch a call; then timed at q7's plan;
 9. q8c     -- bench.py's q8 (auctions JOIN bids per tumbling 10 s window,
               events 100 us apart) at its own setting: 500,000 events,
               chaining on, batch 65536, queue 1 x 65536. Exact parity with a
@@ -152,6 +157,11 @@ non-zero, printing no result):
               exhausted and 0), each with its launches a call from the
               library's counter (exchange_kernel_launches: 2,
               probe_merge_kernel_launches: 1) and K9's rounds and cluster;
+              K10's spill on its own (chip_smoke.spill_cases: every shard
+              empty, fill = spill_cap, exhaustion inside a tile, M % 16 != 0,
+              M below one tile, rows at tile edges, three appends on one
+              state buffer, 32 shards), one kernel a call by
+              spill_kernel_launches;
               then timed at q7m's shapes, mesh_ab's (8 x 2,048, table
               8192) and the deployment state, K8's launches a call held to
               the plan and the trace, K9's and K10's to the library's
@@ -181,7 +191,13 @@ non-zero, printing no result):
               "numpy"): exact parity, K4 on the card, no K1-K3.
 
 ``--only a,b`` runs those phases alone after probe and build (a short
-check) and prints no result line.
+check) and prints no result line. ``--only segment_sweep`` (in no default
+run) times K4 at q7c's, q5's and q8c's batches for each BLOCK and
+num_warps, each held to its plain version first.
+
+On every chained path K4 is one Triton launch a call
+(``segment_fused.kernel_launches`` equal to its calls), and K10's spill
+one kernel a call by the library's counter.
 
 Then the {"kernels": [...]} line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Details go to <out-dir>/chip_smoke.json, the
@@ -508,9 +524,19 @@ def check_q5(rows: list, want: dict) -> dict:
 
 
 def all_launch_counts() -> dict:
+    """Every wrapper's calls, and K4's Triton launches beside its calls
+    (``segment_fused_kernels``)."""
     return {**kernels.launch_counts(), **segment_kernel.launch_counts(),
+            "segment_fused_kernels": segment_kernel.segment_fused.kernel_launches,
             **join_kernels.launch_counts(), **sharded_kernels.launch_counts(),
             **hash_kernels.launch_counts()}
+
+
+def check_k4_one_launch(name: str, launches: dict) -> None:
+    """K4 is one Triton launch a call on every chained path."""
+    if launches["segment_fused_kernels"] != launches["segment_fused"]:
+        raise AssertionError(f"{name}: K4 made {launches['segment_fused_kernels']} Triton "
+                             f"launches in {launches['segment_fused']} calls")
 
 
 def reset_all_launch_counts() -> None:
@@ -552,6 +578,7 @@ def run_chained(name: str, build, events: int, oracle, check,
     if launches["segment_fused"] != want_k4:
         raise AssertionError(f"{name}: K4 launched {launches['segment_fused']} times, "
                              f"expected one per batch of >= {min_rows} rows ({want_k4})")
+    check_k4_one_launch(name, launches)
     unlaunched = [k for k in path_kernels if launches[k] == 0]
     if unlaunched:
         raise AssertionError(f"{name} ran without launching {unlaunched}: {launches}")
@@ -581,9 +608,11 @@ def profiled_run(build, events: int, job: str, check, want, queue_mult: int = 2,
     check(rows_p, want)
     by_name = device_us_by_name(prof)
     busy_s = sum(by_name.values()) / 1e6 if by_name else None  # None: not measured
+    copies = {e.key: e.count for e in prof.key_averages() if e.key.startswith("Memcpy")}
     return {"wall_s": wall_p, "device_busy_s": busy_s,
             "device_idle_share": None if busy_s is None else 1.0 - busy_s / wall_p,
-            "device_us_by_name": dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:14])}
+            "device_us_by_name": dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:14]),
+            "copies": copies}
 
 
 # ---------------------------------------------------------------- q8c
@@ -706,6 +735,7 @@ def run_q8c() -> dict:
     if launches["segment_fused"] != sum(c["k4_batches"] for c in chains.values()):
         raise AssertionError(f"q8c: K4 launched {launches['segment_fused']} times, the chains "
                              f"count {chains}")
+    check_k4_one_launch("q8c", launches)
     if chains["bids+bkey"]["k4_batches"] != sum(1 for n in sizes if n >= seg_min):
         raise AssertionError(f"q8c: the bids chain ran {chains['bids+bkey']['k4_batches']} "
                              f"batches through K4, expected one per batch of >= {seg_min} rows")
@@ -1694,15 +1724,19 @@ def segment_build(out_dir: str) -> tuple[dict, list]:
     return info, plans
 
 
-def compare_segment(label, plan, batch, dev) -> dict:
+def compare_k4(label, prog, n: int, ins: list) -> dict:
     """K4 against its plain version on the same CUDA tensors, byte for
     byte: every output's dtype and bytes, the mask, and each watermark
-    stage's (max, count) as execute() reads them (int(max) when count > 0)."""
-    prog = segment_kernel.SegmentProgram(plan, [np.asarray(batch[c]).dtype for c in plan.traced_in])
-    n, ins = staged_inputs(plan, batch, dev)
+    stage's (max, count) as execute() reads them (int(max) when count > 0);
+    one Triton launch for the call."""
+    plan = prog.plan
+    before = segment_kernel.segment_fused.kernel_launches
     outs_k, mask_k, aux_k = segment_kernel.segment_fused(prog, n, ins)
+    launched = segment_kernel.segment_fused.kernel_launches - before
     outs_p, mask_p, aux_p = segment_kernel.segment_plain(prog, n, ins)
     torch.cuda.synchronize()
+    if launched != 1:
+        raise AssertionError(f"segment {label}: {launched} Triton launches for one call")
     for name in plan.traced_out:
         g, w = outs_k[name], outs_p[name]
         if g.dtype != w.dtype or g.shape != w.shape:
@@ -1718,20 +1752,147 @@ def compare_segment(label, plan, batch, dev) -> dict:
     if (mask_k is None) != (mask_p is None) or (
             mask_k is not None and not torch.equal(mask_k, mask_p)):
         raise AssertionError(f"segment {label}: the mask differs from the plain version")
-
-    def raw(aux):
-        # the max as execute() reads it (a NaN max raises there, whatever
-        # its payload), with both dtypes
-        return [(m.dtype, c.dtype, "nan" if m.dtype.is_floating_point and bool(torch.isnan(m))
-                 else m.item(), int(c)) for m, c in aux]
-
-    def pairs(aux):
-        return [(m.item() if int(c) else None, int(c)) for m, c in aux]
-
-    if raw(aux_k) != raw(aux_p):
-        raise AssertionError(f"segment {label}: watermark aux {pairs(aux_k)} != plain {pairs(aux_p)}")
+    if k4_aux_read(aux_k) != k4_aux_read(aux_p):
+        raise AssertionError(f"segment {label}: watermark aux {k4_pairs(aux_k)} != plain "
+                             f"{k4_pairs(aux_p)}")
     return {"n": n, "P": ins[0].shape[0], "outputs": len(plan.traced_out),
-            "source_lines": prog.source.count("\n"), "aux": repr(pairs(aux_k))}
+            "programs": -(-ins[0].shape[0] // segment_kernel.BLOCK), "aux": repr(k4_pairs(aux_k))}
+
+
+def k4_aux_read(aux) -> list:
+    """Each watermark stage's max as execute() reads it (a NaN max raises
+    there, whatever its payload), with both dtypes, and its count."""
+    return [(m.dtype, c.dtype, "nan" if m.dtype.is_floating_point and bool(torch.isnan(m))
+             else m.item(), int(c)) for m, c in aux]
+
+
+def k4_pairs(aux) -> list:
+    return [(m.item() if int(c) else None, int(c)) for m, c in aux]
+
+
+def compare_segment(label, plan, batch, dev) -> dict:
+    """compare_k4 on a bound plan's staged inputs (CompiledSegment.execute's
+    staging)."""
+    prog = segment_kernel.SegmentProgram(plan, [np.asarray(batch[c]).dtype for c in plan.traced_in])
+    n, ins = staged_inputs(plan, batch, dev)
+    return {**compare_k4(label, prog, n, ins), "source_lines": prog.source.count("\n")}
+
+
+K4_BACK_TO_BACK = 1000
+K4_FOLD_LOOP_ROWS = 1 << 20
+
+
+def nan_payload_plan():
+    """(plan, batch) of a float watermark over a column holding two NaNs of
+    different payloads far apart in one batch (different programs)."""
+    from arroyo_tpu_torch import expr as E
+
+    cols = grid_columns(BENCH_BATCH)
+    x = cols["g64"].copy()
+    bits = x.view(np.uint64)
+    bits[3] = 0x7FF8000000000123
+    bits[40_000] = 0xFFF8000000000456
+    cols["g64"] = x
+    batch = Batch(cols)
+    members = [("value", {"projections": [("x", E.Col("g64"))], "filter": None}),
+               ("watermark", {"expr": E.Col("x")})]
+    return bind_plan(members, batch, hoist=False), batch
+
+
+def k4_edge_cases(nex_plans: list, dev) -> dict:
+    """K4's own edge cases, each held to its plain version (compare_k4)."""
+    out = {}
+    _label, plan, batch = nex_plans[0]  # q7's insert: an in-kernel filter, one watermark
+    prog = segment_kernel.SegmentProgram(plan, [np.asarray(batch[c]).dtype for c in plan.traced_in])
+    n, ins = staged_inputs(plan, batch, dev)
+    P = ins[0].shape[0]
+    out["n = 0"] = compare_k4("n = 0", prog, 0, ins)
+    out["P not a multiple of BLOCK"] = compare_k4(
+        "P not a multiple of BLOCK", prog, P - 41, [t[:P - 37].contiguous() for t in ins])
+    out["P below one BLOCK"] = compare_k4("P below one BLOCK", prog, 77,
+                                          [t[:100].contiguous() for t in ins])
+    none = [t.clone() for t in ins]
+    none[plan.traced_in.index("bid")].zero_()  # q7's filter: the bid flag
+    out["every row filtered"] = compare_k4("every row filtered", prog, n, none)
+    if out["every row filtered"]["aux"] != repr([(None, 0)]):
+        raise AssertionError(f"K4 with every row filtered: aux {out['every row filtered']}")
+    # the largest G the main path drives is a full batch's (P = 65536,
+    # above); the fold's loop over many BLOCKs of partials at 2^20 rows
+    rep = K4_FOLD_LOOP_ROWS // P
+    out["fold loop"] = compare_k4("fold loop", prog, rep * P - 3, [t.repeat(rep) for t in ins])
+    # two NaN payloads: the fold meets the partials in program order, so
+    # the max's bits are the same on every launch
+    nplan, nbatch = nan_payload_plan()
+    nprog = segment_kernel.SegmentProgram(nplan, [np.asarray(nbatch[c]).dtype
+                                                  for c in nplan.traced_in])
+    nn, nins = staged_inputs(nplan, nbatch, dev)
+    out["two NaN payloads"] = compare_k4("two NaN payloads", nprog, nn, nins)
+    bits = set()
+    for _ in range(20):
+        m = segment_kernel.segment_fused(nprog, nn, nins)[2][0][0]
+        bits.add(int(m.view(torch.int64).item()) & ((1 << 64) - 1))
+    plain_bits = int(segment_kernel.segment_plain(nprog, nn, nins)[2][0][0]
+                     .view(torch.int64).item()) & ((1 << 64) - 1)
+    if len(bits) != 1:
+        raise AssertionError(f"K4's NaN max changes from launch to launch: {sorted(map(hex, bits))}")
+    out["two NaN payloads"].update(max_bits=hex(bits.pop()), plain_max_bits=hex(plain_bits))
+    # back-to-back launches of one program, no synchronisation between
+    # them, each batch with its own n: the ticket counter must be back at
+    # 0 before every launch for each fold to run
+    small = [t[:4096].contiguous() for t in ins]
+    ns = [4096 - 97 * (i % 37) for i in range(K4_BACK_TO_BACK)]
+    before = segment_kernel.segment_fused.kernel_launches
+    got = [segment_kernel.segment_fused(prog, k, small)[2] for k in ns]
+    torch.cuda.synchronize()
+    launched = segment_kernel.segment_fused.kernel_launches - before
+    want = {k: k4_aux_read(segment_kernel.segment_plain(prog, k, small)[2]) for k in set(ns)}
+    bad = [i for i, (k, a) in enumerate(zip(ns, got)) if k4_aux_read(a) != want[k]]
+    ticket = prog._fold_state(small[0].device, 1)[0]
+    if bad or launched != K4_BACK_TO_BACK or int(ticket.item()) != 0:
+        raise AssertionError(f"K4 back to back: {len(bad)} of {K4_BACK_TO_BACK} launches differ "
+                             f"(first {bad[:3]}), {launched} launches, counter {int(ticket.item())}")
+    out["back to back"] = {"launches": launched, "P": 4096, "distinct_n": len(want)}
+    return out
+
+
+SWEEP_BLOCKS = (128, 256, 512, 1024)
+SWEEP_WARPS = (1, 2, 4, 8)
+SWEEP_PLANS = ("q7 insert", "q5 insert", "q8 bids, filter in the kernel")
+
+
+def segment_sweep() -> dict:
+    """K4's device time at q7c's, q5's and q8c's 65,536-row batches for each
+    BLOCK and num_warps (held to the plain version first at each): how the
+    module's BLOCK and NUM_WARPS were chosen."""
+    dev = torch.device("cuda")
+    plans = [p for p in nexmark_plans() if p[0] in SWEEP_PLANS]
+    saved = segment_kernel.BLOCK, segment_kernel.NUM_WARPS
+    table = []
+    try:
+        for label, plan, batch in plans:
+            prog = segment_kernel.SegmentProgram(plan, [np.asarray(batch[c]).dtype
+                                                        for c in plan.traced_in])
+            n, ins = staged_inputs(plan, batch, dev)
+            for block in SWEEP_BLOCKS:
+                for warps in SWEEP_WARPS:
+                    segment_kernel.BLOCK, segment_kernel.NUM_WARPS = block, warps
+                    log(f"segment_sweep: {label} BLOCK {block} num_warps {warps}")
+                    compare_k4(f"{label} at BLOCK {block}, {warps} warps", prog, n, ins)
+                    m = measure(lambda: segment_kernel.segment_fused(prog, n, ins))
+                    table.append({"plan": label, "block": block, "num_warps": warps,
+                                  "programs": -(-ins[0].shape[0] // block), "ms": m["device_ms"],
+                                  "call_ms": m["call_ms"], "method": m["method"]})
+    finally:
+        segment_kernel.BLOCK, segment_kernel.NUM_WARPS = saved
+    best = {}
+    for label in SWEEP_PLANS:
+        rows = [r for r in table if r["plan"] == label]
+        b = min(rows, key=lambda r: r["ms"])
+        best[label] = {"block": b["block"], "num_warps": b["num_warps"], "ms": b["ms"]}
+    info = {"phase": "segment_sweep", "module": {"block": saved[0], "num_warps": saved[1]},
+            "best": best, "table": table}
+    emit(info)
+    return info
 
 
 def segment_phase(nex_plans: list) -> dict:
@@ -1741,6 +1902,8 @@ def segment_phase(nex_plans: list) -> dict:
     for label, plan, batch in nex_plans + grid_plans():
         log(f"segment: check {label}")
         checked[label] = compare_segment(label, plan, batch, dev)
+    log("segment: K4's edge cases")
+    edge = k4_edge_cases(nex_plans, dev)
     check_s = time.perf_counter() - t0
     # timing at q7's plan
     label, plan, batch = nex_plans[0]
@@ -1760,9 +1923,11 @@ def segment_phase(nex_plans: list) -> dict:
               "library_ms": None,
               "library": "none: no single PyTorch call computes the fused segment "
                          "(filter, projections, splitmix64 hash, masked max/count, bins)",
-              "rows": n, "P": P}
+              "rows": n, "P": P, "block": segment_kernel.BLOCK,
+              "num_warps": segment_kernel.NUM_WARPS,
+              "launches_per_call": k["device_ops_per_call"]}
     info = {"phase": "segment", "plans_checked": len(checked), "check_seconds": check_s,
-            "max_abs_err": 0.0, "checked": checked, "timing_q7": timing}
+            "max_abs_err": 0.0, "checked": checked, "edge_cases": edge, "timing_q7": timing}
     emit(info)
     return info
 
@@ -2460,9 +2625,15 @@ def mesh_run(name: str, build, events: int, oracle, check, fuse: bool, extra: di
         drive(build, warm_events, job + "-warm", chaining=True, extra=extra)
     reset_all_launch_counts()
     reset_mesh_ledger()
+    spill_before = sharded_kernels.spill_kernel_launches()
     with k8_recorded() as k8_calls:
         rows, wall, eng = drive(build, events, job, chaining=True, extra=extra)
     launches = all_launch_counts()
+    spill_kernels = sharded_kernels.spill_kernel_launches() - spill_before
+    check_k4_one_launch(name, launches)
+    if spill_kernels != launches["shard_spill"]:
+        raise AssertionError(f"{name}: K10's spill made {spill_kernels} kernel launches in "
+                             f"{launches['shard_spill']} calls")
     ledger = mesh_ledger()
     got = check(rows, want)
     chained = [n for n in eng.graph.nodes if "+" in n]
@@ -2485,6 +2656,7 @@ def mesh_run(name: str, build, events: int, oracle, check, fuse: bool, extra: di
             "windows": len(got), "launches": {k: launches[k] for k in launches if launches[k]},
             "ledger": ledger, "segment_mesh": mesh_flag,
             "calls_per_step": (agg_l["fused_steps"] / seg_l["fused"]) if seg_l["fused"] else None,
+            "spill_kernels_per_call": spill_kernels / max(1, launches["shard_spill"]),
             "mesh_stats": [m.get("mesh") for m in metrics.values()],
             "k8_calls": k8_call_summary(k8_calls, launches["agg_sort_reduce"])}
     if profile_it:
@@ -2697,12 +2869,25 @@ def checked_step(kinds, table, spill, key, bins, valid, vals, dc, max_probes, ch
     require_same("agg_probe_merge", [still, *table[:3], table[3]],
                  [still_p, *table_p[:3], table_p[3]])
     spill_p = clone_nested(spill)
-    sharded_kernels.shard_spill(kinds, c[0], c[1], c[3], still, spill)
+    sharded_kernels.shard_spill(kinds, c[0], c[1], c[3], still, spill,
+                                spill_state(S, c[0].shape[1]))
     sharded_kernels.shard_spill_plain(kinds, c[0], c[1], c[3], still, spill_p)
     require_same("shard_spill", spill, spill_p)
     checks.setdefault("agg_sort_reduce", set()).update({key.shape[1], ex.m_key.shape[1]})
     checks.setdefault("agg_probe_merge", set()).add(int(still.sum()))
     return u, ex, c, still
+
+
+_SPILL_STATES: dict = {}
+
+
+def spill_state(S: int, M: int) -> torch.Tensor:
+    """K10's spill state for (S, M) on the current stream, kept across calls
+    as ShardedAggregator keeps it."""
+    key = (S, M, torch.cuda.current_stream().cuda_stream)
+    if key not in _SPILL_STATES:
+        _SPILL_STATES[key] = sharded_kernels.spill_scratch(S, M, torch.device("cuda"))
+    return _SPILL_STATES[key]
 
 
 def checked_extract(table, lo, hi, free_below, emit_cap, checks):
@@ -2975,6 +3160,91 @@ def probe_cases(rng, hot: int = 300, hot_shards=(1, 8)) -> list:
     # the reference's fori_loop(0, max_probes) runs no round below 0 either
     case("max_probes -1", 2, 64, 40, -1, 30)
     return out
+
+
+SPILL_LANES = [("max", torch.int64), ("count", torch.int64), ("sum", torch.float64),
+               ("min", torch.float32), ("max", torch.uint64), ("sum", torch.int32)]
+
+
+def spill_cases(rng) -> list:
+    """K10's spill on its edge cases (shared with tests/test_torch_spill.py,
+    which holds the plain version to the reference's step 7 and to a numpy
+    model of the kernel's tile walk): each a dict of S, M, sc, the still
+    flags [S, M], the fill [S] (0 to sc), and ``calls`` appends of the
+    same flags in a row on one state buffer."""
+    q7m_M = MESH_N * (BENCH_BATCH // (MESH_N // 2)) + BENCH_BATCH // MESH_N
+    tile = sharded_kernels.COMPACT_TILE
+
+    def case(label, S, M, sc, p, fill, calls=1, spread=None):
+        still = rng.random((S, M)) < p
+        if spread is not None:  # flags only at these positions
+            still[:] = False
+            still[:, spread] = True
+        return {"label": label, "S": S, "M": M, "sc": sc, "still": still, "calls": calls,
+                "fill": np.asarray(fill, dtype=np.int32), "lanes": SPILL_LANES}
+
+    return [
+        case("q7m's merged step, every shard empty", MESH_N, q7m_M, 2048, 0.0, [0] * MESH_N),
+        case("q7m's merged step, a few rows", MESH_N, q7m_M, 2048, 40 / q7m_M,
+             rng.integers(0, 2049, MESH_N)),
+        case("fill = sc: every row lost", 4, 5000, 64, 0.1, [64] * 4),
+        case("exhaustion inside a tile", 4, 3 * tile + 5, 1000, 0.2, [0, 500, 999, 1000]),
+        case("M % 16 != 0", 3, 2 * tile + 7, 4096, 0.3, [0, 17, 4095]),
+        case("M below one tile", 5, 100, 30, 0.5, [0, 1, 29, 30, 15]),
+        case("rows at tile edges", 2, 4 * tile, 64, 0.0, [3, 0],
+             spread=[0, tile - 1, tile, 2 * tile - 1, 3 * tile, 4 * tile - 1]),
+        case("every flag set, one shard", 1, 8192 + 3, 20000, 1.0, [11]),
+        case("three appends on one state", 1, 20000, 3000, 0.04, [0], calls=3),
+        case("32 shards", 32, 1000, 100, 0.05, rng.integers(0, 101, 32)),
+    ]
+
+
+def spill_tensors(c: dict, dev) -> tuple:
+    """(kinds, c_key, c_bin, c_accs, still, spill) of a spill case on
+    ``dev``: keys and bins drawn over their whole ranges, lanes with their
+    bits drawn (NaN payloads and -0.0 among the floats), a spill buffer
+    whose rows past the fill hold other values."""
+    rng = np.random.default_rng(c["S"] * 1_000_003 + c["M"])
+    S, M, sc = c["S"], c["M"], c["sc"]
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+
+    def bits(dt, shape):
+        a = rng.integers(np.iinfo(np.int64).min, np.iinfo(np.int64).max, shape, dtype=np.int64,
+                         endpoint=True)
+        return t(a.astype(np.int32) if dt in (torch.int32, torch.float32) else a).view(dt)
+
+    kinds = [k for k, _ in c["lanes"]]
+    c_key = t(rng.integers(np.iinfo(np.int64).min, np.iinfo(np.int64).max, (S, M),
+                           dtype=np.int64, endpoint=True))
+    c_bin = t(rng.integers(np.iinfo(np.int32).min, np.iinfo(np.int32).max, (S, M),
+                           dtype=np.int32, endpoint=True))
+    c_accs = [bits(dt, (S, M)) for _k, dt in c["lanes"]]
+    spill = (t(rng.integers(-9, 9, (S, sc), dtype=np.int64)),
+             t(rng.integers(-9, 9, (S, sc), dtype=np.int32)), t(c["fill"]),
+             [bits(dt, (S, sc)) for _k, dt in c["lanes"]],
+             t(rng.integers(0, 5, S).astype(np.int32)))
+    return kinds, c_key, c_bin, c_accs, t(c["still"]), spill
+
+
+def check_spill_case(c: dict, dev) -> dict:
+    """K10's spill against its plain version on one case, exactly (every
+    spill row, the fill and the overflow), ``calls`` appends in a row on one
+    state buffer, each one kernel launch by the library's counter."""
+    kinds, c_key, c_bin, c_accs, still, spill = spill_tensors(c, dev)
+    spill_p = clone_nested(spill)
+    state = sharded_kernels.spill_scratch(c["S"], c["M"], dev)
+    for i in range(c["calls"]):
+        before = sharded_kernels.spill_kernel_launches()
+        sharded_kernels.shard_spill(kinds, c_key, c_bin, c_accs, still, spill, state)
+        n = sharded_kernels.spill_kernel_launches() - before
+        sharded_kernels.shard_spill_plain(kinds, c_key, c_bin, c_accs, still, spill_p)
+        torch.cuda.synchronize()
+        require_same(f"shard_spill {c['label']}, call {i}", spill, spill_p)
+        if n != 1:
+            raise AssertionError(f"shard_spill {c['label']}: {n} kernel launches a call")
+    return {"label": c["label"], "S": c["S"], "M": c["M"], "sc": c["sc"],
+            "flags": int(still.sum()), "fill": spill[2].tolist()[:8],
+            "overflow": spill[4].tolist()[:8], "calls": c["calls"]}
 
 
 def probe_tensors(c: dict, dev) -> tuple:
@@ -3352,6 +3622,7 @@ def k8_launch_report(call, plan: dict, timing: dict, what: str, S: int, dev) -> 
 # a call's kernels by name, as the trace names them, and launches a call
 K10_KERNELS = {"ex_count": 1, "ex_scatter": 1}
 K9_KERNELS = {"pm_cluster": 1}
+K10_SPILL_KERNELS = {"compact::compact_table": 1}
 
 
 def library_launch_report(call, counter, timing: dict, kernels: dict, what: str) -> dict:
@@ -3498,12 +3769,17 @@ def time_sharded(rng, dev, label, S, cap, L, dc, lanes, n_keys, valid_frac, reps
         us_per_call=pm_k["device_us_per_call"], cluster=sharded_kernels.probe_merge_cluster(),
         **pm_r)
     mk_spill = lambda: (clone_nested(spill), )
-    row("shard_spill",
-        time_fresh(lambda sp: sharded_kernels.shard_spill(kinds, c[0], c[1], c[3], still, sp),
-                   mk_spill, reps),
+    sp_state = sharded_kernels.spill_scratch(S, M, dev)
+    sp_call = lambda sp: sharded_kernels.shard_spill(kinds, c[0], c[1], c[3], still, sp,  # noqa: E731
+                                                     sp_state)
+    sp_k = time_fresh(sp_call, mk_spill, reps)
+    sp_r = library_launch_report(lambda: sp_call(*mk_spill()),
+                                 sharded_kernels.spill_kernel_launches, sp_k, K10_SPILL_KERNELS,
+                                 f"K10's spill at {label}")
+    row("shard_spill", dict(sp_k, device_ms=sp_r["ms"]),
         time_fresh(lambda sp: sharded_kernels.shard_spill_plain(kinds, c[0], c[1], c[3], still,
                                                                 sp), mk_spill, reps),
-        rows=[S, M], still=int(still.sum()))
+        rows=[S, M], still=int(still.sum()), us_per_call=sp_k["device_us_per_call"], **sp_r)
     row("shard_extract",
         time_fresh(lambda tb: sharded_kernels.shard_extract(tb, 0, 1, 1, 8192), mk_table, reps),
         time_fresh(lambda tb: sharded_kernels.shard_extract_plain(tb, 0, 1, 1, 8192), mk_table,
@@ -3543,6 +3819,12 @@ def sharded_phase(dev) -> dict:
         got = sharded_kernels.build_library().arroyo_agg_probe_merge_list_len(B)
         if got != sharded_kernels.probe_merge_scratch(1, B, 1)["list"][0][2]:
             raise AssertionError(f"K9's list for {B} partials: the library wants {got}")
+    for S, M in ((1, 1), (8, 139264), (3, 8199), (32, 1000)):
+        got = sharded_kernels.build_library().arroyo_shard_spill_scratch_bytes(S, M)
+        if got != sharded_kernels.spill_scratch_bytes(S, M):
+            raise AssertionError(f"K10's spill state at {S} x {M}: the library wants {got}")
+    log("sharded: K10's spill edge cases")
+    spill_checked = [check_spill_case(c, dev) for c in spill_cases(rng)]
     k10_cases = [check_exchange_case(c, dev) for c in exchange_cases(rng)]
     k9_cases = [check_probe_case(c, dev) for c in probe_cases(rng, hot=4096, hot_shards=(1, 32))]
     timing = {
@@ -3560,8 +3842,10 @@ def sharded_phase(dev) -> dict:
                                    DEPLOY_LANES, 1 << 22, 1.0, 3),
     }
     info = {"phase": "sharded",
-            "cases_checked": len(cases) + len(k8_cases) + len(k10_cases) + len(k9_cases),
+            "cases_checked": len(cases) + len(k8_cases) + len(k10_cases) + len(k9_cases)
+            + len(spill_checked),
             "max_abs_err": 0.0, "cases": cases, "k8_cases": k8_cases, "k10_cases": k10_cases,
+            "spill_cases": spill_checked,
             "k9_cases": k9_cases, "shapes_checked": checks, "timing": timing}
     emit(info)
     return info
@@ -4603,8 +4887,9 @@ def main(argv=None) -> int:
         "sharded": lambda: sharded_phase(dev),
         "hash_agg": lambda: hash_agg_phase(dev),
         "q7_host": run_q7_host,
+        "segment_sweep": segment_sweep,
     }
-    only = args.only.split(",") if args.only else list(phases)
+    only = args.only.split(",") if args.only else [p for p in phases if p != "segment_sweep"]
     unknown = sorted(set(only) - set(phases))
     if unknown:
         raise SystemExit(f"unknown phases {unknown}; the phases are {list(phases)}")
@@ -4681,7 +4966,11 @@ def kernel_rows(res: dict) -> list:
                  "launches": res["q7c"]["launches"]["segment_fused"],
                  "max_abs_err": segp["max_abs_err"], "ms": st["ms"], "plain_ms": st["plain_ms"],
                  "bound_ms": st["bound_ms"], "bound_by": st["bound_by"],
-                 "library_ms": st["library_ms"]})
+                 "library_ms": st["library_ms"], "call_ms": st["call_ms"],
+                 "triton_launches": res["q7c"]["launches"]["segment_fused_kernels"],
+                 "block": st["block"], "num_warps": st["num_warps"],
+                 "edge_cases": sorted(segp["edge_cases"]),
+                 "q7c_copies": res["q7c"]["profiled_run"]["copies"]})
     jt = res["join"]["timing"]["q8 window"]
     for name in ("join_sort_pairs", "join_search_bounds"):
         t = jt[name]
@@ -4741,6 +5030,12 @@ def kernel_rows(res: dict) -> list:
                 row[shape] = {k: o[k] for k in ("ms", "plain_ms", "bound_ms",
                                                 "kernel_launches_per_call")}
             row["mesh_ab"]["launches"] = res["mesh_ab"]["fused"]["launches"][name]
+        if name == "shard_spill":
+            row["kernel_launches_per_call"] = t["kernel_launches_per_call"]
+            row["edge_cases"] = len(res["sharded"]["spill_cases"])
+            row["q7m_kernels_per_call"] = res["q7m"]["fused"]["spill_kernels_per_call"]
+            row["mesh_ab"] = {k: res["sharded"]["timing"]["mesh_ab"][name][k]
+                              for k in ("ms", "plain_ms", "bound_ms")}
         if name == "shard_exchange":
             row["bound_flag_only_ms"] = t["bound_flag_only_ms"]
             for shape in ("mesh_ab", "deployment"):
