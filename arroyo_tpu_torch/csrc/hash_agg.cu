@@ -22,6 +22,8 @@
 //       cap reads slot cap - 1 (what the reference's gather does: XLA
 //       clamps an out-of-bounds index) and is never valid.
 //   K13 hash_free        free (:344-348): occ &= !(bin < below), in place.
+//       Any cap, any alignment: the table's own arrays and, in
+//       chip_smoke.py's edge cases, odd lengths and offset views.
 //
 // Bounds (H100, 3.35 TB/s): all three move a few bytes per slot and
 // compute nothing, so they are bound by bytes. The walk reads every
@@ -29,19 +31,38 @@
 // lanes, and writes those rows once (see csrc/table_compact.cuh for the
 // tiles and the look-back). The chunk reads and writes emit_cap rows (key,
 // bin, flag, lanes), one thread per row, neighbouring threads on
-// neighbouring slots: every load and store is coalesced. K13 reads every
-// slot's bin and occupancy and writes the occupancy, one thread per slot.
+// neighbouring slots: every load and store is coalesced. K13 must read
+// every slot's occupancy, the occupied slots' bins, and write the freed
+// slots' bytes; at q7's table (65,536 slots) that is ~0.1 us of bytes, so
+// a call is launch latency and what its stores cost to drain. A thread
+// takes a 16-byte word of occupancy (16 slots): one 16-byte load of it;
+// only if a byte of it is set, its 16 bins in four 16-byte loads; and one
+// 16-byte store of the new word, only if it changed. An empty or untouched
+// word costs one load and no store. The word past the last multiple of 16
+// slots, and occupancy or bins off a 16-byte boundary, take byte and int
+// accesses in the same code (occupied slots' bins only, changed bytes
+// only). Blocks of 64 threads (tools/block_sweep.py against 128 and 256:
+// fastest at q7's table, the hop drive's and a 4,194,304-slot one): q7's
+// table is 4,096 words, 64 blocks. The bins' load waits on the occupancy
+// word's (~0.25 us at q7's table, PERF.md); it saves the empty words'
+// bins, 4 bytes a slot, where a table is large.
 //
 // Each entry point launches on the stream it is given, allocates nothing
-// and returns cudaGetLastError().
+// and returns cudaGetLastError(); K13 counts its launches
+// (arroyo_hash_free_kernel_launches).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
 
 #include "table_compact.cuh"
 
 #define MAX_LANES 32
 #define THREADS 256
+#ifndef FREE_THREADS  // tools/block_sweep.py builds this file with other blocks
+#define FREE_THREADS 64  // K13's block, a thread a 16-slot word (that sweep, PERF.md)
+#endif
 
 struct ScanLanes {
   const void* in[MAX_LANES];  // the table's lanes [cap]
@@ -73,18 +94,42 @@ __global__ void scan_chunk(const long long* __restrict__ keys, const int* __rest
   }
 }
 
-__global__ void free_below(const int* __restrict__ bins, unsigned char* __restrict__ occ,
-                           long long cap, int below) {
+// K13: word w holds slots [16w, 16w + 16); vec: occ and bins 16-byte aligned.
+__global__ void free_words(const int* __restrict__ bins, unsigned char* __restrict__ occ,
+                           long long cap, int below, bool vec) {
+  const long long n_words = (cap + 15) >> 4;
   const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x; j < cap; j += stride)
-    if (bins[j] < below) occ[j] = 0;
+  for (long long w = (long long)blockIdx.x * blockDim.x + threadIdx.x; w < n_words; w += stride) {
+    const long long j0 = w << 4;
+    if (vec && j0 + 16 <= cap) {
+      uint4* op = reinterpret_cast<uint4*>(occ + j0);
+      const uint4 o = *op;
+      const unsigned ow[4] = {o.x, o.y, o.z, o.w};
+      if ((o.x | o.y | o.z | o.w) == 0u) continue;
+      const int4* bp = reinterpret_cast<const int4*>(bins + j0);
+      int4 b[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) b[q] = __ldg(bp + q);
+      unsigned nw[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const unsigned keep = (b[q].x >= below ? 0x000000ffu : 0u) |
+                              (b[q].y >= below ? 0x0000ff00u : 0u) |
+                              (b[q].z >= below ? 0x00ff0000u : 0u) |
+                              (b[q].w >= below ? 0xff000000u : 0u);
+        nw[q] = ow[q] & keep;
+      }
+      if ((nw[0] ^ ow[0]) | (nw[1] ^ ow[1]) | (nw[2] ^ ow[2]) | (nw[3] ^ ow[3]))
+        *op = make_uint4(nw[0], nw[1], nw[2], nw[3]);
+    } else {
+      const int n = cap - j0 < 16 ? (int)(cap - j0) : 16;
+      for (int e = 0; e < n; ++e)
+        if (occ[j0 + e] && __ldg(bins + j0 + e) < below) occ[j0 + e] = 0;
+    }
+  }
 }
 
-static unsigned int blocks_for(long long n) {
-  long long b = (n + THREADS - 1) / THREADS;
-  const long long most = 132LL * 16;  // 16 blocks of 256 threads per SM fill the H100
-  return (unsigned int)(b < 1 ? 1 : (b > most ? most : b));
-}
+static std::atomic<long long> g_free_launches{0};
 
 extern "C" {
 
@@ -163,15 +208,25 @@ long long arroyo_hash_scan_walk_scratch_bytes(long long cap) {
   return 8 * compact::state_words(1, compact::tiles_for(cap));
 }
 
-// K13.
+// K13. bins: int32 [cap], occ: bool [cap], any alignment.
 int arroyo_hash_free(int device, long long cap, const void* bins, void* occ, int below,
                      void* stream) {
   if (cap < 1) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  free_below<<<blocks_for(cap), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(bins), static_cast<unsigned char*>(occ), cap, below);
-  return (int)cudaGetLastError();
+  const bool vec = (reinterpret_cast<uintptr_t>(occ) & 15) == 0 &&
+                   (reinterpret_cast<uintptr_t>(bins) & 15) == 0;
+  long long blocks = ((cap + 15) / 16 + FREE_THREADS - 1) / FREE_THREADS;
+  if (blocks > 132LL * 16) blocks = 132LL * 16;  // then a thread takes several words
+  free_words<<<(unsigned)blocks, FREE_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(bins), static_cast<unsigned char*>(occ), cap, below, vec);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  ++g_free_launches;
+  return (int)cudaSuccess;
 }
+
+// Kernels K13 has launched in this process: the difference across one
+// call is that call's launches.
+long long arroyo_hash_free_kernel_launches(void) { return g_free_launches.load(); }
 
 }  // extern "C"

@@ -17,8 +17,10 @@
 //      go (_pack, then _clear when it clears): for k region bases, R slots
 //      of every lane, int lanes widened into one int64 buffer (uint64 as
 //      its bits, as _pack's astype(int64)) and float lanes into one float64
-//      buffer, laid out [base][lane of its class][R]; in its clear mode the
-//      same launch then resets every read slot to the lane's identity.
+//      buffer, laid out [base][lane of its class][R] (a float32 subnormal
+//      widens to the zero of its sign, as XLA's astype(float64) does on the
+//      CPU and the TPU); in its clear mode the same launch then resets
+//      every read slot to the lane's identity.
 //   K3 slot_region_clear     replaces _clear / clear: R slots from each
 //      base reset to the lane's identity, without a read (the same kernel
 //      body as K2, in its CLEAR mode).
@@ -33,10 +35,12 @@
 //      overlapping bases in the read-and-clear mode).
 //   K7 slot_gather           replaces _build_slot_jax make_read_slots.go:
 //      for k slots (int32 or int64 indices), every lane's value at each
-//      slot, widened as K2 widens, laid out [lane of its class][k]. A slot
-//      outside [0, cap) reads 0. The updating aggregate's flush reads its
-//      touched keys with it; it launches on the stream of the K1 launches
-//      it must see, so it reads their sums.
+//      slot, widened as K2 widens, into one packed buffer: the int lanes'
+//      [lane of its class][k] int64 words, then, from the next 16-byte
+//      boundary, the float lanes' [lane of its class][k] float64 words. A
+//      slot outside [0, cap) reads 0. The updating aggregate's flush reads
+//      its touched keys with it; it launches on the stream of the K1
+//      launches it must see, so it reads their sums.
 //
 // Bound on the H100 (3.35 TB/s HBM, 50 MB L2): all four move a few bytes
 // per element and do no arithmetic to speak of, so each is bound by bytes.
@@ -57,17 +61,28 @@
 // (one 16-byte load and store of a 4-byte lane, two of an 8-byte lane;
 // the widened outputs in 16-byte stores where aligned). A quad cut by the
 // region's ends, or a lane or output off a 16-byte boundary, takes scalar
-// accesses in the same code. K7 gives one thread to each
-// gathered slot: the slot is loaded once (coalesced) and the thread walks
-// the lanes, so each lane's random read of the state is independent of the
-// others and the stores to [lane][k] are coalesced. Its bound is the bytes
-// of the slots, the gathered words and the widened output; the state reads
-// are random, so each costs a 32-byte sector unless the state sits in L2
-// (qu's 262144 slots x 4 lanes x 8 B = 8 MB does). The lane table and the
-// bases are passed by value in the kernel parameters: no device
-// allocation and no host-to-device copy for them. empty_kernel, launched
-// on K2's grid, is the card's launch floor for such a kernel (chip_smoke.py
-// times it beside K2).
+// accesses in the same code. K7 reads k random words of every lane: its
+// bound is the bytes of the slots, the gathered words and the widened
+// output, but each random read costs a 32-byte sector unless the state
+// sits in L2 (qu's 262144 slots x 4 lanes x 8 B = 8 MB does), and at qu's
+// k (~10,000) a call is latency. So the lane is blockIdx.y (the block's
+// dtype is uniform, dispatched once per thread by a template over the
+// widths), and a thread takes a quad of four consecutive gathered
+// positions: one 16-byte load of four int32 slots (two of int64 slots),
+// its four state reads (__ldg, the state __restrict__) issued before any
+// store, and its four widened words written as two 16-byte stores. A
+// thread makes two dependent round trips to memory, whatever the lanes.
+// The tail quad (k % 4) and a slot array or output row off a 16-byte
+// boundary take scalar accesses in the same code. Blocks of 128 threads
+// put a qu-shaped call (9,867 slots, 4 lanes) on 80 blocks; the deployment
+// state's (1,048,576 slots) on 2,048 a lane, a quad a thread. There the
+// random state reads set the time: 4,194,304 of them, each a 32-byte
+// sector of a 512 MB state, take 0.13-0.15 ms (~1 TB/s of sectors), in
+// the design K7 replaced too (PERF.md).
+// The lane table and the bases are passed by value in the kernel
+// parameters: no device allocation and no host-to-device copy for them.
+// empty_kernel, launched on K2's grid, is the card's launch floor for such
+// a kernel (chip_smoke.py times it beside K2).
 //
 // Exactness. Integer adds wrap (two's complement, as XLA's); integer
 // min/max are atomics, exact in any order (uint64 with the unsigned
@@ -100,15 +115,21 @@
 // float64 and float32 lanes walk concurrently, and a step costs one add.
 //
 // Each entry point launches on the stream it is given, allocates nothing
-// and returns cudaGetLastError().
+// and returns cudaGetLastError(); K7 counts its launches
+// (arroyo_slot_gather_kernel_launches).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
 
 #define MAX_LANES 32
 #define MAX_BASES 16
 #define THREADS 256
 #define REGION_THREADS 128  // K2 / K3: a 2048-slot region spreads over four blocks
+#ifndef GATHER_THREADS  // tools/block_sweep.py builds this file with other blocks
+#define GATHER_THREADS 128  // K7's block, from that sweep on the card (PERF.md)
+#endif
 
 enum { KIND_ADD = 0, KIND_MIN = 1, KIND_MAX = 2 };
 enum { DT_I32 = 0, DT_I64 = 1, DT_F32 = 2, DT_F64 = 3, DT_U64 = 4 };
@@ -139,11 +160,11 @@ struct RegionArgs {
   int n_lanes;
 };
 
+// K7: one lane per blockIdx.y
 struct GatherArgs {
   const void* state[MAX_LANES];
+  unsigned long long* out[MAX_LANES];  // the lane's k widened words in the packed output
   int dtype[MAX_LANES];
-  int pos[MAX_LANES];  // the lane's index among the lanes of its class
-  int n_lanes;
 };
 
 // v replaces old under the NaN-propagating order with -0.0 < +0.0
@@ -450,11 +471,18 @@ __global__ void add_chain_kernel(const double* __restrict__ x, long long n, int 
   }
 }
 
+// A float32's bits widened to a float64's as XLA widens on the CPU and
+// the TPU (the reference's astype(float64)): a subnormal flushes to the
+// zero of its sign.
+__device__ __forceinline__ unsigned long long widen_f32(unsigned x) {
+  if ((x & 0x7f800000u) == 0u) x &= 0x80000000u;
+  return (unsigned long long)__double_as_longlong((double)__uint_as_float(x));
+}
+
 // A 4-byte lane's word widened to 64 bits: an int32 sign-extended, a
-// float32 as the double's bits.
+// float32 as the double's bits (widen_f32).
 __device__ __forceinline__ unsigned long long widen(int dt, unsigned x) {
-  return dt == DT_I32 ? (unsigned long long)(long long)(int)x
-                      : (unsigned long long)__double_as_longlong((double)__uint_as_float(x));
+  return dt == DT_I32 ? (unsigned long long)(long long)(int)x : widen_f32(x);
 }
 
 // K2 / K3 on one lane of one quad: w holds the quad's four slots widened,
@@ -582,35 +610,93 @@ static dim3 region_grid(const long long* bases, int n_distinct, long long R, int
   return dim3((unsigned)(bx < 1 ? 1 : bx), (unsigned)n_distinct, (unsigned)n_lanes);
 }
 
-template <typename SlotT>
-__global__ void gather_kernel(GatherArgs a, const SlotT* __restrict__ slots, long long k,
-                              long long cap, long long* __restrict__ ibuf,
-                              double* __restrict__ fbuf) {
+// K7's read of one state word at slot s, widened: an 8-byte lane's bits
+// as they are (int64, uint64, float64), an int32 sign-extended, a float32
+// as widen_f32 widens it.
+template <int DT>
+__device__ __forceinline__ unsigned long long gather_word(const void* __restrict__ st,
+                                                          long long s) {
+  if constexpr (DT == DT_I32)
+    return (unsigned long long)(long long)__ldg(static_cast<const int*>(st) + s);
+  else if constexpr (DT == DT_F32)
+    return widen_f32(__ldg(static_cast<const unsigned*>(st) + s));
+  else
+    return __ldg(static_cast<const unsigned long long*>(st) + s);
+}
+
+// K7 on one lane: a thread takes the quads of four gathered positions
+// blockIdx.x * blockDim.x + threadIdx.x apart by the grid's width. Its
+// slots in one 16-byte load (two of int64 slots), then its four state
+// reads, then its stores: no store lies between two of its loads.
+template <typename SlotT, int DT>
+__device__ __forceinline__ void gather_lane(const void* __restrict__ st,
+                                            unsigned long long* __restrict__ o,
+                                            const SlotT* __restrict__ slots, long long k,
+                                            long long cap) {
+  const bool slots_vec = (reinterpret_cast<uintptr_t>(slots) & 15) == 0;
+  const bool out_vec = (reinterpret_cast<uintptr_t>(o) & 15) == 0;
+  const long long nq = (k + 3) >> 2;
   const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < k; i += stride) {
-    const long long s = (long long)slots[i];
-    const bool ok = s >= 0 && s < cap;
-    for (int l = 0; l < a.n_lanes; ++l) {
-      const void* st = a.state[l];
-      const long long o = (long long)a.pos[l] * k + i;
-      switch (a.dtype[l]) {
-        case DT_I64:
-        case DT_U64:  // the bits as they are
-          ibuf[o] = ok ? static_cast<const long long*>(st)[s] : 0LL;
-          break;
-        case DT_I32:
-          ibuf[o] = ok ? (long long)static_cast<const int*>(st)[s] : 0LL;
-          break;
-        case DT_F64:
-          fbuf[o] = ok ? static_cast<const double*>(st)[s] : 0.0;
-          break;
-        default:
-          fbuf[o] = ok ? (double)static_cast<const float*>(st)[s] : 0.0;
-          break;
+  for (long long q = (long long)blockIdx.x * blockDim.x + threadIdx.x; q < nq; q += stride) {
+    const long long i0 = q << 2;
+    const bool full = i0 + 4 <= k;
+    long long s[4];
+    if (full && slots_vec) {
+      if constexpr (sizeof(SlotT) == 4) {
+        const int4 x = __ldg(reinterpret_cast<const int4*>(slots + i0));
+        s[0] = x.x; s[1] = x.y; s[2] = x.z; s[3] = x.w;
+      } else {
+        const longlong2 x0 = __ldg(reinterpret_cast<const longlong2*>(slots + i0));
+        const longlong2 x1 = __ldg(reinterpret_cast<const longlong2*>(slots + i0) + 1);
+        s[0] = x0.x; s[1] = x0.y; s[2] = x1.x; s[3] = x1.y;
       }
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[e] = i0 + e < k ? (long long)__ldg(slots + i0 + e) : -1LL;
+    }
+    unsigned long long w[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      w[e] = (s[e] >= 0 && s[e] < cap) ? gather_word<DT>(st, s[e]) : 0ULL;
+    if (full && out_vec) {
+      reinterpret_cast<ulonglong2*>(o + i0)[0] = make_ulonglong2(w[0], w[1]);
+      reinterpret_cast<ulonglong2*>(o + i0)[1] = make_ulonglong2(w[2], w[3]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (i0 + e < k) o[i0 + e] = w[e];
     }
   }
 }
+
+// K7. blockIdx.y: the lane, so the dtype is chosen once per thread.
+template <typename SlotT>
+__global__ void gather_kernel(GatherArgs a, const SlotT* __restrict__ slots, long long k,
+                              long long cap) {
+  const int l = blockIdx.y;
+  switch (a.dtype[l]) {
+    case DT_I32:
+      gather_lane<SlotT, DT_I32>(a.state[l], a.out[l], slots, k, cap);
+      break;
+    case DT_F32:
+      gather_lane<SlotT, DT_F32>(a.state[l], a.out[l], slots, k, cap);
+      break;
+    default:  // int64, uint64, float64: the bits as they are
+      gather_lane<SlotT, DT_I64>(a.state[l], a.out[l], slots, k, cap);
+      break;
+  }
+}
+
+// K7's grid for k slots of n_lanes lanes: a quad a thread along x, not
+// capped (a grid capped at the card's resident threads, each thread
+// walking four quads, read slower at the deployment state, PERF.md), the
+// lanes along y.
+static dim3 gather_grid(long long k, int n_lanes) {
+  const long long bx = ((k + 3) / 4 + GATHER_THREADS - 1) / GATHER_THREADS;
+  return dim3((unsigned)(bx < 1 ? 1 : bx), (unsigned)n_lanes, 1);
+}
+
+static std::atomic<long long> g_gather_launches{0};
 
 static int grid_for(long long n) {
   long long blocks = (n + THREADS - 1) / THREADS;
@@ -774,30 +860,41 @@ int arroyo_slot_empty(int device, int grid_x, int grid_y, int grid_z, int thread
   return (int)cudaGetLastError();
 }
 
+// K7. out: the packed output, 16-byte aligned: the int lanes' k words
+// each from byte 0, the float lanes' from byte flt_offset (a multiple of
+// 16), each class in lane order.
 int arroyo_slot_gather(int device, void** state, const int* dtypes, int n_lanes,
-                       const void* slots, int slots_i64, long long k, long long cap, void* ibuf,
-                       void* fbuf, void* stream) {
-  if (n_lanes < 1 || n_lanes > MAX_LANES || k < 1) return (int)cudaErrorInvalidValue;
+                       const void* slots, int slots_i64, long long k, long long cap, void* out,
+                       long long flt_offset, void* stream) {
+  if (n_lanes < 1 || n_lanes > MAX_LANES || k < 1 || k >= (1LL << 37) || flt_offset < 0 ||
+      flt_offset % 16 || (reinterpret_cast<uintptr_t>(out) & 15))
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   GatherArgs a;
   int n_int = 0, n_flt = 0;
+  char* base = static_cast<char*>(out);
   for (int l = 0; l < n_lanes; ++l) {
     a.state[l] = state[l];
     a.dtype[l] = dtypes[l];
-    a.pos[l] = is_float(dtypes[l]) ? n_flt++ : n_int++;
+    const int pos = is_float(dtypes[l]) ? n_flt++ : n_int++;
+    a.out[l] = reinterpret_cast<unsigned long long*>(base + (is_float(dtypes[l]) ? flt_offset : 0)) +
+               (long long)pos * k;
   }
-  a.n_lanes = n_lanes;
+  const dim3 grid = gather_grid(k, n_lanes);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (slots_i64)
-    gather_kernel<long long><<<grid_for(k), THREADS, 0, s>>>(
-        a, static_cast<const long long*>(slots), k, cap, static_cast<long long*>(ibuf),
-        static_cast<double*>(fbuf));
+    gather_kernel<long long><<<grid, GATHER_THREADS, 0, s>>>(
+        a, static_cast<const long long*>(slots), k, cap);
   else
-    gather_kernel<int><<<grid_for(k), THREADS, 0, s>>>(
-        a, static_cast<const int*>(slots), k, cap, static_cast<long long*>(ibuf),
-        static_cast<double*>(fbuf));
-  return (int)cudaGetLastError();
+    gather_kernel<int><<<grid, GATHER_THREADS, 0, s>>>(a, static_cast<const int*>(slots), k, cap);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  ++g_gather_launches;
+  return (int)cudaSuccess;
 }
+
+// Kernels K7 has launched in this process: the difference across one call
+// is that call's launches.
+long long arroyo_slot_gather_kernel_launches(void) { return g_gather_launches.load(); }
 
 }  // extern "C"

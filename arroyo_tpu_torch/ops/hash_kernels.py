@@ -21,14 +21,17 @@ oflow int32)``. The port runs them as:
   of the table in slot order, compacted, with their count
   (csrc/table_compact.cuh); ``scan_range`` sizes it from the packed scan's
   total. ``hash_scan_chunk`` is ``scan`` itself, one chunk with its flags;
-- ``free``: K13 ``hash_free`` (csrc/hash_agg.cu), in place.
+- ``free``: K13 ``hash_free`` (csrc/hash_agg.cu), in place, a thread a
+  16-byte word of occupancy (``free_below`` takes the two arrays alone,
+  of any length and alignment).
 
 ``KERNELS`` and ``PLAIN`` name the functions the programs call, the
 kernels' wrappers and their plain PyTorch versions. A wrapper checks its
 inputs; on a CUDA tensor it launches its kernel (building the library with
 nvcc at first use, ``kernels.build_source``) or raises, and it takes the
 plain version only for tensors on the CPU. K12's two modes and K13 count
-their launches in ``<wrapper>.launches`` (K8, K9 and K11 in sharded_kernels).
+their launches in ``<wrapper>.launches`` (K8, K9 and K11 in sharded_kernels);
+K13's library counts its kernels (``free_kernel_launches``).
 """
 
 from __future__ import annotations
@@ -56,6 +59,8 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.arroyo_hash_scan_walk_scratch_bytes.argtypes = [ll]
     lib.arroyo_hash_scan_walk_scratch_bytes.restype = ll
     lib.arroyo_hash_free.argtypes = [i, ll, p, p, i, p]
+    lib.arroyo_hash_free_kernel_launches.argtypes = []
+    lib.arroyo_hash_free_kernel_launches.restype = ll
     for fn in (lib.arroyo_hash_scan_chunk, lib.arroyo_hash_scan_walk, lib.arroyo_hash_free):
         fn.restype = ctypes.c_int
 
@@ -233,21 +238,49 @@ def hash_scan_walk_plain(table, emit_lo, emit_hi, total) -> Walked:
 
 def hash_free(table, below: int) -> None:
     """Drop every entry with bin < below (``free``), in place."""
-    dev, cap = _check_table(table)
-    if dev.type == "cpu":
-        hash_free_plain(table, below)
-        return
+    _check_table(table)
     _keys, bins_t, occ_t, _accs = table
-    err = build_library().arroyo_hash_free(sk._dev_index(dev), cap, bins_t.data_ptr(),
-                                           occ_t.data_ptr(), int(below), kernels._stream(dev))
+    free_below(bins_t, occ_t, below)
+
+
+def free_below(bins: torch.Tensor, occ: torch.Tensor, below: int) -> None:
+    """K13 on its two arrays alone: ``occ &= bins >= below`` in place, for
+    int32 bins and bool occupancy of one length, any length and any
+    alignment (``hash_free`` passes a table's; chip_smoke.py's edge cases
+    odd lengths and offset views). Counted as ``hash_free``'s launches."""
+    dev = bins.device
+    if (bins.dtype != torch.int32 or occ.dtype != torch.bool or bins.dim() != 1
+            or occ.shape != bins.shape or not bins.is_contiguous() or not occ.is_contiguous()
+            or occ.device != dev):
+        raise ValueError("free_below takes int32 bins and bool occ, contiguous 1-D tensors of "
+                         "one length on one device")
+    if dev.type == "cpu":
+        free_below_plain(bins, occ, below)
+        return
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    if bins.shape[0] == 0:
+        return
+    err = build_library().arroyo_hash_free(sk._dev_index(dev), bins.shape[0], bins.data_ptr(),
+                                           occ.data_ptr(), int(below), kernels._stream(dev))
     kernels._raise_on(err, "hash_free")
     kernels._counted(hash_free)
+
+
+def free_kernel_launches() -> int:
+    """Kernels K13 has launched on the card in this process (builds the
+    library): the difference across one call is that call's launches."""
+    return build_library().arroyo_hash_free_kernel_launches()
 
 
 def hash_free_plain(table, below: int) -> None:
     """Plain PyTorch version of K13."""
     _keys, bins_t, occ_t, _accs = table
-    occ_t &= bins_t >= below
+    free_below_plain(bins_t, occ_t, below)
+
+
+def free_below_plain(bins: torch.Tensor, occ: torch.Tensor, below: int) -> None:
+    occ &= bins >= below
 
 
 # ------------------------------------------------------------- B9's programs

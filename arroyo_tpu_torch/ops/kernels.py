@@ -13,14 +13,16 @@ each replaces and what bounds it) update and read the aggregate state, one
   lane's identity in the same launch;
 - ``slot_region_clear`` (K3): k regions reset to each lane's identity (the
   same kernel body as K2, in its clear mode);
-- ``slot_gather`` (K7): k single slots of every lane, packed the same way.
+- ``slot_gather`` (K7): k single slots of every lane, widened the same
+  way into one packed buffer, the lane on the grid.
 
 Each wrapper checks device, dtype, shape and contiguity, and raises on what
 the kernel does not take. On a CUDA tensor it launches the kernel (building
 the library with nvcc at first use) or raises; it takes the plain PyTorch
 version (``*_plain``, beside it) only for tensors on the CPU. Each wrapper
 counts its launches in ``<wrapper>.launches`` (K2's read-and-clear
-launches apart, in ``slot_region_read_pack.clear_launches``).
+launches apart, in ``slot_region_read_pack.clear_launches``); K7's library
+counts its kernels (``gather_kernel_launches``).
 
 Every ``csrc/<name>.cu`` builds the same way (``build_source``): for sm_90a
 into ``arroyo_tpu_torch/build/``, named by a digest of the source, the
@@ -47,6 +49,7 @@ import numpy as np
 import torch
 
 from .aggregate import _identity
+from .staging import aligned
 
 _PKG = Path(__file__).resolve().parents[1]
 BUILD_DIR = _PKG / "build"
@@ -167,7 +170,9 @@ def _bind_slot_agg(lib: ctypes.CDLL) -> None:
     lib.arroyo_slot_region_grid.argtypes = [llp, i, ll, i, ip]
     lib.arroyo_slot_region_grid.restype = None
     lib.arroyo_slot_empty.argtypes = [i, i, i, i, i, p]
-    lib.arroyo_slot_gather.argtypes = [i, pp, ip, i, p, i, ll, ll, p, p, p]
+    lib.arroyo_slot_gather.argtypes = [i, pp, ip, i, p, i, ll, ll, p, ll, p]
+    lib.arroyo_slot_gather_kernel_launches.argtypes = []
+    lib.arroyo_slot_gather_kernel_launches.restype = ll
     for fn in (lib.arroyo_slot_scatter_combine, lib.arroyo_slot_region, lib.arroyo_slot_gather,
                lib.arroyo_slot_add_chain, lib.arroyo_slot_empty):
         fn.restype = ctypes.c_int
@@ -253,6 +258,16 @@ def bits(t: torch.Tensor) -> torch.Tensor:
     """A uint64 lane as its int64 bits (torch's scatters, gathers, fills
     and, on the card, indexing take no uint64); other lanes as they are."""
     return t.view(torch.int64) if t.dtype == torch.uint64 else t
+
+
+def widen(t: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+    """A lane's values widened to ``dt`` (int64 or float64) as K2 and K7
+    widen them: a float32 subnormal becomes the zero of its sign, as XLA's
+    astype(float64) gives it on the CPU and the TPU (IEEE conversion keeps
+    it)."""
+    if t.dtype == torch.float32:
+        t = torch.where((t.view(torch.int32) & 0x7F800000) == 0, t * 0, t)
+    return t.to(dt)
 
 
 def ordered_add(kind: str, dtype: torch.dtype) -> bool:
@@ -456,7 +471,7 @@ def slot_region_read_pack_plain(state, bases, R: int, clear_kinds=None):
     def pack(lanes, dt):
         if not lanes:
             return torch.empty(0, dtype=dt, device=dev)
-        return torch.stack([bits(a)[idx].to(dt).view(k, R) for a in lanes], dim=1).reshape(-1)
+        return torch.stack([widen(bits(a)[idx], dt).view(k, R) for a in lanes], dim=1).reshape(-1)
 
     out = (pack([a for a in state if not a.dtype.is_floating_point], torch.int64),
            pack([a for a in state if a.dtype.is_floating_point], torch.float64))
@@ -503,31 +518,54 @@ def region_grid(bases, R: int, n_lanes: int) -> tuple[int, int, int, int]:
 # ------------------------------------------------------------- K7
 
 
-def slot_gather(state: Sequence[torch.Tensor], slots: torch.Tensor):
+@functools.lru_cache(maxsize=256)
+def _gather_table(dtypes: tuple):
+    """K7's lane table for one layout of lanes, made once per layout: the
+    dtype codes, and how many lanes widen to int64 and to float64."""
+    n_flt = sum(1 for d in dtypes if d.is_floating_point)
+    return _lane_table(dtypes, None)[0], len(dtypes) - n_flt, n_flt
+
+
+def slot_gather(state: Sequence[torch.Tensor], slots: torch.Tensor, packed: bool = False):
     """For each of the k slots and every lane, ``state[lane][slots[i]]``:
-    int lanes widened into one int64 buffer, float lanes into one float64
-    buffer, each laid out [lane of its class][k]. A slot outside [0, cap)
-    reads 0. Returns (ibuf, fbuf); a class with no lanes gives an empty
-    buffer. Launches on the current stream, after every K1 launched there."""
+    int lanes widened into int64 words, float lanes into float64 words (a
+    float32 subnormal to the zero of its sign, as ``widen``), each class
+    laid out [lane of its class][k]. A slot outside [0, cap) reads 0.
+    Returns (ibuf, fbuf), views of one packed uint8 buffer: the int part
+    from byte 0, the float part from the next 16-byte boundary; a class
+    with no lanes gives an empty view. With ``packed``, returns (ibuf,
+    fbuf, buffer), so that the buffer crosses to the host in one copy.
+    Launches one kernel on the current stream, after every K1 launched
+    there."""
     dev = _check_state(state)
     _check_slots(slots, dev)
-    if dev.type == "cpu":
-        return slot_gather_plain(state, slots)
     k = slots.shape[0]
-    n_flt = sum(1 for a in state if a.dtype.is_floating_point)
-    ibuf = torch.empty((len(state) - n_flt) * k, dtype=torch.int64, device=dev)
-    fbuf = torch.empty(n_flt * k, dtype=torch.float64, device=dev)
+    dts, n_int, n_flt = _gather_table(tuple(a.dtype for a in state))
+    nbytes, (_i, f_off) = aligned([n_int * k * 8, n_flt * k * 8])
+    buf = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    ibuf = buf[:n_int * k * 8].view(torch.int64)
+    fbuf = buf[f_off: f_off + n_flt * k * 8].view(torch.float64)
+    out = (ibuf, fbuf, buf) if packed else (ibuf, fbuf)
+    if dev.type == "cpu":
+        pib, pfb = slot_gather_plain(state, slots)
+        ibuf.copy_(pib)
+        fbuf.copy_(pfb)
+        return out
     if k == 0:
-        return ibuf, fbuf
-    lib = build_library()
-    dts = (ctypes.c_int * len(state))(*[_DTYPE_CODE[a.dtype] for a in state])
-    err = lib.arroyo_slot_gather(
+        return out
+    err = build_library().arroyo_slot_gather(
         dev.index or 0, _ptrs(state), dts, len(state), ctypes.c_void_p(slots.data_ptr()),
         int(slots.dtype == torch.int64), k, state[0].shape[0],
-        ctypes.c_void_p(ibuf.data_ptr()), ctypes.c_void_p(fbuf.data_ptr()), _stream(dev))
+        ctypes.c_void_p(buf.data_ptr()), f_off, _stream(dev))
     _raise_on(err, "slot_gather")
     _counted(slot_gather)
-    return ibuf, fbuf
+    return out
+
+
+def gather_kernel_launches() -> int:
+    """Kernels K7 has launched on the card in this process (builds the
+    library): the difference across one call is that call's launches."""
+    return build_library().arroyo_slot_gather_kernel_launches()
 
 
 def slot_gather_plain(state, slots):
@@ -541,7 +579,7 @@ def slot_gather_plain(state, slots):
         if not lanes:
             return torch.empty(0, dtype=dt, device=dev)
         zero = torch.zeros((), dtype=dt, device=dev)
-        return torch.stack([torch.where(ok, bits(a)[s].to(dt), zero) for a in lanes]).reshape(-1)
+        return torch.stack([torch.where(ok, widen(bits(a)[s], dt), zero) for a in lanes]).reshape(-1)
 
     return (pack([a for a in state if not a.dtype.is_floating_point], torch.int64),
             pack([a for a in state if a.dtype.is_floating_point], torch.float64))

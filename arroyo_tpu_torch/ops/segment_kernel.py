@@ -60,7 +60,7 @@ import numpy as np
 import torch
 
 from ..batch import KEY_FIELD, TIMESTAMP_FIELD
-from . import kernels
+from . import kernels, staging
 from ..expr import (BinOp, Case, Cast, CAST_TARGETS, Col, Func, Lit, Neg, Not,
                     TORCH_DTYPES, TVal, as_full, binop_type, convert, default_nan_bits,
                     dtype_floor, floordiv_torch, floordiv_type, hash_columns_torch,
@@ -68,7 +68,6 @@ from ..expr import (BinOp, Case, Cast, CAST_TARGETS, Col, Func, Lit, Neg, Not,
 
 BLOCK = 256
 NUM_WARPS = 4
-ALIGN = 16  # bytes: every part of the staged inputs and the packed outputs
 _PKG = Path(__file__).resolve().parents[1]
 BUILD_DIR = _PKG / "build" / "segment"
 
@@ -663,16 +662,6 @@ def _summary(plan, in_dtypes) -> str:
 # ------------------------------------------------------------ program
 
 
-def _aligned(sizes) -> tuple[int, list[int]]:
-    """(total bytes, offsets) of parts of ``sizes`` bytes laid end to end,
-    each at a multiple of ALIGN."""
-    offs, off = [], 0
-    for n in sizes:
-        offs.append(off)
-        off += -(-int(n) // ALIGN) * ALIGN
-    return off, offs
-
-
 def _np_dt(dt: np.dtype) -> np.dtype:
     """The NumPy dtype a column crosses the card in (uint64 as int64 bits)."""
     return _I64 if dt == _U64 else dt
@@ -741,7 +730,7 @@ class SegmentProgram:
         """(bytes, offsets) of the staged input columns of a P-row batch."""
         lay = self._in_layouts.get(P)
         if lay is None:
-            lay = self._in_layouts[P] = _aligned(P * dt.itemsize for dt in self.in_dtypes)
+            lay = self._in_layouts[P] = staging.aligned(P * dt.itemsize for dt in self.in_dtypes)
         return lay
 
     def out_layout(self, P: int) -> OutLayout:
@@ -757,7 +746,7 @@ class SegmentProgram:
             sizes.append(P)
         for dt in self.wm_dtypes:
             sizes += [dt.itemsize, 8]
-        nbytes, offs = _aligned(sizes)
+        nbytes, offs = staging.aligned(sizes)
         outs = [(k, offs[i], _np_dt(np.dtype(self.out_dtypes[k]))) for i, k in enumerate(names)]
         i = len(names)
         mask = None
@@ -833,29 +822,18 @@ class SegmentProgram:
 def stage_inputs(prog: SegmentProgram, arrays: list, device: torch.device) -> list:
     """The batch's input columns (numpy, one length P) as the kernel's
     inputs on ``device``: packed into one host buffer (pinned for the
-    card), each column at a 16-byte boundary, copied to the card in one
-    copy, and carved into [P] views (uint64 as int64 bits). On the CPU the
-    views are of the host buffer itself. The caching host allocator keeps a
-    pinned buffer until its copy has landed."""
+    card), each column at a 16-byte boundary (``prog.in_layout(P)``),
+    copied to the card in one copy (``staging.stage``), and carved into
+    [P] views (uint64 as int64 bits). On the CPU the views are of the host
+    buffer itself."""
     P = len(arrays[0])
-    nbytes, offs = prog.in_layout(P)
-    cuda = device.type == "cuda"
-    host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=cuda)
-    h = host.numpy()
-    for a, dt, off in zip(arrays, prog.in_dtypes, offs):
+    cols = []
+    for a, dt in zip(arrays, prog.in_dtypes):
         a = np.asarray(a)
         if len(a) != P or a.dtype != dt:
             raise ValueError(f"input of {a.dtype}[{len(a)}] where the plan stages {dt}[{P}]")
-        h[off: off + P * dt.itemsize].view(_np_dt(dt))[:] = a.view(_np_dt(dt))
-    buf = host.to(device, non_blocking=True) if cuda else host
-    typed: dict = {}
-    out = []
-    for dt, off in zip(prog.in_dtypes, offs):
-        tdt = TORCH_DTYPES[dt]
-        if tdt not in typed:
-            typed[tdt] = buf.view(tdt)
-        out.append(typed[tdt][off // dt.itemsize: off // dt.itemsize + P])
-    return out
+        cols.append(a.view(_np_dt(dt)))
+    return staging.stage(cols, device, [TORCH_DTYPES[dt] for dt in prog.in_dtypes])[0]
 
 
 def _check_inputs(prog: SegmentProgram, n: int, inputs) -> torch.device:

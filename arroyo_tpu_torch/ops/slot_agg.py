@@ -35,7 +35,7 @@ import torch
 
 from ..device import resolve_device
 from ..hashing import splitmix64
-from . import kernels
+from . import kernels, staging
 from .aggregate import AGG_KINDS, DeviceHashAggregator, _identity, combine_by_key_bin
 from .prefetch import HostFetch
 
@@ -339,14 +339,17 @@ class SlotAggregator(DeviceHashAggregator):
             vals = [v[keep] for v in vals]
         if len(row_slots) == 0:
             return
-        # int32 slot indices halve the per-batch index transfer
+        # int32 slot indices halve the per-batch index transfer; the slots
+        # and every shipped value lane cross in one pinned copy
         idx_dt = np.int32 if self.cap < _I32_MAX else np.int64
-        dev = self.device
-        slots = torch.from_numpy(row_slots.astype(idx_dt)).to(dev)
-        vs = [None if (k == "count" and not self._merge_mode)
-              else torch.from_numpy(np.ascontiguousarray(v, dtype=dt)).to(dev)
-              for v, k, dt in zip(vals, self.acc_kinds, self.acc_dtypes)]
-        kernels.slot_scatter_combine(self.state, self.acc_kinds, slots, vs)
+        ship = [not (k == "count" and not self._merge_mode) for k in self.acc_kinds]
+        staged, _host = staging.stage(
+            [row_slots.astype(idx_dt)] + [np.asarray(v, dtype=dt)
+                                          for v, dt, s in zip(vals, self.acc_dtypes, ship) if s],
+            self.device)
+        it = iter(staged[1:])
+        vs = [next(it) if s else None for s in ship]
+        kernels.slot_scatter_combine(self.state, self.acc_kinds, staged[0], vs)
 
     def _spill_update(self, keys_i64, bins_i64, vals) -> None:
         order = np.lexsort((keys_i64, bins_i64))
@@ -479,27 +482,35 @@ class SlotAggregator(DeviceHashAggregator):
 
     def read_slots(self, slots: np.ndarray) -> list[np.ndarray]:
         """Current accumulator values at the given device slots, one array
-        per lane in the lane's own dtype: one K7 gather of every lane, its
-        two packed buffers copied to pinned host memory behind an event
-        that the host waits on before reading (the JAX package's
-        ``wait_buffers_ready``). K7 runs on the stream of every K1 this
-        aggregator launched, so it reads their sums. Used by the
-        updating-aggregate flush; window paths never gather."""
+        per lane in the lane's own dtype: one copy each way around one K7
+        gather of every lane. The slots cross in one pinned copy on the
+        current stream, the stream of every K1 this aggregator launched,
+        so K7 reads their sums; its one packed output comes back in one
+        copy to pinned memory behind an event that the host waits on
+        before reading (the JAX package's ``wait_buffers_ready``). A lane
+        whose widened dtype is its own (int64, float64) is a view of that
+        host buffer; the others are converted. Used by the updating-
+        aggregate flush; window paths never gather."""
         n = len(slots)
         if n == 0:
             return [np.empty(0, dtype=d) for d in self.acc_dtypes]
         idx_dt = np.int32 if self.cap < _I32_MAX else np.int64
-        st = torch.from_numpy(np.ascontiguousarray(slots, dtype=idx_dt)).to(self.device)
-        ibuf, fbuf = kernels.slot_gather(self.state, st)
-        ib = HostFetch(ibuf).result().reshape(self._n_int_lanes, n) if self._n_int_lanes else None
-        fb = HostFetch(fbuf).result().reshape(self._n_flt_lanes, n) if self._n_flt_lanes else None
+        (st,), slots_host = staging.stage([np.asarray(slots, dtype=idx_dt)], self.device)
+        ibuf, fbuf, packed = kernels.slot_gather(self.state, st, packed=True)
+        host = HostFetch(packed).result()
+        # the slots' pinned buffer is held until here, past the event the
+        # fetch waited on, which their copy and K7's launch precede
+        del slots_host
+        f0 = fbuf.data_ptr() - packed.data_ptr()  # the float part's byte offset
+        ib = host[:ibuf.nbytes].view(np.int64).reshape(self._n_int_lanes, n)
+        fb = host[f0: f0 + fbuf.nbytes].view(np.float64).reshape(self._n_flt_lanes, n)
         out, ii, fi = [], 0, 0
         for d in self.acc_dtypes:
             if np.issubdtype(d, np.floating):
-                out.append(fb[fi].astype(d))
+                out.append(fb[fi].astype(d, copy=False))
                 fi += 1
             else:
-                out.append(ib[ii].astype(d))
+                out.append(ib[ii].astype(d, copy=False))
                 ii += 1
         return out
 

@@ -102,7 +102,12 @@ non-zero, printing no result):
               1,048,576 slots gathered), over mixed int32/int64/float32/
               float64/uint64 lanes with int32 and int64 indices and on edge cases
               (k = 1, k not a power of two, duplicated slots, slot 0, slot
-              cap - 1); then timed, with the host's cost of one read_slots.
+              cap - 1; k of 1-5 and k % 4 of 1-3, slot arrays one element
+              off a 16-byte boundary, every lane dtype alone, float32
+              subnormals), each call one kernel by the library's counter
+              and its views in the packed buffer it hands back equal; then
+              timed, and the host's cost of one read_slots, with its steps
+              stamped on the function itself;
 
 15. q7m    -- q7 at bench.py's sizes through an 8-shard mesh
               (device.mesh-devices = 8, bench.py's mesh width; spill capacity
@@ -165,7 +170,8 @@ non-zero, printing no result):
               then timed at q7m's shapes, mesh_ab's (8 x 2,048, table
               8192) and the deployment state, K8's launches a call held to
               the plan and the trace, K9's and K10's to the library's
-              count;
+              count; K9 at q7m's merged step again right after a 64 MB
+              write (a cold L2);
 20. hash_agg -- the single-device table (B9: DeviceHashAggregator, K8 and
               K9 per batch, K11 per close and packed scan at one shard, K12's
               walk where a scan holds more than emit_cap rows, K13 frees):
@@ -186,7 +192,12 @@ non-zero, printing no result):
               reaches (its first five batches and their closes), K9's
               rounds there held to its plain version, K12's walk at the hop
               drive's state. K8's calls of the q7 drive (as of q7m's) are
-              reported by path, passes and launches;
+              reported by path, passes and launches; K13 one kernel a call
+              in the hop drive by the library's counter, and on its own edge
+              cases (caps of 1, 15, 16, 17 and 4,101, arrays one element off
+              a 16-byte boundary, nothing and everything freed, below at the
+              int32 limits), then timed at q7's table and the hop drive's
+              size;
 21. q7_host -- q7c with the window on the host store ("backend":
               "numpy"): exact parity, K4 on the card, no K1-K3.
 
@@ -197,7 +208,10 @@ num_warps, each held to its plain version first.
 
 On every chained path K4 is one Triton launch a call
 (``segment_fused.kernel_launches`` equal to its calls), and K10's spill
-one kernel a call by the library's counter.
+one kernel a call by the library's counter; qu's run holds K7 to one
+kernel a call the same way. Every chained run's profiled run counts its
+copies by kind (``copies_by_kind``) and must hold fewer pageable
+host-to-device copies than batches.
 
 Then the {"kernels": [...]} line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Details go to <out-dir>/chip_smoke.json, the
@@ -549,19 +563,28 @@ def reset_all_launch_counts() -> None:
 
 def run_chained(name: str, build, events: int, oracle, check,
                 path_kernels=AGG_PATH_KERNELS, table_capacity: int = 65536,
-                stats=None) -> dict:
+                stats=None, library=None) -> dict:
     """A chaining-on main path: counts zeroed just before the run and read
     just after; the chain must have run compiled, K4 once per source batch
     of at least segment.compile.min-rows rows, every kernel of
     ``path_kernels`` (default K1, K2's read-and-clear and K4; then no K3)
-    at least once. ``stats(eng)``
-    adds what the run's operators counted. Then a second, profiled run
-    gives the device's busy share."""
+    at least once. ``library`` maps a wrapper's count to its library's
+    kernel counter: the run's kernels must equal its calls (one kernel a
+    call). ``stats(eng)`` adds what the run's operators counted. Then a
+    second, profiled run gives the device's busy share and its copies,
+    which must hold fewer pageable host-to-device copies than the run has
+    batches (every batch's arrays cross staged, in pinned copies)."""
     want = oracle(events)
     job = f"chip-smoke-{name}"
+    library = library or {}
     reset_all_launch_counts()
+    lib_before = {k: c() for k, c in library.items()}
     rows, wall, eng = drive(build, events, job, chaining=True, table_capacity=table_capacity)
     launches = all_launch_counts()
+    lib_kernels = {k: c() - lib_before[k] for k, c in library.items()}
+    if any(lib_kernels[k] != launches[k] for k in library):
+        raise AssertionError(f"{name}: library kernels {lib_kernels} against calls "
+                             f"{ {k: launches[k] for k in library} }")
     got = check(rows, want)
     chained = [n for n in eng.graph.nodes if "+" in n]
     fallbacks = recorder.events(job, "SEGMENT_FALLBACK")
@@ -588,9 +611,13 @@ def run_chained(name: str, build, events: int, oracle, check,
             "events_per_s": events / wall, "windows": len(got), "chained_node": chained[0],
             "segment_events": [e["message"] for e in compiled], "launches": launches,
             "k4_expected": want_k4, "table_capacity": table_capacity,
-            "stats": stats(eng) if stats else None,
+            "stats": stats(eng) if stats else None, "library_kernels": lib_kernels,
             "profiled_run": profiled_run(build, events, job + "-profiled", check, want,
                                          table_capacity=table_capacity)}
+    pageable = info["profiled_run"]["copies_by_kind"]["HtoD pageable"]
+    if pageable >= len(sizes):
+        raise AssertionError(f"{name}: {pageable} pageable host-to-device copies in "
+                             f"{len(sizes)} batches: {info['profiled_run']['copies']}")
     emit(info)
     return info
 
@@ -612,7 +639,20 @@ def profiled_run(build, events: int, job: str, check, want, queue_mult: int = 2,
     return {"wall_s": wall_p, "device_busy_s": busy_s,
             "device_idle_share": None if busy_s is None else 1.0 - busy_s / wall_p,
             "device_us_by_name": dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:14]),
-            "copies": copies}
+            "copies": copies, "copies_by_kind": copies_by_kind(copies)}
+
+
+def copies_by_kind(copies: dict) -> dict:
+    """A trace's memcpy counts by direction and host memory: CUPTI names
+    them "Memcpy HtoD (Pageable -> Device)", "Memcpy DtoH (Device ->
+    Pinned)" and so on."""
+    out = {f"{d} {m}": 0 for d in ("HtoD", "DtoH") for m in ("pageable", "pinned")}
+    out["other"] = 0
+    for key, n in copies.items():
+        d = "HtoD" if "HtoD" in key else "DtoH" if "DtoH" in key else None
+        m = "pageable" if "Pageable" in key else "pinned" if "Pinned" in key else None
+        out[f"{d} {m}" if d and m else "other"] += n
+    return out
 
 
 # ---------------------------------------------------------------- q8c
@@ -887,7 +927,8 @@ def run_qu() -> dict:
     the merged changelog equal to the oracle exactly."""
     return run_chained("qu", build_qu, QU_EVENTS, oracle_qu, check_qu,
                        path_kernels=QU_PATH_KERNELS, table_capacity=QU_CAP,
-                       stats=updating_stats)
+                       stats=updating_stats,
+                       library={"slot_gather": kernels.gather_kernel_launches})
 
 
 def same_changelog(a: dict, b: dict, what: str) -> int:
@@ -1151,7 +1192,7 @@ def gather_state(rng, dtypes, cap, dev):
         npdt = NP_DT[dt]
         if dt.is_floating_point:
             a = rng.normal(0, 1e6, cap).astype(npdt)
-            a[:5] = [np.nan, -0.0, np.inf, -np.inf, 1e-30]
+            a[:7] = [np.nan, -0.0, np.inf, -np.inf, 1e-30, 1e-40, -1e-40]
             a[-1] = -7.5
         else:
             a = rng.integers(np.iinfo(npdt).min, np.iinfo(npdt).max, cap, dtype=npdt)
@@ -1159,15 +1200,57 @@ def gather_state(rng, dtypes, cap, dev):
     return out
 
 
+K7_KERNELS = {"gather_kernel": 1}
+
+
 def check_gather(state, slots) -> None:
-    """K7 against its plain version, exactly: the int64 buffer with
-    torch.equal, the float64 buffer bit for bit (NaN and -0.0 included)."""
+    """K7 against its plain version, exactly: the int64 views with
+    torch.equal, the float64 views bit for bit (NaN and -0.0 included);
+    one kernel by the library's counter; with ``packed``, the same views
+    of the one buffer it hands back (the int part from byte 0, the float
+    part from the next 16-byte boundary)."""
+    before = kernels.gather_kernel_launches()
     ib, fb = kernels.slot_gather(state, slots)
+    n = kernels.gather_kernel_launches() - before
     pib, pfb = kernels.slot_gather_plain(state, slots)
+    oib, ofb, packed = kernels.slot_gather(state, slots, packed=True)
+    f_off = -(-oib.numel() * 8 // 16) * 16
     torch.cuda.synchronize()
+    what = (f"k {slots.numel()}, {slots.dtype}, lanes {[str(a.dtype) for a in state]}, "
+            f"slots at {slots.data_ptr() % 16} mod 16")
     if not (torch.equal(ib, pib) and torch.equal(fb.view(torch.int64), pfb.view(torch.int64))):
-        raise AssertionError(f"slot_gather differs from its plain version (k {slots.numel()}, "
-                             f"{slots.dtype}, lanes {[str(a.dtype) for a in state]})")
+        raise AssertionError(f"slot_gather differs from its plain version ({what})")
+    if not (torch.equal(oib, pib) and torch.equal(ofb.view(torch.int64), pfb.view(torch.int64))
+            and (oib.numel() == 0 or oib.data_ptr() == packed.data_ptr())
+            and (ofb.numel() == 0 or ofb.data_ptr() == packed.data_ptr() + f_off)):
+        raise AssertionError(f"slot_gather's packed buffer differs ({what})")
+    if slots.numel() and n != 1:
+        raise AssertionError(f"slot_gather made {n} kernel launches in one call ({what})")
+
+
+def gather_edge_cases(rng, dev) -> dict:
+    """K7's edge cases: k of 1-5 and k % 4 of 1, 2 and 3 past whole quads,
+    a slot array offset by one element (off a 16-byte boundary), every
+    lane dtype on its own, output rows off a 16-byte boundary (k odd with
+    two lanes of a class), slots out of range, with both index dtypes."""
+    cap = 4099
+    lane_sets = {**{str(d).replace("torch.", ""): [d] for d in
+                    (torch.int32, torch.int64, torch.float32, torch.float64, torch.uint64)},
+                 "two of each class": [torch.int64, torch.int32, torch.float64, torch.float32]}
+    checked = {}
+    for label, dts in lane_sets.items():
+        st = gather_state(rng, dts, cap, dev)
+        for idx_dt in (torch.int32, torch.int64):
+            for k in (1, 2, 3, 4, 5, 9, 10, 11, 1001):
+                sl = rng.integers(-3, cap + 3, k)
+                sl[: min(k, 2)] = [0, cap - 1][: min(k, 2)]
+                t = torch.from_numpy(sl).to(idx_dt).to(dev)
+                check_gather(st, t)
+                off = torch.empty(k + 1, dtype=idx_dt, device=dev)[1:]
+                off.copy_(t)
+                check_gather(st, off)
+                checked[f"{label} {str(idx_dt).replace('torch.', '')} k = {k}"] = 2
+    return checked
 
 
 def qu_lanes() -> list:
@@ -1206,6 +1289,8 @@ def gather_phase(dev) -> dict:
                               ("edges mixed", np.concatenate([[0, cap - 1, 0, cap - 1], base[:61]]))):
                 check_gather(st, torch.from_numpy(sl.astype(np.int64)).to(idx_dt).to(dev))
                 checked[f"{name} {str(idx_dt).replace('torch.', '')} {label}"] = len(sl)
+    log("gather: edge cases")
+    edge = gather_edge_cases(rng, dev)
     timing = {}
     for name in ("qu", "deployment"):
         dts, cap, k = shapes[name]
@@ -1215,8 +1300,9 @@ def gather_phase(dev) -> dict:
         flts = [a for a in st if a.dtype.is_floating_point]
         sl64 = slots.long()
         log(f"gather: time {name}")
+        call = lambda: kernels.slot_gather(st, slots)  # noqa: E731
         t = timed(
-            lambda: kernels.slot_gather(st, slots),
+            call,
             lambda: kernels.slot_gather_plain(st, slots),
             lambda: (torch.cat([kernels.bits(a).index_select(0, sl64).to(torch.int64)
                                 for a in ints])
@@ -1227,31 +1313,76 @@ def gather_phase(dev) -> dict:
             bytes=k * slots.element_size() + k * sum(a.element_size() for a in st) + k * 8 * len(st),
             bytes_counted="k slot indices read, k words of each lane gathered, k x 8 bytes "
                           "per lane written",
+            sector_floor_ms=k * len(st) * 32 / HBM_BYTES_PER_S * 1e3,
             k=k, cap=cap, lanes=[str(a.dtype).replace("torch.", "") for a in st])
-        t["read_slots_host_ms"] = read_slots_host_ms(dts, cap, k, dev, rng)
+        t.update(library_launch_report(call, kernels.gather_kernel_launches,
+                                       {"device_ops_per_call": t["ops_per_call"],
+                                        "device_us_per_call": t["us_per_call"],
+                                        "method": t["method"], "device_ms": t["ms"]},
+                                       K7_KERNELS, f"K7 at {name}"))
+        t["read_slots_host_ms"], t["read_slots_breakdown_ms"] = read_slots_host_ms(
+            dts, cap, k, dev, rng)
         timing[name] = t
-    info = {"phase": "gather", "cases_checked": len(checked), "max_abs_err": 0.0,
-            "qu_touched_keys": k_qu, "checked": checked, "timing": timing}
+    info = {"phase": "gather", "cases_checked": len(checked) + len(edge), "max_abs_err": 0.0,
+            "qu_touched_keys": k_qu, "checked": checked, "edge_cases": edge, "timing": timing}
     emit(info)
     return info
 
 
-def read_slots_host_ms(dts, cap, k, dev, rng) -> float:
+def read_slots_host_ms(dts, cap, k, dev, rng) -> tuple[float, dict]:
     """Median wall time of SlotAggregator.read_slots (what one flush pays:
-    slot upload, K7, the copies into pinned memory, the wait on their
-    event, the split into lanes) at this shape, host clock."""
-    from arroyo_tpu_torch.ops.slot_agg import SlotAggregator
+    slot staging and upload, K7, the copy into pinned memory, the wait on
+    its event, the split into lanes) at this shape, host clock; and, over
+    as many more calls, the median of each of its steps, from timestamps
+    taken as read_slots's own calls return (its module's ``staging.stage``,
+    ``kernels.slot_gather`` and ``HostFetch`` wrapped for those calls
+    alone): ``stage`` (the slots converted, packed into the pinned buffer
+    and their copy queued), ``launch`` (the output allocated and K7
+    queued), ``fetch`` (the pinned buffer and the copy back queued),
+    ``wait`` (until the copy has landed) and ``split`` (the lanes carved
+    and converted)."""
+    from types import SimpleNamespace
+    from unittest import mock
 
-    agg = SlotAggregator(["sum"] * len(dts), [NP_DT[d] for d in dts], cap=cap,
-                         batch_cap=65536, region_size=2048, device=dev)
+    from arroyo_tpu_torch.ops import slot_agg as sa
+
+    agg = sa.SlotAggregator(["sum"] * len(dts), [NP_DT[d] for d in dts], cap=cap,
+                            batch_cap=65536, region_size=2048, device=dev)
     slots = rng.integers(0, cap, k)
     times = []
     for _ in range(2 + TIMING_REPS):
         t0 = time.perf_counter()
         agg.read_slots(slots)
         times.append((time.perf_counter() - t0) * 1e3)
+    marks: list = []
+
+    def stamped(fn):
+        def call(*a, **kw):
+            r = fn(*a, **kw)
+            marks.append(time.perf_counter())
+            return r
+        return call
+
+    class Fetch(sa.HostFetch):
+        __init__ = stamped(sa.HostFetch.__init__)
+        result = stamped(sa.HostFetch.result)
+
+    steps: dict = {s: [] for s in ("stage", "launch", "fetch", "wait", "split")}
+    with mock.patch.object(sa, "staging", SimpleNamespace(stage=stamped(sa.staging.stage))), \
+            mock.patch.object(sa, "kernels", SimpleNamespace(slot_gather=stamped(kernels.slot_gather))), \
+            mock.patch.object(sa, "HostFetch", Fetch):
+        for _ in range(2 + TIMING_REPS):
+            torch.cuda.synchronize()
+            marks.clear()
+            t0 = time.perf_counter()
+            agg.read_slots(slots)
+            t = [t0, *marks, time.perf_counter()]
+            if len(t) != len(steps) + 1:
+                raise AssertionError(f"read_slots made {len(marks)} of the 4 timed calls")
+            for name, a, b in zip(steps, t, t[1:]):
+                steps[name].append((b - a) * 1e3)
     del agg
-    return statistics.median(times[2:])
+    return statistics.median(times[2:]), {n: statistics.median(v[2:]) for n, v in steps.items()}
 
 
 # ---------------------------------------------------------------- join kernels
@@ -2256,6 +2387,10 @@ def check_regions(rng, lanes, cap, R, dev) -> float:
 def check_region_call(rng, lanes, cap, bases, R, mode, dev) -> None:
     kinds = [k for k, _ in lanes]
     st_k = make_state(rng, lanes, cap, dev)
+    for a in st_k:
+        if a.dtype == torch.float32:  # subnormals widen to zeros of their sign
+            n = min(2, cap - bases[0])
+            a[bases[0]: bases[0] + n] = torch.tensor([1e-40, -1e-40][:n], dtype=torch.float32)
     st_p = [a.clone() for a in st_k]
     clear_kinds = kinds if mode == "read_and_clear" else None
     ib, fb = kernels.slot_region_read_pack(st_k, bases, R, clear_kinds=clear_kinds)
@@ -3622,6 +3757,7 @@ def k8_launch_report(call, plan: dict, timing: dict, what: str, S: int, dev) -> 
 # a call's kernels by name, as the trace names them, and launches a call
 K10_KERNELS = {"ex_count": 1, "ex_scatter": 1}
 K9_KERNELS = {"pm_cluster": 1}
+K9_COLD_BYTES = 64 << 20  # more than the H100's 50 MB L2
 K10_SPILL_KERNELS = {"compact::compact_table": 1}
 
 
@@ -3681,12 +3817,14 @@ def time_fresh(fn, make_inputs, reps: int) -> dict:
 
 
 def time_sharded(rng, dev, label, S, cap, L, dc, lanes, n_keys, valid_frac, reps,
-                 k9_rounds: bool = False) -> dict:
+                 k9_rounds: bool = False, k9_cold_l2: bool = False) -> dict:
     """Every sharded kernel at one step's shapes: the kernel, its plain
     version, the byte bound; K9, K10's spill and K11 on fresh copies of the
     state they change. K11 is held to its plain version in every mode at
     this table first; with ``k9_rounds`` K9's reported rounds are held to
-    its plain version at the merged step."""
+    its plain version at the merged step; with ``k9_cold_l2`` K9 is timed
+    again, each call right after a write of K9_COLD_BYTES of scratch (more
+    than the 50 MB L2), as the real step meets it after the exchange."""
     kinds = [k for k, _ in lanes]
     table = empty_table(S, cap, lanes, dev)
     spill = empty_spill(S, 2048, lanes, dev)
@@ -3768,6 +3906,14 @@ def time_sharded(rng, dev, label, S, cap, L, dc, lanes, n_keys, valid_frac, reps
         partials=[S, M], active=segments, claims=claims, table=[S, cap], rounds=rounds,
         us_per_call=pm_k["device_us_per_call"], cluster=sharded_kernels.probe_merge_cluster(),
         **pm_r)
+    if k9_cold_l2:
+        scratch = torch.empty(K9_COLD_BYTES, dtype=torch.uint8, device=dev)
+        cold = time_fresh(lambda tb: (scratch.fill_(1), pm_call(tb)), mk_table, reps)
+        k9_us = [v for n, v in cold["device_us_per_call"].items() if n.startswith("pm_cluster")]
+        t["agg_probe_merge"]["cold_l2"] = {
+            "ms": sum(k9_us) / 1e3 if k9_us else None, "scratch_bytes": K9_COLD_BYTES,
+            "method": cold["method"], "us_per_call": cold["device_us_per_call"]}
+        del scratch
     mk_spill = lambda: (clone_nested(spill), )
     sp_state = sharded_kernels.spill_scratch(S, M, dev)
     sp_call = lambda sp: sharded_kernels.shard_spill(kinds, c[0], c[1], c[3], still, sp,  # noqa: E731
@@ -3830,7 +3976,7 @@ def sharded_phase(dev) -> dict:
     timing = {
         "q7m": time_sharded(rng, dev, "q7m fused", MESH_N, 65536, 8192,
                             BENCH_BATCH // (MESH_N // 2), Q7M_LANES, 60000, 0.94, TIMING_REPS,
-                            k9_rounds=True),
+                            k9_rounds=True, k9_cold_l2=True),
         # bench.py --mesh-ab's shape: 8 shards, table 8192, batch capacity
         # 2048 (a quarter of it valid: 4096-row source batches over 8 shards)
         "mesh_ab": time_sharded(rng, dev, "mesh_ab", MESH_N, MESH_AB["device.table-capacity"],
@@ -4475,6 +4621,54 @@ def hash_edge_cases(dev, checks: dict) -> list:
     return out
 
 
+def free_edge_cases(dev) -> dict:
+    """K13 (``hash_kernels.free_below``, the kernel on its two arrays)
+    against its plain version, exactly, one kernel a call by the library's
+    counter: caps of 1, 15, 16, 17 and 4,096 + 5 (a word past the last
+    multiple of 16 slots), q7's 65,536, an occupancy view offset by one
+    byte (and bins by one int: no 16-byte access), nothing to free (an
+    empty table, no bin below), everything freed, and below at the int32
+    limits."""
+    rng = np.random.default_rng(20261018)
+    i32 = np.iinfo(np.int32)
+    out = {}
+
+    def case(label, occ, bins, below, offset=0):
+        occ_t = torch.zeros(len(occ) + offset, dtype=torch.bool, device=dev)[offset:]
+        bins_t = torch.zeros(len(bins) + offset, dtype=torch.int32, device=dev)[offset:]
+        occ_t.copy_(torch.from_numpy(occ))
+        bins_t.copy_(torch.from_numpy(bins))
+        want = occ_t.clone()
+        hash_kernels.free_below_plain(bins_t, want, below)
+        before = hash_kernels.free_kernel_launches()
+        hash_kernels.free_below(bins_t, occ_t, below)
+        n = hash_kernels.free_kernel_launches() - before
+        torch.cuda.synchronize()
+        require_same(f"hash_free {label}", [occ_t, bins_t], [want, torch.from_numpy(bins).to(dev)])
+        if n != 1:
+            raise AssertionError(f"hash_free {label}: {n} kernel launches in one call")
+        out[label] = {"cap": len(occ), "occupied": int(occ.sum()),
+                      "freed": int(occ.sum()) - int(want.sum())}
+
+    for cap in (1, 15, 16, 17, 4096 + 5, 65536):
+        occ = rng.random(cap) < 0.6
+        occ[[0, -1]] = True
+        bins = rng.integers(-3, 4, cap).astype(np.int32)
+        bins[[0, -1]] = -1
+        case(f"cap {cap}", occ, bins, 0)
+        case(f"cap {cap}, occupancy and bins offset", occ, bins, 0, offset=1)
+        case(f"cap {cap}, below INT32_MIN", occ, bins, int(i32.min))
+        case(f"cap {cap}, below INT32_MAX", occ, bins, int(i32.max))
+        case(f"cap {cap}, all freed", occ, bins, 4)
+    sparse = np.zeros(65536, bool)
+    sparse[rng.integers(0, 65536, 300)] = True
+    case("empty table", np.zeros(65536, bool), rng.integers(-3, 4, 65536).astype(np.int32), 4)
+    case("sparse, no bin below", sparse, rng.integers(0, 4, 65536).astype(np.int32), 0)
+    case("bins at the int32 limits", rng.random(65536) < 0.5,
+         rng.choice(np.array([i32.min, -1, 0, i32.max], np.int32), 65536), 0)
+    return out
+
+
 def hash_deployment(dev, checks: dict) -> dict:
     """The deployment state, every kernel checked: 8 batches of 1,048,576
     rows, Zipf(1.2) keys over 16 bins; then a close, a scan and a free."""
@@ -4526,8 +4720,9 @@ def hash_bytes(lanes, L, n: dict, cap: int, E: int) -> dict:
         # every slot's occupancy, the occupied slots' bins, the valid ones'
         # key and lanes; their rows and the count written
         "hash_scan_walk": cap + n["occupied"] * 4 + n["walked"] * (8 + lane_b + pay) + 8,
-        # every slot's bin and occupancy read, the freed ones written
-        "hash_free": cap * 5 + n["freed"],
+        # every slot's occupancy, the occupied slots' bins read, the freed
+        # ones' bytes written
+        "hash_free": cap + n["occupied"] * 4 + n["freed"],
     }
 
 
@@ -4655,14 +4850,43 @@ def time_hash(dev) -> dict:
                          & (t1[1][:E] < lo + 1)] + [a[:E] for a in t1[3]]),
         library="slice of each array and the mask", emit_cap=E)
     fresh1 = lambda: (t1[0], t1[1], t1[2].clone(), t1[3])  # noqa: E731
-    row("hash_free",
-        time_fresh(lambda *tb: hash_kernels.hash_free(tb, lo + 1), fresh1, TIMING_REPS),
+    free_call = lambda *tb: hash_kernels.hash_free(tb, lo + 1)  # noqa: E731
+    free_k = time_fresh(free_call, fresh1, TIMING_REPS)
+    row("hash_free", free_k,
         time_fresh(lambda *tb: P.free(tb, lo + 1), fresh1, TIMING_REPS),
         time_fresh(lambda *tb: tb[2].logical_and_(tb[1] >= lo + 1), fresh1, TIMING_REPS),
-        library="occ &= bins >= below", cap=Q7_HASH["cap"], freed=counts["freed"])
+        library="occ &= bins >= below", cap=Q7_HASH["cap"], freed=counts["freed"],
+        occupied=occupied,
+        **library_launch_report(lambda: free_call(*fresh1()), hash_kernels.free_kernel_launches,
+                                free_k, K13_KERNELS, "K13 at q7's table"))
+    t["hash_free_hop"] = time_free_at_hop_cap(dev)
     t["hash_scan_walk"] = time_walk_at_hop_state(dev)
     t["counts"] = counts
     return t
+
+
+K13_KERNELS = {"free_words": 1}
+
+
+def time_free_at_hop_cap(dev) -> dict:
+    """K13 at the hop drive's table size (32,768 slots), on a table like
+    the one its frees meet (its 5 open bins' ~1,600 entries occupied, the
+    oldest bin freed), against its plain version and the bound."""
+    rng = np.random.default_rng(20261019)
+    cap = HOP_HASH["cap"]
+    occ = torch.zeros(cap, dtype=torch.bool)
+    occ[torch.from_numpy(rng.choice(cap, 1600, replace=False))] = True
+    bins = torch.from_numpy(rng.integers(0, 5, cap).astype(np.int32)).to(dev)
+    occ = occ.to(dev)
+    fresh = lambda: (bins, occ.clone())  # noqa: E731
+    k = time_fresh(lambda b, o: hash_kernels.free_below(b, o, 1), fresh, TIMING_REPS)
+    p = time_fresh(lambda b, o: hash_kernels.free_below_plain(b, o, 1), fresh, TIMING_REPS)
+    occupied = int(occ.sum())
+    freed = int((occ & (bins < 1)).sum())
+    nbytes = cap + occupied * 4 + freed
+    return {"ms": k["device_ms"], "plain_ms": p["device_ms"], "call_ms": k["call_ms"],
+            "method": k["method"], "cap": cap, "occupied": occupied, "freed": freed,
+            "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
 
 
 def walk_library(table, lo, hi):
@@ -4771,11 +4995,16 @@ def hash_agg_phase(dev) -> dict:
     wall_float = time.perf_counter() - t0
     hop_checks: dict = {}
     reset_hash_launch_counts()
+    free_before = hash_kernels.free_kernel_launches()
     t0 = time.perf_counter()
     hop = drive_hop(make_hash_agg(("count",), (np.int64,), HOP_HASH, dev, checked_ops(hop_checks)),
                     hop_batches)
     wall_hop = time.perf_counter() - t0
     launches["q5 hop"] = launched("q5 hop", HASH_HOP_KERNELS)
+    free_kernels = hash_kernels.free_kernel_launches() - free_before
+    if free_kernels != launches["q5 hop"]["hash_free"]:
+        raise AssertionError(f"hash_agg q5 hop: K13 made {free_kernels} kernel launches in "
+                             f"{launches['q5 hop']['hash_free']} calls")
     if any(hop_checks.get(k) != launches["q5 hop"][k] for k in HASH_HOP_KERNELS):
         raise AssertionError(f"hash_agg q5 hop: checks {hop_checks} vs launches {launches}")
     for k, c in hop_checks.items():
@@ -4799,6 +5028,7 @@ def hash_agg_phase(dev) -> dict:
     deploy = hash_deployment(dev, checks)
     log("hash_agg: edge cases")
     cases = hash_edge_cases(dev, checks)
+    free_cases = free_edge_cases(dev)
     missing = [k for k in HASH_PATH_KERNELS if not checks.get(k)]
     if missing:
         raise AssertionError(f"hash_agg: {missing} never checked against the plain version")
@@ -4810,7 +5040,8 @@ def hash_agg_phase(dev) -> dict:
             "checks": checks,
             "checks_q5_hop": hop_checks,
             "sizes": {"q7": Q7_HASH, "hop": HOP_HASH, "deployment": HASH_DEPLOY},
-            "deployment": deploy, "cases": cases,
+            "deployment": deploy, "cases": cases, "free_cases": free_cases,
+            "free_kernels_q5_hop": free_kernels,
             "hop_drive_unchecked": hop_ab,
             "k9_rounds_q7_drive": {
                 "steps": len(k9_rounds), "rounds": [r["rounds"][0] for r in k9_rounds],
@@ -4970,7 +5201,7 @@ def kernel_rows(res: dict) -> list:
                  "triton_launches": res["q7c"]["launches"]["segment_fused_kernels"],
                  "block": st["block"], "num_warps": st["num_warps"],
                  "edge_cases": sorted(segp["edge_cases"]),
-                 "q7c_copies": res["q7c"]["profiled_run"]["copies"]})
+                 "q7c_copies": res["q7c"]["profiled_run"]["copies_by_kind"]})
     jt = res["join"]["timing"]["q8 window"]
     for name in ("join_sort_pairs", "join_search_bounds"):
         t = jt[name]
@@ -4992,11 +5223,20 @@ def kernel_rows(res: dict) -> list:
     k6["deployment_window"] = {k: dep[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
                                                    "l_cap", "r_cap")}
     t = res["gather"]["timing"]["qu"]
+    dep = res["gather"]["timing"]["deployment"]
     rows.append({"name": "slot_gather", "route": "cuda", "source": SOURCE,
                  "replaces": REPLACES["slot_gather"], "launches": res["qu"]["launches"]["slot_gather"],
                  "max_abs_err": res["gather"]["max_abs_err"], "ms": t["ms"],
                  "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-                 "library_ms": t["library_ms"]})
+                 "library_ms": t["library_ms"], "call_ms": t["call_ms"],
+                 "qu_library_kernels": res["qu"]["library_kernels"]["slot_gather"],
+                 "read_slots_host_ms": t["read_slots_host_ms"],
+                 "edge_cases": len(res["gather"]["edge_cases"]),
+                 "qu_copies": res["qu"]["profiled_run"]["copies_by_kind"],
+                 "deployment": {k: dep[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                                    "call_ms",
+                                                    "read_slots_host_ms",
+                                                    "read_slots_breakdown_ms")}})
     st = res["sharded"]["timing"]["q7m"]
     ha = res["hash_agg"]
     ht = ha["timing"]
@@ -5043,6 +5283,13 @@ def kernel_rows(res: dict) -> list:
                     "bound_flag_only_ms"]
             row["edge_cases"] = len(res["sharded"]["k10_cases"])
         if name == "agg_probe_merge":
+            # at q7m's merged step: as timed, after a 64 MB write, and in
+            # the real q7m fused run (its trace's time over its launches)
+            real = [v for n, v in res["q7m"]["fused"].get("profiled_run", {}).get(
+                "device_us_by_name", {}).items() if n.startswith("pm_cluster")]
+            row["l2"] = {"warm_ms": t["ms"], "cold_ms": t["cold_l2"]["ms"],
+                         "real_q7m_fused_ms": (sum(real) / 1e3 / row["launches"]
+                                               if real and row["launches"] else None)}
             row["cluster"] = t["cluster"]
             row["edge_cases"] = len(res["sharded"]["k9_cases"])
             row["hash_agg"]["cluster"] = ht[name]["cluster"]
@@ -5071,6 +5318,12 @@ def kernel_rows(res: dict) -> list:
                      "max_abs_err": ha["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
                      "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                      "library_ms": t["library_ms"]})
+    k13 = rows[-1]
+    k13.update(call_ms=ht["hash_free"]["call_ms"],
+               kernel_launches_per_call=ht["hash_free"]["kernel_launches_per_call"],
+               hop_library_kernels=ha["free_kernels_q5_hop"], edge_cases=len(ha["free_cases"]),
+               hop_cap={k: ht["hash_free_hop"][k] for k in ("ms", "plain_ms", "bound_ms",
+                                                             "call_ms")})
     # K12: the walk is its path's mode; the one-chunk mode (the reference's
     # scan, one launch per chunk) no longer runs on the path
     k12 = rows[-2]
