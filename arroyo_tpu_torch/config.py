@@ -3,7 +3,13 @@ config is a separate object, so tests can load both packages in one
 process without one reset clearing the other).
 
 Only the sections the port reads: ``pipeline``, ``worker``,
-``engine.coalesce``, ``segment.compile``, ``state.spill`` and ``device``.
+``engine.coalesce``, ``segment.compile``, ``checkpoint``, ``state`` and
+``device``. The checkpoint keys have the JAX package's names and meaning;
+``checkpoint.storage-url`` defaults to a directory under the temporary
+directory (``TMPDIR``) rather than the JAX package's ``/tmp/arroyo-tpu``,
+and the port writes npz state files for either value of
+``checkpoint.file-format``, as the JAX package does where pyarrow is
+missing (state/tables.py refuses any other value).
 The JAX package reads ``device.join-min-rows`` and
 ``device.force-device-join`` with defaults and has no entry for them; the
 port lists them here with the same defaults and meaning.
@@ -16,6 +22,8 @@ the JAX package's defaults and meaning.
 from __future__ import annotations
 
 import copy
+import os
+import tempfile
 import threading
 from typing import Any
 
@@ -60,11 +68,23 @@ _DEFAULTS: dict[str, Any] = {
             "mesh-fuse": True,
         },
     },
+    "checkpoint": {
+        # root of every job's checkpoints (state/tables.py layout); local
+        # paths only in the port
+        "storage-url": os.path.join(tempfile.gettempdir(), "arroyo-tpu-torch", "checkpoints"),
+        # "parquet" | "npz": the port writes npz for either (the JAX
+        # package's fallback without pyarrow); another value raises
+        "file-format": "parquet",
+    },
     "state": {
         # the tiered (spilling) state backend of the JAX package
         # (state/spill.py) is not ported: the updating aggregate refuses to
         # build when this is on
         "spill": {"enabled": False},
+        # checkpoint-file checksum verification: "restore" verifies the
+        # envelopes on the restore path only, "always" on every checkpointed
+        # read, "off" trusts storage
+        "integrity": {"verify": "restore"},
     },
     "device": {
         "torch-device": None,  # None = cuda (device.resolve_device)

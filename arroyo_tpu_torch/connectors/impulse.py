@@ -7,9 +7,10 @@ counter * interval_micros``. ``event_rate`` paces the stream (0: as fast as
 it goes); ``rate_phases`` replaces it with a piecewise-constant schedule of
 total rates (``"10000x30000,40000"``: 10k events/s for the first 30k events,
 then 40k events/s), whose events carry their scheduled emission wall time
-as event time. Offsets and the schedule's wall anchor persist in the
-offsets table of the JAX package; the port has no checkpoints yet, so every
-run starts at counter 0 with the anchor at its own start.
+as event time. The ``"s"`` table holds each subtask's counter (written at
+every checkpoint and at end of data; a restore resumes after it) and the
+schedule's wall anchor, so a restored scheduled source keeps one schedule
+and resumes at its live edge.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ import numpy as np
 
 from ..batch import TIMESTAMP_FIELD, Batch
 from ..config import config
-from ..operators.base import SourceOperator
+from ..operators.base import SourceOperator, TableSpec
 from ..types import SourceFinishType
 from . import register_source
 
@@ -51,6 +52,9 @@ def parse_rate_phases(spec) -> list[tuple[Optional[int], float]]:
     return phases
 
 
+_ANCHOR_KEY = "anchor_us"  # the schedule's wall anchor in the offsets table
+
+
 def _schedule_offsets_us(idx: np.ndarray, phases, parallelism: int) -> np.ndarray:
     """Scheduled emission offset (us from the anchor) for per-subtask event
     indices: each subtask owns 1/p of every phase's count and rate."""
@@ -69,6 +73,24 @@ def _schedule_offsets_us(idx: np.ndarray, phases, parallelism: int) -> np.ndarra
         base_t += span * 1e6 / per_task_rate
         base_i += span
     return out
+
+
+def _schedule_index_at(offset_us: float, phases, parallelism: int) -> int:
+    """Per-subtask event index scheduled at ``offset_us`` past the anchor
+    (a restored scheduled source's live edge)."""
+    base_i = 0.0
+    base_t = 0.0
+    for count, rate in phases:
+        per_task_rate = max(rate / parallelism, 1e-9)
+        if count is None:
+            return int(base_i + max(0.0, offset_us - base_t) * per_task_rate / 1e6)
+        span = count / parallelism
+        phase_end = base_t + span * 1e6 / per_task_rate
+        if offset_us < phase_end:
+            return int(base_i + max(0.0, offset_us - base_t) * per_task_rate / 1e6)
+        base_t = phase_end
+        base_i += span
+    return int(base_i)
 
 
 class ImpulseSource(SourceOperator):
@@ -91,23 +113,51 @@ class ImpulseSource(SourceOperator):
         else:
             self.interval_micros = 1000
 
+    def tables(self):
+        return [TableSpec("s", "global_keyed")]
+
     def run(self, sctx, collector) -> SourceFinishType:
         ctx = sctx.ctx
         sub = ctx.task_info.subtask_index
         p = ctx.task_info.parallelism
+        tbl = ctx.table_manager.global_keyed("s")
         batch_size = config().get("pipeline.source-batch-size")
         rate_per_task = self.event_rate / p if self.event_rate else 0
         started = time.monotonic()
-        anchor_us = int(time.time() * 1e6) if self.phases is not None else None
-        counter = 0
+        if self.phases is not None:
+            # a scheduled source is a load generator, not an exactly-once
+            # source: a restart resumes at the schedule's live edge, under
+            # the wall anchor of the first run (kept in the offsets table)
+            anchor_us = tbl.get(_ANCHOR_KEY)
+            if anchor_us is None:
+                anchor_us = int(time.time() * 1e6)
+                tbl.insert(_ANCHOR_KEY, anchor_us)
+            now_wall_us = time.time() * 1e6
+            started -= max(0.0, (now_wall_us - anchor_us) / 1e6)
+            counter = _schedule_index_at(max(0.0, now_wall_us - anchor_us), self.phases, p)
+        else:
+            anchor_us = None
+            counter = tbl.get(sub, 0)
+        # event_rate pacing is relative to the resume point
+        pace_base = counter
 
-        def stopped() -> bool:
+        def control() -> Optional[SourceFinishType]:
             msg = sctx.poll_control()
-            return msg is not None and msg.kind == "stop"
+            if msg is None:
+                return None
+            if msg.kind == "checkpoint":
+                tbl.insert(sub, counter)
+                sctx.start_checkpoint(msg.barrier)
+                if msg.barrier.then_stop:
+                    return SourceFinishType.FINAL
+            elif msg.kind == "stop":
+                return SourceFinishType.IMMEDIATE
+            return None
 
         while self.message_count is None or counter < self.message_count:
-            if stopped():
-                return SourceFinishType.IMMEDIATE
+            r = control()
+            if r is not None:
+                return r
             n = batch_size
             if self.message_count is not None:
                 n = min(n, self.message_count - counter)
@@ -129,16 +179,19 @@ class ImpulseSource(SourceOperator):
                 target = started + _schedule_offsets_us(
                     np.array([counter], dtype=np.int64), self.phases, p)[0] / 1e6
             elif rate_per_task:
-                target = started + counter / rate_per_task
+                target = started + (counter - pace_base) / rate_per_task
             else:
                 continue
             while True:
                 delay = target - time.monotonic()
                 if delay <= 0:
                     break
-                if stopped():
-                    return SourceFinishType.IMMEDIATE
+                r = control()
+                if r is not None:
+                    return r
                 time.sleep(min(delay, 0.05))
+        # the offset table stays current for the task's "final" snapshot
+        tbl.insert(sub, counter)
         return SourceFinishType.GRACEFUL
 
 

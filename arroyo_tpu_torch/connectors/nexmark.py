@@ -9,6 +9,10 @@ Subtask i of p owns event numbers n with n % p == i.
 Event mix per 50 events: 1 person, 3 auctions, 46 bids, flattened into
 presence-flagged column groups ("person.*", "auction.*", "bid.*" with
 boolean "person"/"auction"/"bid" presence columns).
+
+Its ``"s"`` table holds each subtask's offset in its own event-number
+stream, written at every checkpoint (between batches) and at end of data;
+a restored subtask resumes right after it.
 """
 
 from __future__ import annotations
@@ -20,7 +24,7 @@ import numpy as np
 from ..batch import TIMESTAMP_FIELD, Batch
 from ..config import config
 from ..hashing import splitmix64
-from ..operators.base import SourceOperator
+from ..operators.base import SourceOperator, TableSpec
 from ..types import SourceFinishType
 from . import register_source
 
@@ -67,6 +71,9 @@ class NexmarkSource(SourceOperator):
         # projection pushdown: planner-provided set of columns the query
         # reads (presence flags + timestamp always generated); None = all
         self.columns = set(cfg["columns"]) if cfg.get("columns") else None
+
+    def tables(self):
+        return [TableSpec("s", "global_keyed")]
 
     def _generate(self, numbers: np.ndarray) -> Batch:
         """Vectorized event synthesis for the given absolute event numbers.
@@ -178,7 +185,8 @@ class NexmarkSource(SourceOperator):
         ctx = sctx.ctx
         sub = ctx.task_info.subtask_index
         p = ctx.task_info.parallelism
-        i = 0  # index within this subtask's event-number stream
+        tbl = ctx.table_manager.global_keyed("s")
+        i = tbl.get(sub, 0)  # index within this subtask's event-number stream
         batch_size = config().get("pipeline.source-batch-size")
         per_task_count = None
         if self.event_count is not None:
@@ -186,13 +194,23 @@ class NexmarkSource(SourceOperator):
         rate_per_task = self.event_rate / p if self.event_rate else 0
         started = time.monotonic()
 
-        def stopped() -> bool:
+        def control():
             msg = sctx.poll_control()
-            return msg is not None and msg.kind == "stop"
+            if msg is None:
+                return None
+            if msg.kind == "checkpoint":
+                tbl.insert(sub, i)
+                sctx.start_checkpoint(msg.barrier)
+                if msg.barrier.then_stop:
+                    return SourceFinishType.FINAL
+            elif msg.kind == "stop":
+                return SourceFinishType.IMMEDIATE
+            return None
 
         while per_task_count is None or i < per_task_count:
-            if stopped():
-                return SourceFinishType.IMMEDIATE
+            r = control()
+            if r is not None:
+                return r
             b = batch_size
             if per_task_count is not None:
                 b = min(b, per_task_count - i)
@@ -206,9 +224,12 @@ class NexmarkSource(SourceOperator):
                     delay = target - time.monotonic()
                     if delay <= 0:
                         break
-                    if stopped():
-                        return SourceFinishType.IMMEDIATE
+                    r = control()
+                    if r is not None:
+                        return r
                     time.sleep(min(delay, 0.05))
+        # the offset table stays current for the task's "final" snapshot
+        tbl.insert(sub, i)
         return SourceFinishType.GRACEFUL
 
 

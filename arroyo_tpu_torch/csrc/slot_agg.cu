@@ -95,8 +95,16 @@
 // slots stably with K5 in range mode (csrc/join_probe.cu,
 // arroyo_join_sort_pairs: equal slots keep their row order, and every
 // slot outside [0, cap) sorts last, as cap), and each run of equal slots
-// is then added in row order from state[slot] (__dadd_rn / __fadd_rn, no
-// contraction).
+// is then added in row order from state[slot] (__dadd_rn, and for
+// float32 add.rn.ftz.f32, no contraction).
+//
+// Float32 subnormals: XLA computes float32 with subnormal operands read as
+// zero and subnormal results flushed to zero, keeping the sign (on the CPU
+// and the TPU alike). So a float32 lane's every touched slot does the
+// same: the sums add with add.rn.ftz.f32 (which flushes inputs and
+// result), and min/max compare the flushed value against the flushed
+// state and store the flushed winner, even where the state wins. Float64
+// lanes keep IEEE subnormals (ROADMAP C8).
 //
 // That serial chain per slot is the result, so a hot slot's run costs its
 // length in dependent adds (the chain floor: at the deployment shape the
@@ -167,6 +175,11 @@ struct GatherArgs {
   int dtype[MAX_LANES];
 };
 
+// A float32 subnormal as the zero of its sign (XLA's float32 arithmetic)
+__device__ __forceinline__ unsigned ftz_bits(unsigned u) {
+  return (u & 0x7F800000u) == 0 ? (u & 0x80000000u) : u;
+}
+
 // v replaces old under the NaN-propagating order with -0.0 < +0.0
 template <bool IS_MIN, typename F>
 __device__ __forceinline__ bool replaces(F v, F old) {
@@ -187,12 +200,18 @@ __device__ __forceinline__ void minmax_f64(double* addr, double v) {
   }
 }
 
+// float32: both sides flushed, and the flushed winner stored (a subnormal
+// state that keeps its slot still becomes its zero)
 template <bool IS_MIN>
 __device__ __forceinline__ void minmax_f32(float* addr, float v) {
   unsigned int* a = reinterpret_cast<unsigned int*>(addr);
+  const unsigned fv = ftz_bits(__float_as_uint(v));
   unsigned int old = *a;
-  while (replaces<IS_MIN>(v, __uint_as_float(old))) {
-    unsigned int prev = atomicCAS(a, old, __float_as_uint(v));
+  while (true) {
+    const unsigned fo = ftz_bits(old);
+    const unsigned want = replaces<IS_MIN>(__uint_as_float(fv), __uint_as_float(fo)) ? fv : fo;
+    if (want == old) return;
+    unsigned int prev = atomicCAS(a, old, want);
     if (prev == old) return;
     old = prev;
   }
@@ -264,7 +283,11 @@ __global__ void scatter_combine_kernel(ScatterArgs args, const SlotT* __restrict
 #define MAX_WALKERS 8
 
 __device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
-__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ float add_rn(float a, float b) {
+  float r;  // subnormal inputs and result flushed to the zero of their sign
+  asm("add.rn.ftz.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
 
 // The end of the run of slot s that starts at sorted row i: the first row
 // after it whose slot is above s (galloping, then a binary search).
@@ -461,7 +484,7 @@ __global__ void add_chain_kernel(const double* __restrict__ x, long long n, int 
   if (f32) {
     float acc = (float)x[0];
     const float d = (float)x[1];
-    for (long long i = 0; i < n; ++i) acc = __fadd_rn(acc, d);
+    for (long long i = 0; i < n; ++i) acc = add_rn(acc, d);
     out[0] = acc;
   } else {
     double acc = x[0];

@@ -1,5 +1,5 @@
 """Engine: logical graph -> physical tasks -> running pipeline (the port's
-copy of arroyo_tpu/engine/engine.py, single process, no checkpoints).
+copy of arroyo_tpu/engine/engine.py, single process, single worker).
 
 Each node becomes ``parallelism`` subtasks, each on its own thread. A
 FORWARD edge between equal parallelisms is 1:1; every other edge is a full
@@ -11,8 +11,20 @@ The engine resolves one torch device (device.py) and hands it to every
 operator through its OperatorContext. With ``pipeline.chaining.enabled`` it
 first fuses chainable runs (optimizer.chain_graph), whose marked prefix the
 tasks run as one fused kernel per micro-batch (engine/segment.py).
-Checkpoints and restore are a later slice: asking for them raises
-NotImplementedError.
+
+Checkpoints: ``trigger_checkpoint(epoch)`` sends a barrier into every
+source; each task snapshots its tables at the aligned barrier
+(engine/task.py) and reports its metadata. Once every task has reported the
+epoch or drained cleanly, the engine writes the job marker, whose
+``integrity`` manifest folds every file's envelope (state/integrity.py),
+and delivers the epoch's commit to committing operators.
+``Engine(graph, restore_epoch=e)`` restores every task's tables from epoch
+``e`` before the tasks start; an epoch that holds state for operators this
+graph lacks is refused. The checkpoint layout is the JAX package's
+(state/tables.py). Not ported: the plan fingerprint of
+analysis/plan_diff.py (the marker carries no ``plan_hash``, as the JAX
+engine's does not when it cannot compute one), evolution mappings,
+compaction and the multi-worker coordination of controller/.
 """
 
 from __future__ import annotations
@@ -20,6 +32,7 @@ from __future__ import annotations
 import queue as _queue
 import threading
 import time
+from dataclasses import dataclass
 from typing import Callable, Optional, Union
 
 import torch
@@ -29,11 +42,12 @@ from ..device import resolve_device
 from ..graph import EdgeType, Graph, OpName
 from ..operators.base import OperatorContext
 from ..operators.collector import Collector, OutEdge
-from ..types import ControlMessage, ControlResp, TaskInfo
+from ..state.tables import (TableManager, cleanup_checkpoints, compact_job,
+                            latest_complete_checkpoint, read_job_checkpoint_metadata,
+                            write_job_checkpoint_metadata)
+from ..types import CheckpointBarrier, ControlMessage, ControlResp, TaskInfo
 from .queues import TaskInbox
 from .task import Task
-
-CHECKPOINT_SLICE = "the checkpoint/restore slice of the port (ROADMAP queue A)"
 
 _CONSTRUCTORS: dict[OpName, Callable[[dict], object]] = {}
 
@@ -65,13 +79,31 @@ def construct_operator(op: OpName, cfg: dict):
     return _CONSTRUCTORS[op](cfg)
 
 
+@dataclass(frozen=True)
+class CheckpointWait:
+    """Outcome of Engine.checkpoint_and_wait, truthy only when the epoch
+    completed: "completed", "finished" (the pipeline drained before the
+    barrier) or "timeout" (with the subtasks that never acked)."""
+
+    outcome: str  # "completed" | "finished" | "timeout"
+    missing: tuple = ()  # (node_id, subtask) pairs unacked at timeout
+
+    def __bool__(self) -> bool:
+        return self.outcome == "completed"
+
+    def __repr__(self) -> str:
+        if self.outcome == "timeout" and self.missing:
+            return f"CheckpointWait(timeout, never acked: {list(self.missing)})"
+        return f"CheckpointWait({self.outcome})"
+
+
 class Engine:
     def __init__(self, graph: Graph, job_id: str = "job",
                  device: Optional[Union[str, torch.device]] = None,
+                 storage_url: Optional[str] = None,
                  restore_epoch: Optional[int] = None):
-        if restore_epoch is not None:
-            raise NotImplementedError(
-                f"restore from epoch {restore_epoch}: checkpoints come with {CHECKPOINT_SLICE}")
+        """``storage_url`` None takes ``checkpoint.storage-url``;
+        ``restore_epoch`` restores every task's state from that epoch."""
         if config().get("pipeline.chaining.enabled"):
             from ..optimizer import chain_graph
 
@@ -79,19 +111,55 @@ class Engine:
         self.graph = graph
         self.job_id = job_id
         self.device = resolve_device(device)
+        self.storage_url = storage_url or config().get("checkpoint.storage-url")
+        self.restore_epoch = restore_epoch
+        self.restored_watermark: Optional[int] = None
         self.resp_queue: "_queue.Queue[ControlResp]" = _queue.Queue()
         self.tasks: dict[tuple[str, int], Task] = {}
         self._inboxes: dict[tuple[str, int], TaskInbox] = {}
         self._lock = threading.Lock()
         self._cond = threading.Condition(self._lock)
         self._finished_tasks: set[tuple[str, int]] = set()
+        # the subset that drained cleanly: only their state is final and
+        # may stand in for epoch coverage
+        self._clean_finished: set[tuple[str, int]] = set()
         self._failed: list[ControlResp] = []
+        self._checkpoints: dict[int, dict[tuple[str, int], dict]] = {}
+        self._completed_epochs: set[int] = set()
+        # epoch -> wall micros of its trigger, its marker and each task's
+        # alignment start, snapshot start and ack (checkpoint_timeline)
+        self._epoch_times: dict[int, dict] = {}
         self._resp_thread: Optional[threading.Thread] = None
+        # triggers that arrive before start() are replayed by it, never lost
+        self._running = False
+        self._pending_triggers: list[tuple[int, bool]] = []
 
     # -------------------------------------------------------------- building
 
+    def _check_restore(self) -> None:
+        """Refuse an epoch whose job marker is missing, torn or corrupt (a
+        restore from it would start the job from nothing), and an epoch
+        that holds state for operators this graph lacks (a graph edit, or a
+        chaining change across the restore): their state would be dropped
+        without a word."""
+        meta = read_job_checkpoint_metadata(self.storage_url, self.job_id, self.restore_epoch)
+        if meta is None:
+            raise RuntimeError(
+                f"checkpoint epoch {self.restore_epoch} of job {self.job_id!r} under "
+                f"{self.storage_url} has no complete job marker; pick a restorable epoch "
+                f"with state.integrity.latest_valid_checkpoint")
+        stale = set(meta.get("operators", ())) - set(self.graph.nodes)
+        if stale:
+            raise RuntimeError(
+                f"checkpoint epoch {self.restore_epoch} holds state for operators "
+                f"{sorted(stale)} that do not exist in this graph; restoring across a "
+                f"pipeline.chaining.enabled change (or a graph edit) would silently drop "
+                f"their state")
+
     def build(self) -> None:
         g = self.graph
+        if self.restore_epoch is not None:
+            self._check_restore()
         queue_size = config().get("worker.queue-size")
         for nid, node in g.nodes.items():
             n_inputs = sum(g.nodes[e.src].parallelism for e in g.in_edges(nid))
@@ -130,9 +198,16 @@ class Engine:
                         etype = EdgeType.SHUFFLE
                     out_edges.append(OutEdge(etype, dests, idxs))
                 operator = construct_operator(node.op, node.config)
+                tm = TableManager(ti, self.storage_url)
+                if self.restore_epoch is not None:
+                    wm = tm.restore(self.restore_epoch, operator.tables())
+                    if wm is not None:
+                        self.restored_watermark = (wm if self.restored_watermark is None
+                                                   else min(self.restored_watermark, wm))
                 self.tasks[(nid, s)] = Task(
                     ti, operator, self._inboxes.get((nid, s)), Collector(out_edges, s),
-                    OperatorContext(ti, self.device, edge_of_input), self.resp_queue, n_inputs=n_inputs)
+                    OperatorContext(ti, self.device, edge_of_input, tm), self.resp_queue,
+                    n_inputs=n_inputs)
 
     # -------------------------------------------------------------- running
 
@@ -145,6 +220,11 @@ class Engine:
         for node in reversed(self.graph.topo_order()):
             for s in range(node.parallelism):
                 self.tasks[(node.node_id, s)].start()
+        with self._lock:
+            self._running = True
+            pending, self._pending_triggers = self._pending_triggers, []
+        for epoch, then_stop in pending:
+            self.trigger_checkpoint(epoch, then_stop=then_stop)
 
     def _collect_resps(self) -> None:
         n_tasks = len(self.tasks)
@@ -156,28 +236,130 @@ class Engine:
                     if len(self._finished_tasks) + len(self._failed) >= n_tasks:
                         return
                 continue
+            if resp.kind == "task_started":
+                continue
             with self._lock:
+                key = (resp.node_id, resp.subtask_index)
+                if resp.kind == "checkpoint_event":
+                    ce = resp.checkpoint_event
+                    self._task_times(ce.checkpoint_epoch, key)[ce.event_type] = ce.time_micros
+                    continue
                 if resp.kind == "task_finished":
-                    self._finished_tasks.add((resp.node_id, resp.subtask_index))
+                    self._finished_tasks.add(key)
+                    if resp.clean:
+                        self._clean_finished.add(key)
+                    self._finish_ready_epochs()
                 elif resp.kind == "task_failed":
                     self._failed.append(resp)
                     # unstick every surviving task so producers blocked on a
                     # dead consumer's row budget unwind
                     self._abort()
+                elif resp.kind == "checkpoint_completed":
+                    self._task_times(resp.epoch, key)["acked"] = int(time.time() * 1e6)
+                    self._checkpoints.setdefault(resp.epoch, {})[key] = resp.subtask_metadata
+                    self._finish_ready_epochs()
                 self._cond.notify_all()
 
+    def _finish_ready_epochs(self) -> None:
+        """An epoch is complete once every task has snapshotted it or
+        drained cleanly (a drained source takes part in no barrier: its
+        state is final). Then the job marker goes durable and committing
+        operators get the epoch's commit. Caller holds the lock."""
+        from ..state.integrity import fold_integrity
+
+        for epoch, ep in self._checkpoints.items():
+            if epoch in self._completed_epochs or not ep:
+                continue
+            if len(set(ep) | self._clean_finished) < len(self.tasks):
+                continue
+            extra = {"operators": sorted({k[0] for k in ep})}
+            integ = fold_integrity(m for m in ep.values() if m)
+            if integ:
+                extra["integrity"] = integ
+            write_job_checkpoint_metadata(self.storage_url, self.job_id, epoch, extra)
+            self._epoch_times.setdefault(epoch, {})["durable"] = int(time.time() * 1e6)
+            self._completed_epochs.add(epoch)
+            for key, task in self.tasks.items():
+                if key not in self._finished_tasks and task.operator.is_committing():
+                    task.control_queue.put(ControlMessage(kind="commit", epoch=epoch))
+
+    def _task_times(self, epoch: int, key: tuple[str, int]) -> dict:
+        return self._epoch_times.setdefault(epoch, {}).setdefault("tasks", {}).setdefault(key, {})
+
+    def checkpoint_timeline(self, epoch: int) -> dict:
+        """The epoch's times in ms after its trigger: ``durable_ms`` (the
+        job marker written) and per task ``started_alignment`` (its first
+        input's barrier), ``started_checkpointing`` and ``acked`` (its
+        metadata reached the engine)."""
+        with self._lock:
+            t = self._epoch_times.get(epoch, {})
+            t0 = t.get("trigger")
+            if t0 is None:
+                return {}
+            out = {"durable_ms": (t["durable"] - t0) / 1e3 if "durable" in t else None,
+                   "tasks": {f"{k[0]}/{k[1]}": {e: (us - t0) / 1e3 for e, us in ev.items()}
+                             for k, ev in t.get("tasks", {}).items()}}
+        return out
+
+    # -------------------------------------------------------------- control
+
+    def source_tasks(self) -> list[Task]:
+        return [t for t in self.tasks.values() if t.is_source]
+
     def trigger_checkpoint(self, epoch: int, then_stop: bool = False) -> None:
-        raise NotImplementedError(
-            f"checkpoint epoch {epoch}: checkpoints come with {CHECKPOINT_SLICE}")
+        """A checkpoint starts at the sources; a trigger that arrives before
+        the engine runs is replayed by start()."""
+        with self._lock:
+            if not self._running:
+                self._pending_triggers.append((epoch, then_stop))
+                return
+        barrier = CheckpointBarrier(epoch=epoch, timestamp=int(time.time() * 1e6),
+                                    then_stop=then_stop)
+        with self._lock:
+            self._epoch_times.setdefault(epoch, {})["trigger"] = barrier.timestamp
+        for t in self.source_tasks():
+            t.control_queue.put(ControlMessage(kind="checkpoint", barrier=barrier))
 
     def checkpoint_and_wait(self, epoch: int, timeout: float = 60.0,
-                            then_stop: bool = False):
-        self.trigger_checkpoint(epoch, then_stop)
+                            then_stop: bool = False) -> CheckpointWait:
+        """Trigger ``epoch`` and wait for it: "completed" (truthy), "finished"
+        (the pipeline drained first) or "timeout"."""
+        self.trigger_checkpoint(epoch, then_stop=then_stop)
+        deadline = time.monotonic() + timeout
+        with self._lock:
+            while epoch not in self._completed_epochs:
+                if self._failed:
+                    raise RuntimeError(f"task failed during checkpoint: {self._failed[0].error}")
+                if self.tasks and len(self._finished_tasks) >= len(self.tasks):
+                    return CheckpointWait("finished")
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    acked = set(self._checkpoints.get(epoch, ()))
+                    return CheckpointWait("timeout", tuple(sorted(
+                        set(self.tasks) - acked - self._finished_tasks)))
+                self._cond.wait(timeout=min(remaining, 0.5))
+        return CheckpointWait("completed")
+
+    def compact(self, epoch: int) -> int:
+        """Merge the epoch's per-subtask state files: not ported (raises)."""
+        return compact_job(self.storage_url, self.job_id, epoch)
+
+    def cleanup(self, min_epoch: int) -> int:
+        """Drop the checkpoints below ``min_epoch``; refuses to delete past
+        the newest restorable one."""
+        with self._lock:
+            newest = max(self._completed_epochs, default=None)
+        if newest is None:
+            newest = latest_complete_checkpoint(self.storage_url, self.job_id)
+        if newest is None or min_epoch > newest:
+            raise ValueError(
+                f"cleanup(min_epoch={min_epoch}) would delete every restorable "
+                f"checkpoint (newest complete epoch: {newest})")
+        return cleanup_checkpoints(self.storage_url, self.job_id, min_epoch)
 
     def stop(self) -> None:
-        for t in self.tasks.values():
-            if t.is_source:
-                t.control_queue.put(ControlMessage(kind="stop"))
+        for t in self.source_tasks():
+            t.control_queue.put(ControlMessage(kind="stop"))
 
     def _abort(self) -> None:
         self.stop()
@@ -214,9 +396,10 @@ class Engine:
 
 
 def run_graph(graph: Graph, job_id: str = "job", timeout: float = 120.0,
-              device: Optional[Union[str, torch.device]] = None) -> Engine:
+              device: Optional[Union[str, torch.device]] = None, **kw) -> Engine:
     """Build, run to completion, return the finished engine. ``device``
-    None runs on CUDA (and raises without it); tests pass ``"cpu"``."""
-    eng = Engine(graph, job_id=job_id, device=device)
+    None runs on CUDA (and raises without it); tests pass ``"cpu"``.
+    ``kw`` goes to Engine (``storage_url``, ``restore_epoch``)."""
+    eng = Engine(graph, job_id=job_id, device=device, **kw)
     eng.run_to_completion(timeout)
     return eng

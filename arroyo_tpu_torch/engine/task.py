@@ -1,11 +1,20 @@
-"""Physical subtask run loop (the port's copy of arroyo_tpu/engine/task.py,
-without checkpoints). A chained operator marked compilable runs its batches
-through the compiled-segment runner (engine/segment.py runner_for).
+"""Physical subtask run loop (the port's copy of arroyo_tpu/engine/task.py).
+A chained operator marked compilable runs its batches through the
+compiled-segment runner (engine/segment.py runner_for); signals always take
+the operator's hooks, so a barrier never goes through the segment kernel or
+the fused mesh step, and every micro-batch's step has ended before the
+loop takes the next item.
 
-A loop over the inbox and a tick interval: batches go to the operator,
-watermarks are min-merged over inputs (idle only when every input is idle),
-end-of-data closes the operator once every input has finished, and a stop
-ends the task.
+A loop over control messages, the inbox and a tick interval: batches go to
+the operator, watermarks are min-merged over inputs (idle only when every
+input is idle), end-of-data closes the operator once every input has
+finished, and a stop ends the task. Checkpoint barriers are aligned: an
+input that delivered the current epoch's barrier is held until every live
+input has, then the operator flushes its state into its tables
+(``handle_checkpoint``), the table manager writes them, the barrier goes
+downstream and the task reports the epoch's metadata to the engine. A
+source checkpoints between its batches (``SourceContext.start_checkpoint``).
+With ``then_stop`` nothing after the barrier is processed.
 """
 
 from __future__ import annotations
@@ -14,12 +23,14 @@ import queue as _queue
 import threading
 import time
 import traceback
+from collections import deque
 from typing import Optional, Union
 
 from ..batch import Batch
 from ..operators.base import Operator, OperatorContext, SourceOperator
 from ..operators.collector import Collector
-from ..types import ControlMessage, ControlResp, Signal, SignalKind, SourceFinishType, TaskInfo, Watermark
+from ..types import (CheckpointBarrier, CheckpointEvent, ControlMessage, ControlResp, Signal,
+                     SignalKind, SourceFinishType, TaskInfo, Watermark)
 from .queues import TaskInbox
 
 
@@ -50,7 +61,8 @@ class WatermarkHolder:
 
 
 class SourceContext:
-    """What a SourceOperator.run sees: control polling between batches."""
+    """What a SourceOperator.run sees: control polling between batches and
+    the checkpoint helper."""
 
     def __init__(self, task: "Task"):
         self._task = task
@@ -62,6 +74,9 @@ class SourceContext:
             return self._task.control_queue.get_nowait()
         except _queue.Empty:
             return None
+
+    def start_checkpoint(self, barrier: CheckpointBarrier) -> None:
+        self._task.run_source_checkpoint(barrier)
 
 
 class Task:
@@ -84,6 +99,9 @@ class Task:
         self.n_inputs = n_inputs
         self.control_queue: "_queue.Queue[ControlMessage]" = _queue.Queue()
         self.thread: Optional[threading.Thread] = None
+        # True when the loop drained cleanly (end of data, or checkpoint-
+        # then-stop): only such a finish may stand in for epoch coverage
+        self.finished_clean = True
         from ..metrics import registry
 
         self.metrics = registry.task(task_info.job_id, task_info.node_id,
@@ -112,7 +130,7 @@ class Task:
                 self._run_source()
             else:
                 self._run_operator()
-            self._resp("task_finished")
+            self._resp("task_finished", clean=self.finished_clean)
         except Exception:  # noqa: BLE001 - reported to the engine, which aborts the job
             self._resp("task_failed", error=traceback.format_exc())
 
@@ -122,9 +140,35 @@ class Task:
         finish = op.run(SourceContext(self), self.collector)
         op.on_close(self.ctx, self.collector)
         if finish == SourceFinishType.GRACEFUL:
+            # the drained offset, so that a restore from any later epoch does
+            # not replay this source (its state is constant after end of
+            # data, and everything it emitted precedes downstream barriers)
+            self.ctx.table_manager.checkpoint("final", self.ctx.watermark())
+            self.collector.broadcast(Signal.end_of_data())
+        elif finish == SourceFinishType.FINAL:
+            # checkpoint-then-stop: the barrier went out; end the data
             self.collector.broadcast(Signal.end_of_data())
         else:
+            # stopped: no final snapshot, so this exit is no epoch coverage
+            self.finished_clean = False
             self.collector.broadcast(Signal.stop())
+
+    def _checkpoint_event(self, epoch: int, event_type: str) -> None:
+        self._resp("checkpoint_event", checkpoint_event=CheckpointEvent(
+            epoch, self.task_info.node_id, self.task_info.subtask_index,
+            int(time.time() * 1e6), event_type))
+
+    def _snapshot(self, barrier: CheckpointBarrier) -> None:
+        """Write the tables, send the barrier on, report the epoch."""
+        meta = self.ctx.table_manager.checkpoint(barrier.epoch, self.ctx.watermark())
+        self.collector.broadcast(Signal.barrier_of(barrier))
+        self._resp("checkpoint_completed", epoch=barrier.epoch, subtask_metadata=meta)
+
+    def run_source_checkpoint(self, barrier: CheckpointBarrier) -> None:
+        """A source's checkpoint: its tables (the caller stored its offset
+        first), then the barrier downstream."""
+        self._checkpoint_event(barrier.epoch, "started_checkpointing")
+        self._snapshot(barrier)
 
     def _run_operator(self) -> None:
         op: Operator = self.operator  # type: ignore[assignment]
@@ -149,7 +193,14 @@ class Task:
 
         holder = WatermarkHolder(self.n_inputs)
         finished: set[int] = set()
+        blocked: set[int] = set()  # inputs that delivered the current barrier
+        held: dict[int, deque] = {}  # their items since, in order
+        barrier_inputs: set[int] = set()
+        current_barrier: Optional[CheckpointBarrier] = None
+        pending: deque[tuple[int, Union[Batch, Signal]]] = deque()  # released held items
         last_merged: Optional[Watermark] = None
+        stopping = False
+        stop_epoch: Optional[int] = None
         tick_us = op.tick_interval_micros()
         tick_s = tick_us / 1e6 if tick_us else None
         last_tick = time.monotonic()
@@ -164,25 +215,68 @@ class Task:
                 if out is not None:
                     self.collector.broadcast(Signal.watermark_of(out))
 
+        def run_checkpoint(b: CheckpointBarrier):
+            self._checkpoint_event(b.epoch, "started_checkpointing")
+            op.handle_checkpoint(b, self.ctx, self.collector)
+            refresh_mesh()
+            self._snapshot(b)
+
+        def try_complete_alignment():
+            """Once every live input delivered the barrier: checkpoint, then
+            release the held inputs in order (honoring checkpoint-then-stop)."""
+            nonlocal current_barrier, stopping, stop_epoch
+            if current_barrier is None:
+                return
+            live = set(range(self.n_inputs)) - finished
+            if live <= barrier_inputs:
+                run_checkpoint(current_barrier)
+                if current_barrier.then_stop:
+                    stopping = True
+                    stop_epoch = current_barrier.epoch
+                current_barrier = None
+                barrier_inputs.clear()
+                blocked.clear()
+                for i in sorted(held):
+                    pending.extend(held[i])
+                held.clear()
+
+        def drain_control():
+            """Commits arrive here once the epoch's job metadata is durable."""
+            while True:
+                try:
+                    msg = self.control_queue.get_nowait()
+                except _queue.Empty:
+                    return
+                if msg.kind == "commit" and msg.epoch is not None:
+                    op.handle_commit(msg.epoch, self.ctx)
+
         while True:
+            drain_control()
             self.collector.flush_expired(time.monotonic())
-            timeout = 0.5
-            if tick_s is not None:
-                timeout = min(timeout, max(tick_s - (time.monotonic() - last_tick), 0.0))
-            deadline_f = self.collector.flush_deadline()
-            if deadline_f is not None:
-                timeout = min(timeout, max(deadline_f - time.monotonic(), 0.0))
-            got = self.inbox.get(timeout=timeout) if self.inbox else None
-            if got is None:
-                if self.inbox is not None and self.inbox.closed:
-                    return  # engine aborted the pipeline
-                if tick_s is not None and time.monotonic() - last_tick >= tick_s:
-                    op.handle_tick(self.ctx, self.collector)
-                    last_tick = time.monotonic()
-                if self.n_inputs == 0 or len(finished) == self.n_inputs:
-                    break
+            if pending:
+                idx, item = pending.popleft()
+            else:
+                timeout = 0.5
+                if tick_s is not None:
+                    timeout = min(timeout, max(tick_s - (time.monotonic() - last_tick), 0.0))
+                deadline_f = self.collector.flush_deadline()
+                if deadline_f is not None:
+                    timeout = min(timeout, max(deadline_f - time.monotonic(), 0.0))
+                got = self.inbox.get(timeout=timeout) if self.inbox else None
+                if got is None:
+                    if self.inbox is not None and self.inbox.closed:
+                        self.finished_clean = False
+                        return  # engine aborted the pipeline
+                    if tick_s is not None and time.monotonic() - last_tick >= tick_s:
+                        op.handle_tick(self.ctx, self.collector)
+                        last_tick = time.monotonic()
+                    if self.n_inputs == 0 or len(finished) == self.n_inputs:
+                        break
+                    continue
+                idx, item = got
+            if idx in blocked:
+                held.setdefault(idx, deque()).append((idx, item))
                 continue
-            idx, item = got
             if isinstance(item, Batch):
                 process(item, self.ctx, self.collector, input_index=idx)
                 self.inbox.release(idx, item)
@@ -192,6 +286,26 @@ class Task:
             if sig.kind == SignalKind.WATERMARK:
                 holder.set(idx, sig.watermark)
                 merged_watermark_changed()
+            elif sig.kind == SignalKind.BARRIER:
+                b = sig.barrier
+                if current_barrier is not None and b.epoch < current_barrier.epoch:
+                    continue  # a straggler of an abandoned epoch
+                if current_barrier is not None and b.epoch > current_barrier.epoch:
+                    # a newer epoch overtook an alignment that never
+                    # finished: abandon it and replay the held items (the
+                    # blocked inputs' newer barriers are among them)
+                    current_barrier = None
+                    barrier_inputs.clear()
+                    blocked.clear()
+                    for i in sorted(held):
+                        pending.extend(held[i])
+                    held.clear()
+                if current_barrier is None:
+                    current_barrier = b
+                    self._checkpoint_event(b.epoch, "started_alignment")
+                barrier_inputs.add(idx)
+                blocked.add(idx)
+                try_complete_alignment()
             elif sig.kind == SignalKind.END_OF_DATA:
                 finished.add(idx)
                 holder.remove(idx)
@@ -201,6 +315,25 @@ class Task:
                     refresh_mesh()
                     self.collector.broadcast(Signal.end_of_data())
                     break
+                try_complete_alignment()  # a pending alignment may be complete now
             elif sig.kind == SignalKind.STOP:
+                # hard stop: state since the last barrier is not persisted
+                self.finished_clean = False
                 self.collector.broadcast(Signal.stop())
+                break
+            if stopping:
+                # checkpoint-then-stop: what follows the stopping barrier is
+                # past the snapshot and is not processed. A committing
+                # operator first waits for the stopping epoch's commit.
+                if op.is_committing() and stop_epoch is not None:
+                    deadline = time.monotonic() + 30
+                    committed = False
+                    while time.monotonic() < deadline and not committed:
+                        try:
+                            msg = self.control_queue.get(timeout=0.1)
+                        except _queue.Empty:
+                            continue
+                        if msg.kind == "commit" and msg.epoch is not None:
+                            op.handle_commit(msg.epoch, self.ctx)
+                            committed = msg.epoch == stop_epoch
                 break

@@ -3,7 +3,8 @@ arroyo_tpu/operators/builtin.py):
 
 - ValueOperator: projection + filter;
 - KeyOperator: key columns + the uint64 routing hash ``_key``;
-- WatermarkGenerator: expression watermark with idle detection.
+- WatermarkGenerator: expression watermark with idle detection; its
+  ``"s"`` table keeps the watermark it reached and last emitted.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ from ..expr import Expr, eval_expr
 from ..graph import OpName
 from ..hashing import hash_columns
 from ..types import Signal, Watermark
-from .base import Operator
+from .base import Operator, TableSpec
 
 
 class ValueOperator(Operator):
@@ -99,6 +100,20 @@ class WatermarkGenerator(Operator):
         self.last_emitted: Optional[int] = None
         self.last_event_wall: float = time.monotonic()
         self.idle_sent = False
+
+    def tables(self):
+        return [TableSpec("s", "global_keyed")]
+
+    def on_start(self, ctx):
+        st = ctx.table_manager.global_keyed("s").get(ctx.task_info.subtask_index)
+        if st is not None:
+            self.max_watermark = st.get("max_watermark")
+            self.last_emitted = st.get("last_emitted")
+
+    def handle_checkpoint(self, barrier, ctx, collector):
+        ctx.table_manager.global_keyed("s").insert(
+            ctx.task_info.subtask_index,
+            {"max_watermark": self.max_watermark, "last_emitted": self.last_emitted})
 
     def tick_interval_micros(self):
         return self.idle_time_micros

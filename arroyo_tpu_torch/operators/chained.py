@@ -10,18 +10,38 @@ ground truth the compiled path verifies against and falls back to.
 There is no coalescing buffer between chain members: only the chain's
 terminal collector (the task's real Collector) coalesces, and a watermark
 threaded through ChainCollector.broadcast ends at Collector.broadcast, which
-flushes pending rows ahead of the signal. State tables (the JAX package's
-PrefixedTables) come with the checkpoint slice of the port.
+flushes pending rows ahead of the signal. The chain's state tables are its
+members', each under a ``c{i}.`` prefix (PrefixedTables), the JAX package's
+names, so a chained checkpoint restores in either package.
 """
 
 from __future__ import annotations
 
+from dataclasses import replace
 from typing import Optional
 
 from ..engine.engine import construct_operator, register_operator
 from ..graph import OpName
 from ..operators.base import Operator, OperatorContext
 from ..types import Signal, SignalKind, Watermark
+
+
+class PrefixedTables:
+    """Namespaces one chain member's state tables inside the shared
+    TableManager, so two members' tables of one name cannot collide."""
+
+    def __init__(self, inner, prefix: str):
+        self._inner = inner
+        self._prefix = prefix
+
+    def global_keyed(self, name: str):
+        return self._inner.global_keyed(self._prefix + name)
+
+    def expiring_time_key(self, name: str, retention_micros: int = 0):
+        return self._inner.expiring_time_key(self._prefix + name, retention_micros)
+
+    def __getattr__(self, item):
+        return getattr(self._inner, item)
 
 
 class ChainCollector:
@@ -78,9 +98,16 @@ class ChainedOperator(Operator):
         """Chain-wide late-row drops: the members' sum."""
         return sum(int(getattr(m, "late_rows", 0) or 0) for m in self.members)
 
+    def tables(self):
+        return [replace(t, name=f"c{i}.{t.name}")
+                for i, m in enumerate(self.members) for t in m.tables()]
+
     def on_start(self, ctx: OperatorContext) -> None:
-        self._ctxs = [OperatorContext(ctx.task_info, ctx.device)
-                      for _ in range(len(self.members))]
+        tm = ctx.table_manager
+        self._ctxs = [
+            OperatorContext(ctx.task_info, ctx.device, ctx._in_edge_of_input,
+                            None if tm is None else PrefixedTables(tm, f"c{i}."))
+            for i in range(len(self.members))]
         for i, m in enumerate(self.members):
             m.on_start(self._ctxs[i])
 
@@ -114,6 +141,13 @@ class ChainedOperator(Operator):
         cols = self._chain_cols(collector)
         for i, m in enumerate(self.members):
             m.handle_checkpoint(barrier, self._ctxs[i], cols[i])
+
+    def handle_commit(self, epoch: int, ctx) -> None:
+        for i, m in enumerate(self.members):
+            m.handle_commit(epoch, self._ctxs[i])
+
+    def is_committing(self) -> bool:
+        return any(m.is_committing() for m in self.members)
 
     def tick_interval_micros(self) -> Optional[int]:
         ticks = [t for m in self.members if (t := m.tick_interval_micros()) is not None]

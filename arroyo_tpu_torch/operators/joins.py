@@ -7,6 +7,11 @@ for bucket t executes when the merged watermark passes t. Vectorized hash
 join on the routing-key column (both sides are keyed on the equi-join
 columns, so equal keys share a hash).
 
+Checkpoints (the JAX package's tables): at a barrier the in-flight closes
+drain, then each side's buffered rows, in window order, become the
+``"left"`` / ``"right"`` tables and the late-data boundary the ``"e"`` mark;
+a restore buffers the rows again.
+
 The updating join (JoinWithExpiration) and the lookup join have no device
 kernel and are not ported yet (ROADMAP queue A).
 """
@@ -24,7 +29,7 @@ from ..engine.engine import register_operator
 from ..graph import OpName
 from ..ops.join_probe import device_join_start, fused_join_indices, host_join_indices
 from ..types import Signal
-from .base import Operator
+from .base import Operator, TableSpec, persist_mark, restore_marks
 
 _null_cache = np.empty(0, dtype=object)
 
@@ -80,6 +85,34 @@ class InstantJoin(Operator):
         self.emitted_before: Optional[int] = None
         # in-flight closes: (JoinHandle|None, t, lb, rb, Watermark|None)
         self._pending: deque = deque()
+
+    def tables(self):
+        return [TableSpec("left", "expiring_time_key"),
+                TableSpec("right", "expiring_time_key"),
+                TableSpec("e", "global_keyed")]  # the late-data boundary
+
+    def on_start(self, ctx):
+        if ctx.table_manager is None:
+            return
+        for side, name in ((0, "left"), (1, "right")):
+            tbl = ctx.table_manager.expiring_time_key(name)
+            for b in tbl.all_batches():
+                self._buffer(b, side)
+            tbl.replace_all([])
+        barriers = restore_marks(ctx, "e")
+        if barriers:
+            self.emitted_before = max(barriers)
+
+    def handle_checkpoint(self, barrier, ctx, collector):
+        # in-flight closes left self.buf: their rows go out before the
+        # barrier rather than missing from the snapshot
+        self._drain_pending(collector, force=True)
+        for side, name in ((0, "left"), (1, "right")):
+            # in window order, so that a restore's per-window lists (and so
+            # the emission order) do not depend on buf's insertion history
+            ctx.table_manager.expiring_time_key(name).replace_all(
+                [b for t in sorted(self.buf) for b in self.buf[t][side]])
+        persist_mark(ctx, "e", self.emitted_before)
 
     def _buffer(self, batch: Batch, side: int) -> None:
         """One split per incoming batch: the per-unique-timestamp

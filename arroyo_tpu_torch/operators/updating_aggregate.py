@@ -24,11 +24,15 @@ device, "numpy" = the host; the default follows ``device.enabled``):
       K1 scatter, and once a quarter of the table has died the store is
       rebuilt from its live snapshot (K2 reads, then K1 in merge mode).
 
-Not ported: the tiered spill annex (``state.spill.enabled`` raises) and
-checkpoints (``handle_checkpoint`` raises, as every operator of the port
-does). The state layout is ported: ``state_batch`` gives the JAX package's
-``"s"`` checkpoint table as one Batch and ``load_state_batch`` loads such a
-Batch, in either mode, from either package.
+Checkpoints (the JAX package's tables): at a barrier the operator flushes
+(so that ``emitted`` mirrors what downstream has seen), then ``state_batch``
+becomes the ``"s"`` table and the event-time high-water mark the ``"m"``
+mark; in device mode the snapshot is a K2 read of the store's regions. A
+restore loads them with ``load_state_batch`` (in device mode K1 in merge
+mode), from either mode and either package.
+
+Not ported: the tiered spill annex. ``state.spill.enabled`` raises, and so
+does a restore whose ``"s__spill"`` manifest references spilled runs.
 """
 
 from __future__ import annotations
@@ -48,7 +52,7 @@ from ..graph import OpName
 from ..ops.aggregate import _identity, finalize_aggs
 from ..ops.slot_agg import SlotAggregator
 from ..windows.tumbling import acc_plan, dtype_of_from_config
-from .base import Operator
+from .base import Operator, TableSpec, persist_mark, restore_marks
 
 IS_RETRACT_FIELD = "_is_retract"
 
@@ -109,10 +113,48 @@ class UpdatingAggregate(Operator):
     def tick_interval_micros(self):
         return self.flush_interval
 
+    def tables(self):
+        # "m" holds the event-time high-water mark (global: it survives an
+        # empty key snapshot); "s__spill" the JAX package's spill manifest
+        return [TableSpec("s", "expiring_time_key", retention_micros=self.ttl),
+                TableSpec("m", "global_keyed"),
+                TableSpec("s__spill", "global_keyed")]
+
     def on_start(self, ctx):
-        # nothing to restore until the checkpoint slice (load_state_batch
-        # takes the "s" table's rows)
         self.device = ctx.device
+        tm = ctx.table_manager
+        if tm is None:
+            return
+        for name, tbl in tm.globals.items():
+            # a chain member's tables restore under a "c{i}." prefix
+            if name.endswith("s__spill") and _spilled_runs(tbl.data):
+                raise RuntimeError(
+                    f"checkpoint manifest {name!r} references spilled run files, but the "
+                    f"port has no spill annex: restoring the hot rows alone would drop the "
+                    f"spilled keys (the annex is not ported, ROADMAP A.5)")
+        # the high-water mark is data-derived, so per subtask: our own
+        # entry, else (a restore at another parallelism) the max
+        own = tm.global_keyed("m").get(ctx.task_info.subtask_index)
+        if own is not None:
+            self.max_event_time = max(self.max_event_time, own)
+        else:
+            marks = restore_marks(ctx, "m")
+            if marks:
+                self.max_event_time = max(self.max_event_time, max(marks))
+        tbl = tm.expiring_time_key("s", self.ttl)
+        batches = tbl.all_batches()
+        if batches:
+            self.load_state_batch(Batch.concat(batches))
+            tbl.replace_all([])
+
+    def handle_checkpoint(self, barrier, ctx, collector):
+        # flush first, so that `emitted` mirrors what downstream has seen
+        # before the barrier (the set of updated keys is not persisted)
+        self._flush(collector)
+        # the raw mark, 0 included, at every barrier
+        persist_mark(ctx, "m", self.max_event_time)
+        b = self.state_batch()
+        ctx.table_manager.expiring_time_key("s", self.ttl).replace_all([] if b is None else [b])
 
     def process_batch(self, batch, ctx, collector, input_index=0):
         if self.device is None:
@@ -580,6 +622,16 @@ class UpdatingAggregate(Operator):
                 self._emitted[h] = tuple(b[f"__emitted_{i}"][j] for i in range(n_agg))
             if self.key_fields:
                 self.key_values[h] = tuple(c[j] for c in key_cols)
+
+
+def _spilled_runs(manifest: dict) -> list:
+    """The run files a JAX package spill manifest (its ``"s__spill"`` table:
+    ``{subtask: {"runs": [{"file": ...}, ...], ...}}``) references."""
+    out = []
+    for entry in manifest.values():
+        if isinstance(entry, dict):
+            out.extend(r.get("file") for r in entry.get("runs", ()) if isinstance(r, dict))
+    return out
 
 
 def merge_updating_rows(rows: list[dict]) -> list[dict]:

@@ -21,8 +21,10 @@ the kernel does not take. On a CUDA tensor it launches the kernel (building
 the library with nvcc at first use) or raises; it takes the plain PyTorch
 version (``*_plain``, beside it) only for tensors on the CPU. Each wrapper
 counts its launches in ``<wrapper>.launches`` (K2's read-and-clear
-launches apart, in ``slot_region_read_pack.clear_launches``); K7's library
-counts its kernels (``gather_kernel_launches``).
+launches apart, in ``slot_region_read_pack.clear_launches``; K1's launches
+in merge mode, where a count lane adds given counts, also in
+``slot_scatter_combine.merge_launches``); K7's library counts its kernels
+(``gather_kernel_launches``).
 
 Every ``csrc/<name>.cu`` builds the same way (``build_source``): for sm_90a
 into ``arroyo_tpu_torch/build/``, named by a digest of the source, the
@@ -190,13 +192,15 @@ def _counted(wrapper, attr: str = "launches") -> None:
 
 def launch_counts() -> dict[str, int]:
     return {**{f.__name__: f.launches for f in WRAPPERS},
-            "slot_region_read_pack_clear": slot_region_read_pack.clear_launches}
+            "slot_region_read_pack_clear": slot_region_read_pack.clear_launches,
+            "slot_scatter_combine_merge": slot_scatter_combine.merge_launches}
 
 
 def reset_launch_counts() -> None:
     for f in WRAPPERS:
         f.launches = 0
     slot_region_read_pack.clear_launches = 0
+    slot_scatter_combine.merge_launches = 0
 
 
 # ------------------------------------------------------------- checks
@@ -270,6 +274,34 @@ def widen(t: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
     return t.to(dt)
 
 
+def ftz32(t: torch.Tensor) -> torch.Tensor:
+    """A float32 tensor with each subnormal replaced by the zero of its sign:
+    XLA's float32 arithmetic reads subnormal operands and writes subnormal
+    results so, on the CPU and the TPU. Other dtypes pass through."""
+    if t.dtype != torch.float32:
+        return t
+    return torch.where((t.view(torch.int32) & 0x7F800000) == 0, t * 0, t)
+
+
+def _ordered_add_f32_plain(a: torch.Tensor, s: torch.Tensor, v: torch.Tensor) -> None:
+    """Add float32 rows into ``a`` one after another in row order, each add
+    flushing subnormal operands and result (K1's add.rn.ftz.f32): the rows
+    grouped by slot in row order, then one vectorized add per rank within a
+    slot's run, so the loop runs as long as the longest run."""
+    if len(s) == 0:
+        return
+    host_s, host_v = s.cpu(), ftz32(v.cpu())
+    order = torch.sort(host_s, stable=True).indices
+    ss, vv = host_s[order], host_v[order]
+    u, counts = torch.unique_consecutive(ss, return_counts=True)
+    starts = torch.cumsum(counts, 0) - counts
+    acc = ftz32(a[u.to(a.device)].cpu())
+    for r in range(int(counts.max())):
+        live = counts > r
+        acc[live] = ftz32(acc[live] + vv[starts[live] + r])
+    a[u.to(a.device)] = acc.to(a.device)
+
+
 def ordered_add(kind: str, dtype: torch.dtype) -> bool:
     """A float sum lane: K1 adds its rows in row order, not by atomics."""
     return kind in ("sum", "count") and dtype.is_floating_point
@@ -329,6 +361,8 @@ def slot_scatter_combine(state: Sequence[torch.Tensor], kinds: Sequence[str],
         None if runs is None else runs.data_ptr(), n // LONG_RUN + 1, LONG_RUN, _stream(dev))
     _raise_on(err, "slot_scatter_combine")
     _counted(slot_scatter_combine)
+    if any(k == "count" and v is not None for k, v in zip(kinds, vals)):
+        _counted(slot_scatter_combine, "merge_launches")  # a restore's merge mode
 
 
 def _ordered(bits: torch.Tensor) -> torch.Tensor:
@@ -338,17 +372,22 @@ def _ordered(bits: torch.Tensor) -> torch.Tensor:
 
 
 def slot_scatter_combine_plain(state, kinds, slots, vals) -> None:
-    """Plain PyTorch version of K1 (same semantics, any device). Float sums
-    go through the CPU's ``index_add_``, which adds row after row in order
-    (on the card the plain version copies such a lane to the host and
-    back: a CUDA ``index_add_`` adds with atomics in no fixed order)."""
+    """Plain PyTorch version of K1 (same semantics, any device). Float64
+    sums go through the CPU's ``index_add_``, which adds row after row in
+    order (on the card the plain version copies such a lane to the host and
+    back: a CUDA ``index_add_`` adds with atomics in no fixed order);
+    float32 sums add rank by rank, flushing subnormals at every add, and
+    float32 min/max flush the rows and the touched slots' state, as XLA
+    and K1 do."""
     cap = state[0].shape[0]
     keep = (slots >= 0) & (slots < cap)
     s = slots[keep].long()
     for a, kind, v in zip(state, kinds, vals):
         # uint64 values as their int64 bits: torch indexes no uint64 on the card
         v = torch.ones(len(s), dtype=bits(a).dtype, device=a.device) if v is None else bits(v)[keep]
-        if ordered_add(kind, a.dtype):
+        if ordered_add(kind, a.dtype) and a.dtype == torch.float32:
+            _ordered_add_f32_plain(a, s, v)
+        elif ordered_add(kind, a.dtype):
             host = a.cpu()
             host.index_add_(0, s.cpu(), v.cpu())
             a.copy_(host)
@@ -367,7 +406,8 @@ def slot_scatter_combine_plain(state, kinds, slots, vals) -> None:
             # order of the rows (XLA's scatter-min/max semantics)
             ity = torch.int64 if a.dtype == torch.float64 else torch.int32
             u, inv = torch.unique(s, return_inverse=True)
-            cur = a[u]
+            cur = ftz32(a[u])
+            v = ftz32(v)
             nan_v = torch.isnan(v)
             key = _ordered(cur.view(ity))
             key.scatter_reduce_(0, inv[~nan_v], _ordered(v[~nan_v].view(ity)),

@@ -10,9 +10,10 @@ sessions live in parallel numpy columns (key, min_ts, max_ts, acc...) and
 gap-merging is one lexsort + segmented running-max scan per batch. It is
 host numpy in both packages: no device kernel.
 
-Checkpoints are a later slice of the port (``handle_checkpoint`` raises);
-the state layout is ported: ``state_batch`` gives the JAX package's ``"s"``
-table as one Batch and ``load_state_batch`` loads one.
+Checkpoints (the JAX package's tables): at a barrier ``state_batch`` becomes
+the ``"s"`` table (row timestamp = the session's last event, so retention
+``gap`` filters a restore) and the last watermark handled the ``"e"`` mark;
+a restore loads them with ``load_state_batch``.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ from ..batch import KEY_FIELD, TIMESTAMP_FIELD, Batch, object_column
 from ..engine.engine import register_operator
 from ..expr import eval_expr
 from ..graph import OpName
-from ..operators.base import Operator
+from ..operators.base import Operator, TableSpec, persist_mark, restore_marks
 from ..ops.aggregate import finalize_aggs
 from ..types import Watermark
 from .tumbling import WINDOW_END, WINDOW_START, acc_plan, dtype_of_from_config
@@ -79,6 +80,29 @@ class SessionAggregate(Operator):
         self.late_rows = 0  # observability counter; never read into emitted data
 
     # ------------------------------------------------------------------
+
+    def tables(self):
+        return [TableSpec("s", "expiring_time_key", retention_micros=self.gap),
+                TableSpec("e", "global_keyed")]
+
+    def on_start(self, ctx):
+        if ctx.table_manager is None:
+            return
+        tbl = ctx.table_manager.expiring_time_key("s", self.gap)
+        batches = tbl.all_batches()
+        if batches:
+            self.load_state_batch(Batch.concat(batches))
+            tbl.replace_all([])
+        wms = [v["emitted_watermark"] for v in restore_marks(ctx, "e")
+               if v.get("emitted_watermark") is not None]
+        if wms:
+            # aligned barriers: every prior subtask saw the same watermark
+            self.emitted_watermark = max(wms)
+
+    def handle_checkpoint(self, barrier, ctx, collector):
+        persist_mark(ctx, "e", {"emitted_watermark": self.emitted_watermark})
+        b = self.state_batch()
+        ctx.table_manager.expiring_time_key("s", self.gap).replace_all([] if b is None else [b])
 
     def load_state_batch(self, b: Batch) -> None:
         """Load open sessions from the rows of a ``"s"`` table

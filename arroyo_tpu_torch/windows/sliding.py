@@ -18,9 +18,15 @@ it picks (the config's ``backend``, else "jax" when ``device.enabled``):
   one ``scan_range`` of its bins, combined by key, and the bins behind the
   next window are freed.
 
-The output timestamp is the window start. Not in this slice: checkpoints
-(the base class's ``handle_checkpoint`` raises). Collected aggregates are
+The output timestamp is the window start. Collected aggregates are
 refused, as the JAX package's planner refuses them for hop windows.
+
+Checkpoints (the JAX package's tables): at a barrier every emittable window
+is emitted and the bins already read off the device are resolved; the
+store's snapshot (on the device a K2 read of every live region) plus those
+host-cached bins become the ``"t"`` table, one row per (slide bin, key),
+with the next window to emit (``__next_window``), and the late-drop
+boundary the ``"e"`` mark. A restore merges the rows back into the store.
 """
 
 from __future__ import annotations
@@ -34,12 +40,12 @@ from ..config import config
 from ..engine.engine import register_operator
 from ..expr import Col, eval_expr
 from ..graph import OpName
-from ..operators.base import Operator
+from ..operators.base import Operator, TableSpec, persist_mark, restore_marks
 from ..ops.aggregate import combine_by_key, finalize_aggs
 from ..ops.prefetch import shared_prefetcher
 from ..types import Signal, Watermark
 from .tumbling import (WINDOW_END, WINDOW_START, KeyDictionary, acc_plan,
-                       dtype_of_from_config, make_window_aggregator)
+                       dtype_of_from_config, make_window_aggregator, record_mesh_overflow)
 
 
 class SlidingAggregate(Operator):
@@ -90,8 +96,94 @@ class SlidingAggregate(Operator):
 
     # ------------------------------------------------------------------
 
+    def tables(self):
+        # a bin's partials live until the last window holding it closes;
+        # "e" holds the late-drop boundary (global: it survives an empty
+        # snapshot)
+        return [TableSpec("t", "expiring_time_key", retention_micros=self.width),
+                TableSpec("e", "global_keyed")]
+
     def on_start(self, ctx):
         self.device = ctx.device
+        if ctx.table_manager is None:
+            return
+        tbl = ctx.table_manager.expiring_time_key("t", self.width)
+        batches = tbl.all_batches()
+        if batches:
+            self._restore_from_batch(Batch.concat(batches))
+            tbl.replace_all([])
+        # the late-drop boundary (an absolute slide bin): a replay drops
+        # exactly the rows the original run dropped; max merges subtasks
+        barriers = restore_marks(ctx, "e")
+        if barriers:
+            lb_abs = max(barriers)
+            if self.base_bin is None:
+                self.base_bin = lb_abs  # empty snapshot: anchor the bins there
+            self._late_before = lb_abs - self.base_bin
+
+    def _restore_from_batch(self, b: Batch) -> None:
+        if self.lane_key_fields is None:
+            self._setup_key_transport(b)
+        hashes = b.keys.astype(np.uint64)
+        bins_abs = b.timestamps // self.slide
+        self.base_bin = int(bins_abs.min())
+        rel = (bins_abs - self.base_bin).astype(np.int32)
+        accs = [b[f"__acc_{i}"].astype(d)
+                for i, d in enumerate(self.acc_dtypes[: self.n_user_accs])]
+        accs += [np.asarray(b[f]).astype(d)
+                 for f, d in zip(self.lane_key_fields, self.acc_dtypes[self.n_user_accs:])]
+        self._aggregator().restore(hashes, rel, accs)
+        self.open_bins = set(np.unique(rel).tolist())
+        self.min_bin = int(rel.min())
+        self.max_bin = int(rel.max())
+        if "__next_window" in b:
+            # stored absolute; aligned barriers: max is a safe merge
+            self.next_window = int(b["__next_window"].max()) - self.base_bin
+        else:
+            self.next_window = self.min_bin - self.nb + 1
+        if self.key_fields:
+            self.key_dict.observe(hashes, rel, b)
+
+    def handle_checkpoint(self, barrier, ctx, collector):
+        # every emittable window first (its rows precede the barrier), then
+        # the bins already read off the device, which still feed later
+        # windows, into the snapshot
+        self._drain(collector, force=True)
+        self._resolve_bins(sorted(self._bin_pending), force=True)
+        # the late-drop boundary persists at every barrier; on the numpy
+        # backend the live late filter is next_window itself
+        rel_marks = [m for m in (self._late_before, self.next_window) if m is not None]
+        persist_mark(ctx, "e", None if not rel_marks else max(rel_marks) + (self.base_bin or 0))
+        tbl = ctx.table_manager.expiring_time_key("t", self.width)
+        if self._agg is None:
+            tbl.replace_all([])  # no data yet (see TumblingAggregate)
+            return
+        keys, bins, accs = self._aggregator().snapshot()
+        record_mesh_overflow(self, ctx)
+        cached = sorted(self._bin_cache)
+        if cached:
+            keys = np.concatenate([keys] + [self._bin_cache[b][0] for b in cached])
+            bins = np.concatenate([bins] + [np.full(len(self._bin_cache[b][0]), b, dtype=np.int32)
+                                            for b in cached])
+            accs = [np.concatenate([a] + [self._bin_cache[b][1][i] for b in cached])
+                    for i, a in enumerate(accs)]
+        if len(keys) == 0:
+            tbl.replace_all([])
+            return
+        starts = (bins.astype(np.int64) + (self.base_bin or 0)) * self.slide
+        cols: dict[str, np.ndarray] = {
+            TIMESTAMP_FIELD: starts,
+            KEY_FIELD: keys,
+            "__next_window": np.full(len(keys), (self.next_window or 0) + (self.base_bin or 0),
+                                     dtype=np.int64),
+        }
+        if self.dict_key_fields:
+            cols.update(self.key_dict.lookup_columns(keys))
+        for f, lane in zip(self.lane_key_fields or [], accs[self.n_user_accs:]):
+            cols[f] = lane
+        for i, a in enumerate(accs[: self.n_user_accs]):
+            cols[f"__acc_{i}"] = a
+        tbl.replace_all([Batch(cols)])
 
     def _aggregator(self):
         if self._agg is None:

@@ -22,7 +22,16 @@ Numeric group-by key VALUES ride along as extra max-lanes of the store
 (all rows of a key agree, so max is the identity); string keys go through
 a host KeyDictionary. The compiled segment feeds the operator through
 ``insert_arrays``, the twin of ``process_batch`` over arrays the segment
-computed. Not in this slice: UDAFs and checkpoints.
+computed.
+
+Checkpoints (the JAX package's tables): at a barrier the in-flight closes
+drain first (their rows and watermarks precede the barrier), then the
+store's snapshot (on the device a K2 read of every live region, stream-
+ordered after every K1 of earlier batches; on the mesh a host copy of the
+sharded state) becomes the ``"t"`` table, one row per (window, key) with
+the partial accumulators ``__acc_i``, and the late-data boundary the
+``"e"`` mark. A restore merges the rows back (K1's merge mode). Not in this
+slice: UDAFs.
 """
 
 from __future__ import annotations
@@ -37,7 +46,7 @@ from ..config import config
 from ..engine.engine import register_operator
 from ..expr import Col, Expr, eval_expr
 from ..graph import OpName
-from ..operators.base import Operator
+from ..operators.base import Operator, TableSpec, persist_mark, restore_marks
 from ..ops.aggregate import finalize_aggs
 from ..ops.prefetch import shared_prefetcher
 from ..ops.slot_agg import SlotAggregator
@@ -157,9 +166,8 @@ def record_mesh_overflow(op, ctx) -> int:
     skew past a fixed-capacity exchange lane parks rows in the per-shard
     spill buffer: correct but slower, and the operator should hear about it
     before the buffer fills (which IS an error). The doubling high-water
-    mark keeps a steadily skewed job from flooding the feed. The JAX
-    package calls it from the windows' checkpoint barrier; the port has no
-    checkpoint barrier yet, so no run of the port emits the event today."""
+    mark keeps a steadily skewed job from flooding the feed. The window
+    operators call it from their checkpoint barrier."""
     stats_fn = getattr(op._agg, "mesh_stats", None)
     if stats_fn is None:
         return 0
@@ -342,8 +350,77 @@ class TumblingAggregate(Operator):
         self._batch_seq = 0
         self._mesh_oflow_hwm = 0  # MESH_OVERFLOW event throttle high-water mark
 
+    def tables(self):
+        # retention = width: a bin's partials live until its window closes;
+        # "e" holds the late-data boundary, global so that it survives an
+        # empty snapshot
+        return [TableSpec("t", "expiring_time_key", retention_micros=self.width),
+                TableSpec("e", "global_keyed")]
+
     def on_start(self, ctx):
         self.device = ctx.device
+        if ctx.table_manager is None:
+            return
+        tbl = ctx.table_manager.expiring_time_key("t", self.width)
+        batches = tbl.all_batches()
+        if batches:
+            self._restore_from_batch(Batch.concat(batches))
+            tbl.replace_all([])
+        # the late-data boundary (an absolute bin): a replay drops exactly
+        # the rows the original run dropped; watermark-aligned, so max
+        # merges subtasks and rescales
+        barriers = restore_marks(ctx, "e")
+        if barriers:
+            eb_abs = max(barriers)
+            if self.base_bin is None:
+                # empty snapshot: anchor the bin space at the boundary
+                self.base_bin = eb_abs
+            self.emitted_before_rel = eb_abs - self.base_bin
+
+    def _restore_from_batch(self, b: Batch) -> None:
+        # the checkpoint carries every key field as a column, so the key
+        # transport split is re-derived from it
+        if self.lane_key_fields is None:
+            self._setup_key_transport(b)
+        hashes = b.keys.astype(np.uint64)
+        bins_abs = b.timestamps // self.width
+        self.base_bin = int(bins_abs.min())
+        rel = (bins_abs - self.base_bin).astype(np.int32)
+        accs = [b[f"__acc_{i}"].astype(d)
+                for i, d in enumerate(self.acc_dtypes[: self.n_user_accs])]
+        accs += [np.asarray(b[f]).astype(d)
+                 for f, d in zip(self.lane_key_fields, self.acc_dtypes[self.n_user_accs:])]
+        self._aggregator().restore(hashes, rel, accs)
+        self.open_bins = set(np.unique(rel).tolist())
+        if self.dict_key_fields:
+            self.key_dict.observe(hashes, rel, b)
+
+    def handle_checkpoint(self, barrier, ctx, collector):
+        # in-flight closes first: their rows and watermarks precede the
+        # barrier, and the snapshot must not race them
+        self._drain_pending(collector, force=True)
+        persist_mark(ctx, "e", None if self.emitted_before_rel is None
+                     else self.emitted_before_rel + (self.base_bin or 0))
+        tbl = ctx.table_manager.expiring_time_key("t", self.width)
+        if self._agg is None:
+            # no data yet: building the store now would fix acc_kinds before
+            # the key transport appends the numeric key lanes
+            tbl.replace_all([])
+            return
+        keys, bins, accs = self._agg.snapshot()
+        record_mesh_overflow(self, ctx)
+        if len(keys) == 0:
+            tbl.replace_all([])
+            return
+        starts = (bins.astype(np.int64) + (self.base_bin or 0)) * self.width
+        cols: dict[str, np.ndarray] = {TIMESTAMP_FIELD: starts, KEY_FIELD: keys}
+        if self.dict_key_fields:
+            cols.update(self.key_dict.lookup_columns(keys))
+        for f, lane in zip(self.lane_key_fields or [], accs[self.n_user_accs:]):
+            cols[f] = lane
+        for i, a in enumerate(accs[: self.n_user_accs]):
+            cols[f"__acc_{i}"] = a
+        tbl.replace_all([Batch(cols)])
 
     def _setup_key_transport(self, batch: Batch) -> None:
         """Numeric group-by values ride the device as extra max-lanes; the

@@ -39,7 +39,9 @@ non-zero, printing no result):
               K1's edge cases (one slot taking every row, runs at the
               block walk's threshold and either side of it, padding slots
               inside a long run, -0.0, NaN and infinities in values and
-              state, int32 and int64 slots), at q7's shape, at qu's (its
+              state, float32 subnormals in values and state, which K1 reads
+              and writes as the zero of their sign as XLA does, int32 and
+              int64 slots), at q7's shape, at qu's (its
               lanes, 262,144 slots) and at a deployment-size state
               (4,194,304 slots, float32 and float64 sums, a uint64 lane),
               hot and merge mode, k in {1, 2, 4, 8, 16} duplicated bases with
@@ -199,7 +201,32 @@ non-zero, printing no result):
               int32 limits), then timed at q7's table and the hop drive's
               size;
 21. q7_host -- q7c with the window on the host store ("backend":
-              "numpy"): exact parity, K4 on the card, no K1-K3.
+              "numpy"): exact parity, K4 on the card, no K1-K3;
+22. checkpoint -- checkpoint and restore through the port's entry points
+              (Engine.checkpoint_and_wait(1, then_stop=True), stop(), then
+              Engine(restore_epoch=1).run_to_completion()), storage in a
+              temporary directory the phase removes. Restore parity at
+              bench.py's sizes for q7c, q5, q8c, qu, qs and q7m (fused and
+              host): epoch 1 lands after half the source's batches (the
+              source held at that poll by BarrierGate, then the trigger),
+              its tables hold open state, the restored source starts at its
+              offset, and the first run's rows and the restored run's
+              together equal the oracle exactly. Then q7m checkpointed at 4
+              shards and restored at 8; q7c with epochs 1 and 2, epoch 2's
+              marker removed (latest_complete_checkpoint gives 1) or a table
+              file of it cut in half (the fallback ladder quarantines 2 and
+              gives 1), each restore from 1 equal to the oracle; and the
+              deployment-size round trips (snapshot -> TableManager.checkpoint
+              -> restore -> snapshot, equal per key) of the slot store
+              (1,048,576 groups in 16,777,216 slots x 4 int64 lanes) and of
+              the sharded phase's 440 MB mesh store half full (4,194,304
+              groups, keys over the whole uint64 range as the key hashes
+              are), each step timed, neither store losing a group. K2's
+              read-alone mode must launch at each barrier once per 16 device
+              regions the slot store holds there (q7c and qu: at least once;
+              q5's open bin is spilled to the host store at bench.py's
+              sizes), K1's merge mode at the restores of q7c and q5, by the
+              kernels module's counters; K8-K10 at the mesh restores.
 
 ``--only a,b`` runs those phases alone after probe and build (a short
 check) and prints no result line. ``--only segment_sweep`` (in no default
@@ -231,9 +258,13 @@ import contextlib
 import faulthandler
 import json
 import os
+import queue
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 
 import numpy as np
@@ -242,7 +273,7 @@ import torch
 import arroyo_tpu_torch.config as tcfg
 from arroyo_tpu_torch.batch import TIMESTAMP_FIELD, Batch, Schema
 from arroyo_tpu_torch.connectors.nexmark import NexmarkSource
-from arroyo_tpu_torch.engine import construct_operator, run_graph
+from arroyo_tpu_torch.engine import Engine, construct_operator, run_graph
 from arroyo_tpu_torch.engine import segment as seg
 from arroyo_tpu_torch.expr import BinOp, Col, Lit
 from arroyo_tpu_torch.graph import EdgeType, Graph, Node, OpName
@@ -252,7 +283,13 @@ from arroyo_tpu_torch.metrics import registry
 from arroyo_tpu_torch.ops import (hash_kernels, join_kernels, join_probe, kernels,
                                   segment_kernel, sharded_kernels)
 from arroyo_tpu_torch.ops.aggregate import DeviceHashAggregator, _identity, combine_by_key_bin
-from arroyo_tpu_torch.parallel import all_to_all, sharded_agg
+from arroyo_tpu_torch.operators.base import TableSpec
+from arroyo_tpu_torch.ops.slot_agg import SlotAggregator
+from arroyo_tpu_torch.parallel import ShardedAggregator, all_to_all, make_mesh, sharded_agg
+from arroyo_tpu_torch.state.integrity import pick_restore_epoch
+from arroyo_tpu_torch.state.tables import (TableManager, checkpoint_dir, is_quarantined,
+                                           latest_complete_checkpoint)
+from arroyo_tpu_torch.types import TaskInfo
 
 WIDTH = 10_000_000
 SLIDE = 2_000_000
@@ -293,6 +330,9 @@ AGG_PATH_KERNELS = ("slot_scatter_combine", "slot_region_read_pack_clear", "segm
 WINDOW_KERNELS = ("slot_scatter_combine", "slot_region_read_pack", "slot_region_read_pack_clear",
                   "slot_region_clear")
 WATCHDOG_S = 1100  # dump every thread's stack and exit before the 1200 s limit
+# every run's checkpoint storage (a drained source writes its "final"
+# snapshot): a temporary directory main() makes and removes
+STORAGE_ROOT = None
 _T0 = time.perf_counter()
 
 
@@ -399,6 +439,8 @@ def bench_config(chaining: bool, queue_mult: int = 2, table_capacity: int = 6553
     slots (qu: 262144), region 2048; chaining as given (bench.py runs with it
     on); then ``extra`` (the mesh phases' keys)."""
     tcfg.reset()
+    if STORAGE_ROOT is not None:
+        tcfg.update({"checkpoint.storage-url": STORAGE_ROOT})
     tcfg.update({
         "pipeline.source-batch-size": BENCH_BATCH,
         "device.batch-capacity": BENCH_BATCH,
@@ -424,6 +466,37 @@ def drive(build, events: int, job_id: str, chaining: bool, queue_mult: int = 2,
     if eng.device.type != "cuda":
         raise RuntimeError(f"{job_id} ran on {eng.device}, not on the GPU")
     return rows, wall, eng
+
+
+class BarrierGate(queue.Queue):
+    """A source task's control queue that holds the source at its
+    ``polls``-th poll (the nexmark source polls once before each batch) until
+    a control message arrives: a checkpoint triggered once ``reached`` is set
+    lands after exactly ``polls - 1`` batches, whatever the machine's speed.
+    Both packages' sources poll through ``get_nowait``."""
+
+    def __init__(self, polls: int, timeout_s: float = 600.0):
+        super().__init__()
+        self.polls = polls
+        self.timeout_s = timeout_s
+        self.n = 0
+        self.reached = threading.Event()
+
+    def get_nowait(self):
+        self.n += 1
+        if self.n == self.polls:
+            self.reached.set()
+            return self.get(timeout=self.timeout_s)
+        return super().get_nowait()
+
+
+def gate_source(eng, polls: int) -> BarrierGate:
+    """Build ``eng`` (either package's Engine) and gate its source task."""
+    if not eng.tasks:
+        eng.build()
+    gate = BarrierGate(polls)
+    eng.tasks[("src", 0)].control_queue = gate
+    return gate
 
 
 def drive_q7() -> tuple[list, float, object]:
@@ -2282,6 +2355,19 @@ def scatter_edge_cases(rng, long_run: int = 128) -> list:
     add("one row past a sort tile", rng.integers(0, 64, 4097))
     z = (rng.zipf(1.2, 65536) - 1) % (cap + 16)  # slots past cap: padding
     add("Zipf(1.2) over the state", z, specials=False)
+    # float32 subnormals (XLA reads and writes them as the zero of their
+    # sign): in state and values, +-0.0 beside them, and normal values whose
+    # running sum cancels into the subnormal range; short runs and a long one
+    add("float32 subnormals and -0.0", rng.permutation(np.concatenate(
+        [np.repeat(np.arange(8), 3), np.full(L + 5, 8), np.full(4, 9)])), specials=False)
+    pool = np.array([1e-40, -1e-40, 3e-39, -3e-39, -0.0, 0.0, 1.5e-38, -1.4e-38, 1.0],
+                    dtype=np.float32)
+    for (_k, dt), a, v in zip(lanes, cases[-1]["state"], cases[-1]["vals"]):
+        if dt == np.float32:
+            a[:4] = np.array([1e-40, -1e-40, 1.2e-38, -0.0], dtype=np.float32)
+            a[9] = np.float32(-2e-40)  # slot 9 adds +-0.0 alone below
+            v[:] = pool[rng.integers(0, len(pool), len(v))]
+            v[cases[-1]["slots"] == 9] = rng.choice(np.array([-0.0, 0.0], np.float32), 4)
     return cases
 
 
@@ -5071,6 +5157,396 @@ def run_q7_host() -> dict:
     return info
 
 
+# ---------------------------------------------------------------- checkpoint
+
+
+CKPT_LANES = [("sum", np.int64), ("count", np.int64), ("min", np.int64), ("max", np.int64)]
+
+
+def epoch_bytes(url: str, job: str, epoch: int) -> dict:
+    """Files and bytes of one epoch's directory."""
+    d = checkpoint_dir(url, job, epoch)
+    sizes = [os.path.getsize(os.path.join(r, f)) for r, _d, fs in os.walk(d) for f in fs]
+    return {"files": len(sizes), "bytes": int(sum(sizes))}
+
+
+def restored_state(eng) -> tuple[dict, int]:
+    """After build(): the source's restored offsets and the rows of open
+    state the restore loaded into the operators' tables."""
+    src = eng.tasks[("src", 0)].ctx.table_manager.global_keyed("s").data
+    rows = sum(t.total_rows() for task in eng.tasks.values()
+               for t in task.ctx.table_manager.expiring.values())
+    return dict(src), rows
+
+
+@contextlib.contextmanager
+def slot_snapshots_recorded():
+    """While open, every SlotAggregator.snapshot (a barrier's read of the
+    slot store) appends what it read to the list it yields: its live bins,
+    device regions and host-spilled groups."""
+    log_: list = []
+    wrapped = SlotAggregator.snapshot
+
+    def snapshot(agg):
+        d = agg.directory
+        log_.append({"live_bins": len(d.live_bins()),
+                     "regions": sum(len(r) for r in d.bin_regions.values()),
+                     "spilled_groups": len(agg.spill)})
+        return wrapped(agg)
+
+    SlotAggregator.snapshot = snapshot
+    try:
+        yield log_
+    finally:
+        SlotAggregator.snapshot = wrapped
+
+
+def checkpoint_first_run(build, events: int, job: str, url: str, polls: int,
+                         epochs=(1,)) -> tuple[list, dict]:
+    """The stream up to a barrier at the source's gated poll (after
+    polls - 1 batches): checkpoint_and_wait of each epoch, the last with
+    then_stop, then stop(). The launch counts are zeroed just before and
+    read just after."""
+    rows: list = []
+    reset_all_launch_counts()
+    eng = Engine(build(rows, events), job_id=job, storage_url=url)
+    gate = gate_source(eng, polls)
+    with slot_snapshots_recorded() as snaps:
+        eng.start()
+        if not gate.reached.wait(600):
+            raise AssertionError(f"{job}: the source never reached poll {polls}")
+        acks = {}
+        for e in epochs:
+            t0 = time.perf_counter()
+            res = eng.checkpoint_and_wait(e, timeout=600, then_stop=e == epochs[-1])
+            acks[e] = (time.perf_counter() - t0) * 1e3
+            if not res:
+                raise AssertionError(f"{job}: epoch {e} did not complete: {res!r}")
+        eng.stop()
+        eng.join(timeout=900)
+    torch.cuda.synchronize()
+    return rows, {"launches": all_launch_counts(), "snapshots": snaps, "barrier_to_ack_ms": acks,
+                  "timeline": {e: eng.checkpoint_timeline(e) for e in epochs},
+                  "written": {e: epoch_bytes(url, job, e) for e in epochs}}
+
+
+def checkpoint_restore_run(build, events: int, job: str, url: str, epoch: int) -> tuple:
+    """A fresh engine restored from ``epoch``, run to the end of the
+    stream; counts zeroed just before and read just after."""
+    rows: list = []
+    reset_all_launch_counts()
+    eng = Engine(build(rows, events), job_id=job, storage_url=url, restore_epoch=epoch)
+    t0 = time.perf_counter()
+    eng.build()
+    build_ms = (time.perf_counter() - t0) * 1e3
+    offsets, open_rows = restored_state(eng)
+    t0 = time.perf_counter()
+    eng.run_to_completion(timeout=900)
+    torch.cuda.synchronize()
+    return rows, {"launches": all_launch_counts(), "build_ms": build_ms,
+                  "run_s": time.perf_counter() - t0, "offsets": offsets, "open_rows": open_rows}
+
+
+def checkpoint_parity(name: str, build, events: int, oracle, check, table_capacity: int = 65536,
+                      queue_mult: int = 2, extra: dict = None, first_extra: dict = None,
+                      url_root: str = None) -> dict:
+    """Restore parity at bench.py's sizes: epoch 1 mid-stream (after half
+    the source's batches), then stop; a fresh engine restores it; the first
+    run's rows and the restored run's together must equal the oracle
+    exactly (nothing lost, nothing emitted twice). Epoch 1 must hold open
+    state and the restored source start at its offset. ``first_extra``
+    configures the first run alone (the resize: 4 shards, then 8)."""
+    want = oracle(events)
+    job, url = f"chip-smoke-ckpt-{name}", os.path.join(url_root, name)
+    bench_config(True, queue_mult, table_capacity, {**(extra or {}), **(first_extra or {})})
+    batch = int(tcfg.config().get("pipeline.source-batch-size"))
+    polls = -(-events // batch) // 2 + 1
+    rows1, first = checkpoint_first_run(build, events, job, url, polls)
+    bench_config(True, queue_mult, table_capacity, extra)
+    rows2, rest = checkpoint_restore_run(build, events, job, url, 1)
+    check(rows1 + rows2, want)
+    n1 = sum(b.num_rows for b in rows1)
+    n2 = sum(b.num_rows for b in rows2)
+    if not n2:
+        raise AssertionError(f"{name}: the restored run emitted nothing after {n1} rows: "
+                             f"the barrier did not land mid-stream")
+    if rest["offsets"].get(0) != (polls - 1) * batch:
+        raise AssertionError(f"{name}: the restored source starts at {rest['offsets']}, "
+                             f"not at {(polls - 1) * batch}")
+    if not rest["open_rows"]:
+        raise AssertionError(f"{name}: epoch 1 held no open state")
+    info = {"events": events, "barrier_after_rows": (polls - 1) * batch,
+            "first_run_rows": n1, "restored_run_rows": n2,
+            "barrier_to_ack_ms": first["barrier_to_ack_ms"][1],
+            "timeline": first["timeline"][1], "written": first["written"][1],
+            "restore_build_ms": rest["build_ms"], "restored_run_s": rest["run_s"],
+            "open_rows": rest["open_rows"], "slot_snapshots": first["snapshots"],
+            "first_launches": {k: v for k, v in first["launches"].items() if v},
+            "restore_launches": {k: v for k, v in rest["launches"].items() if v}}
+    log(f"checkpoint {name}: ack {info['barrier_to_ack_ms']:.1f} ms, "
+        f"{info['written']['bytes']} B, {n1} + {n2} rows")
+    return info
+
+
+def merged_q7(runs: list) -> dict:
+    """q7's windows of several runs, a later run's rows winning (a restore
+    from an earlier epoch emits again what followed it)."""
+    got: dict = {}
+    for rows in runs:
+        for b in rows:
+            for ws, a, m, c in zip(b["window_start"].tolist(), b["auction"].tolist(),
+                                   b["max_price"].tolist(), b["bids"].tolist()):
+                got[(ws, a)] = (m, c)
+    return got
+
+
+def torn_and_corrupt(url_root: str) -> dict:
+    """q7c with epochs 1 and 2, then: epoch 2's marker removed (torn:
+    latest_complete_checkpoint gives 1), or one of its table files cut in
+    half (corrupt: the fallback ladder quarantines 2 and gives 1). Either
+    way the restore from 1 merged with the first run equals the oracle."""
+    want = oracle_q7(Q7_EVENTS)
+    job, url = "chip-smoke-ckpt-torn", os.path.join(url_root, "torn")
+    bench_config(True)
+    polls = -(-Q7_EVENTS // BENCH_BATCH) // 3 + 1
+    rows1, first = checkpoint_first_run(build_q7, Q7_EVENTS, job, url, polls, epochs=(1, 2))
+    out = {"barrier_to_ack_ms": first["barrier_to_ack_ms"], "written": first["written"]}
+    for case in ("torn", "corrupt"):
+        u = os.path.join(url_root, case + "-copy")
+        shutil.copytree(url, u)
+        d2 = checkpoint_dir(u, job, 2)
+        if case == "torn":
+            os.remove(os.path.join(d2, "metadata.json"))
+            epoch = latest_complete_checkpoint(u, job)
+        else:
+            table = next(os.path.join(r, f) for r, _d, fs in os.walk(d2) for f in sorted(fs)
+                         if f.startswith("table-") and f.endswith(".npz"))
+            with open(table, "rb") as f:
+                data = f.read()
+            with open(table, "wb") as f:
+                f.write(data[: len(data) // 2])
+            recorder.clear_job(job)
+            epoch = pick_restore_epoch(u, job)
+            if not is_quarantined(u, job, 2):
+                raise AssertionError("the corrupt epoch 2 was not quarantined")
+            out["events"] = [e["code"] for e in recorder.events(job)]
+        if epoch != 1:
+            raise AssertionError(f"{case}: the restore picked epoch {epoch}, not 1")
+        rows2, rest = checkpoint_restore_run(build_q7, Q7_EVENTS, job, u, epoch)
+        got = merged_q7([rows1, rows2])
+        if got != want:
+            diff = next(iter(set(got.items()) ^ set(want.items())), None)
+            raise AssertionError(f"{case}: restored q7 differs from the oracle: first diff {diff}")
+        out[case] = {"epoch": epoch, "restored_run_s": rest["run_s"],
+                     "offsets": rest["offsets"], "windows": len(got)}
+    return out
+
+
+def sorted_state(keys, bins, accs) -> tuple:
+    order = np.lexsort((keys.view(np.int64), bins))
+    return keys[order], bins[order], [a[order] for a in accs]
+
+
+def store_overflow(store) -> dict:
+    """A sharded store's lost entries and spill residency (empty for the
+    slot store, which spills to the host without loss)."""
+    if not isinstance(store, ShardedAggregator):
+        return {}
+    return {"lost": int(store.state[4].sum()), "spilled": int(store.state[7].sum())}
+
+
+def round_trip(label: str, store, make_store, kinds, url_root: str) -> dict:
+    """A deployment-size store: snapshot -> the "t" table ->
+    TableManager.checkpoint -> TableManager.restore -> a fresh store's
+    restore -> snapshot, equal per (key, bin) to the first, each step timed."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    keys, bins, accs = store.snapshot()
+    torch.cuda.synchronize()
+    snap_ms = (time.perf_counter() - t0) * 1e3
+    cols = {TIMESTAMP_FIELD: bins.astype(np.int64) * WIDTH, "_key": keys}
+    cols.update({f"__acc_{i}": a for i, a in enumerate(accs)})
+    ti = TaskInfo(f"chip-smoke-deploy-{label}", "agg", "tumbling_aggregate", 0, 1)
+    tm = TableManager(ti, os.path.join(url_root, "deploy-" + label))
+    tm.expiring_time_key("t").replace_all([Batch(cols)])
+    t0 = time.perf_counter()
+    meta = tm.checkpoint(1, None)
+    write_ms = (time.perf_counter() - t0) * 1e3
+    written = sum(fm["len"] for fm in meta["files"]) + meta["sidecar"]["len"]
+    tm2 = TableManager(ti, tm.storage_url)
+    t0 = time.perf_counter()
+    tm2.restore(1, [TableSpec("t", "expiring_time_key")])
+    b = Batch.concat(tm2.expiring_time_key("t").all_batches())
+    read_ms = (time.perf_counter() - t0) * 1e3
+    fresh = make_store()
+    reset_all_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fresh.restore(b.keys, (b.timestamps // WIDTH).astype(np.int32),
+                  [b[f"__acc_{i}"] for i in range(len(kinds))])
+    torch.cuda.synchronize()
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    launches = {k: v for k, v in all_launch_counts().items() if v}
+    want = sorted_state(keys, bins, accs)
+    got = sorted_state(*fresh.snapshot())
+    if not (np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
+            and all(np.array_equal(x.view(np.int64), y.view(np.int64))
+                    for x, y in zip(got[2], want[2]))):
+        gk = {(int(b), int(k)) for k, b in zip(got[0].view(np.int64), got[1])}
+        wk = {(int(b), int(k)) for k, b in zip(want[0].view(np.int64), want[1])}
+        lanes = ([int((x.view(np.int64) != y.view(np.int64)).sum()) for x, y in zip(got[2], want[2])]
+                 if len(got[0]) == len(want[0]) else None)
+        raise AssertionError(
+            f"{label}: the restored store's snapshot differs from the first: {len(got[0])} "
+            f"groups against {len(want[0])}, {len(wk - gk)} missing, {len(gk - wk)} extra, "
+            f"lanes differing {lanes}, overflow {store_overflow(store)} / "
+            f"{store_overflow(fresh)}")
+    info = {"groups": len(keys), "snapshot_ms": snap_ms, "mb_written": written / 1e6,
+            "write_ms": write_ms, "read_ms": read_ms, "restore_ms": restore_ms,
+            "restore_launches": launches}
+    log(f"checkpoint {label}: {info}")
+    return info
+
+
+def deployment_round_trips(dev, url_root: str, slot_cap: int = 1 << 24, n: int = 1 << 20,
+                           mesh_cap: int = 1 << 20) -> dict:
+    """The slot store at the gather phase's deployment state (n = 1,048,576
+    groups in 16,777,216 slots x 4 int64 lanes) and the mesh store at the
+    sharded phase's (8 shards x 1,048,576 entries, 4 int64 lanes and a
+    float64 sum, 440 MB) half full, each round-tripped. The mesh store's
+    keys span the whole uint64 range, as the key hashes do: the owner of a
+    key is its range of that space, so keys below 2^63 alone would fill
+    four of the eight shards to the brim."""
+    rng = np.random.default_rng(20261017)
+    kinds = tuple(k for k, _d in CKPT_LANES)
+    dtypes = tuple(d for _k, d in CKPT_LANES)
+
+    def slot_store():
+        return SlotAggregator(kinds, dtypes, cap=slot_cap, batch_cap=BENCH_BATCH, region_size=2048,
+                              device=dev)
+
+    store = slot_store()
+    keys = np.unique(rng.integers(0, 2**63, n + n // 8, dtype=np.int64))[:n].astype(np.uint64)
+    bins = rng.integers(0, 4, n).astype(np.int32)
+    store.update(keys, bins, [rng.integers(-10**9, 10**9, n).astype(np.int64) for _ in kinds])
+    reset_all_launch_counts()
+    slot = round_trip("slot", store, slot_store, kinds, url_root)
+    k2_read = kernels.launch_counts()  # the snapshots of round_trip: K2 read-alone
+    slot["k1_merge_launches"] = slot["restore_launches"].get("slot_scatter_combine_merge", 0)
+    slot["k2_read_launches"] = k2_read["slot_region_read_pack"]
+    del store
+    mkinds = tuple(k for k, _d in DEPLOY_LANES)
+    mdtypes = tuple(NP_DT[d] for _k, d in DEPLOY_LANES)
+
+    def mesh_store():
+        return ShardedAggregator(make_mesh(MESH_N, dev), mkinds, mdtypes, cap=mesh_cap,
+                                 batch_cap=BENCH_BATCH, max_probes=64, emit_cap=8192,
+                                 spill_cap=16384)
+
+    mstore = mesh_store()
+    m = MESH_N * mesh_cap // 2  # 4,194,304 groups: the table half full
+    mkeys = rng.permutation(np.unique(rng.integers(0, 2**64 - 1, m + m // 8, dtype=np.uint64,
+                                                   endpoint=True)))[:m]
+    mbins = rng.integers(0, 4, m).astype(np.int32)
+    mvals = [rng.integers(-10**9, 10**9, m).astype(d) if d != np.float64
+             else rng.normal(0, 1e6, m) for d in mdtypes]
+    mstore.update(mkeys, mbins, mvals)
+    filled = store_overflow(mstore)
+    if filled["lost"]:
+        raise AssertionError(f"the mesh store lost entries while it was filled: {filled}")
+    mesh = round_trip("mesh", mstore, mesh_store, mkinds, url_root)
+    mesh["fill"] = filled
+    state_bytes = sum(t.numel() * t.element_size() for t in
+                      [*mstore.state[:3], *mstore.state[3]])
+    mesh["state_mb"] = state_bytes / 1e6
+    return {"slot": slot, "mesh": mesh}
+
+
+CKPT_RUNS = {
+    "q7c": lambda root: checkpoint_parity("q7c", build_q7, Q7_EVENTS, oracle_q7, check_q7,
+                                          url_root=root),
+    "q5": lambda root: checkpoint_parity("q5", build_q5, Q5_EVENTS, oracle_q5, check_q5,
+                                         url_root=root),
+    "q8c": lambda root: checkpoint_parity("q8c", build_q8, Q8_EVENTS, oracle_q8, check_q8,
+                                          queue_mult=1, url_root=root),
+    "qu": lambda root: checkpoint_parity("qu", build_qu, QU_EVENTS, oracle_qu, check_qu,
+                                         table_capacity=QU_CAP, url_root=root),
+    "qs": lambda root: checkpoint_parity("qs", build_qs, QS_EVENTS, oracle_qs, check_qs,
+                                         url_root=root),
+    "q7m fused": lambda root: checkpoint_parity(
+        "q7m-fused", build_q7, Q7_EVENTS, oracle_q7, check_q7, url_root=root,
+        extra={"device.mesh-devices": MESH_N, "segment.compile.mesh-fuse": True}),
+    "q7m host": lambda root: checkpoint_parity(
+        "q7m-host", build_q7, Q7_EVENTS, oracle_q7, check_q7, url_root=root,
+        extra={"device.mesh-devices": MESH_N, "segment.compile.mesh-fuse": False}),
+    "q7m resize 4 -> 8": lambda root: checkpoint_parity(
+        "q7m-resize", build_q7, Q7_EVENTS, oracle_q7, check_q7, url_root=root,
+        extra={"device.mesh-devices": MESH_N, "segment.compile.mesh-fuse": True},
+        first_extra={"device.mesh-devices": 4}),
+}
+
+
+def checkpoint_phase(dev) -> dict:
+    """Checkpoint and restore on the card (see the module docstring). K2's
+    read-alone mode must launch at every barrier whose slot store holds
+    device regions (q7c and qu among them), K1's merge mode at the
+    restores of q7c and q5, and K8-K10 at the mesh restores, each by the
+    kernels' counters."""
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        runs = {}
+        for name, fn in CKPT_RUNS.items():
+            log(f"checkpoint: {name}")
+            runs[name] = fn(root)
+        emit({"phase": "checkpoint runs", "runs": runs})
+        # a barrier's snapshot reads the slot store's device regions with
+        # K2's read-alone mode, at most 16 a launch; groups the store spilled
+        # to the host (q5: a 65536-row batch spans 33 two-second bins, the
+        # 65536-slot table 32 regions) come from the host, without a launch
+        for name, r in runs.items():
+            want_k2 = sum(-(-snap["regions"] // kernels.MAX_BASES) for snap in r["slot_snapshots"])
+            got_k2 = r["first_launches"].get("slot_region_read_pack", 0)
+            if got_k2 != want_k2:
+                raise AssertionError(f"{name}: {got_k2} K2 read launches at the barrier for "
+                                     f"the snapshots {r['slot_snapshots']}")
+        for name in ("q7c", "qu"):
+            if not runs[name]["first_launches"].get("slot_region_read_pack"):
+                raise AssertionError(f"{name}: the barrier's snapshot launched no K2 read: "
+                                     f"{runs[name]['first_launches']}")
+        for name in ("q7c", "q5"):
+            if not runs[name]["restore_launches"].get("slot_scatter_combine_merge"):
+                raise AssertionError(f"{name}: the restore launched no K1 merge: "
+                                     f"{runs[name]['restore_launches']}")
+        for name in ("q7m fused", "q7m host", "q7m resize 4 -> 8"):
+            missing = [k for k in ("agg_sort_reduce", "agg_probe_merge", "shard_exchange")
+                       if not runs[name]["restore_launches"].get(k)]
+            if missing:
+                raise AssertionError(f"{name}: the restore did not launch {missing}")
+        log("checkpoint: torn and corrupt epochs")
+        torn = torn_and_corrupt(root)
+        log("checkpoint: deployment-size round trips")
+        deploy = deployment_round_trips(dev, root)
+        if not (deploy["slot"]["k1_merge_launches"] and deploy["slot"]["k2_read_launches"]):
+            raise AssertionError(f"the slot store's round trip launched no K1 merge or K2 "
+                                 f"read: {deploy['slot']}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    info = {"phase": "checkpoint", "runs": runs, "torn_and_corrupt": torn, "deployment": deploy,
+            "k2_read_launches": {n: runs[n]["first_launches"].get("slot_region_read_pack", 0)
+                                 for n in ("q7c", "q5", "qu")},
+            "q5_spilled_groups_at_barrier": runs["q5"]["slot_snapshots"][0]["spilled_groups"],
+            "k1_merge_launches": {n: runs[n]["restore_launches"].get("slot_scatter_combine_merge", 0)
+                                  for n in ("q7c", "q5", "qu")}}
+    emit({"phase": "checkpoint",
+          "runs": {n: {k: r[k] for k in ("barrier_to_ack_ms", "written", "restore_build_ms",
+                                         "restored_run_s", "first_run_rows", "restored_run_rows")}
+                   for n, r in runs.items()},
+          "torn_and_corrupt": torn, "deployment": deploy,
+          "k2_read_launches": info["k2_read_launches"],
+          "k1_merge_launches": info["k1_merge_launches"]})
+    return info
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out-dir", default="chip_smoke_out",
@@ -5086,6 +5562,15 @@ def main(argv=None) -> int:
         return 2
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     os.makedirs(out_dir, exist_ok=True)
+    global STORAGE_ROOT
+    STORAGE_ROOT = tempfile.mkdtemp(prefix="chip_smoke_storage_")
+    try:
+        return run_phases(args, out_dir)
+    finally:
+        shutil.rmtree(STORAGE_ROOT, ignore_errors=True)
+
+
+def run_phases(args, out_dir: str) -> int:
     dev = torch.device("cuda")
     res = {}
     log("probe")
@@ -5118,6 +5603,7 @@ def main(argv=None) -> int:
         "sharded": lambda: sharded_phase(dev),
         "hash_agg": lambda: hash_agg_phase(dev),
         "q7_host": run_q7_host,
+        "checkpoint": lambda: checkpoint_phase(dev),
         "segment_sweep": segment_sweep,
     }
     only = args.only.split(",") if args.only else [p for p in phases if p != "segment_sweep"]
@@ -5174,6 +5660,11 @@ def kernel_rows(res: dict) -> list:
                                  ("read", "slot_region_read_pack", "slot_region_read_pack"))}
     k2["launch_floor_ms"] = {f"k{k}": q7t[f"launch_floor_k{k}"]["ms"] for k in (1, 16)}
     k2["read_clear_cases"] = len(res["kernels"]["read_clear_cases"])
+    ck = res["checkpoint"]
+    rows[0]["checkpoint"] = {"merge_launches_at_restore": ck["k1_merge_launches"],
+                             "deployment_restore": ck["deployment"]["slot"]["k1_merge_launches"]}
+    k2["checkpoint"] = {"read_launches_at_barrier": ck["k2_read_launches"],
+                        "deployment_snapshots": ck["deployment"]["slot"]["k2_read_launches"]}
     k3 = rows[2]
     k3["launches_by_run"] = {r: res[r]["launches"]["slot_region_clear"] for r in runs}
     if not any(k3["launches_by_run"].values()):

@@ -181,14 +181,61 @@ def test_device_gate_routes_each_window_through_the_probe(tmp_path, monkeypatch)
     assert calls == []
 
 
-def test_checkpoint_barrier_raises():
-    op = TorchJoin({**CFG, "join_type": "inner"})
+@pytest.mark.parametrize("gate", ["host", "device"])
+def test_checkpoint_barrier_snapshots_and_restores_as_the_reference(gate, tmp_path):
+    """A barrier mid-stream drains the closes in flight first (their rows
+    precede it); the buffered rows of both sides are written in window
+    order, row for row the JAX package's, with the late-data mark; each
+    package's
+    checkpoint, restored in the port (the JAX package's one too), goes on
+    to emit what the uninterrupted reference emits after the barrier, in
+    order."""
+    from arroyo_tpu_torch.state.tables import TableManager as TorchTables
 
-    class Barrier:
-        epoch = 3
-
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        op.handle_checkpoint(Barrier(), None, None)
+    if gate == "device":
+        for c in (jcfg, tcfg):
+            c.update({"device.force-device-join": True, "device.join-min-rows": 0})
+    jcfg.update({"checkpoint.file-format": "npz"})
+    events = stream(3)
+    cut = 10  # after watermark 250, which closes window 200
+    sides = {pkg: Side(pkg, "full", None, tmp_path / pkg) for pkg in ("jax", "torch")}
+    sides["torch"].ctx.table_manager = TorchTables(sides["torch"].ctx.task_info,
+                                                   str(tmp_path / "torch"))
+    for ev in events[:cut]:
+        for sd in sides.values():
+            sd.feed(ev)
+    for pkg, sd in sides.items():
+        sd.op.handle_checkpoint(sd.types.CheckpointBarrier(1), sd.ctx, sd.rec)
+        sd.ctx.table_manager.checkpoint(1, None)
+    for a, b in zip(sides["jax"].rec.items, sides["torch"].rec.items, strict=True):
+        same_item(a, b)
+    tables = {}
+    for pkg in sides:
+        tm = TorchTables(ttypes.TaskInfo("j", "join", "join", 0, 1), str(tmp_path / pkg))
+        tm.restore(1, TorchJoin({**CFG, "join_type": "full"}).tables())
+        tables[pkg] = tm
+        for name in ("left", "right"):
+            got = tm.expiring_time_key(name).all_batches()
+            want = tables["jax"].expiring_time_key(name).all_batches()
+            assert len(got) == len(want) and len(got) > 0
+            for x, y in zip(got, want):
+                same_item(("batch", x), ("batch", y))
+        assert tm.global_keyed("e").data == {0: 250}  # the watermark that closed 200
+    # the rest of the stream, uninterrupted, in the reference
+    ref = sides["jax"]
+    mark = len(ref.rec.items)
+    for ev in events[cut:]:
+        ref.feed(ev)
+    for pkg in ("torch", "jax"):
+        restored = Side("torch", "full", None, tmp_path / "r")
+        restored.ctx.table_manager = TorchTables(restored.ctx.task_info, str(tmp_path / pkg))
+        restored.ctx.table_manager.restore(1, restored.op.tables())
+        restored.op.on_start(restored.ctx)
+        for ev in events[cut:]:
+            restored.feed(ev)
+        assert len(restored.rec.items) == len(ref.rec.items) - mark > 0
+        for a, b in zip(ref.rec.items[mark:], restored.rec.items):
+            same_item(a, b)
 
 
 def test_batch_operations_keep_object_columns_and_dtypes():

@@ -80,48 +80,111 @@ def test_default_device_run_graph_raises_without_cuda():
     assert rows == []
 
 
-def _tiny_graph(rows):
+def _tiny_graph(rows, event_count=100):
     from arroyo_tpu_torch.batch import TIMESTAMP_FIELD, Schema
     from arroyo_tpu_torch.graph import EdgeType, Graph, Node, OpName
 
     g = Graph()
-    g.add_node(Node("src", OpName.SOURCE, {"connector": "nexmark", "event_count": 100,
+    g.add_node(Node("src", OpName.SOURCE, {"connector": "nexmark", "event_count": event_count,
                                            "first_event_micros": 0}, 1))
     g.add_node(Node("sink", OpName.SINK, {"connector": "vec", "rows": rows}, 1))
     g.add_edge("src", "sink", EdgeType.FORWARD, Schema.of([(TIMESTAMP_FIELD, "int64")]))
     return g
 
 
-def test_later_slices_are_refused_not_skipped():
+def test_later_slices_are_refused_not_skipped(tmp_path):
+    """What the checkpoint slice leaves out raises through the entry points
+    a user calls: a checkpoint to an object store fails the job, and
+    compaction refuses."""
     from arroyo_tpu_torch.engine import Engine
-    from arroyo_tpu_torch.windows.sliding import SlidingAggregate
 
-    # the next unported feature: a sliding window's checkpoint barrier
-    window = SlidingAggregate({"width_micros": 10, "slide_micros": 5,
-                               "aggregates": [("n", "count", None)]})
-
-    class Barrier:
-        epoch = 1
-
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        window.handle_checkpoint(Barrier(), None, None)
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        Engine(_tiny_graph([]), device="cpu", restore_epoch=1)
-    eng = Engine(_tiny_graph([]), device="cpu")
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        eng.checkpoint_and_wait(1)
+    eng = Engine(_tiny_graph([], event_count=10_000_000), job_id="refused", device="cpu",
+                 storage_url="s3://bucket/checkpoints")
+    eng.start()
+    with pytest.raises(RuntimeError, match="S3 and GCS clients are not ported"):
+        eng.checkpoint_and_wait(1, timeout=60)
+    with pytest.raises(RuntimeError):
+        eng.join(timeout=60)
+    eng = Engine(_tiny_graph([]), job_id="refused", device="cpu",
+                 storage_url=str(tmp_path / "ck"))
+    with pytest.raises(NotImplementedError, match="compaction is not ported"):
+        eng.compact(1)
 
 
-@pytest.mark.parametrize("op", ["updating_aggregate", "session_aggregate"])
-def test_checkpoint_barrier_of_slice_4_operators_refused(op):
-    """The updating aggregate and the session window carry their state
-    layout (state_batch / load_state_batch) but no checkpoint barrier yet."""
-    from arroyo_tpu_torch.engine import construct_operator
-    from arroyo_tpu_torch.graph import OpName
+def _refuse_parquet(tmp_path):
+    from arroyo_tpu_torch.state.tables import read_columnar
 
-    cfg = {"aggregates": [("n", "count", None)], "gap_micros": 10}
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        construct_operator(OpName(op), cfg).handle_checkpoint(None, None, None)
+    path = tmp_path / "table-t-000.parquet"
+    path.write_bytes(b"PAR1")
+    with pytest.raises(NotImplementedError, match="table-t-000.parquet"):
+        read_columnar(str(path), restore=True)
+
+
+def _refuse_mapping(tmp_path):
+    from arroyo_tpu_torch.state.tables import TableManager
+    from arroyo_tpu_torch.types import TaskInfo
+
+    tm = TableManager(TaskInfo("j", "agg", "agg", 0, 1), str(tmp_path))
+    with pytest.raises(NotImplementedError, match="evolution mapping"):
+        tm.restore(1, [], mapping={"action": "carried", "from": "old"})
+
+
+def _refuse_compact(tmp_path):
+    import json
+    import os
+
+    import numpy as np
+
+    from arroyo_tpu_torch.batch import Batch
+    from arroyo_tpu_torch.operators.base import TableSpec
+    from arroyo_tpu_torch.state import storage
+    from arroyo_tpu_torch.state.tables import (TableManager, compact_job, compact_operator,
+                                               dump_json_with_integrity, operator_dir)
+    from arroyo_tpu_torch.types import TaskInfo
+
+    with pytest.raises(NotImplementedError, match="compaction is not ported"):
+        compact_job(str(tmp_path), "j", 1)
+    with pytest.raises(NotImplementedError, match="compaction is not ported"):
+        compact_operator(str(tmp_path), "j", 1, "agg")
+    # a table the JAX package compacted (its files at generation 1) is
+    # refused at restore, not read as if it were not
+    ti = TaskInfo("j", "agg", "agg", 0, 1)
+    tm = TableManager(ti, str(tmp_path))
+    tm.expiring_time_key("t").replace_all([Batch({
+        "_timestamp": np.arange(3, dtype=np.int64), "_key": np.arange(3, dtype=np.uint64)})])
+    tm.checkpoint(1, None)
+    side = os.path.join(operator_dir(str(tmp_path), "j", 1, "agg"), "metadata-000.json")
+    meta = json.loads(storage.read_text(side))
+    meta.pop("__integrity__", None)
+    for fm in meta["files"]:
+        fm["generation"] = 1
+    storage.write_text(side, dump_json_with_integrity(meta))
+    with pytest.raises(NotImplementedError, match="was compacted"):
+        TableManager(ti, str(tmp_path)).restore(1, [TableSpec("t", "expiring_time_key")])
+
+
+def _refuse_store(url):
+    def check(tmp_path):
+        from arroyo_tpu_torch.state import storage
+        from arroyo_tpu_torch.state.tables import latest_complete_checkpoint
+
+        for call in (lambda: storage.write_bytes(url + "/x", b"x"),
+                     lambda: storage.read_bytes(url + "/x"),
+                     lambda: storage.makedirs(url),
+                     lambda: latest_complete_checkpoint(url, "j")):
+            with pytest.raises(NotImplementedError, match="S3 and GCS clients are not ported"):
+                call()
+    return check
+
+
+@pytest.mark.parametrize("part", ["s3", "gs", "parquet", "mapping", "compact"])
+def test_checkpoint_parts_left_out_are_refused(part, tmp_path):
+    """Each part of the checkpoint slice that the port leaves out raises,
+    and never falls back: object-store URLs, parquet state files,
+    evolution mappings and compaction (ROADMAP A.3)."""
+    {"s3": _refuse_store("s3://bucket/prefix"), "gs": _refuse_store("gs://bucket/prefix"),
+     "parquet": _refuse_parquet, "mapping": _refuse_mapping,
+     "compact": _refuse_compact}[part](tmp_path)
 
 
 def test_kernel_build_without_nvcc_raises(monkeypatch):

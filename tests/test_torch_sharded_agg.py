@@ -233,6 +233,56 @@ def test_snapshot_restore_scan_free(n_dev):
     assert_state_equal(jagg, tagg)
 
 
+def _by_key_bin(rows):
+    """Rows in (bin, key) order: a snapshot's rows come in slot order."""
+    k, b, accs = rows
+    order = np.lexsort((k, b))
+    return k[order], b[order], [a[order] for a in accs]
+
+
+@pytest.mark.parametrize("key_range", ["whole uint64 range", "below 2^63"])
+def test_half_full_store_restores_as_the_reference(key_range):
+    """A store half full (its snapshot sorted by key, restored through
+    update() in batch_cap chunks) against the JAX one, state for state. With
+    keys over the whole uint64 range, as key hashes are, nothing is lost and
+    the restored snapshot is the first. Keys below 2^63 are owned by half
+    the shards, which the half-full store fills past what probing and the
+    spill buffers hold: both packages lose the same partials and both raise
+    at the next extract, never silently."""
+    n_dev, cap = 8, 4096
+    jagg, tagg = _pair(n_dev, cap=cap, batch_cap=1024, max_probes=32, emit_cap=1024,
+                       spill_cap=64)
+    jnew, tnew = _pair(n_dev, cap=cap, batch_cap=1024, max_probes=32, emit_cap=1024,
+                       spill_cap=64)
+    rng = np.random.default_rng(20261017)
+    m = n_dev * cap // 2
+    hi = 2**64 - 1 if key_range == "whole uint64 range" else 2**63 - 1
+    keys = rng.permutation(np.unique(rng.integers(0, hi, m + m // 8, dtype=np.uint64,
+                                                  endpoint=True)))[:m]
+    bins = rng.integers(0, 4, m).astype(np.int32)
+    vals = [rng.integers(-10**9, 10**9, m).astype(np.int64), np.ones(m, dtype=np.int64),
+            rng.standard_normal(m) * 1e6, rng.integers(-1000, 1000, m).astype(np.int32),
+            rng.standard_normal(m) * 1e3]
+    jagg.update(keys, bins, vals)
+    tagg.update(keys, bins, vals)
+    assert_state_equal(jagg, tagg)
+    snap = tagg.snapshot()
+    assert_rows_equal(jagg.snapshot(), snap)
+    jnew.restore(*snap)
+    tnew.restore(*snap)
+    assert_state_equal(jnew, tnew)
+    lost = int(tnew.state[4].sum())
+    if key_range == "whole uint64 range":
+        assert int(tagg.state[4].sum()) == lost == 0
+        assert_rows_equal(_by_key_bin(tnew.snapshot()), _by_key_bin(snap))
+        assert_rows_equal(jnew.extract(0, 4, 0), tnew.extract(0, 4, 0))
+        return
+    assert lost > 0 and int(np.asarray(jnew.state[4]).sum()) == lost
+    for agg in (jnew, tnew):
+        with pytest.raises(RuntimeError, match=f"sharded aggregate overflow \\({lost} entries lost"):
+            agg.extract(0, 4, 0)
+
+
 @pytest.mark.parametrize("max_probes", [-1, 0])
 @pytest.mark.parametrize("n_dev", [4, 8])
 def test_no_probe_round_spills_every_partial(n_dev, max_probes):

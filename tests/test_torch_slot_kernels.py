@@ -101,6 +101,42 @@ def test_scatter_combine_matches_jax_step(dt, merge):
         _assert_lane(t.numpy(), np.asarray(j), k)
 
 
+@pytest.mark.parametrize("merge", [False, True], ids=["hot", "merge"])
+def test_float32_subnormals_and_signed_zeros_match_jax_step(merge):
+    """XLA reads float32 subnormal operands and writes subnormal results as
+    the zero of their sign: K1 does the same in every lane kind, at every
+    slot a row touches (a subnormal state that wins a min or max too), and
+    leaves untouched slots alone."""
+    kinds = KINDS
+    dtypes = (np.float32,) * 4
+    step, step_merge, *_ = _build_slot_jax(kinds, dtypes, CAP, R)
+    import jax.numpy as jnp
+
+    sub = np.float32(1e-40)
+    init = []
+    for k in kinds:
+        a = np.full(CAP, _ident(k, np.float32), dtype=np.float32)
+        a[:6] = [sub, -sub, 0.0, -0.0, 1.2e-38, -sub]
+        a[100] = sub  # never touched: stays subnormal in both
+        init.append(a)
+    slots = np.array([0, 0, 1, 1, 2, 3, 4, 4, 5, 5, 6, 6, 7, 7, 8], dtype=np.int32)
+    v = np.array([sub, sub, -sub, -0.0, sub, -sub, -1.4e-38, 1e-45, 3e-39, 0.0,
+                  1.5e-38, -1.4e-38, -3e-39, -0.0, -1e-45], dtype=np.float32)
+    js = tuple(jnp.asarray(a) for a in init)
+    ts = [torch.from_numpy(a.copy()) for a in init]
+    vals = [v] * 4
+    shipped = [x for k, x in zip(kinds, vals) if merge or k != "count"]
+    js = (step_merge if merge else step)(js, slots, tuple(shipped))
+    kernels.slot_scatter_combine(
+        ts, kinds, torch.from_numpy(slots),
+        [None if (k == "count" and not merge) else torch.from_numpy(x) for k, x in zip(kinds, vals)])
+    for k, j, t in zip(kinds, js, ts):
+        _assert_lane(t.numpy(), np.asarray(j), k)
+        assert t.numpy()[100].view(np.int32) == sub.view(np.int32)
+    bits = ts[0].numpy()[:9].view(np.int32)
+    assert ((bits & 0x7F800000) != 0).sum() + (bits & 0x7FFFFFFF == 0).sum() == 9
+
+
 def test_scatter_combine_int64_slots_and_duplicates():
     """int64 slot indices (the dtype for cap >= 2**31-1) are taken as well;
     one slot hit by every row sums every row."""
@@ -222,4 +258,5 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
                                        "slot_region_read_pack": 0,
                                        "slot_region_clear": 0,
                                        "slot_gather": 0,
-                                       "slot_region_read_pack_clear": 0}
+                                       "slot_region_read_pack_clear": 0,
+                                       "slot_scatter_combine_merge": 0}
