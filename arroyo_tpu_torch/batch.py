@@ -47,6 +47,15 @@ class Schema:
         fs = tuple(f if isinstance(f, Field) else Field(f[0], f[1]) for f in fields)
         return Schema(fs, tuple(key_fields), has_keys)
 
+    def to_json(self) -> dict:
+        """The JAX package's JSON form (the plan fingerprint hashes it)."""
+        return {
+            "fields": [{"name": f.name, "dtype": f.dtype, "nullable": f.nullable}
+                       for f in self.fields],
+            "key_fields": list(self.key_fields),
+            "has_keys": self.has_keys,
+        }
+
 
 class Batch:
     """A columnar micro-batch: equal-length numpy columns."""

@@ -3,8 +3,8 @@ config is a separate object, so tests can load both packages in one
 process without one reset clearing the other).
 
 Only the sections the port reads: ``pipeline``, ``worker``,
-``engine.coalesce``, ``segment.compile``, ``checkpoint``, ``state`` and
-``device``. The checkpoint keys have the JAX package's names and meaning;
+``engine.coalesce``, ``segment.compile``, ``checkpoint``, ``state``,
+``storage.retry``, ``faults`` and ``device``. The checkpoint keys have the JAX package's names and meaning;
 ``checkpoint.storage-url`` defaults to a directory under the temporary
 directory (``TMPDIR``) rather than the JAX package's ``/tmp/arroyo-tpu``,
 and the port writes npz state files for either value of
@@ -85,6 +85,22 @@ _DEFAULTS: dict[str, Any] = {
         # envelopes on the restore path only, "always" on every checkpointed
         # read, "off" trusts storage
         "integrity": {"verify": "restore"},
+    },
+    "storage": {
+        # shared resilience layer (utils/retry.py) for storage operations
+        "retry": {
+            "max-attempts": 4,
+            "base-delay-ms": 50,
+            "max-delay-ms": 2000,
+            "multiplier": 2.0,
+            "jitter": 0.5,
+        },
+    },
+    "faults": {
+        # deterministic fault injection (arroyo_tpu_torch.faults); empty = off.
+        # e.g. "storage.put:fail_once@epoch=2,worker:crash@barrier=3"
+        "plan": "",
+        "seed": 0,
     },
     "device": {
         "torch-device": None,  # None = cuda (device.resolve_device)

@@ -82,6 +82,9 @@
 // segment_sum adds, so float sums come out bit for bit; integer sums and
 // min/max, exact in any grouping, combine across the warp in order. Float
 // min/max keep XLA's order: NaN propagates and -0.0 sorts below +0.0.
+// XLA's CPU arithmetic reads subnormal operands and writes subnormal
+// results as the zero of their sign, so every float add and compare here
+// flushes both (ftz), min/max keeping the flushed winner.
 //
 // K9 reproduces the reference's placement slot for slot: each round
 // classifies every active partial against the table as it was at the
@@ -147,6 +150,7 @@
 #include <chrono>
 #include <vector>
 
+#include "float_flush.cuh"
 #include "radix_sort.cuh"
 #include "table_compact.cuh"
 
@@ -206,7 +210,9 @@ __device__ __forceinline__ bool replaces(F v, F cur) {
   return v > cur || (v == cur && !signbit(v) && signbit(cur));
 }
 
-// a combined with b (a the running accumulator or the table's value)
+// a combined with b (a the running accumulator or the table's value); a
+// float's operands and result flushed (ftz), a min/max keeping the flushed
+// winner
 __device__ __forceinline__ unsigned long long combine_bits(int kind, int dt, unsigned long long a,
                                                            unsigned long long b) {
   switch (dt) {
@@ -225,14 +231,22 @@ __device__ __forceinline__ unsigned long long combine_bits(int kind, int dt, uns
       return (unsigned long long)(unsigned int)(kind == KIND_MIN ? (y < x ? y : x) : (y > x ? y : x));
     }
     case DT_F64: {
+      a = ftz_bits64(a);
+      b = ftz_bits64(b);
       double x = __longlong_as_double((long long)a), y = __longlong_as_double((long long)b);
-      if (kind == KIND_ADD) return (unsigned long long)__double_as_longlong(__dadd_rn(x, y));
+      if (kind == KIND_ADD) return (unsigned long long)__double_as_longlong(ftz(__dadd_rn(x, y)));
       bool r = kind == KIND_MIN ? replaces<true>(y, x) : replaces<false>(y, x);
       return r ? b : a;
     }
     default: {
+      a = ftz_bits32((unsigned)a);
+      b = ftz_bits32((unsigned)b);
       float x = __uint_as_float((unsigned int)a), y = __uint_as_float((unsigned int)b);
-      if (kind == KIND_ADD) return (unsigned long long)__float_as_uint(__fadd_rn(x, y));
+      if (kind == KIND_ADD) {
+        float r;  // subnormal operands and result flushed in hardware
+        asm("add.rn.ftz.f32 %0, %1, %2;" : "=f"(r) : "f"(x), "f"(y));
+        return (unsigned long long)__float_as_uint(r);
+      }
       bool r = kind == KIND_MIN ? replaces<true>(y, x) : replaces<false>(y, x);
       return r ? b : a;
     }
@@ -409,29 +423,31 @@ __device__ __forceinline__ void reduce_short(const Lanes& lanes, const int* rows
   }
 }
 
-__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
-__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
-__device__ __forceinline__ double from_bits(unsigned long long b, double) {
-  return __longlong_as_double((long long)b);
-}
-__device__ __forceinline__ float from_bits(unsigned long long b, float) {
-  return __uint_as_float((unsigned)b);
-}
+// A float sum adds as csrc/float_flush.cuh sets out: each operand flushed
+// where it is read (operand(), off the chain), and a float64 chain added by
+// the fast pass, then by the exact pass where a partial sum may have been
+// subnormal (two_pass).
 
 // x plus the staged values v[0, m) in order, one dependent add after
 // another (XLA CPU's segment_sum order), the values read eight ahead
-template <typename F>
-__device__ __forceinline__ F chain(F x, const unsigned long long* v, int m) {
+template <bool FAST, typename F>
+__device__ __forceinline__ F chain_pass(F x, const unsigned long long* v, int m, unsigned& lo) {
   int i = 0;
   for (; i + 8 <= m; i += 8) {
     F w[8];
 #pragma unroll
-    for (int k = 0; k < 8; ++k) w[k] = from_bits(v[i + k], x);
+    for (int k = 0; k < 8; ++k) w[k] = operand(from_bits(v[i + k], x));
 #pragma unroll
-    for (int k = 0; k < 8; ++k) x = add_rn(x, w[k]);
+    for (int k = 0; k < 8; ++k) x = add_rn<FAST>(x, w[k], lo);
   }
-  for (; i < m; ++i) x = add_rn(x, from_bits(v[i], x));
+  for (; i < m; ++i) x = add_rn<FAST>(x, operand(from_bits(v[i], x)), lo);
   return x;
+}
+template <typename F>
+__device__ __forceinline__ F chain(F x, const unsigned long long* v, int m) {
+  return two_pass(ftz(x), [&](auto kind, F y, unsigned& lo) {
+    return chain_pass<decltype(kind)::fast>(y, v, m, lo);
+  });
 }
 
 // The values v[0, m) of one lane combined in order by the calling warp

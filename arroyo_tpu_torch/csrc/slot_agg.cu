@@ -103,8 +103,10 @@
 // and the TPU alike). So a float32 lane's every touched slot does the
 // same: the sums add with add.rn.ftz.f32 (which flushes inputs and
 // result), and min/max compare the flushed value against the flushed
-// state and store the flushed winner, even where the state wins. Float64
-// lanes keep IEEE subnormals (ROADMAP C8).
+// state and store the flushed winner, even where the state wins. XLA on
+// the CPU does the same with float64 subnormals (below DBL_MIN), and PTX
+// has no .ftz for f64: a float64 lane flushes by hand (ftz), each
+// operand before the add or compare and each result (float_flush.cuh).
 //
 // That serial chain per slot is the result, so a hot slot's run costs its
 // length in dependent adds (the chain floor: at the deployment shape the
@@ -130,6 +132,8 @@
 #include <stdint.h>
 
 #include <atomic>
+
+#include "float_flush.cuh"
 
 #define MAX_LANES 32
 #define MAX_BASES 16
@@ -175,11 +179,6 @@ struct GatherArgs {
   int dtype[MAX_LANES];
 };
 
-// A float32 subnormal as the zero of its sign (XLA's float32 arithmetic)
-__device__ __forceinline__ unsigned ftz_bits(unsigned u) {
-  return (u & 0x7F800000u) == 0 ? (u & 0x80000000u) : u;
-}
-
 // v replaces old under the NaN-propagating order with -0.0 < +0.0
 template <bool IS_MIN, typename F>
 __device__ __forceinline__ bool replaces(F v, F old) {
@@ -189,26 +188,32 @@ __device__ __forceinline__ bool replaces(F v, F old) {
   return v > old || (v == old && !signbit(v) && signbit(old));
 }
 
+// float64 and float32: both sides flushed, and the flushed winner stored
+// (a subnormal state that keeps its slot still becomes its zero)
 template <bool IS_MIN>
 __device__ __forceinline__ void minmax_f64(double* addr, double v) {
   unsigned long long* a = reinterpret_cast<unsigned long long*>(addr);
+  const unsigned long long fv = ftz_bits64((unsigned long long)__double_as_longlong(v));
   unsigned long long old = *a;
-  while (replaces<IS_MIN>(v, __longlong_as_double((long long)old))) {
-    unsigned long long prev = atomicCAS(a, old, (unsigned long long)__double_as_longlong(v));
+  while (true) {
+    const unsigned long long fo = ftz_bits64(old);
+    const unsigned long long want =
+        replaces<IS_MIN>(__longlong_as_double((long long)fv), __longlong_as_double((long long)fo))
+            ? fv : fo;
+    if (want == old) return;
+    unsigned long long prev = atomicCAS(a, old, want);
     if (prev == old) return;
     old = prev;
   }
 }
 
-// float32: both sides flushed, and the flushed winner stored (a subnormal
-// state that keeps its slot still becomes its zero)
 template <bool IS_MIN>
 __device__ __forceinline__ void minmax_f32(float* addr, float v) {
   unsigned int* a = reinterpret_cast<unsigned int*>(addr);
-  const unsigned fv = ftz_bits(__float_as_uint(v));
+  const unsigned fv = ftz_bits32(__float_as_uint(v));
   unsigned int old = *a;
   while (true) {
-    const unsigned fo = ftz_bits(old);
+    const unsigned fo = ftz_bits32(old);
     const unsigned want = replaces<IS_MIN>(__uint_as_float(fv), __uint_as_float(fo)) ? fv : fo;
     if (want == old) return;
     unsigned int prev = atomicCAS(a, old, want);
@@ -282,12 +287,10 @@ __global__ void scatter_combine_kernel(ScatterArgs args, const SlotT* __restrict
 #define STAGE_ROWS 4        // rows each of them stages per chunk, at most
 #define MAX_WALKERS 8
 
-__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
-__device__ __forceinline__ float add_rn(float a, float b) {
-  float r;  // subnormal inputs and result flushed to the zero of their sign
-  asm("add.rn.ftz.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
-  return r;
-}
+// A float sum adds as csrc/float_flush.cuh sets out: each operand flushed
+// where it is loaded or staged (operand()), and a float64 run added by the
+// fast pass, then by the exact pass where a partial sum may have been
+// subnormal (two_pass).
 
 // The end of the run of slot s that starts at sorted row i: the first row
 // after it whose slot is above s (galloping, then a binary search).
@@ -306,11 +309,12 @@ __device__ __forceinline__ long long run_end(const long long* __restrict__ sorte
   return out;
 }
 
-// acc plus the values of rows order[a..e) in row order, loads eight rows
-// ahead of the adds; vp NULL adds 1 per row
-template <typename F>
-__device__ __forceinline__ F walk_short(F acc, const F* __restrict__ vp,
-                                        const int* __restrict__ order, long long a, long long e) {
+// acc (flushed) plus the values of rows order[a..e) in row order, loads
+// eight rows ahead of the adds; vp NULL adds 1 per row
+template <bool FAST, typename F>
+__device__ __forceinline__ F walk_short_pass(F acc, const F* __restrict__ vp,
+                                             const int* __restrict__ order, long long a,
+                                             long long e, unsigned& lo) {
   long long r = a;
   for (; r + 8 <= e; r += 8) {
     int o[8];
@@ -318,12 +322,21 @@ __device__ __forceinline__ F walk_short(F acc, const F* __restrict__ vp,
 #pragma unroll
     for (int k = 0; k < 8; ++k) o[k] = order[r + k];
 #pragma unroll
-    for (int k = 0; k < 8; ++k) v[k] = vp ? vp[o[k]] : F(1);
+    for (int k = 0; k < 8; ++k) v[k] = vp ? operand(vp[o[k]]) : F(1);
 #pragma unroll
-    for (int k = 0; k < 8; ++k) acc = add_rn(acc, v[k]);
+    for (int k = 0; k < 8; ++k) acc = add_rn<FAST>(acc, v[k], lo);
   }
-  for (; r < e; ++r) acc = add_rn(acc, vp ? vp[order[r]] : F(1));
+  for (; r < e; ++r) acc = add_rn<FAST>(acc, vp ? operand(vp[order[r]]) : F(1), lo);
   return acc;
+}
+
+// the fast pass, and the exact one where a partial sum may have been subnormal
+template <typename F>
+__device__ __forceinline__ F walk_short(F acc, const F* __restrict__ vp,
+                                        const int* __restrict__ order, long long a, long long e) {
+  return two_pass(operand(acc), [&](auto kind, F x, unsigned& lo) {
+    return walk_short_pass<decltype(kind)::fast>(x, vp, order, a, e, lo);
+  });
 }
 
 // One thread per sorted row: a run's head walks a short run itself and
@@ -377,7 +390,7 @@ __device__ __forceinline__ void stage_chunk(const ScatterArgs& args, const int* 
 #pragma unroll
     for (int k = 0; k < STAGE_ROWS; ++k) {
       if (o[k] < 0) continue;
-      v[k] = f64 ? (vp ? static_cast<const unsigned long long*>(vp)[o[k]]
+      v[k] = f64 ? (vp ? ftz_bits64(static_cast<const unsigned long long*>(vp)[o[k]])
                        : (unsigned long long)__double_as_longlong(1.0))
                  : (vp ? static_cast<const unsigned*>(vp)[o[k]] : __float_as_uint(1.0f));
     }
@@ -387,21 +400,14 @@ __device__ __forceinline__ void stage_chunk(const ScatterArgs& args, const int* 
   }
 }
 
-__device__ __forceinline__ double from_bits(unsigned long long b, double) {
-  return __longlong_as_double((long long)b);
-}
-__device__ __forceinline__ float from_bits(unsigned long long b, float) {
-  return __uint_as_float((unsigned)b);
-}
-
 extern __shared__ unsigned long long stage[];  // walk_long's staged chunks
 
-// x plus the len staged values stage[at..at + len) in order: the next
-// WALK_AHEAD values are read from shared memory while the adds of the ones
-// before run, so the chain waits on the adds alone
+// x (flushed) plus the len staged values stage[at..at + len) in order
+// (staged flushed): the next WALK_AHEAD values are read from shared memory
+// while the adds of the ones before run, so the chain waits on the adds alone
 #define WALK_AHEAD 32
-template <typename F>
-__device__ __forceinline__ F walk_staged(F x, int at, int len) {
+template <bool FAST, typename F>
+__device__ __forceinline__ F walk_staged_pass(F x, int at, int len, unsigned& lo) {
   F cur[WALK_AHEAD], nxt[WALK_AHEAD];
   int r = 0;
   if (len >= WALK_AHEAD) {
@@ -411,17 +417,27 @@ __device__ __forceinline__ F walk_staged(F x, int at, int len) {
 #pragma unroll
       for (int k = 0; k < WALK_AHEAD; ++k) {
         nxt[k] = from_bits(stage[at + r + WALK_AHEAD + k], x);
-        x = add_rn(x, cur[k]);
+        x = add_rn<FAST>(x, cur[k], lo);
       }
 #pragma unroll
       for (int k = 0; k < WALK_AHEAD; ++k) cur[k] = nxt[k];
     }
 #pragma unroll
-    for (int k = 0; k < WALK_AHEAD; ++k) x = add_rn(x, cur[k]);
+    for (int k = 0; k < WALK_AHEAD; ++k) x = add_rn<FAST>(x, cur[k], lo);
     r += WALK_AHEAD;
   }
-  for (; r < len; ++r) x = add_rn(x, from_bits(stage[at + r], x));
+  for (; r < len; ++r) x = add_rn<FAST>(x, from_bits(stage[at + r], x), lo);
   return x;
+}
+
+// one staged chunk: the fast pass, and the exact one where a partial sum
+// may have been subnormal (the chunk stays staged until the block's next
+// barrier)
+template <typename F>
+__device__ __forceinline__ F walk_staged(F x, int at, int len) {
+  return two_pass(operand(x), [&](auto kind, F y, unsigned& lo) {
+    return walk_staged_pass<decltype(kind)::fast>(y, at, len, lo);
+  });
 }
 
 // One block per listed run: STAGE_THREADS threads stage chunk c + 1 while
@@ -478,13 +494,15 @@ __global__ void walk_long(ScatterArgs args, const long long* __restrict__ sorted
 }
 
 // The chain floor: one thread adds x[1] to x[0] n times, each add waiting
-// on the one before (float32 if f32); out[0] keeps the sum.
+// on the one before (float32 add.rn.ftz.f32 if f32, else bare __dadd_rn);
+// out[0] keeps the sum.
 __global__ void add_chain_kernel(const double* __restrict__ x, long long n, int f32,
                                  double* __restrict__ out) {
   if (f32) {
     float acc = (float)x[0];
     const float d = (float)x[1];
-    for (long long i = 0; i < n; ++i) acc = add_rn(acc, d);
+    unsigned lo = ~0u;
+    for (long long i = 0; i < n; ++i) acc = add_rn<true>(acc, d, lo);
     out[0] = acc;
   } else {
     double acc = x[0];

@@ -19,16 +19,22 @@ epoch or drained cleanly, the engine writes the job marker, whose
 ``integrity`` manifest folds every file's envelope (state/integrity.py),
 and delivers the epoch's commit to committing operators.
 ``Engine(graph, restore_epoch=e)`` restores every task's tables from epoch
-``e`` before the tasks start; an epoch that holds state for operators this
-graph lacks is refused. The checkpoint layout is the JAX package's
-(state/tables.py). Not ported: the plan fingerprint of
-analysis/plan_diff.py (the marker carries no ``plan_hash``, as the JAX
-engine's does not when it cannot compute one), evolution mappings,
-compaction and the multi-worker coordination of controller/.
+``e`` before the tasks start. The marker carries the plan fingerprint of
+the logical graph (analysis/plan_diff.py ``plan_fingerprint``, equal to the
+JAX package's for the same graph); a restore under another fingerprint is
+refused unless the epoch's evolution mapping (state/tables.py
+``write_evolution_mapping``) covers exactly that pair of plans, and then
+each node restores as the mapping says. An epoch that holds state for
+operators this graph lacks (and the mapping does not account for) is
+refused too. ``compact(epoch)`` merges a completed epoch's per-subtask
+files. The checkpoint layout is the JAX package's (state/tables.py). A
+configured fault plan (``faults.plan``) is installed at construction. Not
+ported: the multi-worker coordination of controller/.
 """
 
 from __future__ import annotations
 
+import logging
 import queue as _queue
 import threading
 import time
@@ -39,15 +45,18 @@ import torch
 
 from ..config import config
 from ..device import resolve_device
+from ..faults import fault_point, install_from_config
 from ..graph import EdgeType, Graph, OpName
 from ..operators.base import OperatorContext
 from ..operators.collector import Collector, OutEdge
 from ..state.tables import (TableManager, cleanup_checkpoints, compact_job,
-                            latest_complete_checkpoint, read_job_checkpoint_metadata,
-                            write_job_checkpoint_metadata)
+                            latest_complete_checkpoint, read_evolution_mapping,
+                            read_job_checkpoint_metadata, write_job_checkpoint_metadata)
 from ..types import CheckpointBarrier, ControlMessage, ControlResp, TaskInfo
 from .queues import TaskInbox
 from .task import Task
+
+_log = logging.getLogger("arroyo_tpu_torch.engine")
 
 _CONSTRUCTORS: dict[OpName, Callable[[dict], object]] = {}
 
@@ -104,6 +113,12 @@ class Engine:
                  restore_epoch: Optional[int] = None):
         """``storage_url`` None takes ``checkpoint.storage-url``;
         ``restore_epoch`` restores every task's state from that epoch."""
+        # a configured fault plan activates with fresh counters per engine
+        # incarnation, so a restarted job replays its faults
+        install_from_config()
+        # the fingerprint of the logical graph, before chain_graph renames
+        # its nodes: the same hash whatever the chaining setting
+        self.plan_hash = self._fingerprint(graph, job_id)
         if config().get("pipeline.chaining.enabled"):
             from ..optimizer import chain_graph
 
@@ -133,22 +148,69 @@ class Engine:
         # triggers that arrive before start() are replayed by it, never lost
         self._running = False
         self._pending_triggers: list[tuple[int, bool]] = []
+        # the evolution mapping a restore goes through (build), and whether
+        # the first epoch completed under it is still to come (the
+        # evolve_cutover fault site fires there)
+        self.evolution_mapping: Optional[dict] = None
+        self._evolve_cutover_pending = False
 
     # -------------------------------------------------------------- building
 
+    @staticmethod
+    def _fingerprint(graph: Graph, job_id: str) -> Optional[str]:
+        """analysis.plan_diff.plan_fingerprint, or None where it cannot be
+        computed: then the marker carries no hash and no gate runs, as in
+        the JAX package, and a warning names the job, its nodes and the
+        error, since that job's restores are not held to its plan."""
+        try:
+            from ..analysis.plan_diff import plan_fingerprint
+
+            return plan_fingerprint(graph)
+        except Exception as e:  # noqa: BLE001 - no stamp, as the JAX engine, but said
+            _log.warning("job %r (nodes %s): no plan fingerprint (%s: %s); its checkpoints "
+                         "carry no plan_hash and a restore of them is not checked against "
+                         "the plan", job_id, ", ".join(sorted(graph.nodes)), type(e).__name__, e)
+            return None
+
     def _check_restore(self) -> None:
         """Refuse an epoch whose job marker is missing, torn or corrupt (a
-        restore from it would start the job from nothing), and an epoch
-        that holds state for operators this graph lacks (a graph edit, or a
-        chaining change across the restore): their state would be dropped
-        without a word."""
+        restore from it would start the job from nothing); an epoch written
+        by another plan unless its evolution mapping covers exactly this
+        pair of plans (the state would be misread); and an epoch that holds
+        state for operators this graph lacks and the mapping does not drop
+        or carry (a graph edit, or a chaining change across the restore):
+        their state would be dropped without a word."""
         meta = read_job_checkpoint_metadata(self.storage_url, self.job_id, self.restore_epoch)
         if meta is None:
             raise RuntimeError(
                 f"checkpoint epoch {self.restore_epoch} of job {self.job_id!r} under "
                 f"{self.storage_url} has no complete job marker; pick a restorable epoch "
                 f"with state.integrity.latest_valid_checkpoint")
+        mapping = read_evolution_mapping(self.storage_url, self.job_id, self.restore_epoch)
+        meta_hash = meta.get("plan_hash")
+        if meta_hash and self.plan_hash and meta_hash != self.plan_hash:
+            if mapping is None:
+                raise RuntimeError(
+                    f"checkpoint epoch {self.restore_epoch} was written by plan {meta_hash} "
+                    f"but this graph is plan {self.plan_hash} and no evolution mapping "
+                    f"covers the change; restoring would misread state (prove the "
+                    f"carry-over with analysis.plan_diff.diff_plans and "
+                    f"state.tables.write_evolution_mapping)")
+            if (mapping.get("old_plan_hash") != meta_hash
+                    or mapping.get("new_plan_hash") != self.plan_hash):
+                raise RuntimeError(
+                    f"evolution mapping for epoch {self.restore_epoch} covers "
+                    f"{mapping.get('old_plan_hash')} -> {mapping.get('new_plan_hash')} but "
+                    f"the restore is {meta_hash} -> {self.plan_hash}; refusing a mapping "
+                    f"proven for a different plan pair")
+        if mapping is not None:
+            self.evolution_mapping = mapping
+            self._evolve_cutover_pending = True
         stale = set(meta.get("operators", ())) - set(self.graph.nodes)
+        if mapping is not None:
+            stale -= set(mapping.get("dropped", ()))
+            stale -= {str(m.get("from")) for m in mapping.get("nodes", {}).values()
+                      if m.get("from")}
         if stale:
             raise RuntimeError(
                 f"checkpoint epoch {self.restore_epoch} holds state for operators "
@@ -200,7 +262,8 @@ class Engine:
                 operator = construct_operator(node.op, node.config)
                 tm = TableManager(ti, self.storage_url)
                 if self.restore_epoch is not None:
-                    wm = tm.restore(self.restore_epoch, operator.tables())
+                    node_map = (self.evolution_mapping or {}).get("nodes", {}).get(nid)
+                    wm = tm.restore(self.restore_epoch, operator.tables(), mapping=node_map)
                     if wm is not None:
                         self.restored_watermark = (wm if self.restored_watermark is None
                                                    else min(self.restored_watermark, wm))
@@ -268,16 +331,35 @@ class Engine:
         from ..state.integrity import fold_integrity
 
         for epoch, ep in self._checkpoints.items():
+            if self._failed:
+                return  # a failed job completes no epoch (nor the one it failed at)
             if epoch in self._completed_epochs or not ep:
                 continue
             if len(set(ep) | self._clean_finished) < len(self.tasks):
                 continue
             extra = {"operators": sorted({k[0] for k in ep})}
+            if self.plan_hash:
+                extra["plan_hash"] = self.plan_hash
             integ = fold_integrity(m for m in ep.values() if m)
             if integ:
                 extra["integrity"] = integ
             write_job_checkpoint_metadata(self.storage_url, self.job_id, epoch, extra)
             self._epoch_times.setdefault(epoch, {})["durable"] = int(time.time() * 1e6)
+            if self._evolve_cutover_pending:
+                # the evolved plan's first durable epoch: the evolve_cutover
+                # fault site fires between its marker and its commits; a
+                # crash there fails the job, and a restart restores this
+                # epoch under its own plan hash (no mapping needed)
+                self._evolve_cutover_pending = False
+                try:
+                    fault_point("evolve_cutover", epoch=epoch, key=self.job_id)
+                except Exception as exc:  # noqa: BLE001 - injected: fails the job
+                    self._failed.append(ControlResp(
+                        kind="task_failed", node_id="<evolve_cutover>",
+                        error=f"injected crash at the evolve cutover barrier (epoch "
+                              f"{epoch}): {exc}"))
+                    self._abort()
+                    return
             self._completed_epochs.add(epoch)
             for key, task in self.tasks.items():
                 if key not in self._finished_tasks and task.operator.is_committing():
@@ -341,7 +423,13 @@ class Engine:
         return CheckpointWait("completed")
 
     def compact(self, epoch: int) -> int:
-        """Merge the epoch's per-subtask state files: not ported (raises)."""
+        """Merge a completed epoch's per-subtask state files, one
+        generation-1 file per table (state/tables.py ``compact_job``);
+        returns the files removed. An epoch this engine has not completed
+        is refused."""
+        with self._lock:
+            if epoch not in self._completed_epochs:
+                raise ValueError(f"epoch {epoch} is not a completed checkpoint")
         return compact_job(self.storage_url, self.job_id, epoch)
 
     def cleanup(self, min_epoch: int) -> int:

@@ -15,6 +15,7 @@ from collections import deque
 from typing import Optional, Union
 
 from ..batch import Batch
+from ..faults import fault_point
 from ..types import Signal
 
 QueueItem = Union[Batch, Signal]
@@ -33,6 +34,9 @@ class TaskInbox:
 
     def put(self, input_index: int, item: QueueItem) -> None:
         """Blocks while this input's row budget is exhausted (data only)."""
+        # fault site: delay models a stalled consumer (backpressure builds
+        # upstream through the blocked producer); fail kills the producer
+        fault_point("queue.put", input=input_index)
         rows = item.num_rows if isinstance(item, Batch) else 0
         with self._lock:
             if rows:

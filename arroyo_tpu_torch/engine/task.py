@@ -12,7 +12,8 @@ finished, and a stop ends the task. Checkpoint barriers are aligned: an
 input that delivered the current epoch's barrier is held until every live
 input has, then the operator flushes its state into its tables
 (``handle_checkpoint``), the table manager writes them, the barrier goes
-downstream and the task reports the epoch's metadata to the engine. A
+downstream and the task reports the epoch's metadata to the engine (the
+``worker`` fault site fires between the written tables and that report). A
 source checkpoints between its batches (``SourceContext.start_checkpoint``).
 With ``then_stop`` nothing after the barrier is processed.
 """
@@ -27,6 +28,7 @@ from collections import deque
 from typing import Optional, Union
 
 from ..batch import Batch
+from ..faults import fault_point
 from ..operators.base import Operator, OperatorContext, SourceOperator
 from ..operators.collector import Collector
 from ..types import (CheckpointBarrier, CheckpointEvent, ControlMessage, ControlResp, Signal,
@@ -159,8 +161,15 @@ class Task:
             int(time.time() * 1e6), event_type))
 
     def _snapshot(self, barrier: CheckpointBarrier) -> None:
-        """Write the tables, send the barrier on, report the epoch."""
+        """Write the tables, send the barrier on, report the epoch. The
+        operator's snapshot reads have finished on the task's stream before
+        the tables are written (they write host copies)."""
         meta = self.ctx.table_manager.checkpoint(barrier.epoch, self.ctx.watermark())
+        # fault site: a crash here is the worst case, the subtask's state
+        # files for this epoch written but the epoch never complete (no job
+        # marker), so recovery must ignore them and restore the epoch before
+        fault_point("worker", barrier=barrier.epoch, node=self.task_info.node_id,
+                    subtask=self.task_info.subtask_index)
         self.collector.broadcast(Signal.barrier_of(barrier))
         self._resp("checkpoint_completed", epoch=barrier.epoch, subtask_metadata=meta)
 

@@ -8,7 +8,6 @@ cache on; whole-graph serialization is not part of the port yet.
 
 from __future__ import annotations
 
-import dataclasses
 import enum
 from dataclasses import dataclass
 
@@ -123,5 +122,5 @@ def _jsonable(obj):
     if isinstance(obj, Expr):
         return expr_to_json(obj)
     if isinstance(obj, Schema):
-        return {"__schema__": _jsonable(dataclasses.asdict(obj))}
+        return {"__schema__": obj.to_json()}
     return repr(obj)

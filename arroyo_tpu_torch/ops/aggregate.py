@@ -6,6 +6,7 @@ and ``DeviceHashAggregator`` with both backends: the single-device table
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Sequence
 
 import numpy as np
@@ -168,6 +169,100 @@ _I32_MIN = np.iinfo(np.int32).min
 _I32_MAX = np.iinfo(np.int32).max
 
 
+def ftz(t: torch.Tensor) -> torch.Tensor:
+    """A float tensor with each subnormal replaced by the zero of its sign:
+    XLA's float arithmetic reads subnormal operands and writes subnormal
+    results so, float32 on the CPU and the TPU, float64 on the CPU. Other
+    dtypes pass through."""
+    if t.dtype == torch.float32:
+        return torch.where((t.view(torch.int32) & 0x7F800000) == 0, t * 0, t)
+    if t.dtype == torch.float64:
+        return torch.where((t.view(torch.int64) & 0x7FF0000000000000) == 0, t * 0, t)
+    return t
+
+
+# ranks of a slot's run added one vectorized add per rank; a run's rows past
+# them are added one by one on the host's scalars (a hot run of 11,000 rows
+# would otherwise loop 11,000 times over mostly empty ranks)
+_RANK_LOOP = 64
+_NORMAL_MIN = {torch.float32: float(np.finfo(np.float32).tiny),
+               torch.float64: float(np.finfo(np.float64).tiny)}
+
+
+def _serial_add(x, vals: np.ndarray, dtype: torch.dtype):
+    """x plus vals (flushed) one by one in ``dtype``'s arithmetic, each
+    result flushed to the zero of its sign. float64 adds as Python floats
+    (IEEE doubles), float32 as numpy float32 scalars."""
+    tiny = _NORMAL_MIN[dtype]
+    if dtype == torch.float32:
+        x = np.float32(x)
+        with np.errstate(all="ignore"):  # inf - inf is NaN here as on the card
+            for v in vals:
+                x = x + v
+                if -tiny < x < tiny:
+                    x = np.float32(math.copysign(0.0, x))
+        return x
+    x = float(x)
+    for v in vals.tolist():
+        x += v
+        if -tiny < x < tiny:
+            x = math.copysign(0.0, x)
+    return x
+
+
+def ordered_add_plain(a: torch.Tensor, s: torch.Tensor, v: torch.Tensor) -> None:
+    """Add float rows into ``a`` one after another in row order, each add
+    flushing subnormal operands and result (K1's add.rn.ftz.f32, and its
+    float64 add flushed by hand). Where the flushed operands (the values
+    and the rows' slots' state) all have one sign, ``_add_one_sign``; else
+    ``_add_by_rank``. tests/test_torch_subnormals.py holds the two, and
+    every ``rank_loop``, to the same bits."""
+    if len(s) == 0:
+        return
+    host_s, host_v = s.cpu(), ftz(v.cpu())
+    acc = ftz(a[s.to(a.device)].cpu())
+    if ((host_v >= 0).all() and (acc >= 0).all()) or ((host_v <= 0).all() and (acc <= 0).all()):
+        _add_one_sign(a, host_s, host_v)
+    else:
+        _add_by_rank(a, host_s, host_v)
+
+
+def _add_one_sign(a: torch.Tensor, host_s: torch.Tensor, host_v: torch.Tensor) -> None:
+    """``ordered_add_plain`` where the flushed values ``host_v`` and the
+    flushed state of their slots all have one sign (a zero of either sign
+    counts as both). No partial sum is then subnormal: a sum of normals of
+    one sign is at least the least of them in magnitude, so at least the
+    least normal, and rounding to nearest keeps it there (the least normal
+    is a float); a zero operand leaves the other. No flush of a result
+    changes it, and the CPU's ``index_add_`` (row after row in order) gives
+    the bits of the flushed walk."""
+    host = a.cpu()
+    host[host_s] = ftz(host[host_s])
+    host.index_add_(0, host_s, host_v)
+    a.copy_(host)
+
+
+def _add_by_rank(a: torch.Tensor, host_s: torch.Tensor, host_v: torch.Tensor,
+                 rank_loop: int = _RANK_LOOP) -> None:
+    """``ordered_add_plain`` in general: the rows grouped by slot in row
+    order add one vectorized add per rank within a slot's run, each result
+    flushed, and a run longer than ``rank_loop`` adds the rest of its rows
+    one by one (``_serial_add``)."""
+    order = torch.sort(host_s, stable=True).indices
+    ss, vv = host_s[order], host_v[order]
+    u, counts = torch.unique_consecutive(ss, return_counts=True)
+    starts = torch.cumsum(counts, 0) - counts
+    acc = ftz(a[u.to(a.device)].cpu())
+    for r in range(min(int(counts.max()), rank_loop)):
+        live = counts > r
+        acc[live] = ftz(acc[live] + vv[starts[live] + r])
+    vn = vv.numpy()
+    for i in torch.nonzero(counts > rank_loop).flatten().tolist():
+        b, e = int(starts[i]) + rank_loop, int(starts[i] + counts[i])
+        acc[i] = float(_serial_add(acc[i].item(), vn[b:e], a.dtype))
+    a[u.to(a.device)] = acc.to(a.device)
+
+
 def _ordered(bits: torch.Tensor) -> torch.Tensor:
     """Float bits (viewed as signed integers) mapped so that integer order
     is float order with -0.0 below +0.0; the map is its own inverse."""
@@ -191,11 +286,15 @@ def _from_signed(kind: str, t: torch.Tensor) -> torch.Tensor:
 
 def _combine(kind: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Two accumulators of one lane combined (``_combine_jnp``): add, or
-    min/max that propagate NaN and order -0.0 below +0.0."""
-    if kind in ("sum", "count"):
-        return a + b
+    min/max that propagate NaN and order -0.0 below +0.0. Float operands
+    and results are flushed (``ftz``), as XLA computes on the CPU."""
     if not a.dtype.is_floating_point:
+        if kind in ("sum", "count"):
+            return a + b
         return torch.minimum(a, b) if kind == "min" else torch.maximum(a, b)
+    a, b = ftz(a), ftz(b)
+    if kind in ("sum", "count"):
+        return ftz(a + b)
     ity = torch.int64 if a.dtype == torch.float64 else torch.int32
     ka, kb = _ordered(a.view(ity)), _ordered(b.view(ity))
     pick = torch.minimum(ka, kb) if kind == "min" else torch.maximum(ka, kb)
@@ -209,18 +308,20 @@ def _seg_reduce(kind: str, v: torch.Tensor, seg: torch.Tensor, num: int) -> torc
     into ``num`` segments, empty ones
     holding the kind's identity (``_seg_reduce_jnp``). Float sums add each
     segment's rows one after another in sorted order from +0.0, as XLA's
-    segment_sum does: the CPU's ``index_add_`` adds row after row in order
-    (a CUDA ``index_add_`` adds with atomics in no fixed order, so on the
-    card the plain version sums on the host). Every other reduction is
-    independent of order."""
+    segment_sum does, flushing subnormals at every add
+    (``ordered_add_plain``, on the host: a CUDA ``index_add_`` adds with
+    atomics in no fixed order). Every other reduction is independent of
+    order; a float min/max compares and keeps flushed values."""
     ident = _identity(kind, np.dtype(str(v.dtype).replace("torch.", ""))).item()
     out = torch.full((num,), ident, dtype=v.dtype, device=v.device)
     if kind in ("sum", "count"):
         if not v.dtype.is_floating_point:
             return out.index_add_(0, seg, v)
-        return out.copy_(out.cpu().index_add_(0, seg.cpu(), v.cpu()))
+        ordered_add_plain(out, seg, v)
+        return out
     if not v.dtype.is_floating_point:
         return out.scatter_reduce_(0, seg, v, "amin" if kind == "min" else "amax")
+    v = ftz(v)
     ity = torch.int64 if v.dtype == torch.float64 else torch.int32
     nan_v = torch.isnan(v)
     key = _ordered(out.view(ity))

@@ -50,7 +50,7 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
-from .aggregate import _identity
+from .aggregate import _identity, ftz, ordered_add_plain
 from .staging import aligned
 
 _PKG = Path(__file__).resolve().parents[1]
@@ -274,34 +274,6 @@ def widen(t: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
     return t.to(dt)
 
 
-def ftz32(t: torch.Tensor) -> torch.Tensor:
-    """A float32 tensor with each subnormal replaced by the zero of its sign:
-    XLA's float32 arithmetic reads subnormal operands and writes subnormal
-    results so, on the CPU and the TPU. Other dtypes pass through."""
-    if t.dtype != torch.float32:
-        return t
-    return torch.where((t.view(torch.int32) & 0x7F800000) == 0, t * 0, t)
-
-
-def _ordered_add_f32_plain(a: torch.Tensor, s: torch.Tensor, v: torch.Tensor) -> None:
-    """Add float32 rows into ``a`` one after another in row order, each add
-    flushing subnormal operands and result (K1's add.rn.ftz.f32): the rows
-    grouped by slot in row order, then one vectorized add per rank within a
-    slot's run, so the loop runs as long as the longest run."""
-    if len(s) == 0:
-        return
-    host_s, host_v = s.cpu(), ftz32(v.cpu())
-    order = torch.sort(host_s, stable=True).indices
-    ss, vv = host_s[order], host_v[order]
-    u, counts = torch.unique_consecutive(ss, return_counts=True)
-    starts = torch.cumsum(counts, 0) - counts
-    acc = ftz32(a[u.to(a.device)].cpu())
-    for r in range(int(counts.max())):
-        live = counts > r
-        acc[live] = ftz32(acc[live] + vv[starts[live] + r])
-    a[u.to(a.device)] = acc.to(a.device)
-
-
 def ordered_add(kind: str, dtype: torch.dtype) -> bool:
     """A float sum lane: K1 adds its rows in row order, not by atomics."""
     return kind in ("sum", "count") and dtype.is_floating_point
@@ -372,25 +344,19 @@ def _ordered(bits: torch.Tensor) -> torch.Tensor:
 
 
 def slot_scatter_combine_plain(state, kinds, slots, vals) -> None:
-    """Plain PyTorch version of K1 (same semantics, any device). Float64
-    sums go through the CPU's ``index_add_``, which adds row after row in
-    order (on the card the plain version copies such a lane to the host and
-    back: a CUDA ``index_add_`` adds with atomics in no fixed order);
-    float32 sums add rank by rank, flushing subnormals at every add, and
-    float32 min/max flush the rows and the touched slots' state, as XLA
-    and K1 do."""
+    """Plain PyTorch version of K1 (same semantics, any device). Float sums
+    add in row order on the host, flushing subnormals at every add (on the
+    card the plain version copies such a lane to the host and back: a CUDA
+    ``index_add_`` adds with atomics in no fixed order), and float min/max
+    flush the rows and the touched slots' state, as XLA and K1 do."""
     cap = state[0].shape[0]
     keep = (slots >= 0) & (slots < cap)
     s = slots[keep].long()
     for a, kind, v in zip(state, kinds, vals):
         # uint64 values as their int64 bits: torch indexes no uint64 on the card
         v = torch.ones(len(s), dtype=bits(a).dtype, device=a.device) if v is None else bits(v)[keep]
-        if ordered_add(kind, a.dtype) and a.dtype == torch.float32:
-            _ordered_add_f32_plain(a, s, v)
-        elif ordered_add(kind, a.dtype):
-            host = a.cpu()
-            host.index_add_(0, s.cpu(), v.cpu())
-            a.copy_(host)
+        if ordered_add(kind, a.dtype):
+            ordered_add_plain(a, s, v)
         elif kind in ("sum", "count"):
             bits(a).index_add_(0, s, bits(v))
         elif a.dtype == torch.uint64:
@@ -406,8 +372,8 @@ def slot_scatter_combine_plain(state, kinds, slots, vals) -> None:
             # order of the rows (XLA's scatter-min/max semantics)
             ity = torch.int64 if a.dtype == torch.float64 else torch.int32
             u, inv = torch.unique(s, return_inverse=True)
-            cur = ftz32(a[u])
-            v = ftz32(v)
+            cur = ftz(a[u])
+            v = ftz(v)
             nan_v = torch.isnan(v)
             key = _ordered(cur.view(ity))
             key.scatter_reduce_(0, inv[~nan_v], _ordered(v[~nan_v].view(ity)),

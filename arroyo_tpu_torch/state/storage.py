@@ -9,9 +9,16 @@ hardware crc32c when the ``crc32c`` module is importable, else zlib's crc32,
 and its name rides in every envelope, so either package verifies the
 other's files.
 
-Not in the port yet: object stores (``s3://``, ``gs://``; their URLs raise),
-multipart uploads, and the retry layer and fault injection around every
-operation.
+Every read, write, listing and delete runs behind the shared retry layer
+(utils/retry.py, ``storage.retry.*``) and one circuit breaker, with its
+fault point (``storage.get`` / ``put`` / ``list`` / ``delete``) inside the
+retried call, so an injected transient fault recovers in place. Puts and
+gets also honour ``corrupt=bitflip|truncate``: the bytes in flight are
+damaged after the envelope was taken, as a truncated upload or bit rot
+would be.
+
+Not in the port yet: object stores (``s3://``, ``gs://``; their URLs raise)
+and multipart uploads.
 """
 
 from __future__ import annotations
@@ -22,6 +29,10 @@ import shutil
 import struct
 import threading
 import zlib
+from typing import Callable
+
+from ..faults import fault_point
+from ..utils.retry import CircuitBreaker, RetryPolicy, default_transient, retry_call
 
 _log = logging.getLogger("arroyo_tpu_torch.storage")
 
@@ -109,6 +120,58 @@ def unwrap_footer(data: bytes, path: str = "<buffer>", verify: bool = True) -> b
     return payload
 
 
+def _apply_corruption(data: bytes, mode: str) -> bytes:
+    """Deterministic injected corruption (``storage.*:corrupt=<mode>``):
+    bitflip flips one bit of the middle byte; truncate keeps the first
+    half. Both are caught by any crc + length envelope."""
+    if not data:
+        return data
+    if mode == "truncate":
+        return data[:len(data) // 2]
+    mid = len(data) // 2
+    return data[:mid] + bytes([data[mid] ^ 0x01]) + data[mid + 1:]
+
+
+# One breaker across every storage operation: when the store is hard-down,
+# checkpoint attempts fail fast instead of each burning a full retry
+# schedule.
+_breaker = CircuitBreaker(threshold=8, cooldown_s=5.0, name="storage")
+
+
+def _policy() -> RetryPolicy:
+    return RetryPolicy.from_config("storage.retry")
+
+
+def reset_retry_state() -> None:
+    """Close the storage circuit (tests isolate retry state per test)."""
+    _breaker.reset()
+
+
+def _guarded(site: str, key: str, fn: Callable):
+    """Run one storage operation behind the shared retry layer, with the
+    fault point inside the retried callable so an injected transient fault
+    recovers in place (no job restart)."""
+
+    def _once():
+        fault_point(site, key=key)
+        return fn()
+
+    return retry_call(_once, policy=_policy(), retry_on=default_transient,
+                      description=f"{site} {key}", breaker=_breaker)
+
+
+def _guarded_v(site: str, key: str, fn: Callable):
+    """Like _guarded, but the callable receives the fault point's verdict:
+    the data paths (get, put) apply a ``corrupt`` verdict to the bytes in
+    flight."""
+
+    def _once():
+        return fn(fault_point(site, key=key))
+
+    return retry_call(_once, policy=_policy(), retry_on=default_transient,
+                      description=f"{site} {key}", breaker=_breaker)
+
+
 def _local(path: str) -> str:
     """The file-system path of a storage URL; object stores raise."""
     if path.startswith(("s3://", "gs://")):
@@ -119,20 +182,35 @@ def _local(path: str) -> str:
 
 
 def read_bytes(path: str) -> bytes:
-    with open(_local(path), "rb") as f:
-        return f.read()
+    def _do(verdict) -> bytes:
+        with open(_local(path), "rb") as f:
+            data = f.read()
+        if verdict and verdict[0] == "corrupt":
+            data = _apply_corruption(data, str(verdict[1]))
+        return data
+
+    return _guarded_v("storage.get", path, _do)
 
 
 def write_bytes(path: str, data: bytes) -> dict:
-    """Write one artifact atomically; returns its integrity envelope. The
-    temporary file is the writer's own, so two writers of one path (jobs of
-    one id in two processes) cannot tear each other's write."""
+    """Write one artifact atomically; returns the integrity envelope of the
+    true bytes, taken before any injected corruption (so a corrupt put is
+    caught on read, as a truncated upload is). The temporary file is the
+    writer's own, so two writers of one path (jobs of one id in two
+    processes) cannot tear each other's write."""
     env = checksum_of(data)
     p = _local(path)
-    tmp = f"{p}.{os.getpid()}.{threading.get_ident()}.tmp"
-    with open(tmp, "wb") as f:
-        f.write(data)
-    os.replace(tmp, p)
+
+    def _do(verdict) -> None:
+        payload = data
+        if verdict and verdict[0] == "corrupt":
+            payload = _apply_corruption(payload, str(verdict[1]))
+        tmp = f"{p}.{os.getpid()}.{threading.get_ident()}.tmp"
+        with open(tmp, "wb") as f:
+            f.write(payload)
+        os.replace(tmp, p)
+
+    _guarded_v("storage.put", path, _do)
     return env
 
 
@@ -162,16 +240,19 @@ def exists(path: str) -> bool:
 
 
 def isdir(path: str) -> bool:
-    return os.path.isdir(_local(path))
+    p = _local(path)
+    return _guarded("storage.list", path, lambda: os.path.isdir(p))
 
 
 def listdir(path: str) -> list[str]:
     """Immediate children, names only, sorted."""
-    return sorted(os.listdir(_local(path)))
+    p = _local(path)
+    return _guarded("storage.list", path, lambda: sorted(os.listdir(p)))
 
 
 def remove(path: str) -> None:
-    os.remove(_local(path))
+    p = _local(path)
+    _guarded("storage.delete", path, lambda: os.remove(p))
 
 
 def rmtree(path: str) -> None:

@@ -18,11 +18,19 @@ from the ``"final"`` snapshot it writes at end of data.
 
 The port writes the npz codec for either value of ``checkpoint.file-format``
 ("parquet", the default, or "npz"), as the JAX package itself does where
-pyarrow is missing, as on the card; another value is refused. Reading a ``.parquet`` state file raises. Values pickled into a
-global_keyed table are built-in Python and numpy values only, and a pickle
-naming anything else is refused, so neither package ever unpickles the
-other's classes. Not in the port yet: compaction (``compact_operator``,
-``compact_job``) and live-evolution mappings; both raise.
+pyarrow is missing, as on the card; another value is refused. Reading a
+``.parquet`` state file raises. Values pickled into a global_keyed table
+are built-in Python and numpy values only, and a pickle naming anything
+else is refused, so neither package ever unpickles the other's classes.
+
+Compaction (``compact_operator`` / ``compact_job``) merges an epoch's
+per-subtask files into one generation-1 file per table,
+``table-{name}-compacted-g1.{ext}``, listed by the lowest subtask's
+metadata; that metadata write is the commit point, and a restore ignores a
+directory's generation-0 entries of a table once it holds a generation-1
+one. An evolution mapping (analysis/plan_diff.py ``diff_plans``) rides as
+the sidecar ``checkpoints/evolution-{epoch:07d}.json`` and redirects a
+restore node by node.
 """
 
 from __future__ import annotations
@@ -41,8 +49,6 @@ from ..types import TaskInfo
 from . import storage
 
 _log = logging.getLogger("arroyo_tpu_torch.state")
-
-COMPACTION_SLICE = "compaction is not ported yet (ROADMAP A.3)"
 
 
 class RestoreError(RuntimeError):
@@ -314,12 +320,28 @@ class TableManager:
         parallelism. Subtasks absent from the epoch (drained before its
         barrier, as a source at end of data) come from the ``"final"``
         snapshot, read first so that the epoch's own values win a merge.
+
+        ``mapping`` is this node's entry of an evolution mapping
+        (analysis/plan_diff.py): ``{"action": "carried", "from": <old node
+        id>, ...}`` reads the predecessor's operator directory (the plan
+        diff proved the layouts identical); ``{"action": "rebuilt"}``
+        restores nothing. Under a mapping, files of tables the operator no
+        longer declares are dropped and logged.
+
         Returns the restored watermark (the min over the prior subtasks)."""
         ti = self.task_info
+        src_node = ti.node_id
         if mapping:
-            raise NotImplementedError(
-                f"restore of {ti.node_id!r} through an evolution mapping: live evolution "
-                f"(analysis/plan_diff.py) is not ported yet (ROADMAP A.3)")
+            action = mapping.get("action")
+            if action == "rebuilt":
+                _log.info("evolve: %s state rebuilt by replay (no carry-over from epoch %s)",
+                          ti.node_id, epoch)
+                return None
+            if action == "carried" and mapping.get("from"):
+                src_node = str(mapping["from"])
+                if src_node != ti.node_id:
+                    _log.info("evolve: %s restores carried state from predecessor "
+                              "operator %s", ti.node_id, src_node)
 
         def read_metas(d: str) -> list:
             out = []
@@ -336,10 +358,10 @@ class TableManager:
                     out.append(m)
             return out
 
-        opdir = operator_dir(self.storage_url, ti.job_id, epoch, ti.node_id)
+        opdir = operator_dir(self.storage_url, ti.job_id, epoch, src_node)
         metas = read_metas(opdir)
         have = {m["subtask_index"] for m in metas}
-        final_dir = operator_dir(self.storage_url, ti.job_id, "final", ti.node_id)
+        final_dir = operator_dir(self.storage_url, ti.job_id, "final", src_node)
         metas += [m for m in read_metas(final_dir) if m["subtask_index"] not in have]
         if not metas:
             return None
@@ -351,15 +373,25 @@ class TableManager:
             for fmeta in m["files"]:
                 by_table.setdefault(fmeta["table"], []).append(
                     (os.path.join(m["__dir__"], fmeta["file"]), fmeta, m["__dir__"]))
-        for tname, entries in by_table.items():
-            if any(int(fm.get("generation", 0)) >= 1 for _p, fm, _d in entries):
-                raise NotImplementedError(
-                    f"table {tname!r} of {ti.node_id!r} at epoch {epoch} was compacted; "
-                    f"{COMPACTION_SLICE}")
+        # the compaction rule: once a directory holds a generation >= 1
+        # entry of a table, its generation-0 entries of that table are
+        # leftovers of a compaction torn mid-rewrite (the merged file holds
+        # their rows). Per directory: the "final" snapshot is never
+        # compacted, and its state survives a compacted epoch beside it.
+        for tname, entries in list(by_table.items()):
+            compacted = {d for _p, fm, d in entries if int(fm.get("generation", 0)) >= 1}
+            if compacted:
+                by_table[tname] = [(p, fm, d) for p, fm, d in entries
+                                   if int(fm.get("generation", 0)) >= 1 or d not in compacted]
         for tname, es in by_table.items():
             # the "final" snapshot's files load before the epoch's own
             entries = [(p, fm) for p, fm, _d in sorted(es, key=lambda e: e[2] != final_dir)]
             spec = spec_by_name.get(tname)
+            if mapping and spec is None:
+                _log.warning("evolve: dropping checkpointed table %r of %s (%d file(s)): "
+                             "not declared by the evolved operator", tname, ti.node_id,
+                             len(entries))
+                continue
             kind = entries[0][1].get("kind")
             try:
                 if kind == "global_keyed":
@@ -378,11 +410,131 @@ class TableManager:
 
 
 def compact_operator(storage_url: str, job_id: str, epoch, node_id: str) -> int:
-    raise NotImplementedError(f"compact_operator of {node_id!r}: {COMPACTION_SLICE}")
+    """Merge an operator's per-subtask state files of one epoch into one
+    generation-1 file per table, listed by the lowest subtask's metadata;
+    the other subtasks keep their watermarks and list no file of a merged
+    table, so a restore reads the data once and re-shards it by key range.
+    Returns the number of files removed.
+
+    Crash consistency: the generation-1 holder's metadata lands first and
+    is the commit point (a restore then ignores the directory's
+    generation-0 entries of the table), the other metadata rewrites follow,
+    and the old files go last; a crash between any two steps leaves the
+    epoch restorable without loss or double reads. A re-run after a torn
+    compaction sweeps orphans and finishes the cleanup instead of merging
+    again."""
+    opdir = operator_dir(storage_url, job_id, epoch, node_id)
+    if not storage.isdir(opdir):
+        return 0
+    metas = []
+    for fn in storage.listdir(opdir):
+        if fn.startswith("metadata-") and fn.endswith(".json"):
+            p = os.path.join(opdir, fn)
+            metas.append((fn, load_json_with_integrity(storage.read_text(p), p,
+                                                       _should_verify())))
+    if not metas:
+        return 0
+    removed = 0
+    # orphan sweep: a table file no metadata lists is a leftover of a torn
+    # compaction (a generation-0 file de-listed before its deletion, or a
+    # merged file never committed); its live rows are held elsewhere
+    referenced = {fm["file"] for _fn, m in metas for fm in m["files"]}
+    for fn in storage.listdir(opdir):
+        if fn.startswith("table-") and fn not in referenced:
+            try:
+                storage.remove(os.path.join(opdir, fn))
+                removed += 1
+            except FileNotFoundError:
+                pass
+    # resume a torn compaction: a generation >= 1 entry means the table's
+    # switch committed; drop the stale generation-0 entries and files
+    # (merging again would overwrite the live merged file with part of it)
+    done_tables = {fm["table"] for _fn, m in metas for fm in m["files"]
+                   if int(fm.get("generation", 0)) >= 1}
+    for fn, m in metas:
+        stale = [fm for fm in m["files"]
+                 if fm["table"] in done_tables and int(fm.get("generation", 0)) == 0]
+        if stale:
+            m["files"] = [fm for fm in m["files"] if fm not in stale]
+            storage.write_text(os.path.join(opdir, fn), dump_json_with_integrity(m))
+            for fm in stale:
+                try:
+                    storage.remove(os.path.join(opdir, fm["file"]))
+                    removed += 1
+                except FileNotFoundError:
+                    pass
+    by_table: dict[str, list[dict]] = {}
+    for _fn, m in metas:
+        for fmeta in m["files"]:
+            if int(fmeta.get("generation", 0)) == 0 and fmeta["table"] not in done_tables:
+                by_table.setdefault(fmeta["table"], []).append(fmeta)
+    merged_files: dict[str, dict] = {}
+    ext = _checkpoint_format()
+    for tname, fmetas in by_table.items():
+        if len(fmetas) < 2:
+            continue
+        kind = fmetas[0]["kind"]
+        out_name = f"table-{tname}-compacted-g1.{'bin' if kind == 'global_keyed' else ext}"
+        out_path = os.path.join(opdir, out_name)
+        if kind == "global_keyed":
+            data: dict = {}
+            for fm in fmetas:
+                data.update(loads_values(storage.read_bytes(os.path.join(opdir, fm["file"]))))
+            env = storage.write_bytes(out_path, pickle.dumps(data))
+            merged = {**fmetas[0], **env}
+            if any("spill_runs" in fm for fm in fmetas):
+                merged["spill_runs"] = sorted(
+                    {rf for fm in fmetas for rf in fm.get("spill_runs", ())})
+        else:
+            parts = [read_columnar(os.path.join(opdir, fm["file"]), expect=fm)
+                     for fm in fmetas]
+            cols = {n: np.concatenate([p[n] for p in parts]) for n in parts[0].keys()}
+            env = write_columnar(out_path, cols)
+            merged = {**fmetas[0], **env}
+            merged["min_timestamp"] = min(fm["min_timestamp"] for fm in fmetas)
+            merged["max_timestamp"] = max(fm["max_timestamp"] for fm in fmetas)
+            if all("min_key" in fm for fm in fmetas):
+                merged["min_key"] = min(fm["min_key"] for fm in fmetas)
+                merged["max_key"] = max(fm["max_key"] for fm in fmetas)
+        merged["file"] = out_name
+        merged["generation"] = 1
+        merged_files[tname] = merged
+    if not merged_files:
+        return removed
+    # commit order: the merged files are written (orphans if we die now);
+    # the holder's metadata lands first (the commit point); the other
+    # metadata drop their generation-0 entries; the old files go last
+    holder = min(mm["subtask_index"] for _f, mm in metas)
+    ordered = sorted(metas, key=lambda fm_m: fm_m[1]["subtask_index"] != holder)
+    for fn, m in ordered:
+        kept = [fm for fm in m["files"]
+                if fm["table"] not in merged_files or int(fm.get("generation", 0)) > 0]
+        if m["subtask_index"] == holder:
+            kept.extend(merged_files.values())
+        m["files"] = kept
+        storage.write_text(os.path.join(opdir, fn), dump_json_with_integrity(m))
+    for fmetas in by_table.values():
+        if len(fmetas) < 2:
+            continue
+        for fm in fmetas:
+            try:
+                storage.remove(os.path.join(opdir, fm["file"]))
+                removed += 1
+            except FileNotFoundError:
+                pass
+    return removed
 
 
 def compact_job(storage_url: str, job_id: str, epoch) -> int:
-    raise NotImplementedError(f"compact_job of epoch {epoch}: {COMPACTION_SLICE}")
+    """Compact every operator of one completed checkpoint."""
+    cdir = checkpoint_dir(storage_url, job_id, epoch)
+    if not storage.isdir(cdir):
+        return 0
+    total = 0
+    for fn in storage.listdir(cdir):
+        if fn.startswith("operator-"):
+            total += compact_operator(storage_url, job_id, epoch, fn[len("operator-"):])
+    return total
 
 
 QUARANTINE_MARKER = "quarantine.json"
@@ -473,6 +625,33 @@ def read_job_checkpoint_metadata(storage_url: str, job_id: str, epoch: int) -> O
     """The epoch's marker, or None when it is missing, torn or fails its
     checksum: the predicate latest_complete_checkpoint selects on."""
     path = os.path.join(checkpoint_dir(storage_url, job_id, epoch), "metadata.json")
+    if not storage.exists(path):
+        return None
+    try:
+        return load_json_with_integrity(storage.read_text(path), path, _should_verify(True))
+    except (json.JSONDecodeError, OSError, storage.IntegrityError):
+        return None
+
+
+def evolution_mapping_path(storage_url: str, job_id: str, epoch: int) -> str:
+    return os.path.join(storage_url, job_id, "checkpoints", f"evolution-{epoch:07d}.json")
+
+
+def write_evolution_mapping(storage_url: str, job_id: str, epoch: int, mapping: dict) -> str:
+    """Persist the evolution mapping (analysis/plan_diff.py ``diff_plans``)
+    that an evolved plan restores ``epoch`` through: a storage sidecar with
+    its integrity envelope, published atomically, so a crash leaves no
+    mapping or the whole one."""
+    path = evolution_mapping_path(storage_url, job_id, epoch)
+    storage.makedirs(os.path.dirname(path))
+    storage.write_text(path, dump_json_with_integrity(mapping))
+    return path
+
+
+def read_evolution_mapping(storage_url: str, job_id: str, epoch: int) -> Optional[dict]:
+    """The epoch's evolution mapping, or None when it is missing, torn or
+    fails its checksum."""
+    path = evolution_mapping_path(storage_url, job_id, epoch)
     if not storage.exists(path):
         return None
     try:

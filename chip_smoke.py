@@ -227,6 +227,30 @@ non-zero, printing no result):
               q5's open bin is spilled to the host store at bench.py's
               sizes), K1's merge mode at the restores of q7c and q5, by the
               kernels module's counters; K8-K10 at the mesh restores.
+23. recovery -- crashes, bit rot, compaction and plan changes at bench.py's
+              sizes, storage in a temporary directory the phase removes.
+              Crash: q7c and q7m fused with worker:crash@barrier=2 on the
+              window's subtask (arroyo_tpu_torch.faults) after epoch 1;
+              epoch 2 holds state files and no marker, pick_restore_epoch
+              gives 1, and a fresh engine's restore (K1's merge for q7c,
+              K8-K10 for q7m, by the counters) with the first run's windows
+              equals the oracle. Bit rot: q7c's epoch 2 written under
+              storage.put:corrupt=truncate@match=table-; fsck_job finds
+              FS005 on epoch 2 alone, pick_restore_epoch quarantines it and
+              falls back to 1 (CHECKPOINT_QUARANTINED, RESTORE_FELL_BACK),
+              the restore reaches the oracle, and so does one under a
+              transient storage.get:fail_once (retried in place).
+              Compaction: q7 with its window at parallelism 4, epoch 1, then
+              Engine.compact(1) leaves one generation-1 file per table of
+              agg; restores at 4 and 2 reach the oracle with K1's merge;
+              the compaction torn after each of its three metadata writes
+              (storage.put:fail@match=metadata-&after=N) restores to the
+              oracle and a re-run finishes it. Plan gate: q7c's epoch 1
+              restored under a 20 s window, and under a no-op filter
+              without the evolution sidecar, is refused before any task
+              starts, naming both plan hashes; with diff_plans's mapping
+              written it reaches the oracle. fsck_job finds no error in any
+              clean job. Each case's times print on the phase's line.
 
 ``--only a,b`` runs those phases alone after probe and build (a short
 check) and prints no result line. ``--only segment_sweep`` (in no default
@@ -286,9 +310,13 @@ from arroyo_tpu_torch.ops.aggregate import DeviceHashAggregator, _identity, comb
 from arroyo_tpu_torch.operators.base import TableSpec
 from arroyo_tpu_torch.ops.slot_agg import SlotAggregator
 from arroyo_tpu_torch.parallel import ShardedAggregator, all_to_all, make_mesh, sharded_agg
-from arroyo_tpu_torch.state.integrity import pick_restore_epoch
-from arroyo_tpu_torch.state.tables import (TableManager, checkpoint_dir, is_quarantined,
-                                           latest_complete_checkpoint)
+from arroyo_tpu_torch import faults
+from arroyo_tpu_torch.analysis.plan_diff import diff_plans
+from arroyo_tpu_torch.faults import InjectedFault
+from arroyo_tpu_torch.state.integrity import fsck_job, pick_restore_epoch
+from arroyo_tpu_torch.state.tables import (TableManager, checkpoint_dir, compact_job,
+                                           is_quarantined, latest_complete_checkpoint,
+                                           read_job_checkpoint_metadata, write_evolution_mapping)
 from arroyo_tpu_torch.types import TaskInfo
 
 WIDTH = 10_000_000
@@ -388,24 +416,31 @@ def build(out_dir: str) -> dict:
 # ---------------------------------------------------------------- q7
 
 
-def build_q7(rows: list, event_count: int) -> Graph:
-    """bench.py's q7: bids -> tumbling 10 s MAX(price) + COUNT per auction."""
+def build_q7(rows: list, event_count: int, parallelism: int = 1, width: int = None,
+             noop_filter: bool = False) -> Graph:
+    """bench.py's q7: bids -> tumbling 10 s MAX(price) + COUNT per auction;
+    ``parallelism`` subtasks of the window (each its own slot store). The
+    recovery phase's plan edits: another window ``width``, and a VALUE node
+    that also filters ``price >= 0`` (no bid is dropped)."""
     S = Schema.of([("x", "int64"), (TIMESTAMP_FIELD, "int64")])
     g = Graph()
     g.add_node(Node("src", OpName.SOURCE, {
         "connector": "nexmark", "event_count": event_count, "inter_event_micros": 1000,
         "first_event_micros": 0, "include_strings": False,
         "columns": ["bid.auction", "bid.price"]}, 1))
+    filt = Col("bid")
+    if noop_filter:
+        filt = BinOp("and", filt, BinOp(">=", Col("bid.price"), Lit(0)))
     g.add_node(Node("bids", OpName.VALUE, {
         "projections": [("auction", Col("bid.auction")), ("price", Col("bid.price"))],
-        "filter": Col("bid")}, 1))
+        "filter": filt}, 1))
     g.add_node(Node("wm", OpName.WATERMARK, {
         "expr": Col(TIMESTAMP_FIELD), "interval_micros": 1_000_000}, 1))
     g.add_node(Node("key", OpName.KEY, {"keys": [("auction", Col("auction"))]}, 1))
     g.add_node(Node("agg", OpName.TUMBLING_AGGREGATE, {
-        "width_micros": WIDTH, "key_fields": ["auction"],
+        "width_micros": width or WIDTH, "key_fields": ["auction"],
         "aggregates": [("max_price", "max", Col("price")), ("bids", "count", None)],
-        "input_dtype_of": lambda e: np.dtype(np.int64)}, 1))
+        "input_dtype_of": lambda e: np.dtype(np.int64)}, parallelism))
     g.add_node(Node("sink", OpName.SINK, {"connector": "vec", "rows": rows, "columnar": True}, 1))
     g.add_edge("src", "bids", EdgeType.FORWARD, S)
     g.add_edge("bids", "wm", EdgeType.FORWARD, S)
@@ -473,30 +508,99 @@ class BarrierGate(queue.Queue):
     ``polls``-th poll (the nexmark source polls once before each batch) until
     a control message arrives: a checkpoint triggered once ``reached`` is set
     lands after exactly ``polls - 1`` batches, whatever the machine's speed.
+    ``polls`` may name several polls, each held the same way
+    (``reached_at[p]``), so each of several epochs lands at its own batch.
     Both packages' sources poll through ``get_nowait``."""
 
-    def __init__(self, polls: int, timeout_s: float = 600.0):
+    def __init__(self, polls, timeout_s: float = 600.0):
         super().__init__()
-        self.polls = polls
+        holds = (polls,) if isinstance(polls, int) else tuple(polls)
+        self.polls = holds[0]
         self.timeout_s = timeout_s
         self.n = 0
-        self.reached = threading.Event()
+        self.reached_at = {p: threading.Event() for p in holds}
+        self.reached = self.reached_at[self.polls]
 
     def get_nowait(self):
         self.n += 1
-        if self.n == self.polls:
-            self.reached.set()
+        if self.n in self.reached_at:
+            self.reached_at[self.n].set()
             return self.get(timeout=self.timeout_s)
         return super().get_nowait()
 
 
-def gate_source(eng, polls: int) -> BarrierGate:
-    """Build ``eng`` (either package's Engine) and gate its source task."""
+def gate_source(eng, polls) -> BarrierGate:
+    """Build ``eng`` (either package's Engine) and gate its source task
+    (at one poll, or at each of several)."""
     if not eng.tasks:
         eng.build()
     gate = BarrierGate(polls)
     eng.tasks[("src", 0)].control_queue = gate
     return gate
+
+
+def run_gated_epochs(eng, holds, then_stop: bool = True, timeout: float = 600.0,
+                     before_epoch=None) -> dict:
+    """Start ``eng`` (either package's Engine) with its source held at each
+    poll of ``holds``; at the i-th hold checkpoint epoch i + 1 and wait for
+    it (the last with ``then_stop``), then stop and join. ``before_epoch(e)``
+    runs just before epoch e's trigger. Returns each epoch's
+    barrier-to-ack ms."""
+    gate = gate_source(eng, holds)
+    eng.start()
+    acks = {}
+    for i, p in enumerate(holds):
+        if not gate.reached_at[p].wait(timeout):
+            raise AssertionError(f"{eng.job_id}: the source never reached poll {p}")
+        if before_epoch is not None:
+            before_epoch(i + 1)
+        t0 = time.perf_counter()
+        res = eng.checkpoint_and_wait(i + 1, timeout=timeout,
+                                      then_stop=then_stop and i == len(holds) - 1)
+        acks[i + 1] = (time.perf_counter() - t0) * 1e3
+        if not res:
+            raise AssertionError(f"{eng.job_id}: epoch {i + 1} did not complete: {res!r}")
+    eng.stop()
+    eng.join(timeout=timeout)
+    return acks
+
+
+def window_node(eng, name: str = "agg") -> str:
+    """The node of ``eng``'s (chained) graph that holds operator ``name``."""
+    return next(n for n in eng.graph.nodes if name in n.split("+"))
+
+
+def crash_at_last_barrier(eng, holds, timeout: float = 600.0) -> float:
+    """Like run_gated_epochs, but the last epoch's barrier crashes a task (a
+    ``worker:crash`` fault installed by the caller): the epochs before it
+    complete, the last fails the job loudly (checkpoint_and_wait and join
+    raise). Returns the ms from the last trigger to the failure."""
+    gate = gate_source(eng, holds)
+    eng.start()
+    for i, p in enumerate(holds):
+        if not gate.reached_at[p].wait(timeout):
+            raise AssertionError(f"{eng.job_id}: the source never reached poll {p}")
+        if i < len(holds) - 1:
+            if not eng.checkpoint_and_wait(i + 1, timeout=timeout):
+                raise AssertionError(f"{eng.job_id}: epoch {i + 1} did not complete")
+            continue
+        t0 = time.perf_counter()
+        try:
+            eng.checkpoint_and_wait(i + 1, timeout=timeout)
+        except RuntimeError as e:
+            if "injected" not in str(e):
+                raise
+            crash_ms = (time.perf_counter() - t0) * 1e3
+        else:
+            raise AssertionError(f"{eng.job_id}: epoch {i + 1} completed through its crash")
+    try:
+        eng.join(timeout=timeout)
+    except RuntimeError as e:
+        if "injected" not in str(e):
+            raise
+    else:
+        raise AssertionError(f"{eng.job_id}: the job ended cleanly after a crash")
+    return crash_ms
 
 
 def drive_q7() -> tuple[list, float, object]:
@@ -2368,6 +2472,28 @@ def scatter_edge_cases(rng, long_run: int = 128) -> list:
             a[9] = np.float32(-2e-40)  # slot 9 adds +-0.0 alone below
             v[:] = pool[rng.integers(0, len(pool), len(v))]
             v[cases[-1]["slots"] == 9] = rng.choice(np.array([-0.0, 0.0], np.float32), 4)
+    # float64 subnormals (below DBL_MIN), which XLA on the CPU reads and
+    # writes as the zero of their sign too (C8): the same shape of case
+    add("float64 subnormals and -0.0", rng.permutation(np.concatenate(
+        [np.repeat(np.arange(8), 3), np.full(L + 5, 8), np.full(4, 9)])), specials=False)
+    pool = np.array([1e-310, -1e-310, 3e-309, -3e-309, -0.0, 0.0, 3e-308, -2.9e-308, 1.0])
+    for (_k, dt), a, v in zip(lanes, cases[-1]["state"], cases[-1]["vals"]):
+        if dt == np.float64:
+            a[:4] = np.array([1e-310, -1e-310, 2.3e-308, -0.0])
+            a[9] = -2e-310  # slot 9 adds +-0.0 alone below
+            v[:] = pool[rng.integers(0, len(pool), len(v))]
+            v[cases[-1]["slots"] == 9] = rng.choice(np.array([-0.0, 0.0]), 4)
+    # float64 sums whose operands sit at csrc/float_flush.cuh's bound: 2^-970
+    # (an exponent field of 53) and 2^-970 - 2^-1023 cancel to a subnormal,
+    # so the fast pass must hand such runs to the exact pass
+    add("float64 sums cancelling at the fast pass's bound", rng.permutation(np.concatenate(
+        [np.repeat(np.arange(8), 3), np.full(L + 5, 8), np.full(4, 9)])), specials=False)
+    pool = np.array([2.0 ** -970, -2.0 ** -970, 2.0 ** -970 - 2.0 ** -1023,
+                     -(2.0 ** -970 - 2.0 ** -1023), 0.0, -0.0])
+    for (_k, dt), a, v in zip(lanes, cases[-1]["state"], cases[-1]["vals"]):
+        if dt == np.float64:
+            a[:10] = pool[rng.integers(0, len(pool), 10)]
+            v[:] = pool[rng.integers(0, len(pool), len(v))]
     return cases
 
 
@@ -2433,9 +2559,10 @@ def check_scatter_case(case: dict, idx_dt, merge: bool, dev) -> None:
 
 
 def add_chain_ns(dev, n: int = 1 << 21) -> dict:
-    """ns per add of one thread's chain of dependent __dadd_rn / __fadd_rn
-    (csrc/slot_agg.cu add_chain_kernel), by dtype: a slot's run of float
-    sums can go no faster (K1's chain floor)."""
+    """ns per add of one thread's chain of dependent adds, by dtype
+    (csrc/slot_agg.cu add_chain_kernel: float64 bare __dadd_rn, float32
+    add.rn.ftz.f32): a slot's run of float sums can go no faster (K1's chain
+    floor)."""
     lib = kernels.build_library()
     x = torch.tensor([1.0, 1e-3], dtype=torch.float64, device=dev)
     out = torch.empty(1, dtype=torch.float64, device=dev)
@@ -2574,6 +2701,21 @@ def time_kernels(rng, lanes, cap, B, R, dev) -> dict:
         bytes=k1_bytes, rows=B, touched_slots=touched,
         ordered_lanes=sum(kernels.ordered_add(k, dt) for k, dt in lanes),
         longest_run=int(torch.bincount(s_lib).max()))}
+    zero = [i for i, (k, dt) in enumerate(lanes) if k == "sum" and dt == torch.float64]
+    if zero:
+        # the same rows with each float64 sum's values and state 0: every
+        # partial sum is exactly zero, and K1's fast pass stands
+        zst, zvals = [a.clone() for a in st], list(vals)
+        for i in zero:
+            zst[i].zero_()
+            zvals[i] = torch.zeros_like(vals[i])
+        zplain = [a.clone() for a in zst]
+        kernels.slot_scatter_combine(zst, kinds, slots, zvals)
+        kernels.slot_scatter_combine_plain(zplain, kinds, slots, zvals)
+        for i in zero:
+            lane_err(zst[i], zplain[i], "K1 zero sums")
+        out["slot_scatter_combine"]["zero_sums_ms"] = measure(
+            lambda: kernels.slot_scatter_combine(zst, kinds, slots, zvals))["device_ms"]
     if out["slot_scatter_combine"]["ordered_lanes"]:
         # K5 in range mode on the same slots, as K1's float sums run it
         clamped = torch.where(slots < cap, slots.long(), torch.full_like(slots.long(), cap))
@@ -3726,6 +3868,20 @@ def sort_reduce_edge_cases(rng) -> list:
     c = case("every row invalid, past 8192 rows a shard", 2, 9000, valid_frac=0.5,
              expect={"path": "block", "synced": True, "live": 0, "launches": 3})
     c["valid"][:] = False
+    cases.append(c)
+    # float subnormals, which XLA on the CPU reads and writes as the zero of
+    # their sign: in every float lane, with sums that cancel below
+    # the smallest normal, on few keys so that runs are long
+    c = case("float32 and float64 subnormals and -0.0", 2, 1000, n_keys=12)
+    pools = {np.dtype(np.float64): np.array([1e-310, -1e-310, 3e-308, -2.9e-308, 5e-324,
+                                             -0.0, 0.0, 1.0, 2.0 ** -970,
+                                             -(2.0 ** -970 - 2.0 ** -1023)]),
+             np.dtype(np.float32): np.array([1e-40, -1e-40, 3e-38, -2.9e-38, 1e-45, -0.0,
+                                             0.0, 1.0], np.float32)}
+    for (_k, dt), v in zip(K8_EDGE_LANES, c["vals"]):
+        if dt is not None and np.dtype(dt) in pools:
+            pool = pools[np.dtype(dt)]
+            v[:] = pool[rng.integers(0, len(pool), v.shape)]
     cases.append(c)
     return cases
 
@@ -5288,16 +5444,34 @@ def checkpoint_parity(name: str, build, events: int, oracle, check, table_capaci
     return info
 
 
-def merged_q7(runs: list) -> dict:
-    """q7's windows of several runs, a later run's rows winning (a restore
-    from an earlier epoch emits again what followed it)."""
+def merged_windows(runs: list, keys: tuple, values: tuple) -> dict:
+    """The windows of several runs, keyed by the ``keys`` columns, a later
+    run's rows winning (a restore from an earlier epoch emits again what
+    followed it); a window emitted twice within one run raises."""
     got: dict = {}
     for rows in runs:
+        seen: set = set()
         for b in rows:
-            for ws, a, m, c in zip(b["window_start"].tolist(), b["auction"].tolist(),
-                                   b["max_price"].tolist(), b["bids"].tolist()):
-                got[(ws, a)] = (m, c)
+            cols = [b[c].tolist() for c in keys + values]
+            for row in zip(*cols):
+                k, v = row[:len(keys)], row[len(keys):]
+                if k in seen:
+                    raise AssertionError(f"window {k} emitted twice in one run")
+                seen.add(k)
+                got[k] = v if len(v) > 1 else v[0]
     return got
+
+
+def merged_q7(runs: list) -> dict:
+    return merged_windows(runs, ("window_start", "auction"), ("max_price", "bids"))
+
+
+def merged_q5(runs: list) -> dict:
+    return merged_windows(runs, ("window_start", "auction"), ("bids",))
+
+
+def merged_qs(runs: list) -> dict:
+    return merged_windows(runs, ("window_start", "bidder"), ("bids", "spend"))
 
 
 def torn_and_corrupt(url_root: str) -> dict:
@@ -5547,6 +5721,276 @@ def checkpoint_phase(dev) -> dict:
     return info
 
 
+# ---------------------------------------------------------------- recovery
+
+
+def recovery_holds(events: int, parts: int = 3) -> tuple:
+    """The polls at which a recovery case's epochs land: after 1/3 and 2/3
+    of the source's batches."""
+    n = -(-events // int(tcfg.config().get("pipeline.source-batch-size")))
+    return tuple(n * k // parts + 1 for k in range(1, parts))
+
+
+def no_fsck_errors(url: str, job: str) -> float:
+    """fsck_job over a job that must be clean; returns its ms."""
+    t0 = time.perf_counter()
+    errors = [d.to_dict() for d in fsck_job(url, job) if str(d.severity) == "error"]
+    ms = (time.perf_counter() - t0) * 1e3
+    if errors:
+        raise AssertionError(f"fsck_job of {job}: {errors}")
+    return ms
+
+
+def recovery_crash(root: str) -> dict:
+    """q7c and q7m fused with worker:crash@barrier=2 on the window's
+    subtask: epoch 1 completes, epoch 2 has state files and no marker, the
+    job fails; pick_restore_epoch gives 1 and a fresh engine restored from
+    it finishes the stream (the runs' windows, the restored run's winning,
+    equal the oracle). The restore launches K1's merge (q7c) or K8-K10
+    (q7m)."""
+    want = oracle_q7(Q7_EVENTS)
+    out = {}
+    for name, extra, path in (
+            ("q7c", {}, ("slot_scatter_combine_merge",)),
+            ("q7m fused", {"device.mesh-devices": MESH_N, "segment.compile.mesh-fuse": True},
+             ("agg_sort_reduce", "agg_probe_merge", "shard_exchange"))):
+        job = f"chip-smoke-crash-{name.replace(' ', '-')}"
+        url = os.path.join(root, job)
+        bench_config(True, extra=extra)
+        rows1: list = []
+        eng = Engine(build_q7(rows1, Q7_EVENTS), job_id=job, storage_url=url)
+        eng.build()
+        faults.install(f"worker:crash@barrier=2&node={window_node(eng)}&subtask=0")
+        try:
+            crash_ms = crash_at_last_barrier(eng, recovery_holds(Q7_EVENTS))
+        finally:
+            faults.clear()
+        t0 = time.perf_counter()
+        written = epoch_bytes(url, job, 2)
+        if not written["files"] or read_job_checkpoint_metadata(url, job, 2) is not None:
+            raise AssertionError(f"{name}: epoch 2 after the crash holds {written} and its "
+                                 f"marker is {read_job_checkpoint_metadata(url, job, 2)}")
+        epoch = pick_restore_epoch(url, job)
+        if epoch != 1:
+            raise AssertionError(f"{name}: the restore picked epoch {epoch}, not 1")
+        rows2, rest = checkpoint_restore_run(build_q7, Q7_EVENTS, job, url, epoch)
+        wall_s = time.perf_counter() - t0
+        got = merged_q7([rows1, rows2])
+        if got != want:
+            diff = next(iter(set(got.items()) ^ set(want.items())), None)
+            raise AssertionError(f"{name}: restored q7 differs from the oracle: first diff {diff}")
+        missing = [k for k in path if not rest["launches"].get(k)]
+        if missing:
+            raise AssertionError(f"{name}: the restore did not launch {missing}")
+        out[name] = {"crash_detected_ms": crash_ms, "crash_to_restored_rows_s": wall_s,
+                     "epoch2_written": written, "restore_build_ms": rest["build_ms"],
+                     "restored_run_s": rest["run_s"], "windows": len(got),
+                     "restore_launches": {k: rest["launches"][k] for k in path},
+                     "fsck_ms": no_fsck_errors(url, job)}
+    return out
+
+
+def recovery_bit_rot(root: str) -> dict:
+    """q7c with epoch 2 written under storage.put:corrupt=truncate on its
+    table files: fsck_job reports FS005 errors on epoch 2 and none on 1;
+    pick_restore_epoch quarantines 2, falls back to 1 (the two events) and
+    the restore reaches the oracle; a restore under a transient
+    storage.get:fail_once recovers in place through the retry layer."""
+    want = oracle_q7(Q7_EVENTS)
+    job = "chip-smoke-bitrot"
+    url = os.path.join(root, job)
+    bench_config(True)
+    rows1: list = []
+    eng = Engine(build_q7(rows1, Q7_EVENTS), job_id=job, storage_url=url)
+
+    def corrupt_epoch_2(e):
+        if e == 2:
+            faults.install("storage.put:corrupt=truncate@match=table-")
+
+    try:
+        run_gated_epochs(eng, recovery_holds(Q7_EVENTS), before_epoch=corrupt_epoch_2)
+    finally:
+        faults.clear()
+    t0 = time.perf_counter()
+    diags = fsck_job(url, job)
+    fsck_ms = (time.perf_counter() - t0) * 1e3
+    errors = {(d.rule_id, d.site.rsplit("/", 1)[1]) for d in diags if str(d.severity) == "error"}
+    if not errors or {r for r, _s in errors} != {"FS005"} or \
+            {s for _r, s in errors} != {"checkpoint-0000002"}:
+        raise AssertionError(f"bit rot: fsck_job found {sorted(errors)}, not FS005 on epoch 2 "
+                             f"alone")
+    recorder.clear_job(job)
+    t0 = time.perf_counter()
+    epoch = pick_restore_epoch(url, job)
+    codes = [e["code"] for e in recorder.events(job)]
+    if epoch != 1 or not is_quarantined(url, job, 2) or \
+            codes != ["CHECKPOINT_QUARANTINED", "RESTORE_FELL_BACK"]:
+        raise AssertionError(f"bit rot: picked {epoch}, events {codes}")
+    rows2, rest = checkpoint_restore_run(build_q7, Q7_EVENTS, job, url, epoch)
+    fallback_s = time.perf_counter() - t0
+    got = merged_q7([rows1, rows2])
+    if got != want:
+        raise AssertionError("bit rot: the fallback restore differs from the oracle")
+    bench_config(True)
+    inj = faults.install("storage.get:fail_once@match=table-")
+    try:
+        rows3, again = checkpoint_restore_run(build_q7, Q7_EVENTS, job, url, 1)
+        fired = list(inj.fired_log)
+    finally:
+        faults.clear()
+    if len(fired) != 1 or merged_q7([rows1, rows3]) != want:
+        raise AssertionError(f"bit rot: the restore under a transient read fault fired "
+                             f"{fired} and reached the oracle: "
+                             f"{merged_q7([rows1, rows3]) == want}")
+    if not (rest["launches"].get("slot_scatter_combine_merge")
+            and again["launches"].get("slot_scatter_combine_merge")):
+        raise AssertionError("bit rot: a restore launched no K1 merge")
+    return {"fsck_ms": fsck_ms, "fsck_errors": sorted(errors), "events": codes,
+            "fallback_restore_s": fallback_s, "restore_build_ms": rest["build_ms"],
+            "transient_read_fault": {"fired": len(fired), "restore_build_ms": again["build_ms"],
+                                     "restored_run_s": again["run_s"]}}
+
+
+def agg_table_files(url: str, job: str, epoch: int = 1) -> list:
+    d = os.path.join(checkpoint_dir(url, job, epoch), "operator-agg")
+    return sorted(f for f in os.listdir(d) if f.startswith("table-"))
+
+
+COMPACTED = ["table-e-compacted-g1.bin", "table-t-compacted-g1.npz"]
+
+
+def recovery_compaction(root: str) -> dict:
+    """q7 with its window at parallelism 4 (four slot stores on the card),
+    epoch 1, then Engine.compact(1): one generation-1 file per table of
+    agg. Restores at 4 and at 2 reach the oracle with K1's merge launched.
+    The compaction torn after each of its three metadata writes restores
+    to the oracle too, and a re-run finishes the cleanup."""
+    want = oracle_q7(Q7_EVENTS)
+    job = "chip-smoke-compact"
+    url = os.path.join(root, job)
+    build4 = lambda rows, events: build_q7(rows, events, parallelism=4)  # noqa: E731
+    bench_config(True)
+    rows1: list = []
+    eng = Engine(build4(rows1, Q7_EVENTS), job_id=job, storage_url=url)
+    run_gated_epochs(eng, recovery_holds(Q7_EVENTS, 2))
+    base = os.path.join(root, job + "-uncompacted")
+    shutil.copytree(url, base)
+    before = epoch_bytes(url, job, 1)
+    n_files = len(agg_table_files(url, job))
+    t0 = time.perf_counter()
+    removed = eng.compact(1)
+    compact_ms = (time.perf_counter() - t0) * 1e3
+    if agg_table_files(url, job) != COMPACTED or n_files != 8:
+        raise AssertionError(f"compaction left {agg_table_files(url, job)} of {n_files} files")
+    out = {"compact_ms": compact_ms, "files_removed": removed, "agg_files_before": n_files,
+           "epoch_before": before, "epoch_after": epoch_bytes(url, job, 1),
+           "fsck_ms": no_fsck_errors(url, job), "restores": {}, "torn": {}}
+    for p in (4, 2):
+        bench_config(True)
+        rows2, rest = checkpoint_restore_run(
+            lambda rows, events, _p=p: build_q7(rows, events, parallelism=_p),
+            Q7_EVENTS, job, url, 1)
+        check_q7(rows1 + rows2, want)
+        if not rest["launches"].get("slot_scatter_combine_merge"):
+            raise AssertionError(f"compaction: the restore at {p} launched no K1 merge")
+        out["restores"][p] = {"build_ms": rest["build_ms"], "run_s": rest["run_s"],
+                              "k1_merge_launches": rest["launches"]["slot_scatter_combine_merge"]}
+    for tear in (1, 2, 3):
+        u = os.path.join(root, f"{job}-torn-{tear}")
+        shutil.copytree(base, u)
+        faults.install(f"storage.put:fail@match=metadata-&after={tear}")
+        try:
+            compact_job(u, job, 1)
+        except InjectedFault:
+            pass
+        else:
+            raise AssertionError(f"the compaction torn after write {tear} did not fail")
+        finally:
+            faults.clear()
+        bench_config(True)
+        rows2, rest = checkpoint_restore_run(build4, Q7_EVENTS, job, u, 1)
+        check_q7(rows1 + rows2, want)
+        if not rest["launches"].get("slot_scatter_combine_merge"):
+            raise AssertionError(f"torn compaction {tear}: the restore launched no K1 merge")
+        compact_job(u, job, 1)
+        if agg_table_files(u, job) != COMPACTED:
+            raise AssertionError(f"a re-run after tear {tear} left {agg_table_files(u, job)}")
+        out["torn"][tear] = {"restore_build_ms": rest["build_ms"], "run_s": rest["run_s"],
+                             "fsck_ms": no_fsck_errors(u, job)}
+    return out
+
+
+def recovery_plan_gate(root: str) -> dict:
+    """q7c's epoch 1 restored under changed graphs: a 20 s window is refused
+    (a RuntimeError naming both hashes) before any task starts; a no-op
+    filter added to the VALUE node is refused without the evolution
+    sidecar, and with diff_plans's mapping written (the window carried) the
+    restore reaches the oracle."""
+    want = oracle_q7(Q7_EVENTS)
+    job = "chip-smoke-evolve"
+    url = os.path.join(root, job)
+    bench_config(True)
+    rows1: list = []
+    run_gated_epochs(Engine(build_q7(rows1, Q7_EVENTS), job_id=job, storage_url=url),
+                     recovery_holds(Q7_EVENTS, 2))
+    old_hash = read_job_checkpoint_metadata(url, job, 1)["plan_hash"]
+    out = {"plan_hash": old_hash, "refused": {}}
+    for label, kw in (("20 s window", {"width": 2 * WIDTH}),
+                      ("no-op filter without a mapping", {"noop_filter": True})):
+        eng = Engine(build_q7([], Q7_EVENTS, **kw), job_id=job, storage_url=url, restore_epoch=1)
+        t0 = time.perf_counter()
+        try:
+            eng.build()
+        except RuntimeError as e:
+            if old_hash not in str(e) or eng.plan_hash not in str(e):
+                raise AssertionError(f"{label}: the refusal names neither hash: {e}")
+        else:
+            raise AssertionError(f"{label}: the restore was not refused")
+        if any(t.thread is not None for t in eng.tasks.values()):
+            raise AssertionError(f"{label}: a task started before the refusal")
+        out["refused"][label] = {"new_hash": eng.plan_hash,
+                                 "refused_in_ms": (time.perf_counter() - t0) * 1e3}
+    diff = diff_plans(build_q7([], Q7_EVENTS), build_q7([], Q7_EVENTS, noop_filter=True))
+    actions = {c.node_id: c.action for c in diff.classifications}
+    if actions.get("agg") != "carried" or diff.rejected:
+        raise AssertionError(f"diff_plans: {actions}, diagnostics {diff.diagnostics}")
+    write_evolution_mapping(url, job, 1, diff.mapping)
+    bench_config(True)
+    rows2, rest = checkpoint_restore_run(
+        lambda rows, events: build_q7(rows, events, noop_filter=True), Q7_EVENTS, job, url, 1)
+    check_q7(rows1 + rows2, want)
+    out.update(classifications=actions, restore_build_ms=rest["build_ms"],
+               restored_run_s=rest["run_s"],
+               k1_merge_launches=rest["launches"].get("slot_scatter_combine_merge", 0),
+               fsck_ms=no_fsck_errors(url, job))
+    return out
+
+
+def recovery_phase(card: str) -> dict:
+    """Recovery on the card at bench.py's sizes (see the module docstring):
+    a crash at the worst spot, bit rot, compaction and its tears, the plan
+    gate; fsck_job over every clean job; storage in a temporary directory
+    the phase removes. ``card``: nvidia-smi's name and power limit, printed
+    beside the phase's times."""
+    root = tempfile.mkdtemp(prefix="chip_smoke_recovery_")
+    try:
+        log("recovery: crash at barrier 2")
+        crash = recovery_crash(root)
+        log("recovery: bit rot")
+        rot = recovery_bit_rot(root)
+        log("recovery: compaction")
+        comp = recovery_compaction(root)
+        log("recovery: plan gate")
+        gate = recovery_plan_gate(root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        faults.clear()
+    info = {"phase": "recovery", "card": card, "crash": crash, "bit_rot": rot,
+            "compaction": comp, "plan_gate": gate}
+    emit(info)
+    return info
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out-dir", default="chip_smoke_out",
@@ -5604,6 +6048,7 @@ def run_phases(args, out_dir: str) -> int:
         "hash_agg": lambda: hash_agg_phase(dev),
         "q7_host": run_q7_host,
         "checkpoint": lambda: checkpoint_phase(dev),
+        "recovery": lambda: recovery_phase(smi),
         "segment_sweep": segment_sweep,
     }
     only = args.only.split(",") if args.only else [p for p in phases if p != "segment_sweep"]
@@ -5663,6 +6108,16 @@ def kernel_rows(res: dict) -> list:
     ck = res["checkpoint"]
     rows[0]["checkpoint"] = {"merge_launches_at_restore": ck["k1_merge_launches"],
                              "deployment_restore": ck["deployment"]["slot"]["k1_merge_launches"]}
+    rows[0]["note"] = ("C8 fixed: float64 subnormals flushed to the zero of their sign, "
+                       "operands and results, as XLA on the CPU; edge case 'float64 "
+                       "subnormals and -0.0'")
+    rec = res["recovery"]
+    rows[0]["recovery"] = {
+        "merge_launches_at_restore": {
+            "crash q7c": rec["crash"]["q7c"]["restore_launches"]["slot_scatter_combine_merge"],
+            "evolved q7c": rec["plan_gate"]["k1_merge_launches"],
+            **{f"compacted at {p}": r["k1_merge_launches"]
+               for p, r in rec["compaction"]["restores"].items()}}}
     k2["checkpoint"] = {"read_launches_at_barrier": ck["k2_read_launches"],
                         "deployment_snapshots": ck["deployment"]["slot"]["k2_read_launches"]}
     k3 = rows[2]
@@ -5677,7 +6132,8 @@ def kernel_rows(res: dict) -> list:
     rows[0]["float_sums"] = {
         shape: {k: res["kernels"]["timing"][shape]["slot_scatter_combine"][k]
                 for k in ("ms", "plain_ms", "library_ms", "bound_ms", "chain_floor_ms",
-                          "longest_run")}
+                          "zero_sums_ms", "longest_run")
+                if k in res["kernels"]["timing"][shape]["slot_scatter_combine"]}
         for shape in ("deployment", "qu")}
     rows[0]["float_sums"]["qu"]["launches"] = res["qu"]["launches"]["slot_scatter_combine"]
     segp = res["segment"]
@@ -5739,6 +6195,11 @@ def kernel_rows(res: dict) -> list:
                "max_abs_err": res["sharded"]["max_abs_err"], "ms": t["ms"],
                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
+        if name in ("agg_sort_reduce", "agg_probe_merge"):
+            row["note"] = ("float32 and float64 subnormals flushed to the zero of their "
+                           "sign in every add and compare, as XLA on the CPU")
+        if name in rec["crash"]["q7m fused"]["restore_launches"]:
+            row["launches_at_crash_restore"] = rec["crash"]["q7m fused"]["restore_launches"][name]
         if name in HASH_Q7_KERNELS:
             # the single-device table's path (B9) runs it at one shard too
             h = ht["extract" if name == "shard_extract" else name]

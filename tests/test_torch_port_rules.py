@@ -40,7 +40,11 @@ def test_port_and_chip_smoke_import_neither_jax_nor_arroyo_tpu():
             "arroyo_tpu_torch.operators.joins", "arroyo_tpu_torch.operators.updating_aggregate",
             "arroyo_tpu_torch.windows.session", "arroyo_tpu_torch.ops.sharded_kernels",
             "arroyo_tpu_torch.parallel.mesh", "arroyo_tpu_torch.parallel.sharded_agg",
-            "arroyo_tpu_torch.connectors.impulse"} <= set(mods)
+            "arroyo_tpu_torch.connectors.impulse", "arroyo_tpu_torch.faults",
+            "arroyo_tpu_torch.faults.plan", "arroyo_tpu_torch.utils.retry",
+            "arroyo_tpu_torch.analysis", "arroyo_tpu_torch.analysis.diagnostics",
+            "arroyo_tpu_torch.analysis.plan_diff", "arroyo_tpu_torch.sql.lexer",
+            "arroyo_tpu_torch.state.integrity"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -94,8 +98,8 @@ def _tiny_graph(rows, event_count=100):
 
 def test_later_slices_are_refused_not_skipped(tmp_path):
     """What the checkpoint slice leaves out raises through the entry points
-    a user calls: a checkpoint to an object store fails the job, and
-    compaction refuses."""
+    a user calls: a checkpoint to an object store fails the job; and
+    compaction refuses an epoch the engine has not completed."""
     from arroyo_tpu_torch.engine import Engine
 
     eng = Engine(_tiny_graph([], event_count=10_000_000), job_id="refused", device="cpu",
@@ -107,7 +111,7 @@ def test_later_slices_are_refused_not_skipped(tmp_path):
         eng.join(timeout=60)
     eng = Engine(_tiny_graph([]), job_id="refused", device="cpu",
                  storage_url=str(tmp_path / "ck"))
-    with pytest.raises(NotImplementedError, match="compaction is not ported"):
+    with pytest.raises(ValueError, match="not a completed checkpoint"):
         eng.compact(1)
 
 
@@ -118,49 +122,6 @@ def _refuse_parquet(tmp_path):
     path.write_bytes(b"PAR1")
     with pytest.raises(NotImplementedError, match="table-t-000.parquet"):
         read_columnar(str(path), restore=True)
-
-
-def _refuse_mapping(tmp_path):
-    from arroyo_tpu_torch.state.tables import TableManager
-    from arroyo_tpu_torch.types import TaskInfo
-
-    tm = TableManager(TaskInfo("j", "agg", "agg", 0, 1), str(tmp_path))
-    with pytest.raises(NotImplementedError, match="evolution mapping"):
-        tm.restore(1, [], mapping={"action": "carried", "from": "old"})
-
-
-def _refuse_compact(tmp_path):
-    import json
-    import os
-
-    import numpy as np
-
-    from arroyo_tpu_torch.batch import Batch
-    from arroyo_tpu_torch.operators.base import TableSpec
-    from arroyo_tpu_torch.state import storage
-    from arroyo_tpu_torch.state.tables import (TableManager, compact_job, compact_operator,
-                                               dump_json_with_integrity, operator_dir)
-    from arroyo_tpu_torch.types import TaskInfo
-
-    with pytest.raises(NotImplementedError, match="compaction is not ported"):
-        compact_job(str(tmp_path), "j", 1)
-    with pytest.raises(NotImplementedError, match="compaction is not ported"):
-        compact_operator(str(tmp_path), "j", 1, "agg")
-    # a table the JAX package compacted (its files at generation 1) is
-    # refused at restore, not read as if it were not
-    ti = TaskInfo("j", "agg", "agg", 0, 1)
-    tm = TableManager(ti, str(tmp_path))
-    tm.expiring_time_key("t").replace_all([Batch({
-        "_timestamp": np.arange(3, dtype=np.int64), "_key": np.arange(3, dtype=np.uint64)})])
-    tm.checkpoint(1, None)
-    side = os.path.join(operator_dir(str(tmp_path), "j", 1, "agg"), "metadata-000.json")
-    meta = json.loads(storage.read_text(side))
-    meta.pop("__integrity__", None)
-    for fm in meta["files"]:
-        fm["generation"] = 1
-    storage.write_text(side, dump_json_with_integrity(meta))
-    with pytest.raises(NotImplementedError, match="was compacted"):
-        TableManager(ti, str(tmp_path)).restore(1, [TableSpec("t", "expiring_time_key")])
 
 
 def _refuse_store(url):
@@ -177,14 +138,13 @@ def _refuse_store(url):
     return check
 
 
-@pytest.mark.parametrize("part", ["s3", "gs", "parquet", "mapping", "compact"])
+@pytest.mark.parametrize("part", ["s3", "gs", "parquet"])
 def test_checkpoint_parts_left_out_are_refused(part, tmp_path):
     """Each part of the checkpoint slice that the port leaves out raises,
-    and never falls back: object-store URLs, parquet state files,
-    evolution mappings and compaction (ROADMAP A.3)."""
+    and never falls back: object-store URLs and parquet state files
+    (ROADMAP A.3, A.9)."""
     {"s3": _refuse_store("s3://bucket/prefix"), "gs": _refuse_store("gs://bucket/prefix"),
-     "parquet": _refuse_parquet, "mapping": _refuse_mapping,
-     "compact": _refuse_compact}[part](tmp_path)
+     "parquet": _refuse_parquet}[part](tmp_path)
 
 
 def test_kernel_build_without_nvcc_raises(monkeypatch):

@@ -137,6 +137,45 @@ def test_float32_subnormals_and_signed_zeros_match_jax_step(merge):
     assert ((bits & 0x7F800000) != 0).sum() + (bits & 0x7FFFFFFF == 0).sum() == 9
 
 
+@pytest.mark.parametrize("merge", [False, True], ids=["hot", "merge"])
+def test_float64_subnormals_and_signed_zeros_match_jax_step(merge):
+    """XLA on the CPU reads float64 subnormal operands and writes subnormal
+    results as the zero of their sign, as it does float32: K1 does the same
+    in every float64 lane kind, at every slot a row touches (a subnormal
+    state that wins a min or max, and a sum that cancels below DBL_MIN,
+    too), and leaves untouched slots alone."""
+    kinds = KINDS
+    dtypes = (np.float64,) * 4
+    step, step_merge, *_ = _build_slot_jax(kinds, dtypes, CAP, R)
+    import jax.numpy as jnp
+
+    sub = 1e-310
+    init = []
+    for k in kinds:
+        a = np.full(CAP, _ident(k, np.float64), dtype=np.float64)
+        a[:8] = [sub, -sub, 0.0, -0.0, 3e-308, -sub, 1.0, -3e-308]
+        a[100] = sub  # never touched: stays subnormal in both
+        init.append(a)
+    slots = np.array([0, 0, 1, 1, 2, 3, 4, 4, 5, 5, 6, 6, 7, 7, 8, 9, 9, 9], dtype=np.int32)
+    v = np.array([sub, sub, -sub, -0.0, sub, -sub, -2.9e-308, 5e-324, 3e-309, 0.0,
+                  -1.0, 1e-310, 2.9e-308, -1e-300, -5e-324, 3e-308, -2.95e-308, 1e-308],
+                 dtype=np.float64)
+    js = tuple(jnp.asarray(a) for a in init)
+    ts = [torch.from_numpy(a.copy()) for a in init]
+    vals = [v] * 4
+    shipped = [x for k, x in zip(kinds, vals) if merge or k != "count"]
+    js = (step_merge if merge else step)(js, slots, tuple(shipped))
+    kernels.slot_scatter_combine(
+        ts, kinds, torch.from_numpy(slots),
+        [None if (k == "count" and not merge) else torch.from_numpy(x) for k, x in zip(kinds, vals)])
+    for k, j, t in zip(kinds, js, ts):
+        _assert_lane(t.numpy(), np.asarray(j), k)
+        assert t.numpy()[100].view(np.int64) == np.float64(sub).view(np.int64)
+    bits = ts[0].numpy()[:10].view(np.int64)
+    normal = (bits & 0x7FF0000000000000) != 0
+    assert (normal | (bits & 0x7FFFFFFFFFFFFFFF == 0)).all()
+
+
 def test_scatter_combine_int64_slots_and_duplicates():
     """int64 slot indices (the dtype for cap >= 2**31-1) are taken as well;
     one slot hit by every row sums every row."""
