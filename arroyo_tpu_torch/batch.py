@@ -14,13 +14,28 @@ Conventions:
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Iterable
+from dataclasses import dataclass, field, replace
+from typing import Iterable, Optional
 
 import numpy as np
 
 TIMESTAMP_FIELD = "_timestamp"
 KEY_FIELD = "_key"
+
+# dtype sentinels
+STRING = "string"
+_NUMPY_DTYPES = {
+    "int32": np.int32,
+    "int64": np.int64,
+    "uint64": np.uint64,
+    "float32": np.float32,
+    "float64": np.float64,
+    "bool": np.bool_,
+    # event-time micros; int64 on device, ISO-8601 strings at the
+    # format boundary (json_fmt parses/formats by schema dtype)
+    "timestamp": np.int64,
+}
+
 
 @dataclass(frozen=True)
 class Field:
@@ -28,10 +43,15 @@ class Field:
     dtype: str  # "int32"|"int64"|"uint64"|"float32"|"float64"|"bool"|"string"
     nullable: bool = False
 
+    def numpy_dtype(self):
+        if self.dtype == STRING:
+            return np.dtype(object)
+        return np.dtype(_NUMPY_DTYPES[self.dtype])
+
 
 @dataclass(frozen=True)
 class Schema:
-    """Stream schema: the fields an edge carries (informational in this slice)."""
+    """Stream schema (reference: arroyo-rpc/src/df.rs:24 ArroyoSchema)."""
 
     fields: tuple[Field, ...]
     key_fields: tuple[str, ...] = ()  # logical group-by columns
@@ -47,14 +67,43 @@ class Schema:
         fs = tuple(f if isinstance(f, Field) else Field(f[0], f[1]) for f in fields)
         return Schema(fs, tuple(key_fields), has_keys)
 
+    def field(self, name: str) -> Field:
+        for f in self.fields:
+            if f.name == name:
+                return f
+        raise KeyError(name)
+
+    def names(self) -> list[str]:
+        return [f.name for f in self.fields]
+
+    def data_names(self) -> list[str]:
+        """Field names excluding internal _timestamp/_key columns."""
+        return [f.name for f in self.fields if f.name not in (TIMESTAMP_FIELD, KEY_FIELD)]
+
+    def with_keys(self, key_fields: Iterable[str]) -> "Schema":
+        fields = self.fields
+        if KEY_FIELD not in [f.name for f in fields]:
+            fields = fields + (Field(KEY_FIELD, "uint64"),)
+        return Schema(fields, tuple(key_fields), True)
+
+    def without_keys(self) -> "Schema":
+        fields = tuple(f for f in self.fields if f.name != KEY_FIELD)
+        return Schema(fields, (), False)
+
     def to_json(self) -> dict:
-        """The JAX package's JSON form (the plan fingerprint hashes it)."""
         return {
-            "fields": [{"name": f.name, "dtype": f.dtype, "nullable": f.nullable}
-                       for f in self.fields],
+            "fields": [{"name": f.name, "dtype": f.dtype, "nullable": f.nullable} for f in self.fields],
             "key_fields": list(self.key_fields),
             "has_keys": self.has_keys,
         }
+
+    @staticmethod
+    def from_json(d: dict) -> "Schema":
+        return Schema(
+            tuple(Field(f["name"], f["dtype"], f.get("nullable", False)) for f in d["fields"]),
+            tuple(d.get("key_fields", ())),
+            d.get("has_keys", False),
+        )
 
 
 class Batch:
@@ -91,11 +140,17 @@ class Batch:
     def keys(self) -> np.ndarray:
         return self.columns[KEY_FIELD]
 
+    def with_column(self, name: str, col: np.ndarray) -> "Batch":
+        cols = dict(self.columns)
+        cols[name] = col
+        return Batch(cols)
 
     def without_columns(self, names: Iterable[str]) -> "Batch":
         drop = set(names)
         return Batch({k: v for k, v in self.columns.items() if k not in drop})
 
+    def select(self, names: Iterable[str]) -> "Batch":
+        return Batch({n: self.columns[n] for n in names})
 
     def take(self, indices: np.ndarray) -> "Batch":
         return Batch({k: v[indices] for k, v in self.columns.items()})
@@ -115,6 +170,9 @@ class Batch:
         names = batches[0].columns.keys()
         return Batch({n: np.concatenate([b.columns[n] for b in batches]) for n in names})
 
+    @staticmethod
+    def empty(schema: Schema) -> "Batch":
+        return Batch({f.name: np.empty(0, dtype=f.numpy_dtype()) for f in schema.fields})
 
     def to_pylist(self) -> list[dict]:
         names = list(self.columns.keys())
@@ -138,10 +196,10 @@ class Batch:
         return f"Batch(rows={self.num_rows}, cols={list(self.columns.keys())})"
 
 
-def object_column(values) -> np.ndarray:
+def object_column(values) -> "np.ndarray":
     """1-D object array from arbitrary python values. np.array(vals,
     dtype=object) coerces equal-length lists into a 2-D array; element-wise
-    assignment keeps list-valued cells (collected state) intact."""
+    assignment keeps list-valued cells (UDAF collect state) intact."""
     vals = list(values)
     col = np.empty(len(vals), dtype=object)
     for i, v in enumerate(vals):
@@ -153,3 +211,14 @@ def _to_py(v):
     if isinstance(v, np.generic):
         return v.item()
     return v
+
+
+def batch_from_pylist(rows: list[dict], schema: Schema) -> Batch:
+    cols = {}
+    for f in schema.fields:
+        vals = [r.get(f.name) for r in rows]
+        if f.dtype == STRING:
+            cols[f.name] = np.array(vals, dtype=object)
+        else:
+            cols[f.name] = np.array(vals, dtype=f.numpy_dtype())
+    return Batch(cols)

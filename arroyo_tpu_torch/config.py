@@ -4,7 +4,7 @@ process without one reset clearing the other).
 
 Only the sections the port reads: ``pipeline``, ``worker``,
 ``engine.coalesce``, ``segment.compile``, ``checkpoint``, ``state``,
-``storage.retry``, ``faults`` and ``device``. The checkpoint keys have the JAX package's names and meaning;
+``storage.retry``, ``faults``, ``testing`` and ``device``. The checkpoint keys have the JAX package's names and meaning;
 ``checkpoint.storage-url`` defaults to a directory under the temporary
 directory (``TMPDIR``) rather than the JAX package's ``/tmp/arroyo-tpu``,
 and the port writes npz state files for either value of
@@ -101,6 +101,10 @@ _DEFAULTS: dict[str, Any] = {
         # e.g. "storage.put:fail_once@epoch=2,worker:crash@barrier=3"
         "plan": "",
         "seed": 0,
+    },
+    "testing": {
+        # single_file: after half its input, hold until this many barriers passed
+        "source-gate-epochs": 0,
     },
     "device": {
         "torch-device": None,  # None = cuda (device.resolve_device)

@@ -46,4 +46,4 @@ def _make_sink(cfg: dict):
 
 
 def load_all() -> None:
-    from . import impulse, nexmark, vec  # noqa: F401
+    from . import impulse, nexmark, single_file, vec  # noqa: F401

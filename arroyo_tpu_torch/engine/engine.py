@@ -83,8 +83,9 @@ def construct_operator(op: OpName, cfg: dict):
     load_operators()
     if op not in _CONSTRUCTORS:
         raise NotImplementedError(
-            f"operator {op.value} is not ported yet (ROADMAP queue A); the port "
-            f"runs {sorted(o.value for o in _CONSTRUCTORS)}")
+            f"operator {op.value} is not ported yet (ROADMAP A.5: the operators the "
+            f"other smoke families need); the port runs "
+            f"{sorted(o.value for o in _CONSTRUCTORS)}")
     return _CONSTRUCTORS[op](cfg)
 
 

@@ -18,6 +18,8 @@ The same AST nodes, each with two evaluations:
 
 from __future__ import annotations
 
+import threading
+from contextlib import contextmanager
 from dataclasses import dataclass
 from functools import reduce
 from typing import Any, Callable, Optional
@@ -155,7 +157,8 @@ class BinOp(Expr):
         return _NP_BINOPS[self.op](l, r)
 
     def eval_torch(self, cols):
-        return binop_torch(self.op, self.left.eval_torch(cols), self.right.eval_torch(cols))
+        return binop_torch(self.op, self.left.eval_torch(cols), self.right.eval_torch(cols),
+                           fuse=contraction_site(self))
 
     def columns(self):
         return self.left.columns() | self.right.columns()
@@ -204,7 +207,10 @@ class Neg(Expr):
         if not isinstance(v, TVal):
             return -v  # a python scalar negates as python, like eval_jnp
         unary_type("neg", v.dt)
-        return TVal(_fneg(v.t) if v.dt.kind == "f" else torch.neg(v.t), v.dt, v.weak)
+        if v.dt.kind != "f":
+            return TVal(torch.neg(v.t), v.dt, v.weak)
+        prod = None if v.prod is None else (_fneg(v.prod[0]), v.prod[1])
+        return TVal(_fneg(v.t), v.dt, v.weak, prod)
 
     def columns(self):
         return self.inner.columns()
@@ -278,8 +284,11 @@ class Case(Expr):
         if self.otherwise is None:
             raise TypeError("CASE without ELSE")
         result = self.otherwise.eval_torch(cols)
+        other = self.otherwise
         for cond, val in reversed(self.branches):
-            result = where_torch(cond.eval_torch(cols), val.eval_torch(cols), result)
+            result = where_torch(cond.eval_torch(cols), val.eval_torch(cols), result,
+                                 minmax=is_minmax_select(cond, val, other))
+            other = None
         return result
 
     def columns(self):
@@ -440,6 +449,7 @@ class Func(Expr):
             if name == "sqrt":
                 return TVal(sqrt_torch(x), dt, weak)
             fn = torch.floor if name == "floor" else torch.ceil
+            x = flush(x)
             return TVal(nan_fix(fn(x), x), dt, weak)
         if name == "extract_epoch":
             return floordiv_torch(a[0], 1_000_000)
@@ -465,22 +475,60 @@ def _null_mask(arr) -> np.ndarray:
     return np.zeros(len(arr), dtype=bool)
 
 
+# Python UDF expressions serialize by NAME and re-resolve against the port's
+# registry on load: the function itself never crosses the wire.
+
+
+def _expr_registry() -> dict:
+    reg = {c.__name__: c for c in (Col, Lit, BinOp, Not, Neg, Cast, Case, Func)}
+    from .udf import UdfExpr
+
+    reg["UdfExpr"] = UdfExpr
+    return reg
+
+
+def _ser(v):
+    if isinstance(v, Expr):
+        return expr_to_json(v)
+    if isinstance(v, (list, tuple)):
+        return [_ser(x) for x in v]
+    return v
+
+
+def _deser(v):
+    if isinstance(v, dict) and "__e__" in v:
+        return expr_from_json(v)
+    if isinstance(v, list):
+        return tuple(_deser(x) for x in v)
+    return v
+
+
 def expr_to_json(e: Expr) -> dict:
-    """Tagged-tree form of an expression (arroyo_tpu/expr.py's serde, without
-    UDF expressions, which the port does not have)."""
+    """Tagged-tree form of an expression (the JAX package's serde)."""
     import dataclasses
 
-    def ser(v):
-        if isinstance(v, Expr):
-            return expr_to_json(v)
-        if isinstance(v, (list, tuple)):
-            return [ser(x) for x in v]
-        return v
+    from .udf import UdfExpr
 
+    if isinstance(e, UdfExpr):
+        return {"__e__": "UdfExpr", "udf_name": e.udf_name,
+                "args": [_ser(a) for a in e.args]}
     out = {"__e__": type(e).__name__}
     for f in dataclasses.fields(e):
-        out[f.name] = ser(getattr(e, f.name))
+        out[f.name] = _ser(getattr(e, f.name))
     return out
+
+
+def expr_from_json(d: dict) -> Expr:
+    kind = d["__e__"]
+    if kind == "UdfExpr":
+        from .udf import lookup_udf
+
+        u = lookup_udf(d["udf_name"])
+        if u is None:
+            raise ValueError(f"expression references unregistered UDF {d['udf_name']!r}")
+        return u.as_expr(tuple(_deser(a) for a in d["args"]))
+    cls = _expr_registry()[kind]
+    return cls(**{k: _deser(v) for k, v in d.items() if k != "__e__"})
 
 
 def eval_expr(expr: Expr, batch_cols: dict[str, np.ndarray], n: int) -> np.ndarray:
@@ -496,6 +544,39 @@ def eval_expr(expr: Expr, batch_cols: dict[str, np.ndarray], n: int) -> np.ndarr
 
 
 # ------------------------------------------------------------ device twins
+#
+# The JAX package verifies a compiled segment's first batch and then trusts
+# XLA's program, so from the second batch on its bytes are those of XLA's CPU
+# compilation, not numpy's. That code runs with denormals flushed: float
+# arithmetic, comparisons and conversions read a subnormal operand as the
+# zero of its sign and write a subnormal result as one (sign-bit operations,
+# selects, copies and C's fmod keep them). Its simplifier folds x + 0, x - 0,
+# x * 1 and x / 1 to x, x * -1 and x / -1 to a negation and x * bool to a
+# select, and divides by a literal c as a multiply by 1 / c; LLVM contracts a
+# multiply whose one use in its fusion is an add or a subtract into a fused
+# multiply-add. The twins below (the plain version of the segment kernel)
+# and the kernel compute exactly that.
+
+_CONTRACT = threading.local()
+
+
+@contextmanager
+def contraction_sites(sites: dict):
+    """Within the block, ``contraction_site(node)`` answers from ``sites``
+    (id of a BinOp node -> (left may contract, right may contract)), as the
+    segment program computed them for its plan."""
+    prev = getattr(_CONTRACT, "sites", None)
+    _CONTRACT.sites = sites
+    try:
+        yield
+    finally:
+        _CONTRACT.sites = prev
+
+
+def contraction_site(e) -> Optional[tuple]:
+    sites = getattr(_CONTRACT, "sites", None)
+    return None if sites is None else sites.get(id(e))
+
 #
 # The types of jax.numpy in 64-bit mode, shared by eval_torch (the plain
 # PyTorch version of the segment kernel) and by the kernel's code generator
@@ -700,14 +781,17 @@ def scalar_as(v, dt: np.dtype):
 
 class TVal:
     """A device-twin value: torch tensor ``t`` (uint64 as int64 bits), its
-    NumPy dtype ``dt`` and JAX's weak-type flag."""
+    NumPy dtype ``dt`` and JAX's weak-type flag. A float product also keeps
+    its two operands in ``prod`` (flushed, of dtype ``dt``), so an add that
+    XLA contracts with it can compute the fused multiply-add."""
 
-    __slots__ = ("t", "dt", "weak")
+    __slots__ = ("t", "dt", "weak", "prod")
 
-    def __init__(self, t: torch.Tensor, dt, weak: bool = False):
+    def __init__(self, t: torch.Tensor, dt, weak: bool = False, prod=None):
         self.t = t
         self.dt = np.dtype(dt)
         self.weak = weak
+        self.prod = prod
 
 
 def _tval(x) -> TVal:
@@ -752,11 +836,11 @@ def convert(v: TVal, dt: np.dtype) -> torch.Tensor:
     if src == _U64 and dt not in (_I64, _BOOL):
         raise TypeError(f"conversion of uint64 to {dt}: not in the segment kernel")
     if dt == _BOOL:
-        return v.t != 0
+        return flush(v.t) != 0
     if src.kind == "f" and dt.kind in "iu":
         return _sat_float_to_int(v.t, dt)
     if src.kind == "f" and dt.kind == "f":
-        return _float_convert(v.t, dt)
+        return flush(_float_convert(flush(v.t), dt))
     return v.t.to(TORCH_DTYPES[dt])
 
 
@@ -798,6 +882,18 @@ def _ity(t: torch.Tensor):
 
 def _fdt(t: torch.Tensor) -> np.dtype:
     return _F32 if t.dtype == torch.float32 else _F64
+
+
+_TINY = {_F32: float(np.finfo(np.float32).tiny), _F64: float(np.finfo(np.float64).tiny)}
+
+
+def flush(t: torch.Tensor) -> torch.Tensor:
+    """A float tensor with each subnormal replaced by the zero of its sign,
+    as XLA's CPU code reads float operands and writes float results
+    (denormals-are-zero, flush-to-zero); any other tensor as it is."""
+    if not t.is_floating_point():
+        return t
+    return torch.where(t.abs() < _TINY[_fdt(t)], torch.copysign(torch.zeros_like(t), t), t)
 
 
 def _dnan(like: torch.Tensor) -> torch.Tensor:
@@ -845,13 +941,18 @@ def _on_host(np_fn, *ts: torch.Tensor) -> torch.Tensor:
 
 
 def sqrt_torch(x: torch.Tensor) -> torch.Tensor:
-    """Correctly rounded sqrt; a negative operand gives the default NaN."""
+    """Correctly rounded sqrt of the flushed operand; a negative operand
+    gives the default NaN."""
+    x = flush(x)
     r = _on_host(np.sqrt, x) if x.device.type == "cpu" else torch.sqrt(x)
     return nan_fix(r, x)
 
 
 def fmod_torch(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """lax.rem of floats: C's exact fmod."""
+    """lax.rem of floats as XLA's CPU code computes it: C's exact fmod, the
+    divisor read flushed (a subnormal divisor gives NaN, as a zero does) and
+    the dividend and result as they are."""
+    b = flush(b)
     if a.device.type == "cpu":
         a, b = torch.broadcast_tensors(a, b)
         r = _on_host(np.fmod, a.contiguous(), b.contiguous())
@@ -871,13 +972,16 @@ def _fabs(x: torch.Tensor) -> torch.Tensor:
 
 
 def _fsign(x: torch.Tensor) -> torch.Tensor:
-    """lax.sign of a float: -1, +1, zero and NaN kept as they are."""
-    one = torch.ones_like(x)
-    return torch.where(x > 0, one, torch.where(x < 0, -one, x))
+    """lax.sign of a float as XLA computes it: copysign(x != 0, x) with x
+    read flushed (a subnormal gives the zero of its sign), NaN kept."""
+    nz = (flush(x) != 0).to(x.dtype)
+    return torch.where(torch.isnan(x), x, torch.copysign(nz, x))
 
 
 def _round_away(x: torch.Tensor) -> torch.Tensor:
-    """lax.round: half away from zero, the sign of a zero kept."""
+    """lax.round of the flushed operand: half away from zero, the sign of a
+    zero kept."""
+    x = flush(x)
     t = torch.trunc(x)
     return nan_fix(torch.where((x - t).abs() >= 0.5, t + torch.sign(x), t), x)
 
@@ -904,8 +1008,10 @@ def lax_rem(a: torch.Tensor, b: torch.Tensor, dt: np.dtype) -> torch.Tensor:
     return torch.where(zero, a, r)
 
 
-def _floordiv(a: torch.Tensor, b: torch.Tensor, dt: np.dtype) -> torch.Tensor:
-    """jnp.floor_divide over operands already of dtype ``dt``."""
+def _floordiv(a: torch.Tensor, b: torch.Tensor, dt: np.dtype,
+              rec: Optional[float] = None) -> torch.Tensor:
+    """jnp.floor_divide over operands already of dtype ``dt``; ``rec`` is
+    1 / b rounded in ``dt`` when b is a literal (XLA then multiplies by it)."""
     if dt.kind == "u":
         return lax_div(a, b, dt)
     if dt.kind == "i":
@@ -913,10 +1019,11 @@ def _floordiv(a: torch.Tensor, b: torch.Tensor, dt: np.dtype) -> torch.Tensor:
         fix = (torch.sign(a) != torch.sign(b)) & (lax_rem(a, b, dt) != 0)
         return torch.where(fix, q - 1, q)
     mod = fmod_torch(a, b)
-    num = nan_fix(a - mod, a, mod)
-    div = nan_fix(num / b, num, b)
-    ind = (mod != 0) & (_fsign(b) != _fsign(mod))
-    return _round_away(torch.where(ind, nan_fix(div - 1, div), div))
+    num = farith("-", a, mod)
+    div = farith("/", num, b) if rec is None else farith("*", num, torch.full_like(num, rec))
+    ind = (flush(mod) != 0) & (_fsign(b) != _fsign(mod))
+    dm1 = farith("-", div, torch.ones_like(div))
+    return _round_away(torch.where(ind, dm1, div))
 
 
 def urem64(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -945,23 +1052,27 @@ def _mod(a: torch.Tensor, b: torch.Tensor, dt: np.dtype) -> torch.Tensor:
         tm = lax_rem(a, b, dt)
     else:
         tm = fmod_torch(a, b)
-    plus = ((tm < 0) != (b < 0)) & (tm != 0)
-    r = torch.where(plus, nan_fix(tm + b, tm, b) if dt.kind == "f" else tm + b, tm)
-    if dt.kind == "f":
-        r = torch.where(r == 0, torch.copysign(torch.zeros_like(r), b), r)
-    return r
+    if dt.kind != "f":
+        plus = ((tm < 0) != (b < 0)) & (tm != 0)
+        return torch.where(plus, tm + b, tm)
+    ft, fb = flush(tm), flush(b)
+    plus = ((ft < 0) != (fb < 0)) & (ft != 0)
+    r = torch.where(plus, farith("+", tm, b), tm)
+    return torch.where(flush(r) == 0, torch.copysign(torch.zeros_like(r), b), r)
 
 
-def binop_torch(op: str, l, r):
-    """BinOp.eval_torch: the twin of BinOp.eval_jnp."""
+def binop_torch(op: str, l, r, fuse=None):
+    """BinOp.eval_torch: the twin of BinOp.eval_jnp as XLA's CPU code
+    computes it. ``fuse`` is the node's contraction site (which operand a
+    multiply-add may take, ``contraction_site``)."""
     if not isinstance(l, TVal) and not isinstance(r, TVal):
         l = _tval(l)  # two Python scalars: jax.numpy computes on arrays
     lt, rt = jax_type(l), jax_type(r)
     if op == "/" and _is_int_operand(l) and _is_int_operand(r):
         ct = int_div_type(lt, rt)
-        a, b = _operands(l, r, ct)
         if ct.kind == "f":
-            return TVal(nan_fix(a / b, a, b), ct, False)
+            return _float_binop("/", l, r, ct, False, None)
+        a, b = _operands(l, r, ct)
         return TVal(lax_div(a, b, ct), ct, False)
     ct, rdt, weak = binop_type(op, lt, rt)
     if op in ("and", "or"):
@@ -970,20 +1081,201 @@ def binop_torch(op: str, l, r):
         dev = a.device if a.dim() else b.device
         a, b = a.to(dev), b.to(dev)
         return TVal(a & b if op == "and" else a | b, _BOOL, False)
+    if ct.kind == "f":
+        return _float_binop(op, l, r, ct, weak, fuse)
     a, b = _operands(l, r, ct)
     if op == "/":
         return TVal(nan_fix(a / b, a, b), ct, weak)
     if op == "%":
         return TVal(_mod(a, b, ct), ct, weak)
     if op in ("==", "!=", "<", "<=", ">", ">="):
-        fn = {"==": torch.eq, "!=": torch.ne, "<": torch.lt, "<=": torch.le,
-              ">": torch.gt, ">=": torch.ge}[op]
-        return TVal(fn(a, b), _BOOL, False)
+        return TVal(_CMP[op](a, b), _BOOL, False)
     if ct == _BOOL:
         return TVal(a | b if op == "+" else a & b, ct, weak)
     fn = {"+": torch.add, "-": torch.sub, "*": torch.mul}[op]
-    out = fn(a, b)
-    return TVal(nan_fix(out, a, b) if ct.kind == "f" else out, ct, weak)
+    return TVal(fn(a, b), ct, weak)
+
+
+_CMP = {"==": torch.eq, "!=": torch.ne, "<": torch.lt, "<=": torch.le,
+        ">": torch.gt, ">=": torch.ge}
+
+
+def farith(op: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """One float add, subtract, multiply or divide as XLA's CPU code does
+    it: operands read flushed, the result NaN-fixed and flushed."""
+    a, b = flush(a), flush(b)
+    out = {"+": torch.add, "-": torch.sub, "*": torch.mul, "/": torch.div}[op](a, b)
+    return flush(nan_fix(out, a, b))
+
+
+def literal_rewrite(op: str, l, r, ct: np.dtype):
+    """What XLA's simplifier makes of a float ``l op r`` with a literal or
+    boolean operand, before any arithmetic: ``("same", x)`` for x + 0,
+    0 + x, x - 0, x * 1, 1 * x and x / 1 (x converted, nothing flushed);
+    ``("neg", x)`` for x * -1, -1 * x and x / -1 (a sign flip);
+    ``("select", b, x)`` for x * bool and bool * x (x where b, else +0.0),
+    and for bool / c (1 / c where b);
+    ``("recip", x, c)`` for x / c, a multiply by the reciprocal of the
+    literal c rounded in ``ct``; None otherwise. (A zero literal is any
+    zero: XLA does not keep the sign of a zero here.) Operands are values
+    with a ``dt`` (TVal, or the kernel generator's SV) or Python scalars."""
+    lit_l, lit_r = not hasattr(l, "dt"), not hasattr(r, "dt")
+    lv = scalar_as(l, ct) if lit_l else None
+    rv = scalar_as(r, ct) if lit_r else None
+    if op == "+":
+        if lit_r and rv == 0:
+            return ("same", l)
+        if lit_l and lv == 0:
+            return ("same", r)
+    elif op == "-":
+        if lit_r and rv == 0:
+            return ("same", l)
+    elif op == "*":
+        for lit, v, other in ((lit_r, rv, l), (lit_l, lv, r)):
+            if lit and v == 1:
+                return ("same", other)
+            if lit and v == -1:
+                return ("neg", other)
+        if getattr(r, "dt", None) == _BOOL:
+            return ("select", r, l)
+        if getattr(l, "dt", None) == _BOOL:
+            return ("select", l, r)
+    elif op == "/" and lit_r:
+        if rv == 1:
+            return ("same", l)
+        if rv == -1:
+            return ("neg", l)
+        rec = literal_reciprocal(r, ct)
+        if getattr(l, "dt", None) == _BOOL:
+            return ("select", l, rec)  # bool / c: a multiply of a bool by 1 / c
+        return ("recip", l, rec)
+    return None
+
+
+def _float_binop(op: str, l, r, ct: np.dtype, weak: bool, fuse) -> TVal:
+    rw = literal_rewrite(op, l, r, ct) if op in ("+", "-", "*", "/") else None
+    if rw is not None:
+        kind, x = rw[0], rw[1]
+        if kind == "same":
+            return TVal(_as_dtype(x, ct), ct, weak)
+        if kind == "neg":
+            return TVal(_fneg(_as_dtype(x, ct)), ct, weak)
+        if kind == "select":
+            b = convert(_tval(x), _BOOL)
+            v = _as_dtype(rw[2], ct)
+            dev = b.device if b.dim() else v.device
+            return TVal(torch.where(b.to(dev), v.to(dev), torch.zeros((), dtype=v.dtype,
+                                                                       device=dev)), ct, weak)
+        return _product(x, rw[2], ct, weak)
+    if op == "*":
+        return _product(l, r, ct, weak)
+    a, b = _operands(l, r, ct)
+    if op == "%":
+        return TVal(_mod(a, b, ct), ct, weak)
+    if op in _CMP:
+        return TVal(_CMP[op](flush(a), flush(b)), _BOOL, False)
+    if op in ("+", "-") and fuse is not None:
+        for side, v, other in ((0, l, b), (1, r, a)):
+            if fuse[side] and isinstance(v, TVal) and v.prod is not None and v.dt == ct:
+                x, y = v.prod
+                if op == "-":
+                    if side == 0:
+                        other = _fneg(other)
+                    else:
+                        x = _fneg(x)
+                return TVal(fma_torch(x, y, other), ct, weak)
+    return TVal(farith(op, a, b), ct, weak)
+
+
+def _as_dtype(x, ct: np.dtype) -> torch.Tensor:
+    if isinstance(x, TVal):
+        return convert(x, ct)
+    return torch.tensor(scalar_as(x, ct), dtype=TORCH_DTYPES[ct])
+
+
+def _product(l, r, ct: np.dtype, weak: bool) -> TVal:
+    """A float multiply; it keeps its flushed operands for a contraction,
+    except a multiply by 2.0, which LLVM turns into x + x first."""
+    a, b = _operands(l, r, ct)
+    two = any(not isinstance(v, TVal) and scalar_as(v, ct) == 2.0 for v in (l, r))
+    a, b = flush(a), flush(b)
+    dev = a.device if a.dim() else b.device
+    a, b = a.to(dev), b.to(dev)
+    return TVal(farith("*", a, b), ct, weak, None if two else (a, b))
+
+
+# fused multiply-add, correctly rounded (one rounding of a * b + c), the
+# operands and the result flushed as x86's vfmadd does it under XLA
+
+
+def _two_sum(a: torch.Tensor, b: torch.Tensor):
+    s = a + b
+    bb = s - a
+    return s, (a - (s - bb)) + (b - bb)
+
+
+def _round_odd_sum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a + b rounded to odd: of the two floats around an inexact sum, the
+    one whose last significand bit is 1."""
+    s, e = _two_sum(a, b)
+    even = (s.view(_ity(s)) & 1) == 0
+    step = (e != 0) & even & torch.isfinite(s) & torch.isfinite(e)
+    toward = torch.where(e > 0, torch.full_like(s, float("inf")), torch.full_like(s, float("-inf")))
+    return torch.where(step, torch.nextafter(s, toward), s)
+
+
+def _split(a: torch.Tensor):
+    t = a * 134217729.0  # 2^27 + 1
+    hi = t - (t - a)
+    return hi, a - hi
+
+
+def _fma_exact(a: float, b: float, c: float) -> float:
+    from fractions import Fraction
+
+    if not (np.isfinite(a) and np.isfinite(b) and np.isfinite(c)):
+        return a * b + c
+    exact = Fraction(a) * Fraction(b) + Fraction(c)
+    if exact == 0:
+        return (a * b) + c if (a == 0 or b == 0) and c == 0 else 0.0
+    try:
+        return float(exact)
+    except OverflowError:
+        return float("inf") if exact > 0 else float("-inf")
+
+
+def fma_torch(x: torch.Tensor, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """fma(x, y, z) of one float dtype, correctly rounded, operands read
+    flushed and the result NaN-fixed and flushed. float32 takes the exact
+    product in float64 and a sum rounded to odd (so the final rounding to
+    float32 is the only one that counts); float64 takes Dekker's exact
+    product and the round-to-odd sum of Boldo and Melquiond, and exact
+    rational arithmetic on the rows where those could overflow or
+    underflow."""
+    x, y, z = torch.broadcast_tensors(flush(x), flush(y), flush(z))
+    if x.dtype == torch.float32:
+        p = x.double() * y.double()
+        r = _round_odd_sum(p, z.double()).to(torch.float32)
+    else:
+        p = x * y
+        xh, xl = _split(x)
+        yh, yl = _split(y)
+        pl = ((xh * yh - p) + xh * yl + xl * yh) + xl * yl
+        th, tl = _two_sum(z, p)
+        r = th + _round_odd_sum(tl, pl)
+        # an exact zero takes IEEE's sign for the sum of x * y and z
+        r = torch.where((th == 0) & (tl == 0) & (pl == 0), p + z, r)
+        big, small = 2.0 ** 995, 2.0 ** -960
+        safe = ((x.abs() < big) & (y.abs() < big) & (z.abs() < big)
+                & ((p.abs() >= small) | (p == 0)) & ((z.abs() >= small) | (z == 0)))
+        bad = (~safe).nonzero().flatten()
+        if len(bad):
+            xs, ys, zs = (t[bad].cpu().tolist() for t in (x, y, z))
+            fix = torch.tensor([_fma_exact(*v) for v in zip(xs, ys, zs)], dtype=torch.float64)
+            r = r.clone()
+            r[bad] = fix.to(r.device)
+        r = torch.where(torch.isfinite(x) & torch.isfinite(y) & torch.isfinite(z), r, x * y + z)
+    return flush(nan_fix(r, x, y, z))
 
 
 def floordiv_torch(l, r) -> TVal:
@@ -992,11 +1284,22 @@ def floordiv_torch(l, r) -> TVal:
         l = _tval(l)
     ct, weak = floordiv_type(jax_type(l), jax_type(r))
     a, b = _operands(l, r, ct)
-    return TVal(_floordiv(a, b, ct), ct, weak)
+    return TVal(_floordiv(a, b, ct, literal_reciprocal(r, ct)), ct, weak)
 
 
-def where_torch(cond, x, y) -> TVal:
-    """jnp.where(cond, x, y): cond taken as ``!= 0``, x and y promoted."""
+def literal_reciprocal(r, ct: np.dtype) -> Optional[float]:
+    """1 / r rounded in float dtype ``ct`` for a literal r (XLA's constant
+    folding of a division by a literal), else None."""
+    if hasattr(r, "dt") or ct.kind != "f":
+        return None
+    with np.errstate(all="ignore"):
+        return float(np.divide(np.array(1, ct), np.array(scalar_as(r, ct), ct)))
+
+
+def where_torch(cond, x, y, minmax: bool = False) -> TVal:
+    """jnp.where(cond, x, y): cond taken as ``!= 0``, x and y promoted; with
+    ``minmax`` (``is_minmax_select``) and float operands of one dtype, the
+    result flushed, as the min or max instruction LLVM makes of it."""
     if not isinstance(x, TVal) and not isinstance(y, TVal):
         x = _tval(x)
     dt, weak = promote(jax_type(x), jax_type(y))
@@ -1004,7 +1307,27 @@ def where_torch(cond, x, y) -> TVal:
     a, b = _operands(x, y, dt)
     c = convert(_tval(cond), _BOOL)
     dev = next((t.device for t in (a, b, c) if t.dim()), a.device)
-    return TVal(torch.where(c.to(dev), a.to(dev), b.to(dev)), dt, weak)
+    out = torch.where(c.to(dev), a.to(dev), b.to(dev))
+    if minmax and dt.kind == "f" and all(isinstance(v, TVal) and v.dt == dt for v in (x, y)):
+        out = flush(out)
+    return TVal(out, dt, weak)
+
+
+def is_minmax_select(cond, then, other) -> bool:
+    """Whether CASE WHEN cond THEN then ELSE other END is a select that
+    LLVM compiles for x86 as a min or max instruction (which reads its
+    operands flushed): a strict comparison of the two selected values,
+    either way round, or of x with a zero literal selecting x and -x."""
+    if other is None or not isinstance(cond, BinOp) or cond.op not in ("<", ">"):
+        return False
+    a, b = cond.left, cond.right
+    if {a, b} == {then, other} and a != b:
+        return True
+    for x, z in ((a, b), (b, a)):
+        if isinstance(z, Lit) and isinstance(z.value, (int, float)) and not isinstance(
+                z.value, bool) and z.value == 0 and {then, other} == {x, Neg(x)}:
+            return True
+    return False
 
 
 def as_full(v, p: int, device) -> TVal:
@@ -1031,7 +1354,8 @@ def hash_column_torch(v: TVal) -> torch.Tensor:
     """_hash_column_jnp: floats canonicalize -0.0 and hash their float64
     bits, bools widen, integers hash their int64 bits; int64 bits out."""
     if v.dt.kind == "f":
-        x = torch.where(v.t == 0.0, torch.zeros_like(v.t), v.t)
+        x = flush(v.t)  # XLA reads x == 0.0 flushed: a subnormal key hashes as 0.0
+        x = torch.where(x == 0.0, torch.zeros_like(x), x)
         if v.dt != _F64:
             x = _float_convert(x, _F64)
         return splitmix64_torch(x.view(torch.int64))

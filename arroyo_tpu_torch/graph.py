@@ -3,12 +3,14 @@
 Node configs are plain dicts; the port's engine maps each node's ``OpName``
 to a constructor from its own registry (engine/engine.py). ``_jsonable``
 gives the JSON-safe view of a config that the segment compiler keys its
-cache on; whole-graph serialization is not part of the port yet.
+cache on, and ``Graph.to_json`` / ``dumps`` / ``loads`` the JAX package's
+JSON form of a whole graph.
 """
 
 from __future__ import annotations
 
 import enum
+import json
 from dataclasses import dataclass
 
 from .batch import Schema
@@ -86,6 +88,12 @@ class Graph:
     def out_edges(self, node_id: str) -> list[Edge]:
         return [e for e in self.edges if e.src == node_id]
 
+    def sources(self) -> list[Node]:
+        return [n for n in self.nodes.values() if not self.in_edges(n.node_id)]
+
+    def sinks(self) -> list[Node]:
+        return [n for n in self.nodes.values() if not self.out_edges(n.node_id)]
+
     def topo_order(self) -> list[Node]:
         indeg = {nid: len(self.in_edges(nid)) for nid in self.nodes}
         ready = sorted([nid for nid, d in indeg.items() if d == 0])
@@ -100,6 +108,49 @@ class Graph:
         if len(out) != len(self.nodes):
             raise ValueError("graph has a cycle")
         return out
+
+    # -- serialization (the JAX package's JSON form) -------------------------
+
+    def to_json(self) -> dict:
+        return {
+            "nodes": [
+                {
+                    "node_id": n.node_id,
+                    "op": n.op.value,
+                    "config": _jsonable(n.config),
+                    "parallelism": n.parallelism,
+                    "description": n.description,
+                }
+                for n in self.nodes.values()
+            ],
+            "edges": [
+                {
+                    "src": e.src,
+                    "dst": e.dst,
+                    "edge_type": e.edge_type.value,
+                    "schema": e.schema.to_json(),
+                }
+                for e in self.edges
+            ],
+        }
+
+    @staticmethod
+    def from_json(d: dict) -> "Graph":
+        g = Graph()
+        for nd in d["nodes"]:
+            g.add_node(Node(nd["node_id"], OpName(nd["op"]), _config_from_json(nd["config"]),
+                            nd["parallelism"], nd.get("description", "")))
+        for ed in d["edges"]:
+            g.add_edge(ed["src"], ed["dst"], EdgeType(ed["edge_type"]),
+                       Schema.from_json(ed["schema"]))
+        return g
+
+    def dumps(self) -> str:
+        return json.dumps(self.to_json())
+
+    @staticmethod
+    def loads(s: str) -> "Graph":
+        return Graph.from_json(json.loads(s))
 
 
 def _jsonable(obj):
@@ -124,3 +175,22 @@ def _jsonable(obj):
     if isinstance(obj, Schema):
         return {"__schema__": obj.to_json()}
     return repr(obj)
+
+
+def _config_from_json(obj):
+    from .expr import expr_from_json
+
+    if isinstance(obj, dict):
+        if "__e__" in obj:
+            return expr_from_json(obj)
+        if "__schema__" in obj:
+            return Schema.from_json(obj["__schema__"])
+        if "__callable__" in obj:
+            raise ValueError(f"graph config holds a live callable and cannot ship as IR: "
+                             f"{obj['__callable__']}")
+        return {k: _config_from_json(v) for k, v in obj.items()}
+    if isinstance(obj, list):
+        # planner configs carry pair-lists ((name, expr), ...); tuples and
+        # lists are interchangeable for every consumer
+        return [_config_from_json(v) for v in obj]
+    return obj

@@ -7,7 +7,8 @@ micro-batch through the fused mesh step) and ``mesh`` (the sharded
 aggregate's ``{"exchange_rows", "overflow_rows"}``, refreshed by the task
 loop from the operator's ``mesh_stats`` hook; None off the mesh).
 Counters, histograms and their exposition (the arroyo_mesh_* series among
-them) are a later slice of the port."""
+them) are a later slice of the port. ``add_bad_record`` / ``bad_records``
+count the records a source's ``bad_data = drop`` policy dropped."""
 
 from __future__ import annotations
 
@@ -34,6 +35,17 @@ class MetricsRegistry:
     def __init__(self):
         self._lock = threading.Lock()
         self._tasks: dict[tuple[str, str, int], TaskMetrics] = {}
+        self._bad_records: dict[tuple[str, str], int] = {}
+
+    def add_bad_record(self, job_id: str, operator: str, n: int = 1) -> None:
+        key = (job_id, operator)
+        with self._lock:
+            self._bad_records[key] = self._bad_records.get(key, 0) + int(n)
+
+    def bad_records(self, job_id: str) -> dict[str, int]:
+        """operator -> records dropped under ``bad_data = drop`` for one job."""
+        with self._lock:
+            return {op: n for (j, op), n in self._bad_records.items() if j == job_id}
 
     def task(self, job_id: str, node_id: str, subtask: int) -> TaskMetrics:
         key = (job_id, node_id, subtask)

@@ -76,7 +76,7 @@ class UpdatingAggregate(Operator):
         if config().get("state.spill.enabled"):
             raise NotImplementedError(
                 "state.spill.enabled: the tiered spill annex of the updating aggregate is "
-                "not ported (ROADMAP, left out)")
+                "not ported (ROADMAP A.5)")
         self.key_fields: list[str] = list(cfg.get("key_fields", ()))
         self.aggregates = cfg["aggregates"]
         dtype_of = dtype_of_from_config(cfg)

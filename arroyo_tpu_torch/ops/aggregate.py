@@ -28,8 +28,8 @@ def finalize_aggs(kinds: Sequence[str], acc_arrays: list[np.ndarray]) -> list[np
     """acc arrays (in acc_kinds_for order, flattened) -> one array per SQL
     aggregate. count_distinct counts the distinct values its collected
     state holds (a list, or the updating aggregate's value -> multiplicity
-    map). UDAFs need a UDF registry, which the port does not have: they are
-    refused before any state is built (windows/tumbling.py acc_plan)."""
+    map); a UDAF applies its registered function (arroyo_tpu_torch.udf) to
+    the values it collected."""
     out = []
     i = 0
     for kind in kinds:
@@ -40,6 +40,19 @@ def finalize_aggs(kinds: Sequence[str], acc_arrays: list[np.ndarray]) -> list[np
         elif kind == "count_distinct":
             out.append(np.array([len(set(lst)) for lst in acc_arrays[i]], dtype=np.int64))
             i += 1
+        elif kind.startswith("udaf:"):
+            from ..batch import Field, object_column
+            from ..udf import lookup_udaf
+
+            udaf = lookup_udaf(kind[len("udaf:"):])
+            if udaf is None:
+                raise RuntimeError(f"UDAF {kind[5:]!r} no longer registered")
+            vals = [udaf.fn(np.asarray(lst)) for lst in acc_arrays[i]]
+            i += 1
+            if udaf.return_dtype == "string":
+                out.append(object_column(vals))
+            else:
+                out.append(np.array(vals, dtype=Field("_", udaf.return_dtype).numpy_dtype()))
         else:
             out.append(acc_arrays[i])
             i += 1

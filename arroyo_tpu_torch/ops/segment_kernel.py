@@ -62,9 +62,10 @@ import torch
 from ..batch import KEY_FIELD, TIMESTAMP_FIELD
 from . import kernels, staging
 from ..expr import (BinOp, Case, Cast, CAST_TARGETS, Col, Func, Lit, Neg, Not,
-                    TORCH_DTYPES, TVal, as_full, binop_type, convert, default_nan_bits,
-                    dtype_floor, floordiv_torch, floordiv_type, hash_columns_torch,
-                    int_div_type, jax_type, promote, quiet_bit, scalar_as, unary_type)
+                    TORCH_DTYPES, TVal, as_full, binop_type, contraction_sites, convert, default_nan_bits, dtype_floor, flush,
+                    floordiv_torch, floordiv_type, hash_columns_torch, int_div_type,
+                    is_minmax_select, jax_type, literal_reciprocal, literal_rewrite, promote,
+                    quiet_bit, scalar_as, unary_type)
 
 BLOCK = 256
 NUM_WARPS = 4
@@ -106,6 +107,148 @@ def _int_operand(x) -> bool:
     return isinstance(x, int) and not isinstance(x, (bool, np.bool_))
 
 
+# ------------------------------------------------------------ contraction
+
+
+class _Node:
+    """A node of the plan's expression graph as XLA sees it after CSE:
+    structurally equal subexpressions over the same inputs are one node."""
+
+    __slots__ = ("key", "kids", "ids", "kind", "literal")
+
+    def __init__(self, key, kids, kind):
+        self.key, self.kids, self.ids, self.kind = key, kids, set(), kind
+        self.literal = False
+
+
+def contraction_table(plan) -> dict:
+    """Which float adds and subtracts XLA's CPU code contracts with a
+    multiply operand, as {id of the BinOp node: (left may, right may)}.
+
+    XLA fuses each output of the segment function (an output column, the
+    mask, a watermark's max, the key hash) into its own loop, copying the
+    cheap elementwise nodes it needs into each, and reading an output that
+    another output needs from memory, except a multiply by a literal, which
+    it copies all the same; LLVM then contracts ``a * b + c`` where the
+    multiply has one use in that loop. So an operand may contract when it is
+    a multiply (or the negation of one, or a division by a literal, which
+    becomes a multiply), is not an output read from memory, and has one use
+    in every fused loop the add is copied into. Whether it really is a
+    product of the add's dtype is left to the evaluation."""
+    nodes: dict = {}
+
+    def node(e, env):
+        if isinstance(e, Col):
+            return env.get(e.name) or _leaf(("in", e.name))
+        if isinstance(e, Lit):
+            return _leaf(("lit", type(e.value).__name__, repr(e.value)))
+        literal = False
+        if isinstance(e, BinOp):
+            kids = [node(e.left, env), node(e.right, env)]
+            head = ("bin", e.op)
+            kind = ("mul" if e.op == "*" else "div" if e.op == "/" and isinstance(e.right, Lit)
+                    else "add" if e.op in ("+", "-") else None)
+            literal = isinstance(e.left, Lit) or isinstance(e.right, Lit)
+        elif isinstance(e, Neg):
+            kids, head, kind, literal = [node(e.inner, env)], ("neg",), "neg", False
+        elif isinstance(e, Not):
+            kids, head, kind = [node(e.inner, env)], ("not",), None
+        elif isinstance(e, Cast):
+            kids, head, kind = [node(e.inner, env)], ("cast", e.dtype), None
+        elif isinstance(e, Case):
+            kids = [node(x, env) for b in e.branches for x in b]
+            kids.append(node(e.otherwise, env) if e.otherwise is not None else _leaf(("none",)))
+            head, kind = ("case", len(e.branches)), None
+        elif isinstance(e, Func):
+            kids, head, kind = [node(a, env) for a in e.args], ("fn", e.name), None
+        else:
+            kids, head, kind = [], ("other", id(e)), None
+        key = head + tuple(k.key for k in kids)
+        n = nodes.get(key)
+        if n is None:
+            n = nodes[key] = _Node(key, kids, kind)
+            n.literal = isinstance(e, BinOp) and literal
+        n.ids.add(id(e))
+        return n
+
+    def _leaf(key):
+        n = nodes.get(key)
+        if n is None:
+            n = nodes[key] = _Node(key, [], None)
+        return n
+
+    env = {name: _leaf(("in", name)) for name in plan.traced_in}
+    roots: list = []
+    outputs: set = set()
+    for si, st in enumerate(plan.stages):
+        m = st.member
+        if st.kind == "value":
+            if m.filter is not None and not (si == 0 and plan.prefilter is not None):
+                roots.append(node(m.filter, env))
+            if m.projections is not None:
+                new = {name: node(e, env) for name, e in m.projections}
+                for carried in (TIMESTAMP_FIELD, KEY_FIELD, "_is_retract"):
+                    if carried not in new and carried in env:
+                        new[carried] = env[carried]
+                env = new
+        elif st.kind == "key":
+            ks = []
+            for name, e in m.keys:
+                env[name] = node(e, env)
+                ks.append(env[name])
+            env[KEY_FIELD] = _Node(("hash",) + tuple(k.key for k in ks), ks, None)
+            roots.append(env[KEY_FIELD])
+        elif st.kind == "wm":
+            roots.append(node(m.expr, env))
+        else:
+            roots.append(env.get(TIMESTAMP_FIELD) or _leaf(("in", TIMESTAMP_FIELD)))
+            for inp in m.acc_inputs:
+                if inp is not None:
+                    v = node(inp, env)
+                    roots.append(v)
+                    outputs.add(id(v))
+    if plan.emits_batch:
+        for name in plan.traced_out:
+            roots.append(env[name])
+            outputs.add(id(env[name]))
+
+    verdict: dict = {}
+    for r in roots:
+        uses: dict = {}
+        seen: set = set()
+        stack = [r]
+        while stack:
+            n = stack.pop()
+            if id(n) in seen:
+                continue
+            seen.add(id(n))
+            for k in n.kids:
+                uses[id(k)] = uses.get(id(k), 0) + 1
+                if id(k) not in outputs or k.literal:
+                    stack.append(k)
+        inside = [n for n in nodes.values() if id(n) in seen]
+
+        def single(k):
+            if (id(k) in outputs and not k.literal) or uses.get(id(k), 0) != 1:
+                return False
+            if k.kind == "neg":
+                return single(k.kids[0]) and k.kids[0].kind in ("mul", "div", "neg")
+            return k.kind in ("mul", "div")
+
+        for n in inside:
+            if n.kind == "add":
+                ok = (single(n.kids[0]), single(n.kids[1]))
+                prev = verdict.get(id(n))
+                verdict[id(n)] = (n, ok if prev is None else (prev[1][0] and ok[0],
+                                                              prev[1][1] and ok[1]))
+    table = {}
+    for n, ok in verdict.values():
+        if ok[0] or ok[1]:
+            for i in n.ids:
+                table[i] = ok
+    return table
+
+
 # ------------------------------------------------------------ plain version
 
 
@@ -115,6 +258,11 @@ def segment_plain(prog: "SegmentProgram", n: int, inputs: list[torch.Tensor]):
     tensor (uint64 as int64 bits), ``mask`` is the [P] validity mask (None
     without an in-trace filter), ``aux`` one (max, count) pair of 0-d
     tensors per watermark stage."""
+    with contraction_sites(prog.sites):
+        return _plain(prog, n, inputs)
+
+
+def _plain(prog: "SegmentProgram", n: int, inputs: list[torch.Tensor]):
     plan = prog.plan
     p = inputs[0].shape[0]
     dev = inputs[0].device
@@ -148,7 +296,7 @@ def segment_plain(prog: "SegmentProgram", n: int, inputs: list[torch.Tensor]):
             vals = as_full(m.expr.eval_torch(cols), p, dev)
             eff = base if valid is None else valid
             floor = torch.tensor(dtype_floor(vals.dt), dtype=vals.t.dtype, device=dev)
-            aux.append((torch.where(eff, vals.t, floor).max(), eff.sum()))
+            aux.append((torch.where(eff, flush(vals.t), floor).max(), eff.sum()))
         else:  # insert
             outs["__bins"] = floordiv_torch(cols[TIMESTAMP_FIELD], insert_step(m))
             if plan.insert_has_key:
@@ -168,14 +316,17 @@ def segment_plain(prog: "SegmentProgram", n: int, inputs: list[torch.Tensor]):
 
 class SV:
     """A symbolic [BLOCK] value of the generated kernel: the name of its
-    variable, its NumPy dtype (uint64 as int64 bits) and JAX's weak flag."""
+    variable, its NumPy dtype (uint64 as int64 bits), JAX's weak flag, and
+    for a float product ``prod`` = (x, y, negated): its flushed operands'
+    names and whether the value is -(x * y)."""
 
-    __slots__ = ("code", "dt", "weak")
+    __slots__ = ("code", "dt", "weak", "prod")
 
-    def __init__(self, code: str, dt, weak: bool = False):
+    def __init__(self, code: str, dt, weak: bool = False, prod=None):
         self.code = code
         self.dt = np.dtype(dt)
         self.weak = weak
+        self.prod = prod
 
 
 class _Gen:
@@ -183,9 +334,10 @@ class _Gen:
     converted to the node's compute dtype before the operation, so Triton's
     own promotion rules never decide a type."""
 
-    def __init__(self):
+    def __init__(self, sites: Optional[dict] = None):
         self.lines: list[str] = []
         self._k = 0
+        self.sites = sites or {}
 
     def let(self, code: str, dt, weak: bool = False) -> SV:
         name = f"t{self._k}"
@@ -226,12 +378,33 @@ class _Gen:
         if src == _U64 and dt not in (_I64, _BOOL):
             raise TypeError(f"conversion of uint64 to {dt}: not in the segment kernel")
         if dt == _BOOL:
-            return self.let(f"{x.code} != {self.full(0, src)}", _BOOL).code
+            return self.let(f"{self.flush(x.code, src)} != {self.full(0, src)}", _BOOL).code
         if src.kind == "f" and dt.kind in "iu":
             return self._sat_float_to_int(x, dt)
         if src.kind == "f" and dt.kind == "f":
-            return self.float_convert(x.code, dt)
+            return self.flush(self.float_convert(self.flush(x.code, src), dt), dt)
         return self.let(f"{x.code}.to({_TL[dt]})", dt).code
+
+    def flush(self, x: str, dt) -> str:
+        """``x`` with a subnormal replaced by the zero of its sign (expr.flush:
+        XLA's CPU code reads float operands and writes float results so);
+        integers and bools as they are."""
+        dt = np.dtype(dt)
+        if dt.kind != "f":
+            return x
+        ib = np.dtype(np.int64 if dt.itemsize == 8 else np.int32)
+        sign = self.full(-(1 << (ib.itemsize * 8 - 1)), ib)
+        zero = f"({x}.to({_TL[ib]}, bitcast=True) & {sign}).to({_TL[dt]}, bitcast=True)"
+        tiny = self.full(float(np.finfo(dt).tiny), dt)
+        return self.let(f"tl.where(tl.abs({x}) < {tiny}, {zero}, {x})", dt).code
+
+    def farith(self, op: str, a: str, b: str, dt, weak: bool = False) -> SV:
+        """expr.farith: one float operation, operands read flushed, the
+        result NaN-fixed and flushed."""
+        a, b = self.flush(a, dt), self.flush(b, dt)
+        code = f"libdevice.div_rn({a}, {b})" if op == "/" else f"{a} {op} {b}"
+        r = self.op(code, dt, a, b)
+        return SV(self.flush(r.code, dt), dt, weak)
 
     def _sat_float_to_int(self, x: SV, dt: np.dtype) -> str:
         f = lambda v: self.full(float(v), _F64)  # noqa: E731
@@ -288,17 +461,18 @@ class _Gen:
                         dt).code
 
     def fsign(self, x: str, dt) -> str:
-        c = lambda v: self.full(float(v), dt)  # noqa: E731
-        return self.let(f"tl.where({x} > {c(0)}, {c(1)}, tl.where({x} < {c(0)}, {c(-1)}, {x}))",
-                        dt).code
+        """expr._fsign: copysign(x != 0, x) with x read flushed, NaN kept."""
+        nz = self.let(f"({self.flush(x, dt)} != {self.full(0.0, dt)}).to({_TL[dt]})", dt).code
+        return self.let(f"tl.where({x} != {x}, {x}, libdevice.copysign({nz}, {x}))", dt).code
 
     def dnan(self, dt) -> str:
         ib = np.dtype(np.int64 if dt.itemsize == 8 else np.int32)
         return f"tl.full([BLOCK], {default_nan_bits(dt)}, {_TL[ib]}).to({_TL[dt]}, bitcast=True)"
 
-    def quiet(self, x: str, dt) -> str:
+    def quiet(self, x: str, dt, negate: bool = False) -> str:
         ib = np.dtype(np.int64 if dt.itemsize == 8 else np.int32)
-        return (f"({x}.to({_TL[ib]}, bitcast=True) | {self.full(quiet_bit(dt), ib)})"
+        flip = f" ^ {self.full(-(1 << (ib.itemsize * 8 - 1)), ib)}" if negate else ""
+        return (f"(({x}.to({_TL[ib]}, bitcast=True) | {self.full(quiet_bit(dt), ib)}){flip})"
                 f".to({_TL[dt]}, bitcast=True)")
 
     def nanfix(self, r: str, dt, *ops: str) -> str:
@@ -317,7 +491,9 @@ class _Gen:
         return SV(self.nanfix(r.code, dt, *ops), dt, weak)
 
     def fmod(self, a: str, b: str, dt) -> str:
-        """libdevice fmod (exact), NaN-fixed as expr.fmod_torch."""
+        """libdevice fmod (exact) with the divisor read flushed, NaN-fixed,
+        as expr.fmod_torch."""
+        b = self.flush(b, dt)
         return self.op(f"libdevice.fmod({a}, {b})", dt, a, b).code
 
     def float_convert(self, x: str, dt) -> str:
@@ -337,7 +513,7 @@ class _Gen:
             nan = f"({n64}).to(tl.int32).to(tl.float32, bitcast=True)"
         return self.let(f"tl.where({x} != {x}, {nan}, {r})", dt).code
 
-    def floordiv(self, a: str, b: str, dt, weak: bool) -> SV:
+    def floordiv(self, a: str, b: str, dt, weak: bool, rec: Optional[float] = None) -> SV:
         if dt.kind == "u":
             q = self.lax_div(a, b, dt)
             return SV(q.code, dt, weak)
@@ -348,12 +524,13 @@ class _Gen:
                            f"({rem} != {self.full(0, dt)})", _BOOL).code
             return self.let(f"tl.where({fix}, {q} - {self.full(1, dt)}, {q})", dt, weak)
         mod = self.fmod(a, b, dt)
-        num = self.op(f"{a} - {mod}", dt, a, mod).code
-        div = self.op(f"libdevice.div_rn({num}, {b})", dt, num, b).code
-        ind = self.let(f"({mod} != {self.full(0.0, dt)}) & "
+        num = self.farith("-", a, mod, dt).code
+        div = (self.farith("/", num, b, dt) if rec is None
+               else self.farith("*", num, self.full(rec, dt), dt)).code
+        ind = self.let(f"({self.flush(mod, dt)} != {self.full(0.0, dt)}) & "
                        f"({self.fsign(b, dt)} != {self.fsign(mod, dt)})", _BOOL).code
-        dm1 = self.op(f"{div} - {self.full(1.0, dt)}", dt, div).code
-        div = self.let(f"tl.where({ind}, {dm1}, {div})", dt).code
+        dm1 = self.farith("-", div, self.full(1.0, dt), dt).code
+        div = self.flush(self.let(f"tl.where({ind}, {dm1}, {div})", dt).code, dt)
         return self.op(f"libdevice.round({div})", dt, div, weak=weak)
 
     def mod(self, a: str, b: str, dt, weak: bool) -> SV:
@@ -366,33 +543,35 @@ class _Gen:
         if dt.kind in "iu":
             b = self.let(f"tl.where({b} == {z}, {self.full(1, dt)}, {b})", dt).code
             tm = self.lax_rem(a, b, dt).code
-        else:
-            tm = self.fmod(a, b, dt)
-        plus = self.let(f"(({tm} < {z}) != ({b} < {z})) & ({tm} != {z})", _BOOL).code
-        r = self.let(f"tl.where({plus}, {self.op(f'{tm} + {b}', dt, tm, b).code}, {tm})", dt).code
-        if dt.kind == "f":
-            r = self.let(f"tl.where({r} == {z}, libdevice.copysign({z}, {b}), {r})", dt).code
+            plus = self.let(f"(({tm} < {z}) != ({b} < {z})) & ({tm} != {z})", _BOOL).code
+            return self.let(f"tl.where({plus}, {tm} + {b}, {tm})", dt, weak)
+        tm = self.fmod(a, b, dt)
+        ft, fb = self.flush(tm, dt), self.flush(b, dt)
+        plus = self.let(f"(({ft} < {z}) != ({fb} < {z})) & ({ft} != {z})", _BOOL).code
+        r = self.let(f"tl.where({plus}, {self.farith('+', tm, b, dt).code}, {tm})", dt).code
+        r = self.let(f"tl.where({self.flush(r, dt)} == {z}, libdevice.copysign({z}, {b}), {r})",
+                     dt).code
         return SV(r, dt, weak)
 
     # -- expression nodes -------------------------------------------------
 
-    def binop(self, op: str, l, r) -> SV:
+    def binop(self, op: str, l, r, fuse=None) -> SV:
         if not isinstance(l, SV) and not isinstance(r, SV):
             l = self.value(l)
         lt, rt = _ty(l), _ty(r)
         if op == "/" and _int_operand(l) and _int_operand(r):
             ct = int_div_type(lt, rt)
-            a, b = self.operands(l, r, ct)
             if ct.kind == "f":
-                return self.op(f"libdevice.div_rn({a}, {b})", ct, a, b)
+                return self.float_binop("/", l, r, ct, False, None)
+            a, b = self.operands(l, r, ct)
             return self.lax_div(a, b, ct)
         ct, rdt, weak = binop_type(op, lt, rt)
         if op in ("and", "or"):
             a, b = self.operands(l, r, _BOOL)
             return self.let(f"{a} {'&' if op == 'and' else '|'} {b}", _BOOL)
+        if ct.kind == "f":
+            return self.float_binop(op, l, r, ct, weak, fuse)
         a, b = self.operands(l, r, ct)
-        if op == "/":
-            return self.op(f"libdevice.div_rn({a}, {b})", ct, a, b, weak=weak)
         if op == "%":
             return self.mod(a, b, ct, weak)
         if op in ("==", "!=", "<", "<=", ">", ">="):
@@ -401,16 +580,73 @@ class _Gen:
             return self.let(f"{a} {op} {b}", _BOOL)
         if ct == _BOOL:
             return self.let(f"{a} {'|' if op == '+' else '&'} {b}", ct, weak)
-        return self.op(f"{a} {op} {b}", ct, a, b, weak=weak)
+        return self.let(f"{a} {op} {b}", ct, weak)
+
+    def float_binop(self, op: str, l, r, ct, weak: bool, fuse) -> SV:
+        """expr._float_binop: XLA's simplifier first, then the operation
+        with flushed operands, a contraction where the site allows one."""
+        rw = literal_rewrite(op, l, r, ct) if op in ("+", "-", "*", "/") else None
+        if rw is not None:
+            kind, x = rw[0], rw[1]
+            if kind == "same":
+                return SV(self.conv(x, ct), ct, weak)
+            if kind == "neg":
+                return SV(self.flip_sign(SV(self.conv(x, ct), ct), clear=False), ct, weak)
+            if kind == "select":
+                b = self.conv(x, _BOOL)
+                return self.let(f"tl.where({b}, {self.conv(rw[2], ct)}, {self.full(0.0, ct)})",
+                                ct, weak)
+            return self.product(x, rw[2], ct, weak)
+        if op == "*":
+            return self.product(l, r, ct, weak)
+        a, b = self.operands(l, r, ct)
+        if op == "%":
+            return self.mod(a, b, ct, weak)
+        if op in ("==", "!=", "<", "<=", ">", ">="):
+            return self.let(f"{self.flush(a, ct)} {op} {self.flush(b, ct)}", _BOOL)
+        if op in ("+", "-") and fuse is not None:
+            for side, v, other in ((0, l, b), (1, r, a)):
+                if fuse[side] and isinstance(v, SV) and v.prod is not None and v.dt == ct:
+                    x, y, neg_x = v.prod
+                    neg_z = op == "-" and side == 0
+                    if op == "-" and side == 1:
+                        neg_x = not neg_x
+                    return self.fma(x, y, other, ct, weak, neg_x, neg_z)
+        return self.farith(op, a, b, ct, weak)
+
+    def product(self, l, r, ct, weak: bool) -> SV:
+        """expr._product: a float multiply keeping its flushed operands for
+        a contraction (not a multiply by 2.0, which LLVM makes x + x)."""
+        two = any(not isinstance(v, SV) and scalar_as(v, ct) == 2.0 for v in (l, r))
+        a, b = self.operands(l, r, ct)
+        a, b = self.flush(a, ct), self.flush(b, ct)
+        r = self.op(f"{a} * {b}", ct, a, b)
+        return SV(self.flush(r.code, ct), ct, weak, None if two else (a, b, False))
+
+    def fma(self, x: str, y: str, z: str, dt, weak: bool, neg_x: bool, neg_z: bool) -> SV:
+        """expr.fma_torch of (-x if neg_x, y, -z if neg_z): one rounding
+        (fma.rn), operands read flushed, the result NaN-fixed and flushed.
+        A negated operand's NaN is written from its integer bits, so no
+        float negation decides a NaN's sign."""
+        x, y, z = self.flush(x, dt), self.flush(y, dt), self.flush(z, dt)
+        vx = self.flip_sign(SV(x, dt), clear=False) if neg_x else x
+        vz = self.flip_sign(SV(z, dt), clear=False) if neg_z else z
+        r = self.let(f"tl.fma({vx}, {y}, {vz})", dt).code
+        fix = self.dnan(dt)
+        for o, ng in reversed(((x, neg_x), (y, False), (z, neg_z))):
+            q = self.quiet(o, dt, negate=ng)
+            fix = f"tl.where({o} != {o}, {q}, {fix})"
+        r = self.let(f"tl.where({r} != {r}, {fix}, {r})", dt).code
+        return SV(self.flush(r, dt), dt, weak)
 
     def floordiv_node(self, l, r) -> SV:
         if not isinstance(l, SV) and not isinstance(r, SV):
             l = self.value(l)
         ct, weak = floordiv_type(_ty(l), _ty(r))
         a, b = self.operands(l, r, ct)
-        return self.floordiv(a, b, ct, weak)
+        return self.floordiv(a, b, ct, weak, literal_reciprocal(r, ct))
 
-    def where(self, cond, x, y) -> SV:
+    def where(self, cond, x, y, minmax: bool = False) -> SV:
         if not isinstance(x, SV) and not isinstance(y, SV):
             x = self.value(x)
         dt, weak = promote(_ty(x), _ty(y))
@@ -418,7 +654,10 @@ class _Gen:
             raise TypeError(f"CASE over {dt}: not in the segment kernel")
         a, b = self.operands(x, y, dt)
         c = self.conv(cond, _BOOL)
-        return self.let(f"tl.where({c}, {a}, {b})", dt, weak)
+        out = self.let(f"tl.where({c}, {a}, {b})", dt, weak)
+        if minmax and dt.kind == "f" and all(isinstance(v, SV) and v.dt == dt for v in (x, y)):
+            return SV(self.flush(out.code, dt), dt, weak)
+        return out
 
     def flip_sign(self, x: SV, clear: bool) -> str:
         """Float neg (sign flipped) or abs (sign cleared) on the bits."""
@@ -439,7 +678,8 @@ class _Gen:
                 raise TypeError(f"non-numeric literal {e.value!r}")
             return e.value
         if isinstance(e, BinOp):
-            return self.binop(e.op, self.eval(e.left, cols), self.eval(e.right, cols))
+            return self.binop(e.op, self.eval(e.left, cols), self.eval(e.right, cols),
+                              fuse=self.sites.get(id(e)))
         if isinstance(e, Not):
             c = self.conv(self.value(self.eval(e.inner, cols)), _BOOL)
             return self.let(f"tl.where({c}, {self.full(0, _BOOL)}, {self.full(1, _BOOL)})", _BOOL)
@@ -449,7 +689,8 @@ class _Gen:
                 return -v
             unary_type("neg", v.dt)
             if v.dt.kind == "f":
-                return SV(self.flip_sign(v, clear=False), v.dt, v.weak)
+                prod = None if v.prod is None else (v.prod[0], v.prod[1], not v.prod[2])
+                return SV(self.flip_sign(v, clear=False), v.dt, v.weak, prod)
             return self.let(f"{self.full(0, v.dt)} - {v.code}", v.dt, v.weak)
         if isinstance(e, Cast):
             if e.dtype not in CAST_TARGETS:
@@ -461,8 +702,11 @@ class _Gen:
             if e.otherwise is None:
                 raise TypeError("CASE without ELSE")
             result = self.eval(e.otherwise, cols)
+            other = e.otherwise
             for cond, val in reversed(e.branches):
-                result = self.where(self.eval(cond, cols), self.eval(val, cols), result)
+                result = self.where(self.eval(cond, cols), self.eval(val, cols), result,
+                                    minmax=is_minmax_select(cond, val, other))
+                other = None
             return result
         if isinstance(e, Func):
             return self.func(e, [self.eval(a, cols) for a in e.args])
@@ -484,7 +728,7 @@ class _Gen:
             dt, weak = unary_type(name, v.dt, v.weak)
             if dt == v.dt and dt.kind == "b":
                 return v
-            x = self.conv(v, dt)
+            x = self.flush(self.conv(v, dt), dt)
             fn = "sqrt_rn" if name == "sqrt" else name
             # a negative operand's NaN becomes the default NaN in the fix
             return self.op(f"libdevice.{fn}({x})", dt, x, weak=weak)
@@ -499,8 +743,9 @@ class _Gen:
 
     def hash_column(self, v: SV) -> str:
         if v.dt.kind == "f":
-            x = self.let(f"tl.where({v.code} == {self.full(0.0, v.dt)}, {self.full(0.0, v.dt)}, "
-                         f"{v.code})", v.dt).code
+            f = self.flush(v.code, v.dt)  # a subnormal key hashes as 0.0 (XLA reads it flushed)
+            x = self.let(f"tl.where({f} == {self.full(0.0, v.dt)}, {self.full(0.0, v.dt)}, "
+                         f"{f})", v.dt).code
             if v.dt != _F64:
                 x = self.float_convert(x, _F64)
             bits = f"{x}.to(tl.uint64, bitcast=True)"
@@ -535,12 +780,14 @@ def _max_nan(a, b):
 '''
 
 
-def generate(plan, in_dtypes) -> tuple[str, dict[str, np.dtype], list[np.dtype], bool]:
+def generate(plan, in_dtypes, sites: Optional[dict] = None
+             ) -> tuple[str, dict[str, np.dtype], list[np.dtype], bool]:
     """Triton source of K4 for a bound plan. Returns (source, output dtypes,
     watermark dtypes, has_mask). Raises TypeError where a node or dtype is
     outside the kernel (the segment then falls back, as it would in the
-    JAX package for a trace failure)."""
-    g = _Gen()
+    JAX package for a trace failure). ``sites`` is the plan's
+    ``contraction_table``."""
+    g = _Gen(contraction_table(plan) if sites is None else sites)
     for dt in in_dtypes:
         if dt not in _TL:
             raise TypeError(f"input column of dtype {dt}: not a dtype of the segment kernel")
@@ -579,7 +826,8 @@ def generate(plan, in_dtypes) -> tuple[str, dict[str, np.dtype], list[np.dtype],
             vals = g.value(g.eval(m.expr, cols))
             floor = g.full(dtype_floor(vals.dt), vals.dt)
             eff = base if valid is None else valid
-            wm.append((vals, g.let(f"tl.where({eff}, {vals.code}, {floor})", vals.dt).code))
+            wm.append((vals, g.let(f"tl.where({eff}, {g.flush(vals.code, vals.dt)}, {floor})",
+                                   vals.dt).code))
             g.lines.append(f"c{len(wm) - 1} = tl.sum({eff}.to(tl.int64), axis=0)")
         else:  # insert
             outs["__bins"] = g.floordiv_node(cols[TIMESTAMP_FIELD], insert_step(m))
@@ -694,7 +942,9 @@ class SegmentProgram:
     def __init__(self, plan, in_dtypes):
         self.plan = plan
         self.in_dtypes = [np.dtype(d) for d in in_dtypes]
-        self.source, self.out_dtypes, self.wm_dtypes, self.has_mask = generate(plan, self.in_dtypes)
+        self.sites = contraction_table(plan)
+        self.source, self.out_dtypes, self.wm_dtypes, self.has_mask = generate(
+            plan, self.in_dtypes, self.sites)
         self.digest = hashlib.sha256(self.source.encode()).hexdigest()[:16]
         self._module = None
         self._fold: dict = {}

@@ -30,8 +30,9 @@ store's snapshot (on the device a K2 read of every live region, stream-
 ordered after every K1 of earlier batches; on the mesh a host copy of the
 sharded state) becomes the ``"t"`` table, one row per (window, key) with
 the partial accumulators ``__acc_i``, and the late-data boundary the
-``"e"`` mark. A restore merges the rows back (K1's merge mode). Not in this
-slice: UDAFs.
+``"e"`` mark. A restore merges the rows back (K1's merge mode). UDAFs collect their
+input values on the host, as array_agg does, and apply the registered
+function (arroyo_tpu_torch.udf) at the close.
 """
 
 from __future__ import annotations
@@ -60,14 +61,19 @@ _PIPELINE_DEPTH = 16
 
 
 def dtype_of_from_config(cfg: dict):
-    """Accumulator-input dtype resolver: the graph's live callable, else
-    float64. The declarative "input_dtypes" map that SQL-planned graphs
-    carry needs the SQL front end, which the port does not have yet."""
+    """Accumulator-input dtype resolver: the in-process planner hands a live
+    callable; graphs that crossed a process boundary (shipped IR) carry the
+    declarative "input_dtypes" column map instead and rebuild it here."""
     fn = cfg.get("input_dtype_of")
     if fn is not None:
         return fn
-    if cfg.get("input_dtypes"):
-        raise NotImplementedError("input_dtypes maps come with the SQL front end of the port")
+    dtypes = cfg.get("input_dtypes")
+    if dtypes:
+        from ..batch import Field
+        from ..sql.compile import infer_dtype
+
+        dmap = dict(dtypes)
+        return lambda e: Field("_", infer_dtype(e, dmap)).numpy_dtype()
     return lambda e: np.dtype(np.float64)
 
 
@@ -235,8 +241,8 @@ def acc_plan(aggregates: list[tuple[str, str, Optional[Expr]]], schema_dtype_of,
     ``collect`` admits collected aggregates (array_agg, COUNT(DISTINCT)) as
     one host-resident "collect" lane of object dtype: the tumbling and
     session windows and the updating aggregate take them; the sliding
-    window does not (the JAX package's planner refuses them there). UDAFs
-    are refused everywhere (no UDF registry).
+    window does not (the JAX package's planner refuses them there). A UDAF
+    ("udaf:<name>") collects its input the same way.
     """
     kinds, dtypes, inputs = [], [], []
     for _name, kind, expr in aggregates:
@@ -248,10 +254,9 @@ def acc_plan(aggregates: list[tuple[str, str, Optional[Expr]]], schema_dtype_of,
             kinds.extend(["sum", "count"])
             dtypes.extend([np.dtype(np.float64), np.dtype(np.int64)])
             inputs.extend([expr, None])
-        elif kind.startswith("udaf:"):
-            raise NotImplementedError(
-                f"aggregate {kind!r}: UDAFs need a UDF registry, which the port does not have")
-        elif kind in ("collect", "count_distinct"):
+        elif kind.startswith("udaf:") or kind in ("collect", "count_distinct"):
+            # UDAF state / array_agg / COUNT(DISTINCT) = collected input
+            # values (host-resident python lists)
             if not collect:
                 raise NotImplementedError(
                     f"aggregate {kind!r} collects values on the host; this window "

@@ -280,6 +280,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import faulthandler
+import functools
 import json
 import os
 import queue
@@ -325,6 +326,63 @@ Q7_EVENTS = 2_000_000
 Q5_EVENTS = Q7_EVENTS // 2  # bench.py runs q5 at events // 2
 Q8_EVENTS = Q7_EVENTS // 4  # bench.py runs q8 at events // 4, queue 1 x batch
 BENCH_BATCH = 65536
+
+# Nexmark q7, q5 and q8 written as SQL (the sql phase plans them through the
+# port's arroyo_tpu_torch.sql.plan_query). The source declares the generator's
+# flattened columns by their dotted names; its options are numbers, as the
+# nexmark connector reads them.
+SQL_NEXMARK_SOURCE = """CREATE TABLE nexmark (
+  "auction.id" BIGINT,
+  "bid.auction" BIGINT,
+  "bid.price" BIGINT,
+  auction BOOLEAN,
+  bid BOOLEAN
+) WITH (
+  connector = 'nexmark',
+  event_count = {events},
+  inter_event_micros = {inter_event},
+  first_event_micros = 0,
+  include_strings = false,
+  type = 'source'
+);
+"""
+SQL_Q7 = """CREATE TABLE q7_out (start TIMESTAMP, auction BIGINT, max_price BIGINT, bids BIGINT)
+WITH (connector = 'single_file', path = '{out}', format = 'json', type = 'sink');
+INSERT INTO q7_out
+SELECT window.start AS start, auction, max_price, bids FROM (
+  SELECT tumble(interval '10 seconds') AS window, "bid.auction" AS auction,
+    max("bid.price") AS max_price, count(*) AS bids
+  FROM nexmark WHERE bid GROUP BY window, auction) x;
+"""
+SQL_Q5 = """CREATE TABLE q5_out (start TIMESTAMP, auction BIGINT, bids BIGINT)
+WITH (connector = 'single_file', path = '{out}', format = 'json', type = 'sink');
+INSERT INTO q5_out
+SELECT window.start AS start, auction, bids FROM (
+  SELECT hop(interval '2 seconds', interval '10 seconds') AS window,
+    "bid.auction" AS auction, count(*) AS bids
+  FROM nexmark WHERE bid GROUP BY window, auction) x;
+"""
+SQL_Q8 = """CREATE TABLE q8_out (start TIMESTAMP, auction BIGINT, bids BIGINT)
+WITH (connector = 'single_file', path = '{out}', format = 'json', type = 'sink');
+INSERT INTO q8_out
+SELECT A.window.start AS start, A.auction AS auction, B.bids AS bids FROM (
+  SELECT tumble(interval '10 seconds') AS window, "auction.id" AS auction, count(*) AS n
+  FROM nexmark WHERE auction GROUP BY window, auction) A
+JOIN (
+  SELECT tumble(interval '10 seconds') AS window, "bid.auction" AS auction,
+    count(*) AS bids
+  FROM nexmark WHERE bid GROUP BY window, auction) B
+ON A.window = B.window AND A.auction = B.auction;
+"""
+SQL_INTER_EVENT = {"q7": 1000, "q5": 1000, "q8": 100}
+
+
+def nexmark_sql(name: str, events: int, out: str) -> str:
+    """The SQL text of Nexmark ``name`` (q7, q5, q8) over ``events`` events
+    at bench.py's inter-event time, writing JSON lines to ``out``."""
+    body = {"q7": SQL_Q7, "q5": SQL_Q5, "q8": SQL_Q8}[name]
+    return (SQL_NEXMARK_SOURCE.format(events=int(events), inter_event=SQL_INTER_EVENT[name])
+            + body.format(out=out))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 SOURCE = "arroyo_tpu_torch/csrc/slot_agg.cu"
 JOIN_SOURCE = "arroyo_tpu_torch/csrc/join_probe.cu"
@@ -450,8 +508,10 @@ def build_q7(rows: list, event_count: int, parallelism: int = 1, width: int = No
     return g
 
 
+@functools.lru_cache(maxsize=2)
 def oracle_q7(event_count: int) -> dict:
-    """(window_start, auction) -> (max_price, count), numpy alone."""
+    """(window_start, auction) -> (max_price, count), numpy alone (computed
+    once for each event count: the phases only read it)."""
     b = NexmarkSource({"event_count": event_count, "inter_event_micros": 1000,
                        "first_event_micros": 0, "include_strings": False,
                        "columns": ["bid.auction", "bid.price"]})._generate(
@@ -680,10 +740,12 @@ def build_q5(rows: list, event_count: int) -> Graph:
     return g
 
 
+@functools.lru_cache(maxsize=2)
 def oracle_q5(event_count: int) -> dict:
     """(window_start, auction) -> count over sliding 10 s / 2 s windows
     (bench.py oracle_q5, vectorized): slide bin sb feeds the windows that
-    start at sb, sb - 2 s, ..., sb - 8 s."""
+    start at sb, sb - 2 s, ..., sb - 8 s. Computed once for each event
+    count: the phases only read it."""
     b = NexmarkSource({"event_count": event_count, "inter_event_micros": 1000,
                        "first_event_micros": 0, "include_strings": False,
                        "columns": ["bid.auction"]})._generate(np.arange(event_count, dtype=np.int64))
@@ -891,6 +953,52 @@ def oracle_q8(event_count: int) -> dict:
     na = counts(b["auction"], b["auction.id"])
     nb = counts(b["bid"], b["bid.auction"])
     return {k: na[k] * nb[k] for k in na.keys() & nb.keys()}
+
+
+def oracle_sql(name: str, event_count: int) -> dict:
+    """(window start micros, auction) -> the rest of the row, for the SQL
+    texts of q7 (max_price, bids), q5 (bids) and q8 (bids of the auctions
+    that opened in the window): numpy over the generated events."""
+    if name == "q7":
+        return oracle_q7(event_count)
+    if name == "q5":
+        return {k: (c,) for k, c in oracle_q5(event_count).items()}
+    b = q8_events(event_count)
+    w = (b[TIMESTAMP_FIELD] // WIDTH) * WIDTH
+
+    def counts(mask, ids):
+        uniq, c = np.unique(np.stack([w[mask], ids[mask]], axis=1), axis=0, return_counts=True)
+        return {(int(u[0]), int(u[1])): int(n) for u, n in zip(uniq, c)}
+
+    na = counts(b["auction"], b["auction.id"])
+    nb = counts(b["bid"], b["bid.auction"])
+    return {k: (nb[k],) for k in na.keys() & nb.keys()}
+
+
+SQL_OUT_FIELDS = {"q7": ("max_price", "bids"), "q5": ("bids",), "q8": ("bids",)}
+
+
+def check_sql_rows(name: str, lines: list, want: dict) -> int:
+    """The sink's JSON lines of a SQL-planned q7, q5 or q8 held exactly to
+    ``oracle_sql``: one row per (window, auction), each value equal.
+    Returns the number of rows."""
+    from arroyo_tpu_torch.formats.json_fmt import parse_iso_micros
+
+    got: dict = {}
+    starts: dict = {}  # a window start's text -> micros (a few hundred windows)
+    for r in json.loads("[" + ",".join(lines) + "]"):
+        s = r["start"]
+        if s not in starts:
+            starts[s] = parse_iso_micros(s)
+        key = (starts[s], int(r["auction"]))
+        if key in got:
+            raise AssertionError(f"{name}: window {key} emitted twice")
+        got[key] = tuple(int(r[f]) for f in SQL_OUT_FIELDS[name])
+    if got != want:
+        diff = next(iter(set(got.items()) ^ set(want.items())), None)
+        raise AssertionError(f"{name} (SQL) parity failure: {len(got)} rows vs {len(want)}; "
+                             f"first diff {diff}")
+    return len(got)
 
 
 def q8_window_sides(event_count: int) -> dict:
@@ -1911,21 +2019,131 @@ def expression_grid(E) -> list:
     return out
 
 
-def segment_grid(E, chunk: int = 48) -> list:
+F64_MIN = float(np.finfo(np.float64).tiny)
+
+
+def c9_columns(n: int, seed: int = 20261018) -> dict:
+    """grid_columns with the float columns XLA's CPU compilation treats
+    apart from numpy (C9): subnormals of both signs, values next to FLT_MIN
+    and DBL_MIN on both sides, values whose products and quotients by the
+    grid's literals land among the subnormals, +-0.0, NaN and +-inf, mixed
+    into normal values; ``s64`` holds only subnormals and zeros (a
+    watermark whose max is a subnormal)."""
+    rng = np.random.default_rng(seed)
+    cols = grid_columns(n, seed)
+
+    def tiny(dt, m):
+        lo = float(np.finfo(dt).smallest_subnormal)
+        t = float(np.finfo(dt).tiny)
+        sub = np.exp(rng.uniform(np.log(lo), np.log(t), m)) * rng.choice([-1.0, 1.0], m)
+        near = t * (1 + rng.integers(-4, 5, m) * float(np.finfo(dt).eps))
+        near *= rng.choice([-1.0, 1.0], m)
+        scaled = t * rng.uniform(0.5, 2e3, m) * rng.choice([-1.0, 1.0], m)
+        return np.concatenate([sub, near, scaled]).astype(dt)
+
+    for name, dt, scale in (("f64", np.float64, 1e3), ("f32", np.float32, 50.0)):
+        x = rng.normal(0, scale, n).astype(dt)
+        t = tiny(dt, n)
+        pick = rng.random(n) < 0.6
+        x[pick] = t[rng.integers(0, len(t), int(pick.sum()))]
+        edge = [np.nan, np.inf, -np.inf, 0.0, -0.0, np.finfo(dt).smallest_subnormal,
+                -np.finfo(dt).smallest_subnormal, np.finfo(dt).tiny, -np.finfo(dt).tiny, 3.0,
+                3e-306 if dt == np.float64 else 3e-36, -3e-306 if dt == np.float64 else -3e-36]
+        x[:len(edge)] = edge
+        cols[name] = x
+    s = np.exp(rng.uniform(np.log(5e-324), np.log(F64_MIN), n)) * rng.choice([-1.0, 1.0], n)
+    s[rng.random(n) < 0.2] = 0.0
+    cols["s64"] = s
+    return cols
+
+
+def c9_expressions(E) -> list:
+    """C9's expressions beside the grid's: products that underflow,
+    divisions by float literals (XLA multiplies by the reciprocal),
+    those quotients under an add or a subtract (a multiply then an add,
+    which XLA contracts), ``x * bool`` both ways round, comparisons with
+    zero and with each other, and conversions out of and into the
+    subnormal range."""
+    c, lit = E.Col, E.Lit
+    out = []
+    for x in ("f64", "f32", "i32"):
+        out.append((f"{x} * 0.001", E.BinOp("*", c(x), lit(0.001))))
+        for k in (3.0, 10.0, 0.1, 7.0, 2.0, -4.0) + ((3,) if x != "i32" else ()):
+            out.append((f"{x} / {k}", E.BinOp("/", c(x), lit(k))))
+        out.append((f"{x} / 3.0 + f64", E.BinOp("+", E.BinOp("/", c(x), lit(3.0)), c("f64"))))
+        out.append((f"f64 - {x} / 10.0", E.BinOp("-", c("f64"), E.BinOp("/", c(x), lit(10.0)))))
+        out.append((f"{x} * b", E.BinOp("*", c(x), c("b"))))
+        out.append((f"b * {x}", E.BinOp("*", c("b"), c(x))))
+    f = ("f64", "f32")
+    for x in f:
+        out.append((f"{x} * {x} + {x}", E.BinOp("+", E.BinOp("*", c(x), c(x)), c(x))))
+        out.append((f"{x} - {x} * 2.5", E.BinOp("-", c(x), E.BinOp("*", c(x), lit(2.5)))))
+        out.append((f"{x} * 2.5 - 1.0", E.BinOp("-", E.BinOp("*", c(x), lit(2.5)), lit(1.0))))
+        for op in ("==", "!=", "<", ">=", ">"):
+            out.append((f"{x} {op} 0.0", E.BinOp(op, c(x), lit(0.0))))
+        out.append((f"{x} < s64", E.BinOp("<", c(x), c("s64"))))
+        out.append((f"{x} + 0", E.BinOp("+", c(x), lit(0))))
+        out.append((f"{x} * 1.0", E.BinOp("*", c(x), lit(1.0))))
+        out.append((f"{x} * -1", E.BinOp("*", c(x), lit(-1))))
+        out.append((f"{x} - 0.0", E.BinOp("-", c(x), lit(0.0))))
+        out.append((f"0.0 - {x}", E.BinOp("-", lit(0.0), c(x))))
+        out.append((f"{x} * 1e-300", E.BinOp("*", c(x), lit(1e-300))))
+        out.append((f"case {x}", E.Case(((E.BinOp(">", c(x), lit(0.0)), c(x)),), E.Neg(c(x)))))
+    out.append(("cast(f64 * 1e-10, float32)", E.Cast(E.BinOp("*", c("f64"), lit(1e-10)), "float32")))
+    out.append(("s64 * 2.0", E.BinOp("*", c("s64"), lit(2.0))))
+    return out
+
+
+def c9_segment_plans(E) -> list:
+    """(label, member configs, hoist) of the plans C9 is held on, over
+    ``c9_columns``: the expression grid in the grid's own chunks (so K4's
+    programs are the grid's: the dtypes and expressions are the same, only
+    the data differ), C9's expressions in chunks of their own, each behind
+    an in-trace filter; float keys (hashed after the flush), a watermark
+    whose max is a subnormal, and a tumbling insert whose float64
+    accumulator input converts a float32 product."""
+    c, lit = E.Col, E.Lit
+    plans = (expression_chunks(E, expression_grid(E), "c9 exprs")
+             + expression_chunks(E, c9_expressions(E), "c9 own exprs"))
+    plans.append(("c9 float keys", [
+        ("value", {"projections": None, "filter": E.BinOp("!=", c("d32"), lit(0))}),
+        ("watermark", {"expr": c("s64")}),
+        ("key", {"keys": [("k1", c("f64")), ("k2", c("f32")),
+                          ("k3", E.BinOp("*", c("f64"), lit(0.001)))]})], False))
+    plans.append(("c9 tumbling insert", [
+        ("value", {"projections": [("auction", c("i64")), ("price", c("f32")),
+                                   (TIMESTAMP_FIELD, c(TIMESTAMP_FIELD))], "filter": None}),
+        ("watermark", {"expr": c(TIMESTAMP_FIELD)}),
+        ("key", {"keys": [("auction", c("auction")), ("p", c("price"))]}),
+        ("tumbling_aggregate", {"width_micros": WIDTH, "key_fields": ["auction"],
+                                "aggregates": [("s", "sum", E.BinOp("*", c("price"), lit(1e-3))),
+                                               ("q", "max", E.BinOp("/", c("price"), lit(3.0)))],
+                                "input_dtype_of": lambda e: np.dtype(np.float64)})], False))
+    return plans
+
+
+def expression_chunks(E, exprs: list, prefix: str, chunk: int = 48) -> list:
+    """(label, member configs, hoist) plans that project ``exprs``, ``chunk``
+    at a time, behind an in-trace filter and a float watermark."""
+    c, lit = E.Col, E.Lit
+    filt = E.BinOp(">", c("i32"), lit(-900))
+    plans = []
+    for k in range(0, len(exprs), chunk):
+        part = exprs[k:k + chunk]
+        proj = [(f"e{k + j}", e) for j, (_l, e) in enumerate(part)] + [("w", c("g64"))]
+        plans.append((f"{prefix} {k}-{k + len(part) - 1}", [
+            ("value", {"projections": proj, "filter": filt}),
+            ("watermark", {"expr": c("w")})], False))
+    return plans
+
+
+def segment_grid(E) -> list:
     """(label, member configs, hoist) of every plan K4 is held on besides
     the nexmark ones: the expression grid in chunks of projections behind an
     in-trace filter and a float watermark, multi-column keys (with the
     filter hoisted), and a tumbling insert over negative timestamps."""
     c, lit = E.Col, E.Lit
-    exprs = expression_grid(E)
-    plans = []
-    filt = E.BinOp(">", c("i32"), lit(-900))
-    for k in range(0, len(exprs), chunk):
-        part = exprs[k:k + chunk]
-        proj = [(f"e{k + j}", e) for j, (_l, e) in enumerate(part)] + [("w", c("g64"))]
-        plans.append((f"exprs {k}-{k + len(part) - 1}", [
-            ("value", {"projections": proj, "filter": filt}),
-            ("watermark", {"expr": c("w")})], False))
+    plans = expression_chunks(E, expression_grid(E), "exprs")
     keys = [("k1", c("i32")), ("k2", c("f64")), ("k3", c("b")), ("k4", c("f32")), ("k5", c("i64"))]
     plans.append(("watermark over NaN", [
         ("value", {"projections": [("x", c("f64"))], "filter": None}),
@@ -2006,6 +2224,17 @@ def grid_plans() -> list:
 
     gb = Batch(grid_columns(GRID_N))
     return [(label, bind_plan(members, gb, hoist), gb) for label, members, hoist in segment_grid(E)]
+
+
+def c9_plans() -> list:
+    """C9's plans over ``c9_columns``: K4 held to its plain version (which
+    tests/test_torch_segment.py holds to the JAX compiled segment) on
+    subnormals, literal divisions, multiply-adds, ``x * bool`` and float
+    keys."""
+    from arroyo_tpu_torch import expr as E
+
+    cb = Batch(c9_columns(GRID_N))
+    return [(label, bind_plan(members, cb, hoist), cb) for label, members, hoist in c9_segment_plans(E)]
 
 
 def segment_build(out_dir: str) -> tuple[dict, list]:
@@ -2203,18 +2432,23 @@ def segment_sweep() -> dict:
     return info
 
 
-def segment_phase(nex_plans: list) -> dict:
-    dev = torch.device("cuda")
-    checked = {}
-    t0 = time.perf_counter()
-    for label, plan, batch in nex_plans + grid_plans():
-        log(f"segment: check {label}")
-        checked[label] = compare_segment(label, plan, batch, dev)
-    log("segment: K4's edge cases")
-    edge = k4_edge_cases(nex_plans, dev)
-    check_s = time.perf_counter() - t0
-    # timing at q7's plan
-    label, plan, batch = nex_plans[0]
+def float64_members(E) -> list:
+    """A float64 expression plan over the grid's columns, the code XLA's
+    CPU compilation shapes (C9): a product that may underflow, divisions by
+    literals, a multiply-add, a comparison with zero."""
+    c, lit = E.Col, E.Lit
+    return [("value", {"projections": [
+        ("p", E.BinOp("*", c("f64"), lit(0.001))),
+        ("q", E.BinOp("/", c("f64"), lit(3.0))),
+        ("r", E.BinOp("+", E.BinOp("/", c("f64"), lit(10.0)), c("g64"))),
+        ("s", E.BinOp(">", c("f64"), lit(0.0))),
+        ("w", c("g64"))], "filter": None}),
+        ("watermark", {"expr": c("w")})]
+
+
+def k4_timing(plan, batch: Batch, dev) -> dict:
+    """K4 and its plain version timed at one bound plan, with the bytes
+    bound (each input read once, each output written once)."""
     prog = segment_kernel.SegmentProgram(plan, [np.asarray(batch[c]).dtype for c in plan.traced_in])
     n, ins = staged_inputs(plan, batch, dev)
     k = measure(lambda: segment_kernel.segment_fused(prog, n, ins))
@@ -2223,19 +2457,37 @@ def segment_phase(nex_plans: list) -> dict:
     in_bytes = sum(t.element_size() * P for t in ins)
     out_bytes = sum(np.dtype(prog.out_dtypes[o]).itemsize * P for o in plan.traced_out) + \
         (P if prog.has_mask else 0)
-    timing = {"ms": k["device_ms"], "call_ms": k["call_ms"], "method": k["method"],
-              "kernel_names": k["device_kernels"], "plain_ms": p["device_ms"],
-              "trace_whole": k["trace_whole"] and p["trace_whole"],
-              "plain_call_ms": p["call_ms"], "bytes": in_bytes + out_bytes,
-              "bound_ms": (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-              "library_ms": None,
-              "library": "none: no single PyTorch call computes the fused segment "
-                         "(filter, projections, splitmix64 hash, masked max/count, bins)",
-              "rows": n, "P": P, "block": segment_kernel.BLOCK,
-              "num_warps": segment_kernel.NUM_WARPS,
-              "launches_per_call": k["device_ops_per_call"]}
+    return {"ms": k["device_ms"], "call_ms": k["call_ms"], "method": k["method"],
+            "kernel_names": k["device_kernels"], "plain_ms": p["device_ms"],
+            "trace_whole": k["trace_whole"] and p["trace_whole"],
+            "plain_call_ms": p["call_ms"], "bytes": in_bytes + out_bytes,
+            "bound_ms": (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "library_ms": None,
+            "library": "none: no single PyTorch call computes the fused segment "
+                       "(filter, projections, splitmix64 hash, masked max/count, bins)",
+            "rows": n, "P": P, "block": segment_kernel.BLOCK,
+            "num_warps": segment_kernel.NUM_WARPS,
+            "launches_per_call": k["device_ops_per_call"]}
+
+
+def segment_phase(nex_plans: list) -> dict:
+    from arroyo_tpu_torch import expr as E
+
+    dev = torch.device("cuda")
+    checked = {}
+    t0 = time.perf_counter()
+    for label, plan, batch in nex_plans + grid_plans() + c9_plans():
+        log(f"segment: check {label}")
+        checked[label] = compare_segment(label, plan, batch, dev)
+    log("segment: K4's edge cases")
+    edge = k4_edge_cases(nex_plans, dev)
+    check_s = time.perf_counter() - t0
+    gb = Batch(grid_columns(GRID_N))
+    timing = k4_timing(*nex_plans[0][1:], dev)  # q7's plan
+    timing_f64 = k4_timing(bind_plan(float64_members(E), gb, hoist=False), gb, dev)
     info = {"phase": "segment", "plans_checked": len(checked), "check_seconds": check_s,
-            "max_abs_err": 0.0, "checked": checked, "edge_cases": edge, "timing_q7": timing}
+            "max_abs_err": 0.0, "checked": checked, "edge_cases": edge, "timing_q7": timing,
+            "timing_float64": timing_f64}
     emit(info)
     return info
 
@@ -5991,6 +6243,254 @@ def recovery_phase(card: str) -> dict:
     return info
 
 
+# ---------------------------------------------------------------- sql
+
+SQL_EVENTS = {"q7": Q7_EVENTS, "q5": Q5_EVENTS, "q8": Q8_EVENTS}
+SQL_HAND_BUILT = {"q7": "q7c", "q5": "q5", "q8": "q8c"}
+SQL_PATH_KERNELS = {"q7": AGG_PATH_KERNELS, "q5": AGG_PATH_KERNELS,
+                    "q8": AGG_PATH_KERNELS + ("join_sort_pairs", "join_search_bounds")}
+SMOKE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "smoke")
+# smoke families whose plans hold an operator the port refuses (ROADMAP A.5)
+SMOKE_REFUSED = {
+    "async_udf": "async_udf",
+    "most_active_driver": "window_function",
+    "window_function": "window_function",
+    "unnest_in_view": "unnest",
+    "null_comparisons": "join_with_expiration",
+    "updating_full_join": "join_with_expiration",
+    "updating_inner_join": "join_with_expiration",
+    "updating_inner_join_with_updating": "join_with_expiration",
+    "updating_left_join": "join_with_expiration",
+    "updating_right_join": "join_with_expiration",
+}
+
+
+def smoke_families() -> list:
+    return sorted(os.path.splitext(f)[0] for f in os.listdir(os.path.join(SMOKE_DIR, "queries"))
+                  if f.endswith(".sql"))
+
+
+def smoke_sql(name: str, out: str) -> str:
+    with open(os.path.join(SMOKE_DIR, "queries", f"{name}.sql")) as f:
+        sql = f.read()
+    return sql.replace("$input_dir", os.path.join(SMOKE_DIR, "inputs")).replace("$output_path", out)
+
+
+def register_smoke_udafs() -> None:
+    """The smoke suite's UDAFs and its async UDF (tests/smoke/udfs.py's p90,
+    val_range and double_negative, which register into the JAX package) in
+    the port's registry."""
+    from arroyo_tpu_torch.udf import register_udaf, register_udf
+
+    register_udf("double_negative", lambda c: -2 * int(c), return_dtype="int64",
+                 is_async=True, max_concurrency=16, ordered=True)
+
+    register_udaf("p90", lambda v: float(np.percentile(np.asarray(v, dtype=np.float64), 90)),
+                  return_dtype="float64")
+    register_udaf("val_range", lambda v: int(np.asarray(v).max() - np.asarray(v).min()),
+                  return_dtype="int64")
+
+
+# the families whose sinks write debezium envelopes (tests/smoke/generate.py's
+# UPDATING; tests/test_torch_sql_smoke_a.py holds the copy to it)
+SMOKE_UPDATING = {
+    "updating_aggregate", "spill_keyspace", "filter_updating_aggregates",
+    "updating_inner_join", "updating_left_join", "updating_right_join",
+    "updating_full_join", "updating_inner_join_with_updating",
+    "debezium_pass_through", "debezium_agg", "null_comparisons",
+}
+
+
+def smoke_canon(row: dict) -> str:
+    """A row's canonical form for an order-insensitive multiset compare,
+    floats rounded to 6 places (tests/test_smoke.py's ``canon``)."""
+    return json.dumps({k: round(v, 6) if isinstance(v, float) else v
+                       for k, v in sorted(row.items())}, sort_keys=True)
+
+
+def smoke_merge_debezium(lines: list) -> list:
+    """Apply debezium retract/append envelopes to a multiset
+    (tests/test_smoke.py's ``merge_debezium``)."""
+    counts: dict = {}
+    rows: dict = {}
+
+    def add(row: dict, n: int) -> None:
+        key = smoke_canon(row)
+        counts[key] = counts.get(key, 0) + n
+        if n > 0:
+            rows[key] = row
+        if counts[key] == 0:
+            del counts[key]
+
+    for obj in lines:
+        op = obj.get("op")
+        if op is None:
+            add(obj, 1)
+        elif op in ("c", "r"):
+            add(obj["after"], 1)
+        elif op == "d":
+            if smoke_canon(obj["before"]) not in counts:
+                raise AssertionError(f"retract of unseen row: {obj['before']}")
+            add(obj["before"], -1)
+        elif op == "u":
+            add(obj["before"], -1)
+            add(obj["after"], 1)
+    return [rows[k] for k, n in counts.items() for _ in range(n)]
+
+
+def smoke_check(name: str, out: str) -> None:
+    """The family's output against its golden, compared as
+    tests/test_smoke.py's ``assert_outputs`` compares them: every file the
+    sink wrote, debezium envelopes merged for the updating families, rows
+    as a multiset of canonical forms."""
+    import glob
+
+    with open(os.path.join(SMOKE_DIR, "golden", f"{name}.json")) as f:
+        golden = [json.loads(line) for line in f if line.strip()]
+    got = []
+    for path in sorted(glob.glob(out) + glob.glob(out + ".*")):
+        with open(path) as f:
+            got.extend(json.loads(line) for line in f if line.strip())
+    if name in SMOKE_UPDATING:
+        got = smoke_merge_debezium(got)
+    got_c = sorted(smoke_canon(r) for r in got)
+    want_c = sorted(smoke_canon(r) for r in golden)
+    if got_c != want_c:
+        raise AssertionError(
+            f"{name}: output mismatch ({len(got_c)} rows vs {len(want_c)} golden)\n"
+            f"extra:   {[r for r in got_c if r not in want_c][:5]}\n"
+            f"missing: {[r for r in want_c if r not in got_c][:5]}")
+
+
+def sql_query_run(name: str, root: str) -> dict:
+    """Nexmark ``name`` written as SQL: planned by the port's plan_query,
+    run at bench.py's sizes (chaining on, batch 65536, parallelism 1) into
+    a single_file JSON sink, held exactly to ``oracle_sql``. One run, under
+    the CUDA-activity trace that gives the device's idle share (the run is
+    host-bound: its wall moves a few percent with the trace). Counts zeroed
+    just before it and read just after: K4 and every kernel of the path
+    must launch, the chains must run compiled."""
+    from arroyo_tpu_torch.sql import plan_query
+
+    events = SQL_EVENTS[name]
+    want = oracle_sql(name, events)
+    bench_config(chaining=True, queue_mult=1 if name == "q8" else 2)
+    out = os.path.join(root, f"{name}.json")
+    t0 = time.perf_counter()
+    g = plan_query(nexmark_sql(name, events, out)).graph
+    plan_ms = (time.perf_counter() - t0) * 1e3
+    job = f"chip-smoke-sql-{name}"
+    recorder.clear_job(job)
+    ran = {}
+
+    def run():
+        reset_all_launch_counts()
+        t0 = time.perf_counter()
+        ran["eng"] = run_graph(g, job_id=job, timeout=900)
+        torch.cuda.synchronize()
+        ran["wall"] = time.perf_counter() - t0
+        ran["launches"] = all_launch_counts()
+
+    prof = device_trace(run, warm_device)
+    eng, wall, launches = ran["eng"], ran["wall"], ran["launches"]
+    if eng.device.type != "cuda":
+        raise RuntimeError(f"{job} ran on {eng.device}, not on the GPU")
+    with open(out) as f:
+        n_rows = check_sql_rows(name, f.read().splitlines(), want)
+    compiled = recorder.events(job, "SEGMENT_COMPILED")
+    fallbacks = recorder.events(job, "SEGMENT_FALLBACK")
+    if not compiled or fallbacks:
+        raise AssertionError(f"sql {name}: chains {[n for n in eng.graph.nodes if '+' in n]}, "
+                             f"compiled {len(compiled)}, fallbacks "
+                             f"{[e['message'] for e in fallbacks]}")
+    unlaunched = [k for k in SQL_PATH_KERNELS[name] if launches[k] == 0]
+    if unlaunched:
+        raise AssertionError(f"sql {name} ran without launching {unlaunched}: {launches}")
+    check_k4_one_launch(f"sql {name}", launches)
+    by_name = device_us_by_name(prof)
+    busy_s = sum(by_name.values()) / 1e6 if by_name else None  # None: not measured
+    return {"events": events, "plan_ms": plan_ms, "wall_s": wall, "events_per_s": events / wall,
+            "rows": n_rows, "chains": [n for n in eng.graph.nodes if "+" in n],
+            "segment_compiled": len(compiled), "segment_fallback": len(fallbacks),
+            "launches": {k: launches[k] for k in SQL_PATH_KERNELS[name]},
+            "k4_triton_launches": launches["segment_fused_kernels"],
+            "device_busy_s": busy_s,
+            "device_idle_share": None if busy_s is None else 1.0 - busy_s / wall,
+            "device_us_by_name": dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:10])}
+
+
+def sql_smoke_phase(root: str) -> dict:
+    """The smoke families through the port on the card: each planned by the
+    port, run at parallelism 1 with chaining on (the windows, joins and
+    updating aggregates on the card) and held to tests/smoke/golden/; the
+    families that need an operator the port lacks refused naming ROADMAP
+    A.5."""
+    from arroyo_tpu_torch.sql import plan_query
+
+    register_smoke_udafs()
+    out = {"passed": {}, "refused": {}}
+    for name in smoke_families():
+        tcfg.reset()
+        tcfg.update({"checkpoint.storage-url": os.path.join(root, "smoke-ckpt"),
+                     "pipeline.chaining.enabled": True})
+        path = os.path.join(root, f"smoke-{name}.json")
+        g = plan_query(smoke_sql(name, path)).graph
+        job = f"chip-smoke-family-{name}"
+        if name in SMOKE_REFUSED:
+            try:
+                run_graph(g, job_id=job, timeout=120)
+            except NotImplementedError as e:
+                if "ROADMAP A.5" not in str(e) or SMOKE_REFUSED[name] not in str(e):
+                    raise
+                out["refused"][name] = SMOKE_REFUSED[name]
+                continue
+            raise AssertionError(f"smoke {name} ran; its {SMOKE_REFUSED[name]} is not ported")
+        t0 = time.perf_counter()
+        eng = run_graph(g, job_id=job, timeout=120)
+        if eng.device.type != "cuda":
+            raise RuntimeError(f"smoke {name} ran on {eng.device}, not on the GPU")
+        wall = time.perf_counter() - t0
+        smoke_check(name, path)
+        with open(path) as f:
+            out["passed"][name] = {"lines": sum(1 for line in f if line.strip()),
+                                   "wall_s": wall}
+    if len(out["passed"]) + len(out["refused"]) != len(smoke_families()):
+        raise AssertionError(f"smoke families unaccounted for: {out}")
+    return out
+
+
+def sql_phase(card: str, res: dict) -> dict:
+    """The SQL front end on the card: Nexmark q7, q5 and q8 written as SQL
+    (beside the hand-built q7c, q5 and q8c of this call, where they ran)
+    and the smoke families. ``card``: nvidia-smi's name and power limit."""
+    root = tempfile.mkdtemp(prefix="chip_smoke_sql_")
+    try:
+        queries = {}
+        for name in ("q7", "q5", "q8"):
+            log(f"sql: {name}")
+            q = sql_query_run(name, root)
+            hand = res.get(SQL_HAND_BUILT[name])
+            q["hand_built"] = None if hand is None else {
+                "phase": SQL_HAND_BUILT[name], "events_per_s": hand["events_per_s"]}
+            queries[name] = q
+        log("sql: smoke families")
+        smoke = sql_smoke_phase(root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    info = {"phase": "sql", "card": card, "queries": queries,
+            "smoke_passed": len(smoke["passed"]), "smoke_refused": smoke["refused"],
+            "smoke": smoke["passed"]}
+    emit(info)
+    for name, q in queries.items():
+        print(f"sql {name}: plan {q['plan_ms']:.1f} ms, run {q['wall_s']:.3f} s, "
+              f"{q['events_per_s']:.0f} events/s (hand-built "
+              f"{(q['hand_built'] or {}).get('events_per_s', 'not run')}), idle "
+              f"{q['device_idle_share']}, launches {q['launches']}, "
+              f"SEGMENT_COMPILED {q['segment_compiled']}, SEGMENT_FALLBACK "
+              f"{q['segment_fallback']} [{card}]", flush=True)
+    return info
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out-dir", default="chip_smoke_out",
@@ -6049,6 +6549,7 @@ def run_phases(args, out_dir: str) -> int:
         "q7_host": run_q7_host,
         "checkpoint": lambda: checkpoint_phase(dev),
         "recovery": lambda: recovery_phase(smi),
+        "sql": lambda: sql_phase(smi, res),
         "segment_sweep": segment_sweep,
     }
     only = args.only.split(",") if args.only else [p for p in phases if p != "segment_sweep"]
@@ -6148,7 +6649,9 @@ def kernel_rows(res: dict) -> list:
                  "triton_launches": res["q7c"]["launches"]["segment_fused_kernels"],
                  "block": st["block"], "num_warps": st["num_warps"],
                  "edge_cases": sorted(segp["edge_cases"]),
-                 "q7c_copies": res["q7c"]["profiled_run"]["copies_by_kind"]})
+                 "q7c_copies": res["q7c"]["profiled_run"]["copies_by_kind"],
+                 "float64_plan": {k: segp["timing_float64"][k] for k in
+                                  ("rows", "ms", "plain_ms", "bound_ms", "call_ms")}})
     jt = res["join"]["timing"]["q8 window"]
     for name in ("join_sort_pairs", "join_search_bounds"):
         t = jt[name]
@@ -6296,5 +6799,31 @@ def kernel_rows(res: dict) -> list:
     return rows
 
 
+def threads_at_exit() -> str:
+    """The threads still alive besides this one, counted by name (digits
+    dropped) and the line each stands on."""
+    frames = sys._current_frames()
+    seen: dict = {}
+    for t in threading.enumerate():
+        if t is threading.current_thread():
+            continue
+        f = frames.get(t.ident)
+        where = f"{os.path.basename(f.f_code.co_filename)}:{f.f_lineno} {f.f_code.co_name}" if f else "?"
+        key = f"{t.name.rstrip('0123456789-_')} at {where}"
+        seen[key] = seen.get(key, 0) + 1
+    return "; ".join(f"{n} x {k}" for k, n in sorted(seen.items())) or "none"
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    rc = main()
+    # A whole run once aborted after printing its result (SIGABRT,
+    # "terminate called without an active exception"): the interpreter's
+    # teardown destroyed a C++ thread still joinable, or ended a daemon
+    # thread inside a torch call. The script names the threads still alive
+    # and leaves without that teardown; its files are closed and its
+    # children done.
+    faulthandler.cancel_dump_traceback_later()
+    log(f"threads at exit: {threads_at_exit()}")
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(rc)

@@ -44,13 +44,24 @@ def test_port_and_chip_smoke_import_neither_jax_nor_arroyo_tpu():
             "arroyo_tpu_torch.faults.plan", "arroyo_tpu_torch.utils.retry",
             "arroyo_tpu_torch.analysis", "arroyo_tpu_torch.analysis.diagnostics",
             "arroyo_tpu_torch.analysis.plan_diff", "arroyo_tpu_torch.sql.lexer",
-            "arroyo_tpu_torch.state.integrity"} <= set(mods)
+            "arroyo_tpu_torch.state.integrity", "arroyo_tpu_torch.sql",
+            "arroyo_tpu_torch.sql.ast", "arroyo_tpu_torch.sql.parser",
+            "arroyo_tpu_torch.sql.compile", "arroyo_tpu_torch.sql.planner",
+            "arroyo_tpu_torch.udf", "arroyo_tpu_torch.formats",
+            "arroyo_tpu_torch.formats.base", "arroyo_tpu_torch.formats.framing",
+            "arroyo_tpu_torch.formats.json_fmt", "arroyo_tpu_torch.formats.registry",
+            "arroyo_tpu_torch.connectors.single_file",
+            "arroyo_tpu_torch.analysis.plan_passes",
+            "arroyo_tpu_torch.analysis.trace_audit"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
-        "import chip_smoke\n"
+        "import chip_smoke, os\n"
+        "name = 'updating_aggregate'\n"  # the card's golden compare, debezium merge and all
+        "chip_smoke.smoke_check(name, os.path.join(chip_smoke.SMOKE_DIR, 'golden', name + '.json'))\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
-        "             or m == 'arroyo_tpu' or m.startswith('arroyo_tpu.'))\n"
+        "             or m == 'arroyo_tpu' or m.startswith('arroyo_tpu.')\n"
+        "             or m in ('pytest', 'test_smoke', 'generate'))\n"
         "print('BAD', bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )

@@ -280,9 +280,34 @@ def test_count_distinct(tmp_path, backend):
                                          {"u": "b", "d": 1, "cnt": 2}]
 
 
-def test_udaf_refused_when_built():
-    with pytest.raises(NotImplementedError, match="UDF registry"):
-        UpdatingAggregate({"key_fields": [], "aggregates": [("x", "udaf:median", TCol("v"))]})
+def test_udaf_refused_when_built(tmp_path):
+    """Refused until the port had a UDF registry; now a UDAF registered in
+    the port's registry (arroyo_tpu_torch.udf) builds and runs, in host
+    mode, and its rows equal the JAX package's with the same function
+    registered in its own registry."""
+    from arroyo_tpu import udf as judf
+    from arroyo_tpu_torch import udf as tudf
+
+    def median(v):
+        v = np.asarray(v)
+        if v.ndim == 0:  # both packages hand their value -> multiplicity map
+            v = np.asarray([x for x, c in v.item().items() for _ in range(c)])
+        return float(np.median(v.astype(np.float64)))
+
+    judf.register_udaf("median_test", median, return_dtype="float64")
+    tudf.register_udaf("median_test", median, return_dtype="float64")
+    try:
+        p = Pair(tmp_path, [("x", "udaf:median_test", "v"), ("cnt", "count", "-")], "jax")
+        assert not p.t.device_mode  # collected state lives on the host
+        p.batch([0, 1, 2, 3], ["a", "a", "b", "a"], [1, 5, 2, 9])
+        p.watermark(3)
+        p.batch([4, 5], ["b", "a"], [4, 1], retracts=[False, True])
+        p.close()
+        rows = p.check()
+        assert rows and {r["u"] for r in rows} == {"a", "b"}
+    finally:
+        judf.drop_udaf("median_test")
+        tudf.drop_udaf("median_test")
 
 
 def test_spill_config_refused():
