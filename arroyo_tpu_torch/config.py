@@ -77,10 +77,23 @@ _DEFAULTS: dict[str, Any] = {
         "file-format": "parquet",
     },
     "state": {
-        # the tiered (spilling) state backend of the JAX package
-        # (state/spill.py) is not ported: the updating aggregate refuses to
-        # build when this is on
-        "spill": {"enabled": False},
+        # tiered state (state/spill.py): keep the hot working set in memory
+        # and spill cold hash-range partitions as runs (bloom filter and
+        # min/max zone maps per run) to checkpoint storage once a subtask's
+        # resident state passes the budget; off by default
+        "spill": {
+            "enabled": False,
+            # per-subtask resident-state budget (the operators' resident-state estimates)
+            "budget-bytes": 64 * 1024 * 1024,
+            # hash-range partitions per subtask (rounded up to a power of two)
+            "partition-count": 16,
+            # run files of roughly this size; also compaction's output size
+            "target-file-bytes": 4 * 1024 * 1024,
+            # generations per partition before an online compaction merges them
+            "max-runs": 4,
+            # after a spill, shrink to budget * headroom (a low-water mark)
+            "headroom": 0.75,
+        },
         # checkpoint-file checksum verification: "restore" verifies the
         # envelopes on the restore path only, "always" on every checkpointed
         # read, "off" trusts storage

@@ -73,7 +73,8 @@ def load_operators() -> None:
     """Import every operator/connector module of the port so that its
     constructor registers."""
     from .. import connectors
-    from ..operators import builtin, chained, joins, updating_aggregate  # noqa: F401
+    from ..operators import (async_udf, builtin, chained, joins,  # noqa: F401
+                             updating_aggregate, window_fn)
     from ..windows import session, sliding, tumbling  # noqa: F401
 
     connectors.load_all()
@@ -83,8 +84,7 @@ def construct_operator(op: OpName, cfg: dict):
     load_operators()
     if op not in _CONSTRUCTORS:
         raise NotImplementedError(
-            f"operator {op.value} is not ported yet (ROADMAP A.5: the operators the "
-            f"other smoke families need); the port runs "
+            f"operator {op.value} is not ported yet; the port runs "
             f"{sorted(o.value for o in _CONSTRUCTORS)}")
     return _CONSTRUCTORS[op](cfg)
 

@@ -439,6 +439,8 @@ class Func(Expr):
             unary_type("abs", v.dt)
             if v.dt.kind == "b":
                 return v
+            if v.dt.kind == "u":
+                return v  # abs of an unsigned value is the value
             return TVal(_fabs(v.t) if v.dt.kind == "f" else torch.abs(v.t), v.dt, v.weak)
         if name in ("floor", "ceil", "sqrt"):
             v = _tval(a[0])
@@ -585,21 +587,36 @@ def contraction_site(e) -> Optional[tuple]:
 _BOOL = np.dtype(np.bool_)
 _I32 = np.dtype(np.int32)
 _I64 = np.dtype(np.int64)
+_U16 = np.dtype(np.uint16)
+_U32 = np.dtype(np.uint32)
 _U64 = np.dtype(np.uint64)
+_F16 = np.dtype(np.float16)
 _F32 = np.dtype(np.float32)
 _F64 = np.dtype(np.float64)
 
 CAST_TARGETS = {"int32": _I32, "int64": _I64, "uint64": _U64,
                 "float32": _F32, "float64": _F64, "bool": _BOOL}
 
-# dtypes the device twins and the kernel take. uint64 rides in int64 bits and
-# may only be passed through, hashed or cast (no unsigned 64-bit arithmetic
-# in the kernel); float16 and the 16/32-bit unsigned types are not taken.
+# dtypes the device twins and the kernel take. uint16, uint32 and uint64
+# ride in the bits of the signed type of their size (torch does no unsigned
+# arithmetic past 8 bits): sums, differences and products wrap alike, and
+# the operations where the two readings part (compares, division,
+# remainder, widening and conversion to float) read the bits unsigned.
 TORCH_DTYPES = {
     _BOOL: torch.bool, np.dtype(np.int8): torch.int8, np.dtype(np.int16): torch.int16,
     _I32: torch.int32, _I64: torch.int64, np.dtype(np.uint8): torch.uint8,
-    _F32: torch.float32, _F64: torch.float64, _U64: torch.int64,
+    _F16: torch.float16, _F32: torch.float32, _F64: torch.float64,
+    _U16: torch.int16, _U32: torch.int32, _U64: torch.int64,
 }
+# the unsigned types held in signed bits
+UNSIGNED_BITS = {_U16: np.dtype(np.int16), _U32: _I32, _U64: _I64}
+
+
+def storage_dtype(dt: np.dtype) -> np.dtype:
+    """The NumPy dtype a column of ``dt`` is held in by the twins and the
+    kernel (uint16/32/64 as the signed type's bits)."""
+    dt = np.dtype(dt)
+    return UNSIGNED_BITS.get(dt, dt)
 
 # JAX's type-promotion lattice (jax/_src/dtypes.py), complex types left
 # out: "i*" and "f*" are Python ints and floats (weak types)
@@ -677,9 +694,6 @@ def promote(*types: tuple[np.dtype, bool]) -> tuple[np.dtype, bool]:
 def _check(dt: np.dtype, what: str) -> None:
     if dt not in TORCH_DTYPES:
         raise TypeError(f"{what} over {dt}: not a dtype of the segment kernel")
-    if dt == _U64:
-        raise TypeError(f"{what} over uint64: the segment kernel passes uint64 "
-                        f"through, hashes and casts it, and does no arithmetic on it")
 
 
 def _is_int_operand(x) -> bool:
@@ -704,8 +718,7 @@ def binop_type(op: str, lt, rt) -> tuple[np.dtype, np.dtype, bool]:
     if op == "%":
         if ct == _BOOL:
             ct, weak = _I32, False  # jax dtypes.to_numeric_dtype
-        if ct != _U64:  # uint64 modulo is in the kernel (a key such as counter % 7)
-            _check(ct, "modulo")
+        _check(ct, "modulo")
         return ct, ct, weak
     _check(ct, f"operator {op!r}")
     if op in ("==", "!=", "<", "<=", ">", ">="):
@@ -752,17 +765,17 @@ def dtype_floor(dt: np.dtype):
     _dtype_floor)."""
     if np.issubdtype(dt, np.floating):
         return float("-inf")
-    if dt.kind not in "iu" or dt == _U64:
-        raise TypeError(f"watermark values of dtype {dt}")
+    if dt.kind not in "iu" or dt in UNSIGNED_BITS:
+        raise TypeError(f"watermark values of dtype {dt}: not in the segment kernel")
     return int(np.iinfo(dt).min)
 
 
 def wrap_int(v: int, dt: np.dtype) -> int:
     """A Python int converted to integer dtype ``dt`` as a two's-complement
-    truncation (uint64 as its int64 bits)."""
+    truncation (uint16/32/64 as their signed bits)."""
     bits = dt.itemsize * 8
     v &= (1 << bits) - 1
-    if (dt.kind == "i" or dt == _U64) and v >= 1 << (bits - 1):
+    if (dt.kind == "i" or dt in UNSIGNED_BITS) and v >= 1 << (bits - 1):
         v -= 1 << bits
     return v
 
@@ -805,7 +818,8 @@ def _tval(x) -> TVal:
 
 def _sat_float_to_int(x: torch.Tensor, dt: np.dtype) -> torch.Tensor:
     """XLA's float -> integer conversion: truncate, NaN to 0, out-of-range
-    values saturate to the type's bounds (uint64 returned as int64 bits)."""
+    values saturate to the type's bounds (uint16/32/64 returned as their
+    signed bits)."""
     t = torch.trunc(x.double())
     bits = dt.itemsize * 8
     signed = dt.kind == "i"
@@ -819,8 +833,46 @@ def _sat_float_to_int(x: torch.Tensor, dt: np.dtype) -> torch.Tensor:
         out = torch.where(top, low ^ torch.iinfo(torch.int64).min, low)
         return torch.where(over, -1, torch.where(under, 0, out))
     info = np.iinfo(dt)
-    out = safe.to(TORCH_DTYPES[dt])
-    return torch.where(over, info.max, torch.where(under, info.min, out)).to(TORCH_DTYPES[dt])
+    out = safe.to(torch.int64)
+    out = torch.where(over, int(info.max), torch.where(under, int(info.min), out))
+    return out.to(TORCH_DTYPES[dt])  # a uint16/32 past the signed range wraps to its bits
+
+
+def int_value(v: "TVal") -> torch.Tensor:
+    """An integer or bool TVal's values as int64 (uint16/32 zero-extended,
+    uint64 as its int64 bits)."""
+    if v.dt in (_U16, _U32):
+        return v.t.to(torch.int64) & ((1 << (v.dt.itemsize * 8)) - 1)
+    return v.t.to(torch.int64)
+
+
+def _lsr(z: torch.Tensor, k: int) -> torch.Tensor:
+    """Logical right shift of int64 bits."""
+    return (z >> k) & ((1 << (64 - k)) - 1)
+
+
+def u64_to_float(bits: torch.Tensor, dt: np.dtype) -> torch.Tensor:
+    """uint64 (int64 bits) converted to float dtype ``dt``, rounded once to
+    nearest as LLVM's uitofp is: the high and low 32-bit halves are exact
+    in float64, so their sum rounds once; float32 and float16 keep a sticky
+    bit below float64's last place where the value needs more than 53 bits,
+    so rounding that float64 to float32 is the one rounding that counts."""
+    hi, lo = _lsr(bits, 32).double(), (bits & 0xFFFFFFFF).double()
+    if dt == _F64:
+        return hi * 4294967296.0 + lo
+    wide = _lsr(bits, 53) != 0
+    sticky = _lsr(bits, 11) | ((bits & 0x7FF) != 0).to(torch.int64)
+    r = torch.where(wide, sticky.double() * 2048.0, hi * 4294967296.0 + lo).to(torch.float32)
+    return r if dt == _F32 else r.to(torch.float16)
+
+
+def _u_cmp(a: torch.Tensor, b: torch.Tensor, dt: np.dtype):
+    """Unsigned operands of ``dt`` (signed bits) mapped so that a signed
+    compare orders them unsigned: the top bit flipped."""
+    if dt not in UNSIGNED_BITS:
+        return a, b
+    top = torch.iinfo(a.dtype).min
+    return a ^ top, b ^ top
 
 
 def convert(v: TVal, dt: np.dtype) -> torch.Tensor:
@@ -833,14 +885,23 @@ def convert(v: TVal, dt: np.dtype) -> torch.Tensor:
     src = v.dt
     if src == dt:
         return v.t
-    if src == _U64 and dt not in (_I64, _BOOL):
-        raise TypeError(f"conversion of uint64 to {dt}: not in the segment kernel")
     if dt == _BOOL:
         return flush(v.t) != 0
     if src.kind == "f" and dt.kind in "iu":
         return _sat_float_to_int(v.t, dt)
     if src.kind == "f" and dt.kind == "f":
+        if _F16 in (src, dt) and _F64 in (src, dt):  # XLA converts through float32
+            return convert(TVal(convert(v, _F32), _F32), dt)
         return flush(_float_convert(flush(v.t), dt))
+    if dt.kind == "f":  # from an integer or a bool
+        if src == _U64:
+            return u64_to_float(v.t, dt)
+        x = int_value(v) if src in UNSIGNED_BITS else v.t
+        if dt == _F16:  # through float32, as XLA's CPU code converts
+            return x.to(torch.float32).to(torch.float16)
+        return x.to(TORCH_DTYPES[dt])
+    if src in UNSIGNED_BITS:
+        return int_value(v).to(TORCH_DTYPES[dt])  # zero-extended, then truncated
     return v.t.to(TORCH_DTYPES[dt])
 
 
@@ -867,21 +928,34 @@ def _operands(l, r, ct: np.dtype) -> tuple[torch.Tensor, torch.Tensor]:
 # agree byte for byte on either device, and with the numpy reference.
 
 
+# float16: XLA's CPU code computes each float16 operation in float32 and
+# rounds its result to float16 (no multiply-add contracts), so a float16
+# subnormal is a normal float32 operand and no float16 value is flushed;
+# the NaN rules are float32's carried through the exact conversions.
+
+_MANT = {_F16: 10, _F32: 23, _F64: 52}
+
+
 def default_nan_bits(dt: np.dtype) -> int:
-    """x86's default NaN of float dtype ``dt`` as signed integer bits."""
-    return -(1 << 22) if dt == _F32 else -(1 << 51)
+    """x86's default NaN of float dtype ``dt`` as signed integer bits (float16:
+    float32's converted)."""
+    return -(1 << (_MANT[np.dtype(dt)] - 1))
 
 
 def quiet_bit(dt: np.dtype) -> int:
-    return 1 << 22 if dt == _F32 else 1 << 51
+    return 1 << (_MANT[np.dtype(dt)] - 1)
+
+
+_ITY = {torch.float16: torch.int16, torch.float32: torch.int32, torch.float64: torch.int64}
+_FDT = {torch.float16: _F16, torch.float32: _F32, torch.float64: _F64}
 
 
 def _ity(t: torch.Tensor):
-    return torch.int32 if t.dtype == torch.float32 else torch.int64
+    return _ITY[t.dtype]
 
 
 def _fdt(t: torch.Tensor) -> np.dtype:
-    return _F32 if t.dtype == torch.float32 else _F64
+    return _FDT[t.dtype]
 
 
 _TINY = {_F32: float(np.finfo(np.float32).tiny), _F64: float(np.finfo(np.float64).tiny)}
@@ -890,8 +964,9 @@ _TINY = {_F32: float(np.finfo(np.float32).tiny), _F64: float(np.finfo(np.float64
 def flush(t: torch.Tensor) -> torch.Tensor:
     """A float tensor with each subnormal replaced by the zero of its sign,
     as XLA's CPU code reads float operands and writes float results
-    (denormals-are-zero, flush-to-zero); any other tensor as it is."""
-    if not t.is_floating_point():
+    (denormals-are-zero, flush-to-zero); any other tensor, and float16 (a
+    float32 operation's operand and result there), as it is."""
+    if not t.is_floating_point() or t.dtype == torch.float16:
         return t
     return torch.where(t.abs() < _TINY[_fdt(t)], torch.copysign(torch.zeros_like(t), t), t)
 
@@ -916,9 +991,22 @@ def nan_fix(r: torch.Tensor, *operands: torch.Tensor) -> torch.Tensor:
 
 
 def _float_convert(t: torch.Tensor, dt: np.dtype) -> torch.Tensor:
-    """float32 <-> float64 rounding to nearest; a NaN keeps its sign and the
-    top of its payload and is quieted, as x86's cvtss2sd / cvtsd2ss do."""
+    """float32 <-> float64 and float16 <-> float32 rounding to nearest; a NaN
+    keeps its sign and the top of its payload and is quieted, as x86's
+    cvtss2sd / cvtsd2ss / vcvtph2ps / vcvtps2ph do."""
     r = t.to(TORCH_DTYPES[dt])
+    if t.dtype == torch.float16 or dt == _F16:
+        wide = t.dtype == torch.float16  # float16 -> float32, else float32 -> float16
+        b = t.view(_ity(t)).to(torch.int64) & (0xFFFF if wide else 0xFFFFFFFF)
+        if wide:
+            n = ((b & 0x8000) << 16) | 0x7F800000 | ((b & 0x3FF) << 13)
+            out_t = torch.int32
+        else:
+            n = ((b >> 16) & 0x8000) | 0x7C00 | ((b >> 13) & 0x3FF)
+            out_t = torch.int16
+        bits = 32 if wide else 16
+        n = torch.where(n >= 1 << (bits - 1), n - (1 << bits), n).to(out_t)
+        return torch.where(torch.isnan(t), _quiet(n.view(r.dtype)), r)
     if dt == _F64:
         b = t.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
         nan = ((b & 0x80000000) << 32) | 0x7FF0000000000000 | ((b & 0x7FFFFF) << 29)
@@ -986,9 +1074,22 @@ def _round_away(x: torch.Tensor) -> torch.Tensor:
     return nan_fix(torch.where((x - t).abs() >= 0.5, t + torch.sign(x), t), x)
 
 
+def _widened(fn, a: torch.Tensor, b: torch.Tensor, dt: np.dtype) -> torch.Tensor:
+    """``fn`` over uint16/uint32 operands (signed bits) read as their int64
+    values, its result truncated back to the bits."""
+    m = (1 << (dt.itemsize * 8)) - 1
+    return fn(a.to(torch.int64) & m, b.to(torch.int64) & m, _I64).to(a.dtype)
+
+
 def lax_div(a: torch.Tensor, b: torch.Tensor, dt: np.dtype) -> torch.Tensor:
     """lax.div of two integer tensors: truncating, x / 0 = -1 (unsigned: the
     type's max), INT_MIN / -1 = INT_MIN."""
+    if dt in (_U16, _U32):
+        m = (1 << (dt.itemsize * 8)) - 1
+        return _widened(lambda x, y, t: torch.where(y == 0, m, lax_div(x, y, t)), a, b, dt)
+    if dt == _U64:
+        a, b = torch.broadcast_tensors(a, b)
+        return torch.where(b == 0, -1, udivrem64(a, torch.where(b == 0, 1, b))[0])
     zero = b == 0
     neg1 = (b == -1) if dt.kind == "i" else torch.zeros_like(zero)
     bs = torch.where(zero | neg1, torch.ones_like(b), b)
@@ -1000,6 +1101,11 @@ def lax_div(a: torch.Tensor, b: torch.Tensor, dt: np.dtype) -> torch.Tensor:
 
 def lax_rem(a: torch.Tensor, b: torch.Tensor, dt: np.dtype) -> torch.Tensor:
     """lax.rem of two integer tensors: truncating, x % 0 = x, INT_MIN % -1 = 0."""
+    if dt in (_U16, _U32):
+        return _widened(lax_rem, a, b, dt)
+    if dt == _U64:
+        a, b = torch.broadcast_tensors(a, b)
+        return torch.where(b == 0, a, udivrem64(a, torch.where(b == 0, 1, b))[1])
     zero = b == 0
     neg1 = (b == -1) if dt.kind == "i" else torch.zeros_like(zero)
     bs = torch.where(zero | neg1, torch.ones_like(b), b)
@@ -1026,27 +1132,32 @@ def _floordiv(a: torch.Tensor, b: torch.Tensor, dt: np.dtype,
     return _round_away(torch.where(ind, dm1, div))
 
 
-def urem64(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Unsigned 64-bit remainder of int64 tensors holding uint64 bits (b != 0):
-    restoring long division one bit at a time, the compares unsigned through
-    the sign flip; a shift out of the top bit means the partial remainder is
-    past 2^64 > b, so it subtracts (mod 2^64, which stays exact)."""
+def udivrem64(a: torch.Tensor, b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Unsigned 64-bit quotient and remainder of int64 tensors holding
+    uint64 bits (b != 0): restoring long division one bit at a time, the
+    compares unsigned through the sign flip; a shift out of the top bit
+    means the partial remainder is past 2^64 > b, so it subtracts (mod
+    2^64, which stays exact)."""
     a, b = torch.broadcast_tensors(a, b)
     top = torch.iinfo(torch.int64).min
     r = torch.zeros_like(a)
+    q = torch.zeros_like(a)
     for i in range(63, -1, -1):
         carry = r < 0
         r = (r << 1) | ((a >> i) & 1)
         ge = carry | ((r ^ top) >= (b ^ top))
         r = torch.where(ge, r - b, r)
-    return r
+        q = q | (ge.to(torch.int64) << i)
+    return q, r
 
 
 def _mod(a: torch.Tensor, b: torch.Tensor, dt: np.dtype) -> torch.Tensor:
     """_mod_jnp: jnp.remainder (floor-sign) with an exact-zero float
     remainder taking the divisor's sign."""
     if dt == _U64:  # x % 0 = 0, as the JAX twin's b == 0 -> 1
-        return urem64(a, torch.where(b == 0, torch.ones_like(b), b))
+        return udivrem64(a, torch.where(b == 0, torch.ones_like(b), b))[1]
+    if dt in (_U16, _U32):
+        return _widened(_mod, a, b, dt)
     if dt.kind in "iu":
         b = torch.where(b == 0, torch.ones_like(b), b)
         tm = lax_rem(a, b, dt)
@@ -1089,7 +1200,7 @@ def binop_torch(op: str, l, r, fuse=None):
     if op == "%":
         return TVal(_mod(a, b, ct), ct, weak)
     if op in ("==", "!=", "<", "<=", ">", ">="):
-        return TVal(_CMP[op](a, b), _BOOL, False)
+        return TVal(_CMP[op](*_u_cmp(a, b, ct)), _BOOL, False)
     if ct == _BOOL:
         return TVal(a | b if op == "+" else a & b, ct, weak)
     fn = {"+": torch.add, "-": torch.sub, "*": torch.mul}[op]
@@ -1104,7 +1215,10 @@ def farith(op: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """One float add, subtract, multiply or divide as XLA's CPU code does
     it: operands read flushed, the result NaN-fixed and flushed."""
     a, b = flush(a), flush(b)
-    out = {"+": torch.add, "-": torch.sub, "*": torch.mul, "/": torch.div}[op](a, b)
+    fn = {"+": torch.add, "-": torch.sub, "*": torch.mul, "/": torch.div}[op]
+    if a.dtype == torch.float16:  # in float32, rounded once to float16
+        return nan_fix(fn(a.float(), b.float()).half(), a, b)
+    out = fn(a, b)
     return flush(nan_fix(out, a, b))
 
 
@@ -1201,7 +1315,8 @@ def _product(l, r, ct: np.dtype, weak: bool) -> TVal:
     a, b = flush(a), flush(b)
     dev = a.device if a.dim() else b.device
     a, b = a.to(dev), b.to(dev)
-    return TVal(farith("*", a, b), ct, weak, None if two else (a, b))
+    keep = not two and ct != _F16  # a float16 product rounds before any add
+    return TVal(farith("*", a, b), ct, weak, (a, b) if keep else None)
 
 
 # fused multiply-add, correctly rounded (one rounding of a * b + c), the
@@ -1341,13 +1456,10 @@ def as_full(v, p: int, device) -> TVal:
 def splitmix64_torch(x: torch.Tensor) -> torch.Tensor:
     """splitmix64 over int64 bits: wrapping multiplies, logical shifts
     emulated by masking off the sign extension."""
-    def lsr(z, k):
-        return (z >> k) & ((1 << (64 - k)) - 1)
-
     z = x + wrap_int(0x9E3779B97F4A7C15, _I64)
-    z = (z ^ lsr(z, 30)) * wrap_int(0xBF58476D1CE4E5B9, _I64)
-    z = (z ^ lsr(z, 27)) * wrap_int(0x94D049BB133111EB, _I64)
-    return z ^ lsr(z, 31)
+    z = (z ^ _lsr(z, 30)) * wrap_int(0xBF58476D1CE4E5B9, _I64)
+    z = (z ^ _lsr(z, 27)) * wrap_int(0x94D049BB133111EB, _I64)
+    return z ^ _lsr(z, 31)
 
 
 def hash_column_torch(v: TVal) -> torch.Tensor:
@@ -1357,11 +1469,11 @@ def hash_column_torch(v: TVal) -> torch.Tensor:
         x = flush(v.t)  # XLA reads x == 0.0 flushed: a subnormal key hashes as 0.0
         x = torch.where(x == 0.0, torch.zeros_like(x), x)
         if v.dt != _F64:
-            x = _float_convert(x, _F64)
+            x = convert(TVal(x, v.dt), _F64)
         return splitmix64_torch(x.view(torch.int64))
     if v.dt not in TORCH_DTYPES:
         raise TypeError(f"hash of dtype {v.dt}")
-    return splitmix64_torch(v.t.to(torch.int64))
+    return splitmix64_torch(int_value(v))
 
 
 def hash_columns_torch(cols: list[TVal]) -> torch.Tensor:

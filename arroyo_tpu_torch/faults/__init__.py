@@ -39,9 +39,19 @@ Instrumented sites (the port's modules that have them):
                         restore under an evolution mapping (ctx: epoch,
                         key=job): fires after its marker is durable and
                         before its commits are released
+    spill_write         tiered-state run write (state/spill.py; ctx:
+                        key=path, epoch, subtask): a failure re-pins the
+                        partition hot (SPILL_FALLBACK), never loses state
+    spill_probe         tiered-state run read on the probe path (ctx: key,
+                        epoch, subtask): retried once in place; a second
+                        failure propagates so the set restores from the
+                        checkpoint instead of inventing data
+    spill_compact       spill-generation merge write (ctx: key, epoch,
+                        subtask): a failure keeps the old generations
 
-The JAX package's other sites (the data plane, connectors, the controller,
-the spill annex) come with their modules.
+The run files themselves go through the storage sites and their retry
+layer. The JAX package's other sites (the data plane, connectors, the
+controller) come with their modules.
 """
 
 from __future__ import annotations

@@ -13,7 +13,29 @@ count the records a source's ``bad_data = drop`` policy dropped."""
 from __future__ import annotations
 
 import threading
+from bisect import bisect_left
 from typing import Optional
+
+
+class Histogram:
+    """Fixed-bucket histogram (single writer): the spill annex's
+    files-per-probe counts (state/spill.py)."""
+
+    __slots__ = ("buckets", "counts", "count", "sum")
+
+    def __init__(self, buckets: tuple):
+        self.buckets = buckets  # ascending upper bounds; +Inf is implicit
+        self.counts = [0] * (len(buckets) + 1)
+        self.count = 0
+        self.sum = 0.0
+
+    def observe(self, v) -> None:
+        self.counts[bisect_left(self.buckets, v)] += 1
+        self.count += 1
+        self.sum += v
+
+    def mean(self) -> float:
+        return self.sum / self.count if self.count else 0.0
 
 
 class TaskMetrics:

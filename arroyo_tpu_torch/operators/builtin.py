@@ -2,6 +2,7 @@
 arroyo_tpu/operators/builtin.py):
 
 - ValueOperator: projection + filter;
+- UnnestOperator: one row per element of a list column;
 - KeyOperator: key columns + the uint64 routing hash ``_key``;
 - WatermarkGenerator: expression watermark with idle detection; its
   ``"s"`` table keeps the watermark it reached and last emitted.
@@ -14,7 +15,7 @@ from typing import Optional
 
 import numpy as np
 
-from ..batch import KEY_FIELD, TIMESTAMP_FIELD, Batch
+from ..batch import KEY_FIELD, TIMESTAMP_FIELD, Batch, Field, object_column
 from ..engine.engine import register_operator
 from ..expr import Expr, eval_expr
 from ..graph import OpName
@@ -64,6 +65,40 @@ class ValueOperator(Operator):
             cols[KEY_FIELD] = batch.keys
         if "_is_retract" in batch.columns and "_is_retract" not in cols:
             cols["_is_retract"] = batch.columns["_is_retract"]
+        collector.collect(Batch(cols))
+
+
+class UnnestOperator(Operator):
+    """config: column (list-valued), out_name, out_dtype. Explodes each
+    row's list into one output row per element; all other columns repeat.
+    A NULL or empty list gives no rows."""
+
+    def __init__(self, cfg: dict):
+        self.column = str(cfg["column"])
+        self.out_name = str(cfg.get("out_name", self.column))
+        self.out_dtype = cfg.get("out_dtype")
+
+    def process_batch(self, batch, ctx, collector, input_index=0):
+        import itertools
+
+        col = batch.columns[self.column]
+        # UNNEST of a NULL array produces zero rows for that input row
+        lens = np.fromiter((0 if v is None else len(v) for v in col),
+                           dtype=np.int64, count=batch.num_rows)
+        total = int(lens.sum())
+        if total == 0:
+            return
+        flat = list(itertools.chain.from_iterable(v for v in col if v is not None))
+        cols: dict[str, np.ndarray] = {}
+        for name, c in batch.columns.items():
+            if name == self.column:
+                continue
+            cols[name] = np.repeat(np.asarray(c), lens)
+        if self.out_dtype and self.out_dtype != "string":
+            vals = np.array(flat, dtype=Field("_", self.out_dtype).numpy_dtype())
+        else:
+            vals = object_column(flat)
+        cols[self.out_name] = vals
         collector.collect(Batch(cols))
 
 
@@ -158,6 +193,11 @@ def _make_value(cfg: dict):
 @register_operator(OpName.KEY)
 def _make_key(cfg: dict):
     return KeyOperator(cfg)
+
+
+@register_operator(OpName.UNNEST)
+def _make_unnest(cfg: dict):
+    return UnnestOperator(cfg)
 
 
 @register_operator(OpName.WATERMARK)

@@ -31,8 +31,12 @@ mark; in device mode the snapshot is a K2 read of the store's regions. A
 restore loads them with ``load_state_batch`` (in device mode K1 in merge
 mode), from either mode and either package.
 
-Not ported: the tiered spill annex. ``state.spill.enabled`` raises, and so
-does a restore whose ``"s__spill"`` manifest references spilled runs.
+Tiered state (``state.spill.enabled``): as in the JAX package, the
+operator then takes the host mode, keeps its hot keys in ``state`` and
+spills cold hash-range partitions to a ``KeyedSpillAnnex``
+(state/spill.py); a key the batch touches is promoted back before it is
+folded. The annex's manifest is the ``"s__spill"`` table. A restore with
+spilling off of a checkpoint whose manifest references runs raises.
 """
 
 from __future__ import annotations
@@ -57,6 +61,20 @@ from .base import Operator, TableSpec, persist_mark, restore_marks
 IS_RETRACT_FIELD = "_is_retract"
 
 
+def _pack_key_state(st: "_KeyState", kv) -> tuple:
+    """Spill payload for one key (state/spill.py pack contract: the event
+    time rides at index -1 so the annex can zone-map runs without
+    unpickling); built-in and numpy values only."""
+    return (tuple(st.accs), st.count, st.emitted, kv, st.last_update)
+
+
+def _unpack_key_state(packed: tuple) -> tuple["_KeyState", Optional[tuple]]:
+    accs, count, emitted, kv, last_update = packed
+    st = _KeyState(list(accs), int(count), int(last_update))
+    st.emitted = emitted
+    return st, (tuple(kv) if kv is not None else None)
+
+
 class _KeyState:
     __slots__ = ("accs", "count", "emitted", "last_update")
 
@@ -73,10 +91,8 @@ class UpdatingAggregate(Operator):
     input_dtype_of, backend ("jax" | "numpy" | None)."""
 
     def __init__(self, cfg: dict):
-        if config().get("state.spill.enabled"):
-            raise NotImplementedError(
-                "state.spill.enabled: the tiered spill annex of the updating aggregate is "
-                "not ported (ROADMAP A.5)")
+        from ..state.spill import spill_enabled
+
         self.key_fields: list[str] = list(cfg.get("key_fields", ()))
         self.aggregates = cfg["aggregates"]
         dtype_of = dtype_of_from_config(cfg)
@@ -90,7 +106,12 @@ class UpdatingAggregate(Operator):
         # high-water event time: stamps emitted rows and anchors TTL eviction
         self.max_event_time: int = 0
         backend = cfg.get("backend") or ("jax" if config().get("device.enabled") else "numpy")
-        self.device_mode = backend == "jax" and all(k in ("sum", "count") for k in self.acc_kinds)
+        # with spilling on, the keyed map runs on the host path: the hot
+        # working set stays in self.state and cold partitions in the annex
+        self._spill = spill_enabled()
+        self._annex = None  # KeyedSpillAnnex, built in on_start when spilling
+        self.device_mode = (backend == "jax" and all(k in ("sum", "count") for k in self.acc_kinds)
+                            and not self._spill)
         # the device store always carries a count lane (+-1 per row): it is
         # the liveness ground truth even when the SQL has no count(*)
         self._count_lane = next(
@@ -125,13 +146,17 @@ class UpdatingAggregate(Operator):
         tm = ctx.table_manager
         if tm is None:
             return
-        for name, tbl in tm.globals.items():
-            # a chain member's tables restore under a "c{i}." prefix
-            if name.endswith("s__spill") and _spilled_runs(tbl.data):
-                raise RuntimeError(
-                    f"checkpoint manifest {name!r} references spilled run files, but the "
-                    f"port has no spill annex: restoring the hot rows alone would drop the "
-                    f"spilled keys (the annex is not ported, ROADMAP A.5)")
+        if self._spill:
+            from ..state.spill import KeyedSpillAnnex, restore_manifest
+
+            self._annex = KeyedSpillAnnex(ctx.task_info, tm.storage_url, "s")
+            self._annex.adopt(restore_manifest(ctx, "s__spill"))
+        else:
+            from ..state.spill import require_spill_for_manifest
+
+            # the spilled keys live only in run files: restoring the hot
+            # rows alone would silently drop them
+            require_spill_for_manifest(ctx, "s__spill")
         # the high-water mark is data-derived, so per subtask: our own
         # entry, else (a restore at another parallelism) the max
         own = tm.global_keyed("m").get(ctx.task_info.subtask_index)
@@ -153,6 +178,14 @@ class UpdatingAggregate(Operator):
         self._flush(collector)
         # the raw mark, 0 included, at every barrier
         persist_mark(ctx, "m", self.max_event_time)
+        if self._annex is not None:
+            from ..state.spill import checkpoint_manifest
+
+            # enforce the budget, then snapshot: hot rows into "s", spilled
+            # runs by reference into the manifest (never re-uploaded)
+            self._annex.epoch = barrier.epoch
+            self._maybe_spill()
+            checkpoint_manifest(ctx, "s__spill", self._annex)
         b = self.state_batch()
         ctx.table_manager.expiring_time_key("s", self.ttl).replace_all([] if b is None else [b])
 
@@ -194,6 +227,8 @@ class UpdatingAggregate(Operator):
         if self.device_mode:
             self._process_device(hashes, ts, retracts, vals, batch)
             return
+        if self._annex is not None:
+            self._ensure_hot(hashes)
         order = np.argsort(hashes, kind="stable")
         k_s = hashes[order]
         r_s = retracts[order]
@@ -255,6 +290,94 @@ class UpdatingAggregate(Operator):
                     cur = max(cur, app.max()) if len(app) else cur
                 st.accs[i] = self.acc_dtypes[i].type(cur)
             self.updated.add(h)
+        if self._annex is not None:
+            self._maybe_spill()
+
+    # --------------------------------------------------------- tiered state
+
+    def _ensure_hot(self, hashes: np.ndarray) -> None:
+        """Promote every batch key with a cold (spilled) copy into the hot
+        dict before the fold loop touches it — the probe is one bloom/zone
+        pruned pass per batch, never per key."""
+        annex = self._annex
+        uniq = np.unique(hashes)
+        annex.touch(uniq)
+        if not annex.has_runs():
+            return
+        missing = [h for h in uniq.tolist() if h not in self.state]
+        if not missing:
+            return
+        for h, packed in sorted(annex.lookup_many(missing).items()):
+            st, kv = _unpack_key_state(packed)
+            self.state[h] = st
+            if kv is not None:
+                self.key_values[h] = kv
+
+    def _entry_nbytes(self, h: int, st: _KeyState) -> int:
+        """Resident-bytes floor for one key (same role as the join's
+        per-row estimate: feeds arroyo_state_bytes AND the spill budget)."""
+        import sys as _sys
+
+        b = 160  # dict slots + _KeyState object overhead
+        for a in st.accs:
+            b += (_sys.getsizeof(a) + 64 * len(a)) if isinstance(a, dict) \
+                else 32
+        if st.emitted is not None:
+            b += 56 + 32 * len(st.emitted)
+        kv = self.key_values.get(h)
+        if kv is not None:
+            b += 56 + sum(_sys.getsizeof(v) for v in kv)
+        return b
+
+    def _estimate_state_bytes(self) -> tuple[int, float]:
+        """(estimated resident bytes, per-entry average), sampled over up
+        to 64 entries so the per-batch budget check stays O(1)."""
+        import itertools as _it
+
+        n = len(self.state)
+        if not n:
+            return 0, 0.0
+        tot = cnt = 0
+        for h, st in _it.islice(self.state.items(), 64):
+            tot += self._entry_nbytes(h, st)
+            cnt += 1
+        per = tot / cnt
+        return int(per * n), per
+
+    def _maybe_spill(self) -> None:
+        """Budget enforcement: when resident state passes
+        ``state.spill.budget-bytes``, spill the coldest partitions (the
+        annex's deterministic clock-LRU) down to the low-water mark."""
+        from ..state.spill import spill_budget_bytes
+
+        annex = self._annex
+        if annex is None or not self.state:
+            return
+        budget = spill_budget_bytes()
+        est_total, per_entry = self._estimate_state_bytes()
+        if est_total <= budget:
+            return
+        target = budget * float(config().get("state.spill.headroom", 0.75))
+        excess = int((est_total - target) / max(per_entry, 1.0)) + 1
+        # keys with pending un-flushed updates are spillable too (the next
+        # _flush promotes them back): budget enforcement must not depend
+        # on the watermark cadence that clears the updated set. The clock
+        # LRU keeps their (just-touched) partitions at the back of the
+        # victim line anyway.
+        hot_by_p: dict[int, list[int]] = {}
+        for h in self.state:
+            hot_by_p.setdefault(annex.partition_of(h), []).append(h)
+        victims = annex.pick_victims(
+            {p: len(ks) for p, ks in hot_by_p.items()}, excess)
+        for p in victims:
+            items = [(h, _pack_key_state(self.state[h],
+                                         self.key_values.get(h)))
+                     for h in hot_by_p[p]]
+            if not annex.spill(p, items):
+                return  # degraded (SPILL_FALLBACK): stay resident, back off
+            for h in hot_by_p[p]:
+                self.state.pop(h, None)
+                self.key_values.pop(h, None)
 
     def _identity(self, i: int):
         if self.acc_kinds[i] == "collect":
@@ -442,6 +565,17 @@ class UpdatingAggregate(Operator):
             return
         out_rows: list[tuple[int, tuple, bool]] = []  # (hash, values, is_retract)
         dead: list[int] = []
+        if self._annex is not None:
+            # a key can be spilled with its update pending (budget pressure
+            # between flushes): promote it back so its emission reads the
+            # exact accumulated state
+            missing = sorted(h for h in self.updated if h not in self.state)
+            if missing:
+                for h, pk in sorted(self._annex.lookup_many(missing).items()):
+                    st, kv = _unpack_key_state(pk)
+                    self.state[h] = st
+                    if kv is not None:
+                        self.key_values[h] = kv
         for h in sorted(self.updated):
             st = self.state.get(h)
             if st is None:
@@ -460,6 +594,15 @@ class UpdatingAggregate(Operator):
             st.emitted = new_vals
         self.updated.clear()
         if evict_before is not None:
+            if self._annex is not None:
+                # cold keys expire too: promote every spilled key whose
+                # newest copy is past the TTL, so the sweep below retracts
+                # it as it retracts a resident one
+                for h, packed in self._annex.scan_expired(evict_before, self.state.keys()):
+                    st, kv = _unpack_key_state(packed)
+                    self.state[h] = st
+                    if kv is not None:
+                        self.key_values[h] = kv
             dead_set = set(dead)
             # sorted: eviction retractions must not leave in dict order
             idle = sorted(h for h, st in self.state.items()
@@ -622,16 +765,6 @@ class UpdatingAggregate(Operator):
                 self._emitted[h] = tuple(b[f"__emitted_{i}"][j] for i in range(n_agg))
             if self.key_fields:
                 self.key_values[h] = tuple(c[j] for c in key_cols)
-
-
-def _spilled_runs(manifest: dict) -> list:
-    """The run files a JAX package spill manifest (its ``"s__spill"`` table:
-    ``{subtask: {"runs": [{"file": ...}, ...], ...}}``) references."""
-    out = []
-    for entry in manifest.values():
-        if isinstance(entry, dict):
-            out.extend(r.get("file") for r in entry.get("runs", ()) if isinstance(r, dict))
-    return out
 
 
 def merge_updating_rows(rows: list[dict]) -> list[dict]:

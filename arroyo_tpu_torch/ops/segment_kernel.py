@@ -62,25 +62,33 @@ import torch
 from ..batch import KEY_FIELD, TIMESTAMP_FIELD
 from . import kernels, staging
 from ..expr import (BinOp, Case, Cast, CAST_TARGETS, Col, Func, Lit, Neg, Not,
-                    TORCH_DTYPES, TVal, as_full, binop_type, contraction_sites, convert, default_nan_bits, dtype_floor, flush,
+                    TORCH_DTYPES, UNSIGNED_BITS, TVal, as_full, binop_type, contraction_sites, convert, default_nan_bits, dtype_floor, flush,
                     floordiv_torch, floordiv_type, hash_columns_torch, int_div_type,
                     is_minmax_select, jax_type, literal_reciprocal, literal_rewrite, promote,
-                    quiet_bit, scalar_as, unary_type)
+                    quiet_bit, scalar_as, storage_dtype, unary_type)
 
 BLOCK = 256
 NUM_WARPS = 4
 _PKG = Path(__file__).resolve().parents[1]
 BUILD_DIR = _PKG / "build" / "segment"
 
+_U16 = np.dtype(np.uint16)
+_U32 = np.dtype(np.uint32)
 _U64 = np.dtype(np.uint64)
 _I64 = np.dtype(np.int64)
+_F16 = np.dtype(np.float16)
+_F32 = np.dtype(np.float32)
 _F64 = np.dtype(np.float64)
 _BOOL = np.dtype(np.bool_)
+# uint16/32/64 values are held in the signed type's bits, as the plain
+# version holds them (expr.TORCH_DTYPES); _UTL reads them unsigned
 _TL = {np.dtype(np.bool_): "tl.int1", np.dtype(np.int8): "tl.int8",
        np.dtype(np.int16): "tl.int16", np.dtype(np.int32): "tl.int32",
        np.dtype(np.int64): "tl.int64", np.dtype(np.uint8): "tl.uint8",
-       np.dtype(np.float32): "tl.float32", np.dtype(np.float64): "tl.float64",
-       _U64: "tl.int64"}
+       _F16: "tl.float16", _F32: "tl.float32", _F64: "tl.float64",
+       _U16: "tl.int16", _U32: "tl.int32", _U64: "tl.int64"}
+_UTL = {_U16: "tl.uint16", _U32: "tl.uint32", _U64: "tl.uint64"}
+_IB = {2: np.dtype(np.int16), 4: np.dtype(np.int32), 8: _I64}  # a float's bits
 
 _count_lock = threading.Lock()
 _build_lock = threading.Lock()
@@ -354,7 +362,7 @@ class _Gen:
         if dt.kind == "b":
             return f"tl.full([BLOCK], {int(v)}, tl.int1)"
         if dt.kind == "f":
-            ib = np.dtype(np.int64 if dt.itemsize == 8 else np.int32)
+            ib = _IB[dt.itemsize]
             bits = int(np.array(v, dtype=dt).view(ib))
             return f"tl.full([BLOCK], {bits}, {_TL[ib]}).to({_TL[dt]}, bitcast=True)"
         return f"tl.full([BLOCK], {v}, {_TL[dt]})"
@@ -375,24 +383,41 @@ class _Gen:
             raise TypeError(f"conversion to {dt}: not a dtype of the segment kernel")
         if src == dt:
             return x.code
-        if src == _U64 and dt not in (_I64, _BOOL):
-            raise TypeError(f"conversion of uint64 to {dt}: not in the segment kernel")
         if dt == _BOOL:
             return self.let(f"{self.flush(x.code, src)} != {self.full(0, src)}", _BOOL).code
         if src.kind == "f" and dt.kind in "iu":
             return self._sat_float_to_int(x, dt)
         if src.kind == "f" and dt.kind == "f":
-            return self.flush(self.float_convert(self.flush(x.code, src), dt), dt)
-        return self.let(f"{x.code}.to({_TL[dt]})", dt).code
+            if _F16 in (src, dt) and _F64 in (src, dt):  # XLA converts through float32
+                return self.conv(SV(self.conv(x, _F32), _F32), dt)
+            return self.flush(self.float_convert(self.flush(x.code, src), dt, src), dt)
+        code = self.unsigned(x.code, src) if src in UNSIGNED_BITS else x.code
+        if dt == _F16:  # from an integer, through float32 as XLA's CPU code converts
+            return self.let(f"{code}.to(tl.float32).to(tl.float16)", dt).code
+        if src in UNSIGNED_BITS and dt.kind != "f":  # zero-extended, then truncated
+            return self.let(f"{code}.to(tl.int64).to({_TL[dt]})", dt).code
+        return self.let(f"{code}.to({_TL[dt]})", dt).code
+
+    @staticmethod
+    def unsigned(x: str, dt) -> str:
+        """``x`` (a uint16/32/64 held in signed bits) read unsigned."""
+        return f"{x}.to({_UTL[dt]}, bitcast=True)"
+
+    def in_f32(self, fn: str, dt, *xs: str) -> str:
+        """Code of libdevice ``fn`` over ``xs``; float16 computed in float32
+        and rounded once."""
+        if dt != _F16:
+            return f"libdevice.{fn}({', '.join(xs)})"
+        return f"libdevice.{fn}({', '.join(x + '.to(tl.float32)' for x in xs)}).to(tl.float16)"
 
     def flush(self, x: str, dt) -> str:
         """``x`` with a subnormal replaced by the zero of its sign (expr.flush:
         XLA's CPU code reads float operands and writes float results so);
         integers and bools as they are."""
         dt = np.dtype(dt)
-        if dt.kind != "f":
+        if dt.kind != "f" or dt == _F16:
             return x
-        ib = np.dtype(np.int64 if dt.itemsize == 8 else np.int32)
+        ib = _IB[dt.itemsize]
         sign = self.full(-(1 << (ib.itemsize * 8 - 1)), ib)
         zero = f"({x}.to({_TL[ib]}, bitcast=True) & {sign}).to({_TL[dt]}, bitcast=True)"
         tiny = self.full(float(np.finfo(dt).tiny), dt)
@@ -402,6 +427,10 @@ class _Gen:
         """expr.farith: one float operation, operands read flushed, the
         result NaN-fixed and flushed."""
         a, b = self.flush(a, dt), self.flush(b, dt)
+        if dt == _F16:  # in float32, rounded once to float16
+            a32, b32 = f"{a}.to(tl.float32)", f"{b}.to(tl.float32)"
+            code = (f"libdevice.div_rn({a32}, {b32})" if op == "/" else f"({a32} {op} {b32})")
+            return SV(self.op(f"{code}.to(tl.float16)", dt, a, b).code, dt, weak)
         code = f"libdevice.div_rn({a}, {b})" if op == "/" else f"{a} {op} {b}"
         r = self.op(code, dt, a, b)
         return SV(self.flush(r.code, dt), dt, weak)
@@ -423,16 +452,29 @@ class _Gen:
             return self.let(f"tl.where({over}, {self.full(-1, _I64)}, "
                             f"tl.where({under}, {self.full(0, _I64)}, {out}))", _I64).code
         info = np.iinfo(dt)
-        r = self.let(f"{safe}.to({_TL[dt]})", dt).code
-        return self.let(f"tl.where({over}, {self.full(int(info.max), dt)}, "
-                        f"tl.where({under}, {self.full(int(info.min), dt)}, {r}))", dt).code
+        r = self.let(f"{safe}.to(tl.int64)", _I64).code
+        r = self.let(f"tl.where({over}, {self.full(int(info.max), _I64)}, "
+                     f"tl.where({under}, {self.full(int(info.min), _I64)}, {r}))", _I64).code
+        return self.let(f"{r}.to({_TL[dt]})", dt).code  # a uint16/32 wraps to its bits
 
     def operands(self, l, r, ct) -> tuple[str, str]:
         return self.conv(l, ct), self.conv(r, ct)
 
     # -- integer and float arithmetic with JAX's edge results ------------
 
+    def udivrem(self, a: str, b: str, dt, rem: bool) -> SV:
+        """lax.div (x / 0 = the type's max) or lax.rem (x % 0 = x) of two
+        uint16/32/64 operands, read unsigned."""
+        ua, ub = self.unsigned(a, dt), self.unsigned(b, dt)
+        zero = self.let(f"{ub} == 0", _BOOL).code
+        bs = self.let(f"tl.where({zero}, {self.full(1, dt)}, {b})", dt).code
+        q = self.let(f"({ua} {'%' if rem else '//'} {self.unsigned(bs, dt)})"
+                     f".to({_TL[dt]}, bitcast=True)", dt).code
+        return self.let(f"tl.where({zero}, {a if rem else self.full(-1, dt)}, {q})", dt)
+
     def lax_div(self, a: str, b: str, dt) -> SV:
+        if dt in UNSIGNED_BITS:
+            return self.udivrem(a, b, dt, rem=False)
         c = lambda v: self.full(v, dt)  # noqa: E731
         zero = self.let(f"{b} == {c(0)}", _BOOL).code
         neg1 = self.let(f"{b} == {c(-1)}", _BOOL).code if dt.kind == "i" else None
@@ -445,6 +487,8 @@ class _Gen:
         return self.let(f"tl.where({zero}, {c(fill)}, {q})", dt)
 
     def lax_rem(self, a: str, b: str, dt) -> SV:
+        if dt in UNSIGNED_BITS:
+            return self.udivrem(a, b, dt, rem=True)
         c = lambda v: self.full(v, dt)  # noqa: E731
         zero = self.let(f"{b} == {c(0)}", _BOOL).code
         neg1 = self.let(f"{b} == {c(-1)}", _BOOL).code if dt.kind == "i" else None
@@ -463,14 +507,15 @@ class _Gen:
     def fsign(self, x: str, dt) -> str:
         """expr._fsign: copysign(x != 0, x) with x read flushed, NaN kept."""
         nz = self.let(f"({self.flush(x, dt)} != {self.full(0.0, dt)}).to({_TL[dt]})", dt).code
-        return self.let(f"tl.where({x} != {x}, {x}, libdevice.copysign({nz}, {x}))", dt).code
+        return self.let(f"tl.where({x} != {x}, {x}, {self.in_f32('copysign', dt, nz, x)})",
+                        dt).code
 
     def dnan(self, dt) -> str:
-        ib = np.dtype(np.int64 if dt.itemsize == 8 else np.int32)
+        ib = _IB[dt.itemsize]
         return f"tl.full([BLOCK], {default_nan_bits(dt)}, {_TL[ib]}).to({_TL[dt]}, bitcast=True)"
 
     def quiet(self, x: str, dt, negate: bool = False) -> str:
-        ib = np.dtype(np.int64 if dt.itemsize == 8 else np.int32)
+        ib = _IB[dt.itemsize]
         flip = f" ^ {self.full(-(1 << (ib.itemsize * 8 - 1)), ib)}" if negate else ""
         return (f"(({x}.to({_TL[ib]}, bitcast=True) | {self.full(quiet_bit(dt), ib)}){flip})"
                 f".to({_TL[dt]}, bitcast=True)")
@@ -494,13 +539,23 @@ class _Gen:
         """libdevice fmod (exact) with the divisor read flushed, NaN-fixed,
         as expr.fmod_torch."""
         b = self.flush(b, dt)
-        return self.op(f"libdevice.fmod({a}, {b})", dt, a, b).code
+        return self.op(self.in_f32("fmod", dt, a, b), dt, a, b).code
 
-    def float_convert(self, x: str, dt) -> str:
-        """float32 <-> float64 as expr._float_convert: round to nearest, a
-        NaN keeps its sign and the top of its payload, quieted."""
+    def float_convert(self, x: str, dt, src=None) -> str:
+        """float32 <-> float64 and float16 <-> float32 as
+        expr._float_convert: round to nearest, a NaN keeps its sign and the
+        top of its payload, quieted."""
         r = self.let(f"{x}.to({_TL[dt]})", dt).code
-        if dt == _F64:
+        if dt == _F16:
+            b = self.let(f"{x}.to(tl.int32, bitcast=True)", np.dtype(np.int32)).code
+            nan = (f"((({b} >> 16) & 0x8000) | 0x7E00 | (({b} >> 13) & 0x3FF))"
+                   f".to(tl.int16).to(tl.float16, bitcast=True)")
+        elif src == _F16:
+            b = self.let(f"{x}.to(tl.int16, bitcast=True).to(tl.int32) & 0xFFFF",
+                         np.dtype(np.int32)).code
+            nan = (f"((({b} & 0x8000) << 16) | 0x7FC00000 | (({b} & 0x3FF) << 13))"
+                   f".to(tl.float32, bitcast=True)")
+        elif dt == _F64:
             b = self.let(f"{x}.to(tl.int32, bitcast=True).to(tl.int64) & "
                          f"{self.full(0xFFFFFFFF, _I64)}", _I64).code
             nan = (f"(((({b} & {self.full(0x80000000, _I64)}) << 32) | "
@@ -531,14 +586,13 @@ class _Gen:
                        f"({self.fsign(b, dt)} != {self.fsign(mod, dt)})", _BOOL).code
         dm1 = self.farith("-", div, self.full(1.0, dt), dt).code
         div = self.flush(self.let(f"tl.where({ind}, {dm1}, {div})", dt).code, dt)
-        return self.op(f"libdevice.round({div})", dt, div, weak=weak)
+        return self.op(self.in_f32("round", dt, div), dt, div, weak=weak)
 
     def mod(self, a: str, b: str, dt, weak: bool) -> SV:
-        if dt == _U64:  # int64 bits: the remainder in uint64, x % 0 = 0
-            ua = self.let(f"{a}.to(tl.uint64, bitcast=True)", dt).code
-            ub = self.let(f"{b}.to(tl.uint64, bitcast=True)", dt).code
-            ub = self.let(f"tl.where({ub} == 0, {ub} + 1, {ub})", dt).code
-            return self.let(f"({ua} % {ub}).to(tl.int64, bitcast=True)", dt, weak)
+        if dt in UNSIGNED_BITS:  # read unsigned: the remainder, x % 0 = 0
+            ua, ub = self.unsigned(a, dt), self.unsigned(b, dt)
+            bs = self.unsigned(self.let(f"tl.where({ub} == 0, {self.full(1, dt)}, {b})", dt).code, dt)
+            return self.let(f"({ua} % {bs}).to({_TL[dt]}, bitcast=True)", dt, weak)
         z = self.full(0, dt)
         if dt.kind in "iu":
             b = self.let(f"tl.where({b} == {z}, {self.full(1, dt)}, {b})", dt).code
@@ -549,8 +603,8 @@ class _Gen:
         ft, fb = self.flush(tm, dt), self.flush(b, dt)
         plus = self.let(f"(({ft} < {z}) != ({fb} < {z})) & ({ft} != {z})", _BOOL).code
         r = self.let(f"tl.where({plus}, {self.farith('+', tm, b, dt).code}, {tm})", dt).code
-        r = self.let(f"tl.where({self.flush(r, dt)} == {z}, libdevice.copysign({z}, {b}), {r})",
-                     dt).code
+        r = self.let(f"tl.where({self.flush(r, dt)} == {z}, {self.in_f32('copysign', dt, z, b)}, "
+                     f"{r})", dt).code
         return SV(r, dt, weak)
 
     # -- expression nodes -------------------------------------------------
@@ -577,6 +631,8 @@ class _Gen:
         if op in ("==", "!=", "<", "<=", ">", ">="):
             if ct == _BOOL:  # compare bools as 0/1, never as signed 1-bit integers
                 a, b = f"{a}.to(tl.int8)", f"{b}.to(tl.int8)"
+            elif ct in UNSIGNED_BITS:
+                a, b = self.unsigned(a, ct), self.unsigned(b, ct)
             return self.let(f"{a} {op} {b}", _BOOL)
         if ct == _BOOL:
             return self.let(f"{a} {'|' if op == '+' else '&'} {b}", ct, weak)
@@ -620,6 +676,8 @@ class _Gen:
         two = any(not isinstance(v, SV) and scalar_as(v, ct) == 2.0 for v in (l, r))
         a, b = self.operands(l, r, ct)
         a, b = self.flush(a, ct), self.flush(b, ct)
+        if ct == _F16:  # a float16 product rounds before any add
+            return self.farith("*", a, b, ct, weak)
         r = self.op(f"{a} * {b}", ct, a, b)
         return SV(self.flush(r.code, ct), ct, weak, None if two else (a, b, False))
 
@@ -650,7 +708,7 @@ class _Gen:
         if not isinstance(x, SV) and not isinstance(y, SV):
             x = self.value(x)
         dt, weak = promote(_ty(x), _ty(y))
-        if dt not in _TL or dt == _U64:
+        if dt not in _TL:
             raise TypeError(f"CASE over {dt}: not in the segment kernel")
         a, b = self.operands(x, y, dt)
         c = self.conv(cond, _BOOL)
@@ -661,7 +719,15 @@ class _Gen:
 
     def flip_sign(self, x: SV, clear: bool) -> str:
         """Float neg (sign flipped) or abs (sign cleared) on the bits."""
-        ib = np.dtype(np.int64 if x.dt.itemsize == 8 else np.int32)
+        if x.dt == _F16:
+            # LLVM turns these bit operations into neg.f16 / abs.f16, which
+            # write the canonical NaN; inline PTX keeps a NaN's bits
+            asm = "and.b16 $0, $1, 0x7FFF;" if clear else "xor.b16 $0, $1, 0x8000;"
+            return self.let(f'tl.inline_asm_elementwise("{asm}", "=h,h", '
+                            f"[{x.code}.to(tl.int16, bitcast=True)], dtype=tl.int16, "
+                            f"is_pure=True, pack=1).to(tl.float16, bitcast=True)",
+                            x.dt, x.weak).code
+        ib = _IB[x.dt.itemsize]
         top = -(1 << (ib.itemsize * 8 - 1))
         mask = self.full(~top if clear else top, ib)
         op = "&" if clear else "^"
@@ -717,8 +783,8 @@ class _Gen:
         if name == "abs":
             v = self.value(a[0])
             unary_type("abs", v.dt)
-            if v.dt.kind == "b":
-                return v
+            if v.dt.kind in "bu":
+                return v  # abs of an unsigned value is the value
             if v.dt.kind == "f":
                 return SV(self.flip_sign(v, clear=True), v.dt, v.weak)
             z = self.full(0, v.dt)
@@ -731,7 +797,7 @@ class _Gen:
             x = self.flush(self.conv(v, dt), dt)
             fn = "sqrt_rn" if name == "sqrt" else name
             # a negative operand's NaN becomes the default NaN in the fix
-            return self.op(f"libdevice.{fn}({x})", dt, x, weak=weak)
+            return self.op(self.in_f32(fn, dt, x), dt, x, weak=weak)
         if name == "extract_epoch":
             return self.floordiv_node(a[0], 1_000_000)
         if name == "date_trunc_micros":
@@ -747,7 +813,7 @@ class _Gen:
             x = self.let(f"tl.where({f} == {self.full(0.0, v.dt)}, {self.full(0.0, v.dt)}, "
                          f"{f})", v.dt).code
             if v.dt != _F64:
-                x = self.float_convert(x, _F64)
+                x = self.conv(SV(x, v.dt), _F64)
             bits = f"{x}.to(tl.uint64, bitcast=True)"
         else:
             if v.dt not in _TL:
@@ -910,10 +976,6 @@ def _summary(plan, in_dtypes) -> str:
 # ------------------------------------------------------------ program
 
 
-def _np_dt(dt: np.dtype) -> np.dtype:
-    """The NumPy dtype a column crosses the card in (uint64 as int64 bits)."""
-    return _I64 if dt == _U64 else dt
-
 
 class OutLayout(NamedTuple):
     """Where the kernel writes a P-row batch in its packed buffer: each
@@ -997,7 +1059,7 @@ class SegmentProgram:
         for dt in self.wm_dtypes:
             sizes += [dt.itemsize, 8]
         nbytes, offs = staging.aligned(sizes)
-        outs = [(k, offs[i], _np_dt(np.dtype(self.out_dtypes[k]))) for i, k in enumerate(names)]
+        outs = [(k, offs[i], storage_dtype(np.dtype(self.out_dtypes[k]))) for i, k in enumerate(names)]
         i = len(names)
         mask = None
         if self.has_mask:
@@ -1032,7 +1094,8 @@ class SegmentProgram:
         outs = {}
         for k, off, dt in lay.outs:
             a = host[off: off + P * dt.itemsize].view(dt)
-            outs[k] = a.view(np.uint64) if self.out_dtypes[k] == _U64 else a
+            dt = np.dtype(self.out_dtypes[k])
+            outs[k] = a.view(dt) if dt in UNSIGNED_BITS else a
         mask = None if lay.mask is None else host[lay.mask: lay.mask + P].view(np.bool_)
         return outs, mask, self.unpack_wm(host[lay.wm_offset:], P)
 
@@ -1043,7 +1106,7 @@ class SegmentProgram:
         out = []
         for mo, dt, co in lay.wm:
             mo, co = mo - lay.wm_offset, co - lay.wm_offset
-            out += [tail[mo: mo + dt.itemsize].view(_np_dt(dt)).reshape(()),
+            out += [tail[mo: mo + dt.itemsize].view(storage_dtype(dt)).reshape(()),
                     tail[co: co + 8].view(_I64).reshape(())]
         return tuple(out)
 
@@ -1082,7 +1145,7 @@ def stage_inputs(prog: SegmentProgram, arrays: list, device: torch.device) -> li
         a = np.asarray(a)
         if len(a) != P or a.dtype != dt:
             raise ValueError(f"input of {a.dtype}[{len(a)}] where the plan stages {dt}[{P}]")
-        cols.append(a.view(_np_dt(dt)))
+        cols.append(a.view(storage_dtype(dt)))
     return staging.stage(cols, device, [TORCH_DTYPES[dt] for dt in prog.in_dtypes])[0]
 
 

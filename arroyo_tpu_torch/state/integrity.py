@@ -45,7 +45,6 @@ from __future__ import annotations
 
 import json
 import os
-import re
 from typing import Callable, Iterable, Optional
 
 from ..analysis.diagnostics import Diagnostic, Severity, finish
@@ -53,9 +52,7 @@ from . import storage
 from .tables import (QUARANTINE_MARKER, QUARANTINED_METADATA, _should_verify, checkpoint_dir,
                      is_quarantined, load_json_with_integrity, quarantine_epoch)
 
-# the spill annex's run file names (the JAX package's state/spill.py; the
-# annex is not ported, but fsck walks a job's spill directory all the same)
-_RUN_NAME_RE = re.compile(r"^run-.+-s(\d+)-e(\d+)-(\d+)")
+from .spill import _RUN_NAME_RE  # the spill annex's run file names
 
 
 def fold_integrity(subtask_metas: Iterable[dict]) -> dict:

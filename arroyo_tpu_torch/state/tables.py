@@ -122,10 +122,12 @@ def _checkpoint_format() -> str:
     return "npz"
 
 
-def write_columnar(path: str, columns: dict) -> dict:
+def write_columnar(path: str, columns: dict, footer: bool = False) -> dict:
     """Write named columns as npz; object columns ride a pickled sidecar
     array (``__objcols__``) with their python values. Returns the integrity
-    envelope of the written bytes."""
+    envelope of the written bytes; ``footer=True`` instead appends the
+    self-describing integrity trailer (storage.wrap_footer), for spill runs,
+    which outlive any one epoch's manifest."""
     _checkpoint_format()
     dense = {}
     objcols: dict[str, list] = {}
@@ -138,7 +140,10 @@ def write_columnar(path: str, columns: dict) -> dict:
         dense["__objcols__"] = np.frombuffer(pickle.dumps(objcols), dtype=np.uint8)
     buf = io.BytesIO()
     np.savez(buf, **dense)
-    return storage.write_bytes(path, buf.getvalue())
+    payload = buf.getvalue()
+    if footer:
+        payload = storage.wrap_footer(payload)
+    return storage.write_bytes(path, payload)
 
 
 def read_columnar(path: str, expect: Optional[dict] = None, restore: bool = False) -> dict:
@@ -300,6 +305,13 @@ class TableManager:
         for name, table in self.globals.items():
             meta = table.write_checkpoint(os.path.join(opdir, f"table-{name}-{sub}.bin"))
             meta["table"] = name
+            if name.endswith("__spill"):
+                # the spill annex's manifest table: its run file names ride
+                # the metadata, so run GC and fsck see them without
+                # unpickling the table
+                from .spill import manifest_run_files
+
+                meta["spill_runs"] = manifest_run_files(table.data)
             files.append(meta)
         for name, table in self.expiring.items():
             meta = table.write_checkpoint(os.path.join(opdir, f"table-{name}-{sub}.npz"))

@@ -2194,8 +2194,8 @@ def staged_inputs(plan, batch: Batch, dev) -> tuple[int, list]:
         a = np.asarray(batch.columns[name])
         buf = np.zeros(p, dtype=a.dtype)
         buf[:n] = a[fm] if fm is not None else a
-        if buf.dtype == np.uint64:
-            buf = buf.view(np.int64)
+        if buf.dtype.kind == "u" and buf.itemsize > 1:
+            buf = buf.view(f"i{buf.itemsize}")  # unsigned columns cross as their signed bits
         ins.append(torch.from_numpy(buf).to(dev))
     return n, ins
 
@@ -2235,6 +2235,143 @@ def c9_plans() -> list:
 
     cb = Batch(c9_columns(GRID_N))
     return [(label, bind_plan(members, cb, hoist), cb) for label, members, hoist in c9_segment_plans(E)]
+
+
+C4_UNSIGNED = ("u16", "u32", "u64")
+
+
+def c4_columns(n: int, seed: int = 20261019) -> dict:
+    """grid_columns with the dtypes of C4: uint16, uint32 and uint64 columns
+    holding 0, 1, the type's max, its top bit and values past the signed
+    range (``du16``/``du32``/``du64``: divisors with zeros), and a float16
+    column with NaN, +-inf, +-0.0, subnormals, the largest finite values and
+    values whose sums and products round in float16."""
+    rng = np.random.default_rng(seed)
+    cols = grid_columns(n, seed)
+    for name, dt in (("u16", np.uint16), ("u32", np.uint32), ("u64", np.uint64)):
+        info = np.iinfo(dt)
+        bits = info.bits
+        x = rng.integers(0, 1 << min(bits, 63), n, dtype=np.uint64)
+        if bits == 64:
+            x |= (rng.random(n) < 0.5).astype(np.uint64) << np.uint64(63)
+        x = x.astype(dt)
+        x[:8] = [0, 1, info.max, 1 << (bits - 1), (1 << (bits - 1)) - 1, 7, info.max - 6, 3]
+        cols[name] = x
+        d = rng.integers(0, 9, n).astype(dt)
+        d[:8] = [0, 0, 1, info.max, 1 << (bits - 1), 3, 2, 0]
+        cols["d" + name] = d
+    h = (rng.normal(0, 40, n)).astype(np.float16)
+    sub = rng.integers(1, 1024, n).astype(np.uint16) | (rng.integers(0, 2, n).astype(np.uint16) << 15)
+    pick = rng.random(n) < 0.2
+    h[pick] = sub[pick].view(np.float16)  # subnormals of both signs
+    big = rng.random(n) < 0.05
+    h[big] = rng.uniform(-65504, 65504, int(big.sum())).astype(np.float16)
+    edge = [np.nan, np.inf, -np.inf, 0.0, -0.0, 65504.0, -65504.0, 0.5, -1.5, 2.5,
+            np.float16(2.0 ** -24), -np.float16(2.0 ** -24), np.float16(6.1e-5), 2049.0, 3.0]
+    h[:len(edge)] = np.array(edge, dtype=np.float16)
+    # NaNs of other payloads and signs, a signalling one among them
+    h[len(edge):len(edge) + 3] = np.array([0x7C01, 0xFE55, 0x7E01], dtype=np.uint16).view(np.float16)
+    cols["f16"] = h
+    return cols
+
+
+def c4_expressions(E) -> list:
+    """C4's expressions: every allowlisted binop of an unsigned or float16
+    column with itself, its divisor column, the grid's signed and float
+    columns and literals; neg, abs, floor, ceil, sqrt, not and every cast of
+    each; floor division through extract_epoch and date_trunc_micros; CASE
+    over them."""
+    c, lit = E.Col, E.Lit
+    out = []
+    for x in C4_UNSIGNED + ("f16",):
+        others = [(x, c(x)), ("i32", c("i32")), ("i64", c("i64")), ("f32", c("f32")),
+                  ("f64", c("f64")), ("b", c("b")), ("int", lit(3)), ("float", lit(2.5)),
+                  ("bool", lit(True))]
+        if x != "f16":
+            others.insert(1, ("d" + x, c("d" + x)))
+        else:
+            others += [("u16", c("u16")), ("u32", c("u32"))]
+        for op in ("+", "-", "*", "/", "%", "==", "<", ">=", "and"):
+            for yn, ye in others:
+                if op in ("/", "%") and yn in ("b", "bool", x) and x != "f16":
+                    continue  # divisors: the columns and literals holding zeros
+                out.append((f"{x} {op} {yn}", E.BinOp(op, c(x), ye)))
+                if op in ("-", "/", "<") and yn not in (x,):
+                    out.append((f"{yn} {op} {x}", E.BinOp(op, ye, c(x))))
+        for name in ("abs", "floor", "ceil", "sqrt") + (("extract_epoch",) if x != "u16" else ()):
+            out.append((f"{name}({x})", E.Func(name, (c(x),))))
+        out.append((f"date_trunc_micros(7, {x})", E.Func("date_trunc_micros", (lit(7), c(x)))))
+        out.append((f"-{x}", E.Neg(c(x))))
+        out.append((f"not {x}", E.Not(c(x))))
+        for t in ("int32", "int64", "uint64", "float32", "float64", "bool"):
+            out.append((f"cast({x}, {t})", E.Cast(c(x), t)))
+    out.append(("f16 * f16 + f16", E.BinOp("+", E.BinOp("*", c("f16"), c("f16")), c("f16"))))
+    out.append(("f16 / 3.0", E.BinOp("/", c("f16"), lit(3.0))))
+    out.append(("f16 * 2.0 - 1.0", E.BinOp("-", E.BinOp("*", c("f16"), lit(2.0)), lit(1.0))))
+    out.append(("cast(f64, float32) * f16", E.BinOp("*", E.Cast(c("f64"), "float32"), c("f16"))))
+    out.append(("u64 * u64 + u64", E.BinOp("+", E.BinOp("*", c("u64"), c("u64")), c("u64"))))
+    out.append(("case u32", E.Case(((E.BinOp("<", c("u32"), c("du32")), c("u16")),), c("u32"))))
+    out.append(("case u64", E.Case(((c("b"), c("u64")),), c("du64"))))
+    out.append(("case f16", E.Case(((E.BinOp(">", c("f16"), lit(0.0)), c("f16")),), E.Neg(c("f16")))))
+    out.append(("case f16 f32", E.Case(((c("b"), c("f16")),), c("f32"))))
+    return out
+
+
+def c4_departing() -> set:
+    """Labels of C4's expressions whose twin departs from numpy in dtype
+    (a float16 column with a 32-bit integer is float16 in jax.numpy and
+    float64 in numpy, for example): a segment projecting one fails its
+    first-batch verification and runs interpreted, in both packages."""
+    from arroyo_tpu_torch import expr as E
+
+    cols = {k: np.ones_like(v) for k, v in c4_columns(64).items()}
+    tv = {k: E.TVal(torch.from_numpy(np.ascontiguousarray(v).view(E.storage_dtype(v.dtype))),
+                    v.dtype) for k, v in cols.items()}
+    out = set()
+    for label, e in c4_expressions(E):
+        want = np.asarray(E.eval_expr(e, cols, 64)).dtype
+        got = e.eval_torch(tv)
+        if (got.dt if isinstance(got, E.TVal) else None) != want:
+            out.add(label)
+    return out
+
+
+def c4_segment_plans(E) -> list:
+    """(label, member configs, hoist) of the plans C4 is held on, over
+    ``c4_columns``: C4's expressions in chunks behind an in-trace filter,
+    keys of each C4 dtype (hashed), and a tumbling insert whose float64
+    average input casts a uint64 counter (the SQL family
+    tumbling_aggregates' avg)."""
+    c, lit = E.Col, E.Lit
+    departs = c4_departing()
+    exprs = c4_expressions(E)
+    plans = (expression_chunks(E, [x for x in exprs if x[0] not in departs], "c4 exprs")
+             + expression_chunks(E, [x for x in exprs if x[0] in departs], "c4 departs"))
+    plans.append(("c4 keys", [
+        ("value", {"projections": None, "filter": E.BinOp("!=", c("du32"), lit(0))}),
+        ("watermark", {"expr": c(TIMESTAMP_FIELD)}),
+        ("key", {"keys": [("k1", c("u16")), ("k2", c("u32")), ("k3", c("u64")),
+                          ("k4", c("f16"))]})], False))
+    plans.append(("c4 tumbling insert", [
+        ("value", {"projections": [("counter", c("u64")), ("h", c("f16")),
+                                   (TIMESTAMP_FIELD, c(TIMESTAMP_FIELD))], "filter": None}),
+        ("watermark", {"expr": c(TIMESTAMP_FIELD)}),
+        ("tumbling_aggregate", {"width_micros": WIDTH, "key_fields": [],
+                                "aggregates": [("s", "sum", c("counter")),
+                                               ("a", "avg", E.Cast(c("counter"), "float64")),
+                                               ("m", "max", c("h"))],
+                                "input_dtype_of": lambda e: np.dtype(np.float64)})], False))
+    return plans
+
+
+def c4_plans() -> list:
+    """C4's plans over ``c4_columns``: K4 held to its plain version (which
+    tests/test_torch_c4.py holds to the JAX compiled segment) on uint16,
+    uint32 and uint64 arithmetic and float16."""
+    from arroyo_tpu_torch import expr as E
+
+    cb = Batch(c4_columns(GRID_N))
+    return [(label, bind_plan(members, cb, hoist), cb) for label, members, hoist in c4_segment_plans(E)]
 
 
 def segment_build(out_dir: str) -> tuple[dict, list]:
@@ -2283,9 +2420,14 @@ def compare_k4(label, prog, n: int, ins: list) -> dict:
         if gb != wb:
             gn, wn = g.cpu().numpy(), w.cpu().numpy()
             bad = np.flatnonzero(gn.view(f"u{gn.itemsize}") != wn.view(f"u{wn.itemsize}"))
-            raise AssertionError(f"segment {label}: {name} differs from the plain version at "
-                                 f"{len(bad)} rows, first {bad[:3].tolist()}: kernel "
-                                 f"{gn[bad[:3]].tolist()} plain {wn[bad[:3]].tolist()}")
+            u = f"u{gn.itemsize}"
+            expr = next((repr(e) for st in plan.stages if st.kind == "value"
+                         for n, e in (st.member.projections or ()) if n == name), "")
+            raise AssertionError(f"segment {label}: {name} {expr} differs from the plain version "
+                                 f"at {len(bad)} rows, first {bad[:3].tolist()}: kernel "
+                                 f"{gn[bad[:3]].tolist()} {[hex(x) for x in gn.view(u)[bad[:3]]]} "
+                                 f"plain {wn[bad[:3]].tolist()} "
+                                 f"{[hex(x) for x in wn.view(u)[bad[:3]]]}")
     if (mask_k is None) != (mask_p is None) or (
             mask_k is not None and not torch.equal(mask_k, mask_p)):
         raise AssertionError(f"segment {label}: the mask differs from the plain version")
@@ -2476,7 +2618,7 @@ def segment_phase(nex_plans: list) -> dict:
     dev = torch.device("cuda")
     checked = {}
     t0 = time.perf_counter()
-    for label, plan, batch in nex_plans + grid_plans() + c9_plans():
+    for label, plan, batch in nex_plans + grid_plans() + c9_plans() + c4_plans():
         log(f"segment: check {label}")
         checked[label] = compare_segment(label, plan, batch, dev)
     log("segment: K4's edge cases")
@@ -6250,21 +6392,6 @@ SQL_HAND_BUILT = {"q7": "q7c", "q5": "q5", "q8": "q8c"}
 SQL_PATH_KERNELS = {"q7": AGG_PATH_KERNELS, "q5": AGG_PATH_KERNELS,
                     "q8": AGG_PATH_KERNELS + ("join_sort_pairs", "join_search_bounds")}
 SMOKE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "smoke")
-# smoke families whose plans hold an operator the port refuses (ROADMAP A.5)
-SMOKE_REFUSED = {
-    "async_udf": "async_udf",
-    "most_active_driver": "window_function",
-    "window_function": "window_function",
-    "unnest_in_view": "unnest",
-    "null_comparisons": "join_with_expiration",
-    "updating_full_join": "join_with_expiration",
-    "updating_inner_join": "join_with_expiration",
-    "updating_inner_join_with_updating": "join_with_expiration",
-    "updating_left_join": "join_with_expiration",
-    "updating_right_join": "join_with_expiration",
-}
-
-
 def smoke_families() -> list:
     return sorted(os.path.splitext(f)[0] for f in os.listdir(os.path.join(SMOKE_DIR, "queries"))
                   if f.endswith(".sql"))
@@ -6422,13 +6549,13 @@ def sql_query_run(name: str, root: str) -> dict:
 def sql_smoke_phase(root: str) -> dict:
     """The smoke families through the port on the card: each planned by the
     port, run at parallelism 1 with chaining on (the windows, joins and
-    updating aggregates on the card) and held to tests/smoke/golden/; the
-    families that need an operator the port lacks refused naming ROADMAP
-    A.5."""
+    updating aggregates on the card) and held to tests/smoke/golden/, the
+    operators the 10 families of ROADMAP A.5 need (the updating join,
+    window functions, UNNEST, the async UDF) among them."""
     from arroyo_tpu_torch.sql import plan_query
 
     register_smoke_udafs()
-    out = {"passed": {}, "refused": {}}
+    out = {"passed": {}}
     for name in smoke_families():
         tcfg.reset()
         tcfg.update({"checkpoint.storage-url": os.path.join(root, "smoke-ckpt"),
@@ -6436,15 +6563,6 @@ def sql_smoke_phase(root: str) -> dict:
         path = os.path.join(root, f"smoke-{name}.json")
         g = plan_query(smoke_sql(name, path)).graph
         job = f"chip-smoke-family-{name}"
-        if name in SMOKE_REFUSED:
-            try:
-                run_graph(g, job_id=job, timeout=120)
-            except NotImplementedError as e:
-                if "ROADMAP A.5" not in str(e) or SMOKE_REFUSED[name] not in str(e):
-                    raise
-                out["refused"][name] = SMOKE_REFUSED[name]
-                continue
-            raise AssertionError(f"smoke {name} ran; its {SMOKE_REFUSED[name]} is not ported")
         t0 = time.perf_counter()
         eng = run_graph(g, job_id=job, timeout=120)
         if eng.device.type != "cuda":
@@ -6454,7 +6572,7 @@ def sql_smoke_phase(root: str) -> dict:
         with open(path) as f:
             out["passed"][name] = {"lines": sum(1 for line in f if line.strip()),
                                    "wall_s": wall}
-    if len(out["passed"]) + len(out["refused"]) != len(smoke_families()):
+    if len(out["passed"]) != len(smoke_families()):
         raise AssertionError(f"smoke families unaccounted for: {out}")
     return out
 
@@ -6478,8 +6596,7 @@ def sql_phase(card: str, res: dict) -> dict:
     finally:
         shutil.rmtree(root, ignore_errors=True)
     info = {"phase": "sql", "card": card, "queries": queries,
-            "smoke_passed": len(smoke["passed"]), "smoke_refused": smoke["refused"],
-            "smoke": smoke["passed"]}
+            "smoke_passed": len(smoke["passed"]), "smoke": smoke["passed"]}
     emit(info)
     for name, q in queries.items():
         print(f"sql {name}: plan {q['plan_ms']:.1f} ms, run {q['wall_s']:.3f} s, "
@@ -6512,6 +6629,288 @@ def main(argv=None) -> int:
         return run_phases(args, out_dir)
     finally:
         shutil.rmtree(STORAGE_ROOT, ignore_errors=True)
+
+
+# ---------------------------------------------------------------- updating
+
+# Nexmark q3, "local item suggestion": auctions of category 10 joined to
+# their sellers in OR, ID or CA. Planned through the port's plan_query it
+# is an updating inner join (JoinWithExpiration) of two subqueries over the
+# nexmark source; the sink writes debezium envelopes. At bench.py's q7 size.
+Q3_EVENTS = 2_000_000
+Q3_SPILL_BUDGET = 1 << 20  # bytes: the side stores' floor passes it early
+Q3_PATH_KERNELS = ("segment_fused",)  # the auctions chain compiles (K4)
+SQL_Q3 = """CREATE TABLE nexmark (
+  "person.id" BIGINT,
+  "person.name" TEXT,
+  "person.city" TEXT,
+  "person.state" TEXT,
+  "auction.id" BIGINT,
+  "auction.seller" BIGINT,
+  "auction.category" BIGINT,
+  person BOOLEAN,
+  auction BOOLEAN
+) WITH (
+  connector = 'nexmark',
+  event_count = {events},
+  inter_event_micros = 1000,
+  first_event_micros = 0,
+  include_strings = true,
+  type = 'source'
+);
+CREATE TABLE q3_out (name TEXT, city TEXT, state TEXT, id BIGINT)
+WITH (connector = 'single_file', path = '{out}', format = 'debezium_json', type = 'sink');
+INSERT INTO q3_out
+SELECT P.name, P.city, P.state, A.id
+FROM (SELECT "auction.id" AS id, "auction.seller" AS seller, "auction.category" AS category
+      FROM nexmark WHERE auction) A
+JOIN (SELECT "person.id" AS id, "person.name" AS name, "person.city" AS city,
+             "person.state" AS state
+      FROM nexmark WHERE person) P
+ON A.seller = P.id
+WHERE A.category = 10 AND (P.state = 'OR' OR P.state = 'ID' OR P.state = 'CA');
+"""
+
+
+def nexmark_q3_sql(events: int, out: str) -> str:
+    return SQL_Q3.format(events=int(events), out=out)
+
+
+def oracle_q3(events: int) -> dict:
+    """(name, city, state, auction id) -> count: numpy over the generated
+    persons and auctions (only their event numbers are generated), the
+    persons of OR, ID and CA joined to the auctions of category 10 by
+    seller."""
+    from collections import Counter
+
+    n = np.arange(events, dtype=np.int64)
+    off = n % 50
+    nums = n[off < 4]  # 1 person and 3 auctions in every 50 events
+    src = NexmarkSource({"event_count": events, "inter_event_micros": 1000,
+                         "first_event_micros": 0, "include_strings": True,
+                         "columns": ["person.id", "person.name", "person.city", "person.state",
+                                     "auction.id", "auction.seller", "auction.category"]})
+    c = src._generate(nums).columns
+    pm = c["person"] & np.isin(c["person.state"].astype(str), ["OR", "ID", "CA"])
+    people = dict(zip(c["person.id"][pm].tolist(),
+                      zip(c["person.name"][pm].tolist(), c["person.city"][pm].tolist(),
+                          c["person.state"][pm].tolist())))
+    am = c["auction"] & (c["auction.category"] == 10)
+    want: Counter = Counter()
+    for aid, seller in zip(c["auction.id"][am].tolist(), c["auction.seller"][am].tolist()):
+        p = people.get(seller)
+        if p is not None:
+            want[(*p, aid)] += 1
+    return dict(want)
+
+
+def check_q3_lines(lines: list, want: dict) -> int:
+    """The sink's debezium lines held exactly to ``oracle_q3``: every line a
+    create (``c``, no ``before``) of one joined row, the multiset equal."""
+    from collections import Counter
+
+    got: Counter = Counter()
+    for line in lines:
+        env = json.loads(line)
+        if env.get("op") != "c" or env.get("before") is not None:
+            raise AssertionError(f"q3: a line that is not a create: {line}")
+        a = env["after"]
+        got[(a["name"], a["city"], a["state"], a["id"])] += 1
+    if dict(got) != want:
+        diff = next(iter(set(got.items()) ^ set(want.items())), None)
+        raise AssertionError(f"q3 parity failure: {sum(got.values())} rows vs "
+                             f"{sum(want.values())}; first diff {diff}")
+    return sum(got.values())
+
+
+def q3_config(spill: bool) -> None:
+    bench_config(chaining=True, extra={"state.spill.enabled": spill,
+                                       "state.spill.budget-bytes": Q3_SPILL_BUDGET})
+
+
+def q3_join(eng):
+    """(node, operator) of ``eng``'s updating join."""
+    for (node, sub), task in eng.tasks.items():
+        if sub == 0 and "join_" in node and hasattr(task.operator, "stores"):
+            return node, task.operator
+    raise AssertionError(f"no updating join among {list(eng.tasks)}")
+
+
+def q3_spill_stats(op) -> dict:
+    st = op._annexes[0].stats  # one stats block, shared by both sides
+    return {"runs_written": st.runs_written, "bytes_written": st.bytes_total,
+            "probes": st.probes, "probes_that_promote": st.promotions,
+            "files_probed": int(st.probe_files.sum), "compactions": st.compactions,
+            "failures": st.failures,
+            "runs_live": [len(a.runs) for a in op._annexes]}
+
+
+def q3_lines(path: str) -> list:
+    with open(path) as f:
+        return [line for line in f.read().splitlines() if line.strip()]
+
+
+def q3_run(root: str, spill: bool, want: dict) -> dict:
+    """One run of q3 through the port's plan_query and run_graph on the
+    card; counts zeroed just before it and read just after."""
+    from arroyo_tpu_torch.sql import plan_query
+
+    q3_config(spill)
+    out = os.path.join(root, f"q3-{'spill' if spill else 'resident'}.json")
+    job = f"chip-smoke-q3-{'spill' if spill else 'resident'}"
+    recorder.clear_job(job)
+    g = plan_query(nexmark_q3_sql(Q3_EVENTS, out)).graph
+    ran = {}
+
+    def run():
+        reset_all_launch_counts()
+        t0 = time.perf_counter()
+        ran["eng"] = run_graph(g, job_id=job, timeout=900)
+        torch.cuda.synchronize()
+        ran["wall"] = time.perf_counter() - t0
+        ran["launches"] = all_launch_counts()
+
+    prof = device_trace(run, warm_device)
+    eng, wall, launches = ran["eng"], ran["wall"], ran["launches"]
+    if eng.device.type != "cuda":
+        raise RuntimeError(f"{job} ran on {eng.device}, not on the GPU")
+    rows = check_q3_lines(q3_lines(out), want)
+    unlaunched = [k for k in Q3_PATH_KERNELS if launches[k] == 0]
+    if unlaunched:
+        raise AssertionError(f"q3 ran without launching {unlaunched}: {launches}")
+    node, op = q3_join(eng)
+    by_name = device_us_by_name(prof)
+    busy_s = sum(by_name.values()) / 1e6 if by_name else None
+    info = {"events": Q3_EVENTS, "wall_s": wall, "events_per_s": Q3_EVENTS / wall,
+            "rows": rows, "join_node": node,
+            "side_store_bytes": {k: v[1] for k, v in op.state_sizes().items()},
+            "launches": {"segment_fused (K4)": launches["segment_fused"],
+                         "slot_scatter_combine (K1)": launches["slot_scatter_combine"]},
+            "segment_compiled": len(recorder.events(job, "SEGMENT_COMPILED")),
+            "device_busy_s": busy_s,
+            "device_idle_share": None if busy_s is None else 1.0 - busy_s / wall}
+    if spill:
+        info["spill"] = q3_spill_stats(op)
+        if not info["spill"]["runs_written"]:
+            raise AssertionError(f"q3 with a {Q3_SPILL_BUDGET}-byte budget wrote no spill run: "
+                                 f"{info['spill']}")
+    return info
+
+
+def q3_crash_restore(root: str, want: dict) -> dict:
+    """q3 with spilling on: both sources held at half their batches for
+    epoch 1, at three quarters for epoch 2, whose barrier crashes the join;
+    a fresh engine restores from epoch 1, whose manifests reference the
+    spilled runs, and finishes: the rows are the oracle's."""
+    from arroyo_tpu_torch.sql import plan_query
+
+    q3_config(True)
+    job = "chip-smoke-q3-crash"
+    url = os.path.join(root, job)
+    out = os.path.join(root, "q3-crash.json")
+    g = plan_query(nexmark_q3_sql(Q3_EVENTS, out)).graph
+    eng = Engine(g, job_id=job, storage_url=url)
+    eng.build()
+    node, _op = q3_join(eng)
+    nb = -(-Q3_EVENTS // BENCH_BATCH)
+    holds = (nb // 2 + 1, nb * 3 // 4 + 1)
+    gates = []
+    for (n, sub), task in eng.tasks.items():
+        if n.startswith("source_"):
+            gates.append(BarrierGate(holds))
+            task.control_queue = gates[-1]
+    faults.install(f"worker:crash@barrier=2&node={node}&subtask=0")
+    try:
+        eng.start()
+        for i, p in enumerate(holds):
+            for gate in gates:
+                if not gate.reached_at[p].wait(600):
+                    raise AssertionError(f"q3: a source never reached poll {p}")
+            if i == 0:
+                if not eng.checkpoint_and_wait(1, timeout=600):
+                    raise AssertionError("q3: epoch 1 did not complete")
+                continue
+            try:
+                eng.checkpoint_and_wait(2, timeout=600)
+            except RuntimeError as e:
+                if "injected" not in str(e):
+                    raise
+            else:
+                raise AssertionError("q3: epoch 2 completed through its crash")
+        try:
+            eng.join(timeout=600)
+        except RuntimeError as e:
+            if "injected" not in str(e):
+                raise
+    finally:
+        faults.clear()
+    meta = read_job_checkpoint_metadata(url, job, 1)
+    if meta is None or read_job_checkpoint_metadata(url, job, 2) is not None:
+        raise AssertionError("q3: epoch 1 incomplete or epoch 2 completed")
+    runs = q3_manifest_runs(url, job, 1, node)
+    if not runs:
+        raise AssertionError("q3: epoch 1's manifests reference no spilled run")
+    missing = [r for r in runs if not os.path.exists(os.path.join(url, job, "spill",
+                                                                  f"operator-{node}", r))]
+    if missing:
+        raise AssertionError(f"q3: runs the manifest references are missing: {missing}")
+    t0 = time.perf_counter()
+    eng2 = Engine(plan_query(nexmark_q3_sql(Q3_EVENTS, out)).graph, job_id=job,
+                  storage_url=url, restore_epoch=1)
+    eng2.build()
+    build_ms = (time.perf_counter() - t0) * 1e3
+    t1 = time.perf_counter()
+    eng2.run_to_completion(timeout=900)
+    run_s = time.perf_counter() - t1
+    rows = check_q3_lines(q3_lines(out), want)
+    _n, op2 = q3_join(eng2)
+    return {"epoch1_manifest_runs": len(runs), "restore_build_ms": build_ms,
+            "restored_run_s": run_s, "crash_to_restored_rows_s": time.perf_counter() - t0,
+            "rows": rows, "restored_spill": q3_spill_stats(op2)}
+
+
+def q3_manifest_runs(url: str, job: str, epoch: int, node: str) -> list:
+    """The run files the join's ``*__spill`` tables reference at ``epoch``
+    (the checkpoint metadata's ``spill_runs``)."""
+    d = os.path.join(checkpoint_dir(url, job, epoch), f"operator-{node}")
+    out = set()
+    for fn in os.listdir(d):
+        if fn.startswith("metadata-") and fn.endswith(".json"):
+            with open(os.path.join(d, fn)) as f:
+                meta = json.load(f)
+            for fm in meta.get("files", ()):
+                out.update(fm.get("spill_runs", ()))
+    return sorted(out)
+
+
+def updating_phase(card: str) -> dict:
+    """Nexmark q3 planned by the port at 2,000,000 events on the card, three
+    times: spilling off; spilling on with a 1 MiB budget (runs must be
+    written); and spilling on with a crash at epoch 2 and a restore from
+    epoch 1. Each time the rows are exactly the oracle's."""
+    want = oracle_q3(Q3_EVENTS)
+    root = tempfile.mkdtemp(prefix="chip_smoke_q3_")
+    try:
+        log("updating: q3, spilling off")
+        resident = q3_run(root, False, want)
+        log("updating: q3, spilling on")
+        spilled = q3_run(root, True, want)
+        log("updating: q3, crash and restore")
+        crash = q3_crash_restore(root, want)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    info = {"phase": "updating", "card": card, "oracle_rows": sum(want.values()),
+            "resident": resident, "spill": spilled, "crash_restore": crash,
+            "spill_slowdown": spilled["wall_s"] / resident["wall_s"]}
+    emit(info)
+    for name, q in (("resident", resident), ("spill", spilled)):
+        print(f"updating q3 {name}: {q['events_per_s']:.0f} events/s, run {q['wall_s']:.3f} s, "
+              f"{q['rows']} rows, idle {q['device_idle_share']}, launches {q['launches']}"
+              + (f", spill {q['spill']}" if "spill" in q else "") + f" [{card}]", flush=True)
+    print(f"updating q3 crash-restore: {crash['epoch1_manifest_runs']} runs in epoch 1's "
+          f"manifests, restore build {crash['restore_build_ms']:.1f} ms, restored run "
+          f"{crash['restored_run_s']:.3f} s, {crash['rows']} rows [{card}]", flush=True)
+    return info
 
 
 def run_phases(args, out_dir: str) -> int:
@@ -6550,6 +6949,7 @@ def run_phases(args, out_dir: str) -> int:
         "checkpoint": lambda: checkpoint_phase(dev),
         "recovery": lambda: recovery_phase(smi),
         "sql": lambda: sql_phase(smi, res),
+        "updating": lambda: updating_phase(smi),
         "segment_sweep": segment_sweep,
     }
     only = args.only.split(",") if args.only else [p for p in phases if p != "segment_sweep"]

@@ -541,8 +541,8 @@ def test_verify_off_skips_checksum_on_restore(tstorage):
 
 def test_updating_aggregate_refuses_a_spill_manifest(tmp_path):
     """A JAX package checkpoint whose updating aggregate spilled keys to run
-    files (its "s__spill" manifest names them) is refused: the port has no
-    spill annex, and the hot rows alone would drop the spilled keys."""
+    files (its "s__spill" manifest names them) is refused with spilling off:
+    the hot rows alone would drop the spilled keys."""
     import torch
 
     from arroyo_tpu_torch.operators.base import OperatorContext
@@ -556,7 +556,7 @@ def test_updating_aggregate_refuses_a_spill_manifest(tmp_path):
         op = UpdatingAggregate({"aggregates": [("n", "count", None)], "backend": "numpy"})
         ctx = OperatorContext(ti, torch.device("cpu"), table_manager=tm)
         if refused:
-            with pytest.raises(RuntimeError, match="spilled run files"):
+            with pytest.raises(RuntimeError, match=r"spilled run file.*state\.spill\.enabled"):
                 op.on_start(ctx)
         else:
             op.on_start(ctx)

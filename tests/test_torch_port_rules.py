@@ -1,5 +1,5 @@
 """Rules of the PyTorch port that hold by construction: it imports neither
-JAX nor arroyo_tpu, its entry points run on CUDA unless the CPU is named,
+JAX nor arroyo_tpu (nor pandas, which the card's machine lacks), its entry points run on CUDA unless the CPU is named,
 and a missing GPU or compiler raises instead of falling back."""
 
 import os
@@ -52,7 +52,9 @@ def test_port_and_chip_smoke_import_neither_jax_nor_arroyo_tpu():
             "arroyo_tpu_torch.formats.json_fmt", "arroyo_tpu_torch.formats.registry",
             "arroyo_tpu_torch.connectors.single_file",
             "arroyo_tpu_torch.analysis.plan_passes",
-            "arroyo_tpu_torch.analysis.trace_audit"} <= set(mods)
+            "arroyo_tpu_torch.analysis.trace_audit", "arroyo_tpu_torch.state.spill",
+            "arroyo_tpu_torch.operators.window_fn",
+            "arroyo_tpu_torch.operators.async_udf"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -61,6 +63,7 @@ def test_port_and_chip_smoke_import_neither_jax_nor_arroyo_tpu():
         "chip_smoke.smoke_check(name, os.path.join(chip_smoke.SMOKE_DIR, 'golden', name + '.json'))\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'arroyo_tpu' or m.startswith('arroyo_tpu.')\n"
+        "             or m == 'pandas' or m.startswith('pandas.')\n"
         "             or m in ('pytest', 'test_smoke', 'generate'))\n"
         "print('BAD', bad)\n"
         "sys.exit(1 if bad else 0)\n"

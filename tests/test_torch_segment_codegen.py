@@ -98,21 +98,39 @@ def test_q7_plan_reads_four_columns_and_writes_four():
 
 
 def test_kernel_nodes_outside_the_kernel_raise_untraceable():
-    """A node the kernel does not take is refused when the plan is lowered,
-    on any device, so the CPU takes exactly the plans the card takes."""
-    E = texpr
+    """A node the kernel does not take (bool - bool, which jax.numpy
+    refuses) is refused when the plan is lowered, on any device, so the CPU
+    takes exactly the plans the card takes. uint64 arithmetic and float16
+    (C4) are in the kernel: they trace, and the port's compiled segment gives
+    the JAX compiled segment's bytes."""
+    import arroyo_tpu
+    from arroyo_tpu import expr as jexpr
+    from test_torch_segment import JAX, plan_entry
+
+    arroyo_tpu._load_operators()
     cols = chip_smoke.grid_columns(64)
     cols["u64"] = cols["i64"].view(np.uint64)
     cols["f16"] = cols["f32"].astype(np.float16)
-    for proj in ([("y", E.BinOp("+", E.Col("u64"), E.Lit(1)))],
-                 [("y", E.BinOp("*", E.Col("f16"), E.Lit(2.0)))],
-                 [("y", E.BinOp("-", E.Col("b"), E.Col("b")))]):
-        members = [("value", {"projections": proj + [("w", E.Col("i64"))], "filter": None}),
-                   ("watermark", {"expr": E.Col("w")})]
-        plan, batch = bind(PORT, members, cols, False)
-        dts = [np.asarray(batch.columns[c]).dtype for c in plan.traced_in]
-        with pytest.raises(tseg.SegmentUntraceable, match="not in the segment kernel"):
-            tseg._trace_fn(plan, dts, tseg.torch.device("cpu"))
+
+    def members(E, proj):
+        return [("value", {"projections": proj(E) + [("w", E.Col("i64"))], "filter": None}),
+                ("watermark", {"expr": E.Col("w")})]
+
+    bad = lambda E: [("y", E.BinOp("-", E.Col("b"), E.Col("b")))]  # noqa: E731
+    plan, batch = bind(PORT, members(texpr, bad), cols, False)
+    dts = [np.asarray(batch.columns[c]).dtype for c in plan.traced_in]
+    with pytest.raises(tseg.SegmentUntraceable, match="not in the segment kernel"):
+        tseg._trace_fn(plan, dts, tseg.torch.device("cpu"))
+    for proj in (lambda E: [("y", E.BinOp("+", E.Col("u64"), E.Lit(1)))],
+                 lambda E: [("y", E.BinOp("*", E.Col("f16"), E.Lit(2.0)))]):
+        got = {}
+        for pkg, E in ((PORT, texpr), (JAX, jexpr)):
+            plan, batch = bind(pkg, members(E, proj), cols, False)
+            entry = plan_entry(pkg, plan, batch)
+            got[pkg] = (entry.execute(batch, "job", observe=False) if pkg is JAX
+                        else entry.execute(batch))
+        t, j = np.asarray(got[PORT]["cols"]["y"]), np.asarray(got[JAX]["cols"]["y"])
+        assert t.dtype == j.dtype and t.tobytes() == j.tobytes()
 
 
 def _packed_run(plan, prog, cols):

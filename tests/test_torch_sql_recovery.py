@@ -90,10 +90,9 @@ def fused(port):  # noqa: F811
 
 
 # tumbling_aggregates casts its uint64 counter to float64 for avg(), which
-# K4 does not take (ROADMAP C4): the port's segment falls back loudly and
-# the mesh takes the host path, where the JAX package fuses; its rows are
-# the same. sliding_window fuses in both.
-FUSES = {"sliding_window": True, "tumbling_aggregates": False}
+# K4 takes (ROADMAP C4, closed): both families fuse in the port, as they do
+# in the JAX package, and no segment falls back.
+FUSES = {"sliding_window": True, "tumbling_aggregates": True}
 
 
 def assert_fused_engaged(name: str, job_id: str) -> None:
@@ -101,11 +100,8 @@ def assert_fused_engaged(name: str, job_id: str) -> None:
     from arroyo_tpu_torch.parallel.sharded_agg import dispatch_counts
 
     seg, agg = mesh_dispatch_counts(), dispatch_counts()
-    if not FUSES[name]:
-        falls = recorder.events(job_id, "SEGMENT_FALLBACK")
-        assert falls and all("uint64" in e["message"] for e in falls), falls
-        assert seg["fused"] == agg["fused_steps"] == 0 and agg["host_steps"] > 0, (seg, agg)
-        return
+    assert FUSES[name]
+    assert not recorder.events(job_id, "SEGMENT_FALLBACK")
     assert seg["fused"] > 0, f"fused path never engaged: {seg} / {agg}"
     assert agg["fused_steps"] == seg["fused"], (seg, agg)
 

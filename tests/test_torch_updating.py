@@ -310,12 +310,6 @@ def test_udaf_refused_when_built(tmp_path):
         tudf.drop_udaf("median_test")
 
 
-def test_spill_config_refused():
-    tcfg.update({"state.spill.enabled": True})
-    with pytest.raises(NotImplementedError, match="spill annex"):
-        UpdatingAggregate({"key_fields": [], "aggregates": [("n", "count", None)]})
-
-
 def test_device_compaction(tmp_path):
     """A 64-slot table with a short TTL: keys die by eviction and by
     retraction to zero until a quarter of the table has died, and the store
