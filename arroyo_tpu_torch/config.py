@@ -85,14 +85,6 @@ _DEFAULTS: dict[str, Any] = {
             "enabled": False,
             # per-subtask resident-state budget (the operators' resident-state estimates)
             "budget-bytes": 64 * 1024 * 1024,
-            # hash-range partitions per subtask (rounded up to a power of two)
-            "partition-count": 16,
-            # run files of roughly this size; also compaction's output size
-            "target-file-bytes": 4 * 1024 * 1024,
-            # generations per partition before an online compaction merges them
-            "max-runs": 4,
-            # after a spill, shrink to budget * headroom (a low-water mark)
-            "headroom": 0.75,
         },
         # checkpoint-file checksum verification: "restore" verifies the
         # envelopes on the restore path only, "always" on every checkpointed

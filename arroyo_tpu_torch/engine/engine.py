@@ -84,8 +84,8 @@ def construct_operator(op: OpName, cfg: dict):
     load_operators()
     if op not in _CONSTRUCTORS:
         raise NotImplementedError(
-            f"operator {op.value} is not ported yet; the port runs "
-            f"{sorted(o.value for o in _CONSTRUCTORS)}")
+            f"operator {op.value} is not ported yet (ROADMAP.md queue A lists what "
+            f"is left to port); the port runs {sorted(o.value for o in _CONSTRUCTORS)}")
     return _CONSTRUCTORS[op](cfg)
 
 

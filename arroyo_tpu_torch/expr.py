@@ -762,12 +762,23 @@ def unary_type(name: str, dt: np.dtype, weak: bool = False) -> tuple[np.dtype, b
 
 def dtype_floor(dt: np.dtype):
     """Identity element for a masked max of dtype ``dt`` (segment.py
-    _dtype_floor)."""
+    _dtype_floor): 0 for uint16/32/64, whose max reads them unsigned
+    (max_bits)."""
     if np.issubdtype(dt, np.floating):
         return float("-inf")
-    if dt.kind not in "iu" or dt in UNSIGNED_BITS:
+    if dt.kind not in "iu":
         raise TypeError(f"watermark values of dtype {dt}: not in the segment kernel")
-    return int(np.iinfo(dt).min)
+    return 0 if dt in UNSIGNED_BITS else int(np.iinfo(dt).min)
+
+
+def max_bits(t: torch.Tensor, dt: np.dtype) -> torch.Tensor:
+    """The max of ``t``'s values (0-d), a uint16/32/64 column held in its
+    signed bits read unsigned: with the sign bit flipped, the signed order
+    is the unsigned one."""
+    if np.dtype(dt) not in UNSIGNED_BITS:
+        return t.max()
+    sign = int(torch.iinfo(t.dtype).min)
+    return (t ^ sign).max() ^ sign
 
 
 def wrap_int(v: int, dt: np.dtype) -> int:

@@ -618,7 +618,7 @@ class JoinWithExpiration(Operator):
         """Budget enforcement across BOTH side stores: the globally oldest
         rows (event time, then side/position as the deterministic
         tie-break) spill first, down to the low-water mark."""
-        from ..state.spill import spill_budget_bytes
+        from ..state.spill import SPILL_HEADROOM, spill_budget_bytes
 
         if self._annexes is None:
             return
@@ -627,7 +627,7 @@ class JoinWithExpiration(Operator):
         budget = spill_budget_bytes()
         if total <= budget:
             return
-        target = budget * float(config().get("state.spill.headroom", 0.75))
+        target = budget * SPILL_HEADROOM
         parts = []
         for s in (0, 1):
             live = self.stores[s].live_ids()

@@ -348,7 +348,7 @@ class UpdatingAggregate(Operator):
         """Budget enforcement: when resident state passes
         ``state.spill.budget-bytes``, spill the coldest partitions (the
         annex's deterministic clock-LRU) down to the low-water mark."""
-        from ..state.spill import spill_budget_bytes
+        from ..state.spill import SPILL_HEADROOM, spill_budget_bytes
 
         annex = self._annex
         if annex is None or not self.state:
@@ -357,7 +357,7 @@ class UpdatingAggregate(Operator):
         est_total, per_entry = self._estimate_state_bytes()
         if est_total <= budget:
             return
-        target = budget * float(config().get("state.spill.headroom", 0.75))
+        target = budget * SPILL_HEADROOM
         excess = int((est_total - target) / max(per_entry, 1.0)) + 1
         # keys with pending un-flushed updates are spillable too (the next
         # _flush promotes them back): budget enforcement must not depend

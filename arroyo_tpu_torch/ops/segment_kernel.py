@@ -62,7 +62,7 @@ import torch
 from ..batch import KEY_FIELD, TIMESTAMP_FIELD
 from . import kernels, staging
 from ..expr import (BinOp, Case, Cast, CAST_TARGETS, Col, Func, Lit, Neg, Not,
-                    TORCH_DTYPES, UNSIGNED_BITS, TVal, as_full, binop_type, contraction_sites, convert, default_nan_bits, dtype_floor, flush,
+                    TORCH_DTYPES, UNSIGNED_BITS, TVal, as_full, binop_type, contraction_sites, convert, default_nan_bits, dtype_floor, flush, max_bits,
                     floordiv_torch, floordiv_type, hash_columns_torch, int_div_type,
                     is_minmax_select, jax_type, literal_reciprocal, literal_rewrite, promote,
                     quiet_bit, scalar_as, storage_dtype, unary_type)
@@ -304,7 +304,7 @@ def _plain(prog: "SegmentProgram", n: int, inputs: list[torch.Tensor]):
             vals = as_full(m.expr.eval_torch(cols), p, dev)
             eff = base if valid is None else valid
             floor = torch.tensor(dtype_floor(vals.dt), dtype=vals.t.dtype, device=dev)
-            aux.append((torch.where(eff, flush(vals.t), floor).max(), eff.sum()))
+            aux.append((max_bits(torch.where(eff, flush(vals.t), floor), vals.dt), eff.sum()))
         else:  # insert
             outs["__bins"] = floordiv_torch(cols[TIMESTAMP_FIELD], insert_step(m))
             if plan.insert_has_key:
@@ -923,9 +923,7 @@ def generate(plan, in_dtypes, sites: Optional[dict] = None
     if not wm:
         body += stores
     for j, (vals, masked) in enumerate(wm):
-        red = (f"tl.reduce({masked}, 0, _max_nan)" if vals.dt.kind == "f"
-               else f"tl.max({masked}, axis=0)")
-        body.append(f"tl.store(pmax{j}_ptr + pid, {red})")
+        body.append(f"tl.store(pmax{j}_ptr + pid, {_max_code(vals.dt, masked)})")
         body.append(f"tl.store(pcnt{j}_ptr + pid, c{j})")
     if wm:
         # the fold: every program's partials are stored before its ticket
@@ -947,14 +945,11 @@ def generate(plan, in_dtypes, sites: Optional[dict] = None
                  "    fok = fo < G"]
         for j, (vals, _m) in enumerate(wm):
             floor = _Gen.full(dtype_floor(vals.dt), vals.dt)
-            comb = "_max_nan" if vals.dt.kind == "f" else "tl.maximum"
             fold += [f'    fx = tl.load(pmax{j}_ptr + fo, mask=fok, other=0, cache_modifier=".cg")',
-                     f"    fm{j} = {comb}(fm{j}, tl.where(fok, fx, {floor}))",
+                     f"    fm{j} = {_max_code(vals.dt, f'fm{j}', f'tl.where(fok, fx, {floor})')}",
                      f'    fc{j} += tl.load(pcnt{j}_ptr + fo, mask=fok, other=0, cache_modifier=".cg")']
         for j, (vals, _m) in enumerate(wm):
-            red = (f"tl.reduce(fm{j}, 0, _max_nan)" if vals.dt.kind == "f"
-                   else f"tl.max(fm{j}, axis=0)")
-            fold += [f"tl.store(amax{j}_ptr, {red})",
+            fold += [f"tl.store(amax{j}_ptr, {_max_code(vals.dt, f'fm{j}')})",
                      f"tl.store(acnt{j}_ptr, tl.sum(fc{j}, axis=0))"]
         fold.append("tl.store(ticket_ptr, 0)")
         body += [f"    {ln}" for ln in fold]
@@ -964,6 +959,21 @@ def generate(plan, in_dtypes, sites: Optional[dict] = None
            f"def segment_fused_kernel({', '.join(args)}, BLOCK: tl.constexpr):"]
     src += [f"    {ln}" for ln in body]
     return "\n".join(src) + "\n", out_dt, [v.dt for v, _ in wm], has_mask
+
+
+def _max_code(dt: np.dtype, a: str, b: Optional[str] = None) -> str:
+    """Code of the max of [BLOCK] values ``a`` and ``b`` of dtype ``dt``,
+    or of ``a``'s lanes when ``b`` is None: NaN-propagating for floats,
+    uint16/32/64 read unsigned and their max written back as signed bits
+    (expr.max_bits). The cast back is an integer cast, not a bitcast:
+    tl.max widens a uint16 to int32 (zero-extended) before it reduces."""
+    if dt in UNSIGNED_BITS:
+        u = [_Gen.unsigned(x, dt) for x in (a, b) if x is not None]
+        m = f"tl.maximum({u[0]}, {u[1]})" if b is not None else f"tl.max({u[0]}, axis=0)"
+        return f"{m}.to({_TL[dt]})"
+    if b is not None:
+        return f"_max_nan({a}, {b})" if dt.kind == "f" else f"tl.maximum({a}, {b})"
+    return f"tl.reduce({a}, 0, _max_nan)" if dt.kind == "f" else f"tl.max({a}, axis=0)"
 
 
 def _summary(plan, in_dtypes) -> str:
@@ -1100,13 +1110,14 @@ class SegmentProgram:
         return outs, mask, self.unpack_wm(host[lay.wm_offset:], P)
 
     def unpack_wm(self, tail: np.ndarray, P: int) -> tuple:
-        """Each watermark stage's max and count (0-d arrays, flat) from the
-        packed buffer's bytes at ``out_layout(P).wm_offset`` on."""
+        """Each watermark stage's max and count (0-d arrays, flat; a
+        uint16/32/64 max read unsigned) from the packed buffer's bytes at
+        ``out_layout(P).wm_offset`` on."""
         lay = self.out_layout(P)
         out = []
         for mo, dt, co in lay.wm:
             mo, co = mo - lay.wm_offset, co - lay.wm_offset
-            out += [tail[mo: mo + dt.itemsize].view(storage_dtype(dt)).reshape(()),
+            out += [tail[mo: mo + dt.itemsize].view(dt).reshape(()),
                     tail[co: co + 8].view(_I64).reshape(())]
         return tuple(out)
 

@@ -74,6 +74,17 @@ def spill_enabled() -> bool:
     return bool(_config().get("state.spill.enabled", False))
 
 
+# after a spill, resident state shrinks to budget * SPILL_HEADROOM (a
+# low-water mark, so the next batches do not spill again at once)
+SPILL_HEADROOM = 0.75
+# hash-range partitions per subtask (rounded up to a power of two)
+PARTITION_COUNT = 16
+# run files of roughly this size; also compaction's output size
+TARGET_FILE_BYTES = 4 * 1024 * 1024
+# generations per partition before an online compaction merges them
+MAX_RUNS = 4
+
+
 def spill_budget_bytes() -> int:
     return int(_config().get("state.spill.budget-bytes", 64 * 1024 * 1024))
 
@@ -194,15 +205,13 @@ class _AnnexBase:
 
     def __init__(self, task_info, storage_url: str, table: str,
                  stats: Optional[SpillStats] = None):
-        cfg = _config()
         self.task_info = task_info
         self.table = table
         self.dir = os.path.join(storage_url, task_info.job_id, "spill",
                                 f"operator-{task_info.node_id}")
         self.key_lo, self.key_hi = task_info.key_range
-        self.target_file_bytes = int(
-            cfg.get("state.spill.target-file-bytes", 4 * 1024 * 1024))
-        self.max_runs = max(2, int(cfg.get("state.spill.max-runs", 4)))
+        self.target_file_bytes = TARGET_FILE_BYTES
+        self.max_runs = max(2, MAX_RUNS)
         self.stats = stats if stats is not None else SpillStats()
         self.epoch = 0  # last barrier epoch; tags run names for safe GC
         self.next_seq = 1
@@ -304,8 +313,8 @@ class KeyedSpillAnnex(_AnnexBase):
     def __init__(self, task_info, storage_url: str, table: str,
                  stats: Optional[SpillStats] = None):
         super().__init__(task_info, storage_url, table, stats)
-        pc = int(_config().get("state.spill.partition-count", 16))
-        # partition-count is documented PER SUBTASK: subtasks own
+        pc = PARTITION_COUNT
+        # PARTITION_COUNT is PER SUBTASK: subtasks own
         # contiguous top-bit slices of the hash space, so the global split
         # scales with parallelism to keep ~pc partitions inside each
         # subtask's range (otherwise high parallelism degenerates every

@@ -589,14 +589,43 @@ class BarrierGate(queue.Queue):
         return super().get_nowait()
 
 
-def gate_source(eng, polls) -> BarrierGate:
-    """Build ``eng`` (either package's Engine) and gate its source task
-    (at one poll, or at each of several)."""
+class _EverySet:
+    """Events waited on together: ``wait`` is true once each is set."""
+
+    def __init__(self, events: list):
+        self.events = events
+
+    def wait(self, timeout: float) -> bool:
+        end = time.monotonic() + timeout
+        return all(e.wait(max(0.0, end - time.monotonic())) for e in self.events)
+
+
+class SourceGates:
+    """A BarrierGate on each source task of one engine, all held at the
+    same polls: a poll is reached (``reached``, ``reached_at[p]``) once
+    every source has reached it."""
+
+    def __init__(self, gates: list):
+        self.gates = gates
+        self.reached_at = {p: _EverySet([g.reached_at[p] for g in gates])
+                           for p in gates[0].reached_at}
+        self.reached = self.reached_at[gates[0].polls]
+
+
+def gate_source(eng, polls) -> SourceGates:
+    """Build ``eng`` (either package's Engine) and gate each of its source
+    tasks (node ``src``, or a SQL plan's ``source_*``) at one poll, or at
+    each of several."""
     if not eng.tasks:
         eng.build()
-    gate = BarrierGate(polls)
-    eng.tasks[("src", 0)].control_queue = gate
-    return gate
+    gates = []
+    for (node, _sub), task in eng.tasks.items():
+        if node == "src" or node.startswith("source_"):
+            gates.append(BarrierGate(polls))
+            task.control_queue = gates[-1]
+    if not gates:
+        raise AssertionError(f"{eng.job_id}: no source task among {list(eng.tasks)}")
+    return SourceGates(gates)
 
 
 def run_gated_epochs(eng, holds, then_stop: bool = True, timeout: float = 600.0,
@@ -2339,7 +2368,8 @@ def c4_departing() -> set:
 def c4_segment_plans(E) -> list:
     """(label, member configs, hoist) of the plans C4 is held on, over
     ``c4_columns``: C4's expressions in chunks behind an in-trace filter,
-    keys of each C4 dtype (hashed), and a tumbling insert whose float64
+    keys of each C4 dtype (hashed), watermarks over uint16/32/64 (their
+    max read unsigned; one filter keeps no row), and a tumbling insert whose float64
     average input casts a uint64 counter (the SQL family
     tumbling_aggregates' avg)."""
     c, lit = E.Col, E.Lit
@@ -2352,6 +2382,12 @@ def c4_segment_plans(E) -> list:
         ("watermark", {"expr": c(TIMESTAMP_FIELD)}),
         ("key", {"keys": [("k1", c("u16")), ("k2", c("u32")), ("k3", c("u64")),
                           ("k4", c("f16"))]})], False))
+    for label, keep in (("c4 watermarks", E.BinOp("!=", c("du32"), lit(0))),
+                        ("c4 watermarks, high u16 dropped", E.BinOp("<", c("u16"), lit(40000))),
+                        ("c4 watermarks, no row", E.BinOp(">", c("u16"), c("u16")))):
+        plans.append((label, [("value", {"projections": None, "filter": keep})]
+                      + [("watermark", {"expr": e}) for e in
+                         (c("u16"), c("u32"), c("u64"), E.BinOp("+", c("u64"), lit(1)))], False))
     plans.append(("c4 tumbling insert", [
         ("value", {"projections": [("counter", c("u64")), ("h", c("f16")),
                                    (TIMESTAMP_FIELD, c(TIMESTAMP_FIELD))], "filter": None}),
@@ -6797,51 +6833,25 @@ def q3_run(root: str, spill: bool, want: dict) -> dict:
     return info
 
 
-def q3_crash_restore(root: str, want: dict) -> dict:
-    """q3 with spilling on: both sources held at half their batches for
-    epoch 1, at three quarters for epoch 2, whose barrier crashes the join;
-    a fresh engine restores from epoch 1, whose manifests reference the
-    spilled runs, and finishes: the rows are the oracle's."""
+def q3_crash_restore(root: str, want: dict, events: int, batch: int, engine=Engine) -> dict:
+    """q3 under the configuration in force (spilling on), ``events`` events
+    in source batches of ``batch``: every source held at half its batches
+    for epoch 1, at three quarters for epoch 2, whose barrier crashes the
+    join; a fresh engine (``engine(graph, **kw)``) restores from epoch 1,
+    whose manifests reference the spilled runs, and finishes: the rows are
+    the oracle's."""
     from arroyo_tpu_torch.sql import plan_query
 
-    q3_config(True)
     job = "chip-smoke-q3-crash"
     url = os.path.join(root, job)
     out = os.path.join(root, "q3-crash.json")
-    g = plan_query(nexmark_q3_sql(Q3_EVENTS, out)).graph
-    eng = Engine(g, job_id=job, storage_url=url)
+    eng = engine(plan_query(nexmark_q3_sql(events, out)).graph, job_id=job, storage_url=url)
     eng.build()
     node, _op = q3_join(eng)
-    nb = -(-Q3_EVENTS // BENCH_BATCH)
-    holds = (nb // 2 + 1, nb * 3 // 4 + 1)
-    gates = []
-    for (n, sub), task in eng.tasks.items():
-        if n.startswith("source_"):
-            gates.append(BarrierGate(holds))
-            task.control_queue = gates[-1]
+    nb = -(-events // batch)
     faults.install(f"worker:crash@barrier=2&node={node}&subtask=0")
     try:
-        eng.start()
-        for i, p in enumerate(holds):
-            for gate in gates:
-                if not gate.reached_at[p].wait(600):
-                    raise AssertionError(f"q3: a source never reached poll {p}")
-            if i == 0:
-                if not eng.checkpoint_and_wait(1, timeout=600):
-                    raise AssertionError("q3: epoch 1 did not complete")
-                continue
-            try:
-                eng.checkpoint_and_wait(2, timeout=600)
-            except RuntimeError as e:
-                if "injected" not in str(e):
-                    raise
-            else:
-                raise AssertionError("q3: epoch 2 completed through its crash")
-        try:
-            eng.join(timeout=600)
-        except RuntimeError as e:
-            if "injected" not in str(e):
-                raise
+        crash_at_last_barrier(eng, (nb // 2 + 1, nb * 3 // 4 + 1))
     finally:
         faults.clear()
     meta = read_job_checkpoint_metadata(url, job, 1)
@@ -6855,7 +6865,7 @@ def q3_crash_restore(root: str, want: dict) -> dict:
     if missing:
         raise AssertionError(f"q3: runs the manifest references are missing: {missing}")
     t0 = time.perf_counter()
-    eng2 = Engine(plan_query(nexmark_q3_sql(Q3_EVENTS, out)).graph, job_id=job,
+    eng2 = engine(plan_query(nexmark_q3_sql(events, out)).graph, job_id=job,
                   storage_url=url, restore_epoch=1)
     eng2.build()
     build_ms = (time.perf_counter() - t0) * 1e3
@@ -6896,7 +6906,8 @@ def updating_phase(card: str) -> dict:
         log("updating: q3, spilling on")
         spilled = q3_run(root, True, want)
         log("updating: q3, crash and restore")
-        crash = q3_crash_restore(root, want)
+        q3_config(True)
+        crash = q3_crash_restore(root, want, Q3_EVENTS, BENCH_BATCH)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     info = {"phase": "updating", "card": card, "oracle_rows": sum(want.values()),

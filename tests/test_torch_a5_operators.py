@@ -302,3 +302,19 @@ def test_lookup_cache_crosses_the_packages(writer, tmp_path):
         assert conn.calls == 0
         outs[P.name] = form(col2.batches)
     assert outs["port"] == outs["jax"]
+
+
+def test_every_operator_of_the_jax_package_is_registered(monkeypatch):
+    """Every OpName of the JAX package constructs in the port; one whose
+    constructor is missing is refused naming ROADMAP.md's queue A."""
+    from arroyo_tpu.graph import OpName as JOp
+    from arroyo_tpu_torch.engine import engine
+    from arroyo_tpu_torch.graph import OpName
+
+    engine.load_operators()
+    assert [o.value for o in OpName] == [o.value for o in JOp]
+    assert set(engine._CONSTRUCTORS) == set(OpName)
+    monkeypatch.delitem(engine._CONSTRUCTORS, OpName.UNNEST)
+    monkeypatch.setattr(engine, "load_operators", lambda: None)
+    with pytest.raises(NotImplementedError, match="unnest is not ported yet.*ROADMAP.md queue A"):
+        engine.construct_operator(OpName.UNNEST, {})

@@ -61,7 +61,11 @@ JAX, PORT = _pkg("jax"), _pkg("port")
 
 
 @pytest.fixture(autouse=True)
-def _configs(tmp_path):
+def _configs(tmp_path, monkeypatch):
+    # the sizes the JAX package reads from its config are constants of the
+    # port's state/spill.py: a test may set them, and they are put back
+    for name in ("PARTITION_COUNT", "MAX_RUNS", "TARGET_FILE_BYTES"):
+        monkeypatch.setattr(PORT.spill, name, getattr(PORT.spill, name))
     for P in (JAX, PORT):
         P.cfg.reset()
         P.faults.clear()
@@ -78,8 +82,13 @@ def ti(P, subtask=0, parallelism=1, job="spill-job", node="op_1"):
     return P.TaskInfo(job, node, "op", subtask, parallelism)
 
 
-def keyed_annex(P, root, subtask=0, parallelism=1, job="spill-job", **over):
-    P.cfg.update({"state.spill.partition-count": 8, "state.spill.max-runs": 4, **over})
+def keyed_annex(P, root, subtask=0, parallelism=1, job="spill-job", max_runs=4):
+    """An annex of 8 partitions a subtask (the JAX package's config keys,
+    the port's constants)."""
+    if P is JAX:
+        P.cfg.update({"state.spill.partition-count": 8, "state.spill.max-runs": max_runs})
+    else:
+        P.spill.PARTITION_COUNT, P.spill.MAX_RUNS = 8, max_runs
     return P.spill.KeyedSpillAnnex(ti(P, subtask, parallelism, job), str(root), "s")
 
 
@@ -216,7 +225,7 @@ def _row_adopt_floor(P, root):
 
 
 def _compaction(P, root):
-    annex = keyed_annex(P, root, **{"state.spill.max-runs": 3})
+    annex = keyed_annex(P, root, max_runs=3)
     h1, h2 = 31, 33
     p = annex.partition_of(h1)
     for i in range(5):
@@ -324,7 +333,7 @@ def _probe_fail_once(P, root):
 
 def _compact_failure(P, root):
     job = "spill-cfail"
-    annex = keyed_annex(P, root, job=job, **{"state.spill.max-runs": 2})
+    annex = keyed_annex(P, root, job=job, max_runs=2)
     h = 41
     p = annex.partition_of(h)
     P.faults.install("spill_compact:fail", seed=1)
@@ -537,6 +546,7 @@ def test_payload_pickles_name_only_builtins_and_numpy(tmp_path):
 
     arroyo_tpu._load_operators()
     register_port_fixtures()
+    PORT.spill.TARGET_FILE_BYTES = SPILL_FILE_BYTES
     for fam, budget in (("spill_keyspace", 32768), ("updating_inner_join", 4096)):
         tcfg.update({"checkpoint.storage-url": str(tmp_path / "ckpt"), **SPILL_CFG,
                      "state.spill.budget-bytes": budget})
@@ -568,8 +578,8 @@ def test_payload_pickles_name_only_builtins_and_numpy(tmp_path):
 
 # ----------------------------------------- the operators on the smoke families
 
-SPILL_CFG = {"state.spill.enabled": True, "state.spill.budget-bytes": 32768,
-             "state.spill.target-file-bytes": 16384}
+SPILL_CFG = {"state.spill.enabled": True, "state.spill.budget-bytes": 32768}
+SPILL_FILE_BYTES = 16384  # state/spill.py's TARGET_FILE_BYTES beside SPILL_CFG
 
 
 def _port_run(tmp_path, family, over, job, parallelism=1):
@@ -591,6 +601,7 @@ def _port_run(tmp_path, family, over, job, parallelism=1):
 
 def test_spill_keyspace_golden_with_spill_engaged(tmp_path):
     job = "spill-smoke-p1"
+    PORT.spill.TARGET_FILE_BYTES = SPILL_FILE_BYTES
     runs = _port_run(tmp_path, "spill_keyspace", SPILL_CFG, job)
     assert runs and any(e["code"] == "SPILL_STARTED" for e in PORT.recorder.events(job))
 
@@ -622,6 +633,8 @@ def test_spill_checkpoint_restore(family, p_restore, tmp_path):
     register_port_fixtures()
     over = SPILL_CFG if family == "spill_keyspace" else {
         "state.spill.enabled": True, "state.spill.budget-bytes": 4096}
+    if family == "spill_keyspace":
+        PORT.spill.TARGET_FILE_BYTES = SPILL_FILE_BYTES
     tcfg.update({"checkpoint.storage-url": str(tmp_path / "ckpt"), **over,
                  "testing.source-gate-epochs": 2})
     out = str(tmp_path / "out.json")

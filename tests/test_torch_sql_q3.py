@@ -21,6 +21,7 @@ from arroyo_tpu.engine.engine import Engine as JEngine
 from arroyo_tpu.sql import plan_query as jplan
 from arroyo_tpu_torch import faults as tfaults
 from arroyo_tpu_torch.engine.engine import Engine as TEngine
+from arroyo_tpu_torch.state import spill as tspill
 from arroyo_tpu_torch.sql import plan_query as tplan
 
 EVENTS = 20_000
@@ -57,9 +58,9 @@ def test_q3_plans_alike_and_lines_equal_jax_and_the_oracle(tmp_path, configs):
     assert chip_smoke.check_q3_lines(got, want) == sum(want.values()) > 100
 
 
-def test_q3_spilled_lines_equal_the_resident_ones(tmp_path, configs):
-    tcfg.update({"state.spill.enabled": True, "state.spill.budget-bytes": 4096,
-                 "state.spill.target-file-bytes": 4096})
+def test_q3_spilled_lines_equal_the_resident_ones(tmp_path, configs, monkeypatch):
+    tcfg.update({"state.spill.enabled": True, "state.spill.budget-bytes": 4096})
+    monkeypatch.setattr(tspill, "TARGET_FILE_BYTES", 4096)
     out = str(tmp_path / "spill.json")
     eng = TEngine(tplan(chip_smoke.nexmark_q3_sql(EVENTS, out)).graph, job_id="q3-spill",
                   device="cpu")
@@ -71,23 +72,16 @@ def test_q3_spilled_lines_equal_the_resident_ones(tmp_path, configs):
     assert chip_smoke.check_q3_lines(chip_smoke.q3_lines(out), want) == sum(want.values())
 
 
-def test_q3_crash_and_restore_with_spilled_runs(tmp_path, configs):
+def test_q3_crash_and_restore_with_spilled_runs(tmp_path, configs, monkeypatch):
     """The updating phase's third run at this size: epoch 1 with spilled
     runs in its manifests, a crash at epoch 2's barrier in the join, a
     restore from epoch 1 to the oracle's rows."""
     tcfg.update({"state.spill.enabled": True, "state.spill.budget-bytes": 4096,
-                 "state.spill.target-file-bytes": 4096, "testing.source-gate-epochs": 0})
+                 "testing.source-gate-epochs": 0})
+    monkeypatch.setattr(tspill, "TARGET_FILE_BYTES", 4096)
     root = str(tmp_path / "q3")
     os.makedirs(root)
-    old = (chip_smoke.Q3_EVENTS, chip_smoke.BENCH_BATCH, chip_smoke.q3_config, Engine0)
-    chip_smoke.Q3_EVENTS, chip_smoke.BENCH_BATCH = EVENTS, 2048
-    chip_smoke.q3_config = lambda spill: None  # keep this test's configuration
-    chip_smoke.Engine = lambda *a, **k: TEngine(*a, device="cpu", **k)
-    try:
-        res = chip_smoke.q3_crash_restore(root, chip_smoke.oracle_q3(EVENTS))
-    finally:
-        chip_smoke.Q3_EVENTS, chip_smoke.BENCH_BATCH, chip_smoke.q3_config, chip_smoke.Engine = old
+    res = chip_smoke.q3_crash_restore(root, chip_smoke.oracle_q3(EVENTS), EVENTS,
+                                      RUN["pipeline.source-batch-size"],
+                                      lambda g, **kw: TEngine(g, device="cpu", **kw))
     assert res["epoch1_manifest_runs"] > 0 and res["rows"] > 100
-
-
-Engine0 = chip_smoke.Engine

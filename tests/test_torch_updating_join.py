@@ -217,27 +217,34 @@ def test_random_streams_batch_for_batch(jt, seed, tmp_path):
     run_both(jt, random_steps(100 * seed + len(jt)), tmp_path, ttl=5_000)
 
 
+def small_spill_files(monkeypatch) -> None:
+    """Spilling on in both packages at a budget of a few rows, in run files
+    of 1 KiB (the JAX package's config key, the port's constant)."""
+    from arroyo_tpu_torch.state import spill
+
+    for P in (JAX, PORT):
+        P.cfg.update({"state.spill.enabled": True, "state.spill.budget-bytes": 400})
+    JAX.cfg.update({"state.spill.target-file-bytes": 1024})
+    monkeypatch.setattr(spill, "TARGET_FILE_BYTES", 1024)
+
+
 @pytest.mark.parametrize("jt", JOIN_TYPES)
-def test_random_streams_with_spilling(jt, tmp_path):
+def test_random_streams_with_spilling(jt, tmp_path, monkeypatch):
     """With a budget of a few rows, side-store rows spill and promote back
     on every probe, in both packages alike."""
-    for P in (JAX, PORT):
-        P.cfg.update({"state.spill.enabled": True, "state.spill.budget-bytes": 400,
-                      "state.spill.target-file-bytes": 1024})
+    small_spill_files(monkeypatch)
     run_both(jt, random_steps(7 + len(jt), n_steps=80), tmp_path, ttl=5_000)
 
 
 @pytest.mark.parametrize("writer", ["jax", "port"])
 @pytest.mark.parametrize("jt", JOIN_TYPES)
 @pytest.mark.parametrize("spill", [False, True], ids=["resident", "spilled"])
-def test_checkpoint_crosses_the_packages(writer, jt, spill, tmp_path):
+def test_checkpoint_crosses_the_packages(writer, jt, spill, tmp_path, monkeypatch):
     """The first half of a stream in one package, a checkpoint (tables
     ``left``/``right``, and with spilling the ``*__spill`` manifests), a
     restore into either package: the second half emits the same batches."""
     if spill:
-        for P in (JAX, PORT):
-            P.cfg.update({"state.spill.enabled": True, "state.spill.budget-bytes": 400,
-                          "state.spill.target-file-bytes": 1024})
+        small_spill_files(monkeypatch)
     steps = random_steps(31 + len(jt), n_steps=70)
     first, second = steps[:35], steps[35:]
     W = JAX if writer == "jax" else PORT
