@@ -4,7 +4,8 @@ process without one reset clearing the other).
 
 Only the sections the port reads: ``pipeline``, ``worker``,
 ``engine.coalesce``, ``segment.compile``, ``checkpoint``, ``state``,
-``storage.retry``, ``faults``, ``testing`` and ``device``. The checkpoint keys have the JAX package's names and meaning;
+``storage.retry``, ``faults``, ``testing``, ``device``, ``native``,
+and ``profile``. The checkpoint keys have the JAX package's names and meaning;
 ``checkpoint.storage-url`` defaults to a directory under the temporary
 directory (``TMPDIR``) rather than the JAX package's ``/tmp/arroyo-tpu``,
 and the port writes npz state files for either value of
@@ -16,7 +17,12 @@ port lists them here with the same defaults and meaning.
 ``device.torch-device`` names the torch device (None = ``cuda``; see
 device.py). The mesh keys (``device.mesh-devices``, ``max-probes``,
 ``emit-capacity``, ``spill-capacity``, ``segment.compile.mesh-fuse``) have
-the JAX package's defaults and meaning.
+the JAX package's defaults and meaning. ``native.enabled`` (default True,
+a key the JAX package reads with that default) takes the native host
+library (native/); off, its numpy twins run. ``profile.enabled`` is the
+JAX package's key and default; its ``profile.sketch.*`` and
+``obs.events.max-per-job`` defaults are constants of the port
+(obs/profile.py, metrics.py, obs/events.py).
 """
 
 from __future__ import annotations
@@ -110,6 +116,16 @@ _DEFAULTS: dict[str, Any] = {
     "testing": {
         # single_file: after half its input, hold until this many barriers passed
         "source-gate-epochs": 0,
+    },
+    "native": {
+        # the C++ host library (native/): hashing, the keyed shuffle's
+        # partition and the slot directory's resolve; a failed build raises
+        "enabled": True,
+    },
+    "profile": {
+        # runtime cost attribution (obs/profile.py): per-operator self-time
+        # in the task run loop, state-size gauges and key-skew sketches
+        "enabled": True,
     },
     "device": {
         "torch-device": None,  # None = cuda (device.resolve_device)

@@ -28,8 +28,15 @@ each node restores as the mapping says. An epoch that holds state for
 operators this graph lacks (and the mapping does not account for) is
 refused too. ``compact(epoch)`` merges a completed epoch's per-subtask
 files. The checkpoint layout is the JAX package's (state/tables.py). A
-configured fault plan (``faults.plan``) is installed at construction. Not
-ported: the multi-worker coordination of controller/.
+configured fault plan (``faults.plan``) is installed at construction.
+
+Every epoch's lifecycle is recorded as spans in obs/trace.py's recorder
+(trigger, each subtask's alignment and snapshot start and ack, the marker
+durable, the commit delivered); ``checkpoint_timeline`` reads them, a
+checkpoint that times out carries the epoch's ``timeline_report``, and a
+durable epoch's phase durations feed ``arroyo_checkpoint_phase_seconds``.
+Not ported: the multi-worker coordination of controller/ (its commit
+path and COMMIT_REDELIVERED come with the controller).
 """
 
 from __future__ import annotations
@@ -44,6 +51,9 @@ from typing import Callable, Optional, Union
 import torch
 
 from ..config import config
+from ..metrics import registry as metrics_registry
+from ..obs.trace import phase_durations, timeline_report
+from ..obs.trace import recorder as trace_recorder
 from ..device import resolve_device
 from ..faults import fault_point, install_from_config
 from ..graph import EdgeType, Graph, OpName
@@ -97,13 +107,17 @@ class CheckpointWait:
 
     outcome: str  # "completed" | "finished" | "timeout"
     missing: tuple = ()  # (node_id, subtask) pairs unacked at timeout
+    # timeout only: the epoch's trace timeline (obs.trace.timeline_report),
+    # naming the subtask whose barrier never arrived or never acked
+    report: str = ""
 
     def __bool__(self) -> bool:
         return self.outcome == "completed"
 
     def __repr__(self) -> str:
         if self.outcome == "timeout" and self.missing:
-            return f"CheckpointWait(timeout, never acked: {list(self.missing)})"
+            base = f"CheckpointWait(timeout, never acked: {list(self.missing)})"
+            return f"{base}\n{self.report}" if self.report else base
         return f"CheckpointWait({self.outcome})"
 
 
@@ -126,6 +140,8 @@ class Engine:
             graph = chain_graph(graph)
         self.graph = graph
         self.job_id = job_id
+        # a new incarnation of the job records its epochs' spans afresh
+        trace_recorder.clear_job(job_id)
         self.device = resolve_device(device)
         self.storage_url = storage_url or config().get("checkpoint.storage-url")
         self.restore_epoch = restore_epoch
@@ -142,9 +158,6 @@ class Engine:
         self._failed: list[ControlResp] = []
         self._checkpoints: dict[int, dict[tuple[str, int], dict]] = {}
         self._completed_epochs: set[int] = set()
-        # epoch -> wall micros of its trigger, its marker and each task's
-        # alignment start, snapshot start and ack (checkpoint_timeline)
-        self._epoch_times: dict[int, dict] = {}
         self._resp_thread: Optional[threading.Thread] = None
         # triggers that arrive before start() are replayed by it, never lost
         self._running = False
@@ -302,12 +315,18 @@ class Engine:
                 continue
             if resp.kind == "task_started":
                 continue
+            if resp.kind == "checkpoint_event":
+                ce = resp.checkpoint_event
+                name = {"started_alignment": "align_start",
+                        "started_checkpointing": "snapshot_start"}.get(ce.event_type)
+                if name:
+                    self._span(ce.checkpoint_epoch, name, node=resp.node_id,
+                               subtask=resp.subtask_index, t_us=ce.time_micros)
+                continue
+            if resp.kind == "checkpoint_completed":
+                self._span(resp.epoch, "ack", node=resp.node_id, subtask=resp.subtask_index)
             with self._lock:
                 key = (resp.node_id, resp.subtask_index)
-                if resp.kind == "checkpoint_event":
-                    ce = resp.checkpoint_event
-                    self._task_times(ce.checkpoint_epoch, key)[ce.event_type] = ce.time_micros
-                    continue
                 if resp.kind == "task_finished":
                     self._finished_tasks.add(key)
                     if resp.clean:
@@ -319,7 +338,6 @@ class Engine:
                     # dead consumer's row budget unwind
                     self._abort()
                 elif resp.kind == "checkpoint_completed":
-                    self._task_times(resp.epoch, key)["acked"] = int(time.time() * 1e6)
                     self._checkpoints.setdefault(resp.epoch, {})[key] = resp.subtask_metadata
                     self._finish_ready_epochs()
                 self._cond.notify_all()
@@ -328,7 +346,8 @@ class Engine:
         """An epoch is complete once every task has snapshotted it or
         drained cleanly (a drained source takes part in no barrier: its
         state is final). Then the job marker goes durable and committing
-        operators get the epoch's commit. Caller holds the lock."""
+        operators get the epoch's commit; the epoch's phase durations go to
+        the checkpoint phase histograms. Caller holds the lock."""
         from ..state.integrity import fold_integrity
 
         for epoch, ep in self._checkpoints.items():
@@ -345,7 +364,7 @@ class Engine:
             if integ:
                 extra["integrity"] = integ
             write_job_checkpoint_metadata(self.storage_url, self.job_id, epoch, extra)
-            self._epoch_times.setdefault(epoch, {})["durable"] = int(time.time() * 1e6)
+            self._span(epoch, "metadata_durable")
             if self._evolve_cutover_pending:
                 # the evolved plan's first durable epoch: the evolve_cutover
                 # fault site fires between its marker and its commits; a
@@ -365,24 +384,35 @@ class Engine:
             for key, task in self.tasks.items():
                 if key not in self._finished_tasks and task.operator.is_committing():
                     task.control_queue.put(ControlMessage(kind="commit", epoch=epoch))
+            # worker 0: the port's one worker (the JAX package's default index)
+            self._span(epoch, "commit_delivered", worker=0)
+            metrics_registry.observe_epoch_phases(
+                self.job_id, phase_durations(trace_recorder.events(self.job_id, epoch)))
 
-    def _task_times(self, epoch: int, key: tuple[str, int]) -> dict:
-        return self._epoch_times.setdefault(epoch, {}).setdefault("tasks", {}).setdefault(key, {})
+    def _span(self, epoch: int, event: str, node: Optional[str] = None,
+              subtask: Optional[int] = None, worker: Optional[int] = None,
+              t_us: Optional[int] = None) -> None:
+        trace_recorder.record(self.job_id, epoch, event, node, subtask, worker, t_us)
 
     def checkpoint_timeline(self, epoch: int) -> dict:
-        """The epoch's times in ms after its trigger: ``durable_ms`` (the
-        job marker written) and per task ``started_alignment`` (its first
-        input's barrier), ``started_checkpointing`` and ``acked`` (its
-        metadata reached the engine)."""
-        with self._lock:
-            t = self._epoch_times.get(epoch, {})
-            t0 = t.get("trigger")
-            if t0 is None:
-                return {}
-            out = {"durable_ms": (t["durable"] - t0) / 1e3 if "durable" in t else None,
-                   "tasks": {f"{k[0]}/{k[1]}": {e: (us - t0) / 1e3 for e, us in ev.items()}
-                             for k, ev in t.get("tasks", {}).items()}}
-        return out
+        """The epoch's times in ms after its trigger, from its trace spans:
+        ``durable_ms`` (the job marker written) and per task
+        ``started_alignment`` (its first input's barrier),
+        ``started_checkpointing`` and ``acked`` (its metadata reached the
+        engine)."""
+        events = trace_recorder.events(self.job_id, epoch)
+        t0 = min((e["t_us"] for e in events if e["event"] == "trigger"), default=None)
+        if t0 is None:
+            return {}
+        names = {"align_start": "started_alignment",
+                 "snapshot_start": "started_checkpointing", "ack": "acked"}
+        durable = [e["t_us"] for e in events if e["event"] == "metadata_durable"]
+        tasks: dict = {}
+        for e in events:
+            if e["node"] is not None and e["event"] in names:
+                tasks.setdefault(f"{e['node']}/{e['subtask']}", {})[names[e["event"]]] = \
+                    (e["t_us"] - t0) / 1e3
+        return {"durable_ms": (min(durable) - t0) / 1e3 if durable else None, "tasks": tasks}
 
     # -------------------------------------------------------------- control
 
@@ -392,14 +422,13 @@ class Engine:
     def trigger_checkpoint(self, epoch: int, then_stop: bool = False) -> None:
         """A checkpoint starts at the sources; a trigger that arrives before
         the engine runs is replayed by start()."""
+        self._span(epoch, "trigger")
         with self._lock:
             if not self._running:
                 self._pending_triggers.append((epoch, then_stop))
                 return
         barrier = CheckpointBarrier(epoch=epoch, timestamp=int(time.time() * 1e6),
                                     then_stop=then_stop)
-        with self._lock:
-            self._epoch_times.setdefault(epoch, {})["trigger"] = barrier.timestamp
         for t in self.source_tasks():
             t.control_queue.put(ControlMessage(kind="checkpoint", barrier=barrier))
 
@@ -418,8 +447,11 @@ class Engine:
                 remaining = deadline - time.monotonic()
                 if remaining <= 0:
                     acked = set(self._checkpoints.get(epoch, ()))
-                    return CheckpointWait("timeout", tuple(sorted(
-                        set(self.tasks) - acked - self._finished_tasks)))
+                    missing = tuple(sorted(set(self.tasks) - acked - self._finished_tasks))
+                    report = timeline_report(
+                        self.job_id, epoch, trace_recorder.events(self.job_id, epoch),
+                        expected=set(self.tasks) - self._finished_tasks)
+                    return CheckpointWait("timeout", missing, report)
                 self._cond.wait(timeout=min(remaining, 0.5))
         return CheckpointWait("completed")
 

@@ -5,12 +5,15 @@ Each task owns ONE multiplexed inbox; producers tag items with their flat
 input index and block while that input's outstanding row budget
 (``worker.queue-size``) is exhausted. Budget is released when the consumer
 finishes processing the item. Signals never block: they must be able to
-overtake a full queue.
+overtake a full queue. Items carry their enqueue time: with the consuming
+task's metrics attached (``metrics``), each batch popped observes its wall
+time in the queue (the queue-transit histogram).
 """
 
 from __future__ import annotations
 
 import threading
+import time
 from collections import deque
 from typing import Optional, Union
 
@@ -25,12 +28,13 @@ class TaskInbox:
     def __init__(self, n_inputs: int, row_budget: int):
         self.n_inputs = max(n_inputs, 1)
         self.row_budget = row_budget
-        self._queue: deque[tuple[int, QueueItem]] = deque()
+        self._queue: deque[tuple[int, QueueItem, float]] = deque()
         self._used = [0] * self.n_inputs
         self._lock = threading.Lock()
         self._not_empty = threading.Condition(self._lock)
         self._budget_freed = threading.Condition(self._lock)
         self._closed = False
+        self.metrics = None  # TaskMetrics of the consuming task
 
     def put(self, input_index: int, item: QueueItem) -> None:
         """Blocks while this input's row budget is exhausted (data only)."""
@@ -49,7 +53,7 @@ class TaskInbox:
             if self._closed:
                 return
             self._used[input_index] += rows
-            self._queue.append((input_index, item))
+            self._queue.append((input_index, item, time.monotonic()))
             self._not_empty.notify()
 
     def get(self, timeout: Optional[float] = None) -> Optional[tuple[int, QueueItem]]:
@@ -59,7 +63,10 @@ class TaskInbox:
                 self._not_empty.wait(timeout=timeout)
             if not self._queue:
                 return None
-            return self._queue.popleft()
+            idx, item, t_enq = self._queue.popleft()
+        if self.metrics is not None and isinstance(item, Batch):
+            self.metrics.queue_transit.observe(time.monotonic() - t_enq)
+        return idx, item
 
     def release(self, input_index: int, item: QueueItem) -> None:
         """Consumer finished processing; return the rows to the budget."""
@@ -68,6 +75,10 @@ class TaskInbox:
         with self._lock:
             self._used[input_index] -= item.num_rows
             self._budget_freed.notify_all()
+
+    def used_rows(self) -> int:
+        with self._lock:
+            return sum(self._used)
 
     def close(self) -> None:
         with self._lock:

@@ -549,12 +549,20 @@ class CompiledSegment:
         self.plan = plan
         self.fn = fn
         self.sig = sig
+        # padded lengths this entry has run at: the first call at each
+        # builds K4 for that shape (Triton compiles it)
+        self._shapes: set[int] = set()
+        self._lock = threading.Lock()
 
-    def execute(self, batch: Batch, min_rows: int = 0) -> Optional[dict]:
+    def execute(self, batch: Batch, min_rows: int = 0,
+                job_id: Optional[str] = None) -> Optional[dict]:
         """Run the segment function on one batch; returns the same structure
         ``_reference`` produces (compacted numpy arrays + aux pairs), or
         None when fewer than ``min_rows`` rows survive the hoisted filter
-        (too small to pay the launch; the caller runs interpreted)."""
+        (too small to pay the launch; the caller runs interpreted). The
+        first call at a padded shape is timed into the job's
+        ``arroyo_segment_compile_seconds`` when ``job_id`` is given; no
+        later call waits for anything more than it did."""
         fmask = None
         n = batch.num_rows
         if self.plan.prefilter is not None:
@@ -585,7 +593,17 @@ class CompiledSegment:
                 padded[:n] = a
                 a = padded
             arrays.append(a)
-        outs, mask, aux = self.fn(n, arrays)
+        with self._lock:
+            new_shape = p not in self._shapes
+            self._shapes.add(p)
+        if new_shape and job_id is not None:
+            t0 = time.perf_counter()
+            outs, mask, aux = self.fn(n, arrays)
+            from ..metrics import registry
+
+            registry.observe_segment_compile(job_id, time.perf_counter() - t0)
+        else:
+            outs, mask, aux = self.fn(n, arrays)
 
         def host_col(name):
             # passthrough columns never enter the kernel; they only pay the
@@ -747,6 +765,7 @@ class SegmentRunner:
         self._mesh_agg = None
         self._mesh_member = None
         self._mesh_off = False  # latched: fusion declined or failed, host path only
+        self._mesh_shapes: set[int] = set()  # padded lengths the fused step ran at
         # cache identity: the traced prefix's configs (tail members never
         # enter the kernel; their configs may hold run-local objects), the
         # node's parallelism, the device and the mesh width (a resize
@@ -792,7 +811,8 @@ class SegmentRunner:
         if self._mesh_step is not None and self._mesh_execute(batch, collector):
             return
         try:
-            res = self._entry.execute(batch, min_rows=self._min_rows)
+            res = self._entry.execute(batch, min_rows=self._min_rows,
+                                      job_id=self.ctx.task_info.job_id)
         except Exception as e:  # noqa: BLE001 - host-side failures fall back
             if _kernel_error(e):
                 raise
@@ -830,11 +850,16 @@ class SegmentRunner:
             segment_cache.store(key, _Fallback(err))
             self._mark_fallback(err)
             return None
+        from ..metrics import registry
+
         hit, entry = segment_cache.lookup(key)
         if hit:
             if isinstance(entry, _Fallback):
+                # a negative entry is no cache hit: the metric counts
+                # reuses of a built kernel
                 self._mark_fallback(entry.reason)
                 return None
+            registry.add_segment_cache_hit(self.ctx.task_info.job_id)
             self._entry, self._sig = entry, sig
             self.metrics.segment_compiled = True
             self._setup_mesh(entry)
@@ -851,6 +876,7 @@ class SegmentRunner:
                          hoist=self._should_hoist(members[0], batch))
             in_dtypes = [np.asarray(batch.columns[n]).dtype for n in plan.traced_in]
             entry = CompiledSegment(plan, _trace_fn(plan, in_dtypes, self.ctx.device), sig)
+            # no job_id: the build's total below covers this first shape
             got = entry.execute(batch)
             if got["n"] == 0 and not got["cols"]:
                 # the hoisted filter killed the entire first batch: the
@@ -874,6 +900,7 @@ class SegmentRunner:
             return None
         elapsed = time.perf_counter() - t0
         segment_cache.store(key, entry)
+        registry.observe_segment_compile(self.ctx.task_info.job_id, elapsed)
         self._entry, self._sig = entry, sig
         self.metrics.segment_compiled = True
         self._setup_mesh(entry)
@@ -990,6 +1017,7 @@ class SegmentRunner:
                                          len(plan.traced_in), 2 * len(plan.wm_stages))
         self._mesh_agg = agg
         self._mesh_member = member
+        self._mesh_shapes = set()
 
     def _build_mesh_prefix(self, entry: CompiledSegment, member) -> Callable:
         """The fused step's prologue: K4 over the padded batch, its insert
@@ -1080,6 +1108,9 @@ class SegmentRunner:
                 reason=str(e), mesh=True)
             return False
         ontime = member.mesh_insert_begin(bins_abs, mcols[plan.insert.member_index])
+        new_shape = p not in self._mesh_shapes
+        self._mesh_shapes.add(p)
+        t0 = time.perf_counter()
         try:
             aux = agg.update_fused(
                 self._mesh_step, n, 0 if member.base_bin is None else int(member.base_bin),
@@ -1090,6 +1121,12 @@ class SegmentRunner:
             raise kernels.KernelError(
                 f"segment {self.chain.name()}: fused mesh step failed after it "
                 f"may have changed the sharded table: {type(e).__name__}: {e}") from e
+        if new_shape:
+            # the fused step's first call at a padded shape builds K4 there
+            from ..metrics import registry
+
+            registry.observe_segment_compile(self.ctx.task_info.job_id,
+                                             time.perf_counter() - t0)
         pairs = []
         it = iter(aux)
         for mx in it:

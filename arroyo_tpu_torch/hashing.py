@@ -1,10 +1,12 @@
-"""Deterministic 64-bit key hashing (the port's copy of the numpy branches
-of arroyo_tpu/hashing.py; the native C++ path is not bound by the port).
+"""Deterministic 64-bit key hashing (the port's copy of
+arroyo_tpu/hashing.py).
 
-splitmix64 over numpy uint64 lanes: hashes stay in numpy because torch's
-CPU build has no ``>>`` or ``+`` for ``torch.uint64``. The hash decides
-shuffle ownership and window-state identity, so it must equal the JAX
-package's bit for bit (tests/test_torch_q7.py holds it to that).
+splitmix64 over uint64 lanes, in the native host library (native/) where
+the JAX package uses it, else in numpy: the same bits either way
+(tests/test_torch_native.py). Hashes stay on the host because torch's CPU
+build has no ``>>`` or ``+`` for ``torch.uint64``. The hash decides shuffle
+ownership and window-state identity, so it must equal the JAX package's
+bit for bit (tests/test_torch_q7.py holds it to that).
 """
 
 from __future__ import annotations
@@ -47,24 +49,36 @@ def _hash_string_array(col: np.ndarray) -> np.ndarray:
 
 def hash_column(col: np.ndarray) -> np.ndarray:
     """64-bit hash of one column."""
+    from . import native
+
     if col.dtype == object or col.dtype.kind in "US":
         return splitmix64(_hash_string_array(col))
     if col.dtype.kind == "f":
+        out = native.hash_f64(col.astype(np.float64))
+        if out is not None:
+            return out
         # canonicalize -0.0 and hash the bit pattern
         col = np.where(col == 0.0, 0.0, col)
         return splitmix64(col.astype(np.float64).view(np.uint64))
     if col.dtype == np.bool_:
-        return splitmix64(col.astype(np.uint64))
-    return splitmix64(col.astype(np.int64).view(np.uint64))
+        col = col.astype(np.uint64)
+    else:
+        col = col.astype(np.int64).view(np.uint64)
+    out = native.hash_u64(col)
+    return out if out is not None else splitmix64(col)
 
 
 def hash_columns(cols: list[np.ndarray]) -> np.ndarray:
     """Combined 64-bit hash of several columns (row-wise)."""
+    from . import native
+
     if not cols:
         raise ValueError("need at least one key column")
     h = hash_column(cols[0])
     for c in cols[1:]:
-        h = splitmix64(h ^ (hash_column(c) + _C1))
+        h2 = hash_column(c)
+        combined = native.hash_combine(h, h2)
+        h = combined if combined is not None else splitmix64(h ^ (h2 + _C1))
     return h
 
 

@@ -98,6 +98,26 @@ class ChainedOperator(Operator):
         """Chain-wide late-row drops: the members' sum."""
         return sum(int(getattr(m, "late_rows", 0) or 0) for m in self.members)
 
+    def state_sizes(self) -> dict[str, tuple[int, int]]:
+        """Members' live-store gauges, named as their state tables are
+        (``c{i}.`` prefixed)."""
+        out: dict[str, tuple[int, int]] = {}
+        for i, m in enumerate(self.members):
+            fn = getattr(m, "state_sizes", None)
+            if fn is not None:
+                for name, v in fn().items():
+                    out[f"c{i}.{name}"] = v
+        return out
+
+    def spill_stats(self):
+        """Members' tiered-state counters folded into one block (counters
+        sum, histograms add); None when no member spills."""
+        from ..state.spill import merge_spill_stats
+
+        return merge_spill_stats(
+            [fn() for m in self.members
+             for fn in (getattr(m, "spill_stats", None),) if fn is not None])
+
     def tables(self):
         return [replace(t, name=f"c{i}.{t.name}")
                 for i, m in enumerate(self.members) for t in m.tables()]

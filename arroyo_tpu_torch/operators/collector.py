@@ -2,8 +2,13 @@
 (the port's copy of arroyo_tpu/operators/collector.py).
 
 Keyed shuffles hash routing keys to subtasks with ``servers_for_hashes``
-(contiguous u64 ranges), sort stably by destination and slice; unkeyed
-shuffles send rotating even slices. Signals go to every output partition.
+(contiguous u64 ranges), group rows stably by destination (the native host
+library's counting sort, ``native.partition``, or numpy's stable argsort:
+the same order) and slice; unkeyed shuffles send rotating even slices.
+Signals go to every output partition. With task metrics attached
+(``metrics``, set by the task) every routed batch counts into the sent
+counters and the emitted-batch-size histogram, and a keyed shuffle feeds
+the task's key-skew sketch (obs/sketch.py) at the shuffle boundary.
 
 Coalescing: sub-threshold output batches accumulate here until
 ``engine.coalesce.max-rows``/``max-bytes`` trips, the oldest pending row is
@@ -58,6 +63,7 @@ class Collector:
         self._pending_bytes = 0
         self._pending_since = 0.0
         self._pending_cols: frozenset = frozenset()
+        self.metrics = None  # TaskMetrics of the producing task
 
     def collect(self, batch: Batch) -> None:
         if batch.num_rows == 0:
@@ -106,6 +112,11 @@ class Collector:
         return self._pending_since + self.co_max_delay_s
 
     def _route(self, batch: Batch) -> None:
+        if self.metrics is not None:
+            self.metrics.add("arroyo_worker_batches_sent")
+            self.metrics.add("arroyo_worker_messages_sent", batch.num_rows)
+            self.metrics.add("arroyo_worker_bytes_sent", batch.nbytes())
+            self.metrics.emit_batch_rows.observe(batch.num_rows)
         for edge in self.out_edges:
             n = len(edge.dests)
             if n == 1:
@@ -120,9 +131,20 @@ class Collector:
 
     def _shuffle_keyed(self, batch: Batch, edge: OutEdge) -> None:
         n = len(edge.dests)
-        dests = servers_for_hashes(batch.keys, n)
-        order = np.argsort(dests, kind="stable")
-        bounds = np.searchsorted(dests[order], np.arange(n + 1))
+        if self.metrics is not None and self.metrics.sketch is not None:
+            # the shuffle boundary is where a hot key melts one downstream
+            # subtask; at sample-every 1 the sketch counts every row once,
+            # however coalescing draws the batches
+            self.metrics.sketch.observe(batch.keys)
+        from .. import native
+
+        part = native.partition(batch.keys, n)
+        if part is not None:
+            order, bounds = part
+        else:
+            dests = servers_for_hashes(batch.keys, n)
+            order = np.argsort(dests, kind="stable")
+            bounds = np.searchsorted(dests[order], np.arange(n + 1))
         sorted_batch = batch.take(order)
         for d in range(n):
             lo, hi = bounds[d], bounds[d + 1]
@@ -130,7 +152,7 @@ class Collector:
                 edge.dests[d].put(edge.dest_input_index[d], sorted_batch.slice(lo, hi))
 
     def _shuffle_round_robin(self, batch: Batch, edge: OutEdge) -> None:
-        # Rotating even slices .
+        # rotating even slices
         n = len(edge.dests)
         rows = batch.num_rows
         per = (rows + n - 1) // n

@@ -614,6 +614,16 @@ class JoinWithExpiration(Operator):
             k, t, mc, ne, vals = seg
             self.stores[side].append(k, t, vals, mc, ne)
 
+    def spill_stats(self):
+        """The side annexes' counters (arroyo_spill_* series; both sides
+        share one stats block); None while spilling is off."""
+        if self._annexes is None:
+            return None
+        stats = self._annexes[0].stats
+        cold = sum(1 for a in self._annexes if a.has_runs())
+        return {"bytes_total": stats.bytes_total, "hot": 2 - cold,
+                "cold": cold, "probe_files": stats.probe_files}
+
     def _maybe_spill(self) -> None:
         """Budget enforcement across BOTH side stores: the globally oldest
         rows (event time, then side/position as the deterministic

@@ -344,6 +344,26 @@ class UpdatingAggregate(Operator):
         per = tot / cnt
         return int(per * n), per
 
+    def state_sizes(self) -> dict[str, tuple[int, int]]:
+        """Live resident-state gauge of the host mode (between barriers the
+        "s" table lags the in-memory map); the device mode keeps the
+        as-of-barrier table view."""
+        if self.device_mode:
+            return {}
+        est, _per = self._estimate_state_bytes()
+        return {"s": (len(self.state), est)}
+
+    def spill_stats(self) -> Optional[dict]:
+        """The spill annex's counters (arroyo_spill_* series); None while
+        spilling is off."""
+        annex = self._annex
+        if annex is None:
+            return None
+        cold = annex.cold_partitions()
+        return {"bytes_total": annex.stats.bytes_total,
+                "hot": max(0, annex.local_partitions() - cold), "cold": cold,
+                "probe_files": annex.stats.probe_files}
+
     def _maybe_spill(self) -> None:
         """Budget enforcement: when resident state passes
         ``state.spill.budget-bytes``, spill the coldest partitions (the

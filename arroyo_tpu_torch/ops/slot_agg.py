@@ -3,8 +3,12 @@ copy of arroyo_tpu/ops/slot_agg.py).
 
 The work splits by what each side is good at:
 
-  host (numpy): the BinSlotDirectory maps each (bin, key) group to a
-      device slot. Slots live in fixed-size REGIONS; each window bin owns a
+  host (numpy and the native host library): the BinSlotDirectory maps
+      each (bin, key) group to a device slot; a batch resolves in one C
+      pass (native.dir_resolve) that hands the groups without a slot to
+      the allocator in the order the batch first shows them, as the JAX
+      package does (numpy's path, taken only with native.enabled off,
+      allocates them in code order). Slots live in fixed-size REGIONS; each window bin owns a
       chain of regions, so a window close maps to whole regions of the
       state, never a compaction. The directory is open addressing over
       64-bit mixed codes with a monotone bin boundary (a close is always
@@ -326,9 +330,24 @@ class SlotAggregator(DeviceHashAggregator):
         ku = np.ascontiguousarray(key_u64, dtype=np.uint64)
         ks = ku.view(np.int64)
         b64 = np.ascontiguousarray(bins, dtype=np.int64)
-        codes = splitmix64(ku ^ (b64.astype(np.uint64) * _BIN_MIX))
-        uniq, first, inv = np.unique(codes, return_index=True, return_inverse=True)
-        row_slots = self.directory.lookup_or_assign(uniq, ks[first], b64[first])[inv]
+        d = self.directory
+        from .. import native
+
+        res = native.dir_resolve(ks, b64, d.hcode, d.hbin, d.hslot, d.boundary,
+                                 d.slot_keys, d.slot_bins)
+        if res is not None:
+            # one C pass resolves every row whose (bin, key) group owns a
+            # slot; the first-seen groups, deduplicated in row order, go
+            # through the allocator in that order (the JAX package's order)
+            row_slots, miss_ord, miss_codes, miss_keys, miss_bins = res
+            if len(miss_codes):
+                slots_new = d.lookup_or_assign(miss_codes, miss_keys, miss_bins)
+                neg = row_slots < 0
+                row_slots[neg] = slots_new[miss_ord[neg]]
+        else:
+            codes = splitmix64(ku ^ (b64.astype(np.uint64) * _BIN_MIX))
+            uniq, first, inv = np.unique(codes, return_index=True, return_inverse=True)
+            row_slots = d.lookup_or_assign(uniq, ks[first], b64[first])[inv]
         vals = [np.asarray(v) for v in vals]
         spill_rows = row_slots < 0
         if spill_rows.any():
@@ -517,12 +536,19 @@ class SlotAggregator(DeviceHashAggregator):
     def slots_of(self, key_u64: np.ndarray) -> np.ndarray:
         """Device slots currently assigned to these (bin 0) keys; -1 for
         keys that own no slot (unallocated, or living in the host spill
-        tier). Read-only: never allocates. One probe round over every
-        pending key at a time, as lookup_or_assign probes: a dead or empty
-        directory position ends a key's probe with a miss."""
+        tier). Read-only: never allocates. The native library's one pass
+        where it is on, else one probe round over every pending key at a
+        time, as lookup_or_assign probes: a dead or empty directory
+        position ends a key's probe with a miss."""
+        from .. import native
+
         d = self.directory
         ku = np.ascontiguousarray(key_u64, dtype=np.uint64)
         ks = ku.view(np.int64)
+        res = native.dir_resolve(ks, np.zeros(len(ks), dtype=np.int64), d.hcode, d.hbin,
+                                 d.hslot, d.boundary, d.slot_keys, d.slot_bins)
+        if res is not None:
+            return res[0]  # misses stay -1 (unallocated)
         codes = splitmix64(ku)  # the bin-0 code: key ^ (0 * _BIN_MIX) = key
         out = np.full(len(ks), -1, dtype=np.int64)
         h = (codes & d.hmask).astype(np.int64)

@@ -16,7 +16,9 @@ non-zero, printing no result):
               K8-K11, the single-device table's hash_agg.cu with K12 and
               K13; K11, K12's walk and K10's spill share table_compact.cuh)
               with nvcc for
-              sm_90a, one nvcc per source, all started together;
+              sm_90a, one nvcc per source, and the native host library
+              (cpp/arroyo_host.cc, one g++ into arroyo_tpu_torch/build/),
+              all started together;
 3. q7      -- Nexmark q7 through the port's run_graph on the GPU at the size
               bench.py measures (2,000,000 events, batch 65536, table 65536,
               region 2048) in the package's default configuration (chaining
@@ -251,6 +253,28 @@ non-zero, printing no result):
               starts, naming both plan hashes; with diff_plans's mapping
               written it reaches the oracle. fsck_job finds no error in any
               clean job. Each case's times print on the phase's line.
+24. obs    -- the observability plane, profiling at its default (on), as
+              in every phase: q7c at bench.py's setting exact with K4, K1
+              and K2 launched, its Prometheus families those the JAX
+              package exports for such a job, its row counters those the
+              oracle implies, one segment build observation per padded
+              shape; then q7c timed with the profiler on and off and with
+              the native host library on and off, and q8c (whose join feeds
+              a key sketch, after one untimed run) with the profiler on and
+              off, five times each, alternating in an order that rotates
+              each round, each exact
+              (medians printed); q7c's profile-off runs twice a round (A/A:
+              their ratio is the host's noise floor), and one more profiled
+              q7c run times each profiler hook on each task thread.
+              q7m fused: arroyo_mesh_exchange_rows_total equals the sharded
+              store's count and the oracle's bids. q3 at the 1 MiB budget:
+              the arroyo_spill_* series equal SpillStats. One checkpoint of
+              q7c with its window at parallelism 4: every subtask's
+              alignment, snapshot and ack spans, the Chrome trace written to
+              <out-dir>/obs_chrome_trace.json, ``__sketch`` in the epoch and
+              a restore ending with an uninterrupted run's hot keys. An
+              injected crash mid-checkpoint: one OPERATOR_PANIC with its
+              node, subtask, epoch and digest, and the job fails.
 
 ``--only a,b`` runs those phases alone after probe and build (a short
 check) and prints no result line. ``--only segment_sweep`` (in no default
@@ -450,16 +474,20 @@ def probe() -> tuple[str, dict]:
 
 
 def build(out_dir: str) -> dict:
-    """Every csrc/*.cu, one nvcc each, all started together."""
+    """Every csrc/*.cu, one nvcc each, and the native host library (one
+    g++), all started together."""
     from concurrent.futures import ThreadPoolExecutor
 
     t0 = time.perf_counter()
+    from arroyo_tpu_torch import native
+
     libs = (kernels.build_library, join_kernels.build_library, sharded_kernels.build_library,
-            hash_kernels.build_library)
+            hash_kernels.build_library, native.lib)
     with ThreadPoolExecutor(len(libs)) as pool:
         for f in [pool.submit(b) for b in libs]:
             f.result()
-    info = {"phase": "build", "seconds": time.perf_counter() - t0, "sources": {}}
+    info = {"phase": "build", "seconds": time.perf_counter() - t0, "sources": {},
+            "native": {k: native.build_info[k] for k in ("seconds", "cached", "path")}}
     for name, b in kernels.build_info.items():
         info["sources"][name] = {
             "nvcc_seconds": b["seconds"], "cached": b["cached"], "library": b["path"],
@@ -468,6 +496,8 @@ def build(out_dir: str) -> dict:
         with open(os.path.join(out_dir, f"{name}_build.log"), "w") as f:
             f.write(b["log"])
     emit(info)
+    print(f"build: {info['seconds']:.3f} s, native host library {info['native']['seconds']:.3f} s "
+          f"({'cached' if info['native']['cached'] else 'built'})", flush=True)
     return info
 
 
@@ -864,7 +894,8 @@ def run_chained(name: str, build, events: int, oracle, check,
     if not chained or not compiled or fallbacks:
         raise AssertionError(f"{name}: the chain did not run compiled: nodes {list(eng.graph.nodes)}, "
                              f"compiled {compiled}, fallbacks {fallbacks}")
-    if not any(st.get("segment_compiled") for st in seg_metrics.get(chained[0], {}).values()):
+    if not any(st.get("segment_compiled")
+               for st in seg_metrics.get(chained[0], {}).get("per_subtask", {}).values()):
         raise AssertionError(f"{name}: segment_compiled is not set: {seg_metrics}")
     if launches["segment_fused"] != want_k4:
         raise AssertionError(f"{name}: K4 launched {launches['segment_fused']} times, "
@@ -1079,7 +1110,7 @@ def run_q8c() -> dict:
     seg_metrics = registry.job_metrics(job)
     for node in eng.graph.nodes:
         if "+" in node:
-            st = seg_metrics.get(node, {}).get(0, {})
+            st = seg_metrics.get(node, {}).get("per_subtask", {}).get("0", {})
             chains[node] = {"k4_batches": registry.task(job, node, 0).segment_batches,
                             "segment_compiled": st.get("segment_compiled"),
                             "segment_reason": st.get("segment_reason")}
@@ -3432,7 +3463,8 @@ def mesh_run(name: str, build, events: int, oracle, check, fuse: bool, extra: di
     chained = [n for n in eng.graph.nodes if "+" in n]
     fallbacks = recorder.events(job, "SEGMENT_FALLBACK")
     compiled = recorder.events(job, "SEGMENT_COMPILED")
-    metrics = registry.job_metrics(job).get(chained[0], {}) if chained else {}
+    metrics = (registry.job_metrics(job).get(chained[0], {}).get("per_subtask", {})
+               if chained else {})
     if not chained or not compiled or fallbacks:
         raise AssertionError(f"{name}: the chain did not run compiled: compiled {compiled}, "
                              f"fallbacks {fallbacks}")
@@ -6286,7 +6318,10 @@ def agg_table_files(url: str, job: str, epoch: int = 1) -> list:
     return sorted(f for f in os.listdir(d) if f.startswith("table-"))
 
 
-COMPACTED = ["table-e-compacted-g1.bin", "table-t-compacted-g1.npz"]
+# the window's compacted tables: its key-skew sketch (the profiler's), its
+# late-data marks and its rows
+COMPACTED = ["table-__sketch-compacted-g1.bin", "table-e-compacted-g1.bin",
+             "table-t-compacted-g1.npz"]
 
 
 def recovery_compaction(root: str) -> dict:
@@ -6310,7 +6345,7 @@ def recovery_compaction(root: str) -> dict:
     t0 = time.perf_counter()
     removed = eng.compact(1)
     compact_ms = (time.perf_counter() - t0) * 1e3
-    if agg_table_files(url, job) != COMPACTED or n_files != 8:
+    if agg_table_files(url, job) != COMPACTED or n_files != 12:
         raise AssertionError(f"compaction left {agg_table_files(url, job)} of {n_files} files")
     out = {"compact_ms": compact_ms, "files_removed": removed, "agg_files_before": n_files,
            "epoch_before": before, "epoch_after": epoch_bytes(url, job, 1),
@@ -6924,6 +6959,445 @@ def updating_phase(card: str) -> dict:
     return info
 
 
+# ---------------------------------------------------------------- obs
+
+# the series families the JAX package exports for a q7c job whose segment
+# compiled afresh (tests/test_torch_metrics.py holds this set to both
+# packages on the CPU): q7c's watermark is made inside its one chain, so no
+# task merges one (no lag gauge), and no key boundary lies outside the
+# chain (no sketch)
+OBS_Q7C_FAMILIES = frozenset({
+    "arroyo_events_total", "arroyo_segment_compile_seconds_bucket",
+    "arroyo_segment_compile_seconds_count", "arroyo_segment_compile_seconds_sum",
+    "arroyo_state_bytes", "arroyo_state_rows", "arroyo_worker_batches_recv",
+    "arroyo_worker_batches_sent", "arroyo_worker_bytes_recv", "arroyo_worker_bytes_sent",
+    "arroyo_worker_deserialization_errors", "arroyo_worker_emit_batch_rows_bucket",
+    "arroyo_worker_emit_batch_rows_count", "arroyo_worker_emit_batch_rows_sum",
+    "arroyo_worker_messages_recv", "arroyo_worker_messages_sent",
+    "arroyo_worker_queue_transit_seconds_bucket", "arroyo_worker_queue_transit_seconds_count",
+    "arroyo_worker_queue_transit_seconds_sum", "arroyo_worker_self_cpu_seconds",
+    "arroyo_worker_self_time_seconds", "arroyo_worker_sink_event_latency_seconds_bucket",
+    "arroyo_worker_sink_event_latency_seconds_count",
+    "arroyo_worker_sink_event_latency_seconds_sum", "arroyo_worker_tx_queue_rem",
+    "arroyo_worker_tx_queue_size"})
+OBS_REPS = 5  # timed q7c runs of each setting, alternating (host noise spans ~1.7x)
+# what profile.enabled adds to a task thread: TaskProfiler's hooks and the
+# key sketch's feed
+PROFILE_HOOKS = (("obs.profile", "TaskProfiler", ("begin", "end", "source_tick", "source_reset",
+                                                   "refresh", "checkpoint_sketch")),
+                 ("obs.sketch", "KeySketch", ("observe",)))
+
+
+def series_of(job: str) -> dict:
+    """The job's Prometheus series: {line without its value: value}."""
+    out = {}
+    for line in registry.prometheus_text().splitlines():
+        if not line.startswith("#") and f'job="{job}"' in line:
+            key, val = line.rsplit(" ", 1)
+            out[key] = float(val)
+    return out
+
+
+def obs_q7c_run(job: str, profile: bool, native_on: bool) -> dict:
+    """q7c at bench.py's setting with the profiler and the native host
+    library as given: exact against the oracle, K4, K1 and K2's
+    read-and-clear mode launched."""
+    reset_all_launch_counts()
+    registry.clear_job(job)
+    rows, wall, eng = drive(build_q7, Q7_EVENTS, job, chaining=True,
+                            extra={"profile.enabled": profile, "native.enabled": native_on})
+    launches = all_launch_counts()
+    check_q7(rows, oracle_q7(Q7_EVENTS))
+    unlaunched = [k for k in AGG_PATH_KERNELS if launches[k] == 0]
+    if unlaunched:
+        raise AssertionError(f"{job} ran without launching {unlaunched}: {launches}")
+    return {"wall_s": wall, "events_per_s": Q7_EVENTS / wall, "eng": eng,
+            "launches": {k: launches[k] for k in AGG_PATH_KERNELS}}
+
+
+@contextlib.contextmanager
+def timed_profile_hooks():
+    """Wraps each of PROFILE_HOOKS in a timer while open; yields
+    {thread name: {hook: [calls, seconds]}} (each call's two clock reads of
+    the timer included)."""
+    import importlib
+
+    acc: dict = {}
+    saved = []
+
+    def wrap(name, fn):
+        def timed(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                d = time.perf_counter() - t0
+                cell = acc.setdefault(threading.current_thread().name, {}).setdefault(
+                    name, [0, 0.0])
+                cell[0] += 1
+                cell[1] += d
+        return timed
+
+    for mod, cls_name, names in PROFILE_HOOKS:
+        cls = getattr(importlib.import_module(f"arroyo_tpu_torch.{mod}"), cls_name)
+        for name in names:
+            saved.append((cls, name, cls.__dict__[name]))
+            setattr(cls, name, wrap(name, cls.__dict__[name]))
+    try:
+        yield acc
+    finally:
+        for cls, name, fn in saved:
+            setattr(cls, name, fn)
+
+
+def timer_cost_s(n: int = 100_000) -> float:
+    """Seconds a call that the hook timer adds: a closure call and two
+    clock reads around an empty function."""
+    def f():
+        return None
+
+    def timed():
+        t0 = time.perf_counter()
+        try:
+            return f()
+        finally:
+            time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for _ in range(n):
+        timed()
+    return (time.perf_counter() - t0) / n
+
+
+def obs_hook_cost() -> dict:
+    """One more profiled q7c run (not one of the timed ones) with every
+    profiler hook timed: seconds and calls per task thread and hook, and
+    each thread's total less what the timer adds."""
+    with timed_profile_hooks() as acc:
+        r = obs_q7c_run("chip-smoke-obs-hooks", True, True)
+    r.pop("eng")
+    per_call = timer_cost_s()
+    hook_s = {t: sum(s for _c, s in h.values()) for t, h in acc.items()}
+    calls = {t: sum(c for c, _s in h.values()) for t, h in acc.items()}
+    return {"wall_s": r["wall_s"], "threads": acc, "timer_s_per_call": per_call,
+            "hook_s": hook_s,
+            "hook_s_net": {t: hook_s[t] - calls[t] * per_call for t in acc}}
+
+
+def obs_q8c_run(job: str, profile: bool) -> dict:
+    """q8c at bench.py's setting with the profiler as given, exact: the join
+    takes keyed input, so the profiled run feeds its key sketch."""
+    registry.clear_job(job)
+    rows, wall, _eng = drive(build_q8, Q8_EVENTS, job, chaining=True, queue_mult=1,
+                             extra={"profile.enabled": profile})
+    check_q8(rows, oracle_q8(Q8_EVENTS))
+    out = {"wall_s": wall, "events_per_s": Q8_EVENTS / wall}
+    if profile:
+        jm = registry.job_metrics(job)
+        out["sketch_total"] = {op: m.get("sketch_total") for op, m in jm.items()
+                               if m.get("sketch_total")}
+    return out
+
+
+def obs_metrics_checks(job: str, eng) -> dict:
+    """The profiled q7c run's exposition: every family the JAX package
+    exports for such a job, the row counters the oracle implies, one build
+    observation per padded shape K4 ran at, and the printed numbers."""
+    fams = {k.split("{", 1)[0] for k in series_of(job)}
+    if fams != OBS_Q7C_FAMILIES:
+        raise AssertionError(f"obs: families {sorted(fams ^ OBS_Q7C_FAMILIES)} differ from the "
+                             f"JAX package's for q7c")
+    jm = registry.job_metrics(job)
+    chain = next(n for n in eng.graph.nodes if "+" in n)
+    counters = {op: {k: jm[op][f"arroyo_worker_messages_{k}"] for k in ("recv", "sent")}
+                for op in jm}
+    # the source sends every event; the chain takes them all in and, being
+    # terminal (its sink is its last member), sends nothing on
+    want = {"src": {"recv": 0, "sent": Q7_EVENTS}, chain: {"recv": Q7_EVENTS, "sent": 0}}
+    if counters != want:
+        raise AssertionError(f"obs: row counters {counters}, the oracle implies {want}")
+    min_rows = int(tcfg.config().get("segment.compile.min-rows"))
+    sizes = [min(BENCH_BATCH, Q7_EVENTS - lo) for lo in range(0, Q7_EVENTS, BENCH_BATCH)]
+    shapes = sorted({seg._padded_size(n) for n in sizes if n >= min_rows})
+    compiles, hits = registry.segment_compile_stats(job)
+    if compiles != len(shapes):
+        raise AssertionError(f"obs: {compiles} segment build observations for the padded "
+                             f"shapes {shapes}")
+    tm = registry.task(job, chain, 0)
+    lat = tm.sink_event_latency
+    compile_s = {k.split("{")[0]: v for k, v in series_of(job).items()
+                 if k.startswith("arroyo_segment_compile_seconds_")}
+    return {
+        "families": len(fams), "row_counters": counters,
+        "segment_compile": {"observations": compiles, "padded_shapes": shapes,
+                            "cache_hits": hits,
+                            "seconds_sum": compile_s.get("arroyo_segment_compile_seconds_sum")},
+        "sink_latency_p50_s": lat.quantile_str(0.5, precision=3),
+        "sink_latency_p99_s": lat.quantile_str(0.99, precision=3),
+        "sink_latency_clamped": lat._quantile(0.99)[1],
+        "watermark_lag_s": {op: jm[op]["watermark_lag_seconds"] for op in jm},
+        "hot_keys": {op: jm[op].get("hot_keys") for op in jm},
+        "busy_pct": {op: jm[op].get("busy_pct") for op in jm},
+        "self_time_s": {op: jm[op].get("self_time") for op in jm},
+        "queue_transit_p99_ms": {op: jm[op]["queue_transit_p99_ms"] for op in jm},
+    }
+
+
+def prom_value(job: str, family: str) -> dict:
+    """operator -> the family's value for the job (one subtask each)."""
+    out = {}
+    for k, v in series_of(job).items():
+        if k.startswith(family + "{"):
+            op = k.split('operator="', 1)[1].split('"', 1)[0]
+            out[op] = out.get(op, 0) + v
+    return out
+
+
+def obs_mesh_check() -> dict:
+    """q7m fused: arroyo_mesh_exchange_rows_total equals the sharded
+    store's exchange count and the bids the oracle counts."""
+    job = "chip-smoke-obs-q7m"
+    extra = {"device.mesh-devices": MESH_N, "segment.compile.mesh-fuse": True}
+    reset_mesh_ledger()
+    registry.clear_job(job)
+    rows, wall, eng = drive(build_q7, Q7_EVENTS, job, chaining=True, extra=extra)
+    want = oracle_q7(Q7_EVENTS)
+    check_q7(rows, want)
+    chain = next(n for n in eng.graph.nodes if "+" in n)
+    stats = eng.tasks[(chain, 0)].operator.mesh_stats()
+    exported = prom_value(job, "arroyo_mesh_exchange_rows_total")
+    bids = sum(c for (_m, c) in want.values())
+    ledger = mesh_ledger()
+    if not (exported == {chain: stats["exchange_rows"]} and stats["exchange_rows"] == bids
+            and ledger["segment"]["fused"] == ledger["aggregate"]["fused_steps"] > 0):
+        raise AssertionError(f"obs q7m: exported {exported}, mesh_stats {stats}, {bids} bids, "
+                             f"ledger {ledger}")
+    return {"exchange_rows": exported[chain], "bids": bids, "ledger": ledger,
+            "overflow_rows": prom_value(job, "arroyo_mesh_overflow_rows"), "wall_s": wall}
+
+
+def obs_spill_check(root: str) -> dict:
+    """q3 at the 1 MiB budget: arroyo_spill_bytes_total and the
+    arroyo_spill_probe_files histogram agree with the annex's SpillStats."""
+    want = oracle_q3(Q3_EVENTS)
+    info = q3_run(root, True, want)
+    job = "chip-smoke-q3-spill"
+    node = info["join_node"]
+    task = registry.task(job, node, 0)
+    st = info["spill"]
+    exported = prom_value(job, "arroyo_spill_bytes_total")
+    probes = {k.split("{")[0]: v for k, v in series_of(job).items()
+              if k.startswith("arroyo_spill_probe_files_") and f'operator="{node}"' in k}
+    h = task.spill["probe_files"]
+    if not (exported.get(node) == st["bytes_written"] == task.spill["bytes_total"]
+            and probes.get("arroyo_spill_probe_files_count") == h.count
+            and probes.get("arroyo_spill_probe_files_sum") == st["files_probed"] == h.sum):
+        raise AssertionError(f"obs q3: exported {exported} / {probes}, SpillStats {st}")
+    jm = registry.job_metrics(job)
+    return {"spill_bytes_total": exported[node], "probe_files_count": h.count,
+            "probe_files_sum": h.sum, "spill_stats": st, "events_per_s": info["events_per_s"],
+            "hot_keys": {op: m.get("hot_keys") for op, m in jm.items() if m.get("hot_keys")},
+            "state_rows": {op: m.get("state_rows") for op, m in jm.items() if m.get("state_rows")}}
+
+
+def epoch_tables(url: str, job: str, epoch: int) -> list:
+    """(operator dir / file, table) of every table file of the epoch, from
+    the subtasks' sidecars."""
+    d = checkpoint_dir(url, job, epoch)
+    out = []
+    for opd in sorted(x for x in os.listdir(d) if x.startswith("operator-")):
+        for fn in sorted(os.listdir(os.path.join(d, opd))):
+            if fn.startswith("metadata-"):
+                with open(os.path.join(d, opd, fn)) as f:
+                    out += [(f"{opd}/{fm['file']}", fm["table"]) for fm in json.load(f)["files"]]
+    return out
+
+
+def obs_checkpoint_check(out_dir: str) -> dict:
+    """One checkpoint of q7c with its window at parallelism 4 (a keyed
+    shuffle outside the chain, so both the chain and the window keep a
+    sketch): the epoch's span tree has every subtask's alignment, snapshot
+    and ack; the Chrome trace goes to the out-dir; ``__sketch`` is in the
+    epoch; a restore from it ends with the hot keys of an uninterrupted
+    run, and the rows are the oracle's."""
+    from arroyo_tpu_torch.obs import trace as obs_trace
+
+    want = oracle_q7(Q7_EVENTS)
+    build4 = lambda rows, events: build_q7(rows, events, parallelism=4)  # noqa: E731
+    whole = "chip-smoke-obs-whole"
+    registry.clear_job(whole)
+    rows_w, _wall, _eng = drive(build4, Q7_EVENTS, whole, chaining=True)
+    check_q7(rows_w, want)
+
+    def hot(job):
+        return {op: m.get("hot_keys") for op, m in registry.job_metrics(job).items()
+                if m.get("hot_keys")}
+
+    want_hot = hot(whole)
+    if not want_hot:
+        raise AssertionError("obs: the parallelism-4 q7c kept no sketch")
+    job = "chip-smoke-obs-ckpt"
+    url = os.path.join(STORAGE_ROOT, job)
+    bench_config(True)
+    registry.clear_job(job)
+    rows1: list = []
+    eng = Engine(build4(rows1, Q7_EVENTS), job_id=job, storage_url=url)
+    run_gated_epochs(eng, recovery_holds(Q7_EVENTS, 2))
+    events = obs_trace.recorder.events(job, 1)
+    by_task = {}
+    for e in events:
+        if e["node"] is not None:
+            by_task.setdefault((e["node"], e["subtask"]), set()).add(e["event"])
+    missing = {}
+    for n, sub in eng.tasks:
+        need = {"snapshot_start", "ack"} | (set() if n == "src" else {"align_start"})
+        lack = need - by_task.get((n, sub), set())
+        if lack:
+            missing[f"{n}/{sub}"] = sorted(lack)
+    if missing:
+        raise AssertionError(f"obs: epoch 1's span tree lacks {missing}")
+    chrome = obs_trace.chrome_trace(job, {1: events})
+    path = os.path.join(out_dir, "obs_chrome_trace.json")
+    with open(path, "w") as f:
+        json.dump(chrome, f)
+    sketch_files = [f for f, table in epoch_tables(url, job, 1) if table == "__sketch"]
+    if not sketch_files:
+        raise AssertionError("obs: epoch 1 holds no __sketch table")
+    timeline = eng.checkpoint_timeline(1)  # before a new engine of the job clears its spans
+    bench_config(True)
+    registry.clear_job(job)
+    rows2: list = []
+    Engine(build4(rows2, Q7_EVENTS), job_id=job, storage_url=url,
+           restore_epoch=1).run_to_completion(timeout=900)
+    check_q7(rows1 + rows2, want)
+    got_hot = hot(job)
+    if got_hot != want_hot:
+        raise AssertionError(f"obs: restored hot keys {got_hot} != uninterrupted {want_hot}")
+    phases = obs_trace.phase_durations(events)
+    return {"span_events": len(events), "tasks": len(eng.tasks), "chrome_trace": path,
+            "chrome_events": len(chrome["traceEvents"]), "sketch_files": sorted(sketch_files),
+            "hot_keys": got_hot, "phases_s": phases,
+            "timeline": timeline,
+            "report": obs_trace.timeline_report(job, 1, events).splitlines()[-1]}
+
+
+def obs_panic_check() -> dict:
+    """An injected operator exception mid-checkpoint: one OPERATOR_PANIC
+    naming the node, the subtask, the epoch and a traceback digest, and the
+    job fails."""
+    job = "chip-smoke-obs-panic"
+    bench_config(True)
+    recorder.clear_job(job)
+    eng = Engine(build_q7([], Q7_EVENTS // 4), job_id=job)
+    eng.build()
+    node = next(n for n in eng.graph.nodes if "+" in n)
+    gate = gate_source(eng, 3)
+    faults.install(f"worker:crash@barrier=1&node={node}&subtask=0")
+    failed = None
+    try:
+        eng.start()
+        if not gate.reached.wait(300):
+            raise AssertionError("obs panic: the source never reached its gate")
+        eng.trigger_checkpoint(1)
+        try:
+            eng.join(timeout=300)
+        except RuntimeError as e:
+            failed = str(e).splitlines()[-1]
+    finally:
+        faults.clear()
+        eng.stop()
+    panics = recorder.events(job, "OPERATOR_PANIC")
+    if (failed is None or len(panics) != 1 or panics[0]["node"] != node
+            or panics[0]["subtask"] != 0 or panics[0]["epoch"] != 1
+            or len(panics[0]["data"].get("digest", "")) != 12):
+        raise AssertionError(f"obs panic: failed {failed!r}, events {panics}")
+    return {"job_failed": failed, "event": {k: panics[0][k] for k in
+                                            ("code", "level", "node", "subtask", "epoch",
+                                             "message", "data")}}
+
+
+def obs_phase(card: str, out_dir: str) -> dict:
+    """The observability plane on the card, profiling at its default (on)."""
+    from arroyo_tpu_torch import native
+
+    info = {"phase": "obs", "card": card}
+    # the profiled q7c run whose exposition is checked: its segment builds
+    # afresh, so each padded shape's first call is observed
+    seg.segment_cache.clear()
+    first = obs_q7c_run("chip-smoke-obs-q7c", True, True)
+    info["metrics"] = obs_metrics_checks("chip-smoke-obs-q7c", first.pop("eng"))
+    info["first_run"] = first
+    # profile_off_aa repeats profile_off: the A/A pair's ratio is the noise
+    # floor the on/off ratio is read against; the order rotates each round
+    # so that no setting always follows the same one
+    settings = [("profile_on", (True, True)), ("profile_off", (False, True)),
+                ("native_off", (True, False)), ("profile_off_aa", (False, True))]
+    runs = {k: [] for k, _ in settings}
+    for rep in range(OBS_REPS):
+        for name, (prof, nat) in settings[rep % 4:] + settings[:rep % 4]:
+            r = obs_q7c_run(f"chip-smoke-obs-{name}-{rep}", prof, nat)
+            r.pop("eng")
+            runs[name].append(r)
+    log("obs: profiler hooks timed")
+    info["hook_cost"] = obs_hook_cost()
+    # q8c: the profiler's cost where a sketch is fed (the join's keyed
+    # input); one untimed run first builds q8c's segment shapes, and the
+    # order alternates so that neither setting always runs first
+    obs_q8c_run("chip-smoke-obs-q8c-warm", True)
+    q8c_settings = [("q8c_profile_on", True), ("q8c_profile_off", False)]
+    for rep in range(OBS_REPS):
+        for name, prof in q8c_settings[rep % 2:] + q8c_settings[:rep % 2]:
+            runs.setdefault(name, []).append(
+                obs_q8c_run(f"chip-smoke-obs-{name}-{rep}", prof))
+    eps = {k: [r["events_per_s"] for r in v] for k, v in runs.items()}
+    info["q7c_runs"] = runs
+    info["events_per_s"] = eps
+    med = {k: statistics.median(v) for k, v in eps.items()}
+    info["events_per_s_median"] = med
+    info["profile_off_over_on"] = med["profile_off"] / med["profile_on"]
+    info["profile_off_over_off_aa"] = med["profile_off"] / med["profile_off_aa"]
+    info["native_on_over_off"] = med["profile_on"] / med["native_off"]
+    info["q8c_profile_off_over_on"] = med["q8c_profile_off"] / med["q8c_profile_on"]
+    log("obs: q7m fused")
+    info["q7m"] = obs_mesh_check()
+    log("obs: q3 spilling")
+    root = tempfile.mkdtemp(prefix="chip_smoke_obs_")
+    try:
+        info["q3"] = obs_spill_check(root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log("obs: checkpoint")
+    info["checkpoint"] = obs_checkpoint_check(out_dir)
+    log("obs: panic")
+    info["panic"] = obs_panic_check()
+    info["native_build"] = {k: native.build_info.get(k) for k in ("seconds", "cached", "path")}
+    emit(info)
+    m = info["metrics"]
+    print(f"obs q7c events/s, medians of {OBS_REPS}: profile on {med['profile_on']}, off "
+          f"{med['profile_off']} (off/on {info['profile_off_over_on']}); native off "
+          f"{med['native_off']} (on/off {info['native_on_over_off']}); q8c profile on "
+          f"{med['q8c_profile_on']}, off {med['q8c_profile_off']} (off/on "
+          f"{info['q8c_profile_off_over_on']}); A/A profile off / off again "
+          f"{info['profile_off_over_off_aa']} (off again {med['profile_off_aa']}); runs {eps} "
+          f"[{card}]", flush=True)
+    hc = info["hook_cost"]
+    print(f"obs q7c profiler hooks, one timed run of {hc['wall_s']} s: seconds per task thread "
+          f"{hc['hook_s']}, less the timer ({hc['timer_s_per_call']} s a call) "
+          f"{hc['hook_s_net']}; median wall off - on "
+          f"{Q7_EVENTS / med['profile_on'] - Q7_EVENTS / med['profile_off']} s; by hook "
+          f"{hc['threads']} [{card}]", flush=True)
+    print(f"obs q7c: sink latency p50 {m['sink_latency_p50_s']} s, p99 "
+          f"{m['sink_latency_p99_s']} s (clamped: {m['sink_latency_clamped']}), watermark lag "
+          f"{m['watermark_lag_s']}, hot keys {m['hot_keys']}, busy% {m['busy_pct']}, segment "
+          f"builds {m['segment_compile']} [{card}]", flush=True)
+    print(f"obs: q7m exchange rows {info['q7m']['exchange_rows']}; q3 spill bytes "
+          f"{info['q3']['spill_bytes_total']}, probe files {info['q3']['probe_files_sum']} in "
+          f"{info['q3']['probe_files_count']} probes; checkpoint spans "
+          f"{info['checkpoint']['span_events']}, hot keys restored; panic "
+          f"{info['panic']['event']['node']}/{info['panic']['event']['subtask']} [{card}]",
+          flush=True)
+    return info
+
+
 def run_phases(args, out_dir: str) -> int:
     dev = torch.device("cuda")
     res = {}
@@ -6961,6 +7435,7 @@ def run_phases(args, out_dir: str) -> int:
         "recovery": lambda: recovery_phase(smi),
         "sql": lambda: sql_phase(smi, res),
         "updating": lambda: updating_phase(smi),
+        "obs": lambda: obs_phase(smi, out_dir),
         "segment_sweep": segment_sweep,
     }
     only = args.only.split(",") if args.only else [p for p in phases if p != "segment_sweep"]

@@ -118,8 +118,6 @@ def decoded_tables(url: str, job: str, epoch: int = 1) -> dict:
             p = os.path.join(d, opd, fn)
             meta = ttables.load_json_with_integrity(tstorage.read_text(p), p, True)
             for fm in meta["files"]:
-                if fm["table"] == "__sketch":  # the JAX package's profiler (not ported)
-                    continue
                 path = os.path.join(d, opd, fm["file"])
                 if fm["kind"] == "global_keyed":
                     value = ttables.loads_values(tstorage.read_bytes(path))
@@ -150,6 +148,19 @@ def checkpoints(tmp_path_factory):
     return get
 
 
+# operators fed by two inputs: which input's batch arrives first is thread
+# timing in both packages, and the key-skew sketch's space-saving eviction
+# depends on the order it sees keys (and the batch count on how the inputs'
+# rows were coalesced), so their __sketch tables agree in the rows counted,
+# not entry by entry
+TWO_INPUTS = {"operator-join"}
+
+
+def _sketch_invariants(value: dict) -> dict:
+    return {sub: {f: st[f] for f in ("total", "sample_every")}
+            for sub, st in value.items()}
+
+
 @pytest.mark.parametrize("query", list(QUERIES))
 def test_tables_at_the_barrier_equal_the_jax_packages(query, checkpoints):
     _configure(query)
@@ -157,7 +168,10 @@ def test_tables_at_the_barrier_equal_the_jax_packages(query, checkpoints):
     t, j = decoded_tables(ck["torch"][0], query), decoded_tables(ck["jax"][0], query)
     assert set(t) == set(j)
     for k in t:
-        assert t[k] == j[k], k
+        if k[1] == "__sketch" and k[0] in TWO_INPUTS:
+            assert _sketch_invariants(t[k]) == _sketch_invariants(j[k]), k
+        else:
+            assert t[k] == j[k], k
     # the barrier landed mid-stream: the source stopped at its gated batch
     # and some state was open
     n, batch, polls = QUERIES[query][1:4]

@@ -301,6 +301,12 @@ def q7_epoch1(tmp_path_factory):
     return url, rows, eng
 
 
+# the window's compacted tables: its key-skew sketch ("__sketch", written by
+# the profiler as in the JAX package), its late-data marks and its rows
+COMPACTED = ["table-__sketch-compacted-g1.bin", "table-e-compacted-g1.bin",
+             "table-t-compacted-g1.npz"]
+
+
 def _agg_files(url):
     opdir = ttables.operator_dir(url, "q7p", 1, "agg")
     return sorted(f for f in os.listdir(opdir) if f.startswith("table-"))
@@ -311,11 +317,11 @@ def test_engine_compact_merges_the_windows_tables(q7_epoch1, tmp_path):
     url = str(tmp_path / "ck")
     shutil.copytree(q7_epoch1[0], url)
     eng = q7_epoch1[2]
-    assert len(_agg_files(url)) == 8  # "t" and "e" of each of four subtasks
+    assert len(_agg_files(url)) == 12  # "__sketch", "t" and "e" of each of four subtasks
     eng.storage_url = url
     removed = eng.compact(1)
-    assert removed == 8
-    assert _agg_files(url) == ["table-e-compacted-g1.bin", "table-t-compacted-g1.npz"]
+    assert removed == 12
+    assert _agg_files(url) == COMPACTED
     with pytest.raises(ValueError, match="not a completed checkpoint"):
         eng.compact(2)
     assert not fsck_job(url, "q7p")
@@ -352,7 +358,7 @@ def test_torn_q7_compaction_restores_and_a_rerun_finishes(tear_after, q7_epoch1,
     _engine("torch", rows, url, 2, restore_epoch=1).run_to_completion(timeout=300)
     chip_smoke.check_q7(q7_epoch1[1] + rows, chip_smoke.oracle_q7(EVENTS))
     ttables.compact_job(url, "q7p", 1)
-    assert _agg_files(url) == ["table-e-compacted-g1.bin", "table-t-compacted-g1.npz"]
+    assert _agg_files(url) == COMPACTED
     assert not fsck_job(url, "q7p")
 
 

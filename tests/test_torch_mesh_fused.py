@@ -117,7 +117,7 @@ def _assert_compiled(job, chained_prefix):
     assert not recorder.events(job, "SEGMENT_FALLBACK")
     metrics = registry.job_metrics(job)
     node = next(n for n in metrics if n.startswith(chained_prefix) and "+" in n)
-    return metrics[node]
+    return metrics[node]["per_subtask"]
 
 
 @pytest.mark.parametrize("fuse", [True, False])
