@@ -17,3 +17,11 @@ __version__ = "0.1.0"
 from .batch import Batch, Field, Schema  # noqa: F401
 from .graph import EdgeType, Graph, Node, OpName  # noqa: F401
 from .types import Signal, SignalKind, TaskInfo, Watermark  # noqa: F401
+
+
+def _load_operators() -> None:
+    """Import every operator and connector module so its constructor
+    registers (the JAX package's entry of the same name)."""
+    from .engine.engine import load_operators
+
+    load_operators()

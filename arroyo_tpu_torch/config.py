@@ -5,7 +5,19 @@ process without one reset clearing the other).
 Only the sections the port reads: ``pipeline``, ``worker``,
 ``engine.coalesce``, ``segment.compile``, ``checkpoint``, ``state``,
 ``storage.retry``, ``faults``, ``testing``, ``device``, ``native``,
-and ``profile``. The checkpoint keys have the JAX package's names and meaning;
+``profile``, and the control plane's ``controller``, ``fleet``, ``health``,
+``autoscaler``, ``admin``, ``api`` and ``logging``, with the JAX package's
+defaults.
+
+Layers, as the JAX package's loader: the defaults, then the TOML files
+``/etc/arroyo-tpu-torch/config.toml``,
+``~/.config/arroyo-tpu-torch/config.toml``, ``arroyo-tpu-torch.toml`` and
+the file named by ``ARROYO_TPU_TORCH_CONFIG``, then environment variables
+``ARROYO_TPU_TORCH__SECTION__KEY`` (``ARROYO_TPU_TORCH__DEVICE__TORCH_DEVICE
+=cpu`` is ``device.torch-device = "cpu"``). The names are the port's own:
+both packages load in one process under the tests, and neither reads the
+other's settings. A worker subprocess learns its device and storage this
+way. The checkpoint keys have the JAX package's names and meaning;
 ``checkpoint.storage-url`` defaults to a directory under the temporary
 directory (``TMPDIR``) rather than the JAX package's ``/tmp/arroyo-tpu``,
 and the port writes npz state files for either value of
@@ -33,6 +45,12 @@ import tempfile
 import threading
 from typing import Any
 
+import tomllib
+
+ENV_PREFIX = "ARROYO_TPU_TORCH__"
+ENV_CONFIG_FILE = "ARROYO_TPU_TORCH_CONFIG"
+CONFIG_FILE_NAME = "arroyo-tpu-torch.toml"
+
 _DEFAULTS: dict[str, Any] = {
     "pipeline": {
         "source-batch-size": 512,  # rows per source flush
@@ -40,6 +58,11 @@ _DEFAULTS: dict[str, Any] = {
         # (optimizer.chain_graph), whose traceable prefix runs as one fused
         # kernel per micro-batch (engine/segment.py)
         "chaining": {"enabled": False},
+        # the controller's restart budget and health window
+        "allowed-restarts": 20,
+        "healthy-duration-ms": 120_000,
+        # a worker silent this long is declared hung and its set restored
+        "worker-heartbeat-timeout-ms": 30_000,
     },
     "worker": {
         "queue-size": 8192,  # rows of in-flight budget per input edge
@@ -81,6 +104,17 @@ _DEFAULTS: dict[str, Any] = {
         # "parquet" | "npz": the port writes npz for either (the JAX
         # package's fallback without pyarrow); another value raises
         "file-format": "parquet",
+        # the controller's periodic checkpoints
+        "interval-ms": 10_000,
+        # stuck-checkpoint watchdog: a triggered epoch not globally durable
+        # within this window is declared failed, its torn shards subsumed
+        # and the checkpoint retried; after max-consecutive-failures the
+        # worker set is restored from the last complete checkpoint. 0 = off.
+        "timeout-ms": 600_000,
+        "max-consecutive-failures": 3,
+        # controller-driven GC: compact and drop old checkpoints every N
+        # completed epochs (never past the newest complete one). 0 = off.
+        "compaction": {"epochs": 0},
     },
     "state": {
         # tiered state (state/spill.py): keep the hot working set in memory
@@ -116,6 +150,9 @@ _DEFAULTS: dict[str, Any] = {
     "testing": {
         # single_file: after half its input, hold until this many barriers passed
         "source-gate-epochs": 0,
+        # single_file: sleep this long before every line it reads, so a
+        # controller test can act while the job is mid-stream
+        "source-read-delay-micros": 0,
     },
     "native": {
         # the C++ host library (native/): hashing, the keyed shuffle's
@@ -127,6 +164,71 @@ _DEFAULTS: dict[str, Any] = {
         # in the task run loop, state-size gauges and key-skew sketches
         "enabled": True,
     },
+    "controller": {
+        "scheduler": "embedded",
+        # size of each job's worker set; > 1 turns on the controller's
+        # cross-worker checkpoint coordination
+        "workers-per-job": 1,
+    },
+    "fleet": {
+        # shared worker pool (controller/fleet.py); 0 = unlimited
+        "slots": 0,
+        "drr-quantum": 1,
+        "requeue-backoff-base-s": 0.5,
+        "requeue-backoff-max-s": 30.0,
+        "tick-budget-ms": 250,
+        "tick-penalty-max": 4,
+        "quota": {"max-slots": 0, "max-jobs": 0},
+        "autoscale": {
+            "enabled": False,
+            "max-slots": 64,
+            "up-ticks": 3,
+            "down-ticks": 20,
+            "cooldown-s": 15.0,
+            "headroom-slots": 0,
+        },
+    },
+    "health": {
+        # controller-side health rules (obs/health.py), with hysteresis
+        "enabled": True,
+        "fire-ticks": 3,
+        "clear-ticks": 5,
+        "watermark-lag-max-s": 900.0,
+        "backpressure-max": 0.9,
+        "queue-transit-p99-max-ms": 1000.0,
+        "sink-latency-p99-max-s": 600.0,
+        "checkpoint-failure-streak": 2,
+        "memory-pressure-max": 0.9,
+    },
+    "autoscaler": {
+        # per-job elastic autoscaler (controller/autoscaler.py); off
+        "enabled": False,
+        "min-parallelism": 1,
+        "max-parallelism": 8,
+        "up-ticks": 3,
+        "down-ticks": 10,
+        "up-factor": 2.0,
+        "down-factor": 0.5,
+        "up-backpressure": 0.8,
+        "up-queue-transit-p99-ms": 750.0,
+        "up-watermark-lag-s": 30.0,
+        "up-sink-latency-p99-s": 30.0,
+        "down-busy-max-pct": 25.0,
+        "down-backpressure-max": 0.1,
+        "cooldown-s": 30.0,
+        "backoff-base-s": 10.0,
+        "backoff-multiplier": 2.0,
+        "backoff-max-s": 300.0,
+    },
+    "logging": {
+        "format": "console",  # console | json | logfmt
+        "level": "INFO",
+        # stdlib log records carrying job context land in the job event feed
+        "capture-events": False,
+    },
+    # the REST API's port where `cluster` and `api` get no --api-port
+    "api": {"http-port": 5115},
+    "admin": {"http-port": 5114},
     "device": {
         "torch-device": None,  # None = cuda (device.resolve_device)
         # operators that can lower to the device do so (the join's default
@@ -182,6 +284,48 @@ def _set_path(data: dict, path: str, value):
     cur[parts[-1]] = value
 
 
+def _merge(base: dict, over: dict) -> dict:
+    out = dict(base)
+    for k, v in over.items():
+        if isinstance(v, dict) and isinstance(out.get(k), dict):
+            out[k] = _merge(out[k], v)
+        else:
+            out[k] = v
+    return out
+
+
+def _parse_env(val: str) -> Any:
+    if val.lower() in ("true", "false"):
+        return val.lower() == "true"
+    for conv in (int, float):
+        try:
+            return conv(val)
+        except ValueError:
+            continue
+    return val
+
+
+def _load() -> Config:
+    """Defaults, then the TOML files, then ``ARROYO_TPU_TORCH__A__B_C``
+    environment variables (``a.b-c``)."""
+    data = copy.deepcopy(_DEFAULTS)
+    paths = ["/etc/arroyo-tpu-torch/config.toml",
+             os.path.expanduser("~/.config/arroyo-tpu-torch/config.toml"),
+             CONFIG_FILE_NAME]
+    if os.environ.get(ENV_CONFIG_FILE):
+        paths.append(os.environ[ENV_CONFIG_FILE])
+    for path in paths:
+        if os.path.exists(path):
+            with open(path, "rb") as f:
+                data = _merge(data, tomllib.load(f))
+    for key, val in os.environ.items():
+        if not key.startswith(ENV_PREFIX):
+            continue
+        parts = [p.lower().replace("_", "-") for p in key[len(ENV_PREFIX):].split("__")]
+        _set_path(data, ".".join(parts), _parse_env(val))
+    return Config(data)
+
+
 _lock = threading.Lock()
 _config: Config | None = None
 
@@ -190,7 +334,7 @@ def config() -> Config:
     global _config
     with _lock:
         if _config is None:
-            _config = Config(copy.deepcopy(_DEFAULTS))
+            _config = _load()
         return _config
 
 
@@ -198,7 +342,7 @@ def update(overrides: dict[str, Any]) -> None:
     """Live-update config (used by tests and chip_smoke.py)."""
     global _config
     with _lock:
-        base = _config if _config is not None else Config(copy.deepcopy(_DEFAULTS))
+        base = _config if _config is not None else _load()
         _config = base.with_overrides(overrides)
 
 

@@ -46,4 +46,10 @@ def _make_sink(cfg: dict):
 
 
 def load_all() -> None:
-    from . import impulse, nexmark, single_file, vec  # noqa: F401
+    from . import impulse, nexmark, preview, single_file, vec  # noqa: F401
+
+
+def connectors() -> dict:
+    """The registered source and sink connectors (the API's /connectors)."""
+    load_all()
+    return {"sources": sorted(_SOURCES), "sinks": sorted(_SINKS)}

@@ -10,6 +10,7 @@ output.
 from __future__ import annotations
 
 import os
+import time
 
 from ..batch import Batch, Schema
 from ..config import config
@@ -57,6 +58,9 @@ class SingleFileSource(SourceOperator):
         # deterministic split across subtasks: round-robin by line number
         i = offset
         my_lines = lines
+        # a test throttle (sleep per line), so a controller test acts while
+        # the job is mid-stream
+        delay_us = config().get("testing.source-read-delay-micros", 0)
         # deterministic mid-stream gate: after reading half the input,
         # hold — still answering control/checkpoints — until ``gate_epochs``
         # barriers have been processed. Guarantees checkpoints land
@@ -66,12 +70,12 @@ class SingleFileSource(SourceOperator):
         gate_line = len(my_lines) // 2
         seen_epochs = 0
         while i < len(my_lines):
+            if delay_us:
+                time.sleep(delay_us / 1e6)
             holding = gate_epochs and seen_epochs < gate_epochs and i >= gate_line
             msg = sctx.poll_control()
             if msg is None and holding:
-                import time as _time
-
-                _time.sleep(0.001)
+                time.sleep(0.001)
                 continue
             if msg is not None:
                 if msg.kind == "checkpoint":

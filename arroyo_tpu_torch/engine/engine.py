@@ -1,5 +1,5 @@
 """Engine: logical graph -> physical tasks -> running pipeline (the port's
-copy of arroyo_tpu/engine/engine.py, single process, single worker).
+copy of arroyo_tpu/engine/engine.py).
 
 Each node becomes ``parallelism`` subtasks, each on its own thread. A
 FORWARD edge between equal parallelisms is 1:1; every other edge is a full
@@ -35,8 +35,17 @@ Every epoch's lifecycle is recorded as spans in obs/trace.py's recorder
 durable, the commit delivered); ``checkpoint_timeline`` reads them, a
 checkpoint that times out carries the epoch's ``timeline_report``, and a
 durable epoch's phase durations feed ``arroyo_checkpoint_phase_seconds``.
-Not ported: the multi-worker coordination of controller/ (its commit
-path and COMMIT_REDELIVERED come with the controller).
+
+Under an ``assignment`` ({(node, subtask) -> worker}) the engine runs only
+its worker's subtasks; edges to another worker's subtasks ride ``network``
+(engine/network.py over the native data plane). Such an engine is a pure
+participant in checkpoints: it relays each subtask's ack and clean finish
+through ``coordinator_events`` and completes an epoch only when the
+controller's CheckpointCoordinator (controller/checkpoint_state.py) calls
+``deliver_commit``, which also re-delivers earlier commits that were lost
+(COMMIT_REDELIVERED). ``drain_relay`` is the one drain of every stream a
+worker subprocess relays to the controller; ``heartbeat`` is the stalest
+running task's last beat.
 """
 
 from __future__ import annotations
@@ -52,7 +61,8 @@ import torch
 
 from ..config import config
 from ..metrics import registry as metrics_registry
-from ..obs.trace import phase_durations, timeline_report
+from ..obs.events import recorder as events_recorder
+from ..obs.trace import now_us, phase_durations, timeline_report
 from ..obs.trace import recorder as trace_recorder
 from ..device import resolve_device
 from ..faults import fault_point, install_from_config
@@ -125,9 +135,13 @@ class Engine:
     def __init__(self, graph: Graph, job_id: str = "job",
                  device: Optional[Union[str, torch.device]] = None,
                  storage_url: Optional[str] = None,
-                 restore_epoch: Optional[int] = None):
+                 restore_epoch: Optional[int] = None,
+                 assignment: Optional[dict] = None, worker_index: int = 0,
+                 network=None):
         """``storage_url`` None takes ``checkpoint.storage-url``;
-        ``restore_epoch`` restores every task's state from that epoch."""
+        ``restore_epoch`` restores every task's state from that epoch.
+        ``assignment`` places subtasks on workers (None runs them all
+        here); ``network`` is this worker's NetworkManager."""
         # a configured fault plan activates with fresh counters per engine
         # incarnation, so a restarted job replays its faults
         install_from_config()
@@ -138,6 +152,15 @@ class Engine:
             from ..optimizer import chain_graph
 
             graph = chain_graph(graph)
+        if assignment is not None:
+            # an assignment computed against a differently chained graph
+            # would put fused subtasks on worker 0 without a word
+            unknown = {nid for nid, _ in assignment} - set(graph.nodes)
+            if unknown:
+                raise ValueError(
+                    f"assignment references node ids not in the (post-chaining) graph: "
+                    f"{sorted(unknown)}; compute assignments against the same "
+                    f"pipeline.chaining.enabled setting")
         self.graph = graph
         self.job_id = job_id
         # a new incarnation of the job records its epochs' spans afresh
@@ -167,6 +190,27 @@ class Engine:
         # evolve_cutover fault site fires there)
         self.evolution_mapping: Optional[dict] = None
         self._evolve_cutover_pending = False
+        self.assignment = assignment
+        self.worker_index = worker_index
+        self.network = network
+        # multi-worker mode: the controller completes epochs; this engine
+        # relays acks up and takes the commits it injects
+        self.coordinated = assignment is not None
+        self.coordinator_events: "_queue.Queue[dict]" = _queue.Queue()
+        self._committed_through = restore_epoch or 0
+        self.delivered_commits: list[int] = []
+        # stable numeric node ids for the data plane's quads
+        self._node_index = {nid: i for i, nid in enumerate(sorted(graph.nodes))}
+        # set by _abort(): a torn-down engine must not report "finished"
+        self._aborted = False
+        # this worker's task count, set by build()
+        self._n_tasks = 0
+        # worker subprocesses relay spans and job events to the controller
+        # (set by the worker CLI); drain_relay empties them in order
+        self.relay_obs = False
+        self.span_events: "_queue.Queue[dict]" = _queue.Queue()
+        self._relay_event_seq = events_recorder.last_seq(job_id)
+        self._relay_reported_epochs: set[int] = set()
 
     # -------------------------------------------------------------- building
 
@@ -219,7 +263,9 @@ class Engine:
                     f"proven for a different plan pair")
         if mapping is not None:
             self.evolution_mapping = mapping
-            self._evolve_cutover_pending = True
+            # a single engine commits itself and owns the cutover barrier;
+            # a coordinated set's controller gates it instead
+            self._evolve_cutover_pending = not self.coordinated
         stale = set(meta.get("operators", ())) - set(self.graph.nodes)
         if mapping is not None:
             stale -= set(mapping.get("dropped", ()))
@@ -232,6 +278,14 @@ class Engine:
                 f"pipeline.chaining.enabled change (or a graph edit) would silently drop "
                 f"their state")
 
+    def _is_mine(self, nid: str, sub: int) -> bool:
+        return self.assignment is None or self.assignment.get((nid, sub), 0) == self.worker_index
+
+    def _worker_of(self, nid: str, sub: int) -> int:
+        if self.assignment is None:
+            return self.worker_index
+        return self.assignment.get((nid, sub), 0)
+
     def build(self) -> None:
         g = self.graph
         if self.restore_epoch is not None:
@@ -240,8 +294,27 @@ class Engine:
         for nid, node in g.nodes.items():
             n_inputs = sum(g.nodes[e.src].parallelism for e in g.in_edges(nid))
             for s in range(node.parallelism):
-                if n_inputs:
+                if n_inputs and self._is_mine(nid, s):
                     self._inboxes[(nid, s)] = TaskInbox(n_inputs, queue_size)
+        # receivers for this worker's remote inputs; a quad is (edge index,
+        # source subtask, destination node index, destination subtask): the
+        # edge index tells parallel edges between one pair of nodes apart
+        edge_index = {id(e): i for i, e in enumerate(g.edges)}
+        if self.network is not None:
+            for nid, node in g.nodes.items():
+                base = 0
+                for e in g.in_edges(nid):
+                    src_p = g.nodes[e.src].parallelism
+                    for s in range(node.parallelism):
+                        if not self._is_mine(nid, s):
+                            continue
+                        for u in range(src_p):
+                            if not self._is_mine(e.src, u):
+                                quad = (edge_index[id(e)], u, self._node_index[nid], s)
+                                self.network.register_receiver(
+                                    quad, self._inboxes[(nid, s)], base + u)
+                    base += src_p
+            self.network.start()
         for nid, node in g.nodes.items():
             in_edges = g.in_edges(nid)
             n_inputs = sum(g.nodes[e.src].parallelism for e in in_edges)
@@ -257,6 +330,8 @@ class Engine:
                 raise IndexError(i)
 
             for s in range(node.parallelism):
+                if not self._is_mine(nid, s):
+                    continue
                 ti = TaskInfo(self.job_id, nid, node.op.value, s, node.parallelism)
                 out_edges = []
                 for e in g.out_edges(nid):
@@ -267,7 +342,16 @@ class Engine:
                         if de is e:
                             break
                         base += g.nodes[de.src].parallelism
-                    dests = [self._inboxes[(e.dst, d)] for d in range(dst_node.parallelism)]
+                    dests = []
+                    for d in range(dst_node.parallelism):
+                        if self._is_mine(e.dst, d):
+                            dests.append(self._inboxes[(e.dst, d)])
+                        else:
+                            from .network import RemoteDest
+
+                            quad = (edge_index[id(e)], s, self._node_index[e.dst], d)
+                            dests.append(RemoteDest(self.network, self._worker_of(e.dst, d),
+                                                    quad))
                     idxs = [base + s] * dst_node.parallelism
                     etype = e.edge_type
                     if etype == EdgeType.FORWARD and dst_node.parallelism != node.parallelism:
@@ -285,6 +369,7 @@ class Engine:
                     ti, operator, self._inboxes.get((nid, s)), Collector(out_edges, s),
                     OperatorContext(ti, self.device, edge_of_input, tm), self.resp_queue,
                     n_inputs=n_inputs)
+        self._n_tasks = len(self.tasks)
 
     # -------------------------------------------------------------- running
 
@@ -296,7 +381,9 @@ class Engine:
         # sinks first, so consumers are ready before producers
         for node in reversed(self.graph.topo_order()):
             for s in range(node.parallelism):
-                self.tasks[(node.node_id, s)].start()
+                task = self.tasks.get((node.node_id, s))
+                if task is not None:  # another worker's subtask
+                    task.start()
         with self._lock:
             self._running = True
             pending, self._pending_triggers = self._pending_triggers, []
@@ -310,7 +397,7 @@ class Engine:
                 resp = self.resp_queue.get(timeout=0.25)
             except _queue.Empty:
                 with self._lock:
-                    if len(self._finished_tasks) + len(self._failed) >= n_tasks:
+                    if n_tasks and len(self._finished_tasks) + len(self._failed) >= n_tasks:
                         return
                 continue
             if resp.kind == "task_started":
@@ -331,6 +418,11 @@ class Engine:
                     self._finished_tasks.add(key)
                     if resp.clean:
                         self._clean_finished.add(key)
+                        if self.coordinated:
+                            # only a clean drain covers later epochs
+                            self.coordinator_events.put({
+                                "event": "subtask_finished",
+                                "node": key[0], "subtask": key[1]})
                     self._finish_ready_epochs()
                 elif resp.kind == "task_failed":
                     self._failed.append(resp)
@@ -339,6 +431,16 @@ class Engine:
                     self._abort()
                 elif resp.kind == "checkpoint_completed":
                     self._checkpoints.setdefault(resp.epoch, {})[key] = resp.subtask_metadata
+                    if self.coordinated:
+                        from ..state.integrity import fold_integrity
+
+                        # the subtask's file envelopes ride the ack, so the
+                        # controller's marker folds the epoch's manifest
+                        # without reading storage again
+                        self.coordinator_events.put({
+                            "event": "subtask_acked", "epoch": resp.epoch,
+                            "node": key[0], "subtask": key[1],
+                            "integrity": fold_integrity([resp.subtask_metadata or {}])})
                     self._finish_ready_epochs()
                 self._cond.notify_all()
 
@@ -347,9 +449,15 @@ class Engine:
         drained cleanly (a drained source takes part in no barrier: its
         state is final). Then the job marker goes durable and committing
         operators get the epoch's commit; the epoch's phase durations go to
-        the checkpoint phase histograms. Caller holds the lock."""
+        the checkpoint phase histograms. Caller holds the lock.
+
+        In assignment mode the acks were relayed instead and the controller
+        decides (deliver_commit): a local count must never complete an
+        epoch another worker is still snapshotting."""
         from ..state.integrity import fold_integrity
 
+        if self.coordinated:
+            return
         for epoch, ep in self._checkpoints.items():
             if self._failed:
                 return  # a failed job completes no epoch (nor the one it failed at)
@@ -384,15 +492,108 @@ class Engine:
             for key, task in self.tasks.items():
                 if key not in self._finished_tasks and task.operator.is_committing():
                     task.control_queue.put(ControlMessage(kind="commit", epoch=epoch))
-            # worker 0: the port's one worker (the JAX package's default index)
-            self._span(epoch, "commit_delivered", worker=0)
+            self._span(epoch, "commit_delivered", worker=self.worker_index)
             metrics_registry.observe_epoch_phases(
                 self.job_id, phase_durations(trace_recorder.events(self.job_id, epoch)))
 
     def _span(self, epoch: int, event: str, node: Optional[str] = None,
               subtask: Optional[int] = None, worker: Optional[int] = None,
               t_us: Optional[int] = None) -> None:
-        trace_recorder.record(self.job_id, epoch, event, node, subtask, worker, t_us)
+        t = now_us() if t_us is None else int(t_us)
+        trace_recorder.record(self.job_id, epoch, event, node, subtask, worker, t)
+        if self.relay_obs:
+            self.span_events.put({"event": "span", "epoch": epoch, "name": event,
+                                  "node": node, "subtask": subtask, "worker": worker,
+                                  "t_us": t})
+
+    def drain_relay(self, include_metrics: bool = False) -> list[dict]:
+        """The one drain of every worker -> controller stream, in the order
+        the controller must see them: epoch spans (before the ack that
+        completes an epoch, or its persisted trace misses the last ack),
+        job events recorded here since the last drain (a task's
+        OPERATOR_PANIC before the worker's "failed"), the metrics snapshot
+        when asked (the caller throttles it), then coordinator acks or
+        completed epochs, last."""
+        out: list[dict] = []
+        while True:
+            try:
+                out.append(self.span_events.get_nowait())
+            except _queue.Empty:
+                break
+        if self.relay_obs:
+            evs = events_recorder.events(self.job_id, after_seq=self._relay_event_seq)
+            if evs:
+                self._relay_event_seq = evs[-1]["seq"]
+                out.extend({"event": "log", "data": e} for e in evs)
+        if include_metrics:
+            out.append({"event": "metrics", "data": metrics_registry.job_metrics(self.job_id)})
+        if self.coordinated:
+            while True:
+                try:
+                    out.append(self.coordinator_events.get_nowait())
+                except _queue.Empty:
+                    break
+        else:
+            with self._lock:
+                completed = sorted(self._completed_epochs - self._relay_reported_epochs)
+            for ep in completed:
+                self._relay_reported_epochs.add(ep)
+                out.append({"event": "checkpoint_completed", "epoch": ep})
+        return out
+
+    def deliver_commit(self, epoch: int) -> None:
+        """Phase 2 in assignment mode: the controller calls this once the
+        epoch's job marker is durable across every worker. Marks it (and
+        each earlier epoch this worker acked whose commit was lost) complete
+        and sends the commits to the local committing operators in epoch
+        order; a re-delivered commit records COMMIT_REDELIVERED."""
+        to_commit: list[tuple[Task, int]] = []
+        with self._lock:
+            if epoch <= self._committed_through:
+                return
+            lo = self._committed_through
+            self._committed_through = epoch
+            # an intermediate epoch counts only if this worker acked it: one
+            # the watchdog subsumed must not look complete to compact()
+            self._completed_epochs.add(epoch)
+            delivered = []
+            for e in sorted(self._checkpoints):
+                if not (lo < e <= epoch):
+                    continue
+                self._completed_epochs.add(e)
+                self.delivered_commits.append(e)
+                delivered.append(e)
+                for key, task in self.tasks.items():
+                    if (key in self._checkpoints[e] and key not in self._finished_tasks
+                            and task.operator.is_committing()):
+                        to_commit.append((task, e))
+            self._cond.notify_all()
+        for task, e in to_commit:
+            task.control_queue.put(ControlMessage(kind="commit", epoch=e))
+        for e in delivered:
+            if e != epoch:
+                self._span(e, "commit_delivered", worker=self.worker_index)
+                events_recorder.record(
+                    self.job_id, "WARN", "COMMIT_REDELIVERED",
+                    message=f"phase-2 commit for epoch {e} re-delivered cumulatively "
+                            f"with epoch {epoch}",
+                    worker=self.worker_index, epoch=e)
+        self._span(epoch, "commit_delivered", worker=self.worker_index)
+
+    def heartbeat(self) -> float:
+        """The stalest running task's last run-loop beat (monotonic). A
+        task hung in an operator or a stalled storage call stops beating,
+        which is what the controller's heartbeat timeout catches; one
+        process_batch call is one beat interval, so
+        ``pipeline.worker-heartbeat-timeout-ms`` must exceed the slowest
+        batch, a first-use kernel build included."""
+        beats = []
+        with self._lock:
+            for key, t in self.tasks.items():
+                if key not in self._finished_tasks and t.thread is not None \
+                        and t.thread.is_alive():
+                    beats.append(t.last_progress)
+        return min(beats) if beats else time.monotonic()
 
     def checkpoint_timeline(self, epoch: int) -> dict:
         """The epoch's times in ms after its trigger, from its trace spans:
@@ -483,6 +684,7 @@ class Engine:
             t.control_queue.put(ControlMessage(kind="stop"))
 
     def _abort(self) -> None:
+        self._aborted = True
         self.stop()
         for inbox in self._inboxes.values():
             inbox.close()

@@ -42,6 +42,10 @@ class TaskInbox:
         # upstream through the blocked producer); fail kills the producer
         fault_point("queue.put", input=input_index)
         rows = item.num_rows if isinstance(item, Batch) else 0
+        # a backpressured producer keeps its liveness beat (Task sets the
+        # hook on its own thread); a task hung inside an operator never
+        # reaches this wait loop, so its beat goes stale
+        beat = getattr(threading.current_thread(), "arroyo_beat", None)
         with self._lock:
             if rows:
                 while (
@@ -49,6 +53,8 @@ class TaskInbox:
                     and self._used[input_index] + rows > self.row_budget
                     and not self._closed
                 ):
+                    if beat is not None:
+                        beat()
                     self._budget_freed.wait(timeout=0.5)
             if self._closed:
                 return

@@ -83,7 +83,10 @@ class SourceContext:
         self.ctx = task.ctx
 
     def poll_control(self) -> Optional[ControlMessage]:
-        self._task.collector.flush_expired(time.monotonic())
+        # sources poll between batches: this is their liveness beat
+        # (Engine.heartbeat) and their time-based coalescing flush
+        self._task.last_progress = time.monotonic()
+        self._task.collector.flush_expired(self._task.last_progress)
         if self._task.profiler is not None:
             # incremental self-time: a live snapshot shows a streaming
             # source's busy%, not only after run() returns
@@ -121,6 +124,8 @@ class Task:
         # True when the loop drained cleanly (end of data, or checkpoint-
         # then-stop): only such a finish may stand in for epoch coverage
         self.finished_clean = True
+        # the run loop's last beat (Engine.heartbeat reads the stalest)
+        self.last_progress = time.monotonic()
         # the epoch being snapshotted (None otherwise): an exception
         # mid-checkpoint stamps its OPERATOR_PANIC event with it
         self._ckpt_epoch: Optional[int] = None
@@ -170,8 +175,14 @@ class Task:
                         subtask_index=self.task_info.subtask_index, **kw)
         )
 
+    def _beat(self) -> None:
+        self.last_progress = time.monotonic()
+
     def _run_guarded(self) -> None:
         try:
+            # a producer blocked on a full inbox is backpressured, not hung:
+            # the inbox's budget wait loop beats through this thread hook
+            threading.current_thread().arroyo_beat = self._beat  # type: ignore[attr-defined]
             self._resp("task_started")
             if self.is_source:
                 self._run_source()
@@ -350,8 +361,9 @@ class Task:
                     op.handle_commit(msg.epoch, self.ctx)
 
         while True:
+            self.last_progress = time.monotonic()
             drain_control()
-            self.collector.flush_expired(time.monotonic())
+            self.collector.flush_expired(self.last_progress)
             if pending:
                 idx, item = pending.popleft()
             else:

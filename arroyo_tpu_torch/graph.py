@@ -152,6 +152,17 @@ class Graph:
     def loads(s: str) -> "Graph":
         return Graph.from_json(json.loads(s))
 
+    def dot(self) -> str:
+        """Graphviz rendering (the `visualize` CLI)."""
+        lines = ["digraph pipeline {"]
+        for n in self.nodes.values():
+            lines.append(f'  "{n.node_id}" [label="{n.op.value}\\np={n.parallelism}\\n'
+                         f'{n.description}"];')
+        for e in self.edges:
+            lines.append(f'  "{e.src}" -> "{e.dst}" [label="{e.edge_type.value}"];')
+        lines.append("}")
+        return "\n".join(lines)
+
 
 def _jsonable(obj):
     """JSON-safe view of a node config (arroyo_tpu/graph.py's): expression

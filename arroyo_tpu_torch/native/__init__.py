@@ -1,5 +1,6 @@
-"""ctypes bindings for the C++ host runtime (the port's copy of the hashing,
-repartition and slot-directory entry points of arroyo_tpu/native).
+"""ctypes bindings for the C++ host runtime (the port's copy of
+arroyo_tpu/native: hashing, repartition, the slot directory's resolve, the
+JSON-lines parser and the framed TCP data plane between workers).
 
 The library is built from the repo's ``cpp/arroyo_host.cc`` with ``g++``
 into ``arroyo_tpu_torch/build/libarroyo_host_<digest>.so`` at first use
@@ -17,7 +18,10 @@ directory's allocation order without a word (ops/slot_agg.py).
 
 Each entry point returns None when the flag is off, and the caller runs its
 numpy twin, which gives the same bits. ``dir_resolve`` also returns None
-when a probe wraps the whole directory, as the JAX package's does.
+when a probe wraps the whole directory, as the JAX package's does, and
+``parse_json_lines`` on input it cannot parse (the caller's Python parser
+then gives the precise error). The data plane has no numpy twin: with the
+flag off, a listener or a connection raises DataPlaneError.
 """
 
 from __future__ import annotations
@@ -144,6 +148,34 @@ def _declare(l: ctypes.CDLL) -> None:
         u64p, i64p, i64p,                    # miss_codes, miss_keys, miss_bins
     ]
     l.ah_dir_resolve.restype = ctypes.c_int64
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    l.ah_parse_json_lines.argtypes = [
+        ctypes.c_char_p, ctypes.c_int64, ctypes.c_int32, ctypes.c_char_p,
+        ctypes.POINTER(ctypes.c_int32), ctypes.c_int64,
+        ctypes.POINTER(i64p), ctypes.POINTER(f64p), ctypes.POINTER(u8p),
+        ctypes.POINTER(i64p), ctypes.POINTER(ctypes.c_char_p),
+        ctypes.POINTER(ctypes.c_int64),
+    ]
+    l.ah_parse_json_lines.restype = ctypes.c_int64
+    l.ah_free.argtypes = [ctypes.c_void_p]
+    l.dp_listen.argtypes = [ctypes.c_char_p, ctypes.c_int]
+    l.dp_listen.restype = ctypes.c_int
+    l.dp_bound_port.argtypes = [ctypes.c_int]
+    l.dp_bound_port.restype = ctypes.c_int
+    l.dp_accept.argtypes = [ctypes.c_int]
+    l.dp_accept.restype = ctypes.c_int
+    l.dp_connect.argtypes = [ctypes.c_char_p, ctypes.c_int, ctypes.c_int, ctypes.c_int]
+    l.dp_connect.restype = ctypes.c_int
+    l.dp_send_frame.argtypes = [
+        ctypes.c_int, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint32,
+        ctypes.c_uint32, ctypes.c_uint32, ctypes.c_char_p, ctypes.c_uint32,
+    ]
+    l.dp_send_frame.restype = ctypes.c_int
+    l.dp_recv_header.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_uint32)]
+    l.dp_recv_header.restype = ctypes.c_int
+    l.dp_recv_payload.argtypes = [ctypes.c_int, ctypes.c_char_p, ctypes.c_uint32]
+    l.dp_recv_payload.restype = ctypes.c_int
+    l.dp_close.argtypes = [ctypes.c_int]
 
 
 def available() -> bool:
@@ -247,3 +279,154 @@ def dir_resolve(keys: np.ndarray, bins: np.ndarray, hcode: np.ndarray,
         return None
     m = int(rc)
     return out_slots, miss_ord, miss_codes[:m], miss_keys[:m], miss_bins[:m]
+
+
+# -------------------------------------------------------------- JSON lines
+
+_KIND = {"int64": 0, "timestamp": 0, "int32": 0, "uint64": 0,
+         "float64": 1, "float32": 1, "bool": 2, "string": 3}
+
+
+def parse_json_lines(data: bytes, fields: list[tuple[str, str]],
+                     max_rows: int) -> Optional[dict[str, np.ndarray]]:
+    """Newline-delimited flat JSON objects -> columns; ``fields`` are
+    (name, dtype) with batch.Schema's dtypes. None when the flag is off, a
+    schema has more than 64 columns, or the input is malformed."""
+    l = lib()
+    if l is None:
+        return None
+    n_cols = len(fields)
+    if n_cols > 64:
+        return None
+    kinds = np.array([_KIND.get(d, 4) for _n, d in fields], dtype=np.int32)
+    names_blob = b"".join(n.encode() + b"\x00" for n, _d in fields)
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    f64p = ctypes.POINTER(ctypes.c_double)
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    ptrs = {0: (i64p * n_cols)(), 1: (f64p * n_cols)(), 2: (u8p * n_cols)(),
+            3: (i64p * n_cols)()}
+    # kind -> (numpy dtype, rows allocated, pointer type)
+    layout = {0: (np.int64, max_rows, i64p), 1: (np.float64, max_rows, f64p),
+              2: (np.uint8, max_rows, u8p), 3: (np.int64, max_rows + 1, i64p)}
+    arrays: dict[int, np.ndarray] = {}
+    for c in range(n_cols):
+        k = int(kinds[c])
+        if k in layout:
+            dt, rows, pt = layout[k]
+            arrays[c] = np.zeros(rows, dtype=dt)
+            ptrs[k][c] = arrays[c].ctypes.data_as(pt)
+    arena = ctypes.c_char_p()
+    arena_len = ctypes.c_int64()
+    n = l.ah_parse_json_lines(
+        data, len(data), n_cols, names_blob,
+        kinds.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), max_rows,
+        ptrs[0], ptrs[1], ptrs[2], ptrs[3],
+        ctypes.byref(arena), ctypes.byref(arena_len),
+    )
+    if n < 0:
+        return None
+    try:
+        arena_bytes = ctypes.string_at(arena, arena_len.value) if arena_len.value else b""
+    finally:
+        if arena:
+            l.ah_free(arena)
+    from ..batch import Field
+
+    out: dict[str, np.ndarray] = {}
+    for c, (name, dtype) in enumerate(fields):
+        k = int(kinds[c])
+        if k in (0, 1):
+            out[name] = arrays[c][:n].astype(Field(name, dtype).numpy_dtype(), copy=False)
+        elif k == 2:
+            out[name] = arrays[c][:n].astype(bool)
+        elif k == 3:
+            offs = arrays[c]
+            col = np.empty(n, dtype=object)
+            for i in range(n):
+                col[i] = arena_bytes[offs[i]:offs[i + 1]].decode("utf-8")
+            out[name] = col
+    return out
+
+
+# -------------------------------------------------------------- data plane
+
+
+class DataPlaneError(RuntimeError):
+    pass
+
+
+MSG_DATA = 0
+MSG_SIGNAL = 1
+
+
+def _dp_lib() -> ctypes.CDLL:
+    l = lib()
+    if l is None:
+        raise DataPlaneError("the data plane needs the native host library, and "
+                             "native.enabled is off")
+    return l
+
+
+class DataPlaneListener:
+    """Server half of a worker's data plane: one listening socket, one
+    accepted connection per peer worker."""
+
+    def __init__(self, host: str = "127.0.0.1", port: int = 0):
+        self._l = _dp_lib()
+        self.fd = self._l.dp_listen(host.encode(), port)
+        if self.fd < 0:
+            raise DataPlaneError(f"dp_listen failed: {self.fd}")
+        self.port = self._l.dp_bound_port(self.fd)
+
+    def accept(self) -> "DataPlaneConn":
+        fd = self._l.dp_accept(self.fd)
+        if fd < 0:
+            raise DataPlaneError("dp_accept failed")
+        return DataPlaneConn(fd)
+
+    def close(self) -> None:
+        self._l.dp_close(self.fd)
+
+
+class DataPlaneConn:
+    """One framed TCP link that carries every quad (edge, source subtask,
+    destination node, destination subtask) between two workers."""
+
+    def __init__(self, fd: int):
+        self._l = _dp_lib()
+        self.fd = fd
+        # every sending task thread of this worker pair shares the link; a
+        # frame's header and payload are two writes and must not interleave
+        self._send_lock = threading.Lock()
+
+    @staticmethod
+    def connect(host: str, port: int, retries: int = 10, backoff_ms: int = 50) -> "DataPlaneConn":
+        fd = _dp_lib().dp_connect(host.encode(), port, retries, backoff_ms)
+        if fd < 0:
+            raise DataPlaneError(f"dp_connect failed: {fd}")
+        return DataPlaneConn(fd)
+
+    def send(self, quad: tuple[int, int, int, int], msg_type: int, payload: bytes) -> None:
+        with self._send_lock:
+            rc = self._l.dp_send_frame(self.fd, quad[0], quad[1], quad[2], quad[3],
+                                       msg_type, payload, len(payload))
+        if rc != 0:
+            raise DataPlaneError("dp_send_frame failed (peer closed?)")
+
+    def recv(self):
+        """(quad, msg_type, payload bytes), or None on a clean close."""
+        header = (ctypes.c_uint32 * 6)()
+        rc = self._l.dp_recv_header(self.fd, header)
+        if rc == -1:
+            return None
+        if rc != 0:
+            raise DataPlaneError(f"dp_recv_header failed: {rc}")
+        n = header[5]
+        buf = ctypes.create_string_buffer(n) if n else None
+        if n and self._l.dp_recv_payload(self.fd, buf, n) != 0:
+            raise DataPlaneError("dp_recv_payload failed")
+        quad = (header[0], header[1], header[2], header[3])
+        return quad, header[4], (buf.raw[:n] if n else b"")
+
+    def close(self) -> None:
+        self._l.dp_close(self.fd)

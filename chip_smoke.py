@@ -261,8 +261,8 @@ non-zero, printing no result):
               shape; then q7c timed with the profiler on and off and with
               the native host library on and off, and q8c (whose join feeds
               a key sketch, after one untimed run) with the profiler on and
-              off, five times each, alternating in an order that rotates
-              each round, each exact
+              off, four times each, alternating in an order that rotates
+              each round (each setting once in each place), each exact
               (medians printed); q7c's profile-off runs twice a round (A/A:
               their ratio is the host's noise floor), and one more profiled
               q7c run times each profiler hook on each task thread.
@@ -275,6 +275,31 @@ non-zero, printing no result):
               a restore ending with an uninterrupted run's hot keys. An
               injected crash mid-checkpoint: one OPERATOR_PANIC with its
               node, subtask, epoch and digest, and the job fails.
+25. cluster -- the control plane and the cross-worker data plane at
+              bench.py's sizes: SQL Nexmark q7 (2,000,000 events) and q8
+              (500,000) POSTed to the port's ApiServer and run by
+              ControllerServer(EmbeddedScheduler) over two engines in this
+              process (controller.workers-per-job 2, parallelism 2), exact
+              against oracle_sql, K4, K1, K2 (and K5, K6 for q8) launched,
+              the windows' subtasks on both workers, both receiving rows
+              over the data plane, coordinated checkpoints complete; q7
+              through ControllerServer(ProcessScheduler): two `python -m
+              arroyo_tpu_torch worker` processes with no device setting
+              (under COUNTING_MAIN, which writes each process's launch
+              counts), each holding a CUDA context while the job runs
+              (nvidia-smi's compute apps), exact, each worker launching
+              K4, K1 and K2, both workers' chains compiled with no
+              SEGMENT_FALLBACK among the relayed events; again with one
+              worker killed after the first complete checkpoint (restarts
+              >= 1, exact, the restored set's two workers held to the same
+              launches); then `python -m arroyo_tpu_torch run <smoke
+              family>.sql --parallelism 2` as a subprocess, its output the
+              family's golden, its K1 and K2 launched. Prints events/s
+              beside the sql phase's single-engine q7, POST to Running, a
+              worker's spawn to `started` and to its first heartbeat,
+              barrier to complete for every complete epoch (the
+              controller's trigger to durable; fails if one lacks either),
+              kill to Running and to Finished.
 
 ``--only a,b`` runs those phases alone after probe and build (a short
 check) and prints no result line. ``--only segment_sweep`` (in no default
@@ -6679,6 +6704,601 @@ def sql_phase(card: str, res: dict) -> dict:
     return info
 
 
+# ---------------------------------------------------------------- cluster
+
+# The control plane and the cross-worker data plane on the card: SQL
+# Nexmark submitted over the port's REST API, run by its controller over two
+# workers (two engines in this process, then two worker processes, each
+# with its own CUDA context), coordinated checkpoints, a worker killed and
+# the job recovered, and the CLI's `run`.
+# periodic checkpoints: a few in each exact run (each snapshots the sink's
+# buffered lines too), and every 200 ms in the crash run, whose first
+# complete one triggers the kill
+CLUSTER_CKPT_MS = 500
+CLUSTER_CRASH_CKPT_MS = 200
+CLUSTER_CRASH_EVENTS = Q7_EVENTS
+CLUSTER_CLI_FAMILY = "grouped_aggregates"
+CLUSTER_WORKERS = 2
+
+
+def cluster_config(extra: dict = None, interval_ms: int = None) -> dict:
+    """bench.py's sizes (bench_config with chaining on) and the controller's
+    keys, in this process's config; returns the same settings as the port's
+    environment variables, which the worker subprocesses read."""
+    keys = {"controller.workers-per-job": CLUSTER_WORKERS,
+            "checkpoint.interval-ms": interval_ms or CLUSTER_CKPT_MS, **(extra or {})}
+    bench_config(chaining=True, extra=keys)
+    env = {"pipeline.source-batch-size": BENCH_BATCH, "device.batch-capacity": BENCH_BATCH,
+           "worker.queue-size": 2 * BENCH_BATCH, "device.table-capacity": 65536,
+           "device.region-size": 2048, "pipeline.chaining.enabled": "true",
+           "checkpoint.storage-url": STORAGE_ROOT}
+    return {"ARROYO_TPU_TORCH__" + "__".join(p.upper().replace("-", "_")
+                                             for p in k.split(".")): str(v)
+            for k, v in env.items()}
+
+
+def http_json(method: str, url: str, body: dict = None) -> dict:
+    import urllib.request
+
+    data = json.dumps(body).encode() if body is not None else None
+    req = urllib.request.Request(url, data=data, method=method,
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=60) as r:
+        return json.loads(r.read())
+
+
+def sink_lines(out: str) -> list:
+    """Every line the single_file sink wrote: ``out`` and its subtasks'
+    ``out.<i>`` files."""
+    import glob
+
+    lines = []
+    for p in sorted(glob.glob(out) + glob.glob(out + ".*")):
+        with open(p) as f:
+            lines += [ln for ln in f.read().splitlines() if ln.strip()]
+    return lines
+
+
+def timed_database():
+    """The port's Database with the time of every job state change."""
+    from arroyo_tpu_torch.controller import Database
+
+    class TimedDatabase(Database):
+        def __init__(self):
+            super().__init__()
+            self.state_times: list = []  # (job, state, perf_counter)
+
+        def update_job(self, jid, **fields):
+            if "state" in fields:
+                self.state_times.append((jid, fields["state"], time.perf_counter()))
+            super().update_job(jid, **fields)
+
+        def first(self, jid, state, after=0.0):
+            return next((t for j, s, t in self.state_times
+                         if j == jid and s == state and t >= after), None)
+
+        def states(self, jid):
+            return [s for j, s, _ in self.state_times if j == jid]
+
+    return TimedDatabase()
+
+
+@contextlib.contextmanager
+def epoch_clock():
+    """Each coordinated epoch's trigger and durable times (perf_counter) as
+    the port's JobController reaches them, for every job meanwhile: {job:
+    {"trigger": {epoch: [t, ...]}, "durable": {epoch: t}}}. The controller
+    runs in this process under both schedulers. A restored set triggers the
+    epoch numbers after its restore epoch again, so every trigger is kept.
+    (The epoch traces the controller persists hold the newest 32 epochs of
+    a job only, and none of an epoch that the recorder evicted before it
+    became durable.)"""
+    from arroyo_tpu_torch.controller.controller import JobController
+
+    orig_trigger, orig_durable = JobController._trigger_checkpoint, JobController._epoch_durable
+    clock: dict = {}
+
+    def of(job):
+        return clock.setdefault(job, {"trigger": {}, "durable": {}})
+
+    def trigger(self, epoch, then_stop=False):
+        of(self.job_id)["trigger"].setdefault(epoch, []).append(time.perf_counter())
+        return orig_trigger(self, epoch, then_stop=then_stop)
+
+    def durable(self, epoch):
+        of(self.job_id)["durable"].setdefault(epoch, time.perf_counter())
+        return orig_durable(self, epoch)
+
+    JobController._trigger_checkpoint, JobController._epoch_durable = trigger, durable
+    try:
+        yield clock
+    finally:
+        JobController._trigger_checkpoint, JobController._epoch_durable = (orig_trigger,
+                                                                          orig_durable)
+
+
+def epoch_durable_ms(clock: dict, job: str, epochs: list) -> dict:
+    """Trigger to job marker durable, in ms, for every epoch of ``epochs``
+    (those recorded complete), from the last trigger of its number before
+    it became durable. Fails if one of them lacks either time."""
+    times = clock.get(job, {"trigger": {}, "durable": {}})
+    out, missing = {}, []
+    for e in epochs:
+        done = times["durable"].get(e)
+        trig = [t for t in times["trigger"].get(e, []) if done is not None and t <= done]
+        if not trig:
+            missing.append(e)
+            continue
+        out[str(e)] = (done - max(trig)) * 1e3
+    if missing or not epochs:
+        raise AssertionError(f"{job}: complete epochs {epochs}, of which {missing} have no "
+                             f"trigger before their durable marker")
+    return out
+
+
+# The cluster phase's subprocesses run the port's `python -m
+# arroyo_tpu_torch ...` through runpy under this wrapper, which writes the
+# process's kernel launch counts (all_launch_counts' keys) to
+# <first argument>.<pid> when a worker reports "finished" (the controller
+# kills a finished worker's process) and when the process exits. A process
+# starts at 0, so they are its main path's. A killed process writes none.
+COUNTING_MAIN = r"""
+import atexit, json, os, runpy, sys
+
+path = sys.argv.pop(1)
+
+
+def dump():
+    from arroyo_tpu_torch.ops import (hash_kernels, join_kernels, kernels, segment_kernel,
+                                      sharded_kernels)
+
+    counts = {**kernels.launch_counts(), **segment_kernel.launch_counts(),
+              "segment_fused_kernels": segment_kernel.segment_fused.kernel_launches,
+              **join_kernels.launch_counts(), **sharded_kernels.launch_counts(),
+              **hash_kernels.launch_counts()}
+    with open(f"{path}.{os.getpid()}", "w") as f:
+        json.dump(counts, f)
+
+
+class Stdout:
+    def __init__(self, real):
+        self.real = real
+
+    def write(self, text):
+        if '"event": "finished"' in text:
+            dump()
+        return self.real.write(text)
+
+    def __getattr__(self, name):
+        return getattr(self.real, name)
+
+
+sys.stdout = Stdout(sys.stdout)
+atexit.register(dump)
+sys.argv[0] = "arroyo_tpu_torch"
+runpy.run_module("arroyo_tpu_torch", run_name="__main__", alter_sys=True)
+"""
+
+
+def counting_command(cmd: list, path: str) -> list:
+    """``python -m arroyo_tpu_torch <args>`` under COUNTING_MAIN."""
+    if cmd[:3] != [sys.executable, "-m", "arroyo_tpu_torch"]:
+        raise AssertionError(f"not the port's entry point: {cmd[:3]}")
+    return [sys.executable, "-c", COUNTING_MAIN, path, *cmd[3:]]
+
+
+def counted_launches(path: str) -> dict:
+    """pid -> the launch counts that each process under COUNTING_MAIN wrote."""
+    import glob
+
+    out = {}
+    for p in glob.glob(path + ".*"):
+        with open(p) as f:
+            out[int(p.rsplit(".", 1)[1])] = json.load(f)
+    return out
+
+
+class CountingSubprocess:
+    """The scheduler module's ``subprocess``, whose Popen starts each worker
+    under COUNTING_MAIN."""
+
+    def __init__(self, path: str):
+        self.path = path
+
+    def __getattr__(self, name):
+        return getattr(subprocess, name)
+
+    def Popen(self, cmd, **kw):
+        return subprocess.Popen(counting_command(cmd, self.path), **kw)
+
+
+def gpu_compute_apps() -> list:
+    """nvidia-smi's compute apps, one (pid, used memory in MiB, name) a CUDA
+    context. In a container whose nvidia-smi cannot see the processes' ids
+    it gives every process as pid 1 ("/process_api"), so the lines are
+    counted as well as matched by pid."""
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory,process_name",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=30, check=True).stdout
+    apps = []
+    for ln in out.strip().splitlines():
+        parts = [p.strip() for p in ln.split(",")]
+        if len(parts) == 3 and parts[0].isdigit():
+            apps.append((int(parts[0]), parts[1], parts[2]))
+    return apps
+
+
+class CountingInbox:
+    """Wraps a task inbox behind a data-plane receiver: counts the rows each
+    worker receives over the data plane."""
+
+    def __init__(self, inbox, counts: dict, worker: int):
+        self.inbox, self.counts, self.worker = inbox, counts, worker
+
+    def put(self, input_index, item):
+        if isinstance(item, Batch):
+            self.counts[self.worker] = self.counts.get(self.worker, 0) + item.num_rows
+        self.inbox.put(input_index, item)
+
+
+@contextlib.contextmanager
+def counted_data_plane(counts: dict):
+    """Every NetworkManager made meanwhile counts the rows delivered to its
+    worker's inboxes (keyed by its listening port)."""
+    from arroyo_tpu_torch.engine import network
+
+    orig = network.NetworkManager.register_receiver
+
+    def register(self, quad, inbox, input_index):
+        orig(self, quad, CountingInbox(inbox, counts, self.port), input_index)
+
+    network.NetworkManager.register_receiver = register
+    try:
+        yield
+    finally:
+        network.NetworkManager.register_receiver = orig
+
+
+def cluster_embedded(name: str, root: str) -> dict:
+    """SQL ``name`` POSTed to the port's ApiServer, run by
+    ControllerServer(EmbeddedScheduler) over two engines in this process
+    that exchange rows over the data plane; exact against oracle_sql."""
+    from arroyo_tpu_torch.api import ApiServer
+    from arroyo_tpu_torch.controller import ControllerServer
+    from arroyo_tpu_torch.controller.scheduler import EmbeddedScheduler
+
+    events = SQL_EVENTS[name]
+    want = oracle_sql(name, events)
+    cluster_config({"worker.queue-size": (1 if name == "q8" else 2) * BENCH_BATCH})
+    out = os.path.join(root, f"embedded-{name}.json")
+    db = timed_database()
+    api = ApiServer(db, port=0).start()
+
+    class RecordingScheduler(EmbeddedScheduler):
+        """Keeps every worker set it starts (the controller drops its
+        handles once the job ends)."""
+
+        sets: list = []
+
+        def start_workers(self, *a, **kw):
+            handles = super().start_workers(*a, **kw)
+            self.sets.append(handles)
+            return handles
+
+    sched = RecordingScheduler()
+    ctl = ControllerServer(db, sched).start()
+    dp_rows: dict = {}
+    try:
+        with counted_data_plane(dp_rows), epoch_clock() as clock:
+            reset_all_launch_counts()
+            t0 = time.perf_counter()
+            created = http_json("POST", f"http://127.0.0.1:{api.port}/api/v1/pipelines",
+                                {"name": f"cluster-{name}",
+                                 "query": nexmark_sql(name, events, out), "parallelism": 2})
+            jid = created["job_id"]
+            state = ctl.wait_for_state(jid, "Finished", "Failed", timeout=600)
+            wall = time.perf_counter() - t0
+            launches = all_launch_counts()
+        job = db.get_job(jid)
+        if state != "Finished":
+            raise AssertionError(f"cluster embedded {name}: {state}: {job.get('failure_message')}")
+        engines = [h.engine for h in sched.sets[-1]] if sched.sets else []
+        if len(engines) != CLUSTER_WORKERS or any(e.device.type != "cuda" for e in engines):
+            raise AssertionError(f"cluster embedded {name}: workers "
+                                 f"{[str(e.device) for e in engines]}")
+        n_rows = check_sql_rows(name, sink_lines(out), want)
+        unlaunched = [k for k in SQL_PATH_KERNELS[name] if launches[k] == 0]
+        if unlaunched:
+            raise AssertionError(f"cluster embedded {name} launched no {unlaunched}: {launches}")
+        windows = {w: sorted(f"{n}/{s}" for (n, s) in e.tasks if "tumbling_aggregate" in n)
+                   for w, e in enumerate(engines)}
+        if not all(windows.values()):
+            raise AssertionError(f"cluster embedded {name}: window subtasks by worker {windows}")
+        received = {w: dp_rows.get(e.network.port, 0) for w, e in enumerate(engines)}
+        if not all(received.values()):
+            raise AssertionError(f"cluster embedded {name}: data-plane rows by worker {received}")
+        complete = [c["epoch"] for c in db.list_checkpoints(jid) if c["state"] == "complete"]
+        if not complete:
+            raise AssertionError(f"cluster embedded {name}: no checkpoint completed")
+        t_run = db.first(jid, "Running", t0)
+        check_k4_one_launch(f"cluster embedded {name}", launches)
+        return {"events": events, "rows": n_rows, "wall_s": wall, "events_per_s": events / wall,
+                "post_to_running_ms": (t_run - t0) * 1e3, "states": db.states(jid),
+                "launches": {k: launches[k] for k in SQL_PATH_KERNELS[name]},
+                "window_subtasks_by_worker": windows, "data_plane_rows_by_worker": received,
+                "checkpoints_complete": complete,
+                "barrier_to_complete_ms": epoch_durable_ms(clock, jid, complete)}
+    finally:
+        ctl.stop()
+        api.stop()
+
+
+def timed_worker_handle():
+    """The port's ProcessWorkerHandle, stamping its spawn, its "started"
+    event and its first heartbeat (perf_counter)."""
+    from arroyo_tpu_torch.controller import scheduler
+
+    class TimedHandle(scheduler.ProcessWorkerHandle):
+        def __init__(self, *a, **kw):
+            self.t_spawn, self.t_started, self.t_heartbeat = time.perf_counter(), None, None
+            super().__init__(*a, **kw)
+
+        def _read_stdout(self):
+            real, handle = self.proc.stdout, self
+
+            class Tap:
+                def __iter__(self):
+                    for line in real:
+                        now = time.perf_counter()
+                        if handle.t_started is None and '"started"' in line:
+                            handle.t_started = now
+                        if handle.t_heartbeat is None and '"heartbeat"' in line:
+                            handle.t_heartbeat = now
+                        yield line
+
+            self.proc.stdout = Tap()
+            super()._read_stdout()
+
+    return scheduler, TimedHandle
+
+
+def check_worker_launches(what: str, counts: dict, pids: list, path_kernels) -> dict:
+    """Every process of ``pids`` wrote its launch counts and launched every
+    kernel of ``path_kernels``, K4 one Triton launch a call; returns them
+    by pid, the path's kernels only."""
+    got = {}
+    for pid in pids:
+        c = counts.get(pid)
+        if c is None:
+            raise AssertionError(f"{what}: worker {pid} wrote no launch counts "
+                                 f"(those written: {sorted(counts)})")
+        unlaunched = [k for k in path_kernels if c[k] == 0]
+        if unlaunched:
+            raise AssertionError(f"{what}: worker {pid} launched no {unlaunched}: {c}")
+        check_k4_one_launch(f"{what} worker {pid}", c)
+        got[str(pid)] = {k: c[k] for k in path_kernels}
+    return got
+
+
+def check_relayed_segments(what: str, db, jid: str) -> dict:
+    """The workers' relayed events: every subtask of the job's compiled
+    chains (both workers' share) reported SEGMENT_COMPILED, none
+    SEGMENT_FALLBACK."""
+    events = db.list_events(jid, limit=100_000)
+    compiled = sorted({f"{e['node']}/{e['subtask']}" for e in events
+                       if e["code"] == "SEGMENT_COMPILED"})
+    fallbacks = [e["message"] for e in events if e["code"] == "SEGMENT_FALLBACK"]
+    if fallbacks or len({c.rsplit("/", 1)[1] for c in compiled}) < CLUSTER_WORKERS:
+        raise AssertionError(f"{what}: SEGMENT_COMPILED by subtask {compiled}, "
+                             f"SEGMENT_FALLBACK {fallbacks}")
+    return {"segment_compiled": compiled, "segment_fallback": len(fallbacks)}
+
+
+def cluster_process_run(name: str, root: str, events: int, crash: bool) -> dict:
+    """SQL ``name`` at ``events`` through ControllerServer(ProcessScheduler):
+    two `python -m arroyo_tpu_torch worker` processes (under COUNTING_MAIN)
+    with no device setting, so each takes cuda; exact against oracle_sql.
+    Each worker that ran to its end must have launched every kernel of the
+    path, and the chains of both workers' subtasks compiled with no
+    fallback. Without ``crash``, nvidia-smi must list one more compute app
+    for each worker while the job runs. With ``crash``, one worker is
+    killed right after the first complete checkpoint and the job must
+    recover (restarts >= 1) and finish exact; then the restored set's two
+    workers are held to the launch counts."""
+    from arroyo_tpu_torch.controller import ControllerServer
+
+    want = oracle_sql(name, events)
+    env = cluster_config(interval_ms=CLUSTER_CRASH_CKPT_MS if crash else CLUSTER_CKPT_MS)
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    scheduler, handle_cls = timed_worker_handle()
+    orig_handle, orig_subprocess = scheduler.ProcessWorkerHandle, scheduler.subprocess
+    tag = f"process-{name}-{'crash' if crash else 'exact'}"
+    counts_path = os.path.join(root, f"{tag}-launches")
+    scheduler.ProcessWorkerHandle = handle_cls
+    scheduler.subprocess = CountingSubprocess(counts_path)
+    out = os.path.join(root, f"{tag}.json")
+    db = timed_database()
+    ctl = ControllerServer(db, scheduler.ProcessScheduler()).start()
+    baseline = gpu_compute_apps()  # this process's own context
+    seen: dict = {}  # pid -> MiB, worker pids nvidia-smi listed
+    most: list = []  # the longest list of compute apps seen while Running
+    killed = {}
+    try:
+        with epoch_clock() as clock:
+            t0 = time.perf_counter()
+            pid = db.create_pipeline(f"cluster-{name}", nexmark_sql(name, events, out), 2)
+            jid = db.create_job(pid)
+            first_handles = last_handles = None
+            deadline = time.monotonic() + 600
+            while time.monotonic() < deadline:
+                job = db.get_job(jid)
+                state = job["state"]
+                jc = ctl.jobs.get(jid)
+                handles = [h for h in (jc.handles if jc is not None else None) or []
+                           if h is not None]
+                if state == "Running" and handles:
+                    if len(handles) == CLUSTER_WORKERS:  # a worker that ended drops out
+                        first_handles = first_handles or handles
+                        last_handles = handles
+                    pids = {h.proc.pid for h in handles}
+                    if not pids <= set(seen) and len(most) < len(baseline) + CLUSTER_WORKERS:
+                        apps = gpu_compute_apps()
+                        seen.update({p: m for p, m, _ in apps if p in pids})
+                        if len(apps) > len(most):
+                            most = apps
+                    if crash and not killed and any(
+                            c["state"] == "complete" for c in db.list_checkpoints(jid)):
+                        victim = handles[1]
+                        killed = {"pid": victim.proc.pid, "t": time.perf_counter(),
+                                  "epochs_complete": [c["epoch"]
+                                                      for c in db.list_checkpoints(jid)
+                                                      if c["state"] == "complete"]}
+                        victim.proc.kill()
+                if state in ("Finished", "Failed", "Stopped"):
+                    break
+                time.sleep(0.02)
+            wall = time.perf_counter() - t0
+        job = db.get_job(jid)
+        if job["state"] != "Finished":
+            raise AssertionError(f"cluster process {name}: {job['state']}: "
+                                 f"{job.get('failure_message')}")
+        n_rows = check_sql_rows(name, sink_lines(out), want)
+        if first_handles is None or len(first_handles) != CLUSTER_WORKERS \
+                or len(last_handles) != CLUSTER_WORKERS:
+            raise AssertionError(f"cluster process {name}: worker sets {first_handles}, "
+                                 f"{last_handles}")
+        for h in last_handles:  # they have reported "finished"; their counts follow
+            h.proc.wait(timeout=60)
+        worker_pids = [h.proc.pid for h in first_handles]
+        ran_to_end = [h.proc.pid for h in last_handles]
+        info = {"events": events, "rows": n_rows, "wall_s": wall, "events_per_s": events / wall,
+                "post_to_running_ms": (db.first(jid, "Running", t0) - t0) * 1e3,
+                "states": db.states(jid), "restarts": int(job["restarts"] or 0),
+                "worker_pids": worker_pids, "gpu_mib_by_pid": {str(p): seen.get(p)
+                                                              for p in worker_pids},
+                "spawn_to_started_s": [None if h.t_started is None else h.t_started - h.t_spawn
+                                       for h in first_handles],
+                "spawn_to_first_heartbeat_s": [
+                    None if h.t_heartbeat is None else h.t_heartbeat - h.t_spawn
+                    for h in first_handles],
+                "launches_by_worker": check_worker_launches(
+                    f"cluster process {name}", counted_launches(counts_path), ran_to_end,
+                    SQL_PATH_KERNELS[name]),
+                **check_relayed_segments(f"cluster process {name}", db, jid)}
+        complete = [c["epoch"] for c in db.list_checkpoints(jid) if c["state"] == "complete"]
+        info["checkpoints_complete"] = complete
+        info["barrier_to_complete_ms"] = epoch_durable_ms(clock, jid, complete)
+        # each worker holds a CUDA context: listed by its pid, or, where
+        # nvidia-smi cannot name pids, one more compute app for each
+        info["compute_apps"] = {"before": baseline, "while_running": most}
+        info["all_workers_on_gpu"] = (all(p in seen for p in worker_pids)
+                                      or len(most) >= len(baseline) + CLUSTER_WORKERS)
+        if crash:
+            if not killed:
+                raise AssertionError(f"cluster process {name}: the job finished before a "
+                                     f"checkpoint completed; no worker was killed")
+            if info["restarts"] < 1 or killed["pid"] in ran_to_end:
+                raise AssertionError(f"cluster process {name}: killed worker {killed['pid']}, "
+                                     f"restarts {info['restarts']}, last set {ran_to_end}")
+            t_run = db.first(jid, "Running", killed["t"])
+            info["crash"] = {"killed_pid": killed["pid"],
+                             "after_epochs": killed["epochs_complete"],
+                             "restored_set_pids": ran_to_end,
+                             "kill_to_running_ms": None if t_run is None
+                             else (t_run - killed["t"]) * 1e3,
+                             "kill_to_finished_s": db.first(jid, "Finished", killed["t"])
+                             - killed["t"]}
+        elif not info["all_workers_on_gpu"]:
+            raise AssertionError(f"cluster process {name}: nvidia-smi never listed both "
+                                 f"workers as compute apps while the job ran: {info['compute_apps']}, "
+                                 f"pids {worker_pids}")
+        return info
+    finally:
+        ctl.stop()
+        scheduler.ProcessWorkerHandle, scheduler.subprocess = orig_handle, orig_subprocess
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def cluster_cli(root: str) -> dict:
+    """`python -m arroyo_tpu_torch run <family>.sql --parallelism 2` as a
+    subprocess (under COUNTING_MAIN; no device setting: the card), its
+    output held to the family's golden. Its 400 rows make batches below
+    segment.compile.min-rows, so its window's K1 and K2 must launch and K4
+    need not."""
+    name = CLUSTER_CLI_FAMILY
+    out = os.path.join(root, f"cli-{name}.json")
+    sql_path = os.path.join(root, f"cli-{name}.sql")
+    counts_path = os.path.join(root, "cli-launches")
+    with open(sql_path, "w") as f:
+        f.write(smoke_sql(name, out))
+    env = {k: v for k, v in os.environ.items() if not k.startswith("ARROYO_TPU_TORCH__")}
+    env["ARROYO_TPU_TORCH__CHECKPOINT__STORAGE_URL"] = STORAGE_ROOT
+    t0 = time.perf_counter()
+    proc = subprocess.run(counting_command([sys.executable, "-m", "arroyo_tpu_torch", "run",
+                                            sql_path, "--parallelism", "2", "--timeout", "300"],
+                                           counts_path),
+                          cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+                          capture_output=True, text=True, timeout=400)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"cli run exited {proc.returncode}:\n{proc.stderr[-3000:]}")
+    smoke_check(name, out)
+    counts = counted_launches(counts_path)
+    if len(counts) != 1:
+        raise AssertionError(f"cli run: launch counts from processes {sorted(counts)}")
+    launches = check_worker_launches("cli run", counts, list(counts), AGG_PATH_KERNELS[:2])
+    (pid, c), = counts.items()
+    return {"family": name, "rc": proc.returncode, "wall_s": wall,
+            "lines": len(sink_lines(out)),
+            "launches": {**launches[str(pid)], "segment_fused": c["segment_fused"]},
+            "stderr_tail": proc.stderr[-400:]}
+
+
+def cluster_phase(card: str, res: dict) -> dict:
+    """The control plane and the data plane on the card; ``card``:
+    nvidia-smi's name and power limit."""
+    root = tempfile.mkdtemp(prefix="chip_smoke_cluster_")
+    try:
+        log("cluster: embedded q7")
+        emb = {"q7": cluster_embedded("q7", root)}
+        log("cluster: embedded q8")
+        emb["q8"] = cluster_embedded("q8", root)
+        log("cluster: process q7")
+        proc = cluster_process_run("q7", root, SQL_EVENTS["q7"], crash=False)
+        log("cluster: process q7, one worker killed")
+        crash = cluster_process_run("q7", root, CLUSTER_CRASH_EVENTS, crash=True)
+        log("cluster: cli run")
+        cli = cluster_cli(root)
+    finally:
+        tcfg.reset()
+        shutil.rmtree(root, ignore_errors=True)
+    single = ((res.get("sql") or {}).get("queries") or {}).get("q7") or {}
+    info = {"phase": "cluster", "card": card, "embedded": emb, "process": proc,
+            "process_crash": crash, "cli": cli,
+            "single_engine_sql_q7_events_per_s": single.get("events_per_s")}
+    emit(info)
+    print(f"cluster embedded q7: {emb['q7']['events_per_s']:.0f} events/s, q8 "
+          f"{emb['q8']['events_per_s']:.0f}; process q7 {proc['events_per_s']:.0f} events/s "
+          f"(single-engine SQL q7 of this call: {info['single_engine_sql_q7_events_per_s']}); "
+          f"POST to Running {emb['q7']['post_to_running_ms']:.1f} ms embedded, "
+          f"{proc['post_to_running_ms']:.1f} ms process; worker spawn to started "
+          f"{proc['spawn_to_started_s']} s, to first heartbeat "
+          f"{proc['spawn_to_first_heartbeat_s']} s; barrier to complete (ms) embedded q7 "
+          f"{emb['q7']['barrier_to_complete_ms']}, process q7 {proc['barrier_to_complete_ms']}; "
+          f"kill to Running {crash['crash']['kill_to_running_ms']} ms, kill to Finished "
+          f"{crash['crash']['kill_to_finished_s']:.3f} s (restarts {crash['restarts']}); "
+          f"compute apps before / while running {proc['compute_apps']}; "
+          f"launches embedded q7 {emb['q7']['launches']}, q8 {emb['q8']['launches']}, "
+          f"process q7 by worker {proc['launches_by_worker']}, restored set "
+          f"{crash['launches_by_worker']}, cli run {cli['launches']} [{card}]", flush=True)
+    return info
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out-dir", default="chip_smoke_out",
@@ -6980,7 +7600,9 @@ OBS_Q7C_FAMILIES = frozenset({
     "arroyo_worker_sink_event_latency_seconds_count",
     "arroyo_worker_sink_event_latency_seconds_sum", "arroyo_worker_tx_queue_rem",
     "arroyo_worker_tx_queue_size"})
-OBS_REPS = 5  # timed q7c runs of each setting, alternating (host noise spans ~1.7x)
+# timed q7c runs of each setting, alternating (host noise spans ~1.7x); four
+# rounds put each of the four settings once in each place of the rotation
+OBS_REPS = 4
 # what profile.enabled adds to a task thread: TaskProfiler's hooks and the
 # key sketch's feed
 PROFILE_HOOKS = (("obs.profile", "TaskProfiler", ("begin", "end", "source_tick", "source_reset",
@@ -7436,6 +8058,7 @@ def run_phases(args, out_dir: str) -> int:
         "sql": lambda: sql_phase(smi, res),
         "updating": lambda: updating_phase(smi),
         "obs": lambda: obs_phase(smi, out_dir),
+        "cluster": lambda: cluster_phase(smi, res),
         "segment_sweep": segment_sweep,
     }
     only = args.only.split(",") if args.only else [p for p in phases if p != "segment_sweep"]

@@ -219,3 +219,59 @@ def test_segment_kernel_fault_on_cuda_fails_the_task_not_falls_back():
     with pytest.raises(KernelError, match="segment kernel K4 on cuda"):
         runner.process_batch(batch, ctx, None)
     assert recorder.events("kfault", "SEGMENT_FALLBACK") == []
+
+
+def test_control_plane_imports_neither_jax_nor_arroyo_tpu():
+    code = (
+        "import sys\n"
+        "import arroyo_tpu_torch.cli, arroyo_tpu_torch.controller, arroyo_tpu_torch.api\n"
+        "import arroyo_tpu_torch.engine.network, arroyo_tpu_torch.native.wire\n"
+        "import arroyo_tpu_torch.controller.scheduler, arroyo_tpu_torch.server_common\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "             or m == 'arroyo_tpu' or m.startswith('arroyo_tpu.'))\n"
+        "print('BAD', bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("name", ["node", "kubernetes"])
+def test_multi_host_schedulers_raise_naming_the_roadmap_item(name):
+    from arroyo_tpu_torch.controller.scheduler import scheduler_for
+
+    with pytest.raises(NotImplementedError, match="A.8's remainder"):
+        scheduler_for(name)
+
+
+def test_cpp_udf_spec_raises_naming_the_roadmap_item():
+    from arroyo_tpu_torch.compiler import CompileError, activate_udf_specs
+
+    with pytest.raises(CompileError, match="A.8's remainder"):
+        activate_udf_specs([{"name": "f", "language": "cpp", "source": "", "arg_dtypes": [],
+                             "return_dtype": "int64", "artifact_url": "/nope.so"}])
+
+
+@pytest.mark.parametrize("argv,item", [
+    (["node", "--controller", "http://127.0.0.1:1"], "A.8's remainder"),
+    (["compile-service"], "A.8's remainder"),
+    (["check", "x.sql"], "A.10"),
+    (["lint"], "A.10"),
+])
+def test_left_out_subcommands_exit_nonzero_naming_their_item(argv, item, capsys):
+    from arroyo_tpu_torch import cli
+
+    assert cli.main(argv) != 0
+    assert item in capsys.readouterr().err
+
+
+def test_every_ported_subcommand_exists():
+    from arroyo_tpu_torch import cli
+
+    for cmd in ("run", "cluster", "api", "worker", "visualize", "fsck", "trace", "top",
+                "logs", "explain", "evolve"):
+        with pytest.raises(SystemExit) as ei:
+            cli.main([cmd, "--help"])
+        assert ei.value.code == 0, cmd
