@@ -233,10 +233,11 @@ class ApiServer:
         h._json(200, {"nodes": self.db.list_nodes()})
 
     def _create_udf(self, h):
-        """Create a UDF: python sources are stored and executed at plan and
-        worker start. A cpp source is refused: the native compile service is
-        ROADMAP A.8's remainder."""
-        from ..compiler import CPP_UDF_REMAINDER, CompileError, activate_udf_specs
+        """Create a UDF: a cpp source compiles through the compile service
+        (in-process, or ``compiler.endpoint``'s), its artifact published to
+        storage; python sources are stored and executed at plan and worker
+        start."""
+        from ..compiler import activate_udf_specs, compile_udf
 
         body = h._body()
         name = body.get("name")
@@ -250,7 +251,9 @@ class ApiServer:
         return_dtype = body.get("return_dtype", "float64")
         try:
             if language == "cpp":
-                raise CompileError(CPP_UDF_REMAINDER)
+                # the remote compile service when compiler.endpoint is set
+                spec = compile_udf(name, source, arg_dtypes, return_dtype)
+                artifact = spec.artifact_url
             self.db.create_udf(name, language, source, arg_dtypes, return_dtype, artifact)
             try:
                 # a source that fails to activate must not stay persisted, or

@@ -3,8 +3,7 @@ arroyo_tpu/cli.py). `python -m arroyo_tpu_torch <cmd>`.
 
 Reference: crates/arroyo/src/main.rs:83-123 (clap subcommands run / api /
 cluster / worker / visualize). The port's subcommands take the JAX
-package's arguments and give its exit codes; ``node`` and
-``compile-service`` (ROADMAP A.8's remainder) and ``check`` and ``lint``
+package's arguments and give its exit codes; ``check`` and ``lint``
 (ROADMAP A.10: the port's analysis has no check_sql and no auditors) exit 2
 naming their item. Every entry point runs on the card unless the port's
 config names the CPU (``ARROYO_TPU_TORCH__DEVICE__TORCH_DEVICE=cpu``).
@@ -14,6 +13,9 @@ config names the CPU (``ARROYO_TPU_TORCH__DEVICE__TORCH_DEVICE=cpu``).
   cluster             api + controller, jobs submitted over REST
   api                 REST API only (external controller polls the same DB)
   worker ...          subprocess entry used by the process scheduler
+  node                per-machine daemon: registers with the cluster API and
+                      spawns the workers the node scheduler places here
+  compile-service     builds C++ UDFs with g++ and publishes the artifacts
   visualize <file.sql> print the dataflow graph as graphviz dot
 """
 
@@ -30,9 +32,6 @@ from typing import Optional
 
 
 _REMAINDER = {
-    "node": "the node daemon is ROADMAP.md A.8's remainder (not ported yet)",
-    "compile-service": "the native UDF compile service is ROADMAP.md A.8's remainder "
-                       "(not ported yet)",
     "check": "static analysis of a pipeline (check_sql) is ROADMAP.md A.10 (not ported yet)",
     "lint": "the repo lint and replay-soundness audit are ROADMAP.md A.10 (not ported yet)",
 }
@@ -41,6 +40,44 @@ _REMAINDER = {
 def _cmd_not_ported(args) -> int:
     print(f"arroyo_tpu_torch {args.cmd}: {_REMAINDER[args.cmd]}", file=sys.stderr)
     return 2
+
+
+def _cmd_node(args) -> int:
+    """Per-machine node daemon: registers with the cluster API and launches
+    the worker processes the controller places here (each takes CUDA unless
+    the port's config names another device)."""
+    import arroyo_tpu_torch
+    from arroyo_tpu_torch.controller.node import NodeServer
+
+    arroyo_tpu_torch._load_operators()
+    node = NodeServer(args.controller, slots=args.slots, port=args.port,
+                      host=args.host, advertise_host=args.advertise_host).start()
+    print(f"node {node.node_id} on :{node.port} -> {args.controller}", file=sys.stderr,
+          flush=True)
+    try:
+        while True:
+            time.sleep(1)
+    except KeyboardInterrupt:
+        node.stop()
+        return 0
+
+
+def _cmd_compile_service(args) -> int:
+    """Standalone UDF compile service: builds cpp UDF sources into shared
+    libraries and publishes them to the artifact store; the API delegates
+    here when ``compiler.endpoint`` is configured."""
+    from arroyo_tpu_torch.compiler import CompileServer
+
+    srv = CompileServer(host=args.host, port=args.port,
+                        artifacts_url=args.artifacts_url).start()
+    print(f"compile service on :{srv.port} -> {srv.service.artifacts_url}",
+          file=sys.stderr, flush=True)
+    try:
+        while True:
+            time.sleep(1)
+    except KeyboardInterrupt:
+        srv.stop()
+        return 0
 
 
 def _cmd_visualize(args) -> int:
@@ -678,7 +715,7 @@ def main(argv: Optional[list[str]] = None) -> int:
     np_.add_argument("--advertise-host", default=None,
                      help="routable hostname the controller should dial "
                           "(default: the bind host)")
-    np_.set_defaults(fn=_cmd_not_ported)
+    np_.set_defaults(fn=_cmd_node)
     wp.set_defaults(fn=_cmd_worker)
 
     vp = sub.add_parser("visualize", help="print the dataflow graph as dot")
@@ -798,8 +835,8 @@ def main(argv: Optional[list[str]] = None) -> int:
     cs.add_argument("--port", type=int, default=5117)
     cs.add_argument("--host", default="0.0.0.0")
     cs.add_argument("--artifacts-url", default=None,
-                    help="storage prefix for built dylibs (local or s3://)")
-    cs.set_defaults(fn=_cmd_not_ported)
+                    help="storage prefix for built dylibs (local, s3:// or gs://)")
+    cs.set_defaults(fn=_cmd_compile_service)
 
     args = p.parse_args(argv)
     return args.fn(args)

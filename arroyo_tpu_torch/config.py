@@ -19,10 +19,15 @@ both packages load in one process under the tests, and neither reads the
 other's settings. A worker subprocess learns its device and storage this
 way. The checkpoint keys have the JAX package's names and meaning;
 ``checkpoint.storage-url`` defaults to a directory under the temporary
-directory (``TMPDIR``) rather than the JAX package's ``/tmp/arroyo-tpu``,
-and the port writes npz state files for either value of
-``checkpoint.file-format``, as the JAX package does where pyarrow is
-missing (state/tables.py refuses any other value).
+directory (``TMPDIR``) rather than the JAX package's ``/tmp/arroyo-tpu``;
+``checkpoint.file-format`` gives parquet state files where pyarrow is
+importable and npz where it is not, as in the JAX package (state/tables.py
+refuses any other value). The keys the JAX package reads with defaults and
+lists nowhere are read the same way here: ``storage.multipart-threshold-bytes``
+and ``multipart-part-size-bytes`` (state/storage.py), ``compiler.endpoint``
+and ``artifacts-url`` (compiler.py; the artifacts default to the package's
+``build/udf-artifacts``), ``node.id`` (controller/node.py) and the
+``kubernetes-scheduler`` section (controller/kube.py).
 The JAX package reads ``device.join-min-rows`` and
 ``device.force-device-join`` with defaults and has no entry for them; the
 port lists them here with the same defaults and meaning.

@@ -46,7 +46,8 @@ def _make_sink(cfg: dict):
 
 
 def load_all() -> None:
-    from . import impulse, nexmark, preview, single_file, vec  # noqa: F401
+    from . import blackhole, filesystem, impulse, nexmark, preview  # noqa: F401
+    from . import single_file, stdout, stubs, vec  # noqa: F401
 
 
 def connectors() -> dict:

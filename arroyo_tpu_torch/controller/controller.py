@@ -1120,8 +1120,18 @@ class JobController:
                     break  # slot emptied; finished is a worker's last event
                 elif kind == "failed":
                     err = ev.get("error", "unknown worker failure")
-                    # (the node daemon's deferred placement, whose capacity
-                    # failures re-queue here, is ROADMAP A.8's remainder)
+                    from .scheduler import NodeScheduler
+
+                    if err.startswith("placement failed") \
+                            and self.state == JobState.RUNNING \
+                            and NodeScheduler._capacity_reason(err):
+                        # a deferred node placement timed out on capacity
+                        # (409, no free slots, no daemons): the job never
+                        # ran, so it re-queues with backoff instead of
+                        # spending a restart; a hard placement error (a
+                        # daemon answering 500) takes the failure path
+                        self._requeue_for_capacity(err)
+                        return
                     self._on_worker_failed(err, job, worker=widx)
                     return
 

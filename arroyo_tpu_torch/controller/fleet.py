@@ -149,20 +149,60 @@ class FleetManager:
         self._target: Optional[int] = None
         self._persist_at = 0.0
         self._persist_fp = None
+        # the node scheduler's capacity probe (live /status sums); the
+        # probe runs on its own thread, so a wedged daemon never stalls a tick
+        self._node_capacity: Optional[int] = None
+        self._node_probe_at = 0.0
+        self._probe_thread: Optional[threading.Thread] = None
 
     # ------------------------------------------------------------ capacity
 
     def pool_slots(self) -> Optional[int]:
-        """Current pool size in slots; None = unlimited (feature off)."""
+        """Current pool size in slots; None = unlimited (feature off). With
+        ``fleet.slots`` 0 under the node scheduler, the live sum of the
+        registered daemons' slots (None until a probe lands)."""
         base = int(_cfg("slots", 0) or 0)
-        if base <= 0:
-            # the node daemons' live capacity comes with the node
-            # scheduler (ROADMAP A.8's remainder)
-            return None
-        with self._lock:  # _dyn_pool lands on other threads
-            if self._dyn_pool is not None:
-                return max(base, self._dyn_pool)
-            return base
+        with self._lock:  # _dyn_pool / _node_capacity land on other threads
+            if base > 0:
+                if self._dyn_pool is not None:
+                    return max(base, self._dyn_pool)
+                return base
+            return self._node_capacity
+
+    def _refresh_node_capacity(self, db) -> None:
+        """Node scheduler only: the fleet's capacity is the live sum of the
+        registered daemons' slots (one worker process a slot; a daemon's own
+        409 stays the physical limit). At most every 2 s, on a thread of its
+        own: until a probe lands, the last sum stands."""
+        from .scheduler import NodeScheduler
+
+        if not isinstance(self.scheduler, NodeScheduler) or db is None:
+            return
+        now = self._clock()
+        if now - self._node_probe_at < 2.0:
+            return
+        if self._probe_thread is not None and self._probe_thread.is_alive():
+            return
+        self._node_probe_at = now
+        nodes = db.list_nodes(alive_within_s=10.0)
+
+        def _probe() -> None:
+            from .node import _get
+
+            total = 0
+            for n in nodes:
+                try:
+                    total += int(_get(f"{n['addr']}/status", timeout=2.0)["slots"])
+                except (OSError, KeyError, ValueError):
+                    # an unreachable daemon counts its registered slots:
+                    # placement finds the truth (409, then a re-queue)
+                    total += int(n.get("slots") or 0)
+            with self._lock:
+                self._node_capacity = total if nodes else None
+
+        self._probe_thread = threading.Thread(target=_probe, daemon=True,
+                                              name="fleet-node-probe")
+        self._probe_thread.start()
 
     def _achievable_pool(self) -> float:
         """The largest pool this fleet could ever offer a single job:
@@ -610,6 +650,7 @@ class FleetManager:
         capacity, mark quota preemptions, run the admission pass over
         whatever capacity terminal jobs just freed, evaluate the fleet
         autoscaler, export gauges, and persist the snapshot."""
+        self._refresh_node_capacity(db)
         self._mark_preemptions()
         with self._lock:
             self._run_admissions()

@@ -1,11 +1,12 @@
-"""Schedulers: how a job's dataflow gets executed (the port's copy of the
-one-machine part of arroyo_tpu/controller/scheduler.py).
+"""Schedulers: how a job's dataflow gets executed (the port's copy of
+arroyo_tpu/controller/scheduler.py).
 
 Reference: crates/arroyo-controller/src/schedulers/mod.rs:43-62 (trait
-Scheduler). The port has EmbeddedScheduler (in-process engines, for the run
-CLI) and ProcessScheduler (worker subprocesses of this machine, each with
-its own CUDA context on the card); ``scheduler_for("node")`` and
-``("kubernetes")`` raise, naming ROADMAP A.8's remainder.
+Scheduler). EmbeddedScheduler runs in-process engines (the run CLI);
+ProcessScheduler runs worker subprocesses of this machine, each with its own
+CUDA context on the card; NodeScheduler places workers on registered node
+daemons (controller/node.py), which spawn the same subprocesses; and
+KubernetesScheduler (controller/kube.py) creates a pod per worker.
 
 A worker subprocess's stderr is drained by a thread that keeps its last
 2,000 characters (the JAX package reads it only once the process exits):
@@ -505,10 +506,330 @@ class ProcessScheduler(Scheduler):
         return handles
 
 
-NODE_REMAINDER = (
-    "is not ported yet: the node daemon (NodeScheduler, LazyNodeWorkerHandle) and the "
-    "Kubernetes scheduler are ROADMAP.md A.8's remainder; the port runs the embedded "
-    "and process schedulers")
+class NodeWorkerHandle(WorkerHandle):
+    """Controller-side proxy for a worker running under a node daemon
+    (controller/node.py): commands go over the node's HTTP surface; events
+    and liveness are polled."""
+
+    def __init__(self, node_addr: str, sql: str, job_id: str, parallelism: int,
+                 restore_epoch, storage_url, udf_specs, graph_json=None,
+                 worker_index=None, n_workers=1, assignment=None, dp_bind=None):
+        from .node import _get, _post
+
+        self._get, self._post = _get, _post
+        self.node_addr = node_addr.rstrip("/")
+        body = {
+            "sql": sql, "job_id": job_id, "parallelism": parallelism,
+            "restore_epoch": restore_epoch, "storage_url": storage_url,
+            "udf_specs": udf_specs, "graph_json": graph_json,
+        }
+        if n_workers > 1:
+            body.update({"worker_index": worker_index, "n_workers": n_workers,
+                         "assignment": assignment,
+                         # bind all interfaces: data-plane peers dial in
+                         # from other machines of the cluster
+                         "dp_bind": dp_bind or "0.0.0.0"})
+        r = _post(f"{self.node_addr}/start_worker", body)
+        self.worker_id = r["worker_id"]
+        self._alive = True
+        self._hb = time.monotonic()
+        self._buffer: list[dict] = []
+        self.dp_port: Optional[int] = None
+
+    def _command(self, path: str, body: dict) -> None:
+        """Controller -> node-daemon command behind the ``controller_rpc``
+        fault point (drop, dup, delay: a flaky control network; a dropped
+        command is recovered by the protocol's own retries, the stuck-epoch
+        watchdog's re-trigger and the cumulative commit re-delivery)."""
+        from ..faults import fault_point
+
+        verdict = fault_point("controller_rpc", key=path, op="post")
+        if verdict is not None and verdict[0] == "drop":
+            return
+        try:
+            self._post(f"{self.node_addr}{path}", body)
+            if verdict is not None and verdict[0] == "dup":
+                self._post(f"{self.node_addr}{path}", body)
+        except OSError:
+            pass
+
+    def trigger_checkpoint(self, epoch: int, then_stop: bool = False) -> None:
+        self._command(f"/workers/{self.worker_id}/send",
+                      {"cmd": "checkpoint", "epoch": epoch, "then_stop": then_stop})
+
+    def stop(self) -> None:
+        self._command(f"/workers/{self.worker_id}/stop", {})
+
+    def send_commit(self, epoch: int) -> None:
+        self._command(f"/workers/{self.worker_id}/send",
+                      {"cmd": "commit", "epoch": epoch})
+
+    def send_peers(self, peers: dict[int, tuple[str, int]]) -> None:
+        self._command(f"/workers/{self.worker_id}/send",
+                      {"cmd": "peers",
+                       "peers": {str(k): list(v) for k, v in peers.items()}})
+
+    def kill(self) -> None:
+        try:
+            self._post(f"{self.node_addr}/workers/{self.worker_id}/kill", {})
+        except OSError:
+            pass
+        self._alive = False
+
+    def poll_events(self) -> list[dict]:
+        from ..faults import fault_point
+
+        out, self._buffer = self._buffer, []
+        verdict = fault_point("controller_rpc",
+                              key=f"/workers/{self.worker_id}/events", op="get")
+        if verdict is not None and verdict[0] == "drop":
+            # a dropped poll loses nothing: the daemon only drains its
+            # buffer when a poll actually arrives, so the next one catches up
+            return out
+        try:
+            r = self._get(f"{self.node_addr}/workers/{self.worker_id}/events")
+        except OSError:
+            # node unreachable: let the heartbeat timeout declare death
+            return out
+        # anchor to the WORKER's own heartbeat (relayed as an age so clocks
+        # need not agree): a hung worker must still trip the controller's
+        # heartbeat timeout even though the node daemon answers polls
+        self._hb = time.monotonic() - float(r.get("hb_age_s", 0.0))
+        self._alive = bool(r["alive"]) or bool(r["events"])
+        for ev in r["events"]:
+            if ev.get("event") == "started" and ev.get("dp_port") is not None:
+                self.dp_port = int(ev["dp_port"])
+        return out + r["events"]
+
+    def wait_dp_port(self, timeout: float = 90.0) -> Optional[int]:
+        """Poll the node daemon until the worker reports its data-plane
+        port; events seen along the way are buffered for poll_events."""
+        deadline = time.monotonic() + timeout
+        while self.dp_port is None and time.monotonic() < deadline:
+            try:
+                r = self._get(f"{self.node_addr}/workers/{self.worker_id}/events")
+            except OSError:
+                r = None  # daemon briefly unreachable; re-poll below
+            if r is None:
+                time.sleep(0.2)
+                continue
+            self._hb = time.monotonic() - float(r.get("hb_age_s", 0.0))
+            for ev in r["events"]:
+                if ev.get("event") == "started" and ev.get("dp_port") is not None:
+                    self.dp_port = int(ev["dp_port"])
+                self._buffer.append(ev)
+            if not r["alive"] and not r["events"]:
+                return None
+            if self.dp_port is None:
+                time.sleep(0.1)
+        return self.dp_port
+
+    def alive(self) -> bool:
+        return self._alive
+
+    def last_heartbeat(self) -> float:
+        return self._hb
+
+
+class LazyNodeWorkerHandle(WorkerHandle):
+    """Deferred placement on a node daemon. The controller's supervision
+    loop is single-threaded, so start_worker must not block while the
+    cluster is briefly full or a daemon is mid-restart: this handle retries
+    placement from poll_events (same shape as KubernetesWorkerHandle) and
+    queues control commands issued before placement lands."""
+
+    def __init__(self, sched: "NodeScheduler", args: tuple,
+                 placement_timeout_s: float):
+        self._sched = sched
+        self._args = args
+        self._deadline = time.monotonic() + placement_timeout_s
+        self._inner: Optional[NodeWorkerHandle] = None
+        self._queued: list[tuple] = []
+        self._dead = False
+        self._last = "no live node daemons registered"
+
+    def _try_place(self) -> Optional[list[dict]]:
+        inner, self._last = self._sched._place_once(self._args, self._last)
+        if inner is not None:
+            self._inner = inner
+            for cmd in self._queued:
+                getattr(inner, cmd[0])(*cmd[1:])
+            self._queued.clear()
+            return None
+        if time.monotonic() > self._deadline:
+            self._dead = True
+            return [{"event": "failed", "error": f"placement failed: {self._last}"}]
+        return None
+
+    def trigger_checkpoint(self, epoch: int, then_stop: bool = False) -> None:
+        if self._inner is None:
+            self._queued.append(("trigger_checkpoint", epoch, then_stop))
+        else:
+            self._inner.trigger_checkpoint(epoch, then_stop)
+
+    def stop(self) -> None:
+        if self._inner is None:
+            self._queued.append(("stop",))
+        else:
+            self._inner.stop()
+
+    def send_commit(self, epoch: int) -> None:
+        if self._inner is None:
+            self._queued.append(("send_commit", epoch))
+        else:
+            self._inner.send_commit(epoch)
+
+    def kill(self) -> None:
+        self._dead = True
+        if self._inner is not None:
+            self._inner.kill()
+
+    def poll_events(self) -> list[dict]:
+        if self._dead:
+            return []
+        if self._inner is None:
+            return self._try_place() or []
+        return self._inner.poll_events()
+
+    def alive(self) -> bool:
+        if self._dead:
+            return False
+        return True if self._inner is None else self._inner.alive()
+
+    def last_heartbeat(self) -> float:
+        if self._inner is None:
+            return time.monotonic()  # placement has its own deadline
+        return self._inner.last_heartbeat()
+
+
+class NodeScheduler(Scheduler):
+    """Places workers on registered node daemons (least-loaded first)."""
+
+    def __init__(self, db):
+        self.db = db
+
+    def _place_once(self, args: tuple, last: str, **multi_kw):
+        """One placement sweep over live daemons -> (handle|None, reason).
+        A 409 (the daemon's hard slot limit — its status poll races other
+        placements) reads as a capacity rejection, which the controller
+        answers by re-queueing the job into the fleet's admission queue
+        with backoff, never by failing it."""
+        import urllib.error
+
+        from ..faults import InjectedFault, fault_point
+        from .node import _get
+
+        nodes = self.db.list_nodes(alive_within_s=10.0)
+        candidates = []
+        for n in nodes:
+            try:
+                st = _get(f"{n['addr']}/status", timeout=5.0)
+            except OSError:
+                continue
+            free = int(st["slots"]) - int(st["used"])
+            if free >= 1:
+                candidates.append((free, n))
+        candidates.sort(key=lambda fn: -fn[0])
+        for _free, n in candidates:
+            try:
+                # fault point `admission`: a node 409 (or a slow admission
+                # call) at the placement itself, after the status poll
+                # said free
+                fault_point("admission", key=str(n["id"]),
+                            job=str(args[1]) if len(args) > 1 else "")
+                return NodeWorkerHandle(n["addr"], *args, **multi_kw), last
+            except InjectedFault:
+                last = f"node {n['id']} full (409, injected)"
+            except urllib.error.HTTPError as e:
+                if e.code == 409:
+                    last = f"node {n['id']} full (409)"
+                else:
+                    last = f"node {n['id']} rejected placement: {e}"
+            except OSError as e:
+                last = f"node {n['id']} unreachable: {e}"
+        if nodes and not candidates:
+            last = "no node daemon with free slots"
+        return None, last
+
+    @staticmethod
+    def _capacity_reason(last: str) -> bool:
+        return ("full (409" in last or "free slots" in last
+                or "no live node daemons" in last)
+
+    def start_worker(self, sql, job_id, parallelism, restore_epoch, storage_url=None,
+                     udf_specs=None, graph_json=None,
+                     placement_timeout_s: float = 30.0):
+        args = (sql, job_id, parallelism, restore_epoch, storage_url,
+                udf_specs, graph_json)
+        # fast path: place immediately when capacity exists, so the common
+        # case still fails fast on hard errors and tests see a live handle
+        handle, last = self._place_once(args, "no live node daemons registered")
+        if handle is not None:
+            return handle
+        lazy = LazyNodeWorkerHandle(self, args, placement_timeout_s)
+        lazy._last = last
+        return lazy
+
+    def start_workers(self, sql, job_id, parallelism, restore_epoch, storage_url=None,
+                      udf_specs=None, graph_json=None, n_workers=1,
+                      placement_timeout_s: float = 30.0):
+        if n_workers <= 1 or graph_json is None:
+            return [self.start_worker(sql, job_id, parallelism, restore_epoch,
+                                      storage_url, udf_specs, graph_json,
+                                      placement_timeout_s)]
+        from urllib.parse import urlparse
+
+        from .checkpoint_state import compute_assignment
+
+        assignment, _expected, n = compute_assignment(graph_json, n_workers)
+        if n <= 1:
+            return [self.start_worker(sql, job_id, parallelism, restore_epoch,
+                                      storage_url, udf_specs, graph_json,
+                                      placement_timeout_s)]
+        assign_json = [[nid, sub, w] for (nid, sub), w in sorted(assignment.items())]
+        # worker-set placement is all-or-nothing and synchronous: the data
+        # plane needs every peer's (host, port) before any engine may run,
+        # so lazy placement cannot apply here. A partially placed set is
+        # torn down rather than left half-running.
+        handles: list[NodeWorkerHandle] = []
+        deadline = time.monotonic() + placement_timeout_s
+        last = "no live node daemons registered"
+        try:
+            for i in range(n):
+                args = (sql, job_id, parallelism, restore_epoch, storage_url,
+                        udf_specs, graph_json)
+                while True:
+                    h, last = self._place_once(
+                        args, last, worker_index=i, n_workers=n,
+                        assignment=assign_json)
+                    if h is not None:
+                        handles.append(h)
+                        break
+                    if time.monotonic() > deadline:
+                        if self._capacity_reason(last):
+                            # capacity, not a hard error: the controller
+                            # re-queues the job instead of failing it
+                            raise PlacementFull(
+                                f"placed {i}/{n} workers of job {job_id}: "
+                                f"{last}")
+                        raise RuntimeError(
+                            f"placed {i}/{n} workers of job {job_id}: {last}")
+                    time.sleep(0.25)
+            peers: dict[int, tuple[str, int]] = {}
+            for i, h in enumerate(handles):
+                port = h.wait_dp_port(timeout=90.0)
+                if port is None:
+                    raise RuntimeError(
+                        f"worker {i}/{n} of job {job_id} never reported its "
+                        "data-plane port")
+                peers[i] = (urlparse(h.node_addr).hostname or "127.0.0.1", port)
+            for h in handles:
+                h.send_peers(peers)
+        except Exception:
+            for h in handles:
+                h.kill()
+            raise
+        return handles
 
 
 def scheduler_for(name: str, db=None) -> Scheduler:
@@ -516,7 +837,15 @@ def scheduler_for(name: str, db=None) -> Scheduler:
         return EmbeddedScheduler()
     if name == "process":
         return ProcessScheduler()
-    if name in ("node", "kubernetes"):
-        raise NotImplementedError(f"the {name} scheduler {NODE_REMAINDER}")
+    if name == "node":
+        if db is None:
+            raise ValueError("node scheduler needs the shared database")
+        return NodeScheduler(db)
+    if name == "kubernetes":
+        if db is None:
+            raise ValueError("kubernetes scheduler needs the shared database")
+        from .kube import KubernetesScheduler
+
+        return KubernetesScheduler(db)
     raise ValueError(
         f"unknown scheduler {name!r} (have: embedded, process, node, kubernetes)")

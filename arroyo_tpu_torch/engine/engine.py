@@ -92,6 +92,9 @@ def register_operator(op: OpName):
 def load_operators() -> None:
     """Import every operator/connector module of the port so that its
     constructor registers."""
+    from ..utils import ensure_parquet_initialized
+
+    ensure_parquet_initialized()  # utils/arrow.py: before any task thread touches parquet
     from .. import connectors
     from ..operators import (async_udf, builtin, chained, joins,  # noqa: F401
                              updating_aggregate, window_fn)

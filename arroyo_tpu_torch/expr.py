@@ -21,7 +21,7 @@ from __future__ import annotations
 import threading
 from contextlib import contextmanager
 from dataclasses import dataclass
-from functools import reduce
+from functools import lru_cache, reduce
 from typing import Any, Callable, Optional
 
 import numpy as np
@@ -209,8 +209,8 @@ class Neg(Expr):
         unary_type("neg", v.dt)
         if v.dt.kind != "f":
             return TVal(torch.neg(v.t), v.dt, v.weak)
-        prod = None if v.prod is None else (_fneg(v.prod[0]), v.prod[1])
-        return TVal(_fneg(v.t), v.dt, v.weak, prod)
+        prod = None if v.prod is None else (v.prod[0], v.prod[1], not v.prod[2])
+        return TVal(_fneg(v.t), v.dt, v.weak, prod, neg=v.t)
 
     def columns(self):
         return self.inner.columns()
@@ -806,16 +806,19 @@ def scalar_as(v, dt: np.dtype):
 class TVal:
     """A device-twin value: torch tensor ``t`` (uint64 as int64 bits), its
     NumPy dtype ``dt`` and JAX's weak-type flag. A float product also keeps
-    its two operands in ``prod`` (flushed, of dtype ``dt``), so an add that
-    XLA contracts with it can compute the fused multiply-add."""
+    ``prod`` = (x, y, negated): its two operands (flushed, of dtype ``dt``)
+    and whether the value is -(x * y), so an add that XLA contracts with it
+    can compute the fused multiply-add; a float negation keeps ``neg``, the
+    value it negates, for the add or subtract LLVM folds it into."""
 
-    __slots__ = ("t", "dt", "weak", "prod")
+    __slots__ = ("t", "dt", "weak", "prod", "neg")
 
-    def __init__(self, t: torch.Tensor, dt, weak: bool = False, prod=None):
+    def __init__(self, t: torch.Tensor, dt, weak: bool = False, prod=None, neg=None):
         self.t = t
         self.dt = np.dtype(dt)
         self.weak = weak
         self.prod = prod
+        self.neg = neg
 
 
 def _tval(x) -> TVal:
@@ -939,10 +942,73 @@ def _operands(l, r, ct: np.dtype) -> tuple[torch.Tensor, torch.Tensor]:
 # agree byte for byte on either device, and with the numpy reference.
 
 
-# float16: XLA's CPU code computes each float16 operation in float32 and
-# rounds its result to float16 (no multiply-add contracts), so a float16
-# subnormal is a normal float32 operand and no float16 value is flushed;
-# the NaN rules are float32's carried through the exact conversions.
+# float16 (C4, C10): XLA's CPU code keeps float16 arithmetic as the host's
+# CPU allows, so the twins take one of two models.
+#   - F16_WIDE, a host without AVX512-FP16: each float16 operation runs in
+#     float32 and rounds its result to float16, and no multiply-add
+#     contracts.
+#   - F16_NATIVE, a host with AVX512-FP16: the same values one operation at
+#     a time, but a float16 multiply-add contracts where a float32 one would
+#     (``contraction_table``; one rounding of x * y + z, a NaN operand taken
+#     in the order x, y, z), and a remainder by a literal power of two of at
+#     least 1 gives a NaN the dividend's sign, as float32's and float64's do
+#     on either host (``literal_pow2``).
+# Under both, no float16 value is flushed (a float16 subnormal is a normal
+# float32 operand, and AVX512-FP16 ignores DAZ and FTZ), comparisons and
+# conversions are the same, and the NaN rules are float32's carried through
+# the exact conversions. A float16 product never contracts into an add of
+# another dtype.
+
+F16_WIDE, F16_NATIVE = "wide", "native"
+_F16_MODEL = threading.local()
+
+
+@lru_cache(maxsize=None)
+def host_float16_model() -> str:
+    """The float16 model of this host's XLA CPU code: F16_NATIVE where the
+    CPU flags (/proc/cpuinfo) hold ``avx512_fp16``, else F16_WIDE."""
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if line.startswith("flags"):
+                    return F16_NATIVE if "avx512_fp16" in line.split() else F16_WIDE
+    except OSError:
+        pass
+    return F16_WIDE
+
+
+def float16_model() -> str:
+    """The model the twins take now: the one set by ``float16_model_as``,
+    else the host's."""
+    return getattr(_F16_MODEL, "model", None) or host_float16_model()
+
+
+@contextmanager
+def float16_model_as(model: Optional[str]):
+    """Within the block, the twins take float16 ``model`` (None: the
+    host's); the segment program sets its own for its plain version."""
+    if model not in (None, F16_WIDE, F16_NATIVE):
+        raise ValueError(f"float16 model {model!r}: expected {F16_WIDE!r} or {F16_NATIVE!r}")
+    prev = getattr(_F16_MODEL, "model", None)
+    _F16_MODEL.model = model
+    try:
+        yield
+    finally:
+        _F16_MODEL.model = prev
+
+
+def literal_pow2(r, ct: np.dtype, model: Optional[str] = None) -> bool:
+    """Whether a remainder by ``r`` is lowered as x - trunc(x / r) * r with
+    the dividend's sign copied onto the result (LLVM's lowering of a float
+    remainder by a literal power of two of at least 1): a literal, float
+    ``ct``, and not float16 under F16_WIDE."""
+    if hasattr(r, "dt") or ct.kind != "f":
+        return False
+    if ct == _F16 and (model or float16_model()) != F16_NATIVE:
+        return False
+    v = abs(float(scalar_as(r, ct)))
+    return bool(np.isfinite(v) and v >= 1 and np.frexp(v)[0] == 0.5)
+
 
 _MANT = {_F16: 10, _F32: 23, _F64: 52}
 
@@ -1047,17 +1113,31 @@ def sqrt_torch(x: torch.Tensor) -> torch.Tensor:
     return nan_fix(r, x)
 
 
-def fmod_torch(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def fmod_torch(a: torch.Tensor, b: torch.Tensor, pow2: bool = False) -> torch.Tensor:
     """lax.rem of floats as XLA's CPU code computes it: C's exact fmod, the
     divisor read flushed (a subnormal divisor gives NaN, as a zero does) and
-    the dividend and result as they are."""
+    the dividend and result as they are. With ``pow2`` (``literal_pow2``)
+    the dividend is read flushed and the result takes its sign, so +-inf
+    gives the NaN of its own sign."""
     b = flush(b)
+    sign_of = a
+    if pow2:
+        a = flush(a)
     if a.device.type == "cpu":
         a, b = torch.broadcast_tensors(a, b)
         r = _on_host(np.fmod, a.contiguous(), b.contiguous())
     else:
         r = torch.fmod(a, b)
-    return nan_fix(r, a, b)
+    r = nan_fix(r, a, b)
+    return _copysign_bits(r, sign_of) if pow2 else r
+
+
+def _copysign_bits(x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """``x`` with the sign bit of ``s`` (bitwise: a NaN keeps its payload)."""
+    it = _ity(x)
+    top = torch.iinfo(it).min
+    xb, sb = torch.broadcast_tensors(x.view(it), s.view(it))
+    return ((xb & torch.iinfo(it).max) | (sb & top)).view(x.dtype)
 
 
 def _fneg(x: torch.Tensor) -> torch.Tensor:
@@ -1126,16 +1206,17 @@ def lax_rem(a: torch.Tensor, b: torch.Tensor, dt: np.dtype) -> torch.Tensor:
 
 
 def _floordiv(a: torch.Tensor, b: torch.Tensor, dt: np.dtype,
-              rec: Optional[float] = None) -> torch.Tensor:
+              rec: Optional[float] = None, pow2: bool = False) -> torch.Tensor:
     """jnp.floor_divide over operands already of dtype ``dt``; ``rec`` is
-    1 / b rounded in ``dt`` when b is a literal (XLA then multiplies by it)."""
+    1 / b rounded in ``dt`` when b is a literal (XLA then multiplies by it),
+    ``pow2`` as fmod_torch's."""
     if dt.kind == "u":
         return lax_div(a, b, dt)
     if dt.kind == "i":
         q = lax_div(a, b, dt)
         fix = (torch.sign(a) != torch.sign(b)) & (lax_rem(a, b, dt) != 0)
         return torch.where(fix, q - 1, q)
-    mod = fmod_torch(a, b)
+    mod = fmod_torch(a, b, pow2)
     num = farith("-", a, mod)
     div = farith("/", num, b) if rec is None else farith("*", num, torch.full_like(num, rec))
     ind = (flush(mod) != 0) & (_fsign(b) != _fsign(mod))
@@ -1162,9 +1243,9 @@ def udivrem64(a: torch.Tensor, b: torch.Tensor) -> tuple[torch.Tensor, torch.Ten
     return q, r
 
 
-def _mod(a: torch.Tensor, b: torch.Tensor, dt: np.dtype) -> torch.Tensor:
+def _mod(a: torch.Tensor, b: torch.Tensor, dt: np.dtype, pow2: bool = False) -> torch.Tensor:
     """_mod_jnp: jnp.remainder (floor-sign) with an exact-zero float
-    remainder taking the divisor's sign."""
+    remainder taking the divisor's sign; ``pow2`` as fmod_torch's."""
     if dt == _U64:  # x % 0 = 0, as the JAX twin's b == 0 -> 1
         return udivrem64(a, torch.where(b == 0, torch.ones_like(b), b))[1]
     if dt in (_U16, _U32):
@@ -1173,7 +1254,7 @@ def _mod(a: torch.Tensor, b: torch.Tensor, dt: np.dtype) -> torch.Tensor:
         b = torch.where(b == 0, torch.ones_like(b), b)
         tm = lax_rem(a, b, dt)
     else:
-        tm = fmod_torch(a, b)
+        tm = fmod_torch(a, b, pow2)
     if dt.kind != "f":
         plus = ((tm < 0) != (b < 0)) & (tm != 0)
         return torch.where(plus, tm + b, tm)
@@ -1284,7 +1365,8 @@ def _float_binop(op: str, l, r, ct: np.dtype, weak: bool, fuse) -> TVal:
         if kind == "same":
             return TVal(_as_dtype(x, ct), ct, weak)
         if kind == "neg":
-            return TVal(_fneg(_as_dtype(x, ct)), ct, weak)
+            v = _as_dtype(x, ct)
+            return TVal(_fneg(v), ct, weak, neg=v)
         if kind == "select":
             b = convert(_tval(x), _BOOL)
             v = _as_dtype(rw[2], ct)
@@ -1296,20 +1378,40 @@ def _float_binop(op: str, l, r, ct: np.dtype, weak: bool, fuse) -> TVal:
         return _product(l, r, ct, weak)
     a, b = _operands(l, r, ct)
     if op == "%":
-        return TVal(_mod(a, b, ct), ct, weak)
+        return TVal(_mod(a, b, ct, literal_pow2(r, ct)), ct, weak)
     if op in _CMP:
         return TVal(_CMP[op](flush(a), flush(b)), _BOOL, False)
     if op in ("+", "-") and fuse is not None:
         for side, v, other in ((0, l, b), (1, r, a)):
             if fuse[side] and isinstance(v, TVal) and v.prod is not None and v.dt == ct:
-                x, y = v.prod
-                if op == "-":
-                    if side == 0:
-                        other = _fneg(other)
-                    else:
-                        x = _fneg(x)
-                return TVal(fma_torch(x, y, other), ct, weak)
+                x, y, neg_x = v.prod
+                if op == "-" and side == 1:
+                    neg_x = not neg_x
+                return TVal(fma_torch(x, y, other, neg_x, op == "-" and side == 0), ct, weak)
+    if op in ("+", "-"):
+        folded = fold_negation(op, l, r, a, b, ct)
+        if folded is not None:
+            return TVal(farith(*folded), ct, weak)
     return TVal(farith(op, a, b), ct, weak)
+
+
+def fold_negation(op: str, l, r, a, b, ct: np.dtype):
+    """LLVM's folds of a float negation into an add or subtract, as
+    (op, first, second) over the operands ``a``, ``b`` of ``l op r`` (the
+    same value; a NaN is the first NaN of the new operands, unnegated where
+    the negation went): -A + B is B - A, A + -B is A - B, -A + -B is
+    (-B) - A, A - -B is B + A. None where no operand is a negation of
+    ``ct``. Operands are TVals (with ``neg``) or the generator's SVs."""
+    na = getattr(l, "neg", None) if getattr(l, "dt", None) == ct else None
+    nb = getattr(r, "neg", None) if getattr(r, "dt", None) == ct else None
+    if op == "+":
+        if na is not None:
+            return "-", b, na
+        if nb is not None:
+            return "-", a, nb
+    elif nb is not None:
+        return "+", nb, a
+    return None
 
 
 def _as_dtype(x, ct: np.dtype) -> torch.Tensor:
@@ -1326,8 +1428,8 @@ def _product(l, r, ct: np.dtype, weak: bool) -> TVal:
     a, b = flush(a), flush(b)
     dev = a.device if a.dim() else b.device
     a, b = a.to(dev), b.to(dev)
-    keep = not two and ct != _F16  # a float16 product rounds before any add
-    return TVal(farith("*", a, b), ct, weak, (a, b) if keep else None)
+    keep = not two and (ct != _F16 or float16_model() == F16_NATIVE)
+    return TVal(farith("*", a, b), ct, weak, (a, b, False) if keep else None)
 
 
 # fused multiply-add, correctly rounded (one rounding of a * b + c), the
@@ -1370,16 +1472,25 @@ def _fma_exact(a: float, b: float, c: float) -> float:
         return float("inf") if exact > 0 else float("-inf")
 
 
-def fma_torch(x: torch.Tensor, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
-    """fma(x, y, z) of one float dtype, correctly rounded, operands read
-    flushed and the result NaN-fixed and flushed. float32 takes the exact
+def fma_torch(x: torch.Tensor, y: torch.Tensor, z: torch.Tensor, neg_x: bool = False,
+              neg_z: bool = False) -> torch.Tensor:
+    """fma(-x if neg_x, y, -z if neg_z) of one float dtype, correctly
+    rounded, operands read flushed and the result NaN-fixed and flushed; a
+    NaN is the first NaN of x, y, z quieted with its own sign (x86's
+    vfmsub / vfnmadd return the operand, not its negation). float16 takes the exact
+    product in float32 and a sum rounded to odd; float32 takes the exact
     product in float64 and a sum rounded to odd (so the final rounding to
     float32 is the only one that counts); float64 takes Dekker's exact
     product and the round-to-odd sum of Boldo and Melquiond, and exact
     rational arithmetic on the rows where those could overflow or
     underflow."""
     x, y, z = torch.broadcast_tensors(flush(x), flush(y), flush(z))
-    if x.dtype == torch.float32:
+    raw = (x, y, z)
+    x = _fneg(x) if neg_x else x
+    z = _fneg(z) if neg_z else z
+    if x.dtype == torch.float16:  # the product exact in float32, the sum rounded to odd
+        r = _round_odd_sum(x.float() * y.float(), z.float()).half()
+    elif x.dtype == torch.float32:
         p = x.double() * y.double()
         r = _round_odd_sum(p, z.double()).to(torch.float32)
     else:
@@ -1401,7 +1512,7 @@ def fma_torch(x: torch.Tensor, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor
             r = r.clone()
             r[bad] = fix.to(r.device)
         r = torch.where(torch.isfinite(x) & torch.isfinite(y) & torch.isfinite(z), r, x * y + z)
-    return flush(nan_fix(r, x, y, z))
+    return flush(nan_fix(r, *raw))
 
 
 def floordiv_torch(l, r) -> TVal:
@@ -1410,7 +1521,7 @@ def floordiv_torch(l, r) -> TVal:
         l = _tval(l)
     ct, weak = floordiv_type(jax_type(l), jax_type(r))
     a, b = _operands(l, r, ct)
-    return TVal(_floordiv(a, b, ct, literal_reciprocal(r, ct)), ct, weak)
+    return TVal(_floordiv(a, b, ct, literal_reciprocal(r, ct), literal_pow2(r, ct)), ct, weak)
 
 
 def literal_reciprocal(r, ct: np.dtype) -> Optional[float]:

@@ -1,7 +1,10 @@
-"""Formats of the port: bytes <-> columnar batches (the port's share of the
-JAX package's ``formats``): JSON (structured, unstructured, debezium),
-newline / length framing and the bad-data policy. Avro, Protobuf and raw
-string / bytes are ROADMAP A.9 and refused by name.
+"""Formats of the port: bytes <-> columnar batches (the port's copy of the
+JAX package's ``formats``).
+
+JSON (structured/unstructured/debezium), Avro (bare datums, Confluent wire
+format, object container files), Protobuf (descriptor sets), raw
+string/bytes; newline/length framing; BadData::{Drop,Fail} policy; Confluent
+schema-registry resolver.
 """
 
 from .base import BadDataError, RowBatchingDeserializer, rows_to_batch
@@ -13,6 +16,7 @@ from .json_fmt import (
     serialize_json_lines,
 )
 from .registry import (
+    AvroDeserializer,
     DebeziumJsonDeserializer,
     default_framing,
     make_deserializer,
@@ -29,6 +33,7 @@ __all__ = [
     "format_iso_micros",
     "parse_iso_micros",
     "serialize_json_lines",
+    "AvroDeserializer",
     "DebeziumJsonDeserializer",
     "default_framing",
     "make_deserializer",

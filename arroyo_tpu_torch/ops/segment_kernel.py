@@ -61,11 +61,12 @@ import torch
 
 from ..batch import KEY_FIELD, TIMESTAMP_FIELD
 from . import kernels, staging
-from ..expr import (BinOp, Case, Cast, CAST_TARGETS, Col, Func, Lit, Neg, Not,
+from ..expr import (BinOp, Case, Cast, CAST_TARGETS, Col, F16_NATIVE, F16_WIDE, Func, Lit, Neg, Not,
                     TORCH_DTYPES, UNSIGNED_BITS, TVal, as_full, binop_type, contraction_sites, convert, default_nan_bits, dtype_floor, flush, max_bits,
-                    floordiv_torch, floordiv_type, hash_columns_torch, int_div_type,
-                    is_minmax_select, jax_type, literal_reciprocal, literal_rewrite, promote,
-                    quiet_bit, scalar_as, storage_dtype, unary_type)
+                    float16_model, float16_model_as, floordiv_torch, floordiv_type, hash_columns_torch,
+                    fold_negation, int_div_type, is_minmax_select, jax_type, literal_pow2,
+                    literal_reciprocal,
+                    literal_rewrite, promote, quiet_bit, scalar_as, storage_dtype, unary_type)
 
 BLOCK = 256
 NUM_WARPS = 4
@@ -266,7 +267,7 @@ def segment_plain(prog: "SegmentProgram", n: int, inputs: list[torch.Tensor]):
     tensor (uint64 as int64 bits), ``mask`` is the [P] validity mask (None
     without an in-trace filter), ``aux`` one (max, count) pair of 0-d
     tensors per watermark stage."""
-    with contraction_sites(prog.sites):
+    with contraction_sites(prog.sites), float16_model_as(prog.f16_model):
         return _plain(prog, n, inputs)
 
 
@@ -326,15 +327,17 @@ class SV:
     """A symbolic [BLOCK] value of the generated kernel: the name of its
     variable, its NumPy dtype (uint64 as int64 bits), JAX's weak flag, and
     for a float product ``prod`` = (x, y, negated): its flushed operands'
-    names and whether the value is -(x * y)."""
+    names and whether the value is -(x * y); for a float negation ``neg``
+    (expr.TVal's)."""
 
-    __slots__ = ("code", "dt", "weak", "prod")
+    __slots__ = ("code", "dt", "weak", "prod", "neg")
 
-    def __init__(self, code: str, dt, weak: bool = False, prod=None):
+    def __init__(self, code: str, dt, weak: bool = False, prod=None, neg=None):
         self.code = code
         self.dt = np.dtype(dt)
         self.weak = weak
         self.prod = prod
+        self.neg = neg  # a float negation: the name of the value it negates
 
 
 class _Gen:
@@ -342,10 +345,11 @@ class _Gen:
     converted to the node's compute dtype before the operation, so Triton's
     own promotion rules never decide a type."""
 
-    def __init__(self, sites: Optional[dict] = None):
+    def __init__(self, sites: Optional[dict] = None, f16: str = F16_WIDE):
         self.lines: list[str] = []
         self._k = 0
         self.sites = sites or {}
+        self.f16 = f16  # the float16 model (expr.F16_WIDE / F16_NATIVE)
 
     def let(self, code: str, dt, weak: bool = False) -> SV:
         name = f"t{self._k}"
@@ -514,11 +518,9 @@ class _Gen:
         ib = _IB[dt.itemsize]
         return f"tl.full([BLOCK], {default_nan_bits(dt)}, {_TL[ib]}).to({_TL[dt]}, bitcast=True)"
 
-    def quiet(self, x: str, dt, negate: bool = False) -> str:
+    def quiet(self, x: str, dt) -> str:
         ib = _IB[dt.itemsize]
-        flip = f" ^ {self.full(-(1 << (ib.itemsize * 8 - 1)), ib)}" if negate else ""
-        return (f"(({x}.to({_TL[ib]}, bitcast=True) | {self.full(quiet_bit(dt), ib)}){flip})"
-                f".to({_TL[dt]}, bitcast=True)")
+        return f"({x}.to({_TL[ib]}, bitcast=True) | {self.full(quiet_bit(dt), ib)}).to({_TL[dt]}, bitcast=True)"
 
     def nanfix(self, r: str, dt, *ops: str) -> str:
         """expr.nan_fix: each NaN of ``r`` becomes x86's NaN for an operation
@@ -535,11 +537,31 @@ class _Gen:
             return r
         return SV(self.nanfix(r.code, dt, *ops), dt, weak)
 
-    def fmod(self, a: str, b: str, dt) -> str:
+    def fmod(self, a: str, b: str, dt, pow2: bool = False) -> str:
         """libdevice fmod (exact) with the divisor read flushed, NaN-fixed,
-        as expr.fmod_torch."""
+        as expr.fmod_torch; with ``pow2`` the dividend read flushed and its
+        sign bit copied onto the result."""
         b = self.flush(b, dt)
-        return self.op(self.in_f32("fmod", dt, a, b), dt, a, b).code
+        sign_of = a
+        if pow2:
+            a = self.flush(a, dt)
+        r = self.op(self.in_f32("fmod", dt, a, b), dt, a, b).code
+        return self.copysign_bits(r, sign_of, dt) if pow2 else r
+
+    _COPYSIGN = {2: ("h", "b16", "0x7FFF", "0x8000"), 4: ("r", "b32", "0x7FFFFFFF", "0x80000000"),
+                 8: ("l", "b64", "0x7FFFFFFFFFFFFFFF", "0x8000000000000000")}
+
+    def copysign_bits(self, x: str, s: str, dt) -> str:
+        """``x`` with the sign bit of ``s``, on the bits in inline PTX: LLVM
+        turns and/or on a float's bits into copysign, which writes the
+        card's canonical NaN."""
+        c, b, rest, top = self._COPYSIGN[dt.itemsize]
+        ib = _TL[_IB[dt.itemsize]]
+        asm = (f"{{ .reg .{b} t; and.{b} $0, $1, {rest}; and.{b} t, $2, {top}; "
+               f"or.{b} $0, $0, t; }}")
+        return self.let(f'tl.inline_asm_elementwise("{asm}", "={c},{c},{c}", '
+                        f"[{x}.to({ib}, bitcast=True), {s}.to({ib}, bitcast=True)], dtype={ib}, "
+                        f"is_pure=True, pack=1).to({_TL[dt]}, bitcast=True)", dt).code
 
     def float_convert(self, x: str, dt, src=None) -> str:
         """float32 <-> float64 and float16 <-> float32 as
@@ -568,7 +590,8 @@ class _Gen:
             nan = f"({n64}).to(tl.int32).to(tl.float32, bitcast=True)"
         return self.let(f"tl.where({x} != {x}, {nan}, {r})", dt).code
 
-    def floordiv(self, a: str, b: str, dt, weak: bool, rec: Optional[float] = None) -> SV:
+    def floordiv(self, a: str, b: str, dt, weak: bool, rec: Optional[float] = None,
+                 pow2: bool = False) -> SV:
         if dt.kind == "u":
             q = self.lax_div(a, b, dt)
             return SV(q.code, dt, weak)
@@ -578,7 +601,7 @@ class _Gen:
             fix = self.let(f"({self.isign(a, dt)} != {self.isign(b, dt)}) & "
                            f"({rem} != {self.full(0, dt)})", _BOOL).code
             return self.let(f"tl.where({fix}, {q} - {self.full(1, dt)}, {q})", dt, weak)
-        mod = self.fmod(a, b, dt)
+        mod = self.fmod(a, b, dt, pow2)
         num = self.farith("-", a, mod, dt).code
         div = (self.farith("/", num, b, dt) if rec is None
                else self.farith("*", num, self.full(rec, dt), dt)).code
@@ -588,7 +611,7 @@ class _Gen:
         div = self.flush(self.let(f"tl.where({ind}, {dm1}, {div})", dt).code, dt)
         return self.op(self.in_f32("round", dt, div), dt, div, weak=weak)
 
-    def mod(self, a: str, b: str, dt, weak: bool) -> SV:
+    def mod(self, a: str, b: str, dt, weak: bool, pow2: bool = False) -> SV:
         if dt in UNSIGNED_BITS:  # read unsigned: the remainder, x % 0 = 0
             ua, ub = self.unsigned(a, dt), self.unsigned(b, dt)
             bs = self.unsigned(self.let(f"tl.where({ub} == 0, {self.full(1, dt)}, {b})", dt).code, dt)
@@ -599,7 +622,7 @@ class _Gen:
             tm = self.lax_rem(a, b, dt).code
             plus = self.let(f"(({tm} < {z}) != ({b} < {z})) & ({tm} != {z})", _BOOL).code
             return self.let(f"tl.where({plus}, {tm} + {b}, {tm})", dt, weak)
-        tm = self.fmod(a, b, dt)
+        tm = self.fmod(a, b, dt, pow2)
         ft, fb = self.flush(tm, dt), self.flush(b, dt)
         plus = self.let(f"(({ft} < {z}) != ({fb} < {z})) & ({ft} != {z})", _BOOL).code
         r = self.let(f"tl.where({plus}, {self.farith('+', tm, b, dt).code}, {tm})", dt).code
@@ -647,7 +670,8 @@ class _Gen:
             if kind == "same":
                 return SV(self.conv(x, ct), ct, weak)
             if kind == "neg":
-                return SV(self.flip_sign(SV(self.conv(x, ct), ct), clear=False), ct, weak)
+                v = self.conv(x, ct)
+                return SV(self.flip_sign(SV(v, ct), clear=False), ct, weak, neg=v)
             if kind == "select":
                 b = self.conv(x, _BOOL)
                 return self.let(f"tl.where({b}, {self.conv(rw[2], ct)}, {self.full(0.0, ct)})",
@@ -657,7 +681,7 @@ class _Gen:
             return self.product(l, r, ct, weak)
         a, b = self.operands(l, r, ct)
         if op == "%":
-            return self.mod(a, b, ct, weak)
+            return self.mod(a, b, ct, weak, literal_pow2(r, ct, self.f16))
         if op in ("==", "!=", "<", "<=", ">", ">="):
             return self.let(f"{self.flush(a, ct)} {op} {self.flush(b, ct)}", _BOOL)
         if op in ("+", "-") and fuse is not None:
@@ -668,6 +692,10 @@ class _Gen:
                     if op == "-" and side == 1:
                         neg_x = not neg_x
                     return self.fma(x, y, other, ct, weak, neg_x, neg_z)
+        if op in ("+", "-"):
+            folded = fold_negation(op, l, r, a, b, ct)
+            if folded is not None:
+                return self.farith(*folded, ct, weak)
         return self.farith(op, a, b, ct, weak)
 
     def product(self, l, r, ct, weak: bool) -> SV:
@@ -676,33 +704,55 @@ class _Gen:
         two = any(not isinstance(v, SV) and scalar_as(v, ct) == 2.0 for v in (l, r))
         a, b = self.operands(l, r, ct)
         a, b = self.flush(a, ct), self.flush(b, ct)
-        if ct == _F16:  # a float16 product rounds before any add
-            return self.farith("*", a, b, ct, weak)
+        if ct == _F16:  # in float32, rounded once; it contracts only under F16_NATIVE
+            r = self.farith("*", a, b, ct, weak)
+            keep = not two and self.f16 == F16_NATIVE
+            return SV(r.code, ct, weak, (a, b, False) if keep else None)
         r = self.op(f"{a} * {b}", ct, a, b)
         return SV(self.flush(r.code, ct), ct, weak, None if two else (a, b, False))
 
     def fma(self, x: str, y: str, z: str, dt, weak: bool, neg_x: bool, neg_z: bool) -> SV:
         """expr.fma_torch of (-x if neg_x, y, -z if neg_z): one rounding
-        (fma.rn), operands read flushed, the result NaN-fixed and flushed.
-        A negated operand's NaN is written from its integer bits, so no
-        float negation decides a NaN's sign."""
+        (fma.rn; float16 by fma16), operands read flushed, the result
+        NaN-fixed (a NaN operand with its own sign) and flushed."""
         x, y, z = self.flush(x, dt), self.flush(y, dt), self.flush(z, dt)
         vx = self.flip_sign(SV(x, dt), clear=False) if neg_x else x
         vz = self.flip_sign(SV(z, dt), clear=False) if neg_z else z
-        r = self.let(f"tl.fma({vx}, {y}, {vz})", dt).code
+        if dt == _F16:
+            r = self.fma16(vx, y, vz)
+        else:
+            r = self.let(f"tl.fma({vx}, {y}, {vz})", dt).code
         fix = self.dnan(dt)
-        for o, ng in reversed(((x, neg_x), (y, False), (z, neg_z))):
-            q = self.quiet(o, dt, negate=ng)
-            fix = f"tl.where({o} != {o}, {q}, {fix})"
+        for o in reversed((x, y, z)):  # a NaN operand with its own sign
+            fix = f"tl.where({o} != {o}, {self.quiet(o, dt)}, {fix})"
         r = self.let(f"tl.where({r} != {r}, {fix}, {r})", dt).code
         return SV(self.flush(r, dt), dt, weak)
+
+    def fma16(self, x: str, y: str, z: str) -> str:
+        """float16 fma as expr.fma_torch's: the product exact in float32, the
+        sum rounded to odd (two-sum, then a step of the last bit toward the
+        error), then rounded once to float16."""
+        p = self.let(f"{x}.to(tl.float32) * {y}.to(tl.float32)", _F32).code
+        zf = self.let(f"{z}.to(tl.float32)", _F32).code
+        t = self.let(f"{p} + {zf}", _F32).code
+        bb = self.let(f"{t} - {p}", _F32).code
+        e = self.let(f"({p} - ({t} - {bb})) + ({zf} - {bb})", _F32).code
+        tb = self.let(f"{t}.to(tl.int32, bitcast=True)", np.dtype(np.int32)).code
+        zero = self.full(0.0, _F32)
+        step = self.let(f"({e} != {zero}) & (({tb} & 1) == 0) & ({t} == {t}) & ({e} == {e})",
+                        _BOOL).code
+        up = self.let(f"({e} > {zero}) == ({t} > {zero})", _BOOL).code
+        odd = self.let(f"tl.where({step}, tl.where({up}, {tb} + 1, {tb} - 1), {tb})",
+                       np.dtype(np.int32)).code
+        return self.let(f"{odd}.to(tl.float32, bitcast=True).to(tl.float16)", _F16).code
 
     def floordiv_node(self, l, r) -> SV:
         if not isinstance(l, SV) and not isinstance(r, SV):
             l = self.value(l)
         ct, weak = floordiv_type(_ty(l), _ty(r))
         a, b = self.operands(l, r, ct)
-        return self.floordiv(a, b, ct, weak, literal_reciprocal(r, ct))
+        return self.floordiv(a, b, ct, weak, literal_reciprocal(r, ct),
+                             literal_pow2(r, ct, self.f16))
 
     def where(self, cond, x, y, minmax: bool = False) -> SV:
         if not isinstance(x, SV) and not isinstance(y, SV):
@@ -756,7 +806,7 @@ class _Gen:
             unary_type("neg", v.dt)
             if v.dt.kind == "f":
                 prod = None if v.prod is None else (v.prod[0], v.prod[1], not v.prod[2])
-                return SV(self.flip_sign(v, clear=False), v.dt, v.weak, prod)
+                return SV(self.flip_sign(v, clear=False), v.dt, v.weak, prod, neg=v.code)
             return self.let(f"{self.full(0, v.dt)} - {v.code}", v.dt, v.weak)
         if isinstance(e, Cast):
             if e.dtype not in CAST_TARGETS:
@@ -846,14 +896,15 @@ def _max_nan(a, b):
 '''
 
 
-def generate(plan, in_dtypes, sites: Optional[dict] = None
+def generate(plan, in_dtypes, sites: Optional[dict] = None, f16_model: Optional[str] = None
              ) -> tuple[str, dict[str, np.dtype], list[np.dtype], bool]:
     """Triton source of K4 for a bound plan. Returns (source, output dtypes,
     watermark dtypes, has_mask). Raises TypeError where a node or dtype is
     outside the kernel (the segment then falls back, as it would in the
     JAX package for a trace failure). ``sites`` is the plan's
-    ``contraction_table``."""
-    g = _Gen(contraction_table(plan) if sites is None else sites)
+    ``contraction_table``, ``f16_model`` the float16 model (None: the
+    host's, ``expr.float16_model``)."""
+    g = _Gen(contraction_table(plan) if sites is None else sites, f16_model or float16_model())
     for dt in in_dtypes:
         if dt not in _TL:
             raise TypeError(f"input column of dtype {dt}: not a dtype of the segment kernel")
@@ -1011,12 +1062,15 @@ class SegmentProgram:
     partials (``_fold_state``): chained tasks call one program from
     several threads."""
 
-    def __init__(self, plan, in_dtypes):
+    def __init__(self, plan, in_dtypes, f16_model: Optional[str] = None):
         self.plan = plan
         self.in_dtypes = [np.dtype(d) for d in in_dtypes]
         self.sites = contraction_table(plan)
+        # the float16 model is a constant of the program: the kernel's source
+        # and its plain version both follow it (None: the host's)
+        self.f16_model = f16_model or float16_model()
         self.source, self.out_dtypes, self.wm_dtypes, self.has_mask = generate(
-            plan, self.in_dtypes, self.sites)
+            plan, self.in_dtypes, self.sites, self.f16_model)
         self.digest = hashlib.sha256(self.source.encode()).hexdigest()[:16]
         self._module = None
         self._fold: dict = {}

@@ -6,7 +6,7 @@ package restores in the other:
 
     {storage}/{job}/checkpoints/checkpoint-{epoch:07d}/operator-{node}/
         table-{name}-{subtask:03d}.bin    a global_keyed table (a pickled dict)
-        table-{name}-{subtask:03d}.npz    an expiring_time_key table (columns)
+        table-{name}-{subtask:03d}.parquet (or .npz) an expiring_time_key table
         metadata-{subtask:03d}.json       the subtask's sidecar, self-checksummed
     {storage}/{job}/checkpoints/checkpoint-{epoch:07d}/metadata.json
                                           the job marker (the commit point)
@@ -16,12 +16,14 @@ watermark and by the restoring subtask's routing-key range, which is what
 makes a restore at another parallelism work. A drained source's state comes
 from the ``"final"`` snapshot it writes at end of data.
 
-The port writes the npz codec for either value of ``checkpoint.file-format``
-("parquet", the default, or "npz"), as the JAX package itself does where
-pyarrow is missing, as on the card; another value is refused. Reading a
-``.parquet`` state file raises. Values pickled into a global_keyed table
-are built-in Python and numpy values only, and a pickle naming anything
-else is refused, so neither package ever unpickles the other's classes.
+An expiring_time_key table's file is parquet under ``checkpoint.file-format
+= "parquet"`` (the default) where pyarrow is importable, and npz under
+"npz" or where pyarrow is missing (as on the card), as in the JAX package;
+a reader takes the codec from the file's extension. pyarrow is imported
+only here, when a parquet file is written or read. Values pickled into a
+global_keyed table or a parquet ``__pickled`` column are built-in Python
+and numpy values only, and a pickle naming anything else is refused, so
+neither package ever unpickles the other's classes.
 
 Compaction (``compact_operator`` / ``compact_job``) merges an epoch's
 per-subtask files into one generation-1 file per table,
@@ -40,6 +42,7 @@ import json
 import logging
 import os
 import pickle
+import threading
 from typing import Any, Iterable, Optional
 
 import numpy as np
@@ -110,25 +113,51 @@ def loads_values(data: bytes):
     return _ValuesUnpickler(io.BytesIO(data)).load()
 
 
+# pyarrow's C++ IO paths run under one lock, as in the JAX package
+_PARQUET_IO_LOCK = threading.Lock()
+
+
+def _parquet_available() -> bool:
+    try:
+        import pyarrow  # noqa: F401
+        import pyarrow.parquet  # noqa: F401
+
+        return True
+    except ImportError:
+        return False
+
+
 def _checkpoint_format() -> str:
-    """The codec ``checkpoint.file-format`` asks for, as the JAX package
-    resolves it where pyarrow is missing: "parquet" falls back to npz, "npz"
-    is npz, and any other value is refused."""
+    """The codec ``checkpoint.file-format`` asks for, resolved as the JAX
+    package resolves it: "parquet" falls back to npz where pyarrow is
+    missing; another value than "parquet" or "npz" is refused."""
     from ..config import config
 
     fmt = config().get("checkpoint.file-format", "parquet")
     if fmt not in ("parquet", "npz"):
         raise ValueError(f"checkpoint.file-format = {fmt!r}: expected 'parquet' or 'npz'")
-    return "npz"
+    if fmt == "parquet" and not _parquet_available():
+        return "npz"
+    return fmt
+
+
+def _format_of(path: str) -> str:
+    """The codec of an existing state file, from its extension: a restore
+    reads whatever its writer used."""
+    return "npz" if path.endswith(".npz") else "parquet"
 
 
 def write_columnar(path: str, columns: dict, footer: bool = False) -> dict:
-    """Write named columns as npz; object columns ride a pickled sidecar
-    array (``__objcols__``) with their python values. Returns the integrity
-    envelope of the written bytes; ``footer=True`` instead appends the
-    self-describing integrity trailer (storage.wrap_footer), for spill runs,
-    which outlive any one epoch's manifest."""
-    _checkpoint_format()
+    """Write named columns in the configured codec: parquet (object columns
+    by pyarrow's type inference, or a per-value pickled binary column named
+    ``{name}__pickled`` where the values are mixed) or npz (object columns
+    ride a pickled sidecar array, ``__objcols__``, with their python
+    values). Returns the integrity envelope of the written bytes;
+    ``footer=True`` instead appends the self-describing integrity trailer
+    (storage.wrap_footer), for spill runs, which outlive any one epoch's
+    manifest."""
+    if _checkpoint_format() == "parquet":
+        return _write_parquet(path, columns, footer)
     dense = {}
     objcols: dict[str, list] = {}
     for name, col in columns.items():
@@ -146,19 +175,64 @@ def write_columnar(path: str, columns: dict, footer: bool = False) -> dict:
     return storage.write_bytes(path, payload)
 
 
+def _write_parquet(path: str, columns: dict, footer: bool) -> dict:
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    arrays, names = [], []
+    for name, col in columns.items():
+        if col.dtype == object:
+            vals = [v.item() if isinstance(v, np.generic) else v for v in col]
+            try:
+                arrays.append(pa.array(vals))
+                names.append(name)
+            except (pa.ArrowInvalid, pa.ArrowTypeError):
+                arrays.append(pa.array([None if v is None else pickle.dumps(v) for v in vals],
+                                       type=pa.binary()))
+                names.append(name + "__pickled")
+        else:
+            arrays.append(pa.array(col))
+            names.append(name)
+    buf = io.BytesIO()
+    with _PARQUET_IO_LOCK:
+        pq.write_table(pa.table(arrays, names=names), buf)
+    payload = buf.getvalue()
+    if footer:
+        payload = storage.wrap_footer(payload)
+    return storage.write_bytes(path, payload)
+
+
+def _read_parquet(data: bytes) -> dict:
+    import pyarrow.parquet as pq
+
+    # the bytes are fetched before the lock: a storage read may block
+    with _PARQUET_IO_LOCK:
+        table = pq.read_table(io.BytesIO(data), use_threads=False)
+    cols: dict[str, np.ndarray] = {}
+    for name in table.column_names:
+        arr = table.column(name)
+        if name.endswith("__pickled"):
+            cols[name[:-len("__pickled")]] = object_column(
+                None if v is None else loads_values(v) for v in arr.to_pylist())
+        elif str(arr.type) in ("string", "large_string", "null") or arr.null_count > 0:
+            # python values kept: to_numpy would make a nullable int float64
+            cols[name] = object_column(arr.to_pylist())
+        else:
+            cols[name] = np.asarray(arr.to_numpy(zero_copy_only=False))
+    return cols
+
+
 def read_columnar(path: str, expect: Optional[dict] = None, restore: bool = False) -> dict:
-    """Read a columnar state file. ``expect`` is the envelope a manifest
-    recorded for it; verification follows ``state.integrity.verify``
-    (``restore`` marks a restore-path read)."""
-    if not path.endswith(".npz"):
-        raise NotImplementedError(
-            f"state file {path}: the port reads the npz codec only; parquet state "
-            f"files need pyarrow, which the port does not use")
+    """Read a columnar state file in the codec of its extension. ``expect``
+    is the envelope a manifest recorded for it; verification follows
+    ``state.integrity.verify`` (``restore`` marks a restore-path read)."""
     verify = _should_verify(restore)
     data = storage.read_bytes(path)
     if expect is not None and verify and "crc" in expect:
         storage.verify_envelope(data, expect, path)
     data = storage.unwrap_footer(data, path, verify=verify)
+    if _format_of(path) == "parquet":
+        return _read_parquet(data)
     npz = np.load(io.BytesIO(data), allow_pickle=False)
     cols = {name: npz[name] for name in npz.files if name != "__objcols__"}
     if "__objcols__" in npz.files:
@@ -313,8 +387,9 @@ class TableManager:
 
                 meta["spill_runs"] = manifest_run_files(table.data)
             files.append(meta)
+        ext = _checkpoint_format()
         for name, table in self.expiring.items():
-            meta = table.write_checkpoint(os.path.join(opdir, f"table-{name}-{sub}.npz"))
+            meta = table.write_checkpoint(os.path.join(opdir, f"table-{name}-{sub}.{ext}"))
             if meta is not None:
                 meta["table"] = name
                 meta["retention_micros"] = table.retention_micros

@@ -57,7 +57,11 @@ non-zero, printing no result):
               bids chains of qu and qs, an
               expression grid over every allowlisted operator and function
               and int32/int64/float32/float64/bool columns with their edge
-              values, all at an odd row count; on its own edge cases (n = 0,
+              values, all at an odd row count; C4's and C10's plans under
+              each float16 model (the program's compile-time constant:
+              F16_WIDE, float16 in float32 rounded once an operation, and
+              F16_NATIVE, XLA's code on an AVX512-FP16 host, its multiply-adds
+              contracted); on its own edge cases (n = 0,
               P not a multiple of BLOCK, every row filtered, two NaN payloads
               in one batch, the fold's loop over many partials, 1,000
               back-to-back launches of one program: the fold's ticket counter
@@ -261,8 +265,8 @@ non-zero, printing no result):
               shape; then q7c timed with the profiler on and off and with
               the native host library on and off, and q8c (whose join feeds
               a key sketch, after one untimed run) with the profiler on and
-              off, four times each, alternating in an order that rotates
-              each round (each setting once in each place), each exact
+              off, twice each (OBS_REPS), alternating in an order that
+              rotates each round, each exact
               (medians printed); q7c's profile-off runs twice a round (A/A:
               their ratio is the host's noise floor), and one more profiled
               q7c run times each profiler hook on each task thread.
@@ -300,6 +304,40 @@ non-zero, printing no result):
               barrier to complete for every complete epoch (the
               controller's trigger to durable; fails if one lacks either),
               kill to Running and to Finished.
+26. deploy -- deployment at bench.py's sizes. (a) `python -m
+              arroyo_tpu_torch node` as a subprocess with no device setting
+              (under NODE_MAIN, which starts each worker it spawns under
+              COUNTING_MAIN), the API and ControllerServer(NodeScheduler) in
+              this process: SQL q7 (2,000,000 events, parallelism 2) POSTed
+              to the REST API, the node's two worker processes each holding
+              a CUDA context (nvidia-smi's compute apps) and launching K1
+              and K2 (and K4, one Triton launch a call), exact against
+              oracle_sql; the node live at GET /api/v1/nodes and its slots
+              free after Finished. (b) `python -m arroyo_tpu_torch
+              compile-service` as a subprocess, ``compiler.endpoint`` at it:
+              a cpp UDF POSTed to the REST API (dollars_to_euros, price *
+              908 / 1000 on int64) and built by g++ there; SQL q7 over
+              MAX(dollars_to_euros(price)) at 2,000,000 events through the
+              node's workers, which fetch the artifact, exact against a
+              numpy oracle, K1 and K2 launched, the workers' relayed
+              SEGMENT_COMPILED / SEGMENT_FALLBACK printed. (c) q7's bids
+              written by the port's generator as JSON lines (2,000,000
+              events, 8 files) and as an Avro OCF with deflate (500,000
+              events: a cut of scale, the Avro codec being row-at-a-time
+              Python); SQL q7 over each set through a filesystem source
+              into a JSON filesystem sink partitioned by auction % 4 with
+              exactly-once commits, checkpoints to an s3:// URL served by an
+              in-process client (MemoryS3, multipart above 64 KiB): the
+              source held at half its batches for epoch 1 and three
+              quarters for epoch 2, whose barrier crashes the window
+              (worker:crash@barrier=2); a fresh engine restores epoch 1 from
+              the store, and the committed files then hold the oracle's
+              rows, none twice, no partial file; then a parquet sink runs
+              exact where pyarrow is importable and fails the job naming
+              pyarrow where it is not. Prints the phase's seconds, node q7's
+              events/s beside the cluster phase's process q7, POST to
+              Running, spawn to `started`, POST to Finished and each file
+              set's events/s.
 
 ``--only a,b`` runs those phases alone after probe and build (a short
 check) and prints no result line. ``--only segment_sweep`` (in no default
@@ -456,7 +494,7 @@ REPLACES = {
 SEGMENT_SOURCE = "arroyo_tpu_torch/ops/segment_kernel.py"
 NP_DT = {torch.int32: np.int32, torch.int64: np.int64, torch.float32: np.float32,
          torch.float64: np.float64, torch.uint64: np.uint64}
-TIMING_REPS = 30
+TIMING_REPS = 20  # timed calls a measurement (30 before a cut for the run's time limit)
 WARM_TRACE_S = 0.05  # device_trace: the profiler idles this long around the traced work
 # the kernels q7c and q5 must launch (K1, K2 in its read-and-clear mode,
 # K4); q8c's are K4, K5, K6. A destructive close launches no K3.
@@ -2466,6 +2504,91 @@ def c4_plans() -> list:
     return [(label, bind_plan(members, cb, hoist), cb) for label, members, hoist in c4_segment_plans(E)]
 
 
+def c10_columns(n: int, seed: int = 20261020) -> dict:
+    """c4_columns with two more float16 columns (``h2``, ``h3``: NaNs of
+    both signs and payloads, +-inf, zeros, subnormals, values whose products
+    and sums round in float16) for C10's multiply-adds and remainders, and
+    float32 / float64 subnormals among the grid's edge values."""
+    rng = np.random.default_rng(seed)
+    cols = c4_columns(n, seed)
+    for name in ("h2", "h3"):
+        h = rng.normal(0, 30, n).astype(np.float16)
+        sub = rng.integers(1, 1024, n).astype(np.uint16) | (rng.integers(0, 2, n).astype(np.uint16) << 15)
+        pick = rng.random(n) < 0.1
+        h[pick] = sub[pick].view(np.float16)
+        h[rng.random(n) < 0.03] = 0.0
+        edge = [1.5, np.nan, -2.0, np.inf, 0.0, 0.5, -np.inf, 3.0, 2049.0, -0.0, 1.0, 65504.0]
+        h[:len(edge)] = np.roll(np.array(edge, dtype=np.float16), 3 if name == "h3" else 0)
+        h[len(edge):len(edge) + 2] = np.array([0xFE33, 0x7C05], dtype=np.uint16).view(np.float16)
+        cols[name] = h
+    # subnormal float32 / float64 dividends of the remainders by powers of two
+    cols["f32"][12:15] = np.array([1e-40, -1e-41, 3e-39], dtype=np.float32)
+    cols["f64"][12:15] = [1e-310, -5e-320, 2e-308]
+    return cols
+
+
+def c10_expressions(E) -> list:
+    """C10's expressions: float16 multiply-adds of every form XLA contracts
+    on a host with AVX512-FP16 (e460 and its kin) and those it does not
+    (a product of 2.0, a float16 product into a float32 add, e463's float32
+    product; no product is an output, which XLA would read from memory
+    instead of contracting), remainders and floor divisions by literal powers of two (e391)
+    and by other divisors (floor division through date_trunc_micros), float32
+    and float64 remainders by literal powers of two, 0 / 0, compares and
+    conversions of float16 (e393)."""
+    c, lit, B = E.Col, E.Lit, E.BinOp
+    x, y, z = c("f16"), c("h2"), c("h3")
+    return [
+        ("x * y + z", B("+", B("*", x, y), z)),
+        ("x * y - z", B("-", B("*", x, y), z)),
+        ("z - x * y", B("-", z, B("*", x, y))),
+        ("-(x * y) + z", B("+", E.Neg(B("*", x, y)), z)),
+        ("x * 3.0 + z", B("+", B("*", x, lit(3.0)), z)),
+        ("f32 * y32 - z32", B("-", B("*", c("f32"), E.Cast(y, "float32")), E.Cast(z, "float32"))),
+        ("z32 - f32 * x32", B("-", E.Cast(z, "float32"), B("*", c("f32"), E.Cast(x, "float32")))),
+        ("-(f64 * y64) + z64", B("+", E.Neg(B("*", c("f64"), E.Cast(y, "float64"))),
+                                  E.Cast(z, "float64"))),
+        ("x / 3.0 + z", B("+", B("/", x, lit(3.0)), z)),
+        ("x * 2.0 - 1.0", B("-", B("*", x, lit(2.0)), lit(1.0))),
+        ("x * y + f32", B("+", B("*", x, y), c("f32"))),
+        ("cast(f64, float32) * x + z", B("+", B("*", E.Cast(c("f64"), "float32"), x), z)),
+        ("x % True", B("%", x, lit(True))),
+        ("x % 2.0", B("%", x, lit(2.0))),
+        ("x % -4", B("%", x, lit(-4))),
+        ("x % 0.5", B("%", x, lit(0.5))),
+        ("x % 3.0", B("%", x, lit(3.0))),
+        ("x % y", B("%", x, y)),
+        ("date_trunc_micros(2, x)", E.Func("date_trunc_micros", (lit(2), x))),
+        ("date_trunc_micros(4, f32)", E.Func("date_trunc_micros", (lit(4), c("f32")))),
+        ("f32 % 1.0", B("%", c("f32"), lit(1.0))),
+        ("f64 % 4.0", B("%", c("f64"), lit(4.0))),
+        ("f32 % True", B("%", c("f32"), lit(True))),
+        ("y / y", B("/", y, y)),
+        ("x / 0.0", B("/", x, lit(0.0))),
+        ("x == i32", B("==", x, c("i32"))),
+        ("x < i64", B("<", x, c("i64"))),
+        ("cast(x, float32)", E.Cast(x, "float32")),
+        ("cast(x, float64)", E.Cast(x, "float64")),
+        ("cast(x, int32)", E.Cast(x, "int32")),
+    ]
+
+
+def c10_segment_plans(E) -> list:
+    """(label, member configs, hoist) of C10's plans over ``c10_columns``:
+    its expressions in one chunk behind an in-trace filter."""
+    return expression_chunks(E, c10_expressions(E), "c10 exprs")
+
+
+def c10_plans() -> list:
+    """C10's plans over ``c10_columns``, K4 held to its plain version under
+    each float16 model (tests/test_torch_c10.py holds the plain version to
+    the JAX compiled segment on each kind of host)."""
+    from arroyo_tpu_torch import expr as E
+
+    cb = Batch(c10_columns(GRID_N))
+    return [(label, bind_plan(members, cb, hoist), cb) for label, members, hoist in c10_segment_plans(E)]
+
+
 def segment_build(out_dir: str) -> tuple[dict, list]:
     """Compile K4 for the q7 and q5 plans (and load the rest): the generated
     source goes to <out-dir>/segment_src/, seconds per plan to the line."""
@@ -2541,12 +2664,15 @@ def k4_pairs(aux) -> list:
     return [(m.item() if int(c) else None, int(c)) for m, c in aux]
 
 
-def compare_segment(label, plan, batch, dev) -> dict:
+def compare_segment(label, plan, batch, dev, f16_model=None) -> dict:
     """compare_k4 on a bound plan's staged inputs (CompiledSegment.execute's
-    staging)."""
-    prog = segment_kernel.SegmentProgram(plan, [np.asarray(batch[c]).dtype for c in plan.traced_in])
+    staging), the program under float16 model ``f16_model`` (None: the
+    host's)."""
+    prog = segment_kernel.SegmentProgram(plan, [np.asarray(batch[c]).dtype for c in plan.traced_in],
+                                         f16_model)
     n, ins = staged_inputs(plan, batch, dev)
-    return {**compare_k4(label, prog, n, ins), "source_lines": prog.source.count("\n")}
+    return {**compare_k4(label, prog, n, ins), "source_lines": prog.source.count("\n"),
+            "digest": prog.digest, "f16_model": prog.f16_model}
 
 
 K4_BACK_TO_BACK = 1000
@@ -2710,9 +2836,24 @@ def segment_phase(nex_plans: list) -> dict:
     dev = torch.device("cuda")
     checked = {}
     t0 = time.perf_counter()
-    for label, plan, batch in nex_plans + grid_plans() + c9_plans() + c4_plans():
+    for label, plan, batch in nex_plans + grid_plans() + c9_plans():
         log(f"segment: check {label}")
         checked[label] = compare_segment(label, plan, batch, dev)
+    # C4's and C10's plans under both float16 models (C10): a plan whose
+    # source is the same under both is one Triton program, compiled once
+    # (the model reaches a program only through its source: a plan whose
+    # source is the same under both is one program and one plain
+    # computation, checked once)
+    f16_sources: dict = {}
+    dts = lambda plan, batch: [np.asarray(batch[c]).dtype for c in plan.traced_in]  # noqa: E731
+    for label, plan, batch in c4_plans() + c10_plans():
+        for model in (E.F16_WIDE, E.F16_NATIVE):
+            digest = segment_kernel.SegmentProgram(plan, dts(plan, batch), model).digest
+            if digest in f16_sources.setdefault(label, set()):
+                continue
+            log(f"segment: check {label} ({model} float16)")
+            checked[f"{label} [{model} float16]"] = compare_segment(label, plan, batch, dev, model)
+            f16_sources[label].add(digest)
     log("segment: K4's edge cases")
     edge = k4_edge_cases(nex_plans, dev)
     check_s = time.perf_counter() - t0
@@ -2720,6 +2861,9 @@ def segment_phase(nex_plans: list) -> dict:
     timing = k4_timing(*nex_plans[0][1:], dev)  # q7's plan
     timing_f64 = k4_timing(bind_plan(float64_members(E), gb, hoist=False), gb, dev)
     info = {"phase": "segment", "plans_checked": len(checked), "check_seconds": check_s,
+            "host_float16_model": E.host_float16_model(),
+            "float16_plans_with_two_programs": sorted(k for k, v in f16_sources.items()
+                                                      if len(v) == 2),
             "max_abs_err": 0.0, "checked": checked, "edge_cases": edge, "timing_q7": timing,
             "timing_float64": timing_f64}
     emit(info)
@@ -5981,7 +6125,7 @@ def torn_and_corrupt(url_root: str) -> dict:
             epoch = latest_complete_checkpoint(u, job)
         else:
             table = next(os.path.join(r, f) for r, _d, fs in os.walk(d2) for f in sorted(fs)
-                         if f.startswith("table-") and f.endswith(".npz"))
+                         if f.startswith("table-") and f.endswith((".npz", ".parquet")))
             with open(table, "rb") as f:
                 data = f.read()
             with open(table, "wb") as f:
@@ -6343,10 +6487,14 @@ def agg_table_files(url: str, job: str, epoch: int = 1) -> list:
     return sorted(f for f in os.listdir(d) if f.startswith("table-"))
 
 
-# the window's compacted tables: its key-skew sketch (the profiler's), its
-# late-data marks and its rows
-COMPACTED = ["table-__sketch-compacted-g1.bin", "table-e-compacted-g1.bin",
-             "table-t-compacted-g1.npz"]
+def compacted_files() -> list:
+    """The window's compacted tables: its key-skew sketch (the profiler's),
+    its late-data marks and its rows (parquet where pyarrow is importable,
+    else npz)."""
+    from arroyo_tpu_torch.state.tables import _checkpoint_format
+
+    return ["table-__sketch-compacted-g1.bin", "table-e-compacted-g1.bin",
+            f"table-t-compacted-g1.{_checkpoint_format()}"]
 
 
 def recovery_compaction(root: str) -> dict:
@@ -6370,7 +6518,7 @@ def recovery_compaction(root: str) -> dict:
     t0 = time.perf_counter()
     removed = eng.compact(1)
     compact_ms = (time.perf_counter() - t0) * 1e3
-    if agg_table_files(url, job) != COMPACTED or n_files != 12:
+    if agg_table_files(url, job) != compacted_files() or n_files != 12:
         raise AssertionError(f"compaction left {agg_table_files(url, job)} of {n_files} files")
     out = {"compact_ms": compact_ms, "files_removed": removed, "agg_files_before": n_files,
            "epoch_before": before, "epoch_after": epoch_bytes(url, job, 1),
@@ -6403,7 +6551,7 @@ def recovery_compaction(root: str) -> dict:
         if not rest["launches"].get("slot_scatter_combine_merge"):
             raise AssertionError(f"torn compaction {tear}: the restore launched no K1 merge")
         compact_job(u, job, 1)
-        if agg_table_files(u, job) != COMPACTED:
+        if agg_table_files(u, job) != compacted_files():
             raise AssertionError(f"a re-run after tear {tear} left {agg_table_files(u, job)}")
         out["torn"][tear] = {"restore_build_ms": rest["build_ms"], "run_s": rest["run_s"],
                              "fsck_ms": no_fsck_errors(u, job)}
@@ -7299,6 +7447,623 @@ def cluster_phase(card: str, res: dict) -> dict:
     return info
 
 
+# ---------------------------------------------------------------- deploy
+
+# Deployment on the card: a node daemon spawning the workers, a C++ UDF
+# built once by the compile service and fetched by every worker, files in
+# and out in the formats the JAX package reads and writes, and checkpoints
+# in an object store.
+DEPLOY_EVENTS = Q7_EVENTS  # (a), (b), and (c)'s JSON-lines files
+DEPLOY_JSON_FILES = 8
+# (c)'s Avro OCF at a quarter of bench.py's q7 size: a cut of scale, as the
+# Avro codec is row-at-a-time Python in both packages
+DEPLOY_AVRO_EVENTS = 500_000
+DEPLOY_NODE_SLOTS = CLUSTER_WORKERS
+# S3's multipart path for every state file above 64 KiB (in-process client)
+DEPLOY_MULTIPART_BYTES = 64 * 1024
+CPP_DOLLARS_TO_EUROS = r"""
+#include <cstdint>
+extern "C" void dollars_to_euros(int64_t n, const int64_t* price, int64_t* out) {
+  for (int64_t i = 0; i < n; i++) out[i] = price[i] * 908 / 1000;
+}
+"""
+SQL_Q7_EUROS = """CREATE TABLE q7e_out (start TIMESTAMP, auction BIGINT, max_euros BIGINT, bids BIGINT)
+WITH (connector = 'single_file', path = '{out}', format = 'json', type = 'sink');
+INSERT INTO q7e_out
+SELECT window.start AS start, auction, max_euros, bids FROM (
+  SELECT tumble(interval '10 seconds') AS window, "bid.auction" AS auction,
+    max(dollars_to_euros("bid.price")) AS max_euros, count(*) AS bids
+  FROM nexmark WHERE bid GROUP BY window, auction) x;
+"""
+# q7 over a filesystem source of the bids, into a partitioned filesystem sink
+SQL_Q7_FILES = """CREATE TABLE bids (auction BIGINT, price BIGINT, ts TIMESTAMP)
+WITH (connector = 'filesystem', path = '{src}', format = '{fmt}', type = 'source',
+      event_time_field = 'ts');
+CREATE TABLE q7f_out (start TIMESTAMP, auction BIGINT, max_price BIGINT, bids BIGINT, shard BIGINT)
+WITH (connector = 'filesystem', path = '{out}', format = '{out_fmt}', type = 'sink');
+INSERT INTO q7f_out
+SELECT window.start AS start, auction, max_price, bids, auction % 4 AS shard FROM (
+  SELECT tumble(interval '10 seconds') AS window, auction, max(price) AS max_price,
+    count(*) AS bids
+  FROM bids GROUP BY window, auction) x;
+"""
+SQL_OUT_FIELDS["q7e"] = ("max_euros", "bids")
+AVRO_BIDS = {"type": "record", "name": "bid", "fields": [
+    {"name": "auction", "type": "long"}, {"name": "price", "type": "long"},
+    {"name": "ts", "type": {"type": "long", "logicalType": "timestamp-micros"}}]}
+
+# The node daemon runs the port's `python -m arroyo_tpu_torch node` through
+# runpy under this wrapper, which starts each worker it spawns under
+# COUNTING_MAIN (its second argument) writing to <first argument>.<pid>.
+NODE_MAIN = r"""
+import runpy, subprocess, sys
+
+path, counting = sys.argv.pop(1), sys.argv.pop(1)
+from arroyo_tpu_torch.controller import scheduler
+
+
+class Counting:
+    def __getattr__(self, name):
+        return getattr(subprocess, name)
+
+    def Popen(self, cmd, **kw):
+        return subprocess.Popen([sys.executable, "-c", counting, path, *cmd[3:]], **kw)
+
+
+scheduler.subprocess = Counting()
+sys.argv[0] = "arroyo_tpu_torch"
+runpy.run_module("arroyo_tpu_torch", run_name="__main__", alter_sys=True)
+"""
+
+
+def oracle_q7_euros(event_count: int) -> dict:
+    """q7 with its max over dollars_to_euros(price) (price * 908 / 1000 on
+    int64, truncating): the function rises with the price, so the max's
+    image is the image of the max."""
+    return {k: (m * 908 // 1000, c) for k, (m, c) in oracle_q7(event_count).items()}
+
+
+class MemoryS3:
+    """An in-process S3 client (the calls state/storage.py makes, multipart
+    included) behind ``storage.set_s3_client``: the object store of the
+    files phase, with no network."""
+
+    def __init__(self):
+        self.objects: dict = {}
+        self.uploads: dict = {}
+        self.multipart_completed = 0
+        self.parts = 0
+        self.lock = threading.Lock()
+
+    def put_object(self, Bucket, Key, Body):
+        with self.lock:
+            self.objects[(Bucket, Key)] = bytes(Body)
+
+    def get_object(self, Bucket, Key):
+        import io
+
+        with self.lock:
+            if (Bucket, Key) not in self.objects:
+                raise KeyError(Key)
+            return {"Body": io.BytesIO(self.objects[(Bucket, Key)])}
+
+    def head_object(self, Bucket, Key):
+        with self.lock:
+            if (Bucket, Key) not in self.objects:
+                raise KeyError(Key)
+        return {}
+
+    def delete_object(self, Bucket, Key):
+        with self.lock:
+            self.objects.pop((Bucket, Key), None)
+
+    def list_objects_v2(self, Bucket, Prefix="", Delimiter=None, MaxKeys=1000,
+                        ContinuationToken=None):
+        with self.lock:
+            keys = sorted(k for b, k in self.objects if b == Bucket and k.startswith(Prefix))
+        contents, prefixes = [], set()
+        for k in keys:
+            rest = k[len(Prefix):]
+            if Delimiter and Delimiter in rest:
+                prefixes.add(Prefix + rest.split(Delimiter)[0] + Delimiter)
+            else:
+                contents.append({"Key": k})
+        return {"Contents": contents[:MaxKeys],
+                "CommonPrefixes": [{"Prefix": p} for p in sorted(prefixes)],
+                "KeyCount": min(len(contents) + len(prefixes), MaxKeys)}
+
+    def create_multipart_upload(self, Bucket, Key):
+        with self.lock:
+            uid = f"up-{len(self.uploads)}-{self.multipart_completed}"
+            self.uploads[uid] = {}
+        return {"UploadId": uid}
+
+    def upload_part(self, Bucket, Key, UploadId, PartNumber, Body):
+        with self.lock:
+            self.uploads[UploadId][PartNumber] = bytes(Body)
+            self.parts += 1
+        return {"ETag": f"etag-{PartNumber}"}
+
+    def complete_multipart_upload(self, Bucket, Key, UploadId, MultipartUpload):
+        with self.lock:
+            parts = self.uploads.pop(UploadId)
+            self.objects[(Bucket, Key)] = b"".join(parts[p["PartNumber"]]
+                                                   for p in MultipartUpload["Parts"])
+            self.multipart_completed += 1
+
+    def abort_multipart_upload(self, Bucket, Key, UploadId):
+        with self.lock:
+            self.uploads.pop(UploadId, None)
+
+
+def start_daemon(cmd: list, env: dict, first: str) -> tuple:
+    """A `python -m arroyo_tpu_torch` daemon subprocess (node or
+    compile-service): waits for its first stderr line, which must start with
+    ``first``, then drains the rest in a thread. Returns (proc, that line,
+    the drained lines)."""
+    proc = subprocess.Popen(cmd, cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+                            stdin=subprocess.DEVNULL, stdout=subprocess.DEVNULL,
+                            stderr=subprocess.PIPE, text=True)
+    line = proc.stderr.readline()
+    if not line.startswith(first):
+        proc.kill()
+        rest = proc.stderr.read()
+        raise AssertionError(f"{cmd[3:5]}: first line {line!r}, then {rest[-3000:]}")
+    tail: list = []
+
+    def drain():
+        for ln in proc.stderr:
+            tail.append(ln)
+            del tail[:-200]
+
+    threading.Thread(target=drain, daemon=True).start()
+    return proc, line, tail
+
+
+def stop_daemon(proc, tail: list, what: str) -> int:
+    """SIGINT (the daemons' clean stop: the node kills its workers), then a
+    kill after 30 s. Returns the exit code."""
+    import signal
+
+    if proc.poll() is None:
+        proc.send_signal(signal.SIGINT)
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=30)
+            raise AssertionError(f"{what} ignored SIGINT: {''.join(tail)[-2000:]}")
+    return proc.returncode
+
+
+def timed_node_handle():
+    """The port's NodeWorkerHandle, stamping the placement call (spawn) and
+    the worker's first "started" event as the controller polls it."""
+    from arroyo_tpu_torch.controller import scheduler
+
+    class TimedNodeHandle(scheduler.NodeWorkerHandle):
+        spawned: list = []
+
+        def __init__(self, *a, **kw):
+            self.t_spawn, self.t_started = time.perf_counter(), None
+            super().__init__(*a, **kw)
+            get, handle = self._get, self
+
+            def stamped(url, *ga, **gk):
+                r = get(url, *ga, **gk)
+                if handle.t_started is None and any(
+                        e.get("event") == "started" for e in r.get("events", ())):
+                    handle.t_started = time.perf_counter()
+                return r
+
+            self._get = stamped
+            TimedNodeHandle.spawned.append(self)
+
+    return scheduler, TimedNodeHandle
+
+
+def deploy_node_run(name: str, sql: str, want: dict, api_base: str, db, node_addr: str,
+                    counts_path: str, out: str, need_k4: bool = True) -> dict:
+    """SQL ``name`` POSTed to the REST API and run by the controller's node
+    scheduler over the node daemon's two worker processes (each under
+    COUNTING_MAIN, no device setting: the card). Exact against ``want``;
+    each worker launches K1 and K2, and K4 (one Triton launch a call) where
+    ``need_k4``, and holds a CUDA context while the job runs; the node is live at GET
+    /api/v1/nodes and its slots are free after Finished."""
+    from arroyo_tpu_torch.controller.node import _get
+
+    scheduler, handle_cls = timed_node_handle()
+    orig = scheduler.NodeWorkerHandle
+    scheduler.NodeWorkerHandle = handle_cls
+    handle_cls.spawned = []
+    before = set(counted_launches(counts_path))
+    baseline = gpu_compute_apps()
+    most: list = []
+    try:
+        with epoch_clock() as clock:
+            t0 = time.perf_counter()
+            created = http_json("POST", f"{api_base}/api/v1/pipelines",
+                                {"name": f"deploy-{name}", "query": sql, "parallelism": 2})
+            jid = created["job_id"]
+            deadline = time.monotonic() + 600
+            while time.monotonic() < deadline:
+                state = db.get_job(jid)["state"]
+                if state == "Running" and len(most) < len(baseline) + CLUSTER_WORKERS:
+                    apps = gpu_compute_apps()
+                    if len(apps) > len(most):
+                        most = apps
+                if state in ("Finished", "Failed", "Stopped"):
+                    break
+                time.sleep(0.05)
+            wall = time.perf_counter() - t0
+        job = db.get_job(jid)
+        if job["state"] != "Finished":
+            raise AssertionError(f"deploy node {name}: {job['state']}: "
+                                 f"{job.get('failure_message')}")
+        n_rows = check_sql_rows(name, sink_lines(out), want)
+        nodes = _get(f"{api_base}/api/v1/nodes")["nodes"]
+        live = [n for n in nodes if time.time() - float(n["last_heartbeat"]) < 10.0]
+        if len(live) != 1:
+            raise AssertionError(f"deploy node {name}: nodes {nodes}")
+        status = wait_for(lambda: (lambda st: st if st["used"] == 0 else None)(
+            _get(f"{node_addr}/status")), 60, f"deploy node {name}: the node's slots free")
+        handles = handle_cls.spawned
+        if len(handles) != CLUSTER_WORKERS:
+            raise AssertionError(f"deploy node {name}: {len(handles)} placements")
+        counts = {p: c for p, c in wait_for(
+            lambda: (lambda c: c if len(set(c) - before) >= CLUSTER_WORKERS else None)(
+                counted_launches(counts_path)), 60,
+            f"deploy node {name}: the workers' launch counts").items() if p not in before}
+        path = [k for k in AGG_PATH_KERNELS if need_k4 or k != "segment_fused"]
+        launches = check_worker_launches(f"deploy node {name}", counts, sorted(counts), path)
+        for p, c in counts.items():
+            launches[str(p)]["segment_fused"] = c["segment_fused"]
+            check_k4_one_launch(f"deploy node {name} worker {p}", c)
+        events = db.list_events(jid, limit=100_000)
+        segs = {code: sorted({f"{e['node']}/{e['subtask']}" for e in events
+                              if e["code"] == code})
+                for code in ("SEGMENT_COMPILED", "SEGMENT_FALLBACK")}
+        info = {"events": DEPLOY_EVENTS, "rows": n_rows, "wall_s": wall,
+                "events_per_s": DEPLOY_EVENTS / wall,
+                "post_to_running_ms": (db.first(jid, "Running", t0) - t0) * 1e3,
+                "post_to_finished_s": db.first(jid, "Finished", t0) - t0,
+                "spawn_to_started_s": [None if h.t_started is None else h.t_started - h.t_spawn
+                                       for h in handles],
+                "states": db.states(jid), "node": {"id": live[0]["id"],
+                                                   "slots": live[0]["slots"],
+                                                   "status_after": status},
+                "launches_by_worker": launches, "segments": segs,
+                "segment_fallback_messages": [e["message"] for e in events
+                                              if e["code"] == "SEGMENT_FALLBACK"][:4],
+                "compute_apps": {"before": baseline, "while_running": most},
+                "workers_on_gpu": len(most) >= len(baseline) + CLUSTER_WORKERS}
+        complete = [c["epoch"] for c in db.list_checkpoints(jid) if c["state"] == "complete"]
+        info["checkpoints_complete"] = complete
+        if complete:
+            info["barrier_to_complete_ms"] = epoch_durable_ms(clock, jid, complete)
+        if not info["workers_on_gpu"]:
+            raise AssertionError(f"deploy node {name}: nvidia-smi never listed both workers "
+                                 f"as compute apps: {info['compute_apps']}")
+        return info
+    finally:
+        scheduler.NodeWorkerHandle = orig
+
+
+def wait_for(pred, timeout: float, what: str):
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        v = pred()
+        if v:
+            return v
+        time.sleep(0.1)
+    raise AssertionError(f"timed out: {what}")
+
+
+def deploy_cluster(root: str) -> dict:
+    """(a) and (b): the node daemon and the compile service as subprocesses,
+    the API and the controller (node scheduler) in this process."""
+    from arroyo_tpu_torch.api import ApiServer
+    from arroyo_tpu_torch.controller import ControllerServer
+    from arroyo_tpu_torch.controller.scheduler import NodeScheduler
+    from arroyo_tpu_torch.udf import drop_udf, lookup_udf
+
+    env_extra = cluster_config(interval_ms=CLUSTER_CKPT_MS)
+    env = {k: v for k, v in os.environ.items() if not k.startswith("ARROYO_TPU_TORCH__")}
+    env.update(env_extra)  # sizes and storage; no device setting: the card
+    counts_path = os.path.join(root, "node-launches")
+    db = timed_database()
+    api = ApiServer(db, port=0).start()
+    api_base = f"http://127.0.0.1:{api.port}"
+    ctl = ControllerServer(db, NodeScheduler(db)).start()
+    node = svc = None
+    node_tail = svc_tail = []
+    out: dict = {}
+    try:
+        t0 = time.perf_counter()
+        node, line, node_tail = start_daemon(
+            [sys.executable, "-c", NODE_MAIN, counts_path, COUNTING_MAIN, "node",
+             "--controller", api_base, "--slots", str(DEPLOY_NODE_SLOTS), "--host", "127.0.0.1"],
+            env, "node ")
+        out["node_start_s"] = time.perf_counter() - t0
+        node_addr = f"http://127.0.0.1:{int(line.split(':')[1].split()[0])}"
+        log("deploy: (a) node q7")
+        q7_out = os.path.join(root, "node-q7.json")
+        out["node_q7"] = deploy_node_run("q7", nexmark_sql("q7", DEPLOY_EVENTS, q7_out),
+                                         oracle_sql("q7", DEPLOY_EVENTS), api_base, db,
+                                         node_addr, counts_path, q7_out)
+        log("deploy: (b) compile service, cpp UDF")
+        t0 = time.perf_counter()
+        svc, line, svc_tail = start_daemon(
+            [sys.executable, "-m", "arroyo_tpu_torch", "compile-service", "--host", "127.0.0.1",
+             "--port", "0", "--artifacts-url", os.path.join(root, "udf-artifacts")],
+            env, "compile service on :")
+        endpoint = f"http://127.0.0.1:{int(line.split(':')[1].split()[0])}"
+        tcfg.update({"compiler.endpoint": endpoint})
+        t1 = time.perf_counter()
+        created = http_json("POST", f"{api_base}/api/v1/udfs", {
+            "name": "dollars_to_euros", "language": "cpp", "source": CPP_DOLLARS_TO_EUROS,
+            "arg_dtypes": ["int64"], "return_dtype": "int64"})
+        udf_ms = (time.perf_counter() - t1) * 1e3
+        artifact = created.get("artifact_url") or ""
+        if not artifact.startswith(os.path.join(root, "udf-artifacts")):
+            raise AssertionError(f"deploy: the cpp UDF's artifact {created}")
+        fn = lookup_udf("dollars_to_euros").fn
+        probe_prices = np.array([0, 1, 999, 1000, 123_456_789], dtype=np.int64)
+        if fn(probe_prices).tolist() != (probe_prices * 908 // 1000).tolist():
+            raise AssertionError("deploy: dollars_to_euros gives the wrong values here")
+        e_out = os.path.join(root, "node-q7e.json")
+        sql = SQL_NEXMARK_SOURCE.format(events=DEPLOY_EVENTS,
+                                        inter_event=SQL_INTER_EVENT["q7"]) + SQL_Q7_EUROS.format(
+            out=e_out)
+        out["udf"] = {"compile_service_start_s": t1 - t0, "create_ms": udf_ms,
+                      "artifact": os.path.basename(artifact),
+                      **deploy_node_run("q7e", sql, oracle_q7_euros(DEPLOY_EVENTS), api_base, db,
+                                        node_addr, counts_path, e_out, need_k4=False)}
+        drop_udf("dollars_to_euros")
+    finally:
+        tcfg.update({"compiler.endpoint": None})
+        ctl.stop()
+        rcs = {}
+        if svc is not None:
+            rcs["compile_service"] = stop_daemon(svc, svc_tail, "compile-service")
+        if node is not None:
+            rcs["node"] = stop_daemon(node, node_tail, "node")
+        api.stop()
+    out["daemon_exit_codes"] = rcs
+    if any(rcs.values()):
+        raise AssertionError(f"deploy: daemons exited {rcs}: node {''.join(node_tail)[-1500:]} "
+                             f"compile service {''.join(svc_tail)[-1500:]}")
+    return out
+
+
+def bids_columns(event_count: int) -> dict:
+    """The bids of the port's generator at bench.py's q7 setting: auction,
+    price and the event time (micros)."""
+    b = NexmarkSource({"event_count": event_count, "inter_event_micros": 1000,
+                       "first_event_micros": 0, "include_strings": False,
+                       "columns": ["bid.auction", "bid.price"]})._generate(
+        np.arange(event_count, dtype=np.int64))
+    bid = b["bid"]
+    return {"auction": b["bid.auction"][bid], "price": b["bid.price"][bid],
+            "ts": b[TIMESTAMP_FIELD][bid]}
+
+
+def write_bid_files(root: str) -> dict:
+    """q7's bids as JSON lines (DEPLOY_EVENTS, DEPLOY_JSON_FILES files) and
+    as one Avro OCF with the deflate codec (DEPLOY_AVRO_EVENTS). Returns
+    each set's directory, rows, files and write seconds."""
+    from arroyo_tpu_torch.formats import avro_fmt
+
+    out = {}
+    t0 = time.perf_counter()
+    cols = bids_columns(DEPLOY_EVENTS)
+    jdir = os.path.join(root, "bids-json")
+    os.makedirs(jdir)
+    n = len(cols["auction"])
+    bounds = np.linspace(0, n, DEPLOY_JSON_FILES + 1).astype(np.int64)
+    for i in range(DEPLOY_JSON_FILES):
+        lo, hi = int(bounds[i]), int(bounds[i + 1])
+        with open(os.path.join(jdir, f"bids-{i:02d}.json"), "w") as f:
+            f.write("".join(f'{{"auction":{a},"price":{p},"ts":{t}}}\n' for a, p, t in zip(
+                cols["auction"][lo:hi].tolist(), cols["price"][lo:hi].tolist(),
+                cols["ts"][lo:hi].tolist())))
+    out["json"] = {"dir": jdir, "events": DEPLOY_EVENTS, "rows": n, "files": DEPLOY_JSON_FILES,
+                   "batches": int(sum(-(-int(bounds[i + 1] - bounds[i]) // BENCH_BATCH)
+                                      for i in range(DEPLOY_JSON_FILES))),
+                   "write_s": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    a = bids_columns(DEPLOY_AVRO_EVENTS)
+    adir = os.path.join(root, "bids-avro")
+    os.makedirs(adir)
+    schema = avro_fmt.AvroSchema(json.dumps(AVRO_BIDS))
+    rows = [{"auction": x, "price": y, "ts": z} for x, y, z in zip(
+        a["auction"].tolist(), a["price"].tolist(), a["ts"].tolist())]
+    with open(os.path.join(adir, "bids.avro"), "wb") as f:
+        f.write(avro_fmt.write_ocf(schema, rows, codec="deflate"))
+    out["avro"] = {"dir": adir, "events": DEPLOY_AVRO_EVENTS, "rows": len(rows), "files": 1,
+                   "batches": -(-len(rows) // BENCH_BATCH), "write_s": time.perf_counter() - t0}
+    return out
+
+
+def committed_rows(out_dir: str) -> tuple:
+    """The sink's committed part files, read back as JSON lines: (lines,
+    files, stray temporary files)."""
+    lines, files, tmp = [], [], []
+    for r, _d, fs in os.walk(out_dir):
+        for f in sorted(fs):
+            p = os.path.join(r, f)
+            if f.endswith(".tmp"):
+                tmp.append(p)
+                continue
+            files.append(os.path.relpath(p, out_dir))
+            with open(p) as fh:
+                lines += [ln for ln in fh.read().splitlines() if ln.strip()]
+    return lines, sorted(files), tmp
+
+
+def files_graph(src: str, fmt: str, out: str, out_fmt: str = "json"):
+    """SQL q7 over a filesystem source of the bids into a filesystem sink
+    partitioned by ``shard`` (auction % 4): the plan's sink takes the
+    partition field as a list, as the Python API gives it."""
+    from arroyo_tpu_torch.sql import plan_query
+
+    g = plan_query(SQL_Q7_FILES.format(src=src, fmt=fmt, out=out, out_fmt=out_fmt)).graph
+    sink = next(n for n in g.nodes.values() if n.op.value == "sink")
+    sink.config["partition_fields"] = ["shard"]
+    return g
+
+
+def files_crash_restore(src: dict, fmt: str, root: str, s3) -> dict:
+    """q7 over ``src``'s files into the partitioned JSON sink, checkpoints
+    to an s3:// URL in ``s3``: the source held at half its batches for
+    epoch 1 and at three quarters for epoch 2, whose barrier crashes the
+    window (worker:crash@barrier=2); a fresh engine restores epoch 1 from
+    the store and finishes. The committed files hold the oracle's rows,
+    none twice, and no partial file."""
+    from arroyo_tpu_torch.state.tables import (latest_complete_checkpoint,
+                                               read_job_checkpoint_metadata)
+
+    url = "s3://chip-smoke/checkpoints"
+    job = f"deploy-files-{fmt}"
+    out = os.path.join(root, f"out-{fmt}")
+    want = oracle_sql("q7", src["events"])
+    nb = src["batches"]
+    parts_before = s3.multipart_completed
+    reset_all_launch_counts()
+    t0 = time.perf_counter()
+    eng = Engine(files_graph(src["dir"], fmt, out), job_id=job, storage_url=url)
+    eng.build()
+    node = next(n for n in eng.graph.nodes if "tumbling" in n)
+    faults.install(f"worker:crash@barrier=2&node={node}&subtask=0")
+    try:
+        crash_at_last_barrier(eng, (nb // 2 + 1, nb * 3 // 4 + 1))
+    finally:
+        faults.clear()
+    first_s = time.perf_counter() - t0
+    if read_job_checkpoint_metadata(url, job, 1) is None \
+            or read_job_checkpoint_metadata(url, job, 2) is not None \
+            or latest_complete_checkpoint(url, job) != 1:
+        raise AssertionError(f"deploy files {fmt}: epoch 1 incomplete or epoch 2 complete")
+    committed_after_crash = committed_rows(out)[1]
+    t1 = time.perf_counter()
+    eng2 = Engine(files_graph(src["dir"], fmt, out), job_id=job, storage_url=url,
+                  restore_epoch=1)
+    eng2.run_to_completion(timeout=900)
+    restored_s = time.perf_counter() - t1
+    launches = all_launch_counts()
+    lines, files, tmp = committed_rows(out)
+    if tmp:
+        raise AssertionError(f"deploy files {fmt}: partial files left {tmp}")
+    n_rows = check_sql_rows("q7", lines, want)
+    shards = sorted({f.split(os.sep)[0] for f in files})
+    if shards != [f"shard={i}" for i in range(4)]:
+        raise AssertionError(f"deploy files {fmt}: partitions {shards}")
+    unlaunched = [k for k in AGG_PATH_KERNELS if launches[k] == 0]
+    if unlaunched:
+        raise AssertionError(f"deploy files {fmt} launched no {unlaunched}: {launches}")
+    objects = [k for b, k in s3.objects if k.startswith(f"checkpoints/{job}/")]
+    return {"events": src["events"], "rows_in": src["rows"], "rows_out": n_rows,
+            "files_in": src["files"], "files_committed": len(files),
+            "files_committed_before_crash": len(committed_after_crash),
+            "first_run_s": first_s, "restored_run_s": restored_s,
+            "events_per_s": src["events"] * 1.25 / (first_s + restored_s),
+            "s3_objects": len(objects), "multipart_uploads": s3.multipart_completed - parts_before,
+            "launches": {k: launches[k] for k in AGG_PATH_KERNELS}}
+
+
+def parquet_sink_case(src: dict, root: str) -> dict:
+    """A parquet filesystem sink: where pyarrow is missing it fails the job
+    with the JAX package's message (pyarrow is imported where the part file
+    is written); where present, its files hold the oracle's rows."""
+    from arroyo_tpu_torch.state.tables import _parquet_available
+
+    out = os.path.join(root, "out-parquet")
+    g = files_graph(src["dir"], "avro", out, out_fmt="parquet")
+    if not _parquet_available():
+        try:
+            Engine(g, job_id="deploy-parquet").run_to_completion(timeout=300)
+        except Exception as e:  # noqa: BLE001 - the job's failure is the expected outcome
+            msg = str(e)
+            if "ModuleNotFoundError" not in msg or "pyarrow" not in msg:
+                raise
+            return {"pyarrow": False, "failed_with": msg.strip().splitlines()[-1][:200]}
+        raise AssertionError("deploy: a parquet sink ran without pyarrow")
+    import pyarrow.parquet as pq
+
+    Engine(g, job_id="deploy-parquet").run_to_completion(timeout=300)
+    rows = []
+    for r, _d, fs in os.walk(out):
+        for f in fs:
+            rows += pq.ParquetFile(os.path.join(r, f)).read().to_pylist()
+    from arroyo_tpu_torch.formats.json_fmt import format_iso_micros
+
+    lines = [json.dumps({**r, "start": r["start"] if isinstance(r["start"], str)
+                         else format_iso_micros(int(r["start"]))}) for r in rows]
+    return {"pyarrow": True, "rows": check_sql_rows("q7", lines,
+                                                    oracle_sql("q7", src["events"]))}
+
+
+def deploy_files(root: str) -> dict:
+    """(c): the bids as JSON-lines and Avro files, SQL q7 over each through a
+    filesystem source into a partitioned exactly-once filesystem sink,
+    checkpoints in an in-process S3 store with multipart, a crash after
+    epoch 1 restored from the store; then a parquet sink."""
+    from arroyo_tpu_torch.state import storage
+
+    bench_config(chaining=True)
+    tcfg.update({"storage.multipart-threshold-bytes": DEPLOY_MULTIPART_BYTES,
+                 "storage.multipart-part-size-bytes": DEPLOY_MULTIPART_BYTES})
+    s3 = MemoryS3()
+    storage.set_s3_client(s3)
+    try:
+        log("deploy: (c) writing the bid files")
+        srcs = write_bid_files(root)
+        out = {"written": {k: {kk: vv for kk, vv in v.items() if kk != "dir"}
+                           for k, v in srcs.items()}}
+        for fmt in ("json", "avro"):
+            log(f"deploy: (c) q7 over {fmt} files, crash and restore from s3://")
+            out[fmt] = files_crash_restore(srcs[fmt], fmt, root, s3)
+        log("deploy: (c) parquet sink")
+        out["parquet_sink"] = parquet_sink_case(srcs["avro"], root)
+    finally:
+        storage.set_s3_client(None)
+        tcfg.reset()
+    return out
+
+
+def deploy_phase(card: str, res: dict) -> dict:
+    """Deployment on the card: (a) the node daemon, (b) a native C++ UDF
+    through the compile service, (c) files and an object store."""
+    root = tempfile.mkdtemp(prefix="chip_smoke_deploy_")
+    t0 = time.perf_counter()
+    try:
+        cluster = deploy_cluster(root)
+        files = deploy_files(root)
+    finally:
+        tcfg.reset()
+        shutil.rmtree(root, ignore_errors=True)
+    proc = ((res.get("cluster") or {}).get("process") or {})
+    info = {"phase": "deploy", "card": card, "seconds": time.perf_counter() - t0,
+            **cluster, "files": files,
+            "cluster_process_q7_events_per_s": proc.get("events_per_s")}
+    emit(info)
+    a, b = cluster["node_q7"], cluster["udf"]
+    print(f"deploy: {info['seconds']:.1f} s; node q7 {a['events_per_s']:.0f} events/s (process "
+          f"q7 of this call: {info['cluster_process_q7_events_per_s']}), POST to Running "
+          f"{a['post_to_running_ms']:.1f} ms, spawn to started {a['spawn_to_started_s']} s, "
+          f"POST to Finished {a['post_to_finished_s']:.3f} s, launches {a['launches_by_worker']}, "
+          f"SEGMENT_COMPILED {a['segments']['SEGMENT_COMPILED']}; udf q7 "
+          f"{b['events_per_s']:.0f} events/s, create {b['create_ms']:.1f} ms, POST to Running "
+          f"{b['post_to_running_ms']:.1f} ms, POST to Finished {b['post_to_finished_s']:.3f} s, "
+          f"launches {b['launches_by_worker']}, segments {b['segments']}, fallback "
+          f"{b['segment_fallback_messages']}; files json {files['json']['events_per_s']:.0f} "
+          f"events/s (first {files['json']['first_run_s']:.2f} s, restored "
+          f"{files['json']['restored_run_s']:.2f} s, {files['json']['multipart_uploads']} "
+          f"multipart puts), avro {files['avro']['events_per_s']:.0f} events/s, parquet sink "
+          f"{files['parquet_sink']} [{card}]", flush=True)
+    return info
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out-dir", default="chip_smoke_out",
@@ -7327,8 +8092,9 @@ def main(argv=None) -> int:
 # Nexmark q3, "local item suggestion": auctions of category 10 joined to
 # their sellers in OR, ID or CA. Planned through the port's plan_query it
 # is an updating inner join (JoinWithExpiration) of two subqueries over the
-# nexmark source; the sink writes debezium envelopes. At bench.py's q7 size.
-Q3_EVENTS = 2_000_000
+# nexmark source; the sink writes debezium envelopes. At half bench.py's q7
+# size: a cut of depth for the whole run's time limit.
+Q3_EVENTS = 1_000_000
 Q3_SPILL_BUDGET = 1 << 20  # bytes: the side stores' floor passes it early
 Q3_PATH_KERNELS = ("segment_fused",)  # the auctions chain compiles (K4)
 SQL_Q3 = """CREATE TABLE nexmark (
@@ -7549,7 +8315,7 @@ def q3_manifest_runs(url: str, job: str, epoch: int, node: str) -> list:
 
 
 def updating_phase(card: str) -> dict:
-    """Nexmark q3 planned by the port at 2,000,000 events on the card, three
+    """Nexmark q3 planned by the port at 1,000,000 events on the card, three
     times: spilling off; spilling on with a 1 MiB budget (runs must be
     written); and spilling on with a crash at epoch 2 and a restore from
     epoch 1. Each time the rows are exactly the oracle's."""
@@ -7602,7 +8368,9 @@ OBS_Q7C_FAMILIES = frozenset({
     "arroyo_worker_tx_queue_size"})
 # timed q7c runs of each setting, alternating (host noise spans ~1.7x); four
 # rounds put each of the four settings once in each place of the rotation
-OBS_REPS = 4
+# rounds of the timed settings; 2, not 4, to keep the whole run inside its
+# time limit on the slower of the card's hosts
+OBS_REPS = 2
 # what profile.enabled adds to a task thread: TaskProfiler's hooks and the
 # key sketch's feed
 PROFILE_HOOKS = (("obs.profile", "TaskProfiler", ("begin", "end", "source_tick", "source_reset",
@@ -8059,17 +8827,23 @@ def run_phases(args, out_dir: str) -> int:
         "updating": lambda: updating_phase(smi),
         "obs": lambda: obs_phase(smi, out_dir),
         "cluster": lambda: cluster_phase(smi, res),
+        "deploy": lambda: deploy_phase(smi, res),
         "segment_sweep": segment_sweep,
     }
     only = args.only.split(",") if args.only else [p for p in phases if p != "segment_sweep"]
     unknown = sorted(set(only) - set(phases))
     if unknown:
         raise SystemExit(f"unknown phases {unknown}; the phases are {list(phases)}")
+    seconds = {}
     for name, fn in phases.items():
         if name in only:
             log(name)
+            t0 = time.perf_counter()
             res[name] = fn()
+            seconds[name] = time.perf_counter() - t0
     log("done")
+    res["phase_seconds"] = seconds
+    print(f"phase seconds: {json.dumps(seconds)}", flush=True)
     if args.only:
         with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
             json.dump(res, f, indent=1)

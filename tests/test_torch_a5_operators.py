@@ -49,10 +49,10 @@ JAX, PORT = _pkg("jax"), _pkg("port")
 
 
 @pytest.fixture(autouse=True)
-def _npz():
+def _codec():
     import arroyo_tpu.config as jcfg
 
-    jcfg.update({"checkpoint.file-format": "npz"})
+    jcfg.update({"checkpoint.file-format": "parquet"})
     yield
     jcfg.reset()
 

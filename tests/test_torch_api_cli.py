@@ -12,6 +12,7 @@ import json
 import urllib.error
 import urllib.request
 
+import numpy as np
 import pytest
 
 import arroyo_tpu_torch.config as tcfg
@@ -20,9 +21,7 @@ from test_torch_controller import port, port_mirror, run_mirrored, smoke_sql  # 
 # ------------------------------------------------------------------ mirrors
 
 MIRRORS = {
-    # the auth-token scenario also posts through the node daemon's client
-    # (controller/node.py, ROADMAP A.8's remainder)
-    "test_openapi": lambda n: n != "test_api_auth_token_gates_mutations",
+    "test_openapi": lambda n: True,
     "test_evolve": lambda n: True,
     "test_obs": lambda n: n in ("test_top_and_trace_from_controller_db",
                                 "test_top_header_renders_evolving_state"),
@@ -42,7 +41,7 @@ CASES = [(m, n) for m, keep in MIRRORS.items() for n in sorted(dir(MODS[m]))
 
 
 def test_mirrored_cases_are_those_expected():
-    assert len(CASES) == 6 + 9 + 2 + 3, CASES
+    assert len(CASES) == 7 + 9 + 2 + 3, CASES
 
 
 @pytest.mark.parametrize("module,name", CASES)
@@ -225,24 +224,40 @@ def test_openapi_spec_equals_jax():
     assert tspec() == jspec()
 
 
-def test_cpp_udf_creation_names_the_roadmap_remainder(port):
+def test_cpp_udf_is_built_and_a_bad_source_is_rejected_with_gpps_log(port, tmp_path):
+    """POST /api/v1/udfs with C++ source builds it (the artifact under
+    ``compiler.artifacts-url``) and registers it; a source g++ refuses
+    answers 400 with g++'s log and stays out of the database."""
     from arroyo_tpu_torch.api import ApiServer
     from arroyo_tpu_torch.controller import Database
+    from arroyo_tpu_torch.udf import drop_udf, lookup_udf
 
+    tcfg.update({"compiler.artifacts-url": str(tmp_path / "artifacts")})
     db = Database()
     api = ApiServer(db, port=0).start()
+
+    def post(body):
+        return urllib.request.urlopen(urllib.request.Request(
+            f"http://127.0.0.1:{api.port}/api/v1/udfs", method="POST",
+            data=json.dumps(body).encode(), headers={"Content-Type": "application/json"}))
+
     try:
+        with post({"name": "twice", "language": "cpp", "arg_dtypes": ["int64"],
+                   "return_dtype": "int64",
+                   "source": '#include <cstdint>\nextern "C" void twice(int64_t n, '
+                             'const int64_t* a, int64_t* o) { for (int64_t i = 0; i < n; i++) '
+                             'o[i] = 2 * a[i]; }'}) as r:
+            out = json.loads(r.read())
+        assert out["artifact_url"].startswith(str(tmp_path / "artifacts"))
+        assert list(lookup_udf("twice").fn(np.arange(3, dtype=np.int64))) == [0, 2, 4]
         with pytest.raises(urllib.error.HTTPError) as ei:
-            urllib.request.urlopen(urllib.request.Request(
-                f"http://127.0.0.1:{api.port}/api/v1/udfs", method="POST",
-                data=json.dumps({"name": "c", "language": "cpp",
-                                 "source": "extern \"C\" void c() {}"}).encode(),
-                headers={"Content-Type": "application/json"}))
+            post({"name": "c", "language": "cpp", "source": "this is not C++"})
         assert ei.value.code == 400
-        assert "A.8's remainder" in json.loads(ei.value.read())["error"]
-        assert db.list_udfs() == []
+        assert "g++ failed" in json.loads(ei.value.read())["error"]
+        assert [u["name"] for u in db.list_udfs()] == ["twice"]
     finally:
         api.stop()
+        drop_udf("twice")
 
 
 # ------------------------------------------------------------ CLI text

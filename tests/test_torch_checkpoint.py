@@ -118,6 +118,7 @@ def test_columnar_files_cross_read(tmp_path):
     from arroyo_tpu import config as jcfg
 
     jcfg.update({"checkpoint.file-format": "npz"})
+    tcfg.update({"checkpoint.file-format": "npz"})
     cols = _columns()
     p_t, p_j = str(tmp_path / "t.npz"), str(tmp_path / "j.npz")
     write_columnar(p_t, cols)
@@ -127,17 +128,38 @@ def test_columnar_files_cross_read(tmp_path):
     _same_columns(read_columnar(p_t), jtables.read_columnar(p_j))
 
 
+def test_parquet_files_cross_read(tmp_path):
+    """A parquet state file of either package reads back in the other
+    (pyarrow is imported only for it), object columns included; a file's
+    codec comes from its extension, whatever the reader's setting."""
+    from arroyo_tpu import config as jcfg
+
+    pytest.importorskip("pyarrow")
+    jcfg.update({"checkpoint.file-format": "parquet"})
+    tcfg.update({"checkpoint.file-format": "parquet"})
+    cols = _columns()
+    p_t, p_j = str(tmp_path / "t.parquet"), str(tmp_path / "j.parquet")
+    assert write_columnar(p_t, cols) == jtables.write_columnar(p_j, cols)
+    _same_columns(read_columnar(p_j, restore=True), jtables.read_columnar(p_j, restore=True))
+    _same_columns(jtables.read_columnar(p_t, restore=True), read_columnar(p_t, restore=True))
+    tcfg.update({"checkpoint.file-format": "npz"})
+    _same_columns(read_columnar(p_t), jtables.read_columnar(p_j))
+
+
 @pytest.mark.parametrize("fmt", ["parquet", "npz", "arrow"])
 def test_file_format_key_is_read(fmt, tmp_path):
     """``checkpoint.file-format`` takes the JAX package's values: both write
-    npz (its own fallback without pyarrow, the same bytes), and another
-    value is refused before anything is written."""
+    the codec it names (parquet where pyarrow is importable, else npz, the
+    JAX package's fallback), the same bytes, and another value is refused
+    before anything is written."""
     from arroyo_tpu import config as jcfg
+    from arroyo_tpu_torch.state.tables import _parquet_available
 
-    jcfg.update({"checkpoint.file-format": "npz"})
+    jcfg.update({"checkpoint.file-format": "npz" if fmt == "arrow" else fmt})
     tcfg.update({"checkpoint.file-format": fmt})
     cols = _columns()
-    p_t, p_j = str(tmp_path / "t.npz"), str(tmp_path / "j.npz")
+    ext = "parquet" if fmt == "parquet" and _parquet_available() else "npz"
+    p_t, p_j = str(tmp_path / f"t.{ext}"), str(tmp_path / f"j.{ext}")
     if fmt == "arrow":
         with pytest.raises(ValueError, match="checkpoint.file-format = 'arrow'"):
             write_columnar(p_t, cols)
@@ -173,7 +195,7 @@ def test_table_manager_restore_at_another_parallelism(p_new, tmp_path):
     from arroyo_tpu.operators.base import TableSpec as JSpec
     from arroyo_tpu.types import TaskInfo as JTaskInfo
 
-    jcfg.update({"checkpoint.file-format": "npz"})
+    jcfg.update({"checkpoint.file-format": "parquet"})
     url = str(tmp_path / "ck")
     rng = np.random.default_rng(3)
     for pkg in ("torch", "jax"):

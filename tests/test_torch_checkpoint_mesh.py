@@ -114,7 +114,7 @@ def test_mesh_window_checkpoint_restore(op):
 def _configure(shards: int, fuse: bool) -> None:
     over = {**Q7_MESH, "device.mesh-devices": shards, "segment.compile.mesh-fuse": fuse}
     tcfg.update(over)
-    jcfg.update({**over, "checkpoint.file-format": "npz"})
+    jcfg.update({**over, "checkpoint.file-format": "parquet"})
 
 
 def _first_q7(pkg: str, url: str, shards: int, fuse: bool) -> list:

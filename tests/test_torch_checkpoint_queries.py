@@ -70,7 +70,7 @@ def _configure(query: str) -> None:
             "segment.compile.min-rows": 0}
     tcfg.reset()
     tcfg.update({**over, "device.table-capacity": 8192})
-    jcfg.update({**over, "checkpoint.file-format": "npz"})
+    jcfg.update({**over, "checkpoint.file-format": "parquet"})
 
 
 def _engine(pkg, g, job, url, **kw):

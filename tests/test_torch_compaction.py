@@ -51,11 +51,11 @@ PKG = {"torch": (tbatch, ttables, tbase, TTaskInfo, faults),
 
 @pytest.fixture(autouse=True)
 def _port_state():
-    """The port's config with no retry backoff; the JAX package writes the
-    npz codec the port reads."""
+    """The port's config with no retry backoff; both packages write the
+    default codec (parquet where pyarrow is importable, else npz)."""
     tcfg.reset()
     tcfg.update({"storage.retry.base-delay-ms": 0})
-    jcfg.update({"checkpoint.file-format": "npz"})
+    jcfg.update({"checkpoint.file-format": "parquet"})
     yield
     faults.clear()
     storage.reset_retry_state()
@@ -83,6 +83,12 @@ def _two_subtasks(pkg, store, epoch):
     return specs
 
 
+def _ext() -> str:
+    """The state files' codec: parquet where pyarrow is importable, else the
+    npz fallback, in both packages."""
+    return ttables._checkpoint_format()
+
+
 def _restore_all(pkg, store, epoch, parallelism, job="job", node="op1", table="t"):
     B, tables, base, TaskInfo, _f = PKG[pkg]
     specs = [base.TableSpec(table, "expiring_time_key", 10_000_000),
@@ -105,7 +111,7 @@ def test_compact_then_restore_rescaled(tmp_path):
     assert ttables.compact_operator(store, "job", 1, "op1") >= 2
     opdir = ttables.operator_dir(store, "job", 1, "op1")
     files = sorted(f for f in os.listdir(opdir) if not f.startswith("metadata"))
-    assert files == ["table-g-compacted-g1.bin", "table-t-compacted-g1.npz"]
+    assert files == ["table-g-compacted-g1.bin", f"table-t-compacted-g1.{_ext()}"]
     assert _restore_all("torch", store, 1, 3) == before
     assert ttables.compact_operator(store, "job", 1, "op1") == 0  # generation 1 is final
 
@@ -196,7 +202,7 @@ def test_compaction_torn_at_each_metadata_write_restores_exact(tear_after, tmp_p
     assert not gen0
     assert sorted(f for f in os.listdir(ttables.operator_dir(url, "j", 2, "op"))
                   if f.startswith("table-")) == ["table-g-compacted-g1.bin",
-                                                 "table-t-compacted-g1.npz"]
+                                                 f"table-t-compacted-g1.{_ext()}"]
     assert _rows_globs("torch", url, "j", 2) == (EXPECT_ROWS, EXPECT_GLOBS)
     assert not fsck_job(url, "j")
 
@@ -262,7 +268,7 @@ def test_a_compacted_epoch_crosses_between_the_packages(direction, parallelism, 
     # the holder lists the merged entries, the others keep their watermarks
     metas = sorted(_metas(url, "j", 2), key=lambda m: m["subtask_index"])
     assert [[(fm["file"], fm["generation"]) for fm in m["files"]] for m in metas] == \
-        [[("table-g-compacted-g1.bin", 1), ("table-t-compacted-g1.npz", 1)], [], []]
+        [[("table-g-compacted-g1.bin", 1), (f"table-t-compacted-g1.{_ext()}", 1)], [], []]
     assert not verify_epoch(url, "j", 2) and not jtables.is_quarantined(url, "j", 2)
 
 
@@ -277,7 +283,7 @@ def _configure():
             "worker.queue-size": 2 * BATCH, "pipeline.chaining.enabled": True,
             "segment.compile.min-rows": 0}
     tcfg.update({**over, "device.table-capacity": 8192, "storage.retry.base-delay-ms": 0})
-    jcfg.update({**over, "checkpoint.file-format": "npz"})
+    jcfg.update({**over, "checkpoint.file-format": "parquet"})
 
 
 def _engine(pkg, rows, url, parallelism, **kw):
@@ -303,8 +309,9 @@ def q7_epoch1(tmp_path_factory):
 
 # the window's compacted tables: its key-skew sketch ("__sketch", written by
 # the profiler as in the JAX package), its late-data marks and its rows
-COMPACTED = ["table-__sketch-compacted-g1.bin", "table-e-compacted-g1.bin",
-             "table-t-compacted-g1.npz"]
+def _compacted() -> list:
+    return ["table-__sketch-compacted-g1.bin", "table-e-compacted-g1.bin",
+            f"table-t-compacted-g1.{_ext()}"]
 
 
 def _agg_files(url):
@@ -321,7 +328,7 @@ def test_engine_compact_merges_the_windows_tables(q7_epoch1, tmp_path):
     eng.storage_url = url
     removed = eng.compact(1)
     assert removed == 12
-    assert _agg_files(url) == COMPACTED
+    assert _agg_files(url) == _compacted()
     with pytest.raises(ValueError, match="not a completed checkpoint"):
         eng.compact(2)
     assert not fsck_job(url, "q7p")
@@ -358,7 +365,7 @@ def test_torn_q7_compaction_restores_and_a_rerun_finishes(tear_after, q7_epoch1,
     _engine("torch", rows, url, 2, restore_epoch=1).run_to_completion(timeout=300)
     chip_smoke.check_q7(q7_epoch1[1] + rows, chip_smoke.oracle_q7(EVENTS))
     ttables.compact_job(url, "q7p", 1)
-    assert _agg_files(url) == COMPACTED
+    assert _agg_files(url) == _compacted()
     assert not fsck_job(url, "q7p")
 
 

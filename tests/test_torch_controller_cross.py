@@ -73,7 +73,7 @@ def test_coordinated_checkpoint_restores_across_packages(first, tmp_path, port, 
     url = str(tmp_path / "shared-ckpt")
     common = {"controller.workers-per-job": 2, "checkpoint.interval-ms": 150,
               "checkpoint.storage-url": url, "testing.source-gate-epochs": 10_000}
-    jcfg.update({**common, "checkpoint.file-format": "npz"})
+    jcfg.update({**common, "checkpoint.file-format": "parquet"})
     tcfg.update(common)
     path = str(tmp_path / "ctl.db")
     sql, out = smoke_sql(tmp_path)

@@ -42,7 +42,7 @@ def _port_config(tmp_path):
     tcfg.update({**over, "device.table-capacity": 8192,
                  "checkpoint.storage-url": str(tmp_path / "torch-ck"),
                  "storage.retry.base-delay-ms": 0})
-    jcfg.update({**over, "checkpoint.file-format": "npz"})
+    jcfg.update({**over, "checkpoint.file-format": "parquet"})
     tfaults.clear()
     yield
     tfaults.clear()

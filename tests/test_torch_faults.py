@@ -366,7 +366,7 @@ def _configure(query):
             "worker.queue-size": 2 * batch, "pipeline.chaining.enabled": True,
             "segment.compile.min-rows": 0}
     tcfg.update({**over, "device.table-capacity": 8192, "storage.retry.base-delay-ms": 0})
-    jcfg.update({**over, "checkpoint.file-format": "npz"})
+    jcfg.update({**over, "checkpoint.file-format": "parquet"})
 
 
 def _engine(pkg, query, url):

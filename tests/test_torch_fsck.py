@@ -52,7 +52,7 @@ def _configure():
     over = {"pipeline.source-batch-size": BATCH, "device.batch-capacity": BATCH,
             "worker.queue-size": 2 * BATCH, "pipeline.chaining.enabled": False}
     tcfg.update({**over, "device.table-capacity": 8192, "storage.retry.base-delay-ms": 0})
-    jcfg.update({**over, "checkpoint.file-format": "npz"})
+    jcfg.update({**over, "checkpoint.file-format": "parquet"})
 
 
 @pytest.fixture(scope="module")
@@ -73,7 +73,8 @@ def jobs(tmp_path_factory):
     return out
 
 
-def _table_file(url, epoch, node="agg", ext=".npz"):
+def _table_file(url, epoch, node="agg", ext=None):
+    ext = ext or "." + ttables._checkpoint_format()  # parquet where pyarrow is importable
     d = ttables.operator_dir(url, JOB, epoch, node)
     return os.path.join(d, sorted(f for f in os.listdir(d)
                                   if f.startswith("table-") and f.endswith(ext))[0])

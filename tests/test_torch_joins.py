@@ -195,7 +195,7 @@ def test_checkpoint_barrier_snapshots_and_restores_as_the_reference(gate, tmp_pa
     if gate == "device":
         for c in (jcfg, tcfg):
             c.update({"device.force-device-join": True, "device.join-min-rows": 0})
-    jcfg.update({"checkpoint.file-format": "npz"})
+    jcfg.update({"checkpoint.file-format": "parquet"})
     events = stream(3)
     cut = 10  # after watermark 250, which closes window 200
     sides = {pkg: Side(pkg, "full", None, tmp_path / pkg) for pkg in ("jax", "torch")}

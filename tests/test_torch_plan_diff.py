@@ -229,7 +229,7 @@ def _configure():
             "worker.queue-size": 2 * BATCH, "pipeline.chaining.enabled": True,
             "segment.compile.min-rows": 0}
     tcfg.update({**over, "device.table-capacity": 8192, "storage.retry.base-delay-ms": 0})
-    jcfg.update({**over, "checkpoint.file-format": "npz"})
+    jcfg.update({**over, "checkpoint.file-format": "parquet"})
 
 
 def _engine(pkg, g, url, **kw):

@@ -169,7 +169,7 @@ def _uninterrupted(pkg, sql, job, url):
 
 @pytest.fixture
 def keyed(tmp_path):
-    jcfg.update({"checkpoint.file-format": "npz"})
+    jcfg.update({"checkpoint.file-format": "parquet"})
     sql = keyed_sql(str(tmp_path / "in.json"), str(tmp_path / "out.json"), n=6000, keys=11)
     tcfg.update({"pipeline.source-batch-size": 512})
     jcfg.update({"pipeline.source-batch-size": 512})

@@ -69,7 +69,7 @@ def _configs(tmp_path, monkeypatch):
     for P in (JAX, PORT):
         P.cfg.reset()
         P.faults.clear()
-        # npz: the port reads no parquet (ROADMAP A.9), so runs cross as npz
+        # npz in both packages (parquet runs cross in test_torch_checkpoint.py)
         P.cfg.update({"checkpoint.storage-url": str(tmp_path / f"{P.name}-ckpt"),
                       "checkpoint.file-format": "npz", "storage.retry.base-delay-ms": 10})
     yield

@@ -45,11 +45,12 @@ JAX, PORT = _pkg("jax"), _pkg("port")
 
 
 @pytest.fixture(autouse=True)
-def _npz():
-    """Checkpoints as npz in both packages (the port reads no parquet)."""
+def _codec():
+    """Checkpoints in the default codec in both packages (parquet where pyarrow
+    is importable, else npz)."""
     import arroyo_tpu.config as jcfg
 
-    jcfg.update({"checkpoint.file-format": "npz"})
+    jcfg.update({"checkpoint.file-format": "parquet"})
     yield
     jcfg.reset()
 
