@@ -48,6 +48,8 @@ def _make_sink(cfg: dict):
 def load_all() -> None:
     from . import blackhole, filesystem, impulse, nexmark, preview  # noqa: F401
     from . import single_file, stdout, stubs, vec  # noqa: F401
+    from . import http_conn, kafka, redis  # noqa: F401
+    from . import kinesis, mqtt, nats, rabbitmq, websocket  # noqa: F401
 
 
 def connectors() -> dict:

@@ -1,13 +1,11 @@
-"""Gated connectors (the port's copy of arroyo_tpu/connectors/stubs.py, and
-the network connectors still to port).
+"""Gated connectors (the port's copy of arroyo_tpu/connectors/stubs.py).
 
-fluvio needs its client package, as in the JAX package: constructing one
-without it raises with the package to install. The network connectors of the
-JAX package that the port does not have yet (its http_conn, websocket,
-broker_base, nats, mqtt, rabbitmq, kinesis, redis and kafka modules) are
-registered under the JAX package's names, so the registry lists every name
-the JAX package lists; constructing one raises naming ROADMAP A.9's
-remainder. None is skipped and none runs as a silent stub.
+fluvio's wire protocol has no stable public spec, so it registers here with
+its config surface, as in the JAX package: constructing one without its
+client package raises with the package to install. The network connectors
+with from-scratch protocol clients (http_conn, websocket, nats, mqtt,
+rabbitmq, kinesis, redis) and kafka, gated on confluent_kafka where it runs,
+have modules of their own.
 """
 
 from __future__ import annotations
@@ -21,24 +19,6 @@ _SPECS = {
         "kinds": ("source", "sink"),
     },
 }
-
-# connector name -> (the JAX package's module, its kinds)
-REMAINDER = {
-    "sse": ("http_conn", ("source",)),
-    "polling_http": ("http_conn", ("source",)),
-    "webhook": ("http_conn", ("sink",)),
-    "websocket": ("websocket", ("source",)),
-    "nats": ("nats", ("source", "sink")),
-    "mqtt": ("mqtt", ("source", "sink")),
-    "rabbitmq": ("rabbitmq", ("source", "sink")),
-    "kinesis": ("kinesis", ("source", "sink")),
-    "redis": ("redis", ("sink",)),
-    "kafka": ("kafka", ("source", "sink")),
-}
-
-
-class NotPortedError(NotImplementedError):
-    pass
 
 
 def _make_stub(name: str, spec: dict):
@@ -55,27 +35,9 @@ def _make_stub(name: str, spec: dict):
     return _Stub
 
 
-def _make_remainder(name: str, module: str):
-    class _Remainder:
-        def __init__(self, cfg: dict):
-            raise NotPortedError(
-                f"the {name!r} connector (arroyo_tpu/connectors/{module}.py, over its "
-                f"broker's protocol) is not in the port yet: it is ROADMAP A.9's remainder")
-
-    _Remainder.__name__ = f"{name.capitalize()}Connector"
-    return _Remainder
-
-
 for _name, _spec in _SPECS.items():
     stub = _make_stub(_name, _spec)
     if "source" in _spec["kinds"]:
         register_source(_name)(stub)
     if "sink" in _spec["kinds"]:
-        register_sink(_name)(stub)
-
-for _name, (_module, _kinds) in REMAINDER.items():
-    stub = _make_remainder(_name, _module)
-    if "source" in _kinds:
-        register_source(_name)(stub)
-    if "sink" in _kinds:
         register_sink(_name)(stub)

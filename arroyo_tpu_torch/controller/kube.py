@@ -18,7 +18,8 @@ The API client is a small urllib wrapper (the in-cluster service-account
 token and CA, or an explicit base URL for tests and kubeconfig-less
 setups): no kubernetes package is needed. The manifests carry the port's
 names: image ``arroyo-tpu-torch:latest`` by default, the node id in
-``ARROYO_TPU_TORCH__NODE__ID``, the label ``app: arroyo-tpu-torch-worker``.
+``ARROYO_TPU_TORCH__NODE__ID``, the label ``app: arroyo-tpu-torch-worker``,
+and a limit of one ``nvidia.com/gpu``: the worker runs on the card.
 """
 
 from __future__ import annotations
@@ -219,6 +220,8 @@ class KubernetesScheduler(Scheduler):
                              "--slots", "1", "--port", "5200",
                              "--advertise-host", "$(POD_IP)"],
                     "ports": [{"containerPort": 5200}],
+                    # the worker runs on the card
+                    "resources": {"limits": {"nvidia.com/gpu": 1}},
                     "env": env,
                 }],
             },

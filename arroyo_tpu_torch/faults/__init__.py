@@ -31,6 +31,8 @@ Instrumented sites (the port's modules that have them):
                         and fall back instead of loading garbage
     queue.put           task inbox enqueue (ctx: input); delay models
                         backpressure stalls
+    connector.poll      broker source poll (ctx: connector, key)
+    connector.commit    broker ack/commit (ctx: connector, epoch)
     worker              barrier-time crash point in the task run loop
                         (ctx: barrier, node, subtask) — fires AFTER the
                         subtask's state files are written and BEFORE its
@@ -50,8 +52,11 @@ Instrumented sites (the port's modules that have them):
                         subtask): a failure keeps the old generations
 
 The run files themselves go through the storage sites and their retry
-layer. The JAX package's other sites (the data plane, connectors, the
-controller) come with their modules.
+layer. The data plane's, the controller's, the node daemon's and the
+fleet's sites (storage.multipart, network.send, network.recv, worker.heartbeat,
+node.start_worker, controller_rpc, commit, rescale, autoscale_decide,
+admission, fleet_place, job_tick, evolve_drain) have the meanings that the
+JAX package's ``faults`` docstring gives them.
 """
 
 from __future__ import annotations

@@ -3,8 +3,9 @@
 compiled runtime expressions (arroyo_tpu_torch.expr). A single WindowInfo
 per planned relation enforces the per-branch windowing discipline.
 ``plan_query`` ends with the plan passes (arroyo_tpu_torch.analysis) and
-plans every operator the JAX planner plans: the ones the port has not yet
-ported (ROADMAP A.5) are refused when the engine builds them.
+plans every operator and connector the JAX planner plans; the engine builds
+each of them (a Kafka source or sink then needs confluent_kafka, as in the
+JAX package).
 """
 
 from __future__ import annotations

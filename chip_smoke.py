@@ -338,6 +338,21 @@ non-zero, printing no result):
               events/s beside the cluster phase's process q7, POST to
               Running, spawn to `started`, POST to Finished and each file
               set's events/s.
+27. connectors -- the network connectors: SQL q7 (1,000,000 events, a
+              cut for the run's time limit; chaining on, batch 65536,
+              parallelism 1) with its bids arriving over a NATS broker of
+              this script's own (ChipNats: INFO, CONNECT, SUB, PUB, MSG,
+              PING/PONG in this process; it writes one JSON message a bid,
+              in chunks, only after the source's SUB, then half-closes so
+              the source ends gracefully) and its rows leaving through the
+              webhook sink to this script's own http.server (WEBHOOK_MAIN,
+              a process of its own). Exact: the POSTed rows equal
+              oracle_q7, none missing, none twice; every message
+              delivered; on the GPU, the chain compiled with no fallback;
+              K4, K1 and K2 launched (counts zeroed just before, read just
+              after), K4 one Triton launch a call. Prints events/s, the
+              run's wall, the rows, the launches, the device's idle share
+              and the messages.
 
 ``--only a,b`` runs those phases alone after probe and build (a short
 check) and prints no result line. ``--only segment_sweep`` (in no default
@@ -372,6 +387,7 @@ import json
 import os
 import queue
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -6733,6 +6749,23 @@ def smoke_check(name: str, out: str) -> None:
             f"missing: {[r for r in want_c if r not in got_c][:5]}")
 
 
+def check_sql_path(what: str, job: str, eng, launches: dict, path_kernels) -> tuple:
+    """A SQL-planned run's checks: its chains ran compiled (SEGMENT_COMPILED,
+    no SEGMENT_FALLBACK), every kernel of its path launched, K4 one Triton
+    launch a call. Returns the two events' lists."""
+    compiled = recorder.events(job, "SEGMENT_COMPILED")
+    fallbacks = recorder.events(job, "SEGMENT_FALLBACK")
+    if not compiled or fallbacks:
+        raise AssertionError(f"{what}: chains {[n for n in eng.graph.nodes if '+' in n]}, "
+                             f"compiled {len(compiled)}, fallbacks "
+                             f"{[e['message'] for e in fallbacks]}")
+    unlaunched = [k for k in path_kernels if launches[k] == 0]
+    if unlaunched:
+        raise AssertionError(f"{what} ran without launching {unlaunched}: {launches}")
+    check_k4_one_launch(what, launches)
+    return compiled, fallbacks
+
+
 def sql_query_run(name: str, root: str) -> dict:
     """Nexmark ``name`` written as SQL: planned by the port's plan_query,
     run at bench.py's sizes (chaining on, batch 65536, parallelism 1) into
@@ -6768,16 +6801,8 @@ def sql_query_run(name: str, root: str) -> dict:
         raise RuntimeError(f"{job} ran on {eng.device}, not on the GPU")
     with open(out) as f:
         n_rows = check_sql_rows(name, f.read().splitlines(), want)
-    compiled = recorder.events(job, "SEGMENT_COMPILED")
-    fallbacks = recorder.events(job, "SEGMENT_FALLBACK")
-    if not compiled or fallbacks:
-        raise AssertionError(f"sql {name}: chains {[n for n in eng.graph.nodes if '+' in n]}, "
-                             f"compiled {len(compiled)}, fallbacks "
-                             f"{[e['message'] for e in fallbacks]}")
-    unlaunched = [k for k in SQL_PATH_KERNELS[name] if launches[k] == 0]
-    if unlaunched:
-        raise AssertionError(f"sql {name} ran without launching {unlaunched}: {launches}")
-    check_k4_one_launch(f"sql {name}", launches)
+    compiled, fallbacks = check_sql_path(f"sql {name}", job, eng, launches,
+                                         SQL_PATH_KERNELS[name])
     by_name = device_us_by_name(prof)
     busy_s = sum(by_name.values()) / 1e6 if by_name else None  # None: not measured
     return {"events": events, "plan_ms": plan_ms, "wall_s": wall, "events_per_s": events / wall,
@@ -8064,6 +8089,293 @@ def deploy_phase(card: str, res: dict) -> dict:
     return info
 
 
+# ---------------------------------------------------------------- connectors
+
+# SQL Nexmark q7 with its bids arriving over a NATS broker of this script's
+# own (one JSON message each, as the deploy phase writes them to files) and
+# its rows leaving through the webhook sink to this script's own http.server.
+# The broker and the receiver are stand-ins with no network, as MemoryS3 is
+# for the object store.
+# half bench.py's q7 size: a cut of depth for the whole run's time limit (the
+# phase's host-bound run took 88 s at 2,000,000 events late in a whole run)
+CONNECTORS_EVENTS = Q7_EVENTS // 2
+NATS_SUBJECT = "bids"
+NATS_CHUNK_MESSAGES = 16384  # messages a sendall
+NATS_DRAIN_S = 60  # the longest the broker waits for the client to close
+SQL_Q7_NATS = """CREATE TABLE bids (auction BIGINT, price BIGINT, ts TIMESTAMP)
+WITH (connector = 'nats', servers = 'nats://127.0.0.1:{port}', subject = '{subject}',
+      format = 'json', type = 'source', event_time_field = 'ts');
+CREATE TABLE q7n_out (start TIMESTAMP, auction BIGINT, max_price BIGINT, bids BIGINT)
+WITH (connector = 'webhook', endpoint = '{endpoint}', format = 'json', type = 'sink');
+INSERT INTO q7n_out
+SELECT window.start AS start, auction, max_price, bids FROM (
+  SELECT tumble(interval '10 seconds') AS window, auction, max(price) AS max_price,
+    count(*) AS bids
+  FROM bids GROUP BY window, auction) x;
+"""
+
+
+def nats_bid_chunks(cols: dict, subject: str, sid: str) -> list:
+    """The bids as core-NATS MSG frames for subscription ``sid``, cut into
+    chunks of NATS_CHUNK_MESSAGES whole messages: [(bytes, messages)]."""
+    payloads = [f'{{"auction":{a},"price":{p},"ts":{t}}}' for a, p, t in zip(
+        cols["auction"].tolist(), cols["price"].tolist(), cols["ts"].tolist())]
+    head = f"MSG {subject} {sid} "
+    chunks = []
+    for lo in range(0, len(payloads), NATS_CHUNK_MESSAGES):
+        part = payloads[lo:lo + NATS_CHUNK_MESSAGES]
+        chunks.append(("".join(f"{head}{len(p)}\r\n{p}\r\n" for p in part).encode(), len(part)))
+    return chunks
+
+
+class ChipNats(threading.Thread):
+    """A minimal in-process core-NATS server for one subscriber: INFO,
+    CONNECT, PING/PONG, SUB, PUB and MSG. Once a SUB on its subject arrives
+    (and not before), it writes the prepared MSG chunks with one sendall
+    each, counting the messages, then ends its side of the connection: the
+    source reads every message, ends gracefully and every window closes. A
+    PUB is counted and dropped. Whatever goes wrong is kept in ``error`` for
+    the caller to raise."""
+
+    INFO = b'INFO {"server_id":"chip-smoke","version":"2.10.0","max_payload":1048576}\r\n'
+
+    def __init__(self, subject: str, chunks: list, sid: str = "1"):
+        super().__init__(daemon=True, name="chip-nats")
+        self.srv = socket.create_server(("127.0.0.1", 0))
+        self.port = self.srv.getsockname()[1]
+        self.subject, self.sid, self.chunks = subject, sid, chunks
+        self.messages = sum(n for _b, n in chunks)
+        self.delivered = 0
+        self.published = 0
+        self.subscribed_at = None
+        self.closed_at = None
+        self.drained_at = None
+        self.error = None
+
+    def run(self):
+        try:
+            conn, _ = self.srv.accept()
+        except OSError:
+            return  # closed before any client came
+        try:
+            with conn:
+                self._serve(conn)
+        except Exception as e:  # noqa: BLE001 - the caller raises it
+            self.error = f"{type(e).__name__}: {e}"
+
+    def _serve(self, conn):
+        conn.sendall(self.INFO)
+        buf = b""
+        while self.subscribed_at is None:
+            while b"\r\n" not in buf:
+                chunk = conn.recv(65536)
+                if not chunk:
+                    raise ConnectionError("the subscriber left before its SUB")
+                buf += chunk
+            line, buf = buf.split(b"\r\n", 1)
+            if line == b"PING":
+                conn.sendall(b"PONG\r\n")
+            elif line.startswith(b"SUB "):
+                parts = line.decode().split(" ")
+                if parts[1] != self.subject or parts[-1] != self.sid:
+                    raise ValueError(f"SUB {parts[1:]}: the frames are for subject "
+                                     f"{self.subject!r}, sid {self.sid!r}")
+                self.subscribed_at = time.perf_counter()
+            elif line.startswith(b"PUB "):
+                n = int(line.split(b" ")[-1])
+                while len(buf) < n + 2:
+                    buf += conn.recv(65536)
+                buf = buf[n + 2:]
+                self.published += 1
+            elif not line.startswith((b"CONNECT ", b"PONG", b"UNSUB ")):
+                raise ValueError(f"unexpected client op {line[:64]!r}")
+        for data, n in self.chunks:
+            conn.sendall(data)
+            self.delivered += n
+        self.closed_at = time.perf_counter()
+        # FIN after the last message; then read what the client still sends
+        # (its keepalive PINGs) until it closes: a socket closed with unread
+        # bytes sends a reset, which can discard the client's unread tail
+        conn.shutdown(socket.SHUT_WR)
+        conn.settimeout(NATS_DRAIN_S)
+        while conn.recv(65536):
+            pass
+        self.drained_at = time.perf_counter()
+
+    def close(self):
+        self.srv.close()
+
+
+# The webhook's receiving end: http.server in a process of its own (its
+# request handling would otherwise take the interpreter lock from the
+# pipeline's threads), writing each body as a line of the file it is given
+# (JSON holds no raw newline) and, when its standard input closes, the count
+# of POSTs on its standard output.
+WEBHOOK_MAIN = r"""
+import sys, threading
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+out = open(sys.argv[1], "wb", buffering=1 << 20)
+lock = threading.Lock()
+posts = 0
+
+
+class Handler(BaseHTTPRequestHandler):
+    protocol_version = "HTTP/1.1"
+    disable_nagle_algorithm = True  # each response goes out as it is written
+
+    def log_message(self, *a):
+        pass
+
+    def do_POST(self):
+        global posts
+        body = self.rfile.read(int(self.headers["Content-Length"]))
+        with lock:
+            out.write(body + b"\n")
+            posts += 1
+        self.send_response(200)
+        self.send_header("Content-Length", "0")
+        self.end_headers()
+
+
+srv = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+srv.daemon_threads = True
+print(srv.server_address[1], flush=True)
+
+
+def stop():
+    sys.stdin.read()
+    srv.shutdown()
+
+
+threading.Thread(target=stop, daemon=True).start()
+srv.serve_forever()
+with lock:
+    out.close()
+    print(posts, flush=True)
+"""
+
+
+class WebhookReceiver:
+    """This script's own http.server (WEBHOOK_MAIN, HTTP/1.1, kept-alive
+    connections, pipelined requests answered in order, TCP_NODELAY) in a
+    process of its own: it keeps the body of every POST, answering 200.
+    ``close()`` stops it and returns the bodies, as text lines."""
+
+    def __init__(self, root: str):
+        self.path = os.path.join(root, "webhook-bodies")
+        self.proc = subprocess.Popen([sys.executable, "-c", WEBHOOK_MAIN, self.path],
+                                     stdin=subprocess.PIPE, stdout=subprocess.PIPE)
+        self.endpoint = f"http://127.0.0.1:{int(self.proc.stdout.readline())}/q7"
+
+    def close(self) -> list:
+        self.proc.stdin.close()
+        try:
+            posts = int(self.proc.stdout.readline() or -1)
+            self.proc.wait(timeout=60)
+        finally:
+            if self.proc.poll() is None:
+                self.proc.kill()
+                self.proc.wait()
+        with open(self.path) as f:
+            lines = f.read().splitlines()
+        if posts != len(lines) or self.proc.returncode != 0:
+            raise AssertionError(f"webhook receiver: {posts} POSTs, {len(lines)} bodies, "
+                                 f"exit {self.proc.returncode}")
+        return lines
+
+
+def nats_q7_run(events: int, job: str, device=None, trace=None) -> dict:
+    """SQL q7 over ChipNats into the webhook sink, planned by the port's
+    plan_query, chaining on, batch 65536, parallelism 1 (bench_config):
+    the bids' frames are made first (set-up), then the job runs (under
+    ``trace(run, warm)`` where given). Returns the run's wall, the engine,
+    the launch counts read just after it, the webhook's lines and the
+    broker's counts; the caller checks them."""
+    from arroyo_tpu_torch.sql import plan_query
+
+    t0 = time.perf_counter()
+    chunks = nats_bid_chunks(bids_columns(events), NATS_SUBJECT, "1")
+    setup_s = time.perf_counter() - t0
+    root = tempfile.mkdtemp(prefix="chip_smoke_connectors_")
+    broker = ChipNats(NATS_SUBJECT, chunks)
+    hook = WebhookReceiver(root)
+    broker.start()
+    lines = None
+    try:
+        bench_config(chaining=True)
+        g = plan_query(SQL_Q7_NATS.format(port=broker.port, subject=NATS_SUBJECT,
+                                          endpoint=hook.endpoint)).graph
+        recorder.clear_job(job)
+        ran = {}
+
+        def run():
+            reset_all_launch_counts()
+            t0 = time.perf_counter()
+            ran["eng"] = run_graph(g, job_id=job, timeout=900,
+                                   **({} if device is None else {"device": device}))
+            if ran["eng"].device.type == "cuda":
+                torch.cuda.synchronize()
+            ran["wall"] = time.perf_counter() - t0
+            ran["launches"] = all_launch_counts()
+
+        prof = run() if trace is None else trace(run, warm_device)
+        broker.join(timeout=NATS_DRAIN_S)
+    finally:
+        broker.close()
+        try:
+            lines = hook.close()
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+    if broker.error is not None or broker.delivered != broker.messages:
+        raise AssertionError(f"{job}: the broker delivered {broker.delivered} of "
+                             f"{broker.messages} messages (error: {broker.error})")
+    return {**ran, "prof": prof, "setup_s": setup_s, "messages": broker.messages,
+            "delivered": broker.delivered, "published": broker.published,
+            "lines": lines,
+            "stream_s": (None if broker.closed_at is None
+                         else broker.closed_at - broker.subscribed_at),
+            "drain_s": (None if broker.drained_at is None
+                        else broker.drained_at - broker.closed_at)}
+
+
+def connectors_phase(card: str) -> dict:
+    """The network connectors on the card: SQL q7 over a NATS broker into a
+    webhook at CONNECTORS_EVENTS. Exact: the webhook's rows equal
+    oracle_q7, none missing, none twice; every message delivered; the run
+    on the GPU, its chain compiled with no fallback; K4, K1 and K2 (its
+    read-and-clear mode) launched, counts zeroed just before the run and
+    read just after, K4 one Triton launch a call. One run, under the
+    CUDA-activity trace that gives the device's idle share."""
+    events = CONNECTORS_EVENTS
+    want = oracle_q7(events)
+    job = "chip-smoke-connectors-q7"
+    r = nats_q7_run(events, job, trace=device_trace)
+    eng, wall, launches = r["eng"], r["wall"], r["launches"]
+    if eng.device.type != "cuda":
+        raise RuntimeError(f"{job} ran on {eng.device}, not on the GPU")
+    n_rows = check_sql_rows("q7", r["lines"], want)
+    compiled, fallbacks = check_sql_path("connectors", job, eng, launches, AGG_PATH_KERNELS)
+    by_name = device_us_by_name(r["prof"])
+    busy_s = sum(by_name.values()) / 1e6 if by_name else None  # None: not measured
+    info = {"phase": "connectors", "card": card, "events": events,
+            "messages": r["messages"], "delivered": r["delivered"], "rows": n_rows,
+            "webhook_posts": len(r["lines"]), "setup_s": r["setup_s"], "wall_s": wall,
+            "events_per_s": events / wall, "stream_s": r["stream_s"], "drain_s": r["drain_s"],
+            "chains": [n for n in eng.graph.nodes if "+" in n],
+            "segment_compiled": len(compiled), "segment_fallback": len(fallbacks),
+            "launches": {k: launches[k] for k in AGG_PATH_KERNELS},
+            "k4_triton_launches": launches["segment_fused_kernels"],
+            "device_busy_s": busy_s,
+            "device_idle_share": None if busy_s is None else 1.0 - busy_s / wall}
+    emit(info)
+    print(f"connectors: SQL q7 over NATS into a webhook, {events} events, {r['messages']} "
+          f"messages delivered, {n_rows} rows posted, run {wall:.3f} s, "
+          f"{info['events_per_s']:.0f} events/s, idle {info['device_idle_share']}, launches "
+          f"{info['launches']} [{card}]", flush=True)
+    return info
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out-dir", default="chip_smoke_out",
@@ -8828,6 +9140,7 @@ def run_phases(args, out_dir: str) -> int:
         "obs": lambda: obs_phase(smi, out_dir),
         "cluster": lambda: cluster_phase(smi, res),
         "deploy": lambda: deploy_phase(smi, res),
+        "connectors": lambda: connectors_phase(smi),
         "segment_sweep": segment_sweep,
     }
     only = args.only.split(",") if args.only else [p for p in phases if p != "segment_sweep"]

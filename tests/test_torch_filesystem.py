@@ -44,27 +44,33 @@ def test_delta_sink_writes_table(tmp_path, port):
 
 
 def _pkg(name):
+    """One package's modules by role (its SQL planner and config too); ``kw``
+    runs its engine on the CPU."""
     if name == "jax":
         import arroyo_tpu
+        from arroyo_tpu import config as cfg
         from arroyo_tpu.batch import TIMESTAMP_FIELD, Schema
         from arroyo_tpu.engine.engine import Engine, run_graph
         from arroyo_tpu.expr import BinOp, Col, Lit
         from arroyo_tpu.graph import EdgeType, Graph, Node, OpName
+        from arroyo_tpu.sql import plan_query
 
         arroyo_tpu._load_operators()
         return dict(TS=TIMESTAMP_FIELD, Schema=Schema, Engine=Engine, run=run_graph,
                     BinOp=BinOp, Col=Col, Lit=Lit, EdgeType=EdgeType, Graph=Graph,
-                    Node=Node, OpName=OpName, kw={})
+                    Node=Node, OpName=OpName, plan=plan_query, cfg=cfg, kw={})
     import arroyo_tpu_torch
+    from arroyo_tpu_torch import config as cfg
     from arroyo_tpu_torch.batch import TIMESTAMP_FIELD, Schema
     from arroyo_tpu_torch.engine.engine import Engine, run_graph
     from arroyo_tpu_torch.expr import BinOp, Col, Lit
     from arroyo_tpu_torch.graph import EdgeType, Graph, Node, OpName
+    from arroyo_tpu_torch.sql import plan_query
 
     arroyo_tpu_torch._load_operators()
     return dict(TS=TIMESTAMP_FIELD, Schema=Schema, Engine=Engine, run=run_graph, BinOp=BinOp,
                 Col=Col, Lit=Lit, EdgeType=EdgeType, Graph=Graph, Node=Node, OpName=OpName,
-                kw={"device": "cpu"})
+                plan=plan_query, cfg=cfg, kw={"device": "cpu"})
 
 
 def _write_input(path, n):

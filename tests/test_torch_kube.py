@@ -2,11 +2,14 @@
 fake kube-apiserver: a job's whole lifecycle through a worker pod whose node
 daemon dials home, and a pod that never registers timing out and being
 deleted, each run through the port with the JAX test's assertions; the pod
-manifest carries the port's image, label and config variable names. (The
-JAX test's third case reads the JAX package's k8s/ manifest, not the
-scheduler, and is not mirrored.)"""
+manifest carries the port's image, label, config variable names and GPU
+limit. The JAX test's third case reads the JAX package's k8s/arroyo-tpu.yaml;
+its counterpart here reads the port's k8s/arroyo-tpu-torch.yaml with the
+port's names, and docker/Dockerfile.torch, the port's image."""
 
 from __future__ import annotations
+
+import os
 
 import pytest
 
@@ -36,6 +39,7 @@ def test_manifest_names_the_port(port):
     cont = m["spec"]["containers"][0]
     assert cont["image"] == "arroyo-tpu-torch:latest"
     assert cont["args"][:3] == ["node", "--controller", sched.controller_url]
+    assert cont["resources"] == {"limits": {"nvidia.com/gpu": 1}}
     assert {e["name"] for e in cont["env"]} >= {"ARROYO_TPU_TORCH__NODE__ID", "POD_IP"}
     assert m["metadata"]["labels"] == {"app": "arroyo-tpu-torch-worker",
                                        "arroyo-node-id": "node_abc"}
@@ -84,3 +88,71 @@ def test_kube_client_sends_the_service_account_token():
     assert seen == [("POST", "/api/v1/namespaces/ns/pods", "Bearer tok"),
                     ("GET", "/api/v1/namespaces/ns/pods/p", "Bearer tok"),
                     ("DELETE", "/api/v1/namespaces/ns/pods/p", "Bearer tok")]
+
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_manifest_probes_and_autoscaler_keys():
+    """tests/test_kube.py's case of the same name, over the port's
+    k8s/arroyo-tpu-torch.yaml with the port's names: liveness and readiness
+    probes on both tiers (the API's ping for the control plane, /status for
+    the node daemons), the autoscaler enabled with bounds, the fleet's
+    quotas, tick budget and node-pool knob; then what the port adds: its
+    image and worker label, the node id variable, a GPU on every node pod."""
+    path = os.path.join(REPO, "k8s", "arroyo-tpu-torch.yaml")
+    with open(path) as f:
+        text = f.read()
+    assert text.count("livenessProbe") == 2
+    assert text.count("readinessProbe") == 2
+    assert "/api/v1/ping" in text
+    assert "/status" in text
+    assert "ARROYO_TPU_TORCH__AUTOSCALER__ENABLED" in text
+    assert "ARROYO_TPU_TORCH__AUTOSCALER__MAX_PARALLELISM" in text
+    assert "ARROYO_TPU_TORCH__FLEET__QUOTA__MAX_SLOTS" in text
+    assert "ARROYO_TPU_TORCH__FLEET__TICK_BUDGET_MS" in text
+    assert "ARROYO_TPU_TORCH__FLEET__AUTOSCALE__ENABLED" in text
+    assert "arroyo_fleet_target_workers" in text
+    readme = os.path.join(os.path.dirname(path), "README.md")
+    assert os.path.exists(readme)
+    assert "Multi-tenant fleet" in open(readme).read()
+    # the port's names, and nothing of the JAX package's
+    assert "ARROYO_TPU__" not in text and "image: arroyo-tpu:latest" not in text
+    assert text.count("image: arroyo-tpu-torch:latest") == 2
+    assert "app: arroyo-tpu-torch-worker" in text
+    assert "ARROYO_TPU_TORCH__NODE__ID" in text
+    assert "nvidia.com/gpu: 1" in text
+
+
+def test_the_ports_image_runs_the_port_alone(monkeypatch):
+    """docker/Dockerfile.torch: a CUDA development image (nvcc builds the
+    kernels at first use), torch, triton and numpy installed, the port and
+    cpp/ copied and nothing of arroyo_tpu/, `python -m arroyo_tpu_torch`
+    its entry point. Every config variable the manifest sets reaches the
+    port's config as the value it names."""
+    import re
+
+    from arroyo_tpu_torch import config as tcfg
+
+    with open(os.path.join(REPO, "docker", "Dockerfile.torch")) as f:
+        lines = [ln.strip() for ln in f if ln.strip() and not ln.lstrip().startswith("#")]
+    base = next(ln for ln in lines if ln.startswith("FROM "))
+    assert "nvidia/cuda" in base and "devel" in base
+    pip = next(ln for ln in lines if "pip install" in ln).split()
+    assert {"torch", "triton", "numpy"} <= set(pip) and "jax" not in " ".join(pip)
+    copies = [ln.split()[1] for ln in lines if ln.startswith("COPY ")]
+    assert copies == ["arroyo_tpu_torch/", "cpp/"]
+    assert 'ENTRYPOINT ["python", "-m", "arroyo_tpu_torch"]' in lines
+
+    with open(os.path.join(REPO, "k8s", "arroyo-tpu-torch.yaml")) as f:
+        text = f.read()
+    pairs = re.findall(r"- name: (ARROYO_TPU_TORCH__\w+)\n\s+value(?:From)?: (.+)", text)
+    assert len(pairs) >= 10
+    for var, value in pairs:
+        value = value.strip().strip('"') if not value.startswith("{") else "pod-a"
+        monkeypatch.setenv(var, value)
+        tcfg.reset()
+        key = ".".join(p.lower().replace("_", "-") for p in var.split("__")[1:])
+        got = tcfg.config().get(key)
+        assert str(got).lower() in (value.lower(), f"{value}.0"), (var, got)
+    tcfg.reset()

@@ -232,15 +232,18 @@ def test_every_ported_subcommand_exists():
 
 
 def test_package_and_chip_smoke_import_without_the_optional_libraries():
-    """pyarrow, google.protobuf and boto3 are imported lazily, where a
-    parquet file, a protobuf message or an S3 client is used: with the three
-    blocked, every module of the port and chip_smoke import, the parquet
-    default falls back to npz, and an S3 URL without a client raises."""
+    """pyarrow, google.protobuf, boto3 and confluent_kafka are imported
+    lazily, where a parquet file, a protobuf message, an S3 client or a
+    Kafka client is used: with the four blocked, every module of the port
+    and chip_smoke import, the parquet default falls back to npz, an S3 URL
+    without a client raises, and so does a Kafka source or sink, naming
+    confluent_kafka."""
     code = (
         "import importlib, sys\n"
         "class Block:\n"
         "    def find_spec(self, name, path=None, target=None):\n"
-        "        if name.split('.')[0] in ('pyarrow', 'boto3') or name.startswith('google.protobuf'):\n"
+        "        if name.split('.')[0] in ('pyarrow', 'boto3', 'confluent_kafka') \\\n"
+        "                or name.startswith('google.protobuf'):\n"
         "            raise ImportError('blocked: ' + name)\n"
         "sys.meta_path.insert(0, Block())\n"
         f"for m in {_port_modules()!r}: importlib.import_module(m)\n"
@@ -253,7 +256,16 @@ def test_package_and_chip_smoke_import_without_the_optional_libraries():
         "    sys.exit('an s3 write without a client succeeded')\n"
         "except RuntimeError as e:\n"
         "    assert 'boto3' in str(e), e\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('pyarrow', 'boto3')\n"
+        "from arroyo_tpu_torch.connectors.kafka import KafkaSink, KafkaSource\n"
+        "for run in (lambda: KafkaSource({'topic': 't', 'schema': None}).run(None, None),\n"
+        "            lambda: KafkaSink({'topic': 't'}).on_start(None)):\n"
+        "    try:\n"
+        "        run()\n"
+        "        sys.exit('a kafka operator started without confluent_kafka')\n"
+        "    except ImportError as e:\n"
+        "        assert 'confluent_kafka' in str(e), e\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('pyarrow', 'boto3',\n"
+        "                                                           'confluent_kafka')\n"
         "             or m.startswith('google.protobuf'))\n"
         "print('LOADED', bad)\n"
         "sys.exit(1 if bad else 0)\n"

@@ -1,9 +1,8 @@
-"""What the port's SQL path still refuses, each with the ROADMAP item that
-lifts it: the JAX package's network connectors (its http_conn, websocket,
-broker_base, nats, mqtt, rabbitmq, kinesis, redis and kafka modules) are
-registered under their names and raise when built, naming ROADMAP A.9's
-remainder, through the operator constructor and through a SQL pipeline; the
-formats the port now has are taken."""
+"""What the port's SQL path once refused, and takes now: every connector the
+JAX package registers is registered in the port and none of them is a
+refusal (ROADMAP A.9's network connectors were its last, tests/
+test_torch_connectors_net.py runs them); the formats the port has are
+taken."""
 
 from __future__ import annotations
 
@@ -13,24 +12,19 @@ import pytest
 from arroyo_tpu_torch.batch import Batch, Schema
 from arroyo_tpu_torch.formats import make_deserializer, serialize_batch
 
-REMAINDER = [("sse", "source"), ("polling_http", "source"), ("webhook", "sink"),
-             ("websocket", "source"), ("nats", "source"), ("nats", "sink"),
-             ("mqtt", "source"), ("mqtt", "sink"), ("rabbitmq", "source"),
-             ("rabbitmq", "sink"), ("kinesis", "source"), ("kinesis", "sink"),
-             ("redis", "sink"), ("kafka", "source"), ("kafka", "sink")]
-
 
 def test_remainder_is_what_the_jax_package_registers_and_the_port_does_not_run():
     """Every connector name the JAX package registers is registered in the
     port (each package loaded alone, in a process of its own: tests register
-    fixture connectors in both registries); those of the remainder are
-    exactly the JAX package's network connector modules."""
+    fixture connectors in both registries), and no remainder is left: the
+    port's gated stubs are the JAX package's (fluvio alone), with no
+    refusal among them."""
     import json
     import os
     import subprocess
     import sys
 
-    from arroyo_tpu_torch.connectors.stubs import REMAINDER as STUBS
+    from arroyo_tpu_torch.connectors import stubs
 
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     got = {}
@@ -43,31 +37,8 @@ def test_remainder_is_what_the_jax_package_registers_and_the_port_does_not_run()
         assert proc.returncode == 0, proc.stderr[-2000:]
         got[pkg] = json.loads(proc.stdout.strip().splitlines()[-1])
     assert got["arroyo_tpu_torch"] == got["arroyo_tpu"]
-    assert sorted({(n, k) for n, (_m, kinds) in STUBS.items() for k in kinds}) == sorted(REMAINDER)
-    assert {m for m, _k in STUBS.values()} == {"http_conn", "websocket", "nats", "mqtt",
-                                               "rabbitmq", "kinesis", "redis", "kafka"}
-
-
-@pytest.mark.parametrize("name,kind", REMAINDER, ids=[f"{n}-{k}" for n, k in REMAINDER])
-def test_network_connector_raises_naming_a9s_remainder(name, kind):
-    from arroyo_tpu_torch.engine.engine import construct_operator
-    from arroyo_tpu_torch.graph import OpName
-
-    op = OpName.SOURCE if kind == "source" else OpName.SINK
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A\.9's remainder"):
-        construct_operator(op, {"connector": name, "schema": Schema.of([("x", "int64")])})
-
-
-def test_sql_pipeline_over_kafka_fails_naming_a9s_remainder():
-    from arroyo_tpu_torch.engine import run_graph
-    from arroyo_tpu_torch.sql import plan_query
-
-    pp = plan_query("""
-    CREATE TABLE k (x BIGINT) WITH (connector = 'kafka', topic = 't',
-      bootstrap_servers = 'localhost:9092', format = 'json', type = 'source');
-    SELECT x FROM k;""")
-    with pytest.raises(NotImplementedError, match=r"'kafka' connector.*A\.9's remainder"):
-        run_graph(pp.graph, device="cpu")
+    assert not hasattr(stubs, "REMAINDER") and not hasattr(stubs, "NotPortedError")
+    assert sorted(stubs._SPECS) == ["fluvio"]
 
 
 def test_json_formats_are_taken():

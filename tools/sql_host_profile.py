@@ -1,6 +1,8 @@
 """Where the host's time goes in a SQL-planned Nexmark run on the card: the
 run of chip_smoke.py's sql phase (the port's plan_query, bench.py's sizes,
-a single_file JSON sink), sampled every few milliseconds across all threads.
+a single_file JSON sink), or with ``q7nats`` its connectors phase (q7 over
+chip_smoke's NATS broker into its webhook receiver), sampled every few
+milliseconds across all threads.
 
 A sampling thread reads every other thread's stack (``sys._current_frames``)
 at each tick and counts, per function, the samples where it is on top of a
@@ -10,7 +12,7 @@ shares are of the samples that were doing work. The sampler holds the
 interpreter lock while it reads, so the run is somewhat slower than
 unsampled.
 
-usage: python3 tools/sql_host_profile.py [--queries q5,q7] [--interval-ms 2]
+usage: python3 tools/sql_host_profile.py [--queries q5,q7,q7nats] [--interval-ms 2]
        [--out chiprun_out/sql_host_profile.json]
 """
 
@@ -58,6 +60,36 @@ def sample(stop: threading.Event, interval_s: float, out: dict) -> None:
     out.update(busy=busy, waiting=waiting, self=self_c, inclusive=incl_c)
 
 
+def report_of(res: dict, events: int, wall: float, card: str, name: str) -> dict:
+    busy = max(res["busy"], 1)
+    print(f"{name}: {wall} s, {res['busy']} busy samples [{card}]")
+    for k, v in res["self"].most_common(12):
+        print(f"  self {v / busy:.4f} {k}")
+    return {"events": events, "wall_s": wall, "busy_samples": res["busy"],
+            "waiting_samples": res["waiting"],
+            "self_share": {k: v / busy for k, v in res["self"].most_common(25)},
+            "inclusive_share": {k: v / busy for k, v in res["inclusive"].most_common(40)}}
+
+
+def nats_profile(cs, interval_s: float, card: str) -> dict:
+    """chip_smoke's connectors run sampled, after a 20,000-event run of the
+    same plan (which compiles K4)."""
+    cs.nats_q7_run(20_000, "sql-profile-q7nats-warm")
+    res: dict = {}
+    stop = threading.Event()
+    th = threading.Thread(target=sample, args=(stop, interval_s, res))
+    th.start()
+    try:
+        r = cs.nats_q7_run(cs.CONNECTORS_EVENTS, "sql-profile-q7nats")
+    finally:
+        stop.set()
+        th.join()
+    out = report_of(res, cs.CONNECTORS_EVENTS, r["wall"], card, "q7nats")
+    out["stream_s"] = r["stream_s"]
+    out["rows"] = len(r["lines"])
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--queries", default="q5,q7")
@@ -79,6 +111,9 @@ def main() -> int:
     report = {"card": card, "interval_ms": args.interval_ms, "queries": {}}
     root = tempfile.mkdtemp(prefix="sql_host_profile_")
     for name in args.queries.split(","):
+        if name == "q7nats":
+            report["queries"][name] = nats_profile(cs, args.interval_ms / 1e3, card)
+            continue
         events = cs.SQL_EVENTS[name]
         cs.bench_config(chaining=True, queue_mult=1 if name == "q8" else 2)
         # a first run compiles K4 for the plan; the sampled run reuses it
@@ -97,15 +132,7 @@ def main() -> int:
             if tag == "sampled":
                 stop.set()
                 th.join()
-        busy = max(res["busy"], 1)
-        report["queries"][name] = {
-            "events": events, "wall_s": wall, "busy_samples": res["busy"],
-            "waiting_samples": res["waiting"],
-            "self_share": {k: v / busy for k, v in res["self"].most_common(25)},
-            "inclusive_share": {k: v / busy for k, v in res["inclusive"].most_common(40)}}
-        print(f"{name}: {wall} s, {res['busy']} busy samples [{card}]")
-        for k, v in res["self"].most_common(12):
-            print(f"  self {v / busy:.4f} {k}")
+        report["queries"][name] = report_of(res, events, wall, card, name)
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(report, f, indent=1)
