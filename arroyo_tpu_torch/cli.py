@@ -3,10 +3,9 @@ arroyo_tpu/cli.py). `python -m arroyo_tpu_torch <cmd>`.
 
 Reference: crates/arroyo/src/main.rs:83-123 (clap subcommands run / api /
 cluster / worker / visualize). The port's subcommands take the JAX
-package's arguments and give its exit codes; ``check`` and ``lint``
-(ROADMAP A.10: the port's analysis has no check_sql and no auditors) exit 2
-naming their item. Every entry point runs on the card unless the port's
-config names the CPU (``ARROYO_TPU_TORCH__DEVICE__TORCH_DEVICE=cpu``).
+package's arguments and give its exit codes. Every entry point runs on the
+card unless the port's config names the CPU
+(``ARROYO_TPU_TORCH__DEVICE__TORCH_DEVICE=cpu``).
 
   run <file.sql>      embedded cluster: api + controller + worker in-process,
                       ^C checkpoints then stops (reference run.rs:84-118)
@@ -17,6 +16,11 @@ config names the CPU (``ARROYO_TPU_TORCH__DEVICE__TORCH_DEVICE=cpu``).
                       spawns the workers the node scheduler places here
   compile-service     builds C++ UDFs with g++ and publishes the artifacts
   visualize <file.sql> print the dataflow graph as graphviz dot
+  check <file.sql>    plan the SQL and run every analyzer pass without
+                      running it (--json / --sarif); exit 1 if rejected
+  lint [paths]        repo lint and the replay-soundness, trace-safety and
+                      concurrency audits over the package (--json /
+                      --sarif); exit 1 on any unwaived finding
 """
 
 from __future__ import annotations
@@ -31,15 +35,58 @@ import time
 from typing import Optional
 
 
-_REMAINDER = {
-    "check": "static analysis of a pipeline (check_sql) is ROADMAP.md A.10 (not ported yet)",
-    "lint": "the repo lint and replay-soundness audit are ROADMAP.md A.10 (not ported yet)",
-}
+def _cmd_check(args) -> int:
+    """Static analysis of a pipeline without running it: plan the SQL, run
+    every analyzer pass (arroyo_tpu_torch.analysis), print the full
+    diagnostic report (--json: a machine-readable array for CI annotation).
+    Exit 0 = clean (warnings allowed unless --strict), 1 = rejected."""
+    import arroyo_tpu_torch
+    from arroyo_tpu_torch.analysis import (Severity, check_sql, render_json,
+                                           render_report, render_sarif)
+
+    arroyo_tpu_torch._load_operators()
+    with open(args.sql_file) as f:
+        sql = f.read()
+    pp, diags = check_sql(sql, parallelism=args.parallelism)
+    if args.sarif:
+        print(render_sarif(diags))
+    elif args.json:
+        print(render_json(diags))
+    elif diags:
+        print(render_report(diags))
+    if any(d.severity == Severity.ERROR for d in diags) or pp is None:
+        return 1
+    if not diags and not args.json and not args.sarif:
+        print(f"ok: {len(pp.graph.nodes)} nodes, {len(pp.graph.edges)} edges, "
+              "no findings")
+    if args.strict and diags:
+        return 1
+    return 0
 
 
-def _cmd_not_ported(args) -> int:
-    print(f"arroyo_tpu_torch {args.cmd}: {_REMAINDER[args.cmd]}", file=sys.stderr)
-    return 2
+def _cmd_lint(args) -> int:
+    """Repo lint and the LR2xx-LR4xx audits: AST checks over the port's own
+    invariants (arroyo_tpu_torch.analysis.repo_lint; --json: a
+    machine-readable array for CI annotation). Exit 1 on any unwaived
+    finding."""
+    import arroyo_tpu_torch
+    from arroyo_tpu_torch.analysis import (lint_paths, render_json, render_report,
+                                           render_sarif)
+
+    pkg_dir = os.path.dirname(os.path.abspath(arroyo_tpu_torch.__file__))
+    root = os.path.dirname(pkg_dir)
+    diags = lint_paths(args.paths or [pkg_dir], root=root)
+    if args.sarif:
+        print(render_sarif(diags))
+        return 1 if diags else 0
+    if args.json:
+        print(render_json(diags))
+        return 1 if diags else 0
+    if diags:
+        print(render_report(diags))
+        return 1
+    print("lint clean")
+    return 0
 
 
 def _cmd_node(args) -> int:
@@ -800,7 +847,7 @@ def main(argv: Optional[list[str]] = None) -> int:
     kp.add_argument("--sarif", action="store_true",
                     help="SARIF 2.1.0 diagnostics for CI inline "
                          "annotations; exit codes unchanged")
-    kp.set_defaults(fn=_cmd_not_ported)
+    kp.set_defaults(fn=_cmd_check)
 
     lp = sub.add_parser("lint", help="repo lint + replay-soundness audit: "
                                      "AST invariant checks over this "
@@ -813,7 +860,7 @@ def main(argv: Optional[list[str]] = None) -> int:
     lp.add_argument("--sarif", action="store_true",
                     help="SARIF 2.1.0 diagnostics for CI inline "
                          "annotations; exit codes unchanged")
-    lp.set_defaults(fn=_cmd_not_ported)
+    lp.set_defaults(fn=_cmd_lint)
 
     fp = sub.add_parser("fsck", help="offline checkpoint-chain verifier: "
                                      "checksums, completeness, spill-run "

@@ -109,7 +109,7 @@ class KafkaSource(SourceOperator):
         # union offsets saved by EVERY prior subtask: after a rescale,
         # partitions move between subtasks, so resume positions must come
         # from the whole job's offset map, not this subtask's old entry
-        # (a max-merge of offset maps: the order of the subtasks does not matter)
+        # lint: waive LR204 — a max-merge of offset maps: the order of the subtasks does not matter
         for _old_sub, saved in tbl.items():
             if saved:
                 tracker.merge(saved)

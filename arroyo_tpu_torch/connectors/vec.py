@@ -14,7 +14,7 @@ class VecSink(Operator):
     columnar: bool (append Batch objects instead of row dicts)."""
 
     def __init__(self, cfg: dict):
-        self.rows: list = cfg["rows"]
+        self.rows: list = cfg["rows"]  # state: ephemeral — test sink appends to a caller-owned list; at-least-once by contract
         self.include_internal = cfg.get("include_internal", False)
         self.columnar = cfg.get("columnar", False)
         self._lock = cfg.setdefault("_lock", threading.Lock())

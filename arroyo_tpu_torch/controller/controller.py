@@ -286,7 +286,7 @@ class JobController:
                 continue
             try:
                 h.kill()
-            except Exception:  # noqa: BLE001 - best-effort teardown of a worker set; members may already be gone
+            except Exception:  # lint: waive LR102 — best-effort teardown of a worker set; members may already be gone
                 pass
         self.handles = []
 
@@ -894,7 +894,7 @@ class JobController:
         # pipes); for a finished process this is pure cleanup
         try:
             h.kill()
-        except Exception:  # noqa: BLE001 - best-effort kill during finished-worker cleanup; process is already gone
+        except Exception:  # lint: waive LR102 — best-effort kill during finished-worker cleanup; process is already gone
             pass
         self.handles[widx] = None
         if any(x is not None for x in self.handles):

@@ -65,6 +65,7 @@ from collections import deque
 from dataclasses import dataclass, field
 from typing import Callable, Optional
 
+from ..obs.lockorder import make_lock
 
 _log = logging.getLogger("arroyo_tpu_torch.controller.fleet")
 
@@ -122,7 +123,7 @@ class FleetManager:
                  clock: Callable[[], float] = time.monotonic):
         self.scheduler = scheduler
         self._clock = clock
-        self._lock = threading.RLock()
+        self._lock = make_lock("FleetManager._lock", kind="rlock")
         self._held: dict[str, _Held] = {}
         self._queues: dict[str, deque[_Queued]] = {}
         self._backoff: dict[str, _Backoff] = {}

@@ -22,6 +22,7 @@ import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 
+from ..obs.lockorder import make_lock
 
 
 def _post(url: str, body: dict, timeout: float = 10.0) -> dict:
@@ -62,7 +63,7 @@ class NodeServer:
         # node registration that dials home
         self.node_id = config().get("node.id") or f"node_{uuid.uuid4().hex[:12]}"
         self._workers: dict[str, object] = {}  # worker_id -> ProcessWorkerHandle
-        self._lock = threading.Lock()
+        self._lock = make_lock("NodeServer._lock")
         outer = self
 
         class Handler(BaseHTTPRequestHandler):
@@ -248,7 +249,7 @@ class NodeServer:
             except Exception:  # noqa: BLE001 - a restarted controller forgot the node
                 try:
                     self._register()
-                except Exception:  # noqa: BLE001 - the next beat registers again
+                except Exception:  # lint: waive LR102 — controller restart window: the next heartbeat registers again
                     pass
 
     def stop(self) -> None:
@@ -260,6 +261,6 @@ class NodeServer:
                     continue  # in-flight reservation, nothing to kill yet
                 try:
                     w.kill()
-                except Exception:  # noqa: BLE001 - the worker may have exited already
+                except Exception:  # lint: waive LR102 — best-effort kill at daemon shutdown; the worker may have exited already
                     pass
             self._workers.clear()

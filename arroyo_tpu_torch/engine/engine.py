@@ -173,14 +173,16 @@ class Engine:
         self.restore_epoch = restore_epoch
         self.restored_watermark: Optional[int] = None
         self.resp_queue: "_queue.Queue[ControlResp]" = _queue.Queue()
+        # concurrency: single-writer — tasks/_inboxes are populated by build() before start() spawns the collector; Thread.start() is the happens-before edge, after which nobody mutates the dicts
         self.tasks: dict[tuple[str, int], Task] = {}
-        self._inboxes: dict[tuple[str, int], TaskInbox] = {}
+        self._inboxes: dict[tuple[str, int], TaskInbox] = {}  # concurrency: single-writer — same build()-then-start() discipline as tasks
         self._lock = threading.Lock()
         self._cond = threading.Condition(self._lock)
         self._finished_tasks: set[tuple[str, int]] = set()
         # the subset that drained cleanly: only their state is final and
         # may stand in for epoch coverage
         self._clean_finished: set[tuple[str, int]] = set()
+        # concurrency: single-writer — appended only by the collector thread, under _lock; join()'s unlocked reads are GIL-atomic list snapshots (truthiness and element 0)
         self._failed: list[ControlResp] = []
         self._checkpoints: dict[int, dict[tuple[str, int], dict]] = {}
         self._completed_epochs: set[int] = set()
@@ -192,6 +194,7 @@ class Engine:
         # the first epoch completed under it is still to come (the
         # evolve_cutover fault site fires there)
         self.evolution_mapping: Optional[dict] = None
+        # concurrency: single-writer — armed by build() (_check_restore) before the collector thread exists; cleared only by the collector under _lock
         self._evolve_cutover_pending = False
         self.assignment = assignment
         self.worker_index = worker_index
@@ -494,6 +497,7 @@ class Engine:
             self._completed_epochs.add(epoch)
             for key, task in self.tasks.items():
                 if key not in self._finished_tasks and task.operator.is_committing():
+                    # lint: waive LR403 — control_queue is an unbounded queue.Queue; put() never blocks, so holding _lock across it cannot stall
                     task.control_queue.put(ControlMessage(kind="commit", epoch=epoch))
             self._span(epoch, "commit_delivered", worker=self.worker_index)
             metrics_registry.observe_epoch_phases(
@@ -684,6 +688,7 @@ class Engine:
 
     def stop(self) -> None:
         for t in self.source_tasks():
+            # lint: waive LR403 — control_queue is an unbounded queue.Queue; put() never blocks (flagged via the _abort -> stop() reach under _lock)
             t.control_queue.put(ControlMessage(kind="stop"))
 
     def _abort(self) -> None:
@@ -703,7 +708,8 @@ class Engine:
             if not alive:
                 break
             if deadline is not None and time.monotonic() > deadline:
-                self._abort()
+                with self._lock:  # as the collector thread aborts
+                    self._abort()
                 raise TimeoutError(f"{len(alive)} tasks still running after join timeout")
             alive[0].join(0.2)
         # every thread has exited; the last task_finished / task_failed

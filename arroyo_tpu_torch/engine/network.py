@@ -33,6 +33,7 @@ from ..config import config
 from ..faults import InjectedFault, fault_point
 from ..native import MSG_DATA, MSG_SIGNAL, DataPlaneConn, DataPlaneListener
 from ..native.wire import decode_batch, decode_signal, encode_batch, encode_signal
+from ..obs.lockorder import make_lock
 from ..types import Signal
 
 # MUST match cpp/arroyo_host.cc FrameHeader (6x uint32: quad, msg_type,
@@ -52,7 +53,7 @@ class _SendBuffer:
         self.max_bytes = max_bytes
         self._chunks: list[bytes] = []
         self._bytes = 0
-        self._lock = threading.Lock()
+        self._lock = make_lock("_SendBuffer._lock")
         self._error: Optional[Exception] = None
 
     def append(self, quad, mtype: int, payload: bytes, flush: bool) -> None:
@@ -89,6 +90,7 @@ class _SendBuffer:
             view = memoryview(blob)
             while view:
                 try:
+                    # lint: waive LR403 — deliberate: frame atomicity and append order require writing under both locks; contenders here are exactly the senders whose frames must serialize
                     n = os.write(self.conn.fd, view)
                 except OSError as e:
                     # latch HERE, not in flush_pending: the append path also
@@ -149,7 +151,7 @@ class NetworkManager:
         self.port = self.listener.port
         self.peers: dict[int, tuple[str, int]] = {}
         self._out: dict[int, DataPlaneConn] = {}
-        self._out_lock = threading.Lock()
+        self._out_lock = make_lock("NetworkManager._out_lock")
         # quad -> (inbox, flat_input_index)
         # concurrency: single-writer — receivers register during task wiring, before start() spawns readers; a late frame for an unknown quad is dropped by design
         self._receivers: dict[tuple[int, int, int, int], tuple] = {}

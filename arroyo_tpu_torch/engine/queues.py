@@ -19,6 +19,7 @@ from typing import Optional, Union
 
 from ..batch import Batch
 from ..faults import fault_point
+from ..obs.lockorder import make_lock
 from ..types import Signal
 
 QueueItem = Union[Batch, Signal]
@@ -30,9 +31,9 @@ class TaskInbox:
         self.row_budget = row_budget
         self._queue: deque[tuple[int, QueueItem, float]] = deque()
         self._used = [0] * self.n_inputs
-        self._lock = threading.Lock()
-        self._not_empty = threading.Condition(self._lock)
-        self._budget_freed = threading.Condition(self._lock)
+        self._lock = make_lock("TaskInbox._lock")
+        self._not_empty = make_lock("TaskInbox._lock", kind="cond", lock=self._lock)
+        self._budget_freed = make_lock("TaskInbox._lock", kind="cond", lock=self._lock)
         self._closed = False
         self.metrics = None  # TaskMetrics of the consuming task
 

@@ -125,6 +125,7 @@ class Task:
         # then-stop): only such a finish may stand in for epoch coverage
         self.finished_clean = True
         # the run loop's last beat (Engine.heartbeat reads the stalest)
+        # concurrency: single-writer — monotonic heartbeat timestamp owned by the task thread; watchdog reads are GIL-atomic float snapshots and only ever see a slightly stale beat
         self.last_progress = time.monotonic()
         # the epoch being snapshotted (None otherwise): an exception
         # mid-checkpoint stamps its OPERATOR_PANIC event with it

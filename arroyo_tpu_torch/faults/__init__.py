@@ -51,6 +51,16 @@ Instrumented sites (the port's modules that have them):
     spill_compact       spill-generation merge write (ctx: key, epoch,
                         subtask): a failure keeps the old generations
 
+    lock_contend        hold-time delay inside an instrumented critical
+                        section (obs/lockorder.py ``make_lock`` proxies;
+                        ctx: key="Class.attr"): ``delay=MS@match=<class>``
+                        widens the race window the concurrency auditor
+                        (LR4xx) flagged statically, so a suspected
+                        interleaving becomes a schedulable one. Locks are
+                        instrumented when constructed while a plan naming
+                        the site is installed (or the lock-order witness
+                        is on)
+
 The run files themselves go through the storage sites and their retry
 layer. The data plane's, the controller's, the node daemon's and the
 fleet's sites (storage.multipart, network.send, network.recv, worker.heartbeat,
@@ -80,6 +90,19 @@ _log = logging.getLogger("arroyo_tpu_torch.faults")
 _lock = threading.Lock()
 _active: Optional[FaultInjector] = None
 _from_config = False
+
+# every instrumented site; the repo lint (analysis/repo_lint.py) checks that
+# a full sweep finds each one wired to a fault_point call
+SITES = (
+    "storage.put", "storage.get", "storage.delete", "storage.list",
+    "storage.multipart", "network.send", "network.recv", "queue.put",
+    "connector.poll", "connector.commit", "worker", "worker.heartbeat",
+    "node.start_worker", "controller_rpc", "commit", "rescale",
+    "autoscale_decide", "spill_write", "spill_probe", "spill_compact",
+    "admission", "fleet_place", "job_tick", "evolve_drain", "evolve_cutover",
+    "lock_contend",
+)
+
 
 def install(plan: str, seed: int = 0, _config_origin: bool = False) -> FaultInjector:
     """Parse and activate ``plan``; returns the injector. The plan and seed

@@ -397,7 +397,9 @@ class DataPlaneConn:
         self.fd = fd
         # every sending task thread of this worker pair shares the link; a
         # frame's header and payload are two writes and must not interleave
-        self._send_lock = threading.Lock()
+        from ..obs.lockorder import make_lock
+
+        self._send_lock = make_lock("DataPlaneConn._send_lock")
 
     @staticmethod
     def connect(host: str, port: int, retries: int = 10, backoff_ms: int = 50) -> "DataPlaneConn":

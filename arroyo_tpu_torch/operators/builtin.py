@@ -133,8 +133,9 @@ class WatermarkGenerator(Operator):
         self.idle_time_micros: Optional[int] = cfg.get("idle_time_micros")
         self.max_watermark: Optional[int] = None
         self.last_emitted: Optional[int] = None
-        self.last_event_wall: float = time.monotonic()
-        self.idle_sent = False
+        # state: ephemeral — wall-clock idle detection; a restored task re-derives idleness from real time, and idle watermarks carry no data
+        self.last_event_wall: float = time.monotonic()  # lint: waive LR109 — event-time idle detection needs a wall clock, not self-measurement
+        self.idle_sent = False  # state: ephemeral — idle latch re-derived from the wall clock after restore; idle watermarks carry no data
 
     def tables(self):
         return [TableSpec("s", "global_keyed")]
@@ -156,7 +157,7 @@ class WatermarkGenerator(Operator):
     def handle_tick(self, ctx, collector):
         if self.idle_time_micros is None or self.idle_sent:
             return
-        if (time.monotonic() - self.last_event_wall) * 1e6 >= self.idle_time_micros:
+        if (time.monotonic() - self.last_event_wall) * 1e6 >= self.idle_time_micros:  # lint: waive LR109 — idle-watermark timeout is wall-clock by definition
             collector.broadcast(Signal.watermark_of(Watermark.idle()))
             self.idle_sent = True
 
@@ -172,7 +173,7 @@ class WatermarkGenerator(Operator):
         finisher (engine/segment.py), so the two paths cannot drift. Called
         AFTER the batch's rows are collected: the watermark must never
         overtake the data it covers."""
-        self.last_event_wall = time.monotonic()
+        self.last_event_wall = time.monotonic()  # lint: waive LR109 — idle-detection clock, not self-measurement
         self.idle_sent = False
         if self.max_watermark is None or m > self.max_watermark:
             self.max_watermark = m

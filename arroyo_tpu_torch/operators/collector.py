@@ -79,7 +79,7 @@ class Collector:
             self._route(batch)  # already full-size: skip the copy
             return
         if not self._pending:
-            self._pending_since = time.monotonic()
+            self._pending_since = time.monotonic()  # lint: waive LR109 — coalescing max-delay deadline clock, not self-measurement
             self._pending_cols = frozenset(batch.columns)
         self._pending.append(batch)
         self._pending_rows += batch.num_rows
@@ -99,6 +99,7 @@ class Collector:
     def flush_expired(self, now: float | None = None) -> None:
         """Time-based flush: called from the task run loop between items so
         a lull in traffic cannot hold sub-threshold rows forever."""
+        # lint: waive LR109 — coalescing max-delay deadline clock, not self-measurement
         if self._pending and (now or time.monotonic()) - self._pending_since \
                 >= self.co_max_delay_s:
             self.flush()

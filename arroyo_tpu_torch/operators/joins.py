@@ -98,9 +98,11 @@ class InstantJoin(Operator):
         self.device_min_rows = int(config().get("device.join-min-rows", 2048))
         # t -> [left batches], [right batches]
         self.buf: dict[int, tuple[list, list]] = {}
+        # state: ephemeral — observability counter (obs/profile.py late_rows_of); never read into emitted data
         self.late_rows = 0
         self.emitted_before: Optional[int] = None
         # in-flight closes: (JoinHandle|None, t, lb, rb, Watermark|None)
+        # state: ephemeral — force-drained at every barrier (handle_checkpoint) before the snapshot
         self._pending: deque = deque()
 
     def tables(self):

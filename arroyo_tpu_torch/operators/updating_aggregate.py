@@ -102,6 +102,7 @@ class UpdatingAggregate(Operator):
         self.ttl = int(cfg.get("ttl_micros", 24 * 3600 * 1_000_000))
         self.state: dict[int, _KeyState] = {}
         self.key_values: dict[int, tuple] = {}
+        # state: ephemeral — flushed empty at every barrier (handle_checkpoint flushes first); rebuilt by replay
         self.updated: set[int] = set()
         # high-water event time: stamps emitted rows and anchors TTL eviction
         self.max_event_time: int = 0
@@ -125,9 +126,12 @@ class UpdatingAggregate(Operator):
         self._last_update: dict[int, int] = {}  # key hash -> event time
         self._emitted: dict[int, tuple] = {}  # key hash -> last appended vals
         # observability counters (read by chip_smoke.py; never emitted)
-        self.evicted_keys = 0  # keys dropped by TTL eviction
-        self.compactions = 0  # device store rebuilds
-        self.spill_reads = 0  # flushed keys read from the host spill tier
+        # state: ephemeral — a count of keys dropped by TTL eviction; never read into emitted data
+        self.evicted_keys = 0
+        # state: ephemeral — a count of device store rebuilds; never read into emitted data
+        self.compactions = 0
+        # state: ephemeral — a count of flushed keys read from the host spill tier; never read into emitted data
+        self.spill_reads = 0
 
     # ------------------------------------------------------------------
 

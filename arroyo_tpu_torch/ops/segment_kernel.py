@@ -291,6 +291,7 @@ def _plain(prog: "SegmentProgram", n: int, inputs: list[torch.Tensor]):
             if m.projections is not None:
                 new = {name: as_full(e.eval_torch(cols), p, dev) for name, e in m.projections}
                 for carried in (TIMESTAMP_FIELD, KEY_FIELD, "_is_retract"):
+                    # lint: waive LR301 — a key test on the plan's column dicts, not a test of batch values
                     if carried not in new and carried in cols:
                         new[carried] = cols[carried]
                 cols = new

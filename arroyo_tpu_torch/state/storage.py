@@ -240,7 +240,7 @@ class GcsHttpClient:
 
     def _token_stale(self) -> bool:
         return (self._token_expiry is not None
-                and time.monotonic() >= self._token_expiry - self.TOKEN_REFRESH_MARGIN_S)
+                and time.monotonic() >= self._token_expiry - self.TOKEN_REFRESH_MARGIN_S)  # lint: waive LR109 — GCS token expiry deadline, not self-measurement
 
     def _headers(self) -> dict:
         if self._token is None and not self._probed_metadata:
@@ -269,7 +269,7 @@ class GcsHttpClient:
                 self._token_source = "metadata"
                 expires_in = payload.get("expires_in")
                 self._token_expiry = (
-                    time.monotonic() + float(expires_in) if expires_in else None)
+                    time.monotonic() + float(expires_in) if expires_in else None)  # lint: waive LR109 — GCS token expiry deadline, not self-measurement
                 return self._token
         except Exception:  # noqa: BLE001 - not on GCE
             return None

@@ -77,7 +77,8 @@ class SessionAggregate(Operator):
         # per-key-field value columns; created lazily with the input's dtype
         self.s_keycols: Optional[list[np.ndarray]] = None
         self.emitted_watermark: Optional[int] = None
-        self.late_rows = 0  # observability counter; never read into emitted data
+        # state: ephemeral — observability counter (obs/profile.py late_rows_of); never read into emitted data
+        self.late_rows = 0
 
     # ------------------------------------------------------------------
 

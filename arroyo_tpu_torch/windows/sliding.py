@@ -81,17 +81,28 @@ class SlidingAggregate(Operator):
         self.min_bin: Optional[int] = None  # earliest live rel bin
         self.max_bin: Optional[int] = None  # latest rel bin seen
         self.next_window: Optional[int] = None  # rel start-bin of next window to emit
+        # state: ephemeral — observability counter (obs/profile.py late_rows_of); never read into emitted data
         self.late_rows = 0
         # each slide bin is fetched from the device exactly once
         # (destructively) when the watermark completes it; windows combine
         # the host-cached bins
         self.open_bins: set[int] = set()  # rel bins with device-resident data
-        self._bin_cache: dict[int, tuple] = {}  # rel bin -> (keys_u64, accs)
-        self._bin_pending: dict = {}  # rel bin -> Future[(keys, bins, accs)]
-        self._extracted_before: Optional[int] = None  # extraction progress
+        # rel bin -> (keys_u64, accs)
+        # state: ephemeral — folded into the "t" snapshot at every barrier; restore returns those bins to the device store
+        self._bin_cache: dict[int, tuple] = {}
+        # rel bin -> Future[(keys, bins, accs)]
+        # state: ephemeral — force-resolved at every barrier (handle_checkpoint) before the snapshot
+        self._bin_pending: dict = {}
+        # extraction progress
+        # state: ephemeral — restored bins return to the device store and must be extracted again; the late boundary persists separately ("e")
+        self._extracted_before: Optional[int] = None
         self._late_before: Optional[int] = None  # late-drop boundary
-        self._target_window: Optional[int] = None  # emit windows <= this
-        self._wm_queue: list = []  # (target_window, Watermark) held in order
+        # emit windows <= this
+        # state: ephemeral — re-derived from the first watermark after a restore; emission reorders only against input batches, never against forwarded watermarks
+        self._target_window: Optional[int] = None
+        # (target_window, Watermark) held in order
+        # state: ephemeral — fully drained by the forced _drain at every barrier
+        self._wm_queue: list = []
         self._mesh_oflow_hwm = 0  # MESH_OVERFLOW event throttle high-water mark
 
     # ------------------------------------------------------------------
@@ -431,6 +442,7 @@ class SlidingAggregate(Operator):
                 keys_c, accs_c = combine_by_key(self.acc_kinds, keys, accs)
                 fused.append(self._window_cols(w, keys_c, accs_c))
             self.next_window = w + 1
+            # lint: waive LR204 — eviction only: deletes closed cache bins; no row is built or emitted from this loop
             for b in [b for b in self._bin_cache if b < self.next_window]:
                 del self._bin_cache[b]
             self.key_dict.evict_closed(self.next_window)

@@ -194,6 +194,18 @@ def record_mesh_overflow(op, ctx) -> int:
     return rows
 
 
+def window_ordered(keys, bins, accs):
+    """A close's rows window by window, each window's rows in the store's
+    order. The sharded store reads a close that spans several windows in
+    slot order, which interleaves them; how many windows one close spans
+    follows the batches the window saw, and so the coalescing's clock. The
+    single-device store already reads bin by bin: then nothing moves."""
+    if len(bins) < 2 or not (bins[1:] < bins[:-1]).any():
+        return keys, bins, accs
+    order = np.argsort(bins, kind="stable")
+    return keys[order], bins[order], [a[order] for a in accs]
+
+
 def make_window_aggregator(acc_kinds, acc_dtypes, backend: str, device):
     """The single-device SlotAggregator or (backend "jax" and
     device.mesh-devices > 1) the key-space-sharded ShardedAggregator, sized
@@ -349,9 +361,12 @@ class TumblingAggregate(Operator):
         self.base_bin: Optional[int] = None  # bin offset so device bins fit int32
         self.open_bins: set[int] = set()  # relative bins resident on device
         self.emitted_before_rel: Optional[int] = None  # late-data boundary
+        # state: ephemeral — observability counter (obs/profile.py late_rows_of); never read into emitted data
         self.late_rows = 0
         # in-flight closes: (Future|None, rel_before|None, Watermark|None, seq)
+        # state: ephemeral — force-drained at every barrier (handle_checkpoint) before the snapshot
         self._pending: deque = deque()
+        # state: ephemeral — orders in-flight closes within one incarnation; the queue is empty at every barrier
         self._batch_seq = 0
         self._mesh_oflow_hwm = 0  # MESH_OVERFLOW event throttle high-water mark
 
@@ -558,7 +573,7 @@ class TumblingAggregate(Operator):
                 return
             self._pending.popleft()
             if fut is not None:
-                keys, bins, accs = fut.result()
+                keys, bins, accs = window_ordered(*fut.result())
                 if len(keys):
                     self._emit_entries(keys, bins, accs, collector)
                 if self.dict_key_fields:

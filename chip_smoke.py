@@ -338,7 +338,7 @@ non-zero, printing no result):
               events/s beside the cluster phase's process q7, POST to
               Running, spawn to `started`, POST to Finished and each file
               set's events/s.
-27. connectors -- the network connectors: SQL q7 (1,000,000 events, a
+27. connectors -- the network connectors: SQL q7 (500,000 events, a
               cut for the run's time limit; chaining on, batch 65536,
               parallelism 1) with its bids arriving over a NATS broker of
               this script's own (ChipNats: INFO, CONNECT, SUB, PUB, MSG,
@@ -353,6 +353,22 @@ non-zero, printing no result):
               after), K4 one Triton launch a call. Prints events/s, the
               run's wall, the rows, the launches, the device's idle share
               and the messages.
+28. analysis -- the port's static analysis (ROADMAP A.10): `python -m
+              arroyo_tpu_torch lint` over the package exits 0 ("lint
+              clean"), and `check --json` on SQL q7, q5, q8 and q5 with an
+              unaligned hop gives exactly ANALYSIS_CHECKS (exit code and
+              diagnostics), all as subprocesses while SQL q7 (1,000,000
+              events, a cut for the phase's time; parallelism 2) runs
+              through ControllerServer(EmbeddedScheduler) over two engines
+              joined by the data plane with the lock-order witness on
+              (obs/lockorder.py, enabled before the controller is built):
+              exact, K4, K1 and K2 launched, the witness's edges inside
+              the static LR402 graph over arroyo_tpu_torch/ and its locks
+              including the inboxes' and the coalescing sends'
+              (ANALYSIS_LOCKS); then the same q7 under
+              lock_contend:delay=1@match=TaskInbox, exact, the delay
+              fired. Prints the edges, the acquisitions, both runs'
+              events/s and the phase's seconds.
 
 ``--only a,b`` runs those phases alone after probe and build (a short
 check) and prints no result line. ``--only segment_sweep`` (in no default
@@ -6889,6 +6905,8 @@ def sql_phase(card: str, res: dict) -> dict:
 # complete one triggers the kill
 CLUSTER_CKPT_MS = 500
 CLUSTER_CRASH_CKPT_MS = 200
+# bench.py's q7 size: at 1,000,000 events a worker can finish before the
+# first complete checkpoint, and there is then none to kill
 CLUSTER_CRASH_EVENTS = Q7_EVENTS
 CLUSTER_CLI_FAMILY = "grouped_aggregates"
 CLUSTER_WORKERS = 2
@@ -8096,9 +8114,10 @@ def deploy_phase(card: str, res: dict) -> dict:
 # its rows leaving through the webhook sink to this script's own http.server.
 # The broker and the receiver are stand-ins with no network, as MemoryS3 is
 # for the object store.
-# half bench.py's q7 size: a cut of depth for the whole run's time limit (the
-# phase's host-bound run took 88 s at 2,000,000 events late in a whole run)
-CONNECTORS_EVENTS = Q7_EVENTS // 2
+# a quarter of bench.py's q7 size: a cut of depth for the whole run's time
+# limit (the phase's host-bound run took 88 s at 2,000,000 events late in a
+# whole run, and 55 s at 1,000,000 on a slow host with the analysis phase)
+CONNECTORS_EVENTS = Q7_EVENTS // 4
 NATS_SUBJECT = "bids"
 NATS_CHUNK_MESSAGES = 16384  # messages a sendall
 NATS_DRAIN_S = 60  # the longest the broker waits for the client to close
@@ -8373,6 +8392,179 @@ def connectors_phase(card: str) -> dict:
           f"messages delivered, {n_rows} rows posted, run {wall:.3f} s, "
           f"{info['events_per_s']:.0f} events/s, idle {info['device_idle_share']}, launches "
           f"{info['launches']} [{card}]", flush=True)
+    return info
+
+
+# ---------------------------------------------------------------- analysis
+
+# `python -m arroyo_tpu_torch check --json` on these SQL texts: its exit code
+# and exactly these diagnostics (tests/test_torch_analysis.py holds this copy
+# to both packages' check_sql, since the card has no JAX). q5_unaligned is
+# q5 with a 3 s slide, which does not divide its 10 s width.
+ANALYSIS_CHECKS = {
+    "q7": (0, []),
+    "q5": (0, []),
+    "q8": (0, []),
+    "q5_unaligned": (1, [{
+        "rule": "AR002", "severity": "error", "site": "agg_4_sliding_aggregate",
+        "message": "hop(slide=3s, width=10s) is unaligned: the slide must be a positive "
+                   "divisor of the width",
+        "hint": "use a width that is a multiple of the slide, e.g. hop(interval '3 "
+                "seconds', interval '9 seconds')"}]),
+}
+# the witness's q7 over two embedded workers, and the same under the
+# lock_contend plan: half bench.py's q7, a cut of depth for the phase's time
+ANALYSIS_EVENTS = Q7_EVENTS // 2
+CONTEND_PLAN = "lock_contend:delay=1@match=TaskInbox"
+# locks the witness's run must take: the inboxes and the coalescing sends
+ANALYSIS_LOCKS = ("TaskInbox._lock", "_SendBuffer._lock", "NetworkManager._out_lock")
+
+
+def analysis_sql(name: str, out: str) -> str:
+    if name == "q5_unaligned":
+        return nexmark_sql("q5", Q5_EVENTS, out).replace("hop(interval '2 seconds'",
+                                                          "hop(interval '3 seconds'")
+    return nexmark_sql(name, SQL_EVENTS[name], out)
+
+
+def analysis_cli_start(root: str) -> dict:
+    """`python -m arroyo_tpu_torch lint` over the package and `check --json`
+    on each ANALYSIS_CHECKS text, as subprocesses (CPU work, run beside the
+    witness's q7)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    cli = [sys.executable, "-m", "arroyo_tpu_torch"]
+    runs = {"lint": cli + ["lint"]}
+    for name in ANALYSIS_CHECKS:
+        path = os.path.join(root, f"{name}.sql")
+        with open(path, "w") as f:
+            f.write(analysis_sql(name, os.path.join(root, f"{name}.json")))
+        runs[name] = cli + ["check", "--json", path]
+    return {name: (time.perf_counter(),
+                   subprocess.Popen(cmd, cwd=here, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True))
+            for name, cmd in runs.items()}
+
+
+def analysis_cli_finish(procs: dict, timeout: float = 300.0) -> dict:
+    """Each subprocess's exit code and seconds, held to lint's 0 and to the
+    pinned checks (the caller kills any still running)."""
+    out = {}
+    for name, (t0, p) in procs.items():
+        stdout, stderr = p.communicate(timeout=timeout)
+        secs = time.perf_counter() - t0
+        if name == "lint":
+            if p.returncode != 0 or "lint clean" not in stdout:
+                raise AssertionError(f"analysis: lint exited {p.returncode}:\n{stdout}"
+                                     f"{stderr[-2000:]}")
+            out[name] = {"rc": p.returncode, "s": secs}
+            continue
+        rc, diags = ANALYSIS_CHECKS[name]
+        try:
+            got = json.loads(stdout)
+        except ValueError as e:
+            raise AssertionError(f"analysis: check {name} printed no JSON ({e}): "
+                                 f"{stdout[-500:]}{stderr[-2000:]}") from e
+        if p.returncode != rc or got != diags:
+            raise AssertionError(f"analysis: check {name} exited {p.returncode} with "
+                                 f"{got}, want {rc} with {diags}")
+        out[name] = {"rc": p.returncode, "diagnostics": len(got), "s": secs}
+    return out
+
+
+def witness_q7(events: int, root: str, job: str, plan: str = None, device=None) -> dict:
+    """SQL q7 (parallelism 2) run by ControllerServer(EmbeddedScheduler)
+    over two engines in this process joined by the data plane, bench.py's
+    sizes, exact against oracle_sql. With ``plan`` None the lock-order
+    witness is on from before the controller is built: its edges must lie
+    in the static LR402 graph over the package and its locks include
+    ANALYSIS_LOCKS; else the fault plan is installed instead (every lock
+    it names instrumented) and must have fired. On the card K4, K1 and K2
+    launch (counts zeroed just before the job, read just after)."""
+    from arroyo_tpu_torch.analysis import static_lock_graph_package
+    from arroyo_tpu_torch.controller import ControllerServer, Database
+    from arroyo_tpu_torch.controller.scheduler import EmbeddedScheduler
+    from arroyo_tpu_torch.obs import lockorder
+
+    cluster_config({} if device is None else {"device.torch-device": str(device)})
+    out = os.path.join(root, f"{job}.json")
+    want = oracle_sql("q7", events)
+    if plan is None:
+        lockorder.enable(reset=True)
+    else:
+        inj = faults.install(plan)
+    try:
+        db = Database()
+        ctl = ControllerServer(db, EmbeddedScheduler()).start()
+        try:
+            reset_all_launch_counts()
+            t0 = time.perf_counter()
+            jid = db.create_job(db.create_pipeline(job, nexmark_sql("q7", events, out), 2))
+            state = ctl.wait_for_state(jid, "Finished", "Failed", timeout=600)
+            wall = time.perf_counter() - t0
+            launches = all_launch_counts()
+        finally:
+            ctl.stop()
+        if state != "Finished":
+            raise AssertionError(f"{job}: {state}: {db.get_job(jid).get('failure_message')}")
+        edges, taken = lockorder.edges(), lockorder.acquisitions()
+        hits = None if plan is None else sum(s.hits for s in inj.specs)
+    finally:
+        lockorder.disable()
+        lockorder.reset()
+        faults.clear()
+    n_rows = check_sql_rows("q7", sink_lines(out), want)
+    info = {"events": events, "rows": n_rows, "wall_s": wall, "events_per_s": events / wall,
+            "launches": {k: launches[k] for k in AGG_PATH_KERNELS}}
+    if torch.device(device or "cuda").type == "cuda":
+        unlaunched = [k for k in AGG_PATH_KERNELS if launches[k] == 0]
+        if unlaunched:
+            raise AssertionError(f"{job} launched no {unlaunched}: {launches}")
+    if plan is not None:
+        if not hits:
+            raise AssertionError(f"{job}: {plan} never fired")
+        return {**info, "plan": plan, "fault_hits": hits}
+    static = set(static_lock_graph_package())
+    unexplained = sorted(e for e in edges if e not in static)
+    if unexplained:
+        raise AssertionError(f"{job}: witness edges missing from the static lock graph: "
+                             f"{unexplained}")
+    untaken = [n for n in ANALYSIS_LOCKS if not taken.get(n)]
+    if untaken:
+        raise AssertionError(f"{job}: the run took no {untaken}; taken: {taken}")
+    return {**info, "edges": sorted(edges), "static_edges": len(static),
+            "acquisitions": dict(sorted(taken.items()))}
+
+
+def analysis_phase(card: str) -> dict:
+    """The port's static analysis on the card's machine: the lint and the
+    pinned checks as CLI subprocesses beside the witness's q7, then q7
+    under the lock_contend plan (see the module docstring's item 28)."""
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke_analysis_")
+    try:
+        procs = analysis_cli_start(root)
+        try:
+            wit = witness_q7(ANALYSIS_EVENTS, root, "chip-smoke-analysis-witness")
+            cli = analysis_cli_finish(procs)
+        finally:
+            for _t0, p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        contend = witness_q7(ANALYSIS_EVENTS, root, "chip-smoke-analysis-contend",
+                             plan=CONTEND_PLAN)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    info = {"phase": "analysis", "card": card, "cli": cli, "witness": wit,
+            "contend": contend, "seconds": time.perf_counter() - t0}
+    emit(info)
+    print(f"analysis: lint clean in {cli['lint']['s']:.1f} s; check q7/q5/q8/q5_unaligned "
+          f"exit {[cli[n]['rc'] for n in ANALYSIS_CHECKS]}; witness q7 over two workers "
+          f"{wit['events_per_s']:.0f} events/s, edges {wit['edges']} (static graph "
+          f"{wit['static_edges']} edges), acquisitions {wit['acquisitions']}; q7 under "
+          f"{CONTEND_PLAN} {contend['events_per_s']:.0f} events/s, {contend['fault_hits']} "
+          f"delays; launches {wit['launches']} / {contend['launches']}; phase "
+          f"{info['seconds']:.1f} s [{card}]", flush=True)
     return info
 
 
@@ -9141,6 +9333,7 @@ def run_phases(args, out_dir: str) -> int:
         "cluster": lambda: cluster_phase(smi, res),
         "deploy": lambda: deploy_phase(smi, res),
         "connectors": lambda: connectors_phase(smi),
+        "analysis": lambda: analysis_phase(smi),
         "segment_sweep": segment_sweep,
     }
     only = args.only.split(",") if args.only else [p for p in phases if p != "segment_sweep"]

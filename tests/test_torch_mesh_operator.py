@@ -99,21 +99,87 @@ def _both(build, job):
     return jrows, trows
 
 
+# The batches a window sees must not follow the clock: the collector's
+# max-delay flush cuts the source's rows where the wall clock says, and the
+# JAX package's sharded close emits the windows that one close spans
+# interleaved (C11). Without coalescing each source batch goes on at once.
+UNCOALESCED = {"engine.coalesce.enabled": False}
+# All 3,000 rows in one batch: the source's 512-row batches coalesce up to
+# max-rows and never by time, so one close spans windows 0 and 1.
+ONE_BATCH = {"engine.coalesce.enabled": True, "engine.coalesce.max-rows": 4096,
+             "engine.coalesce.max-delay-ms": 600_000}
+
+
+def tumbling_oracle(count, width=1_000_000):
+    want: dict = {}
+    for c in range(count):
+        w, k = (c * 1000) // width, c % 7
+        cnt, tot = want.get((w, k), (0, 0))
+        want[(w, k)] = (cnt + 1, tot + c)
+    return want
+
+
 @pytest.mark.parametrize("chaining", [False, True])
 def test_mesh_tumbling_matches_jax_and_oracle(chaining):
     count = 3000
-    tcfg.update({"pipeline.chaining.enabled": chaining, "segment.compile.min-rows": 1})
-    jcfg.update({"pipeline.chaining.enabled": chaining, "segment.compile.min-rows": 1})
+    tcfg.update({"pipeline.chaining.enabled": chaining, "segment.compile.min-rows": 1,
+                 **UNCOALESCED})
+    jcfg.update({"pipeline.chaining.enabled": chaining, "segment.compile.min-rows": 1,
+                 **UNCOALESCED})
     jrows, trows = _both(lambda g, rows: tumbling_graph(g, rows, count), f"mesh-tw-{chaining}")
     key = lambda r: (r["window_start"], r["k"], r["cnt"], r["total"])  # noqa: E731
     assert [key(r) for r in trows] == [key(r) for r in jrows]
-    want: dict = {}
-    for c in range(count):
-        w, k = (c * 1000) // 1_000_000, c % 7
-        cnt, tot = want.get((w, k), (0, 0))
-        want[(w, k)] = (cnt + 1, tot + c)
+    want = tumbling_oracle(count)
     assert {(r["window_start"] // 1_000_000, r["k"]): (r["cnt"], r["total"])
             for r in trows} == want
+
+
+@pytest.mark.parametrize("chaining", [False, True])
+def test_mesh_close_spanning_windows_emits_them_in_order(chaining):
+    """C11: one close over windows 0 and 1 (the source's rows in one batch)
+    emits window 0's rows, then window 1's, as a close per window does; the
+    same rows as the JAX package's per-window closes, window by window."""
+    count = 3000
+    settings = {"pipeline.chaining.enabled": chaining, "segment.compile.min-rows": 1}
+    tcfg.update({**settings, **ONE_BATCH})
+    trows: list = []
+    torch_run_graph(tumbling_graph((tbatch, texpr, tgraph), trows, count),
+                    job_id=f"mesh-c11-{chaining}-torch", device="cpu", timeout=300)
+    starts = [r["window_start"] for r in trows]
+    assert starts == sorted(starts)
+    assert {(r["window_start"] // 1_000_000, r["k"]): (r["cnt"], r["total"])
+            for r in trows} == tumbling_oracle(count)
+    jcfg.update({**settings, **UNCOALESCED})
+    jrows: list = []
+    jax_run_graph(tumbling_graph((jbatch, jexpr, jgraph), jrows, count),
+                  job_id=f"mesh-c11-{chaining}-jax", timeout=300)
+
+    def by_window(rows):
+        out: dict = {}
+        for r in rows:
+            out.setdefault(r["window_start"], set()).add((r["k"], r["cnt"], r["total"]))
+        return list(out.items())
+
+    assert by_window(trows) == by_window(jrows)
+
+
+def test_reference_mesh_close_order_follows_the_batching():
+    """C11's reference fault: the JAX package's sharded close reads the
+    windows it spans in slot order, so the same rows come out in another
+    order when the batches (cut by the coalescing clock) make one close
+    span two windows. The port emits them window by window
+    (windows.tumbling.window_ordered)."""
+    count = 3000
+    orders = []
+    for over in (UNCOALESCED, ONE_BATCH):
+        jcfg.update({"pipeline.chaining.enabled": False, **over})
+        rows: list = []
+        jax_run_graph(tumbling_graph((jbatch, jexpr, jgraph), rows, count),
+                      job_id=f"mesh-c11-ref-{len(orders)}", timeout=300)
+        orders.append([r["window_start"] for r in rows])
+    assert orders[0] == sorted(orders[0])
+    assert sorted(orders[1]) == orders[0]
+    assert orders[1] != orders[0]
 
 
 @pytest.mark.parametrize("chaining", [False, True])
