@@ -32,7 +32,12 @@ The JAX package reads ``device.join-min-rows`` and
 ``device.force-device-join`` with defaults and has no entry for them; the
 port lists them here with the same defaults and meaning.
 ``device.torch-device`` names the torch device (None = ``cuda``; see
-device.py). The mesh keys (``device.mesh-devices``, ``max-probes``,
+device.py). ``device.mesh-placement``, a key of the port alone, gives a
+mesh's device slots (device.py ``mesh_slot_devices``): None takes the first
+``min(n, cards)`` cards on an index-less ``cuda`` and one slot elsewhere; a
+TOML array of device names (or, from the environment, one comma-separated
+string) gives one slot each, a slot on a card the machine lacks raising. The
+mesh keys (``device.mesh-devices``, ``max-probes``,
 ``emit-capacity``, ``spill-capacity``, ``segment.compile.mesh-fuse``) have
 the JAX package's defaults and meaning. ``native.enabled`` (default True,
 a key the JAX package reads with that default) takes the native host
@@ -248,8 +253,11 @@ _DEFAULTS: dict[str, Any] = {
         "table-capacity": 65536,  # slots of keyed window state on the device
         "region-size": 2048,  # slots per region (one window close reads whole regions)
         # > 1: the window operators keep their state in a ShardedAggregator
-        # of this many key shards (parallel/), on the one device
+        # of this many key shards (parallel/)
         "mesh-devices": 0,
+        # the mesh's device slots (device.mesh_slot_devices): None, or device
+        # names, one slot each; each slot holds a contiguous run of shards
+        "mesh-placement": None,
         "max-probes": 64,  # linear-probing rounds of the sharded hash table
         "emit-capacity": 8192,  # rows per shard per sharded close round
         "spill-capacity": 2048,  # rows of each shard's spill buffer

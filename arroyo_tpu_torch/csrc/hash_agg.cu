@@ -54,6 +54,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "device_guard.cuh"
+
 #include <atomic>
 
 #include "table_compact.cuh"
@@ -141,7 +143,8 @@ int arroyo_hash_scan_chunk(int device, long long cap, const void* keys, const vo
                            void* stream) {
   if (cap < 1 || E < 1 || chunk_start < 0 || n_lanes < 0 || n_lanes > MAX_LANES)
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
+  DeviceGuard guard(device);
+  cudaError_t err = guard.err;
   if (err != cudaSuccess) return (int)err;
   ScanLanes lanes;
   for (int l = 0; l < n_lanes; ++l) {
@@ -171,7 +174,8 @@ int arroyo_hash_scan_walk(int device, long long cap, const void* keys, const voi
                           void* out_bin, void* count, void* scratch, void* stream) {
   if (cap < 1 || cap > 0x7fffffffLL || E < 0 || n_lanes < 0 || n_lanes > MAX_LANES)
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
+  DeviceGuard guard(device);
+  cudaError_t err = guard.err;
   if (err != cudaSuccess) return (int)err;
   compact::Lanes lanes;
   for (int l = 0; l < n_lanes; ++l) {
@@ -212,7 +216,8 @@ long long arroyo_hash_scan_walk_scratch_bytes(long long cap) {
 int arroyo_hash_free(int device, long long cap, const void* bins, void* occ, int below,
                      void* stream) {
   if (cap < 1) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
+  DeviceGuard guard(device);
+  cudaError_t err = guard.err;
   if (err != cudaSuccess) return (int)err;
   const bool vec = (reinterpret_cast<uintptr_t>(occ) & 15) == 0 &&
                    (reinterpret_cast<uintptr_t>(bins) & 15) == 0;

@@ -84,6 +84,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "device_guard.cuh"
+
 #include "radix_sort.cuh"
 
 using radix::RADIX;
@@ -563,7 +565,8 @@ int arroyo_join_sort_pairs(int device, const void* keys_in, int keys_i32, long l
       passes > max_passes || scratch_bytes < sort_scratch_bytes(n, range_cap) ||
       (scratch == nullptr && scratch_bytes > 0))
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
+  DeviceGuard guard(device);
+  cudaError_t err = guard.err;
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   unsigned char* scr = static_cast<unsigned char*>(scratch);
@@ -580,7 +583,8 @@ long long arroyo_join_sort_kernel_launches(void) { return g_sort_kernel_launches
 int arroyo_join_search_bounds(int device, const void* sorted, long long m, const void* probe,
                               long long p, void* lo, void* hi, void* stream) {
   if (m < 0 || m > INT32_LIMIT || p < 1) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
+  DeviceGuard guard(device);
+  cudaError_t err = guard.err;
   if (err != cudaSuccess) return (int)err;
   int sms = 0;
   if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) != cudaSuccess ||

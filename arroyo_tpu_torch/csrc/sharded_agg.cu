@@ -121,7 +121,10 @@
 // (csrc/radix_sort.cuh's rank, the owner one digit) and add the tiles
 // before it, and its fill blocks, one per (source, owner, 2048 send
 // slots), write the slots past the owner's rows with 16-byte stores. The
-// owner comes from __umul64hi and one compare (owner_of), no division.
+// owner comes from __umul64hi and one compare (owner_of), no division. A
+// call's rows are S source shards and its owners D, the mesh's width: a
+// mesh over several device slots runs K10 once a slot on its own shards
+// (D == S with one slot).
 //
 // Bounds (H100, 3.35 TB/s): all five move a few bytes per element and do
 // no arithmetic to speak of. K8's compaction counts per chunk in one launch
@@ -146,8 +149,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "device_guard.cuh"
+
 #include <atomic>
 #include <chrono>
+#include <mutex>
 #include <vector>
 
 #include "float_flush.cuh"
@@ -363,6 +369,8 @@ struct SrHeader {
 // What the last call did per shard, for a caller to read back after it
 // (arroyo_agg_sort_reduce_shards): its live rows (sr_compact), and the
 // passes its block ran (sr_block; -1 where the onesweep path sorted it).
+// One array a card, indexed by the call's own shards: where several mesh
+// slots share a card, read it after one slot's call alone.
 __device__ int g_sr_shard_live[SR_MAX_SHARDS];
 __device__ int g_sr_shard_passes[SR_MAX_SHARDS];
 
@@ -926,7 +934,8 @@ enum { PM_MISS = 0, PM_MATCH = 1, PM_EMPTY = 2 };
 #define PM_REPORT_SHARDS 32
 #define PM_REPORT_ROUNDS 256
 // The last call's rounds per shard, and the active partials at the start
-// of round r (r = rounds: those left unplaced).
+// of round r (r = rounds: those left unplaced); one array a card, as
+// g_sr_shard_live.
 __device__ int g_pm_rounds[PM_REPORT_SHARDS];
 __device__ int g_pm_active[PM_REPORT_SHARDS][PM_REPORT_ROUNDS + 1];
 
@@ -1382,15 +1391,17 @@ __device__ __forceinline__ int owner_of(long long key, bool act, int S, unsigned
   return (int)e;
 }
 
+// S source shards (the rows of a call: one slot's shards) over D owners
+// (the mesh's shards; D == S on a mesh of one slot).
 struct ExArgs {
   const long long* u_key;  // [S * L]
   const int* u_bin;
   const unsigned char* active;
-  int S, tiles, fill_chunks;
-  long long L, dc, M;
-  unsigned long long range;  // U64_MAX / S + 1 (S > 1)
-  int* counts;               // [S][tiles][S + 1]: rows per (source, tile, owner)
-  long long* s_key;          // [S * S * dc]
+  int S, D, tiles, fill_chunks;
+  long long L, dc, M;        // M = D * dc + L
+  unsigned long long range;  // U64_MAX / D + 1 (D > 1)
+  int* counts;               // [S][tiles][D + 1]: rows per (source, tile, owner)
+  long long* s_key;          // [S * D * dc]
   int* s_bin;
   unsigned char* s_valid;
   long long* m_key;  // [S * M]
@@ -1408,7 +1419,7 @@ __device__ __forceinline__ int ex_item(int j) {
 __global__ void __launch_bounds__(EX_THREADS) ex_count(ExArgs a) {
   __shared__ int cnt[EX_BUCKETS];
   const int s = blockIdx.y, t = blockIdx.x;
-  for (int o = threadIdx.x; o <= a.S; o += EX_THREADS) cnt[o] = 0;
+  for (int o = threadIdx.x; o <= a.D; o += EX_THREADS) cnt[o] = 0;
   const long long r0 = (long long)s * a.L + (long long)t * EX_TILE;
   const long long n = min((long long)EX_TILE, a.L - (long long)t * EX_TILE);
   long long key[EX_ITEMS];
@@ -1421,13 +1432,13 @@ __global__ void __launch_bounds__(EX_THREADS) ex_count(ExArgs a) {
   __syncthreads();
 #pragma unroll
   for (int j = 0; j < EX_ITEMS; ++j) {
-    const int o = ex_item(j) < n ? owner_of(key[j], act[j] != 0, a.S, a.range) : -1;
+    const int o = ex_item(j) < n ? owner_of(key[j], act[j] != 0, a.D, a.range) : -1;
     const unsigned peers = __match_any_sync(0xffffffffu, o);
     if (o >= 0 && (int)(threadIdx.x & 31) == __ffs(peers) - 1) atomicAdd(&cnt[o], __popc(peers));
   }
   __syncthreads();
-  for (int o = threadIdx.x; o <= a.S; o += EX_THREADS)
-    a.counts[((long long)s * a.tiles + t) * (a.S + 1) + o] = cnt[o];
+  for (int o = threadIdx.x; o <= a.D; o += EX_THREADS)
+    a.counts[((long long)s * a.tiles + t) * (a.D + 1) + o] = cnt[o];
 }
 
 __device__ __forceinline__ void store_bytes(unsigned long long x, int es, unsigned long long bits) {
@@ -1480,12 +1491,12 @@ struct ExShared {
 // invalid, each lane's identity).
 __global__ void __launch_bounds__(EX_THREADS) ex_scatter(Lanes lanes, ExArgs a) {
   __shared__ ExShared sm;
-  const int tid = threadIdx.x, nb = a.S + 1;
+  const int tid = threadIdx.x, nb = a.D + 1;
   const int n_tile_blocks = a.S * a.tiles;
-  const long long recv = (long long)a.S * a.dc;
+  const long long recv = (long long)a.D * a.dc;
   if ((int)blockIdx.x >= n_tile_blocks) {
     const int h = blockIdx.x - n_tile_blocks;
-    const int per_src = a.S * a.fill_chunks;
+    const int per_src = a.D * a.fill_chunks;
     const int src = h / per_src, o = (h - src * per_src) / a.fill_chunks;
     const int chunk = h - src * per_src - o * a.fill_chunks;
     if (tid == 0) sm.total[0] = 0;
@@ -1508,7 +1519,7 @@ __global__ void __launch_bounds__(EX_THREADS) ex_scatter(Lanes lanes, ExArgs a) 
     return;
   }
   const int s = blockIdx.x / a.tiles, t = blockIdx.x - s * a.tiles;
-  for (int o = tid; o <= a.S; o += EX_THREADS) sm.before[o] = sm.total[o] = 0;
+  for (int o = tid; o <= a.D; o += EX_THREADS) sm.before[o] = sm.total[o] = 0;
   const long long r0 = (long long)s * a.L + (long long)t * EX_TILE;
   const long long n = min((long long)EX_TILE, a.L - (long long)t * EX_TILE);
   long long key[EX_ITEMS];
@@ -1531,13 +1542,13 @@ __global__ void __launch_bounds__(EX_THREADS) ex_scatter(Lanes lanes, ExArgs a) 
   unsigned dig[EX_ITEMS], rank[EX_ITEMS];
 #pragma unroll
   for (int j = 0; j < EX_ITEMS; ++j)
-    dig[j] = ex_item(j) < n ? (unsigned)owner_of(key[j], act[j] != 0, a.S, a.range) : radix::RADIX;
+    dig[j] = ex_item(j) < n ? (unsigned)owner_of(key[j], act[j] != 0, a.D, a.range) : radix::RADIX;
   radix::rank_digits(sm.r, dig, rank);
   __syncthreads();
   radix::digit_offsets(sm.r);
   if (tid == 0) {
     long long acc = 0;
-    for (int o = 0; o <= a.S; ++o) {
+    for (int o = 0; o <= a.D; ++o) {
       sm.first[o] = acc;
       acc += sm.total[o];
     }
@@ -1554,11 +1565,11 @@ __global__ void __launch_bounds__(EX_THREADS) ex_scatter(Lanes lanes, ExArgs a) 
     const int o = (int)dig[j];
     const long long rk = (long long)sm.before[o] + sm.r.whist[warp][o] + rank[j];
     m[j] = (long long)s * a.M + recv + sm.first[o] + rk;
-    send[j] = o < a.S && rk < a.dc;
+    send[j] = o < a.D && rk < a.dc;
     d[j] = (long long)s * recv + (long long)o * a.dc + rk;
     a.m_key[m[j]] = key[j];
     a.m_bin[m[j]] = bin[j];
-    a.m_valid[m[j]] = (o < a.S && rk >= a.dc) ? 1 : 0;
+    a.m_valid[m[j]] = (o < a.D && rk >= a.dc) ? 1 : 0;
     if (send[j]) {
       a.s_key[d[j]] = key[j];
       a.s_bin[d[j]] = bin[j];
@@ -1662,8 +1673,17 @@ static SrLayout sr_layout(int S, long long L) {
 static std::atomic<long long> g_sr_launches{0};
 struct SrLast {
   long long launches, onesweep, passes, skipped, live, max_live, synced, memsets, wait_ns;
+  long long device, stream;  // the card and stream the call launched on
 };
 static thread_local SrLast g_sr_last;
+
+// Per card, the stream (its handle's address) of the last K8 call the host
+// issued there. The per-shard report (g_sr_shard_live / g_sr_shard_passes)
+// is one array a card: with several slots on a card it holds what the last
+// call to write it wrote, which is this stream's call when the slots' calls
+// do not overlap.
+#define SR_MAX_DEVICES 64
+static std::atomic<long long> g_sr_card_stream[SR_MAX_DEVICES];
 
 // the launch just made: counted if it was taken
 static int sr_launched(SrLast& last) {
@@ -1699,12 +1719,20 @@ static int sr_sweeps(SrRecs a, SrRecs b, long long n, int L, const int* position
   return (int)cudaSuccess;
 }
 
-// K9's launches in this process, and its cluster shape: the CTAs of a
-// shard's cluster chosen per call, and what cudaOccupancyMaxActiveClusters
-// gave at first use for clusters of 16 and of 8 (-1: not asked yet; 0 for
-// 16: the CUDA runtime refused that size).
+// K9's launches in this process, and per card its cluster shape: the CTAs
+// of a shard's cluster chosen by the card's last call, and what
+// cudaOccupancyMaxActiveClusters gave at the card's first use for clusters
+// of 16 and of 8 (-1: not asked yet; 0 for 16: the CUDA runtime refused
+// that size), and the stream of its last call. g_pm_mutex guards the
+// record.
+#define PM_MAX_DEVICES 64
 static std::atomic<long long> g_pm_launches{0};
-static int g_pm_max16 = -1, g_pm_max8 = -1, g_pm_cluster = 0;
+struct PmCard {
+  int max16 = -1, max8 = -1, cluster = 0;
+  long long stream = 0;  // the last call's stream, as g_sr_card_stream
+};
+static PmCard g_pm_card[PM_MAX_DEVICES];
+static std::mutex g_pm_mutex;
 
 static cudaError_t pm_clusters(int C, cudaStream_t s, int* out) {
   cudaLaunchConfig_t cfg = {};
@@ -1721,21 +1749,30 @@ static cudaError_t pm_clusters(int C, cudaStream_t s, int* out) {
   return cudaOccupancyMaxActiveClusters(out, pm_cluster, &cfg);
 }
 
-// The cluster size for S shards: 16 CTAs where that many clusters of 16
-// are resident at once, else 8 (then clusters beyond the resident ones
-// wait for a wave, which is correct and slower).
-static cudaError_t pm_cluster_size(int S, cudaStream_t s, int* C) {
-  if (g_pm_max8 < 0) {
-    cudaError_t err = cudaFuncSetAttribute(pm_cluster, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (err == cudaSuccess) err = pm_clusters(16, s, &g_pm_max16);
-    if (err != cudaSuccess) {
-      (void)cudaGetLastError();
-      g_pm_max16 = 0;
+// The cluster size for S shards on the current card: 16 CTAs where that
+// many clusters of 16 are resident at once, else 8 (then clusters beyond
+// the resident ones wait for a wave, which is correct and slower).
+static cudaError_t pm_cluster_size(int device, int S, cudaStream_t s, int* C) {
+  if (device < 0 || device >= PM_MAX_DEVICES) return cudaErrorInvalidDevice;
+  PmCard& c = g_pm_card[device];
+  {
+    std::lock_guard<std::mutex> lock(g_pm_mutex);
+    if (c.max8 < 0) {
+      int max16 = 0, max8 = -1;
+      cudaError_t err =
+          cudaFuncSetAttribute(pm_cluster, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+      if (err == cudaSuccess) err = pm_clusters(16, s, &max16);
+      if (err != cudaSuccess) {
+        (void)cudaGetLastError();
+        max16 = 0;
+      }
+      if ((err = pm_clusters(8, s, &max8)) != cudaSuccess) return err;
+      c.max16 = max16;
+      c.max8 = max8;
     }
-    if ((err = pm_clusters(8, s, &g_pm_max8)) != cudaSuccess) return err;
   }
-  if (g_pm_max8 < 1) return cudaErrorInvalidConfiguration;
-  *C = g_pm_max16 >= S ? 16 : 8;
+  if (c.max8 < 1) return cudaErrorInvalidConfiguration;
+  *C = c.max16 >= S ? 16 : 8;
   return cudaSuccess;
 }
 
@@ -1766,25 +1803,31 @@ long long arroyo_agg_sort_reduce_hist_bytes(int S, long long L) {
 // The calling thread's last call: kernel launches, onesweep (0: one block
 // per shard), onesweep passes run and skipped, live rows, the most live
 // rows in a shard (-1 where not read back), read back (0 / 1), memsets
-// issued, and the host's wait for the read-back in ns.
+// issued, the host's wait for the read-back in ns, and the card and stream
+// (its handle's address) it launched on.
 void arroyo_agg_sort_reduce_last(long long* out) {
   const SrLast& l = g_sr_last;
-  const long long v[9] = {l.launches, l.onesweep, l.passes, l.skipped, l.live, l.max_live,
-                          l.synced, l.memsets, l.wait_ns};
-  for (int i = 0; i < 9; ++i) out[i] = v[i];
+  const long long v[11] = {l.launches, l.onesweep, l.passes, l.skipped, l.live, l.max_live,
+                           l.synced, l.memsets, l.wait_ns, l.device, l.stream};
+  for (int i = 0; i < 11; ++i) out[i] = v[i];
 }
 
 // The last call on the device, per shard of its first S: live rows and the
-// passes its block ran (-1: sorted by the onesweep path). Waits for the
+// passes its block ran (-1: sorted by the onesweep path), and the stream of
+// the last call the host issued there (g_sr_card_stream). Waits for the
 // device first.
-int arroyo_agg_sort_reduce_shards(int device, int S, int* live, int* passes) {
+int arroyo_agg_sort_reduce_shards(int device, int S, int* live, int* passes,
+                                  long long* stream) {
   if (S < 1 || S > SR_MAX_SHARDS) return (int)cudaErrorInvalidValue;
-  cudaError_t err;
-  if ((err = cudaSetDevice(device)) != cudaSuccess ||
+  if (device < 0 || device >= SR_MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  DeviceGuard guard(device);
+  cudaError_t err = guard.err;
+  if (err != cudaSuccess ||
       (err = cudaDeviceSynchronize()) != cudaSuccess ||
       (err = cudaMemcpyFromSymbol(live, g_sr_shard_live, sizeof(int) * S)) != cudaSuccess ||
       (err = cudaMemcpyFromSymbol(passes, g_sr_shard_passes, sizeof(int) * S)) != cudaSuccess)
     return (int)err;
+  *stream = g_sr_card_stream[device].load();
   return (int)cudaSuccess;
 }
 
@@ -1803,11 +1846,15 @@ int arroyo_agg_sort_reduce(int device, int S, long long L, const void* key, cons
       !lanes_ok(lanes) || scratch == nullptr || scratch_bytes < sr_layout(S, L).total ||
       (L > SR_BLOCK_ROWS && host_hist == nullptr))
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
+  if (device < 0 || device >= SR_MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  DeviceGuard guard(device);
+  cudaError_t err = guard.err;
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   SrLast& last = g_sr_last;
-  last = SrLast{0, 0, 0, 0, -1, -1, 0, 0, 0};
+  last = SrLast{0, 0, 0, 0, -1, -1, 0, 0, 0, device,
+                (long long)reinterpret_cast<uintptr_t>(stream)};
+  g_sr_card_stream[device] = last.stream;
   const SrLayout y = sr_layout(S, L);
   unsigned char* base = static_cast<unsigned char*>(scratch);
   SrHeader* hd = reinterpret_cast<SrHeader*>(base);
@@ -1919,11 +1966,12 @@ int arroyo_agg_probe_merge(int device, int S, long long cap, void* keys, void* b
       (cap & (cap - 1)) != 0 || max_probes < 0 || !lanes_ok(lanes) || tag0 < 1 ||
       (unsigned long long)tag0 + (unsigned long long)max_probes > 0xffffffffULL)
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
+  DeviceGuard guard(device);
+  cudaError_t err = guard.err;
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int C = 0;
-  if ((err = pm_cluster_size(S, s, &C)) != cudaSuccess) return (int)err;
+  if ((err = pm_cluster_size(device, S, s, &C)) != cudaSuccess) return (int)err;
   if ((long long)S * C > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   const int vec = B % PM_GROUP == 0 && reinterpret_cast<uintptr_t>(active) % 16 == 0 &&
                   reinterpret_cast<uintptr_t>(still) % 16 == 0;
@@ -1947,7 +1995,9 @@ int arroyo_agg_probe_merge(int device, int S, long long cap, void* keys, void* b
   if ((err = cudaLaunchKernelEx(&cfg, pm_cluster, *lanes, a)) != cudaSuccess) return (int)err;
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   ++g_pm_launches;
-  g_pm_cluster = C;
+  std::lock_guard<std::mutex> lock(g_pm_mutex);
+  g_pm_card[device].cluster = C;
+  g_pm_card[device].stream = (long long)reinterpret_cast<uintptr_t>(stream);
   return (int)cudaSuccess;
 }
 
@@ -1957,25 +2007,34 @@ long long arroyo_agg_probe_merge_kernel_launches(void) { return g_pm_launches.lo
 // K9's list length per buffer for B partials a shard: B rounded up to PM_GROUP.
 long long arroyo_agg_probe_merge_list_len(long long B) { return pm_list_len(B); }
 
-// K9's cluster shape: the last call's CTAs per shard (0: none yet), and
-// the resident clusters of 16 and of 8 at first use (-1: not asked yet).
-void arroyo_agg_probe_merge_cluster(int* out) {
-  out[0] = g_pm_cluster;
-  out[1] = g_pm_max16;
-  out[2] = g_pm_max8;
+// K9's cluster shape on a card: its last call's CTAs per shard (0: none
+// yet), and the resident clusters of 16 and of 8 at its first use (-1: not
+// asked yet).
+int arroyo_agg_probe_merge_cluster(int device, int* out) {
+  if (device < 0 || device >= PM_MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  std::lock_guard<std::mutex> lock(g_pm_mutex);
+  const PmCard& c = g_pm_card[device];
+  out[0] = c.cluster;
+  out[1] = c.max16;
+  out[2] = c.max8;
+  return (int)cudaSuccess;
 }
 
 // The last K9 call on the device, per shard of its first S (at most
 // PM_REPORT_SHARDS): the rounds it ran, and per shard max_rounds + 1
 // counts, active[s * (max_rounds + 1) + r] the active partials at the start
 // of round r for r up to min(rounds, PM_REPORT_ROUNDS, max_rounds) (at
-// r = rounds: the unplaced ones); the rest are not written. Waits for the
-// device first.
-int arroyo_agg_probe_merge_rounds(int device, int S, int max_rounds, int* rounds, int* active) {
+// r = rounds: the unplaced ones); the rest are not written; and the stream
+// of the last call the host issued there. The report is one array a card,
+// as K8's is. Waits for the device first.
+int arroyo_agg_probe_merge_rounds(int device, int S, int max_rounds, int* rounds, int* active,
+                                  long long* stream) {
   if (S < 1 || S > PM_REPORT_SHARDS || max_rounds < 0 || max_rounds > PM_REPORT_ROUNDS)
     return (int)cudaErrorInvalidValue;
-  cudaError_t err;
-  if ((err = cudaSetDevice(device)) != cudaSuccess ||
+  if (device < 0 || device >= PM_MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  DeviceGuard guard(device);
+  cudaError_t err = guard.err;
+  if (err != cudaSuccess ||
       (err = cudaDeviceSynchronize()) != cudaSuccess ||
       (err = cudaMemcpyFromSymbol(rounds, g_pm_rounds, sizeof(int) * S)) != cudaSuccess)
     return (int)err;
@@ -1986,38 +2045,44 @@ int arroyo_agg_probe_merge_rounds(int device, int S, int max_rounds, int* rounds
   for (int s = 0; s < S; ++s)
     for (int r = 0; r <= max_rounds; ++r)
       active[s * (max_rounds + 1) + r] = all[(size_t)s * (PM_REPORT_ROUNDS + 1) + r];
+  std::lock_guard<std::mutex> lock(g_pm_mutex);
+  *stream = g_pm_card[device].stream;
   return (int)cudaSuccess;
 }
 
-// K10's exchange: int32 words of its counts scratch for [S, L] partials.
-long long arroyo_shard_exchange_counts_words(int S, long long L) {
-  return (long long)S * ex_tiles(L) * (S + 1);
+// K10's exchange: int32 words of its counts scratch for [S, L] partials
+// over D owners.
+long long arroyo_shard_exchange_counts_words(int S, int D, long long L) {
+  return (long long)S * ex_tiles(L) * (D + 1);
 }
 
 // K10's exchange: its kernel launches in this process (two a call).
 long long arroyo_shard_exchange_kernel_launches(void) { return g_ex_launches.load(); }
 
-// K10, steps 2-3. lanes->in: the partials' lanes, ->out: the send buffers
-// [S * S * dc], ->aux: the merged rows [S * M], M = S * dc + L. counts:
-// arroyo_shard_exchange_counts_words(S, L) int32 words, written by the
-// first launch and read by the second (nothing to clear).
-int arroyo_shard_exchange(int device, int S, long long L, long long dc, const void* u_key,
+// K10, steps 2-3, for S source shards over D owners. lanes->in: the
+// partials' lanes, ->out: the send buffers [S * D * dc], ->aux: the merged
+// rows [S * M], M = D * dc + L. counts: arroyo_shard_exchange_counts_words(S,
+// D, L) int32 words, written by the first launch and read by the second
+// (nothing to clear).
+int arroyo_shard_exchange(int device, int S, int D, long long L, long long dc, const void* u_key,
                           const void* u_bin, const void* active, const Lanes* lanes, void* s_key,
                           void* s_bin, void* s_valid, void* m_key, void* m_bin, void* m_valid,
                           void* counts, void* stream) {
-  if (S < 1 || S > MAX_SHARDS || L < 1 || dc < 1 || !lanes_ok(lanes) || counts == nullptr)
+  if (S < 1 || S > MAX_SHARDS || D < 1 || D > MAX_SHARDS || L < 1 || dc < 1 ||
+      !lanes_ok(lanes) || counts == nullptr)
     return (int)cudaErrorInvalidValue;
   const long long tiles = ex_tiles(L);
   const long long fill_chunks = (dc + EX_FILL_SLOTS - 1) / EX_FILL_SLOTS;
-  const long long blocks = S * tiles + (long long)S * S * fill_chunks;
-  if (tiles > 65535 || blocks > 0x7fffffffLL || S * tiles * (S + 1) > 0x7fffffffLL)
+  const long long blocks = S * tiles + (long long)S * D * fill_chunks;
+  if (tiles > 65535 || blocks > 0x7fffffffLL || S * tiles * (D + 1) > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
+  DeviceGuard guard(device);
+  cudaError_t err = guard.err;
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   ExArgs a{static_cast<const long long*>(u_key), static_cast<const int*>(u_bin),
-           static_cast<const unsigned char*>(active), S, (int)tiles, (int)fill_chunks, L, dc,
-           (long long)S * dc + L, S > 1 ? 0xffffffffffffffffULL / (unsigned long long)S + 1ULL : 0ULL,
+           static_cast<const unsigned char*>(active), S, D, (int)tiles, (int)fill_chunks, L, dc,
+           (long long)D * dc + L, D > 1 ? 0xffffffffffffffffULL / (unsigned long long)D + 1ULL : 0ULL,
            static_cast<int*>(counts), static_cast<long long*>(s_key), static_cast<int*>(s_bin),
            static_cast<unsigned char*>(s_valid), static_cast<long long*>(m_key),
            static_cast<int*>(m_bin), static_cast<unsigned char*>(m_valid)};
@@ -2044,7 +2109,8 @@ int arroyo_shard_spill(int device, int S, long long M, const void* c_key, const 
   const long long tiles = compact::tiles_for(M);
   const long long blocks = (long long)S * tiles;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
+  DeviceGuard guard(device);
+  cudaError_t err = guard.err;
   if (err != cudaSuccess) return (int)err;
   const compact::Lanes cl = compact_lanes(lanes);
   compact::Args a{};
@@ -2092,7 +2158,8 @@ int arroyo_shard_extract(int device, int S, long long cap, const void* keys, con
   if (S < 1 || cap < 1 || cap > 0x7fffffffLL || E < 1 || (E > cap && !zero_tail) ||
       !lanes_ok(lanes) || (oflow_in == nullptr) != (oflow_out == nullptr))
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
+  DeviceGuard guard(device);
+  cudaError_t err = guard.err;
   if (err != cudaSuccess) return (int)err;
   const compact::Lanes cl = compact_lanes(lanes);
   compact::Args a{};

@@ -131,6 +131,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "device_guard.cuh"
+
 #include <atomic>
 
 #include "float_flush.cuh"
@@ -759,7 +761,8 @@ int arroyo_slot_scatter_combine(int device, void** state, const void** vals, con
                                 void* runs, long long runs_cap, long long long_run,
                                 void* stream) {
   if (n_lanes < 1 || n_lanes > MAX_LANES || n < 1) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
+  DeviceGuard guard(device);
+  cudaError_t err = guard.err;
   if (err != cudaSuccess) return (int)err;
   ScatterArgs args;
   int n_ordered = 0;
@@ -813,7 +816,8 @@ int arroyo_slot_scatter_combine(int device, void** state, const void** vals, con
 int arroyo_slot_add_chain(int device, const void* x, long long n, int f32, void* out,
                           void* stream) {
   if (n < 1) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
+  DeviceGuard guard(device);
+  cudaError_t err = guard.err;
   if (err != cudaSuccess) return (int)err;
   add_chain_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const double*>(x), n, f32, static_cast<double*>(out));
@@ -849,7 +853,8 @@ int arroyo_slot_region(int device, void** state, const int* dtypes,
     }
     if (seen != (1u << k) - 1) return (int)cudaErrorInvalidValue;
   }
-  cudaError_t err = cudaSetDevice(device);
+  DeviceGuard guard(device);
+  cudaError_t err = guard.err;
   if (err != cudaSuccess) return (int)err;
   int n_int = 0, n_flt = 0;
   for (int l = 0; l < n_lanes; ++l) {
@@ -895,7 +900,8 @@ int arroyo_slot_empty(int device, int grid_x, int grid_y, int grid_z, int thread
                       void* stream) {
   if (grid_x < 1 || grid_y < 1 || grid_z < 1 || threads < 1 || threads > 1024)
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
+  DeviceGuard guard(device);
+  cudaError_t err = guard.err;
   if (err != cudaSuccess) return (int)err;
   empty_kernel<<<dim3(grid_x, grid_y, grid_z), threads, 0, static_cast<cudaStream_t>(stream)>>>();
   return (int)cudaGetLastError();
@@ -910,7 +916,8 @@ int arroyo_slot_gather(int device, void** state, const int* dtypes, int n_lanes,
   if (n_lanes < 1 || n_lanes > MAX_LANES || k < 1 || k >= (1LL << 37) || flt_offset < 0 ||
       flt_offset % 16 || (reinterpret_cast<uintptr_t>(out) & 15))
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
+  DeviceGuard guard(device);
+  cudaError_t err = guard.err;
   if (err != cudaSuccess) return (int)err;
   GatherArgs a;
   int n_int = 0, n_flt = 0;

@@ -34,14 +34,16 @@ Design rules, as in the JAX package:
     ChainCollector path.
 
 Cache keys include the member configs, the input column (name, dtype)
-signature, the node parallelism, the device and the mesh width
-(``segment.compile.cache-max`` bounds the LRU).
+signature, the node parallelism, the device, the mesh width and its
+placement over device slots (``segment.compile.cache-max`` bounds the LRU).
 
 Mesh fusion (``device.mesh-devices`` > 1, ``segment.compile.mesh-fuse``
 on, a chain marked "mesh"): after the first batch is verified on the host
 path, each micro-batch runs K4 and hands its device outputs straight to the
 sharded aggregate's exchange + merge (``ShardedAggregator.fused_step``):
-rows never return to the host between projection and state update. The
+rows never return to the host between projection and state update (K4 runs
+on the segment's card; each of the mesh's device slots takes its shards'
+rows from there, a copy where the slot is another card). The
 member's ``mesh_insert_begin`` does the host half (drain, late split,
 bookkeeping). A failure while staging the batch, before any state has
 changed, leaves it to the per-batch host path (a SEGMENT_FALLBACK event
@@ -768,12 +770,16 @@ class SegmentRunner:
         self._mesh_shapes: set[int] = set()  # padded lengths the fused step ran at
         # cache identity: the traced prefix's configs (tail members never
         # enter the kernel; their configs may hold run-local objects), the
-        # node's parallelism, the device and the mesh width (a resize
-        # changes the forced-hoist decision)
+        # node's parallelism, the device, the mesh width (a resize changes
+        # the forced-hoist decision) and its placement over device slots
+        # (the fused step's K4 runs on the segment's card; each slot takes
+        # its shards' rows from there)
         cfgs = [(op, _cfg_fingerprint(c))
                 for op, c in chain.cfg_members[: int(marking["prefix"])]]
+        placement = config().get("device.mesh-placement") if self._mesh_n else None
         self._seg_key = hashlib.sha1(json.dumps(
-            [cfgs, ctx.task_info.parallelism, str(ctx.device), self._mesh_n], default=repr,
+            [cfgs, ctx.task_info.parallelism, str(ctx.device), self._mesh_n,
+             None if placement is None else str(placement)], default=repr,
         ).encode()).hexdigest()[:16]
 
     # -- events ---------------------------------------------------------

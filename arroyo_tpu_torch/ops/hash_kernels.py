@@ -116,7 +116,7 @@ def hash_scan_chunk(table, emit_lo: int, emit_hi: int, chunk_start: int,
     n = len(accs_t)
     wide = (ctypes.c_int * max(n, 1))(*[a.element_size() == 8 for a in accs_t])
     err = build_library().arroyo_hash_scan_chunk(
-        sk._dev_index(dev), cap, keys_t.data_ptr(), bins_t.data_ptr(), occ_t.data_ptr(), n,
+        sk._dev_index(keys_t), cap, keys_t.data_ptr(), bins_t.data_ptr(), occ_t.data_ptr(), n,
         kernels._ptrs(accs_t), kernels._ptrs(out.accs), wide, int(emit_lo), int(emit_hi),
         int(chunk_start), int(emit_cap), out.key.data_ptr(), out.bin.data_ptr(),
         out.valid.data_ptr(), kernels._stream(dev))
@@ -208,7 +208,7 @@ def hash_scan_walk(table, emit_lo: int, emit_hi: int, total: int) -> Walked:
     n = len(accs_t)
     wide = (ctypes.c_int * max(n, 1))(*[a.element_size() == 8 for a in accs_t])
     err = lib.arroyo_hash_scan_walk(
-        sk._dev_index(dev), cap, keys_t.data_ptr(), bins_t.data_ptr(), occ_t.data_ptr(), n,
+        sk._dev_index(keys_t), cap, keys_t.data_ptr(), bins_t.data_ptr(), occ_t.data_ptr(), n,
         kernels._ptrs(accs_t), kernels._ptrs(out.accs), wide, int(emit_lo), int(emit_hi),
         int(total), out.key.data_ptr(), out.bin.data_ptr(), out.count.data_ptr(),
         scratch.data_ptr(), kernels._stream(dev))
@@ -261,7 +261,7 @@ def free_below(bins: torch.Tensor, occ: torch.Tensor, below: int) -> None:
         raise ValueError(f"unsupported device {dev}")
     if bins.shape[0] == 0:
         return
-    err = build_library().arroyo_hash_free(sk._dev_index(dev), bins.shape[0], bins.data_ptr(),
+    err = build_library().arroyo_hash_free(sk._dev_index(bins), bins.shape[0], bins.data_ptr(),
                                            occ.data_ptr(), int(below), kernels._stream(dev))
     kernels._raise_on(err, "hash_free")
     kernels._counted(hash_free)

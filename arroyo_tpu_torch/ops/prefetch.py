@@ -23,7 +23,10 @@ import torch
 class HostFetch:
     """One device tensor on its way to host memory. The source tensor and
     the pinned buffer are held until the copy has landed, so the caching
-    allocators cannot hand either out while the copy is in flight."""
+    allocators cannot hand either out while the copy is in flight. The copy
+    and its event run on the tensor's own card, on that card's current
+    stream (a mesh slot's stream inside the slot's context), whatever card
+    the calling thread is on."""
 
     def __init__(self, t: torch.Tensor):
         self._src: Optional[torch.Tensor] = None
@@ -31,9 +34,11 @@ class HostFetch:
         if t.device.type == "cuda":
             self._src = t
             self._host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-            self._host.copy_(t, non_blocking=True)
-            self._event = torch.cuda.Event()
-            self._event.record(torch.cuda.current_stream(t.device))
+            stream = torch.cuda.current_stream(t.device)
+            with torch.cuda.stream(stream):
+                self._host.copy_(t, non_blocking=True)
+                self._event = torch.cuda.Event()
+                self._event.record(stream)
         else:
             self._host = t
 

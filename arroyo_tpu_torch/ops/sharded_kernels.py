@@ -99,7 +99,7 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.arroyo_agg_sort_reduce_last.restype = None
     lib.arroyo_agg_sort_reduce_hist_bytes.argtypes = [i, ll]
     lib.arroyo_agg_sort_reduce_hist_bytes.restype = ll
-    lib.arroyo_agg_sort_reduce_shards.argtypes = [i, i, p, p]
+    lib.arroyo_agg_sort_reduce_shards.argtypes = [i, i, p, p, ctypes.POINTER(ll)]
     lib.arroyo_agg_sort_reduce_shards.restype = ctypes.c_int
     lib.arroyo_agg_probe_merge.argtypes = [i, i, ll, p, p, p, lp, ll, p, p, p, i,
                                            p, p, p, p, p, ctypes.c_uint, p]
@@ -107,10 +107,10 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.arroyo_agg_probe_merge_kernel_launches.restype = ll
     lib.arroyo_agg_probe_merge_list_len.argtypes = [ll]
     lib.arroyo_agg_probe_merge_list_len.restype = ll
-    lib.arroyo_agg_probe_merge_cluster.argtypes = [ctypes.POINTER(ctypes.c_int)]
-    lib.arroyo_agg_probe_merge_cluster.restype = None
-    lib.arroyo_shard_exchange.argtypes = [i, i, ll, ll, p, p, p, lp, p, p, p, p, p, p, p, p]
-    lib.arroyo_shard_exchange_counts_words.argtypes = [i, ll]
+    lib.arroyo_agg_probe_merge_cluster.argtypes = [i, ctypes.POINTER(ctypes.c_int)]
+    lib.arroyo_agg_probe_merge_cluster.restype = ctypes.c_int
+    lib.arroyo_shard_exchange.argtypes = [i, i, i, ll, ll, p, p, p, lp, p, p, p, p, p, p, p, p]
+    lib.arroyo_shard_exchange_counts_words.argtypes = [i, i, ll]
     lib.arroyo_shard_exchange_counts_words.restype = ll
     lib.arroyo_shard_exchange_kernel_launches.argtypes = []
     lib.arroyo_shard_exchange_kernel_launches.restype = ll
@@ -119,7 +119,7 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.arroyo_shard_spill_scratch_bytes.restype = ll
     lib.arroyo_shard_spill_kernel_launches.argtypes = []
     lib.arroyo_shard_spill_kernel_launches.restype = ll
-    lib.arroyo_agg_probe_merge_rounds.argtypes = [i, i, i, p, p]
+    lib.arroyo_agg_probe_merge_rounds.argtypes = [i, i, i, p, p, ctypes.POINTER(ll)]
     lib.arroyo_agg_probe_merge_rounds.restype = ctypes.c_int
     lib.arroyo_shard_extract.argtypes = [i, i, ll, p, p, p, lp, i, i, i, ll, p, p, p, p, p,
                                          i, p, p, p]
@@ -180,7 +180,16 @@ def ident_bits(kind: str, dtype: torch.dtype):
     return int(ident.view(np.int64)) if dtype == torch.uint64 else ident.item()
 
 
-def _dev_index(dev: torch.device) -> int:
+def _dev_index(t: torch.Tensor) -> int:
+    """The card a launch on ``t`` goes to: the tensor's own index, never the
+    thread's current device (a mesh slot's tensors may sit on another card
+    than the caller's)."""
+    return t.get_device()
+
+
+def _card(dev: torch.device) -> int:
+    """A report's card: ``dev``'s index, the current device where it names
+    none."""
     return dev.index if dev.index is not None else torch.cuda.current_device()
 
 
@@ -189,7 +198,7 @@ def _dev_index(dev: torch.device) -> int:
 
 SORT_SHARDS = 256  # csrc/sharded_agg.cu SR_MAX_SHARDS: the shard is one digit
 _LAST_FIELDS = ("launches", "onesweep", "passes", "skipped", "live", "max_live", "synced",
-                "memsets", "wait_ns")
+                "memsets", "wait_ns", "device", "stream")
 
 
 def agg_sort_reduce(kinds: Sequence[str], key: torch.Tensor, bins: torch.Tensor,
@@ -234,7 +243,7 @@ def agg_sort_reduce(kinds: Sequence[str], key: torch.Tensor, bins: torch.Tensor,
     u_accs = [torch.empty(shape, dtype=dt, device=dev) for dt in dts]
     ln = _lanes(kinds, dts, inp=vals, out=u_accs)
     err = lib.arroyo_agg_sort_reduce(
-        _dev_index(dev), S, L, key.data_ptr(), bins.data_ptr(), int(bins.dtype == torch.int64),
+        _dev_index(key), S, L, key.data_ptr(), bins.data_ptr(), int(bins.dtype == torch.int64),
         int(bin_offset), None if valid is None else valid.data_ptr(), n_valid, ctypes.byref(ln),
         scratch.data_ptr(), scratch.numel(), None if hist is None else hist.data_ptr(),
         u_key.data_ptr(), u_bin.data_ptr(), active.data_ptr(), kernels._stream(dev))
@@ -254,7 +263,9 @@ def sort_reduce_last() -> dict:
     launches, whether it took the onesweep path (else one block per
     shard), the onesweep passes run and skipped, the live rows and the
     most in one shard (-1: not read back), whether it waited for them,
-    the memsets it issued and the host's wait for the read-back in ns."""
+    the memsets it issued, the host's wait for the read-back in ns, and
+    the slot it ran on: its card's index and its stream's handle (the
+    ``cuda_stream`` of a torch stream)."""
     out = (ctypes.c_longlong * len(_LAST_FIELDS))()
     build_library().arroyo_agg_sort_reduce_last(out)
     return dict(zip(_LAST_FIELDS, out))
@@ -263,12 +274,18 @@ def sort_reduce_last() -> dict:
 def sort_reduce_shards(S: int, dev: torch.device) -> dict:
     """The last K8 call on ``dev``, per shard of its first ``S`` as the
     kernels wrote it: ``live`` rows and ``block_passes``, the passes the
-    shard's block ran (-1: the onesweep path sorted it). Waits for the
-    device."""
+    shard's block ran (-1: the onesweep path sorted it), with the card and
+    the stream of the last call issued there. The report is one array a
+    card: where several mesh slots share it, read it after one slot's call
+    alone. Waits for the device."""
+    card = _card(dev)
     live, passes = (ctypes.c_int * S)(), (ctypes.c_int * S)()
-    err = build_library().arroyo_agg_sort_reduce_shards(_dev_index(dev), S, live, passes)
+    stream = ctypes.c_longlong()
+    err = build_library().arroyo_agg_sort_reduce_shards(card, S, live, passes,
+                                                         ctypes.byref(stream))
     kernels._raise_on(err, "agg_sort_reduce_shards")
-    return {"live": list(live), "block_passes": list(passes)}
+    return {"device": card, "stream": stream.value, "live": list(live),
+            "block_passes": list(passes)}
 
 
 def agg_sort_reduce_plain(kinds, key, bins, valid, vals, bin_offset=0, n_valid=None):
@@ -382,7 +399,7 @@ def agg_probe_merge(kinds: Sequence[str], table, u_key: torch.Tensor, u_bin: tor
     with _claims_lock:
         claims, tag0 = _claims(S, cap, dev, max(1, max_probes))
         err = lib.arroyo_agg_probe_merge(
-            _dev_index(dev), S, cap, keys_t.data_ptr(), bins_t.data_ptr(), occ_t.data_ptr(),
+            _dev_index(keys_t), S, cap, keys_t.data_ptr(), bins_t.data_ptr(), occ_t.data_ptr(),
             ctypes.byref(ln), B, u_key.data_ptr(), u_bin.data_ptr(), active.data_ptr(),
             max_probes, still.data_ptr(), lst.data_ptr(), claims.data_ptr(),
             code.data_ptr(), None if oflow is None else oflow.data_ptr(), tag0,
@@ -398,14 +415,17 @@ def probe_merge_kernel_launches() -> int:
     return build_library().arroyo_agg_probe_merge_kernel_launches()
 
 
-def probe_merge_cluster() -> dict:
-    """K9's cluster shape: the CTAs of a shard's cluster in the last call
-    (0: none yet), and the clusters of 16 and of 8 CTAs the card holds at
-    once, as cudaOccupancyMaxActiveClusters gave them at first use (-1:
-    not asked yet; 0 for 16: that size was refused)."""
+def probe_merge_cluster(dev: torch.device) -> dict:
+    """K9's cluster shape on the card ``dev``: the CTAs of a shard's cluster
+    in the card's last call (0: none yet), and the clusters of 16 and of 8
+    CTAs the card holds at once, as cudaOccupancyMaxActiveClusters gave
+    them at its first use (-1: not asked yet; 0 for 16: that size was
+    refused)."""
+    card = _card(dev)
     out = (ctypes.c_int * 3)()
-    build_library().arroyo_agg_probe_merge_cluster(out)
-    return {"cluster": out[0], "max_active_clusters_16": out[1],
+    kernels._raise_on(build_library().arroyo_agg_probe_merge_cluster(card, out),
+                      "agg_probe_merge_cluster")
+    return {"device": card, "cluster": out[0], "max_active_clusters_16": out[1],
             "max_active_clusters_8": out[2]}
 
 
@@ -418,14 +438,19 @@ def probe_merge_rounds(S: int, dev: torch.device, max_rounds: int = PROBE_REPORT
     partials still active at the start of round r, for every r up to the
     shard's rounds (at r = rounds: those no round placed), or the first
     ``max_rounds`` rounds' starts where it ran more, and the ``cluster``
-    size it ran on (CTAs a shard). Waits for the device."""
+    size it ran on (CTAs a shard), with the card and the stream of the last
+    call issued there. The report is one array a card, as
+    ``sort_reduce_shards``'s is. Waits for the device."""
+    card = _card(dev)
     rounds = (ctypes.c_int * S)()
     active = (ctypes.c_int * (S * (max_rounds + 1)))()
-    err = build_library().arroyo_agg_probe_merge_rounds(_dev_index(dev), S, max_rounds, rounds,
-                                                         active)
+    stream = ctypes.c_longlong()
+    err = build_library().arroyo_agg_probe_merge_rounds(card, S, max_rounds, rounds, active,
+                                                         ctypes.byref(stream))
     kernels._raise_on(err, "agg_probe_merge_rounds")
     per = max_rounds + 1
-    return {"rounds": list(rounds), "cluster": probe_merge_cluster()["cluster"],
+    return {"device": card, "stream": stream.value,
+            "rounds": list(rounds), "cluster": probe_merge_cluster(dev)["cluster"],
             "active": [list(active[s * per: s * per + (rounds[s] + 1 if rounds[s] <= max_rounds
                                                         else max_rounds)])
                        for s in range(S)]}
@@ -463,10 +488,11 @@ def owner_of(key: torch.Tensor, n_dev: int) -> torch.Tensor:
 
 
 class Exchange(NamedTuple):
-    """shard_exchange's outputs: the send buffers ``[S, S * dest_cap]``
-    (destination-major) and the merged rows ``[S, S * dest_cap + L]``,
-    whose tail holds the shard's own partials in owner order (valid where
-    kept local) and whose head ``all_to_all`` fills."""
+    """shard_exchange's outputs for S source shards over D owners: the send
+    buffers ``[S, D * dest_cap]`` (destination-major) and the merged rows
+    ``[S, D * dest_cap + L]``, whose tail holds the shard's own partials in
+    owner order (valid where kept local) and whose head the exchange
+    (``mesh.exchange``) fills."""
 
     s_key: torch.Tensor
     s_bin: torch.Tensor
@@ -478,8 +504,9 @@ class Exchange(NamedTuple):
     m_accs: list
 
 
-def _exchange_out(S, L, dc, dtypes, dev) -> Exchange:
-    recv, M = S * dc, S * dc + L
+def _exchange_out(S, L, dc, dtypes, dev, D=None) -> Exchange:
+    D = S if D is None else D
+    recv, M = D * dc, D * dc + L
     return Exchange(
         torch.empty((S, recv), dtype=torch.int64, device=dev),
         torch.empty((S, recv), dtype=torch.int32, device=dev),
@@ -491,17 +518,20 @@ def _exchange_out(S, L, dc, dtypes, dev) -> Exchange:
         [torch.empty((S, M), dtype=dt, device=dev) for dt in dtypes])
 
 
-def exchange_scratch(S: int, L: int) -> dict:
-    """K10's exchange scratch for ``[S, L]`` partials, name -> (shape,
-    dtype): rows per (source shard, tile of EXCHANGE_TILE rows, owner or
-    inactive), written by its first launch and read by its second."""
-    return {"counts": ((S, -(-L // EXCHANGE_TILE), S + 1), torch.int32)}
+def exchange_scratch(S: int, L: int, D: Optional[int] = None) -> dict:
+    """K10's exchange scratch for ``[S, L]`` partials over D owners (None:
+    S), name -> (shape, dtype): rows per (source shard, tile of
+    EXCHANGE_TILE rows, owner or inactive), written by its first launch and
+    read by its second."""
+    D = S if D is None else D
+    return {"counts": ((S, -(-L // EXCHANGE_TILE), D + 1), torch.int32)}
 
 
 def shard_exchange(kinds: Sequence[str], u_key: torch.Tensor, u_bin: torch.Tensor,
                    active: torch.Tensor, u_accs: Sequence[torch.Tensor],
-                   dest_cap: int) -> Exchange:
-    """Steps 2-3 of the exchange for ``[S, L]`` partials over S shards:
+                   dest_cap: int, n_dest: Optional[int] = None) -> Exchange:
+    """Steps 2-3 of the exchange for ``[S, L]`` partials of S source shards
+    over ``n_dest`` owners (None: S; a mesh slot passes the mesh's width):
     each active partial's owner, a stable order by owner, its rank inside
     the owner; ranks below ``dest_cap`` fill the send buffers (the rest
     with 0, 0, invalid and each lane's identity), and every partial lands
@@ -510,6 +540,9 @@ def shard_exchange(kinds: Sequence[str], u_key: torch.Tensor, u_bin: torch.Tenso
     card, the second writing the send buffers' fill with 16-byte stores."""
     if u_key.dim() == 2 and not 1 <= u_key.shape[0] <= MAX_SHARDS:
         raise ValueError(f"{u_key.shape[0]} shards (at most {MAX_SHARDS})")
+    D = u_key.shape[0] if n_dest is None else int(n_dest)
+    if not 1 <= D <= MAX_SHARDS:
+        raise ValueError(f"{D} owners (at most {MAX_SHARDS})")
     if int(dest_cap) < 1:
         raise ValueError(f"dest_cap {dest_cap} < 1")
     _check_2d(u_key, "u_key", (torch.int64,))
@@ -519,13 +552,13 @@ def shard_exchange(kinds: Sequence[str], u_key: torch.Tensor, u_bin: torch.Tenso
     _check_lanes(kinds, u_accs, shape, dev, "u_accs")
     S, L = shape
     if dev.type == "cpu":
-        return shard_exchange_plain(kinds, u_key, u_bin, active, u_accs, dest_cap)
-    out = _exchange_out(S, L, dest_cap, [a.dtype for a in u_accs], dev)
-    cshape, cdt = exchange_scratch(S, L)["counts"]
+        return shard_exchange_plain(kinds, u_key, u_bin, active, u_accs, dest_cap, D)
+    out = _exchange_out(S, L, dest_cap, [a.dtype for a in u_accs], dev, D)
+    cshape, cdt = exchange_scratch(S, L, D)["counts"]
     counts = torch.empty(cshape, dtype=cdt, device=dev)
     ln = _lanes(kinds, [a.dtype for a in u_accs], inp=u_accs, out=out.s_accs, aux=out.m_accs)
     err = build_library().arroyo_shard_exchange(
-        _dev_index(dev), S, L, int(dest_cap), u_key.data_ptr(), u_bin.data_ptr(),
+        _dev_index(u_key), S, D, L, int(dest_cap), u_key.data_ptr(), u_bin.data_ptr(),
         active.data_ptr(), ctypes.byref(ln), out.s_key.data_ptr(), out.s_bin.data_ptr(),
         out.s_valid.data_ptr(), out.m_key.data_ptr(), out.m_bin.data_ptr(),
         out.m_valid.data_ptr(), counts.data_ptr(), kernels._stream(dev))
@@ -541,19 +574,21 @@ def exchange_kernel_launches() -> int:
     return build_library().arroyo_shard_exchange_kernel_launches()
 
 
-def shard_exchange_plain(kinds, u_key, u_bin, active, u_accs, dest_cap) -> Exchange:
+def shard_exchange_plain(kinds, u_key, u_bin, active, u_accs, dest_cap, n_dest=None) -> Exchange:
     """Plain PyTorch version of K10's exchange (``exchange_merge`` steps
-    2-3: argsort by owner, searchsorted starts, rank, scatter)."""
+    2-3: argsort by owner, searchsorted starts, rank, scatter), for S
+    source shards over ``n_dest`` owners (None: S)."""
     S, L = u_key.shape
+    D = S if n_dest is None else int(n_dest)
     dev = u_key.device
-    recv = S * dest_cap
-    out = _exchange_out(S, L, dest_cap, [a.dtype for a in u_accs], dev)
-    owner = torch.where(active, owner_of(u_key, S), torch.full_like(u_key, S))
+    recv = D * dest_cap
+    out = _exchange_out(S, L, dest_cap, [a.dtype for a in u_accs], dev, D)
+    owner = torch.where(active, owner_of(u_key, D), torch.full_like(u_key, D))
     o_s, order = torch.sort(owner, dim=1, stable=True)
-    starts = torch.searchsorted(o_s, torch.arange(S, device=dev).expand(S, S).contiguous())
-    rank = torch.arange(L, device=dev) - torch.gather(starts, 1, o_s.clamp(0, S - 1))
-    sendable = (o_s < S) & (rank < dest_cap)
-    keep_local = (o_s < S) & (rank >= dest_cap)
+    starts = torch.searchsorted(o_s, torch.arange(D, device=dev).expand(S, D).contiguous())
+    rank = torch.arange(L, device=dev) - torch.gather(starts, 1, o_s.clamp(0, D - 1))
+    sendable = (o_s < D) & (rank < dest_cap)
+    keep_local = (o_s < D) & (rank >= dest_cap)
     slot = torch.where(sendable, o_s * dest_cap + rank, torch.full_like(rank, recv))
 
     def scatter(dst, src_sorted, fill):
@@ -635,7 +670,7 @@ def shard_spill(kinds: Sequence[str], c_key: torch.Tensor, c_bin: torch.Tensor,
     sp_key, sp_bin, sp_fill, sp_accs, oflow = spill
     ln = _lanes(kinds, [a.dtype for a in c_accs], inp=c_accs, out=sp_accs)
     err = build_library().arroyo_shard_spill(
-        _dev_index(dev), S, M, c_key.data_ptr(), c_bin.data_ptr(), still.data_ptr(),
+        _dev_index(c_key), S, M, c_key.data_ptr(), c_bin.data_ptr(), still.data_ptr(),
         ctypes.byref(ln), sshape[1], sp_key.data_ptr(), sp_bin.data_ptr(), sp_fill.data_ptr(),
         oflow.data_ptr(), scratch.data_ptr(), kernels._stream(dev))
     kernels._raise_on(err, "shard_spill")
@@ -772,7 +807,7 @@ def shard_extract(table, emit_lo: int, emit_hi: int, free_below: int,
         lambda: lib.arroyo_shard_extract_scratch_bytes(S, cap, E, zt))
     ln = _lanes(["sum"] * len(dts), dts, inp=accs_t, out=out.accs)
     err = lib.arroyo_shard_extract(
-        _dev_index(dev), S, cap, keys_t.data_ptr(), bins_t.data_ptr(), occ_t.data_ptr(),
+        _dev_index(keys_t), S, cap, keys_t.data_ptr(), bins_t.data_ptr(), occ_t.data_ptr(),
         ctypes.byref(ln), int(emit_lo), int(emit_hi), int(free_below), E, out.key.data_ptr(),
         out.bin.data_ptr(), out.valid.data_ptr(), out.total.data_ptr(), scratch.data_ptr(), zt,
         None if oflow is None else oflow.data_ptr(),

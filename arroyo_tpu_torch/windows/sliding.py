@@ -11,8 +11,9 @@ it picks (the config's ``backend``, else "jax" when ``device.enabled``):
   clear kernels), on the prefetch threads; a window is emitted when all its
   ``width / slide`` bins are resolved, by a host combine-by-key of the
   cached per-bin partials. Mesh mode (``device.mesh-devices`` > 1):
-  per-bin partials in a ShardedAggregator, each bin's extraction one
-  synchronous sharded close; the fused mesh step of the compiled segment
+  per-bin partials in a ShardedAggregator over the slots of
+  ``device.mesh-placement`` (built by tumbling.make_window_aggregator),
+  each bin's extraction one synchronous sharded close; the fused mesh step of the compiled segment
   calls ``mesh_insert_begin`` for the host half.
 - "numpy": the host dict store, read synchronously: each closing window is
   one ``scan_range`` of its bins, combined by key, and the bins behind the

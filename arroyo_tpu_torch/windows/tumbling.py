@@ -10,8 +10,9 @@ and "numpy" otherwise, as in the JAX package:
   read and cleared on the device and the packed result is fetched on the
   prefetch threads, so emission and the forwarded watermark pipeline
   behind later updates. Mesh mode (``device.mesh-devices`` > 1): a
-  ShardedAggregator of that many key shards on the same device
-  (parallel/), whose close is synchronous; the fused mesh step of the
+  ShardedAggregator of that many key shards over the device slots of
+  ``device.mesh-placement`` (parallel/; device.mesh_slot_devices), whose
+  close is synchronous; the fused mesh step of the
   compiled segment (engine/segment.py) updates it on the device and calls
   ``mesh_insert_begin`` for the host half.
 - "numpy": the host dict store (ops/aggregate.py DeviceHashAggregator),
@@ -208,9 +209,9 @@ def window_ordered(keys, bins, accs):
 
 def make_window_aggregator(acc_kinds, acc_dtypes, backend: str, device):
     """The single-device SlotAggregator or (backend "jax" and
-    device.mesh-devices > 1) the key-space-sharded ShardedAggregator, sized
-    from the device config: one construction path for every window
-    operator. Backend "numpy" is the SlotAggregator's host store. Collected
+    device.mesh-devices > 1) the key-space-sharded ShardedAggregator over
+    the slots of device.mesh-placement, sized from the device config: one
+    construction path for every window operator. Backend "numpy" is the SlotAggregator's host store. Collected
     accumulators wrap the numeric store (on the host) with host lists."""
     if "collect" in acc_kinds:
         return CollectingAggregator(

@@ -369,6 +369,30 @@ non-zero, printing no result):
               lock_contend:delay=1@match=TaskInbox, exact, the delay
               fired. Prints the edges, the acquisitions, both runs'
               events/s and the phase's seconds.
+29. mesh_slots -- the key-sharded mesh over device slots
+              (device.mesh-placement; each slot a contiguous run of shards
+              on its card with its own stream, the exchange as cross-slot
+              copies behind events): 8 shards over 4 slots on cuda:0. A
+              store of q7m's shapes (8 x 8192 rows a step, dest_cap 16384,
+              table 65536, q7m's lanes) fed three steps and two closes (each
+              leaving bins open) with
+              every K8, K10 exchange (2 source shards over 8 owners), K9,
+              K10 spill and K11 call on each slot held byte for byte to its
+              plain version, its state after each step and every close's
+              rows byte-equal to a 1-slot store fed the same rows; the
+              current device unchanged after a launch of each kernel on
+              every slot's card; q7m at bench.py's sizes (2,000,000 events,
+              8 shards) over the 4 slots, fused and on the host path, exact
+              against oracle_q7, K4 and K8-K11 launched, the launches per
+              slot (by stream); a snapshot at 4 slots restored at 1 and the
+              reverse, exactly; the exchange's time and bytes per step at
+              q7m's shapes beside the 1-slot transposing copy and their
+              bound. Where the machine has two or more cards the same runs
+              over distinct cards (peer copies); else one line says it did
+              not run and why. q7m at one slot on cuda:0 runs in the same
+              phase, before the placements and after them, and each
+              placement's events/s stand beside the faster of the two as a
+              ratio (q7m_vs_one_slot).
 
 ``--only a,b`` runs those phases alone after probe and build (a short
 check) and prints no result line. ``--only segment_sweep`` (in no default
@@ -429,7 +453,8 @@ from arroyo_tpu_torch.ops import (hash_kernels, join_kernels, join_probe, kernel
 from arroyo_tpu_torch.ops.aggregate import DeviceHashAggregator, _identity, combine_by_key_bin
 from arroyo_tpu_torch.operators.base import TableSpec
 from arroyo_tpu_torch.ops.slot_agg import SlotAggregator
-from arroyo_tpu_torch.parallel import ShardedAggregator, all_to_all, make_mesh, sharded_agg
+from arroyo_tpu_torch.parallel import (ShardedAggregator, all_to_all, exchange, make_mesh,
+                                       sharded_agg)
 from arroyo_tpu_torch import faults
 from arroyo_tpu_torch.analysis.plan_diff import diff_plans
 from arroyo_tpu_torch.faults import InjectedFault
@@ -4285,7 +4310,7 @@ def probe_tensors(c: dict, dev) -> tuple:
 
 def build_library_words(S: int, L: int) -> int:
     """The int32 words of K10's counts scratch the library asks for."""
-    return sharded_kernels.build_library().arroyo_shard_exchange_counts_words(S, L)
+    return sharded_kernels.build_library().arroyo_shard_exchange_counts_words(S, S, L)
 
 
 def check_exchange_case(c: dict, dev) -> dict:
@@ -4330,7 +4355,7 @@ def check_probe_case(c: dict, dev) -> dict:
     rounds = k9_rounds_check(c["label"], kinds, base, u, mp, dev)
     return {"label": c["label"], "shards": c["S"], "cap": c["cap"], "partials": c["B"],
             "active": int(u[2].sum()), "max_probes": mp, "unplaced": int(still.sum()),
-            "rounds": rounds, "cluster": sharded_kernels.probe_merge_cluster()}
+            "rounds": rounds, "cluster": sharded_kernels.probe_merge_cluster(dev)}
 
 
 # K8's edge-case lanes: every dtype and kind, a count lane of ones (None)
@@ -4809,7 +4834,7 @@ def time_sharded(rng, dev, label, S, cap, L, dc, lanes, n_keys, valid_frac, reps
         time_fresh(lambda tb: sharded_kernels.agg_probe_merge_plain(kinds, tb, *c, 64), mk_table,
                    max(2, reps // 10)),
         partials=[S, M], active=segments, claims=claims, table=[S, cap], rounds=rounds,
-        us_per_call=pm_k["device_us_per_call"], cluster=sharded_kernels.probe_merge_cluster(),
+        us_per_call=pm_k["device_us_per_call"], cluster=sharded_kernels.probe_merge_cluster(dev),
         **pm_r)
     if k9_cold_l2:
         scratch = torch.empty(K9_COLD_BYTES, dtype=torch.uint8, device=dev)
@@ -4898,6 +4923,373 @@ def sharded_phase(dev) -> dict:
             "max_abs_err": 0.0, "cases": cases, "k8_cases": k8_cases, "k10_cases": k10_cases,
             "spill_cases": spill_checked,
             "k9_cases": k9_cases, "shapes_checked": checks, "timing": timing}
+    emit(info)
+    return info
+
+
+# ---------------------------------------------------------------- mesh_slots
+
+MESH_SLOTS = 4  # device slots of the mesh_slots phase (2 of q7m's 8 shards each)
+MESH_SLOT_STEPS = 3
+MESH_SLOT_LANES = Q7M_LANES
+
+
+def plain_of(name: str, args: tuple, kw: dict):
+    """The plain version's call for a sharded wrapper's call, on clones of
+    what the wrapper changes in place; returns (want, clones)."""
+    f = sharded_kernels
+    if name == "agg_sort_reduce":
+        kinds, key, bins, valid, vals = args[:5]
+        return f.agg_sort_reduce_plain(kinds, key, bins, valid, vals, kw.get("bin_offset", 0),
+                                       kw.get("n_valid")), None
+    if name == "shard_exchange":
+        return f.shard_exchange_plain(*args, n_dest=kw.get("n_dest")), None
+    if name == "agg_probe_merge":
+        kinds, table, *rest = args
+        table_p = clone_nested(table)
+        return f.agg_probe_merge_plain(kinds, table_p, *rest, **kw), table_p
+    if name == "shard_spill":
+        kinds, c_key, c_bin, c_accs, still, spill = args[:6]
+        spill_p = clone_nested(spill)
+        f.shard_spill_plain(kinds, c_key, c_bin, c_accs, still, spill_p)
+        return None, spill_p
+    table, *rest = args
+    table_p = clone_nested(table)
+    return f.shard_extract_plain(table_p, *rest, **kw), table_p
+
+
+def require_slot_call(name: str, got, args: tuple, want, clones) -> None:
+    """A sharded wrapper's outputs (and what it changed in place) against
+    its plain version's, byte for byte."""
+    if name == "agg_sort_reduce":
+        require_same(name, got, want)
+    elif name == "shard_exchange":
+        recv = got.s_key.shape[1]  # the merged rows' head is the exchange's to fill
+        require_same(f"{name} send", got[:4], want[:4])
+        require_same(f"{name} kept", [t[:, recv:] for t in got[4:7]]
+                     + [[t[:, recv:] for t in got.m_accs]],
+                     [t[:, recv:] for t in want[4:7]] + [[t[:, recv:] for t in want.m_accs]])
+    elif name == "agg_probe_merge":
+        table = args[1]
+        require_same(name, [got, *table[:3], table[3]], [want, *clones[:3], clones[3]])
+    elif name == "shard_spill":
+        require_same(name, args[5], clones)
+    else:
+        require_same(name, [got.key, got.bin, got.valid, got.accs, got.total, args[0][2]],
+                     [want.key, want.bin, want.valid, want.accs, want.total, clones[2]])
+
+
+class SlotCalls:
+    """Stands in for a sharded wrapper (``sharded_kernels.<name>``, what
+    ShardedAggregator calls) while ``slot_calls`` is open: each call is
+    tallied by the slot it launched on (the current card and stream), the
+    current device must be the same after it as before, and with ``check``
+    the call is held byte for byte to its plain version on the same inputs,
+    on the slot's stream. The wrapper counts its own launches as ever
+    (``launches`` reads and writes the wrapped wrapper's)."""
+
+    def __init__(self, name: str, wrapped, tally: dict, check: bool):
+        self.name, self.wrapped, self.tally, self.check = name, wrapped, tally, check
+
+    launches = property(lambda self: self.wrapped.launches,
+                        lambda self, n: setattr(self.wrapped, "launches", n))
+
+    def __call__(self, *args, **kw):
+        card = torch.cuda.current_device()
+        slot = (card, torch.cuda.current_stream().cuda_stream)
+        want = clones = None
+        if self.check:
+            # the plain version first: K9, K10's spill and K11 change their
+            # inputs in place
+            want, clones = plain_of(self.name, args, kw)
+        got = self.wrapped(*args, **kw)
+        if torch.cuda.current_device() != card:
+            raise AssertionError(f"{self.name} on card {card} left the thread on card "
+                                 f"{torch.cuda.current_device()}")
+        if self.check:
+            require_slot_call(self.name, got, args, want, clones)
+        per = self.tally.setdefault(slot, {})
+        per[self.name] = per.get(self.name, 0) + 1
+        return got
+
+
+@contextlib.contextmanager
+def slot_calls(check: bool):
+    """While open, every K8-K11 call through ``sharded_kernels`` goes through
+    ``SlotCalls``; yields the tally {(card, stream): {wrapper: calls}}."""
+    tally: dict = {}
+    saved = {n: getattr(sharded_kernels, n) for n in SHARDED_KERNELS}
+    for n, f in saved.items():
+        setattr(sharded_kernels, n, SlotCalls(n, f, tally, check))
+    try:
+        yield tally
+    finally:
+        for n, f in saved.items():
+            setattr(sharded_kernels, n, f)
+
+
+def per_slot(tally: dict, mesh, others=()) -> list:
+    """The tally by the mesh's slots, in slot order; fails if a call ran on
+    no slot of the mesh (nor on ``others``, the (card, stream) of stores
+    beside it) or a slot missed a kernel."""
+    keys = [(s.device.index, s.stream.cuda_stream) for s in mesh.slots]
+    stray = set(tally) - set(keys) - set(others)
+    if stray:
+        raise AssertionError(f"sharded calls off the mesh's slots: {stray} (slots {keys})")
+    out = []
+    for k, s in zip(keys, mesh.slots):
+        calls = tally.get(k, {})
+        missing = [n for n in SHARDED_KERNELS if not calls.get(n)]
+        if missing:
+            raise AssertionError(f"slot {s.device}[{s.lo}:{s.hi}] launched no {missing}")
+        out.append({"device": str(s.device), "shards": [s.lo, s.hi], "calls": calls})
+    return out
+
+
+def slot_store(placement: list):
+    """A store of q7m's shapes over ``placement``'s slots: 8 shards,
+    bench.py's table and batch capacity (so dest_cap 16384), emit and spill
+    capacity and probes at their defaults."""
+    mesh = make_mesh(MESH_N, placement[0], placement=placement)
+    return ShardedAggregator(mesh, [k for k, _ in MESH_SLOT_LANES],
+                             [NP_DT[dt] for _, dt in MESH_SLOT_LANES], cap=65536,
+                             batch_cap=BENCH_BATCH, max_probes=64, emit_cap=8192,
+                             spill_cap=2048)
+
+
+def same_state(label: str, a, b) -> None:
+    """Two stores' nine state arrays byte for byte (gathered in shard order)."""
+    for i, (x, y) in enumerate(zip(a.state, b.state)):
+        xs, ys = (x, y) if isinstance(x, tuple) else ((x,), (y,))
+        for p, q in zip(xs, ys):
+            if not same(p.to(q.device), q):
+                raise AssertionError(f"{label}: state array {i} differs from the 1-slot store's")
+
+
+def same_host_rows(label: str, got, want) -> None:
+    (gk, gb, ga), (wk, wb, wa) = got, want
+    if not (np.array_equal(gk, wk) and np.array_equal(gb, wb)
+            and all(x.dtype == y.dtype and x.tobytes() == y.tobytes() for x, y in zip(ga, wa))):
+        raise AssertionError(f"{label}: rows differ ({len(gk)} vs {len(wk)})")
+
+
+def checked_slot_store(placement: list) -> tuple:
+    """The store over ``placement`` and a 1-slot store fed the same rows:
+    three host steps (K8 -> K10 -> the exchange -> K8 -> K9 -> K10's spill,
+    every call on each slot held to its plain version), then two closes
+    through K11; state and rows byte-equal to the 1-slot store's after
+    each. Returns (report, the store, the 1-slot store)."""
+    rng = np.random.default_rng(20261023)
+    many, one = slot_store(placement), slot_store(["cuda:0"])
+    caller = (torch.cuda.current_device(), torch.cuda.current_stream().cuda_stream)
+    L = BENCH_BATCH // MESH_N
+    closes = []
+    with slot_calls(check=True) as tally:
+        for step in range(MESH_SLOT_STEPS):
+            key, bins, valid, vals = mesh_rows(rng, MESH_N, L, int(L * 0.94), MESH_SLOT_LANES,
+                                               60000, torch.device("cpu"),
+                                               bins_range=(step, step + 3))
+            host = (key.numpy(), bins.numpy(), valid.numpy(), [v.numpy() for v in vals])
+            many.update_sharded(*host)
+            one.update_sharded(*host)
+            same_state(f"mesh_slots step {step}", many, one)
+        # bin 0 emitted and freed, then bins 1-2 emitted and bin 1 freed:
+        # bins 2-4 stay for the snapshots
+        for lo, hi, fb in ((0, 1, 1), (1, 3, 2)):
+            got = many.extract_all(lo, hi, fb)
+            closes.append(len(got[0]))
+            same_host_rows(f"mesh_slots close [{lo}, {hi})", got, one.extract_all(lo, hi, fb))
+            same_state(f"mesh_slots after the close [{lo}, {hi})", many, one)
+    torch.cuda.synchronize()
+    report = {"steps": MESH_SLOT_STEPS, "rows_a_step": [MESH_N, L],
+              "slots": per_slot(tally, many.mesh, others=[caller]), "close_rows": closes,
+              "occupied": int(many.state[2].sum())}
+    return report, many, one
+
+
+def device_kept(placement: list) -> dict:
+    """Each sharded wrapper launched on every slot's card by a thread on the
+    first slot's card: the current device is that card after every launch,
+    and the caller's again after."""
+    out = {}
+    home = torch.device(placement[0])
+    kinds = [k for k, _ in MESH_SLOT_LANES]
+
+    def kept(what: str, dev) -> None:
+        if torch.cuda.current_device() != home.index:
+            raise AssertionError(f"{what} on {dev} moved the thread from {home} to "
+                                 f"cuda:{torch.cuda.current_device()}")
+
+    for name in sorted({str(torch.device(p)) for p in placement}):
+        dev = torch.device(name)
+        before = torch.cuda.current_device()
+        with torch.cuda.device(home):
+            rows = mesh_rows(np.random.default_rng(5), 2, 256, 200, MESH_SLOT_LANES, 100, dev)
+            table = empty_table(2, 1024, MESH_SLOT_LANES, dev)
+            spill = empty_spill(2, 64, MESH_SLOT_LANES, dev)
+            u = sharded_kernels.agg_sort_reduce(kinds, *rows)
+            kept("agg_sort_reduce", dev)
+            sharded_kernels.shard_exchange(kinds, *u, 64, n_dest=4)
+            kept("shard_exchange", dev)
+            still = sharded_kernels.agg_probe_merge(kinds, table, *u, 8)
+            kept("agg_probe_merge", dev)
+            sharded_kernels.shard_spill(kinds, u[0], u[1], u[3], still, spill,
+                                        sharded_kernels.spill_scratch(2, 256, dev))
+            kept("shard_spill", dev)
+            sharded_kernels.shard_extract(table, 0, 5, 0, 512)
+            kept("shard_extract", dev)
+            torch.cuda.synchronize(dev)
+        if torch.cuda.current_device() != before:
+            raise AssertionError(f"the current device moved from {before}")
+        out[name] = {"thread_on": str(home), "launched": list(SHARDED_KERNELS)}
+    return out
+
+
+def exchange_timing(placement: list) -> dict:
+    """The exchange of one q7m step (8 shards, dest_cap 16384: key, bin,
+    valid and q7m's three int64 lanes) over ``placement``'s slots beside the
+    1-slot transposing copy, each timed by ``measure`` (the slots' streams
+    joined back to the timing stream); bytes: each send buffer read once,
+    each receive row written once."""
+    S, dc = MESH_N, BENCH_BATCH // (MESH_N // 2)
+    dts = [torch.int64, torch.int32, torch.bool] + [dt for _, dt in MESH_SLOT_LANES]
+    dev0 = torch.device(placement[0])
+    gen = torch.Generator(device="cpu").manual_seed(7)
+    full = [torch.randint(0, 1 << 30, (S, S * dc), generator=gen).to(dt) for dt in dts]
+    one_in = [x.to(dev0) for x in full]
+    one_out = [torch.empty_like(x) for x in one_in]
+
+    def one_slot():
+        for x, y in zip(one_in, one_out):
+            all_to_all(x, out=y)
+
+    mesh = make_mesh(S, dev0, placement=placement)
+    sends, recvs = [], []
+    for sl in mesh.slots:
+        with sl.ctx():
+            sends.append([x[sl.lo:sl.hi].to(sl.device) for x in full])
+            recvs.append([torch.empty((sl.n, S * dc + 8), dtype=x.dtype, device=sl.device)
+                          for x in full])
+    torch.cuda.synchronize()
+
+    def slots():
+        start = torch.cuda.current_stream(dev0).record_event()
+        ready = []
+        for sl in mesh.slots:
+            sl.stream.wait_event(start)
+            ready.append(sl.stream.record_event())
+        exchange(mesh, sends, [[r[:, :S * dc] for r in rs] for rs in recvs], ready)
+        for sl in mesh.slots:
+            torch.cuda.current_stream(dev0).wait_event(sl.stream.record_event())
+
+    slots()
+    one_slot()
+    torch.cuda.synchronize()
+    for f in range(len(dts)):
+        got = torch.cat([r[f][:, :S * dc].to(dev0) for r in recvs])
+        if not same(got, one_out[f]):
+            raise AssertionError(f"the slots' exchange of field {f} differs from the "
+                                 f"transposing copy")
+    nbytes = 2 * sum(x.numel() * x.element_size() for x in full)
+    t1, tk = measure(one_slot), measure(slots)
+    return {"bytes_per_step": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "one_slot": {k: t1[k] for k in ("device_ms", "call_ms", "method")},
+            "slots": {k: tk[k] for k in ("device_ms", "call_ms", "method")},
+            "copies_per_step": {"one_slot": len(dts), "slots": len(dts) * len(mesh.slots) ** 2}}
+
+
+def snapshot_crossing(many, one, placement: list) -> dict:
+    """The store over ``placement``'s snapshot restored into a 1-slot store,
+    and the 1-slot store's into one over ``placement``: each restored
+    store's snapshot is the one it was restored from, and the two restored
+    stores' states are byte-equal."""
+    snap_many, snap_one = many.snapshot(), one.snapshot()
+    if not len(snap_many[0]):
+        raise AssertionError("mesh_slots: the store to snapshot is empty")
+    same_host_rows("mesh_slots snapshots", snap_many, snap_one)
+    to_one, to_many = slot_store(["cuda:0"]), slot_store(placement)
+    t0 = time.perf_counter()
+    to_one.restore(*snap_many)
+    to_many.restore(*snap_one)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    same_host_rows("mesh_slots restored at 1 slot", sorted_state(*to_one.snapshot()),
+                   sorted_state(*snap_many))
+    same_host_rows(f"mesh_slots restored at {len(placement)} slots",
+                   sorted_state(*to_many.snapshot()), sorted_state(*snap_one))
+    same_state("mesh_slots restored stores", to_many, to_one)
+    return {"rows": len(snap_many[0]), "both_restores_s": restore_s}
+
+
+def q7m_over_slots(placement: list) -> dict:
+    """q7m at bench.py's sizes (mesh_run: exact, K4 and K8-K11 launched,
+    the ledger) with its 8 shards over ``placement``'s slots, fused then
+    on the host path; each run's calls tallied per slot."""
+    want = oracle_q7(Q7_EVENTS)
+    extra = {"device.mesh-devices": MESH_N, "device.mesh-placement": placement}
+    out = {}
+    for fuse in (True, False):
+        # the warm-up (K4's build for the mode's plan) outside the tally:
+        # each run's store has streams of its own
+        drive(build_q7, 2 * BENCH_BATCH, f"chip-smoke-q7m_slots-{fuse}-warm", chaining=True,
+              extra={**extra, "segment.compile.mesh-fuse": fuse})
+        with slot_calls(check=False) as tally:
+            r = mesh_run("q7m_slots", build_q7, Q7_EVENTS, oracle_q7, check_q7, fuse, extra,
+                         want=want, profile_it=False)
+        streams = sorted(tally)
+        if len(streams) != len(placement):
+            raise AssertionError(f"q7m over {len(placement)} slots ran on {len(streams)} "
+                                 f"streams: {tally}")
+        r["launches_per_slot"] = [{"device": f"cuda:{c}", "calls": tally[(c, s)]}
+                                  for c, s in streams]
+        for calls in r["launches_per_slot"]:
+            missing = [n for n in SHARDED_KERNELS if not calls["calls"].get(n)]
+            if missing:
+                raise AssertionError(f"q7m over slots: a slot launched no {missing}")
+        r.pop("k8_calls", None)
+        out["fused" if fuse else "host"] = r
+    return out
+
+
+def mesh_slots_on(placement: list) -> dict:
+    log(f"mesh_slots: {placement}")
+    t0 = time.perf_counter()
+    checked, many, one = checked_slot_store(placement)
+    info = {"placement": placement, "checked_store": checked,
+            "device_kept": device_kept(placement),
+            "snapshot": snapshot_crossing(many, one, placement),
+            "exchange": exchange_timing(placement)}
+    del many, one
+    info["q7m"] = q7m_over_slots(placement)
+    info["seconds"] = time.perf_counter() - t0
+    return info
+
+
+def mesh_slots_phase(card: str) -> dict:
+    """The mesh over device slots: 8 shards over 4 slots on cuda:0, then
+    over distinct cards where the machine has two or more, each placement's
+    q7m beside q7m at one slot on cuda:0 in the same run, before the
+    placements and after them (``q7m_vs_one_slot``: the ratio of events/s,
+    fused and host, to the faster of the two 1-slot runs)."""
+    info = {"phase": "mesh_slots", "card": card,
+            "one_slot_q7m": [q7m_over_slots(["cuda:0"])],
+            "one_card": mesh_slots_on(["cuda:0"] * MESH_SLOTS)}
+    n = torch.cuda.device_count()
+    if n >= 2:
+        info["distinct_cards"] = mesh_slots_on([f"cuda:{i}" for i in range(min(n, MESH_SLOTS))])
+    else:
+        info["distinct_cards"] = None
+        print(f"mesh_slots: distinct cards not run: this machine has {n} CUDA card "
+              f"(torch.cuda.device_count()); the 4 slots shared cuda:0", flush=True)
+    info["one_slot_q7m"].append(q7m_over_slots(["cuda:0"]))
+    one = {m: max(r[m]["events_per_s"] for r in info["one_slot_q7m"]) for m in ("fused", "host")}
+    for where in ("one_card", "distinct_cards"):
+        sec = info[where]
+        if sec is not None:
+            sec["q7m_vs_one_slot"] = {m: sec["q7m"][m]["events_per_s"] / one[m]
+                                      for m in ("fused", "host")}
+            print(f"mesh_slots: q7m over {sec['placement']} at "
+                  f"{sec['q7m_vs_one_slot']} of one slot's events/s [{card}]", flush=True)
     emit(info)
     return info
 
@@ -5719,7 +6111,7 @@ def time_hash(dev) -> dict:
         time_fresh(lambda tb, of: P.probe_merge(kinds, tb, *u, 64, of), fresh, 5),
         partials=[1, L], active=segments, claims=claims, table=[1, Q7_HASH["cap"]],
         rounds=rounds, us_per_call=pm_k["device_us_per_call"],
-        cluster=sharded_kernels.probe_merge_cluster(), **pm_r)
+        cluster=sharded_kernels.probe_merge_cluster(dev), **pm_r)
 
     def nonzero_close(tb):
         sel = torch.nonzero(tb[2][0] & (tb[1][0] >= lo) & (tb[1][0] < lo + 1)).squeeze(1)[:E]
@@ -9323,6 +9715,7 @@ def run_phases(args, out_dir: str) -> int:
         "mesh_ab": run_mesh_ab,
         "table_reads": lambda: table_read_phase(dev),
         "sharded": lambda: sharded_phase(dev),
+        "mesh_slots": lambda: mesh_slots_phase(smi),
         "hash_agg": lambda: hash_agg_phase(dev),
         "q7_host": run_q7_host,
         "checkpoint": lambda: checkpoint_phase(dev),

@@ -4,9 +4,11 @@ from a seed, go through both; after every step the nine state arrays (table
 keys, bins, occupancy and lanes, overflow, spill keys, bins, fill and lanes)
 are byte-equal, and every close emits the same rows in the same order.
 
-The port holds the mesh's shards on one device and runs the plain PyTorch
-versions of K8-K11 on the CPU (the kernels are held against those on the
-card by chip_smoke.py). Exact throughout: float lanes included, since K8's
+The port holds the mesh's shards in device slots (one by default; the
+``slots`` cases spread 4 and 8 shards over 1, 2, 3, 4 and 8 CPU slots,
+whose exchange copies blocks between the slots' own arrays) and runs the
+plain PyTorch versions of K8-K11 on the CPU (the kernels are held against
+those on the card by chip_smoke.py). Exact throughout: float lanes included, since K8's
 plain version adds each run's rows in sorted order as XLA's CPU
 segment_sum does.
 """
@@ -22,7 +24,10 @@ KINDS = ("sum", "count", "min", "max", "sum")
 DTYPES = (np.int64, np.int64, np.float64, np.int32, np.float64)
 
 
-def _pair(n_dev, kinds=KINDS, dtypes=DTYPES, **kw):
+def _pair(n_dev, kinds=KINDS, dtypes=DTYPES, slots=None, **kw):
+    """The JAX store over ``n_dev`` devices and the port's over ``n_dev``
+    shards, in ``slots`` CPU device slots (None: the default placement,
+    one slot)."""
     import jax
 
     from arroyo_tpu.parallel import ShardedAggregator as JAgg
@@ -32,8 +37,10 @@ def _pair(n_dev, kinds=KINDS, dtypes=DTYPES, **kw):
 
     if len(jax.devices()) < n_dev:
         pytest.skip(f"needs {n_dev} virtual devices (conftest sets XLA_FLAGS)")
-    return (JAgg(jmesh(n_dev), kinds, dtypes, **kw),
-            TAgg(tmesh(n_dev, "cpu"), kinds, dtypes, **kw))
+    placement = None if slots is None else ["cpu"] * slots
+    tagg = TAgg(tmesh(n_dev, "cpu", placement=placement), kinds, dtypes, **kw)
+    assert len(tagg.slots) == (slots or 1)
+    return JAgg(jmesh(n_dev), kinds, dtypes, **kw), tagg
 
 
 def _flat_state(state):
@@ -307,3 +314,131 @@ def test_no_probe_round_spills_every_partial(n_dev, max_probes):
     assert_state_equal(jagg, tagg)
     assert_rows_equal(jagg.extract_all(0, 10, 10), tagg.extract_all(0, 10, 10))
     assert_state_equal(jagg, tagg)
+
+
+# ---------------------------------------------------------------- device slots
+
+SLOT_CASES = [(4, 1), (4, 2), (4, 3), (4, 4), (8, 1), (8, 2), (8, 3), (8, 4), (8, 8)]
+
+
+@pytest.mark.parametrize("n_dev,slots", SLOT_CASES)
+def test_slots_state_and_closes_equal(n_dev, slots):
+    """The mesh over ``slots`` device slots: after every host step the nine
+    state arrays (gathered in shard order) equal the JAX mesh's, and every
+    close emits the same rows in the same order, frees included."""
+    jagg, tagg = _pair(n_dev, slots=slots, cap=256, batch_cap=64, max_probes=16, emit_cap=32,
+                       spill_cap=64)
+    rng = np.random.default_rng(100 + 10 * n_dev + slots)
+    for _ in range(4):
+        keys, bins, vals = _rows(rng, n_dev * 50, 90)
+        k, b, valid, vs = _sharded(n_dev, 64, keys, bins, vals)
+        jagg.update_sharded(k, b, valid, vs)
+        tagg.update_sharded(k, b, valid, vs)
+        assert_state_equal(jagg, tagg)
+    for lo, hi, below in ((0, 1, 1), (1, 3, 1), (0, 10, 10)):
+        assert_rows_equal(jagg.extract_all(lo, hi, below), tagg.extract_all(lo, hi, below))
+        assert_state_equal(jagg, tagg)
+        keys, bins, vals = _rows(rng, n_dev * 30, 60)
+        jagg.update(keys, bins + 1, vals)
+        tagg.update(keys, bins + 1, vals)
+        assert_state_equal(jagg, tagg)
+    assert tagg.mesh_stats() == jagg.mesh_stats()
+
+
+@pytest.mark.parametrize("n_dev,slots", [(4, 2), (4, 3), (8, 3), (8, 4)])
+def test_slots_hot_key_past_dest_cap(n_dev, slots):
+    """One key takes 90% of the rows over slots: past per_dest_cap
+    partials stay on the producing shard, the close combines them."""
+    kinds, dts = ("sum", "count"), (np.int64, np.int64)
+    jagg, tagg = _pair(n_dev, kinds, dts, slots=slots, cap=512, batch_cap=64, per_dest_cap=4,
+                       max_probes=16, emit_cap=128, spill_cap=64)
+    rng = np.random.default_rng(30 + slots)
+    for _ in range(5):
+        keys, bins, vals = _rows(rng, n_dev * 64, 40, n_bins=2, hot=0.9)
+        jagg.update(keys, bins, vals[:2])
+        tagg.update(keys, bins, vals[:2])
+        assert_state_equal(jagg, tagg)
+    assert_rows_equal(jagg.extract_all(0, 10, 10), tagg.extract_all(0, 10, 10))
+    assert_state_equal(jagg, tagg)
+
+
+@pytest.mark.parametrize("slots", [2, 3])
+def test_slots_spill_then_overflow_raises(slots):
+    """Table pressure over slots: the spill buffers take the partials the
+    probes cannot place (each slot drains its own on a close), then a tiny
+    spill buffer overflows and both packages raise."""
+    kinds, dts = ("count",), (np.int64,)
+    jagg, tagg = _pair(4, kinds, dts, slots=slots, cap=64, batch_cap=128, per_dest_cap=128,
+                       max_probes=2, emit_cap=64, spill_cap=512)
+    rng = np.random.default_rng(50 + slots)
+    for _ in range(3):
+        keys = hash_column(rng.integers(0, 400, size=512).astype(np.int64))
+        ones = [np.ones(512, dtype=np.int64)]
+        jagg.update(keys, np.zeros(512, dtype=np.int32), ones)
+        tagg.update(keys, np.zeros(512, dtype=np.int32), ones)
+        assert_state_equal(jagg, tagg)
+    assert int(tagg.state[7].sum()) > 0
+    assert_rows_equal(jagg.snapshot(), tagg.snapshot())
+    assert tagg.mesh_stats() == jagg.mesh_stats()
+    assert_rows_equal(jagg.extract_all(0, 1, 0), tagg.extract_all(0, 1, 0))
+    assert_state_equal(jagg, tagg)
+    assert_rows_equal(jagg.extract_all(0, 10, 10), tagg.extract_all(0, 10, 10))
+    assert_state_equal(jagg, tagg)
+
+    jagg, tagg = _pair(4, kinds, dts, slots=slots, cap=64, batch_cap=128, per_dest_cap=128,
+                       max_probes=2, emit_cap=64, spill_cap=8)
+    keys = hash_column(np.arange(600, dtype=np.int64))
+    for agg in (jagg, tagg):
+        agg.update(keys, np.zeros(600, dtype=np.int32), [np.ones(600, dtype=np.int64)])
+    assert_state_equal(jagg, tagg)
+    assert int(tagg.state[4].sum()) > 0
+    for agg in (jagg, tagg):
+        with pytest.raises(RuntimeError, match="sharded aggregate overflow"):
+            agg.extract_all(0, 10, 10)
+
+
+@pytest.mark.parametrize("max_probes", [-1, 0])
+@pytest.mark.parametrize("n_dev,slots", [(4, 3), (8, 3)])
+def test_slots_no_probe_round_spills_every_partial(n_dev, slots, max_probes):
+    """max_probes <= 0 over slots: no probe round, every merged partial in
+    the spill buffers, state and closes equal to the JAX mesh's."""
+    jagg, tagg = _pair(n_dev, slots=slots, cap=256, batch_cap=64, max_probes=max_probes,
+                       emit_cap=64, spill_cap=1024)
+    rng = np.random.default_rng(70 + n_dev - max_probes)
+    for _ in range(3):
+        keys, bins, vals = _rows(rng, n_dev * 40, 60)
+        k, b, valid, vs = _sharded(n_dev, 64, keys, bins, vals)
+        jagg.update_sharded(k, b, valid, vs)
+        tagg.update_sharded(k, b, valid, vs)
+        assert_state_equal(jagg, tagg)
+    assert not tagg.state[2].any()
+    assert int(tagg.state[7].sum()) > 0 and int(tagg.state[4].sum()) == 0
+    assert_rows_equal(jagg.extract_all(0, 2, 2), tagg.extract_all(0, 2, 2))
+    assert_state_equal(jagg, tagg)
+
+
+@pytest.mark.parametrize("n_from,k_from,n_to,k_to", [
+    (8, 4, 8, 1), (8, 1, 8, 4), (8, 3, 8, 2), (4, 2, 8, 4), (4, 4, 8, 3), (4, 1, 8, 8)])
+def test_slots_snapshot_restores_across_placements(n_from, k_from, n_to, k_to):
+    """A snapshot taken over k slots restores over k' (and the 4 -> 8
+    resize): the snapshot's rows do not depend on the placement, and the
+    restored store equals the JAX store of the new width restored from the
+    same rows, state for state, close for close."""
+    jsrc, tsrc = _pair(n_from, slots=k_from, cap=256, batch_cap=64, max_probes=16,
+                       emit_cap=32, spill_cap=64)
+    rng = np.random.default_rng(n_from * 10 + k_from)
+    for _ in range(3):
+        keys, bins, vals = _rows(rng, n_from * 40, 70, n_bins=4)
+        jsrc.update(keys, bins, vals)
+        tsrc.update(keys, bins, vals)
+    assert_state_equal(jsrc, tsrc)
+    snap = tsrc.snapshot()
+    assert_rows_equal(jsrc.snapshot(), snap)
+    jdst, tdst = _pair(n_to, slots=k_to, cap=256, batch_cap=64, max_probes=16, emit_cap=32,
+                       spill_cap=64)
+    jdst.restore(*snap)
+    tdst.restore(*snap)
+    assert_state_equal(jdst, tdst)
+    assert_rows_equal(_by_key_bin(tdst.snapshot()), _by_key_bin(snap))
+    assert_rows_equal(jdst.extract_all(0, 4, 4), tdst.extract_all(0, 4, 4))
+    assert_state_equal(jdst, tdst)

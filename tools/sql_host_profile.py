@@ -1,8 +1,10 @@
 """Where the host's time goes in a SQL-planned Nexmark run on the card: the
 run of chip_smoke.py's sql phase (the port's plan_query, bench.py's sizes,
 a single_file JSON sink), or with ``q7nats`` its connectors phase (q7 over
-chip_smoke's NATS broker into its webhook receiver), sampled every few
-milliseconds across all threads.
+chip_smoke's NATS broker into its webhook receiver), or with ``q7m`` and
+``q7m_slots`` the hand-built q7 through the fused 8-shard mesh in one device
+slot and in chip_smoke's 4 slots on cuda:0, sampled every few milliseconds
+across all threads.
 
 A sampling thread reads every other thread's stack (``sys._current_frames``)
 at each tick and counts, per function, the samples where it is on top of a
@@ -12,7 +14,8 @@ shares are of the samples that were doing work. The sampler holds the
 interpreter lock while it reads, so the run is somewhat slower than
 unsampled.
 
-usage: python3 tools/sql_host_profile.py [--queries q5,q7,q7nats] [--interval-ms 2]
+usage: python3 tools/sql_host_profile.py [--queries q5,q7,q7nats,q7m,q7m_slots]
+       [--interval-ms 2]
        [--out chiprun_out/sql_host_profile.json]
 """
 
@@ -90,6 +93,29 @@ def nats_profile(cs, interval_s: float, card: str) -> dict:
     return out
 
 
+def mesh_profile(cs, interval_s: float, card: str, slots: int) -> dict:
+    """q7 at bench.py's sizes through the fused 8-shard mesh over ``slots``
+    slots on cuda:0, sampled, after a short run of the same setting (K4's
+    build for its plan)."""
+    extra = {"device.mesh-devices": cs.MESH_N, "segment.compile.mesh-fuse": True,
+             "device.mesh-placement": ["cuda:0"] * slots}
+    name = "q7m" if slots == 1 else "q7m_slots"
+    cs.drive(cs.build_q7, 2 * cs.BENCH_BATCH, f"host-profile-{name}-warm", chaining=True,
+             extra=extra)
+    res: dict = {}
+    stop = threading.Event()
+    th = threading.Thread(target=sample, args=(stop, interval_s, res))
+    th.start()
+    try:
+        rows, wall, _eng = cs.drive(cs.build_q7, cs.Q7_EVENTS, f"host-profile-{name}",
+                                    chaining=True, extra=extra)
+    finally:
+        stop.set()
+        th.join()
+    cs.check_q7(rows, cs.oracle_q7(cs.Q7_EVENTS))
+    return report_of(res, cs.Q7_EVENTS, wall, card, name)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--queries", default="q5,q7")
@@ -113,6 +139,10 @@ def main() -> int:
     for name in args.queries.split(","):
         if name == "q7nats":
             report["queries"][name] = nats_profile(cs, args.interval_ms / 1e3, card)
+            continue
+        if name in ("q7m", "q7m_slots"):
+            report["queries"][name] = mesh_profile(cs, args.interval_ms / 1e3, card,
+                                                   1 if name == "q7m" else cs.MESH_SLOTS)
             continue
         events = cs.SQL_EVENTS[name]
         cs.bench_config(chaining=True, queue_mult=1 if name == "q8" else 2)
